@@ -1,0 +1,543 @@
+// Step-1 structured pOSE kernels for Hopper (sm_90a): the hand-written
+// CUDA counterparts of the Pallas kernels on the POWER_VARPROJ step-1
+// path of povar_tpu/ops/pallas_pose.py.
+//
+//   K1 prepare                  <- pallas_pose.py:285 (_prepare_kernel :227)
+//   K2 e0_factor                <- pallas_pose.py:385 (_h_kernel :362)
+//   K3 hpp_b_structured         <- pallas_pose.py:489 (_hpp_b_kernel :431)
+//   K4 e0_u_structured          <- pallas_pose.py:568 (_e0_u_kernel :552)
+//   K5 e0_scatter_structured    <- pallas_pose.py:623 (_e0_scatter_kernel :599)
+//   K6 apply_ldiff              <- pallas_pose.py:846 (_ldiff_kernel :794)
+//   K7 pose_error               <- pallas_pose.py:1319 (pose_error_df32,
+//                                  _error_kernel :1217), in native f64
+//
+// What the TPU kernels needed and these do not: the one-hot incidence
+// matmuls with the exact bf16 3-way split (a camera row is a shared-
+// memory read by index here), the 128-lane padding and VMEM tile caps
+// (a grid-stride loop covers any O), and the double-float arithmetic of
+// the cost (the H100 has native f64).
+//
+// What bounds them on the card: all seven stream O observations with a
+// few dozen flops each, so each is bound by device-memory bytes per
+// observation (K1 reads 28 B and writes 68 B; K2 64/36; K3 68/0; K4
+// 52/12; K5 64/0; K6 68/0; K7 48/0 at f64 state) until the per-camera
+// shared-memory atomics of K1, K3 and K5 (12, 124 and 12 per observation)
+// cost more than the bytes: K3 is the one where they do. A block's
+// shared accumulators leave through one global atomic per entry, so the
+// grid is sized to what is resident at once (grid-stride), not to O.
+//
+// C interface: every entry point takes device pointers, sizes, scalar
+// constants and the CUDA stream to launch on, launches one kernel, and
+// returns the cudaError_t of the launch (0 on success). Nothing here
+// allocates or synchronises; outputs that accumulate must be zeroed by
+// the caller.
+
+#include <algorithm>
+
+#include "pose_common.cuh"
+
+using povar::kThreads;
+
+namespace {
+
+// ------------------------------------------------------------------ K1
+// Linearization-point pass: residual, robust weight, landmark normal-
+// equation terms ata = w A~^T A~ [9, O] (rows i*3+j) and atr = w A~^T r
+// [3, O], and the per-camera Jp column norms^2 jpsq[4a+j] =
+// sum w K[a][a] xh_j^2 with diag K = [1, 1, sp^2 (u^2 + v^2)].
+// Replaces pallas_pose.py:285 prepare. Bound: 96 B of device memory per
+// observation (28 read, 68 written), plus 12 shared atomics per live row.
+__global__ void __launch_bounds__(kThreads)
+    prepare_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
+                   const float* __restrict__ x, const float* __restrict__ uv,
+                   const float* __restrict__ mask, float* __restrict__ rw,
+                   float* __restrict__ sw_out, float* __restrict__ ata,
+                   float* __restrict__ atr, float* __restrict__ jpsq,
+                   int n_obs, int n_cams, float sp, float sa, float sp2,
+                   int huber_on, float huber, float huber2) {
+  extern __shared__ float smem[];
+  float* tbl = smem;
+  float* acc = smem + 12 * n_cams;
+  povar::smem_copy(tbl, ct, 12 * n_cams);
+  povar::smem_zero(acc, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  POVAR_OBS_LOOP(o, O) {
+    const int c = cam[o];
+    const float u = uv[o], v = uv[O + o];
+    const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
+    const bool live = mask[o] > 0.0f;
+    float A[4][4], r[4];
+    povar::a_tilde(tbl, n_cams, c, u, v, sp, sa, A);
+    povar::residual(A, xh, u, v, sa, r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r[k] = live ? r[k] : 0.0f;
+    const float res_sq = r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + r[3] * r[3];
+    float w = 1.0f;
+    if (huber_on && !(res_sq < huber2)) {
+      // max(res_sq, 1e-30) that keeps a NaN a NaN, as jnp.maximum does
+      w = huber / sqrtf(res_sq < 1e-30f ? 1e-30f : res_sq);
+    }
+    w = live ? w : 0.0f;
+    const float s = sqrtf(w);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) rw[k * O + o] = r[k] * s;
+    sw_out[o] = s;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float a = A[0][i] * A[0][j];
+        a += A[1][i] * A[1][j];
+        a += A[2][i] * A[2][j];
+        a += A[3][i] * A[3][j];
+        ata[(i * 3 + j) * O + o] = w * a;
+      }
+      float b = A[0][i] * r[0];
+      b += A[1][i] * r[1];
+      b += A[2][i] * r[2];
+      b += A[3][i] * r[3];
+      atr[i * O + o] = w * b;
+    }
+    if (w != 0.0f) {
+      const float kd2 = sp2 * (u * u + v * v);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float wk = a == 2 ? w * kd2 : w;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          atomicAdd(&acc[(4 * a + j) * n_cams + c], wk * xh[j] * xh[j]);
+      }
+    }
+  }
+  __syncthreads();
+  povar::flush_acc(jpsq, acc, 12 * n_cams);
+}
+
+// ------------------------------------------------------------------ K2
+// E0 factor h[c*3+a] = w sum_i jls_i L[i][c] g[i][a], with
+//   g[i][0] = P0i - sp2 u P2i,  g[i][1] = P1i - sp2 v P2i,
+//   g[i][2] = sp2 ((u^2 + v^2) P2i - u P0i - v P1i),  sp2 = 1 - alpha
+// Replaces pallas_pose.py:385 e0_factor. Bound: 100 B of device memory
+// per observation (64 read, 36 written); no atomics.
+__global__ void __launch_bounds__(kThreads)
+    e0_factor_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
+                     const float* __restrict__ uv, const float* __restrict__ w_in,
+                     const float* __restrict__ jls, const float* __restrict__ lh,
+                     float* __restrict__ h, int n_obs, int n_cams, float sp2) {
+  extern __shared__ float smem[];
+  float* tbl = smem;
+  povar::smem_copy(tbl, ct, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  POVAR_OBS_LOOP(o, O) {
+    const int c = cam[o];
+    const float u = uv[o], v = uv[O + o];
+    const float w = w_in[o];
+    float g[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float p0 = tbl[i * n_cams + c];
+      const float p1 = tbl[(4 + i) * n_cams + c];
+      const float p2 = tbl[(8 + i) * n_cams + c];
+      g[i][0] = p0 - sp2 * u * p2;
+      g[i][1] = p1 - sp2 * v * p2;
+      g[i][2] = sp2 * ((u * u + v * v) * p2 - u * p0 - v * p1);
+    }
+    const float j0 = jls[o], j1 = jls[O + o], j2 = jls[2 * O + o];
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc) {
+      const float l0 = lh[cc * O + o];
+      const float l1 = lh[(3 + cc) * O + o];
+      const float l2 = lh[(6 + cc) * O + o];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        float acc = j0 * l0 * g[0][a];
+        acc += j1 * l1 * g[1][a];
+        acc += j2 * l2 * g[2][a];
+        h[(cc * 3 + a) * O + o] = w * acc;
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ K3
+// Per-camera raw Hpp [144, N] (rows (4a+i)*12 + 4b+j) = sum w K (x)
+// xh xh^T and b [12, N] = sum rho (x) xh of the VarProj-corrected
+// residual r~ = r_w - sw A~[:, :3] (jls . hib). kShared: accumulate in
+// shared memory (156 N floats: 55.5 KB at N = 89) and flush once per
+// block; otherwise (N too large for the block's shared memory) every
+// term goes straight to a global atomic. Dead rows (sw == 0) contribute
+// exactly zero and are skipped, as are the structural zeros K[0][1] and
+// K[1][0].
+// Replaces pallas_pose.py:489 hpp_b_structured. Bound: 124 shared (or
+// global) atomics per live observation, far more than its 68 B read.
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads)
+    hpp_b_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
+                 const float* __restrict__ x, const float* __restrict__ uv,
+                 const float* __restrict__ sw_in, const float* __restrict__ rw,
+                 const float* __restrict__ jls, const float* __restrict__ hib,
+                 float* __restrict__ hpp, float* __restrict__ b, int n_obs,
+                 int n_cams, float sp, float sa, float sp2) {
+  extern __shared__ float smem[];
+  float* tbl = smem;
+  float* acc_b = kShared ? smem + 12 * n_cams : b;
+  float* acc_h = kShared ? smem + 24 * n_cams : hpp;
+  povar::smem_copy(tbl, ct, 12 * n_cams);
+  if (kShared) povar::smem_zero(acc_b, 156 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  POVAR_OBS_LOOP(o, O) {
+    const float sw = sw_in[o];
+    if (sw == 0.0f) continue;
+    const int c = cam[o];
+    const float u = uv[o], v = uv[O + o];
+    const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
+    float A[4][4];
+    povar::a_tilde(tbl, n_cams, c, u, v, sp, sa, A);
+    const float d0 = jls[o], d1 = jls[O + o], d2 = jls[2 * O + o];
+    const float h0 = hib[o], h1 = hib[O + o], h2 = hib[2 * O + o];
+    float rt[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float corr = A[k][0] * d0 * h0;
+      corr += A[k][1] * d1 * h1;
+      corr += A[k][2] * d2 * h2;
+      rt[k] = rw[k * O + o] - sw * corr;
+    }
+    const float rho[3] = {
+        sw * (sp * rt[0] + sa * rt[2]),
+        sw * (sp * rt[1] + sa * rt[3]),
+        sw * (-sp * (u * rt[0] + v * rt[1])),
+    };
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        atomicAdd(&acc_b[(4 * a + j) * n_cams + c], rho[a] * xh[j]);
+
+    const float w = sw * sw;
+    const float K[3][3] = {{1.0f, 0.0f, -sp2 * u},
+                           {0.0f, 1.0f, -sp2 * v},
+                           {-sp2 * u, -sp2 * v, sp2 * (u * u + v * v)}};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float wk = w * xh[i];
+#pragma unroll
+        for (int bb = 0; bb < 3; ++bb) {
+          if ((a == 0 && bb == 1) || (a == 1 && bb == 0)) continue;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int row = (4 * a + i) * 12 + 4 * bb + j;
+            atomicAdd(&acc_h[row * n_cams + c], wk * K[a][bb] * xh[j]);
+          }
+        }
+      }
+    }
+  }
+  if (kShared) {
+    __syncthreads();
+    povar::flush_acc(b, acc_b, 12 * n_cams);
+    povar::flush_acc(hpp, acc_h, 144 * n_cams);
+  }
+}
+
+// ------------------------------------------------------------------ K4
+// u[c] = sum_a h[c*3+a] y[a],  y[a] = sum_j xh_j z[4a+j][cam]
+// Replaces pallas_pose.py:568 e0_u_structured. Bound: 64 B of device
+// memory per observation (52 read, 12 written); no atomics.
+__global__ void __launch_bounds__(kThreads)
+    e0_u_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
+                const float* __restrict__ h, const float* __restrict__ zt,
+                float* __restrict__ u_out, int n_obs, int n_cams) {
+  extern __shared__ float smem[];
+  float* tbl = smem;
+  povar::smem_copy(tbl, zt, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  POVAR_OBS_LOOP(o, O) {
+    const int c = cam[o];
+    const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
+    float z[12], y[3];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) z[k] = tbl[k * n_cams + c];
+    povar::xh_contract(z, xh, y);
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc) {
+      u_out[cc * O + o] = h[(cc * 3 + 0) * O + o] * y[0] +
+                          h[(cc * 3 + 1) * O + o] * y[1] +
+                          h[(cc * 3 + 2) * O + o] * y[2];
+    }
+  }
+}
+
+// ------------------------------------------------------------------ K5
+// out[4a+j][cam] += t[a] xh_j,  t[a] = sum_c h[c*3+a] sb[c]  (xh_3 = 1)
+// Replaces pallas_pose.py:623 e0_scatter_structured. Bound: 12 shared
+// atomics per live observation beside its 64 B read.
+__global__ void __launch_bounds__(kThreads)
+    e0_scatter_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
+                      const float* __restrict__ h, const float* __restrict__ sb,
+                      float* __restrict__ out, int n_obs, int n_cams) {
+  extern __shared__ float smem[];
+  float* acc = smem;
+  povar::smem_zero(acc, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  POVAR_OBS_LOOP(o, O) {
+    const float s0 = sb[o], s1 = sb[O + o], s2 = sb[2 * O + o];
+    float t[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float acc_t = h[a * O + o] * s0;
+      acc_t += h[(3 + a) * O + o] * s1;
+      acc_t += h[(6 + a) * O + o] * s2;
+      t[a] = acc_t;
+    }
+    if (t[0] == 0.0f && t[1] == 0.0f && t[2] == 0.0f) continue;
+    const int c = cam[o];
+    const float xh[3] = {x[o], x[O + o], x[2 * O + o]};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        atomicAdd(&acc[(4 * a + j) * n_cams + c], t[a] * xh[j]);
+      atomicAdd(&acc[(4 * a + 3) * n_cams + c], t[a]);
+    }
+  }
+  __syncthreads();
+  povar::flush_acc(out, acc, 12 * n_cams);
+}
+
+// ------------------------------------------------------------------ K6
+// Per-block partials of -l_diff = sum j_inc . (0.5 j_inc + r_w), with
+//   j_inc = Jp(new) inc[cam] + sw A~_old[:, :3] (jls . inc_lm)
+// and Jp q = [sp (q~0 - u q~2), sp (q~1 - v q~2), sa q~0, sa q~1],
+// q~a = sum_j q[4a+j] xh_j; dead rows (sw == 0) contribute zero.
+// Replaces pallas_pose.py:846 apply_ldiff. Bound: 68 B read per
+// observation; two camera tables staged per block.
+__global__ void __launch_bounds__(kThreads)
+    ldiff_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
+                 const float* __restrict__ uv, const float* __restrict__ sw_in,
+                 const float* __restrict__ rw, const float* __restrict__ jls,
+                 const float* __restrict__ ilm, const float* __restrict__ ct_old,
+                 const float* __restrict__ inc_t, float* __restrict__ partials,
+                 int n_obs, int n_cams, float sp, float sa) {
+  extern __shared__ float smem[];
+  __shared__ float red[32];
+  float* tbl_old = smem;
+  float* tbl_inc = smem + 12 * n_cams;
+  povar::smem_copy(tbl_old, ct_old, 12 * n_cams);
+  povar::smem_copy(tbl_inc, inc_t, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  float total = 0.0f;
+  POVAR_OBS_LOOP(o, O) {
+    const float sw = sw_in[o];
+    if (!(sw > 0.0f)) continue;
+    const int c = cam[o];
+    const float u = uv[o], v = uv[O + o];
+    const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
+    float q[12], qt[3];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) q[k] = tbl_inc[k * n_cams + c];
+    povar::xh_contract(q, xh, qt);
+    const float jp_inc[4] = {sp * (qt[0] - u * qt[2]), sp * (qt[1] - v * qt[2]),
+                             sa * qt[0], sa * qt[1]};
+    float A[4][4];
+    povar::a_tilde(tbl_old, n_cams, c, u, v, sp, sa, A);
+    const float d0 = jls[o], d1 = jls[O + o], d2 = jls[2 * O + o];
+    const float i0 = ilm[o], i1 = ilm[O + o], i2 = ilm[2 * O + o];
+    float ld = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float jl_inc =
+          (A[k][0] * d0 * i0 + A[k][1] * d1 * i1 + A[k][2] * d2 * i2) * sw;
+      const float j_inc = jp_inc[k] + jl_inc;
+      ld += j_inc * (0.5f * j_inc + rw[k * O + o]);
+    }
+    total += ld;
+  }
+  total = povar::block_sum(total, red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+}
+
+// ------------------------------------------------------------------ K7
+// pOSE cost in native f64: per-block partials of sum rho(|r|^2) (robust
+// 0 NONE: 0.5 r^2, 1 HUBER: 0.5 (2 - w) w r^2, 2 CAUCHY: log1p(r^2)),
+// sum |r| and the count of live rows with a non-finite residual,
+// written to partials[0 * n_part + block], [1 * n_part + block] and
+// [2 * n_part + block].
+// Replaces pallas_pose.py:1319 pose_error_df32 (double-float on the
+// TPU). Bound: 48 B read per observation and f64 arithmetic (~40 flops
+// per row, far below the card's f64 rate).
+__global__ void __launch_bounds__(kThreads)
+    pose_error_kernel(const int32_t* __restrict__ cam, const double* __restrict__ ct,
+                      const double* __restrict__ x, const double* __restrict__ uv,
+                      const float* __restrict__ mask, double* __restrict__ partials,
+                      int n_part, int n_obs, int n_cams, double sp, double sa,
+                      int robust, double huber) {
+  extern __shared__ double smem_d[];
+  __shared__ double red[32];
+  double* tbl = smem_d;
+  povar::smem_copy(tbl, ct, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  double err = 0.0, rn = 0.0, bad = 0.0;
+  POVAR_OBS_LOOP(o, O) {
+    if (!(mask[o] > 0.0f)) continue;
+    const int c = cam[o];
+    const double u = uv[o], v = uv[O + o];
+    const double xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0};
+    double A[4][4], r[4];
+    povar::a_tilde(tbl, n_cams, c, u, v, sp, sa, A);
+    povar::residual(A, xh, u, v, sa, r);
+    const bool finite = isfinite(r[0]) && isfinite(r[1]) && isfinite(r[2]) &&
+                        isfinite(r[3]);
+    const double res_sq = r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + r[3] * r[3];
+    double e;
+    if (robust == 1) {
+      const double w = res_sq < huber * huber ? 1.0 : huber / sqrt(res_sq);
+      e = 0.5 * (2.0 - w) * w * res_sq;
+    } else if (robust == 2) {
+      e = log1p(res_sq);
+    } else {
+      e = 0.5 * res_sq;
+    }
+    err += e;
+    rn += sqrt(res_sq);
+    bad += finite ? 0.0 : 1.0;
+  }
+  err = povar::block_sum(err, red);
+  rn = povar::block_sum(rn, red);
+  bad = povar::block_sum(bad, red);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = err;
+    partials[n_part + blockIdx.x] = rn;
+    partials[2 * n_part + blockIdx.x] = bad;
+  }
+}
+
+// ------------------------------------------------------------- launching
+
+int max_optin_smem() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes;
+}
+
+// Opt the kernel in to `smem` bytes of dynamic shared memory and size a
+// grid-stride grid to what is resident at once: min(ceil(O / threads),
+// SMs x resident blocks per SM).
+template <typename Kernel>
+cudaError_t grid_for(Kernel kernel, int n_obs, size_t smem, int* grid) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long want = ((long)n_obs + kThreads - 1) / kThreads;
+  const long cap = (long)sms * per_sm;
+  *grid = (int)std::max(1L, std::min(want, cap));
+  return cudaSuccess;
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int n_obs, size_t smem, void* stream,
+           Args... args) {
+  int grid = 0;
+  cudaError_t err = grid_for(kernel, n_obs, smem, &grid);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* povar_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+int povar_prepare(const int32_t* cam, const float* ct, const float* x,
+                  const float* uv, const float* mask, float* rw, float* sw,
+                  float* ata, float* atr, float* jpsq, int n_obs, int n_cams,
+                  float sp, float sa, float sp2, int huber_on, float huber,
+                  float huber2, void* stream) {
+  const size_t smem = sizeof(float) * 24 * (size_t)n_cams;
+  return launch(prepare_kernel, n_obs, smem, stream, cam, ct, x, uv, mask,
+                rw, sw, ata, atr, jpsq, n_obs, n_cams, sp, sa, sp2,
+                huber_on, huber, huber2);
+}
+
+int povar_e0_factor(const int32_t* cam, const float* ct, const float* uv,
+                    const float* w, const float* jls, const float* lh,
+                    float* h, int n_obs, int n_cams, float sp2,
+                    void* stream) {
+  const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
+  return launch(e0_factor_kernel, n_obs, smem, stream, cam, ct, uv, w, jls,
+                lh, h, n_obs, n_cams, sp2);
+}
+
+int povar_hpp_b(const int32_t* cam, const float* ct, const float* x,
+                const float* uv, const float* sw, const float* rw,
+                const float* jls, const float* hib, float* hpp, float* b,
+                int n_obs, int n_cams, float sp, float sa, float sp2,
+                void* stream) {
+  const size_t shared = sizeof(float) * 168 * (size_t)n_cams;
+  if (shared <= (size_t)max_optin_smem()) {
+    return launch(hpp_b_kernel<true>, n_obs, shared, stream, cam, ct, x, uv,
+                  sw, rw, jls, hib, hpp, b, n_obs, n_cams, sp, sa, sp2);
+  }
+  const size_t table = sizeof(float) * 12 * (size_t)n_cams;
+  return launch(hpp_b_kernel<false>, n_obs, table, stream, cam, ct, x, uv,
+                sw, rw, jls, hib, hpp, b, n_obs, n_cams, sp, sa, sp2);
+}
+
+int povar_e0_u(const int32_t* cam, const float* x, const float* h,
+               const float* zt, float* u, int n_obs, int n_cams,
+               void* stream) {
+  const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
+  return launch(e0_u_kernel, n_obs, smem, stream, cam, x, h, zt, u, n_obs,
+                n_cams);
+}
+
+int povar_e0_scatter(const int32_t* cam, const float* x, const float* h,
+                     const float* sb, float* out, int n_obs, int n_cams,
+                     void* stream) {
+  const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
+  return launch(e0_scatter_kernel, n_obs, smem, stream, cam, x, h, sb, out,
+                n_obs, n_cams);
+}
+
+int povar_apply_ldiff(const int32_t* cam, const float* x, const float* uv,
+                      const float* sw, const float* rw, const float* jls,
+                      const float* ilm, const float* ct_old,
+                      const float* inc_t, float* partials, int n_obs,
+                      int n_cams, float sp, float sa, void* stream) {
+  const size_t smem = sizeof(float) * 24 * (size_t)n_cams;
+  return launch(ldiff_kernel, n_obs, smem, stream, cam, x, uv, sw, rw, jls,
+                ilm, ct_old, inc_t, partials, n_obs, n_cams, sp, sa);
+}
+
+int povar_pose_error(const int32_t* cam, const double* ct, const double* x,
+                     const double* uv, const float* mask, double* partials,
+                     int n_part, int n_obs, int n_cams, double sp, double sa,
+                     int robust, double huber, void* stream) {
+  const size_t smem = sizeof(double) * 12 * (size_t)n_cams;
+  return launch(pose_error_kernel, n_obs, smem, stream, cam, ct, x, uv, mask,
+                partials, n_part, n_obs, n_cams, sp, sa, robust, huber);
+}
+
+}  // extern "C"

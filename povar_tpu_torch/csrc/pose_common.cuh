@@ -1,0 +1,122 @@
+// Shared device code of the step-1 structured pOSE kernels (pose1.cu).
+//
+// Every kernel is one pass over the observations, one thread per
+// observation in a grid-stride loop, on observation-last arrays
+// ([k, O] rows: neighbouring threads read neighbouring addresses). The
+// [12, N] camera table(s) a kernel gathers from are staged in shared
+// memory once per block (12 * N * 4 B: 4.3 KB at N = 89); a camera row
+// is then a shared-memory read by index. Per-camera sums go into
+// shared-memory accumulators and leave the block as one global atomicAdd
+// per non-zero entry; scalar sums leave as one partial per block, which
+// the caller adds up.
+//
+// The arithmetic follows the Pallas bodies of povar_tpu/ops/pallas_pose.py
+// term for term (same products, same summation order), so a kernel and
+// its plain PyTorch version (ops/pose_ref.py) differ only by FMA
+// contraction and, for per-camera sums, by the order of the atomics.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace povar {
+
+constexpr int kThreads = 256;
+
+// grid-stride loop over the observation axis
+#define POVAR_OBS_LOOP(o, n_obs)                                     \
+  for (int o = blockIdx.x * blockDim.x + threadIdx.x; o < (n_obs); \
+       o += gridDim.x * blockDim.x)
+
+template <typename T>
+__device__ __forceinline__ void smem_copy(T* dst, const T* __restrict__ src,
+                                          int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+}
+
+__device__ __forceinline__ void smem_zero(float* dst, int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = 0.0f;
+}
+
+// one global atomic per non-zero accumulator entry (adding an exact
+// zero changes nothing, so the entries no observation touched stay home)
+__device__ __forceinline__ void flush_acc(float* __restrict__ dst,
+                                          const float* acc, int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const float v = acc[i];
+    if (v != 0.0f) atomicAdd(dst + i, v);
+  }
+}
+
+// A~ [4][4] of the camera in column c of a [12, n] table (row-major
+// vec(P): P[r][col] is row 4 r + col):
+//   A0 = sp (P0 - u P2), A1 = sp (P1 - v P2), A2 = sa P0, A3 = sa P1
+template <typename T>
+__device__ __forceinline__ void a_tilde(const T* tbl, int n, int c, T u,
+                                        T v, T sp, T sa, T A[4][4]) {
+#pragma unroll
+  for (int col = 0; col < 4; ++col) {
+    const T p0 = tbl[col * n + c];
+    const T p1 = tbl[(4 + col) * n + c];
+    const T p2 = tbl[(8 + col) * n + c];
+    A[0][col] = sp * (p0 - u * p2);
+    A[1][col] = sp * (p1 - v * p2);
+    A[2][col] = sa * p0;
+    A[3][col] = sa * p1;
+  }
+}
+
+// pOSE residual r = A~ xh - [0, 0, sa u, sa v]
+template <typename T>
+__device__ __forceinline__ void residual(const T A[4][4], const T xh[4], T u,
+                                         T v, T sa, T r[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    T acc = A[k][0] * xh[0];
+    acc += A[k][1] * xh[1];
+    acc += A[k][2] * xh[2];
+    acc += A[k][3] * xh[3];
+    r[k] = acc;
+  }
+  r[2] = r[2] - sa * u;
+  r[3] = r[3] - sa * v;
+}
+
+// y[a] = sum_j xh_j t[4a+j] of a 12-vector t against xh = [x, 1]
+template <typename T>
+__device__ __forceinline__ void xh_contract(const T t[12], const T xh[4],
+                                            T y[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    T acc = t[4 * a + 3];
+    acc += xh[0] * t[4 * a + 0];
+    acc += xh[1] * t[4 * a + 1];
+    acc += xh[2] * t[4 * a + 2];
+    y[a] = acc;
+  }
+}
+
+// sum of v over the block, valid in thread 0; red holds >= 32 entries
+template <typename T>
+__device__ __forceinline__ T block_sum(T v, T* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  if (lane == 0) red[wid] = v;
+  __syncthreads();
+  const int n_warps = (blockDim.x + 31) >> 5;
+  v = (int)threadIdx.x < n_warps ? red[threadIdx.x] : T(0);
+  if (wid == 0) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  __syncthreads();
+  return v;
+}
+
+}  // namespace povar

@@ -1,0 +1,315 @@
+"""Wrappers of the step-1 structured pOSE kernels.
+
+The counterpart of povar_tpu/ops/pallas_pose.py: one function per
+kernel, with the JAX function's name and signature minus `win` (the
+camera-window layout is TPU-only). Each wrapper
+
+- calls the plain PyTorch version (ops/pose_ref.py) when its tensors
+  lie on the CPU, and only then;
+- otherwise checks device, dtype, shape and contiguity, allocates the
+  outputs, launches the hand-written CUDA kernel (csrc/pose1.cu) on
+  the current stream, raises if the launch returned a CUDA error, and
+  adds one to its launch counter.
+
+There is no fallback from the card to the plain version: a kernel that
+does not build or does not launch raises. The kernels are f32 except
+`pose_error`, which runs in native f64 where the TPU ran double-float
+(`pose_error_df32`). Apart from that one change of route the results
+are those of the Pallas kernels, with two changes of return shape:
+`apply_ldiff` returns the f64 sum of its per-block partials instead of
+128 f32 lane partials, and `pose_error` returns (err, rn, bad) 0-d
+tensors instead of [5, 128] double-float partials.
+
+Launch counts (`LAUNCHES`, plain integers per kernel) let a run show
+that its main path went through the kernels; `reset_launch_counts`
+zeroes them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from povar_tpu_torch.ops import _build, pose_ref
+
+KERNELS = (
+    "prepare",
+    "e0_factor",
+    "hpp_b_structured",
+    "e0_u_structured",
+    "e0_scatter_structured",
+    "apply_ldiff",
+    "pose_error",
+)
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+# per-block partials of the scalar reductions: one slot per block of
+# the kernels' 256 threads, at most ceil(O / 256) blocks
+_THREADS = 256
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(
+        "kernel inputs must all lie on the CPU or all on one CUDA device, "
+        f"got {sorted(str(t.device) for t in tensors)}"
+    )
+
+
+def _check_shapes(named, o: int, n: int) -> None:
+    """Shape checks shared by both routes; `named` maps a name to
+    (tensor, rows, axis) with axis 'o' (observations) or 'n' (cameras)."""
+    for name, (t, rows, axis) in named.items():
+        want = (rows, o if axis == "o" else n)
+        if tuple(t.shape) != want:
+            raise ValueError(
+                f"{name}: expected shape {want}, got {tuple(t.shape)}"
+            )
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(name: str, fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        msg = _build.library().povar_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({rc})")
+    LAUNCHES[name] += 1
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _cuda_checks(o: int, n: int, cam, f32=(), f64=()) -> None:
+    """dtype and contiguity of a kernel's CUDA operands (shapes are
+    checked by _check_shapes)."""
+    if o <= 0 or n <= 0:
+        raise ValueError(f"empty problem (O={o}, N={n})")
+    if cam.shape != (o,):
+        raise ValueError(f"cam: expected shape {(o,)}, got {tuple(cam.shape)}")
+    named = [("cam", cam, torch.int32)]
+    named += [(k, t, torch.float32) for k, t in f32]
+    named += [(k, t, torch.float64) for k, t in f64]
+    for name, t, dtype in named:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def prepare(cam, cam_table, x, uv, mask, *, alpha, robust, huber,
+            weighted=True):
+    """Linearization-point pass (K1). Inputs: cam [O] i32, cam_table
+    [12, N] (row-major vec(P) per camera), x [3, O] (landmarks expanded
+    to observations), uv [2, O], mask [1, O] (>0 = live row). Returns
+    (r_w [4,O], sw [1,O], ata [9,O], atr [3,O], jpsq [12,N]).
+    `weighted=False` skips the robust weight."""
+    o, n = cam.shape[0], cam_table.shape[-1]
+    _check_shapes({
+        "cam_table": (cam_table, 12, "n"), "x": (x, 3, "o"),
+        "uv": (uv, 2, "o"), "mask": (mask, 1, "o"),
+    }, o, n)
+    if _on_cpu(cam, cam_table, x, uv, mask):
+        return pose_ref.prepare(
+            cam, cam_table, x, uv, mask, alpha=alpha, robust=robust,
+            huber=huber, weighted=weighted,
+        )
+    _cuda_checks(o, n, cam, f32=(
+        ("cam_table", cam_table), ("x", x),
+        ("uv", uv), ("mask", mask),
+    ))
+    c = pose_ref.pose_consts(alpha, torch.float32)
+    opts = dict(dtype=torch.float32, device=x.device)
+    rw = torch.empty((4, o), **opts)
+    sw = torch.empty((1, o), **opts)
+    ata = torch.empty((9, o), **opts)
+    atr = torch.empty((3, o), **opts)
+    jpsq = torch.zeros((12, n), **opts)
+    huber_on = bool(weighted) and robust == pose_ref.ROBUST_HUBER
+    _launch("prepare", _build.library().povar_prepare,
+            _ptr(cam), _ptr(cam_table), _ptr(x), _ptr(uv), _ptr(mask),
+            _ptr(rw), _ptr(sw), _ptr(ata), _ptr(atr), _ptr(jpsq), o, n,
+            c.sp, c.sa, c.sp2, int(huber_on), float(huber),
+            float(torch.tensor(huber * huber, dtype=torch.float32)),
+            _stream(x))
+    return rw, sw, ata, atr, jpsq
+
+
+def e0_factor(cam, cam_table, uv, w, jls, lh, *, alpha):
+    """h [9, O] (layout c*3+a) (K2). Inputs: w [1,O] robust weight (not
+    sqrt), jls [3,O] landmark scale expanded to obs, lh [9,O] chol of
+    Hll^-1 expanded to obs (row-major i*3+c)."""
+    o, n = cam.shape[0], cam_table.shape[-1]
+    _check_shapes({
+        "cam_table": (cam_table, 12, "n"), "uv": (uv, 2, "o"),
+        "w": (w, 1, "o"), "jls": (jls, 3, "o"), "lh": (lh, 9, "o"),
+    }, o, n)
+    if _on_cpu(cam, cam_table, uv, w, jls, lh):
+        return pose_ref.e0_factor(cam, cam_table, uv, w, jls, lh, alpha=alpha)
+    _cuda_checks(o, n, cam, f32=(
+        ("cam_table", cam_table), ("uv", uv),
+        ("w", w), ("jls", jls), ("lh", lh),
+    ))
+    h = torch.empty((9, o), dtype=torch.float32, device=uv.device)
+    _launch("e0_factor", _build.library().povar_e0_factor,
+            _ptr(cam), _ptr(cam_table), _ptr(uv), _ptr(w), _ptr(jls),
+            _ptr(lh), _ptr(h), o, n,
+            pose_ref.pose_consts(alpha, torch.float32).sp2h, _stream(uv))
+    return h
+
+
+def hpp_b_structured(cam, cam_table, x, uv, sw, r_w, jls, hib, n_cams, *,
+                     alpha):
+    """(hpp_raw [144, N], b_raw [12, N]) per-camera sums BEFORE the
+    pose-scale outer products (row layout (4a+i)*12 + (4b+j)) (K3)."""
+    o, n = cam.shape[0], int(n_cams)
+    _check_shapes({
+        "cam_table": (cam_table, 12, "n"), "x": (x, 3, "o"),
+        "uv": (uv, 2, "o"), "sw": (sw, 1, "o"), "r_w": (r_w, 4, "o"),
+        "jls": (jls, 3, "o"), "hib": (hib, 3, "o"),
+    }, o, n)
+    if _on_cpu(cam, cam_table, x, uv, sw, r_w, jls, hib):
+        return pose_ref.hpp_b_structured(
+            cam, cam_table, x, uv, sw, r_w, jls, hib, n, alpha=alpha
+        )
+    _cuda_checks(o, n, cam, f32=(
+        ("cam_table", cam_table), ("x", x),
+        ("uv", uv), ("sw", sw), ("r_w", r_w),
+        ("jls", jls), ("hib", hib),
+    ))
+    c = pose_ref.pose_consts(alpha, torch.float32)
+    hpp = torch.zeros((144, n), dtype=torch.float32, device=x.device)
+    b = torch.zeros((12, n), dtype=torch.float32, device=x.device)
+    _launch("hpp_b_structured", _build.library().povar_hpp_b,
+            _ptr(cam), _ptr(cam_table), _ptr(x), _ptr(uv), _ptr(sw),
+            _ptr(r_w), _ptr(jls), _ptr(hib), _ptr(hpp), _ptr(b), o, n,
+            c.sp, c.sa, c.sp2, _stream(x))
+    return hpp, b
+
+
+def e0_u_structured(cam, x, h, z_table):
+    """u [3, O] = W_o . z[:, cam(o)] with z_table = ps . xvec [12, N]
+    (K4)."""
+    o, n = cam.shape[0], z_table.shape[-1]
+    _check_shapes({
+        "x": (x, 3, "o"), "h": (h, 9, "o"), "z_table": (z_table, 12, "n"),
+    }, o, n)
+    if _on_cpu(cam, x, h, z_table):
+        return pose_ref.e0_u_structured(cam, x, h, z_table)
+    _cuda_checks(o, n, cam, f32=(
+        ("x", x), ("h", h), ("z_table", z_table),
+    ))
+    u = torch.empty((3, o), dtype=torch.float32, device=x.device)
+    _launch("e0_u_structured", _build.library().povar_e0_u,
+            _ptr(cam), _ptr(x), _ptr(h), _ptr(z_table), _ptr(u), o, n,
+            _stream(x))
+    return u
+
+
+def e0_scatter_structured(cam, x, h, sb, n_cams):
+    """out_raw [12, N] = seg_cam( (h^T sb) (x) xh ) (K5); the caller
+    multiplies by the pose scale."""
+    o, n = cam.shape[0], int(n_cams)
+    _check_shapes({
+        "x": (x, 3, "o"), "h": (h, 9, "o"), "sb": (sb, 3, "o"),
+    }, o, n)
+    if _on_cpu(cam, x, h, sb):
+        return pose_ref.e0_scatter_structured(cam, x, h, sb, n)
+    _cuda_checks(o, n, cam, f32=(
+        ("x", x), ("h", h), ("sb", sb),
+    ))
+    out = torch.zeros((12, n), dtype=torch.float32, device=x.device)
+    _launch("e0_scatter_structured", _build.library().povar_e0_scatter,
+            _ptr(cam), _ptr(x), _ptr(h), _ptr(sb), _ptr(out), o, n,
+            _stream(x))
+    return out
+
+
+def apply_ldiff(cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
+                inc_table, *, alpha):
+    """-l_diff as a 0-d f64 tensor (K6): f32 per-observation terms,
+    per-block f32 partials, summed in f64. inc_table [12, N] is the
+    scaled camera increment; inc_lm_obs [3, O] the landmark increment
+    expanded to observations."""
+    o, n = cam.shape[0], cam_table_old.shape[-1]
+    _check_shapes({
+        "x": (x, 3, "o"), "uv": (uv, 2, "o"), "sw": (sw, 1, "o"),
+        "r_w": (r_w, 4, "o"), "jls": (jls, 3, "o"),
+        "inc_lm_obs": (inc_lm_obs, 3, "o"),
+        "cam_table_old": (cam_table_old, 12, "n"),
+        "inc_table": (inc_table, 12, "n"),
+    }, o, n)
+    if _on_cpu(cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
+               inc_table):
+        return pose_ref.apply_ldiff(
+            cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
+            inc_table, alpha=alpha,
+        )
+    _cuda_checks(o, n, cam, f32=(
+        ("x", x), ("uv", uv), ("sw", sw),
+        ("r_w", r_w), ("jls", jls),
+        ("inc_lm_obs", inc_lm_obs),
+        ("cam_table_old", cam_table_old),
+        ("inc_table", inc_table),
+    ))
+    c = pose_ref.pose_consts(alpha, torch.float32)
+    part = torch.zeros(
+        -(-o // _THREADS), dtype=torch.float32, device=x.device
+    )
+    _launch("apply_ldiff", _build.library().povar_apply_ldiff,
+            _ptr(cam), _ptr(x), _ptr(uv), _ptr(sw), _ptr(r_w), _ptr(jls),
+            _ptr(inc_lm_obs), _ptr(cam_table_old), _ptr(inc_table),
+            _ptr(part), o, n, c.sp, c.sa, _stream(x))
+    return part.sum(dtype=torch.float64)
+
+
+def pose_error(cam, cam_table, x, uv, mask, *, alpha, robust, huber
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """pOSE cost (K7): (sum of robust costs, sum of residual norms, the
+    count of live rows with a non-finite residual) as 0-d tensors (f64,
+    f64, int32). cam_table [12, N], x [3, O] and uv [2, O] are f64;
+    mask [1, O] f32. On the card this is native f64 where the TPU ran
+    double-float (pallas_pose.pose_error_df32)."""
+    o, n = cam.shape[0], cam_table.shape[-1]
+    _check_shapes({
+        "cam_table": (cam_table, 12, "n"), "x": (x, 3, "o"),
+        "uv": (uv, 2, "o"), "mask": (mask, 1, "o"),
+    }, o, n)
+    if _on_cpu(cam, cam_table, x, uv, mask):
+        return pose_ref.pose_error(
+            cam, cam_table, x, uv, mask, alpha=alpha, robust=robust,
+            huber=huber,
+        )
+    _cuda_checks(
+        o, n, cam, f32=(("mask", mask),),
+        f64=(("cam_table", cam_table), ("x", x),
+             ("uv", uv)),
+    )
+    c = pose_ref.pose_consts(alpha, torch.float64)
+    n_part = -(-o // _THREADS)
+    part = torch.zeros((3, n_part), dtype=torch.float64, device=x.device)
+    _launch("pose_error", _build.library().povar_pose_error,
+            _ptr(cam), _ptr(cam_table), _ptr(x), _ptr(uv), _ptr(mask),
+            _ptr(part), n_part, o, n, c.sp, c.sa, int(robust),
+            float(huber), _stream(x))
+    tot = part.sum(dim=1)
+    return tot[0], tot[1], tot[2].to(torch.int32)

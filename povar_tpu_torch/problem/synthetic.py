@@ -1,0 +1,183 @@
+"""Synthetic BAL-style problem generation for tests and benchmarks.
+
+A numpy-only copy of the two generators in
+povar_tpu/problem/synthetic.py: the same seed gives bit-identical
+arrays in both packages.
+
+The reference repository ships no data (examples/ is empty) and expects
+BAL downloads (scripts/download-bal-problems.sh). These generators
+synthesize problems with realistic SfM structure instead:
+cameras on a ring looking inward at a Gaussian point cloud, projected
+through ideal projective cameras to produce consistent observations.
+
+`synthetic_bal_problem` returns the *initialization-free* setup that the
+reference's --create-dataset + load_bal_eccv pipeline produces: random
+N(0,1) camera matrices with third row [0,0,0,1], random N(0,1)
+landmarks, and real (consistent) observations. Ground-truth cameras are
+returned separately for tests that need a known optimum.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+from povar_tpu_torch.problem.problem import BalProblem
+
+
+def _ring_cameras(n_cams: int, radius: float, rng) -> np.ndarray:
+    """World-to-camera projective matrices for cameras on a ring looking
+    at the origin. Returns [N, 3, 4]."""
+    mats = np.zeros((n_cams, 3, 4))
+    for i in range(n_cams):
+        angle = 2 * np.pi * i / n_cams + 0.01 * rng.standard_normal()
+        center = np.array(
+            [
+                radius * np.cos(angle),
+                radius * np.sin(angle),
+                0.3 * radius * np.sin(2.3 * angle),
+            ]
+        )
+        forward = -center / np.linalg.norm(center)
+        up = np.array([0.0, 0.0, 1.0])
+        right = np.cross(forward, up)
+        right /= np.linalg.norm(right)
+        up2 = np.cross(right, forward)
+        R = np.stack([right, up2, forward])  # rows: cam x, y, z in world
+        t = -R @ center
+        mats[i, :, :3] = R
+        mats[i, :, 3] = t
+    return mats
+
+
+def synthetic_bal_problem(
+    n_cams: int = 12,
+    n_lms: int = 200,
+    obs_per_lm: int = 6,
+    noise: float = 0.0,
+    seed: int = 0,
+    random_cameras: bool = True,
+) -> Tuple[BalProblem, np.ndarray]:
+    """Build a synthetic problem.
+
+    Returns (problem, gt_cam_space). If random_cameras (the
+    initialization-free default), problem.cam_space are N(0,1) matrices
+    with third row [0,0,0,1] as produced by --create-dataset
+    (bal_problem.cpp:398-409); otherwise ground truth cameras are used.
+    """
+    rng = np.random.default_rng(seed)
+    gt_cams = _ring_cameras(n_cams, radius=10.0, rng=rng)
+    pts = rng.standard_normal((n_lms, 3)) * 2.0
+
+    obs_cam_list = []
+    obs_lm_list = []
+    obs_uv_list = []
+    for j in range(n_lms):
+        k = min(n_cams, max(2, int(obs_per_lm + rng.integers(-2, 3))))
+        cams = np.sort(rng.choice(n_cams, size=k, replace=False))
+        xh = np.append(pts[j], 1.0)
+        for c in cams:
+            p = gt_cams[c] @ xh
+            if abs(p[2]) < 1e-6:
+                continue
+            uv = p[:2] / p[2]
+            if noise > 0:
+                uv = uv + rng.normal(0.0, noise, size=2)
+            obs_cam_list.append(c)
+            obs_lm_list.append(j)
+            obs_uv_list.append(uv)
+
+    obs_cam = np.array(obs_cam_list, dtype=np.int32)
+    obs_lm = np.array(obs_lm_list, dtype=np.int32)
+    obs_uv = np.array(obs_uv_list, dtype=np.float64)
+
+    # drop landmarks with < 2 surviving observations, reindex
+    counts = np.bincount(obs_lm, minlength=n_lms)
+    keep = counts >= 2
+    new_idx = np.cumsum(keep) - 1
+    sel = keep[obs_lm]
+    obs_cam, obs_uv = obs_cam[sel], obs_uv[sel]
+    obs_lm = new_idx[obs_lm[sel]].astype(np.int32)
+    pts = pts[keep]
+
+    if random_cameras:
+        cam_space = np.zeros_like(gt_cams)
+        cam_space[:, 0, :] = rng.standard_normal((n_cams, 4))
+        cam_space[:, 1, :] = rng.standard_normal((n_cams, 4))
+        cam_space[:, 2, :] = np.array([0.0, 0.0, 0.0, 1.0])
+        lm_p = rng.standard_normal((pts.shape[0], 3))
+    else:
+        cam_space = gt_cams.copy()
+        lm_p = pts.copy()
+
+    problem = BalProblem(
+        cam_space=cam_space,
+        intrinsics=np.tile(np.array([1.0, 0.0, 0.0]), (n_cams, 1)),
+        lm_p=lm_p,
+        obs_cam=obs_cam,
+        obs_lm=obs_lm,
+        obs_uv=obs_uv,
+        input_path=f"synthetic-{n_cams}-{pts.shape[0]}",
+    )
+    problem.sort_observations()
+    return problem, gt_cams
+
+
+def synthetic_bal_problem_fast(
+    n_cams: int,
+    n_lms: int,
+    obs_per_lm: int,
+    seed: int = 0,
+    noise: float = 0.0,
+    locality: int = 0,
+) -> BalProblem:
+    """Fully vectorized large-scale synthetic problem (fixed obs count
+    per landmark) for benchmarks at venice/final scale, in the
+    initialization-free configuration (random cameras + landmarks).
+
+    `locality > 0` draws each landmark's cameras from a window of that
+    width around a random center — the temporal coherence real BAL
+    sequences have (a landmark is seen by nearby frames), which the
+    large-N camera-window solver layout exploits
+    (segments.build_window_plan). 0 = cameras uniform over [0, N)."""
+    rng = np.random.default_rng(seed)
+    gt_cams = _ring_cameras(n_cams, radius=10.0, rng=rng)
+    pts = rng.standard_normal((n_lms, 3)) * 2.0
+
+    k = min(obs_per_lm, n_cams)
+    # k distinct cameras per landmark, O(M*k) memory: draw k values in
+    # [0, span - k], sort rows, add arange(k) -> strictly increasing
+    # (mildly biased toward spread-out cameras; fine for benchmarks)
+    span = n_cams if not locality else min(max(locality, k), n_cams)
+    base = rng.integers(0, span - k + 1, size=(n_lms, k))
+    base.sort(axis=1)
+    cams_per_lm = base + np.arange(k)[None, :]
+    if locality and span < n_cams:
+        centers = rng.integers(0, n_cams - span + 1, size=(n_lms, 1))
+        cams_per_lm = cams_per_lm + centers
+
+    obs_lm = np.repeat(np.arange(n_lms, dtype=np.int32), k)
+    obs_cam = cams_per_lm.reshape(-1).astype(np.int32)
+    xh = np.concatenate([pts, np.ones((n_lms, 1))], axis=1)  # [M, 4]
+    p = np.einsum("oij,oj->oi", gt_cams[obs_cam], xh[obs_lm])
+    obs_uv = p[:, :2] / p[:, 2:3]
+    if noise > 0:
+        obs_uv = obs_uv + rng.normal(0.0, noise, size=obs_uv.shape)
+
+    cam_space = np.zeros_like(gt_cams)
+    cam_space[:, 0, :] = rng.standard_normal((n_cams, 4))
+    cam_space[:, 1, :] = rng.standard_normal((n_cams, 4))
+    cam_space[:, 2, :] = np.array([0.0, 0.0, 0.0, 1.0])
+
+    problem = BalProblem(
+        cam_space=cam_space,
+        intrinsics=np.tile(np.array([1.0, 0.0, 0.0]), (n_cams, 1)),
+        lm_p=rng.standard_normal((n_lms, 3)),
+        obs_cam=obs_cam,
+        obs_lm=obs_lm,
+        obs_uv=obs_uv,
+        input_path=f"synthetic-fast-{n_cams}-{n_lms}",
+    )
+    # already sorted by (lm, cam)
+    return problem

@@ -1,0 +1,536 @@
+"""Step-1 pOSE VarProj linearization and the POWER_VARPROJ solve.
+
+The counterpart of povar_tpu/solver/stage1.py on its structured path
+(`Lin1S`): the pOSE Jacobians are never materialized; every per-
+observation pass is one of the seven kernels of ops/pose_kernels.py
+(hand-written CUDA on the card, their plain PyTorch versions on the
+CPU), and the landmark side is reshape-sums and broadcasts over the
+slot layout (solver/segments.py). This module replaces:
+  - LandmarkBlockSC pOSE storage + ops      (sc/landmark_block.hpp:58-760)
+  - LinearizationPowerVarproj               (sc/linearization_power_varproj.hpp)
+  - LinearizorPowerVarproj                  (solver/linearizor_power_varproj.cpp)
+
+Layouts are the JAX package's, observation LAST: per-observation rows
+[k, O], camera tables [12, N], per-landmark tables [.., L] in "L space"
+(slot-row order), per-camera / per-landmark blocks batch-last
+([12, 12, N], [3, 3, L]). The LM state (cameras [N, 3, 4], landmarks)
+and the cost are f64; linearization storage and the inner solve are f32
+(`mixed_precision_solves`).
+
+What this slice covers is the default configuration of the JAX package
+with `fused_power_term=False`: any other step-1 configuration raises
+NotImplementedError naming its ROADMAP.md item instead of running
+another path.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from povar_tpu_torch.ops import linalg, pose_kernels
+from povar_tpu_torch.options import RobustNorm, SolverOptions, SolverType
+from povar_tpu_torch.solver import pcg as pcg_mod
+from povar_tpu_torch.solver.segments import (
+    build_slot_plan,
+    slot_part_sums,
+    slot_row_expand,
+)
+
+# the observation axis is padded with zero-weight rows to a multiple of
+# this (povar_tpu/ops/pallas_cam.py OBS_PAD), so both packages see the
+# same slot layout
+OBS_PAD = 8192
+# largest camera count of this path (povar_tpu/ops/pallas_cam.py
+# MAX_CAMERAS); beyond it the JAX package switches to camera windows
+MAX_CAMERAS = 1024
+
+_ROBUST_CODE = {
+    RobustNorm.NONE: 0,
+    RobustNorm.HUBER: 1,
+    RobustNorm.CAUCHY: 2,
+}
+
+
+class Obs(NamedTuple):
+    """Static problem structure in slot order (segments.build_slot_plan):
+    each landmark's observations occupy a fixed-width contiguous slot.
+    cam: per-observation camera index [Op] (int32); uv: measurements
+    [2, Op]; weight: 0/1 mask [Op] over slot pads (None when there are
+    none); lm_order/lm_inv: slot-row <-> canonical landmark id maps."""
+
+    cam: torch.Tensor
+    uv: torch.Tensor
+    weight: Optional[torch.Tensor]
+    lm_order: torch.Tensor
+    lm_inv: torch.Tensor
+
+
+class Lin1S(NamedTuple):
+    """Structured step-1 linearization point (all f32). hll_raw/bl_raw
+    are the UNSCALED landmark normal-equation slot sums (w A~^T A~,
+    w A~^T r); the Jacobi scales apply as outer products on [.., L] /
+    [.., N] tables, never per observation."""
+
+    ct: torch.Tensor  # [12, N] camera table (vec(P) rows) at lin point
+    x: torch.Tensor  # [3, O] landmarks expanded to observations
+    r_w: torch.Tensor  # [4, O] sqrt-weighted residuals
+    sw: torch.Tensor  # [1, O] sqrt robust weight (0 on dead rows)
+    hll_raw: torch.Tensor  # [3, 3, L]
+    bl_raw: torch.Tensor  # [3, L]
+    jl_scale: torch.Tensor  # [3, L]
+    pose_scale: torch.Tensor  # [12, N]
+
+
+class LmState(NamedTuple):
+    """Landmark state threaded through the LM loop in L space (slot-row
+    order): `rows` is [3, L] in the state dtype. Produced by `lm_pack`,
+    converted back to the canonical [M, 3] layout by `lm_unpack`."""
+
+    rows: torch.Tensor
+
+
+def make_obs(
+    obs_cam, obs_lm, obs_uv, num_cameras, num_landmarks, dtype, device,
+) -> Tuple[Obs, tuple]:
+    """Build the slot-ordered Obs on `device`. Returns (obs,
+    lm_slot_shapes)."""
+    obs_cam_np = np.asarray(obs_cam)
+    obs_lm_np = np.asarray(obs_lm)
+    obs_uv_np = np.asarray(obs_uv)
+    if obs_uv_np.ndim == 2 and obs_uv_np.shape[-1] == 2:
+        obs_uv_np = obs_uv_np.T  # accept [O, 2] input, use [2, O]
+    if len(obs_cam_np) and (
+        obs_cam_np.min() < 0 or obs_cam_np.max() >= num_cameras
+    ):
+        raise ValueError("camera index out of range [0, num_cameras)")
+    if len(obs_lm_np) and (
+        obs_lm_np.min() < 0 or obs_lm_np.max() >= num_landmarks
+    ):
+        raise ValueError("landmark index out of range [0, num_landmarks)")
+
+    perm, pad_w, shapes, lm_order, inv_pos = build_slot_plan(
+        obs_lm_np, num_landmarks, pad_to=OBS_PAD
+    )
+    w = pad_w if (pad_w < 1.0).any() else None
+
+    def dev(a, dt=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+
+    obs = Obs(
+        cam=dev(obs_cam_np[perm].astype(np.int32)),
+        uv=dev(obs_uv_np[:, perm], dtype),
+        weight=None if w is None else dev(w, dtype),
+        lm_order=dev(lm_order.astype(np.int64)),
+        lm_inv=dev(inv_pos.astype(np.int64)),
+    )
+    return obs, shapes
+
+
+def _unsupported(options: SolverOptions, n_cams: int, dtype) -> Optional[str]:
+    """Why this configuration is outside the ported slice, or None."""
+    if options.solver_type_step_1 != SolverType.POWER_VARPROJ:
+        return (
+            f"solver_type_step_1={options.solver_type_step_1.value} "
+            "(ROADMAP.md queue 1 item 9, the other step-1 solvers)"
+        )
+    if options.fused_power_term:
+        return (
+            "fused_power_term=True (ROADMAP.md queue 2, e0_term_parts: "
+            "the fused power-series term kernel)"
+        )
+    if not options.mixed_precision_solves:
+        return (
+            "mixed_precision_solves=False (ROADMAP.md queue 1 item 11, "
+            "precision modes)"
+        )
+    if dtype != torch.float64:
+        return (
+            f"LM state dtype {dtype} (ROADMAP.md queue 1 item 11, "
+            "precision modes: the f32 LM state)"
+        )
+    if options.pallas_kernels == "off":
+        return (
+            "pallas_kernels='off', the unstructured path (ROADMAP.md "
+            "queue 1 item 9)"
+        )
+    if n_cams > MAX_CAMERAS:
+        return (
+            f"{n_cams} cameras > {MAX_CAMERAS} (ROADMAP.md queue 1 item "
+            "12, large N)"
+        )
+    if options.device_lm_loop == "on":
+        return (
+            "device_lm_loop='on' (ROADMAP.md queue 1 item 8, the device "
+            "LM loop)"
+        )
+    if options.detailed_timing:
+        return (
+            "detailed_timing=True (ROADMAP.md queue 1 item 14, per-stage "
+            "timing)"
+        )
+    return None
+
+
+class Stage1Solver:
+    """Step-1 solver bound to one problem's observations on `device`
+    ("cpu" runs the kernels' plain versions, "cuda" the CUDA kernels).
+
+    Public API as in the JAX package: compute_error, initialize_varproj,
+    linearize, solve_power, apply, trial, lm_pack, lm_unpack (there
+    each is a jitted entry over a private method of the same name; here
+    the public methods are the implementations). Landmark state may be
+    passed canonical ([M, 3]) or packed (LmState)."""
+
+    def __init__(
+        self,
+        obs_cam,
+        obs_lm,
+        obs_uv,
+        num_cameras: int,
+        num_landmarks: int,
+        options: SolverOptions,
+        dtype=torch.float64,
+        device="cpu",
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Stage1Solver(device='cuda') but torch finds no CUDA "
+                    "device"
+                )
+            # the f32 contractions must run in full f32, not TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.n_cams = int(num_cameras)
+        self.n_lms = int(num_landmarks)
+        why = _unsupported(options, self.n_cams, dtype)
+        if why is not None:
+            raise NotImplementedError(
+                "povar_tpu_torch step 1 runs the structured POWER_VARPROJ "
+                f"path only; not ported yet: {why}"
+            )
+        self.opts = options
+        self.dtype = dtype
+        self.solve_dtype = torch.float32
+        self.alpha = float(options.alpha)
+        self.robust = _ROBUST_CODE[options.residual.robust_norm]
+        self.huber = float(options.residual.huber_parameter)
+        self.power_m = int(options.power_sc_iterations)
+        self.obs, self.lm_shapes = make_obs(
+            obs_cam, obs_lm, obs_uv, self.n_cams, self.n_lms, dtype,
+            self.device,
+        )
+        self.jacobi_eps = options.effective_jacobi_scaling_epsilon(
+            np.float32
+        )
+        o = int(self.obs.cam.shape[0])
+        w = self.obs.weight
+        # live-observation count for ResidualInfo (padding rows carry
+        # zero weight and must not inflate num_obs / mean residuals)
+        self.n_obs_live = o if w is None else int((w > 0).sum())
+        sd = self.solve_dtype
+        # per-observation constants of every kernel call, made once
+        self._uv_s = self.obs.uv.to(sd)
+        self._mask1 = (
+            torch.ones((1, o), dtype=sd, device=self.device) if w is None
+            else (w > 0).to(sd).reshape(1, -1)
+        )
+
+    def trial(self, cam_space, lm_p, lin: Lin1S, lam):
+        """One LM backtracking trial: solve + apply + f64 cost, with no
+        host synchronisation except the power series' early-exit test.
+
+        Returns (new_cams, new_lms, inc_finite, num_inner_iters,
+        l_diff, err_dict); inc_finite, l_diff and the err_dict entries
+        stay on the device for the caller's one batched transfer. When
+        the increment is non-finite the caller discards the trial state
+        (the reference's NaN check, cpp:362-401)."""
+        inc, n_iter = self.solve_power(lin, lam)
+        inc_finite = torch.isfinite(inc).all()
+        new_cams, new_lms, l_diff = self.apply(cam_space, lm_p, lin, inc)
+        err = self.compute_error(new_cams, new_lms)
+        return new_cams, new_lms, inc_finite, n_iter, l_diff, err
+
+    # ---- landmark "L space": per-landmark tables live in slot-ROW
+    # order between a slot reduce and a slot expansion, so both
+    # directions are reshape-sums / broadcasts with no index gathers
+
+    def _seg_L(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., O] -> [..., L] per-landmark reduce into L space."""
+        return slot_part_sums(x, self.lm_shapes)
+
+    def _expand_L(self, s: torch.Tensor) -> torch.Tensor:
+        """[..., L] -> per-observation [..., O]."""
+        return slot_row_expand(s, self.lm_shapes)
+
+    def _seg_lm_reexpand(self, u: torch.Tensor) -> torch.Tensor:
+        """Per-landmark sum of u [..., O] re-expanded to observations
+        [..., O] — the inner operation of every E0 matvec
+        (right_mul_e0, linearization_power_varproj.hpp:364-453)."""
+        return self._expand_L(self._seg_L(u))
+
+    def _L_to_lm(self, s: torch.Tensor) -> torch.Tensor:
+        """[..., L] -> canonical [..., M]."""
+        return s.index_select(-1, self.obs.lm_inv)
+
+    def _lm_to_L(self, s: torch.Tensor) -> torch.Tensor:
+        """Canonical [..., M] -> [..., L]."""
+        return s.index_select(-1, self.obs.lm_order)
+
+    def lm_pack(self, lm_p):
+        """Canonical [M, 3] state -> LmState."""
+        if isinstance(lm_p, LmState):
+            return lm_p
+        return LmState(rows=self._lm_to_L(lm_p.to(self.dtype).T))
+
+    def lm_unpack(self, lm_p):
+        """LmState -> canonical [M, 3] state (identity otherwise)."""
+        if not isinstance(lm_p, LmState):
+            return lm_p
+        return self._L_to_lm(lm_p.rows).T.contiguous()
+
+    def _lm_rows(self, lm_p) -> torch.Tensor:
+        """State rows [3, L] in the state dtype from either
+        representation."""
+        if isinstance(lm_p, LmState):
+            return lm_p.rows
+        return self._lm_to_L(lm_p.T)
+
+    def _hll_guard_L(self, hll: torch.Tensor) -> torch.Tensor:
+        """Identity-guard the [3, 3, L] normal matrices of slot pad rows
+        (their sums are exactly zero): inverting them would poison
+        per-observation expansions with NaN (0 * NaN = NaN survives the
+        sw=0 dead-row mask); their zero-rhs solves yield zero."""
+        dg = hll[0, 0] + hll[1, 1] + hll[2, 2]
+        f = (dg == 0).to(hll.dtype)
+        eye = torch.eye(3, dtype=hll.dtype, device=hll.device)
+        return hll + f * eye[:, :, None]
+
+    def _cam_table(self, cam_space: torch.Tensor, dtype) -> torch.Tensor:
+        """cam_space [N, 3, 4] -> [12, N] table of vec(P) rows."""
+        return cam_space.to(dtype).reshape(self.n_cams, 12).T.contiguous()
+
+    # ------------------------------------------------------ error / init
+
+    def compute_error(self, cam_space, lm_p) -> Dict[str, torch.Tensor]:
+        """compute_error_pOSE (helper.cpp:116-154) in native f64 (the
+        pose_error kernel, where the JAX package evaluates double-float
+        on the TPU, stage1._compute_error_df32). pOSE projections are
+        always valid (helper.cpp:263), so the valid bucket equals the
+        live bucket."""
+        ct = self._cam_table(cam_space, self.dtype)
+        x = self._expand_L(self._lm_rows(lm_p).to(self.dtype))
+        err, rn, bad = pose_kernels.pose_error(
+            self.obs.cam, ct, x, self.obs.uv, self._mask1,
+            alpha=self.alpha, robust=self.robust, huber=self.huber,
+        )
+        return {
+            "num_obs_all": self.n_obs_live,
+            "error_all": err,
+            "residual_sum_all": rn,
+            "num_obs_valid": self.n_obs_live,
+            "error_valid": err,
+            "residual_sum_valid": rn,
+            "is_numerically_valid": bad == 0,
+        }
+
+    def initialize_varproj(self, cam_space) -> torch.Tensor:
+        """Closed-form VarProj landmark init v*(u0) = (G^T G)^-1 G^T z
+        (helper.cpp:75-99 via normal equations). At x = 0 the pOSE
+        residual is r = -z and A~[:, :3] = G, so one unweighted
+        `prepare` pass with zero landmarks yields G^T G = ata and
+        G^T z = -atr exactly. Returns lm_p [M, 3] in the state dtype."""
+        sd = self.solve_dtype
+        ct = self._cam_table(cam_space, sd)
+        zeros = torch.zeros(
+            (3, self.obs.cam.shape[0]), dtype=sd, device=self.device
+        )
+        _rw, _sw, ata, atr, _jpsq = pose_kernels.prepare(
+            self.obs.cam, ct, zeros, self._uv_s, self._mask1,
+            alpha=self.alpha, robust=0, huber=1.0, weighted=False,
+        )
+        gtg = self._hll_guard_L(self._seg_L(ata).reshape(3, 3, -1))
+        gtz = -self._seg_L(atr)
+        lm0 = self._L_to_lm(linalg.solve3x3f(gtg, gtz))
+        return lm0.T.to(self.dtype).contiguous()
+
+    # -------------------------------------------------------- linearize
+
+    def linearize(self, cam_space, lm_p) -> Lin1S:
+        """Stage-1 linearization (`_linearize_s` of the JAX package;
+        linearizor_power_varproj.cpp:44-76):
+        one `prepare` pass, the landmark slot sums, and the Jacobi
+        scales."""
+        ct, x, r_w, sw, hll_raw, bl_raw, jpsq = self._lin_core_s(
+            cam_space, lm_p
+        )
+        return Lin1S(
+            ct=ct, x=x, r_w=r_w, sw=sw, hll_raw=hll_raw, bl_raw=bl_raw,
+            jl_scale=self._lin_scale_jl_s(hll_raw),
+            pose_scale=self._lin_scale_jp_s(jpsq),
+        )
+
+    def _lin_core_s(self, cam_space, lm_p):
+        sd = self.solve_dtype
+        ct = self._cam_table(cam_space, sd)
+        x = self._expand_L(self._lm_rows(lm_p).to(sd))  # [3, O]
+        r_w, sw, ata, atr, jpsq = pose_kernels.prepare(
+            self.obs.cam, ct, x, self._uv_s, self._mask1,
+            alpha=self.alpha, robust=self.robust, huber=self.huber,
+        )
+        hll_raw = self._seg_L(ata).reshape(3, 3, -1)
+        bl_raw = self._seg_L(atr)
+        return ct, x, r_w, sw, hll_raw, bl_raw, jpsq
+
+    def _lin_scale_jl_s(self, hll_raw: torch.Tensor) -> torch.Tensor:
+        """Landmark Jacobi scale 1 / (eps + col norm) from the raw Hll
+        diagonal (scale_Jl_cols_pOSE, landmark_block.hpp:284-300)."""
+        jl_sq = torch.stack([hll_raw[i, i] for i in range(3)])  # [3, L]
+        return 1.0 / (self.jacobi_eps + torch.sqrt(jl_sq))
+
+    def _lin_scale_jp_s(self, jpsq: torch.Tensor) -> torch.Tensor:
+        """Pose Jacobi scale from the per-camera Jp column norms
+        (scale_Jp_cols_pOSE, landmark_block.hpp:324-334)."""
+        return 1.0 / (self.jacobi_eps + torch.sqrt(jpsq))
+
+    # ------------------------------------------------------------ solve
+
+    def _solve_scalar(self, lam) -> float:
+        """lam rounded to the solve dtype, as a Python float."""
+        return float(torch.tensor(float(lam), dtype=self.solve_dtype))
+
+    def _hll_pieces_s(self, lin: Lin1S):
+        """(hll_inv [3,3,L], hib_obs [3,O], jls_obs [3,O], lh_obs [9,O])
+        from the raw slot sums: scale, invert, factor."""
+        d = lin.jl_scale
+        hll = lin.hll_raw * (d[:, None, :] * d[None, :, :])
+        hll_inv = linalg.inv3x3f(self._hll_guard_L(hll))
+        bl = d * lin.bl_raw
+        hib = (hll_inv * bl[None]).sum(dim=1)  # [3, L]
+        lh = linalg.cholesky_smallf(hll_inv)  # [3, 3, L] lower
+        jls_obs = self._expand_L(d)
+        hib_obs = self._expand_L(hib)
+        lh_obs = self._expand_L(lh.reshape(9, lh.shape[-1]))
+        return hll_inv, hib_obs, jls_obs, lh_obs
+
+    def _hpp_b_s(self, lin: Lin1S, hib_obs, jls_obs):
+        """(hpp [12,12,N] undamped, b [12,N]) with pose scales applied
+        as outer products after the reduction."""
+        hpp_raw, b_raw = pose_kernels.hpp_b_structured(
+            self.obs.cam, lin.ct, lin.x, self._uv_s, lin.sw, lin.r_w,
+            jls_obs, hib_obs, self.n_cams, alpha=self.alpha,
+        )
+        ps = lin.pose_scale
+        hpp = hpp_raw.reshape(12, 12, self.n_cams) * (
+            ps[:, None, :] * ps[None, :, :]
+        )
+        return hpp, b_raw * ps
+
+    def _h_factor_s(self, lin: Lin1S, jls_obs, lh_obs):
+        return pose_kernels.e0_factor(
+            self.obs.cam, lin.ct, self._uv_s, lin.sw * lin.sw, jls_obs,
+            lh_obs, alpha=self.alpha,
+        )
+
+    def _e0_apply_s(self, lin: Lin1S, h: torch.Tensor):
+        """Matrix-free structured E0 = W^T(seg_lm(W gather .)): the
+        composed e0_u -> slot reduce/re-expand -> e0_scatter term
+        (stage1.py:1992-2002 of the JAX package)."""
+        ps = lin.pose_scale
+        cam = self.obs.cam
+
+        def e0(v):
+            u = pose_kernels.e0_u_structured(cam, lin.x, h, ps * v)
+            sb = self._seg_lm_reexpand(u)
+            out = pose_kernels.e0_scatter_structured(
+                cam, lin.x, h, sb, self.n_cams
+            )
+            return ps * out
+
+        return e0
+
+    def solve_power(self, lin: Lin1S, lam) -> Tuple[torch.Tensor, int]:
+        """POWER_VARPROJ solve (`_solve_power_s` of the JAX package):
+        power-series expansion
+        x = sum_i (B^-1 E0)^i B^-1 (-b)
+        (linearizor_power_varproj.cpp:177-243 + hpp:191-237). Returns
+        (inc [12, N] in scaled coordinates, state dtype; num_terms)."""
+        lam_s = self._solve_scalar(lam)
+        pieces = self._hll_pieces_s(lin)
+        prep = self._power_prep_s(lin, lam_s, pieces)
+        return self._power_iterate_s(lin, prep)
+
+    def _power_prep_s(self, lin: Lin1S, lam_s: float, hll_pieces):
+        _hll_inv, hib_obs, jls_obs, lh_obs = hll_pieces
+        hpp, b = self._hpp_b_s(lin, hib_obs, jls_obs)
+        eye = torch.eye(12, dtype=hpp.dtype, device=hpp.device)
+        hpp = hpp + lam_s * eye[:, :, None]
+        b_inv = linalg.inv_psd_smallf(hpp)
+        h = self._h_factor_s(lin, jls_obs, lh_obs)
+        return -b, b_inv, h
+
+    def _power_iterate_s(self, lin: Lin1S, prep):
+        nb, b_inv, h = prep
+
+        def b_inv_apply(v):
+            return (b_inv * v[None]).sum(dim=1)
+
+        inc, n_iter = pcg_mod.power_series(
+            b_inv_apply,
+            self._e0_apply_s(lin, h),
+            nb,
+            max_terms=self.power_m,
+            q_tolerance=self.opts.eta,
+            r_tolerance=self.opts.r_tolerance,
+        )
+        return inc.to(self.dtype), n_iter
+
+    # ------------------------------------------------------------- apply
+
+    def apply(self, cam_space, lm_p, lin: Lin1S, inc_scaled):
+        """Camera update + VarProj back-substitution
+        (linearizor_power_varproj.cpp:245-263 `apply` +
+        sc/landmark_block.hpp:670-707 back_substitute_pOSE).
+        Returns (new_cam_space, new_lm_p, l_diff)."""
+        new_cam = self._update_cams(cam_space, lin, inc_scaled)
+        new_lm, l_diff = self._back_sub_s(new_cam, lm_p, lin, inc_scaled)
+        return new_cam, new_lm, l_diff
+
+    def _update_cams(self, cam_space, lin: Lin1S, inc_scaled):
+        """apply_inc_pose_pOSE (bal_problem.hpp:147-163): unscale the
+        camera increment (in the storage dtype, as the JAX package
+        does) and add it to the 3x4 matrices."""
+        inc_phys = inc_scaled.to(lin.pose_scale.dtype) * lin.pose_scale
+        return cam_space + inc_phys.to(self.dtype).T.reshape(
+            self.n_cams, 3, 4
+        )
+
+    def _back_sub_s(self, new_cam, lm_p, lin: Lin1S, inc_scaled):
+        """Exact VarProj landmark step from UNWEIGHTED fresh Jacobians
+        at the updated cameras (helper.cpp:382-454), and the model cost
+        decrease l_diff against the stored linearization. Returns
+        (new_lm_p, l_diff) with l_diff a 0-d f64 tensor."""
+        sd = self.solve_dtype
+        inc_f = inc_scaled.to(sd).contiguous()
+        ct_new = self._cam_table(new_cam, sd)
+        _rw, _sw, ata, atr, _jpsq = pose_kernels.prepare(
+            self.obs.cam, ct_new, lin.x, self._uv_s, self._mask1,
+            alpha=self.alpha, robust=0, huber=1.0, weighted=False,
+        )
+        hll_new = self._hll_guard_L(self._seg_L(ata).reshape(3, 3, -1))
+        tmp = self._seg_L(atr)
+        inc_lm = -linalg.solve3x3f(hll_new, tmp)  # [3, L]
+
+        neg_l_diff = pose_kernels.apply_ldiff(
+            self.obs.cam, lin.x, self._uv_s, lin.sw, lin.r_w,
+            self._expand_L(lin.jl_scale), self._expand_L(inc_lm),
+            lin.ct, inc_f, alpha=self.alpha,
+        )
+        if isinstance(lm_p, LmState):
+            new_lm = LmState(rows=lm_p.rows + inc_lm.to(self.dtype))
+        else:
+            new_lm = lm_p + self._L_to_lm(inc_lm).to(self.dtype).T
+        return new_lm, -neg_l_diff

@@ -1,0 +1,294 @@
+"""Step 1 of povar_tpu_torch against povar_tpu on one problem
+(synthetic_bal_problem(n_cams=8, n_lms=60, obs_per_lm=5, seed=7)): the
+modules of the solve one by one, then the slice as a whole.
+
+JAX side: Stage1Solver with pallas_kernels="on" (the Pallas kernels in
+interpret mode, as tests/test_pallas_pose.py runs them),
+fused_power_term=False and device_lm_loop="off" — the configuration the
+port implements. Port side: the same options on the CPU, where every
+kernel call runs its plain PyTorch version.
+
+Both packages evaluate the linearization and the inner solve in f32
+with sums in different orders, so module outputs agree to f32 rounding
+amplified by the problem's conditioning; tolerances are relative to the
+largest magnitude of each output and stated per test with the gap
+measured on this problem. Costs are f64 and agree to 1e-12 on equal
+states. Decisions (accept/reject, power-series term counts) must be
+identical.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from povar_tpu.options import SolverOptions as JaxOptions
+from povar_tpu.problem.synthetic import synthetic_bal_problem
+from povar_tpu.solver.lm import optimize_step1 as jax_optimize_step1
+from povar_tpu.solver.stage1 import Stage1Solver as JaxStage1
+from povar_tpu.utils.summary import SolverSummary as JaxSummary
+from povar_tpu.utils.timer import Timer as JaxTimer
+from povar_tpu_torch import (
+    SolverOptions,
+    SolverSummary,
+    Stage1Solver,
+    Timer,
+    from_numpy,
+    optimize_step1,
+)
+from povar_tpu_torch.options import RobustNorm, SolverType
+from povar_tpu_torch.ops import pose_kernels
+from povar_tpu_torch.solver.stage1 import LmState
+
+ITERS = 6
+
+
+def _slice_options(cls):
+    opts = cls()
+    opts.max_num_iterations_step_1 = ITERS
+    opts.fused_power_term = False
+    opts.device_lm_loop = "off"
+    return opts
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return synthetic_bal_problem(n_cams=8, n_lms=60, obs_per_lm=5, seed=7)[0]
+
+
+@pytest.fixture(scope="module")
+def solvers(problem):
+    jopts = _slice_options(JaxOptions)
+    jopts.pallas_kernels = "on"
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    js = JaxStage1(*args, jopts)
+    assert js.use_pallas and js._e0_meta is None
+    ts = Stage1Solver(*args, _slice_options(SolverOptions))
+    return js, ts
+
+
+@pytest.fixture(scope="module")
+def lin_point(problem, solvers):
+    """JAX's linearization at the VarProj-initialized state, and the
+    same arrays as torch tensors: module tests feed both packages the
+    same inputs."""
+    js, ts = solvers
+    cams = jnp.asarray(problem.cam_space)
+    lms = js.initialize_varproj(cams)
+    jlin = js.linearize(cams, js.lm_pack(lms))
+    tlin = type(ts.linearize(torch.as_tensor(problem.cam_space),
+                             torch.as_tensor(np.array(lms))))(
+        *[torch.as_tensor(np.array(v)) for v in jlin]
+    )
+    return cams, lms, jlin, tlin
+
+
+def _close(got, want, tol):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def test_initialize_varproj(problem, solvers):
+    """Measured gap 3.9e-7; tolerance 1e-5."""
+    js, ts = solvers
+    want = js.initialize_varproj(jnp.asarray(problem.cam_space))
+    got = ts.initialize_varproj(torch.as_tensor(problem.cam_space))
+    assert got.dtype == torch.float64 and tuple(got.shape) == want.shape
+    _close(got.numpy(), want, 1e-5)
+
+
+def test_linearize(problem, solvers, lin_point):
+    """Each package linearizes at its own initialized state. Measured
+    gaps <= 7e-7 (r_w), 2e-7 (pose_scale); tolerance 1e-5. bl_raw is
+    analytically zero there (the landmarks minimize the cost for these
+    cameras), so both hold rounding noise: bounded by 1e-5 of the
+    |hll_raw| x |x| scale instead."""
+    js, ts = solvers
+    _cams, lms, jlin, _tlin = lin_point
+    tlms = ts.initialize_varproj(torch.as_tensor(problem.cam_space))
+    tlin = ts.linearize(torch.as_tensor(problem.cam_space), ts.lm_pack(tlms))
+    for f in ("ct", "x", "r_w", "sw", "hll_raw", "jl_scale", "pose_scale"):
+        _close(getattr(tlin, f).numpy(), getattr(jlin, f), 1e-5)
+    scale = np.abs(np.asarray(jlin.hll_raw)).max() * np.abs(
+        np.asarray(jlin.x)).max()
+    assert np.abs(tlin.bl_raw.numpy()).max() <= 1e-5 * scale
+    assert np.abs(np.asarray(jlin.bl_raw)).max() <= 1e-5 * scale
+
+
+def test_hpp_b(solvers, lin_point):
+    """The per-camera normal equations of one linearization (hpp
+    undamped, b) from the same linearization. Measured gap 3.0e-7
+    (hpp), 1.6e-7 (b); tolerance 1e-4 (per-camera sums)."""
+    js, ts = solvers
+    _cams, _lms, jlin, tlin = lin_point
+    lam = jnp.asarray(1e-4, jnp.float32)
+    _hi, jhib, jjls, _lh = js._hll_pieces_s(js.obs, jlin, lam, False)
+    jhpp, jb = js._hpp_b_s(js.obs, jlin, jhib, jjls)
+    _hi, thib, tjls, _lh = ts._hll_pieces_s(tlin)
+    _close(thib.numpy(), jhib, 1e-5)
+    thpp, tb = ts._hpp_b_s(tlin, thib, tjls)
+    _close(thpp.numpy(), jhpp, 1e-4)
+    _close(tb.numpy(), jb, 1e-4)
+
+
+@pytest.mark.parametrize("lam", [1e-4, 1e2])
+def test_power_series_increment(solvers, lin_point, lam):
+    """One POWER_VARPROJ solve from the same linearization: the same
+    number of power terms (the slice test below covers the full m = 10
+    terms), the increment within 1e-4 (measured 4.4e-6 at lam=1e-4: f32
+    rounding in another summation order, amplified by the reduced
+    camera system's conditioning)."""
+    js, ts = solvers
+    _cams, _lms, jlin, tlin = lin_point
+    jinc, jn = js.solve_power(jlin, jnp.asarray(lam))
+    tinc, tn = ts.solve_power(tlin, lam)
+    assert tn == int(jn)
+    assert tinc.dtype == torch.float64
+    _close(tinc.numpy(), jinc, 1e-4)
+
+
+def test_apply_and_compute_error(solvers, lin_point):
+    """The apply (camera update + VarProj back-substitution) of one
+    increment and the f64 cost of the result: cameras agree exactly
+    (the same f32 unscaling), landmarks to 1e-5 (measured 2.4e-6),
+    l_diff to 1e-4 (measured 8e-9), and the cost of the SAME state to
+    1e-12 against the JAX double-float kernel (measured 1e-15)."""
+    js, ts = solvers
+    cams, lms, jlin, tlin = lin_point
+    jinc, _ = js.solve_power(jlin, jnp.asarray(1e-4))
+    tcams = torch.as_tensor(np.array(cams))
+    jnc, jnl, jld = js.apply(cams, js.lm_pack(lms), jlin, jinc)
+    tnc, tnl, tld = ts.apply(
+        tcams, ts.lm_pack(torch.as_tensor(np.array(lms))), tlin,
+        torch.as_tensor(np.array(jinc)),
+    )
+    np.testing.assert_array_equal(tnc.numpy(), np.asarray(jnc))
+    assert isinstance(tnl, LmState)
+    _close(tnl.rows.numpy(), jnl.rows, 1e-5)
+    _close(float(tld), float(jld), 1e-4)
+
+    for state_j, state_t in (
+        ((cams, lms), (tcams, torch.as_tensor(np.array(lms)))),
+        ((jnc, jnl), (torch.as_tensor(np.array(jnc)),
+                      LmState(torch.as_tensor(np.array(jnl.rows))))),
+    ):
+        je = js.compute_error(*state_j)
+        te = ts.compute_error(*state_t)
+        np.testing.assert_allclose(
+            float(te["error_all"]), float(je["error_all"]), rtol=1e-12
+        )
+        np.testing.assert_allclose(
+            float(te["residual_sum_all"]), float(je["residual_sum_all"]),
+            rtol=1e-7,
+        )
+        assert te["num_obs_all"] == int(je["num_obs_all"])
+        assert bool(te["is_numerically_valid"])
+
+
+def test_step1_slice_matches_jax(problem, solvers):
+    """optimize_step1 for six iterations in both packages from the same
+    numpy problem: identical accept/reject decisions and power-term
+    counts; costs within 1e-3 (measured 1.0e-4: f32 inner-solve rounding
+    compounds over the accepted steps, as between the JAX package's own
+    structured and XLA paths, tests/test_pallas_pose.py:398) and the
+    lambda schedule within 1e-4 (measured 1.2e-5: the damping factor is a
+    function of the cost decrease, so it inherits the costs' noise)."""
+    js, ts = solvers
+    jsum = JaxSummary()
+    jax_optimize_step1(
+        js, jnp.asarray(problem.cam_space), jnp.asarray(problem.lm_p),
+        js.opts, jsum, JaxTimer(), log=lambda s: None,
+    )
+    _p, cams, lms = from_numpy(
+        problem.obs_cam, problem.obs_lm, problem.obs_uv, problem.cam_space,
+        problem.lm_p, device="cpu",
+    )
+    tsum = SolverSummary()
+    pose_kernels.reset_launch_counts()
+    out_cams, out_lms = optimize_step1(
+        ts, cams, lms, ts.opts, tsum, Timer(), log=lambda s: None
+    )
+    assert all(v == 0 for v in pose_kernels.launch_counts().values())
+    assert tuple(out_cams.shape) == (problem.num_cameras, 3, 4)
+    assert tuple(out_lms.shape) == (problem.num_landmarks, 3)
+    assert len(tsum.iterations) == len(jsum.iterations) == ITERS + 1
+    for t, j in zip(tsum.iterations, jsum.iterations):
+        assert t.step_is_successful == j.step_is_successful
+        assert t.step_is_valid == j.step_is_valid
+        assert t.linear_solver_iterations == j.linear_solver_iterations
+        np.testing.assert_allclose(
+            t.cost.all.error, j.cost.all.error, rtol=1e-3
+        )
+        np.testing.assert_allclose(
+            t.trust_region_radius, j.trust_region_radius, rtol=1e-4
+        )
+    assert tsum.termination_type == jsum.termination_type
+    np.testing.assert_allclose(
+        tsum.final_cost.all.error, jsum.final_cost.all.error, rtol=1e-3
+    )
+
+
+def _cfg(**kw):
+    opts = _slice_options(SolverOptions)
+    for k, v in kw.items():
+        setattr(opts, k, v)
+    return opts
+
+
+@pytest.mark.parametrize(
+    "opts, dtype, match",
+    [
+        (_cfg(solver_type_step_1=SolverType.PCG), torch.float64, "item 9"),
+        (_cfg(solver_type_step_1=SolverType.CHOLESKY), torch.float64,
+         "item 9"),
+        (_cfg(fused_power_term=True), torch.float64, "e0_term_parts"),
+        (_cfg(mixed_precision_solves=False), torch.float64, "item 11"),
+        (_cfg(), torch.float32, "item 11"),
+        (_cfg(pallas_kernels="off"), torch.float64, "item 9"),
+        (_cfg(device_lm_loop="on"), torch.float64, "item 8"),
+        (_cfg(detailed_timing=True), torch.float64, "item 14"),
+    ],
+)
+def test_configurations_outside_the_slice_raise(problem, opts, dtype, match):
+    with pytest.raises(NotImplementedError, match=match):
+        Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                     problem.num_cameras, problem.num_landmarks, opts,
+                     dtype=dtype)
+
+
+def test_too_many_cameras_raise():
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Stage1Solver(np.array([0, 1024]), np.array([0, 0]),
+                     np.zeros((2, 2)), 1025, 1, _cfg())
+
+
+def test_default_options_and_huber_run(problem):
+    """SolverOptions() defaults with only fused_power_term=False (device
+    loop 'auto' = the host loop here) and a HUBER configuration both
+    construct and take a step whose cost falls."""
+    for robust in (RobustNorm.NONE, RobustNorm.HUBER):
+        opts = SolverOptions()
+        opts.fused_power_term = False
+        opts.max_num_iterations_step_1 = 2
+        opts.residual.robust_norm = robust
+        s = Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                         problem.num_cameras, problem.num_landmarks, opts)
+        summ = SolverSummary()
+        optimize_step1(s, torch.as_tensor(problem.cam_space),
+                       torch.as_tensor(problem.lm_p), opts, summ, Timer(),
+                       log=lambda s_: None)
+        costs = [it.cost.all.error for it in summ.iterations]
+        assert costs[-1] < costs[0]
+
+
+def test_cuda_device_without_a_card_raises(problem):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                     problem.num_cameras, problem.num_landmarks, _cfg(),
+                     device="cuda")
