@@ -2,41 +2,76 @@
 
     python3 chip_smoke.py
 
-Drives step 1 of the solve (pOSE VarProj LM, POWER_VARPROJ, m = 10) of
-the PyTorch / CUDA port in phases, each printing its lines and raising on
-failure (a failure exits non-zero and prints no result line):
+Drives the two-step solve of the PyTorch / CUDA port (`bundle_adjust`:
+step 1, pOSE VarProj LM with POWER_VARPROJ; step 2, Riemannian LM with
+RIPOBA; m = 10 power terms) in phases, each printing its lines and
+raising on failure (a failure exits non-zero and prints no result line):
 
-1. device   a CUDA device, its name and power limit (nvidia-smi);
-2. build    the seven kernels of povar_tpu_torch/csrc/ from source;
-3. kernels  each kernel at the venice-89 shapes (O = 557,056 padded
-            observations, N = 89 cameras) on seeded inputs, against its
-            plain PyTorch version on the same card, with CUDA-event
-            times (median of 20 calls) and profiler device times (mean
-            of 20 calls) for both; the large-N variant of
-            hpp_b_structured at N = 1024;
-4. slice    a 6-iteration solve of a small problem on the card against
-            the same solve through the plain versions on the CPU; then
-            the venice-89-scale solve (synthetic_bal_problem_fast(89,
-            110973, 5, seed=0), SolverOptions() defaults except
-            fused_power_term=False, device_lm_loop="off") with launch
-            counters zeroed just before and read just after: every
-            kernel must have run, accepted costs must fall strictly, and
-            the final cost must be within 1e-3 relative of 207.47874642216357,
-            the JAX package's final step-1 cost on the same problem
-            (BENCH_r05.json); then a warm repeat of the solve, the warm
-            time of one full step-1 iteration as bench.py times it
-            (linearize + trial, eta = 0, m = 10, 50 chained iterations,
-            one synchronisation) and a profiler breakdown of it.
+1. device    a CUDA device, its name and power limit (nvidia-smi);
+2. build     the thirteen kernels of povar_tpu_torch/csrc/ from source;
+3. kernels   each step-1 kernel at the venice-89 shapes (O = 557,056
+             padded observations, N = 89 cameras) on seeded inputs,
+             against its plain PyTorch version on the same card (each
+             output scaled per entry or per camera, see ELEM), with
+             CUDA-event times (median of 20 calls) and profiler device
+             times (mean of 20 calls) for both; the large-N variant of
+             hpp_b_structured at N = 1024;
+4. step 1    a 6-iteration step-1 solve of a small problem on the card
+             against the same solve through the plain versions on the
+             CPU; then the venice-89-scale step-1 solve
+             (synthetic_bal_problem_fast(89, 110973, 5, seed=0),
+             SolverOptions() defaults except fused_power_term=False,
+             device_lm_loop="off") with the launch counters zeroed just
+             before and read just after: every step-1 kernel must have
+             run, accepted costs must fall strictly, and the final cost
+             must be within 1e-3 relative of 207.47874642216357, the JAX
+             package's final step-1 cost on the same problem
+             (BENCH_r05.json); a warm repeat; the warm time of one full
+             step-1 iteration as bench.py times it (linearize + trial,
+             eta = 0, m = 10, 50 chained iterations, one synchronisation)
+             and a profiler breakdown of it;
+5. kernels2  each step-2 kernel at the venice-89 shapes on the step-2
+             state of the card's step-1 result (`create_homogeneous`),
+             with seeded zt, sb, mat6, hib and ilm4, against its plain
+             version (use_valid on and off and NONE / HUBER for
+             prepare2, add_r on and off for mat_dot2, NONE / HUBER for
+             pose_error2), timed as in phase 3; then every case again on
+             the well-conditioned rows alone (live rows whose |1/p2| is
+             at most CALM of tools/step2_spread.py times the median);
+6. witness   step 2's first 7 iterations at venice-89 width from that
+             same state without the landmarks near a camera's principal
+             plane, twice on the card and once through the plain
+             versions on the CPU: identical decisions and power terms,
+             the accepted costs within 1e-5 and 3e-4 of the CPU's
+             (WITNESS_TOLS of tools/step2_spread.py);
+7. pipeline  `bundle_adjust` of a small problem on the card against the
+             CPU (identical decisions in both steps, final costs within
+             2e-3 in step 1 and 1e-3 in step 2); then the venice-89
+             `bundle_adjust` with all thirteen
+             launch counters zeroed just before and read just after:
+             every kernel must have run, accepted costs must fall
+             strictly in each step, the step-1 final cost must be within
+             1e-3 of 207.47874642216357, the step-2 final cost within
+             [0.5, 4] x 1845.1889071641926 (BENCH_r05.json
+             e2e_final_cost_step2; see STEP2_BAND) and at least 100x
+             below its start, the state finite; a warm repeat; the
+             warm step-2 iteration as bench.py's bench_step2 times it
+             and a profiler breakdown of it.
 
-The second-to-last line is {"kernels": [...]} (per-kernel route, source,
-replaced TPU kernel, launches in the main solve, max abs error against
-the plain version, and both times); the last line is
-{"ok": true, "device": {...}}. Needs the repository (the package and its
-kernel sources) beside this file; imports nothing of JAX.
+The second-to-last line is {"kernels": [...]}: per kernel its route,
+source, replaced TPU kernel, launches in the venice-89 `bundle_adjust`,
+max abs error against the plain version, event times of kernel and
+plain version, the least time the card could take for the same call
+(`bound_ms`: the bytes the call must move at 3.35 TB/s or its arithmetic
+at the peak rate of its type, whichever is larger) and `library_ms`
+(null: no single PyTorch call computes any of these functions). The last
+line is {"ok": true, "device": {...}}. Needs the repository (the package
+and its kernel sources) beside this file; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -47,9 +82,24 @@ import numpy as np
 import torch
 
 JAX_FINAL_COST = 207.47874642216357  # BENCH_r05.json e2e_final_cost_step1
+JAX_FINAL_COST2 = 1845.1889071641926  # BENCH_r05.json e2e_final_cost_step2
+JAX_RECORDS = 76  # BENCH_r05.json e2e_iterations (both steps' records)
+# Step 2 of this noise-free problem stops at its 50-iteration cap in
+# mid-descent along a chaotic path: from ONE step-1 result, twenty runs
+# on an H100 ended between 1644 and 1801 (the f32 atomics' order
+# alone), and thirty bundle_adjust runs between 1689 and 6006 (0.92x to
+# 3.26x the JAX value), their step-2 start costs spread from 8.0e5 to
+# 1.7e9 by step 1's own rounding (povar_tpu_torch/tools/step2_spread.py;
+# PERF.md). No run can match one 50-iteration snapshot to 1e-3, so the
+# 50-iteration end state is held only to a sanity band around the JAX
+# value that covers that measured spread, and to a drop of at least 100x
+# below its start; the tight check of step 2 at this scale is the
+# witness (check_step2_witness: its first iterations, card against CPU).
+STEP2_BAND = (0.5, 4.0)
+STEP2_DROP = 1e-2
 N_CAMS, N_LMS, OBS_PER_LM = 89, 110_973, 5
 REPS = 20
-SOURCE = "povar_tpu_torch/csrc/pose1.cu"
+SOURCES = {1: "povar_tpu_torch/csrc/pose1.cu", 2: "povar_tpu_torch/csrc/pose2.cu"}
 REPLACES = {
     "prepare": "povar_tpu/ops/pallas_pose.py:285",
     "e0_factor": "povar_tpu/ops/pallas_pose.py:385",
@@ -58,11 +108,36 @@ REPLACES = {
     "e0_scatter_structured": "povar_tpu/ops/pallas_pose.py:623",
     "apply_ldiff": "povar_tpu/ops/pallas_pose.py:846",
     "pose_error": "povar_tpu/ops/pallas_pose.py:1319",
+    "prepare2": "povar_tpu/ops/pallas_pose2.py:157",
+    "hppb2": "povar_tpu/ops/pallas_pose2.py:267",
+    "mat_dot2": "povar_tpu/ops/pallas_pose2.py:347",
+    "scatter2": "povar_tpu/ops/pallas_pose2.py:412",
+    "ldiff2": "povar_tpu/ops/pallas_pose2.py:667",
+    "pose_error2": "povar_tpu/ops/pallas_pose2.py:822",
 }
-# tolerances, relative to max |plain|: elementwise outputs see only FMA
-# contraction; per-camera sums and l_diff also see the order of f32
-# atomics; the f64 cost sees the order of f64 sums
-TOL_ELEM, TOL_SUM, TOL_F64 = 1e-5, 1e-4, 1e-12
+# (kind, tolerance) of each output, the kinds of
+# povar_tpu_torch/tools/parity.py: elementwise outputs entry by entry
+# against |plain| + the median |plain| of their row (the kernels build
+# with --fmad=false, so only the rounding of the plain version's own
+# operations can differ); per-camera sums camera by camera against that
+# camera's largest |plain|, and l_diff against |plain| (both also see
+# the order of f32 atomics); the f64 cost against |plain| (the order of
+# f64 sums); counts and flags exactly
+ELEM, CAM, SUM = ("elem", 1e-5), ("cam", 1e-4), ("scalar", 1e-4)
+F64, EXACT = ("scalar", 1e-12), ("exact", 0.0)
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 and f64 rates
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# arithmetic per observation, counted roughly from the kernel sources
+# (a multiply, an add, a division, a square root or an atomic add each
+# count one); at these rates it never sets the bound, the bytes do
+FLOPS_PER_OBS = {
+    "prepare": 110, "e0_factor": 90, "hpp_b_structured": 300,
+    "e0_u_structured": 40, "e0_scatter_structured": 60, "apply_ldiff": 90,
+    "pose_error": 60, "prepare2": 110, "hppb2": 290, "mat_dot2": 40,
+    "scatter2": 45, "ldiff2": 55, "pose_error2": 45,
+}
 
 
 def phase(name: str) -> None:
@@ -106,25 +181,89 @@ def device_us(fn, reps: int = REPS) -> float:
     ) / reps
 
 
-def compare(name, got, want, tols):
-    """max |got - want| per output against tol * max |want|; raises on a
-    miss. Returns the largest absolute error."""
-    worst = 0.0
-    for k, (g, w, tol) in enumerate(zip(got, want, tols)):
-        g64, w64 = g.double(), w.double()
-        if g64.shape != w64.shape:
-            raise AssertionError(f"{name}[{k}]: shape {g64.shape} != {w64.shape}")
-        if not bool(torch.isfinite(g64).all()):
-            raise AssertionError(f"{name}[{k}]: non-finite kernel output")
-        err = float((g64 - w64).abs().max())
-        scale = float(w64.abs().max())
-        if not err <= tol * scale:
-            raise AssertionError(
-                f"{name}[{k}]: max |kernel - plain| = {err:.3e} > "
-                f"{tol:g} * {scale:.3e}"
-            )
-        worst = max(worst, err)
-    return worst
+def _outputs(out):
+    """A wrapper's result as a tuple of tensors (the cost's dict in its
+    key order)."""
+    if isinstance(out, dict):
+        return tuple(out.values())
+    return out if isinstance(out, tuple) else (out,)
+
+
+def compare(name, got, want, specs):
+    """Each output against its plain version, scaled by its (kind, tol)
+    in `specs` (povar_tpu_torch/tools/parity.py); raises on a miss.
+    Returns (largest absolute error, the scaled error of each output)."""
+    from povar_tpu_torch.tools.parity import scaled_error
+
+    outs = list(zip(_outputs(got), _outputs(want)))
+    if len(outs) != len(specs):
+        raise AssertionError(f"{name}: {len(outs)} outputs, {len(specs)} specs")
+    worst, rels = 0.0, []
+    for k, ((g, w), (kind, tol)) in enumerate(zip(outs, specs)):
+        try:
+            rel = scaled_error(g, w, kind)
+        except ValueError as e:
+            raise AssertionError(f"{name}[{k}]: {e}") from e
+        if not rel <= tol:
+            raise AssertionError(f"{name}[{k}]: scaled error ({kind}) "
+                                 f"{rel:.3e} > {tol:g}")
+        worst = max(worst, float((g.double() - w.double()).abs().max()))
+        rels.append(rel)
+    return worst, rels
+
+
+def bound_ms(name, inputs, outputs, n_obs, n_read=None):
+    """The least time the card could take for one call: the larger of the
+    bytes it must move (each input read once, each output written once)
+    over the HBM bandwidth and its arithmetic over the peak rate of its
+    type. `n_read`: observation rows whose operands the kernel reads
+    (the kernels that skip dead rows read only the gate of the others);
+    per-observation inputs other than the first (the gate) scale by it.
+    Returns (ms, "bytes" or "operations")."""
+    n_read = n_obs if n_read is None else n_read
+    moved = 0.0
+    for k, t in enumerate(x for x in inputs if x is not None):
+        per_obs = t.dim() > 0 and t.shape[-1] == n_obs
+        scale = n_read / n_obs if per_obs and k > 0 else 1.0
+        moved += t.numel() * t.element_size() * scale
+    moved += sum(t.numel() * t.element_size() for t in _outputs(outputs))
+    dtype = torch.float64 if name in ("pose_error", "pose_error2") else torch.float32
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = FLOPS_PER_OBS[name] * n_read / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_cases(kernels, plain, cases, n_obs):
+    """Each case (name, variant, call, inputs, specs, n_read): the kernel
+    against its plain version on the same card; the case of each kernel
+    without a variant label gets event and device times and its bound.
+    Returns {name: result dict}."""
+    results = {}
+    for name, variant, run, inputs, specs, n_read in cases:
+        got = run(kernels)
+        torch.cuda.synchronize()
+        want = run(plain)
+        err, rels = compare(f"{name} {variant or ''}".strip(), got, want,
+                            specs)
+        rel = " ".join(f"{x:.1e}" for x in rels)
+        res = results.setdefault(name, dict(max_abs_err=0.0))
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if variant:
+            print(f"{name:<22} max_abs_err {err:.3e} scaled [{rel}] "
+                  f"({variant})", flush=True)
+            continue
+        ms = cuda_ms(lambda: run(kernels))
+        plain_ms = cuda_ms(lambda: run(plain))
+        b_ms, b_by = bound_ms(name, inputs, got, n_obs, n_read)
+        res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None)
+        print(f"{name:<22} max_abs_err {err:.3e} scaled [{rel}]  events: "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms  device: kernel "
+              f"{device_us(lambda: run(kernels)):.1f} us plain "
+              f"{device_us(lambda: run(plain)):.1f} us  bound "
+              f"{b_ms * 1e3:.1f} us ({b_by})", flush=True)
+    return results
 
 
 def kernel_inputs(solver, problem, seed=0):
@@ -165,59 +304,47 @@ def check_kernels(solver, problem, alpha):
     from povar_tpu_torch.ops import pose_ref as pr
 
     d = kernel_inputs(solver, problem)
-    n = solver.n_cams
+    n, o = solver.n_cams, int(d["cam"].shape[0])
+    live = int((d["mask"] > 0).sum())
     a = dict(alpha=alpha)
-    cases = {
-        "prepare": (
-            lambda m: m.prepare(d["cam"], d["ct"], d["x"], d["uv"],
-                                d["mask"], robust=0, huber=1.0, **a),
-            [TOL_ELEM] * 4 + [TOL_SUM],
-        ),
-        "e0_factor": (
-            lambda m: (m.e0_factor(d["cam"], d["ct"], d["uv"], d["w"],
-                                   d["jls"], d["lh"], **a),),
-            [TOL_ELEM],
-        ),
-        "hpp_b_structured": (
-            lambda m: m.hpp_b_structured(d["cam"], d["ct"], d["x"], d["uv"],
-                                         d["sw"], d["r_w"], d["jls"],
-                                         d["hib"], n, **a),
-            [TOL_SUM, TOL_SUM],
-        ),
-        "e0_u_structured": (
-            lambda m: (m.e0_u_structured(d["cam"], d["x"], d["h"], d["z"]),),
-            [TOL_ELEM],
-        ),
-        "e0_scatter_structured": (
-            lambda m: (m.e0_scatter_structured(d["cam"], d["x"], d["h"],
-                                               d["sb"], n),),
-            [TOL_SUM],
-        ),
-        "apply_ldiff": (
-            lambda m: (m.apply_ldiff(d["cam"], d["x"], d["uv"], d["sw"],
+
+    def case(name, run, keys, specs, n_read=None):
+        return (name, None, run, [d[k] for k in keys], specs, n_read)
+
+    cases = [
+        case("prepare",
+             lambda m: m.prepare(d["cam"], d["ct"], d["x"], d["uv"],
+                                 d["mask"], robust=0, huber=1.0, **a),
+             ("cam", "ct", "x", "uv", "mask"), [ELEM] * 4 + [CAM]),
+        case("e0_factor",
+             lambda m: m.e0_factor(d["cam"], d["ct"], d["uv"], d["w"],
+                                   d["jls"], d["lh"], **a),
+             ("cam", "ct", "uv", "w", "jls", "lh"), [ELEM]),
+        case("hpp_b_structured",
+             lambda m: m.hpp_b_structured(d["cam"], d["ct"], d["x"], d["uv"],
+                                          d["sw"], d["r_w"], d["jls"],
+                                          d["hib"], n, **a),
+             ("sw", "cam", "ct", "x", "uv", "r_w", "jls", "hib"),
+             [CAM, CAM], live),
+        case("e0_u_structured",
+             lambda m: m.e0_u_structured(d["cam"], d["x"], d["h"], d["z"]),
+             ("cam", "x", "h", "z"), [ELEM]),
+        case("e0_scatter_structured",
+             lambda m: m.e0_scatter_structured(d["cam"], d["x"], d["h"],
+                                               d["sb"], n),
+             ("cam", "x", "h", "sb"), [CAM]),
+        case("apply_ldiff",
+             lambda m: m.apply_ldiff(d["cam"], d["x"], d["uv"], d["sw"],
                                      d["r_w"], d["jls"], d["inc_lm"],
-                                     d["ct"], d["inc"], **a),),
-            [TOL_SUM],
-        ),
-        "pose_error": (
-            lambda m: m.pose_error(d["cam"], d["ct64"], d["x64"], d["uv64"],
-                                   d["mask"], robust=0, huber=1.0, **a),
-            [TOL_F64, TOL_F64, 0.0],
-        ),
-    }
-    results = {}
-    for name, (run, tols) in cases.items():
-        got = run(pk)
-        torch.cuda.synchronize()
-        want = run(pr)
-        err = compare(name, got, want, tols)
-        ms = cuda_ms(lambda: run(pk))
-        plain_ms = cuda_ms(lambda: run(pr))
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        print(f"{name:<22} max_abs_err {err:.3e}  events: kernel {ms:.4f} ms"
-              f" plain {plain_ms:.4f} ms  device: kernel "
-              f"{device_us(lambda: run(pk)):.1f} us plain "
-              f"{device_us(lambda: run(pr)):.1f} us", flush=True)
+                                     d["ct"], d["inc"], **a),
+             ("sw", "cam", "x", "uv", "r_w", "jls", "inc_lm", "ct", "inc"),
+             [SUM], live),
+        case("pose_error",
+             lambda m: m.pose_error(d["cam"], d["ct64"], d["x64"], d["uv64"],
+                                    d["mask"], robust=0, huber=1.0, **a),
+             ("mask", "cam", "ct64", "x64", "uv64"), [F64, F64, EXACT], live),
+    ]
+    results = run_cases(pk, pr, cases, o)
 
     # the large-N route of hpp_b_structured (direct global atomics when
     # 156 N floats of accumulators exceed a block's shared memory)
@@ -236,14 +363,128 @@ def check_kernels(solver, problem, alpha):
         return m.hpp_b_structured(cam_big, ct_big, d["x"], d["uv"], d["sw"],
                                   d["r_w"], d["jls"], d["hib"], nb, **a)
 
-    err = compare("hpp_b_structured N=1024", big(pk), big(pr),
-                  [TOL_SUM, TOL_SUM])
-    print(f"hpp_b_structured N=1024 max_abs_err {err:.3e}  events: kernel "
+    err, rels = compare("hpp_b_structured N=1024", big(pk), big(pr),
+                        [CAM, CAM])
+    print(f"hpp_b_structured N=1024 max_abs_err {err:.3e} scaled "
+          f"[{rels[0]:.1e} {rels[1]:.1e}]"
+          f"  events: kernel "
           f"{cuda_ms(lambda: big(pk)):.4f} ms plain "
           f"{cuda_ms(lambda: big(pr)):.4f} ms  device: kernel "
           f"{device_us(lambda: big(pk)):.1f} us plain "
           f"{device_us(lambda: big(pr)):.1f} us", flush=True)
     return results
+
+
+def check_kernels2(solver2, cams_h, lms_h, seed=1):
+    """The six step-2 kernels on the step-2 state (cams_h, lms_h) of the
+    card's step-1 result: the linearization's own per-observation
+    operands plus seeded zt, sb, mat6, hib and ilm4."""
+    from povar_tpu_torch.ops import pose2_kernels as pk2
+    from povar_tpu_torch.ops import pose2_ref as pr2
+    from povar_tpu_torch.tools.step2_spread import CALM
+
+    lin = solver2.linearize(cams_h, solver2.lm_pack(lms_h))
+    rng = np.random.default_rng(seed)
+    dev = solver2.device
+    o, n = int(solver2.obs.cam.shape[0]), solver2.n_cams
+
+    def f32(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                               device=dev)
+
+    d = dict(
+        cam=solver2.obs.cam, ct=lin.ct, x4=lin.x4, uv=solver2._uv_s,
+        mask=solver2._mask1, mm=lin.mm, sw=lin.sw, r_w=lin.r_w,
+        jlns=lin.jlns, jls8=lin.jls8,
+        zt=f32(12, n), sb=f32(3, o), mat6=f32(6, o), hib=f32(3, o),
+        ilm4=f32(4, o),
+        ct64=solver2._cam_table(cams_h, torch.float64),
+        x4_64=solver2._expand_L(solver2._lm_rows(solver2.lm_pack(lms_h))),
+        uv64=solver2.obs.uv,
+    )
+    live = int((d["sw"] > 0).sum())
+    live_mask = int((d["mask"] > 0).sum())
+    print(f"step-2 state: {live} of {o} rows live after the validity "
+          f"check ({live_mask} unmasked)", flush=True)
+
+    # the same state restricted to its well-conditioned rows, every
+    # per-observation operand zeroed on the others (dead rows): the rows
+    # of landmarks near a camera's principal plane dominate whole-output
+    # maxima and sums, here the largest entries are those of typical rows
+    zinv = d["mm"][2].abs()
+    live_rows = d["sw"][0] > 0
+    med = float(zinv[live_rows].median())
+    calm = (live_rows & (zinv <= CALM * med)).to(torch.float32)[None]
+    n_calm = int(calm.sum())
+    print(f"well-conditioned rows: {n_calm} of {live} live rows have "
+          f"|1/p2| <= {CALM:g} x median {med:.4g} (max {float(zinv.max()):.4g})",
+          flush=True)
+    if n_calm < 0.9 * live:
+        raise AssertionError(f"only {n_calm} of {live} rows well-conditioned")
+    dc = dict(d, **{k: d[k] * calm
+                    for k in ("mask", "sw", "mm", "r_w", "jlns", "jls8")})
+
+    main_valid = solver2.use_valid_only
+    prep_specs = [ELEM] * 5 + [CAM]
+    err_specs = [EXACT, F64, F64, EXACT, F64, F64, EXACT]
+
+    def cases_on(d, tag):
+        """The six kernels' cases on operands `d`. Without `tag` the
+        first case of each kernel is its timed one; every other case is
+        a variant named by its options and `tag`."""
+        obs = [d[k] for k in ("cam", "x4", "mm", "sw")]
+
+        def case(name, variant, run, keys, specs, n_read=None):
+            label = ", ".join(v for v in (variant, tag) if v) or None
+            return (name, label, run, [d[k] for k in keys], specs, n_read)
+
+        def prep(use_valid, robust):
+            return lambda m: m.prepare2(d["cam"], d["ct"], d["x4"], d["uv"],
+                                        d["mask"], use_valid=use_valid,
+                                        robust=robust, huber=1.0)
+
+        def err2(robust):
+            return lambda m: m.pose_error2(d["cam"], d["ct64"], d["x4_64"],
+                                           d["uv64"], d["mask"],
+                                           robust=robust, huber=1.0)
+
+        prep_in = ("cam", "ct", "x4", "uv", "mask")
+        return [
+            case("prepare2", None, prep(main_valid, 0), prep_in, prep_specs),
+            case("prepare2", f"use_valid={not main_valid}",
+                 prep(not main_valid, 0), prep_in, prep_specs),
+            case("prepare2", "use_valid=True, HUBER", prep(True, 1), prep_in,
+                 prep_specs),
+            case("prepare2", "use_valid=False, HUBER", prep(False, 1),
+                 prep_in, prep_specs),
+            case("hppb2", None,
+                 lambda m: m.hppb2(*obs, d["r_w"], d["jlns"], d["hib"], n),
+                 ("sw", "cam", "x4", "mm", "r_w", "jlns", "hib"), [CAM, CAM],
+                 live),
+            case("mat_dot2", None,
+                 lambda m: m.mat_dot2(*obs, d["mat6"], None, d["zt"],
+                                      add_r=False),
+                 ("cam", "x4", "mm", "sw", "mat6", "zt"), [ELEM]),
+            case("mat_dot2", "add_r",
+                 lambda m: m.mat_dot2(*obs, d["jlns"], d["r_w"], d["zt"],
+                                      add_r=True),
+                 (), [ELEM]),
+            case("scatter2", None,
+                 lambda m: m.scatter2(*obs, d["mat6"], d["sb"], n),
+                 ("sw", "cam", "x4", "mm", "mat6", "sb"), [CAM], live),
+            case("ldiff2", None,
+                 lambda m: m.ldiff2(*obs, d["r_w"], d["jls8"], d["ilm4"],
+                                    d["zt"]),
+                 ("cam", "x4", "mm", "sw", "r_w", "jls8", "ilm4", "zt"),
+                 [SUM]),
+            case("pose_error2", None, err2(0),
+                 ("mask", "cam", "ct64", "x4_64", "uv64"), err_specs,
+                 live_mask),
+            case("pose_error2", "HUBER", err2(1), (), err_specs),
+        ]
+
+    return run_cases(pk2, pr2, cases_on(d, None)
+                     + cases_on(dc, "well-conditioned rows"), o)
 
 
 def solve(problem, options, device, log=lambda s: None):
@@ -273,19 +514,28 @@ def solve(problem, options, device, log=lambda s: None):
     return summary, out, t1 - t0, time.perf_counter() - t1
 
 
-def trajectory(summary):
-    return [
-        (it.step_is_successful, it.linear_solver_iterations,
-         it.cost.all.error if it.cost is not None else None)
-        for it in summary.iterations
-    ]
+def pipeline(problem, options, device):
+    """bundle_adjust of a copy of `problem` on `device`. Returns
+    (problem out, summary1, summary2, seconds), timed to a device
+    synchronisation."""
+    from povar_tpu_torch import bundle_adjust
+
+    p = copy.deepcopy(problem)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, s1, s2 = bundle_adjust(p, options, log=lambda s: None, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, s1, s2, time.perf_counter() - t0
 
 
 def check_small():
-    """The slice on a small problem, card against CPU (plain versions):
-    the same decisions and term counts, costs within 1e-3 relative (f32
-    inner solves in another summation order)."""
+    """The step-1 slice on a small problem, card against CPU (plain
+    versions): the same decisions and term counts, costs within 1e-3
+    relative (f32 inner solves in another summation order)."""
     from povar_tpu_torch import SolverOptions, synthetic_bal_problem
+    from povar_tpu_torch.tools.step2_spread import trajectory
 
     problem, _ = synthetic_bal_problem(n_cams=8, n_lms=60, obs_per_lm=5,
                                        seed=7)
@@ -305,13 +555,136 @@ def check_small():
           f"{len(trajs[0])} iterations, max cost gap {gap:.3e}", flush=True)
 
 
+def check_small_pipeline():
+    """bundle_adjust on the small case of povar_tpu_torch/tools/
+    step2_spread.py (`small_case`: the problem of tests/test_torch_stage2
+    .py's pipeline test), card against CPU: identical accept/reject
+    decisions in both steps, final costs within that module's SMALL_TOLS
+    (2e-3 for step 1, 1e-3 for step 2, set from fifty measured card
+    runs)."""
+    from povar_tpu_torch.tools.step2_spread import SMALL_TOLS, small_case
+
+    problem, opts = small_case()
+    runs = {dev: pipeline(problem, opts, dev)[1:3] for dev in ("cuda", "cpu")}
+    for step, tol, g, c in zip((1, 2), SMALL_TOLS, runs["cuda"],
+                               runs["cpu"]):
+        dg = [it.step_is_successful for it in g.iterations]
+        dc = [it.step_is_successful for it in c.iterations]
+        fg, fc = g.final_cost.all.error, c.final_cost.all.error
+        gap = abs(fg - fc) / abs(fc)
+        if dg != dc:
+            raise AssertionError(f"small pipeline step {step}: card {dg} != "
+                                 f"cpu {dc}")
+        if not gap <= tol:
+            raise AssertionError(f"small pipeline step {step}: final cost "
+                                 f"{fg} vs cpu {fc} (> {tol:g})")
+        print(f"small pipeline step {step}: card == cpu decisions over "
+              f"{len(dg)} records, final {fg!r} vs cpu {fc!r} (gap "
+              f"{gap:.3e})", flush=True)
+
+
+def check_step2_witness(problem, opts, cams_h, lms_h):
+    """Step 2 at venice-89 width from one homogenized step-1 state
+    (cams_h, lms_h), its first WITNESS_ITERS iterations twice on the card
+    and once through the plain versions on the CPU (`step2_witness` of
+    povar_tpu_torch/tools/step2_spread.py, which leaves out the landmarks
+    near a camera's principal plane): the same accept/reject decisions
+    and power-term counts in all three, the initial cost within 1e-12 and
+    the k-th accepted cost within WITNESS_TOLS[k] relative of the CPU's."""
+    from povar_tpu_torch.tools.step2_spread import (
+        CALM, WITNESS_TOLS, step2_witness, witness_gaps,
+    )
+
+    args, runs = step2_witness(problem, opts, cams_h, lms_h)
+    print(f"step-2 witness problem: {args[4]} of {problem.num_landmarks} "
+          f"landmarks, {len(args[0])} of {problem.num_observations} "
+          f"observations (|1/p2| <= {CALM:g} x median everywhere)",
+          flush=True)
+    for label, (traj, secs) in runs.items():
+        seq = "".join("A" if ok else "R" for ok, _n, _c in traj[1:])
+        print(f"step-2 witness {label:<10} {secs:7.2f} s  {seq}  terms "
+              f"{[n for _ok, n, _c in traj[1:]]}  initial {traj[0][2]!r} "
+              f"last accepted {[c for ok, _n, c in traj if ok][-1]!r}",
+              flush=True)
+    for label, (same, init, gaps) in witness_gaps(runs).items():
+        print(f"step-2 witness {label} vs cpu: initial cost gap {init:.2e}, "
+              f"accepted costs' gaps {[f'{x:.2e}' for x in gaps]}", flush=True)
+        if not same:
+            raise AssertionError(f"step-2 witness: {label} decisions "
+                                 f"{runs[label][0]} != cpu {runs['cpu'][0]}")
+        if not (init <= 1e-12
+                and all(x <= t for x, t in zip(gaps, WITNESS_TOLS))):
+            raise AssertionError(f"step-2 witness: {label} costs off the "
+                                 f"cpu's ({init:.2e}, {gaps})")
+
+
+def check_final(step, summary):
+    """Raise unless the final cost of `step` meets its bound: step 1
+    within 1e-3 relative of the JAX final cost; step 2 within STEP2_BAND
+    times the JAX value and STEP2_DROP times its own initial cost."""
+    final = summary.final_cost.all.error
+    if step == 1:
+        if not abs(final - JAX_FINAL_COST) <= 1e-3 * JAX_FINAL_COST:
+            raise AssertionError(f"step 1: final cost {final} off JAX "
+                                 f"{JAX_FINAL_COST}")
+        return
+    lo, hi = STEP2_BAND
+    initial = summary.initial_cost.all.error
+    if not (lo * JAX_FINAL_COST2 <= final <= hi * JAX_FINAL_COST2
+            and final <= STEP2_DROP * initial):
+        raise AssertionError(f"step 2: final cost {final} outside "
+                             f"[{lo}, {hi}] x JAX {JAX_FINAL_COST2} or above "
+                             f"{STEP2_DROP} x its initial cost {initial}")
+
+
+def report_step(step, summary, jax_cost):
+    """Print one step's trajectory; raise unless accepted costs fall
+    strictly and the final cost meets `check_final`."""
+    its = summary.iterations
+    seq = "".join("A" if it.step_is_successful else "R" for it in its[1:])
+    terms = [it.linear_solver_iterations for it in its[1:]]
+    final = summary.final_cost.all.error
+    rel = abs(final - jax_cost) / jax_cost
+    print(f"step {step}: iterations {len(its) - 1} "
+          f"({summary.termination_type}: {summary.message})", flush=True)
+    print(f"step {step}: accept/reject {seq}", flush=True)
+    print(f"step {step}: power terms {terms}", flush=True)
+    print(f"step {step}: initial cost {its[0].cost.all.error!r} final cost "
+          f"{final!r} rel diff to JAX {rel:.3e}", flush=True)
+    accepted = [it.cost.all.error for it in its if it.step_is_successful]
+    if any(b >= a for a, b in zip(accepted, accepted[1:])):
+        raise AssertionError(f"step {step}: accepted costs not strictly "
+                             f"decreasing: {accepted}")
+    check_final(step, summary)
+
+
+def bench_iterations(step, c, lm, label, reps: int = 50) -> None:
+    """Warm time of one chained iteration (bench.py's definition: 50
+    chained calls, one synchronisation), then its profile."""
+    step(c, lm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cc, ll = c, lm
+    for _ in range(reps):
+        cc, ll, err = step(cc, ll)
+    float(err)
+    per_it = (time.perf_counter() - t0) / reps
+    print(f"warm {label} iteration (linearize + trial, eta=0, m=10, "
+          f"{reps} chained): {per_it * 1e3:.3f} ms", flush=True)
+    profile_iterations(step, c, lm)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    from povar_tpu_torch import SolverOptions, synthetic_bal_problem_fast
-    from povar_tpu_torch.ops import _build
+    from povar_tpu_torch import (
+        SolverOptions, Stage1Solver, Stage2Solver, create_homogeneous,
+        synthetic_bal_problem_fast,
+    )
+    from povar_tpu_torch.ops import _build, launches
+    from povar_tpu_torch.ops import pose2_kernels as pk2
     from povar_tpu_torch.ops import pose_kernels as pk
 
     phase("device")
@@ -340,8 +713,6 @@ def main() -> int:
     opts = SolverOptions()
     opts.fused_power_term = False
     opts.device_lm_loop = "off"
-    from povar_tpu_torch import Stage1Solver
-
     probe = Stage1Solver(
         problem.obs_cam, problem.obs_lm, problem.obs_uv,
         problem.num_cameras, problem.num_landmarks, opts, device="cuda",
@@ -352,30 +723,16 @@ def main() -> int:
     results = check_kernels(probe, problem, opts.alpha)
     del probe
 
-    phase("slice")
+    phase("step 1")
     check_small()
-    pk.reset_launch_counts()
+    launches.reset_launch_counts()
     summary, (cams, lms), setup_s, solve_s = solve(problem, opts, "cuda")
-    counts = pk.launch_counts()
-    its = summary.iterations
-    seq = "".join("A" if it.step_is_successful else "R" for it in its[1:])
-    terms = [it.linear_solver_iterations for it in its[1:]]
-    final = summary.final_cost.all.error
-    rel = abs(final - JAX_FINAL_COST) / JAX_FINAL_COST
-    print(f"iterations {len(its) - 1} ({summary.termination_type}: "
-          f"{summary.message})", flush=True)
-    print(f"accept/reject {seq}", flush=True)
-    print(f"power terms {terms}", flush=True)
-    print(f"initial cost {its[0].cost.all.error!r} final cost {final!r} "
-          f"rel diff to JAX {rel:.3e}", flush=True)
+    counts = {k: v for k, v in launches.launch_counts().items()
+              if k in pk.KERNELS}
+    report_step(1, summary, JAX_FINAL_COST)
     print(f"launches {counts}", flush=True)
     print(f"first solve {solve_s:.3f} s (solver set-up {setup_s:.3f} s)",
           flush=True)
-    accepted = [it.cost.all.error for it in its if it.step_is_successful]
-    if any(b >= a for a, b in zip(accepted, accepted[1:])):
-        raise AssertionError(f"accepted costs not strictly decreasing: {accepted}")
-    if not rel <= 1e-3:
-        raise AssertionError(f"final cost {final} off JAX {JAX_FINAL_COST}")
     if min(counts.values()) == 0:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     if tuple(cams.shape) != (N_CAMS, 3, 4) or tuple(lms.shape) != (N_LMS, 3):
@@ -385,8 +742,7 @@ def main() -> int:
 
     summary2, _, setup2_s, warm_s = solve(problem, opts, "cuda")
     final2 = summary2.final_cost.all.error
-    if not abs(final2 - JAX_FINAL_COST) <= 1e-3 * JAX_FINAL_COST:
-        raise AssertionError(f"warm repeat: final cost {final2}")
+    check_final(1, summary2)
     print(f"warm solve {warm_s:.3f} s (solver set-up {setup2_s:.3f} s), "
           f"{len(summary2.iterations) - 1} iterations, final cost "
           f"{final2!r}", flush=True)
@@ -402,30 +758,81 @@ def main() -> int:
         problem.num_cameras, problem.num_landmarks, bench, device="cuda",
     )
     c = torch.as_tensor(problem.cam_space, device="cuda")
-    lm = s.lm_pack(s.initialize_varproj(c))
+    lm0 = s.initialize_varproj(c)
 
     def step(c, lm):
         lin = s.linearize(c, lm)
         nc, nl, _ok, _it, _ld, err = s.trial(c, lm, lin, 1e-4)
         return nc, nl, err["error_all"]
 
-    step(c, lm)
-    torch.cuda.synchronize()
-    reps = 50
+    bench_iterations(step, c, s.lm_pack(lm0), "step-1")
+
+    phase("kernels2 (venice-89 shapes, step-2 state of the step-1 result)")
     t0 = time.perf_counter()
-    cc, ll = c, lm
-    for _ in range(reps):
-        cc, ll, err = step(cc, ll)
-    float(err)
-    per_it = (time.perf_counter() - t0) / reps
-    print(f"warm step-1 iteration (linearize + trial, eta=0, m=10, "
-          f"{reps} chained): {per_it * 1e3:.3f} ms", flush=True)
-    profile_iterations(step, c, lm)
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    probe2 = Stage2Solver(*args, opts, device="cuda")
+    print(f"step-2 solver set-up {time.perf_counter() - t0:.2f} s", flush=True)
+    cams_h, lms_h = create_homogeneous(cams, lms)
+    results.update(check_kernels2(probe2, cams_h, lms_h))
+    del probe2
+
+    phase("step-2 witness (venice-89, card against CPU from one state)")
+    check_step2_witness(problem, opts, cams_h, lms_h)
+
+    phase("pipeline (bundle_adjust)")
+    check_small_pipeline()
+    t0 = time.perf_counter()
+    Stage1Solver(*args, opts, device="cuda")
+    Stage2Solver(*args, opts, device="cuda")
+    torch.cuda.synchronize()
+    setup_e2e = time.perf_counter() - t0
+    launches.reset_launch_counts()
+    out, p1, p2, e2e_s = pipeline(problem, opts, "cuda")
+    all_counts = launches.launch_counts()
+    report_step(1, p1, JAX_FINAL_COST)
+    report_step(2, p2, JAX_FINAL_COST2)
+    records = len(p1.iterations) + len(p2.iterations)
+    print(f"iteration records {records} ({len(p1.iterations)} + "
+          f"{len(p2.iterations)}; BENCH_r05 e2e_iterations {JAX_RECORDS}, "
+          f"recorded, not compared)", flush=True)
+    print(f"launches {all_counts}", flush=True)
+    print(f"first bundle_adjust {e2e_s:.3f} s (both solvers' set-up, "
+          f"measured apart: {setup_e2e:.3f} s)", flush=True)
+    if len(all_counts) != 13 or min(all_counts.values()) == 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{all_counts}")
+    if out.cam_space.shape != (N_CAMS, 3, 4) or out.lm_p_h.shape != (N_LMS, 4):
+        raise AssertionError(f"output shapes {out.cam_space.shape} "
+                             f"{out.lm_p_h.shape}")
+    if not all(np.isfinite(a).all() for a in (out.cam_space, out.lm_p_h,
+                                              out.lm_p)):
+        raise AssertionError("non-finite optimized state")
+
+    _, w1, w2, warm_e2e = pipeline(problem, opts, "cuda")
+    check_final(1, w1)
+    check_final(2, w2)
+    print(f"warm bundle_adjust {warm_e2e:.3f} s, "
+          f"{len(w1.iterations)} + {len(w2.iterations)} records, final costs "
+          f"{w1.final_cost.all.error!r} {w2.final_cost.all.error!r}",
+          flush=True)
+
+    s2 = Stage2Solver(*args, bench, device="cuda")
+    c2, lm2 = create_homogeneous(c, lm0)
+
+    def step2(c, lm):
+        lin = s2.linearize(c, lm)
+        nc, nl, _ok, _it, _ld, err = s2.trial(c, lm, lin, 1e-4)
+        return nc, nl, err["error_all"]
+
+    bench_iterations(step2, c2, s2.lm_pack(lm2), "step-2")
 
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-             launches=counts[name], **results[name])
-        for name in pk.KERNELS
+        dict(name=name, route="cuda",
+             source=SOURCES[2 if name in pk2.KERNELS else 1],
+             replaces=REPLACES[name], launches=all_counts[name],
+             **results[name])
+        for name in launches.KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -32,11 +32,11 @@
 // allocates or synchronises; outputs that accumulate must be zeroed by
 // the caller.
 
-#include <algorithm>
-
 #include "pose_common.cuh"
 
 using povar::kThreads;
+using povar::launch;
+using povar::max_optin_smem;
 
 namespace {
 
@@ -419,47 +419,6 @@ __global__ void __launch_bounds__(kThreads)
     partials[n_part + blockIdx.x] = rn;
     partials[2 * n_part + blockIdx.x] = bad;
   }
-}
-
-// ------------------------------------------------------------- launching
-
-int max_optin_smem() {
-  int dev = 0, bytes = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return bytes;
-}
-
-// Opt the kernel in to `smem` bytes of dynamic shared memory and size a
-// grid-stride grid to what is resident at once: min(ceil(O / threads),
-// SMs x resident blocks per SM).
-template <typename Kernel>
-cudaError_t grid_for(Kernel kernel, int n_obs, size_t smem, int* grid) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long want = ((long)n_obs + kThreads - 1) / kThreads;
-  const long cap = (long)sms * per_sm;
-  *grid = (int)std::max(1L, std::min(want, cap));
-  return cudaSuccess;
-}
-
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int n_obs, size_t smem, void* stream,
-           Args... args) {
-  int grid = 0;
-  cudaError_t err = grid_for(kernel, n_obs, smem, &grid);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

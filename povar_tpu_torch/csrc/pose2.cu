@@ -1,0 +1,485 @@
+// Step-2 structured homogeneous-projective kernels for Hopper (sm_90a):
+// the hand-written CUDA counterparts of the Pallas kernels on the RIPOBA
+// step-2 path of povar_tpu/ops/pallas_pose2.py (composed power term,
+// fused_power_term=False).
+//
+//   S1 prepare2     <- pallas_pose2.py:157 (_prepare2_kernel :77)
+//   S2 hppb2        <- pallas_pose2.py:267 (_hppb2_kernel :218)
+//   S3 mat_dot2     <- pallas_pose2.py:347 (_mat_dot_kernel :311)
+//   S4 scatter2     <- pallas_pose2.py:412 (_scatter2_kernel :383)
+//   S5 ldiff2       <- pallas_pose2.py:667 (_ldiff2_kernel :634)
+//   S6 pose_error2  <- pallas_pose2.py:822 (error2_df32, _error2_kernel
+//                      :734), in native f64
+//
+// Every quantity derives from the camera row P (or a per-camera zt
+// table), the homogeneous landmark x4 and the projection cache
+// mm = (mx, my, 1/p2):
+//   p = P x4, m = (p0/p2, p1/p2), r = m - uv
+//   Jp = (1/p2) C (x) x4^T, C = [[1, 0, -mx], [0, 1, -my]]
+// The tangent lifts (Kps) are per-camera [12, 11] folds the caller
+// applies around the kernels, so every kernel works in the unprojected
+// 12-dof camera frame.
+//
+// What the TPU kernels needed and these do not: the one-hot incidence
+// matmuls with the bf16 3-way split (a camera row is a shared-memory read
+// by index here), the 128-lane padding and tile caps (a grid-stride loop
+// covers any O), and the double-float arithmetic with its refined
+// division in the cost (the H100 has native f64).
+//
+// What bounds them on the card, per observation (O = 557,056 at
+// venice-89): S1 reads 40 B and writes 64 B, plus 12 shared atomics;
+// S2 reads 80 B and does 124 shared atomics (the atomics bound it); S3
+// reads 60 B (68 with r_w) and writes 12 B; S4 reads 72 B plus 12
+// shared atomics; S5 reads 92 B; S6 reads 60 B (f64 state) with ~30 f64
+// flops. Per-camera sums leave a block through one global atomic per
+// non-zero entry; scalar sums leave as one partial per block.
+//
+// C interface as in pose1.cu: device pointers, sizes, scalar constants
+// and the stream; each entry point launches one kernel and returns the
+// cudaError_t of the launch. Outputs that accumulate must be zeroed by
+// the caller.
+
+#include "pose_common.cuh"
+
+using povar::kThreads;
+using povar::launch;
+using povar::max_optin_smem;
+
+namespace {
+
+// projection validity |p2| >= kEpsSqrt (Sophus epsilonSqrt of the f64
+// solve, bal_camera.hpp:147); |p2| below kTiny divides by +-kTiny
+constexpr float kEpsSqrt = 1e-5f;
+constexpr float kTiny = 1e-30f;
+
+// p_r = sum_c P[r][c] x4_c of the camera in column c of a [12, n] table
+template <typename T>
+__device__ __forceinline__ void project(const T* tbl, int n, int c,
+                                        const T x4[4], T p[3]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    T acc = tbl[(4 * r) * n + c] * x4[0];
+    acc += tbl[(4 * r + 1) * n + c] * x4[1];
+    acc += tbl[(4 * r + 2) * n + c] * x4[2];
+    acc += tbl[(4 * r + 3) * n + c] * x4[3];
+    p[r] = acc;
+  }
+}
+
+// jp = sw/p2 [q~0 - mx q~2, q~1 - my q~2], q~a = sum_c x4_c zt[4a+c]
+__device__ __forceinline__ void jp_of_zt(const float* tbl, int n, int c,
+                                         const float x4[4], float mx,
+                                         float my, float swz, float jp[2]) {
+  float q[3];
+  project(tbl, n, c, x4, q);
+  jp[0] = swz * (q[0] - mx * q[2]);
+  jp[1] = swz * (q[1] - my * q[2]);
+}
+
+// ------------------------------------------------------------------ S1
+// Linearization-point pass: projection, residual, robust weight, the
+// projection cache mm (0 on dead rows), weighted unscaled Jl rows jlw
+// [8, O] (r*4+c), their column norms^2 jlsq [4, O], and the per-camera
+// Jp column norms^2 jpsq[4a+c] = sum w/p2^2 K3diag_a x4_c^2 with
+// K3diag = [1, 1, mx^2 + my^2]. A dead row (mask 0, or projection-
+// invalid under use_valid) gets weight 0.
+// Replaces pallas_pose2.py:157 prepare2. Bound: 104 B of device memory
+// per observation (40 read, 64 written), plus 12 shared atomics.
+__global__ void __launch_bounds__(kThreads)
+    prepare2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
+                    const float* __restrict__ x4_in, const float* __restrict__ uv,
+                    const float* __restrict__ mask, float* __restrict__ rw,
+                    float* __restrict__ sw_out, float* __restrict__ mm,
+                    float* __restrict__ jlw, float* __restrict__ jlsq,
+                    float* __restrict__ jpsq, int n_obs, int n_cams,
+                    int use_valid, int huber_on, float huber, float huber2) {
+  extern __shared__ float smem[];
+  float* tbl = smem;
+  float* acc = smem + 12 * n_cams;
+  povar::smem_copy(tbl, ct, 12 * n_cams);
+  povar::smem_zero(acc, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  POVAR_OBS_LOOP(o, O) {
+    const int c = cam[o];
+    const float u = uv[o], v = uv[O + o];
+    const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                         x4_in[3 * O + o]};
+    float p[3];
+    project(tbl, n_cams, c, x4, p);
+    const bool valid = fabsf(p[2]) >= kEpsSqrt;
+    const float den =
+        fabsf(p[2]) < kTiny ? (p[2] < 0.0f ? -kTiny : kTiny) : p[2];
+    const float zinv = 1.0f / den;
+    const float mx = p[0] * zinv, my = p[1] * zinv;
+    const float r0 = mx - u, r1 = my - v;
+    const bool live = mask[o] > 0.0f && (!use_valid || valid);
+    const float livef = live ? 1.0f : 0.0f;
+    const float res_sq = r0 * r0 + r1 * r1;
+    float w = 1.0f;
+    if (huber_on && !(res_sq < huber2)) {
+      // max(res_sq, 1e-30) that keeps a NaN a NaN, as jnp.maximum does
+      w = huber / sqrtf(res_sq < 1e-30f ? 1e-30f : res_sq);
+    }
+    w = w * livef;
+    const float s = sqrtf(w);
+    rw[o] = r0 * s;
+    rw[O + o] = r1 * s;
+    sw_out[o] = s;
+    mm[o] = mx * livef;
+    mm[O + o] = my * livef;
+    mm[2 * O + o] = zinv * livef;
+    const float sz = s * zinv;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float j0 = sz * (tbl[k * n_cams + c] - mx * tbl[(8 + k) * n_cams + c]);
+      const float j1 =
+          sz * (tbl[(4 + k) * n_cams + c] - my * tbl[(8 + k) * n_cams + c]);
+      jlw[k * O + o] = j0;
+      jlw[(4 + k) * O + o] = j1;
+      jlsq[k * O + o] = j0 * j0 + j1 * j1;
+    }
+    if (w != 0.0f) {
+      const float wz2 = w * zinv * zinv;
+      const float kd2 = mx * mx + my * my;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float wk = a == 2 ? wz2 * kd2 : wz2;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          atomicAdd(&acc[(4 * a + k) * n_cams + c], wk * x4[k] * x4[k]);
+      }
+    }
+  }
+  __syncthreads();
+  povar::flush_acc(jpsq, acc, 12 * n_cams);
+}
+
+// ------------------------------------------------------------------ S2
+// Per-camera raw Hpp12 [144, N] (rows (4a+i)*12 + 4b+j) = sum w/p2^2 K3
+// (x) x4 x4^T and b12 [12, N] = sum sw/p2 (C^T rt) (x) x4 of the
+// landmark-corrected residual rt = r_w - Jl_ns hib. kShared: accumulate
+// in shared memory (156 N floats: 55.5 KB at N = 89) and flush once per
+// block; otherwise (N too large for a block's shared memory) every term
+// goes straight to a global atomic. Dead rows (sw == 0) contribute
+// exactly zero and are skipped, as are the structural zeros K3[0][1] and
+// K3[1][0].
+// Replaces pallas_pose2.py:267 hppb2. Bound: 124 shared (or global)
+// atomics per live observation, far more than its 80 B read.
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads)
+    hppb2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
+                 const float* __restrict__ mm, const float* __restrict__ sw_in,
+                 const float* __restrict__ rw, const float* __restrict__ jlns,
+                 const float* __restrict__ hib, float* __restrict__ hpp,
+                 float* __restrict__ b, int n_obs, int n_cams) {
+  extern __shared__ float smem[];
+  float* acc_b = kShared ? smem : b;
+  float* acc_h = kShared ? smem + 12 * n_cams : hpp;
+  if (kShared) {
+    povar::smem_zero(acc_b, 156 * n_cams);
+    __syncthreads();
+  }
+  const int O = n_obs;
+  POVAR_OBS_LOOP(o, O) {
+    const float sw = sw_in[o];
+    if (sw == 0.0f) continue;
+    const int c = cam[o];
+    const float mx = mm[o], my = mm[O + o], zinv = mm[2 * O + o];
+    const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                         x4_in[3 * O + o]};
+    const float h0 = hib[o], h1 = hib[O + o], h2 = hib[2 * O + o];
+    float rt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float corr = jlns[(r * 3) * O + o] * h0;
+      corr += jlns[(r * 3 + 1) * O + o] * h1;
+      corr += jlns[(r * 3 + 2) * O + o] * h2;
+      rt[r] = rw[r * O + o] - corr;
+    }
+    const float swz = sw * zinv;
+    const float ctr[3] = {rt[0], rt[1], -(mx * rt[0] + my * rt[1])};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float t = swz * ctr[a];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        atomicAdd(&acc_b[(4 * a + k) * n_cams + c], t * x4[k]);
+    }
+    const float wz2 = swz * swz;
+    const float K3[3][3] = {{1.0f, 0.0f, -mx},
+                            {0.0f, 1.0f, -my},
+                            {-mx, -my, mx * mx + my * my}};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float wk = wz2 * x4[i];
+#pragma unroll
+        for (int bb = 0; bb < 3; ++bb) {
+          if ((a == 0 && bb == 1) || (a == 1 && bb == 0)) continue;
+          const float wkk = wk * K3[a][bb];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int row = (4 * a + i) * 12 + 4 * bb + j;
+            atomicAdd(&acc_h[row * n_cams + c], wkk * x4[j]);
+          }
+        }
+      }
+    }
+  }
+  if (kShared) {
+    __syncthreads();
+    povar::flush_acc(b, acc_b, 12 * n_cams);
+    povar::flush_acc(hpp, acc_h, 144 * n_cams);
+  }
+}
+
+// ------------------------------------------------------------------ S3
+// out[i] = M[0][i] jx0 + M[1][i] jx1 with M [2, 3] per observation (mat6
+// rows r*3+i), jx = sw/p2 [q~0 - mx q~2, q~1 - my q~2] (+ r_w when
+// add_r; r_w is not read otherwise), q~a = sum_c x4_c zt[4a+c][cam].
+// Replaces pallas_pose2.py:347 mat_dot2. Bound: 72 B of device memory per
+// observation (60 read, 12 written; 80 B with r_w); no atomics.
+__global__ void __launch_bounds__(kThreads)
+    mat_dot2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
+                    const float* __restrict__ mm, const float* __restrict__ sw_in,
+                    const float* __restrict__ mat6, const float* __restrict__ rw,
+                    const float* __restrict__ zt, float* __restrict__ out,
+                    int n_obs, int n_cams, int add_r) {
+  extern __shared__ float smem[];
+  float* tbl = smem;
+  povar::smem_copy(tbl, zt, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  POVAR_OBS_LOOP(o, O) {
+    const int c = cam[o];
+    const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                         x4_in[3 * O + o]};
+    const float swz = sw_in[o] * mm[2 * O + o];
+    float jx[2];
+    jp_of_zt(tbl, n_cams, c, x4, mm[o], mm[O + o], swz, jx);
+    if (add_r) {
+      jx[0] = jx[0] + rw[o];
+      jx[1] = jx[1] + rw[O + o];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      out[i * O + o] = mat6[i * O + o] * jx[0] + mat6[(3 + i) * O + o] * jx[1];
+  }
+}
+
+// ------------------------------------------------------------------ S4
+// out12[4a+c][cam] += ctv_a x4_c, ctv = sw/p2 [v0, v1, -(mx v0 + my v1)],
+// v = M sb (v_r = sum_i M[r][i] sb_i).
+// Replaces pallas_pose2.py:412 scatter2. Bound: 12 shared atomics per
+// live observation beside its 72 B read.
+__global__ void __launch_bounds__(kThreads)
+    scatter2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
+                    const float* __restrict__ mm, const float* __restrict__ sw_in,
+                    const float* __restrict__ mat6, const float* __restrict__ sb,
+                    float* __restrict__ out, int n_obs, int n_cams) {
+  extern __shared__ float smem[];
+  float* acc = smem;
+  povar::smem_zero(acc, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  POVAR_OBS_LOOP(o, O) {
+    const float sw = sw_in[o];
+    if (sw == 0.0f) continue;
+    const float s0 = sb[o], s1 = sb[O + o], s2 = sb[2 * O + o];
+    float v[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float t = mat6[(3 * r) * O + o] * s0;
+      t += mat6[(3 * r + 1) * O + o] * s1;
+      t += mat6[(3 * r + 2) * O + o] * s2;
+      v[r] = t;
+    }
+    const float mx = mm[o], my = mm[O + o];
+    const float swz = sw * mm[2 * O + o];
+    const float ctv[3] = {swz * v[0], swz * v[1],
+                          -swz * (mx * v[0] + my * v[1])};
+    const int c = cam[o];
+    const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                         x4_in[3 * O + o]};
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        atomicAdd(&acc[(4 * a + k) * n_cams + c], ctv[a] * x4[k]);
+  }
+  __syncthreads();
+  povar::flush_acc(out, acc, 12 * n_cams);
+}
+
+// ------------------------------------------------------------------ S5
+// Per-block partials of -l_diff = sum_r j_inc_r (0.5 j_inc_r + r_w_r),
+//   j_inc = jp(zt) + Jl_s ilm4,  Jl_s row r = jls8[r*4 .. r*4+3]
+// (zt = Kps inc per camera, ilm4 the lifted landmark increment expanded
+// to observations).
+// Replaces pallas_pose2.py:667 ldiff2. Bound: 92 B read per observation;
+// no atomics.
+__global__ void __launch_bounds__(kThreads)
+    ldiff2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
+                  const float* __restrict__ mm, const float* __restrict__ sw_in,
+                  const float* __restrict__ rw, const float* __restrict__ jls8,
+                  const float* __restrict__ ilm4, const float* __restrict__ zt,
+                  float* __restrict__ partials, int n_obs, int n_cams) {
+  extern __shared__ float smem[];
+  __shared__ float red[32];
+  float* tbl = smem;
+  povar::smem_copy(tbl, zt, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  float total = 0.0f;
+  POVAR_OBS_LOOP(o, O) {
+    const int c = cam[o];
+    const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                         x4_in[3 * O + o]};
+    const float swz = sw_in[o] * mm[2 * O + o];
+    float jp[2];
+    jp_of_zt(tbl, n_cams, c, x4, mm[o], mm[O + o], swz, jp);
+    const float i0 = ilm4[o], i1 = ilm4[O + o], i2 = ilm4[2 * O + o],
+                i3 = ilm4[3 * O + o];
+    float ld = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float jl = jls8[(r * 4) * O + o] * i0;
+      jl += jls8[(r * 4 + 1) * O + o] * i1;
+      jl += jls8[(r * 4 + 2) * O + o] * i2;
+      jl += jls8[(r * 4 + 3) * O + o] * i3;
+      const float j_inc = jp[r] + jl;
+      ld += j_inc * (0.5f * j_inc + rw[r * O + o]);
+    }
+    total += ld;
+  }
+  total = povar::block_sum(total, red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+}
+
+// ------------------------------------------------------------------ S6
+// Homogeneous cost in native f64 over live rows (mask > 0): per-block
+// partials, at partials[k * n_part + block], of
+//   k = 0 sum rho(|r|^2) (robust 0 NONE: 0.5 r^2, 1 HUBER: 0.5 (2 - w) w
+//         r^2, 2 CAUCHY: log1p(r^2)),  1 sum |r|,
+//   2, 3 the same over projection-valid rows (|p2| >= 1e-5),
+//   4 the valid count, 5 the count of rows with a non-finite residual,
+//   6 the live count.
+// Replaces pallas_pose2.py:822 error2_df32 (double-float with a refined
+// division on the TPU). Bound: 60 B read per observation (f64 state) and
+// ~30 f64 flops per row, far below the card's f64 rate.
+__global__ void __launch_bounds__(kThreads)
+    pose_error2_kernel(const int32_t* __restrict__ cam, const double* __restrict__ ct,
+                       const double* __restrict__ x4_in, const double* __restrict__ uv,
+                       const float* __restrict__ mask, double* __restrict__ partials,
+                       int n_part, int n_obs, int n_cams, int robust,
+                       double huber) {
+  extern __shared__ double smem_d[];
+  __shared__ double red[32];
+  double* tbl = smem_d;
+  povar::smem_copy(tbl, ct, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  double acc[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  POVAR_OBS_LOOP(o, O) {
+    if (!(mask[o] > 0.0f)) continue;
+    const int c = cam[o];
+    const double x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                          x4_in[3 * O + o]};
+    double p[3];
+    project(tbl, n_cams, c, x4, p);
+    const double r0 = p[0] / p[2] - uv[o];
+    const double r1 = p[1] / p[2] - uv[O + o];
+    const double validf = fabs(p[2]) >= 1e-5 ? 1.0 : 0.0;
+    const bool finite = isfinite(r0) && isfinite(r1);
+    const double res_sq = r0 * r0 + r1 * r1;
+    double e;
+    if (robust == 1) {
+      const double w = res_sq < huber * huber ? 1.0 : huber / sqrt(res_sq);
+      e = 0.5 * (2.0 - w) * w * res_sq;
+    } else if (robust == 2) {
+      e = log1p(res_sq);
+    } else {
+      e = 0.5 * res_sq;
+    }
+    const double rn = sqrt(res_sq);
+    acc[0] += e;
+    acc[1] += rn;
+    acc[2] += e * validf;
+    acc[3] += rn * validf;
+    acc[4] += validf;
+    acc[5] += finite ? 0.0 : 1.0;
+    acc[6] += 1.0;
+  }
+#pragma unroll
+  for (int k = 0; k < 7; ++k) {
+    const double t = povar::block_sum(acc[k], red);
+    if (threadIdx.x == 0) partials[k * n_part + blockIdx.x] = t;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int povar_prepare2(const int32_t* cam, const float* ct, const float* x4,
+                   const float* uv, const float* mask, float* rw, float* sw,
+                   float* mm, float* jlw, float* jlsq, float* jpsq, int n_obs,
+                   int n_cams, int use_valid, int huber_on, float huber,
+                   float huber2, void* stream) {
+  const size_t smem = sizeof(float) * 24 * (size_t)n_cams;
+  return launch(prepare2_kernel, n_obs, smem, stream, cam, ct, x4, uv, mask,
+                rw, sw, mm, jlw, jlsq, jpsq, n_obs, n_cams, use_valid,
+                huber_on, huber, huber2);
+}
+
+int povar_hppb2(const int32_t* cam, const float* x4, const float* mm,
+                const float* sw, const float* rw, const float* jlns,
+                const float* hib, float* hpp, float* b, int n_obs, int n_cams,
+                void* stream) {
+  const size_t shared = sizeof(float) * 156 * (size_t)n_cams;
+  if (shared <= (size_t)max_optin_smem()) {
+    return launch(hppb2_kernel<true>, n_obs, shared, stream, cam, x4, mm, sw,
+                  rw, jlns, hib, hpp, b, n_obs, n_cams);
+  }
+  return launch(hppb2_kernel<false>, n_obs, 0, stream, cam, x4, mm, sw, rw,
+                jlns, hib, hpp, b, n_obs, n_cams);
+}
+
+int povar_mat_dot2(const int32_t* cam, const float* x4, const float* mm,
+                   const float* sw, const float* mat6, const float* rw,
+                   const float* zt, float* out, int n_obs, int n_cams,
+                   int add_r, void* stream) {
+  const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
+  return launch(mat_dot2_kernel, n_obs, smem, stream, cam, x4, mm, sw, mat6,
+                rw, zt, out, n_obs, n_cams, add_r);
+}
+
+int povar_scatter2(const int32_t* cam, const float* x4, const float* mm,
+                   const float* sw, const float* mat6, const float* sb,
+                   float* out, int n_obs, int n_cams, void* stream) {
+  const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
+  return launch(scatter2_kernel, n_obs, smem, stream, cam, x4, mm, sw, mat6,
+                sb, out, n_obs, n_cams);
+}
+
+int povar_ldiff2(const int32_t* cam, const float* x4, const float* mm,
+                 const float* sw, const float* rw, const float* jls8,
+                 const float* ilm4, const float* zt, float* partials,
+                 int n_obs, int n_cams, void* stream) {
+  const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
+  return launch(ldiff2_kernel, n_obs, smem, stream, cam, x4, mm, sw, rw, jls8,
+                ilm4, zt, partials, n_obs, n_cams);
+}
+
+int povar_pose_error2(const int32_t* cam, const double* ct, const double* x4,
+                      const double* uv, const float* mask, double* partials,
+                      int n_part, int n_obs, int n_cams, int robust,
+                      double huber, void* stream) {
+  const size_t smem = sizeof(double) * 12 * (size_t)n_cams;
+  return launch(pose_error2_kernel, n_obs, smem, stream, cam, ct, x4, uv,
+                mask, partials, n_part, n_obs, n_cams, robust, huber);
+}
+
+}  // extern "C"

@@ -1,4 +1,5 @@
-// Shared device code of the step-1 structured pOSE kernels (pose1.cu).
+// Shared device and launch code of the structured kernels of step 1
+// (pose1.cu) and step 2 (pose2.cu).
 //
 // Every kernel is one pass over the observations, one thread per
 // observation in a grid-stride loop, on observation-last arrays
@@ -19,6 +20,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace povar {
@@ -117,6 +119,49 @@ __device__ __forceinline__ T block_sum(T v, T* red) {
   }
   __syncthreads();
   return v;
+}
+
+// ------------------------------------------------------------- launching
+
+inline int max_optin_smem() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes;
+}
+
+// Opt the kernel in to `smem` bytes of dynamic shared memory and size a
+// grid-stride grid to what is resident at once: min(ceil(O / threads),
+// SMs x resident blocks per SM).
+template <typename Kernel>
+cudaError_t grid_for(Kernel kernel, int n_obs, size_t smem, int* grid) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long want = ((long)n_obs + kThreads - 1) / kThreads;
+  const long cap = (long)sms * per_sm;
+  *grid = (int)std::max(1L, std::min(want, cap));
+  return cudaSuccess;
+}
+
+// launch `kernel` over n_obs observations on `stream`; returns the
+// cudaError_t of the configuration or of the launch (0 on success)
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int n_obs, size_t smem, void* stream,
+           Args... args) {
+  int grid = 0;
+  cudaError_t err = grid_for(kernel, n_obs, smem, &grid);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace povar

@@ -1,12 +1,13 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-`nvcc` compiles every csrc/*.cu into one shared library with a plain C
-interface for Hopper (sm_90a), which `ctypes` loads: no PyTorch headers
-are compiled, so a cold build takes seconds. The library lands in
-build/povar_tpu_torch/<key>/ beside the package directory, where <key>
-hashes the sources and the compiler flags: editing a kernel rebuilds it,
-an unchanged tree reuses the last build. Importing this module builds
-nothing; the first call to `library()` does.
+`nvcc` compiles each csrc/*.cu into an object file, one compiler per
+source, all started together, and links them into one shared library
+with a plain C interface for Hopper (sm_90a), which `ctypes` loads: no
+PyTorch headers are compiled, so a cold build takes seconds. The library
+lands in build/povar_tpu_torch/<key>/ beside the package directory,
+where <key> hashes the sources and the compiler flags: editing a kernel
+rebuilds it, an unchanged tree reuses the last build. Importing this
+module builds nothing; the first call to `library()` does.
 
 There is no fallback: a missing `nvcc` or a failed compile raises with
 the compiler's output.
@@ -24,16 +25,18 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "povar_tpu_torch"
-LIB_NAME = "libpovar_pose1.so"
+LIB_NAME = "libpovar_pose.so"
+# no FMA contraction: every product and sum is rounded on its own, as
+# the kernels' plain PyTorch versions round them
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 
-# argument types of every exported entry point (csrc/pose1.cu)
+# argument types of every exported entry point (csrc/pose1.cu, pose2.cu)
 SIGNATURES = {
     "povar_prepare": [_P] * 10 + [_I, _I, _F, _F, _F, _I, _F, _F, _P],
     "povar_e0_factor": [_P] * 7 + [_I, _I, _F, _P],
@@ -42,6 +45,12 @@ SIGNATURES = {
     "povar_e0_scatter": [_P] * 5 + [_I, _I, _P],
     "povar_apply_ldiff": [_P] * 10 + [_I, _I, _F, _F, _P],
     "povar_pose_error": [_P] * 6 + [_I, _I, _I, _D, _D, _I, _D, _P],
+    "povar_prepare2": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _P],
+    "povar_hppb2": [_P] * 9 + [_I, _I, _P],
+    "povar_mat_dot2": [_P] * 8 + [_I, _I, _I, _P],
+    "povar_scatter2": [_P] * 7 + [_I, _I, _P],
+    "povar_ldiff2": [_P] * 9 + [_I, _I, _P],
+    "povar_pose_error2": [_P] * 6 + [_I, _I, _I, _I, _D, _P],
 }
 
 
@@ -79,16 +88,38 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / f".{src.stem}.{tag}.o" for src in sources()]
+    steps = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        for src, obj in zip(sources(), objs)
+    ]
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for cmd in steps
+    ]
+    logs = [proc.communicate(timeout=900)[0] for proc in procs]
+    failed = [
+        (cmd, log) for cmd, log, proc in zip(steps, logs, procs)
+        if proc.returncode != 0
+    ]
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              timeout=300)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append((link, logs[-1]))
+    (out_dir / "build.log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+        cmd, log = failed[0]
+        raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half
     return lib
 

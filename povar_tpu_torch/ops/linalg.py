@@ -12,6 +12,10 @@ These replace, in the reference implementation:
   - per-camera 12x12 `selfadjointView<Upper>().llt().solve(I)`
     (sc/linearization_power_varproj.hpp:141-188) -> cholesky_smallf /
     inv_psd_smallf
+  - the step-2 tangent bases `kernel_COD` (sc/landmark_block.hpp:
+    227-269) -> nullspace_of_rowf
+  - Eigen `Matrix::normalize()` of the step-2 camera retraction
+    (bal_bundle_adjustment.cpp:700-702) -> frobenius_normalize
 """
 
 from __future__ import annotations
@@ -118,3 +122,30 @@ def inv_psd_smallf(a: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
     e = eye.reshape((n, n) + (1,) * (a.ndim - 2)).expand(a.shape)
     return solve_upper_from_lowerf(l, solve_lower_trif(l, e))
+
+
+def nullspace_of_rowf(v: torch.Tensor) -> torch.Tensor:
+    """Householder nullspace basis of v [n, ...] -> [n, n-1, ...]:
+    columns 1..n-1 of I - beta w w^T with w = v + sign(v0) |v| e0 and
+    beta = 2 / |w|^2. This exact basis (not merely the same subspace)
+    is what the JAX package uses: another orthonormal basis changes the
+    f32 rounding of every tangent quantity, and with it the step-2
+    trajectory."""
+    n = v.shape[0]
+    norm = torch.sqrt((v * v).sum(dim=0, keepdim=True))
+    one = torch.ones_like(v[:1])
+    sign0 = torch.where(v[:1] >= 0, one, -one)
+    w = torch.cat([v[:1] + sign0 * norm, v[1:]], dim=0)
+    beta = 2.0 / (w * w).sum(dim=0)
+    h_cols = -beta[None, None] * w[:, None] * w[None, 1:]
+    eye_cols = torch.eye(n, dtype=v.dtype, device=v.device)[:, 1:].reshape(
+        (n, n - 1) + (1,) * (v.ndim - 1)
+    )
+    return h_cols + eye_cols
+
+
+def frobenius_normalize(m: torch.Tensor) -> torch.Tensor:
+    """Normalize over the last two axes (the step-2 camera retraction:
+    each [3, 4] matrix divided by its Frobenius norm)."""
+    norm = torch.sqrt((m * m).sum(dim=(-2, -1), keepdim=True))
+    return m / norm

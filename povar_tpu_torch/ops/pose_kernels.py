@@ -21,8 +21,8 @@ are those of the Pallas kernels, with two changes of return shape:
 tensors instead of [5, 128] double-float partials.
 
 Launch counts (`LAUNCHES`, plain integers per kernel) let a run show
-that its main path went through the kernels; `reset_launch_counts`
-zeroes them.
+that its main path went through the kernels; ops/launches.py zeroes and
+reads them with the step-2 kernels' counts.
 """
 
 from __future__ import annotations
@@ -49,15 +49,6 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # per-block partials of the scalar reductions: one slot per block of
 # the kernels' 256 threads, at most ceil(O / 256) blocks
 _THREADS = 256
-
-
-def reset_launch_counts() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -87,12 +78,14 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, fn, *args, counts: Dict[str, int] = LAUNCHES) -> None:
+    """Call a kernel's C entry point; raise on a nonzero cudaError_t,
+    else add one to the kernel's launch count in `counts`."""
     rc = fn(*args)
     if rc != 0:
         msg = _build.library().povar_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({rc})")
-    LAUNCHES[name] += 1
+    counts[name] += 1
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:

@@ -27,45 +27,16 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from povar_tpu_torch.ops import linalg, pose_kernels
-from povar_tpu_torch.options import RobustNorm, SolverOptions, SolverType
+from povar_tpu_torch.options import SolverOptions, SolverType
 from povar_tpu_torch.solver import pcg as pcg_mod
-from povar_tpu_torch.solver.segments import (
-    build_slot_plan,
-    slot_part_sums,
-    slot_row_expand,
+from povar_tpu_torch.solver.slots import (
+    LmState,
+    SlotSolver,
+    common_unsupported,
 )
-
-# the observation axis is padded with zero-weight rows to a multiple of
-# this (povar_tpu/ops/pallas_cam.py OBS_PAD), so both packages see the
-# same slot layout
-OBS_PAD = 8192
-# largest camera count of this path (povar_tpu/ops/pallas_cam.py
-# MAX_CAMERAS); beyond it the JAX package switches to camera windows
-MAX_CAMERAS = 1024
-
-_ROBUST_CODE = {
-    RobustNorm.NONE: 0,
-    RobustNorm.HUBER: 1,
-    RobustNorm.CAUCHY: 2,
-}
-
-
-class Obs(NamedTuple):
-    """Static problem structure in slot order (segments.build_slot_plan):
-    each landmark's observations occupy a fixed-width contiguous slot.
-    cam: per-observation camera index [Op] (int32); uv: measurements
-    [2, Op]; weight: 0/1 mask [Op] over slot pads (None when there are
-    none); lm_order/lm_inv: slot-row <-> canonical landmark id maps."""
-
-    cam: torch.Tensor
-    uv: torch.Tensor
-    weight: Optional[torch.Tensor]
-    lm_order: torch.Tensor
-    lm_inv: torch.Tensor
 
 
 class Lin1S(NamedTuple):
@@ -84,51 +55,6 @@ class Lin1S(NamedTuple):
     pose_scale: torch.Tensor  # [12, N]
 
 
-class LmState(NamedTuple):
-    """Landmark state threaded through the LM loop in L space (slot-row
-    order): `rows` is [3, L] in the state dtype. Produced by `lm_pack`,
-    converted back to the canonical [M, 3] layout by `lm_unpack`."""
-
-    rows: torch.Tensor
-
-
-def make_obs(
-    obs_cam, obs_lm, obs_uv, num_cameras, num_landmarks, dtype, device,
-) -> Tuple[Obs, tuple]:
-    """Build the slot-ordered Obs on `device`. Returns (obs,
-    lm_slot_shapes)."""
-    obs_cam_np = np.asarray(obs_cam)
-    obs_lm_np = np.asarray(obs_lm)
-    obs_uv_np = np.asarray(obs_uv)
-    if obs_uv_np.ndim == 2 and obs_uv_np.shape[-1] == 2:
-        obs_uv_np = obs_uv_np.T  # accept [O, 2] input, use [2, O]
-    if len(obs_cam_np) and (
-        obs_cam_np.min() < 0 or obs_cam_np.max() >= num_cameras
-    ):
-        raise ValueError("camera index out of range [0, num_cameras)")
-    if len(obs_lm_np) and (
-        obs_lm_np.min() < 0 or obs_lm_np.max() >= num_landmarks
-    ):
-        raise ValueError("landmark index out of range [0, num_landmarks)")
-
-    perm, pad_w, shapes, lm_order, inv_pos = build_slot_plan(
-        obs_lm_np, num_landmarks, pad_to=OBS_PAD
-    )
-    w = pad_w if (pad_w < 1.0).any() else None
-
-    def dev(a, dt=None):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
-
-    obs = Obs(
-        cam=dev(obs_cam_np[perm].astype(np.int32)),
-        uv=dev(obs_uv_np[:, perm], dtype),
-        weight=None if w is None else dev(w, dtype),
-        lm_order=dev(lm_order.astype(np.int64)),
-        lm_inv=dev(inv_pos.astype(np.int64)),
-    )
-    return obs, shapes
-
-
 def _unsupported(options: SolverOptions, n_cams: int, dtype) -> Optional[str]:
     """Why this configuration is outside the ported slice, or None."""
     if options.solver_type_step_1 != SolverType.POWER_VARPROJ:
@@ -141,48 +67,21 @@ def _unsupported(options: SolverOptions, n_cams: int, dtype) -> Optional[str]:
             "fused_power_term=True (ROADMAP.md queue 2, e0_term_parts: "
             "the fused power-series term kernel)"
         )
-    if not options.mixed_precision_solves:
-        return (
-            "mixed_precision_solves=False (ROADMAP.md queue 1 item 11, "
-            "precision modes)"
-        )
-    if dtype != torch.float64:
-        return (
-            f"LM state dtype {dtype} (ROADMAP.md queue 1 item 11, "
-            "precision modes: the f32 LM state)"
-        )
-    if options.pallas_kernels == "off":
-        return (
-            "pallas_kernels='off', the unstructured path (ROADMAP.md "
-            "queue 1 item 9)"
-        )
-    if n_cams > MAX_CAMERAS:
-        return (
-            f"{n_cams} cameras > {MAX_CAMERAS} (ROADMAP.md queue 1 item "
-            "12, large N)"
-        )
-    if options.device_lm_loop == "on":
-        return (
-            "device_lm_loop='on' (ROADMAP.md queue 1 item 8, the device "
-            "LM loop)"
-        )
-    if options.detailed_timing:
-        return (
-            "detailed_timing=True (ROADMAP.md queue 1 item 14, per-stage "
-            "timing)"
-        )
-    return None
+    return common_unsupported(options, n_cams, dtype)
 
 
-class Stage1Solver:
+class Stage1Solver(SlotSolver):
     """Step-1 solver bound to one problem's observations on `device`
-    ("cpu" runs the kernels' plain versions, "cuda" the CUDA kernels).
+    ("cuda", the default, launches the CUDA kernels; "cpu" runs their
+    plain versions).
 
     Public API as in the JAX package: compute_error, initialize_varproj,
     linearize, solve_power, apply, trial, lm_pack, lm_unpack (there
     each is a jitted entry over a private method of the same name; here
     the public methods are the implementations). Landmark state may be
     passed canonical ([M, 3]) or packed (LmState)."""
+
+    PATH = "step 1 on the structured POWER_VARPROJ path"
 
     def __init__(
         self,
@@ -193,51 +92,13 @@ class Stage1Solver:
         num_landmarks: int,
         options: SolverOptions,
         dtype=torch.float64,
-        device="cpu",
+        device="cuda",
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "Stage1Solver(device='cuda') but torch finds no CUDA "
-                    "device"
-                )
-            # the f32 contractions must run in full f32, not TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-        self.n_cams = int(num_cameras)
-        self.n_lms = int(num_landmarks)
-        why = _unsupported(options, self.n_cams, dtype)
-        if why is not None:
-            raise NotImplementedError(
-                "povar_tpu_torch step 1 runs the structured POWER_VARPROJ "
-                f"path only; not ported yet: {why}"
-            )
-        self.opts = options
-        self.dtype = dtype
-        self.solve_dtype = torch.float32
+        super().__init__(
+            obs_cam, obs_lm, obs_uv, num_cameras, num_landmarks, options,
+            dtype, device, _unsupported,
+        )
         self.alpha = float(options.alpha)
-        self.robust = _ROBUST_CODE[options.residual.robust_norm]
-        self.huber = float(options.residual.huber_parameter)
-        self.power_m = int(options.power_sc_iterations)
-        self.obs, self.lm_shapes = make_obs(
-            obs_cam, obs_lm, obs_uv, self.n_cams, self.n_lms, dtype,
-            self.device,
-        )
-        self.jacobi_eps = options.effective_jacobi_scaling_epsilon(
-            np.float32
-        )
-        o = int(self.obs.cam.shape[0])
-        w = self.obs.weight
-        # live-observation count for ResidualInfo (padding rows carry
-        # zero weight and must not inflate num_obs / mean residuals)
-        self.n_obs_live = o if w is None else int((w > 0).sum())
-        sd = self.solve_dtype
-        # per-observation constants of every kernel call, made once
-        self._uv_s = self.obs.uv.to(sd)
-        self._mask1 = (
-            torch.ones((1, o), dtype=sd, device=self.device) if w is None
-            else (w > 0).to(sd).reshape(1, -1)
-        )
 
     def trial(self, cam_space, lm_p, lin: Lin1S, lam):
         """One LM backtracking trial: solve + apply + f64 cost, with no
@@ -254,51 +115,6 @@ class Stage1Solver:
         err = self.compute_error(new_cams, new_lms)
         return new_cams, new_lms, inc_finite, n_iter, l_diff, err
 
-    # ---- landmark "L space": per-landmark tables live in slot-ROW
-    # order between a slot reduce and a slot expansion, so both
-    # directions are reshape-sums / broadcasts with no index gathers
-
-    def _seg_L(self, x: torch.Tensor) -> torch.Tensor:
-        """[..., O] -> [..., L] per-landmark reduce into L space."""
-        return slot_part_sums(x, self.lm_shapes)
-
-    def _expand_L(self, s: torch.Tensor) -> torch.Tensor:
-        """[..., L] -> per-observation [..., O]."""
-        return slot_row_expand(s, self.lm_shapes)
-
-    def _seg_lm_reexpand(self, u: torch.Tensor) -> torch.Tensor:
-        """Per-landmark sum of u [..., O] re-expanded to observations
-        [..., O] — the inner operation of every E0 matvec
-        (right_mul_e0, linearization_power_varproj.hpp:364-453)."""
-        return self._expand_L(self._seg_L(u))
-
-    def _L_to_lm(self, s: torch.Tensor) -> torch.Tensor:
-        """[..., L] -> canonical [..., M]."""
-        return s.index_select(-1, self.obs.lm_inv)
-
-    def _lm_to_L(self, s: torch.Tensor) -> torch.Tensor:
-        """Canonical [..., M] -> [..., L]."""
-        return s.index_select(-1, self.obs.lm_order)
-
-    def lm_pack(self, lm_p):
-        """Canonical [M, 3] state -> LmState."""
-        if isinstance(lm_p, LmState):
-            return lm_p
-        return LmState(rows=self._lm_to_L(lm_p.to(self.dtype).T))
-
-    def lm_unpack(self, lm_p):
-        """LmState -> canonical [M, 3] state (identity otherwise)."""
-        if not isinstance(lm_p, LmState):
-            return lm_p
-        return self._L_to_lm(lm_p.rows).T.contiguous()
-
-    def _lm_rows(self, lm_p) -> torch.Tensor:
-        """State rows [3, L] in the state dtype from either
-        representation."""
-        if isinstance(lm_p, LmState):
-            return lm_p.rows
-        return self._lm_to_L(lm_p.T)
-
     def _hll_guard_L(self, hll: torch.Tensor) -> torch.Tensor:
         """Identity-guard the [3, 3, L] normal matrices of slot pad rows
         (their sums are exactly zero): inverting them would poison
@@ -308,10 +124,6 @@ class Stage1Solver:
         f = (dg == 0).to(hll.dtype)
         eye = torch.eye(3, dtype=hll.dtype, device=hll.device)
         return hll + f * eye[:, :, None]
-
-    def _cam_table(self, cam_space: torch.Tensor, dtype) -> torch.Tensor:
-        """cam_space [N, 3, 4] -> [12, N] table of vec(P) rows."""
-        return cam_space.to(dtype).reshape(self.n_cams, 12).T.contiguous()
 
     # ------------------------------------------------------ error / init
 
@@ -397,10 +209,6 @@ class Stage1Solver:
         return 1.0 / (self.jacobi_eps + torch.sqrt(jpsq))
 
     # ------------------------------------------------------------ solve
-
-    def _solve_scalar(self, lam) -> float:
-        """lam rounded to the solve dtype, as a Python float."""
-        return float(torch.tensor(float(lam), dtype=self.solve_dtype))
 
     def _hll_pieces_s(self, lin: Lin1S):
         """(hll_inv [3,3,L], hib_obs [3,O], jls_obs [3,O], lh_obs [9,O])

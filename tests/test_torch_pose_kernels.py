@@ -27,6 +27,7 @@ import torch
 
 from povar_tpu.ops import pallas_pose as pp
 from povar_tpu.ops import pose_math
+from povar_tpu_torch.ops import launches
 from povar_tpu_torch.ops import pose_kernels as pk
 from povar_tpu_torch.ops import pose_ref
 
@@ -88,9 +89,9 @@ def _close(got, want, tol):
 @pytest.fixture(autouse=True)
 def _no_launches():
     """CPU tensors go to the plain versions: no kernel launch counted."""
-    pk.reset_launch_counts()
+    launches.reset_launch_counts()
     yield
-    assert all(v == 0 for v in pk.launch_counts().values())
+    assert all(v == 0 for v in launches.launch_counts().values())
 
 
 @pytest.mark.parametrize(

@@ -37,7 +37,7 @@ from povar_tpu_torch import (
     optimize_step1,
 )
 from povar_tpu_torch.options import RobustNorm, SolverType
-from povar_tpu_torch.ops import pose_kernels
+from povar_tpu_torch.ops import launches
 from povar_tpu_torch.solver.stage1 import LmState
 
 ITERS = 6
@@ -64,7 +64,7 @@ def solvers(problem):
             problem.num_cameras, problem.num_landmarks)
     js = JaxStage1(*args, jopts)
     assert js.use_pallas and js._e0_meta is None
-    ts = Stage1Solver(*args, _slice_options(SolverOptions))
+    ts = Stage1Solver(*args, _slice_options(SolverOptions), device="cpu")
     return js, ts
 
 
@@ -208,11 +208,11 @@ def test_step1_slice_matches_jax(problem, solvers):
         problem.lm_p, device="cpu",
     )
     tsum = SolverSummary()
-    pose_kernels.reset_launch_counts()
+    launches.reset_launch_counts()
     out_cams, out_lms = optimize_step1(
         ts, cams, lms, ts.opts, tsum, Timer(), log=lambda s: None
     )
-    assert all(v == 0 for v in pose_kernels.launch_counts().values())
+    assert all(v == 0 for v in launches.launch_counts().values())
     assert tuple(out_cams.shape) == (problem.num_cameras, 3, 4)
     assert tuple(out_lms.shape) == (problem.num_landmarks, 3)
     assert len(tsum.iterations) == len(jsum.iterations) == ITERS + 1
@@ -257,13 +257,13 @@ def test_configurations_outside_the_slice_raise(problem, opts, dtype, match):
     with pytest.raises(NotImplementedError, match=match):
         Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
                      problem.num_cameras, problem.num_landmarks, opts,
-                     dtype=dtype)
+                     dtype=dtype, device="cpu")
 
 
 def test_too_many_cameras_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         Stage1Solver(np.array([0, 1024]), np.array([0, 0]),
-                     np.zeros((2, 2)), 1025, 1, _cfg())
+                     np.zeros((2, 2)), 1025, 1, _cfg(), device="cpu")
 
 
 def test_default_options_and_huber_run(problem):
@@ -276,7 +276,8 @@ def test_default_options_and_huber_run(problem):
         opts.max_num_iterations_step_1 = 2
         opts.residual.robust_norm = robust
         s = Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
-                         problem.num_cameras, problem.num_landmarks, opts)
+                         problem.num_cameras, problem.num_landmarks, opts,
+                         device="cpu")
         summ = SolverSummary()
         optimize_step1(s, torch.as_tensor(problem.cam_space),
                        torch.as_tensor(problem.lm_p), opts, summ, Timer(),
@@ -292,3 +293,14 @@ def test_cuda_device_without_a_card_raises(problem):
         Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
                      problem.num_cameras, problem.num_landmarks, _cfg(),
                      device="cuda")
+
+
+def test_default_device_is_the_card(problem):
+    """Stage1Solver runs on the card unless the caller asks for the
+    CPU: without a CUDA device (as where the tests run) the default
+    raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                     problem.num_cameras, problem.num_landmarks, _cfg())
