@@ -2,71 +2,76 @@
 
     python3 chip_smoke.py
 
-Drives the two-step solve of the PyTorch / CUDA port (`bundle_adjust`:
-step 1, pOSE VarProj LM with POWER_VARPROJ; step 2, Riemannian LM with
-RIPOBA; m = 10 power terms) in phases, each printing its lines and
-raising on failure (a failure exits non-zero and prints no result line):
+Drives the PyTorch / CUDA port's two-step solve (`bundle_adjust`: step
+1, pOSE VarProj LM; step 2, Riemannian LM) through the entry points a
+user calls, at the venice-89 scale of bench.py
+(synthetic_bal_problem_fast(89, 110973, 5, seed=0): N = 89 cameras,
+554,865 observations, O = 557,056 padded slot rows), in phases, each
+printing its lines and raising on failure (a failure exits non-zero and
+prints no result line):
 
-1. device    a CUDA device, its name and power limit (nvidia-smi);
-2. build     the thirteen kernels of povar_tpu_torch/csrc/ from source;
-3. kernels   each step-1 kernel at the venice-89 shapes (O = 557,056
-             padded observations, N = 89 cameras) on seeded inputs,
-             against its plain PyTorch version on the same card (each
-             output scaled per entry or per camera, see ELEM), with
-             CUDA-event times (median of 20 calls) and profiler device
-             times (mean of 20 calls) for both; the large-N variant of
-             hpp_b_structured at N = 1024;
-4. step 1    a 6-iteration step-1 solve of a small problem on the card
-             against the same solve through the plain versions on the
-             CPU; then the venice-89-scale step-1 solve
-             (synthetic_bal_problem_fast(89, 110973, 5, seed=0),
-             SolverOptions() defaults except fused_power_term=False,
-             device_lm_loop="off") with the launch counters zeroed just
-             before and read just after: every step-1 kernel must have
-             run, accepted costs must fall strictly, and the final cost
-             must be within 1e-3 relative of 207.47874642216357, the JAX
-             package's final step-1 cost on the same problem
-             (BENCH_r05.json); a warm repeat; the warm time of one full
-             step-1 iteration as bench.py times it (linearize + trial,
-             eta = 0, m = 10, 50 chained iterations, one synchronisation)
-             and a profiler breakdown of it;
-5. kernels2  each step-2 kernel at the venice-89 shapes on the step-2
-             state of the card's step-1 result (`create_homogeneous`),
-             with seeded zt, sb, mat6, hib and ilm4, against its plain
-             version (use_valid on and off and NONE / HUBER for
-             prepare2, add_r on and off for mat_dot2, NONE / HUBER for
-             pose_error2), timed as in phase 3; then every case again on
-             the well-conditioned rows alone (live rows whose |1/p2| is
-             at most CALM of tools/step2_spread.py times the median);
-6. witness   step 2's first 7 iterations at venice-89 width from that
-             same state without the landmarks near a camera's principal
-             plane, twice on the card and once through the plain
-             versions on the CPU: identical decisions and power terms,
-             the accepted costs within 1e-5 and 3e-4 of the CPU's
-             (WITNESS_TOLS of tools/step2_spread.py);
-7. pipeline  `bundle_adjust` of a small problem on the card against the
-             CPU (identical decisions in both steps, final costs within
-             2e-3 in step 1 and 1e-3 in step 2); then the venice-89
-             `bundle_adjust` with all thirteen
-             launch counters zeroed just before and read just after:
-             every kernel must have run, accepted costs must fall
-             strictly in each step, the step-1 final cost must be within
-             1e-3 of 207.47874642216357, the step-2 final cost within
-             [0.5, 4] x 1845.1889071641926 (BENCH_r05.json
-             e2e_final_cost_step2; see STEP2_BAND) and at least 100x
-             below its start, the state finite; a warm repeat; the
-             warm step-2 iteration as bench.py's bench_step2 times it
-             and a profiler breakdown of it.
+1. device     a CUDA device, its name and power limit (nvidia-smi);
+2. build      the seventeen kernels of povar_tpu_torch/csrc/ from source;
+3. kernels    each step-1 kernel (the fused term over the problem's slot
+              parts) at venice-89 shapes on seeded inputs against its
+              plain PyTorch version on the same card (each output scaled
+              per entry or per camera, see ELEM), with CUDA-event times
+              (median of 20 calls) and profiler device times (mean of 20)
+              for both; hpp_b_structured and schur_diag_structured again
+              at N = 1024 (their global-atomic route);
+4. step 1     a small step-1 solve, card against CPU; the venice-89
+              step-1 solve with the composed power term and with
+              SolverOptions() defaults (the fused term), each with the
+              launch counters zeroed just before and read just after
+              (every kernel of that path must have run), accepted costs
+              strictly falling and the final cost within 1e-3 of
+              207.47874642216357 (JAX, BENCH_r05.json); a warm repeat;
+              the warm bench iteration (bench.py's definition: linearize
+              + trial, eta = 0, m = 10, 50 chained, one sync) under both
+              terms, with a profiler breakdown;
+5. kernels2   each step-2 kernel at venice-89 shapes on the step-2 state
+              of the card's step-1 result (`create_homogeneous`) with
+              seeded operands, against its plain version, then again on
+              the well-conditioned rows alone (|1/p2| at most CALM of
+              tools/step2_spread.py times the median);
+6. E0         the fused E0 operator of each step against the composed
+              one per camera, all landmarks narrow and with four widened
+              past 16 observations (the composed suffix);
+7. witness    step 2's first 7 iterations from that state without the
+              landmarks near a camera's principal plane, twice on the
+              card and once on the CPU: identical decisions and inner
+              iteration counts, accepted costs within WITNESS_TOLS; for
+              RIPOBA (composed term) and RIPCG (defaults otherwise);
+8. pipeline   `bundle_adjust` of a small problem, card against CPU; the
+              venice-89 `bundle_adjust` with SolverOptions() defaults and
+              with the composed term (counters zeroed just before each,
+              read just after): step 1 within 1e-3 of 207.4787, step 2
+              within STEP2_BAND x 1845.1889071641926 and 100x below its
+              start, the state finite; a warm repeat; the warm step-2
+              bench iteration under both terms;
+9. CG         the venice-89 `bundle_adjust` with PCG (SCHUR_JACOBI) and
+              RIPCG: step 1 within PCG_BAND x 205.39424619627198, the
+              JAX package's PCG run on the same problem
+              (docs/results-venice89/runs/pcg-ripcg/venice-89/ba_log.json),
+              its first three CG counts equal to that run's and all of
+              them printed beside it; step 2 finite, strictly falling and
+              100x below its start;
+10. cli       `python -m povar_tpu_torch.cli` in a subprocess with
+              defaults, on tests/data/mini-bal-12-48-pre.txt and on the
+              venice-89 problem written as BAL text, each after
+              --create-dataset: ba_log.json written, accepted costs
+              strictly falling in both steps.
 
 The second-to-last line is {"kernels": [...]}: per kernel its route,
-source, replaced TPU kernel, launches in the venice-89 `bundle_adjust`,
-max abs error against the plain version, event times of kernel and
-plain version, the least time the card could take for the same call
-(`bound_ms`: the bytes the call must move at 3.35 TB/s or its arithmetic
-at the peak rate of its type, whichever is larger) and `library_ms`
-(null: no single PyTorch call computes any of these functions). The last
-line is {"ok": true, "device": {...}}. Needs the repository (the package
-and its kernel sources) beside this file; imports nothing of JAX.
+source, replaced TPU kernel, launches in the first venice-89 run of the
+main path that runs it (`launches_run` names it), max abs error against
+the plain version, event times of kernel and plain version, the least
+time the card could take for the same call (`bound_ms`: the bytes the
+call must move at 3.35 TB/s or its arithmetic at the peak rate of its
+type, whichever is larger) and `library_ms` (null: no single PyTorch
+call computes any of these functions). The last line is
+{"ok": true, "device": {...}}. Needs the repository (the package and its
+kernel sources) beside this file; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -84,6 +89,24 @@ import torch
 JAX_FINAL_COST = 207.47874642216357  # BENCH_r05.json e2e_final_cost_step1
 JAX_FINAL_COST2 = 1845.1889071641926  # BENCH_r05.json e2e_final_cost_step2
 JAX_RECORDS = 76  # BENCH_r05.json e2e_iterations (both steps' records)
+# PCG (SCHUR_JACOBI) step 1 of the JAX package on the same problem:
+# docs/results-venice89/runs/pcg-ripcg/venice-89/ba_log.json (made by
+# scripts/gen_solver_matrix.py), its final cost, records and CG counts
+JAX_PCG_COST = 205.39424619627198
+JAX_PCG_COST2 = 6276.55332830183  # its RIPCG step 2 (a chaotic end state)
+JAX_PCG_CG = [0, 3, 3, 6, 9, 7, 6, 5, 5, 5, 5, 4, 3, 3, 3, 2, 2, 2, 2, 2, 2,
+              2, 2, 2, 2, 2, 2]
+# PCG's step 1 is not reproducible to 1e-3: sixteen card runs of it
+# (povar_tpu_torch/tools/step2_spread.py --pcg 16, an H100 80GB HBM3 at
+# 700 W) ended between 203.76 and 216.56 (0.992x to 1.054x the JAX
+# value, median 205.28), with eight different CG count sequences that
+# all begin [3, 3, 6] and part at the fourth solve (7 to 11): the
+# truncated CG stops on the q-tolerance test (eta = 1e-2), and near a
+# tie f32 rounding decides it. The JAX run is one sample of that spread.
+# So PCG's final step-1 cost is held to PCG_BAND x JAX_PCG_COST and its
+# first PCG_SAME CG counts to the JAX run's exactly.
+PCG_BAND = (0.98, 1.08)
+PCG_SAME = 3
 # Step 2 of this noise-free problem stops at its 50-iteration cap in
 # mid-descent along a chaotic path: from ONE step-1 result, twenty runs
 # on an H100 ended between 1644 and 1801 (the f32 atomics' order
@@ -101,6 +124,10 @@ N_CAMS, N_LMS, OBS_PER_LM = 89, 110_973, 5
 REPS = 20
 SOURCES = {1: "povar_tpu_torch/csrc/pose1.cu", 2: "povar_tpu_torch/csrc/pose2.cu"}
 REPLACES = {
+    "e0_term_parts": "povar_tpu/ops/pallas_pose.py:748",
+    "schur_diag_structured": "povar_tpu/ops/pallas_pose.py:1020",
+    "e0_term2_parts": "povar_tpu/ops/pallas_pose2.py:512",
+    "schur_diag2": "povar_tpu/ops/pallas_pose2.py:601",
     "prepare": "povar_tpu/ops/pallas_pose.py:285",
     "e0_factor": "povar_tpu/ops/pallas_pose.py:385",
     "hpp_b_structured": "povar_tpu/ops/pallas_pose.py:489",
@@ -137,6 +164,25 @@ FLOPS_PER_OBS = {
     "e0_u_structured": 40, "e0_scatter_structured": 60, "apply_ldiff": 90,
     "pose_error": 60, "prepare2": 110, "hppb2": 290, "mat_dot2": 40,
     "scatter2": 45, "ldiff2": 55, "pose_error2": 45,
+    "e0_term_parts": 80, "schur_diag_structured": 430,
+    "e0_term2_parts": 80, "schur_diag2": 480,
+}
+# the kernels each venice-89 run of the main path must launch
+STEP1_COMPOSED = {"prepare", "e0_factor", "hpp_b_structured",
+                  "e0_u_structured", "e0_scatter_structured", "apply_ldiff",
+                  "pose_error"}
+STEP1_FUSED = STEP1_COMPOSED - {"e0_u_structured",
+                                "e0_scatter_structured"} | {"e0_term_parts"}
+STEP2_COMPOSED = {"prepare2", "hppb2", "mat_dot2", "scatter2", "ldiff2",
+                  "pose_error2"}
+STEP2_FUSED = STEP2_COMPOSED - {"scatter2"} | {"e0_term2_parts"}
+PATHS = {
+    "step 1 composed": STEP1_COMPOSED,
+    "step 1 defaults": STEP1_FUSED,
+    "bundle_adjust defaults": STEP1_FUSED | STEP2_FUSED,
+    "bundle_adjust PCG+RIPCG": STEP1_FUSED | STEP2_FUSED
+    | {"schur_diag_structured", "schur_diag2"},
+    "bundle_adjust composed": STEP1_COMPOSED | STEP2_COMPOSED,
 }
 
 
@@ -219,12 +265,15 @@ def bound_ms(name, inputs, outputs, n_obs, n_read=None):
     type. `n_read`: observation rows whose operands the kernel reads
     (the kernels that skip dead rows read only the gate of the others);
     per-observation inputs other than the first (the gate) scale by it.
-    Returns (ms, "bytes" or "operations")."""
-    n_read = n_obs if n_read is None else n_read
+    A pair (n_gate, n_read) also scales the gate, for the fused terms,
+    which read only the rows of their slot parts. Returns (ms, "bytes"
+    or "operations")."""
+    n_gate, n_read = (n_read if isinstance(n_read, tuple)
+                      else (n_obs, n_obs if n_read is None else n_read))
     moved = 0.0
     for k, t in enumerate(x for x in inputs if x is not None):
         per_obs = t.dim() > 0 and t.shape[-1] == n_obs
-        scale = n_read / n_obs if per_obs and k > 0 else 1.0
+        scale = (n_read if k > 0 else n_gate) / n_obs if per_obs else 1.0
         moved += t.numel() * t.element_size() * scale
     moved += sum(t.numel() * t.element_size() for t in _outputs(outputs))
     dtype = torch.float64 if name in ("pose_error", "pose_error2") else torch.float32
@@ -307,6 +356,10 @@ def check_kernels(solver, problem, alpha):
     n, o = solver.n_cams, int(d["cam"].shape[0])
     live = int((d["mask"] > 0).sum())
     a = dict(alpha=alpha)
+    parts = solver.e0_plan.parts
+    covered = sum(g * w for _ofs, g, w in parts)
+    print(f"fused-term plan: parts (ofs, g, w) {parts}, {covered} of {o} "
+          f"rows, suffix {solver.e0_plan.suffix}", flush=True)
 
     def case(name, run, keys, specs, n_read=None):
         return (name, None, run, [d[k] for k in keys], specs, n_read)
@@ -343,6 +396,13 @@ def check_kernels(solver, problem, alpha):
              lambda m: m.pose_error(d["cam"], d["ct64"], d["x64"], d["uv64"],
                                     d["mask"], robust=0, huber=1.0, **a),
              ("mask", "cam", "ct64", "x64", "uv64"), [F64, F64, EXACT], live),
+        case("e0_term_parts",
+             lambda m: m.e0_term_parts(d["cam"], d["x"], d["h"], d["z"],
+                                       parts, n),
+             ("cam", "x", "h", "z"), [CAM], (covered, covered)),
+        case("schur_diag_structured",
+             lambda m: m.schur_diag_structured(d["cam"], d["x"], d["h"], n),
+             ("h", "cam", "x"), [CAM], live),
     ]
     results = run_cases(pk, pr, cases, o)
 
@@ -363,22 +423,26 @@ def check_kernels(solver, problem, alpha):
         return m.hpp_b_structured(cam_big, ct_big, d["x"], d["uv"], d["sw"],
                                   d["r_w"], d["jls"], d["hib"], nb, **a)
 
-    err, rels = compare("hpp_b_structured N=1024", big(pk), big(pr),
-                        [CAM, CAM])
-    print(f"hpp_b_structured N=1024 max_abs_err {err:.3e} scaled "
-          f"[{rels[0]:.1e} {rels[1]:.1e}]"
-          f"  events: kernel "
-          f"{cuda_ms(lambda: big(pk)):.4f} ms plain "
-          f"{cuda_ms(lambda: big(pr)):.4f} ms  device: kernel "
-          f"{device_us(lambda: big(pk)):.1f} us plain "
-          f"{device_us(lambda: big(pr)):.1f} us", flush=True)
+    def big_schur(m):
+        return m.schur_diag_structured(cam_big, d["x"], d["h"], nb)
+
+    for label, run, specs in (("hpp_b_structured", big, [CAM, CAM]),
+                              ("schur_diag_structured", big_schur, [CAM])):
+        err, rels = compare(f"{label} N=1024", run(pk), run(pr), specs)
+        print(f"{label} N=1024 max_abs_err {err:.3e} scaled "
+              f"[{' '.join(f'{x:.1e}' for x in rels)}]  events: kernel "
+              f"{cuda_ms(lambda: run(pk)):.4f} ms plain "
+              f"{cuda_ms(lambda: run(pr)):.4f} ms  device: kernel "
+              f"{device_us(lambda: run(pk)):.1f} us plain "
+              f"{device_us(lambda: run(pr)):.1f} us", flush=True)
     return results
 
 
 def check_kernels2(solver2, cams_h, lms_h, seed=1):
-    """The six step-2 kernels on the step-2 state (cams_h, lms_h) of the
+    """The eight step-2 kernels on the step-2 state (cams_h, lms_h) of the
     card's step-1 result: the linearization's own per-observation
-    operands plus seeded zt, sb, mat6, hib and ilm4."""
+    operands plus seeded zt, sb, mat6, hib and ilm4; the fused term over
+    `solver2`'s plan."""
     from povar_tpu_torch.ops import pose2_kernels as pk2
     from povar_tpu_torch.ops import pose2_ref as pr2
     from povar_tpu_torch.tools.step2_spread import CALM
@@ -424,6 +488,8 @@ def check_kernels2(solver2, cams_h, lms_h, seed=1):
     dc = dict(d, **{k: d[k] * calm
                     for k in ("mask", "sw", "mm", "r_w", "jlns", "jls8")})
 
+    parts = solver2.e0_plan.parts
+    covered = sum(g * w for _ofs, g, w in parts)
     main_valid = solver2.use_valid_only
     prep_specs = [ELEM] * 5 + [CAM]
     err_specs = [EXACT, F64, F64, EXACT, F64, F64, EXACT]
@@ -437,6 +503,8 @@ def check_kernels2(solver2, cams_h, lms_h, seed=1):
         def case(name, variant, run, keys, specs, n_read=None):
             label = ", ".join(v for v in (variant, tag) if v) or None
             return (name, label, run, [d[k] for k in keys], specs, n_read)
+
+        live_d = int((d["sw"] > 0).sum())
 
         def prep(use_valid, robust):
             return lambda m: m.prepare2(d["cam"], d["ct"], d["x4"], d["uv"],
@@ -481,6 +549,14 @@ def check_kernels2(solver2, cams_h, lms_h, seed=1):
                  ("mask", "cam", "ct64", "x4_64", "uv64"), err_specs,
                  live_mask),
             case("pose_error2", "HUBER", err2(1), (), err_specs),
+            case("e0_term2_parts", None,
+                 lambda m: m.e0_term2_parts(*obs, d["mat6"], d["zt"], parts,
+                                            n),
+                 ("sw", "cam", "x4", "mm", "mat6", "zt"), [CAM],
+                 (covered, live_d)),
+            case("schur_diag2", None,
+                 lambda m: m.schur_diag2(*obs, d["mat6"], n),
+                 ("sw", "cam", "x4", "mm", "mat6"), [CAM], live_d),
         ]
 
     return run_cases(pk2, pr2, cases_on(d, None)
@@ -583,18 +659,23 @@ def check_small_pipeline():
               f"{gap:.3e})", flush=True)
 
 
-def check_step2_witness(problem, opts, cams_h, lms_h):
+def check_step2_witness(problem, opts, cams_h, lms_h,
+                        counts_when_rejected=True):
     """Step 2 at venice-89 width from one homogenized step-1 state
     (cams_h, lms_h), its first WITNESS_ITERS iterations twice on the card
     and once through the plain versions on the CPU (`step2_witness` of
     povar_tpu_torch/tools/step2_spread.py, which leaves out the landmarks
     near a camera's principal plane): the same accept/reject decisions
-    and power-term counts in all three, the initial cost within 1e-12 and
-    the k-th accepted cost within WITNESS_TOLS[k] relative of the CPU's."""
+    and inner iteration counts (power terms, or the CG iterations of the
+    accepted trials: see WITNESS_TOLS) in all three, the initial
+    cost within 1e-12 and the k-th accepted cost within WITNESS_TOLS[k]
+    relative of the CPU's."""
     from povar_tpu_torch.tools.step2_spread import (
         CALM, WITNESS_TOLS, step2_witness, witness_gaps,
     )
 
+    print(f"step-2 witness solver: {opts.solver_type_step_2.value}, "
+          f"fused_power_term={opts.fused_power_term}", flush=True)
     args, runs = step2_witness(problem, opts, cams_h, lms_h)
     print(f"step-2 witness problem: {args[4]} of {problem.num_landmarks} "
           f"landmarks, {len(args[0])} of {problem.num_observations} "
@@ -606,7 +687,8 @@ def check_step2_witness(problem, opts, cams_h, lms_h):
               f"{[n for _ok, n, _c in traj[1:]]}  initial {traj[0][2]!r} "
               f"last accepted {[c for ok, _n, c in traj if ok][-1]!r}",
               flush=True)
-    for label, (same, init, gaps) in witness_gaps(runs).items():
+    for label, (same, init, gaps) in witness_gaps(
+            runs, counts_when_rejected).items():
         print(f"step-2 witness {label} vs cpu: initial cost gap {init:.2e}, "
               f"accepted costs' gaps {[f'{x:.2e}' for x in gaps]}", flush=True)
         if not same:
@@ -618,26 +700,31 @@ def check_step2_witness(problem, opts, cams_h, lms_h):
                                  f"cpu's ({init:.2e}, {gaps})")
 
 
-def check_final(step, summary):
-    """Raise unless the final cost of `step` meets its bound: step 1
-    within 1e-3 relative of the JAX final cost; step 2 within STEP2_BAND
-    times the JAX value and STEP2_DROP times its own initial cost."""
+def check_final(step, summary, jax_cost=None, band=None):
+    """Raise unless the final cost of `step` meets its bound. Step 1:
+    within `band` (lo, hi) times `jax_cost` where given, else within 1e-3
+    relative of `jax_cost` (default the POWER_VARPROJ one). Step 2:
+    finite, at most STEP2_DROP times its own initial cost, and within
+    `band` times `jax_cost` where given."""
     final = summary.final_cost.all.error
     if step == 1:
-        if not abs(final - JAX_FINAL_COST) <= 1e-3 * JAX_FINAL_COST:
+        jax_cost = JAX_FINAL_COST if jax_cost is None else jax_cost
+        if band is None and not abs(final - jax_cost) <= 1e-3 * jax_cost:
             raise AssertionError(f"step 1: final cost {final} off JAX "
-                                 f"{JAX_FINAL_COST}")
-        return
-    lo, hi = STEP2_BAND
-    initial = summary.initial_cost.all.error
-    if not (lo * JAX_FINAL_COST2 <= final <= hi * JAX_FINAL_COST2
-            and final <= STEP2_DROP * initial):
-        raise AssertionError(f"step 2: final cost {final} outside "
-                             f"[{lo}, {hi}] x JAX {JAX_FINAL_COST2} or above "
-                             f"{STEP2_DROP} x its initial cost {initial}")
+                                 f"{jax_cost}")
+    else:
+        initial = summary.initial_cost.all.error
+        if not (np.isfinite(final) and final <= STEP2_DROP * initial):
+            raise AssertionError(f"step 2: final cost {final} not finite "
+                                 f"or above {STEP2_DROP} x its initial "
+                                 f"cost {initial}")
+    if band is not None and not (band[0] * jax_cost <= final
+                                 <= band[1] * jax_cost):
+        raise AssertionError(f"step {step}: final cost {final} outside "
+                             f"{band} x JAX {jax_cost}")
 
 
-def report_step(step, summary, jax_cost):
+def report_step(step, summary, jax_cost, band=None):
     """Print one step's trajectory; raise unless accepted costs fall
     strictly and the final cost meets `check_final`."""
     its = summary.iterations
@@ -645,17 +732,131 @@ def report_step(step, summary, jax_cost):
     terms = [it.linear_solver_iterations for it in its[1:]]
     final = summary.final_cost.all.error
     rel = abs(final - jax_cost) / jax_cost
-    print(f"step {step}: iterations {len(its) - 1} "
+    print(f"step {step}: {summary.solver_type}, iterations {len(its) - 1} "
           f"({summary.termination_type}: {summary.message})", flush=True)
     print(f"step {step}: accept/reject {seq}", flush=True)
-    print(f"step {step}: power terms {terms}", flush=True)
+    print(f"step {step}: inner iterations {terms}", flush=True)
     print(f"step {step}: initial cost {its[0].cost.all.error!r} final cost "
           f"{final!r} rel diff to JAX {rel:.3e}", flush=True)
-    accepted = [it.cost.all.error for it in its if it.step_is_successful]
+    check_falling(f"step {step}",
+                  [it.cost.all.error for it in its if it.step_is_successful])
+    check_final(step, summary, jax_cost, band)
+
+
+def check_falling(label, accepted):
     if any(b >= a for a, b in zip(accepted, accepted[1:])):
-        raise AssertionError(f"step {step}: accepted costs not strictly "
+        raise AssertionError(f"{label}: accepted costs not strictly "
                              f"decreasing: {accepted}")
-    check_final(step, summary)
+
+
+def check_counts(path, counts):
+    """Raise unless every kernel that `path` (a key of PATHS) runs was
+    launched in that run; print the counts."""
+    print(f"launches ({path}) {counts}", flush=True)
+    idle = sorted(k for k in PATHS[path] if counts[k] == 0)
+    if idle:
+        raise AssertionError(f"{path}: kernels of the path never launched: "
+                             f"{idle}")
+
+
+def widen(args, cams_h, lms_h, n_wide=4, extra=20, seed=3):
+    """Stage-solver arguments `args` (obs_cam, obs_lm, obs_uv, N, M) with
+    `extra` more observations on each of the first `n_wide` landmarks:
+    slots of width > E0_TERM_MAX_W, so the fused plan gets a composed
+    suffix. The new observations come from the cameras that do not
+    observe the landmark yet and see it deepest in the homogeneous state
+    (cams_h, lms_h): none lands near a camera's principal plane."""
+    obs_cam, obs_lm, obs_uv, n_cams, n_lms = args
+    rng = np.random.default_rng(seed)
+    cams, lms, uvs = [obs_cam], [obs_lm], [obs_uv]
+    depth = (cams_h[:, 2, :] @ lms_h[:n_wide].T).abs().cpu().numpy()
+    for lm in range(n_wide):
+        free = np.setdiff1d(np.arange(n_cams), obs_cam[obs_lm == lm])
+        c = free[np.argsort(-depth[free, lm])[:extra]].astype(np.int32)
+        cams.append(c)
+        lms.append(np.full(extra, lm, np.int32))
+        uvs.append(obs_uv[obs_lm == lm][:1]
+                   + 0.1 * rng.standard_normal((extra, 2)))
+    return (np.concatenate(cams), np.concatenate(lms), np.concatenate(uvs),
+            n_cams, n_lms)
+
+
+def check_e0_operators(problem, cams, lms, cams_h, lms_h):
+    """The fused E0 operator of each step against the composed one on
+    one linearization and its first power term, per camera (CAM), at
+    venice-89 scale: with every landmark narrow (the fused kernel alone)
+    and with four landmarks widened past E0_TERM_MAX_W (fused parts plus
+    the composed suffix). Step 1 runs on the problem, step 2 on its
+    well-conditioned landmarks (`calm_subproblem`, as the witness). On
+    the full step-2 state (near-plane rows in) it reports how many
+    entries of each operator are not finite and raises where the fused
+    one is not finite but the composed one is."""
+    from povar_tpu_torch import SolverOptions, Stage1Solver, Stage2Solver
+    from povar_tpu_torch.ops import linalg
+    from povar_tpu_torch.tools.step2_spread import calm_subproblem
+
+    fused = SolverOptions()
+    composed = SolverOptions(fused_power_term=False)
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    args2, lms_w = calm_subproblem(problem, cams_h, lms_h)
+    lam = 1e-4
+
+    def first_term(hpp, b):
+        """B^-1 (-b), the power series' first term: the operand E0 meets
+        in a solve (a random one overflows f32 on the near-plane rows)."""
+        eye = torch.eye(hpp.shape[0], dtype=hpp.dtype, device=hpp.device)
+        b_inv = linalg.inv_psd_smallf(hpp + lam * eye[:, :, None])
+        return (b_inv * (-b)[None]).sum(dim=1)
+
+    def both(label, got, want):
+        if not bool(torch.isfinite(want).all()):
+            raise AssertionError(f"{label}: the composed operator is not "
+                                 "finite")
+        return compare(label, got, want, [CAM])[1][0]
+
+    s2 = Stage2Solver(*args, fused, device="cuda")
+    lin2 = s2.linearize(cams_h, s2.lm_pack(lms_h))
+    _hi, hib_obs, b6 = s2._prep_hll_s(lin2, s2._solve_scalar(lam))
+    v11 = first_term(*s2._hpp_b11(lin2, hib_obs))
+    c2 = Stage2Solver(*args, composed, device="cuda")
+    bad_f = ~torch.isfinite(s2._e0_apply_s(lin2, b6)(v11))
+    bad_c = ~torch.isfinite(c2._e0_apply_s(lin2, b6)(v11))
+    print(f"full step-2 state, first power term at lambda {lam:g}: "
+          f"{int((~torch.isfinite(v11)).sum())} non-finite entries of the "
+          f"operand, {int(bad_f.sum())} of the fused E0, {int(bad_c.sum())} "
+          f"of the composed E0", flush=True)
+    if bool((bad_f & ~bad_c).any()):
+        raise AssertionError("fused step-2 E0 not finite where the composed "
+                             "one is")
+    for label, a, a2 in (
+            ("narrow", args, args2),
+            ("widened", widen(args, cams_h, lms_h),
+             widen(args2, cams_h, lms_w))):
+        s1 = Stage1Solver(*a, fused, device="cuda")
+        if (s1.e0_plan.suffix is None) != (label == "narrow"):
+            raise AssertionError(f"{label}: plan {s1.e0_plan}")
+        lin = s1.linearize(cams, s1.lm_pack(lms))
+        _hi, hib_obs, jls_obs, lh_obs = s1._hll_pieces_s(lin)
+        h = s1._h_factor_s(lin, jls_obs, lh_obs)
+        v12 = first_term(*s1._hpp_b_s(lin, hib_obs, jls_obs))
+        c1 = Stage1Solver(*a, composed, device="cuda")
+        r1 = both(f"step-1 E0 {label}", s1._e0_apply_s(lin, h)(v12),
+                  c1._e0_apply_s(lin, h)(v12))
+
+        s2 = Stage2Solver(*a2, fused, device="cuda")
+        if (s2.e0_plan.suffix is None) != (label == "narrow"):
+            raise AssertionError(f"{label}: step-2 plan {s2.e0_plan}")
+        lin2 = s2.linearize(cams_h, s2.lm_pack(lms_w))
+        _hi, hib_obs, b6 = s2._prep_hll_s(lin2, s2._solve_scalar(lam))
+        v11 = first_term(*s2._hpp_b11(lin2, hib_obs))
+        c2 = Stage2Solver(*a2, composed, device="cuda")
+        r2 = both(f"step-2 E0 {label}", s2._e0_apply_s(lin2, b6)(v11),
+                  c2._e0_apply_s(lin2, b6)(v11))
+        print(f"E0 fused vs composed, {label} (step-1 suffix "
+              f"{None if s1.e0_plan.suffix is None else s1.e0_plan.suffix[0]}"
+              f", step 2 on {a2[4]} calm landmarks): step 1 {r1:.2e}, "
+              f"step 2 {r2:.2e} scaled per camera", flush=True)
 
 
 def bench_iterations(step, c, lm, label, reps: int = 50) -> None:
@@ -674,6 +875,67 @@ def bench_iterations(step, c, lm, label, reps: int = 50) -> None:
     profile_iterations(step, c, lm)
 
 
+def check_cli(problem):
+    """`python -m povar_tpu_torch.cli` as a user runs it, in a
+    subprocess on the card with SolverOptions() defaults: on the BAL
+    fixture tests/data/mini-bal-12-48-pre.txt and on `problem` written as
+    BAL text by write_bal_text, each after --create-dataset. Raises
+    unless each run exits 0 and writes a ba_log.json with both steps'
+    records and strictly falling accepted costs in each."""
+    import os
+    import shutil
+
+    from povar_tpu_torch.problem.synthetic import write_bal_text
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+
+    def cli(cwd, *argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "povar_tpu_torch.cli", *argv], cwd=cwd,
+            env=env, capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {argv}: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        return time.perf_counter() - t0
+
+    for label in ("mini-bal-12-48", "venice-89"):
+        d = os.path.join(work, label)
+        os.makedirs(d)
+        name = f"problem-{label}-pre.txt"
+        t0 = time.perf_counter()
+        if label == "venice-89":
+            write_bal_text(os.path.join(d, name), problem.num_cameras,
+                           problem.num_landmarks, problem.obs_cam,
+                           problem.obs_lm, problem.obs_uv, lm_p=problem.lm_p)
+        else:
+            shutil.copy(os.path.join(root, "tests", "data",
+                                     "mini-bal-12-48-pre.txt"),
+                        os.path.join(d, name))
+        write_s = time.perf_counter() - t0
+        create_s = cli(d, "--input", name, "--create-dataset")
+        solve_s = cli(d, "--input", os.path.join("data_custom", name))
+        with open(os.path.join(d, "ba_log.json")) as f:
+            log = json.load(f)
+        for key in ("iterations1", "iterations"):
+            check_falling(f"cli {label} {key}",
+                          [it["cost"] for it in log[key]
+                           if it["step_is_successful"]])
+        print(f"cli {label}: BAL text {write_s:.2f} s, --create-dataset "
+              f"{create_s:.2f} s, solve {solve_s:.2f} s (process, load and "
+              f"kernel library included); {len(log['iterations1'])} + "
+              f"{len(log['iterations'])} records ({log['solver1']['solver_type']}"
+              f", {log['solver']['solver_type']}), final costs "
+              f"{log['iterations1'][-1]['cost']!r} "
+              f"{log['iterations'][-1]['cost']!r}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -686,6 +948,7 @@ def main() -> int:
     from povar_tpu_torch.ops import _build, launches
     from povar_tpu_torch.ops import pose2_kernels as pk2
     from povar_tpu_torch.ops import pose_kernels as pk
+    from povar_tpu_torch.options import SolverType, SolverTypeRiemannian
 
     phase("device")
     smi = subprocess.run(
@@ -710,128 +973,169 @@ def main() -> int:
     phase("kernels (venice-89 shapes)")
     t0 = time.perf_counter()
     problem = synthetic_bal_problem_fast(N_CAMS, N_LMS, OBS_PER_LM, seed=0)
-    opts = SolverOptions()
-    opts.fused_power_term = False
-    opts.device_lm_loop = "off"
+    defaults = SolverOptions()
+    # the composed power term (e0_u/e0_scatter, mat_dot2/scatter2)
+    opts = SolverOptions(fused_power_term=False)
     probe = Stage1Solver(
         problem.obs_cam, problem.obs_lm, problem.obs_uv,
-        problem.num_cameras, problem.num_landmarks, opts, device="cuda",
+        problem.num_cameras, problem.num_landmarks, defaults, device="cuda",
     )
     print(f"problem {problem.num_observations} obs -> O = "
           f"{probe.obs.cam.shape[0]} padded, N = {probe.n_cams}; set-up "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    results = check_kernels(probe, problem, opts.alpha)
+    results = check_kernels(probe, problem, defaults.alpha)
     del probe
 
     phase("step 1")
     check_small()
     launches.reset_launch_counts()
     summary, (cams, lms), setup_s, solve_s = solve(problem, opts, "cuda")
-    counts = {k: v for k, v in launches.launch_counts().items()
-              if k in pk.KERNELS}
+    check_counts("step 1 composed", launches.launch_counts())
     report_step(1, summary, JAX_FINAL_COST)
-    print(f"launches {counts}", flush=True)
-    print(f"first solve {solve_s:.3f} s (solver set-up {setup_s:.3f} s)",
-          flush=True)
-    if min(counts.values()) == 0:
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    print(f"composed term: first solve {solve_s:.3f} s (solver set-up "
+          f"{setup_s:.3f} s)", flush=True)
     if tuple(cams.shape) != (N_CAMS, 3, 4) or tuple(lms.shape) != (N_LMS, 3):
         raise AssertionError(f"output shapes {cams.shape} {lms.shape}")
     if not (bool(torch.isfinite(cams).all()) and bool(torch.isfinite(lms).all())):
         raise AssertionError("non-finite optimized state")
 
-    summary2, _, setup2_s, warm_s = solve(problem, opts, "cuda")
-    final2 = summary2.final_cost.all.error
+    launches.reset_launch_counts()
+    summary_d, _, setup_d, solve_d = solve(problem, defaults, "cuda")
+    check_counts("step 1 defaults", launches.launch_counts())
+    report_step(1, summary_d, JAX_FINAL_COST)
+    summary2, _, setup2_s, warm_s = solve(problem, defaults, "cuda")
     check_final(1, summary2)
-    print(f"warm solve {warm_s:.3f} s (solver set-up {setup2_s:.3f} s), "
+    print(f"SolverOptions() defaults: first solve {solve_d:.3f} s, warm "
+          f"{warm_s:.3f} s (solver set-up {setup_d:.3f} / {setup2_s:.3f} s), "
           f"{len(summary2.iterations) - 1} iterations, final cost "
-          f"{final2!r}", flush=True)
+          f"{summary2.final_cost.all.error!r}", flush=True)
 
-    bench = SolverOptions()
-    bench.fused_power_term = False
-    bench.device_lm_loop = "off"
-    bench.power_sc_iterations = 10
-    bench.eta = 0.0
-    bench.r_tolerance = -1.0
-    s = Stage1Solver(
-        problem.obs_cam, problem.obs_lm, problem.obs_uv,
-        problem.num_cameras, problem.num_landmarks, bench, device="cuda",
-    )
+    def bench_options(base):
+        o = copy.deepcopy(base)
+        o.power_sc_iterations = 10
+        o.eta = 0.0
+        o.r_tolerance = -1.0
+        return o
+
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
     c = torch.as_tensor(problem.cam_space, device="cuda")
-    lm0 = s.initialize_varproj(c)
+    for label, base in (("step-1 defaults", defaults),
+                        ("step-1 composed", opts)):
+        s = Stage1Solver(*args, bench_options(base), device="cuda")
+        lm0 = s.initialize_varproj(c)
 
-    def step(c, lm):
-        lin = s.linearize(c, lm)
-        nc, nl, _ok, _it, _ld, err = s.trial(c, lm, lin, 1e-4)
-        return nc, nl, err["error_all"]
+        def step(c, lm, s=s):
+            lin = s.linearize(c, lm)
+            nc, nl, _ok, _it, _ld, err = s.trial(c, lm, lin, 1e-4)
+            return nc, nl, err["error_all"]
 
-    bench_iterations(step, c, s.lm_pack(lm0), "step-1")
+        bench_iterations(step, c, s.lm_pack(lm0), label)
 
     phase("kernels2 (venice-89 shapes, step-2 state of the step-1 result)")
     t0 = time.perf_counter()
-    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
-            problem.num_cameras, problem.num_landmarks)
-    probe2 = Stage2Solver(*args, opts, device="cuda")
+    probe2 = Stage2Solver(*args, defaults, device="cuda")
     print(f"step-2 solver set-up {time.perf_counter() - t0:.2f} s", flush=True)
     cams_h, lms_h = create_homogeneous(cams, lms)
     results.update(check_kernels2(probe2, cams_h, lms_h))
     del probe2
 
+    phase("E0 operators: fused against composed (venice-89)")
+    check_e0_operators(problem, cams, lms, cams_h, lms_h)
+
     phase("step-2 witness (venice-89, card against CPU from one state)")
     check_step2_witness(problem, opts, cams_h, lms_h)
+    ripcg = SolverOptions(solver_type_step_2=SolverTypeRiemannian.RIPCG)
+    check_step2_witness(problem, ripcg, cams_h, lms_h,
+                        counts_when_rejected=False)
 
     phase("pipeline (bundle_adjust)")
     check_small_pipeline()
     t0 = time.perf_counter()
-    Stage1Solver(*args, opts, device="cuda")
-    Stage2Solver(*args, opts, device="cuda")
+    Stage1Solver(*args, defaults, device="cuda")
+    Stage2Solver(*args, defaults, device="cuda")
     torch.cuda.synchronize()
     setup_e2e = time.perf_counter() - t0
-    launches.reset_launch_counts()
-    out, p1, p2, e2e_s = pipeline(problem, opts, "cuda")
-    all_counts = launches.launch_counts()
-    report_step(1, p1, JAX_FINAL_COST)
-    report_step(2, p2, JAX_FINAL_COST2)
-    records = len(p1.iterations) + len(p2.iterations)
-    print(f"iteration records {records} ({len(p1.iterations)} + "
-          f"{len(p2.iterations)}; BENCH_r05 e2e_iterations {JAX_RECORDS}, "
-          f"recorded, not compared)", flush=True)
-    print(f"launches {all_counts}", flush=True)
-    print(f"first bundle_adjust {e2e_s:.3f} s (both solvers' set-up, "
-          f"measured apart: {setup_e2e:.3f} s)", flush=True)
-    if len(all_counts) != 13 or min(all_counts.values()) == 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{all_counts}")
-    if out.cam_space.shape != (N_CAMS, 3, 4) or out.lm_p_h.shape != (N_LMS, 4):
-        raise AssertionError(f"output shapes {out.cam_space.shape} "
-                             f"{out.lm_p_h.shape}")
-    if not all(np.isfinite(a).all() for a in (out.cam_space, out.lm_p_h,
-                                              out.lm_p)):
-        raise AssertionError("non-finite optimized state")
+    counts = {}
+    for path, o in (("bundle_adjust defaults", defaults),
+                    ("bundle_adjust composed", opts)):
+        launches.reset_launch_counts()
+        out, p1, p2, e2e_s = pipeline(problem, o, "cuda")
+        counts[path] = launches.launch_counts()
+        print(f"-- {path}", flush=True)
+        check_counts(path, counts[path])
+        report_step(1, p1, JAX_FINAL_COST)
+        report_step(2, p2, JAX_FINAL_COST2, STEP2_BAND)
+        records = len(p1.iterations) + len(p2.iterations)
+        print(f"iteration records {records} ({len(p1.iterations)} + "
+              f"{len(p2.iterations)}; BENCH_r05 e2e_iterations "
+              f"{JAX_RECORDS}, recorded, not compared)", flush=True)
+        print(f"first bundle_adjust {e2e_s:.3f} s (both solvers' set-up, "
+              f"measured apart: {setup_e2e:.3f} s)", flush=True)
+        if (out.cam_space.shape != (N_CAMS, 3, 4)
+                or out.lm_p_h.shape != (N_LMS, 4)):
+            raise AssertionError(f"output shapes {out.cam_space.shape} "
+                                 f"{out.lm_p_h.shape}")
+        if not all(np.isfinite(a).all() for a in (out.cam_space, out.lm_p_h,
+                                                  out.lm_p)):
+            raise AssertionError("non-finite optimized state")
 
-    _, w1, w2, warm_e2e = pipeline(problem, opts, "cuda")
+    _, w1, w2, warm_e2e = pipeline(problem, defaults, "cuda")
     check_final(1, w1)
-    check_final(2, w2)
-    print(f"warm bundle_adjust {warm_e2e:.3f} s, "
+    check_final(2, w2, JAX_FINAL_COST2, STEP2_BAND)
+    print(f"warm bundle_adjust (defaults) {warm_e2e:.3f} s, "
           f"{len(w1.iterations)} + {len(w2.iterations)} records, final costs "
           f"{w1.final_cost.all.error!r} {w2.final_cost.all.error!r}",
           flush=True)
 
-    s2 = Stage2Solver(*args, bench, device="cuda")
+    lm0 = Stage1Solver(*args, defaults, device="cuda").initialize_varproj(c)
     c2, lm2 = create_homogeneous(c, lm0)
+    for label, base in (("step-2 defaults", defaults),
+                        ("step-2 composed", opts)):
+        s2 = Stage2Solver(*args, bench_options(base), device="cuda")
 
-    def step2(c, lm):
-        lin = s2.linearize(c, lm)
-        nc, nl, _ok, _it, _ld, err = s2.trial(c, lm, lin, 1e-4)
-        return nc, nl, err["error_all"]
+        def step2(c, lm, s2=s2):
+            lin = s2.linearize(c, lm)
+            nc, nl, _ok, _it, _ld, err = s2.trial(c, lm, lin, 1e-4)
+            return nc, nl, err["error_all"]
 
-    bench_iterations(step2, c2, s2.lm_pack(lm2), "step-2")
+        bench_iterations(step2, c2, s2.lm_pack(lm2), label)
+
+    phase("CG solvers (bundle_adjust, PCG with SCHUR_JACOBI + RIPCG)")
+    pcg = SolverOptions(solver_type_step_1=SolverType.PCG,
+                        solver_type_step_2=SolverTypeRiemannian.RIPCG)
+    path = "bundle_adjust PCG+RIPCG"
+    launches.reset_launch_counts()
+    out, q1, q2, pcg_s = pipeline(problem, pcg, "cuda")
+    counts[path] = launches.launch_counts()
+    check_counts(path, counts[path])
+    report_step(1, q1, JAX_PCG_COST, PCG_BAND)
+    cg1 = [it.linear_solver_iterations for it in q1.iterations]
+    print(f"step 1: {len(cg1)} records, CG iterations {cg1}; JAX "
+          f"{len(JAX_PCG_CG)} records, {JAX_PCG_CG}", flush=True)
+    if cg1[:PCG_SAME + 1] != JAX_PCG_CG[:PCG_SAME + 1]:
+        raise AssertionError(f"step 1: first CG counts {cg1} != JAX "
+                             f"{JAX_PCG_CG}")
+    report_step(2, q2, JAX_PCG_COST2)
+    print(f"PCG+RIPCG bundle_adjust {pcg_s:.3f} s, "
+          f"{len(q1.iterations)} + {len(q2.iterations)} records", flush=True)
+    if not all(np.isfinite(a).all() for a in (out.cam_space, out.lm_p_h)):
+        raise AssertionError("non-finite optimized state")
+
+    phase("cli (python -m povar_tpu_torch.cli, SolverOptions() defaults)")
+    check_cli(problem)
+
+    def launched(name):
+        """(count, run) of `name` in the first venice-89 `bundle_adjust`
+        run of PATHS that runs it."""
+        path = next(p for p in counts if name in PATHS[p])
+        return counts[path][name], path
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda",
              source=SOURCES[2 if name in pk2.KERNELS else 1],
-             replaces=REPLACES[name], launches=all_counts[name],
-             **results[name])
+             replaces=REPLACES[name], launches=launched(name)[0],
+             launches_run=launched(name)[1], **results[name])
         for name in launches.KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,27 +2,30 @@
 
 Initialization-free stratified projective bundle adjustment (Power
 Variable Projection, tum-vision/povar) on an NVIDIA H100. This package
-runs the two-step solve, `bundle_adjust`: step 1, pOSE Variable
-Projection LM with the POWER_VARPROJ solver; the homogenize/normalize
-boundary (`create_homogeneous`); step 2, Riemannian LM with the RIPOBA
-solver (m = 10 power terms, f64 LM state and costs, f32 inner solves),
-on the structured per-observation layout of the JAX package. Its
-thirteen per-observation passes are hand-written CUDA kernels for
-sm_90a (csrc/), built with nvcc at first use (ops/_build.py); on tensors
-that lie on the CPU the same calls run their plain PyTorch versions
-(ops/pose_ref.py, ops/pose2_ref.py). Entry points run on the card
-(device="cuda") unless the caller asks for the CPU.
+runs the two-step solve, `bundle_adjust`, with `SolverOptions()`
+defaults: step 1, pOSE Variable Projection LM with the POWER_VARPROJ
+solver (or PCG); the homogenize/normalize boundary
+(`create_homogeneous`); step 2, Riemannian LM with the RIPOBA solver (or
+RIPCG); m = 10 power terms through the fused power-term kernels, f64 LM
+state and costs, f32 inner solves, on the structured per-observation
+layout of the JAX package. Its seventeen per-observation passes are
+hand-written CUDA kernels for sm_90a (csrc/), built with nvcc at first
+use (ops/_build.py); on tensors that lie on the CPU the same calls run
+their plain PyTorch versions (ops/pose_ref.py, ops/pose2_ref.py). Entry
+points run on the card (device="cuda") unless the caller asks for the
+CPU. The command-line app is `python -m povar_tpu_torch.cli`
+(`povar-bal-torch`).
 
 The JAX package `povar_tpu` is the reference this port is held against.
-Nothing here imports jax or povar_tpu: the numpy-only modules the slice
-needs (options, problem, synthetic generators, summaries) are copies.
+Nothing here imports jax or povar_tpu: the numpy-only modules the port
+needs (options, problem, BAL I/O, synthetic generators, summaries, the
+ba_log writer) are copies.
 
     from povar_tpu_torch import (
         SolverOptions, bundle_adjust, synthetic_bal_problem_fast,
     )
-    opts = SolverOptions(fused_power_term=False, device_lm_loop="off")
     problem, summary1, summary2 = bundle_adjust(
-        synthetic_bal_problem_fast(89, 110973, 5, seed=0), opts)
+        synthetic_bal_problem_fast(89, 110973, 5, seed=0), SolverOptions())
 """
 
 from povar_tpu_torch.options import SolverOptions
@@ -39,7 +42,7 @@ from povar_tpu_torch.solver.stage2 import Stage2Solver, create_homogeneous
 from povar_tpu_torch.utils.summary import SolverSummary
 from povar_tpu_torch.utils.timer import Timer
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = [
     "BalProblem",

@@ -1,6 +1,6 @@
 // Step-1 structured pOSE kernels for Hopper (sm_90a): the hand-written
-// CUDA counterparts of the Pallas kernels on the POWER_VARPROJ step-1
-// path of povar_tpu/ops/pallas_pose.py.
+// CUDA counterparts of the Pallas kernels on the POWER_VARPROJ and PCG
+// step-1 paths of povar_tpu/ops/pallas_pose.py.
 //
 //   K1 prepare                  <- pallas_pose.py:285 (_prepare_kernel :227)
 //   K2 e0_factor                <- pallas_pose.py:385 (_h_kernel :362)
@@ -10,19 +10,25 @@
 //   K6 apply_ldiff              <- pallas_pose.py:846 (_ldiff_kernel :794)
 //   K7 pose_error               <- pallas_pose.py:1319 (pose_error_df32,
 //                                  _error_kernel :1217), in native f64
+//   K8 e0_term_parts            <- pallas_pose.py:748 (_e0_term_kernel :673)
+//   K9 schur_diag_structured    <- pallas_pose.py:1020 (_schur_diag_kernel
+//                                  :987)
 //
 // What the TPU kernels needed and these do not: the one-hot incidence
 // matmuls with the exact bf16 3-way split (a camera row is a shared-
 // memory read by index here), the 128-lane padding and VMEM tile caps
-// (a grid-stride loop covers any O), and the double-float arithmetic of
-// the cost (the H100 has native f64).
+// (a grid-stride loop covers any O), the per-width launches and VMEM
+// budget of the fused term (one launch walks every part through a part
+// table), and the double-float arithmetic of the cost (the H100 has
+// native f64).
 //
-// What bounds them on the card: all seven stream O observations with a
+// What bounds them on the card: all nine stream O observations with a
 // few dozen flops each, so each is bound by device-memory bytes per
 // observation (K1 reads 28 B and writes 68 B; K2 64/36; K3 68/0; K4
-// 52/12; K5 64/0; K6 68/0; K7 48/0 at f64 state) until the per-camera
-// shared-memory atomics of K1, K3 and K5 (12, 124 and 12 per observation)
-// cost more than the bytes: K3 is the one where they do. A block's
+// 52/12; K5 64/0; K6 68/0; K7 48/0 at f64 state; K8 52/0; K9 52/0) until
+// the per-camera shared-memory atomics of K1, K3, K5, K8 and K9 (12, 124,
+// 12, 12 and 144 per observation) cost more than the bytes: K3 and K9 are
+// the ones where they do. A block's
 // shared accumulators leave through one global atomic per entry, so the
 // grid is sized to what is resident at once (grid-stride), not to O.
 //
@@ -312,6 +318,147 @@ __global__ void __launch_bounds__(kThreads)
   povar::flush_acc(out, acc, 12 * n_cams);
 }
 
+// ------------------------------------------------------------------ K8
+// The fused power-series term over every narrow slot part in one launch:
+//   out[4a+i][cam] += tt[a] xh_i,  tt[a] = sum_c h[c*3+a] sb[c]  (xh_3 = 1)
+//   sb[c] = sum_j u_j[c],  u[c] = sum_a h[c*3+a] y[a],  y = xh . z[:, cam]
+// i.e. e0_u, the per-landmark slot sum, its re-expansion and e0_scatter
+// in one pass, with u and sb kept in registers. One thread per landmark:
+// parts holds (ofs, g, w, first landmark) per slot part, and slot
+// element j of landmark l of a part is observation ofs + j * g + l
+// (segments.py's slot-element-major layout), so neighbouring threads
+// read neighbouring addresses. Pass A sums sb over j in order; pass B
+// reads x and h again (from L1/L2) and adds tt (x) xh into shared
+// accumulators, flushed by one global atomic per entry (as K5).
+// Replaces pallas_pose.py:748 e0_term_parts (_e0_term_kernel :673). Bound:
+// 52 B read per observation (cam 4, x 12, h 36) plus 12 shared atomics
+// per live row; no per-observation output at all.
+__global__ void __launch_bounds__(kThreads)
+    e0_term_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
+                   const float* __restrict__ h, const float* __restrict__ zt,
+                   const int32_t* __restrict__ parts, float* __restrict__ out,
+                   int n_parts, int n_lms, int n_obs, int n_cams) {
+  extern __shared__ float smem[];
+  float* tbl = smem;
+  float* acc = smem + 12 * n_cams;
+  int* part = reinterpret_cast<int*>(smem + 24 * n_cams);
+  povar::smem_copy(tbl, zt, 12 * n_cams);
+  povar::smem_zero(acc, 12 * n_cams);
+  povar::smem_copy(part, parts, 4 * n_parts);
+  __syncthreads();
+  const int O = n_obs;
+  POVAR_OBS_LOOP(lm, n_lms) {
+    int p = 0;
+    while (p + 1 < n_parts && lm >= part[4 * (p + 1) + 3]) ++p;
+    const int g = part[4 * p + 1], w = part[4 * p + 2];
+    const int first = part[4 * p] + (lm - part[4 * p + 3]);
+    float sb[3] = {0.0f, 0.0f, 0.0f};
+    for (int j = 0; j < w; ++j) {
+      const int o = first + j * g;
+      const int c = cam[o];
+      const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
+      float z[12], y[3];
+#pragma unroll
+      for (int k = 0; k < 12; ++k) z[k] = tbl[k * n_cams + c];
+      povar::xh_contract(z, xh, y);
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc) {
+        sb[cc] += h[(cc * 3 + 0) * O + o] * y[0] +
+                  h[(cc * 3 + 1) * O + o] * y[1] +
+                  h[(cc * 3 + 2) * O + o] * y[2];
+      }
+    }
+    for (int j = 0; j < w; ++j) {
+      const int o = first + j * g;
+      float t[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        float acc_t = h[a * O + o] * sb[0];
+        acc_t += h[(3 + a) * O + o] * sb[1];
+        acc_t += h[(6 + a) * O + o] * sb[2];
+        t[a] = acc_t;
+      }
+      if (t[0] == 0.0f && t[1] == 0.0f && t[2] == 0.0f) continue;
+      const int c = cam[o];
+      const float xh[3] = {x[o], x[O + o], x[2 * O + o]};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          atomicAdd(&acc[(4 * a + i) * n_cams + c], t[a] * xh[i]);
+        atomicAdd(&acc[(4 * a + 3) * n_cams + c], t[a]);
+      }
+    }
+  }
+  __syncthreads();
+  povar::flush_acc(out, acc, 12 * n_cams);
+}
+
+// ------------------------------------------------------------------ K9
+// Per-camera Schur-Jacobi corrections [144, N], rows ((a*4+i)*3+b)*4+j:
+//   sum hth[a][b] xh_i xh_j,  hth = h^T h (3x3, symmetric)
+// kShared: 144 N shared accumulators (51 KB at N = 89) flushed once per
+// block; otherwise (N past ~400) every term goes to a global atomic.
+// Dead rows (h == 0) contribute exactly zero and are skipped.
+// Replaces pallas_pose.py:1020 schur_diag_structured (_schur_diag_kernel
+// :987). Bound: 144 shared (or global) atomics per live observation, far
+// more than its 52 B read.
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads)
+    schur_diag_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
+                      const float* __restrict__ h, float* __restrict__ out,
+                      int n_obs, int n_cams) {
+  extern __shared__ float smem[];
+  float* acc = kShared ? smem : out;
+  if (kShared) {
+    povar::smem_zero(acc, 144 * n_cams);
+    __syncthreads();
+  }
+  const int O = n_obs;
+  POVAR_OBS_LOOP(o, O) {
+    float hv[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) hv[k] = h[k * O + o];
+    float hth[3][3];
+    bool zero = true;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int b = 0; b <= a; ++b) {
+        float s = hv[a] * hv[b];
+        s += hv[3 + a] * hv[3 + b];
+        s += hv[6 + a] * hv[6 + b];
+        hth[a][b] = s;
+        hth[b][a] = s;
+        zero = zero && s == 0.0f;
+      }
+    }
+    if (zero) continue;
+    const int c = cam[o];
+    const float xh[3] = {x[o], x[O + o], x[2 * O + o]};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float r = hth[a][b];
+            if (i < 3) r = r * xh[i];
+            if (j < 3) r = r * xh[j];
+            atomicAdd(&acc[(((a * 4 + i) * 3 + b) * 4 + j) * n_cams + c], r);
+          }
+        }
+      }
+    }
+  }
+  if (kShared) {
+    __syncthreads();
+    povar::flush_acc(out, acc, 144 * n_cams);
+  }
+}
+
 // ------------------------------------------------------------------ K6
 // Per-block partials of -l_diff = sum j_inc . (0.5 j_inc + r_w), with
 //   j_inc = Jp(new) inc[cam] + sw A~_old[:, :3] (jls . inc_lm)
@@ -477,6 +624,27 @@ int povar_e0_scatter(const int32_t* cam, const float* x, const float* h,
                      void* stream) {
   const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
   return launch(e0_scatter_kernel, n_obs, smem, stream, cam, x, h, sb, out,
+                n_obs, n_cams);
+}
+
+int povar_e0_term(const int32_t* cam, const float* x, const float* h,
+                  const float* zt, const int32_t* parts, float* out,
+                  int n_parts, int n_lms, int n_obs, int n_cams,
+                  void* stream) {
+  const size_t smem =
+      sizeof(float) * 24 * (size_t)n_cams + sizeof(int) * 4 * (size_t)n_parts;
+  return launch(e0_term_kernel, n_lms, smem, stream, cam, x, h, zt, parts,
+                out, n_parts, n_lms, n_obs, n_cams);
+}
+
+int povar_schur_diag(const int32_t* cam, const float* x, const float* h,
+                     float* out, int n_obs, int n_cams, void* stream) {
+  const size_t shared = sizeof(float) * 144 * (size_t)n_cams;
+  if (shared <= (size_t)max_optin_smem()) {
+    return launch(schur_diag_kernel<true>, n_obs, shared, stream, cam, x, h,
+                  out, n_obs, n_cams);
+  }
+  return launch(schur_diag_kernel<false>, n_obs, 0, stream, cam, x, h, out,
                 n_obs, n_cams);
 }
 

@@ -1,15 +1,17 @@
 // Step-2 structured homogeneous-projective kernels for Hopper (sm_90a):
 // the hand-written CUDA counterparts of the Pallas kernels on the RIPOBA
-// step-2 path of povar_tpu/ops/pallas_pose2.py (composed power term,
-// fused_power_term=False).
+// and RIPCG step-2 paths of povar_tpu/ops/pallas_pose2.py (fused and
+// composed power terms).
 //
-//   S1 prepare2     <- pallas_pose2.py:157 (_prepare2_kernel :77)
-//   S2 hppb2        <- pallas_pose2.py:267 (_hppb2_kernel :218)
-//   S3 mat_dot2     <- pallas_pose2.py:347 (_mat_dot_kernel :311)
-//   S4 scatter2     <- pallas_pose2.py:412 (_scatter2_kernel :383)
-//   S5 ldiff2       <- pallas_pose2.py:667 (_ldiff2_kernel :634)
-//   S6 pose_error2  <- pallas_pose2.py:822 (error2_df32, _error2_kernel
-//                      :734), in native f64
+//   S1 prepare2        <- pallas_pose2.py:157 (_prepare2_kernel :77)
+//   S2 hppb2           <- pallas_pose2.py:267 (_hppb2_kernel :218)
+//   S3 mat_dot2        <- pallas_pose2.py:347 (_mat_dot_kernel :311)
+//   S4 scatter2        <- pallas_pose2.py:412 (_scatter2_kernel :383)
+//   S5 ldiff2          <- pallas_pose2.py:667 (_ldiff2_kernel :634)
+//   S6 pose_error2     <- pallas_pose2.py:822 (error2_df32, _error2_kernel
+//                         :734), in native f64
+//   S7 e0_term2_parts  <- pallas_pose2.py:512 (_e0_term2_kernel :455)
+//   S8 schur_diag2     <- pallas_pose2.py:601 (_schur2_kernel :563)
 //
 // Every quantity derives from the camera row P (or a per-camera zt
 // table), the homogeneous landmark x4 and the projection cache
@@ -31,8 +33,10 @@
 // S2 reads 80 B and does 124 shared atomics (the atomics bound it); S3
 // reads 60 B (68 with r_w) and writes 12 B; S4 reads 72 B plus 12
 // shared atomics; S5 reads 92 B; S6 reads 60 B (f64 state) with ~30 f64
-// flops. Per-camera sums leave a block through one global atomic per
-// non-zero entry; scalar sums leave as one partial per block.
+// flops; S7 reads 60 B plus 12 shared atomics; S8 reads 60 B and does
+// 144 shared atomics (the atomics bound it). Per-camera sums leave a
+// block through one global atomic per non-zero entry; scalar sums leave
+// as one partial per block.
 //
 // C interface as in pose1.cu: device pointers, sizes, scalar constants
 // and the stream; each entry point launches one kernel and returns the
@@ -313,6 +317,154 @@ __global__ void __launch_bounds__(kThreads)
   povar::flush_acc(out, acc, 12 * n_cams);
 }
 
+// ------------------------------------------------------------------ S7
+// The fused tangent power-series term over every narrow slot part in one
+// launch (the skeleton of pose1.cu's K8, 15 rows per slot element):
+//   pass A  jx = sw/p2 [q~0 - mx q~2, q~1 - my q~2] through the zt table,
+//           sb_i = sum_j (M[0][i] jx0 + M[1][i] jx1)  (M = mat6 rows r*3+i)
+//   pass B  v = M sb, ctv = sw/p2 [v0, v1, -(mx v0 + my v1)],
+//           out[4a+c][cam] += ctv_a x4_c
+// i.e. mat_dot2, the per-landmark slot sum, its re-expansion and scatter2
+// in one pass. Dead and pad rows (sw == 0) are skipped in both passes,
+// scatter2's guard: they add exactly zero, and a near-plane 1/p2 never
+// meets a zero weight in a product.
+// Replaces pallas_pose2.py:512 e0_term2_parts (_e0_term2_kernel :455).
+// Bound: 60 B read per observation (cam 4, x4 16, mm 12, sw 4, mat6 24)
+// plus 12 shared atomics per live row.
+__global__ void __launch_bounds__(kThreads)
+    e0_term2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
+                    const float* __restrict__ mm, const float* __restrict__ sw_in,
+                    const float* __restrict__ mat6, const float* __restrict__ zt,
+                    const int32_t* __restrict__ parts, float* __restrict__ out,
+                    int n_parts, int n_lms, int n_obs, int n_cams) {
+  extern __shared__ float smem[];
+  float* tbl = smem;
+  float* acc = smem + 12 * n_cams;
+  int* part = reinterpret_cast<int*>(smem + 24 * n_cams);
+  povar::smem_copy(tbl, zt, 12 * n_cams);
+  povar::smem_zero(acc, 12 * n_cams);
+  povar::smem_copy(part, parts, 4 * n_parts);
+  __syncthreads();
+  const int O = n_obs;
+  POVAR_OBS_LOOP(lm, n_lms) {
+    int p = 0;
+    while (p + 1 < n_parts && lm >= part[4 * (p + 1) + 3]) ++p;
+    const int g = part[4 * p + 1], w = part[4 * p + 2];
+    const int first = part[4 * p] + (lm - part[4 * p + 3]);
+    float sb[3] = {0.0f, 0.0f, 0.0f};
+    for (int j = 0; j < w; ++j) {
+      const int o = first + j * g;
+      const float sw = sw_in[o];
+      if (sw == 0.0f) continue;
+      const int c = cam[o];
+      const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                           x4_in[3 * O + o]};
+      float jx[2];
+      jp_of_zt(tbl, n_cams, c, x4, mm[o], mm[O + o], sw * mm[2 * O + o], jx);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        sb[i] += mat6[i * O + o] * jx[0] + mat6[(3 + i) * O + o] * jx[1];
+    }
+    for (int j = 0; j < w; ++j) {
+      const int o = first + j * g;
+      const float sw = sw_in[o];
+      if (sw == 0.0f) continue;
+      float v[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float t = mat6[(3 * r) * O + o] * sb[0];
+        t += mat6[(3 * r + 1) * O + o] * sb[1];
+        t += mat6[(3 * r + 2) * O + o] * sb[2];
+        v[r] = t;
+      }
+      const float mx = mm[o], my = mm[O + o];
+      const float swz = sw * mm[2 * O + o];
+      const float ctv[3] = {swz * v[0], swz * v[1],
+                            -swz * (mx * v[0] + my * v[1])};
+      const int c = cam[o];
+      const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                           x4_in[3 * O + o]};
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          atomicAdd(&acc[(4 * a + k) * n_cams + c], ctv[a] * x4[k]);
+    }
+  }
+  __syncthreads();
+  povar::flush_acc(out, acc, 12 * n_cams);
+}
+
+// ------------------------------------------------------------------ S8
+// Per-camera tangent Schur-Jacobi corrections [144, N], rows
+// ((a*4+i)*3+b)*4+j: sum H[a][b] x4_i x4_j with
+//   G = B B^T (2x2, B = mat6 rows r*3+i),  H = (sw/p2)^2 C^T G C,
+//   C = [[1, 0, -mx], [0, 1, -my]]
+// kShared: 144 N shared accumulators (51 KB at N = 89) flushed once per
+// block; otherwise (N past ~400) every term goes to a global atomic. Dead
+// rows (sw == 0) are skipped. The caller folds Kps^T . Kps.
+// Replaces pallas_pose2.py:601 schur_diag2 (_schur2_kernel :563). Bound:
+// 144 shared (or global) atomics per live observation, far more than its
+// 60 B read.
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads)
+    schur_diag2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
+                       const float* __restrict__ mm, const float* __restrict__ sw_in,
+                       const float* __restrict__ mat6, float* __restrict__ out,
+                       int n_obs, int n_cams) {
+  extern __shared__ float smem[];
+  float* acc = kShared ? smem : out;
+  if (kShared) {
+    povar::smem_zero(acc, 144 * n_cams);
+    __syncthreads();
+  }
+  const int O = n_obs;
+  POVAR_OBS_LOOP(o, O) {
+    const float sw = sw_in[o];
+    if (sw == 0.0f) continue;
+    float m[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) m[k] = mat6[k * O + o];
+    const float g00 = m[0] * m[0] + m[1] * m[1] + m[2] * m[2];
+    const float g11 = m[3] * m[3] + m[4] * m[4] + m[5] * m[5];
+    const float g01 = m[0] * m[3] + m[1] * m[4] + m[2] * m[5];
+    const float mx = mm[o], my = mm[O + o];
+    const float swz = sw * mm[2 * O + o];
+    const float wz2 = swz * swz;
+    const float cg[3][2] = {{g00, g01},
+                            {g01, g11},
+                            {-(mx * g00 + my * g01), -(mx * g01 + my * g11)}};
+    const float cc[3][2] = {{1.0f, 0.0f}, {0.0f, 1.0f}, {-mx, -my}};
+    float H[3][3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        H[a][b] = wz2 * (cg[a][0] * cc[b][0] + cg[a][1] * cc[b][1]);
+    const int c = cam[o];
+    const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                         x4_in[3 * O + o]};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          const float hi = H[a][b] * x4[i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            atomicAdd(&acc[(((a * 4 + i) * 3 + b) * 4 + j) * n_cams + c],
+                      hi * x4[j]);
+        }
+      }
+    }
+  }
+  if (kShared) {
+    __syncthreads();
+    povar::flush_acc(out, acc, 144 * n_cams);
+  }
+}
+
 // ------------------------------------------------------------------ S5
 // Per-block partials of -l_diff = sum_r j_inc_r (0.5 j_inc_r + r_w_r),
 //   j_inc = jp(zt) + Jl_s ilm4,  Jl_s row r = jls8[r*4 .. r*4+3]
@@ -462,6 +614,28 @@ int povar_scatter2(const int32_t* cam, const float* x4, const float* mm,
   const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
   return launch(scatter2_kernel, n_obs, smem, stream, cam, x4, mm, sw, mat6,
                 sb, out, n_obs, n_cams);
+}
+
+int povar_e0_term2(const int32_t* cam, const float* x4, const float* mm,
+                   const float* sw, const float* mat6, const float* zt,
+                   const int32_t* parts, float* out, int n_parts, int n_lms,
+                   int n_obs, int n_cams, void* stream) {
+  const size_t smem =
+      sizeof(float) * 24 * (size_t)n_cams + sizeof(int) * 4 * (size_t)n_parts;
+  return launch(e0_term2_kernel, n_lms, smem, stream, cam, x4, mm, sw, mat6,
+                zt, parts, out, n_parts, n_lms, n_obs, n_cams);
+}
+
+int povar_schur_diag2(const int32_t* cam, const float* x4, const float* mm,
+                      const float* sw, const float* mat6, float* out,
+                      int n_obs, int n_cams, void* stream) {
+  const size_t shared = sizeof(float) * 144 * (size_t)n_cams;
+  if (shared <= (size_t)max_optin_smem()) {
+    return launch(schur_diag2_kernel<true>, n_obs, shared, stream, cam, x4,
+                  mm, sw, mat6, out, n_obs, n_cams);
+  }
+  return launch(schur_diag2_kernel<false>, n_obs, 0, stream, cam, x4, mm, sw,
+                mat6, out, n_obs, n_cams);
 }
 
 int povar_ldiff2(const int32_t* cam, const float* x4, const float* mm,

@@ -1,9 +1,11 @@
 """Wrappers of the step-2 structured homogeneous-projective kernels.
 
-The counterpart of povar_tpu/ops/pallas_pose2.py on the composed RIPOBA
-path: one function per kernel, with the JAX function's name and
-signature minus `win` (the camera-window layout is TPU-only). Each
-wrapper, as in ops/pose_kernels.py,
+The counterpart of povar_tpu/ops/pallas_pose2.py on the RIPOBA and
+RIPCG paths: one function per kernel, with the JAX function's name and
+signature minus `win` (the camera-window layout is TPU-only);
+`e0_term2_parts` takes the full per-observation arrays and the part
+list, as ops/pose_kernels.e0_term_parts does. Each wrapper, as in
+ops/pose_kernels.py,
 
 - calls the plain PyTorch version (ops/pose2_ref.py) when its tensors
   lie on the CPU, and only then;
@@ -37,6 +39,8 @@ from povar_tpu_torch.ops.pose_kernels import (
     _on_cpu,
     _ptr,
     _stream,
+    check_parts,
+    part_table,
 )
 from povar_tpu_torch.ops.pose_ref import ROBUST_HUBER
 
@@ -47,6 +51,8 @@ KERNELS = (
     "scatter2",
     "ldiff2",
     "pose_error2",
+    "e0_term2_parts",
+    "schur_diag2",
 )
 
 # launches per kernel; ops/launches.py zeroes and reads them with the
@@ -164,6 +170,52 @@ def scatter2(cam, x4, mm, sw, mat6, sb, n_cams):
     _launch("scatter2", _build.library().povar_scatter2,
             _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(mat6), _ptr(sb),
             _ptr(out), o, n, _stream(x4), counts=LAUNCHES)
+    return out
+
+
+def e0_term2_parts(cam, x4, mm, sw, mat6, zt, parts, n_cams):
+    """The fused tangent power-series term (S7): [12, N] raw per-camera
+    sums of sw/p2 (C^T (M sb)) (x) x4, sb = seg_lm( M^T jp_x ) through
+    the per-term table zt [12, N] = Kps v11, over the slot parts
+    ((ofs, g, w) each) in one launch; the caller folds Kps^T."""
+    o, n = cam.shape[0], int(n_cams)
+    _check_shapes({
+        "x4": (x4, 4, "o"), "mm": (mm, 3, "o"), "sw": (sw, 1, "o"),
+        "mat6": (mat6, 6, "o"), "zt": (zt, 12, "n"),
+    }, o, n)
+    n_lms = check_parts(parts, o)
+    if _on_cpu(cam, x4, mm, sw, mat6, zt):
+        return pose2_ref.e0_term2_parts(cam, x4, mm, sw, mat6, zt, parts, n)
+    _cuda_checks(o, n, cam, f32=(
+        ("x4", x4), ("mm", mm), ("sw", sw), ("mat6", mat6), ("zt", zt),
+    ))
+    table = part_table(tuple(parts), x4.device)
+    out = _f32_out(12, n, x4, zero=True)
+    _launch("e0_term2_parts", _build.library().povar_e0_term2,
+            _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(mat6), _ptr(zt),
+            _ptr(table), _ptr(out), len(parts), n_lms, o, n, _stream(x4),
+            counts=LAUNCHES)
+    return out
+
+
+def schur_diag2(cam, x4, mm, sw, mat6, n_cams):
+    """corr12_raw [144, N] (S8): per-camera sums of (sw/p2)^2 C^T B B^T C
+    (x) x4 x4^T, B [2, 3] per observation in mat6 [6, O] (rows r*3+i);
+    the caller folds Kps^T . Kps and subtracts from the damped Hpp."""
+    o, n = cam.shape[0], int(n_cams)
+    _check_shapes({
+        "x4": (x4, 4, "o"), "mm": (mm, 3, "o"), "sw": (sw, 1, "o"),
+        "mat6": (mat6, 6, "o"),
+    }, o, n)
+    if _on_cpu(cam, x4, mm, sw, mat6):
+        return pose2_ref.schur_diag2(cam, x4, mm, sw, mat6, n)
+    _cuda_checks(o, n, cam, f32=(
+        ("x4", x4), ("mm", mm), ("sw", sw), ("mat6", mat6),
+    ))
+    out = _f32_out(144, n, x4, zero=True)
+    _launch("schur_diag2", _build.library().povar_schur_diag2,
+            _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(mat6), _ptr(out),
+            o, n, _stream(x4), counts=LAUNCHES)
     return out
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the six step-2 structured kernels.
+"""Plain PyTorch versions of the eight step-2 structured kernels.
 
 The counterpart of the step-2 half of povar_tpu/ops/xla_pose.py (the
 dtype-generic mirrors of the Pallas bodies in povar_tpu/ops/
@@ -13,6 +13,10 @@ in csrc/pose2.cu computes:
   hppb2        per-camera raw Hpp12 and b12 in the unprojected frame
   mat_dot2     M^T (jp_x (+ r_w)) per observation through the zt table
   scatter2     per-camera sums of sw/p2 (C^T (M sb)) (x) x4
+  e0_term2_parts  the fused tangent power-series term: mat_dot2, the
+               per-landmark slot sum and scatter2 in one pass
+  schur_diag2  per-camera tangent Schur-Jacobi corrections
+               (sw/p2)^2 C^T B B^T C (x) x4 x4^T
   ldiff2       -l_diff, the model-cost decrease of the step-2 apply
   pose_error2  the homogeneous cost: all and valid buckets, counts
 
@@ -199,6 +203,67 @@ def scatter2(cam, x4_a, mm, sw_a, mat6, sb, n_cams):
     ctv = [swz * v0, swz * v1, -swz * (mx * v0 + my * v1)]
     rows = torch.stack([ctv[a] * x4[c] for a in range(3) for c in range(4)])
     return _scatter(rows, cam, n_cams)
+
+
+def e0_term2_parts(cam, x4_a, mm, sw_a, mat6, zt, parts, n_cams):
+    """The fused tangent power-series term: [12, N] raw per-camera sums
+    of sw/p2 (C^T (M sb)) (x) x4 with sb = seg_lm( M^T jp_x ), jp_x =
+    sw/p2 [q~0 - mx q~2, q~1 - my q~2] through the zt table, over the
+    slot parts `parts` (layout as pose_ref.e0_term_parts). sb sums over
+    j = 0..w-1 in order; the caller folds Kps^T."""
+    rows, cams = [], []
+    for ofs, g, w in parts:
+        sl = slice(ofs, ofs + g * w)
+        c2 = cam[sl].long()
+        x4 = list(x4_a[:, sl].reshape(4, w, g))
+        mx, my, zinv = mm[:, sl].reshape(3, w, g)
+        mat = mat6[:, sl].reshape(6, w, g)
+        swz = sw_a[0, sl].reshape(w, g) * zinv
+        q = _q_tilde(zt[:, c2].reshape(12, w, g), x4)
+        jx0 = swz * (q[0] - mx * q[2])
+        jx1 = swz * (q[1] - my * q[2])
+        u = [mat[i] * jx0 + mat[3 + i] * jx1 for i in range(3)]
+        sb = []
+        for i in range(3):
+            acc = u[i][0]
+            for j in range(1, w):
+                acc = acc + u[i][j]
+            sb.append(acc)
+        v0 = mat[0] * sb[0] + mat[1] * sb[1] + mat[2] * sb[2]
+        v1 = mat[3] * sb[0] + mat[4] * sb[1] + mat[5] * sb[2]
+        ctv = [swz * v0, swz * v1, -swz * (mx * v0 + my * v1)]
+        rows.append(torch.stack([
+            ctv[a] * x4[c] for a in range(3) for c in range(4)
+        ]).reshape(12, g * w))
+        cams.append(c2)
+    return _scatter(torch.cat(rows, dim=1), torch.cat(cams), n_cams)
+
+
+def schur_diag2(cam, x4_a, mm, sw_a, mat6, n_cams):
+    """corr12_raw [144, N] = seg_cam( H (x) x4 x4^T ), rows
+    ((a*4+i)*3+b)*4+j, H = (sw/p2)^2 C^T (B B^T) C with B [2, 3] per
+    observation in mat6 (rows r*3+i) and C = [[1, 0, -mx], [0, 1, -my]]:
+    the tangent Schur-Jacobi corrections of RIPCG; the caller folds
+    Kps^T . Kps and subtracts them from the damped Hpp."""
+    mx, my, zinv = mm[0], mm[1], mm[2]
+    sw = sw_a[0]
+    m = mat6
+    x4 = _x4_rows(x4_a)
+    g00 = m[0] * m[0] + m[1] * m[1] + m[2] * m[2]
+    g11 = m[3] * m[3] + m[4] * m[4] + m[5] * m[5]
+    g01 = m[0] * m[3] + m[1] * m[4] + m[2] * m[5]
+    swz = sw * zinv
+    wz2 = swz * swz
+    cg = [[g00, g01], [g01, g11],
+          [-(mx * g00 + my * g01), -(mx * g01 + my * g11)]]
+    one, zero = torch.ones_like(mx), torch.zeros_like(mx)
+    cc = [[one, zero], [zero, one], [-mx, -my]]
+    H = [[wz2 * (cg[a][0] * cc[b][0] + cg[a][1] * cc[b][1])
+          for b in range(3)] for a in range(3)]
+    rows = [H[a][b] * x4[i] * x4[j]
+            for a in range(3) for i in range(4)
+            for b in range(3) for j in range(4)]
+    return _scatter(torch.stack(rows), cam, n_cams)
 
 
 def ldiff2(cam, x4_a, mm, sw_a, r_w, jls8, ilm4, zt):

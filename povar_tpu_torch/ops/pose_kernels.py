@@ -2,7 +2,9 @@
 
 The counterpart of povar_tpu/ops/pallas_pose.py: one function per
 kernel, with the JAX function's name and signature minus `win` (the
-camera-window layout is TPU-only). Each wrapper
+camera-window layout is TPU-only); `e0_term_parts` takes the full
+per-observation arrays and the part list ((ofs, g, w) per slot part)
+where the JAX function takes per-part reshaped copies. Each wrapper
 
 - calls the plain PyTorch version (ops/pose_ref.py) when its tensors
   lie on the CPU, and only then;
@@ -28,6 +30,7 @@ reads them with the step-2 kernels' counts.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -42,6 +45,8 @@ KERNELS = (
     "e0_scatter_structured",
     "apply_ldiff",
     "pose_error",
+    "e0_term_parts",
+    "schur_diag_structured",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -234,6 +239,68 @@ def e0_scatter_structured(cam, x, h, sb, n_cams):
     _launch("e0_scatter_structured", _build.library().povar_e0_scatter,
             _ptr(cam), _ptr(x), _ptr(h), _ptr(sb), _ptr(out), o, n,
             _stream(x))
+    return out
+
+
+def check_parts(parts, o: int) -> int:
+    """Validate a fused-term part list ((ofs, g, w) each, as
+    solver/slots.plan_e0_fused makes it) against O observations; returns
+    the number of landmarks it covers."""
+    if not parts:
+        raise ValueError("parts: the fused term needs at least one part")
+    for ofs, g, w in parts:
+        if g < 1 or w < 1 or ofs < 0 or ofs + g * w > o:
+            raise ValueError(f"parts: ({ofs}, {g}, {w}) outside O = {o}")
+    return sum(g for _ofs, g, _w in parts)
+
+
+@functools.lru_cache(maxsize=64)
+def part_table(parts, device) -> torch.Tensor:
+    """The kernels' int32 part table [n_parts * 4] of (ofs, g, w, first
+    landmark) on `device`, made once per part list (one host-to-device
+    copy per solver, not one per power term)."""
+    rows, first = [], 0
+    for ofs, g, w in parts:
+        rows += [ofs, g, w, first]
+        first += g
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def e0_term_parts(cam, x, h, z_table, parts, n_cams):
+    """The fused power-series term (K8): out_raw [12, N] = seg_cam(
+    (h^T sb) (x) xh ), sb = seg_lm( h (xh . z[:, cam]) ), over the slot
+    parts ((ofs, g, w) each) in one launch; the caller multiplies by the
+    pose scale."""
+    o, n = cam.shape[0], int(n_cams)
+    _check_shapes({
+        "x": (x, 3, "o"), "h": (h, 9, "o"), "z_table": (z_table, 12, "n"),
+    }, o, n)
+    n_lms = check_parts(parts, o)
+    if _on_cpu(cam, x, h, z_table):
+        return pose_ref.e0_term_parts(cam, x, h, z_table, parts, n)
+    _cuda_checks(o, n, cam, f32=(
+        ("x", x), ("h", h), ("z_table", z_table),
+    ))
+    table = part_table(tuple(parts), x.device)
+    out = torch.zeros((12, n), dtype=torch.float32, device=x.device)
+    _launch("e0_term_parts", _build.library().povar_e0_term,
+            _ptr(cam), _ptr(x), _ptr(h), _ptr(z_table), _ptr(table),
+            _ptr(out), len(parts), n_lms, o, n, _stream(x))
+    return out
+
+
+def schur_diag_structured(cam, x, h, n_cams):
+    """corr_raw [144, N] = seg_cam( (h^T h) (x) xh xh^T ) (K9), rows
+    ((a*4+i)*3+b)*4+j; the caller applies the pose-scale outer product
+    and subtracts it from the damped Hpp."""
+    o, n = cam.shape[0], int(n_cams)
+    _check_shapes({"x": (x, 3, "o"), "h": (h, 9, "o")}, o, n)
+    if _on_cpu(cam, x, h):
+        return pose_ref.schur_diag_structured(cam, x, h, n)
+    _cuda_checks(o, n, cam, f32=(("x", x), ("h", h)))
+    out = torch.zeros((144, n), dtype=torch.float32, device=x.device)
+    _launch("schur_diag_structured", _build.library().povar_schur_diag,
+            _ptr(cam), _ptr(x), _ptr(h), _ptr(out), o, n, _stream(x))
     return out
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the seven step-1 structured kernels.
+"""Plain PyTorch versions of the nine step-1 structured kernels.
 
 The counterpart of povar_tpu/ops/xla_pose.py:64-211 (the dtype-generic
 mirrors of the Pallas bodies in povar_tpu/ops/pallas_pose.py) plus the
@@ -12,6 +12,10 @@ its hand-written CUDA kernel in csrc/pose1.cu computes:
   hpp_b_structured       per-camera raw Hpp and b
   e0_u_structured        u = h (xh . z[:, cam])
   e0_scatter_structured  per-camera sums of (h^T sb) (x) xh
+  e0_term_parts          the fused power-series term: e0_u, the per-
+                         landmark slot sum and e0_scatter in one pass
+  schur_diag_structured  per-camera Schur-Jacobi corrections (h^T h) (x)
+                         xh xh^T
   apply_ldiff            -l_diff, the model-cost decrease of the apply
   pose_error             pOSE cost, residual-norm sum, non-finite count
 
@@ -259,6 +263,71 @@ def e0_scatter_structured(cam, x, h, sb, n_cams):
         for a in range(3) for j in range(4)
     ])
     return _scatter(rows, cam, n_cams)
+
+
+def e0_term_parts(cam, x, h, z_table, parts, n_cams):
+    """The fused power-series term: out_raw [12, N] = seg_cam( (h^T sb)
+    (x) xh ) with sb = seg_lm( h (xh . z[:, cam]) ), over the slot parts
+    `parts` ((ofs, g, w) each: g landmarks of slot width w from
+    observation ofs on, slot element j of landmark l at observation
+    ofs + j * g + l). sb sums over j = 0..w-1 in order, as the Pallas
+    kernel's pass A does; the caller multiplies by the pose scale."""
+    rows, cams = [], []
+    for ofs, g, w in parts:
+        sl = slice(ofs, ofs + g * w)
+        c2 = cam[sl].long()
+        x2 = x[:, sl].reshape(3, w, g)
+        h2 = h[:, sl].reshape(9, w, g)
+        zc = z_table[:, c2].reshape(12, w, g)
+        y = []
+        for a in range(3):
+            acc = zc[4 * a + 3]
+            for i in range(3):
+                acc = acc + x2[i] * zc[4 * a + i]
+            y.append(acc)
+        u = [h2[c * 3 + 0] * y[0] + h2[c * 3 + 1] * y[1] + h2[c * 3 + 2] * y[2]
+             for c in range(3)]
+        sb = []
+        for c in range(3):
+            acc = u[c][0]
+            for j in range(1, w):
+                acc = acc + u[c][j]
+            sb.append(acc)
+        tt = [h2[a] * sb[0] + h2[3 + a] * sb[1] + h2[6 + a] * sb[2]
+              for a in range(3)]
+        rows.append(torch.stack([
+            tt[a] if i == 3 else tt[a] * x2[i]
+            for a in range(3) for i in range(4)
+        ]).reshape(12, g * w))
+        cams.append(c2)
+    return _scatter(torch.cat(rows, dim=1), torch.cat(cams), n_cams)
+
+
+def schur_diag_structured(cam, x, h, n_cams):
+    """corr_raw [144, N] = seg_cam( (h^T h) (x) xh xh^T ), rows
+    ((a*4+i)*3+b)*4+j; the caller applies the pose-scale outer product
+    and subtracts it from the damped Hpp (the Schur-Jacobi diagonal
+    blocks of PCG)."""
+    xh = [x[0], x[1], x[2], None]
+    hth = [[None] * 3 for _ in range(3)]
+    for a in range(3):
+        for b in range(a + 1):
+            acc = h[a] * h[b]
+            acc = acc + h[3 + a] * h[3 + b]
+            acc = acc + h[6 + a] * h[6 + b]
+            hth[a][b] = hth[b][a] = acc
+    rows = []
+    for a in range(3):
+        for i in range(4):
+            for b in range(3):
+                for j in range(4):
+                    r = hth[a][b]
+                    if xh[i] is not None:
+                        r = r * xh[i]
+                    if xh[j] is not None:
+                        r = r * xh[j]
+                    rows.append(r)
+    return _scatter(torch.stack(rows), cam, n_cams)
 
 
 def apply_ldiff(cam, x, uv, sw_a, r_w, jls, inc_lm_obs, cam_table_old,

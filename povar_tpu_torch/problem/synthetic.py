@@ -1,6 +1,6 @@
 """Synthetic BAL-style problem generation for tests and benchmarks.
 
-A numpy-only copy of the two generators in
+A numpy-only copy of the two generators and `write_bal_text` in
 povar_tpu/problem/synthetic.py: the same seed gives bit-identical
 arrays in both packages.
 
@@ -181,3 +181,36 @@ def synthetic_bal_problem_fast(
     )
     # already sorted by (lm, cam)
     return problem
+
+
+def write_bal_text(
+    path: str,
+    n_cams: int,
+    n_lms: int,
+    obs_cam: np.ndarray,
+    obs_lm: np.ndarray,
+    obs_uv: np.ndarray,
+    cam_params9: Optional[np.ndarray] = None,
+    lm_p: Optional[np.ndarray] = None,
+) -> None:
+    """Write an original-format BAL text file (for exercising the
+    --create-dataset path and cross-checking against the reference)."""
+    n_obs = len(obs_cam)
+    if cam_params9 is None:
+        cam_params9 = np.zeros((n_cams, 9))
+        cam_params9[:, 6] = 1.0  # f
+    if lm_p is None:
+        lm_p = np.zeros((n_lms, 3))
+    with open(path, "w") as f:
+        f.write(f"{n_cams} {n_lms} {n_obs}\n")
+        for i in range(n_obs):
+            f.write(
+                f"{obs_cam[i]} {obs_lm[i]} "
+                f"{obs_uv[i, 0]:.6e} {obs_uv[i, 1]:.6e}\n"
+            )
+        for i in range(n_cams):
+            for v in cam_params9[i]:
+                f.write(f"{v:.16e}\n")
+        for i in range(n_lms):
+            for v in lm_p[i]:
+                f.write(f"{v:.16e}\n")

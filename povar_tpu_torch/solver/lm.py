@@ -32,7 +32,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from povar_tpu_torch.options import OptimizedCost, SolverOptions
+from povar_tpu_torch.options import OptimizedCost, SolverOptions, SolverType
 from povar_tpu_torch.solver.common import (
     ResidualInfo,
     error_summary_oneline,
@@ -312,6 +312,15 @@ def _optimize_lm_loop(
         )
 
 
+# summary names of the step-1 solvers (povar_tpu/solver/lm.py:423)
+_SOLVER_TYPE_NAMES = {
+    SolverType.PCG: "bal_pcg",
+    SolverType.POWER_SCHUR_COMPLEMENT: "bal_power_sc",
+    SolverType.POWER_VARPROJ: "power_variable_projection",
+    SolverType.CHOLESKY: "variable_projection",
+}
+
+
 class _State:
     """Mutable {current, trial} state pair replacing the reference's
     in-place update + backup/restore (bal_problem.cpp:647-708)."""
@@ -409,7 +418,7 @@ def optimize_step1(
     log: Callable[[str], None] = print,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Step 1: pOSE VarProj LM (optimize_lm_ours_pOSE, cpp:252-542) with
-    the solver's POWER_VARPROJ trial. Returns the optimized
+    the solver's trial (POWER_VARPROJ or PCG). Returns the optimized
     (cam_space [N, 3, 4], lm_p [M, 3])."""
     state = _State(cam_space, lm_p)
 
@@ -421,7 +430,7 @@ def optimize_step1(
     _run(solver, state, options, "step1", options.max_num_iterations_step_1,
          summary, timer_total, log, initialize=initialize)
     summary.minimizer_time_in_seconds = timer_total.elapsed()
-    finish_solve(summary, "power_variable_projection")
+    finish_solve(summary, _SOLVER_TYPE_NAMES[options.solver_type_step_1])
     return state.cams, solver.lm_unpack(state.lms)
 
 
@@ -435,8 +444,8 @@ def optimize_step2(
     log: Callable[[str], None] = print,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Step 2: Riemannian joint refinement (optimize_homogeneous_joint,
-    cpp:557-843) with the solver's RIPOBA trial. Returns the optimized
-    (cam_space [N, 3, 4], lm_p_h [M, 4])."""
+    cpp:557-843) with the solver's trial (RIPOBA or RIPCG). Returns the
+    optimized (cam_space [N, 3, 4], lm_p_h [M, 4])."""
     state = _State(cam_space, solver.lm_pack(lm_p_h))
     _run(solver, state, options, "step2", options.max_num_iterations_step_2,
          summary, timer_total, log)

@@ -4,7 +4,7 @@ bundle_adjust_manual, solver/bal_bundle_adjustment.cpp:848-892):
 
   step 1: pOSE VarProj LM from random projective cameras
   boundary: homogenize landmarks + normalize cameras
-  step 2: Riemannian joint refinement (RIPOBA)
+  step 2: Riemannian joint refinement (RIPOBA or RIPCG)
 
 Returns the optimized problem plus both step summaries.
 """
@@ -35,12 +35,11 @@ def bundle_adjust(
     `problem` with optimized cam_space / lm_p / lm_p_h, plus the
     per-step summaries (step-1 summary, step-2 summary).
 
-    Both stage solvers are built before step 1 runs, so a configuration
-    that either step does not run yet raises NotImplementedError before
-    any work (with `options=None`, SolverOptions() defaults: its
-    fused_power_term=True needs the fused-term kernels). Multi-device
-    solves (the JAX package's `mesh`) are not ported (ROADMAP.md queue 1
-    item 13)."""
+    `options=None` runs SolverOptions() defaults. Both stage solvers
+    are built before step 1 runs, so a configuration that either step
+    does not run yet (POWER_SCHUR_COMPLEMENT, CHOLESKY, ...) raises
+    NotImplementedError before any work. Multi-device solves (the JAX
+    package's `mesh`) are not ported (ROADMAP.md queue 1 item 13)."""
     options = options or SolverOptions()
     timer_total = Timer()
     args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,

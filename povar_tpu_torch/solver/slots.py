@@ -12,8 +12,9 @@ layout) have no counterpart: a GPU kernel gathers a camera row by index
 at any N.
 
 `SlotSolver` is the base of `Stage1Solver` and `Stage2Solver`: the
-device check, the configuration gate, the observation layout and the
-per-observation constants every kernel call takes.
+device check, the configuration gate, the observation layout, the
+per-observation constants every kernel call takes, the fused power-term
+plan (`plan_e0_fused`) and the CG preconditioner's apply.
 """
 
 from __future__ import annotations
@@ -23,7 +24,12 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from povar_tpu_torch.options import RobustNorm, SolverOptions
+from povar_tpu_torch.ops import linalg
+from povar_tpu_torch.options import (
+    PreconditionerType,
+    RobustNorm,
+    SolverOptions,
+)
 from povar_tpu_torch.solver.segments import (
     build_slot_plan,
     slot_part_sums,
@@ -37,6 +43,10 @@ OBS_PAD = 8192
 # largest camera count of this path (povar_tpu/ops/pallas_cam.py
 # MAX_CAMERAS); beyond it the JAX package switches to camera windows
 MAX_CAMERAS = 1024
+# widest slot part the fused power-series term takes
+# (povar_tpu/ops/pallas_pose.py E0_TERM_MAX_W); wider parts and all after
+# them run the composed kernels
+E0_TERM_MAX_W = 16
 
 ROBUST_CODE = {
     RobustNorm.NONE: 0,
@@ -57,6 +67,57 @@ class Obs(NamedTuple):
     weight: Optional[torch.Tensor]
     lm_order: torch.Tensor
     lm_inv: torch.Tensor
+
+
+def mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batch-last matrix-vector product 'ijn,jn->in'."""
+    return (m * v[None]).sum(dim=1)
+
+
+class FusedPlan(NamedTuple):
+    """Where the fused power-series term runs (`plan_e0_fused`).
+
+    parts: (ofs, g, w) per fused slot part, in slot order: g landmarks
+    of slot width w from observation `ofs` on, slot element j of
+    landmark l at observation ofs + j * g + l (build_slot_plan's
+    slot-element-major layout), so a part is read in place with no
+    reshaped copy. suffix: None, or (cut, shapes) of the composed-kernel
+    tail [cut, O) that still holds live observations."""
+
+    parts: Tuple[Tuple[int, int, int], ...]
+    suffix: Optional[Tuple[int, tuple]]
+
+
+def plan_e0_fused(lm_shapes, weight) -> Optional[FusedPlan]:
+    """The fused-term plan of povar_tpu's `CamWindows._plan_e0_fused`
+    (povar_tpu/solver/stage1.py:576-636), or None where it declines.
+
+    The prefix of slot parts with w <= E0_TERM_MAX_W runs fused; the
+    first wider part and everything after it form the composed suffix,
+    dropped when it holds no live observation. The plan is declined when
+    no observation is live or when the suffix carries half or more of the
+    live work. `weight`: the 0/1 slot weights [O] (numpy), or None where
+    every row is live. The TPU's VMEM budget (e0_term_geometry) and lane
+    padding have no counterpart: at N <= MAX_CAMERAS the JAX package's
+    geometry accepts every part of width <= 16."""
+    parts = []
+    ofs = 0
+    for g, w in lm_shapes:
+        if w > E0_TERM_MAX_W:
+            break
+        parts.append((ofs, int(g), int(w)))
+        ofs += g * w
+    if not parts:
+        return None
+    o_pad = sum(g * w for g, w in lm_shapes)
+    cut = ofs
+    live = np.ones(o_pad, bool) if weight is None else np.asarray(weight) > 0
+    live_total = int(live.sum())
+    live_suffix = int(live[cut:].sum())
+    if live_total == 0 or (live_total - live_suffix) / live_total < 0.5:
+        return None
+    suffix = (cut, tuple(lm_shapes[len(parts):])) if live_suffix else None
+    return FusedPlan(parts=tuple(parts), suffix=suffix)
 
 
 class LmState(NamedTuple):
@@ -208,6 +269,11 @@ class SlotSolver:
             torch.ones((1, o), dtype=sd, device=self.device) if w is None
             else (w > 0).to(sd).reshape(1, -1)
         )
+        # where the fused power-series term runs (None: the composed
+        # kernels everywhere)
+        self.e0_plan = plan_e0_fused(
+            self.lm_shapes, None if w is None else w.cpu().numpy()
+        ) if options.fused_power_term else None
 
     # ---- landmark "L space": per-landmark tables live in slot-ROW
     # order between a slot reduce and a slot expansion, so both
@@ -257,6 +323,35 @@ class SlotSolver:
     def _cam_table(self, cam_space: torch.Tensor, dtype) -> torch.Tensor:
         """cam_space [N, 3, 4] -> [12, N] table of vec(P) rows."""
         return cam_space.to(dtype).reshape(self.n_cams, 12).T.contiguous()
+
+    def _precond_closure(self, pmats):
+        """The CG preconditioner's apply over its materials (`pmats`, as
+        each stage's `_pcg_precond_s` makes them): IDENTITY (), JACOBI
+        (inverse diagonal,) or SCHUR_JACOBI (Cholesky factors of the
+        diagonal blocks,)."""
+        pt = self.opts.preconditioner_type
+        if pt == PreconditionerType.IDENTITY:
+            return lambda v: v
+        if pt == PreconditionerType.JACOBI:
+            (invd,) = pmats
+            return lambda v: invd * v
+        (chol,) = pmats
+
+        def precond(v):
+            y = linalg.solve_lower_trif(chol, v)
+            return linalg.solve_upper_from_lowerf(chol, y)
+
+        return precond
+
+    def _precond_mats(self, diag_blocks: torch.Tensor):
+        """Preconditioner materials from the damped diagonal blocks
+        [n, n, N] of the reduced camera system (already less their Schur
+        corrections): JACOBI keeps 1 / diagonal (1 where it is 0),
+        SCHUR_JACOBI the blocks' Cholesky factors."""
+        if self.opts.preconditioner_type == PreconditionerType.JACOBI:
+            dg = torch.diagonal(diag_blocks, dim1=0, dim2=1).T
+            return (torch.where(dg != 0, 1.0 / dg, torch.ones_like(dg)),)
+        return (linalg.cholesky_smallf(diag_blocks),)
 
     def _solve_scalar(self, lam) -> float:
         """lam rounded to the solve dtype, as a Python float."""

@@ -1,14 +1,16 @@
-"""Step-1 pOSE VarProj linearization and the POWER_VARPROJ solve.
+"""Step-1 pOSE VarProj linearization and the POWER_VARPROJ and PCG
+solves.
 
 The counterpart of povar_tpu/solver/stage1.py on its structured path
 (`Lin1S`): the pOSE Jacobians are never materialized; every per-
-observation pass is one of the seven kernels of ops/pose_kernels.py
+observation pass is one of the nine kernels of ops/pose_kernels.py
 (hand-written CUDA on the card, their plain PyTorch versions on the
 CPU), and the landmark side is reshape-sums and broadcasts over the
 slot layout (solver/segments.py). This module replaces:
   - LandmarkBlockSC pOSE storage + ops      (sc/landmark_block.hpp:58-760)
   - LinearizationPowerVarproj               (sc/linearization_power_varproj.hpp)
   - LinearizorPowerVarproj                  (solver/linearizor_power_varproj.cpp)
+  - LinearizorSC's implicit PCG             (solver/linearizor_sc.cpp)
 
 Layouts are the JAX package's, observation LAST: per-observation rows
 [k, O], camera tables [12, N], per-landmark tables [.., L] in "L space"
@@ -17,10 +19,11 @@ Layouts are the JAX package's, observation LAST: per-observation rows
 and the cost are f64; linearization storage and the inner solve are f32
 (`mixed_precision_solves`).
 
-What this slice covers is the default configuration of the JAX package
-with `fused_power_term=False`: any other step-1 configuration raises
-NotImplementedError naming its ROADMAP.md item instead of running
-another path.
+The ported configurations are the JAX package's defaults (POWER_VARPROJ
+with the fused power term, or the composed one with
+`fused_power_term=False`) and PCG with its three preconditioners; any
+other step-1 configuration raises NotImplementedError naming its
+ROADMAP.md item instead of running another path.
 """
 
 from __future__ import annotations
@@ -30,13 +33,22 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from povar_tpu_torch.ops import linalg, pose_kernels
-from povar_tpu_torch.options import SolverOptions, SolverType
+from povar_tpu_torch.options import (
+    PreconditionerType,
+    SolverOptions,
+    SolverType,
+)
 from povar_tpu_torch.solver import pcg as pcg_mod
+from povar_tpu_torch.solver.segments import slot_part_sums, slot_row_expand
 from povar_tpu_torch.solver.slots import (
     LmState,
     SlotSolver,
     common_unsupported,
+    mv,
 )
+
+# the step-1 solvers this package runs
+SOLVERS = (SolverType.POWER_VARPROJ, SolverType.PCG)
 
 
 class Lin1S(NamedTuple):
@@ -57,15 +69,11 @@ class Lin1S(NamedTuple):
 
 def _unsupported(options: SolverOptions, n_cams: int, dtype) -> Optional[str]:
     """Why this configuration is outside the ported slice, or None."""
-    if options.solver_type_step_1 != SolverType.POWER_VARPROJ:
+    if options.solver_type_step_1 not in SOLVERS:
         return (
             f"solver_type_step_1={options.solver_type_step_1.value} "
-            "(ROADMAP.md queue 1 item 9, the other step-1 solvers)"
-        )
-    if options.fused_power_term:
-        return (
-            "fused_power_term=True (ROADMAP.md queue 2, e0_term_parts: "
-            "the fused power-series term kernel)"
+            "(ROADMAP.md queue 1 item 9, the other step-1 solvers: "
+            "POWER_SCHUR_COMPLEMENT and CHOLESKY)"
         )
     return common_unsupported(options, n_cams, dtype)
 
@@ -76,12 +84,13 @@ class Stage1Solver(SlotSolver):
     plain versions).
 
     Public API as in the JAX package: compute_error, initialize_varproj,
-    linearize, solve_power, apply, trial, lm_pack, lm_unpack (there
-    each is a jitted entry over a private method of the same name; here
-    the public methods are the implementations). Landmark state may be
-    passed canonical ([M, 3]) or packed (LmState)."""
+    linearize, solve_power, solve_pcg, solve, apply, trial, lm_pack,
+    lm_unpack (there each is a jitted entry over a private method of the
+    same name; here the public methods are the implementations).
+    Landmark state may be passed canonical ([M, 3]) or packed
+    (LmState)."""
 
-    PATH = "step 1 on the structured POWER_VARPROJ path"
+    PATH = "step 1 on the structured POWER_VARPROJ and PCG paths"
 
     def __init__(
         self,
@@ -99,17 +108,33 @@ class Stage1Solver(SlotSolver):
             dtype, device, _unsupported,
         )
         self.alpha = float(options.alpha)
+        # reference quirk (stage1.py:664-674 of the JAX package): only
+        # the power linearizor scales the Jl columns
+        # (linearizor_power_varproj.cpp:64); PCG keeps them unscaled.
+        # The solve is scale-invariant, but the back-substitution's
+        # model-cost term is not, so the lambda schedule depends on it.
+        self.scale_jl = (
+            options.solver_type_step_1 == SolverType.POWER_VARPROJ
+        )
+
+    def solve(self, lin: Lin1S, lam) -> Tuple[torch.Tensor, int]:
+        """Dispatch on solver_type_step_1 (linearizor.cpp:46-61
+        factory): (inc [12, N] in scaled coordinates, state dtype;
+        power terms or CG iterations)."""
+        if self.opts.solver_type_step_1 == SolverType.PCG:
+            return self.solve_pcg(lin, lam)
+        return self.solve_power(lin, lam)
 
     def trial(self, cam_space, lm_p, lin: Lin1S, lam):
         """One LM backtracking trial: solve + apply + f64 cost, with no
-        host synchronisation except the power series' early-exit test.
+        host synchronisation except the inner solve's early-exit tests.
 
         Returns (new_cams, new_lms, inc_finite, num_inner_iters,
         l_diff, err_dict); inc_finite, l_diff and the err_dict entries
         stay on the device for the caller's one batched transfer. When
         the increment is non-finite the caller discards the trial state
         (the reference's NaN check, cpp:362-401)."""
-        inc, n_iter = self.solve_power(lin, lam)
+        inc, n_iter = self.solve(lin, lam)
         inc_finite = torch.isfinite(inc).all()
         new_cams, new_lms, l_diff = self.apply(cam_space, lm_p, lin, inc)
         err = self.compute_error(new_cams, new_lms)
@@ -199,8 +224,11 @@ class Stage1Solver(SlotSolver):
 
     def _lin_scale_jl_s(self, hll_raw: torch.Tensor) -> torch.Tensor:
         """Landmark Jacobi scale 1 / (eps + col norm) from the raw Hll
-        diagonal (scale_Jl_cols_pOSE, landmark_block.hpp:284-300)."""
+        diagonal (scale_Jl_cols_pOSE, landmark_block.hpp:284-300); ones
+        where the solver keeps Jl unscaled (PCG, see `scale_jl`)."""
         jl_sq = torch.stack([hll_raw[i, i] for i in range(3)])  # [3, L]
+        if not self.scale_jl:
+            return torch.ones_like(jl_sq)
         return 1.0 / (self.jacobi_eps + torch.sqrt(jl_sq))
 
     def _lin_scale_jp_s(self, jpsq: torch.Tensor) -> torch.Tensor:
@@ -244,11 +272,28 @@ class Stage1Solver(SlotSolver):
         )
 
     def _e0_apply_s(self, lin: Lin1S, h: torch.Tensor):
-        """Matrix-free structured E0 = W^T(seg_lm(W gather .)): the
-        composed e0_u -> slot reduce/re-expand -> e0_scatter term
-        (stage1.py:1992-2002 of the JAX package)."""
+        """Matrix-free structured E0 = W^T(seg_lm(W gather .))
+        (stage1.py:1974-2002 of the JAX package): the fused term over the
+        plan's narrow parts (one e0_term_parts launch) plus the composed
+        terms on its wide suffix, or, without a plan, the composed
+        e0_u -> slot reduce/re-expand -> e0_scatter term."""
         ps = lin.pose_scale
         cam = self.obs.cam
+        plan = self.e0_plan
+
+        if plan is not None:
+            suffix = self._e0_suffix_s(lin, h)
+
+            def e0_fused(v):
+                z = ps * v
+                out = pose_kernels.e0_term_parts(
+                    cam, lin.x, h, z, plan.parts, self.n_cams
+                )
+                if suffix is not None:
+                    out = out + suffix(z)
+                return ps * out
+
+            return e0_fused
 
         def e0(v):
             u = pose_kernels.e0_u_structured(cam, lin.x, h, ps * v)
@@ -259,6 +304,28 @@ class Stage1Solver(SlotSolver):
             return ps * out
 
         return e0
+
+    def _e0_suffix_s(self, lin: Lin1S, h: torch.Tensor):
+        """The composed E0 term on the plan's wide suffix [cut, O)
+        (landmarks with more than E0_TERM_MAX_W observations;
+        `_e0_suffix_apply` of the JAX package), as a function of the
+        scaled table z, or None without a suffix. The suffix's operands
+        are sliced once per solve."""
+        if self.e0_plan.suffix is None:
+            return None
+        cut, shapes = self.e0_plan.suffix
+        cam_s = self.obs.cam[cut:]
+        x_s = lin.x[:, cut:].contiguous()
+        h_s = h[:, cut:].contiguous()
+
+        def apply(z):
+            u = pose_kernels.e0_u_structured(cam_s, x_s, h_s, z)
+            sb = slot_row_expand(slot_part_sums(u, shapes), shapes)
+            return pose_kernels.e0_scatter_structured(
+                cam_s, x_s, h_s, sb, self.n_cams
+            )
+
+        return apply
 
     def solve_power(self, lin: Lin1S, lam) -> Tuple[torch.Tensor, int]:
         """POWER_VARPROJ solve (`_solve_power_s` of the JAX package):
@@ -282,12 +349,8 @@ class Stage1Solver(SlotSolver):
 
     def _power_iterate_s(self, lin: Lin1S, prep):
         nb, b_inv, h = prep
-
-        def b_inv_apply(v):
-            return (b_inv * v[None]).sum(dim=1)
-
         inc, n_iter = pcg_mod.power_series(
-            b_inv_apply,
+            lambda v: mv(b_inv, v),
             self._e0_apply_s(lin, h),
             nb,
             max_terms=self.power_m,
@@ -295,6 +358,48 @@ class Stage1Solver(SlotSolver):
             r_tolerance=self.opts.r_tolerance,
         )
         return inc.to(self.dtype), n_iter
+
+    def solve_pcg(self, lin: Lin1S, lam) -> Tuple[torch.Tensor, int]:
+        """PCG on the implicit reduced camera system S x = b,
+        S = Hpp + lam I - E0 (`_solve_pcg_s` of the JAX package;
+        linearizor_sc.cpp with conjugate_gradient.hpp), preconditioned
+        per options.preconditioner_type. Returns (inc = -x [12, N] in
+        scaled coordinates, state dtype; CG iterations)."""
+        lam_s = self._solve_scalar(lam)
+        _hll_inv, hib_obs, jls_obs, lh_obs = self._hll_pieces_s(lin)
+        hpp, b = self._hpp_b_s(lin, hib_obs, jls_obs)
+        h = self._h_factor_s(lin, jls_obs, lh_obs)
+        precond = self._precond_closure(
+            self._pcg_precond_s(lin, lam_s, hpp, h)
+        )
+        e0 = self._e0_apply_s(lin, h)
+
+        def matvec(v):
+            return mv(hpp, v) + lam_s * v - e0(v)
+
+        x, n_iter, _term = pcg_mod.conjugate_gradients(
+            matvec, b, torch.zeros_like(b), precond,
+            max_iterations=self.opts.max_linear_solver_iterations,
+            min_iterations=self.opts.min_linear_solver_iterations,
+            q_tolerance=self.opts.eta,
+            r_tolerance=-1.0,
+            residual_reset_period=self.opts.residual_reset_period,
+        )
+        return (-x).to(self.dtype), n_iter
+
+    def _pcg_precond_s(self, lin: Lin1S, lam_s: float, hpp, h):
+        """Preconditioner materials (`_pcg_precond_s` of the JAX
+        package): the damped Hpp blocks less their Schur corrections,
+        hpp + lam I - seg_cam((h^T h) (x) xh xh^T) . (ps ps^T), one
+        schur_diag_structured pass; none for IDENTITY."""
+        if self.opts.preconditioner_type == PreconditionerType.IDENTITY:
+            return ()
+        ps = lin.pose_scale
+        corr = pose_kernels.schur_diag_structured(
+            self.obs.cam, lin.x, h, self.n_cams
+        ).reshape(12, 12, self.n_cams) * (ps[:, None, :] * ps[None, :, :])
+        eye = torch.eye(12, dtype=hpp.dtype, device=hpp.device)
+        return self._precond_mats(hpp + lam_s * eye[:, :, None] - corr)
 
     # ------------------------------------------------------------- apply
 

@@ -1,16 +1,19 @@
-"""Step-2 Riemannian projective refinement: RIPOBA on the structured path.
+"""Step-2 Riemannian projective refinement: RIPOBA and RIPCG on the
+structured path.
 
 The counterpart of povar_tpu/solver/stage2.py on its structured path
-(`Lin2S`, composed power term): the homogeneous Jacobians are never
-materialized; every per-observation pass is one of the six kernels of
-ops/pose2_kernels.py (hand-written CUDA on the card, their plain
-PyTorch versions on the CPU), and the landmark side is reshape-sums and
-broadcasts over the slot layout. This module replaces:
+(`Lin2S`): the homogeneous Jacobians are never materialized; every
+per-observation pass is one of the eight kernels of ops/pose2_kernels.py
+(hand-written CUDA on the card, their plain PyTorch versions on the
+CPU), and the landmark side is reshape-sums and broadcasts over the slot
+layout. This module replaces:
   - linearize_landmark_projective_space_homogeneous + linearize_nullspace
     (sc/landmark_block.hpp:180-269)
   - prepare_Hb_joint / solve_joint / right_mul_*_joint
     (sc/linearization_power_varproj.hpp:74-122, 240-287, 341-453)
   - back_substitute_joint (sc/landmark_block.hpp:574-623)
+  - the implicit tangent RCS + PCG of RIPCG (solver/linearizor_sc.cpp:
+    245-325)
   - apply_joint camera lift (solver/linearizor_power_varproj.cpp:276-308)
 
 Geometry: cameras live on the quotient of 12-dof matrices by global
@@ -28,24 +31,31 @@ storage and the inner solve are f32. Retraction after each step:
 Frobenius-normalize the cameras and dehomogenize the landmarks
 (bal_bundle_adjustment.cpp:700-705).
 
-What this slice covers is the default step-2 configuration of the JAX
-package with `fused_power_term=False`: any other step-2 configuration
-raises NotImplementedError naming its ROADMAP.md item.
+Both step-2 solvers run, with the fused power term (the JAX package's
+default) or the composed one (`fused_power_term=False`); any other
+step-2 configuration raises NotImplementedError naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from povar_tpu_torch.ops import linalg, pose2_kernels
-from povar_tpu_torch.options import SolverOptions, SolverTypeRiemannian
+from povar_tpu_torch.options import (
+    PreconditionerType,
+    SolverOptions,
+    SolverTypeRiemannian,
+)
 from povar_tpu_torch.solver import pcg as pcg_mod
+from povar_tpu_torch.solver.segments import slot_part_sums, slot_row_expand
 from povar_tpu_torch.solver.slots import (
     LmState,
     SlotSolver,
     common_unsupported,
+    mv,
 )
 
 
@@ -81,36 +91,17 @@ def create_homogeneous(
     return linalg.frobenius_normalize(cam_space), lm_p_h
 
 
-def _unsupported(options: SolverOptions, n_cams: int, dtype) -> Optional[str]:
-    """Why this configuration is outside the ported slice, or None."""
-    if options.solver_type_step_2 != SolverTypeRiemannian.RIPOBA:
-        return (
-            f"solver_type_step_2={options.solver_type_step_2.value} "
-            "(ROADMAP.md queue 1 item 9, the other solvers: RIPCG)"
-        )
-    if options.fused_power_term:
-        return (
-            "fused_power_term=True (ROADMAP.md queue 2, e0_term2_parts: "
-            "the fused step-2 power-series term kernel)"
-        )
-    return common_unsupported(options, n_cams, dtype)
-
-
-def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Batch-last matrix-vector product 'ijn,jn->in'."""
-    return (m * v[None]).sum(dim=1)
-
-
 class Stage2Solver(SlotSolver):
-    """Step-2 (RIPOBA) solver bound to one problem's observations on
-    `device` ("cuda", the default, launches the CUDA kernels; "cpu" runs
-    their plain versions).
+    """Step-2 (RIPOBA or RIPCG) solver bound to one problem's
+    observations on `device` ("cuda", the default, launches the CUDA
+    kernels; "cpu" runs their plain versions).
 
     Public API as in the JAX package: compute_error, linearize,
-    solve_power, apply, trial, lm_pack, lm_unpack. Landmark state may be
-    passed canonical ([M, 4] homogeneous) or packed (LmState)."""
+    solve_power, solve_pcg, solve, apply, trial, lm_pack, lm_unpack.
+    Landmark state may be passed canonical ([M, 4] homogeneous) or
+    packed (LmState)."""
 
-    PATH = "step 2 on the structured RIPOBA path"
+    PATH = "step 2 on the structured RIPOBA and RIPCG paths"
 
     def __init__(
         self,
@@ -125,16 +116,23 @@ class Stage2Solver(SlotSolver):
     ):
         super().__init__(
             obs_cam, obs_lm, obs_uv, num_cameras, num_landmarks, options,
-            dtype, device, _unsupported,
+            dtype, device, common_unsupported,
         )
         self.use_valid_only = options.use_projection_validity_check()
 
+    def solve(self, lin: Lin2S, lam) -> Tuple[torch.Tensor, int]:
+        """Dispatch on solver_type_step_2: (inc [11, N] in the state
+        dtype, power terms or CG iterations)."""
+        if self.opts.solver_type_step_2 == SolverTypeRiemannian.RIPCG:
+            return self.solve_pcg(lin, lam)
+        return self.solve_power(lin, lam)
+
     def trial(self, cam_space, lm_p_h, lin: Lin2S, lam):
         """One LM backtracking trial: solve + apply + f64 cost, with no
-        host synchronisation except the power series' early-exit test.
+        host synchronisation except the inner solve's early-exit tests.
         Returns (new_cams, new_lms, inc_finite, num_inner_iters, l_diff,
         err_dict), as Stage1Solver.trial."""
-        inc, n_iter = self.solve_power(lin, lam)
+        inc, n_iter = self.solve(lin, lam)
         inc_finite = torch.isfinite(inc).all()
         new_cams, new_lms, l_diff = self.apply(cam_space, lm_p_h, lin, inc,
                                                lam)
@@ -227,7 +225,7 @@ class Stage2Solver(SlotSolver):
         """(hll_inv [3,3,L], hib_obs [3,O], b6 [6,O] = Jl_ns L rows) of
         the damped tangent landmark blocks."""
         hll_inv = linalg.inv3x3f(self._damped_hll(lin, lam_s))
-        hib = _mv(hll_inv, lin.bl_raw)
+        hib = mv(hll_inv, lin.bl_raw)
         lchol = linalg.cholesky_smallf(hll_inv)  # [3, 3, L]
         hib_obs = self._expand_L(hib)
         l_obs = self._expand_L(lchol.reshape(9, lchol.shape[-1]))  # i*3+c
@@ -254,21 +252,26 @@ class Stage2Solver(SlotSolver):
             b11 = (kps * b12[:, None, :]).sum(dim=0)
         return h11, b11
 
+    def _hpp_b11(self, lin: Lin2S, hib_obs):
+        """(hpp11 [11, 11, N] undamped, b11 [11, N]): the per-camera
+        normal equations in the unprojected frame, folded by Kps."""
+        hpp12, b12 = pose2_kernels.hppb2(
+            self.obs.cam, lin.x4, lin.mm, lin.sw, lin.r_w, lin.jlns,
+            hib_obs, self.n_cams,
+        )
+        return self._fold_kps(lin, hpp12, b12)
+
     def solve_power(self, lin: Lin2S, lam) -> Tuple[torch.Tensor, int]:
         """RIPOBA: power series on the 11-dof tangent system
         (solve_joint, hpp:240-287). Returns (inc [11, N] in the state
         dtype, num_terms)."""
         lam_s = self._solve_scalar(lam)
         _hll_inv, hib_obs, b6 = self._prep_hll_s(lin, lam_s)
-        hpp12, b12 = pose2_kernels.hppb2(
-            self.obs.cam, lin.x4, lin.mm, lin.sw, lin.r_w, lin.jlns,
-            hib_obs, self.n_cams,
-        )
-        hpp11, b11 = self._fold_kps(lin, hpp12, b12)
+        hpp11, b11 = self._hpp_b11(lin, hib_obs)
         eye = torch.eye(11, dtype=hpp11.dtype, device=hpp11.device)
         b_inv = linalg.inv_psd_smallf(hpp11 + lam_s * eye[:, :, None])
         inc, n_iter = pcg_mod.power_series(
-            lambda v: _mv(b_inv, v),
+            lambda v: mv(b_inv, v),
             self._e0_apply_s(lin, b6),
             -b11,
             max_terms=self.power_m,
@@ -277,15 +280,73 @@ class Stage2Solver(SlotSolver):
         )
         return inc.to(self.dtype), n_iter
 
+    def solve_pcg(self, lin: Lin2S, lam) -> Tuple[torch.Tensor, int]:
+        """RIPCG (linearizor_sc.cpp:245-325; `_solve_pcg` of the JAX
+        package): PCG on the implicit tangent reduced camera system
+        S x = b11, S = Hpp11 + lam I - E0, preconditioned per
+        options.preconditioner_type. Returns (inc = -x [11, N] in the
+        state dtype, CG iterations)."""
+        lam_s = self._solve_scalar(lam)
+        _hll_inv, hib_obs, b6 = self._prep_hll_s(lin, lam_s)
+        hpp11, b11 = self._hpp_b11(lin, hib_obs)
+        precond = self._precond_closure(
+            self._pcg_precond_s(lin, lam_s, hpp11, b6)
+        )
+        e0 = self._e0_apply_s(lin, b6)
+
+        def matvec(v):
+            return mv(hpp11, v) + lam_s * v - e0(v)
+
+        x, n_iter, _term = pcg_mod.conjugate_gradients(
+            matvec, b11, torch.zeros_like(b11), precond,
+            max_iterations=self.opts.max_linear_solver_iterations,
+            min_iterations=self.opts.min_linear_solver_iterations,
+            q_tolerance=self.opts.eta,
+            r_tolerance=-1.0,
+            residual_reset_period=self.opts.residual_reset_period,
+        )
+        return (-x).to(self.dtype), n_iter
+
+    def _pcg_precond_s(self, lin: Lin2S, lam_s: float, hpp11, b6):
+        """Preconditioner materials (`_pcg_precond` of the JAX package,
+        structured branch): the damped Hpp11 blocks less the folded
+        schur_diag2 corrections; none for IDENTITY."""
+        if self.opts.preconditioner_type == PreconditionerType.IDENTITY:
+            return ()
+        corr12 = pose2_kernels.schur_diag2(
+            self.obs.cam, lin.x4, lin.mm, lin.sw, b6, self.n_cams
+        )
+        corr11, _ = self._fold_kps(lin, corr12, None)
+        eye = torch.eye(11, dtype=hpp11.dtype, device=hpp11.device)
+        return self._precond_mats(hpp11 + lam_s * eye[:, :, None] - corr11)
+
     def _e0_apply_s(self, lin: Lin2S, b6: torch.Tensor):
-        """Matrix-free tangent E0 (right_mul_e0_joint, hpp:409-453): the
-        composed mat_dot2 -> slot reduce / re-expand -> scatter2 term
-        through the zt = Kps v table (stage2.py:1171-1183 of the JAX
-        package)."""
+        """Matrix-free tangent E0 (right_mul_e0_joint, hpp:409-453)
+        through the zt = Kps v table (stage2.py:1148-1185 of the JAX
+        package): the fused term over the plan's narrow parts (one
+        e0_term2_parts launch) plus the composed terms on its wide
+        suffix, or, without a plan, the composed mat_dot2 -> slot
+        reduce / re-expand -> scatter2 term."""
         cam = self.obs.cam
+        plan = self.e0_plan
+
+        if plan is not None:
+            suffix = self._e0_suffix_s(lin, b6)
+
+            def e0_fused(v11):
+                zt = mv(lin.kps, v11)  # [12, N]
+                out12 = pose2_kernels.e0_term2_parts(
+                    cam, lin.x4, lin.mm, lin.sw, b6, zt, plan.parts,
+                    self.n_cams,
+                )
+                if suffix is not None:
+                    out12 = out12 + suffix(zt)
+                return self._fold_kps(lin, None, out12)[1]
+
+            return e0_fused
 
         def e0(v11):
-            zt = _mv(lin.kps, v11)  # [12, N]
+            zt = mv(lin.kps, v11)  # [12, N]
             u3 = pose2_kernels.mat_dot2(
                 cam, lin.x4, lin.mm, lin.sw, b6, None, zt, add_r=False
             )
@@ -296,6 +357,28 @@ class Stage2Solver(SlotSolver):
             return self._fold_kps(lin, None, out12)[1]
 
         return e0
+
+    def _e0_suffix_s(self, lin: Lin2S, b6: torch.Tensor):
+        """The composed tangent E0 term on the plan's wide suffix
+        [cut, O) (`_e0_suffix_apply2` of the JAX package) as a function
+        of zt, or None without a suffix; its operands are sliced once
+        per solve."""
+        if self.e0_plan.suffix is None:
+            return None
+        cut, shapes = self.e0_plan.suffix
+        cam_s = self.obs.cam[cut:]
+        x4_s, mm_s, sw_s, b6_s = (
+            t[:, cut:].contiguous() for t in (lin.x4, lin.mm, lin.sw, b6)
+        )
+
+        def apply(zt):
+            u3 = pose2_kernels.mat_dot2(cam_s, x4_s, mm_s, sw_s, b6_s, None,
+                                        zt, add_r=False)
+            sb = slot_row_expand(slot_part_sums(u3, shapes), shapes)
+            return pose2_kernels.scatter2(cam_s, x4_s, mm_s, sw_s, b6_s, sb,
+                                          self.n_cams)
+
+        return apply
 
     # ------------------------------------------------------------- apply
 
@@ -313,14 +396,14 @@ class Stage2Solver(SlotSolver):
         Returns (new_lm_p_h, l_diff) with l_diff a 0-d f64 tensor."""
         sd = self.solve_dtype
         lam_s = self._solve_scalar(lam)
-        zt = _mv(lin.kps, inc.to(sd))  # [12, N]
+        zt = mv(lin.kps, inc.to(sd))  # [12, N]
         cam = self.obs.cam
         t3_obs = pose2_kernels.mat_dot2(
             cam, lin.x4, lin.mm, lin.sw, lin.jlns, lin.r_w, zt, add_r=True
         )
         inc3 = -linalg.solve3x3f(self._damped_hll(lin, lam_s),
                                  self._seg_L(t3_obs))  # [3, L]
-        inc_proj = _mv(lin.kernel_lm, inc3)  # [4, L]
+        inc_proj = mv(lin.kernel_lm, inc3)  # [4, L]
         neg_l_diff = pose2_kernels.ldiff2(
             cam, lin.x4, lin.mm, lin.sw, lin.r_w, lin.jls8,
             self._expand_L(inc_proj), zt,
@@ -338,7 +421,7 @@ class Stage2Solver(SlotSolver):
         """Camera tangent lift 11 -> 12 through kernel_cam, unscale, add,
         Frobenius-normalize retraction (apply_joint,
         linearizor_power_varproj.cpp:276-308)."""
-        inc12 = _mv(lin.kernel_cam, inc.to(self.solve_dtype))  # [12, N]
+        inc12 = mv(lin.kernel_cam, inc.to(self.solve_dtype))  # [12, N]
         inc12 = (inc12 * lin.pose_scale).to(self.dtype)
         new_cam = cam_space + inc12.T.reshape(self.n_cams, 3, 4)
         return linalg.frobenius_normalize(new_cam)

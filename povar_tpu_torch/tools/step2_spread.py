@@ -1,11 +1,13 @@
 """Run-to-run spread of the two-step solve on the card.
 
     python -m povar_tpu_torch.tools.step2_spread [--runs 5] [--long 300]
-        [--small 0] [--witness 0] [--out build/step2_spread.json]
+        [--small 0] [--witness 0] [--step2 RIPOBA] [--pcg 0]
+        [--out build/step2_spread.json]
 
-On synthetic_bal_problem_fast(89, 110973, 5, seed=0) with the port's
-configuration (SolverOptions() defaults except fused_power_term=False,
-device_lm_loop="off"), separates the two sources of spread in the final
+On synthetic_bal_problem_fast(89, 110973, 5, seed=0) with the composed
+power term (SolverOptions() defaults except fused_power_term=False,
+device_lm_loop="off", the configuration its tolerances were measured
+in), separates the two sources of spread in the final
 step-2 cost:
 
   fixed start   one step-1 solve, then step 2 from its homogenized
@@ -23,7 +25,12 @@ step-2 cost:
                 SMALL_TOLS);
   witness       `--witness` step-1 solves, each followed by
                 `step2_witness` from its homogenized result: how far the
-                card's first step-2 iterations stay on the CPU's path.
+                card's first step-2 iterations stay on the CPU's path
+                (with the `--step2` solver, RIPOBA or RIPCG; RIPCG runs
+                SolverOptions() defaults otherwise, the fused term);
+  pcg           `--pcg` step-1 solves with PCG (SCHUR_JACOBI,
+                SolverOptions() defaults otherwise): the spread of the
+                final cost that chip_smoke.py's PCG bound was set from.
 
 Prints one line per run and writes every trajectory (accept/reject
 sequence, power terms, costs, termination) as JSON to `--out`. Needs a
@@ -40,6 +47,7 @@ import time
 
 import torch
 
+from povar_tpu_torch.options import SolverType, SolverTypeRiemannian
 from povar_tpu_torch import (
     SolverOptions,
     SolverSummary,
@@ -88,10 +96,23 @@ def _record(label, summary, seconds):
 # the k-th accepted cost within 3.8e-6, 3.1e-5 and 6.4e-4 of the CPU's
 # for k = 1, 2, 3 (the f32 solve's rounding grows ~10x per accepted
 # step). So the witness stops after two accepted steps, and
-# WITNESS_TOLS bounds the k-th accepted cost's relative gap.
+# WITNESS_TOLS bounds the k-th accepted cost's relative gap. Those ten
+# starts set it at (1e-5, 3e-4); a later run failed it at 1.9e-5 for
+# k = 1, and `--witness 12` plus `--witness 12 --step2 RIPCG` (same
+# card; 48 card runs from 24 starts) put the gaps at most at 8.4e-5
+# (k = 1) and 9.2e-5 (k = 2), decisions equal in all. So both are 3e-4.
 CALM = 10.0
 WITNESS_ITERS = 7
-WITNESS_TOLS = (1e-5, 3e-4)
+# The same bounds hold RIPCG's witness (SolverOptions() defaults with
+# solver_type_step_2=RIPCG). Its decisions were equal everywhere, but in
+# one start of four (`--witness 4 --step2 RIPCG`) the first trial
+# (lambda = 1e-4, rejected at a cost ~1e3 x the start) took 7 CG
+# iterations on the card and 1 on the CPU: at that lambda the f32 system
+# is near singular and one device's first CG step fails (rho or p'q not
+# positive) where the other's goes on. So RIPCG's witness holds CG
+# counts on the accepted trials only
+# (`witness_gaps(counts_when_rejected=False)`).
+WITNESS_TOLS = (3e-4, 3e-4)
 
 
 def trajectory(summary):
@@ -146,16 +167,22 @@ def step2_witness(problem, opts, cams_h, lms_h, iters=WITNESS_ITERS,
     return args, runs
 
 
-def witness_gaps(runs):
-    """Per card run of `step2_witness`: (same decisions and power terms
-    as the CPU, relative initial-cost gap, relative gaps of the costs the
-    CPU accepted). Rejected trials are not compared: their costs differ
-    by orders of magnitude between runs."""
+def witness_gaps(runs, counts_when_rejected=True):
+    """Per card run of `step2_witness`: (same decisions and inner
+    iteration counts as the CPU, relative initial-cost gap, relative gaps
+    of the costs the CPU accepted). Rejected trials' costs are not
+    compared: they differ by orders of magnitude between runs; nor, with
+    `counts_when_rejected=False` (RIPCG), their CG counts."""
     want = runs["cpu"][0]
     out = {}
+
+    def key(rec):
+        ok, n, _c = rec
+        return (ok, n if ok or counts_when_rejected else None)
+
     for label in ("card", "card again"):
         got = runs[label][0]
-        same = [g[:2] for g in got] == [w[:2] for w in want]
+        same = [key(g) for g in got] == [key(w) for w in want]
         init = abs(got[0][2] - want[0][2]) / want[0][2]
         gaps = [abs(g[2] - w[2]) / w[2]
                 for g, w in zip(got[1:], want[1:]) if w[0] and w[2]]
@@ -172,24 +199,41 @@ def witness_gaps(runs):
 SMALL_TOLS = (2e-3, 1e-3)
 
 
-def small_case():
+# The configurations of the small case: the composed power term (the
+# one SMALL_TOLS was measured on), SolverOptions() defaults (the fused
+# term) and PCG + RIPCG. The CG pair runs step 1 for 11 iterations: from
+# 6, a PCG step 1 leaves step 2 a chaotic start (tests/test_torch_stage2
+# .py's pipeline test).
+SMALL_CONFIGS = {
+    "composed": dict(fused_power_term=False),
+    "defaults": {},
+    "cg": dict(solver_type_step_1=SolverType.PCG,
+               solver_type_step_2=SolverTypeRiemannian.RIPCG,
+               max_num_iterations_step_1=11),
+}
+
+
+def small_case(config="composed"):
     """The small `bundle_adjust` case that SMALL_TOLS was measured on:
     (problem, options) with synthetic_bal_problem(8, 60, 5, seed=7) at
-    1e-3 pixel noise, the port's configuration, and at most 6 step-1
-    and 10 step-2 iterations. chip_smoke.py and tests/test_torch_cuda.py
-    run it too."""
+    1e-3 pixel noise, at most 6 step-1 and 10 step-2 iterations and the
+    options of SMALL_CONFIGS[config]. chip_smoke.py and
+    tests/test_torch_cuda.py run it too."""
     problem = synthetic_bal_problem(n_cams=8, n_lms=60, obs_per_lm=5,
                                     seed=7, noise=1e-3)[0]
-    opts = SolverOptions(fused_power_term=False, device_lm_loop="off",
-                         max_num_iterations_step_1=6,
+    opts = SolverOptions(device_lm_loop="off", max_num_iterations_step_1=6,
                          max_num_iterations_step_2=10)
+    for k, v in SMALL_CONFIGS[config].items():
+        setattr(opts, k, v)
     return problem, opts
 
 
-def small_gaps(runs):
+def small_gaps(runs, config="composed"):
     """Final-cost gaps (relative, per step) of `runs` card runs of the
-    small `bundle_adjust` against its CPU run, and decision matches."""
-    problem, opts = small_case()
+    small `bundle_adjust` under SMALL_CONFIGS[config] against its CPU
+    run, decision matches, and the largest difference of an inner
+    iteration count (power terms or CG iterations) per step."""
+    problem, opts = small_case(config)
 
     def run(device):
         return bundle_adjust(copy.deepcopy(problem), opts,
@@ -197,6 +241,10 @@ def small_gaps(runs):
 
     def decisions(summaries):
         return [it.step_is_successful for s in summaries for it in s.iterations]
+
+    def count_gap(g, c):
+        return max(abs(a.linear_solver_iterations - b.linear_solver_iterations)
+                   for a, b in zip(g.iterations, c.iterations))
 
     cpu = run("cpu") if runs else None
     recs = []
@@ -206,13 +254,17 @@ def small_gaps(runs):
             gaps=[abs(g.final_cost.all.error - c.final_cost.all.error)
                   / c.final_cost.all.error for g, c in zip(card, cpu)],
             same_decisions=decisions(card) == decisions(cpu),
+            count_gaps=[count_gap(g, c) for g, c in zip(card, cpu)],
         ))
     if recs:
         g1 = sorted(r["gaps"][0] for r in recs)
-        print(f"small: {runs} card runs vs CPU: step-1 final gap median "
-              f"{g1[len(g1) // 2]:.2e} max {g1[-1]:.2e}; step-2 max "
+        print(f"small ({config}): {runs} card runs vs CPU: step-1 final gap "
+              f"median {g1[len(g1) // 2]:.2e} max {g1[-1]:.2e}; step-2 max "
               f"{max(r['gaps'][1] for r in recs):.2e}; decisions equal in "
-              f"{sum(r['same_decisions'] for r in recs)}", flush=True)
+              f"{sum(r['same_decisions'] for r in recs)}; largest inner "
+              f"count differences per step "
+              f"{[max(r['count_gaps'][k] for r in recs) for k in (0, 1)]}",
+              flush=True)
     return recs
 
 
@@ -222,7 +274,14 @@ def main() -> None:
     ap.add_argument("--long", type=int, default=300,
                     help="raised step-2 cap of the two long runs (0: none)")
     ap.add_argument("--small", type=int, default=0)
+    ap.add_argument("--small-config", default="composed",
+                    choices=tuple(SMALL_CONFIGS),
+                    help="the configuration of the --small runs")
     ap.add_argument("--witness", type=int, default=0)
+    ap.add_argument("--step2", default="RIPOBA", choices=("RIPOBA", "RIPCG"),
+                    help="the step-2 solver of the witness runs")
+    ap.add_argument("--pcg", type=int, default=0,
+                    help="PCG step-1 solves (the spread of their final cost)")
     ap.add_argument("--out", default="build/step2_spread.json")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -235,7 +294,27 @@ def main() -> None:
     s1 = Stage1Solver(*args, opts, device="cuda")
     s2 = Stage2Solver(*args, opts, device="cuda")
     out = dict(device=torch.cuda.get_device_name(0), fixed_start=[],
-               long=[], pipeline=[], small=small_gaps(a.small), witness=[])
+               long=[], pipeline=[], small=small_gaps(a.small, a.small_config), witness=[],
+               pcg=[])
+    popts = SolverOptions(solver_type_step_1=SolverType.PCG,
+                          device_lm_loop="off")
+    sp = Stage1Solver(*args, popts, device="cuda") if a.pcg else None
+    for k in range(a.pcg):
+        _p, c0, l0 = from_numpy(problem.obs_cam, problem.obs_lm,
+                                problem.obs_uv, problem.cam_space,
+                                problem.lm_p, device="cuda")
+        s = SolverSummary()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimize_step1(sp, c0, l0, popts, s, Timer(), log=lambda s: None)
+        torch.cuda.synchronize()
+        out["pcg"].append(_record(f"pcg {k}", s, time.perf_counter() - t0))
+    if a.pcg:
+        finals = sorted(r["final"] for r in out["pcg"])
+        print(f"pcg: {a.pcg} step-1 finals {finals[0]!r} .. {finals[-1]!r}, "
+              f"median {finals[len(finals) // 2]!r}; CG counts "
+              f"{sorted({tuple(r['terms']) for r in out['pcg']})}",
+              flush=True)
     for k in range(a.witness):
         _p, c0, l0 = from_numpy(problem.obs_cam, problem.obs_lm,
                                 problem.obs_uv, problem.cam_space,
@@ -243,8 +322,11 @@ def main() -> None:
         s = SolverSummary()
         c1, l1 = optimize_step1(s1, c0, l0, opts, s, Timer(),
                                 log=lambda s: None)
-        wargs, runs = step2_witness(problem, opts, *create_homogeneous(c1, l1))
-        gaps = witness_gaps(runs)
+        wopts = opts if a.step2 == "RIPOBA" else SolverOptions(
+            solver_type_step_2=SolverTypeRiemannian.RIPCG)
+        wargs, runs = step2_witness(problem, wopts,
+                                    *create_homogeneous(c1, l1))
+        gaps = witness_gaps(runs, counts_when_rejected=a.step2 == "RIPOBA")
         seqs = {lab: "".join("A" if ok else "R" for ok, _n, _c in t[1:])
                 for lab, (t, _s) in runs.items()}
         print(f"witness {k}: step 1 {s.final_cost.all.error!r}, "

@@ -1,7 +1,8 @@
 """povar_tpu_torch on the card: each CUDA kernel of both steps against
 its plain PyTorch version on the same CUDA tensors, the step-1 slice and
-the two-step `bundle_adjust` on the card against the same solves on the
-CPU.
+the two-step `bundle_adjust` (composed term, SolverOptions() defaults,
+PCG + RIPCG) on the card against the same solves on the CPU, and the
+command-line app on the card.
 
 Every test here is marked `cuda` and skips without a CUDA device. The
 file imports nothing of JAX, so it runs where JAX is not installed:
@@ -12,8 +13,9 @@ file imports nothing of JAX, so it runs where JAX is not installed:
 rest of the suite.) chip_smoke.py runs the kernel check at the
 venice-89 shapes; this file runs it at the CPU tests' small shapes
 (O = 1024, N = 13, as tests/test_torch_pose_kernels.py) and at
-N = 1024, where `hpp_b_structured` and `hppb2` take their global-atomic
-route.
+N = 1024, where `hpp_b_structured`, `hppb2` and the two Schur-Jacobi
+kernels take their global-atomic route; the fused terms run over all
+slot parts and over a narrow prefix.
 
 Tolerances, with the scales of povar_tpu_torch/tools/parity.py:
 elementwise outputs 1e-5 entry by entry (against |plain| + the median
@@ -47,6 +49,10 @@ from povar_tpu_torch.ops import pose_ref
 
 ALPHA = 0.01
 O = 1024
+# fused-term slot parts (ofs, g, w) over the O rows: all of them, and a
+# narrow prefix (the rest a composed suffix, as with a wide landmark)
+PARTS = ((0, 64, 4), (256, 48, 16))
+PREFIX = PARTS[:1]
 ELEM, CAM, SUM = ("elem", 1e-5), ("cam", 1e-4), ("scalar", 1e-4)
 F64, EXACT = ("scalar", 1e-12), ("exact", 0.0)
 
@@ -117,6 +123,11 @@ def _cases(t, n):
         ("pose_error", (t["cam"], t["ct64"], t["x64"], t["uv64"],
                         t["mask"]), dict(robust=1, huber=1.0, **a),
          [F64, F64, EXACT]),
+        ("e0_term_parts", (t["cam"], t["x"], t["h"], t["z"], PARTS, n), {},
+         [CAM]),
+        ("e0_term_parts", (t["cam"], t["x"], t["h"], t["z"], PREFIX, n), {},
+         [CAM]),
+        ("schur_diag_structured", (t["cam"], t["x"], t["h"], n), {}, [CAM]),
     ]
 
 
@@ -139,6 +150,9 @@ def _cases2(t, n):
         ("pose_error2", (t["cam"], t["ct2_64"], t["x4_64"], t["uv64"],
                          t["mask"]), dict(robust=1, huber=1.0),
          [EXACT, F64, F64, EXACT, F64, F64, EXACT]),
+        ("e0_term2_parts", (*obs, t["mat6"], t["z"], PARTS, n), {}, [CAM]),
+        ("e0_term2_parts", (*obs, t["mat6"], t["z"], PREFIX, n), {}, [CAM]),
+        ("schur_diag2", (*obs, t["mat6"], n), {}, [CAM]),
     ]
 
 
@@ -206,7 +220,7 @@ def test_step1_slice_card_matches_cpu(cuda):
     """Six LM iterations of the slice on the card and on the CPU (plain
     versions): identical decisions and power-term counts, costs within
     1e-3 (f32 inner solves in another summation order), and every
-    kernel launched on the card."""
+    kernel of the composed term launched on the card."""
     problem, _ = synthetic_bal_problem(n_cams=8, n_lms=60, obs_per_lm=5,
                                        seed=7)
     opts = SolverOptions()
@@ -227,7 +241,7 @@ def test_step1_slice_card_matches_cpu(cuda):
             Timer(), log=lambda s: None,
         )
         counts = {k: v for k, v in launches.launch_counts().items()
-                  if k in pk.KERNELS}
+                  if k in pk.KERNELS and k not in FUSED_ONLY | CG_ONLY}
         if dev == "cuda":
             assert min(counts.values()) > 0, counts
         else:
@@ -243,15 +257,43 @@ def test_step1_slice_card_matches_cpu(cuda):
         np.testing.assert_allclose(c_g, c_c, rtol=1e-3)
 
 
+# the kernels each configuration of `small_case` runs (every landmark of
+# its problem is narrow, so the fused terms have no composed suffix)
+FUSED_ONLY = {"e0_term_parts", "e0_term2_parts"}
+CG_ONLY = {"schur_diag_structured", "schur_diag2"}
+COMPOSED_ONLY = {"e0_u_structured", "e0_scatter_structured", "scatter2"}
+SMALL_KERNELS = {
+    "composed": set(launches.KERNELS) - FUSED_ONLY - CG_ONLY,
+    "defaults": set(launches.KERNELS) - COMPOSED_ONLY - CG_ONLY,
+    "cg": set(launches.KERNELS) - COMPOSED_ONLY,
+}
+
+
 @pytest.mark.cuda
-def test_bundle_adjust_card_matches_cpu(cuda):
+@pytest.mark.parametrize("config", list(SMALL_KERNELS))
+def test_bundle_adjust_card_matches_cpu(cuda, config):
     """The two-step solve of tools/step2_spread.py's `small_case` (the
     problem of tests/test_torch_stage2.py's pipeline test) on the card
-    and on the CPU: identical decisions in both steps, final costs within
-    SMALL_TOLS (2e-3 for step 1, 1e-3 for step 2; fifty measured card
-    runs, see that module), and all thirteen kernels launched on the
-    card."""
-    jp, opts = small_case()
+    and on the CPU, with the composed power term, SolverOptions()
+    defaults (the fused term) and PCG + RIPCG, every kernel of the
+    configuration launched on the card and none on the CPU.
+
+    Composed and defaults: identical decisions and power-term counts in
+    both steps, final costs within SMALL_TOLS (2e-3 for step 1, 1e-3 for
+    step 2; fifty card runs of the composed term, see that module; ten
+    of the defaults put the gaps at 8.6e-4 and 6.3e-10 with identical
+    decisions and counts: `--small 10 --small-config defaults`).
+
+    PCG + RIPCG: `--small 10 --small-config cg` (an H100 80GB HBM3, 700
+    W) found the truncated CG's q-tolerance test on near-ties that f32
+    rounding decides: inner counts within one of the CPU's in both
+    steps, step-1 decisions different in 3 of 10 runs and step-1 final
+    costs up to 41% apart (PCG's step 1 ends in a flat valley of this
+    noisy problem), while step 2 reached the CPU's optimum every time
+    (gap <= 2.6e-10). So step 1 is held to counts within one and a 100x
+    drop, step 2 to counts within one and SMALL_TOLS[1]."""
+    jp, opts = small_case(config)
+    kernels = SMALL_KERNELS[config]
     runs = {}
     for dev in ("cuda", "cpu"):
         p, _c, _l = from_numpy(jp.obs_cam, jp.obs_lm, jp.obs_uv, jp.cam_space,
@@ -259,15 +301,58 @@ def test_bundle_adjust_card_matches_cpu(cuda):
         launches.reset_launch_counts()
         _, s1, s2 = bundle_adjust(p, opts, log=lambda s: None, device=dev)
         counts = launches.launch_counts()
-        assert len(counts) == 13
+        assert len(counts) == 17
         if dev == "cuda":
-            assert min(counts.values()) > 0, counts
+            assert all(counts[k] > 0 for k in kernels), counts
         else:
             assert max(counts.values()) == 0, counts
         runs[dev] = (s1, s2)
-    for g, c, rtol in zip(runs["cuda"], runs["cpu"], SMALL_TOLS):
-        assert [it.step_is_successful for it in g.iterations] == [
-            it.step_is_successful for it in c.iterations
-        ]
-        np.testing.assert_allclose(g.final_cost.all.error,
-                                   c.final_cost.all.error, rtol=rtol)
+    for step, g, c, rtol in zip((1, 2), runs["cuda"], runs["cpu"],
+                                SMALL_TOLS):
+        gn = [it.linear_solver_iterations for it in g.iterations]
+        cn = [it.linear_solver_iterations for it in c.iterations]
+        gd = [it.step_is_successful for it in g.iterations]
+        cd = [it.step_is_successful for it in c.iterations]
+        gf, cf = g.final_cost.all.error, c.final_cost.all.error
+        if config != "cg":
+            assert (gd, gn) == (cd, cn)
+            np.testing.assert_allclose(gf, cf, rtol=rtol)
+            continue
+        assert all(abs(a - b) <= 1 for a, b in zip(gn, cn)), (gn, cn)
+        if step == 1:
+            assert gf <= 1e-2 * g.initial_cost.all.error, (gf, cf)
+        else:
+            np.testing.assert_allclose(gf, cf, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cli_on_the_card(cuda, tmp_path):
+    """`python -m povar_tpu_torch.cli` as a user runs it, on the card with
+    SolverOptions() defaults, on the committed BAL fixture after
+    --create-dataset: it exits 0 and writes a ba_log.json with both
+    steps' records, strictly falling accepted costs in each, and the
+    card's memory statistics."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    name = "mini-bal-12-48-pre.txt"
+    shutil.copy(os.path.join(repo, "tests", "data", name), tmp_path / name)
+    env = dict(os.environ, PYTHONPATH=repo)
+    for argv in (["--input", name, "--create-dataset"],
+                 ["--input", os.path.join("data_custom", name)]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "povar_tpu_torch.cli", *argv],
+            cwd=tmp_path, env=env, capture_output=True, text=True,
+            timeout=600,
+        )
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    log = json.loads((tmp_path / "ba_log.json").read_text())
+    for key in ("iterations1", "iterations"):
+        accepted = [it["cost"] for it in log[key] if it["step_is_successful"]]
+        assert len(accepted) > 1, key
+        assert all(b < a for a, b in zip(accepted, accepted[1:])), key
+    assert "cuda:0" in json.dumps(log)

@@ -1,10 +1,13 @@
-"""The six step-2 kernels of povar_tpu_torch against the JAX package's
+"""The eight step-2 kernels of povar_tpu_torch against the JAX package's
 Pallas kernels (interpret mode on the CPU), on the state of
 tests/test_pallas_pose2.py's `_stage2_solver` fixture: 8 cameras, 60
 landmarks, 4 observations each (O = 8192 slot rows after padding, most
 of them dead), the VarProj-initialized landmarks of random cameras lifted
 to the step-2 state by `create_homogeneous`. The operands that a solve
-would compute (zt, sb, mat6, hib, ilm4) are seeded numpy.
+would compute (zt, sb, mat6, hib, ilm4) are seeded numpy. The fused term
+and the Schur-Jacobi corrections run again on seeded operands with a
+moderate 1/p2 (in [0.1, 0.5], as tests/test_torch_cuda.py keeps p2 for
+hppb2) over tests/test_torch_pose_kernels.py's slot parts.
 
 On CPU tensors the port's wrappers run the plain PyTorch versions
 (ops/pose2_ref.py), so these tests hold the plain versions to the TPU
@@ -15,8 +18,8 @@ Tolerances, each relative to the largest magnitude of the output, with
 the gap measured on this state:
   - elementwise outputs (r_w, sw, mm, jlw, jlsq, mat_dot2): 1e-5
     (measured <= 2.8e-7);
-  - per-camera sums (jpsq, hpp12, b12, scatter2) and ldiff2: 1e-4
-    (measured <= 1.6e-7);
+  - per-camera sums (jpsq, hpp12, b12, scatter2, the fused term,
+    schur_diag2) and ldiff2: 1e-4 (measured <= 1.6e-7);
   - the f64 cost: 1e-12 against the JAX package's f64 expression
     (`Stage2Solver._compute_error` with the Pallas kernels off; measured
     3e-16); against the double-float `error2_df32` 1e-12 for NONE
@@ -42,6 +45,8 @@ from povar_tpu.solver.stage1 import Stage1Solver
 from povar_tpu.solver.stage2 import Stage2Solver, create_homogeneous
 from povar_tpu_torch.ops import launches
 from povar_tpu_torch.ops import pose2_kernels as pk2
+from povar_tpu_torch.ops import pose2_ref
+from test_torch_pose_kernels import PARTS, PREFIX, jax_parts
 
 HUBER = 0.1
 
@@ -100,6 +105,7 @@ def state():
         ct64=ct64, x4_64=x4_64, uv64=np.asarray(s.obs.uv),
     )
     d["n"] = n
+    d["shapes"] = s.lm_shapes
     live = d["mask"][0] > 0
     assert 0 < live.sum() < o  # live rows and dead pad rows both present
     return d
@@ -128,7 +134,7 @@ def _no_launches():
     launches.reset_launch_counts()
     yield
     counts = launches.launch_counts()
-    assert set(counts) == set(launches.KERNELS) and len(counts) == 13
+    assert set(counts) == set(launches.KERNELS) and len(counts) == 17
     assert all(v == 0 for v in counts.values()), counts
 
 
@@ -215,3 +221,77 @@ def test_pose_error2(state, robust, df_tol):
         for k in ("num_obs_all", "num_obs_valid", "is_numerically_valid"):
             assert int(got[k]) == int(want[k]), (mode, k)
     assert 0 < int(got["num_obs_valid"]) <= int(got["num_obs_all"])
+
+
+@pytest.fixture(scope="module")
+def moderate():
+    """Seeded operands of the fused term and schur_diag2 over O = 1024
+    rows, N = 13 cameras, ~5% dead rows (sw = 0 and mm = 0 there, as
+    prepare2 leaves them), 1/p2 in [0.1, 0.5]."""
+    rng = np.random.default_rng(5)
+    o, n = 1024, 13
+    f = np.float32
+    live = (rng.uniform(size=(1, o)) > 0.05).astype(f)
+    mm = np.concatenate([rng.standard_normal((2, o)),
+                         rng.uniform(0.1, 0.5, (1, o))]).astype(f) * live
+    return dict(
+        cam=rng.integers(0, n, o).astype(np.int32), n=n,
+        x4=rng.standard_normal((4, o)).astype(f), mm=mm,
+        sw=(rng.uniform(0.5, 1.0, (1, o)) * live).astype(f),
+        mat6=rng.standard_normal((6, o)).astype(f),
+        zt=rng.standard_normal((12, n)).astype(f),
+    )
+
+
+@pytest.mark.parametrize("parts", [PARTS, PREFIX], ids=["all", "prefix"])
+def test_e0_term2_parts(moderate, parts):
+    d = moderate
+    want = pp2.e0_term2_parts(
+        jax_parts(parts, d["n"], pp2.E0_TERM2_ROWS, d["cam"], d["x4"],
+                  d["mm"], d["sw"], d["mat6"]),
+        jnp.asarray(d["zt"]), d["n"],
+    )
+    got = pk2.e0_term2_parts(*T(d, "cam", "x4", "mm", "sw", "mat6", "zt"),
+                             parts, d["n"])
+    _close(got.numpy(), want, 1e-4)
+
+
+def test_e0_term2_parts_on_the_solver_state(state):
+    """The fused term over the slot plan of the state's own layout (its
+    narrow parts; the dead pad tail is skipped) equals mat_dot2 ->
+    per-landmark sum -> re-expansion -> scatter2; measured 1.2e-7."""
+    from povar_tpu_torch.solver.segments import (
+        slot_part_sums, slot_row_expand,
+    )
+    from povar_tpu_torch.solver.slots import plan_e0_fused
+
+    args = ("cam", "x4", "mm", "sw", "b6")
+    t = T(state, *args)
+    shapes = state["shapes"]
+    plan = plan_e0_fused(shapes, state["mask"][0])
+    assert plan.suffix is None and len(plan.parts) == len(shapes) - 1
+    zt = torch.as_tensor(state["zt"])
+    u3 = pk2.mat_dot2(*t, None, zt, add_r=False)
+    sb = slot_row_expand(slot_part_sums(u3, shapes), shapes)
+    want = pk2.scatter2(*t, sb, state["n"])
+    got = pk2.e0_term2_parts(*t, zt, plan.parts, state["n"])
+    _close(got.numpy(), want.numpy(), 1e-5)
+
+
+def test_schur_diag2(moderate):
+    args = ("cam", "x4", "mm", "sw", "mat6")
+    want = pp2.schur_diag2(*J(moderate, *args), moderate["n"])
+    got = pk2.schur_diag2(*T(moderate, *args), moderate["n"])
+    _close(got.numpy(), want, 1e-4)
+
+
+def test_cpu_step2_wrappers_are_the_plain_versions(moderate):
+    """On CPU tensors the two new step-2 wrappers return exactly what
+    their plain versions return (and count no launch)."""
+    t = dict(zip(moderate, T(moderate, *moderate)))
+    n = moderate["n"]
+    obs = [t[k] for k in ("cam", "x4", "mm", "sw", "mat6")]
+    for name, args in (("e0_term2_parts", (*obs, t["zt"], PARTS, n)),
+                       ("schur_diag2", (*obs, n))):
+        assert torch.equal(getattr(pk2, name)(*args),
+                           getattr(pose2_ref, name)(*args)), name

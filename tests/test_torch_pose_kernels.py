@@ -1,7 +1,12 @@
-"""The seven step-1 kernels of povar_tpu_torch against the JAX package's
+"""The nine step-1 kernels of povar_tpu_torch against the JAX package's
 Pallas kernels (interpret mode on the CPU, as tests/test_pallas_pose.py
 runs them), on the fixture of that file: O = 1024 observations, N = 13
 cameras, M = 64 landmarks, ~5% dead rows, every operand seeded numpy.
+The fused term runs over two slot parts of widths 4 and 16 (the widest
+the fused term takes) that cover all O rows (PARTS) and over the first
+alone (a narrow prefix, as beside a composed suffix); the JAX kernel
+takes those parts as the landmark-major [rows * w, G] copies its solver
+makes (`jax_parts`).
 
 On CPU tensors the port's wrappers run the plain PyTorch versions
 (ops/pose_ref.py), so these tests hold the plain versions to the TPU
@@ -11,7 +16,9 @@ tests/test_torch_cuda.py (and by chip_smoke.py).
 Tolerances (mirroring tests/test_pallas_pose.py:349-356), each relative
 to the largest magnitude of the output compared:
   - elementwise outputs (r_w, sw, ata, atr, h, u): 1e-5;
-  - per-camera sums (jpsq, hpp, b, the E0 scatter) and l_diff: 1e-4;
+  - per-camera sums (jpsq, hpp, b, the E0 scatter, the fused term, the
+    Schur-Jacobi corrections) and l_diff: 1e-4 (measured <= 2.7e-7 for
+    the fused term and the corrections);
   - the f64 cost against pose_error_df32 (~47-bit double-float): 1e-12
     for NONE; 1e-8 for HUBER, whose double-float kernel takes the Huber
     weight in f32 from the leading component of |r|^2 (measured 1.5e-9
@@ -33,6 +40,26 @@ from povar_tpu_torch.ops import pose_ref
 
 ALPHA = 0.01
 O, N, M = 1024, 13, 64
+# fused-term slot parts (ofs, g, w): all O rows, and a narrow prefix
+PARTS = ((0, 64, 4), (256, 48, 16))
+PREFIX = PARTS[:1]
+
+
+def jax_parts(parts, n, rows_per_lane, cam, *rows):
+    """The JAX fused kernels' part operands: per part the [w, G] camera
+    block and each [k, O] operand as its [k * w, G] landmark-major view,
+    padded to G = a whole number of e0_term_geometry tiles (pad lanes
+    are zero: camera 0, zero weight), then w and the tile."""
+    out = []
+    for ofs, g, w in parts:
+        gt, gp = pp.e0_term_geometry(w, g, n, rows_per_lane=rows_per_lane)
+        sl = slice(ofs, ofs + g * w)
+        views = [cam[sl].reshape(w, g)] + [
+            r[:, sl].reshape(r.shape[0] * w, g) for r in rows
+        ]
+        out.append(tuple(jnp.asarray(np.pad(v, ((0, 0), (0, gp - g))))
+                         for v in views) + (w, gt))
+    return tuple(out)
 
 
 @pytest.fixture(scope="module")
@@ -149,6 +176,40 @@ def test_apply_ldiff(prob):
     _close(float(got), want, 1e-4)
 
 
+@pytest.mark.parametrize("parts", [PARTS, PREFIX], ids=["all", "prefix"])
+def test_e0_term_parts(prob, parts):
+    want = pp.e0_term_parts(
+        jax_parts(parts, N, 13, prob["cam"], prob["x"], prob["h"]),
+        jnp.asarray(prob["z"]), N,
+    )
+    got = pk.e0_term_parts(*T(prob, "cam", "x", "h", "z"), parts, N)
+    _close(got.numpy(), want, 1e-4)
+
+
+def test_e0_term_parts_is_the_composed_term(prob):
+    """The fused term over slot parts equals e0_u -> per-landmark sum ->
+    re-expansion -> e0_scatter (the composed term) over the same
+    rows; measured 2.4e-7."""
+    from povar_tpu_torch.solver.segments import (
+        slot_part_sums, slot_row_expand,
+    )
+
+    t = dict(zip(prob, T(prob, *prob)))
+    shapes = tuple((g, w) for _ofs, g, w in PARTS)
+    u = pk.e0_u_structured(t["cam"], t["x"], t["h"], t["z"])
+    sb = slot_row_expand(slot_part_sums(u, shapes), shapes)
+    want = pk.e0_scatter_structured(t["cam"], t["x"], t["h"], sb, N)
+    got = pk.e0_term_parts(t["cam"], t["x"], t["h"], t["z"], PARTS, N)
+    _close(got.numpy(), want.numpy(), 1e-5)
+
+
+def test_schur_diag_structured(prob):
+    args = ("cam", "x", "h")
+    want = pp.schur_diag_structured(*J(prob, *args), N)
+    got = pk.schur_diag_structured(*T(prob, *args), N)
+    _close(got.numpy(), want, 1e-4)
+
+
 def _split(a):
     hi = a.astype(np.float32)
     return hi, (a - hi.astype(np.float64)).astype(np.float32)
@@ -223,6 +284,8 @@ def test_cpu_wrappers_are_the_plain_versions(prob):
                          t["jls"], t["inc_lm"], t["ct"], t["inc"]), a),
         ("pose_error", (t["cam"], t["ct64"], t["x64"], t["uv64"], t["mask"]),
          dict(robust=0, huber=1.0, **a)),
+        ("e0_term_parts", (t["cam"], t["x"], t["h"], t["z"], PARTS, N), {}),
+        ("schur_diag_structured", (t["cam"], t["x"], t["h"], N), {}),
     ]
     assert sorted(c[0] for c in calls) == sorted(pk.KERNELS)
     for name, args, kw in calls:
@@ -242,3 +305,8 @@ def test_wrappers_check_shapes(prob):
     with pytest.raises(ValueError, match="cam_table"):
         pk.hpp_b_structured(t["cam"], t["ct"], t["x"], t["uv"], t["sw"],
                             t["r_w"], t["jls"], t["hib"], N + 1, alpha=ALPHA)
+    with pytest.raises(ValueError, match="parts"):
+        pk.e0_term_parts(t["cam"], t["x"], t["h"], t["z"], ((768, 32, 16),),
+                         N)
+    with pytest.raises(ValueError, match="parts"):
+        pk.e0_term_parts(t["cam"], t["x"], t["h"], t["z"], (), N)

@@ -208,7 +208,7 @@ def test_from_numpy_roundtrip():
 def test_import_leaves_jax_out():
     code = (
         "import sys, povar_tpu_torch, povar_tpu_torch.solver.lm, "
-        "povar_tpu_torch.ops.pose_kernels; "
+        "povar_tpu_torch.ops.pose_kernels, povar_tpu_torch.cli; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('povar_tpu.') or m == 'povar_tpu']; "
         "assert not bad, bad"
@@ -219,3 +219,25 @@ def test_import_leaves_jax_out():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_bal_text_io_matches_jax(tmp_path):
+    """The port's numpy copies of `write_bal_text` and the BAL reader:
+    the same bytes written for the same problem, the same arrays read
+    back, and `create_dataset` writes the same randomized file."""
+    from povar_tpu.problem import bal_io as jbal
+    from povar_tpu_torch.problem import bal_io as tbal
+
+    p, _ = jsyn.synthetic_bal_problem(n_cams=5, n_lms=30, obs_per_lm=3,
+                                      seed=4)
+    args = (p.num_cameras, p.num_landmarks, p.obs_cam, p.obs_lm, p.obs_uv)
+    jsyn.write_bal_text(str(tmp_path / "j.txt"), *args, lm_p=p.lm_p)
+    tsyn.write_bal_text(str(tmp_path / "t.txt"), *args, lm_p=p.lm_p)
+    assert (tmp_path / "t.txt").read_bytes() == (tmp_path / "j.txt").read_bytes()
+    for got, want in zip(tbal.load_bal_text(str(tmp_path / "t.txt")),
+                         jbal.load_bal_text(str(tmp_path / "j.txt"))):
+        np.testing.assert_array_equal(got, want)
+    jout = jbal.create_dataset(str(tmp_path / "j.txt"), str(tmp_path / "jd"))
+    tout = tbal.create_dataset(str(tmp_path / "t.txt"), str(tmp_path / "td"))
+    with open(jout, "rb") as fj, open(tout, "rb") as ft:
+        assert ft.read() == fj.read()

@@ -3,10 +3,12 @@
 modules of the solve one by one, then the slice as a whole.
 
 JAX side: Stage1Solver with pallas_kernels="on" (the Pallas kernels in
-interpret mode, as tests/test_pallas_pose.py runs them),
-fused_power_term=False and device_lm_loop="off" — the configuration the
-port implements. Port side: the same options on the CPU, where every
-kernel call runs its plain PyTorch version.
+interpret mode, as tests/test_pallas_pose.py runs them) and
+device_lm_loop="off"; the module tests run the composed power term
+(fused_power_term=False), the solve and slice tests also run
+SolverOptions() defaults (the fused term) and PCG. Port side: the same
+options on the CPU, where every kernel call runs its plain PyTorch
+version.
 
 Both packages evaluate the linearization and the inner solve in f32
 with sums in different orders, so module outputs agree to f32 rounding
@@ -43,12 +45,40 @@ from povar_tpu_torch.solver.stage1 import LmState
 ITERS = 6
 
 
-def _slice_options(cls):
+# the configurations the slice tests run: the composed power term,
+# SolverOptions() defaults (the fused term) and PCG (SCHUR_JACOBI)
+CONFIGS = {
+    "composed": dict(fused_power_term=False),
+    "defaults": {},
+    "pcg": dict(solver_type_step_1="PCG"),
+}
+
+
+def _slice_options(cls, config="composed"):
     opts = cls()
     opts.max_num_iterations_step_1 = ITERS
-    opts.fused_power_term = False
     opts.device_lm_loop = "off"
+    for k, v in CONFIGS[config].items():
+        if isinstance(v, str):  # an enum member, by name
+            v = type(getattr(opts, k))[v]
+        setattr(opts, k, v)
     return opts
+
+
+def _solver_pair(problem, config):
+    """(JAX Stage1Solver with the Pallas kernels on, port Stage1Solver on
+    the CPU) under CONFIGS[config]."""
+    jopts = _slice_options(JaxOptions, config)
+    jopts.pallas_kernels = "on"
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    js = JaxStage1(*args, jopts)
+    assert js.use_pallas
+    assert (js._e0_meta is None) == (config == "composed")
+    ts = Stage1Solver(*args, _slice_options(SolverOptions, config),
+                      device="cpu")
+    assert (ts.e0_plan is None) == (config == "composed")
+    return js, ts
 
 
 @pytest.fixture(scope="module")
@@ -58,14 +88,12 @@ def problem():
 
 @pytest.fixture(scope="module")
 def solvers(problem):
-    jopts = _slice_options(JaxOptions)
-    jopts.pallas_kernels = "on"
-    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
-            problem.num_cameras, problem.num_landmarks)
-    js = JaxStage1(*args, jopts)
-    assert js.use_pallas and js._e0_meta is None
-    ts = Stage1Solver(*args, _slice_options(SolverOptions), device="cpu")
-    return js, ts
+    return _solver_pair(problem, "composed")
+
+
+@pytest.fixture(scope="module")
+def fused_solvers(problem):
+    return _solver_pair(problem, "defaults")
 
 
 @pytest.fixture(scope="module")
@@ -135,14 +163,17 @@ def test_hpp_b(solvers, lin_point):
     _close(tb.numpy(), jb, 1e-4)
 
 
+@pytest.mark.parametrize("term", ["composed", "fused"])
 @pytest.mark.parametrize("lam", [1e-4, 1e2])
-def test_power_series_increment(solvers, lin_point, lam):
-    """One POWER_VARPROJ solve from the same linearization: the same
+def test_power_series_increment(solvers, fused_solvers, lin_point, lam,
+                                term):
+    """One POWER_VARPROJ solve from the same linearization, with the
+    composed and with the fused power term in both packages: the same
     number of power terms (the slice test below covers the full m = 10
     terms), the increment within 1e-4 (measured 4.4e-6 at lam=1e-4: f32
     rounding in another summation order, amplified by the reduced
     camera system's conditioning)."""
-    js, ts = solvers
+    js, ts = solvers if term == "composed" else fused_solvers
     _cams, _lms, jlin, tlin = lin_point
     jinc, jn = js.solve_power(jlin, jnp.asarray(lam))
     tinc, tn = ts.solve_power(tlin, lam)
@@ -189,15 +220,19 @@ def test_apply_and_compute_error(solvers, lin_point):
         assert bool(te["is_numerically_valid"])
 
 
-def test_step1_slice_matches_jax(problem, solvers):
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_step1_slice_matches_jax(problem, solvers, config):
     """optimize_step1 for six iterations in both packages from the same
-    numpy problem: identical accept/reject decisions and power-term
-    counts; costs within 1e-3 (measured 1.0e-4: f32 inner-solve rounding
-    compounds over the accepted steps, as between the JAX package's own
-    structured and XLA paths, tests/test_pallas_pose.py:398) and the
-    lambda schedule within 1e-4 (measured 1.2e-5: the damping factor is a
-    function of the cost decrease, so it inherits the costs' noise)."""
-    js, ts = solvers
+    numpy problem, with the composed term, SolverOptions() defaults (the
+    fused term) and PCG: identical accept/reject decisions and power-term
+    or CG iteration counts; costs within 1e-3 (measured 1.0e-4 composed:
+    f32 inner-solve rounding compounds over the accepted steps, as
+    between the JAX package's own structured and XLA paths,
+    tests/test_pallas_pose.py:398) and the lambda schedule within 1e-4
+    (measured 1.2e-5: the damping factor is a function of the cost
+    decrease, so it inherits the costs' noise)."""
+    js, ts = solvers if config == "composed" else _solver_pair(problem,
+                                                               config)
     jsum = JaxSummary()
     jax_optimize_step1(
         js, jnp.asarray(problem.cam_space), jnp.asarray(problem.lm_p),
@@ -227,6 +262,7 @@ def test_step1_slice_matches_jax(problem, solvers):
             t.trust_region_radius, j.trust_region_radius, rtol=1e-4
         )
     assert tsum.termination_type == jsum.termination_type
+    assert tsum.solver_type == jsum.solver_type
     np.testing.assert_allclose(
         tsum.final_cost.all.error, jsum.final_cost.all.error, rtol=1e-3
     )
@@ -242,10 +278,12 @@ def _cfg(**kw):
 @pytest.mark.parametrize(
     "opts, dtype, match",
     [
-        (_cfg(solver_type_step_1=SolverType.PCG), torch.float64, "item 9"),
+        (_cfg(solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT),
+         torch.float64, "item 9"),
         (_cfg(solver_type_step_1=SolverType.CHOLESKY), torch.float64,
          "item 9"),
-        (_cfg(fused_power_term=True), torch.float64, "e0_term_parts"),
+        (_cfg(solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT),
+         torch.float64, "POWER_SCHUR_COMPLEMENT"),
         (_cfg(mixed_precision_solves=False), torch.float64, "item 11"),
         (_cfg(), torch.float32, "item 11"),
         (_cfg(pallas_kernels="off"), torch.float64, "item 9"),
@@ -267,12 +305,11 @@ def test_too_many_cameras_raise():
 
 
 def test_default_options_and_huber_run(problem):
-    """SolverOptions() defaults with only fused_power_term=False (device
-    loop 'auto' = the host loop here) and a HUBER configuration both
-    construct and take a step whose cost falls."""
+    """SolverOptions() defaults (the fused power term; device loop 'auto'
+    = the host loop here) and a HUBER configuration both construct and
+    take a step whose cost falls."""
     for robust in (RobustNorm.NONE, RobustNorm.HUBER):
         opts = SolverOptions()
-        opts.fused_power_term = False
         opts.max_num_iterations_step_1 = 2
         opts.residual.robust_norm = robust
         s = Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
