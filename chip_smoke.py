@@ -11,14 +11,18 @@ printing its lines and raising on failure (a failure exits non-zero and
 prints no result line):
 
 1. device     a CUDA device, its name and power limit (nvidia-smi);
-2. build      the seventeen kernels of povar_tpu_torch/csrc/ from source;
+2. build      the twenty kernels of povar_tpu_torch/csrc/ from source;
 3. kernels    each step-1 kernel (the fused term over the problem's slot
-              parts) at venice-89 shapes on seeded inputs against its
-              plain PyTorch version on the same card (each output scaled
-              per entry or per camera, see ELEM), with CUDA-event times
-              (median of 20 calls) and profiler device times (mean of 20)
-              for both; hpp_b_structured and schur_diag_structured again
-              at N = 1024 (their global-atomic route);
+              parts; poba_t3 and apply_ldiff_stored of the
+              POWER_SCHUR_COMPLEMENT apply) and cam_gather at venice-89
+              shapes on seeded inputs against its plain PyTorch version
+              on the same card (each output scaled per entry or per
+              camera, see ELEM; cam_gather bit for bit), with CUDA-event
+              times (median of 20 calls) and profiler device times (mean
+              of 20) for both, and for cam_gather those of
+              `index_select`, the one PyTorch call that computes it;
+              hpp_b_structured and schur_diag_structured again at N =
+              1024 (their global-atomic route);
 4. step 1     a small step-1 solve, card against CPU; the venice-89
               step-1 solve with the composed power term and with
               SolverOptions() defaults (the fused term), each with the
@@ -56,7 +60,23 @@ prints no result line):
               its first three CG counts equal to that run's and all of
               them printed beside it; step 2 finite, strictly falling and
               100x below its start;
-10. cli       `python -m povar_tpu_torch.cli` in a subprocess with
+10. PSC       POWER_SCHUR_COMPLEMENT (landmark damping, the poBA apply):
+              `ring_pipeline` of tools/step2_spread.py card against CPU;
+              PSC_RUNS venice-89 step-1 solves (counters zeroed before
+              the first, read after it), each in 51 records, below
+              PSC_MAX and within PSC_BAND x 23.31876816537192, the JAX
+              run (docs/results-venice89/runs/power_schur_complement-
+              ripoba/venice-89/ba_log.json), the opening decisions each
+              shares with it printed; `bundle_adjust` PSC + RIPOBA and PSC
+              + RIPCG (counters zeroed before each): step 1 as above,
+              step 2 strictly falling and below PSC_STEP2_MAX;
+11. f32       the f32 LM state: `ring_pipeline` card against CPU; the
+              venice-89 `bundle_adjust` with SolverOptions() defaults and
+              dtype=torch.float32 (counters zeroed before, cam_gather
+              among the kernels that must run): step 1 within 1e-2 of
+              207.4787, step 2 100x below its start, the state f32 and
+              finite;
+12. cli       `python -m povar_tpu_torch.cli` in a subprocess with
               defaults, on tests/data/mini-bal-12-48-pre.txt and on the
               venice-89 problem written as BAL text, each after
               --create-dataset: ba_log.json written, accepted costs
@@ -68,8 +88,9 @@ main path that runs it (`launches_run` names it), max abs error against
 the plain version, event times of kernel and plain version, the least
 time the card could take for the same call (`bound_ms`: the bytes the
 call must move at 3.35 TB/s or its arithmetic at the peak rate of its
-type, whichever is larger) and `library_ms` (null: no single PyTorch
-call computes any of these functions). The last line is
+type, whichever is larger) and `library_ms` (the event time of
+`index_select` for cam_gather; null for the others: no single PyTorch
+call computes their functions). The last line is
 {"ok": true, "device": {...}}. Needs the repository (the package and its
 kernel sources) beside this file; imports nothing of JAX.
 """
@@ -107,6 +128,27 @@ JAX_PCG_CG = [0, 3, 3, 6, 9, 7, 6, 5, 5, 5, 5, 4, 3, 3, 3, 2, 2, 2, 2, 2, 2,
 # first PCG_SAME CG counts to the JAX run's exactly.
 PCG_BAND = (0.98, 1.08)
 PCG_SAME = 3
+# POWER_SCHUR_COMPLEMENT: the JAX run on the same problem ends step 1 at
+# its 50-iteration cap at 23.3188 (tools/step2_spread.py JAX_PSC_COST,
+# JAX_PSC_DECISIONS), far below the VarProj basin (~207) that a wrong
+# poBA apply falls into; its RIPOBA step 2 descends geometrically to
+# 2.09e-5 and its RIPCG one to 6.9e-11. PSC_RUNS step-1 solves are held
+# to PSC_BAND x that cost and below PSC_MAX, and each step 2 below
+# PSC_STEP2_MAX. `step2_spread --psc 16` and this script's first run (24
+# solves, an H100 80GB HBM3 at 700 W) ended all in 51 records at
+# 23.2471-23.2628 (0.9969x-0.9976x JAX), every one with JAX's 50
+# decisions and the same power-term counts, which part from JAX's at
+# trials 30-31 only (7, 8 against 6, 7). Trial by trial the card's costs
+# leave JAX's gradually (1e-5 by trial 11, 0.5% by trial 25), so the
+# offset is the trajectory's, not one trial's. PSC_BAND holds the card's
+# spread with about three times its width below it, and JAX's own value
+# above it: a systematic error of half a percent fails.
+PSC_RUNS = 8
+PSC_BAND = (0.995, 1.001)
+PSC_MAX = 30.0
+PSC_STEP2_MAX = 1e-3
+# the f32 state's step 1 against the f64 JAX run: within 1e-2 relative
+F32_STEP1_TOL = 1e-2
 # Step 2 of this noise-free problem stops at its 50-iteration cap in
 # mid-descent along a chaotic path: from ONE step-1 result, twenty runs
 # on an H100 ended between 1644 and 1801 (the f32 atomics' order
@@ -122,8 +164,13 @@ STEP2_BAND = (0.5, 4.0)
 STEP2_DROP = 1e-2
 N_CAMS, N_LMS, OBS_PER_LM = 89, 110_973, 5
 REPS = 20
-SOURCES = {1: "povar_tpu_torch/csrc/pose1.cu", 2: "povar_tpu_torch/csrc/pose2.cu"}
+SOURCES = {"pose_kernels": "povar_tpu_torch/csrc/pose1.cu",
+           "pose2_kernels": "povar_tpu_torch/csrc/pose2.cu",
+           "cam_kernels": "povar_tpu_torch/csrc/cam.cu"}
 REPLACES = {
+    "poba_t3": "povar_tpu/ops/pallas_pose.py:938",
+    "apply_ldiff_stored": "povar_tpu/ops/pallas_pose.py:1096",
+    "cam_gather": "povar_tpu/ops/pallas_cam.py:176",
     "e0_term_parts": "povar_tpu/ops/pallas_pose.py:748",
     "schur_diag_structured": "povar_tpu/ops/pallas_pose.py:1020",
     "e0_term2_parts": "povar_tpu/ops/pallas_pose2.py:512",
@@ -165,7 +212,8 @@ FLOPS_PER_OBS = {
     "pose_error": 60, "prepare2": 110, "hppb2": 290, "mat_dot2": 40,
     "scatter2": 45, "ldiff2": 55, "pose_error2": 45,
     "e0_term_parts": 80, "schur_diag_structured": 430,
-    "e0_term2_parts": 80, "schur_diag2": 480,
+    "e0_term2_parts": 80, "schur_diag2": 480, "poba_t3": 95,
+    "apply_ldiff_stored": 110, "cam_gather": 0,
 }
 # the kernels each venice-89 run of the main path must launch
 STEP1_COMPOSED = {"prepare", "e0_factor", "hpp_b_structured",
@@ -176,7 +224,16 @@ STEP1_FUSED = STEP1_COMPOSED - {"e0_u_structured",
 STEP2_COMPOSED = {"prepare2", "hppb2", "mat_dot2", "scatter2", "ldiff2",
                   "pose_error2"}
 STEP2_FUSED = STEP2_COMPOSED - {"scatter2"} | {"e0_term2_parts"}
+# POWER_SCHUR_COMPLEMENT applies through poba_t3 + apply_ldiff_stored;
+# an f32 state's cost goes through cam_gather, not the f64 cost kernels
+STEP1_PSC = STEP1_FUSED - {"apply_ldiff"} | {"poba_t3", "apply_ldiff_stored"}
+F32_PATH = (STEP1_FUSED | STEP2_FUSED) - {"pose_error", "pose_error2"} | {
+    "cam_gather"}
 PATHS = {
+    "step 1 PSC": STEP1_PSC,
+    "bundle_adjust PSC+RIPOBA": STEP1_PSC | STEP2_FUSED,
+    "bundle_adjust PSC+RIPCG": STEP1_PSC | STEP2_FUSED | {"schur_diag2"},
+    "bundle_adjust f32": F32_PATH,
     "step 1 composed": STEP1_COMPOSED,
     "step 1 defaults": STEP1_FUSED,
     "bundle_adjust defaults": STEP1_FUSED | STEP2_FUSED,
@@ -284,12 +341,13 @@ def bound_ms(name, inputs, outputs, n_obs, n_read=None):
 
 
 def run_cases(kernels, plain, cases, n_obs):
-    """Each case (name, variant, call, inputs, specs, n_read): the kernel
-    against its plain version on the same card; the case of each kernel
-    without a variant label gets event and device times and its bound.
-    Returns {name: result dict}."""
+    """Each case (name, variant, call, inputs, specs, n_read[, library]):
+    the kernel against its plain version on the same card; the case of
+    each kernel without a variant label gets event and device times and
+    its bound, and those of `library` (a PyTorch call that computes the
+    same function) where one is given. Returns {name: result dict}."""
     results = {}
-    for name, variant, run, inputs, specs, n_read in cases:
+    for name, variant, run, inputs, specs, n_read, *library in cases:
         got = run(kernels)
         torch.cuda.synchronize()
         want = run(plain)
@@ -305,13 +363,18 @@ def run_cases(kernels, plain, cases, n_obs):
         ms = cuda_ms(lambda: run(kernels))
         plain_ms = cuda_ms(lambda: run(plain))
         b_ms, b_by = bound_ms(name, inputs, got, n_obs, n_read)
+        lib = library[0] if library else None
+        lib_ms = cuda_ms(lib) if lib is not None else None
         res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None)
+                   library_ms=lib_ms)
+        lib_txt = ("" if lib is None else
+                   f"  library: events {lib_ms:.4f} ms device "
+                   f"{device_us(lib):.1f} us")
         print(f"{name:<22} max_abs_err {err:.3e} scaled [{rel}]  events: "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms  device: kernel "
               f"{device_us(lambda: run(kernels)):.1f} us plain "
               f"{device_us(lambda: run(plain)):.1f} us  bound "
-              f"{b_ms * 1e3:.1f} us ({b_by})", flush=True)
+              f"{b_ms * 1e3:.1f} us ({b_by}){lib_txt}", flush=True)
     return results
 
 
@@ -349,6 +412,8 @@ def kernel_inputs(solver, problem, seed=0):
 
 
 def check_kernels(solver, problem, alpha):
+    from povar_tpu_torch.ops import cam_kernels as ck
+    from povar_tpu_torch.ops import cam_ref as cr
     from povar_tpu_torch.ops import pose_kernels as pk
     from povar_tpu_torch.ops import pose_ref as pr
 
@@ -403,8 +468,28 @@ def check_kernels(solver, problem, alpha):
         case("schur_diag_structured",
              lambda m: m.schur_diag_structured(d["cam"], d["x"], d["h"], n),
              ("h", "cam", "x"), [CAM], live),
+        case("poba_t3",
+             lambda m: m.poba_t3(d["cam"], d["ct"], d["x"], d["uv"], d["sw"],
+                                 d["r_w"], d["jls"], d["z"], **a),
+             ("cam", "ct", "x", "uv", "sw", "r_w", "jls", "z"), [ELEM]),
+        case("apply_ldiff_stored",
+             lambda m: m.apply_ldiff_stored(d["cam"], d["x"], d["uv"],
+                                            d["sw"], d["r_w"], d["jls"],
+                                            d["inc_lm"], d["ct"], d["z"],
+                                            **a),
+             ("cam", "x", "uv", "sw", "r_w", "jls", "inc_lm", "ct", "z"),
+             [SUM]),
     ]
     results = run_cases(pk, pr, cases, o)
+
+    # the camera gather of the f32 state's cost, bit for bit, beside the
+    # one PyTorch call that computes it (index_select on an int64 index)
+    cam64 = d["cam"].long()
+    results.update(run_cases(ck, cr, [(
+        "cam_gather", None, lambda m: m.cam_gather(d["ct"], d["cam"]),
+        [d["cam"], d["ct"]], [EXACT], None,
+        lambda: d["ct"].index_select(1, cam64),
+    )], o))
 
     # the large-N route of hpp_b_structured (direct global atomics when
     # 156 N floats of accumulators exceed a block's shared memory)
@@ -590,17 +675,18 @@ def solve(problem, options, device, log=lambda s: None):
     return summary, out, t1 - t0, time.perf_counter() - t1
 
 
-def pipeline(problem, options, device):
-    """bundle_adjust of a copy of `problem` on `device`. Returns
-    (problem out, summary1, summary2, seconds), timed to a device
-    synchronisation."""
+def pipeline(problem, options, device, dtype=torch.float64):
+    """bundle_adjust of a copy of `problem` on `device` with an LM state
+    of `dtype`. Returns (problem out, summary1, summary2, seconds), timed
+    to a device synchronisation."""
     from povar_tpu_torch import bundle_adjust
 
     p = copy.deepcopy(problem)
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, s1, s2 = bundle_adjust(p, options, log=lambda s: None, device=device)
+    out, s1, s2 = bundle_adjust(p, options, log=lambda s: None, dtype=dtype,
+                                device=device)
     if device == "cuda":
         torch.cuda.synchronize()
     return out, s1, s2, time.perf_counter() - t0
@@ -657,6 +743,140 @@ def check_small_pipeline():
         print(f"small pipeline step {step}: card == cpu decisions over "
               f"{len(dg)} records, final {fg!r} vs cpu {fc!r} (gap "
               f"{gap:.3e})", flush=True)
+
+
+def check_ring(config):
+    """`ring_pipeline` of povar_tpu_torch/tools/step2_spread.py under
+    `config` ("psc": POWER_SCHUR_COMPLEMENT + RIPOBA; "f32": defaults with
+    an f32 state) on the card and on the CPU: identical decisions and
+    inner counts in both steps, every cost within RING_TOLS[config]
+    relative of the CPU's."""
+    from povar_tpu_torch.tools.step2_spread import (
+        RING_TOLS, ring_compare, ring_pipeline,
+    )
+
+    card, cpu = (ring_pipeline(config, dev) for dev in ("cuda", "cpu"))
+    for step, g, (same, gap), tol in zip((1, 2), card,
+                                         ring_compare(card, cpu),
+                                         RING_TOLS[config]):
+        if not same:
+            raise AssertionError(f"ring {config} step {step}: card and cpu "
+                                 "decisions or counts differ")
+        print(f"ring pipeline ({config}) step {step}: card == cpu decisions "
+              f"and counts over {len(g.iterations)} records, largest cost gap "
+              f"{gap:.3e} (tolerance {tol:g}), final "
+              f"{g.final_cost.all.error!r}", flush=True)
+        if not gap <= tol:
+            raise AssertionError(f"ring {config} step {step}: cost gap "
+                                 f"{gap:.3e} > {tol:g}")
+
+
+def check_psc_step1(label, decisions, final):
+    """Raise unless a venice-89 PSC step 1 (its accept/reject string
+    after record 0 and its final cost) took JAX's 50 trials and ended
+    below PSC_MAX and within PSC_BAND x the JAX cost; print where its
+    decisions part from the JAX run's."""
+    from povar_tpu_torch.tools.step2_spread import (
+        JAX_PSC_COST, JAX_PSC_DECISIONS, same_prefix,
+    )
+
+    n = same_prefix(decisions)
+    print(f"{label}: {len(decisions) + 1} records, final {final!r} "
+          f"({final / JAX_PSC_COST:.4f}x JAX), first {n} decisions equal "
+          f"to JAX's" + ("" if n == len(JAX_PSC_DECISIONS) else
+                         f", parting at trial {n + 1}: {decisions[n:n + 1]} "
+                         f"vs {JAX_PSC_DECISIONS[n]}"), flush=True)
+    if len(decisions) != len(JAX_PSC_DECISIONS):
+        raise AssertionError(f"{label}: {len(decisions)} trials, JAX 50")
+    if not (final < PSC_MAX and PSC_BAND[0] * JAX_PSC_COST <= final
+            <= PSC_BAND[1] * JAX_PSC_COST):
+        raise AssertionError(f"{label}: final cost {final} outside "
+                             f"{PSC_BAND} x {JAX_PSC_COST} or >= {PSC_MAX}")
+
+
+def check_psc(problem, counts):
+    """POWER_SCHUR_COMPLEMENT at venice-89: PSC_RUNS step-1 solves
+    (counters zeroed before the first), then `bundle_adjust` with RIPOBA
+    and with RIPCG (counters zeroed before each, kept in `counts`)."""
+    from povar_tpu_torch import SolverOptions
+    from povar_tpu_torch.ops import launches
+    from povar_tpu_torch.options import SolverType, SolverTypeRiemannian
+    from povar_tpu_torch.tools.step2_spread import (
+        JAX_PSC_COST, JAX_PSC_DECISIONS, JAX_PSC_TERMS, psc_spread,
+    )
+
+    check_ring("psc")
+    print(f"JAX PSC step 1: A{JAX_PSC_DECISIONS}, terms {JAX_PSC_TERMS}, "
+          f"final {JAX_PSC_COST!r}", flush=True)
+    launches.reset_launch_counts()
+    recs = psc_spread(problem, 1)
+    check_counts("step 1 PSC", launches.launch_counts())
+    recs += psc_spread(problem, PSC_RUNS - 1)
+    for k, r in enumerate(recs):
+        print(f"PSC step 1 run {k}: terms {r['terms']}", flush=True)
+        check_falling(r["label"], [c for c, ok in zip(
+            r["costs"], "A" + r["decisions"]) if ok == "A"])
+        check_psc_step1(f"PSC step 1 run {k}", r["decisions"], r["final"])
+    bench_step1(problem, SolverOptions(
+        solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT), "step-1 PSC")
+
+    for path, step2 in (("bundle_adjust PSC+RIPOBA",
+                         SolverTypeRiemannian.RIPOBA),
+                        ("bundle_adjust PSC+RIPCG",
+                         SolverTypeRiemannian.RIPCG)):
+        opts = SolverOptions(
+            solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT,
+            solver_type_step_2=step2,
+        )
+        launches.reset_launch_counts()
+        out, p1, p2, secs = pipeline(problem, opts, "cuda")
+        counts[path] = launches.launch_counts()
+        print(f"-- {path}: {secs:.3f} s", flush=True)
+        check_counts(path, counts[path])
+        check_psc_step1(f"{path} step 1", "".join(
+            "A" if it.step_is_successful else "R"
+            for it in p1.iterations[1:]), p1.final_cost.all.error)
+        its2 = p2.iterations
+        print(f"step 2: {p2.solver_type}, {len(its2)} records "
+              f"({p2.termination_type}), "
+              f"{''.join('A' if it.step_is_successful else 'R' for it in its2[1:])}"
+              f", initial {its2[0].cost.all.error!r} final "
+              f"{p2.final_cost.all.error!r}", flush=True)
+        check_falling(f"{path} step 2", [it.cost.all.error for it in its2
+                                         if it.step_is_successful])
+        check_final(2, p2)
+        if not p2.final_cost.all.error < PSC_STEP2_MAX:
+            raise AssertionError(f"{path}: step 2 ends at "
+                                 f"{p2.final_cost.all.error} >= "
+                                 f"{PSC_STEP2_MAX}")
+        if not all(np.isfinite(a).all() for a in (out.cam_space, out.lm_p_h)):
+            raise AssertionError("non-finite optimized state")
+
+
+def check_f32(problem, counts):
+    """The f32 LM state: `ring_pipeline` card against CPU, then the
+    venice-89 `bundle_adjust` with SolverOptions() defaults and
+    dtype=torch.float32 (counters zeroed before, kept in `counts`)."""
+    from povar_tpu_torch import SolverOptions
+    from povar_tpu_torch.ops import launches
+
+    check_ring("f32")
+    path = "bundle_adjust f32"
+    launches.reset_launch_counts()
+    out, f1, f2, secs = pipeline(problem, SolverOptions(), "cuda",
+                                 dtype=torch.float32)
+    counts[path] = launches.launch_counts()
+    print(f"-- {path}: {secs:.3f} s", flush=True)
+    check_counts(path, counts[path])
+    report_step(1, f1, JAX_FINAL_COST,
+                (1 - F32_STEP1_TOL, 1 + F32_STEP1_TOL))
+    report_step(2, f2, JAX_FINAL_COST2)
+    print(f"f32 state: {len(f1.iterations)} + {len(f2.iterations)} records",
+          flush=True)
+    if out.cam_space.dtype != np.float32 or out.lm_p_h.dtype != np.float32:
+        raise AssertionError(f"f32 state came back as {out.cam_space.dtype}")
+    if not all(np.isfinite(a).all() for a in (out.cam_space, out.lm_p_h)):
+        raise AssertionError("non-finite optimized state")
 
 
 def check_step2_witness(problem, opts, cams_h, lms_h,
@@ -859,6 +1079,34 @@ def check_e0_operators(problem, cams, lms, cams_h, lms_h):
               f"step 2 {r2:.2e} scaled per camera", flush=True)
 
 
+def bench_options(base):
+    """`base` with bench.py's fixed work per iteration: m = 10 power
+    terms, no early exit."""
+    o = copy.deepcopy(base)
+    o.power_sc_iterations = 10
+    o.eta = 0.0
+    o.r_tolerance = -1.0
+    return o
+
+
+def bench_step1(problem, options, label) -> None:
+    """The warm step-1 bench iteration under `options` (linearize + trial
+    from the VarProj-initialized start, bench_options)."""
+    from povar_tpu_torch import Stage1Solver
+
+    s = Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                     problem.num_cameras, problem.num_landmarks,
+                     bench_options(options), device="cuda")
+    c = torch.as_tensor(problem.cam_space, device="cuda")
+
+    def step(c, lm):
+        lin = s.linearize(c, lm)
+        nc, nl, _ok, _it, _ld, err = s.trial(c, lm, lin, 1e-4)
+        return nc, nl, err["error_all"]
+
+    bench_iterations(step, c, s.lm_pack(s.initialize_varproj(c)), label)
+
+
 def bench_iterations(step, c, lm, label, reps: int = 50) -> None:
     """Warm time of one chained iteration (bench.py's definition: 50
     chained calls, one synchronisation), then its profile."""
@@ -946,8 +1194,6 @@ def main() -> int:
         synthetic_bal_problem_fast,
     )
     from povar_tpu_torch.ops import _build, launches
-    from povar_tpu_torch.ops import pose2_kernels as pk2
-    from povar_tpu_torch.ops import pose_kernels as pk
     from povar_tpu_torch.options import SolverType, SolverTypeRiemannian
 
     phase("device")
@@ -1010,27 +1256,12 @@ def main() -> int:
           f"{len(summary2.iterations) - 1} iterations, final cost "
           f"{summary2.final_cost.all.error!r}", flush=True)
 
-    def bench_options(base):
-        o = copy.deepcopy(base)
-        o.power_sc_iterations = 10
-        o.eta = 0.0
-        o.r_tolerance = -1.0
-        return o
-
     args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
             problem.num_cameras, problem.num_landmarks)
     c = torch.as_tensor(problem.cam_space, device="cuda")
     for label, base in (("step-1 defaults", defaults),
                         ("step-1 composed", opts)):
-        s = Stage1Solver(*args, bench_options(base), device="cuda")
-        lm0 = s.initialize_varproj(c)
-
-        def step(c, lm, s=s):
-            lin = s.linearize(c, lm)
-            nc, nl, _ok, _it, _ld, err = s.trial(c, lm, lin, 1e-4)
-            return nc, nl, err["error_all"]
-
-        bench_iterations(step, c, s.lm_pack(lm0), label)
+        bench_step1(problem, base, label)
 
     phase("kernels2 (venice-89 shapes, step-2 state of the step-1 result)")
     t0 = time.perf_counter()
@@ -1122,6 +1353,12 @@ def main() -> int:
     if not all(np.isfinite(a).all() for a in (out.cam_space, out.lm_p_h)):
         raise AssertionError("non-finite optimized state")
 
+    phase("PSC (POWER_SCHUR_COMPLEMENT, step 1 spread and bundle_adjust)")
+    check_psc(problem, counts)
+
+    phase("f32 (the f32 LM state, bundle_adjust)")
+    check_f32(problem, counts)
+
     phase("cli (python -m povar_tpu_torch.cli, SolverOptions() defaults)")
     check_cli(problem)
 
@@ -1132,11 +1369,10 @@ def main() -> int:
         return counts[path][name], path
 
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda",
-             source=SOURCES[2 if name in pk2.KERNELS else 1],
+        dict(name=name, route="cuda", source=SOURCES[m.__name__.split(".")[-1]],
              replaces=REPLACES[name], launches=launched(name)[0],
              launches_run=launched(name)[1], **results[name])
-        for name in launches.KERNELS
+        for m in launches.MODULES for name in m.KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,14 +4,16 @@ Initialization-free stratified projective bundle adjustment (Power
 Variable Projection, tum-vision/povar) on an NVIDIA H100. This package
 runs the two-step solve, `bundle_adjust`, with `SolverOptions()`
 defaults: step 1, pOSE Variable Projection LM with the POWER_VARPROJ
-solver (or PCG); the homogenize/normalize boundary
-(`create_homogeneous`); step 2, Riemannian LM with the RIPOBA solver (or
-RIPCG); m = 10 power terms through the fused power-term kernels, f64 LM
-state and costs, f32 inner solves, on the structured per-observation
-layout of the JAX package. Its seventeen per-observation passes are
-hand-written CUDA kernels for sm_90a (csrc/), built with nvcc at first
-use (ops/_build.py); on tensors that lie on the CPU the same calls run
-their plain PyTorch versions (ops/pose_ref.py, ops/pose2_ref.py). Entry
+solver (or POWER_SCHUR_COMPLEMENT, or PCG); the homogenize/normalize
+boundary (`create_homogeneous`); step 2, Riemannian LM with the RIPOBA
+solver (or RIPCG); m = 10 power terms through the fused power-term
+kernels, f64 LM state and costs (or an f32 state, `dtype=torch.float32`),
+f32 inner solves, on the structured per-observation layout of the JAX
+package. Its twenty per-observation passes are hand-written CUDA
+kernels for sm_90a (csrc/), built with nvcc at first use
+(ops/_build.py); on tensors that lie on the CPU the same calls run their
+plain PyTorch versions (ops/pose_ref.py, ops/pose2_ref.py,
+ops/cam_ref.py). Entry
 points run on the card (device="cuda") unless the caller asks for the
 CPU. The command-line app is `python -m povar_tpu_torch.cli`
 (`povar-bal-torch`).

@@ -1,6 +1,7 @@
 // Step-1 structured pOSE kernels for Hopper (sm_90a): the hand-written
-// CUDA counterparts of the Pallas kernels on the POWER_VARPROJ and PCG
-// step-1 paths of povar_tpu/ops/pallas_pose.py.
+// CUDA counterparts of the Pallas kernels on the POWER_VARPROJ,
+// POWER_SCHUR_COMPLEMENT and PCG step-1 paths of
+// povar_tpu/ops/pallas_pose.py.
 //
 //   K1 prepare                  <- pallas_pose.py:285 (_prepare_kernel :227)
 //   K2 e0_factor                <- pallas_pose.py:385 (_h_kernel :362)
@@ -13,6 +14,9 @@
 //   K8 e0_term_parts            <- pallas_pose.py:748 (_e0_term_kernel :673)
 //   K9 schur_diag_structured    <- pallas_pose.py:1020 (_schur_diag_kernel
 //                                  :987)
+//   K10 poba_t3                 <- pallas_pose.py:938 (_poba_t3_kernel :905)
+//   K11 apply_ldiff_stored      <- pallas_pose.py:1096 (_ldiff_stored_kernel
+//                                  :1055)
 //
 // What the TPU kernels needed and these do not: the one-hot incidence
 // matmuls with the exact bf16 3-way split (a camera row is a shared-
@@ -22,10 +26,11 @@
 // table), and the double-float arithmetic of the cost (the H100 has
 // native f64).
 //
-// What bounds them on the card: all nine stream O observations with a
+// What bounds them on the card: all eleven stream O observations with a
 // few dozen flops each, so each is bound by device-memory bytes per
 // observation (K1 reads 28 B and writes 68 B; K2 64/36; K3 68/0; K4
-// 52/12; K5 64/0; K6 68/0; K7 48/0 at f64 state; K8 52/0; K9 52/0) until
+// 52/12; K5 64/0; K6 68/0; K7 48/0 at f64 state; K8 52/0; K9 52/0; K10
+// 56/12; K11 68/0) until
 // the per-camera shared-memory atomics of K1, K3, K5, K8 and K9 (12, 124,
 // 12, 12 and 144 per observation) cost more than the bytes: K3 and K9 are
 // the ones where they do. A block's
@@ -512,6 +517,119 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
+// Jp_s inc of the STORED scaled Jacobians for K10 and K11: q = (ps . inc)
+// of the observation's camera, qt[a] = sum_j q[4a+j] xh_j,
+//   jp = sw [sp (qt0 - u qt2), sp (qt1 - v qt2), sa qt0, sa qt1]
+__device__ __forceinline__ void jp_inc_stored(const float* tbl_z, int n_cams,
+                                              int c, const float xh[4],
+                                              float u, float v, float sw,
+                                              float sp, float sa,
+                                              float jp[4]) {
+  float q[12], qt[3];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) q[k] = tbl_z[k * n_cams + c];
+  povar::xh_contract(q, xh, qt);
+  jp[0] = sw * sp * (qt[0] - u * qt[2]);
+  jp[1] = sw * sp * (qt[1] - v * qt[2]);
+  jp[2] = sw * sa * qt[0];
+  jp[3] = sw * sa * qt[1];
+}
+
+// ------------------------------------------------------------------ K10
+// Right-hand side of the POWER_SCHUR_COMPLEMENT landmark system per
+// observation, t3[i] = (sum_k A~[k][i] (r_w[k] + jp[k])) sw jls_i with
+// jp = Jp_s inc from the z table (ps . inc). Every row is written, dead
+// ones (sw == 0) as the zero their operands give, as the Pallas kernel
+// does. Replaces pallas_pose.py:938 poba_t3 (_poba_t3_kernel :905).
+// Bound: 68 B of device memory per observation (56 read, 12 written);
+// the camera table and the z table are staged in shared memory per block
+// (8.5 KB at N = 89); no atomics.
+__global__ void __launch_bounds__(kThreads)
+    poba_t3_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
+                   const float* __restrict__ x, const float* __restrict__ uv,
+                   const float* __restrict__ sw_in, const float* __restrict__ rw,
+                   const float* __restrict__ jls, const float* __restrict__ zt,
+                   float* __restrict__ t3, int n_obs, int n_cams, float sp,
+                   float sa) {
+  extern __shared__ float smem[];
+  float* tbl = smem;
+  float* tbl_z = smem + 12 * n_cams;
+  povar::smem_copy(tbl, ct, 12 * n_cams);
+  povar::smem_copy(tbl_z, zt, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  POVAR_OBS_LOOP(o, O) {
+    const float sw = sw_in[o];
+    const int c = cam[o];
+    const float u = uv[o], v = uv[O + o];
+    const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
+    float jp[4], A[4][4], rt[4];
+    jp_inc_stored(tbl_z, n_cams, c, xh, u, v, sw, sp, sa, jp);
+    povar::a_tilde(tbl, n_cams, c, u, v, sp, sa, A);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) rt[k] = rw[k * O + o] + jp[k];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      float acc = A[0][i] * rt[0];
+      acc += A[1][i] * rt[1];
+      acc += A[2][i] * rt[2];
+      acc += A[3][i] * rt[3];
+      t3[i * O + o] = acc * sw * jls[i * O + o];
+    }
+  }
+}
+
+// ------------------------------------------------------------------ K11
+// Per-block partials of -l_diff of the POWER_SCHUR_COMPLEMENT apply,
+// sum j_inc . (0.5 j_inc + r_w) with
+//   j_inc = Jp_s inc + sw A~_old[:, :3] (jls . inc_lm_scaled)
+// from the stored scaled Jacobians. No live mask (unlike K6): a dead
+// row's zero sw zeroes its Jacobians, as in the Pallas kernel.
+// Replaces pallas_pose.py:1096 apply_ldiff_stored (_ldiff_stored_kernel
+// :1055). Bound: 68 B read per observation; the camera and z tables
+// staged per block.
+__global__ void __launch_bounds__(kThreads)
+    ldiff_stored_kernel(const int32_t* __restrict__ cam,
+                        const float* __restrict__ x, const float* __restrict__ uv,
+                        const float* __restrict__ sw_in,
+                        const float* __restrict__ rw, const float* __restrict__ jls,
+                        const float* __restrict__ ilm,
+                        const float* __restrict__ ct_old,
+                        const float* __restrict__ zt, float* __restrict__ partials,
+                        int n_obs, int n_cams, float sp, float sa) {
+  extern __shared__ float smem[];
+  __shared__ float red[32];
+  float* tbl_old = smem;
+  float* tbl_z = smem + 12 * n_cams;
+  povar::smem_copy(tbl_old, ct_old, 12 * n_cams);
+  povar::smem_copy(tbl_z, zt, 12 * n_cams);
+  __syncthreads();
+  const int O = n_obs;
+  float total = 0.0f;
+  POVAR_OBS_LOOP(o, O) {
+    const float sw = sw_in[o];
+    const int c = cam[o];
+    const float u = uv[o], v = uv[O + o];
+    const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
+    float jp[4], A[4][4];
+    jp_inc_stored(tbl_z, n_cams, c, xh, u, v, sw, sp, sa, jp);
+    povar::a_tilde(tbl_old, n_cams, c, u, v, sp, sa, A);
+    const float d0 = jls[o], d1 = jls[O + o], d2 = jls[2 * O + o];
+    const float i0 = ilm[o], i1 = ilm[O + o], i2 = ilm[2 * O + o];
+    float ld = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float jl_inc =
+          (A[k][0] * d0 * i0 + A[k][1] * d1 * i1 + A[k][2] * d2 * i2) * sw;
+      const float j_inc = jp[k] + jl_inc;
+      ld += j_inc * (0.5f * j_inc + rw[k * O + o]);
+    }
+    total += ld;
+  }
+  total = povar::block_sum(total, red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+}
+
 // ------------------------------------------------------------------ K7
 // pOSE cost in native f64: per-block partials of sum rho(|r|^2) (robust
 // 0 NONE: 0.5 r^2, 1 HUBER: 0.5 (2 - w) w r^2, 2 CAUCHY: log1p(r^2)),
@@ -656,6 +774,26 @@ int povar_apply_ldiff(const int32_t* cam, const float* x, const float* uv,
   const size_t smem = sizeof(float) * 24 * (size_t)n_cams;
   return launch(ldiff_kernel, n_obs, smem, stream, cam, x, uv, sw, rw, jls,
                 ilm, ct_old, inc_t, partials, n_obs, n_cams, sp, sa);
+}
+
+int povar_poba_t3(const int32_t* cam, const float* ct, const float* x,
+                  const float* uv, const float* sw, const float* rw,
+                  const float* jls, const float* zt, float* t3, int n_obs,
+                  int n_cams, float sp, float sa, void* stream) {
+  const size_t smem = sizeof(float) * 24 * (size_t)n_cams;
+  return launch(poba_t3_kernel, n_obs, smem, stream, cam, ct, x, uv, sw, rw,
+                jls, zt, t3, n_obs, n_cams, sp, sa);
+}
+
+int povar_apply_ldiff_stored(const int32_t* cam, const float* x,
+                             const float* uv, const float* sw, const float* rw,
+                             const float* jls, const float* ilm,
+                             const float* ct_old, const float* zt,
+                             float* partials, int n_obs, int n_cams, float sp,
+                             float sa, void* stream) {
+  const size_t smem = sizeof(float) * 24 * (size_t)n_cams;
+  return launch(ldiff_stored_kernel, n_obs, smem, stream, cam, x, uv, sw, rw,
+                jls, ilm, ct_old, zt, partials, n_obs, n_cams, sp, sa);
 }
 
 int povar_pose_error(const int32_t* cam, const double* ct, const double* x,

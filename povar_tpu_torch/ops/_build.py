@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-`nvcc` compiles each csrc/*.cu into an object file, one compiler per
-source, all started together, and links them into one shared library
+`nvcc` compiles each csrc/*.cu (pose1.cu, pose2.cu, cam.cu) into an
+object file, one compiler per source, all started together, and links
+them into one shared library
 with a plain C interface for Hopper (sm_90a), which `ctypes` loads: no
 PyTorch headers are compiled, so a cold build takes seconds. The library
 lands in build/povar_tpu_torch/<key>/ beside the package directory,
@@ -36,7 +37,8 @@ NVCC_FLAGS = (
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 
-# argument types of every exported entry point (csrc/pose1.cu, pose2.cu)
+# argument types of every exported entry point (csrc/pose1.cu, pose2.cu,
+# cam.cu)
 SIGNATURES = {
     "povar_prepare": [_P] * 10 + [_I, _I, _F, _F, _F, _I, _F, _F, _P],
     "povar_e0_factor": [_P] * 7 + [_I, _I, _F, _P],
@@ -44,6 +46,9 @@ SIGNATURES = {
     "povar_e0_u": [_P] * 5 + [_I, _I, _P],
     "povar_e0_scatter": [_P] * 5 + [_I, _I, _P],
     "povar_apply_ldiff": [_P] * 10 + [_I, _I, _F, _F, _P],
+    "povar_poba_t3": [_P] * 9 + [_I, _I, _F, _F, _P],
+    "povar_apply_ldiff_stored": [_P] * 10 + [_I, _I, _F, _F, _P],
+    "povar_cam_gather": [_P] * 3 + [_I] * 4 + [_P],
     "povar_pose_error": [_P] * 6 + [_I, _I, _I, _D, _D, _I, _D, _P],
     "povar_e0_term": [_P] * 6 + [_I] * 4 + [_P],
     "povar_schur_diag": [_P] * 4 + [_I, _I, _P],

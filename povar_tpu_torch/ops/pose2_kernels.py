@@ -42,7 +42,7 @@ from povar_tpu_torch.ops.pose_kernels import (
     check_parts,
     part_table,
 )
-from povar_tpu_torch.ops.pose_ref import ROBUST_HUBER
+from povar_tpu_torch.ops.pose_math import ROBUST_HUBER
 
 KERNELS = (
     "prepare2",

@@ -43,8 +43,8 @@ from typing import Dict
 
 import torch
 
+from povar_tpu_torch.ops.pose_math import ROBUST_HUBER
 from povar_tpu_torch.ops.pose_ref import (
-    ROBUST_HUBER,
     _scatter,
     _zero,
     robust_error,

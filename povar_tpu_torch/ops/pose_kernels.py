@@ -18,9 +18,10 @@ does not build or does not launch raises. The kernels are f32 except
 `pose_error`, which runs in native f64 where the TPU ran double-float
 (`pose_error_df32`). Apart from that one change of route the results
 are those of the Pallas kernels, with two changes of return shape:
-`apply_ldiff` returns the f64 sum of its per-block partials instead of
-128 f32 lane partials, and `pose_error` returns (err, rn, bad) 0-d
-tensors instead of [5, 128] double-float partials.
+`apply_ldiff` and `apply_ldiff_stored` return the f64 sum of their per-
+block partials instead of 128 f32 lane partials, and `pose_error`
+returns (err, rn, bad) 0-d tensors instead of [5, 128] double-float
+partials.
 
 Launch counts (`LAUNCHES`, plain integers per kernel) let a run show
 that its main path went through the kernels; ops/launches.py zeroes and
@@ -36,6 +37,7 @@ from typing import Dict, Tuple
 import torch
 
 from povar_tpu_torch.ops import _build, pose_ref
+from povar_tpu_torch.ops.pose_math import ROBUST_HUBER
 
 KERNELS = (
     "prepare",
@@ -47,6 +49,8 @@ KERNELS = (
     "pose_error",
     "e0_term_parts",
     "schur_diag_structured",
+    "poba_t3",
+    "apply_ldiff_stored",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -142,7 +146,7 @@ def prepare(cam, cam_table, x, uv, mask, *, alpha, robust, huber,
     ata = torch.empty((9, o), **opts)
     atr = torch.empty((3, o), **opts)
     jpsq = torch.zeros((12, n), **opts)
-    huber_on = bool(weighted) and robust == pose_ref.ROBUST_HUBER
+    huber_on = bool(weighted) and robust == ROBUST_HUBER
     _launch("prepare", _build.library().povar_prepare,
             _ptr(cam), _ptr(cam_table), _ptr(x), _ptr(uv), _ptr(mask),
             _ptr(rw), _ptr(sw), _ptr(ata), _ptr(atr), _ptr(jpsq), o, n,
@@ -338,6 +342,73 @@ def apply_ldiff(cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
     _launch("apply_ldiff", _build.library().povar_apply_ldiff,
             _ptr(cam), _ptr(x), _ptr(uv), _ptr(sw), _ptr(r_w), _ptr(jls),
             _ptr(inc_lm_obs), _ptr(cam_table_old), _ptr(inc_table),
+            _ptr(part), o, n, c.sp, c.sa, _stream(x))
+    return part.sum(dtype=torch.float64)
+
+
+def _stored_inputs(cam, cam_table, x, uv, sw, r_w, jls, z_table,
+                   extra=()):
+    """Shape checks of the POWER_SCHUR_COMPLEMENT apply's operands (the
+    stored linearization and the z table); True when they lie on the
+    CPU, else their CUDA checks passed. `extra`: (name, tensor) pairs of
+    further [3, O] operands."""
+    o, n = cam.shape[0], cam_table.shape[-1]
+    _check_shapes({
+        "cam_table": (cam_table, 12, "n"), "x": (x, 3, "o"),
+        "uv": (uv, 2, "o"), "sw": (sw, 1, "o"), "r_w": (r_w, 4, "o"),
+        "jls": (jls, 3, "o"), "z_table": (z_table, 12, "n"),
+        **{k: (t, 3, "o") for k, t in extra},
+    }, o, n)
+    tensors = (cam, cam_table, x, uv, sw, r_w, jls, z_table,
+               *(t for _k, t in extra))
+    if _on_cpu(*tensors):
+        return True
+    _cuda_checks(o, n, cam, f32=(
+        ("cam_table", cam_table), ("x", x), ("uv", uv), ("sw", sw),
+        ("r_w", r_w), ("jls", jls), ("z_table", z_table), *extra,
+    ))
+    return False
+
+
+def poba_t3(cam, cam_table, x, uv, sw, r_w, jls, z_table, *, alpha):
+    """t3 [3, O] = Jl_s^T (r_w + Jp_s inc) (K10): the per-observation
+    right-hand side of the POWER_SCHUR_COMPLEMENT landmark system, slot-
+    summed by the caller. z_table [12, N] = pose_scale . inc."""
+    if _stored_inputs(cam, cam_table, x, uv, sw, r_w, jls,
+                      z_table):
+        return pose_ref.poba_t3(cam, cam_table, x, uv, sw, r_w, jls, z_table,
+                                alpha=alpha)
+    o, n = cam.shape[0], cam_table.shape[-1]
+    c = pose_ref.pose_consts(alpha, torch.float32)
+    t3 = torch.empty((3, o), dtype=torch.float32, device=x.device)
+    _launch("poba_t3", _build.library().povar_poba_t3,
+            _ptr(cam), _ptr(cam_table), _ptr(x), _ptr(uv), _ptr(sw),
+            _ptr(r_w), _ptr(jls), _ptr(z_table), _ptr(t3), o, n, c.sp, c.sa,
+            _stream(x))
+    return t3
+
+
+def apply_ldiff_stored(cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
+                       z_table, *, alpha):
+    """-l_diff of the POWER_SCHUR_COMPLEMENT apply as a 0-d f64 tensor
+    (K11), from the stored scaled Jacobians: f32 per-observation terms,
+    per-block f32 partials, summed in f64. z_table [12, N] = pose_scale .
+    inc; inc_lm_obs [3, O] the scaled landmark increment expanded to
+    observations."""
+    if _stored_inputs(cam, cam_table_old, x, uv, sw,
+                      r_w, jls, z_table, extra=(("inc_lm_obs", inc_lm_obs),)):
+        return pose_ref.apply_ldiff_stored(
+            cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old, z_table,
+            alpha=alpha,
+        )
+    o, n = cam.shape[0], cam_table_old.shape[-1]
+    c = pose_ref.pose_consts(alpha, torch.float32)
+    part = torch.zeros(
+        -(-o // _THREADS), dtype=torch.float32, device=x.device
+    )
+    _launch("apply_ldiff_stored", _build.library().povar_apply_ldiff_stored,
+            _ptr(cam), _ptr(x), _ptr(uv), _ptr(sw), _ptr(r_w), _ptr(jls),
+            _ptr(inc_lm_obs), _ptr(cam_table_old), _ptr(z_table),
             _ptr(part), o, n, c.sp, c.sa, _stream(x))
     return part.sum(dtype=torch.float64)
 

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the nine step-1 structured kernels.
+"""Plain PyTorch versions of the eleven step-1 structured kernels.
 
-The counterpart of povar_tpu/ops/xla_pose.py:64-211 (the dtype-generic
+The counterpart of povar_tpu/ops/xla_pose.py:64-296 (the dtype-generic
 mirrors of the Pallas bodies in povar_tpu/ops/pallas_pose.py) plus the
 pOSE cost of `stage1._compute_error` (stage1.py:1240-1259). Each
 function computes, term for term and in the same operation order, what
@@ -17,6 +17,9 @@ its hand-written CUDA kernel in csrc/pose1.cu computes:
   schur_diag_structured  per-camera Schur-Jacobi corrections (h^T h) (x)
                          xh xh^T
   apply_ldiff            -l_diff, the model-cost decrease of the apply
+  poba_t3                Jl_s^T (r_w + Jp_s inc), the right-hand side of
+                         the POWER_SCHUR_COMPLEMENT landmark system
+  apply_ldiff_stored     -l_diff of the POWER_SCHUR_COMPLEMENT apply
   pose_error             pOSE cost, residual-norm sum, non-finite count
 
 ops/pose_kernels.py calls these for tensors on the CPU (the tests) and
@@ -42,8 +45,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-# robust norm codes (povar_tpu/ops/pose_math.py)
-ROBUST_NONE, ROBUST_HUBER, ROBUST_CAUCHY = 0, 1, 2
+from povar_tpu_torch.ops import pose_math
+from povar_tpu_torch.ops.pose_math import ROBUST_HUBER
 
 
 class PoseConsts(NamedTuple):
@@ -369,20 +372,76 @@ def apply_ldiff(cam, x, uv, sw_a, r_w, jls, inc_lm_obs, cam_table_old,
     return ld.sum(dtype=torch.float64)
 
 
+def _jp_inc_stored(q, x, u, v, sw, c):
+    """Jp_s inc [4][O] from the STORED scaled Jacobians, q = (ps . inc)
+    gathered per observation [12, O]: sw [sp (q~0 - u q~2),
+    sp (q~1 - v q~2), sa q~0, sa q~1] with q~a = sum_j q[4a+j] xh_j."""
+    qt = []
+    for a in range(3):
+        acc = q[4 * a + 3]
+        for j in range(3):
+            acc = acc + x[j] * q[4 * a + j]
+        qt.append(acc)
+    return [
+        sw * c.sp * (qt[0] - u * qt[2]),
+        sw * c.sp * (qt[1] - v * qt[2]),
+        sw * c.sa * qt[0],
+        sw * c.sa * qt[1],
+    ]
+
+
+def poba_t3(cam, cam_table, x, uv, sw_a, r_w, jls, z_table, *, alpha):
+    """t3 [3, O] = Jl_s^T (r_w + Jp_s inc): the per-observation right-
+    hand side of the POWER_SCHUR_COMPLEMENT landmark system
+    (back_substitute_poBA, sc/landmark_block.hpp:625-668), slot-summed by
+    the caller. z_table [12, N] = pose_scale . inc, the scaled camera
+    increment; jls [3, O] the landmark Jacobi scale."""
+    c = pose_consts(alpha, x.dtype)
+    cl = cam.long()
+    u, v = uv[0], uv[1]
+    sw = sw_a[0]
+    jp_inc = _jp_inc_stored(z_table[:, cl], x, u, v, sw, c)
+    A = _a_tilde(cam_table[:, cl], u, v, c.sp, c.sa)
+    rows = []
+    for i in range(3):
+        acc = A[0][i] * (r_w[0] + jp_inc[0])
+        for k in range(1, 4):
+            acc = acc + A[k][i] * (r_w[k] + jp_inc[k])
+        rows.append(acc * sw * jls[i])
+    return torch.stack(rows)
+
+
+def apply_ldiff_stored(cam, x, uv, sw_a, r_w, jls, inc_lm_obs, cam_table_old,
+                       z_table, *, alpha):
+    """-l_diff (f64 scalar) of the POWER_SCHUR_COMPLEMENT apply, from the
+    STORED scaled Jacobians (back_substitute_poBA):
+      j_inc  = Jp_s inc + Jl_s inc_lm_scaled
+      -l_diff = sum j_inc . (0.5 j_inc + r_w)
+    with z_table = pose_scale . inc and inc_lm_obs the SCALED landmark
+    increment expanded to observations. Unlike `apply_ldiff` there is no
+    live mask: a dead row (sw = 0) has zero Jacobians and contributes
+    zero through them."""
+    c = pose_consts(alpha, x.dtype)
+    cl = cam.long()
+    u, v = uv[0], uv[1]
+    sw = sw_a[0]
+    jp_inc = _jp_inc_stored(z_table[:, cl], x, u, v, sw, c)
+    Ao = _a_tilde(cam_table_old[:, cl], u, v, c.sp, c.sa)
+    ld = torch.zeros_like(u)
+    for k in range(4):
+        jl_inc = (Ao[k][0] * jls[0] * inc_lm_obs[0]
+                  + Ao[k][1] * jls[1] * inc_lm_obs[1]
+                  + Ao[k][2] * jls[2] * inc_lm_obs[2]) * sw
+        j_inc = jp_inc[k] + jl_inc
+        ld = ld + j_inc * (0.5 * j_inc + r_w[k])
+    return ld.sum(dtype=torch.float64)
+
+
 def robust_error(res_sq, robust: int, huber: float):
     """Per-observation robust cost (compute_error_weight,
     helper.cpp:50-74): NONE 0.5 r^2; HUBER 0.5 (2 - w) w r^2 with
     w = 1 if r^2 < t^2 else t/|r|; CAUCHY log(1 + r^2)."""
-    if robust == ROBUST_HUBER:
-        w = torch.where(
-            res_sq < huber * huber,
-            torch.ones_like(res_sq),
-            huber / torch.sqrt(res_sq),
-        )
-        return 0.5 * (2.0 - w) * w * res_sq
-    if robust == ROBUST_CAUCHY:
-        return torch.log1p(res_sq)
-    return 0.5 * res_sq
+    return pose_math.robust_error_and_weight(res_sq, robust, huber)[0]
 
 
 def pose_error(cam, cam_table, x, uv, mask, *, alpha, robust, huber):

@@ -35,11 +35,13 @@ def bundle_adjust(
     `problem` with optimized cam_space / lm_p / lm_p_h, plus the
     per-step summaries (step-1 summary, step-2 summary).
 
-    `options=None` runs SolverOptions() defaults. Both stage solvers
-    are built before step 1 runs, so a configuration that either step
-    does not run yet (POWER_SCHUR_COMPLEMENT, CHOLESKY, ...) raises
-    NotImplementedError before any work. Multi-device solves (the JAX
-    package's `mesh`) are not ported (ROADMAP.md queue 1 item 13)."""
+    `options=None` runs SolverOptions() defaults; `dtype` is the LM
+    state's (f64, or f32, whose cost runs in f32 through the cam_gather
+    kernel). Both stage solvers are built before step 1 runs, so a
+    configuration that either step does not run yet (CHOLESKY,
+    `pallas_kernels="off"`, ...) raises NotImplementedError before any
+    work. Multi-device solves (the JAX package's `mesh`) are not ported
+    (ROADMAP.md queue 1 item 13)."""
     options = options or SolverOptions()
     timer_total = Timer()
     args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,

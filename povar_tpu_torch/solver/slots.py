@@ -24,12 +24,13 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from povar_tpu_torch.ops import linalg
+from povar_tpu_torch.ops import cam_kernels, linalg
 from povar_tpu_torch.options import (
     PreconditionerType,
     RobustNorm,
     SolverOptions,
 )
+from povar_tpu_torch.solver.common import accumulate_residual_info
 from povar_tpu_torch.solver.segments import (
     build_slot_plan,
     slot_part_sums,
@@ -171,15 +172,14 @@ def common_unsupported(
 ) -> Optional[str]:
     """Why this configuration is outside both ported stages, or None
     (the checks that do not depend on the step)."""
-    if not options.mixed_precision_solves:
+    if dtype not in (torch.float64, torch.float32):
+        return f"LM state dtype {dtype} (the states are f64 and f32)"
+    if dtype == torch.float64 and not options.mixed_precision_solves:
+        # an f32 state solves in f32 whatever this option says, as in
+        # the JAX package (stage1.py:676-680)
         return (
-            "mixed_precision_solves=False (ROADMAP.md queue 1 item 11, "
-            "precision modes)"
-        )
-    if dtype != torch.float64:
-        return (
-            f"LM state dtype {dtype} (ROADMAP.md queue 1 item 11, "
-            "precision modes: the f32 LM state)"
+            "mixed_precision_solves=False with an f64 state, the pure-f64 "
+            "solve (ROADMAP.md queue 1 item 11, precision modes)"
         )
     if options.pallas_kernels == "off":
         return (
@@ -323,6 +323,35 @@ class SlotSolver:
     def _cam_table(self, cam_space: torch.Tensor, dtype) -> torch.Tensor:
         """cam_space [N, 3, 4] -> [12, N] table of vec(P) rows."""
         return cam_space.to(dtype).reshape(self.n_cams, 12).T.contiguous()
+
+    # ---- the cost of an f32 LM state (`_compute_error` of the JAX
+    # package off its double-float route), shared by both stages
+
+    def _gather_cams(self, cam_space: torch.Tensor) -> torch.Tensor:
+        """f32 cam_space [N, 3, 4] -> per-observation P [3, 4, O] through
+        the cam_gather kernel (`_gather_cams` of the JAX package)."""
+        table = self._cam_table(cam_space, torch.float32)
+        return cam_kernels.cam_gather(table, self.obs.cam).reshape(3, 4, -1)
+
+    def _mask_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Zero the slot pad rows of per-observation rows [k, O]."""
+        if self.obs.weight is None:
+            return x
+        return torch.where(self.obs.weight > 0, x, torch.zeros_like(x))
+
+    def _residual_info(self, err, res_sq, valid, finite):
+        """The ResidualInfo dict of per-row robust costs `err`, squared
+        residual norms `res_sq`, projection validity and finiteness [O],
+        pad rows neither counted, valid nor non-finite."""
+        if self.obs.weight is not None:
+            active = self.obs.weight > 0
+            err = torch.where(active, err, torch.zeros_like(err))
+            valid = valid & active
+            finite = finite | ~active
+        return accumulate_residual_info(
+            err, torch.sqrt(res_sq), valid, finite,
+            num_obs_all=self.n_obs_live,
+        )
 
     def _precond_closure(self, pmats):
         """The CG preconditioner's apply over its materials (`pmats`, as

@@ -26,8 +26,9 @@ around the kernels, which work in the unprojected 12-dof frame.
 
 Layouts as in stage1.py: per-observation rows [k, O], camera tables
 [12, N], per-landmark tables in L space [.., L]. The LM state (cameras
-[N, 3, 4], homogeneous landmarks) and the cost are f64; linearization
-storage and the inner solve are f32. Retraction after each step:
+[N, 3, 4], homogeneous landmarks) and the cost are f64 by default, or
+f32 (`dtype=torch.float32`); linearization storage and the inner solve
+are f32 either way. Retraction after each step:
 Frobenius-normalize the cameras and dehomogenize the landmarks
 (bal_bundle_adjustment.cpp:700-705).
 
@@ -43,7 +44,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from povar_tpu_torch.ops import linalg, pose2_kernels
+from povar_tpu_torch.ops import linalg, pose2_kernels, pose_math
 from povar_tpu_torch.options import (
     PreconditionerType,
     SolverOptions,
@@ -128,8 +129,8 @@ class Stage2Solver(SlotSolver):
         return self.solve_power(lin, lam)
 
     def trial(self, cam_space, lm_p_h, lin: Lin2S, lam):
-        """One LM backtracking trial: solve + apply + f64 cost, with no
-        host synchronisation except the inner solve's early-exit tests.
+        """One LM backtracking trial: solve + apply + cost, with no host
+        synchronisation except the inner solve's early-exit tests.
         Returns (new_cams, new_lms, inc_finite, num_inner_iters, l_diff,
         err_dict), as Stage1Solver.trial."""
         inc, n_iter = self.solve(lin, lam)
@@ -143,10 +144,24 @@ class Stage2Solver(SlotSolver):
 
     def compute_error(self, cam_space, lm_p_h) -> Dict[str, torch.Tensor]:
         """compute_error_projective_space_homogeneous (helper.cpp:
-        156-196) in native f64 (the pose_error2 kernel, where the JAX
-        package evaluates double-float on the TPU,
-        stage2._compute_error_df32): the all and valid buckets, the
-        valid count and the non-finite flag."""
+        156-196): the all and valid buckets, the valid count and the
+        non-finite flag. An f64 state is evaluated in native f64 (the
+        pose_error2 kernel, where the JAX package evaluates double-float
+        on the TPU, stage2._compute_error_df32); an f32 state in f32 from
+        the cameras the cam_gather kernel gathers, as the JAX package's
+        `_compute_error` (stage2.py:477-494), with the f32 validity
+        threshold (pose_math.sophus_eps_sqrt)."""
+        if self.dtype == torch.float32:
+            P = self._gather_cams(cam_space)
+            xh = self._expand_L(self._lm_rows(lm_p_h))  # [4, O]
+            r, valid = pose_math.homogeneous_residual_t(P, xh, self.obs.uv)
+            r = self._mask_rows(r)
+            res_sq = (r * r).sum(dim=0)
+            err, _w = pose_math.robust_error_and_weight(
+                res_sq, self.robust, self.huber
+            )
+            return self._residual_info(err, res_sq, valid,
+                                       torch.isfinite(r).all(dim=0))
         ct = self._cam_table(cam_space, self.dtype)
         x4 = self._expand_L(self._lm_rows(lm_p_h).to(self.dtype))
         return pose2_kernels.pose_error2(

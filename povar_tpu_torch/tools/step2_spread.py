@@ -1,7 +1,8 @@
 """Run-to-run spread of the two-step solve on the card.
 
     python -m povar_tpu_torch.tools.step2_spread [--runs 5] [--long 300]
-        [--small 0] [--witness 0] [--step2 RIPOBA] [--pcg 0]
+        [--small 0] [--witness 0] [--step2 RIPOBA] [--pcg 0] [--psc 0]
+        [--psc-device cuda] [--ring 0]
         [--out build/step2_spread.json]
 
 On synthetic_bal_problem_fast(89, 110973, 5, seed=0) with the composed
@@ -30,7 +31,17 @@ step-2 cost:
                 SolverOptions() defaults otherwise, the fused term);
   pcg           `--pcg` step-1 solves with PCG (SCHUR_JACOBI,
                 SolverOptions() defaults otherwise): the spread of the
-                final cost that chip_smoke.py's PCG bound was set from.
+                final cost that chip_smoke.py's PCG bound was set from;
+  ring          `--ring` card runs of each `ring_pipeline` configuration
+                (POWER_SCHUR_COMPLEMENT + RIPOBA, the f32 state) against
+                one CPU run: the evidence for RING_TOLS;
+  psc           `--psc` step-1 solves with POWER_SCHUR_COMPLEMENT
+                (SolverOptions() defaults otherwise) on the card, or with
+                `--psc-device cpu` through the plain versions on the CPU:
+                the spread of the final cost that chip_smoke.py's PSC
+                band was set from, how many opening decisions each
+                shares with the JAX package's run (`JAX_PSC_DECISIONS`)
+                and its power-term counts (`JAX_PSC_TERMS`).
 
 Prints one line per run and writes every trajectory (accept/reject
 sequence, power terms, costs, termination) as JSON to `--out`. Needs a
@@ -45,9 +56,11 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from povar_tpu_torch.options import SolverType, SolverTypeRiemannian
+from povar_tpu_torch.problem.synthetic import _ring_cameras
 from povar_tpu_torch import (
     SolverOptions,
     SolverSummary,
@@ -228,6 +241,106 @@ def small_case(config="composed"):
     return problem, opts
 
 
+def ring_case():
+    """A consistent geometry near its optimum (numpy; that of
+    tests/test_pallas_pose2.py:141-160): 12 ring cameras, 80 landmarks
+    seen 4 times each, 1e-3 pixels of measurement noise, cameras and
+    landmarks perturbed by 1e-2. Step 1 descends on every step from it
+    and step 2 settles near the noise floor from any close step-1 result,
+    so the POWER_SCHUR_COMPLEMENT and f32-state checks run here (on
+    small_case's problem a PSC step 1 leaves step 2 a chaotic start).
+    Returns (the stage solvers' arguments, cameras [N, 3, 4], landmarks
+    [M, 3])."""
+    rng = np.random.default_rng(2)
+    n_cams, n_lms = 12, 80
+    gt_cams = _ring_cameras(n_cams, radius=10.0, rng=rng)
+    pts = rng.standard_normal((n_lms, 3)) * 2.0
+    obs_cam = np.concatenate(
+        [rng.choice(n_cams, 4, replace=False) for _ in range(n_lms)]
+    ).astype(np.int32)
+    obs_lm = np.repeat(np.arange(n_lms, dtype=np.int32), 4)
+    xh = np.concatenate([pts, np.ones((n_lms, 1))], axis=1)
+    p = np.einsum("oij,oj->oi", gt_cams[obs_cam], xh[obs_lm])
+    obs_uv = p[:, :2] / p[:, 2:3] + 1e-3 * rng.standard_normal(
+        (len(obs_cam), 2)
+    )
+    cam0 = gt_cams + 1e-2 * rng.standard_normal(gt_cams.shape)
+    lm0 = pts + 1e-2 * rng.standard_normal(pts.shape)
+    return (obs_cam, obs_lm, obs_uv, n_cams, n_lms), cam0, lm0
+
+
+# The `bundle_adjust` configurations run on `ring_case` card against CPU
+# (chip_smoke.py, tests/test_torch_cuda.py): POWER_SCHUR_COMPLEMENT +
+# RIPOBA with an f64 state, and SolverOptions() defaults with an f32
+# state; (options, state dtype) each.
+RING_CONFIGS = {
+    "psc": (dict(solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT,
+                 max_num_iterations_step_1=4, max_num_iterations_step_2=4),
+            torch.float64),
+    "f32": (dict(max_num_iterations_step_1=6, max_num_iterations_step_2=6),
+            torch.float32),
+}
+
+
+# Relative tolerance of every cost (step 1, step 2) of a `ring_pipeline`
+# card run against the CPU run, per configuration. `--ring 10` on an H100
+# 80GB HBM3 at 700 W: decisions and counts equal in all twenty runs, the
+# largest cost gaps 3.1e-4 / 1.3e-5 (psc) and 2.7e-4 / 1.4e-5 (f32), and
+# chip_smoke.py's runs up to 3.8e-4 / 9.7e-6; the step-1 ones at the
+# first step, whose cost is ~800x below the start (f32 atomics' order in
+# that step's solve).
+RING_TOLS = {"psc": (2e-3, 1e-4), "f32": (2e-3, 1e-4)}
+
+
+def ring_pipeline(config, device):
+    """`bundle_adjust` of `ring_case` under RING_CONFIGS[config] on
+    `device`. Returns (step-1 summary, step-2 summary)."""
+    kw, dtype = RING_CONFIGS[config]
+    args, cam0, lm0 = ring_case()
+    problem, _c, _l = from_numpy(*args[:3], cam0, lm0, device="cpu")
+    opts = SolverOptions(device_lm_loop="off", **kw)
+    return bundle_adjust(problem, opts, log=lambda s: None, dtype=dtype,
+                         device=device)[1:]
+
+
+def ring_compare(card, cpu):
+    """Per step of a card and a CPU `ring_pipeline` result: (whether the
+    decisions and inner counts match, the largest relative gap of any
+    cost)."""
+    out = []
+    for g, c in zip(card, cpu):
+        same = ([(it.step_is_successful, it.linear_solver_iterations)
+                 for it in g.iterations]
+                == [(it.step_is_successful, it.linear_solver_iterations)
+                    for it in c.iterations])
+        gap = max(abs(a.cost.all.error - b.cost.all.error)
+                  / abs(b.cost.all.error)
+                  for a, b in zip(g.iterations, c.iterations))
+        out.append((same, gap))
+    return out
+
+
+def ring_gaps(runs):
+    """`runs` card runs of each `ring_pipeline` configuration against one
+    CPU run: per run and step, `ring_compare`'s match and largest gap
+    (the evidence for RING_TOLS)."""
+    out = {}
+    for config in RING_CONFIGS if runs else ():
+        cpu = ring_pipeline(config, "cpu")
+        recs = []
+        for _ in range(runs):
+            card = ring_pipeline(config, "cuda")
+            recs.append([dict(same=same, gap=gap)
+                         for same, gap in ring_compare(card, cpu)])
+        print(f"ring ({config}): {runs} card runs vs CPU: decisions and "
+              f"counts equal in {[sum(r[k]['same'] for r in recs) for k in (0, 1)]}"
+              f"; largest cost gaps per step "
+              f"{[max(r[k]['gap'] for r in recs) for k in (0, 1)]}",
+              flush=True)
+        out[config] = recs
+    return out
+
+
 def small_gaps(runs, config="composed"):
     """Final-cost gaps (relative, per step) of `runs` card runs of the
     small `bundle_adjust` under SMALL_CONFIGS[config] against its CPU
@@ -268,6 +381,65 @@ def small_gaps(runs, config="composed"):
     return recs
 
 
+# POWER_SCHUR_COMPLEMENT step 1 of the JAX package on the venice-89
+# problem (docs/results-venice89/runs/power_schur_complement-ripoba/
+# venice-89/ba_log.json): its accept/reject string over the 50 trials
+# after record 0, its power-term counts and its final cost
+JAX_PSC_DECISIONS = "ARRRRRAAARAAAARAAAAAAAAAARRRRAAAAAAAAAAAAAAAAAAAAA"
+JAX_PSC_TERMS = [1, 10, 10, 10, 10, 10, 3, 7] + [10] * 21 + [6, 7] + [10] * 19
+JAX_PSC_COST = 23.31876816537192
+
+
+def same_prefix(decisions, want=JAX_PSC_DECISIONS):
+    """How many opening decisions of `decisions` equal `want`'s."""
+    n = 0
+    for a, b in zip(decisions, want):
+        if a != b:
+            break
+        n += 1
+    return n
+
+
+def psc_spread(problem, runs, device="cuda"):
+    """`runs` venice-89 POWER_SCHUR_COMPLEMENT step-1 solves on `device`
+    ("cuda", or "cpu": the plain versions; SolverOptions() defaults
+    otherwise): their records, each with the count of opening decisions
+    it shares with the JAX run."""
+    if not runs:
+        return []
+    opts = SolverOptions(solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT)
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    solver = Stage1Solver(*args, opts, device=device)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    recs = []
+    for k in range(runs):
+        _p, c0, l0 = from_numpy(problem.obs_cam, problem.obs_lm,
+                                problem.obs_uv, problem.cam_space,
+                                problem.lm_p, device=device)
+        s = SolverSummary()
+        sync()
+        t0 = time.perf_counter()
+        optimize_step1(solver, c0, l0, opts, s, Timer(), log=lambda s: None)
+        sync()
+        rec = _record(f"psc {device} {k}", s, time.perf_counter() - t0)
+        rec["same_prefix"] = same_prefix(rec["decisions"])
+        recs.append(rec)
+    finals = sorted(r["final"] for r in recs)
+    print(f"psc ({device}): {runs} step-1 finals {finals[0]!r} .. "
+          f"{finals[-1]!r} ({finals[0] / JAX_PSC_COST:.4f}x .. "
+          f"{finals[-1] / JAX_PSC_COST:.4f}x JAX {JAX_PSC_COST}), records "
+          f"{sorted({r['iterations'] + 1 for r in recs})}, opening "
+          f"decisions equal to JAX's {[r['same_prefix'] for r in recs]}; "
+          f"power-term counts {sorted({tuple(r['terms']) for r in recs})} "
+          f"(JAX {JAX_PSC_TERMS})", flush=True)
+    return recs
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--runs", type=int, default=5)
@@ -282,6 +454,15 @@ def main() -> None:
                     help="the step-2 solver of the witness runs")
     ap.add_argument("--pcg", type=int, default=0,
                     help="PCG step-1 solves (the spread of their final cost)")
+    ap.add_argument("--ring", type=int, default=0,
+                    help="card runs of each ring_pipeline configuration "
+                    "against the CPU")
+    ap.add_argument("--psc", type=int, default=0,
+                    help="POWER_SCHUR_COMPLEMENT step-1 solves (the spread "
+                    "of their final cost)")
+    ap.add_argument("--psc-device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the --psc solves run (cpu: the plain "
+                    "versions)")
     ap.add_argument("--out", default="build/step2_spread.json")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -295,7 +476,8 @@ def main() -> None:
     s2 = Stage2Solver(*args, opts, device="cuda")
     out = dict(device=torch.cuda.get_device_name(0), fixed_start=[],
                long=[], pipeline=[], small=small_gaps(a.small, a.small_config), witness=[],
-               pcg=[])
+               pcg=[], psc=psc_spread(problem, a.psc, a.psc_device),
+               ring=ring_gaps(a.ring))
     popts = SolverOptions(solver_type_step_1=SolverType.PCG,
                           device_lm_loop="off")
     sp = Stage1Solver(*args, popts, device="cuda") if a.pcg else None

@@ -1,8 +1,9 @@
-"""povar_tpu_torch on the card: each CUDA kernel of both steps against
-its plain PyTorch version on the same CUDA tensors, the step-1 slice and
-the two-step `bundle_adjust` (composed term, SolverOptions() defaults,
-PCG + RIPCG) on the card against the same solves on the CPU, and the
-command-line app on the card.
+"""povar_tpu_torch on the card: each CUDA kernel of both steps and the
+camera gather against its plain PyTorch version on the same CUDA
+tensors, the step-1 slice and the two-step `bundle_adjust` (composed
+term, SolverOptions() defaults, PCG + RIPCG, POWER_SCHUR_COMPLEMENT +
+RIPOBA, the f32 state) on the card against the same solves on the CPU,
+and the command-line app on the card.
 
 Every test here is marked `cuda` and skips without a CUDA device. The
 file imports nothing of JAX, so it runs where JAX is not installed:
@@ -15,7 +16,8 @@ venice-89 shapes; this file runs it at the CPU tests' small shapes
 (O = 1024, N = 13, as tests/test_torch_pose_kernels.py) and at
 N = 1024, where `hpp_b_structured`, `hppb2` and the two Schur-Jacobi
 kernels take their global-atomic route; the fused terms run over all
-slot parts and over a narrow prefix.
+slot parts and over a narrow prefix; `cam_gather` also on a 144-row
+table, more rows than one block stages at N = 1024.
 
 Tolerances, with the scales of povar_tpu_torch/tools/parity.py:
 elementwise outputs 1e-5 entry by entry (against |plain| + the median
@@ -40,8 +42,14 @@ from povar_tpu_torch import (
     synthetic_bal_problem,
 )
 from povar_tpu_torch.tools.parity import scaled_error
-from povar_tpu_torch.tools.step2_spread import SMALL_TOLS, small_case
-from povar_tpu_torch.ops import launches
+from povar_tpu_torch.tools.step2_spread import (
+    RING_TOLS,
+    SMALL_TOLS,
+    ring_compare,
+    ring_pipeline,
+    small_case,
+)
+from povar_tpu_torch.ops import cam_kernels, cam_ref, launches
 from povar_tpu_torch.ops import pose2_kernels as pk2
 from povar_tpu_torch.ops import pose2_ref
 from povar_tpu_torch.ops import pose_kernels as pk
@@ -128,6 +136,11 @@ def _cases(t, n):
         ("e0_term_parts", (t["cam"], t["x"], t["h"], t["z"], PREFIX, n), {},
          [CAM]),
         ("schur_diag_structured", (t["cam"], t["x"], t["h"], n), {}, [CAM]),
+        ("poba_t3", (t["cam"], t["ct"], t["x"], t["uv"], t["sw"], t["r_w"],
+                     t["jls"], t["z"]), a, [ELEM]),
+        ("apply_ldiff_stored", (t["cam"], t["x"], t["uv"], t["sw"],
+                                t["r_w"], t["jls"], t["inc_lm"], t["ct"],
+                                t["z"]), a, [SUM]),
     ]
 
 
@@ -196,6 +209,26 @@ def test_step2_kernels_match_plain_versions(cuda, n_cams):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_cams, rows", [(13, 12), (1024, 12), (1024, 144)])
+def test_cam_gather_is_exact_on_the_card(cuda, n_cams, rows):
+    """The camera gather once per call, counted once, bit for bit the
+    plain version's table[:, cam], on entries from 1e-8 to 1e8."""
+    rng = np.random.default_rng(n_cams + rows)
+    table = torch.as_tensor(
+        (rng.choice([-1.0, 1.0], (rows, n_cams))
+         * 10.0 ** rng.uniform(-8, 8, (rows, n_cams))).astype(np.float32),
+        device=cuda,
+    )
+    cam = torch.as_tensor(rng.integers(0, n_cams, O).astype(np.int32),
+                          device=cuda)
+    launches.reset_launch_counts()
+    got = cam_kernels.cam_gather(table, cam)
+    torch.cuda.synchronize()
+    assert launches.launch_counts()["cam_gather"] == 1
+    assert torch.equal(got, cam_ref.cam_gather(table, cam))
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     t = _inputs(13, cuda)
     with pytest.raises(TypeError, match="cam"):
@@ -213,6 +246,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError, match="cam_table"):
         pk2.pose_error2(t["cam"], t["ct"], t["x4_64"], t["uv64"], t["mask"],
                         robust=0, huber=1.0)
+    with pytest.raises(TypeError, match="table"):
+        cam_kernels.cam_gather(t["ct64"], t["cam"])
+    with pytest.raises(ValueError, match="z_table"):
+        pk.poba_t3(t["cam"], t["ct"], t["x"], t["uv"], t["sw"], t["r_w"],
+                   t["jls"], t["z"][:, :5], alpha=ALPHA)
 
 
 @pytest.mark.cuda
@@ -241,7 +279,8 @@ def test_step1_slice_card_matches_cpu(cuda):
             Timer(), log=lambda s: None,
         )
         counts = {k: v for k, v in launches.launch_counts().items()
-                  if k in pk.KERNELS and k not in FUSED_ONLY | CG_ONLY}
+                  if k in pk.KERNELS
+                  and k not in FUSED_ONLY | CG_ONLY | PSC_ONLY}
         if dev == "cuda":
             assert min(counts.values()) > 0, counts
         else:
@@ -258,14 +297,26 @@ def test_step1_slice_card_matches_cpu(cuda):
 
 
 # the kernels each configuration of `small_case` runs (every landmark of
-# its problem is narrow, so the fused terms have no composed suffix)
+# its problem is narrow, so the fused terms have no composed suffix);
+# none runs POWER_SCHUR_COMPLEMENT or an f32 state
 FUSED_ONLY = {"e0_term_parts", "e0_term2_parts"}
 CG_ONLY = {"schur_diag_structured", "schur_diag2"}
 COMPOSED_ONLY = {"e0_u_structured", "e0_scatter_structured", "scatter2"}
+PSC_ONLY = {"poba_t3", "apply_ldiff_stored"}
+F32_ONLY = {"cam_gather"}
+ALL = set(launches.KERNELS) - PSC_ONLY - F32_ONLY
 SMALL_KERNELS = {
-    "composed": set(launches.KERNELS) - FUSED_ONLY - CG_ONLY,
-    "defaults": set(launches.KERNELS) - COMPOSED_ONLY - CG_ONLY,
-    "cg": set(launches.KERNELS) - COMPOSED_ONLY,
+    "composed": ALL - FUSED_ONLY - CG_ONLY,
+    "defaults": ALL - COMPOSED_ONLY - CG_ONLY,
+    "cg": ALL - COMPOSED_ONLY,
+}
+# the kernels of the `ring_pipeline` configurations: PSC's apply in place
+# of the VarProj one; the f32 state's cost through cam_gather in place of
+# the f64 cost kernels
+RING_KERNELS = {
+    "psc": (ALL - COMPOSED_ONLY - CG_ONLY - {"apply_ldiff"}) | PSC_ONLY,
+    "f32": (ALL - COMPOSED_ONLY - CG_ONLY - {"pose_error", "pose_error2"})
+    | F32_ONLY,
 }
 
 
@@ -301,7 +352,7 @@ def test_bundle_adjust_card_matches_cpu(cuda, config):
         launches.reset_launch_counts()
         _, s1, s2 = bundle_adjust(p, opts, log=lambda s: None, device=dev)
         counts = launches.launch_counts()
-        assert len(counts) == 17
+        assert len(counts) == 20
         if dev == "cuda":
             assert all(counts[k] > 0 for k in kernels), counts
         else:
@@ -323,6 +374,30 @@ def test_bundle_adjust_card_matches_cpu(cuda, config):
             assert gf <= 1e-2 * g.initial_cost.all.error, (gf, cf)
         else:
             np.testing.assert_allclose(gf, cf, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", list(RING_KERNELS))
+def test_ring_bundle_adjust_card_matches_cpu(cuda, config):
+    """`ring_pipeline` of tools/step2_spread.py on the card and on the
+    CPU: POWER_SCHUR_COMPLEMENT + RIPOBA (4 + 4 iterations, f64 state) and
+    SolverOptions() defaults with an f32 state (6 + 6), every kernel of
+    the configuration launched on the card and none on the CPU; identical
+    decisions and power-term counts in both steps, every cost within
+    RING_TOLS[config] relative of the CPU's (see that module)."""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        launches.reset_launch_counts()
+        runs[dev] = ring_pipeline(config, dev)
+        counts = launches.launch_counts()
+        if dev == "cuda":
+            assert all(counts[k] > 0 for k in RING_KERNELS[config]), counts
+        else:
+            assert max(counts.values()) == 0, counts
+    for (same, gap), rtol in zip(ring_compare(runs["cuda"], runs["cpu"]),
+                                 RING_TOLS[config]):
+        assert same
+        assert gap <= rtol, gap
 
 
 @pytest.mark.cuda

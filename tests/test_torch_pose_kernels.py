@@ -286,6 +286,10 @@ def test_cpu_wrappers_are_the_plain_versions(prob):
          dict(robust=0, huber=1.0, **a)),
         ("e0_term_parts", (t["cam"], t["x"], t["h"], t["z"], PARTS, N), {}),
         ("schur_diag_structured", (t["cam"], t["x"], t["h"], N), {}),
+        ("poba_t3", (t["cam"], t["ct"], t["x"], t["uv"], t["sw"], t["r_w"],
+                     t["jls"], t["z"]), a),
+        ("apply_ldiff_stored", (t["cam"], t["x"], t["uv"], t["sw"], t["r_w"],
+                                t["jls"], t["inc_lm"], t["ct"], t["z"]), a),
     ]
     assert sorted(c[0] for c in calls) == sorted(pk.KERNELS)
     for name, args, kw in calls:

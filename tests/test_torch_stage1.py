@@ -278,15 +278,17 @@ def _cfg(**kw):
 @pytest.mark.parametrize(
     "opts, dtype, match",
     [
-        (_cfg(solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT),
-         torch.float64, "item 9"),
+        (_cfg(solver_type_step_1=SolverType.CHOLESKY), torch.float32,
+         "item 9"),
         (_cfg(solver_type_step_1=SolverType.CHOLESKY), torch.float64,
          "item 9"),
-        (_cfg(solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT),
-         torch.float64, "POWER_SCHUR_COMPLEMENT"),
+        (_cfg(solver_type_step_1=SolverType.CHOLESKY, fused_power_term=False),
+         torch.float64, "CHOLESKY"),
         (_cfg(mixed_precision_solves=False), torch.float64, "item 11"),
-        (_cfg(), torch.float32, "item 11"),
+        (_cfg(mixed_precision_solves=False, fused_power_term=False),
+         torch.float64, "item 11"),
         (_cfg(pallas_kernels="off"), torch.float64, "item 9"),
+        (_cfg(pallas_kernels="off"), torch.float32, "item 9"),
         (_cfg(device_lm_loop="on"), torch.float64, "item 8"),
         (_cfg(detailed_timing=True), torch.float64, "item 14"),
     ],
@@ -296,6 +298,19 @@ def test_configurations_outside_the_slice_raise(problem, opts, dtype, match):
         Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
                      problem.num_cameras, problem.num_landmarks, opts,
                      dtype=dtype, device="cpu")
+
+
+@pytest.mark.parametrize("mixed", [True, False])
+def test_f32_state_solves_in_f32(problem, mixed):
+    """An f32 LM state solves in f32 whether or not mixed precision is
+    asked for, as in the JAX package (stage1.py:676-680): neither raises,
+    and POWER_SCHUR_COMPLEMENT constructs with it."""
+    opts = _cfg(mixed_precision_solves=mixed,
+                solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT)
+    s = Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                     problem.num_cameras, problem.num_landmarks, opts,
+                     dtype=torch.float32, device="cpu")
+    assert s.dtype == s.solve_dtype == torch.float32 and s.poba
 
 
 def test_too_many_cameras_raise():

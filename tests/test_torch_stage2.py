@@ -32,7 +32,7 @@ import torch
 
 from povar_tpu.ops import linalg as jax_linalg
 from povar_tpu.options import SolverOptions as JaxOptions
-from povar_tpu.problem.synthetic import _ring_cameras, synthetic_bal_problem
+from povar_tpu.problem.synthetic import synthetic_bal_problem
 from povar_tpu.solver.lm import optimize_step2 as jax_optimize_step2
 from povar_tpu.solver.pipeline import bundle_adjust as jax_bundle_adjust
 from povar_tpu.solver.stage2 import Stage2Solver as JaxStage2
@@ -53,6 +53,7 @@ from povar_tpu_torch.ops import launches
 from povar_tpu_torch.ops import linalg
 from povar_tpu_torch.solver.slots import LmState
 from povar_tpu_torch.solver.stage2 import Lin2S
+from povar_tpu_torch.tools.step2_spread import ring_case
 
 ITERS = 8
 
@@ -94,23 +95,8 @@ def _solver_pair(args, config):
 @pytest.fixture(scope="module")
 def geometry():
     """tests/test_pallas_pose2.py:141-160: a consistent geometry near its
-    optimum (numpy)."""
-    rng = np.random.default_rng(2)
-    n_cams, n_lms = 12, 80
-    gt_cams = _ring_cameras(n_cams, radius=10.0, rng=rng)
-    pts = rng.standard_normal((n_lms, 3)) * 2.0
-    obs_cam = np.concatenate(
-        [rng.choice(n_cams, 4, replace=False) for _ in range(n_lms)]
-    ).astype(np.int32)
-    obs_lm = np.repeat(np.arange(n_lms, dtype=np.int32), 4)
-    xh = np.concatenate([pts, np.ones((n_lms, 1))], axis=1)
-    p = np.einsum("oij,oj->oi", gt_cams[obs_cam], xh[obs_lm])
-    obs_uv = p[:, :2] / p[:, 2:3] + 1e-3 * rng.standard_normal(
-        (len(obs_cam), 2)
-    )
-    cam0 = gt_cams + 1e-2 * rng.standard_normal(gt_cams.shape)
-    lm0 = pts + 1e-2 * rng.standard_normal(pts.shape)
-    return (obs_cam, obs_lm, obs_uv, n_cams, n_lms), cam0, lm0
+    optimum (numpy; `ring_case` of tools/step2_spread.py)."""
+    return ring_case()
 
 
 @pytest.fixture(scope="module")
@@ -358,15 +344,14 @@ def test_bundle_adjust_matches_jax(config):
 
 def test_bundle_adjust_default_options_raise(geometry):
     """SolverOptions() defaults with a step-1 solver that is not ported
-    (POWER_SCHUR_COMPLEMENT): bundle_adjust refuses before any work,
-    naming its ROADMAP item, and leaves the problem as it was."""
+    (CHOLESKY): bundle_adjust refuses before any work, naming its ROADMAP
+    item, and leaves the problem as it was."""
     args, cam0, lm0 = geometry
     p, _c, _l = from_numpy(args[0], args[1], args[2], cam0, lm0,
                            device="cpu")
     before = p.cam_space.copy()
     opts = SolverOptions()
-    opts.solver_type_step_1 = type(opts.solver_type_step_1)[
-        "POWER_SCHUR_COMPLEMENT"]
+    opts.solver_type_step_1 = type(opts.solver_type_step_1)["CHOLESKY"]
     with pytest.raises(NotImplementedError, match="item 9"):
         bundle_adjust(p, opts, log=lambda s: None, device="cpu")
     np.testing.assert_array_equal(p.cam_space, before)
@@ -380,12 +365,12 @@ def _cfg(**kw):
     "opts, dtype, match",
     [
         (_cfg(mixed_precision_solves=False), torch.float64, "item 11"),
-        (_cfg(), torch.float32, "item 11"),
+        (_cfg(pallas_kernels="off"), torch.float32, "item 9"),
         (_cfg(pallas_kernels="off"), torch.float64, "item 9"),
         (_cfg(device_lm_loop="on"), torch.float64, "item 8"),
         (_cfg(detailed_timing=True), torch.float64, "item 14"),
     ],
-    ids=["f64_solves", "f32_state", "unstructured",
+    ids=["f64_solves", "f32_state_unstructured", "unstructured",
          "device_loop", "detailed_timing"],
 )
 def test_configurations_outside_the_slice_raise(geometry, opts, dtype,
