@@ -11,18 +11,24 @@ printing its lines and raising on failure (a failure exits non-zero and
 prints no result line):
 
 1. device     a CUDA device, its name and power limit (nvidia-smi);
-2. build      the twenty kernels of povar_tpu_torch/csrc/ from source;
+2. build      the twenty-four kernels of povar_tpu_torch/csrc/ from
+              source;
 3. kernels    each step-1 kernel (the fused term over the problem's slot
               parts; poba_t3 and apply_ldiff_stored of the
-              POWER_SCHUR_COMPLEMENT apply) and cam_gather at venice-89
-              shapes on seeded inputs against its plain PyTorch version
-              on the same card (each output scaled per entry or per
-              camera, see ELEM; cam_gather bit for bit), with CUDA-event
-              times (median of 20 calls) and profiler device times (mean
-              of 20) for both, and for cam_gather those of
-              `index_select`, the one PyTorch call that computes it;
-              hpp_b_structured and schur_diag_structured again at N =
-              1024 (their global-atomic route);
+              POWER_SCHUR_COMPLEMENT apply) and the five camera-table
+              kernels at venice-89 shapes on seeded inputs against its
+              plain PyTorch version on the same card (each output scaled
+              per entry or per camera, see ELEM; cam_gather and e0_u bit
+              for bit; cam_scatter_add, e0_u, e0_scatter and hpp_b at
+              both steps' shapes, cam_scatter_add also at the Schur
+              corrections' 144 / 121 rows), with CUDA-event times
+              (median of 20 calls) and profiler device times (mean of
+              20) for both, and those of `index_select` beside
+              cam_gather and of `index_add_` beside cam_scatter_add, the
+              one PyTorch call that computes each; hpp_b_structured,
+              schur_diag_structured, cam_scatter_add, e0_scatter and
+              hpp_b again at N = 1024 (the first two's and hpp_b's
+              global-atomic routes, the others' widest shared tables);
 4. step 1     a small step-1 solve, card against CPU; the venice-89
               step-1 solve with the composed power term and with
               SolverOptions() defaults (the fused term), each with the
@@ -41,26 +47,33 @@ prints no result line):
 6. E0         the fused E0 operator of each step against the composed
               one per camera, all landmarks narrow and with four widened
               past 16 observations (the composed suffix);
-7. witness    step 2's first 7 iterations from that state without the
+7. layouts    the unstructured layout (Lin1 / Lin2, pallas_kernels=
+              "off") and the structured one at venice-89 scale from one
+              landmark state, lambda 1e-4, each against an f64
+              evaluation on the host CPU: per-camera b, Hpp, one E0 term
+              and the power-series increment (LAYOUT_TOLS), step 1 at
+              the VarProj start, step 2 on the calm landmarks of the
+              homogenized step-1 result;
+8. witness    step 2's first 7 iterations from that state without the
               landmarks near a camera's principal plane, twice on the
               card and once on the CPU: identical decisions and inner
               iteration counts, accepted costs within WITNESS_TOLS; for
               RIPOBA (composed term) and RIPCG (defaults otherwise);
-8. pipeline   `bundle_adjust` of a small problem, card against CPU; the
+9. pipeline   `bundle_adjust` of a small problem, card against CPU; the
               venice-89 `bundle_adjust` with SolverOptions() defaults and
               with the composed term (counters zeroed just before each,
               read just after): step 1 within 1e-3 of 207.4787, step 2
               within STEP2_BAND x 1845.1889071641926 and 100x below its
               start, the state finite; a warm repeat; the warm step-2
               bench iteration under both terms;
-9. CG         the venice-89 `bundle_adjust` with PCG (SCHUR_JACOBI) and
+10. CG        the venice-89 `bundle_adjust` with PCG (SCHUR_JACOBI) and
               RIPCG: step 1 within PCG_BAND x 205.39424619627198, the
               JAX package's PCG run on the same problem
               (docs/results-venice89/runs/pcg-ripcg/venice-89/ba_log.json),
               its first three CG counts equal to that run's and all of
               them printed beside it; step 2 finite, strictly falling and
               100x below its start;
-10. PSC       POWER_SCHUR_COMPLEMENT (landmark damping, the poBA apply):
+11. PSC      POWER_SCHUR_COMPLEMENT (landmark damping, the poBA apply):
               `ring_pipeline` of tools/step2_spread.py card against CPU;
               PSC_RUNS venice-89 step-1 solves (counters zeroed before
               the first, read after it), each in 51 records, below
@@ -69,14 +82,30 @@ prints no result line):
               ripoba/venice-89/ba_log.json), the opening decisions each
               shares with it printed; `bundle_adjust` PSC + RIPOBA and PSC
               + RIPCG (counters zeroed before each): step 1 as above,
-              step 2 strictly falling and below PSC_STEP2_MAX;
-11. f32       the f32 LM state: `ring_pipeline` card against CPU; the
+              step 2 strictly falling, 100x below its start and below
+              PSC_STEP2_MAX;
+12. f32      the f32 LM state: `ring_pipeline` card against CPU; the
               venice-89 `bundle_adjust` with SolverOptions() defaults and
               dtype=torch.float32 (counters zeroed before, cam_gather
               among the kernels that must run): step 1 within 1e-2 of
               207.4787, step 2 100x below its start, the state f32 and
               finite;
-12. cli       `python -m povar_tpu_torch.cli` in a subprocess with
+13. unstructured  the small case and `ring_pipeline` card against CPU
+              with pallas_kernels="off" and with CHOLESKY; one venice-89
+              CHOLESKY solve's time and peak device memory; the
+              venice-89 `bundle_adjust` with "off" (step 1 within 1e-3
+              of 207.4787, step 2 as the defaults'), with CHOLESKY +
+              RIPOBA (step 1's records printed beside the JAX run's 11,
+              its first trial within CHOL_FIRST_TOL of the CPU's, its
+              first CHOL_SAME trials accepted, its final cost within
+              CHOL_BAND x 243.9675604042901; step 2 finite, strictly
+              falling and below its start, JAX's 15606.36 printed) and
+              CHOLESKY + RIPCG (counters zeroed before each); CHOLESKY's
+              step 1 with the JAX run's TPU arithmetic emulated
+              (bf16-rounded one-hot camera sums and gathers): JAX's
+              decisions AARRRA... and its final cost within 1e-3; the
+              warm step-1 and step-2 bench iterations with "off";
+14. cli       `python -m povar_tpu_torch.cli` in a subprocess with
               defaults, on tests/data/mini-bal-12-48-pre.txt and on the
               venice-89 problem written as BAL text, each after
               --create-dataset: ba_log.json written, accepted costs
@@ -85,12 +114,13 @@ prints no result line):
 The second-to-last line is {"kernels": [...]}: per kernel its route,
 source, replaced TPU kernel, launches in the first venice-89 run of the
 main path that runs it (`launches_run` names it), max abs error against
-the plain version, event times of kernel and plain version, the least
-time the card could take for the same call (`bound_ms`: the bytes the
-call must move at 3.35 TB/s or its arithmetic at the peak rate of its
-type, whichever is larger) and `library_ms` (the event time of
-`index_select` for cam_gather; null for the others: no single PyTorch
-call computes their functions). The last line is
+the plain version, event times of kernel and plain version (the step-1
+shape where a kernel runs in both steps), the least time the card could
+take for the same call (`bound_ms`: the bytes the call must move at
+3.35 TB/s or its arithmetic at the peak rate of its type, whichever is
+larger) and `library_ms` (the event time of `index_select` for
+cam_gather, of `index_add_` for cam_scatter_add; null for the others: no
+single PyTorch call computes their functions). The last line is
 {"ok": true, "device": {...}}. Needs the repository (the package and its
 kernel sources) beside this file; imports nothing of JAX.
 """
@@ -142,13 +172,55 @@ PCG_SAME = 3
 # leave JAX's gradually (1e-5 by trial 11, 0.5% by trial 25), so the
 # offset is the trajectory's, not one trial's. PSC_BAND holds the card's
 # spread with about three times its width below it, and JAX's own value
-# above it: a systematic error of half a percent fails.
+# above it: a systematic error of half a percent fails. Step 2 after PSC
+# does not always descend geometrically: `step2_spread --psc-ba` runs of
+# PSC + RIPOBA `bundle_adjust` on an H100 80GB HBM3 at 700 W mostly end
+# at 1e-5-1e-4 but some stall at 0.3-0.45 in rejection runs near the
+# 50-iteration cap (PERF.md); the VarProj basin's step 2 ends at
+# ~1.8e3. PSC_STEP2_MAX keeps that distinction with about twice the
+# worst stall's headroom.
 PSC_RUNS = 8
 PSC_BAND = (0.995, 1.001)
 PSC_MAX = 30.0
-PSC_STEP2_MAX = 1e-3
+PSC_STEP2_MAX = 1.0
 # the f32 state's step 1 against the f64 JAX run: within 1e-2 relative
 F32_STEP1_TOL = 1e-2
+# CHOLESKY: the JAX run on the same problem (docs/results-venice89/runs/
+# cholesky-ripoba/venice-89/ba_log.json, tools/step2_spread.py
+# JAX_CHOL_COSTS) takes 11 records, AARRRA then descent to the function
+# tolerance at 243.9675604042901, on a TPU v5e whose unstructured layout
+# runs every camera sum and gather, and S = -A A^T, as default-precision
+# (bf16-operand) matmuls. The port's f32 arithmetic takes another path:
+# `step2_spread --chol 8` on an H100 80GB HBM3 at 700 W and this script's
+# runs accepted every trial (26 records) and ended at 144.97-145.45
+# (0.594x-0.596x JAX); the plain versions on the CPU (`--chol 1
+# --chol-device cpu`) also accepted every trial (29 records) and ended at
+# 82.12: their first trial costs agree to 1.8e-6, the second to 5e-4
+# (the f32 S's conditioning at lambda 2e-4 amplifies the rounding of two
+# arithmetics), and the flat pOSE valley does the rest. So CHOLESKY is
+# held to the first trial's cost within CHOL_FIRST_TOL of the CPU's
+# CHOL_FIRST, its first CHOL_SAME trials accepted as on both devices, and
+# its final cost within CHOL_BAND x JAX's, about twice the card's spread
+# on each side of it.
+CHOL_FIRST = 244.0243280214527
+CHOL_FIRST_TOL = 1e-4
+CHOL_SAME = 10
+CHOL_BAND = (0.59, 0.60)
+# each layout's f32 operators against their f64 evaluation at venice-89
+# scale (check_layouts), per step and per camera: b, Hpp, one E0 term and
+# the power-series increment. Two runs on an H100 80GB HBM3 at 700 W put
+# step 1 at b <= 1.0e-6, Hpp <= 4.2e-6, E0 <= 2.5e-4, increment <= 1.6e-5
+# for either layout, and step 2 at b 6.2e-3-1.0e-2 / 2.4e-3-6.9e-3
+# (unstructured / structured), Hpp 1.8e-6, E0 <= 7.3e-4, increment
+# 2.5e-2 / 0.8e-2-2.1e-2: step 2's per-camera gradient is a sum of nearly
+# cancelling terms near the step-1 optimum, so both f32 layouts lose two
+# digits of it and the increment follows, by an amount that changes with
+# the step-1 result. Step 1 keeps 6-25x headroom, step 2 ~10x; a wrong
+# formula is off by O(1).
+LAYOUT_TOLS = {
+    1: {"b": 1e-5, "Hpp": 1e-4, "E0": 2e-3, "increment": 1e-4},
+    2: {"b": 0.1, "Hpp": 1e-4, "E0": 5e-3, "increment": 0.3},
+}
 # Step 2 of this noise-free problem stops at its 50-iteration cap in
 # mid-descent along a chaotic path: from ONE step-1 result, twenty runs
 # on an H100 ended between 1644 and 1801 (the f32 atomics' order
@@ -171,6 +243,10 @@ REPLACES = {
     "poba_t3": "povar_tpu/ops/pallas_pose.py:938",
     "apply_ldiff_stored": "povar_tpu/ops/pallas_pose.py:1096",
     "cam_gather": "povar_tpu/ops/pallas_cam.py:176",
+    "cam_scatter_add": "povar_tpu/ops/pallas_cam.py:207",
+    "e0_u": "povar_tpu/ops/pallas_cam.py:242",
+    "e0_scatter": "povar_tpu/ops/pallas_cam.py:278",
+    "hpp_b": "povar_tpu/ops/pallas_cam.py:333",
     "e0_term_parts": "povar_tpu/ops/pallas_pose.py:748",
     "schur_diag_structured": "povar_tpu/ops/pallas_pose.py:1020",
     "e0_term2_parts": "povar_tpu/ops/pallas_pose2.py:512",
@@ -214,6 +290,9 @@ FLOPS_PER_OBS = {
     "e0_term_parts": 80, "schur_diag_structured": 430,
     "e0_term2_parts": 80, "schur_diag2": 480, "poba_t3": 95,
     "apply_ldiff_stored": 110, "cam_gather": 0,
+    # the camera-table kernels at their step-1 shapes (R = 12; (dl, dc) =
+    # (3, 12); (k, d) = (4, 12), the upper triangle and its mirror)
+    "cam_scatter_add": 12, "e0_u": 72, "e0_scatter": 84, "hpp_b": 790,
 }
 # the kernels each venice-89 run of the main path must launch
 STEP1_COMPOSED = {"prepare", "e0_factor", "hpp_b_structured",
@@ -229,7 +308,16 @@ STEP2_FUSED = STEP2_COMPOSED - {"scatter2"} | {"e0_term2_parts"}
 STEP1_PSC = STEP1_FUSED - {"apply_ldiff"} | {"poba_t3", "apply_ldiff_stored"}
 F32_PATH = (STEP1_FUSED | STEP2_FUSED) - {"pose_error", "pose_error2"} | {
     "cam_gather"}
+# the unstructured layout (Lin1 / Lin2): the five camera-table kernels and
+# the f64 cost kernels; CHOLESKY's dense solve runs no power series, so no
+# e0_u / e0_scatter, and its step 2 stays structured
+UNSTRUCTURED = {"cam_gather", "cam_scatter_add", "e0_u", "e0_scatter",
+                "hpp_b"}
+STEP1_CHOL = {"cam_gather", "cam_scatter_add", "hpp_b", "pose_error"}
 PATHS = {
+    "bundle_adjust off": UNSTRUCTURED | {"pose_error", "pose_error2"},
+    "bundle_adjust CHOLESKY+RIPOBA": STEP1_CHOL | STEP2_FUSED,
+    "bundle_adjust CHOLESKY+RIPCG": STEP1_CHOL | STEP2_FUSED | {"schur_diag2"},
     "step 1 PSC": STEP1_PSC,
     "bundle_adjust PSC+RIPOBA": STEP1_PSC | STEP2_FUSED,
     "bundle_adjust PSC+RIPCG": STEP1_PSC | STEP2_FUSED | {"schur_diag2"},
@@ -340,12 +428,14 @@ def bound_ms(name, inputs, outputs, n_obs, n_read=None):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def run_cases(kernels, plain, cases, n_obs):
+def run_cases(kernels, plain, cases, n_obs, time_variants=False):
     """Each case (name, variant, call, inputs, specs, n_read[, library]):
     the kernel against its plain version on the same card; the case of
-    each kernel without a variant label gets event and device times and
-    its bound, and those of `library` (a PyTorch call that computes the
-    same function) where one is given. Returns {name: result dict}."""
+    each kernel without a variant label (and, with `time_variants`, every
+    case) gets event and device times and its bound, and those of
+    `library` (a PyTorch call that computes the same function) where one
+    is given; the unlabelled case's are the kernel's result. Returns
+    {name: result dict}."""
     results = {}
     for name, variant, run, inputs, specs, n_read, *library in cases:
         got = run(kernels)
@@ -356,25 +446,26 @@ def run_cases(kernels, plain, cases, n_obs):
         rel = " ".join(f"{x:.1e}" for x in rels)
         res = results.setdefault(name, dict(max_abs_err=0.0))
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        if variant:
-            print(f"{name:<22} max_abs_err {err:.3e} scaled [{rel}] "
-                  f"({variant})", flush=True)
+        label = f"{name:<22} max_abs_err {err:.3e} scaled [{rel}]"
+        if variant and not time_variants:
+            print(f"{label} ({variant})", flush=True)
             continue
         ms = cuda_ms(lambda: run(kernels))
         plain_ms = cuda_ms(lambda: run(plain))
         b_ms, b_by = bound_ms(name, inputs, got, n_obs, n_read)
         lib = library[0] if library else None
         lib_ms = cuda_ms(lib) if lib is not None else None
-        res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=lib_ms)
+        if not variant:
+            res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms)
         lib_txt = ("" if lib is None else
                    f"  library: events {lib_ms:.4f} ms device "
                    f"{device_us(lib):.1f} us")
-        print(f"{name:<22} max_abs_err {err:.3e} scaled [{rel}]  events: "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms  device: kernel "
-              f"{device_us(lambda: run(kernels)):.1f} us plain "
-              f"{device_us(lambda: run(plain)):.1f} us  bound "
-              f"{b_ms * 1e3:.1f} us ({b_by}){lib_txt}", flush=True)
+        print(f"{label}  events: kernel {ms:.4f} ms plain {plain_ms:.4f} ms  "
+              f"device: kernel {device_us(lambda: run(kernels)):.1f} us "
+              f"plain {device_us(lambda: run(plain)):.1f} us  bound "
+              f"{b_ms * 1e3:.1f} us ({b_by}){lib_txt}"
+              + (f" ({variant})" if variant else ""), flush=True)
     return results
 
 
@@ -520,6 +611,71 @@ def check_kernels(solver, problem, alpha):
               f"{cuda_ms(lambda: run(pr)):.4f} ms  device: kernel "
               f"{device_us(lambda: run(pk)):.1f} us plain "
               f"{device_us(lambda: run(pr)):.1f} us", flush=True)
+    return results
+
+
+def check_cam_kernels(solver, seed=2):
+    """The four camera-table kernels of the unstructured layout (C2-C5)
+    on the problem's slot layout with seeded operands, zeroed on the pad
+    rows as the solvers' operands are, against their plain versions on
+    the card: at both steps' shapes, each timed (the step-1 shape is the
+    kernel's row), with `index_add_` beside cam_scatter_add; then C2, C4
+    and C5 again on seeded cameras over N = 1024 (hpp_b's global-atomic
+    route). e0_u sums its terms in its plain version's order: bit for
+    bit."""
+    from povar_tpu_torch.ops import cam_kernels as ck
+    from povar_tpu_torch.ops import cam_ref as cr
+
+    rng = np.random.default_rng(seed)
+    dev = solver.device
+    cam, mask = solver.obs.cam, solver._mask1
+    o = int(cam.shape[0])
+
+    def f32(rows, cols=None):
+        a = torch.as_tensor(rng.standard_normal((rows, cols or o)),
+                            dtype=torch.float32, device=dev)
+        return a if cols else a * mask
+
+    def index_add(v, cam, n):
+        cam64 = cam.long()
+        return lambda: torch.zeros((v.shape[0], n), device=dev).index_add_(
+            1, cam64, v)
+
+    def cases(cam, n, tag):
+        """Step-1 shapes first (R = 12, (dl, dc) = (3, 12), (k, d) =
+        (4, 12)), then step 2's and the Schur corrections' widths."""
+        out = []
+        for r, label in ((12, None), (144, "R = 144, step-1 Schur"),
+                         (121, "R = 121, step-2 Schur")):
+            v = f32(r)
+            out.append(("cam_scatter_add", ", ".join(x for x in (label, tag)
+                                                       if x) or None,
+                        lambda m, v=v: m.cam_scatter_add(v, cam, n), [cam, v],
+                        [CAM], None, index_add(v, cam, n)))
+        for dc, label in ((12, None), (11, "(dl, dc) = (3, 11)")):
+            w, x, sb = f32(3 * dc), f32(dc, n), f32(3)
+            variant = ", ".join(v for v in (label, tag) if v) or None
+            if tag is None:
+                out.append(("e0_u", variant,
+                            lambda m, w=w, x=x: m.e0_u(w, cam, x),
+                            [cam, w, x], [EXACT], None))
+            out.append(("e0_scatter", variant,
+                        lambda m, w=w, sb=sb: m.e0_scatter(w, cam, sb, n),
+                        [cam, w, sb], [CAM], None))
+        for k, d, label in ((4, 12, None), (2, 11, "(k, d) = (2, 11)")):
+            jp, rt = f32(k * d), f32(k)
+            out.append(("hpp_b", ", ".join(v for v in (label, tag) if v)
+                        or None,
+                        lambda m, jp=jp, rt=rt: m.hpp_b(jp, rt, cam, n),
+                        [cam, jp, rt], [CAM, CAM], None))
+        return out
+
+    results = run_cases(ck, cr, cases(cam, solver.n_cams, None), o,
+                        time_variants=True)
+    nb = 1024
+    cam_big = torch.as_tensor(rng.integers(0, nb, o).astype(np.int32),
+                              device=dev)
+    run_cases(ck, cr, cases(cam_big, nb, "N = 1024"), o, time_variants=True)
     return results
 
 
@@ -717,32 +873,36 @@ def check_small():
           f"{len(trajs[0])} iterations, max cost gap {gap:.3e}", flush=True)
 
 
-def check_small_pipeline():
+def check_small_pipeline(config="composed"):
     """bundle_adjust on the small case of povar_tpu_torch/tools/
     step2_spread.py (`small_case`: the problem of tests/test_torch_stage2
-    .py's pipeline test), card against CPU: identical accept/reject
-    decisions in both steps, final costs within that module's SMALL_TOLS
-    (2e-3 for step 1, 1e-3 for step 2, set from fifty measured card
-    runs)."""
+    .py's pipeline test) under SMALL_CONFIGS[config], card against CPU:
+    identical accept/reject decisions and inner counts in both steps,
+    final costs within that module's SMALL_TOLS (2e-3 for step 1, 1e-3
+    for step 2, set from fifty measured card runs). "cholesky" (its step
+    2 starts where the small problem is chaotic): step 2 finite and below
+    its start instead."""
     from povar_tpu_torch.tools.step2_spread import SMALL_TOLS, small_case
 
-    problem, opts = small_case()
+    problem, opts = small_case(config)
     runs = {dev: pipeline(problem, opts, dev)[1:3] for dev in ("cuda", "cpu")}
     for step, tol, g, c in zip((1, 2), SMALL_TOLS, runs["cuda"],
                                runs["cpu"]):
-        dg = [it.step_is_successful for it in g.iterations]
-        dc = [it.step_is_successful for it in c.iterations]
+        dg = [(it.step_is_successful, it.linear_solver_iterations)
+              for it in g.iterations]
+        dc = [(it.step_is_successful, it.linear_solver_iterations)
+              for it in c.iterations]
         fg, fc = g.final_cost.all.error, c.final_cost.all.error
         gap = abs(fg - fc) / abs(fc)
-        if dg != dc:
-            raise AssertionError(f"small pipeline step {step}: card {dg} != "
-                                 f"cpu {dc}")
-        if not gap <= tol:
-            raise AssertionError(f"small pipeline step {step}: final cost "
-                                 f"{fg} vs cpu {fc} (> {tol:g})")
-        print(f"small pipeline step {step}: card == cpu decisions over "
-              f"{len(dg)} records, final {fg!r} vs cpu {fc!r} (gap "
-              f"{gap:.3e})", flush=True)
+        print(f"small pipeline ({config}) step {step}: {len(dg)} records, "
+              f"card == cpu decisions and counts: {dg == dc}, final {fg!r} "
+              f"vs cpu {fc!r} (gap {gap:.3e})", flush=True)
+        if step == 2 and config == "cholesky":
+            if not (np.isfinite(fg) and fg < g.initial_cost.all.error):
+                raise AssertionError(f"small {config} step 2: {fg}")
+        elif dg != dc or not gap <= tol:
+            raise AssertionError(f"small {config} step {step}: card {dg} "
+                                 f"vs cpu {dc}, gap {gap:.3e} (> {tol:g})")
 
 
 def check_ring(config):
@@ -1001,6 +1161,17 @@ def widen(args, cams_h, lms_h, n_wide=4, extra=20, seed=3):
             n_cams, n_lms)
 
 
+def first_term(hpp, b, lam):
+    """B^-1 (-b) with B = hpp + lam I, the power series' first term: the
+    operand E0 meets in a solve (a random one overflows f32 on the
+    near-plane rows of step 2)."""
+    from povar_tpu_torch.ops import linalg
+
+    eye = torch.eye(hpp.shape[0], dtype=hpp.dtype, device=hpp.device)
+    b_inv = linalg.inv_psd_smallf(hpp + lam * eye[:, :, None])
+    return (b_inv * (-b)[None]).sum(dim=1)
+
+
 def check_e0_operators(problem, cams, lms, cams_h, lms_h):
     """The fused E0 operator of each step against the composed one on
     one linearization and its first power term, per camera (CAM), at
@@ -1012,7 +1183,6 @@ def check_e0_operators(problem, cams, lms, cams_h, lms_h):
     entries of each operator are not finite and raises where the fused
     one is not finite but the composed one is."""
     from povar_tpu_torch import SolverOptions, Stage1Solver, Stage2Solver
-    from povar_tpu_torch.ops import linalg
     from povar_tpu_torch.tools.step2_spread import calm_subproblem
 
     fused = SolverOptions()
@@ -1021,13 +1191,6 @@ def check_e0_operators(problem, cams, lms, cams_h, lms_h):
             problem.num_cameras, problem.num_landmarks)
     args2, lms_w = calm_subproblem(problem, cams_h, lms_h)
     lam = 1e-4
-
-    def first_term(hpp, b):
-        """B^-1 (-b), the power series' first term: the operand E0 meets
-        in a solve (a random one overflows f32 on the near-plane rows)."""
-        eye = torch.eye(hpp.shape[0], dtype=hpp.dtype, device=hpp.device)
-        b_inv = linalg.inv_psd_smallf(hpp + lam * eye[:, :, None])
-        return (b_inv * (-b)[None]).sum(dim=1)
 
     def both(label, got, want):
         if not bool(torch.isfinite(want).all()):
@@ -1038,7 +1201,7 @@ def check_e0_operators(problem, cams, lms, cams_h, lms_h):
     s2 = Stage2Solver(*args, fused, device="cuda")
     lin2 = s2.linearize(cams_h, s2.lm_pack(lms_h))
     _hi, hib_obs, b6 = s2._prep_hll_s(lin2, s2._solve_scalar(lam))
-    v11 = first_term(*s2._hpp_b11(lin2, hib_obs))
+    v11 = first_term(*s2._hpp_b11(lin2, hib_obs), lam)
     c2 = Stage2Solver(*args, composed, device="cuda")
     bad_f = ~torch.isfinite(s2._e0_apply_s(lin2, b6)(v11))
     bad_c = ~torch.isfinite(c2._e0_apply_s(lin2, b6)(v11))
@@ -1059,7 +1222,7 @@ def check_e0_operators(problem, cams, lms, cams_h, lms_h):
         lin = s1.linearize(cams, s1.lm_pack(lms))
         _hi, hib_obs, jls_obs, lh_obs = s1._hll_pieces_s(lin)
         h = s1._h_factor_s(lin, jls_obs, lh_obs)
-        v12 = first_term(*s1._hpp_b_s(lin, hib_obs, jls_obs))
+        v12 = first_term(*s1._hpp_b_s(lin, hib_obs, jls_obs), lam)
         c1 = Stage1Solver(*a, composed, device="cuda")
         r1 = both(f"step-1 E0 {label}", s1._e0_apply_s(lin, h)(v12),
                   c1._e0_apply_s(lin, h)(v12))
@@ -1069,7 +1232,7 @@ def check_e0_operators(problem, cams, lms, cams_h, lms_h):
             raise AssertionError(f"{label}: step-2 plan {s2.e0_plan}")
         lin2 = s2.linearize(cams_h, s2.lm_pack(lms_w))
         _hi, hib_obs, b6 = s2._prep_hll_s(lin2, s2._solve_scalar(lam))
-        v11 = first_term(*s2._hpp_b11(lin2, hib_obs))
+        v11 = first_term(*s2._hpp_b11(lin2, hib_obs), lam)
         c2 = Stage2Solver(*a2, composed, device="cuda")
         r2 = both(f"step-2 E0 {label}", s2._e0_apply_s(lin2, b6)(v11),
                   c2._e0_apply_s(lin2, b6)(v11))
@@ -1077,6 +1240,220 @@ def check_e0_operators(problem, cams, lms, cams_h, lms_h):
               f"{None if s1.e0_plan.suffix is None else s1.e0_plan.suffix[0]}"
               f", step 2 on {a2[4]} calm landmarks): step 1 {r1:.2e}, "
               f"step 2 {r2:.2e} scaled per camera", flush=True)
+
+
+def check_layouts(problem, cams_h, lms_h, lam=1e-4):
+    """Both layouts' f32 operators at venice-89 scale against an f64
+    evaluation of the unstructured formulas on the host CPU
+    (tools/step2_spread.f64_twin), each fed the same landmark state: the
+    per-camera b and Hpp, one E0 term (on the f64 first power term) and
+    the power-series increment of one solve at `lam`, each per camera
+    within its LAYOUT_TOLS entry, with the same term count; the gap
+    between the two layouts printed. Step 1 at the VarProj-initialized
+    start; step 2 on the well-conditioned landmarks of the homogenized
+    step-1 result (`calm_subproblem`, as the witness)."""
+    from povar_tpu_torch import SolverOptions, Stage1Solver, Stage2Solver
+    from povar_tpu_torch.tools.parity import scaled_error
+    from povar_tpu_torch.tools.step2_spread import calm_subproblem, f64_twin
+
+    off, auto = SolverOptions(pallas_kernels="off"), SolverOptions()
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    args2, lms_w = calm_subproblem(problem, cams_h, lms_h)
+    c = torch.as_tensor(problem.cam_space, device="cuda")
+    n = problem.num_cameras
+    for step in (1, 2):
+        t0 = time.perf_counter()
+        cls, a = (Stage1Solver, args) if step == 1 else (Stage2Solver, args2)
+        su, ss = (cls(*a, o, device="cuda") for o in (off, auto))
+        sr = f64_twin(cls, a, off)
+        if step == 1:
+            cams, lms = c, ss.initialize_varproj(c)
+            lam_l = None  # VarProj: undamped landmark blocks
+        else:
+            cams, lms = cams_h, lms_w
+            lam_l = ss._solve_scalar(lam)
+        lu, ls = su.linearize(cams, lms), ss.linearize(cams, ss.lm_pack(lms))
+        lr = sr.linearize(cams.cpu(), lms.cpu())
+
+        def unstructured(s, lin):
+            """(b, Hpp, the E0 operator) of a Lin1 / Lin2."""
+            jp, jl = ((lin.Jp, lin.Jl) if step == 1
+                      else (lin.Jp_ns, lin.Jl_ns))
+            hll_inv, hll_inv_bl = s._hll_inv_u(jl, lin.r, lam_l)
+            hpp, b = s._hpp_b_u(jp, jl, lin.r, hll_inv_bl)
+            w = s._e0_factor_u(jp, jl, hll_inv)
+            return b, hpp, lambda v: s._e0_w_matvec(v, w)
+
+        if step == 1:
+            _hi, hib_obs, jls_obs, lh_obs = ss._hll_pieces_s(ls)
+            hpp_s, b_s = ss._hpp_b_s(ls, hib_obs, jls_obs)
+            e0_s = ss._e0_apply_s(ls, ss._h_factor_s(ls, jls_obs, lh_obs))
+        else:
+            _hi, hib_obs, b6 = ss._prep_hll_s(ls, lam_l)
+            hpp_s, b_s = ss._hpp_b11(ls, hib_obs)
+            e0_s = ss._e0_apply_s(ls, b6)
+        b_u, hpp_u, e0_u = unstructured(su, lu)
+        b_r, hpp_r, e0_r = unstructured(sr, lr)
+        v = first_term(hpp_r, b_r, lam)
+        v32 = v.to("cuda", torch.float32)
+        (inc_u, n_u), (inc_s, n_s), (inc_r, n_r) = (
+            s.solve(lin, lam) for s, lin in ((su, lu), (ss, ls), (sr, lr)))
+        outs = {"b": (b_u, b_s, b_r), "Hpp": (hpp_u, hpp_s, hpp_r),
+                "E0": (e0_u(v32), e0_s(v32), e0_r(v)),
+                "increment": (inc_u, inc_s, inc_r)}
+
+        def gap(got, want):
+            return scaled_error(got.cpu().double().reshape(-1, n),
+                                want.cpu().double().reshape(-1, n), "cam")
+
+        gaps = {k: [gap(x, r) for x in (u, s_)] + [gap(u, s_)]
+                for k, (u, s_, r) in outs.items()}
+        tols = LAYOUT_TOLS[step]
+        print(f"step {step} layouts (lambda {lam:g}"
+              + ("" if step == 1 else f", {args2[4]} calm landmarks")
+              + f", {time.perf_counter() - t0:.1f} s), per camera against "
+              "f64 (unstructured / structured; the two apart): "
+              + ", ".join(f"{k} {u:.2e} / {s_:.2e}; {us:.2e}"
+                          for k, (u, s_, us) in gaps.items())
+              + f"; power terms {n_u} / {n_s} / f64 {n_r}", flush=True)
+        over = {k: g[:2] for k, g in gaps.items() if not max(g[:2]) <= tols[k]}
+        if not n_u == n_s == n_r or over:
+            raise AssertionError(f"step {step} layouts: {over} over {tols}, "
+                                 f"or terms {n_u} / {n_s} / {n_r}")
+
+
+def check_chol_step1(label, summary, tpu=False):
+    """Print a venice-89 CHOLESKY step 1 beside JAX's 11 records; raise
+    unless its accepted costs fall strictly and: with `tpu` (the JAX
+    run's one-hot arithmetic emulated, tools/step2_spread.
+    emulate_tpu_onehot) its decisions are JAX's and its final cost within
+    1e-3 of JAX's; otherwise its first trial's cost is within
+    CHOL_FIRST_TOL of CHOL_FIRST, its first CHOL_SAME trials were
+    accepted and its final cost is within CHOL_BAND x JAX's."""
+    from povar_tpu_torch.tools.step2_spread import (
+        JAX_CHOL_COSTS, JAX_CHOL_DECISIONS,
+    )
+
+    its = summary.iterations
+    seq = "".join("A" if it.step_is_successful else "R" for it in its[1:])
+    final = summary.final_cost.all.error
+    print(f"{label}: {len(its)} records ({summary.termination_type}), A{seq}"
+          f" (JAX A{JAX_CHOL_DECISIONS}), final {final!r} "
+          f"({final / JAX_CHOL_COSTS[-1]:.6f}x JAX)", flush=True)
+    for k in range(max(len(its), len(JAX_CHOL_COSTS))):
+        ours = its[k] if k < len(its) else None
+        cost = "-" if ours is None or ours.cost is None else repr(
+            ours.cost.all.error)
+        print(f"  record {k:2d}: "
+              + (f"{'A' if ours.step_is_successful else 'R'} {cost:>22} "
+                 f"lambda {1.0 / ours.trust_region_radius:.3e}" if ours
+                 else " " * 45)
+              + (f"   JAX {JAX_CHOL_COSTS[k]!r}"
+                 if k < len(JAX_CHOL_COSTS) else ""), flush=True)
+    check_falling(label, [it.cost.all.error for it in its
+                          if it.step_is_successful])
+    if tpu:
+        if seq != JAX_CHOL_DECISIONS:
+            raise AssertionError(f"{label}: decisions A{seq} != JAX's "
+                                 f"A{JAX_CHOL_DECISIONS}")
+        check_final(1, summary, JAX_CHOL_COSTS[-1])
+        return
+    first = its[1].cost.all.error
+    if not abs(first - CHOL_FIRST) <= CHOL_FIRST_TOL * CHOL_FIRST:
+        raise AssertionError(f"{label}: first trial's cost {first!r} off "
+                             f"{CHOL_FIRST!r} (the CPU's)")
+    if seq[:CHOL_SAME] != "A" * CHOL_SAME:
+        raise AssertionError(f"{label}: opening decisions A{seq[:CHOL_SAME]}"
+                             f" (every device accepted the first {CHOL_SAME})")
+    check_final(1, summary, JAX_CHOL_COSTS[-1], CHOL_BAND)
+
+
+def check_unstructured(problem, counts):
+    """The unstructured layout and CHOLESKY: `small_case` and
+    `ring_pipeline` card against CPU with each; one venice-89 CHOLESKY
+    solve's time and peak memory; the venice-89 CHOLESKY step 1 with the
+    JAX run's TPU arithmetic emulated (its decisions and final cost); the
+    venice-89 `bundle_adjust` with pallas_kernels="off", with CHOLESKY +
+    RIPOBA and with CHOLESKY + RIPCG (counters zeroed just before each,
+    kept in `counts`)."""
+    from povar_tpu_torch import (
+        SolverOptions, SolverSummary, Stage1Solver, Timer, from_numpy,
+        optimize_step1,
+    )
+    from povar_tpu_torch.ops import launches
+    from povar_tpu_torch.options import SolverType, SolverTypeRiemannian
+    from povar_tpu_torch.tools.step2_spread import (
+        JAX_CHOL_COST2, emulate_tpu_onehot,
+    )
+
+    for config in ("off", "cholesky"):
+        check_small_pipeline(config)
+        check_ring(config)
+
+    chol = SolverOptions(solver_type_step_1=SolverType.CHOLESKY)
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    s = Stage1Solver(*args, chol, device="cuda")
+    c = torch.as_tensor(problem.cam_space, device="cuda")
+    lin = s.linearize(c, s.initialize_varproj(c))
+    s.solve(lin, 1e-4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    inc, _n = s.solve(lin, 1e-4)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"CHOLESKY solve (venice-89, lambda 1e-4, warm): {secs * 1e3:.1f} "
+          f"ms, peak device memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f}"
+          f" GiB above the {base / 2**30:.3f} GiB held before), increment "
+          f"finite: {bool(torch.isfinite(inc).all())}", flush=True)
+    del s, lin, inc
+
+    # the JAX run's TPU arithmetic emulated: its decisions and final cost
+    s = emulate_tpu_onehot(Stage1Solver(*args, chol, device="cuda"))
+    _p, c0, l0 = from_numpy(problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                            problem.cam_space, problem.lm_p, device="cuda")
+    tpu = SolverSummary()
+    optimize_step1(s, c0, l0, chol, tpu, Timer(), log=lambda x: None)
+    check_chol_step1("CHOLESKY step 1, one-hot sums and gathers in bf16 as "
+                     "on the TPU", tpu, tpu=True)
+    del s
+
+    runs = (("bundle_adjust off", SolverOptions(pallas_kernels="off")),
+            ("bundle_adjust CHOLESKY+RIPOBA", chol),
+            ("bundle_adjust CHOLESKY+RIPCG", SolverOptions(
+                solver_type_step_1=SolverType.CHOLESKY,
+                solver_type_step_2=SolverTypeRiemannian.RIPCG)))
+    for path, opts in runs:
+        launches.reset_launch_counts()
+        out, p1, p2, secs = pipeline(problem, opts, "cuda")
+        counts[path] = launches.launch_counts()
+        print(f"-- {path}: {secs:.3f} s, {len(p1.iterations)} + "
+              f"{len(p2.iterations)} records", flush=True)
+        check_counts(path, counts[path])
+        if path == "bundle_adjust off":
+            report_step(1, p1, JAX_FINAL_COST)
+            report_step(2, p2, JAX_FINAL_COST2, STEP2_BAND)
+        else:
+            check_chol_step1(f"{path} step 1", p1)
+            its2 = p2.iterations
+            print(f"step 2: {p2.solver_type}, {len(its2)} records "
+                  f"({p2.termination_type}), "
+                  f"{''.join('A' if it.step_is_successful else 'R' for it in its2[1:])}"
+                  f", initial {its2[0].cost.all.error!r} final "
+                  f"{p2.final_cost.all.error!r} (JAX's RIPOBA run: "
+                  f"{JAX_CHOL_COST2!r}, recorded, not compared)", flush=True)
+            check_falling(f"{path} step 2", [it.cost.all.error for it in its2
+                                             if it.step_is_successful])
+            if not (np.isfinite(p2.final_cost.all.error)
+                    and p2.final_cost.all.error < its2[0].cost.all.error):
+                raise AssertionError(f"{path}: step 2 did not fall below its "
+                                     "start")
+        if not all(np.isfinite(a).all() for a in (out.cam_space, out.lm_p_h)):
+            raise AssertionError("non-finite optimized state")
 
 
 def bench_options(base):
@@ -1107,11 +1484,38 @@ def bench_step1(problem, options, label) -> None:
     bench_iterations(step, c, s.lm_pack(s.initialize_varproj(c)), label)
 
 
+def bench_step2(problem, options, label) -> None:
+    """The warm step-2 bench iteration under `options` (linearize + trial
+    from the homogenized VarProj-initialized start, bench_options)."""
+    from povar_tpu_torch import Stage1Solver, Stage2Solver, create_homogeneous
+
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    c = torch.as_tensor(problem.cam_space, device="cuda")
+    lm0 = Stage1Solver(*args, options, device="cuda").initialize_varproj(c)
+    c2, lm2 = create_homogeneous(c, lm0)
+    s2 = Stage2Solver(*args, bench_options(options), device="cuda")
+
+    def step(c, lm):
+        lin = s2.linearize(c, lm)
+        nc, nl, _ok, _it, _ld, err = s2.trial(c, lm, lin, 1e-4)
+        return nc, nl, err["error_all"]
+
+    bench_iterations(step, c2, s2.lm_pack(lm2), label)
+
+
 def bench_iterations(step, c, lm, label, reps: int = 50) -> None:
     """Warm time of one chained iteration (bench.py's definition: 50
-    chained calls, one synchronisation), then its profile."""
+    chained calls, one synchronisation), the kernels one iteration
+    launches, then its profile."""
+    from povar_tpu_torch.ops import launches
+
+    launches.reset_launch_counts()
     step(c, lm)
     torch.cuda.synchronize()
+    print(f"{label} iteration launches: "
+          f"{ {k: v for k, v in launches.launch_counts().items() if v} }",
+          flush=True)
     t0 = time.perf_counter()
     cc, ll = c, lm
     for _ in range(reps):
@@ -1230,6 +1634,7 @@ def main() -> int:
           f"{probe.obs.cam.shape[0]} padded, N = {probe.n_cams}; set-up "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     results = check_kernels(probe, problem, defaults.alpha)
+    results.update(check_cam_kernels(probe))
     del probe
 
     phase("step 1")
@@ -1258,7 +1663,6 @@ def main() -> int:
 
     args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
             problem.num_cameras, problem.num_landmarks)
-    c = torch.as_tensor(problem.cam_space, device="cuda")
     for label, base in (("step-1 defaults", defaults),
                         ("step-1 composed", opts)):
         bench_step1(problem, base, label)
@@ -1273,6 +1677,9 @@ def main() -> int:
 
     phase("E0 operators: fused against composed (venice-89)")
     check_e0_operators(problem, cams, lms, cams_h, lms_h)
+
+    phase("layouts: unstructured against structured (venice-89)")
+    check_layouts(problem, cams_h, lms_h)
 
     phase("step-2 witness (venice-89, card against CPU from one state)")
     check_step2_witness(problem, opts, cams_h, lms_h)
@@ -1319,18 +1726,9 @@ def main() -> int:
           f"{w1.final_cost.all.error!r} {w2.final_cost.all.error!r}",
           flush=True)
 
-    lm0 = Stage1Solver(*args, defaults, device="cuda").initialize_varproj(c)
-    c2, lm2 = create_homogeneous(c, lm0)
     for label, base in (("step-2 defaults", defaults),
                         ("step-2 composed", opts)):
-        s2 = Stage2Solver(*args, bench_options(base), device="cuda")
-
-        def step2(c, lm, s2=s2):
-            lin = s2.linearize(c, lm)
-            nc, nl, _ok, _it, _ld, err = s2.trial(c, lm, lin, 1e-4)
-            return nc, nl, err["error_all"]
-
-        bench_iterations(step2, c2, s2.lm_pack(lm2), label)
+        bench_step2(problem, base, label)
 
     phase("CG solvers (bundle_adjust, PCG with SCHUR_JACOBI + RIPCG)")
     pcg = SolverOptions(solver_type_step_1=SolverType.PCG,
@@ -1358,6 +1756,12 @@ def main() -> int:
 
     phase("f32 (the f32 LM state, bundle_adjust)")
     check_f32(problem, counts)
+
+    phase("unstructured (pallas_kernels='off' and CHOLESKY)")
+    check_unstructured(problem, counts)
+    off = SolverOptions(pallas_kernels="off")
+    bench_step1(problem, off, "step-1 off")
+    bench_step2(problem, off, "step-2 off")
 
     phase("cli (python -m povar_tpu_torch.cli, SolverOptions() defaults)")
     check_cli(problem)

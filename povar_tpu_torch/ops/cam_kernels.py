@@ -1,28 +1,32 @@
 """Wrappers of the camera-table kernels.
 
-The counterpart of povar_tpu/ops/pallas_cam.py: `cam_gather` with the
-JAX function's name and signature. As in ops/pose_kernels.py, the
-wrapper calls the plain PyTorch version (ops/cam_ref.py) when its
-tensors lie on the CPU, and only then; otherwise it checks device,
-dtype, shape and contiguity, allocates the output, launches the
-hand-written CUDA kernel (csrc/cam.cu) on the current stream, raises if
-the launch returned a CUDA error, and adds one to its launch counter
-(`LAUNCHES`, read with the others by ops/launches.py). There is no
-fallback from the card to the plain version.
+The counterpart of povar_tpu/ops/pallas_cam.py: `cam_gather`,
+`cam_scatter_add`, `e0_u`, `e0_scatter` and `hpp_b` with the JAX
+functions' names and signatures. As in ops/pose_kernels.py, each wrapper
+calls the plain PyTorch version (ops/cam_ref.py) when its tensors lie on
+the CPU, and only then; otherwise it checks device, dtype, shape and
+contiguity, allocates the output, launches the hand-written CUDA kernel
+(csrc/cam.cu) on the current stream, raises if the launch returned a
+CUDA error, and adds one to its launch counter (`LAUNCHES`, read with
+the others by ops/launches.py). There is no fallback from the card to
+the plain version.
 
-The other four kernels of pallas_cam.py (cam_scatter_add, e0_u,
-e0_scatter, hpp_b) serve the unstructured path (ROADMAP.md queue 2
-items 21-24) and are not ported yet.
+The f32 LM state's cost runs `cam_gather`; the unstructured layout
+(`Lin1` / `Lin2`) runs all five. Every cam[o] must lie in [0, N): the
+solvers' observation layout checks that once (slots.make_obs). The
+per-observation operands of the three scatters must be zero on slot pad
+rows, whose camera index is a real camera.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from povar_tpu_torch.ops import _build, cam_ref
 from povar_tpu_torch.ops.pose_kernels import (
+    _check_shapes,
     _cuda_checks,
     _launch,
     _on_cpu,
@@ -30,19 +34,30 @@ from povar_tpu_torch.ops.pose_kernels import (
     _stream,
 )
 
-KERNELS = ("cam_gather",)
+KERNELS = ("cam_gather", "cam_scatter_add", "e0_u", "e0_scatter", "hpp_b")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
-# shared memory one block of the gather stages its table rows in: the
-# default 48 KB per block, 12 rows up to N = 1024 cameras
+# shared memory one block of the gather and of the scatter-add stages
+# its table or accumulator rows in: the default 48 KB per block, 12 rows
+# up to N = 1024 cameras
 _TABLE_BYTES = 48 * 1024
+# the (k, d) shapes of hpp_b's Jacobian blocks that csrc/cam.cu
+# instantiates: step 1's [4, 12] and step 2's tangent [2, 11]
+_HPP_B_SHAPES = ((4, 12), (2, 11))
+
+
+def _rows_per_block(r: int, n: int) -> int:
+    return max(1, min(r, _TABLE_BYTES // (4 * n)))
+
+
+def _f32_zeros(rows: int, cols: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((rows, cols), dtype=torch.float32, device=like.device)
 
 
 def cam_gather(table: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
-    """table [R, N] f32, cam [O] i32 -> [R, O] (table[:, cam[o]]), exact.
-    Every cam[o] must lie in [0, N): the solvers' observation layout
-    checks that once (slots.make_obs)."""
+    """table [R, N] f32, cam [O] i32 -> [R, O] (table[:, cam[o]]), exact
+    (C1)."""
     if table.dim() != 2 or cam.dim() != 1:
         raise ValueError(
             f"table [R, N] and cam [O] expected, got {tuple(table.shape)} "
@@ -52,9 +67,106 @@ def cam_gather(table: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
     if _on_cpu(table, cam):
         return cam_ref.cam_gather(table, cam)
     _cuda_checks(o, n, cam, f32=(("table", table),))
-    rows_per_block = max(1, min(r, _TABLE_BYTES // (4 * n)))
     out = torch.empty((r, o), dtype=torch.float32, device=table.device)
     _launch("cam_gather", _build.library().povar_cam_gather,
-            _ptr(cam), _ptr(table), _ptr(out), o, n, r, rows_per_block,
-            _stream(table), counts=LAUNCHES)
+            _ptr(cam), _ptr(table), _ptr(out), o, n, r,
+            _rows_per_block(r, n), _stream(table), counts=LAUNCHES)
     return out
+
+
+def cam_scatter_add(v: torch.Tensor, cam: torch.Tensor,
+                    n_cams: int) -> torch.Tensor:
+    """v [R, O] f32, cam [O] i32 -> [R, N] per-camera sums (C2)."""
+    n = int(n_cams)
+    if v.dim() != 2 or cam.dim() != 1:
+        raise ValueError(
+            f"v [R, O] and cam [O] expected, got {tuple(v.shape)} and "
+            f"{tuple(cam.shape)}"
+        )
+    r, o = v.shape
+    _check_shapes({"v": (v, r, "o")}, cam.shape[0], n)
+    if _on_cpu(v, cam):
+        return cam_ref.cam_scatter_add(v, cam, n)
+    _cuda_checks(o, n, cam, f32=(("v", v),))
+    out = _f32_zeros(r, n, v)
+    _launch("cam_scatter_add", _build.library().povar_cam_scatter_add,
+            _ptr(cam), _ptr(v), _ptr(out), o, n, r, _rows_per_block(r, n),
+            _stream(v), counts=LAUNCHES)
+    return out
+
+
+def _e0_dims(W: torch.Tensor, cam: torch.Tensor, dc: int, dl: int = 0):
+    """(dl, dc, O) of the factorized operand W [dl dc, O]; dl is inferred
+    from W where it is not given."""
+    if W.dim() != 2 or cam.dim() != 1:
+        raise ValueError(
+            f"W [dl*dc, O] and cam [O] expected, got {tuple(W.shape)} and "
+            f"{tuple(cam.shape)}"
+        )
+    dl = dl or W.shape[0] // dc
+    if W.shape[0] != dl * dc:
+        raise ValueError(f"W: {W.shape[0]} rows, not dl * dc = {dl} * {dc}")
+    return dl, dc, W.shape[1]
+
+
+def e0_u(W: torch.Tensor, cam: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """u [dl, O] = W_o . x[:, cam(o)] with W [dl*dc, O] ([dl, dc, O]
+    flat: dl the landmark tangent dimension, dc the camera's), x [dc, N]
+    (C3)."""
+    dc, n = x.shape
+    dl, dc, o = _e0_dims(W, cam, dc)
+    _check_shapes({"cam": (cam[None], 1, "o")}, o, n)
+    if _on_cpu(W, cam, x):
+        return cam_ref.e0_u(W, cam, x)
+    _cuda_checks(o, n, cam, f32=(("W", W), ("x", x)))
+    u = torch.empty((dl, o), dtype=torch.float32, device=W.device)
+    _launch("e0_u", _build.library().povar_cam_e0_u,
+            _ptr(cam), _ptr(W), _ptr(x), _ptr(u), o, n, dl, dc, _stream(W),
+            counts=LAUNCHES)
+    return u
+
+
+def e0_scatter(W: torch.Tensor, cam: torch.Tensor, sb: torch.Tensor,
+               n_cams: int) -> torch.Tensor:
+    """out [dc, N] = sum_o onehot(cam(o)) (W_o^T sb_o) with sb [dl, O],
+    the per-landmark values already expanded to observations (C4)."""
+    n = int(n_cams)
+    dl = sb.shape[0]
+    dl, dc, o = _e0_dims(W, cam, W.shape[0] // max(dl, 1), dl)
+    _check_shapes({"sb": (sb, dl, "o"), "cam": (cam[None], 1, "o")}, o, n)
+    if _on_cpu(W, cam, sb):
+        return cam_ref.e0_scatter(W, cam, sb, n)
+    _cuda_checks(o, n, cam, f32=(("W", W), ("sb", sb)))
+    out = _f32_zeros(dc, n, W)
+    _launch("e0_scatter", _build.library().povar_cam_e0_scatter,
+            _ptr(cam), _ptr(W), _ptr(sb), _ptr(out), o, n, dl, dc,
+            _stream(W), counts=LAUNCHES)
+    return out
+
+
+def hpp_b(Jp: torch.Tensor, r_tilde: torch.Tensor, cam: torch.Tensor,
+          n_cams: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Jp [k*d, O] ([k, d, O] flat: k residual rows, d pose dimensions),
+    r_tilde [k, O] -> (hpp [d*d, N], b [d, N]): per-camera sums of
+    Jp^T Jp and Jp^T r~ (C5). On the card (k, d) is (4, 12) or (2, 11)."""
+    n = int(n_cams)
+    if Jp.dim() != 2 or r_tilde.dim() != 2 or cam.dim() != 1:
+        raise ValueError(
+            f"Jp [k*d, O], r_tilde [k, O] and cam [O] expected, got "
+            f"{tuple(Jp.shape)}, {tuple(r_tilde.shape)}, {tuple(cam.shape)}"
+        )
+    k, o = r_tilde.shape
+    d = Jp.shape[0] // k
+    _check_shapes({"Jp": (Jp, k * d, "o"), "cam": (cam[None], 1, "o")}, o, n)
+    if _on_cpu(Jp, r_tilde, cam):
+        return cam_ref.hpp_b(Jp, r_tilde, cam, n)
+    if (k, d) not in _HPP_B_SHAPES:
+        raise ValueError(f"hpp_b: (k, d) = {(k, d)} is none of "
+                         f"{_HPP_B_SHAPES}")
+    _cuda_checks(o, n, cam, f32=(("Jp", Jp), ("r_tilde", r_tilde)))
+    hpp = _f32_zeros(d * d, n, Jp)
+    b = _f32_zeros(d, n, Jp)
+    _launch("hpp_b", _build.library().povar_cam_hpp_b,
+            _ptr(cam), _ptr(Jp), _ptr(r_tilde), _ptr(hpp), _ptr(b), o, n, k,
+            d, _stream(Jp), counts=LAUNCHES)
+    return hpp, b

@@ -1,7 +1,7 @@
 """Launch counters of every kernel of the package at once.
 
 Each wrapper module (ops/pose_kernels.py for step 1, ops/pose2_kernels.py
-for step 2, ops/cam_kernels.py for the camera-table gather) adds one to
+for step 2, ops/cam_kernels.py for the camera-table kernels) adds one to
 its `LAUNCHES` entry per kernel launch; a run that drives the whole
 two-step solve zeroes and reads them all here.
 """

@@ -12,6 +12,9 @@ These replace, in the reference implementation:
   - per-camera 12x12 `selfadjointView<Upper>().llt().solve(I)`
     (sc/linearization_power_varproj.hpp:141-188) -> cholesky_smallf /
     inv_psd_smallf
+  - the dense reduced camera system's direct solve of CHOLESKY
+    (linearization_sc.hpp:236-245) -> solve_psd_dense (a library
+    Cholesky: the JAX package computes it outside any Pallas kernel)
   - the step-2 tangent bases `kernel_COD` (sc/landmark_block.hpp:
     227-269) -> nullspace_of_rowf
   - Eigen `Matrix::normalize()` of the step-2 camera retraction
@@ -122,6 +125,18 @@ def inv_psd_smallf(a: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
     e = eye.reshape((n, n) + (1,) * (a.ndim - 2)).expand(a.shape)
     return solve_upper_from_lowerf(l, solve_lower_trif(l, e))
+
+
+def solve_psd_dense(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve a x = b for one dense SPD matrix a [n, n] and b [n] (the
+    CHOLESKY path's reduced camera system; `solve_psd_small` of the JAX
+    package, a hand-rolled Cholesky outside any Pallas kernel). A matrix
+    that is not positive definite in its dtype yields an all-NaN x, as
+    the JAX package's square root of a negative pivot does, so the LM
+    loop rejects the step instead of failing."""
+    l, info = torch.linalg.cholesky_ex(a)
+    x = torch.cholesky_solve(b[:, None], l)[:, 0]
+    return torch.where(info == 0, x, torch.full_like(x, float("nan")))
 
 
 def nullspace_of_rowf(v: torch.Tensor) -> torch.Tensor:

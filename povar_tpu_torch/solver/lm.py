@@ -418,8 +418,10 @@ def optimize_step1(
     log: Callable[[str], None] = print,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Step 1: pOSE VarProj LM (optimize_lm_ours_pOSE, cpp:252-542) with
-    the solver's trial (POWER_VARPROJ or PCG). Returns the optimized
-    (cam_space [N, 3, 4], lm_p [M, 3])."""
+    the solver's trial (POWER_VARPROJ, POWER_SCHUR_COMPLEMENT, PCG or
+    CHOLESKY, whose staging in the JAX package only marks its jit
+    boundaries). Returns the optimized (cam_space [N, 3, 4], lm_p
+    [M, 3])."""
     state = _State(cam_space, lm_p)
 
     def initialize():

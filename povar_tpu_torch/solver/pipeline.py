@@ -38,8 +38,8 @@ def bundle_adjust(
     `options=None` runs SolverOptions() defaults; `dtype` is the LM
     state's (f64, or f32, whose cost runs in f32 through the cam_gather
     kernel). Both stage solvers are built before step 1 runs, so a
-    configuration that either step does not run yet (CHOLESKY,
-    `pallas_kernels="off"`, ...) raises NotImplementedError before any
+    configuration that either step does not run yet (pure f64, more
+    than 1024 cameras, ...) raises NotImplementedError before any
     work. Multi-device solves (the JAX package's `mesh`) are not ported
     (ROADMAP.md queue 1 item 13)."""
     options = options or SolverOptions()

@@ -14,7 +14,13 @@ at any N.
 `SlotSolver` is the base of `Stage1Solver` and `Stage2Solver`: the
 device check, the configuration gate, the observation layout, the
 per-observation constants every kernel call takes, the fused power-term
-plan (`plan_e0_fused`) and the CG preconditioner's apply.
+plan (`plan_e0_fused`), the CG preconditioner's apply, and the camera-
+and landmark-side helpers of the unstructured layout (the explicit-
+Jacobian `Lin1` / `Lin2` of `pallas_kernels="off"` and CHOLESKY): its
+per-camera sums and gathers run the camera-table kernels
+(ops/cam_kernels.py) where the JAX package runs a one-hot incidence or
+padded segment sums, and its per-landmark tables live in canonical
+landmark order, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,17 +30,20 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from povar_tpu_torch.ops import cam_kernels, linalg
+from povar_tpu_torch.ops import cam_kernels, linalg, pose_math
 from povar_tpu_torch.options import (
     PreconditionerType,
     RobustNorm,
     SolverOptions,
 )
+from povar_tpu_torch.solver import pcg as pcg_mod
 from povar_tpu_torch.solver.common import accumulate_residual_info
 from povar_tpu_torch.solver.segments import (
     build_slot_plan,
+    slot_expand,
     slot_part_sums,
     slot_row_expand,
+    slot_segment_sum,
 )
 
 # the observation axis is padded with zero-weight rows to a multiple of
@@ -59,11 +68,14 @@ ROBUST_CODE = {
 class Obs(NamedTuple):
     """Static problem structure in slot order (segments.build_slot_plan):
     each landmark's observations occupy a fixed-width contiguous slot.
-    cam: per-observation camera index [Op] (int32); uv: measurements
-    [2, Op]; weight: 0/1 mask [Op] over slot pads (None when there are
-    none); lm_order/lm_inv: slot-row <-> canonical landmark id maps."""
+    cam / lm: per-observation camera and landmark index [Op] (int32; a
+    slot pad row carries the ids of the observation it copies, with
+    weight 0); uv: measurements [2, Op]; weight: 0/1 mask [Op] over slot
+    pads (None when there are none); lm_order/lm_inv: slot-row <->
+    canonical landmark id maps."""
 
     cam: torch.Tensor
+    lm: torch.Tensor
     uv: torch.Tensor
     weight: Optional[torch.Tensor]
     lm_order: torch.Tensor
@@ -159,6 +171,7 @@ def make_obs(
 
     obs = Obs(
         cam=dev(obs_cam_np[perm].astype(np.int32)),
+        lm=dev(obs_lm_np[perm].astype(np.int32)),
         uv=dev(obs_uv_np[:, perm], dtype),
         weight=None if w is None else dev(w, dtype),
         lm_order=dev(lm_order.astype(np.int64)),
@@ -181,15 +194,10 @@ def common_unsupported(
             "mixed_precision_solves=False with an f64 state, the pure-f64 "
             "solve (ROADMAP.md queue 1 item 11, precision modes)"
         )
-    if options.pallas_kernels == "off":
-        return (
-            "pallas_kernels='off', the unstructured path (ROADMAP.md "
-            "queue 1 item 9)"
-        )
     if n_cams > MAX_CAMERAS:
         return (
             f"{n_cams} cameras > {MAX_CAMERAS} (ROADMAP.md queue 1 item "
-            "12, large N)"
+            "12, large N: camera windows and the banded CHOLESKY)"
         )
     if options.device_lm_loop == "on":
         return (
@@ -214,6 +222,13 @@ class SlotSolver:
 
     # what the subclass runs, for the NotImplementedError message
     PATH = ""
+
+    @staticmethod
+    def uses_unstructured(options: SolverOptions) -> bool:
+        """Whether the stage runs the unstructured layout (explicit
+        Jacobians) under `options`: with `pallas_kernels="off"`, as in the
+        JAX package, whose "auto" also runs it off the TPU."""
+        return options.pallas_kernels == "off"
 
     def __init__(
         self,
@@ -246,6 +261,7 @@ class SlotSolver:
             )
         self.opts = options
         self.dtype = dtype
+        self.unstructured = self.uses_unstructured(options)
         self.solve_dtype = torch.float32
         self.robust = ROBUST_CODE[options.residual.robust_norm]
         self.huber = float(options.residual.huber_parameter)
@@ -270,10 +286,10 @@ class SlotSolver:
             else (w > 0).to(sd).reshape(1, -1)
         )
         # where the fused power-series term runs (None: the composed
-        # kernels everywhere)
+        # kernels everywhere, or the unstructured layout)
         self.e0_plan = plan_e0_fused(
             self.lm_shapes, None if w is None else w.cpu().numpy()
-        ) if options.fused_power_term else None
+        ) if options.fused_power_term and not self.unstructured else None
 
     # ---- landmark "L space": per-landmark tables live in slot-ROW
     # order between a slot reduce and a slot expansion, so both
@@ -302,8 +318,10 @@ class SlotSolver:
         return s.index_select(-1, self.obs.lm_order)
 
     def lm_pack(self, lm_p):
-        """Canonical [M, K] state -> LmState."""
-        if isinstance(lm_p, LmState):
+        """Canonical [M, K] state -> LmState (identity on the
+        unstructured layout, whose state stays canonical as in the JAX
+        package)."""
+        if isinstance(lm_p, LmState) or self.unstructured:
             return lm_p
         return LmState(rows=self._lm_to_L(lm_p.to(self.dtype).T))
 
@@ -324,6 +342,179 @@ class SlotSolver:
         """cam_space [N, 3, 4] -> [12, N] table of vec(P) rows."""
         return cam_space.to(dtype).reshape(self.n_cams, 12).T.contiguous()
 
+    # ---- the unstructured layout's camera side (`_seg_cam` /
+    # `_gather_cam_x` of the JAX package, stage1.py:1169-1188): per-camera
+    # sums and gathers of any leading shape through the camera-table
+    # kernels, for f32 operands (the solve dtype)
+
+    def _seg_cam(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., O] -> [..., N] per-camera sums (cam_scatter_add)."""
+        flat = x.reshape(-1, x.shape[-1]).contiguous()
+        out = cam_kernels.cam_scatter_add(flat, self.obs.cam, self.n_cams)
+        return out.reshape(x.shape[:-1] + (self.n_cams,))
+
+    def _gather_cam_x(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., N] camera table -> per-observation [..., O]
+        (cam_gather)."""
+        flat = x.reshape(-1, x.shape[-1]).contiguous()
+        out = cam_kernels.cam_gather(flat, self.obs.cam)
+        return out.reshape(x.shape[:-1] + (out.shape[-1],))
+
+    def _e0_w_matvec(self, v: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+        """E0 v through the factorized operand W [dl, dc, O] (`_e0_w_matvec`
+        of the JAX package): e0_u, the per-landmark reduce and re-expand
+        over the slot layout, e0_scatter. v, result: [dc, N]."""
+        w_flat = W.reshape(-1, W.shape[-1])
+        u = cam_kernels.e0_u(w_flat, self.obs.cam, v.contiguous())
+        sb = self._seg_lm_reexpand(u).contiguous()
+        return cam_kernels.e0_scatter(w_flat, self.obs.cam, sb, self.n_cams)
+
+    # ---- the unstructured layout's normal equations and solves, shared
+    # by both stages (`Lin1` with Jp [4, 12, O], Jl [4, 3, O]; `Lin2` with
+    # the tangent Jp_ns [2, 11, O], Jl_ns [2, 3, O]); pieces of
+    # `_prep_hll` / `_prep_hpp_b` / `_e0_factor` / `_schur_diag` /
+    # `_power_iterate` / `_pcg_iterate` of the JAX package
+    # (stage1.py:1362-1607, stage2.py:592-822)
+
+    def _weigh_u(self, r, Jp, Jl):
+        """The sqrt robust weights applied to the residual and Jacobians
+        [k, .., O] of a linearization."""
+        _err, w = pose_math.robust_error_and_weight(
+            (r * r).sum(dim=0), self.robust, self.huber
+        )
+        sw = torch.sqrt(w)
+        return r * sw[None], Jp * sw[None, None], Jl * sw[None, None]
+
+    def _lin_scale_jp(self, Jp):
+        """Pose Jacobi column scaling 1 / (eps + col norm) from the
+        per-camera Jp column norms (scale_Jp_cols_pOSE / _joint,
+        landmark_block.hpp:324-350): one cam_scatter_add, one
+        cam_gather. Returns (scaled Jp, pose_scale [12, N])."""
+        pose_scale = 1.0 / (self.jacobi_eps + torch.sqrt(
+            self._seg_cam((Jp * Jp).sum(dim=0))))
+        return Jp * self._gather_cam_x(pose_scale)[None], pose_scale
+
+    def _hll_u(self, jl: torch.Tensor) -> torch.Tensor:
+        """Per-landmark Jl^T Jl [3, 3, M]."""
+        return self._seg_lm(torch.einsum("kio,kjo->ijo", jl, jl))
+
+    def _hll_inv_u(self, jl, r, lam_s: Optional[float]):
+        """(hll_inv [3, 3, M], hll_inv bl [3, M]) with the landmark blocks
+        damped by lam_s I where it is given."""
+        hll = self._hll_u(jl)
+        if lam_s is not None:
+            eye = torch.eye(3, dtype=hll.dtype, device=hll.device)
+            hll = hll + lam_s * eye[:, :, None]
+        hll_inv = linalg.inv3x3f(hll)
+        bl = self._seg_lm(torch.einsum("kio,ko->io", jl, r))
+        return hll_inv, mv(hll_inv, bl)
+
+    def _hpp_b_u(self, jp, jl, r, hll_inv_bl):
+        """(hpp [d, d, N] undamped, b [d, N]): the per-camera normal
+        equations of the VarProj-corrected residual
+        r~ = r - Jl hll_inv bl, one hpp_b launch."""
+        r_tilde = r - torch.einsum("ijo,jo->io", jl,
+                                   self._gather_lm_x(hll_inv_bl))
+        k, d = jp.shape[:2]
+        hpp, b = cam_kernels.hpp_b(jp.reshape(k * d, -1).contiguous(),
+                                   r_tilde.contiguous(), self.obs.cam,
+                                   self.n_cams)
+        return hpp.reshape(d, d, self.n_cams), b
+
+    def _e0_factor_u(self, jp, jl, hll_inv) -> torch.Tensor:
+        """The factorized E0 operand W_o = L^T Jl_o^T Jp_o [3, d, O] with
+        hll_inv = L L^T, so E0 = (scatter_cam W^T)(seg_lm W gather)."""
+        a = torch.einsum("kio,kjo->ijo", jl, jp)  # [3, d, O]
+        lg = self._gather_lm_x(linalg.cholesky_smallf(hll_inv))
+        # contiguous once per solve: every power term or CG iteration
+        # hands it to e0_u and e0_scatter
+        return torch.einsum("kio,kjo->ijo", lg, a).contiguous()
+
+    def _schur_corr_u(self, jp, jl, hll_inv) -> torch.Tensor:
+        """The Schur corrections of the reduced camera system's diagonal
+        blocks, sum over a camera's observations of W_o hll_inv W_o^T
+        with W_o = Jp_o^T Jl_o [d, d, N] (a landmark observes a camera at
+        most once, so the diagonal block couples an observation with
+        itself only): one cam_scatter_add of d d rows."""
+        w = torch.einsum("kio,kjo->ijo", jp, jl)  # [d, 3, O]
+        wh = torch.einsum("ijo,jko->iko", w, self._gather_lm_x(hll_inv))
+        return self._seg_cam(torch.einsum("iko,jko->ijo", wh, w))
+
+    def _power_solve_u(self, b, hpp, W, lam_s: float):
+        """The power series x = sum_i (B^-1 E0)^i B^-1 (-b), B = hpp +
+        lam I. Returns (inc [d, N] in the state dtype, terms)."""
+        eye = torch.eye(hpp.shape[0], dtype=hpp.dtype, device=hpp.device)
+        b_inv = linalg.inv_psd_smallf(hpp + lam_s * eye[:, :, None])
+        inc, n_iter = pcg_mod.power_series(
+            lambda v: mv(b_inv, v),
+            lambda v: self._e0_w_matvec(v, W),
+            -b,
+            max_terms=self.power_m,
+            q_tolerance=self.opts.eta,
+            r_tolerance=self.opts.r_tolerance,
+        )
+        return inc.to(self.dtype), n_iter
+
+    def _pcg_solve_u(self, b, hpp, W, lam_s: float, schur_corr):
+        """PCG on the implicit reduced camera system S x = b,
+        S = hpp + lam I - E0, preconditioned per preconditioner_type from
+        the diagonal blocks less `schur_corr()`. Returns (inc = -x
+        [d, N] in the state dtype, CG iterations)."""
+        eye = torch.eye(hpp.shape[0], dtype=hpp.dtype, device=hpp.device)
+        pmats = (() if self.opts.preconditioner_type
+                 == PreconditionerType.IDENTITY else self._precond_mats(
+                     hpp + lam_s * eye[:, :, None] - schur_corr()))
+
+        def matvec(v):
+            return mv(hpp, v) + lam_s * v - self._e0_w_matvec(v, W)
+
+        x, n_iter, _term = pcg_mod.conjugate_gradients(
+            matvec, b, torch.zeros_like(b), self._precond_closure(pmats),
+            max_iterations=self.opts.max_linear_solver_iterations,
+            min_iterations=self.opts.min_linear_solver_iterations,
+            q_tolerance=self.opts.eta,
+            r_tolerance=-1.0,
+            residual_reset_period=self.opts.residual_reset_period,
+        )
+        return (-x).to(self.dtype), n_iter
+
+    def _damped_lm_step_u(self, jp, jl, r, inc, lam_s: float):
+        """The damped landmark step from the stored scaled blocks (the
+        poBA / step-2 back-substitution, landmark_block.hpp:574-668):
+        (jp inc [k, O], -(Hll + lam I)^-1 seg_lm(Jl^T (r + Jp inc))
+        [3, M])."""
+        eye = torch.eye(3, dtype=jl.dtype, device=jl.device)
+        jp_inc = torch.einsum("ijo,jo->io", jp,
+                              self._gather_cam_x(inc.to(self.solve_dtype)))
+        inc_lm = -linalg.solve3x3f(
+            self._hll_u(jl) + lam_s * eye[:, :, None],
+            self._seg_lm(torch.einsum("kio,ko->io", jl, r + jp_inc)),
+        )
+        return jp_inc, inc_lm
+
+    def _l_diff_u(self, j_inc, r) -> torch.Tensor:
+        """The model cost decrease -sum(j_inc (0.5 j_inc + r)), summed in
+        f64 as a 0-d tensor."""
+        return -(j_inc * (0.5 * j_inc + r)).sum(dtype=torch.float64)
+
+    def _lm_add_u(self, lm_p, inc: torch.Tensor):
+        """The landmark state plus a canonical-order increment [K, M], in
+        the state dtype and the state's representation."""
+        inc = inc.to(self.dtype)
+        if isinstance(lm_p, LmState):
+            return LmState(rows=lm_p.rows + self._lm_to_L(inc))
+        return lm_p + inc.T
+
+    # ---- the unstructured layout's landmark side, in canonical order
+
+    def _seg_lm(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., O] -> [..., M] per-landmark sums."""
+        return slot_segment_sum(x, self.lm_shapes, self.obs.lm_inv)
+
+    def _gather_lm_x(self, s: torch.Tensor) -> torch.Tensor:
+        """[..., M] -> per-observation [..., O]."""
+        return slot_expand(s, self.lm_shapes, self.obs.lm_order)
+
     # ---- the cost of an f32 LM state (`_compute_error` of the JAX
     # package off its double-float route), shared by both stages
 
@@ -332,6 +523,16 @@ class SlotSolver:
         the cam_gather kernel (`_gather_cams` of the JAX package)."""
         table = self._cam_table(cam_space, torch.float32)
         return cam_kernels.cam_gather(table, self.obs.cam).reshape(3, 4, -1)
+
+    def _gather_cams_state(self, cam_space: torch.Tensor) -> torch.Tensor:
+        """cam_space [N, 3, 4] -> per-observation P [3, 4, O] in the state
+        dtype: through cam_gather for an f32 state, an index gather of
+        the f64 table otherwise (the JAX package's XLA gather; the
+        camera-table kernels are f32)."""
+        if self.dtype == torch.float32:
+            return self._gather_cams(cam_space)
+        table = self._cam_table(cam_space, self.dtype)
+        return table.index_select(1, self.obs.cam.long()).reshape(3, 4, -1)
 
     def _mask_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Zero the slot pad rows of per-observation rows [k, O]."""

@@ -1,12 +1,15 @@
-"""Step-2 Riemannian projective refinement: RIPOBA and RIPCG on the
-structured path.
+"""Step-2 Riemannian projective refinement: RIPOBA and RIPCG.
 
-The counterpart of povar_tpu/solver/stage2.py on its structured path
-(`Lin2S`): the homogeneous Jacobians are never materialized; every
-per-observation pass is one of the eight kernels of ops/pose2_kernels.py
-(hand-written CUDA on the card, their plain PyTorch versions on the
-CPU), and the landmark side is reshape-sums and broadcasts over the slot
-layout. This module replaces:
+The counterpart of povar_tpu/solver/stage2.py on both of its layouts.
+The structured one (`Lin2S`, the default): the homogeneous Jacobians
+are never materialized; every per-observation pass is one of the eight
+kernels of ops/pose2_kernels.py (hand-written CUDA on the card, their
+plain PyTorch versions on the CPU), and the landmark side is
+reshape-sums and broadcasts over the slot layout. The unstructured one
+(`Lin2`, with `pallas_kernels="off"`): explicit weighted, scaled and
+tangent-projected Jacobians (ops/pose_math.py), per-camera sums and
+gathers through the camera-table kernels of ops/cam_kernels.py, and
+per-landmark tables in canonical landmark order. This module replaces:
   - linearize_landmark_projective_space_homogeneous + linearize_nullspace
     (sc/landmark_block.hpp:180-269)
   - prepare_Hb_joint / solve_joint / right_mul_*_joint
@@ -32,10 +35,10 @@ are f32 either way. Retraction after each step:
 Frobenius-normalize the cameras and dehomogenize the landmarks
 (bal_bundle_adjustment.cpp:700-705).
 
-Both step-2 solvers run, with the fused power term (the JAX package's
-default) or the composed one (`fused_power_term=False`); any other
-step-2 configuration raises NotImplementedError naming its ROADMAP.md
-item.
+Both step-2 solvers run on both layouts, the structured one with the
+fused power term (the JAX package's default) or the composed one
+(`fused_power_term=False`); any other step-2 configuration raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -58,6 +61,22 @@ from povar_tpu_torch.solver.slots import (
     common_unsupported,
     mv,
 )
+
+
+class Lin2(NamedTuple):
+    """Unstructured step-2 linearization point (all f32): the scaled
+    storage, its tangent projections and the tangent bases. Landmark-
+    axis fields are in canonical landmark order."""
+
+    Jp: torch.Tensor  # [2, 12, O] scaled
+    Jl: torch.Tensor  # [2, 4, O] scaled
+    r: torch.Tensor  # [2, O] sqrt-weighted residuals
+    Jp_ns: torch.Tensor  # [2, 11, O]
+    Jl_ns: torch.Tensor  # [2, 3, O]
+    kernel_cam: torch.Tensor  # [12, 11, N]
+    kernel_lm: torch.Tensor  # [4, 3, M]
+    pose_scale: torch.Tensor  # [12, N]
+    jl_scale: torch.Tensor  # [4, M]
 
 
 class Lin2S(NamedTuple):
@@ -98,11 +117,12 @@ class Stage2Solver(SlotSolver):
     kernels; "cpu" runs their plain versions).
 
     Public API as in the JAX package: compute_error, linearize,
-    solve_power, solve_pcg, solve, apply, trial, lm_pack, lm_unpack.
-    Landmark state may be passed canonical ([M, 4] homogeneous) or
-    packed (LmState)."""
+    solve_power, solve_pcg, solve, apply, trial, lm_pack, lm_unpack,
+    dispatching on the layout of `lin`. Landmark state may be passed
+    canonical ([M, 4] homogeneous) or packed (LmState); the unstructured
+    layout keeps it canonical."""
 
-    PATH = "step 2 on the structured RIPOBA and RIPCG paths"
+    PATH = "step 2 (RIPOBA, RIPCG) on the structured and unstructured layouts"
 
     def __init__(
         self,
@@ -121,14 +141,14 @@ class Stage2Solver(SlotSolver):
         )
         self.use_valid_only = options.use_projection_validity_check()
 
-    def solve(self, lin: Lin2S, lam) -> Tuple[torch.Tensor, int]:
+    def solve(self, lin, lam) -> Tuple[torch.Tensor, int]:
         """Dispatch on solver_type_step_2: (inc [11, N] in the state
         dtype, power terms or CG iterations)."""
         if self.opts.solver_type_step_2 == SolverTypeRiemannian.RIPCG:
             return self.solve_pcg(lin, lam)
         return self.solve_power(lin, lam)
 
-    def trial(self, cam_space, lm_p_h, lin: Lin2S, lam):
+    def trial(self, cam_space, lm_p_h, lin, lam):
         """One LM backtracking trial: solve + apply + cost, with no host
         synchronisation except the inner solve's early-exit tests.
         Returns (new_cams, new_lms, inc_finite, num_inner_iters, l_diff,
@@ -171,11 +191,19 @@ class Stage2Solver(SlotSolver):
 
     # --------------------------------------------------------- linearize
 
-    def linearize(self, cam_space, lm_p_h) -> Lin2S:
+    def linearize(self, cam_space, lm_p_h):
         """Homogeneous linearization, Jacobi scaling and tangent-space
-        projection (`_linearize_s` of the JAX package): one `prepare2`
-        pass, the landmark slot sums, the scales, the tangent bases and
-        the projected landmark storage."""
+        projection. Structured (`_linearize_s` of the JAX package): one
+        `prepare2` pass, the landmark slot sums, the scales, the tangent
+        bases and the projected landmark storage; unstructured
+        (`_linearize`, in the reference's order: weight, scale Jl, scale
+        Jp, then project the scaled blocks, landmark_block.hpp:227-269)."""
+        if self.unstructured:
+            r, Jp, Jl = self._lin_core(cam_space, lm_p_h)
+            Jl, jl_scale = self._lin_scale_jl(Jl)
+            Jp, pose_scale = self._lin_scale_jp(Jp)
+            return self._lin_nullspace(cam_space, lm_p_h, Jp, Jl, r,
+                                       pose_scale, jl_scale)
         sd = self.solve_dtype
         ct = self._cam_table(cam_space, sd)
         x4_L = self._lm_rows(lm_p_h).to(sd)  # [4, L]
@@ -189,6 +217,47 @@ class Stage2Solver(SlotSolver):
         pose_scale = 1.0 / (self.jacobi_eps + torch.sqrt(jpsq))
         return self._lin2_tangent_s(ct, x4_L, x4, rw, sw, mm, jlw, jl_scale,
                                     pose_scale)
+
+    def _lin_core(self, cam_space, lm_p_h):
+        """The homogeneous residual and Jacobians, pad rows zeroed,
+        invalid projections zeroed where the validity check is on
+        (landmark_block.hpp:203-222), with sqrt robust weights applied."""
+        xh = self._expand_L(self._lm_rows(lm_p_h).to(self.solve_dtype))
+        r, Jp, Jl, valid = pose_math.homogeneous_jacobians_t(
+            self._gather_cams(cam_space), xh, self._uv_s
+        )
+        r, Jp, Jl = (self._mask_rows(t) for t in (r, Jp, Jl))
+        if self.use_valid_only:
+            r, Jp, Jl = (torch.where(valid, t, torch.zeros_like(t))
+                         for t in (r, Jp, Jl))
+        return self._weigh_u(r, Jp, Jl)
+
+    def _lin_scale_jl(self, Jl):
+        """scale_Jl_cols_homogeneous (landmark_block.hpp:302-318)."""
+        jl_scale = 1.0 / (self.jacobi_eps
+                          + torch.sqrt(self._seg_lm((Jl * Jl).sum(dim=0))))
+        return Jl * self._gather_lm_x(jl_scale)[None], jl_scale
+
+    def _lin_nullspace(self, cam_space, lm_p_h, Jp, Jl, r, pose_scale,
+                       jl_scale) -> Lin2:
+        """Tangent-space projection of the scaled blocks
+        (linearize_nullspace, landmark_block.hpp:227-269): the Householder
+        bases, and Jp_ns = Jp kernel_cam with kernel_cam [12, 11, N]
+        gathered per observation by cam_gather (132 rows)."""
+        sd = self.solve_dtype
+        kernel_cam = linalg.nullspace_of_rowf(
+            self._cam_table(cam_space, sd)
+        )  # [12, 11, N]
+        kernel_lm = linalg.nullspace_of_rowf(
+            self._L_to_lm(self._lm_rows(lm_p_h)).to(sd)
+        )  # [4, 3, M]
+        Jp_ns = torch.einsum("ijo,jko->iko", Jp,
+                             self._gather_cam_x(kernel_cam))
+        Jl_ns = torch.einsum("ijo,jko->iko", Jl,
+                             self._gather_lm_x(kernel_lm))
+        return Lin2(Jp=Jp, Jl=Jl, r=r, Jp_ns=Jp_ns, Jl_ns=Jl_ns,
+                    kernel_cam=kernel_cam, kernel_lm=kernel_lm,
+                    pose_scale=pose_scale, jl_scale=jl_scale)
 
     def _lin2_tangent_s(self, ct, x4_L, x4, rw, sw, mm, jlw, jl_scale,
                         pose_scale) -> Lin2S:
@@ -276,11 +345,18 @@ class Stage2Solver(SlotSolver):
         )
         return self._fold_kps(lin, hpp12, b12)
 
-    def solve_power(self, lin: Lin2S, lam) -> Tuple[torch.Tensor, int]:
+    def solve_power(self, lin, lam) -> Tuple[torch.Tensor, int]:
         """RIPOBA: power series on the 11-dof tangent system
         (solve_joint, hpp:240-287). Returns (inc [11, N] in the state
         dtype, num_terms)."""
         lam_s = self._solve_scalar(lam)
+        if isinstance(lin, Lin2):
+            hll_inv, hll_inv_bl = self._hll_inv_u(lin.Jl_ns, lin.r, lam_s)
+            hpp, b = self._hpp_b_u(lin.Jp_ns, lin.Jl_ns, lin.r, hll_inv_bl)
+            return self._power_solve_u(
+                b, hpp, self._e0_factor_u(lin.Jp_ns, lin.Jl_ns, hll_inv),
+                lam_s,
+            )
         _hll_inv, hib_obs, b6 = self._prep_hll_s(lin, lam_s)
         hpp11, b11 = self._hpp_b11(lin, hib_obs)
         eye = torch.eye(11, dtype=hpp11.dtype, device=hpp11.device)
@@ -295,13 +371,21 @@ class Stage2Solver(SlotSolver):
         )
         return inc.to(self.dtype), n_iter
 
-    def solve_pcg(self, lin: Lin2S, lam) -> Tuple[torch.Tensor, int]:
+    def solve_pcg(self, lin, lam) -> Tuple[torch.Tensor, int]:
         """RIPCG (linearizor_sc.cpp:245-325; `_solve_pcg` of the JAX
         package): PCG on the implicit tangent reduced camera system
         S x = b11, S = Hpp11 + lam I - E0, preconditioned per
         options.preconditioner_type. Returns (inc = -x [11, N] in the
         state dtype, CG iterations)."""
         lam_s = self._solve_scalar(lam)
+        if isinstance(lin, Lin2):
+            hll_inv, hll_inv_bl = self._hll_inv_u(lin.Jl_ns, lin.r, lam_s)
+            hpp, b = self._hpp_b_u(lin.Jp_ns, lin.Jl_ns, lin.r, hll_inv_bl)
+            return self._pcg_solve_u(
+                b, hpp, self._e0_factor_u(lin.Jp_ns, lin.Jl_ns, hll_inv),
+                lam_s,
+                lambda: self._schur_corr_u(lin.Jp_ns, lin.Jl_ns, hll_inv),
+            )
         _hll_inv, hib_obs, b6 = self._prep_hll_s(lin, lam_s)
         hpp11, b11 = self._hpp_b11(lin, hib_obs)
         precond = self._precond_closure(
@@ -397,13 +481,34 @@ class Stage2Solver(SlotSolver):
 
     # ------------------------------------------------------------- apply
 
-    def apply(self, cam_space, lm_p_h, lin: Lin2S, inc, lam):
+    def apply(self, cam_space, lm_p_h, lin, inc, lam):
         """back_substitute_joint + apply_joint + retraction
         (landmark_block.hpp:574-623, linearizor_power_varproj.cpp:
         276-308, bal_bundle_adjustment.cpp:700-705). Returns
         (new_cam_space, new_lm_p_h, l_diff)."""
-        new_lm, l_diff = self._back_sub_s(lm_p_h, lin, inc, lam)
+        back_sub = (self._back_sub if isinstance(lin, Lin2)
+                    else self._back_sub_s)
+        new_lm, l_diff = back_sub(lm_p_h, lin, inc, lam)
         return self._update_cams(cam_space, lin, inc), new_lm, l_diff
+
+    def _back_sub(self, lm_p_h, lin: Lin2, inc, lam):
+        """The unstructured damped tangent landmark step (`_back_sub` of
+        the JAX package): from the stored blocks, lifted 3 -> 4 through
+        kernel_lm, l_diff from the scaled Jl, then unscaled, added and
+        dehomogenized. Returns (new_lm_p_h, l_diff)."""
+        jp_inc, inc3 = self._damped_lm_step_u(
+            lin.Jp_ns, lin.Jl_ns, lin.r, inc, self._solve_scalar(lam)
+        )  # inc3 [3, M]
+        inc_proj = mv(lin.kernel_lm, inc3)  # [4, M]
+        j_inc = jp_inc + torch.einsum("ijo,jo->io", lin.Jl,
+                                      self._gather_lm_x(inc_proj))
+        new_lm = self._lm_add_u(lm_p_h, inc_proj * lin.jl_scale)
+        if isinstance(new_lm, LmState):
+            rows = new_lm.rows
+            new_lm = LmState(rows=rows / rows[3:4, :])
+        else:
+            new_lm = new_lm / new_lm[:, 3:4]
+        return new_lm, self._l_diff_u(j_inc, lin.r)
 
     def _back_sub_s(self, lm_p_h, lin: Lin2S, inc, lam):
         """Damped tangent landmark back-substitution, the lift 3 -> 4,
@@ -432,7 +537,7 @@ class Stage2Solver(SlotSolver):
         new_lm_h = lm_p_h + self._L_to_lm(inc4).T
         return new_lm_h / new_lm_h[:, 3:4], -neg_l_diff
 
-    def _update_cams(self, cam_space, lin: Lin2S, inc):
+    def _update_cams(self, cam_space, lin, inc):
         """Camera tangent lift 11 -> 12 through kernel_cam, unscale, add,
         Frobenius-normalize retraction (apply_joint,
         linearizor_power_varproj.cpp:276-308)."""

@@ -2,7 +2,8 @@
 
     python -m povar_tpu_torch.tools.step2_spread [--runs 5] [--long 300]
         [--small 0] [--witness 0] [--step2 RIPOBA] [--pcg 0] [--psc 0]
-        [--psc-device cuda] [--ring 0]
+        [--psc-device cuda] [--psc-ba 0] [--chol 0] [--chol-device cuda]
+        [--ring 0]
         [--out build/step2_spread.json]
 
 On synthetic_bal_problem_fast(89, 110973, 5, seed=0) with the composed
@@ -33,15 +34,26 @@ step-2 cost:
                 SolverOptions() defaults otherwise): the spread of the
                 final cost that chip_smoke.py's PCG bound was set from;
   ring          `--ring` card runs of each `ring_pipeline` configuration
-                (POWER_SCHUR_COMPLEMENT + RIPOBA, the f32 state) against
-                one CPU run: the evidence for RING_TOLS;
+                (POWER_SCHUR_COMPLEMENT + RIPOBA, the f32 state, the
+                unstructured layout, CHOLESKY + RIPOBA) against one CPU
+                run: the evidence for RING_TOLS;
   psc           `--psc` step-1 solves with POWER_SCHUR_COMPLEMENT
                 (SolverOptions() defaults otherwise) on the card, or with
                 `--psc-device cpu` through the plain versions on the CPU:
                 the spread of the final cost that chip_smoke.py's PSC
                 band was set from, how many opening decisions each
                 shares with the JAX package's run (`JAX_PSC_DECISIONS`)
-                and its power-term counts (`JAX_PSC_TERMS`).
+                and its power-term counts (`JAX_PSC_TERMS`);
+  psc ba        `--psc-ba` venice-89 `bundle_adjust` runs with
+                POWER_SCHUR_COMPLEMENT + RIPOBA: where step 2 ends after
+                the poBA basin's step 1 (chip_smoke.py's PSC_STEP2_MAX);
+  chol          `--chol` step-1 solves with CHOLESKY (the dense reduced
+                camera system on the unstructured layout, SolverOptions()
+                defaults otherwise) on the card, or with `--chol-device
+                cpu` through the plain versions on the CPU: the spread
+                that chip_smoke.py's CHOLESKY band was set from, and the
+                opening decisions each shares with the JAX package's run
+                (`JAX_CHOL_DECISIONS`).
 
 Prints one line per run and writes every trajectory (accept/reject
 sequence, power terms, costs, termination) as JSON to `--out`. Needs a
@@ -157,6 +169,52 @@ def calm_subproblem(problem, cams_h, lms_h, calm=CALM):
     return args, lms_h[keep_lm]
 
 
+def f64_twin(solver_cls, args, options):
+    """A CPU stage solver (`solver_cls` on the arguments `args`) whose
+    unstructured layout evaluates in f64 throughout: the cameras
+    gathered in f64, the Jacobians, sums and solves in f64 (the plain
+    versions take any dtype). The reference chip_smoke.py holds both f32
+    layouts to; the port refuses pure f64 solves (ROADMAP.md queue 1
+    item 11), so this is a diagnostic, not a configuration."""
+    s = solver_cls(*args, options, device="cpu")
+    if not s.unstructured:
+        raise ValueError("f64_twin: the unstructured layout (pallas_kernels="
+                         "'off') only")
+    s.solve_dtype = torch.float64
+    s._uv_s = s.obs.uv
+    s._mask1 = s._mask1.double()
+    s._gather_cams = s._gather_cams_state
+    return s
+
+
+def emulate_tpu_onehot(solver):
+    """Make `solver` (unstructured) evaluate its camera side as the JAX
+    package's unstructured layout does on a TPU: every per-camera sum and
+    gather there is a one-hot `dot_general` at default precision, whose
+    f32 operands the MXU rounds to bf16 before an f32 accumulation
+    (povar_tpu/solver/segments.py onehot_segment_sum / onehot_gather;
+    stage1.py _seg_cam, _gather_cam_x, _prep_hpp_b). Here the operand of
+    each sum or gather is rounded to bf16 the same way, and Hpp / b are
+    sums of bf16-rounded per-observation products, as JAX's
+    `_seg_cam_outer`. A diagnostic of the JAX run's arithmetic
+    (chip_smoke.py's CHOLESKY phase), not a configuration."""
+    def bf16(x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    seg, gather = solver._seg_cam, solver._gather_cam_x
+    solver._seg_cam = lambda x: seg(bf16(x))
+    solver._gather_cam_x = lambda x: gather(bf16(x))
+
+    def hpp_b(jp, jl, r, hll_inv_bl):
+        r_tilde = r - torch.einsum("ijo,jo->io", jl,
+                                   solver._gather_lm_x(hll_inv_bl))
+        return (solver._seg_cam(torch.einsum("kio,kjo->ijo", jp, jp)),
+                solver._seg_cam(torch.einsum("kio,ko->io", jp, r_tilde)))
+
+    solver._hpp_b_u = hpp_b
+    return solver
+
+
 def step2_witness(problem, opts, cams_h, lms_h, iters=WITNESS_ITERS,
                   calm=CALM):
     """The first `iters` step-2 iterations on `calm_subproblem` of the
@@ -223,6 +281,13 @@ SMALL_CONFIGS = {
     "cg": dict(solver_type_step_1=SolverType.PCG,
                solver_type_step_2=SolverTypeRiemannian.RIPCG,
                max_num_iterations_step_1=11),
+    # both steps on the unstructured layout
+    "off": dict(pallas_kernels="off"),
+    # CHOLESKY (step 1 unstructured, step 2 structured); its step 1 ends
+    # where step 2's start is chaotic (tests/test_torch_unstructured_
+    # stage2.py), so step 2 is held only to falling below its start
+    "cholesky": dict(solver_type_step_1=SolverType.CHOLESKY,
+                     max_num_iterations_step_2=4),
 }
 
 
@@ -271,14 +336,21 @@ def ring_case():
 
 # The `bundle_adjust` configurations run on `ring_case` card against CPU
 # (chip_smoke.py, tests/test_torch_cuda.py): POWER_SCHUR_COMPLEMENT +
-# RIPOBA with an f64 state, and SolverOptions() defaults with an f32
-# state; (options, state dtype) each.
+# RIPOBA with an f64 state, SolverOptions() defaults with an f32 state,
+# and the two unstructured configurations; (options, state dtype) each.
 RING_CONFIGS = {
     "psc": (dict(solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT,
                  max_num_iterations_step_1=4, max_num_iterations_step_2=4),
             torch.float64),
     "f32": (dict(max_num_iterations_step_1=6, max_num_iterations_step_2=6),
             torch.float32),
+    # the unstructured layout in both steps, and CHOLESKY + RIPOBA (step 2
+    # structured), as tests/test_torch_unstructured_stage2.py runs them
+    "off": (dict(pallas_kernels="off", max_num_iterations_step_1=6,
+                 max_num_iterations_step_2=6), torch.float64),
+    "cholesky": (dict(solver_type_step_1=SolverType.CHOLESKY,
+                      max_num_iterations_step_1=6,
+                      max_num_iterations_step_2=6), torch.float64),
 }
 
 
@@ -289,7 +361,12 @@ RING_CONFIGS = {
 # chip_smoke.py's runs up to 3.8e-4 / 9.7e-6; the step-1 ones at the
 # first step, whose cost is ~800x below the start (f32 atomics' order in
 # that step's solve).
-RING_TOLS = {"psc": (2e-3, 1e-4), "f32": (2e-3, 1e-4)}
+# `--ring 10` of the unstructured configurations (same card): "off"
+# 2.1e-4 / 1.2e-5; CHOLESKY 3.7e-3 / 1.5e-5, its step-1 gap at the first
+# step, whose f32 S = Hpp + lam I - A A^T is a difference that amplifies
+# the atomics' rounding of Hpp (tests/test_torch_cuda.py saw 2.5e-3).
+RING_TOLS = {"psc": (2e-3, 1e-4), "f32": (2e-3, 1e-4),
+             "off": (2e-3, 1e-4), "cholesky": (1e-2, 1e-4)}
 
 
 def ring_pipeline(config, device):
@@ -390,6 +467,26 @@ JAX_PSC_TERMS = [1, 10, 10, 10, 10, 10, 3, 7] + [10] * 21 + [6, 7] + [10] * 19
 JAX_PSC_COST = 23.31876816537192
 
 
+# CHOLESKY step 1 of the JAX package on the same problem
+# (docs/results-venice89/runs/cholesky-ripoba/venice-89/ba_log.json):
+# its decisions over the 10 trials after record 0 (three rejections at
+# lambda 2e-4 to 1.3e-2, then steady descent to the function tolerance)
+# and its final cost; its RIPOBA step 2 ends at JAX_CHOL_COST2 after 51
+# records, an 8.4x drop from 130619.93
+JAX_CHOL_DECISIONS = "ARRRAAAAAA"
+JAX_CHOL_COSTS = [391735.1662602257, 360.0928152707893, 360.0928152707893,
+                  360.0928152707893, 360.0928152707893, 244.0851204002961,
+                  243.96970614159272, 243.96856047674464, 243.96799152058156,
+                  243.96770454026773, 243.9675604042901]
+JAX_CHOL_COST = JAX_CHOL_COSTS[-1]
+JAX_CHOL_COST2 = 15606.355045782198
+# (opening decisions, final cost) of each step-1 solver's JAX run
+JAX_STEP1 = {
+    SolverType.POWER_SCHUR_COMPLEMENT: (JAX_PSC_DECISIONS, JAX_PSC_COST),
+    SolverType.CHOLESKY: (JAX_CHOL_DECISIONS, JAX_CHOL_COST),
+}
+
+
 def same_prefix(decisions, want=JAX_PSC_DECISIONS):
     """How many opening decisions of `decisions` equal `want`'s."""
     n = 0
@@ -400,17 +497,20 @@ def same_prefix(decisions, want=JAX_PSC_DECISIONS):
     return n
 
 
-def psc_spread(problem, runs, device="cuda"):
-    """`runs` venice-89 POWER_SCHUR_COMPLEMENT step-1 solves on `device`
-    ("cuda", or "cpu": the plain versions; SolverOptions() defaults
-    otherwise): their records, each with the count of opening decisions
-    it shares with the JAX run."""
+def step1_spread(problem, runs, solver, device="cuda"):
+    """`runs` venice-89 step-1 solves with `solver` (POWER_SCHUR_COMPLEMENT
+    or CHOLESKY; SolverOptions() defaults otherwise) on `device` ("cuda",
+    or "cpu": the plain versions): their records, each with the count of
+    opening decisions it shares with the JAX run of that solver
+    (JAX_STEP1)."""
     if not runs:
         return []
-    opts = SolverOptions(solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT)
+    want, jax_cost = JAX_STEP1[solver]
+    opts = SolverOptions(solver_type_step_1=solver)
     args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
             problem.num_cameras, problem.num_landmarks)
-    solver = Stage1Solver(*args, opts, device=device)
+    stage1 = Stage1Solver(*args, opts, device=device)
+    tag = solver.value.lower()
 
     def sync():
         if device == "cuda":
@@ -424,19 +524,48 @@ def psc_spread(problem, runs, device="cuda"):
         s = SolverSummary()
         sync()
         t0 = time.perf_counter()
-        optimize_step1(solver, c0, l0, opts, s, Timer(), log=lambda s: None)
+        optimize_step1(stage1, c0, l0, opts, s, Timer(), log=lambda s: None)
         sync()
-        rec = _record(f"psc {device} {k}", s, time.perf_counter() - t0)
-        rec["same_prefix"] = same_prefix(rec["decisions"])
+        rec = _record(f"{tag} {device} {k}", s, time.perf_counter() - t0)
+        rec["same_prefix"] = same_prefix(rec["decisions"], want)
         recs.append(rec)
     finals = sorted(r["final"] for r in recs)
-    print(f"psc ({device}): {runs} step-1 finals {finals[0]!r} .. "
-          f"{finals[-1]!r} ({finals[0] / JAX_PSC_COST:.4f}x .. "
-          f"{finals[-1] / JAX_PSC_COST:.4f}x JAX {JAX_PSC_COST}), records "
+    print(f"{tag} ({device}): {runs} step-1 finals {finals[0]!r} .. "
+          f"{finals[-1]!r} ({finals[0] / jax_cost:.4f}x .. "
+          f"{finals[-1] / jax_cost:.4f}x JAX {jax_cost}), records "
           f"{sorted({r['iterations'] + 1 for r in recs})}, opening "
           f"decisions equal to JAX's {[r['same_prefix'] for r in recs]}; "
-          f"power-term counts {sorted({tuple(r['terms']) for r in recs})} "
-          f"(JAX {JAX_PSC_TERMS})", flush=True)
+          f"inner counts {sorted({tuple(r['terms']) for r in recs})}",
+          flush=True)
+    return recs
+
+
+def psc_spread(problem, runs, device="cuda"):
+    """`step1_spread` with POWER_SCHUR_COMPLEMENT (JAX power-term counts:
+    JAX_PSC_TERMS)."""
+    return step1_spread(problem, runs, SolverType.POWER_SCHUR_COMPLEMENT,
+                        device)
+
+
+def psc_pipeline(problem, runs):
+    """`runs` venice-89 `bundle_adjust` runs with POWER_SCHUR_COMPLEMENT +
+    RIPOBA on the card: each step's record (the evidence for
+    chip_smoke.py's PSC_STEP2_MAX)."""
+    opts = SolverOptions(solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT)
+    recs = []
+    for k in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, s1, s2 = bundle_adjust(copy.deepcopy(problem), opts,
+                                  log=lambda s: None)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        recs.append(dict(step1=_record(f"psc ba {k} s1", s1, secs),
+                         step2=_record(f"psc ba {k} s2", s2, secs)))
+    if recs:
+        finals = sorted(r["step2"]["final"] for r in recs)
+        print(f"psc ba: {runs} step-2 finals {finals} from starts "
+              f"{sorted(r['step2']['initial'] for r in recs)}", flush=True)
     return recs
 
 
@@ -463,6 +592,15 @@ def main() -> None:
     ap.add_argument("--psc-device", default="cuda", choices=("cuda", "cpu"),
                     help="where the --psc solves run (cpu: the plain "
                     "versions)")
+    ap.add_argument("--psc-ba", type=int, default=0,
+                    help="POWER_SCHUR_COMPLEMENT + RIPOBA bundle_adjust runs "
+                    "(the spread of step 2's final cost)")
+    ap.add_argument("--chol", type=int, default=0,
+                    help="CHOLESKY step-1 solves (the spread of their final "
+                    "cost)")
+    ap.add_argument("--chol-device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the --chol solves run (cpu: the plain "
+                    "versions)")
     ap.add_argument("--out", default="build/step2_spread.json")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -477,6 +615,9 @@ def main() -> None:
     out = dict(device=torch.cuda.get_device_name(0), fixed_start=[],
                long=[], pipeline=[], small=small_gaps(a.small, a.small_config), witness=[],
                pcg=[], psc=psc_spread(problem, a.psc, a.psc_device),
+               chol=step1_spread(problem, a.chol, SolverType.CHOLESKY,
+                                 a.chol_device),
+               psc_ba=psc_pipeline(problem, a.psc_ba),
                ring=ring_gaps(a.ring))
     popts = SolverOptions(solver_type_step_1=SolverType.PCG,
                           device_lm_loop="off")

@@ -228,6 +228,52 @@ def test_cam_gather_is_exact_on_the_card(cuda, n_cams, rows):
     assert torch.equal(got, cam_ref.cam_gather(table, cam))
 
 
+def _cam_cases(t, n):
+    """The four camera-table kernels of the unstructured layout at both
+    stages' shapes, on operands zeroed on the dead rows (as the solvers'
+    slot pad rows are)."""
+    rng = np.random.default_rng(n)
+    live = t["mask"]
+
+    def f32(rows, cols=O, scale=live):
+        a = torch.as_tensor(rng.standard_normal((rows, cols)),
+                            dtype=torch.float32, device=t["cam"].device)
+        return a * scale if cols == O else a
+
+    cam = t["cam"]
+    w36, w33, sb = f32(36), f32(33), f32(3)
+    return [
+        ("cam_scatter_add", (f32(12), cam, n), [CAM]),
+        ("cam_scatter_add", (f32(144), cam, n), [CAM]),
+        ("e0_u", (w36, cam, f32(12, n)), [ELEM]),
+        ("e0_u", (w33, cam, f32(11, n)), [ELEM]),
+        ("e0_scatter", (w36, cam, sb, n), [CAM]),
+        ("e0_scatter", (w33, cam, sb, n), [CAM]),
+        ("hpp_b", (f32(48), f32(4), cam, n), [CAM, CAM]),
+        ("hpp_b", (f32(22), f32(2), cam, n), [CAM, CAM]),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cams", [13, 1024])
+def test_cam_kernels_match_plain_versions(cuda, n_cams):
+    """cam_scatter_add (12 and 144 rows), e0_u and e0_scatter ((dl, dc) =
+    (3, 12) and (3, 11)) and hpp_b ((k, d) = (4, 12) and (2, 11)) once per
+    call, counted once, within their tolerances; e0_u bit for bit (it
+    sums its terms in its plain version's order). At N = 1024 hpp_b
+    takes its global-atomic route."""
+    t = _inputs(n_cams, cuda)
+    for name, args, specs in _cam_cases(t, n_cams):
+        launches.reset_launch_counts()
+        got = getattr(cam_kernels, name)(*args)
+        torch.cuda.synchronize()
+        assert launches.launch_counts()[name] == 1, name
+        want = getattr(cam_ref, name)(*args)
+        _close(name, got, want, specs)
+        if name == "e0_u":
+            assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     t = _inputs(13, cuda)
@@ -248,6 +294,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                         robust=0, huber=1.0)
     with pytest.raises(TypeError, match="table"):
         cam_kernels.cam_gather(t["ct64"], t["cam"])
+    with pytest.raises(ValueError, match="hpp_b"):
+        cam_kernels.hpp_b(t["r_w"].repeat(3, 1), t["r_w"][:3], t["cam"], 13)
     with pytest.raises(ValueError, match="z_table"):
         pk.poba_t3(t["cam"], t["ct"], t["x"], t["uv"], t["sw"], t["r_w"],
                    t["jls"], t["z"][:, :5], alpha=ALPHA)
@@ -304,19 +352,32 @@ CG_ONLY = {"schur_diag_structured", "schur_diag2"}
 COMPOSED_ONLY = {"e0_u_structured", "e0_scatter_structured", "scatter2"}
 PSC_ONLY = {"poba_t3", "apply_ldiff_stored"}
 F32_ONLY = {"cam_gather"}
-ALL = set(launches.KERNELS) - PSC_ONLY - F32_ONLY
+UNSTRUCTURED_ONLY = {"cam_scatter_add", "e0_u", "e0_scatter", "hpp_b"}
+ALL = set(launches.KERNELS) - PSC_ONLY - F32_ONLY - UNSTRUCTURED_ONLY
 SMALL_KERNELS = {
     "composed": ALL - FUSED_ONLY - CG_ONLY,
     "defaults": ALL - COMPOSED_ONLY - CG_ONLY,
     "cg": ALL - COMPOSED_ONLY,
 }
+# the kernels of the unstructured configurations of `small_case` and of
+# `ring_pipeline`: step 1 and step 2 on Lin1 / Lin2 ("off": the camera-table kernels, the f64
+# cost kernels, nothing structured), and CHOLESKY + RIPOBA under "auto"
+# (step 1 unstructured with no power series, so no e0_u / e0_scatter;
+# step 2 structured with the fused term)
+UNSTRUCTURED_KERNELS = {
+    "off": UNSTRUCTURED_ONLY | F32_ONLY | {"pose_error", "pose_error2"},
+    "cholesky": {"cam_scatter_add", "hpp_b"} | F32_ONLY | (
+        SMALL_KERNELS["defaults"] - {"prepare", "e0_factor", "hpp_b_structured",
+                                     "e0_term_parts", "apply_ldiff"}),
+}
 # the kernels of the `ring_pipeline` configurations: PSC's apply in place
 # of the VarProj one; the f32 state's cost through cam_gather in place of
-# the f64 cost kernels
+# the f64 cost kernels; the unstructured ones
 RING_KERNELS = {
     "psc": (ALL - COMPOSED_ONLY - CG_ONLY - {"apply_ldiff"}) | PSC_ONLY,
     "f32": (ALL - COMPOSED_ONLY - CG_ONLY - {"pose_error", "pose_error2"})
     | F32_ONLY,
+    **UNSTRUCTURED_KERNELS,
 }
 
 
@@ -352,7 +413,7 @@ def test_bundle_adjust_card_matches_cpu(cuda, config):
         launches.reset_launch_counts()
         _, s1, s2 = bundle_adjust(p, opts, log=lambda s: None, device=dev)
         counts = launches.launch_counts()
-        assert len(counts) == 20
+        assert len(counts) == 24
         if dev == "cuda":
             assert all(counts[k] > 0 for k in kernels), counts
         else:
@@ -380,8 +441,9 @@ def test_bundle_adjust_card_matches_cpu(cuda, config):
 @pytest.mark.parametrize("config", list(RING_KERNELS))
 def test_ring_bundle_adjust_card_matches_cpu(cuda, config):
     """`ring_pipeline` of tools/step2_spread.py on the card and on the
-    CPU: POWER_SCHUR_COMPLEMENT + RIPOBA (4 + 4 iterations, f64 state) and
-    SolverOptions() defaults with an f32 state (6 + 6), every kernel of
+    CPU: POWER_SCHUR_COMPLEMENT + RIPOBA (4 + 4 iterations, f64 state),
+    SolverOptions() defaults with an f32 state (6 + 6), and the
+    unstructured layout and CHOLESKY + RIPOBA (6 + 6), every kernel of
     the configuration launched on the card and none on the CPU; identical
     decisions and power-term counts in both steps, every cost within
     RING_TOLS[config] relative of the CPU's (see that module)."""
@@ -431,3 +493,39 @@ def test_cli_on_the_card(cuda, tmp_path):
         assert len(accepted) > 1, key
         assert all(b < a for a, b in zip(accepted, accepted[1:])), key
     assert "cuda:0" in json.dumps(log)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", list(UNSTRUCTURED_KERNELS))
+def test_unstructured_bundle_adjust_card_matches_cpu(cuda, config):
+    """`bundle_adjust` of `small_case`'s problem with pallas_kernels="off"
+    (6 + 10 iterations) and with CHOLESKY + RIPOBA (6 + 4: its step 2
+    starts where the trajectory is chaotic, see
+    tests/test_torch_unstructured_stage2.py) on the card and on the CPU:
+    every kernel of the configuration launched on the card and none on
+    the CPU; identical step-1 decisions and inner counts, step-1 final
+    costs within SMALL_TOLS[0] (the f32 atomics' order); step 2 finite
+    and below its start."""
+    jp, opts = small_case(config)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p, _c, _l = from_numpy(jp.obs_cam, jp.obs_lm, jp.obs_uv, jp.cam_space,
+                               jp.lm_p, device="cpu")
+        launches.reset_launch_counts()
+        _, s1, s2 = bundle_adjust(p, opts, log=lambda s: None, device=dev)
+        counts = launches.launch_counts()
+        if dev == "cuda":
+            assert all(counts[k] > 0 for k in UNSTRUCTURED_KERNELS[config]), (
+                counts)
+        else:
+            assert max(counts.values()) == 0, counts
+        runs[dev] = (s1, s2)
+    (g1, g2), (c1, _c2) = runs["cuda"], runs["cpu"]
+    assert ([(it.step_is_successful, it.linear_solver_iterations)
+             for it in g1.iterations]
+            == [(it.step_is_successful, it.linear_solver_iterations)
+                for it in c1.iterations])
+    np.testing.assert_allclose(g1.final_cost.all.error,
+                               c1.final_cost.all.error, rtol=SMALL_TOLS[0])
+    assert np.isfinite(g2.final_cost.all.error)
+    assert g2.final_cost.all.error < g2.initial_cost.all.error

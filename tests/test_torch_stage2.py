@@ -343,16 +343,16 @@ def test_bundle_adjust_matches_jax(config):
 
 
 def test_bundle_adjust_default_options_raise(geometry):
-    """SolverOptions() defaults with a step-1 solver that is not ported
-    (CHOLESKY): bundle_adjust refuses before any work, naming its ROADMAP
-    item, and leaves the problem as it was."""
+    """SolverOptions() defaults with CHOLESKY in pure f64, which neither
+    step runs yet: bundle_adjust refuses before any work, naming its
+    ROADMAP item, and leaves the problem as it was."""
     args, cam0, lm0 = geometry
     p, _c, _l = from_numpy(args[0], args[1], args[2], cam0, lm0,
                            device="cpu")
     before = p.cam_space.copy()
-    opts = SolverOptions()
+    opts = SolverOptions(mixed_precision_solves=False)
     opts.solver_type_step_1 = type(opts.solver_type_step_1)["CHOLESKY"]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         bundle_adjust(p, opts, log=lambda s: None, device="cpu")
     np.testing.assert_array_equal(p.cam_space, before)
 
@@ -365,8 +365,10 @@ def _cfg(**kw):
     "opts, dtype, match",
     [
         (_cfg(mixed_precision_solves=False), torch.float64, "item 11"),
-        (_cfg(pallas_kernels="off"), torch.float32, "item 9"),
-        (_cfg(pallas_kernels="off"), torch.float64, "item 9"),
+        (_cfg(pallas_kernels="off", device_lm_loop="on"), torch.float32,
+         "item 8"),
+        (_cfg(pallas_kernels="off", mixed_precision_solves=False),
+         torch.float64, "item 11"),
         (_cfg(device_lm_loop="on"), torch.float64, "item 8"),
         (_cfg(detailed_timing=True), torch.float64, "item 14"),
     ],
