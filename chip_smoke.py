@@ -11,7 +11,7 @@ printing its lines and raising on failure (a failure exits non-zero and
 prints no result line):
 
 1. device     a CUDA device, its name and power limit (nvidia-smi);
-2. build      the twenty-four kernels of povar_tpu_torch/csrc/ from
+2. build      the twenty-seven kernels of povar_tpu_torch/csrc/ from
               source;
 3. kernels    each step-1 kernel (the fused term over the problem's slot
               parts; poba_t3 and apply_ldiff_stored of the
@@ -105,11 +105,29 @@ prints no result line):
               (bf16-rounded one-hot camera sums and gathers): JAX's
               decisions AARRRA... and its final cost within 1e-3; the
               warm step-1 and step-2 bench iterations with "off";
-14. cli       `python -m povar_tpu_torch.cli` in a subprocess with
+14. spmd      the SPMD window layout on a 1-device mesh (`make_mesh(1)`;
+              venice-89's plan: 73 windows of one class, one part
+              (1536, 5), o_dev = 598,016 lanes, 112,128 slot rows): the
+              three slot reduce/expand kernels bit for bit against their
+              plain versions on the mesh solver's own operands at that
+              layout and on seeded ones at the two-class plan of
+              tools/step2_spread.py's `overflow_case`, with event and
+              device times, bounds and the times of their PyTorch view
+              formulations; `bundle_adjust(mesh=make_mesh(1))` with
+              SolverOptions() defaults (counters zeroed before, read
+              after: the three kernels and the composed terms launched,
+              no fused term; step 1 in 25 records within 1e-3 of
+              207.4787, step 2 in STEP2_BAND) and with PSC + RIPCG (step
+              1 as PSC's, step 2 below PSC_STEP2_MAX); `overflow_case`
+              card against CPU; the warm step-1 and step-2 bench
+              iterations of the mesh against the single-device composed
+              term's;
+15. cli       `python -m povar_tpu_torch.cli` in a subprocess with
               defaults, on tests/data/mini-bal-12-48-pre.txt and on the
               venice-89 problem written as BAL text, each after
-              --create-dataset: ba_log.json written, accepted costs
-              strictly falling in both steps.
+              --create-dataset, venice-89 also with --mesh-devices 1:
+              ba_log.json written, accepted costs strictly falling in
+              both steps.
 
 The second-to-last line is {"kernels": [...]}: per kernel its route,
 source, replaced TPU kernel, launches in the first venice-89 run of the
@@ -119,7 +137,8 @@ shape where a kernel runs in both steps), the least time the card could
 take for the same call (`bound_ms`: the bytes the call must move at
 3.35 TB/s or its arithmetic at the peak rate of its type, whichever is
 larger) and `library_ms` (the event time of `index_select` for
-cam_gather, of `index_add_` for cam_scatter_add; null for the others: no
+cam_gather, of `index_add_` for cam_scatter_add, of the strided view
+sum or broadcast for the three slot kernels; null for the others: no
 single PyTorch call computes their functions). The last line is
 {"ok": true, "device": {...}}. Needs the repository (the package and its
 kernel sources) beside this file; imports nothing of JAX.
@@ -238,8 +257,12 @@ N_CAMS, N_LMS, OBS_PER_LM = 89, 110_973, 5
 REPS = 20
 SOURCES = {"pose_kernels": "povar_tpu_torch/csrc/pose1.cu",
            "pose2_kernels": "povar_tpu_torch/csrc/pose2.cu",
-           "cam_kernels": "povar_tpu_torch/csrc/cam.cu"}
+           "cam_kernels": "povar_tpu_torch/csrc/cam.cu",
+           "spmd_kernels": "povar_tpu_torch/csrc/spmd.cu"}
 REPLACES = {
+    "class_part_sums": "povar_tpu/ops/pallas_spmd.py:79",
+    "class_expand_rows": "povar_tpu/ops/pallas_spmd.py:109",
+    "class_reduce_reexpand": "povar_tpu/ops/pallas_spmd.py:144",
     "poba_t3": "povar_tpu/ops/pallas_pose.py:938",
     "apply_ldiff_stored": "povar_tpu/ops/pallas_pose.py:1096",
     "cam_gather": "povar_tpu/ops/pallas_cam.py:176",
@@ -314,7 +337,15 @@ F32_PATH = (STEP1_FUSED | STEP2_FUSED) - {"pose_error", "pose_error2"} | {
 UNSTRUCTURED = {"cam_gather", "cam_scatter_add", "e0_u", "e0_scatter",
                 "hpp_b"}
 STEP1_CHOL = {"cam_gather", "cam_scatter_add", "hpp_b", "pose_error"}
+# the SPMD window layout: the composed terms (a mesh has no fused-term
+# plan, as in the JAX package) and its three slot kernels
+SPMD = {"class_part_sums", "class_expand_rows", "class_reduce_reexpand"}
+FUSED_TERMS = {"e0_term_parts", "e0_term2_parts"}
 PATHS = {
+    "bundle_adjust spmd": STEP1_COMPOSED | STEP2_COMPOSED | SPMD,
+    "bundle_adjust spmd PSC+RIPCG": (
+        STEP1_COMPOSED - {"apply_ldiff"} | {"poba_t3", "apply_ldiff_stored"}
+        | STEP2_COMPOSED | {"schur_diag2"} | SPMD),
     "bundle_adjust off": UNSTRUCTURED | {"pose_error", "pose_error2"},
     "bundle_adjust CHOLESKY+RIPOBA": STEP1_CHOL | STEP2_FUSED,
     "bundle_adjust CHOLESKY+RIPCG": STEP1_CHOL | STEP2_FUSED | {"schur_diag2"},
@@ -831,18 +862,23 @@ def solve(problem, options, device, log=lambda s: None):
     return summary, out, t1 - t0, time.perf_counter() - t1
 
 
-def pipeline(problem, options, device, dtype=torch.float64):
-    """bundle_adjust of a copy of `problem` on `device` with an LM state
-    of `dtype`. Returns (problem out, summary1, summary2, seconds), timed
-    to a device synchronisation."""
-    from povar_tpu_torch import bundle_adjust
+def pipeline(problem, options, device, dtype=torch.float64, mesh=False):
+    """bundle_adjust of a copy of `problem` on `device` (with `mesh`, on
+    a 1-device mesh there: the SPMD window layout) with an LM state of
+    `dtype`. Returns (problem out, summary1, summary2, seconds), timed to
+    a device synchronisation (with `mesh`, the plan's build included)."""
+    from povar_tpu_torch import bundle_adjust, make_mesh
 
     p = copy.deepcopy(problem)
+    # the mesh plan an earlier check cached on `problem` is built again
+    # inside the timed run, as a user's first call builds it
+    vars(p).pop("_spmd_plan_cache", None)
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, s1, s2 = bundle_adjust(p, options, log=lambda s: None, dtype=dtype,
-                                device=device)
+                                device=device,
+                                mesh=make_mesh(1, device) if mesh else None)
     if device == "cuda":
         torch.cuda.synchronize()
     return out, s1, s2, time.perf_counter() - t0
@@ -1456,6 +1492,226 @@ def check_unstructured(problem, counts):
             raise AssertionError("non-finite optimized state")
 
 
+def spmd_library(name, x, layout):
+    """The PyTorch view formulation of a slot kernel (`library_ms`): per
+    part, a strided view of the lanes summed over its slot elements, or
+    the rows broadcast over them into a view of a zeroed lane array."""
+    k = x.shape[0]
+
+    def parts():
+        lofs = rofs = 0
+        for cl in layout:
+            p = 0
+            for cap, w in cl.parts:
+                yield lofs, p, rofs, cl, cap, w
+                p += cap * w
+                rofs += cl.n_windows * cap
+            lofs += cl.n_windows * cl.win_lanes
+
+    def sums(x):
+        return torch.cat([
+            x[:, lofs:lofs + cl.n_windows * cl.win_lanes].view(
+                k, cl.n_windows, cl.win_lanes)[..., p:p + cap * w].view(
+                k, cl.n_windows, w, cap).sum(2).reshape(k, -1)
+            for lofs, p, _r, cl, cap, w in parts()], dim=1)
+
+    def expand(rows):
+        o_dev = sum(cl.n_windows * cl.win_lanes for cl in layout)
+        out = torch.zeros((k, o_dev), dtype=rows.dtype, device=rows.device)
+        for lofs, p, rofs, cl, cap, w in parts():
+            n = cl.n_windows
+            out[:, lofs:lofs + n * cl.win_lanes].view(
+                k, n, cl.win_lanes)[..., p:p + cap * w].view(
+                k, n, w, cap).copy_(rows[:, rofs:rofs + n * cap].view(
+                    k, n, 1, cap).expand(k, n, w, cap))
+        return out
+
+    return {"class_part_sums": lambda: sums(x),
+            "class_expand_rows": lambda: expand(x),
+            "class_reduce_reexpand": lambda: expand(sums(x))}[name]
+
+
+def check_spmd_kernels(problem):
+    """The three slot kernels against their plain versions, bit for bit:
+    at the venice-89 1-device plan on the mesh solver's own operands
+    (ata [9, O] and atr [3, O] of `prepare`, the landmark tables jl_scale
+    [3, L] and hll_raw [9, L] of a linearization, the E0 term's u [3, O]),
+    and at the two-class plan of `overflow_case` on seeded ones (K = 1,
+    3, 9). Times (events and device) of kernel, plain version and the
+    PyTorch view formulation at venice-89 (part sums K = 9, expansion
+    K = 3, reduce-reexpand K = 3), the bound from the bytes. Returns the
+    kernels' result dicts. Also: the f64 cost on the mesh expands the
+    state through the expansion kernel and gives the single-device
+    cost."""
+    from povar_tpu_torch import Stage1Solver, SolverOptions
+    from povar_tpu_torch.ops import launches, pose_kernels, spmd_kernels
+    from povar_tpu_torch.ops import spmd_ref
+    from povar_tpu_torch.parallel import spmd
+    from povar_tpu_torch.tools.step2_spread import overflow_case
+
+    s = stage_solver(Stage1Solver, problem, SolverOptions(), mesh=True)
+    print(f"venice-89 SPMD plan (D = 1): {s.plan.layout}, o_dev "
+          f"{s.plan.o_dev}, slot rows {s.plan.n_rows_dev}, lane utilization "
+          f"{s.plan.lane_utilization:.4f}", flush=True)
+    c = torch.as_tensor(problem.cam_space, device="cuda")
+    lm = s.lm_pack(s.initialize_varproj(c))
+    lin = s.linearize(c, lm)
+    _rw, _sw, ata, atr, _jpsq = pose_kernels.prepare(
+        s.obs.cam, lin.ct, lin.x, s._uv_s, s._mask1, alpha=s.alpha,
+        robust=s.robust, huber=s.huber)
+    _hi, _hib, jls_obs, lh_obs = s._hll_pieces_s(lin)
+    h = s._h_factor_s(lin, jls_obs, lh_obs)
+    z = lin.pose_scale * torch.randn_like(lin.pose_scale)
+    u = pose_kernels.e0_u_structured(s.obs.cam, lin.x, h, z)
+    lay = s.layout
+    timed = {"class_part_sums": ata, "class_expand_rows": lin.jl_scale,
+             "class_reduce_reexpand": u}
+    venice = {"class_part_sums": [atr],
+              "class_expand_rows": [lin.hll_raw.reshape(9, -1).contiguous()],
+              "class_reduce_reexpand": []}
+    ovf, _opts = overflow_case()
+    plan = spmd.build_spmd_plan(ovf.obs_cam, ovf.obs_lm, ovf.num_cameras,
+                                ovf.num_landmarks, 1, spmd.PART_ALIGN)
+    o_dev, n_rows = spmd_ref.layout_sizes(plan.layout)
+    print(f"overflow_case plan (D = 1): {len(plan.layout)} classes, parts "
+          f"per class {[len(cl.parts) for cl in plan.layout]}, o_dev "
+          f"{o_dev}, slot rows {n_rows}, duplicates {plan.has_duplicates}",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    results = {}
+    for name in spmd_kernels.KERNELS:
+        kernel = getattr(spmd_kernels, name)
+        plain = getattr(spmd_ref, name)
+        cols = n_rows if name == "class_expand_rows" else o_dev
+        cases = [(lay, x) for x in [timed[name]] + venice[name]]
+        cases += [(plan.layout, torch.randn((k, cols), generator=gen,
+                                            device="cuda"))
+                  for k in (1, 3, 9)]
+        for layout, x in cases:
+            got = kernel(x, layout)
+            torch.cuda.synchronize()
+            if not torch.equal(got, plain(x, layout)):
+                raise AssertionError(f"{name}: kernel != plain version at "
+                                     f"{tuple(x.shape)}")
+        x = timed[name]
+        out = kernel(x, lay)
+        lib = spmd_library(name, x, lay)
+        # the view formulation's sum may take another order: 1e-6
+        if not torch.allclose(lib(), out, rtol=1e-6, atol=1e-6 * float(
+                out.abs().max())):
+            raise AssertionError(f"{name}: view formulation != kernel")
+        moved = (x.numel() + out.numel()) * 4
+        res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: kernel(x, lay)),
+                   plain_ms=cuda_ms(lambda: plain(x, lay)),
+                   bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                   library_ms=cuda_ms(lib))
+        results[name] = res
+        print(f"{name:<22} bit-equal at {len(cases)} operands; venice-89 "
+              f"{tuple(x.shape)} -> {tuple(out.shape)}: events kernel "
+              f"{res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms view "
+              f"formulation {res['library_ms']:.4f} ms; device kernel "
+              f"{device_us(lambda: kernel(x, lay)):.1f} us plain "
+              f"{device_us(lambda: plain(x, lay)):.1f} us view "
+              f"{device_us(lib):.1f} us; bound {res['bound_ms'] * 1e3:.1f} "
+              f"us ({moved / 1e6:.2f} MB at 3.35 TB/s)", flush=True)
+
+    # the f64 cost of every mesh trial expands the state through the
+    # expansion kernel (its f32 hi and lo halves, one launch) and gives
+    # the single-device cost (native f64 state) within 1e-10: 48 of the
+    # state's 53 bits, f64 sums in another order
+    one = stage_solver(Stage1Solver, problem, SolverOptions())
+    canon = s.unpad_landmarks(s.lm_unpack(lm))
+    launches.reset_launch_counts()
+    e_mesh = float(s.compute_error(c, lm)["error_all"])
+    n_expand = launches.launch_counts()["class_expand_rows"]
+    e_one = float(one.compute_error(
+        c, one.lm_pack(torch.as_tensor(canon, device="cuda")))["error_all"])
+    gap = abs(e_mesh - e_one) / abs(e_one)
+    print(f"f64 cost on the mesh {e_mesh!r} ({n_expand} class_expand_rows "
+          f"launch) against one device {e_one!r}: gap {gap:.3e}", flush=True)
+    if n_expand != 1 or not gap <= 1e-10:
+        raise AssertionError(f"mesh f64 cost: {n_expand} expansions, gap "
+                             f"{gap:.3e} (> 1e-10)")
+    return results
+
+
+def check_spmd(problem, counts):
+    """The SPMD window layout on a 1-device mesh at venice-89:
+    `bundle_adjust` with defaults and with PSC + RIPCG (counters zeroed
+    before each, kept in `counts`), `overflow_case` card against CPU
+    (step 1's decisions and counts identical, its costs within
+    OVERFLOW_TOL; step 2 finite and falling), and the warm bench
+    iterations of the mesh beside the single-device composed term's."""
+    from povar_tpu_torch import SolverOptions
+    from povar_tpu_torch.ops import launches
+    from povar_tpu_torch.options import SolverType, SolverTypeRiemannian
+    from povar_tpu_torch.tools.step2_spread import OVERFLOW_TOL, overflow_case
+
+    defaults = SolverOptions()
+    psc = SolverOptions(solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT,
+                        solver_type_step_2=SolverTypeRiemannian.RIPCG)
+    for path, opts in (("bundle_adjust spmd", defaults),
+                       ("bundle_adjust spmd PSC+RIPCG", psc)):
+        launches.reset_launch_counts()
+        out, p1, p2, secs = pipeline(problem, opts, "cuda", mesh=True)
+        counts[path] = launches.launch_counts()
+        print(f"-- {path}: {secs:.3f} s, {len(p1.iterations)} + "
+              f"{len(p2.iterations)} records", flush=True)
+        check_counts(path, counts[path])
+        if any(counts[path][k] for k in FUSED_TERMS):
+            raise AssertionError(f"{path}: a fused term ran on the mesh")
+        if path == "bundle_adjust spmd":
+            report_step(1, p1, JAX_FINAL_COST)
+            if len(p1.iterations) != 25:
+                raise AssertionError(f"step 1: {len(p1.iterations)} "
+                                     "records, not 25")
+            report_step(2, p2, JAX_FINAL_COST2, STEP2_BAND)
+        else:
+            check_psc_step1(f"{path} step 1", "".join(
+                "A" if it.step_is_successful else "R"
+                for it in p1.iterations[1:]), p1.final_cost.all.error)
+            its2 = p2.iterations
+            print(f"step 2: {p2.solver_type}, {len(its2)} records "
+                  f"({p2.termination_type}), initial "
+                  f"{its2[0].cost.all.error!r} final "
+                  f"{p2.final_cost.all.error!r}", flush=True)
+            check_falling(f"{path} step 2", [
+                it.cost.all.error for it in its2 if it.step_is_successful])
+            check_final(2, p2)
+            if not p2.final_cost.all.error < PSC_STEP2_MAX:
+                raise AssertionError(f"{path}: step 2 ends at "
+                                     f"{p2.final_cost.all.error}")
+        if not all(np.isfinite(a).all() for a in (out.cam_space, out.lm_p_h)):
+            raise AssertionError("non-finite optimized state")
+
+    small, opts = overflow_case()
+    runs = {dev: pipeline(small, opts, dev, mesh=True)[1:3]
+            for dev in ("cuda", "cpu")}
+    (g1, g2), (c1, _c2) = runs["cuda"], runs["cpu"]
+    dg = [(it.step_is_successful, it.linear_solver_iterations)
+          for it in g1.iterations]
+    dc = [(it.step_is_successful, it.linear_solver_iterations)
+          for it in c1.iterations]
+    gap = max(abs(g.cost.all.error - c.cost.all.error) / c.cost.all.error
+              for g, c in zip(g1.iterations, c1.iterations))
+    print(f"overflow_case on the mesh: step 1 card == cpu decisions and "
+          f"counts {dg == dc}, largest cost gap {gap:.3e}; step 2 "
+          f"{g2.initial_cost.all.error!r} -> {g2.final_cost.all.error!r}",
+          flush=True)
+    if dg != dc or not gap <= OVERFLOW_TOL:
+        raise AssertionError(f"overflow_case: card {dg} vs cpu {dc}, gap "
+                             f"{gap:.3e} (> {OVERFLOW_TOL:g})")
+    if not (np.isfinite(g2.final_cost.all.error)
+            and g2.final_cost.all.error < g2.initial_cost.all.error):
+        raise AssertionError("overflow_case: step 2 did not fall")
+
+    composed = SolverOptions(fused_power_term=False)
+    for step, bench in ((1, bench_step1), (2, bench_step2)):
+        bench(problem, composed, f"step-{step} composed (single device)")
+        bench(problem, defaults, f"step-{step} spmd (1-device mesh)",
+              mesh=True)
+
+
 def bench_options(base):
     """`base` with bench.py's fixed work per iteration: m = 10 power
     terms, no early exit."""
@@ -1466,14 +1722,31 @@ def bench_options(base):
     return o
 
 
-def bench_step1(problem, options, label) -> None:
+def stage_solver(cls, problem, options, mesh=False):
+    """`cls` (Stage1Solver or Stage2Solver) for `problem` on the card, or
+    with `mesh` its SPMD counterpart on a 1-device mesh."""
+    from povar_tpu_torch import make_mesh
+    from povar_tpu_torch.parallel import spmd
+    from povar_tpu_torch.solver.pipeline import _make_spmd_plan
+
+    if not mesh:
+        return cls(problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                   problem.num_cameras, problem.num_landmarks, options,
+                   device="cuda")
+    cls = {"Stage1Solver": spmd.SpmdStage1Solver,
+           "Stage2Solver": spmd.SpmdStage2Solver}[cls.__name__]
+    return cls(_make_spmd_plan(problem, 1), problem.obs_uv,
+               problem.num_cameras, problem.num_landmarks, options,
+               make_mesh(1))
+
+
+def bench_step1(problem, options, label, mesh=False) -> None:
     """The warm step-1 bench iteration under `options` (linearize + trial
-    from the VarProj-initialized start, bench_options)."""
+    from the VarProj-initialized start, bench_options), on a 1-device
+    mesh with `mesh`."""
     from povar_tpu_torch import Stage1Solver
 
-    s = Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
-                     problem.num_cameras, problem.num_landmarks,
-                     bench_options(options), device="cuda")
+    s = stage_solver(Stage1Solver, problem, bench_options(options), mesh)
     c = torch.as_tensor(problem.cam_space, device="cuda")
 
     def step(c, lm):
@@ -1484,17 +1757,17 @@ def bench_step1(problem, options, label) -> None:
     bench_iterations(step, c, s.lm_pack(s.initialize_varproj(c)), label)
 
 
-def bench_step2(problem, options, label) -> None:
+def bench_step2(problem, options, label, mesh=False) -> None:
     """The warm step-2 bench iteration under `options` (linearize + trial
-    from the homogenized VarProj-initialized start, bench_options)."""
+    from the homogenized VarProj-initialized start, bench_options), on a
+    1-device mesh with `mesh`."""
     from povar_tpu_torch import Stage1Solver, Stage2Solver, create_homogeneous
 
-    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
-            problem.num_cameras, problem.num_landmarks)
     c = torch.as_tensor(problem.cam_space, device="cuda")
-    lm0 = Stage1Solver(*args, options, device="cuda").initialize_varproj(c)
+    lm0 = stage_solver(Stage1Solver, problem, options,
+                       mesh).initialize_varproj(c)
     c2, lm2 = create_homogeneous(c, lm0)
-    s2 = Stage2Solver(*args, bench_options(options), device="cuda")
+    s2 = stage_solver(Stage2Solver, problem, bench_options(options), mesh)
 
     def step(c, lm):
         lin = s2.linearize(c, lm)
@@ -1572,6 +1845,20 @@ def check_cli(problem):
         write_s = time.perf_counter() - t0
         create_s = cli(d, "--input", name, "--create-dataset")
         solve_s = cli(d, "--input", os.path.join("data_custom", name))
+        if label == "venice-89":
+            mesh_s = cli(d, "--input", os.path.join("data_custom", name),
+                         "--mesh-devices", "1", "--log-file", "mesh.json")
+            with open(os.path.join(d, "mesh.json")) as f:
+                mesh_log = json.load(f)
+            for key in ("iterations1", "iterations"):
+                check_falling(f"cli {label} --mesh-devices 1 {key}",
+                              [it["cost"] for it in mesh_log[key]
+                               if it["step_is_successful"]])
+            print(f"cli {label} --mesh-devices 1: solve {mesh_s:.2f} s, "
+                  f"{len(mesh_log['iterations1'])} + "
+                  f"{len(mesh_log['iterations'])} records, final costs "
+                  f"{mesh_log['iterations1'][-1]['cost']!r} "
+                  f"{mesh_log['iterations'][-1]['cost']!r}", flush=True)
         with open(os.path.join(d, "ba_log.json")) as f:
             log = json.load(f)
         for key in ("iterations1", "iterations"):
@@ -1762,6 +2049,12 @@ def main() -> int:
     off = SolverOptions(pallas_kernels="off")
     bench_step1(problem, off, "step-1 off")
     bench_step2(problem, off, "step-2 off")
+
+    phase("spmd (the SPMD window layout on a 1-device mesh, venice-89)")
+    t0 = time.perf_counter()
+    results.update(check_spmd_kernels(problem))
+    check_spmd(problem, counts)
+    print(f"spmd phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("cli (python -m povar_tpu_torch.cli, SolverOptions() defaults)")
     check_cli(problem)

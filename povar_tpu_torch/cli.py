@@ -11,12 +11,17 @@ Every option field is exposed as a generated kebab-case flag
 the reference's options-visitor CLI generation (cli/cli_options.cpp:43-147).
 The solve runs on the card (`--device cuda`, the default) and exits 1
 without one; `--device cpu` runs the kernels' plain versions on the CPU.
-More than one device (`--mesh-devices` > 1) is not ported.
+`--mesh-devices N` (N >= 1) runs the SPMD window layout over N ranks
+(parallel/spmd.py): N = 1 in this process, N > 1 in N spawned processes
+(NCCL on N cards, gloo with `--device cpu`); only rank 0 logs and writes
+ba_log.json. On the card an N above the card count exits 1.
 
 Usage:
   python -m povar_tpu_torch.cli --input data_custom/problem-49-7776-pre.txt
   python -m povar_tpu_torch.cli --input problem.txt --create-dataset
   python -m povar_tpu_torch.cli --config rootba_config.toml --dump-config
+  python -m povar_tpu_torch.cli --input problem.txt --device cpu \
+      --mesh-devices 2
 """
 
 from __future__ import annotations
@@ -128,8 +133,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="write a torch.profiler Chrome trace of the "
                         "solve into this directory (trace.json)")
     parser.add_argument("--mesh-devices", default=0, type=int,
-                        help="devices to shard the solve over (0 or 1: "
-                        "one device; more is not ported yet)")
+                        help="ranks of the SPMD window layout to shard the "
+                        "solve over, one device each (0: the single-device "
+                        "solve; with --device cpu, N gloo processes)")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="where the solve runs: the card (default; "
                         "exits 1 without one) or the CPU")
@@ -174,14 +180,6 @@ def main(argv=None) -> int:
         print("error: no --input problem given", file=sys.stderr)
         return 1
 
-    if args.mesh_devices > 1:
-        print(
-            f"error: --mesh-devices {args.mesh_devices}: multi-device "
-            "solves are not ported yet (ROADMAP.md queue 1 item 13)",
-            file=sys.stderr,
-        )
-        return 1
-
     timer_total = Timer()
     timing: dict = {}
     dataset_summary = DatasetSummary()
@@ -201,13 +199,43 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
         return 1
+    if args.device == "cuda" and args.mesh_devices > torch.cuda.device_count():
+        print(
+            f"error: --mesh-devices {args.mesh_devices} but only "
+            f"{torch.cuda.device_count()} devices available",
+            file=sys.stderr,
+        )
+        return 1
+
+    solve = (args, opts, problem, dataset_summary, timing, timer_total)
+    if args.mesh_devices > 1:
+        from povar_tpu_torch.parallel.mesh import spawn
+
+        spawn(_solve, args.mesh_devices, args.device, solve)
+    else:
+        mesh = None
+        if args.mesh_devices == 1:
+            from povar_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(1, args.device)
+        _solve(mesh, *solve)
+    print(f"Saved log to {args.log_file}")
+    return 0
+
+
+def _solve(mesh, args, opts, problem, dataset_summary, timing,
+           timer_total) -> None:
+    """Solve on `args.device`, or as this rank of `mesh`, and on rank 0
+    save the optimized state and ba_log.json."""
     from povar_tpu_torch.solver.pipeline import bundle_adjust
 
     t_opt = Timer()
-    with trace(args.profile_dir):
+    with trace(args.profile_dir if mesh is None or mesh.rank == 0 else None):
         problem, s1, s2 = bundle_adjust(problem, opts.solver,
-                                        device=args.device)
+                                        device=args.device, mesh=mesh)
     timing["optimize_time"] = t_opt.elapsed()
+    if mesh is not None and mesh.rank != 0:
+        return
 
     t_post = Timer()
     if opts.dataset.save_output:
@@ -220,8 +248,6 @@ def main(argv=None) -> int:
         save_ubjson=args.log_ubjson,
         device_memory=device_memory_stats(),
     )
-    print(f"Saved log to {args.log_file}")
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-`nvcc` compiles each csrc/*.cu (pose1.cu, pose2.cu, cam.cu) into an
-object file, one compiler per source, all started together, and links
-them into one shared library
-with a plain C interface for Hopper (sm_90a), which `ctypes` loads: no
-PyTorch headers are compiled, so a cold build takes seconds. The library
+`nvcc` compiles each csrc/*.cu (pose1.cu, pose2.cu, cam.cu, spmd.cu)
+into an object file, one compiler per source, all started together, and
+links them into one shared library with a plain C interface for Hopper
+(sm_90a), which `ctypes` loads: no PyTorch headers are compiled, so a
+cold build takes seconds. The library
 lands in build/povar_tpu_torch/<key>/ beside the package directory,
 where <key> hashes the sources and the compiler flags: editing a kernel
 rebuilds it, an unchanged tree reuses the last build. Importing this
@@ -38,7 +38,7 @@ NVCC_FLAGS = (
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 
 # argument types of every exported entry point (csrc/pose1.cu, pose2.cu,
-# cam.cu)
+# cam.cu, spmd.cu)
 SIGNATURES = {
     "povar_prepare": [_P] * 10 + [_I, _I, _F, _F, _F, _I, _F, _F, _P],
     "povar_e0_factor": [_P] * 7 + [_I, _I, _F, _P],
@@ -64,6 +64,9 @@ SIGNATURES = {
     "povar_scatter2": [_P] * 7 + [_I, _I, _P],
     "povar_ldiff2": [_P] * 9 + [_I, _I, _P],
     "povar_pose_error2": [_P] * 6 + [_I, _I, _I, _I, _D, _P],
+    "povar_spmd_part_sums": [_P] * 3 + [_I] * 5 + [_P],
+    "povar_spmd_expand_rows": [_P] * 3 + [_I] * 5 + [_P],
+    "povar_spmd_reduce_reexpand": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 

@@ -1,7 +1,8 @@
 """Launch counters of every kernel of the package at once.
 
 Each wrapper module (ops/pose_kernels.py for step 1, ops/pose2_kernels.py
-for step 2, ops/cam_kernels.py for the camera-table kernels) adds one to
+for step 2, ops/cam_kernels.py for the camera-table kernels,
+ops/spmd_kernels.py for the SPMD window layout's) adds one to
 its `LAUNCHES` entry per kernel launch; a run that drives the whole
 two-step solve zeroes and reads them all here.
 """
@@ -10,9 +11,14 @@ from __future__ import annotations
 
 from typing import Dict
 
-from povar_tpu_torch.ops import cam_kernels, pose2_kernels, pose_kernels
+from povar_tpu_torch.ops import (
+    cam_kernels,
+    pose2_kernels,
+    pose_kernels,
+    spmd_kernels,
+)
 
-MODULES = (pose_kernels, pose2_kernels, cam_kernels)
+MODULES = (pose_kernels, pose2_kernels, cam_kernels, spmd_kernels)
 KERNELS = tuple(name for m in MODULES for name in m.KERNELS)
 
 

@@ -1,8 +1,10 @@
 """Synthetic BAL-style problem generation for tests and benchmarks.
 
-A numpy-only copy of the two generators and `write_bal_text` in
+A numpy-only copy of three generators and `write_bal_text` in
 povar_tpu/problem/synthetic.py: the same seed gives bit-identical
-arrays in both packages.
+arrays in both packages. `synthetic_bal_problem_adversarial` makes the
+structure that overflows camera windows (loop closures, scrambled
+camera ids), which the SPMD window layout's checks run on.
 
 The reference repository ships no data (examples/ is empty) and expects
 BAL downloads (scripts/download-bal-problems.sh). These generators
@@ -181,6 +183,106 @@ def synthetic_bal_problem_fast(
     )
     # already sorted by (lm, cam)
     return problem
+
+
+def synthetic_bal_problem_adversarial(
+    n_cams: int,
+    n_lms: int,
+    mean_obs_per_lm: float = 6.0,
+    loop_closure_frac: float = 0.01,
+    seed: int = 0,
+) -> BalProblem:
+    """Adversarial counterpart of `synthetic_bal_problem_fast`: the
+    structure distributions that stress the camera-window layout
+    instead of flattering it.
+
+    - **Heavy-tailed observation counts**: per-landmark counts are
+      drawn from a Zipf-weighted bucket set {2,3,4,6,8,12,16,24,32,48}
+      scaled to the requested mean — a few landmarks carry dozens of
+      observations while the mode stays small, like real SfM tracks.
+    - **Mixed camera spans**: each landmark's span is drawn from
+      {tight 24, medium 96, wide 384} (70/25/5), so no single window
+      width fits everything.
+    - **Loop closures**: `loop_closure_frac` of landmarks observe
+      cameras strided across the ENTIRE camera range (global span) —
+      the structure that forces the span-overflow grid-cell path.
+    - **Scrambled camera ids**: a random permutation destroys index
+      locality; only RCM reordering over the true adjacency
+      (reference bal_problem.cpp:268-303) can recover it.
+
+    Fully vectorized (per-k-bucket batch generation), so it runs at
+    venice/final scale. Cameras/landmarks are the initialization-free
+    N(0,1) configuration."""
+    rng = np.random.default_rng(seed)
+    gt_cams = _ring_cameras(n_cams, radius=10.0, rng=rng)
+    pts = rng.standard_normal((n_lms, 3)) * 2.0
+
+    ks = np.array([2, 3, 4, 6, 8, 12, 16, 24, 32, 48])
+    ks = ks[ks <= n_cams]
+    w = 1.0 / ks.astype(np.float64) ** 1.1  # Zipf-ish bucket weights
+    w /= w.sum()
+    # scale weights toward the requested mean by tempering
+    for _ in range(40):
+        mean = float((w * ks).sum())
+        w = w * np.exp((mean_obs_per_lm - mean) * ks / ks.max() * 0.1)
+        w /= w.sum()
+    k_per_lm = rng.choice(ks, size=n_lms, p=w)
+
+    spans = np.array([24, 96, 384])
+    spans = np.minimum(spans, n_cams)
+    span_per_lm = rng.choice(spans, size=n_lms, p=[0.70, 0.25, 0.05])
+    span_per_lm = np.maximum(span_per_lm, k_per_lm)
+    n_loop = int(loop_closure_frac * n_lms)
+    loop_ids = rng.choice(n_lms, size=n_loop, replace=False)
+    span_per_lm[loop_ids] = n_cams  # global span
+
+    obs_lm_parts, obs_cam_parts = [], []
+    for k in np.unique(k_per_lm):
+        sel = np.nonzero(k_per_lm == k)[0]
+        span = span_per_lm[sel]  # [m_b], all >= k
+        # k distinct cameras within each landmark's span (sorted-base
+        # + arange trick, per-row span)
+        base = (
+            rng.random((len(sel), k)) * (span - k + 1)[:, None]
+        ).astype(np.int64)
+        base.sort(axis=1)
+        cams = base + np.arange(k)[None, :]
+        centers = (
+            rng.random(len(sel)) * (n_cams - span + 1)
+        ).astype(np.int64)
+        cams = cams + centers[:, None]
+        obs_lm_parts.append(np.repeat(sel.astype(np.int32), k))
+        obs_cam_parts.append(cams.reshape(-1).astype(np.int32))
+
+    obs_lm = np.concatenate(obs_lm_parts)
+    obs_cam = np.concatenate(obs_cam_parts)
+    order = np.argsort(obs_lm, kind="stable")
+    obs_lm, obs_cam = obs_lm[order], obs_cam[order]
+
+    # scramble camera ids LAST (observations keep true co-visibility)
+    scramble = rng.permutation(n_cams).astype(np.int32)
+    obs_cam = scramble[obs_cam]
+    gt_scr = np.empty_like(gt_cams)
+    gt_scr[scramble] = gt_cams
+
+    xh = np.concatenate([pts, np.ones((n_lms, 1))], axis=1)
+    p = np.einsum("oij,oj->oi", gt_scr[obs_cam], xh[obs_lm])
+    obs_uv = p[:, :2] / p[:, 2:3]
+
+    cam_space = np.zeros_like(gt_cams)
+    cam_space[:, 0, :] = rng.standard_normal((n_cams, 4))
+    cam_space[:, 1, :] = rng.standard_normal((n_cams, 4))
+    cam_space[:, 2, :] = np.array([0.0, 0.0, 0.0, 1.0])
+
+    return BalProblem(
+        cam_space=cam_space,
+        intrinsics=np.tile(np.array([1.0, 0.0, 0.0]), (n_cams, 1)),
+        lm_p=rng.standard_normal((n_lms, 3)),
+        obs_cam=obs_cam,
+        obs_lm=obs_lm,
+        obs_uv=obs_uv,
+        input_path=f"synthetic-adversarial-{n_cams}-{n_lms}",
+    )
 
 
 def write_bal_text(

@@ -16,14 +16,19 @@ contiguous block ordered SLOT-ELEMENT-MAJOR: lane index = k * G + g for
 slot element k of landmark g. A per-landmark segment sum is then a sum
 of w contiguous [.., G] slices and the inverse expansion a broadcast,
 with no index gathers. Rare large landmarks (count > SLOT_EXACT_MAX)
-are padded up to powers of two with zero-weight slots. The camera
-windows of the JAX package (its large-N TPU layout) are not part of
-this package: a GPU kernel gathers a camera row by index at any N.
+are padded up to powers of two with zero-weight slots.
+
+The window planners of the JAX package (`plan_camera_order`,
+`choose_window_width`, `build_window_plan`, ...) are copied too: the
+SPMD window layout (parallel/spmd.py) plans with them. The camera
+windows themselves (the JAX package's large-N TPU layout, per-window
+camera tables) have no counterpart: a GPU kernel gathers a camera row
+by index at any N.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -206,3 +211,255 @@ def slot_expand(
     """Inverse of slot_segment_sum's indexing: per-landmark values
     s [..., M] -> per-observation [..., O_pad] (slot order)."""
     return slot_row_expand(s.index_select(-1, lm_order), shapes)
+
+
+# ---------------------------------------------------------------------
+# Window planning (numpy; povar_tpu/solver/segments.py:360-600), used by
+# the SPMD window layout (parallel/spmd.py) to order cameras and pack
+# landmark slot rows into camera windows. Copied as they are: the SPMD
+# plan must come out array for array as the JAX package's. The windows
+# bound the TPU's in-VMEM one-hot; here they only shape the lane layout
+# (which landmarks share a window, and so a device), since a GPU kernel
+# gathers a camera row by its global index.
+# ---------------------------------------------------------------------
+
+WINDOW_W = 512  # largest supported window (VMEM bound on the one-hot)
+WINDOW_CHOICES = (128, 256, 512)
+
+
+def _lm_spans(obs_cam, obs_lm, num_landmarks):
+    """Per-landmark (lo, hi) camera index range; unobserved -> (0, 0)."""
+    lo = np.full(num_landmarks, np.iinfo(np.int64).max, dtype=np.int64)
+    hi = np.full(num_landmarks, -1, dtype=np.int64)
+    np.minimum.at(lo, obs_lm, obs_cam)
+    np.maximum.at(hi, obs_lm, obs_cam)
+    seen = hi >= 0
+    lo[~seen] = 0
+    hi[~seen] = 0
+    return lo, hi
+
+
+def camera_span_stats(
+    obs_cam: np.ndarray, obs_lm: np.ndarray, num_landmarks: int
+):
+    """Per-landmark camera-index span statistics (span = hi - lo + 1).
+    Returns (max_span, num_over_largest_window) — the inputs to both
+    the window-width choice and the fallback diagnostics."""
+    lo, hi = _lm_spans(
+        np.asarray(obs_cam), np.asarray(obs_lm), num_landmarks
+    )
+    spans = hi - lo + 1
+    return int(spans.max()), int(np.sum(spans > WINDOW_W))
+
+
+def rcm_camera_order(
+    obs_cam: np.ndarray,
+    obs_lm: np.ndarray,
+    num_cameras: int,
+    lm_skip: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Bandwidth-minimizing camera ordering by reverse Cuthill-McKee
+    over the camera co-observation graph, the TPU-planning analogue of
+    the reference's camera-camera adjacency (bal_problem.cpp:268-303).
+
+    Returns pos [N]: pos[c] = rank of camera c in the new order. The
+    graph uses chain+star edges per landmark (first camera to every
+    other, plus consecutive pairs) — O(sum obs) edges that bound each
+    landmark's span by ~2x the graph bandwidth, vs O(sum obs^2) for
+    the full clique. `lm_skip` [M] bool excludes landmarks from the
+    graph (incompressible loop closures, which would otherwise drag
+    every local span wider)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    obs_cam = np.asarray(obs_cam, dtype=np.int64)
+    obs_lm = np.asarray(obs_lm)
+    if lm_skip is not None:
+        keep = ~lm_skip[obs_lm]
+        obs_cam = obs_cam[keep]
+        obs_lm = obs_lm[keep]
+    order = np.argsort(obs_lm, kind="stable")
+    cam_s = obs_cam[order]
+    lm_s = obs_lm[order]
+    same = lm_s[1:] == lm_s[:-1]
+    # chain edges: consecutive cameras of the same landmark
+    rows = cam_s[:-1][same]
+    cols = cam_s[1:][same]
+    # star edges: landmark's first camera to each later one
+    first_pos = np.searchsorted(lm_s, lm_s)  # first index of each lm
+    rows2 = cam_s[first_pos]
+    rows = np.concatenate([rows, rows2])
+    cols = np.concatenate([cols, cam_s])
+    data = np.ones(len(rows), dtype=np.int8)
+    g = coo_matrix(
+        (data, (rows, cols)), shape=(num_cameras, num_cameras)
+    ).tocsr()
+    perm = reverse_cuthill_mckee(g + g.T, symmetric_mode=True)
+    pos = np.empty(num_cameras, dtype=np.int64)
+    pos[perm] = np.arange(num_cameras, dtype=np.int64)
+    return pos
+
+
+def plan_camera_order(
+    obs_cam: np.ndarray, obs_lm: np.ndarray, num_cameras: int,
+    num_landmarks: int,
+) -> Optional[np.ndarray]:
+    """Choose the camera ordering the window planner works in: the
+    best of {identity, RCM, RCM without heavy outlier landmarks} under
+    the window_cost_model (modeled one-hot lanes(w)*w at each
+    candidate's best width). Returns pos [N] or None for identity.
+
+    Heavy landmarks (obs count >> median) act like loop closures:
+    including their star edges drags every local span wider, so a
+    candidate ordering excludes them and lets them ride the overflow
+    partition instead."""
+    obs_cam = np.asarray(obs_cam)
+    obs_lm = np.asarray(obs_lm)
+
+    def score(cam):
+        # the same lanes(w)*w model the width choice minimizes
+        w, cost = window_cost_model(cam, obs_lm, num_landmarks)
+        return (cost, w)
+
+    cands = [(score(obs_cam), None)]
+    pos1 = rcm_camera_order(obs_cam, obs_lm, num_cameras)
+    cands.append((score(pos1[obs_cam]), pos1))
+    counts = np.bincount(obs_lm, minlength=num_landmarks)
+    med = max(float(np.median(counts[counts > 0])), 1.0)
+    heavy = counts > max(4.0 * med, 16.0)
+    if heavy.any() and not heavy.all():
+        pos2 = rcm_camera_order(
+            obs_cam, obs_lm, num_cameras, lm_skip=heavy
+        )
+        cands.append((score(pos2[obs_cam]), pos2))
+    return min(cands, key=lambda c: c[0])[1]
+
+
+def _bucket_lanes(counts: np.ndarray) -> int:
+    """Total slot lanes for per-row observation counts under the
+    build_slot_plan_windowed bucket rule (exact up to SLOT_EXACT_MAX,
+    next power of two above)."""
+    counts = counts[counts > 0]
+    small = counts <= SLOT_EXACT_MAX
+    lanes = int(counts[small].sum())
+    big = counts[~small]
+    if len(big):
+        lanes += int(
+            (1 << np.ceil(np.log2(big)).astype(np.int64)).sum()
+        )
+    return lanes
+
+
+def window_cost_model(
+    obs_cam: np.ndarray, obs_lm: np.ndarray, num_landmarks: int
+) -> tuple:
+    """(best width, modeled one-hot contraction cost) over
+    WINDOW_CHOICES: cost(w) = lanes(w) * w. Every slot lane (real or
+    bucket pad) pays an O(w) one-hot gather/scatter per kernel pass,
+    so the cost of a width is the EXACT lane count its plan would
+    produce — including the extra grid-cell sub-rows that landmarks
+    with span > w split into (build_window_plan) — times the width. A
+    width whose overflow rows cost less than the wider window's
+    universal 2-4x one-hot tax wins: one medium-span landmark
+    population no longer forces the widest window on everyone (the
+    round-2 overflow-budget rule did exactly that on mixed-span
+    problems, a 0.22x throughput cliff)."""
+    obs_cam = np.asarray(obs_cam, dtype=np.int64)
+    obs_lm = np.asarray(obs_lm, dtype=np.int64)
+    lo, hi = _lm_spans(obs_cam, obs_lm, num_landmarks)
+    span = hi - lo  # inclusive span minus one; row is normal if < w
+    lm_counts = np.bincount(obs_lm, minlength=num_landmarks)
+    best_w, best_cost = None, None
+    for w in WINDOW_CHOICES:
+        normal = span < w
+        lanes = _bucket_lanes(lm_counts[normal])
+        ovf = ~normal[obs_lm]
+        if ovf.any():
+            # one sub-row per occupied (landmark, width-w grid cell)
+            key = obs_lm[ovf] * (int(obs_cam.max()) // w + 2) + (
+                obs_cam[ovf] // w
+            )
+            _, cell_counts = np.unique(key, return_counts=True)
+            lanes += _bucket_lanes(cell_counts)
+        cost = lanes * w
+        if best_cost is None or cost < best_cost:
+            best_w, best_cost = w, cost
+    return best_w, best_cost
+
+
+def choose_window_width(
+    obs_cam: np.ndarray, obs_lm: np.ndarray, num_landmarks: int
+) -> int:
+    """Window width minimizing the window_cost_model."""
+    return window_cost_model(obs_cam, obs_lm, num_landmarks)[0]
+
+
+def build_window_plan(
+    obs_cam: np.ndarray,
+    obs_lm: np.ndarray,
+    num_landmarks: int,
+    width: int = WINDOW_W,
+):
+    """Window packing of landmark slot ROWS by camera span.
+
+    Landmarks whose camera span fits `width` pack greedily (sorted by
+    their lowest camera) into windows with arbitrary starts, one row
+    per landmark — the round-2 scheme. Landmarks whose span exceeds
+    `width` (loop closures etc.) no longer make the plan infeasible:
+    their observations are partitioned by camera into a fixed GRID of
+    width-`width` cells, producing one sub-landmark row per occupied
+    (landmark, cell); the per-landmark sums are then re-combined across
+    rows by the caller (slot plan `combine`), mirroring how duplicated
+    cameras across windows are combined on the camera side. This
+    replaces the reference's arbitrary-incidence landmark blocks
+    (sc/landmark_block.hpp:58-133) with no feasibility cliff.
+
+    Returns (obs_row [O] i64 slot-row id per observation,
+    row_window [R] i32, row_lm [R] i64 canonical landmark per row,
+    win_start [n_win] i64)."""
+    obs_cam = np.asarray(obs_cam, dtype=np.int64)
+    obs_lm = np.asarray(obs_lm, dtype=np.int64)
+    lo, hi = _lm_spans(obs_cam, obs_lm, num_landmarks)
+    normal = (hi - lo) < width
+
+    # greedy packing of normal landmarks (one row per landmark)
+    order = np.argsort(lo, kind="stable")
+    order = order[normal[order]]
+    row_of_lm = np.full(num_landmarks, -1, dtype=np.int64)
+    row_window = []
+    row_lm = []
+    starts = []
+    cur_start = None
+    for m in order:
+        if cur_start is None or hi[m] >= cur_start + width:
+            cur_start = int(lo[m])
+            starts.append(cur_start)
+        row_of_lm[m] = len(row_lm)
+        row_window.append(len(starts) - 1)
+        row_lm.append(m)
+
+    obs_row = row_of_lm[obs_lm]
+    if not normal.all():
+        # overflow rows: grid cells of stride `width`
+        ovf = ~normal[obs_lm]
+        cell = obs_cam[ovf] // width
+        key = obs_lm[ovf] * (int(obs_cam.max()) // width + 2) + cell
+        uniq, inv = np.unique(key, return_inverse=True)
+        base = len(row_lm)
+        obs_row[np.nonzero(ovf)[0]] = base + inv
+        # window per occupied cell (dedup grid starts)
+        first = np.zeros(len(uniq), dtype=np.int64)
+        first[inv[::-1]] = np.nonzero(ovf)[0][::-1]  # first obs per row
+        cell_of_row = obs_cam[first] // width
+        grid_cells, grid_inv = np.unique(cell_of_row, return_inverse=True)
+        gbase = len(starts)
+        starts.extend((grid_cells * width).tolist())
+        row_window.extend((gbase + grid_inv).tolist())
+        row_lm.extend(obs_lm[first].tolist())
+
+    return (
+        obs_row,
+        np.asarray(row_window, dtype=np.int32),
+        np.asarray(row_lm, dtype=np.int64),
+        np.asarray(starts, dtype=np.int64),
+    )

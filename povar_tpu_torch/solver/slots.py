@@ -25,7 +25,7 @@ landmark order, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,14 +72,18 @@ class Obs(NamedTuple):
     slot pad row carries the ids of the observation it copies, with
     weight 0); uv: measurements [2, Op]; weight: 0/1 mask [Op] over slot
     pads (None when there are none); lm_order/lm_inv: slot-row <->
-    canonical landmark id maps."""
+    canonical landmark id maps (on the SPMD layout, parallel/spmd.py:
+    slot row -> the rank's landmark, and lm_inv None)."""
 
     cam: torch.Tensor
     lm: torch.Tensor
     uv: torch.Tensor
     weight: Optional[torch.Tensor]
     lm_order: torch.Tensor
-    lm_inv: torch.Tensor
+    lm_inv: Optional[torch.Tensor]
+    # 1/0 over the landmark axis: real and fake landmarks of an SPMD
+    # shard (parallel/spmd.py); None on one device
+    lm_mask: Optional[torch.Tensor] = None
 
 
 def mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -218,10 +222,19 @@ class SlotSolver:
     versions, as the tests do). Raises RuntimeError for "cuda" without a
     CUDA device and NotImplementedError, naming the ROADMAP.md item, for
     a configuration the port does not run yet (`unsupported` returns
-    the reason or None); it never substitutes another path."""
+    the reason or None); it never substitutes another path.
+
+    The SPMD hooks of the JAX package's `CamWindows` (stage1.py:343-394,
+    514-520) live here too: `_psum` and its scalar and cost-dict forms
+    all-reduce over `mesh`, and `_lm_masked` / `_lm_masked_L` zero the
+    per-landmark outputs of fake landmarks (Obs.lm_mask). On one device
+    (`mesh` None, no mask) each is the identity; the SPMD solvers
+    (parallel/spmd.py) set both."""
 
     # what the subclass runs, for the NotImplementedError message
     PATH = ""
+    # the mesh the solve's sums are all-reduced over (parallel/mesh.Mesh)
+    mesh = None
 
     @staticmethod
     def uses_unstructured(options: SolverOptions) -> bool:
@@ -240,7 +253,6 @@ class SlotSolver:
         options: SolverOptions,
         dtype,
         device,
-        unsupported: Callable[[SolverOptions, int, object], Optional[str]],
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -253,7 +265,7 @@ class SlotSolver:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.n_cams = int(num_cameras)
         self.n_lms = int(num_landmarks)
-        why = unsupported(options, self.n_cams, dtype)
+        why = self.unsupported(options, self.n_cams, dtype)
         if why is not None:
             raise NotImplementedError(
                 f"povar_tpu_torch runs {self.PATH} only; not ported yet: "
@@ -266,10 +278,7 @@ class SlotSolver:
         self.robust = ROBUST_CODE[options.residual.robust_norm]
         self.huber = float(options.residual.huber_parameter)
         self.power_m = int(options.power_sc_iterations)
-        self.obs, self.lm_shapes = make_obs(
-            obs_cam, obs_lm, obs_uv, self.n_cams, self.n_lms, dtype,
-            self.device,
-        )
+        self.obs, self.lm_shapes = self._make_obs(obs_cam, obs_lm, obs_uv)
         self.jacobi_eps = options.effective_jacobi_scaling_epsilon(
             np.float32
         )
@@ -289,7 +298,67 @@ class SlotSolver:
         # kernels everywhere, or the unstructured layout)
         self.e0_plan = plan_e0_fused(
             self.lm_shapes, None if w is None else w.cpu().numpy()
-        ) if options.fused_power_term and not self.unstructured else None
+        ) if (options.fused_power_term and not self.unstructured
+              and self.lm_shapes is not None) else None
+
+    def unsupported(self, options: SolverOptions, n_cams: int,
+                    dtype) -> Optional[str]:
+        """Why this solver does not run `options` yet, or None."""
+        return common_unsupported(options, n_cams, dtype)
+
+    def _make_obs(self, obs_cam, obs_lm, obs_uv) -> Tuple[Obs, tuple]:
+        """(the observation layout on the solver's device, its slot
+        shapes): the slot layout of `make_obs`."""
+        return make_obs(obs_cam, obs_lm, obs_uv, self.n_cams, self.n_lms,
+                        self.dtype, self.device)
+
+    # ---- the SPMD hooks (identity on one device)
+
+    def _psum(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the mesh (a per-camera accumulator or a scalar),
+        the same on every rank."""
+        if self.mesh is None:
+            return x
+        return self.mesh.all_reduce_(x.contiguous())
+
+    def _psum_scalars(self, *xs: torch.Tensor):
+        """Several 0-d tensors summed over the mesh in one all-reduce (as
+        f64, exact for the counts and flags among them), each back in
+        its dtype (a bool: whether any rank's was true)."""
+        if self.mesh is None:
+            return xs
+        dev = xs[0].device
+        tot = self._psum(torch.stack(
+            [torch.as_tensor(x, device=dev).to(torch.float64) for x in xs]))
+        return tuple(t.to(x.dtype) for t, x in zip(tot, xs))
+
+    def _psum_err(self, d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A cost dict all-reduced over the mesh (`_psum_err` of the JAX
+        package): the bucket sums and the valid count summed, the
+        numerical validity an AND over the ranks; num_obs_all stays the
+        static global live count."""
+        if self.mesh is None:
+            return d
+        keys = ("error_all", "residual_sum_all", "num_obs_valid",
+                "error_valid", "residual_sum_valid")
+        *tot, bad = self._psum_scalars(
+            *(d[k] for k in keys), ~d["is_numerically_valid"])
+        return dict(d, **dict(zip(keys, tot)), is_numerically_valid=~bad)
+
+    def _lm_masked(self, x: torch.Tensor) -> torch.Tensor:
+        """Zero the fake landmarks' entries of per-landmark x [..., M]
+        (their normal equations are singular, so their increments would
+        come out NaN and must not touch the state)."""
+        if self.obs.lm_mask is None:
+            return x
+        return torch.where(self.obs.lm_mask > 0, x, torch.zeros_like(x))
+
+    def _lm_masked_L(self, x: torch.Tensor) -> torch.Tensor:
+        """`_lm_masked` for L-space x [..., L]."""
+        if self.obs.lm_mask is None:
+            return x
+        m = self._lm_to_L(self.obs.lm_mask) > 0
+        return torch.where(m, x, torch.zeros_like(x))
 
     # ---- landmark "L space": per-landmark tables live in slot-ROW
     # order between a slot reduce and a slot expansion, so both
@@ -549,10 +618,10 @@ class SlotSolver:
             err = torch.where(active, err, torch.zeros_like(err))
             valid = valid & active
             finite = finite | ~active
-        return accumulate_residual_info(
+        return self._psum_err(accumulate_residual_info(
             err, torch.sqrt(res_sq), valid, finite,
             num_obs_all=self.n_obs_live,
-        )
+        ))
 
     def _precond_closure(self, pmats):
         """The CG preconditioner's apply over its materials (`pmats`, as

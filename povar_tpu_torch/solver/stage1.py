@@ -50,12 +50,7 @@ from povar_tpu_torch.options import (
 )
 from povar_tpu_torch.solver import pcg as pcg_mod
 from povar_tpu_torch.solver.segments import slot_part_sums, slot_row_expand
-from povar_tpu_torch.solver.slots import (
-    LmState,
-    SlotSolver,
-    common_unsupported,
-    mv,
-)
+from povar_tpu_torch.solver.slots import LmState, SlotSolver, mv
 
 class Lin1(NamedTuple):
     """Unstructured step-1 linearization point (all f32): the weighted
@@ -122,7 +117,7 @@ class Stage1Solver(SlotSolver):
     ):
         super().__init__(
             obs_cam, obs_lm, obs_uv, num_cameras, num_landmarks, options,
-            dtype, device, common_unsupported,
+            dtype, device,
         )
         self.alpha = float(options.alpha)
         # reference quirk (stage1.py:664-674 of the JAX package): only
@@ -212,10 +207,10 @@ class Stage1Solver(SlotSolver):
             )
         ct = self._cam_table(cam_space, self.dtype)
         x = self._expand_L(self._lm_rows(lm_p).to(self.dtype))
-        err, rn, bad = pose_kernels.pose_error(
+        err, rn, bad = self._psum_scalars(*pose_kernels.pose_error(
             self.obs.cam, ct, x, self.obs.uv, self._mask1,
             alpha=self.alpha, robust=self.robust, huber=self.huber,
-        )
+        ))
         return {
             "num_obs_all": self.n_obs_live,
             "error_all": err,
@@ -256,7 +251,7 @@ class Stage1Solver(SlotSolver):
         )
         gtg = self._hll_guard_L(self._seg_L(ata).reshape(3, 3, -1))
         gtz = -self._seg_L(atr)
-        lm0 = self._L_to_lm(linalg.solve3x3f(gtg, gtz))
+        lm0 = self._lm_masked(self._L_to_lm(linalg.solve3x3f(gtg, gtz)))
         return lm0.T.to(self.dtype).contiguous()
 
     # -------------------------------------------------------- linearize
@@ -309,7 +304,7 @@ class Stage1Solver(SlotSolver):
         )
         hll_raw = self._seg_L(ata).reshape(3, 3, -1)
         bl_raw = self._seg_L(atr)
-        return ct, x, r_w, sw, hll_raw, bl_raw, jpsq
+        return ct, x, r_w, sw, hll_raw, bl_raw, self._psum(jpsq)
 
     def _lin_scale_jl_s(self, hll_raw: torch.Tensor) -> torch.Tensor:
         """Landmark Jacobi scale 1 / (eps + col norm) from the raw Hll
@@ -362,10 +357,10 @@ class Stage1Solver(SlotSolver):
             jls_obs, hib_obs, self.n_cams, alpha=self.alpha,
         )
         ps = lin.pose_scale
-        hpp = hpp_raw.reshape(12, 12, self.n_cams) * (
+        hpp = self._psum(hpp_raw).reshape(12, 12, self.n_cams) * (
             ps[:, None, :] * ps[None, :, :]
         )
-        return hpp, b_raw * ps
+        return hpp, self._psum(b_raw) * ps
 
     def _h_factor_s(self, lin: Lin1S, jls_obs, lh_obs):
         return pose_kernels.e0_factor(
@@ -393,7 +388,7 @@ class Stage1Solver(SlotSolver):
                 )
                 if suffix is not None:
                     out = out + suffix(z)
-                return ps * out
+                return ps * self._psum(out)
 
             return e0_fused
 
@@ -403,7 +398,7 @@ class Stage1Solver(SlotSolver):
             out = pose_kernels.e0_scatter_structured(
                 cam, lin.x, h, sb, self.n_cams
             )
-            return ps * out
+            return ps * self._psum(out)
 
         return e0
 
@@ -516,9 +511,9 @@ class Stage1Solver(SlotSolver):
         if self.opts.preconditioner_type == PreconditionerType.IDENTITY:
             return ()
         ps = lin.pose_scale
-        corr = pose_kernels.schur_diag_structured(
+        corr = self._psum(pose_kernels.schur_diag_structured(
             self.obs.cam, lin.x, h, self.n_cams
-        ).reshape(12, 12, self.n_cams) * (ps[:, None, :] * ps[None, :, :])
+        )).reshape(12, 12, self.n_cams) * (ps[:, None, :] * ps[None, :, :])
         eye = torch.eye(12, dtype=hpp.dtype, device=hpp.device)
         return self._precond_mats(hpp + lam_s * eye[:, :, None] - corr)
 
@@ -615,14 +610,14 @@ class Stage1Solver(SlotSolver):
         )
         hll_new = self._hll_guard_L(self._seg_L(ata).reshape(3, 3, -1))
         tmp = self._seg_L(atr)
-        inc_lm = -linalg.solve3x3f(hll_new, tmp)  # [3, L]
+        inc_lm = self._lm_masked_L(-linalg.solve3x3f(hll_new, tmp))  # [3, L]
 
         neg_l_diff = pose_kernels.apply_ldiff(
             self.obs.cam, lin.x, self._uv_s, lin.sw, lin.r_w,
             self._expand_L(lin.jl_scale), self._expand_L(inc_lm),
             lin.ct, inc_f, alpha=self.alpha,
         )
-        return self._add_lm(lm_p, inc_lm), -neg_l_diff
+        return self._add_lm(lm_p, inc_lm), -self._psum(neg_l_diff)
 
     def _add_lm(self, lm_p, inc_lm: torch.Tensor):
         """The landmark state plus an L-space increment [3, L], in the
@@ -673,12 +668,13 @@ class Stage1Solver(SlotSolver):
             self.obs.cam, lin.ct, lin.x, self._uv_s, lin.sw, lin.r_w,
             jls_obs, z_table, alpha=self.alpha,
         )
-        inc_lm_scaled = -linalg.solve3x3f(
+        inc_lm_scaled = self._lm_masked_L(-linalg.solve3x3f(
             self._scaled_hll(lin, lam_s), self._seg_L(t3)
-        )  # [3, L]
+        ))  # [3, L]
         neg_l_diff = pose_kernels.apply_ldiff_stored(
             self.obs.cam, lin.x, self._uv_s, lin.sw, lin.r_w, jls_obs,
             self._expand_L(inc_lm_scaled), lin.ct, z_table,
             alpha=self.alpha,
         )
-        return self._add_lm(lm_p, inc_lm_scaled * d), -neg_l_diff
+        return (self._add_lm(lm_p, inc_lm_scaled * d),
+                -self._psum(neg_l_diff))

@@ -55,12 +55,7 @@ from povar_tpu_torch.options import (
 )
 from povar_tpu_torch.solver import pcg as pcg_mod
 from povar_tpu_torch.solver.segments import slot_part_sums, slot_row_expand
-from povar_tpu_torch.solver.slots import (
-    LmState,
-    SlotSolver,
-    common_unsupported,
-    mv,
-)
+from povar_tpu_torch.solver.slots import LmState, SlotSolver, mv
 
 
 class Lin2(NamedTuple):
@@ -137,7 +132,7 @@ class Stage2Solver(SlotSolver):
     ):
         super().__init__(
             obs_cam, obs_lm, obs_uv, num_cameras, num_landmarks, options,
-            dtype, device, common_unsupported,
+            dtype, device,
         )
         self.use_valid_only = options.use_projection_validity_check()
 
@@ -184,10 +179,14 @@ class Stage2Solver(SlotSolver):
                                        torch.isfinite(r).all(dim=0))
         ct = self._cam_table(cam_space, self.dtype)
         x4 = self._expand_L(self._lm_rows(lm_p_h).to(self.dtype))
-        return pose2_kernels.pose_error2(
+        d = pose2_kernels.pose_error2(
             self.obs.cam, ct, x4, self.obs.uv, self._mask1,
             robust=self.robust, huber=self.huber,
         )
+        # the static global live count, as the JAX package's
+        # stage2._compute_error_df32
+        d["num_obs_all"] = self.n_obs_live
+        return self._psum_err(d)
 
     # --------------------------------------------------------- linearize
 
@@ -214,7 +213,7 @@ class Stage2Solver(SlotSolver):
             huber=self.huber,
         )
         jl_scale = 1.0 / (self.jacobi_eps + torch.sqrt(self._seg_L(jlsq)))
-        pose_scale = 1.0 / (self.jacobi_eps + torch.sqrt(jpsq))
+        pose_scale = 1.0 / (self.jacobi_eps + torch.sqrt(self._psum(jpsq)))
         return self._lin2_tangent_s(ct, x4_L, x4, rw, sw, mm, jlw, jl_scale,
                                     pose_scale)
 
@@ -343,7 +342,7 @@ class Stage2Solver(SlotSolver):
             self.obs.cam, lin.x4, lin.mm, lin.sw, lin.r_w, lin.jlns,
             hib_obs, self.n_cams,
         )
-        return self._fold_kps(lin, hpp12, b12)
+        return self._fold_kps(lin, self._psum(hpp12), self._psum(b12))
 
     def solve_power(self, lin, lam) -> Tuple[torch.Tensor, int]:
         """RIPOBA: power series on the 11-dof tangent system
@@ -412,9 +411,9 @@ class Stage2Solver(SlotSolver):
         schur_diag2 corrections; none for IDENTITY."""
         if self.opts.preconditioner_type == PreconditionerType.IDENTITY:
             return ()
-        corr12 = pose2_kernels.schur_diag2(
+        corr12 = self._psum(pose2_kernels.schur_diag2(
             self.obs.cam, lin.x4, lin.mm, lin.sw, b6, self.n_cams
-        )
+        ))
         corr11, _ = self._fold_kps(lin, corr12, None)
         eye = torch.eye(11, dtype=hpp11.dtype, device=hpp11.device)
         return self._precond_mats(hpp11 + lam_s * eye[:, :, None] - corr11)
@@ -440,7 +439,7 @@ class Stage2Solver(SlotSolver):
                 )
                 if suffix is not None:
                     out12 = out12 + suffix(zt)
-                return self._fold_kps(lin, None, out12)[1]
+                return self._fold_kps(lin, None, self._psum(out12))[1]
 
             return e0_fused
 
@@ -453,7 +452,7 @@ class Stage2Solver(SlotSolver):
             out12 = pose2_kernels.scatter2(
                 cam, lin.x4, lin.mm, lin.sw, b6, sb, self.n_cams
             )
-            return self._fold_kps(lin, None, out12)[1]
+            return self._fold_kps(lin, None, self._psum(out12))[1]
 
         return e0
 
@@ -528,6 +527,7 @@ class Stage2Solver(SlotSolver):
             cam, lin.x4, lin.mm, lin.sw, lin.r_w, lin.jls8,
             self._expand_L(inc_proj), zt,
         )
+        neg_l_diff = self._psum(neg_l_diff)
         inc4 = (inc_proj * lin.jl_scale).to(self.dtype)
         if isinstance(lm_p_h, LmState):
             rows = lm_p_h.rows + inc4

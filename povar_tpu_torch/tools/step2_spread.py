@@ -72,7 +72,10 @@ import numpy as np
 import torch
 
 from povar_tpu_torch.options import SolverType, SolverTypeRiemannian
-from povar_tpu_torch.problem.synthetic import _ring_cameras
+from povar_tpu_torch.problem.synthetic import (
+    _ring_cameras,
+    synthetic_bal_problem_adversarial,
+)
 from povar_tpu_torch import (
     SolverOptions,
     SolverSummary,
@@ -303,6 +306,32 @@ def small_case(config="composed"):
                          max_num_iterations_step_2=10)
     for k, v in SMALL_CONFIGS[config].items():
         setattr(opts, k, v)
+    return problem, opts
+
+
+# The step-1 cost gap of `overflow_case`'s card and CPU runs on a
+# 1-device mesh (decisions and counts identical): the f32 sums' order
+# compounds over the six accepted steps, to 1.0e-3, 1.2e-3, 1.5e-3 and
+# 1.6e-3 at the sixth in four runs on an H100 80GB HBM3 at 700 W
+# (chip_smoke.py, tests/test_torch_cuda.py); about twice the largest.
+OVERFLOW_TOL = 3e-3
+
+
+def overflow_case():
+    """A small problem whose SPMD window plan has overflow landmarks
+    (rows duplicated within a device, `SpmdPlan.has_duplicates`):
+    synthetic_bal_problem_adversarial(200, 800, 8, 1% loop closures,
+    seed 3), 6,043 observations, with at most 6 step-1 and 4 step-2
+    iterations. Its step 1 accepts every step; its step 2 starts where
+    f32 trials fail (NaN increments), so chip_smoke.py and
+    tests/test_torch_cuda.py hold the card's 1-device mesh to the CPU's
+    step-1 decisions and counts, its costs to OVERFLOW_TOL, and step 2
+    only to a finite fall. Returns (problem, options)."""
+    problem = synthetic_bal_problem_adversarial(200, 800, 8.0,
+                                                loop_closure_frac=0.01,
+                                                seed=3)
+    opts = SolverOptions(device_lm_loop="off", max_num_iterations_step_1=6,
+                         max_num_iterations_step_2=4)
     return problem, opts
 
 

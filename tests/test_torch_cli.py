@@ -16,7 +16,8 @@ are the same; the costs agree within the tolerances of
 test_cli_solve_matches_jax; `--dump-config` round-trips;
 povar_tpu.tools (its log loader and the report generator) read the
 port's log. And without a card the app refuses to solve unless given
-`--device cpu`, and refuses `--mesh-devices` > 1.
+`--device cpu`; `--mesh-devices` above the card count exits 1; with
+`--device cpu`, `--mesh-devices 2` solves as two gloo ranks.
 """
 
 import json
@@ -173,18 +174,55 @@ def test_dump_config_round_trips(tmp_path, capsys, monkeypatch):
 def test_without_a_card_the_cli_refuses_to_solve(tmp_path, capsys,
                                                  monkeypatch):
     """The default --device cuda exits 1 without a CUDA device, before
-    any solve, and names --device cpu; --mesh-devices 2 exits 1 naming
-    its ROADMAP item."""
+    any solve, and names --device cpu, with or without --mesh-devices."""
     monkeypatch.chdir(tmp_path)
     _create(tmp_path, cli.main)
-    assert cli.main(["--input", DATA, "--mesh-devices", "2",
-                     "--device", "cpu"]) == 1
-    assert "item 13" in capsys.readouterr().err
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    assert cli.main(["--input", DATA]) == 1
-    assert "--device cpu" in capsys.readouterr().err
+    for mesh in ([], ["--mesh-devices", "1"], ["--mesh-devices", "2"]):
+        assert cli.main(["--input", DATA, *mesh]) == 1
+        assert "--device cpu" in capsys.readouterr().err
     assert not (tmp_path / "ba_log.json").exists()
+
+
+def test_mesh_devices_above_the_card_count_exit_1(tmp_path, capsys,
+                                                  monkeypatch):
+    """--mesh-devices above the card count exits 1 before any solve, as
+    the JAX app does for too few devices (here with one card
+    pretended)."""
+    monkeypatch.chdir(tmp_path)
+    _create(tmp_path, cli.main)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert cli.main(["--input", DATA, "--mesh-devices", "2"]) == 1
+    assert "only 1 devices available" in capsys.readouterr().err
+    assert not (tmp_path / "ba_log.json").exists()
+
+
+def test_mesh_devices_on_the_cpu(tmp_path, monkeypatch):
+    """--device cpu --mesh-devices 2 solves as two gloo ranks (the SPMD
+    window layout): one ba_log.json, written by rank 0, with both steps'
+    records and strictly falling accepted costs; --mesh-devices 1 solves
+    in process to the same decisions."""
+    monkeypatch.chdir(tmp_path)
+    _create(tmp_path, cli.main)
+    logs = []
+    for n in ("2", "1"):
+        log = tmp_path / f"ba_log_{n}.json"
+        assert cli.main(["--input", DATA, "--device", "cpu",
+                         "--mesh-devices", n, "--log-file", str(log),
+                         "--solver-max-num-iterations-step-1", "6",
+                         "--solver-max-num-iterations-step-2", "4"]) == 0
+        logs.append(json.loads(log.read_text()))
+    assert sorted(p.name for p in tmp_path.glob("*.json")) == [
+        "ba_log_1.json", "ba_log_2.json"]
+    for log in logs:
+        assert len(log["iterations1"]) == 7 and len(log["iterations"]) == 5
+        for key in ("iterations1", "iterations"):
+            acc = [it["cost"] for it in log[key] if it["step_is_successful"]]
+            assert all(b < a for a, b in zip(acc, acc[1:])), acc
+    assert ([it["step_is_successful"] for it in logs[0]["iterations1"]]
+            == [it["step_is_successful"] for it in logs[1]["iterations1"]])
 
 
 def test_profile_dir_and_ubjson_log(tmp_path, monkeypatch):

@@ -1,9 +1,10 @@
-"""povar_tpu_torch on the card: each CUDA kernel of both steps and the
-camera gather against its plain PyTorch version on the same CUDA
-tensors, the step-1 slice and the two-step `bundle_adjust` (composed
-term, SolverOptions() defaults, PCG + RIPCG, POWER_SCHUR_COMPLEMENT +
-RIPOBA, the f32 state) on the card against the same solves on the CPU,
-and the command-line app on the card.
+"""povar_tpu_torch on the card: each CUDA kernel of both steps, the
+camera-table kernels and the SPMD window layout's slot kernels against
+its plain PyTorch version on the same CUDA tensors, the step-1 slice and
+the two-step `bundle_adjust` (composed term, SolverOptions() defaults,
+PCG + RIPCG, POWER_SCHUR_COMPLEMENT + RIPOBA, the f32 state, the
+unstructured layout, a 1-device mesh) on the card against the same
+solves on the CPU, and the command-line app on the card.
 
 Every test here is marked `cuda` and skips without a CUDA device. The
 file imports nothing of JAX, so it runs where JAX is not installed:
@@ -27,6 +28,8 @@ projections divide by p2, so their camera table and landmarks keep p2
 in [2.5, 9] (random ones make the division chaotic).
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -37,14 +40,18 @@ from povar_tpu_torch import (
     Stage1Solver,
     Timer,
     bundle_adjust,
+    create_homogeneous,
     from_numpy,
+    make_mesh,
     optimize_step1,
     synthetic_bal_problem,
 )
 from povar_tpu_torch.tools.parity import scaled_error
 from povar_tpu_torch.tools.step2_spread import (
+    OVERFLOW_TOL,
     RING_TOLS,
     SMALL_TOLS,
+    overflow_case,
     ring_compare,
     ring_pipeline,
     small_case,
@@ -53,7 +60,8 @@ from povar_tpu_torch.ops import cam_kernels, cam_ref, launches
 from povar_tpu_torch.ops import pose2_kernels as pk2
 from povar_tpu_torch.ops import pose2_ref
 from povar_tpu_torch.ops import pose_kernels as pk
-from povar_tpu_torch.ops import pose_ref
+from povar_tpu_torch.ops import pose_ref, spmd_kernels, spmd_ref
+from povar_tpu_torch.parallel import spmd as tspmd
 
 ALPHA = 0.01
 O = 1024
@@ -346,14 +354,16 @@ def test_step1_slice_card_matches_cpu(cuda):
 
 # the kernels each configuration of `small_case` runs (every landmark of
 # its problem is narrow, so the fused terms have no composed suffix);
-# none runs POWER_SCHUR_COMPLEMENT or an f32 state
+# none runs POWER_SCHUR_COMPLEMENT, an f32 state or a mesh
 FUSED_ONLY = {"e0_term_parts", "e0_term2_parts"}
 CG_ONLY = {"schur_diag_structured", "schur_diag2"}
 COMPOSED_ONLY = {"e0_u_structured", "e0_scatter_structured", "scatter2"}
 PSC_ONLY = {"poba_t3", "apply_ldiff_stored"}
 F32_ONLY = {"cam_gather"}
 UNSTRUCTURED_ONLY = {"cam_scatter_add", "e0_u", "e0_scatter", "hpp_b"}
-ALL = set(launches.KERNELS) - PSC_ONLY - F32_ONLY - UNSTRUCTURED_ONLY
+SPMD_ONLY = set(spmd_kernels.KERNELS)
+ALL = (set(launches.KERNELS) - PSC_ONLY - F32_ONLY - UNSTRUCTURED_ONLY
+       - SPMD_ONLY)
 SMALL_KERNELS = {
     "composed": ALL - FUSED_ONLY - CG_ONLY,
     "defaults": ALL - COMPOSED_ONLY - CG_ONLY,
@@ -413,7 +423,7 @@ def test_bundle_adjust_card_matches_cpu(cuda, config):
         launches.reset_launch_counts()
         _, s1, s2 = bundle_adjust(p, opts, log=lambda s: None, device=dev)
         counts = launches.launch_counts()
-        assert len(counts) == 24
+        assert len(counts) == 27
         if dev == "cuda":
             assert all(counts[k] > 0 for k in kernels), counts
         else:
@@ -527,5 +537,135 @@ def test_unstructured_bundle_adjust_card_matches_cpu(cuda, config):
                 for it in c1.iterations])
     np.testing.assert_allclose(g1.final_cost.all.error,
                                c1.final_cost.all.error, rtol=SMALL_TOLS[0])
+    assert np.isfinite(g2.final_cost.all.error)
+    assert g2.final_cost.all.error < g2.initial_cost.all.error
+
+
+# SPMD window layouts: tests/test_pallas_spmd.py's two classes (several
+# parts, a w = 1 part, tail lanes) and venice-89's one part of width 5
+SPMD_LAYOUTS = {
+    "two-class": (tspmd.ClassLayout(3, ((128, 3), (256, 2)), 1024),
+                  tspmd.ClassLayout(2, ((128, 1),), 256)),
+    "venice": (tspmd.ClassLayout(3, ((1536, 5),), 8192),),
+}
+SPMD_CALLS = {
+    "class_part_sums": (tspmd.spmd_part_sums, "lanes"),
+    "class_expand_rows": (tspmd.spmd_expand_rows, "rows"),
+    "class_reduce_reexpand": (tspmd.spmd_reduce_reexpand, "lanes"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", list(SPMD_LAYOUTS))
+@pytest.mark.parametrize("lead", [(), (4,), (3, 3)])
+def test_spmd_kernels_match_plain_versions(cuda, layout, lead):
+    """The three slot reduce/expand kernels, one launch each, bit-equal to
+    their plain versions (both add the slot elements left to right)."""
+    lay = SPMD_LAYOUTS[layout]
+    o_dev, n_rows = spmd_ref.layout_sizes(lay)
+    rng = np.random.default_rng(11)
+    for name, (fn, src) in SPMD_CALLS.items():
+        cols = o_dev if src == "lanes" else n_rows
+        x = torch.as_tensor(rng.standard_normal(lead + (cols,)),
+                            dtype=torch.float32)
+        launches.reset_launch_counts()
+        got = fn(x.to(cuda), lay)
+        torch.cuda.synchronize()
+        assert launches.launch_counts()[name] == 1, name
+        want = fn(x, lay)
+        assert got.shape == want.shape
+        assert torch.equal(got.cpu(), want), name
+
+
+@pytest.mark.cuda
+def test_spmd_kernels_refuse_f64_and_strided(cuda):
+    """An f64 or non-contiguous CUDA operand raises: no silent copy (an
+    f64 state reaches the expansion as its f32 halves,
+    parallel/spmd.spmd_expand_rows)."""
+    lay = SPMD_LAYOUTS["two-class"]
+    o_dev, _n_rows = spmd_ref.layout_sizes(lay)
+    x = torch.zeros((3, o_dev), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        spmd_kernels.class_part_sums(x, lay)
+    x = torch.zeros((o_dev, 3), dtype=torch.float32, device=cuda).T
+    with pytest.raises(ValueError, match="contiguous"):
+        spmd_kernels.class_reduce_reexpand(x, lay)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unique rows", "overflow"])
+def test_spmd_f64_cost_expands_through_the_kernel(cuda, case):
+    """Both stages' f64 cost on a 1-device mesh (the mixed-precision
+    cost of every LM trial) expands the state through the
+    class_expand_rows kernel, once per call (its f32 hi and lo halves in
+    one launch), with or without landmarks owning several slot rows, and
+    gives the CPU's cost: the same halves, f64 sums in another order."""
+    if case == "overflow":
+        problem, _opts = overflow_case()
+    else:
+        problem, _ = synthetic_bal_problem(40, 300, 5, seed=1)
+    plan = tspmd.build_spmd_plan(problem.obs_cam, problem.obs_lm,
+                                 problem.num_cameras, problem.num_landmarks,
+                                 1, tspmd.PART_ALIGN)
+    assert plan.has_duplicates == (case == "overflow")
+    args = (plan, problem.obs_uv, problem.num_cameras,
+            problem.num_landmarks, SolverOptions())
+    errors = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_mesh(1, dev)
+        cams = torch.as_tensor(problem.cam_space, device=dev)
+        s1 = tspmd.SpmdStage1Solver(*args, mesh)
+        lp = s1.lm_pack(s1.pad_landmarks(problem.lm_p))
+        s2 = tspmd.SpmdStage2Solver(*args, mesh)
+        c2, lh = create_homogeneous(cams, s2.pad_landmarks(problem.lm_p))
+        lh = s2.lm_pack(lh)
+        for step, (s, c, lm) in enumerate(((s1, cams, lp), (s2, c2, lh)), 1):
+            launches.reset_launch_counts()
+            e = s.compute_error(c, lm)
+            torch.cuda.synchronize()
+            counts = launches.launch_counts()
+            if dev == "cuda":
+                assert counts["class_expand_rows"] == 1, counts
+                assert counts["class_part_sums"] == 0, counts
+            else:
+                assert max(counts.values()) == 0, counts
+            errors[dev, step] = float(e["error_all"])
+    for step in (1, 2):
+        assert np.isfinite(errors["cuda", step])
+        np.testing.assert_allclose(errors["cuda", step], errors["cpu", step],
+                                   rtol=1e-12)
+
+
+@pytest.mark.cuda
+def test_spmd_bundle_adjust_card_matches_cpu(cuda):
+    """`bundle_adjust` on a 1-device mesh (the SPMD window layout) of
+    tools/step2_spread.py's `overflow_case` (landmarks with several slot
+    rows) on the card and on the CPU: the slot kernels launched on the
+    card and none on the CPU; step 1's decisions and power-term counts
+    identical and its costs within OVERFLOW_TOL (the f32 sums' order,
+    see `overflow_case`); step 2 finite and below its start."""
+    problem, opts = overflow_case()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        launches.reset_launch_counts()
+        _, s1, s2 = bundle_adjust(copy.deepcopy(problem), opts,
+                                  log=lambda s: None,
+                                  mesh=make_mesh(1, dev))
+        counts = launches.launch_counts()
+        if dev == "cuda":
+            assert counts["class_part_sums"] > 0, counts
+            assert counts["class_expand_rows"] > 0, counts
+            assert counts["e0_term_parts"] == 0, counts
+        else:
+            assert max(counts.values()) == 0, counts
+        runs[dev] = (s1, s2)
+    (g1, g2), (c1, _c2) = runs["cuda"], runs["cpu"]
+    assert ([(it.step_is_successful, it.linear_solver_iterations)
+             for it in g1.iterations]
+            == [(it.step_is_successful, it.linear_solver_iterations)
+                for it in c1.iterations])
+    for g, c in zip(g1.iterations, c1.iterations):
+        np.testing.assert_allclose(g.cost.all.error, c.cost.all.error,
+                                   rtol=OVERFLOW_TOL)
     assert np.isfinite(g2.final_cost.all.error)
     assert g2.final_cost.all.error < g2.initial_cost.all.error

@@ -208,7 +208,9 @@ def test_from_numpy_roundtrip():
 def test_import_leaves_jax_out():
     code = (
         "import sys, povar_tpu_torch, povar_tpu_torch.solver.lm, "
-        "povar_tpu_torch.ops.pose_kernels, povar_tpu_torch.cli; "
+        "povar_tpu_torch.ops.pose_kernels, povar_tpu_torch.cli, "
+        "povar_tpu_torch.parallel.spmd, povar_tpu_torch.parallel.mesh, "
+        "povar_tpu_torch.ops.spmd_kernels; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('povar_tpu.') or m == 'povar_tpu']; "
         "assert not bad, bad"
