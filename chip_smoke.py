@@ -43,7 +43,11 @@ prints no result line):
               of the card's step-1 result (`create_homogeneous`) with
               seeded operands, against its plain version, then again on
               the well-conditioned rows alone (|1/p2| at most CALM of
-              tools/step2_spread.py times the median);
+              tools/step2_spread.py times the median); hppb2 and
+              e0_term2_parts also on the camera-sorted lane orders (the
+              1-device mesh solver's step-2 operands; each part's
+              landmarks sorted by first camera) and on seeded cameras
+              at N = 1024 (hppb2 also at N = 2048, its global route);
 6. E0         the fused E0 operator of each step against the composed
               one per camera, all landmarks narrow and with four widened
               past 16 observations (the composed suffix);
@@ -308,7 +312,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 FLOPS_PER_OBS = {
     "prepare": 110, "e0_factor": 90, "hpp_b_structured": 300,
     "e0_u_structured": 40, "e0_scatter_structured": 60, "apply_ldiff": 90,
-    "pose_error": 60, "prepare2": 110, "hppb2": 290, "mat_dot2": 40,
+    "pose_error": 60, "prepare2": 110, "hppb2": 130, "mat_dot2": 40,
     "scatter2": 45, "ldiff2": 55, "pose_error2": 45,
     "e0_term_parts": 80, "schur_diag_structured": 430,
     "e0_term2_parts": 80, "schur_diag2": 480, "poba_t3": 95,
@@ -833,6 +837,77 @@ def check_kernels2(solver2, cams_h, lms_h, seed=1):
 
     return run_cases(pk2, pr2, cases_on(d, None)
                      + cases_on(dc, "well-conditioned rows"), o)
+
+
+def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
+    """hppb2 and e0_term2_parts beside their venice-89 rows, each against
+    its plain version and timed, on lines of their own: (b) the
+    camera-sorted lane orders, hppb2 on the 1-device mesh solver's own
+    step-2 operands (the SPMD window order; its landmark solve's Hll^-1
+    bl at lambda 1e-4) and the fused term on the
+    venice-89 operands with each part's landmarks sorted by the camera of
+    their first slot row (the order the window plan packs them in, the
+    same parts); (c) seeded cameras on the venice-89 rows, N = 1024 for
+    both and N = 2048 for hppb2 (its global-memory route)."""
+    from povar_tpu_torch import SolverOptions, Stage2Solver
+    from povar_tpu_torch.ops import pose2_kernels as pk2
+    from povar_tpu_torch.ops import pose2_ref as pr2
+    from povar_tpu_torch.tools.pose2_ab import first_camera_rows
+
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                               device="cuda")
+
+    def operands(s, lm):
+        lin = s.linearize(cams_h, s.lm_pack(lm))
+        o = int(s.obs.cam.shape[0])
+        return lin, dict(cam=s.obs.cam, x4=lin.x4, mm=lin.mm, sw=lin.sw,
+                         r_w=lin.r_w, jlns=lin.jlns, hib=f32(3, o),
+                         mat6=f32(6, o), zt=f32(12, s.n_cams), n=s.n_cams)
+
+    _lin, d = operands(solver2, lms_h)
+    parts = solver2.e0_plan.parts
+    o = int(d["cam"].shape[0])
+    mesh_s = stage_solver(Stage2Solver, problem, SolverOptions(), mesh=True)
+    mesh_lin, mesh = operands(mesh_s,
+                              mesh_s.pad_landmarks(lms_h.cpu().numpy()))
+    # the mesh solver's own landmark solve (lambda 1e-4), as its RIPOBA
+    # trial hands hppb2 its Hll^-1 bl
+    mesh["hib"] = mesh_s._prep_hll_s(mesh_lin, 1e-4)[1]
+    rows = first_camera_rows(d["cam"], parts)
+    keys = ("cam", "x4", "mm", "sw", "r_w", "jlns", "hib", "mat6")
+    by_first = dict(d, **{k: d[k][..., rows].contiguous() for k in keys})
+
+    def with_cameras(n):
+        return dict(d, n=n, zt=f32(12, n), cam=torch.as_tensor(
+            rng.integers(0, n, o).astype(np.int32), device="cuda"))
+
+    def hppb2(x, label):
+        args = [x[k] for k in ("cam", "x4", "mm", "sw", "r_w", "jlns", "hib")]
+        return ("hppb2", label, lambda m: m.hppb2(*args, x["n"]),
+                [x[k] for k in ("sw", "cam", "x4", "mm", "r_w", "jlns",
+                                "hib")], [CAM, CAM],
+                int((x["sw"] > 0).sum()))
+
+    def e0(x, label):
+        args = [x[k] for k in ("cam", "x4", "mm", "sw", "mat6", "zt")]
+        covered = sum(g * w for _ofs, g, w in parts)
+        return ("e0_term2_parts", label,
+                lambda m: m.e0_term2_parts(*args, parts, x["n"]),
+                [x[k] for k in ("sw", "cam", "x4", "mm", "mat6", "zt")],
+                [CAM],
+                (covered, int((x["sw"] > 0).sum())))
+
+    run_cases(pk2, pr2, [hppb2(mesh, "(b) mesh window order")],
+              int(mesh["cam"].shape[0]), time_variants=True)
+    run_cases(pk2, pr2, [
+        e0(by_first, "(b) landmarks by first camera"),
+        hppb2(with_cameras(1024), "(c) N = 1024"),
+        e0(with_cameras(1024), "(c) N = 1024"),
+        hppb2(with_cameras(2048), "(c) N = 2048, global route"),
+    ], o, time_variants=True)
 
 
 def solve(problem, options, device, log=lambda s: None):
@@ -1960,6 +2035,7 @@ def main() -> int:
     print(f"step-2 solver set-up {time.perf_counter() - t0:.2f} s", flush=True)
     cams_h, lms_h = create_homogeneous(cams, lms)
     results.update(check_kernels2(probe2, cams_h, lms_h))
+    check_kernels2_orders(problem, probe2, cams_h, lms_h)
     del probe2
 
     phase("E0 operators: fused against composed (venice-89)")

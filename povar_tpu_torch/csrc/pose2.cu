@@ -30,13 +30,13 @@
 //
 // What bounds them on the card, per observation (O = 557,056 at
 // venice-89): S1 reads 40 B and writes 64 B, plus 12 shared atomics;
-// S2 reads 80 B and does 124 shared atomics (the atomics bound it); S3
+// S2 reads 80 B and does 52 shared atomics (its per-camera moments); S3
 // reads 60 B (68 with r_w) and writes 12 B; S4 reads 72 B plus 12
 // shared atomics; S5 reads 92 B; S6 reads 60 B (f64 state) with ~30 f64
-// flops; S7 reads 60 B plus 12 shared atomics; S8 reads 60 B and does
-// 144 shared atomics (the atomics bound it). Per-camera sums leave a
-// block through one global atomic per non-zero entry; scalar sums leave
-// as one partial per block.
+// flops; S7 reads 60 B once per slot row plus 12 shared atomics; S8
+// reads 60 B and does 144 shared atomics (the atomics bound it).
+// Per-camera sums leave a block through one global atomic per non-zero
+// entry; scalar sums leave as one partial per block.
 //
 // C interface as in pose1.cu: device pointers, sizes, scalar constants
 // and the stream; each entry point launches one kernel and returns the
@@ -162,80 +162,150 @@ __global__ void __launch_bounds__(kThreads)
 // ------------------------------------------------------------------ S2
 // Per-camera raw Hpp12 [144, N] (rows (4a+i)*12 + 4b+j) = sum w/p2^2 K3
 // (x) x4 x4^T and b12 [12, N] = sum sw/p2 (C^T rt) (x) x4 of the
-// landmark-corrected residual rt = r_w - Jl_ns hib. kShared: accumulate
-// in shared memory (156 N floats: 55.5 KB at N = 89) and flush once per
-// block; otherwise (N too large for a block's shared memory) every term
-// goes straight to a global atomic. Dead rows (sw == 0) contribute
-// exactly zero and are skipped, as are the structural zeros K3[0][1] and
-// K3[1][0].
-// Replaces pallas_pose2.py:267 hppb2. Bound: 124 shared (or global)
-// atomics per live observation, far more than its 80 B read.
+// landmark-corrected residual rt = r_w - Jl_ns hib, in moment form.
+// With K3 = [[1, 0, -mx], [0, 1, -my], [-mx, -my, mx^2 + my^2]] every
+// block of Hpp12 is +-1 times one of four weighted moment matrices of
+// x4, sum wz2 k x4 x4^T with k in (1, mx, my, mx^2 + my^2), or exactly 0
+// (blocks (0,1) and (1,0)). So a live row adds 52 values per camera: its
+// b12 (rows 0-11 of the accumulator) and 40 moments, row 12 + 10 t + p
+// for weight t and upper-triangle entry p of x4 x4^T in row-major order
+// ((0,0) (0,1) (0,2) (0,3) (1,1) (1,2) (1,3) (2,2) (2,3) (3,3)).
+// `acc_g` [52 N + 1] is zeroed by the caller: b12, then the moments, then
+// a ticket. kShared: a block accumulates in shared memory (52 N floats,
+// 18.5 KB at N = 89, up to N = 1117) and flushes once into acc_g;
+// otherwise every value goes straight to a global atomic. The lanes of a
+// warp on one camera sum first (warp_scatter). The last block to take a
+// ticket expands the moments into hpp through `expand` [144]
+// (ops/pose2_kernels.hppb2_expand_table: sign * (moment + 1), 0 for a
+// structural zero), which every entry of hpp receives, so hpp needs no
+// zeroing. Dead rows (sw == 0) add nothing.
+// Replaces pallas_pose2.py:267 hppb2 (_hppb2_kernel :218). Bound: the
+// shared float atomics (compare-and-swap loops on this card), 52 per
+// live row where the Pallas form's 124 would go, and the loads and
+// arithmetic beside them: 71-72 us at venice-89 (124 atomics: 193), 43
+// with the adds made dead stores, 13.3 for the 80 B a row reads
+// (tools/pose2_ab.py and PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kMoments = 40;
+constexpr int kHppbRows = 12 + kMoments;
+constexpr int kExpandChunk = 256;  // cameras per staged chunk (global route)
+constexpr int kBatch = 16;  // independent L2 reads in flight per thread
+
 template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
     hppb2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
                  const float* __restrict__ mm, const float* __restrict__ sw_in,
                  const float* __restrict__ rw, const float* __restrict__ jlns,
-                 const float* __restrict__ hib, float* __restrict__ hpp,
-                 float* __restrict__ b, int n_obs, int n_cams) {
+                 const float* __restrict__ hib, const int* __restrict__ expand,
+                 float* __restrict__ hpp, float* __restrict__ acc_g, int n_obs,
+                 int n_cams) {
   extern __shared__ float smem[];
-  float* acc_b = kShared ? smem : b;
-  float* acc_h = kShared ? smem + 12 * n_cams : hpp;
+  __shared__ bool last;
+  float* acc = kShared ? smem : acc_g;
   if (kShared) {
-    povar::smem_zero(acc_b, 156 * n_cams);
+    povar::smem_zero(acc, kHppbRows * n_cams);
     __syncthreads();
   }
   const int O = n_obs;
-  POVAR_OBS_LOOP(o, O) {
-    const float sw = sw_in[o];
-    if (sw == 0.0f) continue;
-    const int c = cam[o];
-    const float mx = mm[o], my = mm[O + o], zinv = mm[2 * O + o];
-    const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
-                         x4_in[3 * O + o]};
-    const float h0 = hib[o], h1 = hib[O + o], h2 = hib[2 * O + o];
-    float rt[2];
+  const int lane = threadIdx.x & 31;
+  // warp-uniform trips: every lane reaches warp_scatter
+  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < O;
+       base += gridDim.x * blockDim.x) {
+    const int o = base + lane;
+    const float sw = o < O ? sw_in[o] : 0.0f;
+    const bool live = sw != 0.0f;
+    if (!__any_sync(povar::kFullMask, live)) continue;
+    float v[kHppbRows];
+    int c = 0;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float corr = jlns[(r * 3) * O + o] * h0;
-      corr += jlns[(r * 3 + 1) * O + o] * h1;
-      corr += jlns[(r * 3 + 2) * O + o] * h2;
-      rt[r] = rw[r * O + o] - corr;
-    }
-    const float swz = sw * zinv;
-    const float ctr[3] = {rt[0], rt[1], -(mx * rt[0] + my * rt[1])};
+    for (int k = 0; k < kHppbRows; ++k) v[k] = 0.0f;
+    if (live) {
+      c = cam[o];
+      const float mx = mm[o], my = mm[O + o], zinv = mm[2 * O + o];
+      const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                           x4_in[3 * O + o]};
+      const float h0 = hib[o], h1 = hib[O + o], h2 = hib[2 * O + o];
+      float rt[2];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float t = swz * ctr[a];
+      for (int r = 0; r < 2; ++r) {
+        float corr = jlns[(r * 3) * O + o] * h0;
+        corr += jlns[(r * 3 + 1) * O + o] * h1;
+        corr += jlns[(r * 3 + 2) * O + o] * h2;
+        rt[r] = rw[r * O + o] - corr;
+      }
+      const float swz = sw * zinv;
+      const float ctr[3] = {rt[0], rt[1], -(mx * rt[0] + my * rt[1])};
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        atomicAdd(&acc_b[(4 * a + k) * n_cams + c], t * x4[k]);
-    }
-    const float wz2 = swz * swz;
-    const float K3[3][3] = {{1.0f, 0.0f, -mx},
-                            {0.0f, 1.0f, -my},
-                            {-mx, -my, mx * mx + my * my}};
+      for (int a = 0; a < 3; ++a) {
+        const float t = swz * ctr[a];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
+        for (int k = 0; k < 4; ++k) v[4 * a + k] = t * x4[k];
+      }
+      const float wz2 = swz * swz;
+      const float kw[4] = {wz2, wz2 * mx, wz2 * my, wz2 * (mx * mx + my * my)};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float wk = wz2 * x4[i];
 #pragma unroll
-        for (int bb = 0; bb < 3; ++bb) {
-          if ((a == 0 && bb == 1) || (a == 1 && bb == 0)) continue;
-          const float wkk = wk * K3[a][bb];
+        for (int j = i; j < 4; ++j) {
+          const int p = i * (7 - i) / 2 + j;  // upper-triangle entry (i, j)
+          const float xx = x4[i] * x4[j];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int row = (4 * a + i) * 12 + 4 * bb + j;
-            atomicAdd(&acc_h[row * n_cams + c], wkk * x4[j]);
-          }
+          for (int t = 0; t < 4; ++t) v[12 + 10 * t + p] = kw[t] * xx;
         }
       }
     }
+    povar::warp_scatter<kHppbRows>(acc, n_cams, c, live, v);
   }
   if (kShared) {
     __syncthreads();
-    povar::flush_acc(b, acc_b, 12 * n_cams);
-    povar::flush_acc(hpp, acc_h, 144 * n_cams);
+    povar::flush_acc(acc_g, acc, kHppbRows * n_cams);
+  }
+  // every block's sums are in acc_g once the last block takes its ticket
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* ticket = reinterpret_cast<unsigned*>(acc_g + kHppbRows * n_cams);
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the moments of a chunk of cameras into shared memory (the flushed
+  // accumulators, or kMoments x kExpandChunk floats on the global route),
+  // then every entry of hpp for them
+  __shared__ int ex[144];
+  for (int i = threadIdx.x; i < 144; i += blockDim.x) ex[i] = expand[i];
+  const float* mom = acc_g + 12 * n_cams;
+  const int chunk = kShared ? n_cams : kExpandChunk;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  for (int c0 = 0; c0 < n_cams; c0 += chunk) {
+    const int nc = min(chunk, n_cams - c0);
+    __syncthreads();
+    // a warp per moment row, kBatch independent L2 reads per lane in
+    // flight (the other blocks' atomics never passed this SM's L1)
+    for (int k = warp; k < kMoments; k += n_warps) {
+      for (int cc0 = lane; cc0 < nc; cc0 += 32 * kBatch) {
+        float m[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int cc = cc0 + 32 * u;
+          m[u] = cc < nc ? __ldcg(mom + k * n_cams + c0 + cc) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int cc = cc0 + 32 * u;
+          if (cc < nc) smem[k * nc + cc] = m[u];
+        }
+      }
+    }
+    __syncthreads();
+    for (int row = warp; row < 144; row += n_warps) {
+      const int e = ex[row];
+      const float* src = smem + (e == 0 ? 0 : abs(e) - 1) * nc;
+      float* dst = hpp + row * n_cams + c0;
+      for (int cc = lane; cc < nc; cc += 32)
+        dst[cc] = e == 0 ? 0.0f : e > 0 ? src[cc] : -src[cc];
+    }
   }
 }
 
@@ -319,80 +389,132 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------------ S7
 // The fused tangent power-series term over every narrow slot part in one
-// launch (the skeleton of pose1.cu's K8, 15 rows per slot element):
+// launch:
 //   pass A  jx = sw/p2 [q~0 - mx q~2, q~1 - my q~2] through the zt table,
-//           sb_i = sum_j (M[0][i] jx0 + M[1][i] jx1)  (M = mat6 rows r*3+i)
+//           u3 = M^T jx (M = mat6 rows r*3+i), sb = sum_j u3 over the w
+//           rows of the landmark
 //   pass B  v = M sb, ctv = sw/p2 [v0, v1, -(mx v0 + my v1)],
 //           out[4a+c][cam] += ctv_a x4_c
 // i.e. mat_dot2, the per-landmark slot sum, its re-expansion and scatter2
-// in one pass. Dead and pad rows (sw == 0) are skipped in both passes,
-// scatter2's guard: they add exactly zero, and a near-plane 1/p2 never
-// meets a zero weight in a product.
+// in one pass. Slot row j of landmark l of part (ofs, g, w) is
+// ofs + j g + l, so for a fixed j neighbouring landmarks are neighbouring
+// rows. One thread per slot row: a tile of t = kE0Threads / w landmarks x
+// all w rows (thread j t + l), so neighbouring threads read neighbouring
+// addresses and every row of the call is in flight at once. Pass A puts
+// the row's u3 in shared memory; after one barrier each thread sums its
+// landmark's u3 over j = 0 .. w-1 in that order (the plain version's)
+// and runs pass B on its row's operands, kept in registers across the
+// barrier: each row is read from device memory once. Persistent blocks
+// walk the tiles of an int32 table (ops/pose2_kernels.e0_tile_table: per
+// part ofs, g, w, t and the tiles before it), so the staging of zt, the
+// zeroing and the 12 N global flush are paid once per resident block;
+// parts of any w share the launch. kPrivate (16 x 12 N floats fit: N up
+// to 277): each warp owns a [12, N] accumulator and its lanes on one
+// camera sum first (warp_scatter), so the adds need no atomics; the
+// copies are summed at the flush. Otherwise one shared accumulator with
+// atomics. Dead and pad rows (sw == 0) add nothing, scatter2's guard: a
+// near-plane 1/p2 never meets a zero weight.
 // Replaces pallas_pose2.py:512 e0_term2_parts (_e0_term2_kernel :455).
-// Bound: 60 B read per observation (cam 4, x4 16, mm 12, sw 4, mat6 24)
-// plus 12 shared atomics per live row.
-__global__ void __launch_bounds__(kThreads)
+// Bound: 60 B read per slot row (cam 4, x4 16, mm 12, sw 4, mat6 24), 9.9
+// us at venice-89. One thread per landmark with 12 shared atomics per
+// row takes 32 us there, 13.7 with the atomics made dead stores: the
+// atomics bound it. This kernel takes 20.6 us, 20.2 with its adds made
+// dead stores (the tile walk's barriers and occupancy are what is
+// left), 24.0 on one shared-atomic accumulator; 512 threads per block
+// against 23.4 us at 256 and 24.4 at 1024 (tools/pose2_ab.py and
+// PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kE0Threads = 512;
+constexpr int kE0Warps = kE0Threads / 32;
+constexpr int kTileFields = 5;  // ofs, g, w, t, tile0
+
+template <bool kPrivate>
+__global__ void __launch_bounds__(kE0Threads)
     e0_term2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
                     const float* __restrict__ mm, const float* __restrict__ sw_in,
                     const float* __restrict__ mat6, const float* __restrict__ zt,
-                    const int32_t* __restrict__ parts, float* __restrict__ out,
-                    int n_parts, int n_lms, int n_obs, int n_cams) {
+                    const int32_t* __restrict__ table, float* __restrict__ out,
+                    int n_parts, int n_tiles, int n_obs, int n_cams) {
   extern __shared__ float smem[];
   float* tbl = smem;
-  float* acc = smem + 12 * n_cams;
-  int* part = reinterpret_cast<int*>(smem + 24 * n_cams);
+  float* su = smem + 12 * n_cams;  // u3 [3, kE0Threads]
+  int* part = reinterpret_cast<int*>(su + 3 * kE0Threads);
+  // kPrivate: one [12, N] accumulator per warp, else one per block
+  float* acc = reinterpret_cast<float*>(part + kTileFields * n_parts);
+  const int n_acc = 12 * n_cams;
   povar::smem_copy(tbl, zt, 12 * n_cams);
-  povar::smem_zero(acc, 12 * n_cams);
-  povar::smem_copy(part, parts, 4 * n_parts);
+  povar::smem_zero(acc, (kPrivate ? kE0Warps : 1) * n_acc);
+  povar::smem_copy(part, table, kTileFields * n_parts);
   __syncthreads();
   const int O = n_obs;
-  POVAR_OBS_LOOP(lm, n_lms) {
-    int p = 0;
-    while (p + 1 < n_parts && lm >= part[4 * (p + 1) + 3]) ++p;
-    const int g = part[4 * p + 1], w = part[4 * p + 2];
-    const int first = part[4 * p] + (lm - part[4 * p + 3]);
-    float sb[3] = {0.0f, 0.0f, 0.0f};
-    for (int j = 0; j < w; ++j) {
-      const int o = first + j * g;
-      const float sw = sw_in[o];
-      if (sw == 0.0f) continue;
-      const int c = cam[o];
-      const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
-                           x4_in[3 * O + o]};
+  const int th = threadIdx.x;
+  float* wacc = kPrivate ? acc + (th >> 5) * n_acc : acc;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    int p = 0, hi = n_parts - 1;  // the last part with tile0 <= tile
+    while (p < hi) {
+      const int mid = (p + hi + 1) / 2;
+      if (part[mid * kTileFields + 4] <= tile) p = mid; else hi = mid - 1;
+    }
+    const int* e = part + p * kTileFields;
+    const int g = e[1], w = e[2], t = e[3];
+    const int lm = (tile - e[4]) * t + th % t;
+    const int j = th / t;
+    const int o = e[0] + j * g + lm;
+    const bool in = j < w && lm < g;
+    const float sw = in ? sw_in[o] : 0.0f;
+    const bool live = sw != 0.0f;
+    int c = 0;
+    float x4[4] = {0.0f, 0.0f, 0.0f, 0.0f}, m6[6] = {0.0f, 0.0f, 0.0f,
+                                                     0.0f, 0.0f, 0.0f};
+    float mx = 0.0f, my = 0.0f, swz = 0.0f;
+    float u[3] = {0.0f, 0.0f, 0.0f};
+    if (live) {
+      c = cam[o];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x4[k] = x4_in[k * O + o];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) m6[k] = mat6[k * O + o];
+      mx = mm[o];
+      my = mm[O + o];
+      swz = sw * mm[2 * O + o];
       float jx[2];
-      jp_of_zt(tbl, n_cams, c, x4, mm[o], mm[O + o], sw * mm[2 * O + o], jx);
+      jp_of_zt(tbl, n_cams, c, x4, mx, my, swz, jx);
 #pragma unroll
-      for (int i = 0; i < 3; ++i)
-        sb[i] += mat6[i * O + o] * jx[0] + mat6[(3 + i) * O + o] * jx[1];
+      for (int i = 0; i < 3; ++i) u[i] = m6[i] * jx[0] + m6[3 + i] * jx[1];
     }
-    for (int j = 0; j < w; ++j) {
-      const int o = first + j * g;
-      const float sw = sw_in[o];
-      if (sw == 0.0f) continue;
-      float v[2];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float t = mat6[(3 * r) * O + o] * sb[0];
-        t += mat6[(3 * r + 1) * O + o] * sb[1];
-        t += mat6[(3 * r + 2) * O + o] * sb[2];
-        v[r] = t;
+    for (int i = 0; i < 3; ++i) su[i * kE0Threads + th] = u[i];
+    __syncthreads();
+    float sb[3] = {0.0f, 0.0f, 0.0f};
+    if (live) {
+      const int l = th % t;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        float a = su[i * kE0Threads + l];
+        for (int jj = 1; jj < w; ++jj) a += su[i * kE0Threads + jj * t + l];
+        sb[i] = a;
       }
-      const float mx = mm[o], my = mm[O + o];
-      const float swz = sw * mm[2 * O + o];
-      const float ctv[3] = {swz * v[0], swz * v[1],
-                            -swz * (mx * v[0] + my * v[1])};
-      const int c = cam[o];
-      const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
-                           x4_in[3 * O + o]};
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          atomicAdd(&acc[(4 * a + k) * n_cams + c], ctv[a] * x4[k]);
     }
+    __syncthreads();  // the next tile rewrites su
+    float v[12];
+    const float v0 = m6[0] * sb[0] + m6[1] * sb[1] + m6[2] * sb[2];
+    const float v1 = m6[3] * sb[0] + m6[4] * sb[1] + m6[5] * sb[2];
+    const float ctv[3] = {swz * v0, swz * v1, -swz * (mx * v0 + my * v1)};
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[4 * a + k] = ctv[a] * x4[k];
+    povar::warp_scatter<12, !kPrivate>(wacc, n_cams, c, live, v);
   }
   __syncthreads();
-  povar::flush_acc(out, acc, 12 * n_cams);
+  if (kPrivate) {
+    for (int i = th; i < n_acc; i += blockDim.x) {
+      float s = acc[i];
+      for (int k = 1; k < kE0Warps; ++k) s += acc[k * n_acc + i];
+      if (s != 0.0f) atomicAdd(out + i, s);
+    }
+  } else {
+    povar::flush_acc(out, acc, n_acc);
+  }
 }
 
 // ------------------------------------------------------------------ S8
@@ -588,15 +710,16 @@ int povar_prepare2(const int32_t* cam, const float* ct, const float* x4,
 
 int povar_hppb2(const int32_t* cam, const float* x4, const float* mm,
                 const float* sw, const float* rw, const float* jlns,
-                const float* hib, float* hpp, float* b, int n_obs, int n_cams,
-                void* stream) {
-  const size_t shared = sizeof(float) * 156 * (size_t)n_cams;
+                const float* hib, const int* expand, float* hpp, float* acc,
+                int n_obs, int n_cams, void* stream) {
+  const size_t shared = sizeof(float) * kHppbRows * (size_t)n_cams;
   if (shared <= (size_t)max_optin_smem()) {
     return launch(hppb2_kernel<true>, n_obs, shared, stream, cam, x4, mm, sw,
-                  rw, jlns, hib, hpp, b, n_obs, n_cams);
+                  rw, jlns, hib, expand, hpp, acc, n_obs, n_cams);
   }
-  return launch(hppb2_kernel<false>, n_obs, 0, stream, cam, x4, mm, sw, rw,
-                jlns, hib, hpp, b, n_obs, n_cams);
+  return launch(hppb2_kernel<false>, n_obs,
+                sizeof(float) * kMoments * kExpandChunk, stream, cam, x4, mm,
+                sw, rw, jlns, hib, expand, hpp, acc, n_obs, n_cams);
 }
 
 int povar_mat_dot2(const int32_t* cam, const float* x4, const float* mm,
@@ -618,12 +741,24 @@ int povar_scatter2(const int32_t* cam, const float* x4, const float* mm,
 
 int povar_e0_term2(const int32_t* cam, const float* x4, const float* mm,
                    const float* sw, const float* mat6, const float* zt,
-                   const int32_t* parts, float* out, int n_parts, int n_lms,
-                   int n_obs, int n_cams, void* stream) {
-  const size_t smem =
-      sizeof(float) * 24 * (size_t)n_cams + sizeof(int) * 4 * (size_t)n_parts;
-  return launch(e0_term2_kernel, n_lms, smem, stream, cam, x4, mm, sw, mat6,
-                zt, parts, out, n_parts, n_lms, n_obs, n_cams);
+                   const int32_t* table, float* out, int n_parts, int n_tiles,
+                   int n_obs, int n_cams, int tile_threads, void* stream) {
+  // the table's tiles were cut for blocks of tile_threads threads
+  if (tile_threads != kE0Threads || n_parts < 1 || n_tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t base = sizeof(float) * (12 * (size_t)n_cams + 3 * kE0Threads) +
+                      sizeof(int) * kTileFields * (size_t)n_parts;
+  const size_t acc = sizeof(float) * 12 * (size_t)n_cams;
+  const long items = (long)n_tiles * kE0Threads;
+  if (base + kE0Warps * acc <= (size_t)max_optin_smem()) {
+    return launch<kE0Threads>(e0_term2_kernel<true>, items,
+                              base + kE0Warps * acc, stream, cam, x4, mm, sw,
+                              mat6, zt, table, out, n_parts, n_tiles, n_obs,
+                              n_cams);
+  }
+  return launch<kE0Threads>(e0_term2_kernel<false>, items, base + acc, stream,
+                            cam, x4, mm, sw, mat6, zt, table, out, n_parts,
+                            n_tiles, n_obs, n_cams);
 }
 
 int povar_schur_diag2(const int32_t* cam, const float* x4, const float* mm,

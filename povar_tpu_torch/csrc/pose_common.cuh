@@ -2,19 +2,22 @@
 // (pose1.cu) and step 2 (pose2.cu).
 //
 // Every kernel is one pass over the observations, one thread per
-// observation in a grid-stride loop, on observation-last arrays
-// ([k, O] rows: neighbouring threads read neighbouring addresses). The
+// observation in a grid-stride loop (the fused step-2 term: per slot
+// row of a tile), on observation-last arrays ([k, O] rows: neighbouring
+// threads read neighbouring addresses). The
 // [12, N] camera table(s) a kernel gathers from are staged in shared
 // memory once per block (12 * N * 4 B: 4.3 KB at N = 89); a camera row
 // is then a shared-memory read by index. Per-camera sums go into
-// shared-memory accumulators and leave the block as one global atomicAdd
-// per non-zero entry; scalar sums leave as one partial per block, which
-// the caller adds up.
+// shared-memory accumulators (through warp_scatter in the step-2 hppb2
+// and fused term) and leave the block as one global atomicAdd per
+// non-zero entry; scalar sums leave as one partial per block, which the
+// caller adds up.
 //
 // The arithmetic follows the Pallas bodies of povar_tpu/ops/pallas_pose.py
 // term for term (same products, same summation order), so a kernel and
 // its plain PyTorch version (ops/pose_ref.py) differ only by FMA
-// contraction and, for per-camera sums, by the order of the atomics.
+// contraction and, for per-camera sums, by the order of the atomics
+// (the step-2 hppb2 also regroups its Hpp products into moments).
 
 #pragma once
 
@@ -49,6 +52,57 @@ __device__ __forceinline__ void flush_acc(float* __restrict__ dst,
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
     const float v = acc[i];
     if (v != 0.0f) atomicAdd(dst + i, v);
+  }
+}
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Add v[0..K) to rows 0..K-1 of the [K, n] accumulator `acc` at column
+// c, for every live lane of a converged warp (dead lanes pass zeros and
+// any c). The lanes on one camera first sum their values into their
+// lowest lane, which alone adds them: no two lanes of the warp then add
+// to one address, so a shared-memory float atomic (a compare-and-swap
+// loop on this card) never retries against its own warp, and with
+// kAtomic false (an accumulator the warp owns) a plain add is safe.
+// Where every live lane is on one camera, as on the camera-sorted lane
+// orders, the sums take a shuffle butterfly (5 steps) instead of a walk
+// over the peers (31).
+template <int K, bool kAtomic = true>
+__device__ __forceinline__ void warp_scatter(float* acc, int n, int c,
+                                             bool live, float (&v)[K]) {
+  const unsigned live_mask = __ballot_sync(kFullMask, live);
+  if (live_mask == 0u) return;
+  const int lane = threadIdx.x & 31;
+  const unsigned peers =
+      __match_any_sync(kFullMask, live ? c : -1) & live_mask;
+  const bool lead = live && lane == __ffs(peers) - 1;
+  if (__popc(live_mask) > 1 &&
+      __all_sync(kFullMask, !live || peers == live_mask)) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v[k] += __shfl_xor_sync(kFullMask, v[k], off);
+  } else {
+    unsigned rest = lead ? peers & (peers - 1u) : 0u;
+    while (__any_sync(kFullMask, rest != 0u)) {
+      const int src = rest ? __ffs(rest) - 1 : lane;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float t = __shfl_sync(kFullMask, v[k], src);
+        if (rest) v[k] += t;
+      }
+      rest &= rest - 1u;
+    }
+  }
+  if (lead) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (kAtomic)
+        atomicAdd(&acc[k * n + c], v[k]);
+      else
+        acc[k * n + c] += v[k];
+    }
   }
 }
 
@@ -131,10 +185,10 @@ inline int max_optin_smem() {
 }
 
 // Opt the kernel in to `smem` bytes of dynamic shared memory and size a
-// grid-stride grid to what is resident at once: min(ceil(O / threads),
-// SMs x resident blocks per SM).
-template <typename Kernel>
-cudaError_t grid_for(Kernel kernel, int n_obs, size_t smem, int* grid) {
+// grid-stride grid of kBlock-thread blocks to what is resident at once:
+// min(ceil(n_items / kBlock), SMs x resident blocks per SM).
+template <int kBlock = kThreads, typename Kernel>
+cudaError_t grid_for(Kernel kernel, long n_items, size_t smem, int* grid) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -143,24 +197,25 @@ cudaError_t grid_for(Kernel kernel, int n_obs, size_t smem, int* grid) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+                                                      kBlock, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long want = ((long)n_obs + kThreads - 1) / kThreads;
+  const long want = (n_items + kBlock - 1) / kBlock;
   const long cap = (long)sms * per_sm;
   *grid = (int)std::max(1L, std::min(want, cap));
   return cudaSuccess;
 }
 
-// launch `kernel` over n_obs observations on `stream`; returns the
-// cudaError_t of the configuration or of the launch (0 on success)
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int n_obs, size_t smem, void* stream,
+// launch `kernel` in kBlock-thread blocks over n_items work items (one
+// per thread) on `stream`; returns the cudaError_t of the configuration
+// or of the launch (0 on success)
+template <int kBlock = kThreads, typename Kernel, typename... Args>
+int launch(Kernel kernel, long n_items, size_t smem, void* stream,
            Args... args) {
   int grid = 0;
-  cudaError_t err = grid_for(kernel, n_obs, smem, &grid);
+  cudaError_t err = grid_for<kBlock>(kernel, n_items, smem, &grid);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(args...);
+  kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 

@@ -56,10 +56,10 @@ SIGNATURES = {
     "povar_pose_error": [_P] * 6 + [_I, _I, _I, _D, _D, _I, _D, _P],
     "povar_e0_term": [_P] * 6 + [_I] * 4 + [_P],
     "povar_schur_diag": [_P] * 4 + [_I, _I, _P],
-    "povar_e0_term2": [_P] * 8 + [_I] * 4 + [_P],
+    "povar_e0_term2": [_P] * 8 + [_I] * 5 + [_P],
     "povar_schur_diag2": [_P] * 6 + [_I, _I, _P],
     "povar_prepare2": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _P],
-    "povar_hppb2": [_P] * 9 + [_I, _I, _P],
+    "povar_hppb2": [_P] * 10 + [_I, _I, _P],
     "povar_mat_dot2": [_P] * 8 + [_I, _I, _I, _P],
     "povar_scatter2": [_P] * 7 + [_I, _I, _P],
     "povar_ldiff2": [_P] * 9 + [_I, _I, _P],

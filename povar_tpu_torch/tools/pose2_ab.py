@@ -1,0 +1,410 @@
+"""`hppb2` and `e0_term2_parts` against an earlier version of their
+kernels, and against controlled variants of their own, on one card.
+
+    python -m povar_tpu_torch.tools.pose2_ab kernels --parent DIR
+    python -m povar_tpu_torch.tools.pose2_ab bench
+
+Run from the repository root (`chip_smoke.py` lends its timers, its
+step-1 solve and its bench iteration). `kernels` builds DIR/pose2.cu
+(with DIR/pose_common.cuh: an earlier commit's csrc/, for instance
+`git archive <commit> povar_tpu_torch/csrc` unpacked into a git-ignored
+directory) and VARIANTS of the package's own csrc/, one nvcc each, all
+started together, into build/pose2_ab/. It then takes the venice-89
+step-2 state of the card's step-1 result (chip_smoke.check_kernels2's
+operands) and times each kernel in turns (earlier, package, package,
+earlier; then the variants) at
+
+  (a) venice-89: O = 557,056 slot rows, N = 89;
+  (b) the camera-sorted orders: hppb2 on the 1-device mesh solver's own
+      step-2 operands (the SPMD window order, 598,016 lanes), the fused
+      term on the venice-89 operands with each part's landmarks sorted
+      by first camera (the window plan's order, the same parts);
+  (c) N = 1024 seeded cameras on the venice-89 rows, and N = 2048 for
+      hppb2 (its global-memory route),
+
+checking the earlier and the package kernel against the plain version
+per camera (tools/parity.py, 1e-4) and printing each result's error,
+the plain version's too, against the plain version in f64 on the same
+values. A variant gives wrong sums by
+design and is only timed. Device time is the profiler's, every device
+operation of a call included (the zeroing of the outputs too), mean of
+20 calls; event time the median of 20. `bench` prints the warm step-2
+bench iteration (chip_smoke.bench_step2: launches, wall time, device
+time by kernel) with SolverOptions() defaults on one device and on a
+1-device mesh, for the package tree in the current directory; run it in
+each tree to compare.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# variants of csrc/ (name: [(file, regex, replacement)]) and the threads
+# per block their fused-term table is cut for
+NO_ATOMICS = (r"atomicAdd\(&(acc\w*)\[([^\]]+)\], ([^;]+)\);",
+              r"{ const float a_ = \3; if (a_ == 1.2345e-38f) \1[\2] = a_; }")
+NO_ADDS = (r"acc\[k \* n \+ c\] \+= v\[k\];",
+           "if (v[k] == 1.2345e-38f) acc[k * n + c] = v[k];")
+VARIANTS = {
+    # the per-camera adds made dead stores: loads, arithmetic, warp sums
+    "no_adds": ([("pose2.cu", *NO_ATOMICS),
+                 ("pose_common.cuh", *NO_ATOMICS),
+                 ("pose_common.cuh", *NO_ADDS)], 512),
+    # every live lane adds its own values (no sum over a camera's lanes)
+    "no_group_sum": ([("pose_common.cuh",
+                       r"__match_any_sync\(kFullMask, live \? c : -1\)",
+                       "(1u << lane)")], 512),
+    # the blocks' flush to global memory left out
+    "no_flush": ([("pose2.cu", r"povar::flush_acc\(acc_g, acc, [^;]+;", ""),
+                  ("pose2.cu", r"povar::flush_acc\(out, acc, [^;]+;", ""),
+                  ("pose2.cu", r"if \(s != 0\.0f\) atomicAdd\(out \+ i, s\);",
+                   "if (s == 1.2345e-38f) out[i] = s;")], 512),
+    # the fused term on one shared-atomic accumulator per block
+    "block_atomics": ([("pose2.cu",
+                        r"if \(base \+ kE0Warps \* acc <= \(size_t\)"
+                        r"max_optin_smem\(\)\)", "if (false)")], 512),
+    # every in-range row's operands loaded, not only the live rows'
+    "eager_loads": ([("pose2.cu",
+                      r"if \(live\) \{\n      c = cam\[o\];\n      const",
+                      "if (o < O) {\n      c = cam[o];\n      const"),
+                     ("pose2.cu", r"if \(live\) \{\n      c = cam\[o\];\n#pragma",
+                      "if (in) {\n      c = cam[o];\n#pragma")], 512),
+    "threads256": ([("pose2.cu", r"kE0Threads = 512", "kE0Threads = 256")],
+                   256),
+    "threads1024": ([("pose2.cu", r"kE0Threads = 512", "kE0Threads = 1024")],
+                    1024),
+}
+# the earlier kernels with their per-camera atomics made dead stores
+PARENT_VARIANTS = {"parent_no_atomics": [("pose2.cu", *NO_ATOMICS)]}
+OUT = Path("build") / "pose2_ab"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _variant_dir(src: Path, name: str, edits) -> Path:
+    """A copy of `src`'s pose2.cu and pose_common.cuh with `edits`
+    applied (each must match)."""
+    d = OUT / name
+    d.mkdir(parents=True, exist_ok=True)
+    for f in ("pose2.cu", "pose_common.cuh"):
+        shutil.copy(src / f, d / f)
+    for f, pat, rep in edits:
+        text = (d / f).read_text()
+        new, n = re.subn(pat, rep, text)
+        if n == 0:
+            raise RuntimeError(f"{name}: {pat!r} matches nothing in {f}")
+        (d / f).write_text(new)
+    return d
+
+
+def build_all(parent: Path):
+    """Build the earlier pose2.cu and every variant, one nvcc each, in
+    parallel. Returns {name: ctypes library}."""
+    from povar_tpu_torch.ops import _build
+
+    own = _build.CSRC
+    dirs = {"parent": _variant_dir(parent, "parent", [])}
+    dirs.update({n: _variant_dir(parent, n, e)
+                 for n, e in PARENT_VARIANTS.items()})
+    dirs.update({n: _variant_dir(own, n, e) for n, (e, _t) in
+                 VARIANTS.items()})
+    nvcc = _build._nvcc()
+    procs = {n: subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+         str(d / "pose2.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for n, d in dirs.items()}
+    libs = {}
+    for n, p in procs.items():
+        log = p.communicate(timeout=600)[0]
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc {n}:\n{log}")
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        print(f"built {n}: {' | '.join(regs)}", flush=True)
+        libs[n] = ctypes.CDLL(str(dirs[n] / "lib.so"))
+    parent_sig = {"povar_hppb2": [_P] * 9 + [_I, _I, _P],
+                  "povar_e0_term2": [_P] * 8 + [_I] * 4 + [_P]}
+    for n, lib in libs.items():
+        sig = (parent_sig if n.startswith("parent")
+               else {k: _build.SIGNATURES[k] for k in parent_sig})
+        for k, argtypes in sig.items():
+            getattr(lib, k).argtypes = argtypes
+            getattr(lib, k).restype = ctypes.c_int
+    sass_atomics(dirs)
+    return libs
+
+
+def sass_atomics(dirs) -> None:
+    """The atomic instructions each build's two kernels compile to
+    (cuobjdump -sass), or a note where cuobjdump is missing."""
+    from povar_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print("sass: no cuobjdump", flush=True)
+        return
+    for n, lib in (("parent", dirs["parent"] / "lib.so"),
+                   ("package", _build.build())):
+        sass = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True).stdout
+        fn = None
+        counts = {}
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                fn = ("hppb2" if "hppb2" in m.group(1) else
+                      "e0_term2" if "e0_term2" in m.group(1) else None)
+                continue
+            op = re.search(r"\b(ATOMS\.[\w.]+|ATOM\.[\w.]+|RED\.[\w.]+|"
+                           r"ATOMG\.[\w.]+)", ln)
+            if fn and op:
+                key = (fn, op.group(1))
+                counts[key] = counts.get(key, 0) + 1
+        print(f"sass atomics ({n}): {counts}", flush=True)
+
+
+def _parent_hppb2(lib):
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    def run(cam, x4, mm, sw, r_w, jlns, hib, n):
+        hpp = torch.zeros((144, n), device=x4.device)
+        b = torch.zeros((12, n), device=x4.device)
+        rc = lib.povar_hppb2(*map(_ptr, (cam, x4, mm, sw, r_w, jlns, hib,
+                                         hpp, b)), cam.shape[0], n,
+                             _stream(x4))
+        assert rc == 0, rc
+        return hpp, b
+    return run
+
+
+def _parent_e0(lib):
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream, part_table
+
+    def run(cam, x4, mm, sw, mat6, zt, parts, n):
+        out = torch.zeros((12, n), device=x4.device)
+        table = part_table(tuple(parts), x4.device)
+        rc = lib.povar_e0_term2(*map(_ptr, (cam, x4, mm, sw, mat6, zt, table,
+                                            out)), len(parts),
+                                sum(g for _o, g, _w in parts),
+                                cam.shape[0], n, _stream(x4))
+        assert rc == 0, rc
+        return out
+    return run
+
+
+def _variant_hppb2(lib):
+    from povar_tpu_torch.ops import pose2_kernels as pk2
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    def run(cam, x4, mm, sw, r_w, jlns, hib, n):
+        acc = torch.zeros(52 * n + 1, device=x4.device)
+        hpp = torch.empty((144, n), device=x4.device)
+        rc = lib.povar_hppb2(*map(_ptr, (
+            cam, x4, mm, sw, r_w, jlns, hib,
+            pk2.hppb2_expand_table(x4.device), hpp, acc)), cam.shape[0], n,
+            _stream(x4))
+        assert rc == 0, rc
+        return hpp, acc[:12 * n].view(12, n)
+    return run
+
+
+def _variant_e0(lib, threads):
+    from povar_tpu_torch.ops import pose2_kernels as pk2
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    def run(cam, x4, mm, sw, mat6, zt, parts, n):
+        rows, tiles = pk2.tile_rows(parts, threads)
+        table = torch.tensor(rows, dtype=torch.int32, device=x4.device)
+        out = torch.zeros((12, n), device=x4.device)
+        rc = lib.povar_e0_term2(*map(_ptr, (cam, x4, mm, sw, mat6, zt, table,
+                                            out)), len(parts), tiles,
+                                cam.shape[0], n, threads, _stream(x4))
+        assert rc == 0, rc
+        return out
+    return run
+
+
+def _operands(problem):
+    """The venice-89 step-2 operands of chip_smoke.check_kernels2 (the
+    card's step-1 result, homogenized; seeded zt, mat6, hib), the fused
+    term's parts, and the 1-device mesh solver's step-2 operands (hib its
+    landmark solve's at lambda 1e-4)."""
+    import chip_smoke as cs
+    from povar_tpu_torch import SolverOptions, Stage2Solver, create_homogeneous
+
+    opts = SolverOptions()
+    _summary, (cams, lms), _s, _t = cs.solve(problem, opts, "cuda")
+    cams_h, lms_h = create_homogeneous(cams, lms)
+    s2 = cs.stage_solver(Stage2Solver, problem, opts)
+    lin = s2.linearize(cams_h, s2.lm_pack(lms_h))
+    rng = np.random.default_rng(1)
+    o, n = int(s2.obs.cam.shape[0]), s2.n_cams
+
+    def f32(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32, device="cuda")
+
+    d = dict(cam=s2.obs.cam, x4=lin.x4, mm=lin.mm, sw=lin.sw, r_w=lin.r_w,
+             jlns=lin.jlns, hib=f32(3, o), mat6=f32(6, o), zt=f32(12, n),
+             n=n)
+    sm = cs.stage_solver(Stage2Solver, problem, opts, mesh=True)
+    lm = sm.lm_pack(sm.pad_landmarks(lms_h.cpu().numpy()))
+    ml = sm.linearize(cams_h, lm)
+    mesh = dict(cam=sm.obs.cam, x4=ml.x4, mm=ml.mm, sw=ml.sw, r_w=ml.r_w,
+                jlns=ml.jlns, hib=sm._prep_hll_s(ml, 1e-4)[1], n=n)
+    return d, tuple(s2.e0_plan.parts), mesh
+
+
+def first_camera_rows(cam, parts) -> torch.Tensor:
+    """The row order that sorts each slot part's landmarks by the camera
+    of their first slot row (stable), all w rows of a landmark moving
+    together, as the SPMD window plan packs landmarks: index rows [O]
+    for operand[..., rows]; rows outside the parts stay in place."""
+    rows = torch.arange(cam.shape[0], device=cam.device)
+    for ofs, g, w in parts:
+        perm = torch.argsort(cam[ofs:ofs + g].long(), stable=True)
+        base = ofs + g * torch.arange(w, device=cam.device)[:, None]
+        rows[(base + torch.arange(g, device=cam.device)).reshape(-1)] = (
+            base + perm).reshape(-1)
+    return rows
+
+
+def _by_first_camera(d, parts):
+    rows = first_camera_rows(d["cam"], parts)
+    keys = ("cam", "x4", "mm", "sw", "r_w", "jlns", "hib", "mat6")
+    return dict(d, **{k: d[k][..., rows].contiguous() for k in keys})
+
+
+def _with_cameras(d, n, seed):
+    """d on n seeded cameras (uniform over the rows) with a seeded zt."""
+    rng = np.random.default_rng(seed)
+    o = d["cam"].shape[0]
+    return dict(d, n=n, cam=torch.as_tensor(
+        rng.integers(0, n, o).astype(np.int32), device="cuda"),
+        zt=torch.as_tensor(rng.standard_normal((12, n)), dtype=torch.float32,
+                           device="cuda"))
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def kernels(parent: Path) -> None:
+    import chip_smoke as cs
+    from povar_tpu_torch import synthetic_bal_problem_fast
+    from povar_tpu_torch.ops import pose2_kernels as pk2
+    from povar_tpu_torch.ops import pose2_ref as pr2
+    from povar_tpu_torch.tools.parity import scaled_error
+
+    libs = build_all(parent)
+    problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
+                                         seed=0)
+    d, parts, mesh = _operands(problem)
+    hpp_impls = {"parent": _parent_hppb2(libs["parent"]),
+                 "package": pk2.hppb2}
+    e0_impls = {"parent": _parent_e0(libs["parent"]),
+                "package": pk2.e0_term2_parts}
+    hpp_var = {"parent_no_atomics": _parent_hppb2(libs["parent_no_atomics"])}
+    e0_var = {"parent_no_atomics": _parent_e0(libs["parent_no_atomics"])}
+    for name, (_e, threads) in VARIANTS.items():
+        if not name.startswith("threads") and name != "block_atomics":
+            hpp_var[name] = _variant_hppb2(libs[name])
+        e0_var[name] = _variant_e0(libs[name], threads)
+
+    def hpp_args(x):
+        return tuple(x[k] for k in ("cam", "x4", "mm", "sw", "r_w", "jlns",
+                                    "hib")) + (x["n"],)
+
+    def e0_args(x):
+        return tuple(x[k] for k in ("cam", "x4", "mm", "sw", "mat6",
+                                    "zt")) + (parts, x["n"])
+
+    shapes = [
+        ("hppb2", "(a) venice-89", hpp_args(d)),
+        ("hppb2", "(b) mesh window order", hpp_args(mesh)),
+        ("hppb2", "(c) N = 1024", hpp_args(_with_cameras(d, 1024, 1))),
+        ("hppb2", "(c) N = 2048", hpp_args(_with_cameras(d, 2048, 2))),
+        ("e0_term2_parts", "(a) venice-89", e0_args(d)),
+        ("e0_term2_parts", "(b) by first camera",
+         e0_args(_by_first_camera(d, parts))),
+        ("e0_term2_parts", "(c) N = 1024", e0_args(_with_cameras(d, 1024, 3))),
+    ]
+    print(f"fused-term parts {parts}; mesh lanes {mesh['cam'].shape[0]}",
+          flush=True)
+    for kernel, label, args in shapes:
+        impls, var = ((hpp_impls, hpp_var) if kernel == "hppb2"
+                      else (e0_impls, e0_var))
+        plain = _tuple(getattr(pr2, kernel)(*args))
+        # the plain version in f64 on the same values: each f32 result's
+        # own error, the plain version's included
+        exact = _tuple(getattr(pr2, kernel)(*(
+            a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+            for a in args)))
+        for who, fn in [*impls.items(), ("plain", None)]:
+            got = plain if fn is None else _tuple(fn(*args))
+            torch.cuda.synchronize()
+            errs = [scaled_error(g, w, "cam") for g, w in zip(got, plain)]
+            if not all(e <= 1e-4 for e in errs):
+                raise AssertionError(f"{kernel} {label} {who}: {errs}")
+            errs64 = [scaled_error(g, w, "cam") for g, w in zip(got, exact)]
+            print(f"{kernel} {label} {who}: scaled error per camera "
+                  f"{' '.join(f'{e:.1e}' for e in errs)}, against f64 "
+                  f"{' '.join(f'{e:.1e}' for e in errs64)}", flush=True)
+        times = {}
+        for who in ("parent", "package", "package", "parent"):
+            fn = impls[who]
+            times.setdefault(who, []).append(
+                (cs.device_us(lambda: fn(*args)), cs.cuda_ms(lambda: fn(*args))))
+        for who, fn in var.items():
+            times[who] = [(cs.device_us(lambda: fn(*args)),
+                           cs.cuda_ms(lambda: fn(*args)))]
+        for who, ts in times.items():
+            dev = " / ".join(f"{t[0]:.1f}" for t in ts)
+            ev = " / ".join(f"{t[1] * 1e3:.1f}" for t in ts)
+            print(f"{kernel} {label} {who}: device {dev} us, events {ev} us",
+                  flush=True)
+
+
+def bench() -> None:
+    import chip_smoke as cs
+    from povar_tpu_torch import SolverOptions, synthetic_bal_problem_fast
+
+    problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
+                                         seed=0)
+    opts = SolverOptions()
+    cs.bench_step2(problem, opts, "step-2 defaults")
+    cs.bench_step2(problem, opts, "step-2 spmd (1-device mesh)", mesh=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="mode", required=True)
+    k = sub.add_parser("kernels")
+    k.add_argument("--parent", type=Path, required=True,
+                   help="directory with the earlier pose2.cu and "
+                   "pose_common.cuh")
+    sub.add_parser("bench")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("pose2_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path.cwd()))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    if args.mode == "kernels":
+        kernels(args.parent)
+    else:
+        bench()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,7 +2,8 @@
 
     python -m povar_tpu_torch.tools.step2_spread [--runs 5] [--long 300]
         [--small 0] [--witness 0] [--step2 RIPOBA] [--pcg 0] [--psc 0]
-        [--psc-device cuda] [--psc-ba 0] [--chol 0] [--chol-device cuda]
+        [--psc-device cuda] [--psc-mesh 0] [--psc-ba 0] [--chol 0]
+        [--chol-device cuda]
         [--ring 0]
         [--out build/step2_spread.json]
 
@@ -44,6 +45,9 @@ step-2 cost:
                 band was set from, how many opening decisions each
                 shares with the JAX package's run (`JAX_PSC_DECISIONS`)
                 and its power-term counts (`JAX_PSC_TERMS`);
+  psc mesh      `--psc-mesh` such solves on a 1-device mesh (the SPMD
+                window layout): the spread chip_smoke.py's mesh PSC
+                check meets;
   psc ba        `--psc-ba` venice-89 `bundle_adjust` runs with
                 POWER_SCHUR_COMPLEMENT + RIPOBA: where step 2 ends after
                 the poBA basin's step 1 (chip_smoke.py's PSC_STEP2_MAX);
@@ -526,10 +530,11 @@ def same_prefix(decisions, want=JAX_PSC_DECISIONS):
     return n
 
 
-def step1_spread(problem, runs, solver, device="cuda"):
+def step1_spread(problem, runs, solver, device="cuda", mesh=False):
     """`runs` venice-89 step-1 solves with `solver` (POWER_SCHUR_COMPLEMENT
     or CHOLESKY; SolverOptions() defaults otherwise) on `device` ("cuda",
-    or "cpu": the plain versions): their records, each with the count of
+    or "cpu": the plain versions), with `mesh` on a 1-device mesh there
+    (the SPMD window layout): their records, each with the count of
     opening decisions it shares with the JAX run of that solver
     (JAX_STEP1)."""
     if not runs:
@@ -538,8 +543,17 @@ def step1_spread(problem, runs, solver, device="cuda"):
     opts = SolverOptions(solver_type_step_1=solver)
     args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
             problem.num_cameras, problem.num_landmarks)
-    stage1 = Stage1Solver(*args, opts, device=device)
-    tag = solver.value.lower()
+    if mesh:
+        from povar_tpu_torch.parallel.mesh import make_mesh
+        from povar_tpu_torch.parallel.spmd import SpmdStage1Solver
+        from povar_tpu_torch.solver.pipeline import _make_spmd_plan
+
+        stage1 = SpmdStage1Solver(
+            _make_spmd_plan(problem, 1), problem.obs_uv, problem.num_cameras,
+            problem.num_landmarks, opts, make_mesh(1, device))
+    else:
+        stage1 = Stage1Solver(*args, opts, device=device)
+    tag = solver.value.lower() + (" mesh" if mesh else "")
 
     def sync():
         if device == "cuda":
@@ -550,6 +564,8 @@ def step1_spread(problem, runs, solver, device="cuda"):
         _p, c0, l0 = from_numpy(problem.obs_cam, problem.obs_lm,
                                 problem.obs_uv, problem.cam_space,
                                 problem.lm_p, device=device)
+        if mesh:
+            l0 = stage1.pad_landmarks(problem.lm_p)
         s = SolverSummary()
         sync()
         t0 = time.perf_counter()
@@ -621,6 +637,9 @@ def main() -> None:
     ap.add_argument("--psc-device", default="cuda", choices=("cuda", "cpu"),
                     help="where the --psc solves run (cpu: the plain "
                     "versions)")
+    ap.add_argument("--psc-mesh", type=int, default=0,
+                    help="POWER_SCHUR_COMPLEMENT step-1 solves on a "
+                    "1-device mesh (chip_smoke.py's spmd PSC check)")
     ap.add_argument("--psc-ba", type=int, default=0,
                     help="POWER_SCHUR_COMPLEMENT + RIPOBA bundle_adjust runs "
                     "(the spread of step 2's final cost)")
@@ -646,6 +665,9 @@ def main() -> None:
                pcg=[], psc=psc_spread(problem, a.psc, a.psc_device),
                chol=step1_spread(problem, a.chol, SolverType.CHOLESKY,
                                  a.chol_device),
+               psc_mesh=step1_spread(problem, a.psc_mesh,
+                                     SolverType.POWER_SCHUR_COMPLEMENT,
+                                     mesh=True),
                psc_ba=psc_pipeline(problem, a.psc_ba),
                ring=ring_gaps(a.ring))
     popts = SolverOptions(solver_type_step_1=SolverType.PCG,

@@ -15,10 +15,12 @@ file imports nothing of JAX, so it runs where JAX is not installed:
 rest of the suite.) chip_smoke.py runs the kernel check at the
 venice-89 shapes; this file runs it at the CPU tests' small shapes
 (O = 1024, N = 13, as tests/test_torch_pose_kernels.py) and at
-N = 1024, where `hpp_b_structured`, `hppb2` and the two Schur-Jacobi
-kernels take their global-atomic route; the fused terms run over all
-slot parts and over a narrow prefix; `cam_gather` also on a 144-row
-table, more rows than one block stages at N = 1024.
+N = 1024, where `hpp_b_structured` and the two Schur-Jacobi kernels
+take their global-atomic route (`hppb2` takes its own at N = 2048); the
+fused terms run over all slot parts and over a narrow prefix, the
+step-2 one also over parts of three widths and on camera-sorted
+landmarks; `cam_gather` also on a 144-row table, more rows than one
+block stages at N = 1024.
 
 Tolerances, with the scales of povar_tpu_torch/tools/parity.py:
 elementwise outputs 1e-5 entry by entry (against |plain| + the median
@@ -47,6 +49,7 @@ from povar_tpu_torch import (
     synthetic_bal_problem,
 )
 from povar_tpu_torch.tools.parity import scaled_error
+from povar_tpu_torch.tools.pose2_ab import first_camera_rows
 from povar_tpu_torch.tools.step2_spread import (
     OVERFLOW_TOL,
     RING_TOLS,
@@ -214,6 +217,66 @@ def test_step2_kernels_match_plain_versions(cuda, n_cams):
         torch.cuda.synchronize()
         assert launches.launch_counts()[name] == 1, name
         _close(name, got, getattr(pose2_ref, name)(*args, **kw), specs)
+
+
+# the per-observation operands of hppb2 and the fused step-2 term
+OBS2 = ("cam", "x4", "mm", "sw", "r_w2", "jlns", "hib", "mat6")
+# slot parts of three widths (3, 7, 16), each with a ragged last tile of
+# the fused term (85, 36 and 16 landmarks per tile)
+MIXED = ((0, 100, 3), (300, 37, 7), (559, 29, 16))
+
+
+def _rows_reordered(t, idx):
+    """`t` with every per-observation operand's rows taken at idx."""
+    return dict(t, **{k: t[k][..., idx].contiguous() for k in OBS2})
+
+
+def _by_first_camera(t, parts):
+    """`t` with each part's landmarks sorted by first camera."""
+    return _rows_reordered(t, first_camera_rows(t["cam"], parts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["drawn", "by_camera"])
+@pytest.mark.parametrize("n_cams", [13, 1024, 2048])
+def test_hppb2_routes_and_orders(cuda, n_cams, order):
+    """hppb2 in moment form once per call within the per-camera
+    tolerance: through shared memory (N = 13, 1024) and straight to
+    global memory (N = 2048: 52 N floats exceed a block's shared memory),
+    on the rows as drawn and sorted by camera, where whole warps share a
+    camera and sum before their atomics. Every entry of hpp12 is written
+    (the kernel expands the moments into an uninitialized output)."""
+    t = _inputs(n_cams, cuda)
+    if order == "by_camera":
+        t = _rows_reordered(t, torch.argsort(t["cam"].long(), stable=True))
+    args = (t["cam"], t["x4"], t["mm"], t["sw"], t["r_w2"], t["jlns"],
+            t["hib"], n_cams)
+    launches.reset_launch_counts()
+    got = pk2.hppb2(*args)
+    torch.cuda.synchronize()
+    assert launches.launch_counts()["hppb2"] == 1
+    _close("hppb2", got, pose2_ref.hppb2(*args), [CAM, CAM])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["drawn", "by_first_camera"])
+@pytest.mark.parametrize("parts", [PARTS, MIXED], ids=["parts", "mixed"])
+@pytest.mark.parametrize("n_cams", [13, 1024])
+def test_e0_term2_parts_tiles_and_orders(cuda, n_cams, parts, order):
+    """The fused step-2 term once per call within the per-camera
+    tolerance: over parts of one and of three widths whose last tiles are
+    ragged, on the landmarks as drawn and with each part's landmarks
+    sorted by first camera."""
+    t = _inputs(n_cams, cuda)
+    if order == "by_first_camera":
+        t = _by_first_camera(t, parts)
+    args = (t["cam"], t["x4"], t["mm"], t["sw"], t["mat6"], t["z"], parts,
+            n_cams)
+    launches.reset_launch_counts()
+    got = pk2.e0_term2_parts(*args)
+    torch.cuda.synchronize()
+    assert launches.launch_counts()["e0_term2_parts"] == 1
+    _close("e0_term2_parts", got, pose2_ref.e0_term2_parts(*args), [CAM])
 
 
 @pytest.mark.cuda
