@@ -25,9 +25,13 @@ prints no result line):
               (median of 20 calls) and profiler device times (mean of
               20) for both, and those of `index_select` beside
               cam_gather and of `index_add_` beside cam_scatter_add, the
-              one PyTorch call that computes each; hpp_b_structured,
-              schur_diag_structured, cam_scatter_add, e0_scatter and
-              hpp_b again at N = 1024 (the first two's and hpp_b's
+              one PyTorch call that computes each; hpp_b_structured and
+              e0_term_parts also on the camera-sorted lane orders (the
+              1-device mesh solver's step-1 operands; each part's
+              landmarks sorted by first camera) and on seeded cameras at
+              N = 1024 (hpp_b_structured also at N = 2048, its global
+              route); schur_diag_structured, cam_scatter_add, e0_scatter
+              and hpp_b again at N = 1024 (the first's and hpp_b's
               global-atomic routes, the others' widest shared tables);
 4. step 1     a small step-1 solve, card against CPU; the venice-89
               step-1 solve with the composed power term and with
@@ -310,7 +314,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # (a multiply, an add, a division, a square root or an atomic add each
 # count one); at these rates it never sets the bound, the bytes do
 FLOPS_PER_OBS = {
-    "prepare": 110, "e0_factor": 90, "hpp_b_structured": 300,
+    "prepare": 110, "e0_factor": 90, "hpp_b_structured": 230,
     "e0_u_structured": 40, "e0_scatter_structured": 60, "apply_ldiff": 90,
     "pose_error": 60, "prepare2": 110, "hppb2": 130, "mat_dot2": 40,
     "scatter2": 45, "ldiff2": 55, "pose_error2": 45,
@@ -617,36 +621,97 @@ def check_kernels(solver, problem, alpha):
         lambda: d["ct"].index_select(1, cam64),
     )], o))
 
-    # the large-N route of hpp_b_structured (direct global atomics when
-    # 156 N floats of accumulators exceed a block's shared memory)
+    # the large-N route of schur_diag_structured (direct global atomics
+    # when 144 N floats of accumulators exceed a block's shared memory)
     rng = np.random.default_rng(1)
     nb = 1024
     cam_big = torch.as_tensor(
         rng.integers(0, nb, d["cam"].shape[0]).astype(np.int32),
         device=solver.device,
     )
-    ct_big = torch.as_tensor(
-        rng.standard_normal((12, nb)), dtype=torch.float32,
-        device=solver.device,
-    )
-
-    def big(m):
-        return m.hpp_b_structured(cam_big, ct_big, d["x"], d["uv"], d["sw"],
-                                  d["r_w"], d["jls"], d["hib"], nb, **a)
 
     def big_schur(m):
         return m.schur_diag_structured(cam_big, d["x"], d["h"], nb)
 
-    for label, run, specs in (("hpp_b_structured", big, [CAM, CAM]),
-                              ("schur_diag_structured", big_schur, [CAM])):
-        err, rels = compare(f"{label} N=1024", run(pk), run(pr), specs)
-        print(f"{label} N=1024 max_abs_err {err:.3e} scaled "
-              f"[{' '.join(f'{x:.1e}' for x in rels)}]  events: kernel "
-              f"{cuda_ms(lambda: run(pk)):.4f} ms plain "
-              f"{cuda_ms(lambda: run(pr)):.4f} ms  device: kernel "
-              f"{device_us(lambda: run(pk)):.1f} us plain "
-              f"{device_us(lambda: run(pr)):.1f} us", flush=True)
+    err, rels = compare("schur_diag_structured N=1024", big_schur(pk),
+                        big_schur(pr), [CAM])
+    print(f"schur_diag_structured N=1024 max_abs_err {err:.3e} scaled "
+          f"[{' '.join(f'{x:.1e}' for x in rels)}]  events: kernel "
+          f"{cuda_ms(lambda: big_schur(pk)):.4f} ms plain "
+          f"{cuda_ms(lambda: big_schur(pr)):.4f} ms  device: kernel "
+          f"{device_us(lambda: big_schur(pk)):.1f} us plain "
+          f"{device_us(lambda: big_schur(pr)):.1f} us", flush=True)
+    for name, label, args, kw, inputs, specs, n_read, n_obs in (
+            kernels1_shapes(problem, solver, d, alpha)):
+        run_cases(pk, pr, [(name, label,
+                            lambda m, f=name, x=args, k=kw: getattr(m, f)(
+                                *x, **k), inputs, specs, n_read)],
+                  n_obs, time_variants=True)
     return results
+
+
+def kernels1_shapes(problem, solver, d, alpha):
+    """The shapes beside check_kernels' venice-89 rows at which
+    hpp_b_structured and e0_term_parts are held to their plain versions
+    and timed: (b) the camera-sorted lane orders, hpp_b_structured on the
+    1-device mesh solver's own step-1 operands (the SPMD window order,
+    598,016 lanes; its landmark solve's Hll^-1 bl at the VarProj start)
+    and the fused term on the venice-89 operands `d` (kernel_inputs) with
+    each part's landmarks sorted by the camera of their first slot row
+    (the order the window plan packs them in, the same parts); (c) seeded
+    cameras on the venice-89 rows, N = 1024 for both and N = 2048 for
+    hpp_b_structured (its global-memory route). Returns (kernel, label,
+    args, kwargs, inputs for bound_ms, specs, n_read, O) per shape; also
+    tools/pose1_ab.py's shapes."""
+    from povar_tpu_torch import SolverOptions, Stage1Solver
+    from povar_tpu_torch.tools.pose2_ab import first_camera_rows
+
+    parts = solver.e0_plan.parts
+    covered = sum(g * w for _ofs, g, w in parts)
+    o = int(d["cam"].shape[0])
+    hpp_keys = ("cam", "ct", "x", "uv", "sw", "r_w", "jls", "hib")
+    e0_keys = ("cam", "x", "h", "z")
+
+    def hpp(x, label, n):
+        return ("hpp_b_structured", label,
+                tuple(x[k] for k in hpp_keys) + (n,), dict(alpha=alpha),
+                [x[k] for k in ("sw", "cam", "ct", "x", "uv", "r_w", "jls",
+                                "hib")], [CAM, CAM],
+                int((x["sw"] > 0).sum()), int(x["cam"].shape[0]))
+
+    def e0(x, label, n):
+        return ("e0_term_parts", label,
+                tuple(x[k] for k in e0_keys) + (parts, n), {},
+                [x[k] for k in e0_keys], [CAM], (covered, covered), o)
+
+    ms = stage_solver(Stage1Solver, problem, SolverOptions(), mesh=True)
+    c = torch.as_tensor(problem.cam_space, device="cuda")
+    lin = ms.linearize(c, ms.lm_pack(ms.initialize_varproj(c)))
+    _hll_inv, hib, jls, _lh = ms._hll_pieces_s(lin)
+    mesh = dict(cam=ms.obs.cam, ct=lin.ct, x=lin.x, uv=ms._uv_s, sw=lin.sw,
+                r_w=lin.r_w, jls=jls, hib=hib)
+    rows = first_camera_rows(d["cam"], parts)
+    by_first = dict(d, **{k: d[k][..., rows].contiguous()
+                          for k in ("cam", "x", "h")})
+
+    def with_cameras(n, seed):
+        rng = np.random.default_rng(seed)
+        cam = rng.integers(0, n, o).astype(np.int32)
+        ct = rng.standard_normal((12, n))
+        return dict(d, cam=torch.as_tensor(cam, device="cuda"),
+                    ct=torch.as_tensor(ct, dtype=torch.float32,
+                                       device="cuda"),
+                    z=torch.as_tensor(rng.standard_normal((12, n)),
+                                      dtype=torch.float32, device="cuda"))
+
+    big = {n: with_cameras(n, n // 1024) for n in (1024, 2048)}
+    return [
+        hpp(mesh, "(b) mesh window order", ms.n_cams),
+        e0(by_first, "(b) landmarks by first camera", solver.n_cams),
+        hpp(big[1024], "(c) N = 1024", 1024),
+        e0(big[1024], "(c) N = 1024", 1024),
+        hpp(big[2048], "(c) N = 2048, global route", 2048),
+    ]
 
 
 def check_cam_kernels(solver, seed=2):

@@ -22,20 +22,24 @@
 // matmuls with the exact bf16 3-way split (a camera row is a shared-
 // memory read by index here), the 128-lane padding and VMEM tile caps
 // (a grid-stride loop covers any O), the per-width launches and VMEM
-// budget of the fused term (one launch walks every part through a part
-// table), and the double-float arithmetic of the cost (the H100 has
-// native f64).
+// budget of the fused term (one launch walks every part through a
+// (part, tile) table), and the double-float arithmetic of the cost (the
+// H100 has native f64).
 //
 // What bounds them on the card: all eleven stream O observations with a
 // few dozen flops each, so each is bound by device-memory bytes per
 // observation (K1 reads 28 B and writes 68 B; K2 64/36; K3 68/0; K4
 // 52/12; K5 64/0; K6 68/0; K7 48/0 at f64 state; K8 52/0; K9 52/0; K10
-// 56/12; K11 68/0) until
-// the per-camera shared-memory atomics of K1, K3, K5, K8 and K9 (12, 124,
-// 12, 12 and 144 per observation) cost more than the bytes: K3 and K9 are
-// the ones where they do. A block's
-// shared accumulators leave through one global atomic per entry, so the
-// grid is sized to what is resident at once (grid-stride), not to O.
+// 56/12; K11 68/0) until its per-camera adds cost more than the bytes (a
+// shared f32 atomicAdd is a compare-and-swap loop on this card): K1 and
+// K5 add 12 per live row, K9 144, which bind it. K3 adds its 52 moment-
+// form values through warp_scatter, and those adds (~40 of its 76 us at
+// venice-89) and its arithmetic bind it; K8 adds 12 per row into per-
+// warp accumulators at no measurable cost, and its tile walk (two
+// barriers per tile, two blocks per SM) binds it at 2.3x its bytes. A
+// block's shared accumulators leave through one global atomic per entry,
+// so the grid is sized to what is resident at once (grid-stride), not to
+// O.
 //
 // C interface: every entry point takes device pointers, sizes, scalar
 // constants and the CUDA stream to launch on, launches one kernel, and
@@ -45,7 +49,11 @@
 
 #include "pose_common.cuh"
 
+using povar::kE0Threads;
+using povar::kE0Warps;
+using povar::kMomentRows;
 using povar::kThreads;
+using povar::kTileFields;
 using povar::launch;
 using povar::max_optin_smem;
 
@@ -175,85 +183,103 @@ __global__ void __launch_bounds__(kThreads)
 // ------------------------------------------------------------------ K3
 // Per-camera raw Hpp [144, N] (rows (4a+i)*12 + 4b+j) = sum w K (x)
 // xh xh^T and b [12, N] = sum rho (x) xh of the VarProj-corrected
-// residual r~ = r_w - sw A~[:, :3] (jls . hib). kShared: accumulate in
-// shared memory (156 N floats: 55.5 KB at N = 89) and flush once per
-// block; otherwise (N too large for the block's shared memory) every
-// term goes straight to a global atomic. Dead rows (sw == 0) contribute
-// exactly zero and are skipped, as are the structural zeros K[0][1] and
-// K[1][0].
-// Replaces pallas_pose.py:489 hpp_b_structured. Bound: 124 shared (or
-// global) atomics per live observation, far more than its 68 B read.
+// residual r~ = r_w - sw A~[:, :3] (jls . hib), in moment form
+// (pose_common.cuh): K = [[1, 0, -sp2 u], [0, 1, -sp2 v], [-sp2 u,
+// -sp2 v, sp2 (u^2 + v^2)]] has the positions and signs of step 2's K3,
+// with weights w (1, sp2 u, sp2 v, sp2 (u^2 + v^2)). A live row (sw != 0)
+// adds 52 values per camera, its b and the 40 moments of xh = [x, 1],
+// through warp_scatter (the lanes of a warp on one camera sum first).
+// The blocks' sums meet in f64: `acc_g` [52 N + 1] doubles, zeroed by the
+// caller (b, the moments, a ticket), takes native global f64 atomics, and
+// the last block to take a ticket writes b and every entry of hpp from it
+// in f32 (povar::expand_moments). In f32 the cross-block sum of ~500
+// partials per entry was the largest error and moved the POWER_SCHUR_
+// COMPLEMENT step-1 trajectory (PERF.md). The camera table is read
+// through the read-only path (__ldg; 4.3 KB at N = 89, it stays in L1).
+// kShared: the accumulators (52 N floats, up to N = 1117) in shared
+// memory, flushed once per block; otherwise every value goes straight to
+// a global f64 atomic.
+// Replaces pallas_pose.py:489 hpp_b_structured (_hpp_b_kernel :431).
+// Bound: the 52 shared float atomics per live row and the arithmetic
+// beside them: 76 us at venice-89 (124 per-row atomics: 222), 36 with the
+// adds made dead stores, 11.3 for the 68 B a row reads (70 with the
+// cross-block sums in f32, an earlier call); the table staged in shared
+// memory instead 75.7. 123 us on the mesh's window order (one camera per warp: a 31-step
+// walk), 320 at N = 1024, where the global route takes 477 (the table in
+// shared memory leaves no room for the accumulators), and 578 at N = 2048
+// on the global route (tools/pose1_ab.py and PERF.md; NVIDIA H100 80GB
+// HBM3, 700 W).
 template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
     hpp_b_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
                  const float* __restrict__ x, const float* __restrict__ uv,
                  const float* __restrict__ sw_in, const float* __restrict__ rw,
                  const float* __restrict__ jls, const float* __restrict__ hib,
-                 float* __restrict__ hpp, float* __restrict__ b, int n_obs,
+                 const int* __restrict__ expand, float* __restrict__ hpp,
+                 float* __restrict__ b, double* __restrict__ acc_g, int n_obs,
                  int n_cams, float sp, float sa, float sp2) {
   extern __shared__ float smem[];
-  float* tbl = smem;
-  float* acc_b = kShared ? smem + 12 * n_cams : b;
-  float* acc_h = kShared ? smem + 24 * n_cams : hpp;
-  povar::smem_copy(tbl, ct, 12 * n_cams);
-  if (kShared) povar::smem_zero(acc_b, 156 * n_cams);
-  __syncthreads();
+  float* acc = smem;  // kShared: the block's accumulators
+  if (kShared) {
+    povar::smem_zero(acc, kMomentRows * n_cams);
+    __syncthreads();
+  }
   const int O = n_obs;
-  POVAR_OBS_LOOP(o, O) {
-    const float sw = sw_in[o];
-    if (sw == 0.0f) continue;
-    const int c = cam[o];
-    const float u = uv[o], v = uv[O + o];
-    const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
-    float A[4][4];
-    povar::a_tilde(tbl, n_cams, c, u, v, sp, sa, A);
-    const float d0 = jls[o], d1 = jls[O + o], d2 = jls[2 * O + o];
-    const float h0 = hib[o], h1 = hib[O + o], h2 = hib[2 * O + o];
-    float rt[4];
+  const int lane = threadIdx.x & 31;
+  // warp-uniform trips: every lane reaches warp_scatter
+  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < O;
+       base += gridDim.x * blockDim.x) {
+    const int o = base + lane;
+    const float sw = o < O ? sw_in[o] : 0.0f;
+    const bool live = sw != 0.0f;
+    if (!__any_sync(povar::kFullMask, live)) continue;
+    float v[kMomentRows];
+    int c = 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float corr = A[k][0] * d0 * h0;
-      corr += A[k][1] * d1 * h1;
-      corr += A[k][2] * d2 * h2;
-      rt[k] = rw[k * O + o] - sw * corr;
-    }
-    const float rho[3] = {
-        sw * (sp * rt[0] + sa * rt[2]),
-        sw * (sp * rt[1] + sa * rt[3]),
-        sw * (-sp * (u * rt[0] + v * rt[1])),
-    };
+    for (int k = 0; k < kMomentRows; ++k) v[k] = 0.0f;
+    if (live) {
+      c = cam[o];
+      const float u = uv[o], vv = uv[O + o];
+      const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
+      float P[12], A[4][4];
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
+      for (int k = 0; k < 12; ++k) P[k] = __ldg(ct + k * n_cams + c);
+      povar::a_tilde(P, 1, 0, u, vv, sp, sa, A);
+      const float d0 = jls[o], d1 = jls[O + o], d2 = jls[2 * O + o];
+      const float h0 = hib[o], h1 = hib[O + o], h2 = hib[2 * O + o];
+      float rt[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        atomicAdd(&acc_b[(4 * a + j) * n_cams + c], rho[a] * xh[j]);
-
-    const float w = sw * sw;
-    const float K[3][3] = {{1.0f, 0.0f, -sp2 * u},
-                           {0.0f, 1.0f, -sp2 * v},
-                           {-sp2 * u, -sp2 * v, sp2 * (u * u + v * v)}};
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float wk = w * xh[i];
-#pragma unroll
-        for (int bb = 0; bb < 3; ++bb) {
-          if ((a == 0 && bb == 1) || (a == 1 && bb == 0)) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int row = (4 * a + i) * 12 + 4 * bb + j;
-            atomicAdd(&acc_h[row * n_cams + c], wk * K[a][bb] * xh[j]);
-          }
-        }
+      for (int k = 0; k < 4; ++k) {
+        float corr = A[k][0] * d0 * h0;
+        corr += A[k][1] * d1 * h1;
+        corr += A[k][2] * d2 * h2;
+        rt[k] = rw[k * O + o] - sw * corr;
       }
+      const float rho[3] = {
+          sw * (sp * rt[0] + sa * rt[2]),
+          sw * (sp * rt[1] + sa * rt[3]),
+          sw * (-sp * (u * rt[0] + vv * rt[1])),
+      };
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[4 * a + j] = rho[a] * xh[j];
+      const float w = sw * sw;
+      const float kw[4] = {w, w * (sp2 * u), w * (sp2 * vv),
+                           w * (sp2 * (u * u + vv * vv))};
+      povar::moments(kw, xh, v);
     }
+    if (kShared)
+      povar::warp_scatter<kMomentRows>(acc, n_cams, c, live, v);
+    else
+      povar::warp_scatter<kMomentRows>(acc_g, n_cams, c, live, v);
   }
   if (kShared) {
     __syncthreads();
-    povar::flush_acc(b, acc_b, 12 * n_cams);
-    povar::flush_acc(hpp, acc_h, 144 * n_cams);
+    povar::flush_acc(acc_g, acc, kMomentRows * n_cams);
   }
+  povar::expand_moments(expand, hpp, b, acc_g, n_cams,
+                        kShared ? n_cams : povar::kExpandChunk, smem);
 }
 
 // ------------------------------------------------------------------ K4
@@ -325,78 +351,105 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------------ K8
 // The fused power-series term over every narrow slot part in one launch:
-//   out[4a+i][cam] += tt[a] xh_i,  tt[a] = sum_c h[c*3+a] sb[c]  (xh_3 = 1)
-//   sb[c] = sum_j u_j[c],  u[c] = sum_a h[c*3+a] y[a],  y = xh . z[:, cam]
+//   pass A  y = xh . z[:, cam], u[c] = sum_a h[c*3+a] y[a],
+//           sb = sum_j u over the w rows of the landmark
+//   pass B  tt[a] = sum_c h[c*3+a] sb[c],  out[4a+i][cam] += tt[a] xh_i
+//           (xh_3 = 1)
 // i.e. e0_u, the per-landmark slot sum, its re-expansion and e0_scatter
-// in one pass, with u and sb kept in registers. One thread per landmark:
-// parts holds (ofs, g, w, first landmark) per slot part, and slot
-// element j of landmark l of a part is observation ofs + j * g + l
-// (segments.py's slot-element-major layout), so neighbouring threads
-// read neighbouring addresses. Pass A sums sb over j in order; pass B
-// reads x and h again (from L1/L2) and adds tt (x) xh into shared
-// accumulators, flushed by one global atomic per entry (as K5).
-// Replaces pallas_pose.py:748 e0_term_parts (_e0_term_kernel :673). Bound:
-// 52 B read per observation (cam 4, x 12, h 36) plus 12 shared atomics
-// per live row; no per-observation output at all.
-__global__ void __launch_bounds__(kThreads)
+// in one pass. One thread per slot row in tiles of kE0Threads / w
+// landmarks x all w rows (pose_common.cuh tile_row), persistent blocks
+// walking the (part, tile) table. Pass A puts the row's u in shared
+// memory; after one barrier each thread sums its landmark's u over
+// j = 0 .. w-1 in that order (the plain version's) and runs pass B on its
+// row's x and h, kept in registers across the barrier: each row is read
+// from device memory once. kPrivate (16 x 12 N floats fit: N up to 277):
+// each warp owns a [12, N] accumulator and its lanes on one camera sum
+// first (warp_scatter), so the adds need no atomics; the copies are
+// summed at the flush. Otherwise one shared accumulator with atomics. A
+// row whose tt is exactly zero adds nothing (dead and pad rows have
+// h = 0); a NaN still propagates.
+// Replaces pallas_pose.py:748 e0_term_parts (_e0_term_kernel :673).
+// Bound: 52 B read per slot row (cam 4, x 12, h 36), 8.6 us at venice-89.
+// One thread per landmark with 12 shared atomics per row takes 31.3 us
+// there, 14.0 with the atomics made dead stores. This kernel takes 19.8
+// us, 19.4 with its adds made dead stores (the tile walk binds it), 24.5
+// on one shared-atomic accumulator; 512 threads per block against 21.8
+// at 256 and 23.6 at 1024; 28.8 with each part's landmarks sorted by
+// first camera, 42.3 at N = 1024 (tools/pose1_ab.py and PERF.md; NVIDIA
+// H100 80GB HBM3, 700 W).
+template <bool kPrivate>
+__global__ void __launch_bounds__(kE0Threads)
     e0_term_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
                    const float* __restrict__ h, const float* __restrict__ zt,
-                   const int32_t* __restrict__ parts, float* __restrict__ out,
-                   int n_parts, int n_lms, int n_obs, int n_cams) {
+                   const int32_t* __restrict__ table, float* __restrict__ out,
+                   int n_parts, int n_tiles, int n_obs, int n_cams) {
   extern __shared__ float smem[];
   float* tbl = smem;
-  float* acc = smem + 12 * n_cams;
-  int* part = reinterpret_cast<int*>(smem + 24 * n_cams);
+  float* su = smem + 12 * n_cams;  // u [3, kE0Threads]
+  int* part = reinterpret_cast<int*>(su + 3 * kE0Threads);
+  // kPrivate: one [12, N] accumulator per warp, else one per block
+  float* acc = reinterpret_cast<float*>(part + kTileFields * n_parts);
+  const int n_acc = 12 * n_cams;
   povar::smem_copy(tbl, zt, 12 * n_cams);
-  povar::smem_zero(acc, 12 * n_cams);
-  povar::smem_copy(part, parts, 4 * n_parts);
+  povar::smem_zero(acc, (kPrivate ? kE0Warps : 1) * n_acc);
+  povar::smem_copy(part, table, kTileFields * n_parts);
   __syncthreads();
   const int O = n_obs;
-  POVAR_OBS_LOOP(lm, n_lms) {
-    int p = 0;
-    while (p + 1 < n_parts && lm >= part[4 * (p + 1) + 3]) ++p;
-    const int g = part[4 * p + 1], w = part[4 * p + 2];
-    const int first = part[4 * p] + (lm - part[4 * p + 3]);
-    float sb[3] = {0.0f, 0.0f, 0.0f};
-    for (int j = 0; j < w; ++j) {
-      const int o = first + j * g;
-      const int c = cam[o];
-      const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
+  const int th = threadIdx.x;
+  float* wacc = kPrivate ? acc + (th >> 5) * n_acc : acc;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const povar::TileRow row = povar::tile_row(part, n_parts, tile, th);
+    const int o = row.o;
+    int c = 0;
+    float xh[4] = {0.0f, 0.0f, 0.0f, 1.0f};
+    float hv[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float u[3] = {0.0f, 0.0f, 0.0f};
+    if (row.in) {
+      c = cam[o];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) xh[k] = x[k * O + o];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) hv[k] = h[k * O + o];
       float z[12], y[3];
 #pragma unroll
       for (int k = 0; k < 12; ++k) z[k] = tbl[k * n_cams + c];
       povar::xh_contract(z, xh, y);
 #pragma unroll
-      for (int cc = 0; cc < 3; ++cc) {
-        sb[cc] += h[(cc * 3 + 0) * O + o] * y[0] +
-                  h[(cc * 3 + 1) * O + o] * y[1] +
-                  h[(cc * 3 + 2) * O + o] * y[2];
+      for (int cc = 0; cc < 3; ++cc)
+        u[cc] = hv[cc * 3] * y[0] + hv[cc * 3 + 1] * y[1] + hv[cc * 3 + 2] * y[2];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) su[i * kE0Threads + th] = u[i];
+    __syncthreads();
+    float sb[3] = {0.0f, 0.0f, 0.0f};
+    if (row.in) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        float a = su[i * kE0Threads + row.l];
+        for (int jj = 1; jj < row.w; ++jj)
+          a += su[i * kE0Threads + jj * row.t + row.l];
+        sb[i] = a;
       }
     }
-    for (int j = 0; j < w; ++j) {
-      const int o = first + j * g;
-      float t[3];
+    __syncthreads();  // the next tile rewrites su
+    float tt[3], v[12];
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        float acc_t = h[a * O + o] * sb[0];
-        acc_t += h[(3 + a) * O + o] * sb[1];
-        acc_t += h[(6 + a) * O + o] * sb[2];
-        t[a] = acc_t;
-      }
-      if (t[0] == 0.0f && t[1] == 0.0f && t[2] == 0.0f) continue;
-      const int c = cam[o];
-      const float xh[3] = {x[o], x[O + o], x[2 * O + o]};
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          atomicAdd(&acc[(4 * a + i) * n_cams + c], t[a] * xh[i]);
-        atomicAdd(&acc[(4 * a + 3) * n_cams + c], t[a]);
-      }
+    for (int a = 0; a < 3; ++a) {
+      float acc_t = hv[a] * sb[0];
+      acc_t += hv[3 + a] * sb[1];
+      acc_t += hv[6 + a] * sb[2];
+      tt[a] = acc_t;
     }
+    const bool live =
+        row.in && !(tt[0] == 0.0f && tt[1] == 0.0f && tt[2] == 0.0f);
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[4 * a + i] = tt[a] * xh[i];
+    povar::warp_scatter<12, !kPrivate>(wacc, n_cams, c, live, v);
   }
   __syncthreads();
-  povar::flush_acc(out, acc, 12 * n_cams);
+  povar::flush_tiles<kPrivate>(out, acc, n_acc);
 }
 
 // ------------------------------------------------------------------ K9
@@ -716,17 +769,19 @@ int povar_e0_factor(const int32_t* cam, const float* ct, const float* uv,
 
 int povar_hpp_b(const int32_t* cam, const float* ct, const float* x,
                 const float* uv, const float* sw, const float* rw,
-                const float* jls, const float* hib, float* hpp, float* b,
-                int n_obs, int n_cams, float sp, float sa, float sp2,
-                void* stream) {
-  const size_t shared = sizeof(float) * 168 * (size_t)n_cams;
-  if (shared <= (size_t)max_optin_smem()) {
-    return launch(hpp_b_kernel<true>, n_obs, shared, stream, cam, ct, x, uv,
-                  sw, rw, jls, hib, hpp, b, n_obs, n_cams, sp, sa, sp2);
+                const float* jls, const float* hib, const int* expand,
+                float* hpp, float* b, double* acc, int n_obs, int n_cams,
+                float sp, float sa, float sp2, void* stream) {
+  const size_t moments = sizeof(float) * kMomentRows * (size_t)n_cams;
+  if (moments <= (size_t)max_optin_smem()) {
+    return launch(hpp_b_kernel<true>, n_obs, moments, stream, cam, ct, x, uv,
+                  sw, rw, jls, hib, expand, hpp, b, acc, n_obs, n_cams, sp,
+                  sa, sp2);
   }
-  const size_t table = sizeof(float) * 12 * (size_t)n_cams;
-  return launch(hpp_b_kernel<false>, n_obs, table, stream, cam, ct, x, uv,
-                sw, rw, jls, hib, hpp, b, n_obs, n_cams, sp, sa, sp2);
+  return launch(hpp_b_kernel<false>, n_obs,
+                sizeof(float) * povar::kMoments * povar::kExpandChunk, stream,
+                cam, ct, x, uv, sw, rw, jls, hib, expand, hpp, b, acc, n_obs,
+                n_cams, sp, sa, sp2);
 }
 
 int povar_e0_u(const int32_t* cam, const float* x, const float* h,
@@ -746,13 +801,16 @@ int povar_e0_scatter(const int32_t* cam, const float* x, const float* h,
 }
 
 int povar_e0_term(const int32_t* cam, const float* x, const float* h,
-                  const float* zt, const int32_t* parts, float* out,
-                  int n_parts, int n_lms, int n_obs, int n_cams,
-                  void* stream) {
-  const size_t smem =
-      sizeof(float) * 24 * (size_t)n_cams + sizeof(int) * 4 * (size_t)n_parts;
-  return launch(e0_term_kernel, n_lms, smem, stream, cam, x, h, zt, parts,
-                out, n_parts, n_lms, n_obs, n_cams);
+                  const float* zt, const int32_t* table, float* out,
+                  int n_parts, int n_tiles, int n_obs, int n_cams,
+                  int tile_threads, void* stream) {
+  // the table's tiles were cut for blocks of tile_threads threads
+  const size_t base = sizeof(float) * (12 * (size_t)n_cams + 3 * kE0Threads) +
+                      sizeof(int) * kTileFields * (size_t)n_parts;
+  return povar::launch_tiles(e0_term_kernel<true>, e0_term_kernel<false>,
+                             n_parts, n_tiles, tile_threads, base,
+                             12 * (size_t)n_cams, stream, cam, x, h, zt,
+                             table, out, n_parts, n_tiles, n_obs, n_cams);
 }
 
 int povar_schur_diag(const int32_t* cam, const float* x, const float* h,

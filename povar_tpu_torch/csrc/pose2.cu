@@ -162,33 +162,26 @@ __global__ void __launch_bounds__(kThreads)
 // ------------------------------------------------------------------ S2
 // Per-camera raw Hpp12 [144, N] (rows (4a+i)*12 + 4b+j) = sum w/p2^2 K3
 // (x) x4 x4^T and b12 [12, N] = sum sw/p2 (C^T rt) (x) x4 of the
-// landmark-corrected residual rt = r_w - Jl_ns hib, in moment form.
-// With K3 = [[1, 0, -mx], [0, 1, -my], [-mx, -my, mx^2 + my^2]] every
-// block of Hpp12 is +-1 times one of four weighted moment matrices of
-// x4, sum wz2 k x4 x4^T with k in (1, mx, my, mx^2 + my^2), or exactly 0
-// (blocks (0,1) and (1,0)). So a live row adds 52 values per camera: its
-// b12 (rows 0-11 of the accumulator) and 40 moments, row 12 + 10 t + p
-// for weight t and upper-triangle entry p of x4 x4^T in row-major order
-// ((0,0) (0,1) (0,2) (0,3) (1,1) (1,2) (1,3) (2,2) (2,3) (3,3)).
+// landmark-corrected residual rt = r_w - Jl_ns hib, in moment form
+// (pose_common.cuh: K3 = [[1, 0, -mx], [0, 1, -my], [-mx, -my,
+// mx^2 + my^2]], weights wz2 (1, mx, my, mx^2 + my^2)). So a live row
+// adds 52 values per camera: its b12 and the 40 moments of x4.
 // `acc_g` [52 N + 1] is zeroed by the caller: b12, then the moments, then
 // a ticket. kShared: a block accumulates in shared memory (52 N floats,
 // 18.5 KB at N = 89, up to N = 1117) and flushes once into acc_g;
 // otherwise every value goes straight to a global atomic. The lanes of a
 // warp on one camera sum first (warp_scatter). The last block to take a
-// ticket expands the moments into hpp through `expand` [144]
-// (ops/pose2_kernels.hppb2_expand_table: sign * (moment + 1), 0 for a
-// structural zero), which every entry of hpp receives, so hpp needs no
-// zeroing. Dead rows (sw == 0) add nothing.
+// ticket expands the moments into hpp (povar::expand_moments through
+// ops/pose_kernels.moment_expand_table), which writes every entry of hpp,
+// so hpp needs no zeroing. Dead rows (sw == 0) add nothing.
 // Replaces pallas_pose2.py:267 hppb2 (_hppb2_kernel :218). Bound: the
 // shared float atomics (compare-and-swap loops on this card), 52 per
 // live row where the Pallas form's 124 would go, and the loads and
 // arithmetic beside them: 71-72 us at venice-89 (124 atomics: 193), 43
 // with the adds made dead stores, 13.3 for the 80 B a row reads
 // (tools/pose2_ab.py and PERF.md; NVIDIA H100 80GB HBM3, 700 W).
-constexpr int kMoments = 40;
-constexpr int kHppbRows = 12 + kMoments;
-constexpr int kExpandChunk = 256;  // cameras per staged chunk (global route)
-constexpr int kBatch = 16;  // independent L2 reads in flight per thread
+using povar::kMomentRows;
+using povar::kMoments;
 
 template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
@@ -199,10 +192,9 @@ __global__ void __launch_bounds__(kThreads)
                  float* __restrict__ hpp, float* __restrict__ acc_g, int n_obs,
                  int n_cams) {
   extern __shared__ float smem[];
-  __shared__ bool last;
   float* acc = kShared ? smem : acc_g;
   if (kShared) {
-    povar::smem_zero(acc, kHppbRows * n_cams);
+    povar::smem_zero(acc, kMomentRows * n_cams);
     __syncthreads();
   }
   const int O = n_obs;
@@ -214,10 +206,10 @@ __global__ void __launch_bounds__(kThreads)
     const float sw = o < O ? sw_in[o] : 0.0f;
     const bool live = sw != 0.0f;
     if (!__any_sync(povar::kFullMask, live)) continue;
-    float v[kHppbRows];
+    float v[kMomentRows];
     int c = 0;
 #pragma unroll
-    for (int k = 0; k < kHppbRows; ++k) v[k] = 0.0f;
+    for (int k = 0; k < kMomentRows; ++k) v[k] = 0.0f;
     if (live) {
       c = cam[o];
       const float mx = mm[o], my = mm[O + o], zinv = mm[2 * O + o];
@@ -242,71 +234,16 @@ __global__ void __launch_bounds__(kThreads)
       }
       const float wz2 = swz * swz;
       const float kw[4] = {wz2, wz2 * mx, wz2 * my, wz2 * (mx * mx + my * my)};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = i; j < 4; ++j) {
-          const int p = i * (7 - i) / 2 + j;  // upper-triangle entry (i, j)
-          const float xx = x4[i] * x4[j];
-#pragma unroll
-          for (int t = 0; t < 4; ++t) v[12 + 10 * t + p] = kw[t] * xx;
-        }
-      }
+      povar::moments(kw, x4, v);
     }
-    povar::warp_scatter<kHppbRows>(acc, n_cams, c, live, v);
+    povar::warp_scatter<kMomentRows>(acc, n_cams, c, live, v);
   }
   if (kShared) {
     __syncthreads();
-    povar::flush_acc(acc_g, acc, kHppbRows * n_cams);
+    povar::flush_acc(acc_g, acc, kMomentRows * n_cams);
   }
-  // every block's sums are in acc_g once the last block takes its ticket
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned* ticket = reinterpret_cast<unsigned*>(acc_g + kHppbRows * n_cams);
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // the moments of a chunk of cameras into shared memory (the flushed
-  // accumulators, or kMoments x kExpandChunk floats on the global route),
-  // then every entry of hpp for them
-  __shared__ int ex[144];
-  for (int i = threadIdx.x; i < 144; i += blockDim.x) ex[i] = expand[i];
-  const float* mom = acc_g + 12 * n_cams;
-  const int chunk = kShared ? n_cams : kExpandChunk;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int c0 = 0; c0 < n_cams; c0 += chunk) {
-    const int nc = min(chunk, n_cams - c0);
-    __syncthreads();
-    // a warp per moment row, kBatch independent L2 reads per lane in
-    // flight (the other blocks' atomics never passed this SM's L1)
-    for (int k = warp; k < kMoments; k += n_warps) {
-      for (int cc0 = lane; cc0 < nc; cc0 += 32 * kBatch) {
-        float m[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int cc = cc0 + 32 * u;
-          m[u] = cc < nc ? __ldcg(mom + k * n_cams + c0 + cc) : 0.0f;
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int cc = cc0 + 32 * u;
-          if (cc < nc) smem[k * nc + cc] = m[u];
-        }
-      }
-    }
-    __syncthreads();
-    for (int row = warp; row < 144; row += n_warps) {
-      const int e = ex[row];
-      const float* src = smem + (e == 0 ? 0 : abs(e) - 1) * nc;
-      float* dst = hpp + row * n_cams + c0;
-      for (int cc = lane; cc < nc; cc += 32)
-        dst[cc] = e == 0 ? 0.0f : e > 0 ? src[cc] : -src[cc];
-    }
-  }
+  povar::expand_moments(expand, hpp, nullptr, acc_g, n_cams,
+                        kShared ? n_cams : povar::kExpandChunk, smem);
 }
 
 // ------------------------------------------------------------------ S3
@@ -405,8 +342,8 @@ __global__ void __launch_bounds__(kThreads)
 // landmark's u3 over j = 0 .. w-1 in that order (the plain version's)
 // and runs pass B on its row's operands, kept in registers across the
 // barrier: each row is read from device memory once. Persistent blocks
-// walk the tiles of an int32 table (ops/pose2_kernels.e0_tile_table: per
-// part ofs, g, w, t and the tiles before it), so the staging of zt, the
+// walk the tiles of an int32 table (pose_common.cuh tile_row,
+// ops/pose_kernels.e0_tile_table), so the staging of zt, the
 // zeroing and the 12 N global flush are paid once per resident block;
 // parts of any w share the launch. kPrivate (16 x 12 N floats fit: N up
 // to 277): each warp owns a [12, N] accumulator and its lanes on one
@@ -423,9 +360,9 @@ __global__ void __launch_bounds__(kThreads)
 // left), 24.0 on one shared-atomic accumulator; 512 threads per block
 // against 23.4 us at 256 and 24.4 at 1024 (tools/pose2_ab.py and
 // PERF.md; NVIDIA H100 80GB HBM3, 700 W).
-constexpr int kE0Threads = 512;
-constexpr int kE0Warps = kE0Threads / 32;
-constexpr int kTileFields = 5;  // ofs, g, w, t, tile0
+using povar::kE0Threads;
+using povar::kE0Warps;
+using povar::kTileFields;
 
 template <bool kPrivate>
 __global__ void __launch_bounds__(kE0Threads)
@@ -449,18 +386,9 @@ __global__ void __launch_bounds__(kE0Threads)
   const int th = threadIdx.x;
   float* wacc = kPrivate ? acc + (th >> 5) * n_acc : acc;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    int p = 0, hi = n_parts - 1;  // the last part with tile0 <= tile
-    while (p < hi) {
-      const int mid = (p + hi + 1) / 2;
-      if (part[mid * kTileFields + 4] <= tile) p = mid; else hi = mid - 1;
-    }
-    const int* e = part + p * kTileFields;
-    const int g = e[1], w = e[2], t = e[3];
-    const int lm = (tile - e[4]) * t + th % t;
-    const int j = th / t;
-    const int o = e[0] + j * g + lm;
-    const bool in = j < w && lm < g;
-    const float sw = in ? sw_in[o] : 0.0f;
+    const povar::TileRow row = povar::tile_row(part, n_parts, tile, th);
+    const int o = row.o, t = row.t, w = row.w;
+    const float sw = row.in ? sw_in[o] : 0.0f;
     const bool live = sw != 0.0f;
     int c = 0;
     float x4[4] = {0.0f, 0.0f, 0.0f, 0.0f}, m6[6] = {0.0f, 0.0f, 0.0f,
@@ -486,7 +414,7 @@ __global__ void __launch_bounds__(kE0Threads)
     __syncthreads();
     float sb[3] = {0.0f, 0.0f, 0.0f};
     if (live) {
-      const int l = th % t;
+      const int l = row.l;
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         float a = su[i * kE0Threads + l];
@@ -506,15 +434,7 @@ __global__ void __launch_bounds__(kE0Threads)
     povar::warp_scatter<12, !kPrivate>(wacc, n_cams, c, live, v);
   }
   __syncthreads();
-  if (kPrivate) {
-    for (int i = th; i < n_acc; i += blockDim.x) {
-      float s = acc[i];
-      for (int k = 1; k < kE0Warps; ++k) s += acc[k * n_acc + i];
-      if (s != 0.0f) atomicAdd(out + i, s);
-    }
-  } else {
-    povar::flush_acc(out, acc, n_acc);
-  }
+  povar::flush_tiles<kPrivate>(out, acc, n_acc);
 }
 
 // ------------------------------------------------------------------ S8
@@ -712,14 +632,14 @@ int povar_hppb2(const int32_t* cam, const float* x4, const float* mm,
                 const float* sw, const float* rw, const float* jlns,
                 const float* hib, const int* expand, float* hpp, float* acc,
                 int n_obs, int n_cams, void* stream) {
-  const size_t shared = sizeof(float) * kHppbRows * (size_t)n_cams;
+  const size_t shared = sizeof(float) * kMomentRows * (size_t)n_cams;
   if (shared <= (size_t)max_optin_smem()) {
     return launch(hppb2_kernel<true>, n_obs, shared, stream, cam, x4, mm, sw,
                   rw, jlns, hib, expand, hpp, acc, n_obs, n_cams);
   }
   return launch(hppb2_kernel<false>, n_obs,
-                sizeof(float) * kMoments * kExpandChunk, stream, cam, x4, mm,
-                sw, rw, jlns, hib, expand, hpp, acc, n_obs, n_cams);
+                sizeof(float) * kMoments * povar::kExpandChunk, stream, cam,
+                x4, mm, sw, rw, jlns, hib, expand, hpp, acc, n_obs, n_cams);
 }
 
 int povar_mat_dot2(const int32_t* cam, const float* x4, const float* mm,
@@ -744,21 +664,13 @@ int povar_e0_term2(const int32_t* cam, const float* x4, const float* mm,
                    const int32_t* table, float* out, int n_parts, int n_tiles,
                    int n_obs, int n_cams, int tile_threads, void* stream) {
   // the table's tiles were cut for blocks of tile_threads threads
-  if (tile_threads != kE0Threads || n_parts < 1 || n_tiles < 1)
-    return (int)cudaErrorInvalidValue;
   const size_t base = sizeof(float) * (12 * (size_t)n_cams + 3 * kE0Threads) +
                       sizeof(int) * kTileFields * (size_t)n_parts;
-  const size_t acc = sizeof(float) * 12 * (size_t)n_cams;
-  const long items = (long)n_tiles * kE0Threads;
-  if (base + kE0Warps * acc <= (size_t)max_optin_smem()) {
-    return launch<kE0Threads>(e0_term2_kernel<true>, items,
-                              base + kE0Warps * acc, stream, cam, x4, mm, sw,
-                              mat6, zt, table, out, n_parts, n_tiles, n_obs,
-                              n_cams);
-  }
-  return launch<kE0Threads>(e0_term2_kernel<false>, items, base + acc, stream,
-                            cam, x4, mm, sw, mat6, zt, table, out, n_parts,
-                            n_tiles, n_obs, n_cams);
+  return povar::launch_tiles(e0_term2_kernel<true>, e0_term2_kernel<false>,
+                             n_parts, n_tiles, tile_threads, base,
+                             12 * (size_t)n_cams, stream, cam, x4, mm, sw,
+                             mat6, zt, table, out, n_parts, n_tiles, n_obs,
+                             n_cams);
 }
 
 int povar_schur_diag2(const int32_t* cam, const float* x4, const float* mm,

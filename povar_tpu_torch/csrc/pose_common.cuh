@@ -2,22 +2,21 @@
 // (pose1.cu) and step 2 (pose2.cu).
 //
 // Every kernel is one pass over the observations, one thread per
-// observation in a grid-stride loop (the fused step-2 term: per slot
-// row of a tile), on observation-last arrays ([k, O] rows: neighbouring
-// threads read neighbouring addresses). The
-// [12, N] camera table(s) a kernel gathers from are staged in shared
-// memory once per block (12 * N * 4 B: 4.3 KB at N = 89); a camera row
-// is then a shared-memory read by index. Per-camera sums go into
-// shared-memory accumulators (through warp_scatter in the step-2 hppb2
-// and fused term) and leave the block as one global atomicAdd per
-// non-zero entry; scalar sums leave as one partial per block, which the
-// caller adds up.
+// observation in a grid-stride loop (the fused terms: per slot row of a
+// tile), on observation-last arrays ([k, O] rows: neighbouring threads
+// read neighbouring addresses). The [12, N] camera table(s) a kernel
+// gathers from are staged in shared memory once per block (12 * N * 4 B:
+// 4.3 KB at N = 89); a camera row is then a shared-memory read by index.
+// Per-camera sums go into shared-memory accumulators (through
+// warp_scatter in the moment kernels and the fused terms) and leave the
+// block as one global atomicAdd per non-zero entry; scalar sums leave as
+// one partial per block, which the caller adds up.
 //
 // The arithmetic follows the Pallas bodies of povar_tpu/ops/pallas_pose.py
 // term for term (same products, same summation order), so a kernel and
 // its plain PyTorch version (ops/pose_ref.py) differ only by FMA
 // contraction and, for per-camera sums, by the order of the atomics
-// (the step-2 hppb2 also regroups its Hpp products into moments).
+// (the moment kernels also regroup their Hpp products into moments).
 
 #pragma once
 
@@ -46,12 +45,14 @@ __device__ __forceinline__ void smem_zero(float* dst, int count) {
 }
 
 // one global atomic per non-zero accumulator entry (adding an exact
-// zero changes nothing, so the entries no observation touched stay home)
-__device__ __forceinline__ void flush_acc(float* __restrict__ dst,
+// zero changes nothing, so the entries no observation touched stay home);
+// T = double sums the blocks' partials in f64 (a native global atomic)
+template <typename T>
+__device__ __forceinline__ void flush_acc(T* __restrict__ dst,
                                           const float* acc, int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
     const float v = acc[i];
-    if (v != 0.0f) atomicAdd(dst + i, v);
+    if (v != 0.0f) atomicAdd(dst + i, (T)v);
   }
 }
 
@@ -63,46 +64,192 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // lowest lane, which alone adds them: no two lanes of the warp then add
 // to one address, so a shared-memory float atomic (a compare-and-swap
 // loop on this card) never retries against its own warp, and with
-// kAtomic false (an accumulator the warp owns) a plain add is safe.
-// Where every live lane is on one camera, as on the camera-sorted lane
-// orders, the sums take a shuffle butterfly (5 steps) instead of a walk
-// over the peers (31).
-template <int K, bool kAtomic = true>
-__device__ __forceinline__ void warp_scatter(float* acc, int n, int c,
-                                             bool live, float (&v)[K]) {
+// kAtomic false (an accumulator the warp owns) a plain add is safe. The
+// lowest lane adds its peers' values one by one in lane order. A pairwise
+// (butterfly) sum where a whole warp shares a camera is faster on the
+// camera-sorted lane orders (71-75 us against 115-125 for the moment
+// kernels on the mesh's window order), but in hpp_b_structured it put
+// POWER_SCHUR_COMPLEMENT's step-1 final cost past chip_smoke.py's band
+// more often on the 1-device mesh: 2 of 32 runs against 0 of 32 with the
+// f64 cross-block sums (6-11 of 16 per call against 0 of 32 with f32
+// ones) (tools/step2_spread.py and PERF.md; NVIDIA H100 80GB HBM3,
+// 700 W).
+template <int K, bool kAtomic = true, typename T = float>
+__device__ __forceinline__ void warp_scatter(T* acc, int n, int c, bool live,
+                                             float (&v)[K]) {
   const unsigned live_mask = __ballot_sync(kFullMask, live);
   if (live_mask == 0u) return;
   const int lane = threadIdx.x & 31;
   const unsigned peers =
       __match_any_sync(kFullMask, live ? c : -1) & live_mask;
   const bool lead = live && lane == __ffs(peers) - 1;
-  if (__popc(live_mask) > 1 &&
-      __all_sync(kFullMask, !live || peers == live_mask)) {
+  unsigned rest = lead ? peers & (peers - 1u) : 0u;
+  while (__any_sync(kFullMask, rest != 0u)) {
+    const int src = rest ? __ffs(rest) - 1 : lane;
 #pragma unroll
-    for (int k = 0; k < K; ++k)
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v[k] += __shfl_xor_sync(kFullMask, v[k], off);
-  } else {
-    unsigned rest = lead ? peers & (peers - 1u) : 0u;
-    while (__any_sync(kFullMask, rest != 0u)) {
-      const int src = rest ? __ffs(rest) - 1 : lane;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float t = __shfl_sync(kFullMask, v[k], src);
-        if (rest) v[k] += t;
-      }
-      rest &= rest - 1u;
+    for (int k = 0; k < K; ++k) {
+      const float t = __shfl_sync(kFullMask, v[k], src);
+      if (rest) v[k] += t;
     }
+    rest &= rest - 1u;
   }
   if (lead) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       if (kAtomic)
-        atomicAdd(&acc[k * n + c], v[k]);
+        atomicAdd(&acc[k * n + c], (T)v[k]);
       else
         acc[k * n + c] += v[k];
     }
+  }
+}
+
+// ------------------------------------------------------ per-camera moments
+// Hpp of both steps is sum w K (x) xh xh^T with
+//   K = [[1, 0, -k1], [0, 1, -k2], [-k1, -k2, k3]]
+// (step 1: k = (sp2 u, sp2 v, sp2 (u^2 + v^2)); step 2: (mx, my,
+// mx^2 + my^2)), so every 4x4 block of it is +-1 times one of the four
+// moment matrices sum w k_t xh xh^T (k_0 = 1), or exactly 0 (blocks
+// (0,1) and (1,0)). A moment kernel accumulates, per camera, kMomentRows
+// values: b (rows 0-11), then moment 10 t + p in row 12 + 10 t + p for
+// weight t and upper-triangle entry p of xh xh^T in row-major order
+// ((0,0) (0,1) (0,2) (0,3) (1,1) (1,2) (1,3) (2,2) (2,3) (3,3)); the last
+// block expands them through ops/pose_kernels.moment_expand_table.
+constexpr int kMoments = 40;
+constexpr int kMomentRows = 12 + kMoments;
+constexpr int kExpandChunk = 256;  // cameras per staged chunk (global route)
+constexpr int kBatch = 16;  // independent L2 reads in flight per thread
+
+// v[12 + 10 t + p] = kw[t] xh_i xh_j for every upper-triangle entry p
+__device__ __forceinline__ void moments(const float kw[4], const float xh[4],
+                                        float (&v)[kMomentRows]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = i; j < 4; ++j) {
+      const int p = i * (7 - i) / 2 + j;  // upper-triangle entry (i, j)
+      const float xx = xh[i] * xh[j];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) v[12 + 10 * t + p] = kw[t] * xx;
+    }
+  }
+}
+
+// The tail of a moment kernel: once every block's sums are in `acc_g`
+// [kMomentRows N + 1] of T (b, the moments, then a ticket the caller
+// zeroed), the last block to take a ticket writes every entry of hpp
+// [144, N]: row r is sign * moment |e| - 1 for e = expand[r], or 0 where e
+// is 0; and, where `b` is given, b [12, N] from acc_g's first rows. `smem`
+// holds at least kMoments x `chunk` floats (the moments of a chunk of
+// cameras are staged there); all of the block's threads must call it.
+template <typename T>
+__device__ __forceinline__ void expand_moments(const int* __restrict__ expand,
+                                               float* __restrict__ hpp,
+                                               float* __restrict__ b,
+                                               T* acc_g, int n_cams,
+                                               int chunk, float* smem) {
+  __shared__ bool last;
+  __shared__ int ex[144];
+  // every block's sums are in acc_g once the last block takes its ticket
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* ticket =
+        reinterpret_cast<unsigned*>(acc_g + kMomentRows * n_cams);
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < 144; i += blockDim.x) ex[i] = expand[i];
+  if (b != nullptr) {
+    for (int i = threadIdx.x; i < 12 * n_cams; i += blockDim.x)
+      b[i] = (float)__ldcg(acc_g + i);
+  }
+  const T* mom = acc_g + 12 * n_cams;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  for (int c0 = 0; c0 < n_cams; c0 += chunk) {
+    const int nc = min(chunk, n_cams - c0);
+    __syncthreads();
+    // a warp per moment row, kBatch independent L2 reads per lane in
+    // flight (the other blocks' atomics never passed this SM's L1)
+    for (int k = warp; k < kMoments; k += n_warps) {
+      for (int cc0 = lane; cc0 < nc; cc0 += 32 * kBatch) {
+        float m[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int cc = cc0 + 32 * u;
+          m[u] = cc < nc ? (float)__ldcg(mom + k * n_cams + c0 + cc) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int cc = cc0 + 32 * u;
+          if (cc < nc) smem[k * nc + cc] = m[u];
+        }
+      }
+    }
+    __syncthreads();
+    for (int row = warp; row < 144; row += n_warps) {
+      const int e = ex[row];
+      const float* src = smem + (e == 0 ? 0 : abs(e) - 1) * nc;
+      float* dst = hpp + row * n_cams + c0;
+      for (int cc = lane; cc < nc; cc += 32)
+        dst[cc] = e == 0 ? 0.0f : e > 0 ? src[cc] : -src[cc];
+    }
+  }
+}
+
+// ------------------------------------------------------------ slot tiles
+// The fused power terms run one thread per slot row: a block takes tiles
+// of t = kE0Threads / w landmarks x all w rows of one slot part (thread
+// j t + l holds row j of landmark l), walking an int32 (part, tile) table
+// of kTileFields per part (ops/pose_kernels.e0_tile_table: ofs, g, w, t
+// and the tiles before the part). Slot row j of landmark l of part
+// (ofs, g, w) is observation ofs + j g + l, so for a fixed j neighbouring
+// landmarks are neighbouring rows.
+constexpr int kE0Threads = 512;
+constexpr int kE0Warps = kE0Threads / 32;
+constexpr int kTileFields = 5;  // ofs, g, w, t, tile0
+
+struct TileRow {
+  int o;    // the observation (valid where `in`)
+  int l;    // the landmark's column in the tile: th % t
+  int t;    // landmarks per tile
+  int w;    // slot rows per landmark
+  bool in;  // a row of the part (the last tile may be ragged)
+};
+
+// thread th's slot row in `tile` of the table staged in `part`
+__device__ __forceinline__ TileRow tile_row(const int* part, int n_parts,
+                                            int tile, int th) {
+  int p = 0, hi = n_parts - 1;  // the last part with tile0 <= tile
+  while (p < hi) {
+    const int mid = (p + hi + 1) / 2;
+    if (part[mid * kTileFields + 4] <= tile) p = mid; else hi = mid - 1;
+  }
+  const int* e = part + p * kTileFields;
+  const int g = e[1], w = e[2], t = e[3];
+  const int l = th % t, j = th / t;
+  const int lm = (tile - e[4]) * t + l;
+  return {e[0] + j * g + lm, l, t, w, j < w && lm < g};
+}
+
+// The tile kernels' accumulators into `out` [n_acc]: with kPrivate the
+// kE0Warps per-warp copies summed per entry, else the block's one; one
+// global atomic per non-zero entry.
+template <bool kPrivate>
+__device__ __forceinline__ void flush_tiles(float* __restrict__ out,
+                                            const float* acc, int n_acc) {
+  if (kPrivate) {
+    for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
+      float s = acc[i];
+      for (int k = 1; k < kE0Warps; ++k) s += acc[k * n_acc + i];
+      if (s != 0.0f) atomicAdd(out + i, s);
+    }
+  } else {
+    flush_acc(out, acc, n_acc);
   }
 }
 
@@ -217,6 +364,26 @@ int launch(Kernel kernel, long n_items, size_t smem, void* stream,
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// Launch a tile kernel over `n_tiles` tiles cut for blocks of
+// `tile_threads` threads (which must be kE0Threads) with `base` bytes of
+// shared memory besides its [n_acc] float accumulators: `private_kernel`
+// where kE0Warps copies of them fit in a block, else `shared_kernel` on
+// one copy (atomics). Returns the cudaError_t.
+template <typename KPrivate, typename KShared, typename... Args>
+int launch_tiles(KPrivate private_kernel, KShared shared_kernel, int n_parts,
+                 int n_tiles, int tile_threads, size_t base, size_t n_acc,
+                 void* stream, Args... args) {
+  if (tile_threads != kE0Threads || n_parts < 1 || n_tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t acc = sizeof(float) * n_acc;
+  const long items = (long)n_tiles * kE0Threads;
+  if (base + kE0Warps * acc <= (size_t)max_optin_smem())
+    return launch<kE0Threads>(private_kernel, items, base + kE0Warps * acc,
+                              stream, args...);
+  return launch<kE0Threads>(shared_kernel, items, base + acc, stream,
+                            args...);
 }
 
 }  // namespace povar

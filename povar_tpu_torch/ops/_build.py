@@ -42,7 +42,7 @@ _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 SIGNATURES = {
     "povar_prepare": [_P] * 10 + [_I, _I, _F, _F, _F, _I, _F, _F, _P],
     "povar_e0_factor": [_P] * 7 + [_I, _I, _F, _P],
-    "povar_hpp_b": [_P] * 10 + [_I, _I, _F, _F, _F, _P],
+    "povar_hpp_b": [_P] * 12 + [_I, _I, _F, _F, _F, _P],
     "povar_e0_u": [_P] * 5 + [_I, _I, _P],
     "povar_e0_scatter": [_P] * 5 + [_I, _I, _P],
     "povar_apply_ldiff": [_P] * 10 + [_I, _I, _F, _F, _P],
@@ -54,7 +54,7 @@ SIGNATURES = {
     "povar_cam_e0_scatter": [_P] * 4 + [_I] * 4 + [_P],
     "povar_cam_hpp_b": [_P] * 5 + [_I] * 4 + [_P],
     "povar_pose_error": [_P] * 6 + [_I, _I, _I, _D, _D, _I, _D, _P],
-    "povar_e0_term": [_P] * 6 + [_I] * 4 + [_P],
+    "povar_e0_term": [_P] * 6 + [_I] * 5 + [_P],
     "povar_schur_diag": [_P] * 4 + [_I, _I, _P],
     "povar_e0_term2": [_P] * 8 + [_I] * 5 + [_P],
     "povar_schur_diag2": [_P] * 6 + [_I, _I, _P],

@@ -26,14 +26,14 @@ double-float partials.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Dict
 
 import torch
 
 from povar_tpu_torch.ops import _build, pose2_ref
 from povar_tpu_torch.ops.pose_kernels import (
     _THREADS,
+    E0_TILE_THREADS,
     _check_shapes,
     _cuda_checks,
     _launch,
@@ -41,6 +41,8 @@ from povar_tpu_torch.ops.pose_kernels import (
     _ptr,
     _stream,
     check_parts,
+    e0_tile_table,
+    moment_expand_table,
 )
 from povar_tpu_torch.ops.pose_math import ROBUST_HUBER
 
@@ -58,74 +60,6 @@ KERNELS = (
 # launches per kernel; ops/launches.py zeroes and reads them with the
 # step-1 kernels' counts
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-
-
-# hppb2's moment form (csrc/pose2.cu S2): per camera the four weighted
-# moment matrices sum wz2 k_t x4 x4^T, k = (1, mx, my, mx^2 + my^2), each
-# as the 10 upper-triangle entries HPPB2_PAIRS[p] of x4 x4^T: moment
-# 10 t + p
-HPPB2_PAIRS = tuple((i, j) for i in range(4) for j in range(i, 4))
-# K3[a][b] as (weight t, sign), None for its structural zeros:
-# K3 = [[1, 0, -mx], [0, 1, -my], [-mx, -my, mx^2 + my^2]]
-_K3 = (((0, 1), None, (1, -1)),
-       (None, (0, 1), (2, -1)),
-       ((1, -1), (2, -1), (3, 1)))
-
-
-def hppb2_expand_map() -> List[Optional[Tuple[int, int]]]:
-    """For each row (4a+i)*12 + 4b+j of hpp12_raw, the (moment, sign)
-    whose per-camera sum it is, or None where K3[a][b] is 0."""
-    out = []
-    for a in range(3):
-        for i in range(4):
-            for b in range(3):
-                for j in range(4):
-                    term = _K3[a][b]
-                    pair = HPPB2_PAIRS.index((min(i, j), max(i, j)))
-                    out.append(None if term is None
-                               else (10 * term[0] + pair, term[1]))
-    return out
-
-
-@functools.lru_cache(maxsize=8)
-def hppb2_expand_table(device) -> torch.Tensor:
-    """The kernel's int32 [144] form of hppb2_expand_map on `device`:
-    sign * (moment + 1), 0 for a structural zero (one host-to-device copy
-    per device)."""
-    return torch.tensor([0 if e is None else e[1] * (e[0] + 1)
-                         for e in hppb2_expand_map()],
-                        dtype=torch.int32, device=device)
-
-
-# threads per block of the fused term (csrc/pose2.cu kE0Threads); a tile
-# holds E0_TILE_THREADS // w landmarks x all w slot rows of its part
-E0_TILE_THREADS = 512
-TILE_FIELDS = ("ofs", "g", "w", "t", "tile0")
-
-
-def tile_rows(parts, threads: int) -> Tuple[List[int], int]:
-    """The fused term's (part, tile) table for blocks of `threads`
-    threads: per part (ofs, g, w) its TILE_FIELDS, t = threads // w
-    landmarks per tile and tile0 the tiles of the parts before it (the
-    last tile of a part may be ragged). Returns (flat int list, tiles)."""
-    rows, tiles = [], 0
-    for ofs, g, w in parts:
-        t = threads // w
-        if t < 1:
-            raise ValueError(f"parts: width {w} exceeds the fused term's "
-                             f"{threads} threads per tile")
-        rows += [ofs, g, w, t, tiles]
-        tiles += -(-g // t)
-    return rows, tiles
-
-
-@functools.lru_cache(maxsize=64)
-def e0_tile_table(parts, device) -> Tuple[torch.Tensor, int]:
-    """tile_rows of `parts` for the kernel as an int32 tensor on `device`,
-    made once per part list (one host-to-device copy per solver, not one
-    per power term). Returns (table, tiles)."""
-    rows, tiles = tile_rows(parts, E0_TILE_THREADS)
-    return torch.tensor(rows, dtype=torch.int32, device=device), tiles
 
 
 def _f32_out(rows: int, cols: int, like: torch.Tensor, zero=False):
@@ -186,7 +120,7 @@ def hppb2(cam, x4, mm, sw, r_w, jlns, hib, n_cams):
     hpp = _f32_out(144, n, x4)
     _launch("hppb2", _build.library().povar_hppb2,
             _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(r_w), _ptr(jlns),
-            _ptr(hib), _ptr(hppb2_expand_table(x4.device)), _ptr(hpp),
+            _ptr(hib), _ptr(moment_expand_table(x4.device)), _ptr(hpp),
             _ptr(acc), o, n, _stream(x4), counts=LAUNCHES)
     return hpp, acc[:12 * n].view(12, n)
 

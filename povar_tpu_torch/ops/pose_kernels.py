@@ -4,7 +4,9 @@ The counterpart of povar_tpu/ops/pallas_pose.py: one function per
 kernel, with the JAX function's name and signature minus `win` (the
 camera-window layout is TPU-only); `e0_term_parts` takes the full
 per-observation arrays and the part list ((ofs, g, w) per slot part)
-where the JAX function takes per-part reshaped copies. Each wrapper
+where the JAX function takes per-part reshaped copies. It also defines
+what both steps' moment kernels and fused terms are handed (the moment
+-> Hpp row map, the (part, tile) table). Each wrapper
 
 - calls the plain PyTorch version (ops/pose_ref.py) when its tensors
   lie on the CPU, and only then;
@@ -32,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -58,6 +60,76 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # per-block partials of the scalar reductions: one slot per block of
 # the kernels' 256 threads, at most ceil(O / 256) blocks
 _THREADS = 256
+
+
+# The moment form of hpp_b_structured and hppb2 (csrc/pose_common.cuh):
+# per camera the four weighted moment matrices sum w k_t xh xh^T, each as
+# the 10 upper-triangle entries MOMENT_PAIRS[p] of xh xh^T: moment
+# 10 t + p (step 1: k = (1, sp2 u, sp2 v, sp2 (u^2 + v^2)), xh = [x, 1];
+# step 2: k = (1, mx, my, mx^2 + my^2) / p2^2, xh = x4)
+MOMENT_PAIRS = tuple((i, j) for i in range(4) for j in range(i, 4))
+# K[a][b] as (weight t, sign), None for its structural zeros:
+# K = [[1, 0, -k1], [0, 1, -k2], [-k1, -k2, k3]]
+_K = (((0, 1), None, (1, -1)),
+      (None, (0, 1), (2, -1)),
+      ((1, -1), (2, -1), (3, 1)))
+
+
+def moment_expand_map() -> List[Optional[Tuple[int, int]]]:
+    """For each row (4a+i)*12 + 4b+j of a raw Hpp [144, N], the
+    (moment, sign) whose per-camera sum it is, or None where K[a][b] is
+    0."""
+    out = []
+    for a in range(3):
+        for i in range(4):
+            for b in range(3):
+                for j in range(4):
+                    term = _K[a][b]
+                    pair = MOMENT_PAIRS.index((min(i, j), max(i, j)))
+                    out.append(None if term is None
+                               else (10 * term[0] + pair, term[1]))
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def moment_expand_table(device) -> torch.Tensor:
+    """The kernels' int32 [144] form of moment_expand_map on `device`:
+    sign * (moment + 1), 0 for a structural zero (one host-to-device copy
+    per device)."""
+    return torch.tensor([0 if e is None else e[1] * (e[0] + 1)
+                         for e in moment_expand_map()],
+                        dtype=torch.int32, device=device)
+
+
+# threads per block of the fused terms (csrc/pose_common.cuh kE0Threads);
+# a tile holds E0_TILE_THREADS // w landmarks x all w slot rows of its part
+E0_TILE_THREADS = 512
+TILE_FIELDS = ("ofs", "g", "w", "t", "tile0")
+
+
+def tile_rows(parts, threads: int) -> Tuple[List[int], int]:
+    """The fused terms' (part, tile) table for blocks of `threads`
+    threads: per part (ofs, g, w) its TILE_FIELDS, t = threads // w
+    landmarks per tile and tile0 the tiles of the parts before it (the
+    last tile of a part may be ragged). Returns (flat int list, tiles)."""
+    rows, tiles = [], 0
+    for ofs, g, w in parts:
+        t = threads // w
+        if t < 1:
+            raise ValueError(f"parts: width {w} exceeds the fused term's "
+                             f"{threads} threads per tile")
+        rows += [ofs, g, w, t, tiles]
+        tiles += -(-g // t)
+    return rows, tiles
+
+
+@functools.lru_cache(maxsize=64)
+def e0_tile_table(parts, device) -> Tuple[torch.Tensor, int]:
+    """tile_rows of `parts` for the kernels as an int32 tensor on
+    `device`, made once per part list (one host-to-device copy per solver,
+    not one per power term). Returns (table, tiles)."""
+    rows, tiles = tile_rows(parts, E0_TILE_THREADS)
+    return torch.tensor(rows, dtype=torch.int32, device=device), tiles
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -199,12 +271,16 @@ def hpp_b_structured(cam, cam_table, x, uv, sw, r_w, jls, hib, n_cams, *,
         ("jls", jls), ("hib", hib),
     ))
     c = pose_ref.pose_consts(alpha, torch.float32)
-    hpp = torch.zeros((144, n), dtype=torch.float32, device=x.device)
-    b = torch.zeros((12, n), dtype=torch.float32, device=x.device)
+    # one zeroed f64 buffer where the blocks' sums meet: b, the 40 moment
+    # rows, the ticket counter; the kernel writes hpp and b from it
+    acc = torch.zeros(52 * n + 1, dtype=torch.float64, device=x.device)
+    hpp = torch.empty((144, n), dtype=torch.float32, device=x.device)
+    b = torch.empty((12, n), dtype=torch.float32, device=x.device)
     _launch("hpp_b_structured", _build.library().povar_hpp_b,
             _ptr(cam), _ptr(cam_table), _ptr(x), _ptr(uv), _ptr(sw),
-            _ptr(r_w), _ptr(jls), _ptr(hib), _ptr(hpp), _ptr(b), o, n,
-            c.sp, c.sa, c.sp2, _stream(x))
+            _ptr(r_w), _ptr(jls), _ptr(hib),
+            _ptr(moment_expand_table(x.device)), _ptr(hpp), _ptr(b),
+            _ptr(acc), o, n, c.sp, c.sa, c.sp2, _stream(x))
     return hpp, b
 
 
@@ -246,28 +322,14 @@ def e0_scatter_structured(cam, x, h, sb, n_cams):
     return out
 
 
-def check_parts(parts, o: int) -> int:
+def check_parts(parts, o: int) -> None:
     """Validate a fused-term part list ((ofs, g, w) each, as
-    solver/slots.plan_e0_fused makes it) against O observations; returns
-    the number of landmarks it covers."""
+    solver/slots.plan_e0_fused makes it) against O observations."""
     if not parts:
         raise ValueError("parts: the fused term needs at least one part")
     for ofs, g, w in parts:
         if g < 1 or w < 1 or ofs < 0 or ofs + g * w > o:
             raise ValueError(f"parts: ({ofs}, {g}, {w}) outside O = {o}")
-    return sum(g for _ofs, g, _w in parts)
-
-
-@functools.lru_cache(maxsize=64)
-def part_table(parts, device) -> torch.Tensor:
-    """The kernels' int32 part table [n_parts * 4] of (ofs, g, w, first
-    landmark) on `device`, made once per part list (one host-to-device
-    copy per solver, not one per power term)."""
-    rows, first = [], 0
-    for ofs, g, w in parts:
-        rows += [ofs, g, w, first]
-        first += g
-    return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
 def e0_term_parts(cam, x, h, z_table, parts, n_cams):
@@ -279,17 +341,17 @@ def e0_term_parts(cam, x, h, z_table, parts, n_cams):
     _check_shapes({
         "x": (x, 3, "o"), "h": (h, 9, "o"), "z_table": (z_table, 12, "n"),
     }, o, n)
-    n_lms = check_parts(parts, o)
+    check_parts(parts, o)
     if _on_cpu(cam, x, h, z_table):
         return pose_ref.e0_term_parts(cam, x, h, z_table, parts, n)
     _cuda_checks(o, n, cam, f32=(
         ("x", x), ("h", h), ("z_table", z_table),
     ))
-    table = part_table(tuple(parts), x.device)
+    table, tiles = e0_tile_table(tuple(parts), x.device)
     out = torch.zeros((12, n), dtype=torch.float32, device=x.device)
     _launch("e0_term_parts", _build.library().povar_e0_term,
             _ptr(cam), _ptr(x), _ptr(h), _ptr(z_table), _ptr(table),
-            _ptr(out), len(parts), n_lms, o, n, _stream(x))
+            _ptr(out), len(parts), tiles, o, n, E0_TILE_THREADS, _stream(x))
     return out
 
 

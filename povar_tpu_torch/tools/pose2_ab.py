@@ -6,9 +6,10 @@ kernels, and against controlled variants of their own, on one card.
 
 Run from the repository root (`chip_smoke.py` lends its timers, its
 step-1 solve and its bench iteration). `kernels` builds DIR/pose2.cu
-(with DIR/pose_common.cuh: an earlier commit's csrc/, for instance
-`git archive <commit> povar_tpu_torch/csrc` unpacked into a git-ignored
-directory) and VARIANTS of the package's own csrc/, one nvcc each, all
+(with DIR/pose_common.cuh: an earlier commit's csrc/ whose entry points
+take the package's arguments, for instance `git archive <commit>
+povar_tpu_torch/csrc` unpacked into a git-ignored directory) and
+VARIANTS of the package's own csrc/, one nvcc each, all
 started together, into build/pose2_ab/. It then takes the venice-89
 step-2 state of the card's step-1 result (chip_smoke.check_kernels2's
 operands) and times each kernel in turns (earlier, package, package,
@@ -32,7 +33,9 @@ operation of a call included (the zeroing of the outputs too), mean of
 bench iteration (chip_smoke.bench_step2: launches, wall time, device
 time by kernel) with SolverOptions() defaults on one device and on a
 1-device mesh, for the package tree in the current directory; run it in
-each tree to compare.
+each tree to compare. tools/pose1_ab.py does the same for step 1's pair
+with this module's builds, variants and timing loop (`build_all`,
+`common_variants`, `ab_time`).
 """
 
 from __future__ import annotations
@@ -48,78 +51,126 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# variants of csrc/ (name: [(file, regex, replacement)]) and the threads
-# per block their fused-term table is cut for
+# edits of csrc/ (file, regex, replacement) that make the per-camera adds
+# dead stores: the shared-memory and global atomics, and warp_scatter's
+# plain adds into a warp's own accumulator
 NO_ATOMICS = (r"atomicAdd\(&(acc\w*)\[([^\]]+)\], ([^;]+)\);",
               r"{ const float a_ = \3; if (a_ == 1.2345e-38f) \1[\2] = a_; }")
 NO_ADDS = (r"acc\[k \* n \+ c\] \+= v\[k\];",
            "if (v[k] == 1.2345e-38f) acc[k * n + c] = v[k];")
+# warp_scatter's sums of the lanes on one camera as a pairwise butterfly
+# (5 shuffle steps) where every live lane is on one camera, the walk over
+# the peers in lane order otherwise
+BUTTERFLY = (
+    r"(  unsigned rest = lead \? peers & \(peers - 1u\) : 0u;\n"
+    r"  while .*?\n    rest &= rest - 1u;\n  \}\n)",
+    "  if (__popc(live_mask) > 1 &&\n"
+    "      __all_sync(kFullMask, !live || peers == live_mask)) {\n"
+    "#pragma unroll\n"
+    "    for (int k = 0; k < K; ++k)\n"
+    "#pragma unroll\n"
+    "      for (int off = 16; off > 0; off >>= 1)\n"
+    "        v[k] += __shfl_xor_sync(kFullMask, v[k], off);\n"
+    "  } else {\n"
+    r"\1"
+    "  }\n")
+# the fused terms' flush (pose_common.cuh flush_tiles) left out
+NO_TILE_FLUSH = [
+    ("pose_common.cuh", r"if \(s != 0\.0f\) atomicAdd\(out \+ i, s\);",
+     "if (s == 1.2345e-38f) out[i] = s;"),
+    ("pose_common.cuh", r"\n    flush_acc\(out, acc, n_acc\);", "\n"),
+]
+
+
+def common_variants(source: str, moment_flush: str):
+    """The variants both steps' tools build (name: ([edits], threads per
+    block their fused-term table is cut for)); `source` is the step's
+    .cu file, `moment_flush` the regex of its moment kernel's block
+    flush."""
+    return {
+        # the per-camera adds made dead stores: loads, arithmetic, warp sums
+        "no_adds": ([(source, *NO_ATOMICS),
+                     ("pose_common.cuh", *NO_ATOMICS),
+                     ("pose_common.cuh", *NO_ADDS)], 512),
+        # every live lane adds its own values (no sum over a camera's
+        # lanes; the fused terms' per-warp adds then race: timing only)
+        "no_group_sum": ([("pose_common.cuh",
+                           r"__match_any_sync\(kFullMask, live \? c : -1\)",
+                           "(1u << lane)")], 512),
+        # the blocks' flush to global memory left out
+        "no_flush": ([(source, moment_flush, ""), *NO_TILE_FLUSH], 512),
+        # a shuffle butterfly where every live lane is on one camera
+        "butterfly": ([("pose_common.cuh", *BUTTERFLY)], 512),
+        # the fused term on one shared-atomic accumulator per block
+        "block_atomics": ([("pose_common.cuh",
+                            r"if \(base \+ kE0Warps \* acc <= \(size_t\)"
+                            r"max_optin_smem\(\)\)", "if (false)")], 512),
+        "threads256": ([("pose_common.cuh", r"kE0Threads = 512",
+                         "kE0Threads = 256")], 256),
+        "threads1024": ([("pose_common.cuh", r"kE0Threads = 512",
+                          "kE0Threads = 1024")], 1024),
+    }
+
+
 VARIANTS = {
-    # the per-camera adds made dead stores: loads, arithmetic, warp sums
-    "no_adds": ([("pose2.cu", *NO_ATOMICS),
-                 ("pose_common.cuh", *NO_ATOMICS),
-                 ("pose_common.cuh", *NO_ADDS)], 512),
-    # every live lane adds its own values (no sum over a camera's lanes)
-    "no_group_sum": ([("pose_common.cuh",
-                       r"__match_any_sync\(kFullMask, live \? c : -1\)",
-                       "(1u << lane)")], 512),
-    # the blocks' flush to global memory left out
-    "no_flush": ([("pose2.cu", r"povar::flush_acc\(acc_g, acc, [^;]+;", ""),
-                  ("pose2.cu", r"povar::flush_acc\(out, acc, [^;]+;", ""),
-                  ("pose2.cu", r"if \(s != 0\.0f\) atomicAdd\(out \+ i, s\);",
-                   "if (s == 1.2345e-38f) out[i] = s;")], 512),
-    # the fused term on one shared-atomic accumulator per block
-    "block_atomics": ([("pose2.cu",
-                        r"if \(base \+ kE0Warps \* acc <= \(size_t\)"
-                        r"max_optin_smem\(\)\)", "if (false)")], 512),
+    **common_variants("pose2.cu", r"povar::flush_acc\(acc_g, acc, [^;]+;"),
     # every in-range row's operands loaded, not only the live rows'
     "eager_loads": ([("pose2.cu",
                       r"if \(live\) \{\n      c = cam\[o\];\n      const",
                       "if (o < O) {\n      c = cam[o];\n      const"),
                      ("pose2.cu", r"if \(live\) \{\n      c = cam\[o\];\n#pragma",
-                      "if (in) {\n      c = cam[o];\n#pragma")], 512),
-    "threads256": ([("pose2.cu", r"kE0Threads = 512", "kE0Threads = 256")],
-                   256),
-    "threads1024": ([("pose2.cu", r"kE0Threads = 512", "kE0Threads = 1024")],
-                    1024),
+                      "if (row.in) {\n      c = cam[o];\n#pragma")], 512),
 }
 # the earlier kernels with their per-camera atomics made dead stores
-PARENT_VARIANTS = {"parent_no_atomics": [("pose2.cu", *NO_ATOMICS)]}
+PARENT_VARIANTS = {"parent_no_atomics": [("pose2.cu", *NO_ATOMICS),
+                                         ("pose_common.cuh", *NO_ATOMICS)]}
+# the entry points timed and the kernels whose SASS atomics are counted
+ENTRIES = ("povar_hppb2", "povar_e0_term2")
+SASS_KERNELS = {"hppb2": "hppb2_kernel", "e0_term2": "e0_term2_kernel"}
 OUT = Path("build") / "pose2_ab"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _variant_dir(src: Path, name: str, edits) -> Path:
-    """A copy of `src`'s pose2.cu and pose_common.cuh with `edits`
-    applied (each must match)."""
-    d = OUT / name
+def _variant_dir(out: Path, src: Path, name: str, source: str,
+                 edits) -> Path:
+    """A copy of `src`'s `source` and pose_common.cuh in out/name with
+    `edits` applied (each must match)."""
+    d = out / name
     d.mkdir(parents=True, exist_ok=True)
-    for f in ("pose2.cu", "pose_common.cuh"):
+    for f in (source, "pose_common.cuh"):
         shutil.copy(src / f, d / f)
     for f, pat, rep in edits:
         text = (d / f).read_text()
-        new, n = re.subn(pat, rep, text)
+        new, n = re.subn(pat, rep, text, flags=re.S)
         if n == 0:
             raise RuntimeError(f"{name}: {pat!r} matches nothing in {f}")
         (d / f).write_text(new)
     return d
 
 
-def build_all(parent: Path):
-    """Build the earlier pose2.cu and every variant, one nvcc each, in
-    parallel. Returns {name: ctypes library}."""
+def build_all(parent: Path, source: str = "pose2.cu", out: Path = OUT,
+              variants=None, parent_variants=None, entries=ENTRIES,
+              parent_sig=None, sass_kernels=None):
+    """Build the earlier `source` (from `parent`, with its own
+    pose_common.cuh) and every variant of the package's, one nvcc each,
+    in parallel, into `out`. The parent builds take `parent_sig` for
+    their entry points (default: the package's), the variants the
+    package's. Returns {name: ctypes library}."""
     from povar_tpu_torch.ops import _build
 
+    variants = VARIANTS if variants is None else variants
+    parent_variants = (PARENT_VARIANTS if parent_variants is None
+                       else parent_variants)
     own = _build.CSRC
-    dirs = {"parent": _variant_dir(parent, "parent", [])}
-    dirs.update({n: _variant_dir(parent, n, e)
-                 for n, e in PARENT_VARIANTS.items()})
-    dirs.update({n: _variant_dir(own, n, e) for n, (e, _t) in
-                 VARIANTS.items()})
+    dirs = {"parent": _variant_dir(out, parent, "parent", source, [])}
+    dirs.update({n: _variant_dir(out, parent, n, source, e)
+                 for n, e in parent_variants.items()})
+    dirs.update({n: _variant_dir(out, own, n, source, e) for n, (e, _t) in
+                 variants.items()})
     nvcc = _build._nvcc()
     procs = {n: subprocess.Popen(
         [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-         str(d / "pose2.cu")], stdout=subprocess.PIPE,
+         str(d / source)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for n, d in dirs.items()}
     libs = {}
     for n, p in procs.items():
@@ -129,20 +180,19 @@ def build_all(parent: Path):
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"built {n}: {' | '.join(regs)}", flush=True)
         libs[n] = ctypes.CDLL(str(dirs[n] / "lib.so"))
-    parent_sig = {"povar_hppb2": [_P] * 9 + [_I, _I, _P],
-                  "povar_e0_term2": [_P] * 8 + [_I] * 4 + [_P]}
+    own_sig = {k: _build.SIGNATURES[k] for k in entries}
     for n, lib in libs.items():
-        sig = (parent_sig if n.startswith("parent")
-               else {k: _build.SIGNATURES[k] for k in parent_sig})
+        sig = (parent_sig or own_sig) if n.startswith("parent") else own_sig
         for k, argtypes in sig.items():
             getattr(lib, k).argtypes = argtypes
             getattr(lib, k).restype = ctypes.c_int
-    sass_atomics(dirs)
+    sass_atomics(dirs, SASS_KERNELS if sass_kernels is None else sass_kernels)
     return libs
 
 
-def sass_atomics(dirs) -> None:
-    """The atomic instructions each build's two kernels compile to
+def sass_atomics(dirs, kernels) -> None:
+    """The atomic instructions the parent's and the package's kernels
+    `kernels` ({label: substring of the mangled name}) compile to
     (cuobjdump -sass), or a note where cuobjdump is missing."""
     from povar_tpu_torch.ops import _build
 
@@ -159,8 +209,8 @@ def sass_atomics(dirs) -> None:
         for ln in sass.splitlines():
             m = re.search(r"Function : (\S+)", ln)
             if m:
-                fn = ("hppb2" if "hppb2" in m.group(1) else
-                      "e0_term2" if "e0_term2" in m.group(1) else None)
+                fn = next((k for k, sub in kernels.items()
+                           if re.search(sub, m.group(1))), None)
                 continue
             op = re.search(r"\b(ATOMS\.[\w.]+|ATOM\.[\w.]+|RED\.[\w.]+|"
                            r"ATOMG\.[\w.]+)", ln)
@@ -170,37 +220,8 @@ def sass_atomics(dirs) -> None:
         print(f"sass atomics ({n}): {counts}", flush=True)
 
 
-def _parent_hppb2(lib):
-    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
-
-    def run(cam, x4, mm, sw, r_w, jlns, hib, n):
-        hpp = torch.zeros((144, n), device=x4.device)
-        b = torch.zeros((12, n), device=x4.device)
-        rc = lib.povar_hppb2(*map(_ptr, (cam, x4, mm, sw, r_w, jlns, hib,
-                                         hpp, b)), cam.shape[0], n,
-                             _stream(x4))
-        assert rc == 0, rc
-        return hpp, b
-    return run
-
-
-def _parent_e0(lib):
-    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream, part_table
-
-    def run(cam, x4, mm, sw, mat6, zt, parts, n):
-        out = torch.zeros((12, n), device=x4.device)
-        table = part_table(tuple(parts), x4.device)
-        rc = lib.povar_e0_term2(*map(_ptr, (cam, x4, mm, sw, mat6, zt, table,
-                                            out)), len(parts),
-                                sum(g for _o, g, _w in parts),
-                                cam.shape[0], n, _stream(x4))
-        assert rc == 0, rc
-        return out
-    return run
-
-
 def _variant_hppb2(lib):
-    from povar_tpu_torch.ops import pose2_kernels as pk2
+    from povar_tpu_torch.ops import pose_kernels as pk
     from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
 
     def run(cam, x4, mm, sw, r_w, jlns, hib, n):
@@ -208,7 +229,7 @@ def _variant_hppb2(lib):
         hpp = torch.empty((144, n), device=x4.device)
         rc = lib.povar_hppb2(*map(_ptr, (
             cam, x4, mm, sw, r_w, jlns, hib,
-            pk2.hppb2_expand_table(x4.device), hpp, acc)), cam.shape[0], n,
+            pk.moment_expand_table(x4.device), hpp, acc)), cam.shape[0], n,
             _stream(x4))
         assert rc == 0, rc
         return hpp, acc[:12 * n].view(12, n)
@@ -216,11 +237,10 @@ def _variant_hppb2(lib):
 
 
 def _variant_e0(lib, threads):
-    from povar_tpu_torch.ops import pose2_kernels as pk2
-    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream, tile_rows
 
     def run(cam, x4, mm, sw, mat6, zt, parts, n):
-        rows, tiles = pk2.tile_rows(parts, threads)
+        rows, tiles = tile_rows(parts, threads)
         table = torch.tensor(rows, dtype=torch.int32, device=x4.device)
         out = torch.zeros((12, n), device=x4.device)
         rc = lib.povar_e0_term2(*map(_ptr, (cam, x4, mm, sw, mat6, zt, table,
@@ -301,18 +321,17 @@ def kernels(parent: Path) -> None:
     from povar_tpu_torch import synthetic_bal_problem_fast
     from povar_tpu_torch.ops import pose2_kernels as pk2
     from povar_tpu_torch.ops import pose2_ref as pr2
-    from povar_tpu_torch.tools.parity import scaled_error
 
     libs = build_all(parent)
     problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
                                          seed=0)
     d, parts, mesh = _operands(problem)
-    hpp_impls = {"parent": _parent_hppb2(libs["parent"]),
+    hpp_impls = {"parent": _variant_hppb2(libs["parent"]),
                  "package": pk2.hppb2}
-    e0_impls = {"parent": _parent_e0(libs["parent"]),
+    e0_impls = {"parent": _variant_e0(libs["parent"], 512),
                 "package": pk2.e0_term2_parts}
-    hpp_var = {"parent_no_atomics": _parent_hppb2(libs["parent_no_atomics"])}
-    e0_var = {"parent_no_atomics": _parent_e0(libs["parent_no_atomics"])}
+    hpp_var = {"parent_no_atomics": _variant_hppb2(libs["parent_no_atomics"])}
+    e0_var = {"parent_no_atomics": _variant_e0(libs["parent_no_atomics"], 512)}
     for name, (_e, threads) in VARIANTS.items():
         if not name.startswith("threads") and name != "block_atomics":
             hpp_var[name] = _variant_hppb2(libs[name])
@@ -338,17 +357,31 @@ def kernels(parent: Path) -> None:
     ]
     print(f"fused-term parts {parts}; mesh lanes {mesh['cam'].shape[0]}",
           flush=True)
-    for kernel, label, args in shapes:
-        impls, var = ((hpp_impls, hpp_var) if kernel == "hppb2"
-                      else (e0_impls, e0_var))
-        plain = _tuple(getattr(pr2, kernel)(*args))
+    ab_time([(k, label, args, {}) for k, label, args in shapes],
+            {"hppb2": hpp_impls, "e0_term2_parts": e0_impls},
+            {"hppb2": hpp_var, "e0_term2_parts": e0_var}, pr2)
+
+
+def ab_time(shapes, impls, variants, plain_mod) -> None:
+    """For each (kernel, label, args, kwargs) of `shapes`: the parent's
+    and the package's kernel (impls[kernel]) against the plain version
+    (plain_mod.<kernel>) per camera (tools/parity.py, 1e-4), each result's
+    error against the plain version in f64 on the same values printed
+    (the plain version's own too); then device and event times of parent,
+    package, package, parent and of each of variants[kernel]."""
+    import chip_smoke as cs
+    from povar_tpu_torch.tools.parity import scaled_error
+
+    for kernel, label, args, kw in shapes:
+        ref = getattr(plain_mod, kernel)
+        plain = _tuple(ref(*args, **kw))
         # the plain version in f64 on the same values: each f32 result's
         # own error, the plain version's included
-        exact = _tuple(getattr(pr2, kernel)(*(
+        exact = _tuple(ref(*(
             a.double() if torch.is_tensor(a) and a.is_floating_point() else a
-            for a in args)))
-        for who, fn in [*impls.items(), ("plain", None)]:
-            got = plain if fn is None else _tuple(fn(*args))
+            for a in args), **kw))
+        for who, fn in [*impls[kernel].items(), ("plain", None)]:
+            got = plain if fn is None else _tuple(fn(*args, **kw))
             torch.cuda.synchronize()
             errs = [scaled_error(g, w, "cam") for g, w in zip(got, plain)]
             if not all(e <= 1e-4 for e in errs):
@@ -358,13 +391,14 @@ def kernels(parent: Path) -> None:
                   f"{' '.join(f'{e:.1e}' for e in errs)}, against f64 "
                   f"{' '.join(f'{e:.1e}' for e in errs64)}", flush=True)
         times = {}
+
+        def timed(fn):
+            return (cs.device_us(lambda: fn(*args, **kw)),
+                    cs.cuda_ms(lambda: fn(*args, **kw)))
         for who in ("parent", "package", "package", "parent"):
-            fn = impls[who]
-            times.setdefault(who, []).append(
-                (cs.device_us(lambda: fn(*args)), cs.cuda_ms(lambda: fn(*args))))
-        for who, fn in var.items():
-            times[who] = [(cs.device_us(lambda: fn(*args)),
-                           cs.cuda_ms(lambda: fn(*args)))]
+            times.setdefault(who, []).append(timed(impls[kernel][who]))
+        for who, fn in variants[kernel].items():
+            times[who] = [timed(fn)]
         for who, ts in times.items():
             dev = " / ".join(f"{t[0]:.1f}" for t in ts)
             ev = " / ".join(f"{t[1] * 1e3:.1f}" for t in ts)

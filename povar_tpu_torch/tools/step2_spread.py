@@ -2,7 +2,9 @@
 
     python -m povar_tpu_torch.tools.step2_spread [--runs 5] [--long 300]
         [--small 0] [--witness 0] [--step2 RIPOBA] [--pcg 0] [--psc 0]
-        [--psc-device cuda] [--psc-mesh 0] [--psc-ba 0] [--chol 0]
+        [--psc-device cuda] [--psc-f64 0] [--varproj 0] [--psc-mesh 0]
+        [--psc-ba 0]
+        [--chol 0]
         [--chol-device cuda]
         [--ring 0]
         [--out build/step2_spread.json]
@@ -45,6 +47,11 @@ step-2 cost:
                 band was set from, how many opening decisions each
                 shares with the JAX package's run (`JAX_PSC_DECISIONS`)
                 and its power-term counts (`JAX_PSC_TERMS`);
+  psc f64       `--psc-f64` such solves on the card in f64 through the
+                plain versions (f64_structured): the trajectory the f32
+                kernels' sums round away from;
+  varproj       `--varproj` step-1 solves with SolverOptions() defaults
+                (POWER_VARPROJ, the fused term) on the card;
   psc mesh      `--psc-mesh` such solves on a 1-device mesh (the SPMD
                 window layout): the spread chip_smoke.py's mesh PSC
                 check meets;
@@ -67,6 +74,7 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -192,6 +200,37 @@ def f64_twin(solver_cls, args, options):
     s._mask1 = s._mask1.double()
     s._gather_cams = s._gather_cams_state
     return s
+
+
+@contextlib.contextmanager
+def plain_step1():
+    """The step-1 kernel wrappers of ops/pose_kernels.py replaced by their
+    plain versions (ops/pose_ref.py, any device and dtype) while the
+    block runs; the stage solvers call them through the module."""
+    from povar_tpu_torch.ops import pose_kernels, pose_ref
+
+    saved = {n: getattr(pose_kernels, n) for n in pose_kernels.KERNELS}
+    try:
+        for n in saved:
+            setattr(pose_kernels, n, getattr(pose_ref, n))
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(pose_kernels, n, f)
+
+
+def f64_structured(solver):
+    """Make a structured stage-1 solver's inner solves and sums f64 (the
+    state is f64 already): under plain_step1, the f64 evaluation of the
+    solve the card runs with f32 kernels, summed by `index_add_` in f64.
+    A diagnostic of which trajectory the f32 sums round away from, not a
+    configuration (pure f64 is ROADMAP.md queue 1 item 11)."""
+    if solver.unstructured:
+        raise ValueError("f64_structured: the structured layout only")
+    solver.solve_dtype = torch.float64
+    solver._uv_s = solver.obs.uv
+    solver._mask1 = solver._mask1.double()
+    return solver
 
 
 def emulate_tpu_onehot(solver):
@@ -513,10 +552,13 @@ JAX_CHOL_COSTS = [391735.1662602257, 360.0928152707893, 360.0928152707893,
                   243.96770454026773, 243.9675604042901]
 JAX_CHOL_COST = JAX_CHOL_COSTS[-1]
 JAX_CHOL_COST2 = 15606.355045782198
-# (opening decisions, final cost) of each step-1 solver's JAX run
+# (opening decisions, final cost) of each step-1 solver's JAX run; the
+# POWER_VARPROJ run (BENCH_r05.json e2e_final_cost_step1) records no
+# decisions
 JAX_STEP1 = {
     SolverType.POWER_SCHUR_COMPLEMENT: (JAX_PSC_DECISIONS, JAX_PSC_COST),
     SolverType.CHOLESKY: (JAX_CHOL_DECISIONS, JAX_CHOL_COST),
+    SolverType.POWER_VARPROJ: (None, 207.47874642216357),
 }
 
 
@@ -530,11 +572,14 @@ def same_prefix(decisions, want=JAX_PSC_DECISIONS):
     return n
 
 
-def step1_spread(problem, runs, solver, device="cuda", mesh=False):
-    """`runs` venice-89 step-1 solves with `solver` (POWER_SCHUR_COMPLEMENT
-    or CHOLESKY; SolverOptions() defaults otherwise) on `device` ("cuda",
+def step1_spread(problem, runs, solver, device="cuda", mesh=False,
+                 f64=False):
+    """`runs` venice-89 step-1 solves with `solver` (POWER_SCHUR_COMPLEMENT,
+    CHOLESKY or POWER_VARPROJ; SolverOptions() defaults otherwise) on
+    `device` ("cuda",
     or "cpu": the plain versions), with `mesh` on a 1-device mesh there
-    (the SPMD window layout): their records, each with the count of
+    (the SPMD window layout), with `f64` in f64 through the plain
+    versions (f64_structured): their records, each with the count of
     opening decisions it shares with the JAX run of that solver
     (JAX_STEP1)."""
     if not runs:
@@ -553,7 +598,10 @@ def step1_spread(problem, runs, solver, device="cuda", mesh=False):
             problem.num_landmarks, opts, make_mesh(1, device))
     else:
         stage1 = Stage1Solver(*args, opts, device=device)
-    tag = solver.value.lower() + (" mesh" if mesh else "")
+    if f64:
+        f64_structured(stage1)
+    tag = solver.value.lower() + (" mesh" if mesh else "") + (
+        " f64" if f64 else "")
 
     def sync():
         if device == "cuda":
@@ -569,10 +617,13 @@ def step1_spread(problem, runs, solver, device="cuda", mesh=False):
         s = SolverSummary()
         sync()
         t0 = time.perf_counter()
-        optimize_step1(stage1, c0, l0, opts, s, Timer(), log=lambda s: None)
+        with plain_step1() if f64 else contextlib.nullcontext():
+            optimize_step1(stage1, c0, l0, opts, s, Timer(),
+                           log=lambda s: None)
         sync()
         rec = _record(f"{tag} {device} {k}", s, time.perf_counter() - t0)
-        rec["same_prefix"] = same_prefix(rec["decisions"], want)
+        rec["same_prefix"] = (None if want is None
+                              else same_prefix(rec["decisions"], want))
         recs.append(rec)
     finals = sorted(r["final"] for r in recs)
     print(f"{tag} ({device}): {runs} step-1 finals {finals[0]!r} .. "
@@ -637,6 +688,12 @@ def main() -> None:
     ap.add_argument("--psc-device", default="cuda", choices=("cuda", "cpu"),
                     help="where the --psc solves run (cpu: the plain "
                     "versions)")
+    ap.add_argument("--psc-f64", type=int, default=0,
+                    help="POWER_SCHUR_COMPLEMENT step-1 solves evaluated in "
+                    "f64 through the plain versions (f64_structured)")
+    ap.add_argument("--varproj", type=int, default=0,
+                    help="POWER_VARPROJ step-1 solves with SolverOptions() "
+                    "defaults (the fused term)")
     ap.add_argument("--psc-mesh", type=int, default=0,
                     help="POWER_SCHUR_COMPLEMENT step-1 solves on a "
                     "1-device mesh (chip_smoke.py's spmd PSC check)")
@@ -665,6 +722,11 @@ def main() -> None:
                pcg=[], psc=psc_spread(problem, a.psc, a.psc_device),
                chol=step1_spread(problem, a.chol, SolverType.CHOLESKY,
                                  a.chol_device),
+               psc_f64=step1_spread(problem, a.psc_f64,
+                                    SolverType.POWER_SCHUR_COMPLEMENT,
+                                    f64=True),
+               varproj=step1_spread(problem, a.varproj,
+                                    SolverType.POWER_VARPROJ),
                psc_mesh=step1_spread(problem, a.psc_mesh,
                                      SolverType.POWER_SCHUR_COMPLEMENT,
                                      mesh=True),

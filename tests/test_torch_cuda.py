@@ -15,11 +15,10 @@ file imports nothing of JAX, so it runs where JAX is not installed:
 rest of the suite.) chip_smoke.py runs the kernel check at the
 venice-89 shapes; this file runs it at the CPU tests' small shapes
 (O = 1024, N = 13, as tests/test_torch_pose_kernels.py) and at
-N = 1024, where `hpp_b_structured` and the two Schur-Jacobi kernels
-take their global-atomic route (`hppb2` takes its own at N = 2048); the
-fused terms run over all slot parts and over a narrow prefix, the
-step-2 one also over parts of three widths and on camera-sorted
-landmarks; `cam_gather` also on a 144-row table, more rows than one
+N = 1024, where the two Schur-Jacobi kernels take their global-atomic
+route (`hpp_b_structured` and `hppb2` take theirs at N = 2048); the
+fused terms run over all slot parts and over a narrow prefix, and also
+over parts of three widths and on camera-sorted landmarks; `cam_gather` also on a 144-row table, more rows than one
 block stages at N = 1024.
 
 Tolerances, with the scales of povar_tpu_torch/tools/parity.py:
@@ -226,14 +225,65 @@ OBS2 = ("cam", "x4", "mm", "sw", "r_w2", "jlns", "hib", "mat6")
 MIXED = ((0, 100, 3), (300, 37, 7), (559, 29, 16))
 
 
-def _rows_reordered(t, idx):
-    """`t` with every per-observation operand's rows taken at idx."""
-    return dict(t, **{k: t[k][..., idx].contiguous() for k in OBS2})
+# the per-observation operands of hpp_b_structured and the fused step-1
+# term
+OBS1 = ("cam", "x", "uv", "sw", "r_w", "jls", "hib", "h")
 
 
-def _by_first_camera(t, parts):
+def _rows_reordered(t, idx, keys=OBS2):
+    """`t` with every per-observation operand in `keys` taken at idx."""
+    return dict(t, **{k: t[k][..., idx].contiguous() for k in keys})
+
+
+def _by_first_camera(t, parts, keys=OBS2):
     """`t` with each part's landmarks sorted by first camera."""
-    return _rows_reordered(t, first_camera_rows(t["cam"], parts))
+    return _rows_reordered(t, first_camera_rows(t["cam"], parts), keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["drawn", "by_camera"])
+@pytest.mark.parametrize("n_cams", [13, 1024, 2048])
+def test_hpp_b_structured_routes_and_orders(cuda, n_cams, order):
+    """hpp_b_structured in moment form once per call within the
+    per-camera tolerance: camera table and accumulators in shared memory
+    (N = 13), the accumulators alone (N = 1024: 64 N floats exceed a
+    block's shared memory) and straight to global memory (N = 2048), on
+    the rows as drawn and sorted by camera, where whole warps share a
+    camera and sum before their adds. Every entry of hpp is written (the
+    kernel expands the moments into an uninitialized output)."""
+    t = _inputs(n_cams, cuda)
+    if order == "by_camera":
+        t = _rows_reordered(t, torch.argsort(t["cam"].long(), stable=True),
+                            OBS1)
+    args = tuple(t[k] for k in ("cam", "ct", "x", "uv", "sw", "r_w", "jls",
+                                "hib")) + (n_cams,)
+    launches.reset_launch_counts()
+    got = pk.hpp_b_structured(*args, alpha=ALPHA)
+    torch.cuda.synchronize()
+    assert launches.launch_counts()["hpp_b_structured"] == 1
+    _close("hpp_b_structured", got,
+           pose_ref.hpp_b_structured(*args, alpha=ALPHA), [CAM, CAM])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["drawn", "by_first_camera"])
+@pytest.mark.parametrize("parts", [PARTS, MIXED], ids=["parts", "mixed"])
+@pytest.mark.parametrize("n_cams", [13, 1024])
+def test_e0_term_parts_tiles_and_orders(cuda, n_cams, parts, order):
+    """The fused step-1 term once per call within the per-camera
+    tolerance: over parts of one and of three widths whose last tiles are
+    ragged, on the landmarks as drawn and with each part's landmarks
+    sorted by first camera; per-warp accumulators at N = 13, one shared
+    accumulator at N = 1024."""
+    t = _inputs(n_cams, cuda)
+    if order == "by_first_camera":
+        t = _by_first_camera(t, parts, OBS1)
+    args = (t["cam"], t["x"], t["h"], t["z"], parts, n_cams)
+    launches.reset_launch_counts()
+    got = pk.e0_term_parts(*args)
+    torch.cuda.synchronize()
+    assert launches.launch_counts()["e0_term_parts"] == 1
+    _close("e0_term_parts", got, pose_ref.e0_term_parts(*args), [CAM])
 
 
 @pytest.mark.cuda

@@ -3,15 +3,15 @@ povar_tpu_torch/csrc/pose2.cu, checked on the CPU.
 
 - `hppb2` accumulates, per camera, b12 and 40 weighted moments of x4
   (sum wz2 k x4_i x4_j, k in (1, mx, my, mx^2 + my^2), i <= j) and
-  expands them into hpp12 through `pose2_kernels.hppb2_expand_map` (the
-  kernel reads its int32 form, `hppb2_expand_table`). Moments computed
+  expands them into hpp12 through `pose_kernels.moment_expand_map` (the
+  kernel reads its int32 form, `moment_expand_table`). Moments computed
   here in torch, row for row as the kernel forms them, and expanded
   through that map equal `pose2_ref.hppb2`'s hpp12 and the JAX package's
   Pallas `hppb2` (interpret mode) per camera to f32 rounding: scaled by
   each camera's largest |entry| (tools/parity.py "cam"), within 1e-5
   (measured <= 3.9e-7), on three seeds with dead rows (sw = 0, mm = 0, as
   prepare2 leaves them) and near-plane rows (1/p2 ~ 1e4).
-- `e0_term2_parts` walks a (part, tile) table (`pose2_kernels.tile_rows`)
+- `e0_term2_parts` walks a (part, tile) table (`pose_kernels.tile_rows`)
   with one thread per slot row; enumerating its tiles with the kernel's
   index arithmetic covers every (landmark, slot row) of a part list once,
   each landmark's rows in slot order, on the fused plans of
@@ -26,7 +26,7 @@ import torch
 
 from povar_tpu.ops import pallas_pose2 as pp2
 from povar_tpu_torch import SolverOptions, Stage1Solver, Stage2Solver
-from povar_tpu_torch.ops import pose2_kernels as pk2
+from povar_tpu_torch.ops import pose_kernels as pk
 from povar_tpu_torch.ops import pose2_ref
 from povar_tpu_torch.tools.parity import scaled_error
 from test_torch_e0_plan import _layout
@@ -68,15 +68,15 @@ def _moments(cam, x4, mm, sw):
     wz2 = swz * swz
     kw = [wz2, wz2 * mx, wz2 * my, wz2 * (mx * mx + my * my)]
     rows = torch.stack([kw[t] * (x4[i] * x4[j])
-                        for t in range(4) for i, j in pk2.HPPB2_PAIRS])
+                        for t in range(4) for i, j in pk.MOMENT_PAIRS])
     return torch.zeros((40, N)).index_add_(1, cam.long(), rows)
 
 
 def _expand(mom):
-    """hpp12 [144, N] from the moments through hppb2_expand_map."""
+    """hpp12 [144, N] from the moments through moment_expand_map."""
     zero = torch.zeros_like(mom[0])
     return torch.stack([zero if e is None else e[1] * mom[e[0]]
-                        for e in pk2.hppb2_expand_map()])
+                        for e in pk.moment_expand_map()])
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -96,7 +96,7 @@ def test_hppb2_expand_map_is_k3():
     """The 144 rows: the (0,1) and (1,0) 3x3 blocks of K3 structurally
     zero, every other row one moment with K3's sign, each moment used by
     the transposed entry too, and the int32 table its signed form."""
-    m = pk2.hppb2_expand_map()
+    m = pk.moment_expand_map()
     assert len(m) == 144 and sum(e is None for e in m) == 32
     for a in range(3):
         for i in range(4):
@@ -107,7 +107,7 @@ def test_hppb2_expand_map_is_k3():
                     assert e == m[(4 * b + j) * 12 + 4 * a + i]
                     if e is not None:
                         assert e[1] == (-1 if 2 in (a, b) and a != b else 1)
-    table = pk2.hppb2_expand_table(torch.device("cpu"))
+    table = pk.moment_expand_table(torch.device("cpu"))
     assert table.dtype == torch.int32
     assert table.tolist() == [0 if e is None else e[1] * (e[0] + 1)
                               for e in m]
@@ -118,8 +118,8 @@ def test_hppb2_expand_map_is_k3():
 def _tile_cover(parts, threads):
     """Every (landmark, slot row) the kernel's threads visit, in the
     kernel's index arithmetic over the table of tile_rows(parts)."""
-    rows, tiles = pk2.tile_rows(parts, threads)
-    entries = np.asarray(rows).reshape(-1, len(pk2.TILE_FIELDS))
+    rows, tiles = pk.tile_rows(parts, threads)
+    entries = np.asarray(rows).reshape(-1, len(pk.TILE_FIELDS))
     first = np.concatenate([[0], np.cumsum([g for _o, g, _w in parts])])
     seen = []
     for tile in range(tiles):
@@ -134,7 +134,7 @@ def _tile_cover(parts, threads):
 
 
 def _check_cover(parts):
-    seen = _tile_cover(parts, pk2.E0_TILE_THREADS)
+    seen = _tile_cover(parts, pk.E0_TILE_THREADS)
     want = sorted((first + lm, j, ofs + j * g + lm)
                   for (ofs, g, w), first in zip(
                       parts, np.cumsum([0] + [g for _o, g, _w in parts]))
@@ -151,9 +151,9 @@ def test_tile_table_covers_the_fused_plans(layout, stage):
         *args, SolverOptions(device_lm_loop="off"), device="cpu")
     parts = tuple(s.e0_plan.parts)
     _check_cover(parts)
-    table, tiles = pk2.e0_tile_table(parts, torch.device("cpu"))
-    assert (table.tolist(), tiles) == pk2.tile_rows(parts,
-                                                   pk2.E0_TILE_THREADS)
+    table, tiles = pk.e0_tile_table(parts, torch.device("cpu"))
+    assert (table.tolist(), tiles) == pk.tile_rows(parts,
+                                                   pk.E0_TILE_THREADS)
 
 
 @pytest.mark.parametrize("parts", [MIXED, MIXED[1:], ((0, 1, 16),)],
@@ -161,10 +161,10 @@ def test_tile_table_covers_the_fused_plans(layout, stage):
 def test_tile_table_covers_mixed_widths(parts):
     """Ragged last tiles: 100, 37 and 29 landmarks against tiles of
     E0_TILE_THREADS // w."""
-    assert any(g % (pk2.E0_TILE_THREADS // w) for _o, g, w in parts)
+    assert any(g % (pk.E0_TILE_THREADS // w) for _o, g, w in parts)
     _check_cover(parts)
 
 
 def test_tile_table_refuses_a_width_past_a_block():
     with pytest.raises(ValueError, match="width"):
-        pk2.tile_rows(((0, 2, pk2.E0_TILE_THREADS + 1),), pk2.E0_TILE_THREADS)
+        pk.tile_rows(((0, 2, pk.E0_TILE_THREADS + 1),), pk.E0_TILE_THREADS)
