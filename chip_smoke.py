@@ -25,9 +25,10 @@ prints no result line):
               (median of 20 calls) and profiler device times (mean of
               20) for both, and those of `index_select` beside
               cam_gather and of `index_add_` beside cam_scatter_add, the
-              one PyTorch call that computes each; hpp_b_structured and
-              e0_term_parts also on the camera-sorted lane orders (the
-              1-device mesh solver's step-1 operands; each part's
+              one PyTorch call that computes each; prepare also without
+              its per-camera sums (sums=False); prepare, hpp_b_structured
+              and e0_term_parts also on the camera-sorted lane orders
+              (the 1-device mesh solver's step-1 operands; each part's
               landmarks sorted by first camera) and on seeded cameras at
               N = 1024 (hpp_b_structured also at N = 2048, its global
               route); schur_diag_structured, cam_scatter_add, e0_scatter
@@ -47,7 +48,9 @@ prints no result line):
               of the card's step-1 result (`create_homogeneous`) with
               seeded operands, against its plain version, then again on
               the well-conditioned rows alone (|1/p2| at most CALM of
-              tools/step2_spread.py times the median); hppb2 and
+              tools/step2_spread.py times the median), pose_error2
+              under NONE, HUBER and CAUCHY, and two of its calls bit for
+              bit; hppb2 and
               e0_term2_parts also on the camera-sorted lane orders (the
               1-device mesh solver's step-2 operands; each part's
               landmarks sorted by first camera) and on seeded cameras
@@ -413,10 +416,12 @@ def device_us(fn, reps: int = REPS) -> float:
 
 def _outputs(out):
     """A wrapper's result as a tuple of tensors (the cost's dict in its
-    key order)."""
+    key order; the None a call returns for an output it skips left
+    out)."""
     if isinstance(out, dict):
         return tuple(out.values())
-    return out if isinstance(out, tuple) else (out,)
+    return tuple(t for t in out if t is not None) if isinstance(
+        out, tuple) else (out,)
 
 
 def compare(name, got, want, specs):
@@ -651,18 +656,21 @@ def check_kernels(solver, problem, alpha):
 
 
 def kernels1_shapes(problem, solver, d, alpha):
-    """The shapes beside check_kernels' venice-89 rows at which
+    """The shapes beside check_kernels' venice-89 rows at which prepare,
     hpp_b_structured and e0_term_parts are held to their plain versions
-    and timed: (b) the camera-sorted lane orders, hpp_b_structured on the
-    1-device mesh solver's own step-1 operands (the SPMD window order,
-    598,016 lanes; its landmark solve's Hll^-1 bl at the VarProj start)
-    and the fused term on the venice-89 operands `d` (kernel_inputs) with
-    each part's landmarks sorted by the camera of their first slot row
-    (the order the window plan packs them in, the same parts); (c) seeded
-    cameras on the venice-89 rows, N = 1024 for both and N = 2048 for
-    hpp_b_structured (its global-memory route). Returns (kernel, label,
-    args, kwargs, inputs for bound_ms, specs, n_read, O) per shape; also
-    tools/pose1_ab.py's shapes."""
+    and timed: (a) prepare without its per-camera sums (sums=False, as
+    the back-substitution and the landmark initialization call it);
+    (b) the camera-sorted lane orders, prepare and hpp_b_structured on
+    the 1-device mesh solver's own step-1 operands (the SPMD window
+    order, 598,016 lanes; its linearization at the VarProj start, and its
+    landmark solve's Hll^-1 bl there) and the fused term on the venice-89
+    operands `d` (kernel_inputs) with each part's landmarks sorted by the
+    camera of their first slot row (the order the window plan packs them
+    in, the same parts); (c) seeded cameras on the venice-89 rows, N =
+    1024 for all three and N = 2048 for hpp_b_structured (its global-
+    memory route). Returns (kernel, label, args, kwargs, inputs for
+    bound_ms, specs, n_read, O) per shape; also tools/pose1_ab.py's
+    shapes."""
     from povar_tpu_torch import SolverOptions, Stage1Solver
     from povar_tpu_torch.tools.pose2_ab import first_camera_rows
 
@@ -684,12 +692,19 @@ def kernels1_shapes(problem, solver, d, alpha):
                 tuple(x[k] for k in e0_keys) + (parts, n), {},
                 [x[k] for k in e0_keys], [CAM], (covered, covered), o)
 
+    def prep(x, label, sums=True):
+        args = tuple(x[k] for k in ("cam", "ct", "x", "uv", "mask"))
+        return ("prepare", label, args,
+                dict(alpha=alpha, robust=0, huber=1.0, sums=sums), list(args),
+                [ELEM] * 4 + [CAM] if sums else [ELEM] * 2, None,
+                int(x["cam"].shape[0]))
+
     ms = stage_solver(Stage1Solver, problem, SolverOptions(), mesh=True)
     c = torch.as_tensor(problem.cam_space, device="cuda")
     lin = ms.linearize(c, ms.lm_pack(ms.initialize_varproj(c)))
     _hll_inv, hib, jls, _lh = ms._hll_pieces_s(lin)
     mesh = dict(cam=ms.obs.cam, ct=lin.ct, x=lin.x, uv=ms._uv_s, sw=lin.sw,
-                r_w=lin.r_w, jls=jls, hib=hib)
+                r_w=lin.r_w, jls=jls, hib=hib, mask=ms._mask1)
     rows = first_camera_rows(d["cam"], parts)
     by_first = dict(d, **{k: d[k][..., rows].contiguous()
                           for k in ("cam", "x", "h")})
@@ -706,8 +721,11 @@ def kernels1_shapes(problem, solver, d, alpha):
 
     big = {n: with_cameras(n, n // 1024) for n in (1024, 2048)}
     return [
+        prep(d, "(a) sums=False", sums=False),
+        prep(mesh, "(b) mesh window order"),
         hpp(mesh, "(b) mesh window order", ms.n_cams),
         e0(by_first, "(b) landmarks by first camera", solver.n_cams),
+        prep(big[1024], "(c) N = 1024"),
         hpp(big[1024], "(c) N = 1024", 1024),
         e0(big[1024], "(c) N = 1024", 1024),
         hpp(big[2048], "(c) N = 2048, global route", 2048),
@@ -890,6 +908,7 @@ def check_kernels2(solver2, cams_h, lms_h, seed=1):
                  ("mask", "cam", "ct64", "x4_64", "uv64"), err_specs,
                  live_mask),
             case("pose_error2", "HUBER", err2(1), (), err_specs),
+            case("pose_error2", "CAUCHY", err2(2), (), err_specs),
             case("e0_term2_parts", None,
                  lambda m: m.e0_term2_parts(*obs, d["mat6"], d["zt"], parts,
                                             n),
@@ -900,8 +919,20 @@ def check_kernels2(solver2, cams_h, lms_h, seed=1):
                  ("sw", "cam", "x4", "mm", "mat6"), [CAM], live_d),
         ]
 
-    return run_cases(pk2, pr2, cases_on(d, None)
-                     + cases_on(dc, "well-conditioned rows"), o)
+    results = run_cases(pk2, pr2, cases_on(d, None)
+                        + cases_on(dc, "well-conditioned rows"), o)
+    # the cost sums its blocks' partials in a fixed order, without
+    # floating-point atomics: two calls give the same bits
+    for robust in (0, 1, 2):
+        calls = [pk2.pose_error2(d["cam"], d["ct64"], d["x4_64"], d["uv64"],
+                                 d["mask"], robust=robust, huber=1.0)
+                 for _ in range(2)]
+        if not all(torch.equal(calls[0][k], calls[1][k]) for k in calls[0]):
+            raise AssertionError(f"pose_error2 (robust {robust}): two calls "
+                                 f"differ: {calls}")
+    print("pose_error2: two calls bit-identical under NONE, HUBER and "
+          "CAUCHY", flush=True)
+    return results
 
 
 def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
@@ -1698,7 +1729,7 @@ def check_spmd_kernels(problem):
     lin = s.linearize(c, lm)
     _rw, _sw, ata, atr, _jpsq = pose_kernels.prepare(
         s.obs.cam, lin.ct, lin.x, s._uv_s, s._mask1, alpha=s.alpha,
-        robust=s.robust, huber=s.huber)
+        robust=s.robust, huber=s.huber, sums=False)
     _hi, _hib, jls_obs, lh_obs = s._hll_pieces_s(lin)
     h = s._h_factor_s(lin, jls_obs, lh_obs)
     z = lin.pose_scale * torch.randn_like(lin.pose_scale)

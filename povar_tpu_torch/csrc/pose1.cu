@@ -28,11 +28,12 @@
 //
 // What bounds them on the card: all eleven stream O observations with a
 // few dozen flops each, so each is bound by device-memory bytes per
-// observation (K1 reads 28 B and writes 68 B; K2 64/36; K3 68/0; K4
-// 52/12; K5 64/0; K6 68/0; K7 48/0 at f64 state; K8 52/0; K9 52/0; K10
-// 56/12; K11 68/0) until its per-camera adds cost more than the bytes (a
-// shared f32 atomicAdd is a compare-and-swap loop on this card): K1 and
-// K5 add 12 per live row, K9 144, which bind it. K3 adds its 52 moment-
+// observation (K1 reads 28 B and writes 68 B, 48 without its sums; K2
+// 64/36; K3 68/0; K4 52/12; K5 64/0; K6 68/0; K7 48/0 at f64 state; K8
+// 52/0; K9 52/0; K10 56/12; K11 68/0) until its per-camera adds cost
+// more than the bytes (a shared f32 atomicAdd is a compare-and-swap loop
+// on this card): K5 adds 12 per live row, K9 144, which bind it; K1 adds
+// 8 through warp_scatter into per-warp accumulators. K3 adds its 52 moment-
 // form values through warp_scatter, and those adds (~40 of its 76 us at
 // venice-89) and its arithmetic bind it; K8 adds 12 per row into per-
 // warp accumulators at no measurable cost, and its tile walk (two
@@ -64,73 +65,138 @@ namespace {
 // equation terms ata = w A~^T A~ [9, O] (rows i*3+j) and atr = w A~^T r
 // [3, O], and the per-camera Jp column norms^2 jpsq[4a+j] =
 // sum w K[a][a] xh_j^2 with diag K = [1, 1, sp^2 (u^2 + v^2)].
+// Rows 0-3 and 4-7 of jpsq are the same sums, so a live row adds 8
+// values per camera (w xh_j^2 and w kd2 xh_j^2, xh_3 = 1) through
+// warp_scatter (the lanes of a warp on one camera sum first).
+// kPrivate (16 warps x 8 N floats fit: N up to 454): blocks of 512
+// threads, each warp owning an [8, N] shared accumulator, so its adds
+// need no atomics; otherwise blocks of 1024 threads on one [8, N]
+// accumulator with shared atomics (up to N = 7264; fewer, larger blocks
+// flush fewer partials: 41 against 50-53 us at N = 1024). A block
+// flushes its sums (the warps' copies summed) as f64 global atomics into
+// `acc_g` [8 N + 1] doubles (the sums, then a ticket), zeroed by the
+// caller; the last block to take a ticket writes jpsq [12, N] in f32
+// from them, rows 4-7 equal to rows 0-3. The camera table is read
+// through __ldg (4.3 KB at N = 89; staging it in shared memory cost 2 us
+// there and 13 at N = 1024). kSums false (the back-substitution and the
+// landmark initialization, which read ata and atr alone) skips the sums
+// and the r_w / sw stores.
 // Replaces pallas_pose.py:285 prepare. Bound: 96 B of device memory per
-// observation (28 read, 68 written), plus 12 shared atomics per live row.
-__global__ void __launch_bounds__(kThreads)
+// observation (28 read, 68 written), 76 B without the sums (28 read,
+// 48 written). An earlier version's 12 per-lane shared atomics per live
+// row (each a compare-and-swap loop on this card) took 32 us against
+// 16.0 at venice-89 and 91 on the mesh's window order; here the r_w /
+// sw stores cost ~4.6 us of 28.2, the adds ~2.3 and the f64 atomics
+// ~2.4. The blocks' partials added in f32 straight into both rows of a
+// zeroed jpsq (no last block) took 24.2 us but sent 1 of 64
+// POWER_SCHUR_COMPLEMENT step-1 solves past chip_smoke.py's band, the
+// earlier version 0 of 64 in the same call (tools/pose1_ab.py, tools/
+// step2_spread.py and PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kJpRows = 8;
+constexpr int kPrepThreads = 512;
+constexpr int kPrepSharedThreads = 1024;
+constexpr int kPrepSmThreads = 1536;  // resident per SM: the registers
+
+template <bool kSums, bool kPrivate, int kBlock>
+__global__ void __launch_bounds__(kBlock, kPrepSmThreads / kBlock)
     prepare_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
                    const float* __restrict__ x, const float* __restrict__ uv,
                    const float* __restrict__ mask, float* __restrict__ rw,
                    float* __restrict__ sw_out, float* __restrict__ ata,
                    float* __restrict__ atr, float* __restrict__ jpsq,
-                   int n_obs, int n_cams, float sp, float sa, float sp2,
-                   int huber_on, float huber, float huber2) {
-  extern __shared__ float smem[];
-  float* tbl = smem;
-  float* acc = smem + 12 * n_cams;
-  povar::smem_copy(tbl, ct, 12 * n_cams);
-  povar::smem_zero(acc, 12 * n_cams);
-  __syncthreads();
-  const int O = n_obs;
-  POVAR_OBS_LOOP(o, O) {
-    const int c = cam[o];
-    const float u = uv[o], v = uv[O + o];
-    const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
-    const bool live = mask[o] > 0.0f;
-    float A[4][4], r[4];
-    povar::a_tilde(tbl, n_cams, c, u, v, sp, sa, A);
-    povar::residual(A, xh, u, v, sa, r);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) r[k] = live ? r[k] : 0.0f;
-    const float res_sq = r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + r[3] * r[3];
-    float w = 1.0f;
-    if (huber_on && !(res_sq < huber2)) {
-      // max(res_sq, 1e-30) that keeps a NaN a NaN, as jnp.maximum does
-      w = huber / sqrtf(res_sq < 1e-30f ? 1e-30f : res_sq);
-    }
-    w = live ? w : 0.0f;
-    const float s = sqrtf(w);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) rw[k * O + o] = r[k] * s;
-    sw_out[o] = s;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        float a = A[0][i] * A[0][j];
-        a += A[1][i] * A[1][j];
-        a += A[2][i] * A[2][j];
-        a += A[3][i] * A[3][j];
-        ata[(i * 3 + j) * O + o] = w * a;
-      }
-      float b = A[0][i] * r[0];
-      b += A[1][i] * r[1];
-      b += A[2][i] * r[2];
-      b += A[3][i] * r[3];
-      atr[i * O + o] = w * b;
-    }
-    if (w != 0.0f) {
-      const float kd2 = sp2 * (u * u + v * v);
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float wk = a == 2 ? w * kd2 : w;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          atomicAdd(&acc[(4 * a + j) * n_cams + c], wk * xh[j] * xh[j]);
-      }
-    }
+                   double* __restrict__ acc_g, int n_obs, int n_cams,
+                   float sp, float sa, float sp2, int huber_on, float huber,
+                   float huber2) {
+  constexpr int kWarps = kBlock / 32;
+  extern __shared__ float acc[];  // kSums: [8, N] per warp or per block
+  const int n_acc = kJpRows * n_cams;
+  if (kSums) {
+    povar::smem_zero(acc, (kPrivate ? kWarps : 1) * n_acc);
+    __syncthreads();
   }
+  float* wacc = kPrivate ? acc + (threadIdx.x >> 5) * n_acc : acc;
+  const int O = n_obs;
+  const int lane = threadIdx.x & 31;
+  // warp-uniform trips: every lane reaches warp_scatter
+  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < O;
+       base += gridDim.x * blockDim.x) {
+    const int o = base + lane;
+    float sums[kJpRows];
+#pragma unroll
+    for (int k = 0; k < kJpRows; ++k) sums[k] = 0.0f;
+    int c = 0;
+    bool live = false;
+    if (o < O) {
+      c = cam[o];
+      const float u = uv[o], v = uv[O + o];
+      const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
+      const bool unmasked = mask[o] > 0.0f;
+      float P[12], A[4][4], r[4];
+#pragma unroll
+      for (int k = 0; k < 12; ++k) P[k] = __ldg(ct + k * n_cams + c);
+      povar::a_tilde(P, 1, 0, u, v, sp, sa, A);
+      povar::residual(A, xh, u, v, sa, r);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) r[k] = unmasked ? r[k] : 0.0f;
+      const float res_sq =
+          r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + r[3] * r[3];
+      float w = 1.0f;
+      if (huber_on && !(res_sq < huber2)) {
+        // max(res_sq, 1e-30) that keeps a NaN a NaN, as jnp.maximum does
+        w = huber / sqrtf(res_sq < 1e-30f ? 1e-30f : res_sq);
+      }
+      w = unmasked ? w : 0.0f;
+      if (kSums) {
+        const float s = sqrtf(w);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) rw[k * O + o] = r[k] * s;
+        sw_out[o] = s;
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          float a = A[0][i] * A[0][j];
+          a += A[1][i] * A[1][j];
+          a += A[2][i] * A[2][j];
+          a += A[3][i] * A[3][j];
+          ata[(i * 3 + j) * O + o] = w * a;
+        }
+        float b = A[0][i] * r[0];
+        b += A[1][i] * r[1];
+        b += A[2][i] * r[2];
+        b += A[3][i] * r[3];
+        atr[i * O + o] = w * b;
+      }
+      if (kSums) {
+        live = w != 0.0f;
+        const float wk[2] = {w, w * (sp2 * (u * u + v * v))};
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sums[4 * t + j] = wk[t] * xh[j] * xh[j];
+      }
+    }
+    if (kSums)
+      povar::warp_scatter<kJpRows, !kPrivate>(wacc, n_cams, c, live, sums);
+  }
+  if (!kSums) return;
   __syncthreads();
-  povar::flush_acc(jpsq, acc, 12 * n_cams);
+  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
+    float s = acc[i];
+    if (kPrivate) {
+      for (int w = 1; w < kWarps; ++w) s += acc[w * n_acc + i];
+    }
+    if (s != 0.0f) atomicAdd(acc_g + i, (double)s);
+  }
+  if (!povar::last_block(reinterpret_cast<unsigned*>(acc_g + n_acc)))
+    return;
+  // jpsq row 4a + j: sum row j for a = 0, 1 and row 4 + j for a = 2
+  for (int i = threadIdx.x; i < 12 * n_cams; i += blockDim.x) {
+    const int row = i / n_cams;
+    const int src = (row < 8 ? row & 3 : row - 4) * n_cams + i - row * n_cams;
+    jpsq[i] = (float)__ldcg(acc_g + src);
+  }
 }
 
 // ------------------------------------------------------------------ K2
@@ -747,15 +813,32 @@ const char* povar_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// sums = 0: rw, sw, jpsq and acc are not touched (may be null); acc
+// holds 8 * n_cams + 1 doubles, zeroed
 int povar_prepare(const int32_t* cam, const float* ct, const float* x,
                   const float* uv, const float* mask, float* rw, float* sw,
-                  float* ata, float* atr, float* jpsq, int n_obs, int n_cams,
-                  float sp, float sa, float sp2, int huber_on, float huber,
-                  float huber2, void* stream) {
-  const size_t smem = sizeof(float) * 24 * (size_t)n_cams;
-  return launch(prepare_kernel, n_obs, smem, stream, cam, ct, x, uv, mask,
-                rw, sw, ata, atr, jpsq, n_obs, n_cams, sp, sa, sp2,
-                huber_on, huber, huber2);
+                  float* ata, float* atr, float* jpsq, double* acc,
+                  int n_obs, int n_cams, float sp, float sa, float sp2,
+                  int huber_on, float huber, float huber2, int sums,
+                  void* stream) {
+  const size_t block = sizeof(float) * kJpRows * (size_t)n_cams;
+  if (!sums) {
+    return launch<kPrepThreads>(prepare_kernel<false, false, kPrepThreads>,
+                                n_obs, 0, stream, cam, ct, x, uv, mask, rw,
+                                sw, ata, atr, jpsq, acc, n_obs, n_cams, sp,
+                                sa, sp2, huber_on, huber, huber2);
+  }
+  if (kPrepThreads / 32 * block <= (size_t)max_optin_smem()) {
+    return launch<kPrepThreads>(prepare_kernel<true, true, kPrepThreads>,
+                                n_obs, kPrepThreads / 32 * block, stream, cam,
+                                ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc,
+                                n_obs, n_cams, sp, sa, sp2, huber_on, huber,
+                                huber2);
+  }
+  return launch<kPrepSharedThreads>(
+      prepare_kernel<true, false, kPrepSharedThreads>, n_obs, block, stream,
+      cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc, n_obs, n_cams, sp, sa,
+      sp2, huber_on, huber, huber2);
 }
 
 int povar_e0_factor(const int32_t* cam, const float* ct, const float* uv,

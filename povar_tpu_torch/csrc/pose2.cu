@@ -32,7 +32,7 @@
 // venice-89): S1 reads 40 B and writes 64 B, plus 12 shared atomics;
 // S2 reads 80 B and does 52 shared atomics (its per-camera moments); S3
 // reads 60 B (68 with r_w) and writes 12 B; S4 reads 72 B plus 12
-// shared atomics; S5 reads 92 B; S6 reads 60 B (f64 state) with ~30 f64
+// shared atomics; S5 reads 92 B; S6 reads 60 B (f64 state) with ~45 f64
 // flops; S7 reads 60 B once per slot row plus 12 shared atomics; S8
 // reads 60 B and does 144 shared atomics (the atomics bound it).
 // Per-camera sums leave a block through one global atomic per non-zero
@@ -47,6 +47,7 @@
 
 using povar::kThreads;
 using povar::launch;
+using povar::warp_sum;
 using povar::max_optin_smem;
 
 namespace {
@@ -553,39 +554,113 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------ S6
-// Homogeneous cost in native f64 over live rows (mask > 0): per-block
-// partials, at partials[k * n_part + block], of
-//   k = 0 sum rho(|r|^2) (robust 0 NONE: 0.5 r^2, 1 HUBER: 0.5 (2 - w) w
-//         r^2, 2 CAUCHY: log1p(r^2)),  1 sum |r|,
+// Homogeneous cost in native f64 over live rows (mask > 0): the sums
+//   0 sum rho(|r|^2) (robust 0 NONE: 0.5 r^2, 1 HUBER: 0.5 (2 - w) w
+//     r^2, 2 CAUCHY: log1p(r^2)),  1 sum |r|,
 //   2, 3 the same over projection-valid rows (|p2| >= 1e-5),
-//   4 the valid count, 5 the count of rows with a non-finite residual,
-//   6 the live count.
+// and the counts 0 of valid rows, 1 of rows with a non-finite residual,
+// 2 of live rows, as integers. Each thread sums its rows of the grid-
+// stride loop; a block's seven values meet in one shuffle pass and one
+// barrier (block_reduce), and each block writes them to `part` (f64
+// [4, n_part], then the counts as Count [3, n_part]). The last block to
+// take a ticket adds the partials up in a fixed order (warp k takes
+// value k of every block, sum_blocks) into sums [4], counts [2] (live,
+// valid) as int64 and ok (no non-
+// finite residual), and resets the ticket for the next call: no
+// floating-point atomics, so two calls on one input give the same bits,
+// and the caller zeroes nothing. The camera table (8.5 KB at N = 89) is
+// read through the read-only path (__ldg), not staged.
 // Replaces pallas_pose2.py:822 error2_df32 (double-float with a refined
 // division on the TPU). Bound: 60 B read per observation (f64 state) and
-// ~30 f64 flops per row, far below the card's f64 rate.
+// ~45 f64 operations per row, far below the card's f64 rate: 13.7 us
+// against 9.3 at venice-89, ~3 of them the last block's tail (a fence
+// and a ticket per block, two rounds of L2 loads). An earlier version
+// (seven serial block sums, the table staged in shared memory, f64
+// counts, and five device operations around the launch: a zeroed
+// partials buffer, their sum, two casts and a compare) took 19.5
+// (tools/pose2_ab.py and PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kErrSums = 4;
+constexpr int kErrCounts = 3;
+constexpr int kWarps = kThreads / 32;
+using Count = unsigned;
+
+// a block's sums and counts, valid in thread 0: one shuffle pass, one
+// barrier, then warp 0 over the warps' values
+__device__ __forceinline__ void block_reduce(double (&s)[kErrSums],
+                                             Count (&n)[kErrCounts]) {
+  __shared__ double red_s[kErrSums][kWarps];
+  __shared__ Count red_n[kErrCounts][kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kErrSums; ++k) s[k] = warp_sum(s[k]);
+#pragma unroll
+  for (int k = 0; k < kErrCounts; ++k) n[k] = warp_sum(n[k]);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < kErrSums; ++k) red_s[k][warp] = s[k];
+#pragma unroll
+    for (int k = 0; k < kErrCounts; ++k) red_n[k][warp] = n[k];
+  }
+  __syncthreads();
+  if (warp != 0) return;
+#pragma unroll
+  for (int k = 0; k < kErrSums; ++k)
+    s[k] = warp_sum(lane < kWarps ? red_s[k][lane] : 0.0);
+#pragma unroll
+  for (int k = 0; k < kErrCounts; ++k)
+    n[k] = warp_sum(lane < kWarps ? red_n[k][lane] : Count(0));
+}
+
+// value k of every block's partials in `part` (row k of n_part entries
+// of T), valid in lane 0: lane l adds blocks l + 32 u + 32 kBatch i in
+// turn into kBatch sums (u), which it adds in order; then the shuffle
+// tree. kBatch loads per lane are in flight at once (the last block
+// runs alone, so their latency is the kernel's tail).
+template <typename T>
+__device__ __forceinline__ T sum_blocks(const T* part, int n_part, int k) {
+  using povar::kBatch;
+  const int lane = threadIdx.x & 31;
+  const int n = gridDim.x;
+  T t[kBatch];
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) t[u] = T(0);
+  for (int b0 = lane; b0 < n; b0 += 32 * kBatch) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int b = b0 + 32 * u;
+      if (b < n) t[u] += __ldcg(part + k * n_part + b);
+    }
+  }
+  T sum = t[0];
+#pragma unroll
+  for (int u = 1; u < kBatch; ++u) sum += t[u];
+  return warp_sum(sum);
+}
+
 __global__ void __launch_bounds__(kThreads)
     pose_error2_kernel(const int32_t* __restrict__ cam, const double* __restrict__ ct,
                        const double* __restrict__ x4_in, const double* __restrict__ uv,
-                       const float* __restrict__ mask, double* __restrict__ partials,
+                       const float* __restrict__ mask, double* __restrict__ part,
+                       unsigned* __restrict__ ticket, double* __restrict__ sums,
+                       int64_t* __restrict__ counts, bool* __restrict__ ok,
                        int n_part, int n_obs, int n_cams, int robust,
                        double huber) {
-  extern __shared__ double smem_d[];
-  __shared__ double red[32];
-  double* tbl = smem_d;
-  povar::smem_copy(tbl, ct, 12 * n_cams);
-  __syncthreads();
   const int O = n_obs;
-  double acc[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  double s[kErrSums] = {0.0, 0.0, 0.0, 0.0};
+  Count n[kErrCounts] = {0, 0, 0};
   POVAR_OBS_LOOP(o, O) {
     if (!(mask[o] > 0.0f)) continue;
     const int c = cam[o];
     const double x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
                           x4_in[3 * O + o]};
-    double p[3];
-    project(tbl, n_cams, c, x4, p);
+    double P[12], p[3];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) P[k] = __ldg(ct + k * n_cams + c);
+    project(P, 1, 0, x4, p);
     const double r0 = p[0] / p[2] - uv[o];
     const double r1 = p[1] / p[2] - uv[O + o];
-    const double validf = fabs(p[2]) >= 1e-5 ? 1.0 : 0.0;
+    const bool valid = fabs(p[2]) >= 1e-5;
+    const double validf = valid ? 1.0 : 0.0;
     const bool finite = isfinite(r0) && isfinite(r1);
     const double res_sq = r0 * r0 + r1 * r1;
     double e;
@@ -598,19 +673,38 @@ __global__ void __launch_bounds__(kThreads)
       e = 0.5 * res_sq;
     }
     const double rn = sqrt(res_sq);
-    acc[0] += e;
-    acc[1] += rn;
-    acc[2] += e * validf;
-    acc[3] += rn * validf;
-    acc[4] += validf;
-    acc[5] += finite ? 0.0 : 1.0;
-    acc[6] += 1.0;
+    s[0] += e;
+    s[1] += rn;
+    s[2] += e * validf;
+    s[3] += rn * validf;
+    n[0] += valid ? 1 : 0;
+    n[1] += finite ? 0 : 1;
+    n[2] += 1;
   }
+  block_reduce(s, n);
+  Count* part_n = reinterpret_cast<Count*>(part + kErrSums * n_part);
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int k = 0; k < 7; ++k) {
-    const double t = povar::block_sum(acc[k], red);
-    if (threadIdx.x == 0) partials[k * n_part + blockIdx.x] = t;
+    for (int k = 0; k < kErrSums; ++k) part[k * n_part + blockIdx.x] = s[k];
+#pragma unroll
+    for (int k = 0; k < kErrCounts; ++k)
+      part_n[k * n_part + blockIdx.x] = n[k];
   }
+  if (!povar::last_block(ticket, true)) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp < kErrSums) {
+    const double t = sum_blocks(part, n_part, warp);
+    if (lane == 0) sums[warp] = t;
+  } else if (warp < kErrSums + kErrCounts) {
+    const Count t = sum_blocks<Count>(part_n, n_part, warp - kErrSums);
+    if (lane == 0) {
+      const int k = warp - kErrSums;
+      if (k == 0) counts[1] = (int64_t)t;  // valid
+      if (k == 1) *ok = t == Count(0);     // no non-finite residual
+      if (k == 2) counts[0] = (int64_t)t;  // live
+    }
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 }  // namespace
@@ -694,13 +788,18 @@ int povar_ldiff2(const int32_t* cam, const float* x4, const float* mm,
                 ilm4, zt, partials, n_obs, n_cams);
 }
 
+// part [7, n_part] f64 scratch (n_part >= the grid: ceil(O / 256)
+// does); ticket zero before the first call, reset by every call
 int povar_pose_error2(const int32_t* cam, const double* ct, const double* x4,
-                      const double* uv, const float* mask, double* partials,
-                      int n_part, int n_obs, int n_cams, int robust,
-                      double huber, void* stream) {
-  const size_t smem = sizeof(double) * 12 * (size_t)n_cams;
-  return launch(pose_error2_kernel, n_obs, smem, stream, cam, ct, x4, uv,
-                mask, partials, n_part, n_obs, n_cams, robust, huber);
+                      const double* uv, const float* mask, double* part,
+                      unsigned* ticket, double* sums, int64_t* counts,
+                      bool* ok, int n_part, int n_obs, int n_cams,
+                      int robust, double huber, void* stream) {
+  static_assert(sizeof(Count) <= sizeof(double), "counts fit a partial");
+  if ((long)n_part * kThreads < n_obs) return (int)cudaErrorInvalidValue;
+  return launch(pose_error2_kernel, n_obs, 0, stream, cam, ct, x4, uv, mask,
+                part, ticket, sums, counts, ok, n_part, n_obs, n_cams,
+                robust, huber);
 }
 
 }  // extern "C"

@@ -93,6 +93,9 @@ __device__ __forceinline__ void warp_scatter(T* acc, int n, int c, bool live,
     }
     rest &= rest - 1u;
   }
+  // a warp-owned accumulator: this call's leads may read what another
+  // lane of the warp added in an earlier call
+  if (!kAtomic) __syncwarp();
   if (lead) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -102,6 +105,22 @@ __device__ __forceinline__ void warp_scatter(T* acc, int n, int c, bool live,
         acc[k * n + c] += v[k];
     }
   }
+}
+
+// True in every thread of the last block to take a ticket from `ticket`
+// (which the caller zeroed or the previous call's last block reset); all
+// of the block's threads must call it. Every block's writes before its
+// call are then visible to the last block (read them with __ldcg: they
+// never passed this SM's L1); `thread0_only`: only thread 0 wrote.
+__device__ __forceinline__ bool last_block(unsigned* ticket,
+                                           bool thread0_only = false) {
+  __shared__ bool last;
+  if (!thread0_only || threadIdx.x == 0) __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
 }
 
 // ------------------------------------------------------ per-camera moments
@@ -148,19 +167,9 @@ __device__ __forceinline__ void expand_moments(const int* __restrict__ expand,
                                                float* __restrict__ b,
                                                T* acc_g, int n_cams,
                                                int chunk, float* smem) {
-  __shared__ bool last;
   __shared__ int ex[144];
-  // every block's sums are in acc_g once the last block takes its ticket
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned* ticket =
-        reinterpret_cast<unsigned*>(acc_g + kMomentRows * n_cams);
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+  if (!last_block(reinterpret_cast<unsigned*>(acc_g + kMomentRows * n_cams)))
+    return;
   for (int i = threadIdx.x; i < 144; i += blockDim.x) ex[i] = expand[i];
   if (b != nullptr) {
     for (int i = threadIdx.x; i < 12 * n_cams; i += blockDim.x)
@@ -301,23 +310,26 @@ __device__ __forceinline__ void xh_contract(const T t[12], const T xh[4],
   }
 }
 
+// sum of v over the warp (a fixed shuffle tree), valid in lane 0
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(kFullMask, v, off);
+  return v;
+}
+
 // sum of v over the block, valid in thread 0; red holds >= 32 entries
 template <typename T>
 __device__ __forceinline__ T block_sum(T v, T* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
+  v = warp_sum(v);
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
   if (lane == 0) red[wid] = v;
   __syncthreads();
   const int n_warps = (blockDim.x + 31) >> 5;
   v = (int)threadIdx.x < n_warps ? red[threadIdx.x] : T(0);
-  if (wid == 0) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-  }
+  if (wid == 0) v = warp_sum(v);
   __syncthreads();
   return v;
 }

@@ -40,7 +40,7 @@ _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # argument types of every exported entry point (csrc/pose1.cu, pose2.cu,
 # cam.cu, spmd.cu)
 SIGNATURES = {
-    "povar_prepare": [_P] * 10 + [_I, _I, _F, _F, _F, _I, _F, _F, _P],
+    "povar_prepare": [_P] * 11 + [_I, _I, _F, _F, _F, _I, _F, _F, _I, _P],
     "povar_e0_factor": [_P] * 7 + [_I, _I, _F, _P],
     "povar_hpp_b": [_P] * 12 + [_I, _I, _F, _F, _F, _P],
     "povar_e0_u": [_P] * 5 + [_I, _I, _P],
@@ -63,7 +63,7 @@ SIGNATURES = {
     "povar_mat_dot2": [_P] * 8 + [_I, _I, _I, _P],
     "povar_scatter2": [_P] * 7 + [_I, _I, _P],
     "povar_ldiff2": [_P] * 9 + [_I, _I, _P],
-    "povar_pose_error2": [_P] * 6 + [_I, _I, _I, _I, _D, _P],
+    "povar_pose_error2": [_P] * 10 + [_I, _I, _I, _I, _D, _P],
     "povar_spmd_part_sums": [_P] * 3 + [_I] * 5 + [_P],
     "povar_spmd_expand_rows": [_P] * 3 + [_I] * 5 + [_P],
     "povar_spmd_reduce_reexpand": [_P] * 3 + [_I] * 5 + [_P],

@@ -19,13 +19,14 @@ are f32 except `pose_error2`, which runs in native f64 where the TPU ran
 double-float (`error2_df32`). Two changes of return shape against the
 Pallas kernels: `ldiff2` returns the f64 sum of its per-block partials
 instead of 128 f32 lane partials, and `pose_error2` returns the
-ResidualInfo dict of the cost (as 0-d tensors) instead of [10, 128]
-double-float partials.
+ResidualInfo dict of the cost (as 0-d tensors, its kernel's own totals)
+instead of [10, 128] double-float partials.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
@@ -249,6 +250,14 @@ def ldiff2(cam, x4, mm, sw, r_w, jls8, ilm4, zt):
     return part.sum(dtype=torch.float64)
 
 
+@functools.lru_cache(maxsize=None)
+def _error_ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """pose_error2's ticket on `device` for calls on CUDA stream `stream`
+    (one zeroing when first made; every call's last block resets it,
+    and calls on one stream run one after another)."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
 def pose_error2(cam, cam_table, x4, uv, mask, *, robust, huber
                 ) -> Dict[str, torch.Tensor]:
     """Homogeneous step-2 cost (S6) as the ResidualInfo dict of 0-d
@@ -256,7 +265,9 @@ def pose_error2(cam, cam_table, x4, uv, mask, *, robust, huber
     error_valid, residual_sum_valid, is_numerically_valid). cam_table
     [12, N], x4 [4, O] and uv [2, O] are f64; mask [1, O] f32. On the
     card this is native f64 where the TPU ran double-float
-    (pallas_pose2.error2_df32)."""
+    (pallas_pose2.error2_df32), one launch and no other device operation:
+    the kernel sums its blocks' partials in a fixed order and writes the
+    dict's tensors itself."""
     o, n = cam.shape[0], cam_table.shape[-1]
     _check_shapes({
         "cam_table": (cam_table, 12, "n"), "x4": (x4, 4, "o"),
@@ -270,18 +281,23 @@ def pose_error2(cam, cam_table, x4, uv, mask, *, robust, huber
         f64=(("cam_table", cam_table), ("x4", x4), ("uv", uv)),
     )
     n_part = -(-o // _THREADS)
-    part = torch.zeros((7, n_part), dtype=torch.float64, device=x4.device)
+    dev = x4.device
+    part = torch.empty((7, n_part), dtype=torch.float64, device=dev)
+    sums = torch.empty(4, dtype=torch.float64, device=dev)
+    counts = torch.empty(2, dtype=torch.int64, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    stream = _stream(x4)
     _launch("pose_error2", _build.library().povar_pose_error2,
             _ptr(cam), _ptr(cam_table), _ptr(x4), _ptr(uv), _ptr(mask),
-            _ptr(part), n_part, o, n, int(robust), float(huber),
-            _stream(x4), counts=LAUNCHES)
-    tot = part.sum(dim=1)
+            _ptr(part), _ptr(_error_ticket(dev, stream.value)), _ptr(sums),
+            _ptr(counts), _ptr(ok), n_part, o, n, int(robust),
+            float(huber), stream, counts=LAUNCHES)
     return {
-        "num_obs_all": tot[6].to(torch.int64),
-        "error_all": tot[0],
-        "residual_sum_all": tot[1],
-        "num_obs_valid": tot[4].to(torch.int64),
-        "error_valid": tot[2],
-        "residual_sum_valid": tot[3],
-        "is_numerically_valid": tot[5] == 0,
+        "num_obs_all": counts[0],
+        "error_all": sums[0],
+        "residual_sum_all": sums[1],
+        "num_obs_valid": counts[1],
+        "error_valid": sums[2],
+        "residual_sum_valid": sums[3],
+        "is_numerically_valid": ok,
     }

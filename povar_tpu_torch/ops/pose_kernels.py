@@ -159,6 +159,10 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _ptr_or_null(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None) if t is None else _ptr(t)
+
+
 def _launch(name: str, fn, *args, counts: Dict[str, int] = LAUNCHES) -> None:
     """Call a kernel's C entry point; raise on a nonzero cudaError_t,
     else add one to the kernel's launch count in `counts`."""
@@ -191,12 +195,14 @@ def _cuda_checks(o: int, n: int, cam, f32=(), f64=()) -> None:
 
 
 def prepare(cam, cam_table, x, uv, mask, *, alpha, robust, huber,
-            weighted=True):
+            weighted=True, sums=True):
     """Linearization-point pass (K1). Inputs: cam [O] i32, cam_table
     [12, N] (row-major vec(P) per camera), x [3, O] (landmarks expanded
     to observations), uv [2, O], mask [1, O] (>0 = live row). Returns
     (r_w [4,O], sw [1,O], ata [9,O], atr [3,O], jpsq [12,N]).
-    `weighted=False` skips the robust weight."""
+    `weighted=False` skips the robust weight; `sums=False` skips the
+    per-camera sums and the r_w / sw stores (callers that read ata and
+    atr alone) and returns None in place of r_w, sw and jpsq."""
     o, n = cam.shape[0], cam_table.shape[-1]
     _check_shapes({
         "cam_table": (cam_table, 12, "n"), "x": (x, 3, "o"),
@@ -205,7 +211,7 @@ def prepare(cam, cam_table, x, uv, mask, *, alpha, robust, huber,
     if _on_cpu(cam, cam_table, x, uv, mask):
         return pose_ref.prepare(
             cam, cam_table, x, uv, mask, alpha=alpha, robust=robust,
-            huber=huber, weighted=weighted,
+            huber=huber, weighted=weighted, sums=sums,
         )
     _cuda_checks(o, n, cam, f32=(
         ("cam_table", cam_table), ("x", x),
@@ -213,18 +219,23 @@ def prepare(cam, cam_table, x, uv, mask, *, alpha, robust, huber,
     ))
     c = pose_ref.pose_consts(alpha, torch.float32)
     opts = dict(dtype=torch.float32, device=x.device)
-    rw = torch.empty((4, o), **opts)
-    sw = torch.empty((1, o), **opts)
     ata = torch.empty((9, o), **opts)
     atr = torch.empty((3, o), **opts)
-    jpsq = torch.zeros((12, n), **opts)
+    rw = sw = jpsq = acc = None
+    if sums:
+        rw = torch.empty((4, o), **opts)
+        sw = torch.empty((1, o), **opts)
+        jpsq = torch.empty((12, n), **opts)
+        # the blocks' f64 sums (8 rows of jpsq's 12) and the ticket
+        acc = torch.zeros(8 * n + 1, dtype=torch.float64, device=x.device)
     huber_on = bool(weighted) and robust == ROBUST_HUBER
     _launch("prepare", _build.library().povar_prepare,
             _ptr(cam), _ptr(cam_table), _ptr(x), _ptr(uv), _ptr(mask),
-            _ptr(rw), _ptr(sw), _ptr(ata), _ptr(atr), _ptr(jpsq), o, n,
-            c.sp, c.sa, c.sp2, int(huber_on), float(huber),
+            *map(_ptr_or_null, (rw, sw)), _ptr(ata), _ptr(atr),
+            *map(_ptr_or_null, (jpsq, acc)), o, n, c.sp, c.sa, c.sp2,
+            int(huber_on), float(huber),
             float(torch.tensor(huber * huber, dtype=torch.float32)),
-            _stream(x))
+            int(bool(sums)), _stream(x))
     return rw, sw, ata, atr, jpsq
 
 

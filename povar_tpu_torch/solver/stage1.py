@@ -248,6 +248,7 @@ class Stage1Solver(SlotSolver):
         _rw, _sw, ata, atr, _jpsq = pose_kernels.prepare(
             self.obs.cam, ct, zeros, self._uv_s, self._mask1,
             alpha=self.alpha, robust=0, huber=1.0, weighted=False,
+            sums=False,
         )
         gtg = self._hll_guard_L(self._seg_L(ata).reshape(3, 3, -1))
         gtz = -self._seg_L(atr)
@@ -607,6 +608,7 @@ class Stage1Solver(SlotSolver):
         _rw, _sw, ata, atr, _jpsq = pose_kernels.prepare(
             self.obs.cam, ct_new, lin.x, self._uv_s, self._mask1,
             alpha=self.alpha, robust=0, huber=1.0, weighted=False,
+            sums=False,
         )
         hll_new = self._hll_guard_L(self._seg_L(ata).reshape(3, 3, -1))
         tmp = self._seg_L(atr)

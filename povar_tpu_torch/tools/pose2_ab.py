@@ -1,41 +1,48 @@
-"""`hppb2` and `e0_term2_parts` against an earlier version of their
-kernels, and against controlled variants of their own, on one card.
+"""`hppb2`, `e0_term2_parts` and `pose_error2` against an earlier
+version of their kernels, and against controlled variants of their own,
+on one card.
 
     python -m povar_tpu_torch.tools.pose2_ab kernels --parent DIR
     python -m povar_tpu_torch.tools.pose2_ab bench
 
 Run from the repository root (`chip_smoke.py` lends its timers, its
 step-1 solve and its bench iteration). `kernels` builds DIR/pose2.cu
-(with DIR/pose_common.cuh: an earlier commit's csrc/ whose entry points
-take the package's arguments, for instance `git archive <commit>
-povar_tpu_torch/csrc` unpacked into a git-ignored directory) and
-VARIANTS of the package's own csrc/, one nvcc each, all
-started together, into build/pose2_ab/. It then takes the venice-89
-step-2 state of the card's step-1 result (chip_smoke.check_kernels2's
-operands) and times each kernel in turns (earlier, package, package,
-earlier; then the variants) at
+(with DIR/pose_common.cuh: an earlier commit's csrc/, for instance
+`git archive <commit> povar_tpu_torch/csrc` unpacked into a git-ignored
+directory; its entry points take the package's arguments except
+`povar_pose_error2`, which takes PARENT_SIG's) and VARIANTS of the
+package's own csrc/, one nvcc each, all started together, into
+build/pose2_ab/, and prints the SASS opcode counts (cuobjdump -sass) of
+the earlier and the package kernels. It then takes the venice-89 step-2
+state of the card's step-1 result (chip_smoke.check_kernels2's operands)
+and times each kernel in turns (earlier, package, package, earlier; then
+the variants that concern it) at
 
-  (a) venice-89: O = 557,056 slot rows, N = 89;
-  (b) the camera-sorted orders: hppb2 on the 1-device mesh solver's own
-      step-2 operands (the SPMD window order, 598,016 lanes), the fused
-      term on the venice-89 operands with each part's landmarks sorted
-      by first camera (the window plan's order, the same parts);
-  (c) N = 1024 seeded cameras on the venice-89 rows, and N = 2048 for
-      hppb2 (its global-memory route),
+  (a) venice-89: O = 557,056 slot rows, N = 89 (pose_error2 under NONE,
+      HUBER and CAUCHY);
+  (b) the camera-sorted orders: hppb2 and pose_error2 on the 1-device
+      mesh solver's own step-2 operands (the SPMD window order, 598,016
+      lanes), the fused term on the venice-89 operands with each part's
+      landmarks sorted by first camera (the window plan's order, the
+      same parts);
+  (c) N = 1024 seeded cameras on the venice-89 rows (pose_error2: the
+      89 cameras repeated), and N = 2048 for hppb2 (its global-memory
+      route),
 
 checking the earlier and the package kernel against the plain version
 per camera (tools/parity.py, 1e-4) and printing each result's error,
 the plain version's too, against the plain version in f64 on the same
-values. A variant gives wrong sums by
-design and is only timed. Device time is the profiler's, every device
-operation of a call included (the zeroing of the outputs too), mean of
-20 calls; event time the median of 20. `bench` prints the warm step-2
-bench iteration (chip_smoke.bench_step2: launches, wall time, device
-time by kernel) with SolverOptions() defaults on one device and on a
-1-device mesh, for the package tree in the current directory; run it in
-each tree to compare. tools/pose1_ab.py does the same for step 1's pair
-with this module's builds, variants and timing loop (`build_all`,
-`common_variants`, `ab_time`).
+values. A variant gives wrong sums by design and is only timed. Device
+time is the profiler's, every device operation of a call included (the
+zeroing of the outputs too, listed by name for the earlier and the
+package kernel), mean of 20 calls; event time the median of 20. `bench`
+prints the warm step-1 and step-2 bench iterations (chip_smoke.
+bench_step1 / bench_step2: launches, wall time, device time and device
+operations per iteration, device time by kernel) with SolverOptions()
+defaults on one device and on a 1-device mesh, for the package tree in
+the current directory; run it in each tree to compare. tools/pose1_ab.py
+does the same for step 1's kernels with this module's builds, variants
+and timing loop (`build_all`, `common_variants`, `ab_time`).
 """
 
 from __future__ import annotations
@@ -112,6 +119,52 @@ def common_variants(source: str, moment_flush: str):
     }
 
 
+# the step-2 cost with one of its design choices undone or changed:
+# the camera table staged in shared memory (not read through __ldg), the
+# seven block sums one after another (povar::block_sum, two barriers
+# each), the counts in f64, 512- or 1024-thread blocks, no last-block
+# total (timing only), and one reciprocal of p2 for two divisions
+ERR_VARIANTS = {
+    "err_table_shared": [
+        ("pose2.cu", r"P\[k\] = __ldg\(ct \+ k \* n_cams \+ c\);",
+         "P[k] = tbl[k * n_cams + c];"),
+        ("pose2.cu", r"(\n  const int O = n_obs;\n  double s\[kErrSums\])",
+         "\n  extern __shared__ double tbl[];\n"
+         "  povar::smem_copy(tbl, ct, 12 * n_cams);\n  __syncthreads();\\1"),
+        ("pose2.cu", r"launch\(pose_error2_kernel, n_obs, 0,",
+         "launch(pose_error2_kernel, n_obs, sizeof(double) * 12 * "
+         "(size_t)n_cams,"),
+    ],
+    "err_serial_sums": [
+        ("pose2.cu", r"\n  block_reduce\(s, n\);",
+         "\n  { __shared__ double rs[32]; __shared__ Count rn[32];\n"
+         "    for (int k = 0; k < kErrSums; ++k) s[k] = "
+         "povar::block_sum(s[k], rs);\n"
+         "    for (int k = 0; k < kErrCounts; ++k) n[k] = "
+         "povar::block_sum(n[k], rn); }"),
+    ],
+    "err_f64_counts": [("pose2.cu", r"using Count = unsigned;",
+                        "using Count = double;")],
+    # larger blocks: fewer partials for the last block to add
+    **{f"err_threads{t}": [
+        ("pose2.cu", r"constexpr int kWarps = kThreads / 32;",
+         f"constexpr int kWarps = {t} / 32;"),
+        ("pose2.cu", r"__launch_bounds__\(kThreads\)\n    pose_error2_kernel",
+         f"__launch_bounds__({t})\n    pose_error2_kernel"),
+        ("pose2.cu", r"launch\(pose_error2_kernel,",
+         f"launch<{t}>(pose_error2_kernel,")] for t in (512, 1024)},
+    # diagnostic: every block returns after writing its partials
+    "err_no_tail": [("pose2.cu", r"if \(!povar::last_block\(ticket, true\)\) "
+                     r"return;", "return;")],
+    "err_reciprocal": [
+        ("pose2.cu", r"const double r0 = p\[0\] / p\[2\] - uv\[o\];\n"
+         r"    const double r1 = p\[1\] / p\[2\] - uv\[O \+ o\];",
+         "const double inv = 1.0 / p[2];\n"
+         "    const double r0 = p[0] * inv - uv[o];\n"
+         "    const double r1 = p[1] * inv - uv[O + o];"),
+    ],
+}
+
 VARIANTS = {
     **common_variants("pose2.cu", r"povar::flush_acc\(acc_g, acc, [^;]+;"),
     # every in-range row's operands loaded, not only the live rows'
@@ -120,15 +173,24 @@ VARIANTS = {
                       "if (o < O) {\n      c = cam[o];\n      const"),
                      ("pose2.cu", r"if \(live\) \{\n      c = cam\[o\];\n#pragma",
                       "if (row.in) {\n      c = cam[o];\n#pragma")], 512),
+    **{name: (edits, 512) for name, edits in ERR_VARIANTS.items()},
 }
 # the earlier kernels with their per-camera atomics made dead stores
 PARENT_VARIANTS = {"parent_no_atomics": [("pose2.cu", *NO_ATOMICS),
                                          ("pose_common.cuh", *NO_ATOMICS)]}
-# the entry points timed and the kernels whose SASS atomics are counted
-ENTRIES = ("povar_hppb2", "povar_e0_term2")
-SASS_KERNELS = {"hppb2": "hppb2_kernel", "e0_term2": "e0_term2_kernel"}
+# the entry points timed and the kernels whose SASS opcodes are counted
+ENTRIES = ("povar_hppb2", "povar_e0_term2", "povar_pose_error2")
+SASS_KERNELS = {"hppb2": "hppb2_kernel", "e0_term2": "e0_term2_kernel",
+                "pose_error2": "pose_error2_kernel"}
 OUT = Path("build") / "pose2_ab"
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# the earlier pose2.cu's cost entry point: partials [7, n_part] for the
+# caller to zero and sum
+PARENT_SIG = {"povar_pose_error2": [_P] * 6 + [_I, _I, _I, _I, _D, _P]}
+# the opcodes counted in SASS: atomics, f64 arithmetic, the multi-
+# function unit, barriers and shuffles
+SASS_OPS = (r"\b(ATOMS\.[\w.]+|ATOM\.[\w.]+|RED\.[\w.]+|ATOMG\.[\w.]+|"
+            r"DFMA|DMUL|DADD|MUFU\.[\w.]+|BAR\.[\w.]+|SHFL\.[\w.]+)\b")
 
 
 def _variant_dir(out: Path, src: Path, name: str, source: str,
@@ -182,18 +244,20 @@ def build_all(parent: Path, source: str = "pose2.cu", out: Path = OUT,
         libs[n] = ctypes.CDLL(str(dirs[n] / "lib.so"))
     own_sig = {k: _build.SIGNATURES[k] for k in entries}
     for n, lib in libs.items():
-        sig = (parent_sig or own_sig) if n.startswith("parent") else own_sig
+        sig = ({**own_sig, **(parent_sig or {})} if n.startswith("parent")
+               else own_sig)
         for k, argtypes in sig.items():
             getattr(lib, k).argtypes = argtypes
             getattr(lib, k).restype = ctypes.c_int
-    sass_atomics(dirs, SASS_KERNELS if sass_kernels is None else sass_kernels)
+    sass_counts(dirs, SASS_KERNELS if sass_kernels is None else sass_kernels)
     return libs
 
 
-def sass_atomics(dirs, kernels) -> None:
-    """The atomic instructions the parent's and the package's kernels
-    `kernels` ({label: substring of the mangled name}) compile to
-    (cuobjdump -sass), or a note where cuobjdump is missing."""
+def sass_counts(dirs, kernels) -> None:
+    """The static counts of the SASS_OPS instructions the parent's and
+    the package's kernels `kernels` ({label: regex of the mangled name})
+    compile to (cuobjdump -sass: the loop body once, so per row where it
+    is unrolled), or a note where cuobjdump is missing."""
     from povar_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -212,12 +276,12 @@ def sass_atomics(dirs, kernels) -> None:
                 fn = next((k for k, sub in kernels.items()
                            if re.search(sub, m.group(1))), None)
                 continue
-            op = re.search(r"\b(ATOMS\.[\w.]+|ATOM\.[\w.]+|RED\.[\w.]+|"
-                           r"ATOMG\.[\w.]+)", ln)
+            op = re.search(SASS_OPS, ln)
             if fn and op:
-                key = (fn, op.group(1))
-                counts[key] = counts.get(key, 0) + 1
-        print(f"sass atomics ({n}): {counts}", flush=True)
+                counts.setdefault(fn, {})
+                counts[fn][op.group(1)] = counts[fn].get(op.group(1), 0) + 1
+        for fn, ops in sorted(counts.items()):
+            print(f"sass ({n}) {fn}: {dict(sorted(ops.items()))}", flush=True)
 
 
 def _variant_hppb2(lib):
@@ -251,11 +315,85 @@ def _variant_e0(lib, threads):
     return run
 
 
+def _error2(lib):
+    """The package's pose_error2 entry point of `lib` (a variant's),
+    with a ticket of its own; returns the plain version's dict."""
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def run(cam, ct, x4, uv, mask, *, robust, huber):
+        o = cam.shape[0]
+        n_part = -(-o // 256)
+        part = torch.empty((7, n_part), dtype=torch.float64, device="cuda")
+        sums = torch.empty(4, dtype=torch.float64, device="cuda")
+        counts = torch.empty(2, dtype=torch.int64, device="cuda")
+        ok = torch.empty((), dtype=torch.bool, device="cuda")
+        rc = lib.povar_pose_error2(*map(_ptr, (
+            cam, ct, x4, uv, mask, part, ticket, sums, counts, ok)), n_part,
+            o, ct.shape[1], int(robust), float(huber), _stream(x4))
+        assert rc == 0, rc
+        return {"num_obs_all": counts[0], "error_all": sums[0],
+                "residual_sum_all": sums[1], "num_obs_valid": counts[1],
+                "error_valid": sums[2], "residual_sum_valid": sums[3],
+                "is_numerically_valid": ok}
+    return run
+
+
+def _parent_error2(lib):
+    """The earlier pose_error2 with its wrapper's device operations: the
+    zeroed [7, n_part] partials, their sum, the two casts and the
+    compare."""
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    def run(cam, ct, x4, uv, mask, *, robust, huber):
+        o = cam.shape[0]
+        n_part = -(-o // 256)
+        part = torch.zeros((7, n_part), dtype=torch.float64, device="cuda")
+        rc = lib.povar_pose_error2(*map(_ptr, (cam, ct, x4, uv, mask, part)),
+                                   n_part, o, ct.shape[1], int(robust),
+                                   float(huber), _stream(x4))
+        assert rc == 0, rc
+        tot = part.sum(dim=1)
+        return {"num_obs_all": tot[6].to(torch.int64), "error_all": tot[0],
+                "residual_sum_all": tot[1],
+                "num_obs_valid": tot[4].to(torch.int64),
+                "error_valid": tot[2], "residual_sum_valid": tot[3],
+                "is_numerically_valid": tot[5] == 0}
+    return run
+
+
+def _error2_operands(problem, cams_h, lms_h):
+    """pose_error2's operands (cam, ct, x4, uv, mask) in f64 at (a) the
+    venice-89 step-2 state, (b) the same state on the 1-device mesh
+    solver's lanes, (c) N = 1024 cameras (the 89 repeated) drawn per row
+    on (a)'s rows."""
+    import chip_smoke as cs
+    from povar_tpu_torch import SolverOptions, Stage2Solver
+
+    def ops(s, lm):
+        return (s.obs.cam, s._cam_table(cams_h, torch.float64),
+                s._expand_L(s._lm_rows(s.lm_pack(lm)).to(torch.float64)),
+                s.obs.uv, s._mask1)
+
+    opts = SolverOptions()
+    a = ops(cs.stage_solver(Stage2Solver, problem, opts), lms_h)
+    sm = cs.stage_solver(Stage2Solver, problem, opts, mesh=True)
+    b = ops(sm, sm.pad_landmarks(lms_h.cpu().numpy()))
+    rng = np.random.default_rng(5)
+    n = 1024
+    cam = torch.as_tensor(rng.integers(0, n, a[0].shape[0]).astype(np.int32),
+                          device="cuda")
+    ct = a[1][:, torch.arange(n, device="cuda") % a[1].shape[1]].contiguous()
+    return a, b, (cam, ct) + a[2:]
+
+
 def _operands(problem):
     """The venice-89 step-2 operands of chip_smoke.check_kernels2 (the
     card's step-1 result, homogenized; seeded zt, mat6, hib), the fused
-    term's parts, and the 1-device mesh solver's step-2 operands (hib its
-    landmark solve's at lambda 1e-4)."""
+    term's parts, the 1-device mesh solver's step-2 operands (hib its
+    landmark solve's at lambda 1e-4), and pose_error2's operands at
+    (a)-(c) (_error2_operands)."""
     import chip_smoke as cs
     from povar_tpu_torch import SolverOptions, Stage2Solver, create_homogeneous
 
@@ -279,7 +417,8 @@ def _operands(problem):
     ml = sm.linearize(cams_h, lm)
     mesh = dict(cam=sm.obs.cam, x4=ml.x4, mm=ml.mm, sw=ml.sw, r_w=ml.r_w,
                 jlns=ml.jlns, hib=sm._prep_hll_s(ml, 1e-4)[1], n=n)
-    return d, tuple(s2.e0_plan.parts), mesh
+    return (d, tuple(s2.e0_plan.parts), mesh,
+            _error2_operands(problem, cams_h, lms_h))
 
 
 def first_camera_rows(cam, parts) -> torch.Tensor:
@@ -313,26 +452,33 @@ def _with_cameras(d, n, seed):
 
 
 def _tuple(out):
+    if isinstance(out, dict):
+        return tuple(out.values())
     return out if isinstance(out, tuple) else (out,)
 
 
-def kernels(parent: Path) -> None:
+def kernels(parent: Path, only=None) -> None:
     import chip_smoke as cs
     from povar_tpu_torch import synthetic_bal_problem_fast
     from povar_tpu_torch.ops import pose2_kernels as pk2
     from povar_tpu_torch.ops import pose2_ref as pr2
 
-    libs = build_all(parent)
+    libs = build_all(parent, parent_sig=PARENT_SIG)
     problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
                                          seed=0)
-    d, parts, mesh = _operands(problem)
+    d, parts, mesh, err = _operands(problem)
     hpp_impls = {"parent": _variant_hppb2(libs["parent"]),
                  "package": pk2.hppb2}
     e0_impls = {"parent": _variant_e0(libs["parent"], 512),
                 "package": pk2.e0_term2_parts}
+    err_impls = {"parent": _parent_error2(libs["parent"]),
+                 "package": pk2.pose_error2}
     hpp_var = {"parent_no_atomics": _variant_hppb2(libs["parent_no_atomics"])}
     e0_var = {"parent_no_atomics": _variant_e0(libs["parent_no_atomics"], 512)}
+    err_var = {name: _error2(libs[name]) for name in ERR_VARIANTS}
     for name, (_e, threads) in VARIANTS.items():
+        if name in ERR_VARIANTS:
+            continue
         if not name.startswith("threads") and name != "block_atomics":
             hpp_var[name] = _variant_hppb2(libs[name])
         e0_var[name] = _variant_e0(libs[name], threads)
@@ -355,11 +501,22 @@ def kernels(parent: Path) -> None:
          e0_args(_by_first_camera(d, parts))),
         ("e0_term2_parts", "(c) N = 1024", e0_args(_with_cameras(d, 1024, 3))),
     ]
+    shapes = [(k, label, args, {}) for k, label, args in shapes] + [
+        ("pose_error2", f"{label}, {norm}", args,
+         dict(robust=robust, huber=1.0))
+        for label, args, norms in (
+            ("(a) venice-89", err[0], ("NONE", "HUBER", "CAUCHY")),
+            ("(b) mesh window order", err[1], ("NONE",)),
+            ("(c) N = 1024", err[2], ("NONE",)))
+        for robust, norm in enumerate(("NONE", "HUBER", "CAUCHY"))
+        if norm in norms]
     print(f"fused-term parts {parts}; mesh lanes {mesh['cam'].shape[0]}",
           flush=True)
-    ab_time([(k, label, args, {}) for k, label, args in shapes],
-            {"hppb2": hpp_impls, "e0_term2_parts": e0_impls},
-            {"hppb2": hpp_var, "e0_term2_parts": e0_var}, pr2)
+    ab_time([x for x in shapes if only is None or x[0] in only],
+            {"hppb2": hpp_impls, "e0_term2_parts": e0_impls,
+             "pose_error2": err_impls},
+            {"hppb2": hpp_var, "e0_term2_parts": e0_var,
+             "pose_error2": err_var}, pr2)
 
 
 def ab_time(shapes, impls, variants, plain_mod) -> None:
@@ -383,10 +540,14 @@ def ab_time(shapes, impls, variants, plain_mod) -> None:
         for who, fn in [*impls[kernel].items(), ("plain", None)]:
             got = plain if fn is None else _tuple(fn(*args, **kw))
             torch.cuda.synchronize()
-            errs = [scaled_error(g, w, "cam") for g, w in zip(got, plain)]
+            # the outputs the plain version gives (a call without sums
+            # skips some; an earlier kernel may still make them)
+            pairs = [(g, w, x) for g, w, x in zip(got, plain, exact)
+                     if w is not None]
+            errs = [scaled_error(g, w, "cam") for g, w, _x in pairs]
             if not all(e <= 1e-4 for e in errs):
                 raise AssertionError(f"{kernel} {label} {who}: {errs}")
-            errs64 = [scaled_error(g, w, "cam") for g, w in zip(got, exact)]
+            errs64 = [scaled_error(g, x, "cam") for g, _w, x in pairs]
             print(f"{kernel} {label} {who}: scaled error per camera "
                   f"{' '.join(f'{e:.1e}' for e in errs)}, against f64 "
                   f"{' '.join(f'{e:.1e}' for e in errs64)}", flush=True)
@@ -404,15 +565,42 @@ def ab_time(shapes, impls, variants, plain_mod) -> None:
             ev = " / ".join(f"{t[1] * 1e3:.1f}" for t in ts)
             print(f"{kernel} {label} {who}: device {dev} us, events {ev} us",
                   flush=True)
+        for who in ("parent", "package"):
+            ops = device_ops(lambda: impls[kernel][who](*args, **kw))
+            print(f"{kernel} {label} {who} device operations: " + ", ".join(
+                f"{name[:48]} {us:.1f} us" for name, us in ops), flush=True)
+
+
+def device_ops(fn, reps: int = 20):
+    """[(name, device us per call)] of every device operation of one call
+    of `fn` (torch.profiler over `reps` calls), the longest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
+    return sorted(by.items(), key=lambda kv: -kv[1])
 
 
 def bench() -> None:
+    """The warm step-1 and step-2 bench iterations with SolverOptions()
+    defaults, on one device and on a 1-device mesh."""
     import chip_smoke as cs
     from povar_tpu_torch import SolverOptions, synthetic_bal_problem_fast
 
     problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
                                          seed=0)
     opts = SolverOptions()
+    cs.bench_step1(problem, opts, "step-1 defaults")
+    cs.bench_step1(problem, opts, "step-1 spmd (1-device mesh)", mesh=True)
     cs.bench_step2(problem, opts, "step-2 defaults")
     cs.bench_step2(problem, opts, "step-2 spmd (1-device mesh)", mesh=True)
 
@@ -424,6 +612,8 @@ def main(argv=None) -> int:
     k.add_argument("--parent", type=Path, required=True,
                    help="directory with the earlier pose2.cu and "
                    "pose_common.cuh")
+    k.add_argument("--kernels", nargs="+", default=None,
+                   help="time only these kernels (default: all)")
     sub.add_parser("bench")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -434,7 +624,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     if args.mode == "kernels":
-        kernels(args.parent)
+        kernels(args.parent, args.kernels)
     else:
         bench()
     return 0

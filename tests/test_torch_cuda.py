@@ -266,6 +266,106 @@ def test_hpp_b_structured_routes_and_orders(cuda, n_cams, order):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sums", [True, False], ids=["sums", "nosums"])
+@pytest.mark.parametrize("order", ["drawn", "by_camera"])
+@pytest.mark.parametrize("n_cams", [13, 1024])
+def test_prepare_sums_and_orders(cuda, n_cams, order, sums):
+    """prepare once per call, per entry and (jpsq) per camera against its
+    plain version, HUBER-weighted, on the rows as drawn and sorted by
+    camera (whole warps on one camera, as the mesh's window order puts
+    them), at N = 13 (per-warp accumulators) and N = 1024 (one shared
+    accumulator per block), with and without the per-camera sums:
+    without them r_w, sw and jpsq are None and ata / atr unchanged; with
+    them jpsq's rows 4-7 equal rows 0-3 bit for bit (the last block
+    writes both from one f64 sum)."""
+    t = _inputs(n_cams, cuda)
+    if order == "by_camera":
+        t = _rows_reordered(t, torch.argsort(t["cam"].long(), stable=True),
+                            ("cam", "x", "uv", "mask"))
+    args = tuple(t[k] for k in ("cam", "ct", "x", "uv", "mask"))
+    kw = dict(alpha=ALPHA, robust=1, huber=1.0, sums=sums)
+    launches.reset_launch_counts()
+    got = pk.prepare(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches.launch_counts()["prepare"] == 1
+    want = pose_ref.prepare(*args, **kw)
+    if not sums:
+        assert got[0] is got[1] is got[4] is None
+        got, want = got[2:4], want[2:4]
+        _close("prepare", got, want, [ELEM] * 2)
+        return
+    _close("prepare", got, want, [ELEM] * 4 + [CAM])
+    assert torch.equal(got[4][4:8], got[4][0:4])
+
+
+def _error2_inputs(t, rows):
+    """pose_error2's operands from `t` (p2 in [2.5, 9]), tiled to `rows`
+    rows, with some live rows projected to |p2| = 1e-7 (invalid, finite)
+    and, for `bad`, NaN or inf landmarks on a few live and dead rows."""
+    reps = rows // O
+    cam = t["cam"].repeat(reps)
+    mask = t["mask"].repeat(1, reps)
+    ct, uv = t["ct2_64"], t["uv64"].repeat(1, reps)
+    x4 = t["x4_64"].repeat(1, reps)
+    live = torch.nonzero(mask[0] > 0)[:, 0]
+    near = live[3::97]
+    p2row = ct[8:12, cam[near].long()]  # [4, k]
+    x4[:, near] -= p2row * ((p2row * x4[:, near]).sum(0)
+                            - 1e-7) / (p2row * p2row).sum(0)
+    return cam, ct, x4, uv, mask, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [False, True], ids=["finite", "nonfinite"])
+@pytest.mark.parametrize("robust", [0, 1, 2], ids=["none", "huber", "cauchy"])
+def test_pose_error2_norms_counts_and_repeats(cuda, robust, bad):
+    """pose_error2 under NONE, HUBER and CAUCHY against its plain version
+    at O = 1024 and 300 x 1024 rows (many blocks' partials), with live
+    rows at |p2| < 1e-5 (counted, left out of the valid sums) and, for
+    `nonfinite`, NaN and inf landmarks on live rows (the flag false, the
+    sums non-finite as the plain version's) and on a dead row (no
+    effect): the counts exact, the sums within 1e-12, and a second call
+    (after one at the other size: the ticket resets) bit for bit the
+    first."""
+    t = _inputs(13, cuda)
+    outs = {}
+    for rows in (O, 300 * O):
+        cam, ct, x4, uv, mask, live = _error2_inputs(t, rows)
+        if bad:
+            x4[0, live[5]] = float("nan")
+            x4[2, live[40]] = float("inf")
+            dead = torch.nonzero(mask[0] <= 0)[0, 0]
+            x4[1, dead] = float("nan")
+        args = (cam, ct, x4, uv, mask)
+        kw = dict(robust=robust, huber=1.0)
+        launches.reset_launch_counts()
+        got = pk2.pose_error2(*args, **kw)
+        torch.cuda.synchronize()
+        assert launches.launch_counts()["pose_error2"] == 1
+        want = pose2_ref.pose_error2(*args, **kw)
+        assert int(want["num_obs_valid"]) < int(want["num_obs_all"])
+        assert bool(want["is_numerically_valid"]) == (not bad)
+        for k in want:
+            g, w = got[k], want[k]
+            assert g.dtype == w.dtype and g.shape == w.shape == (), k
+            if g.dtype != torch.float64:
+                assert torch.equal(g, w), k
+            elif bad:
+                assert not bool(torch.isfinite(w)), k
+                assert torch.equal(g.isnan(), w.isnan()), k
+                assert bool(g.isnan()) or bool(g == w), k
+            else:
+                _close(k, g, w, [F64])
+        outs[rows] = (args, kw, {k: v.clone() for k, v in got.items()})
+    for args, kw, first in outs.values():
+        again = pk2.pose_error2(*args, **kw)
+        for k, v in first.items():
+            a, b = v.double(), again[k].double()
+            assert torch.equal(a.isnan(), b.isnan()), k
+            assert bool(a.isnan()) or bool(a == b), k
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("order", ["drawn", "by_first_camera"])
 @pytest.mark.parametrize("parts", [PARTS, MIXED], ids=["parts", "mixed"])
 @pytest.mark.parametrize("n_cams", [13, 1024])

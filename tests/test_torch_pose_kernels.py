@@ -122,19 +122,41 @@ def _no_launches():
 
 
 @pytest.mark.parametrize(
-    "robust, weighted", [(0, True), (1, True), (0, False)],
-    ids=["none", "huber", "unweighted"],
+    "robust, weighted, sums",
+    [(0, True, True), (1, True, True), (0, False, True),
+     (0, True, False), (1, True, False), (0, False, False)],
+    ids=["none", "huber", "unweighted",
+         "none-nosums", "huber-nosums", "unweighted-nosums"],
 )
-def test_prepare(prob, robust, weighted):
+def test_prepare(prob, robust, weighted, sums):
+    """With sums=False the port returns None for r_w, sw and jpsq and
+    the same ata / atr as JAX's prepare."""
     args = ("cam", "ct", "x", "uv", "mask")
     kw = dict(alpha=ALPHA, robust=robust, huber=1.0, weighted=weighted)
     want = pp.prepare(*J(prob, *args), **kw)
-    got = pk.prepare(*T(prob, *args), **kw)
+    got = pk.prepare(*T(prob, *args), **kw, sums=sums)
     if robust:
         sw = np.asarray(want[1])
         assert (sw[sw > 0] < 0.99).any()  # some rows are Huber-weighted
-    for g, w, tol in zip(got, want, [1e-5] * 4 + [1e-4]):
+    for k, (g, w, tol) in enumerate(zip(got, want, [1e-5] * 4 + [1e-4])):
+        if not sums and k in (0, 1, 4):
+            assert g is None
+            continue
         _close(g.numpy(), w, tol)
+
+
+@pytest.mark.parametrize("robust", [0, 1], ids=["none", "huber"])
+def test_prepare_jpsq_rows_repeat(prob, robust):
+    """jpsq's rows 4-7 (a = 1) are its rows 0-3 (a = 0) bit for bit, and
+    ata / atr do not depend on `sums`, in the plain version the CPU runs
+    and the card's kernels are held to."""
+    args = T(prob, "cam", "ct", "x", "uv", "mask")
+    kw = dict(alpha=ALPHA, robust=robust, huber=1.0)
+    _rw, _sw, ata, atr, jpsq = pose_ref.prepare(*args, **kw)
+    assert torch.equal(jpsq[4:8], jpsq[0:4])
+    assert not torch.equal(jpsq[8:12], jpsq[0:4])
+    _n, _m, ata0, atr0, _j = pose_ref.prepare(*args, **kw, sums=False)
+    assert torch.equal(ata0, ata) and torch.equal(atr0, atr)
 
 
 def test_e0_factor(prob):

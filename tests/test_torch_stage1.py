@@ -39,7 +39,7 @@ from povar_tpu_torch import (
     optimize_step1,
 )
 from povar_tpu_torch.options import RobustNorm, SolverType
-from povar_tpu_torch.ops import launches
+from povar_tpu_torch.ops import launches, pose_kernels
 from povar_tpu_torch.solver.stage1 import LmState
 
 ITERS = 6
@@ -218,6 +218,47 @@ def test_apply_and_compute_error(solvers, lin_point):
         )
         assert te["num_obs_all"] == int(je["num_obs_all"])
         assert bool(te["is_numerically_valid"])
+
+
+@pytest.mark.parametrize("call", ["back_substitution", "initialization"])
+def test_prepare_without_sums_in_the_solver(problem, solvers, lin_point,
+                                            monkeypatch, call):
+    """The VarProj back-substitution (`_back_sub_s`, reached through
+    `apply`) and the landmark initialization read ata / atr of `prepare`
+    alone, so they ask for no per-camera sums (sums=False, one call
+    each); with the sums computed as before they give the same bits:
+    new_lm_p and l_diff, the initial landmarks. The six-iteration VarProj
+    trajectories against JAX's are test_step1_slice_matches_jax's."""
+    _js, ts = solvers
+    cams, lms, _jlin, tlin = lin_point
+    tcams = torch.as_tensor(np.array(cams))
+    real = pose_kernels.prepare
+    asked = []
+
+    def spy(*args, **kw):
+        asked.append(kw.get("sums", True))
+        return real(*args, **kw)
+
+    def with_sums(*args, **kw):
+        return real(*args, **dict(kw, sums=True))
+
+    if call == "back_substitution":
+        inc, _terms = ts.solve_power(tlin, 1e-4)
+
+        def run():
+            lm = ts.lm_pack(torch.as_tensor(np.array(lms)))
+            return ts.apply(tcams, lm, tlin, inc)
+    else:
+        def run():
+            return (ts.initialize_varproj(tcams),)
+    monkeypatch.setattr(pose_kernels, "prepare", spy)
+    got = run()
+    assert asked == [False]
+    monkeypatch.setattr(pose_kernels, "prepare", with_sums)
+    want = run()
+    for g, w in zip(got, want):
+        g, w = (x.rows if isinstance(x, LmState) else x for x in (g, w))
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))
