@@ -33,7 +33,8 @@ prints no result line):
               N = 1024 (hpp_b_structured also at N = 2048, its global
               route); schur_diag_structured, cam_scatter_add, e0_scatter
               and hpp_b again at N = 1024 (the first's and hpp_b's
-              global-atomic routes, the others' widest shared tables);
+              global-atomic routes, the others' widest shared tables),
+              hpp_b's hpp symmetric bit for bit;
 4. step 1     a small step-1 solve, card against CPU; the venice-89
               step-1 solve with the composed power term and with
               SolverOptions() defaults (the fused term), each with the
@@ -325,8 +326,8 @@ FLOPS_PER_OBS = {
     "e0_term2_parts": 80, "schur_diag2": 480, "poba_t3": 95,
     "apply_ldiff_stored": 110, "cam_gather": 0,
     # the camera-table kernels at their step-1 shapes (R = 12; (dl, dc) =
-    # (3, 12); (k, d) = (4, 12), the upper triangle and its mirror)
-    "cam_scatter_add": 12, "e0_u": 72, "e0_scatter": 84, "hpp_b": 790,
+    # (3, 12); (k, d) = (4, 12): b and the upper triangle, 90 sums)
+    "cam_scatter_add": 12, "e0_u": 72, "e0_scatter": 84, "hpp_b": 720,
 }
 # the kernels each venice-89 run of the main path must launch
 STEP1_COMPOSED = {"prepare", "e0_factor", "hpp_b_structured",
@@ -740,7 +741,7 @@ def check_cam_kernels(solver, seed=2):
     kernel's row), with `index_add_` beside cam_scatter_add; then C2, C4
     and C5 again on seeded cameras over N = 1024 (hpp_b's global-atomic
     route). e0_u sums its terms in its plain version's order: bit for
-    bit."""
+    bit; hpp_b's hpp is symmetric bit for bit."""
     from povar_tpu_torch.ops import cam_kernels as ck
     from povar_tpu_torch.ops import cam_ref as cr
 
@@ -794,6 +795,14 @@ def check_cam_kernels(solver, seed=2):
     cam_big = torch.as_tensor(rng.integers(0, nb, o).astype(np.int32),
                               device=dev)
     run_cases(ck, cr, cases(cam_big, nb, "N = 1024"), o, time_variants=True)
+    for k, d in ((4, 12), (2, 11)):
+        for c, n in ((cam, solver.n_cams), (cam_big, nb)):
+            hpp = ck.hpp_b(f32(k * d), f32(k), c, n)[0].view(d, d, n)
+            if not torch.equal(hpp, hpp.transpose(0, 1)):
+                raise AssertionError(f"hpp_b (k, d) = {(k, d)}, N = {n}: "
+                                     "hpp not symmetric bit for bit")
+    print("hpp_b: hpp symmetric bit for bit at both shapes, N = "
+          f"{solver.n_cams} and {nb}", flush=True)
     return results
 
 

@@ -11,13 +11,15 @@
 // against a one-hot incidence built per tile, with an exact bf16 3-way
 // split of the f32 operand so that the products stay exact. None of that
 // is needed here: a camera row is a shared-memory read by index, and a
-// per-camera sum is a shared-memory atomicAdd by index. C1 copies table
+// per-camera sum is a shared-memory add by index. C1 copies table
 // entries, bit for bit; C3 sums its terms in the order of its plain
 // version (ops/cam_ref.py), so with --fmad=false it matches it bit for
-// bit; C2, C4 and C5 accumulate per camera in shared memory (global
-// memory where the accumulators do not fit a block) and leave the block
-// with one global atomicAdd per non-zero entry, so they differ from their
-// plain versions by the order of the atomics only.
+// bit. C2 accumulates per camera in shared memory with per-lane atomics
+// and leaves the block with one f32 global atomicAdd per non-zero entry;
+// C4 and C5 sum a warp's lanes per camera first, into per-warp or shared
+// accumulators, and meet across blocks in global atomics (below). The per-camera
+// sums differ from their plain versions by the order of the additions
+// only.
 //
 // Every per-observation operand of C2, C4 and C5 must be zero on the
 // slot pad rows: unlike the TPU's incidence (stage1.make_obs folds the
@@ -108,107 +110,407 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// per-camera accumulators: a block's shared memory, or, where they do
-// not fit, the zeroed global output itself
-template <bool kShared>
-__device__ __forceinline__ float* accumulators(float* smem, float* global) {
-  return kShared ? smem : global;
+// ------------------------------------------------ per-camera sums (C4, C5)
+// Where a block's per-camera accumulators live:
+//   kPrivate  one f32 copy per warp in shared memory, which the warp adds
+//             to with plain adds;
+//   kShared   `copies` f32 copies per block, copy w mod copies shared by
+//             warp w's group with shared atomics (a compare-and-swap loop
+//             on this card);
+//   kGlobal   none: every value goes to a global atomic in acc_g.
+// The lanes of a warp on one camera first sum their values in lane order
+// (povar::warp_peers / warp_scatter_rows), so no two lanes of a warp ever
+// add to one address. A block then adds its copies per entry and sends
+// the non-zero sums to global atomics in acc_g (f64 for C4, f32 for C5:
+// below), and the last block to take a ticket writes the output in f32
+// from acc_g and leaves acc_g and the ticket zeroed for the next call
+// (ops/cam_kernels.py keeps one such buffer per device and stream,
+// zeroed once).
+enum class Route { kPrivate, kShared, kGlobal };
+
+// this warp's accumulator copy of `n_acc` floats, zeroed; null on the
+// global route (all of the block's threads must call it)
+template <Route R>
+__device__ __forceinline__ float* warp_copy(float* smem, int copies,
+                                            int n_acc) {
+  if (R == Route::kGlobal) return nullptr;
+  povar::smem_zero(smem, copies * n_acc);
+  __syncthreads();
+  return smem + ((threadIdx.x >> 5) % copies) * n_acc;
 }
 
-// ------------------------------------------------------------------ C4
-// out[j][c] += sum over o with cam[o] = c of
-// v_j = sum_i W[i dc + j][o] sb[i][o], i in order, into [dc, N]
-// accumulators. Bound as C3.
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
-    e0_scatter_kernel(const int32_t* __restrict__ cam,
-                      const float* __restrict__ w,
-                      const float* __restrict__ sb, float* __restrict__ out,
-                      int n_obs, int n_cams, int dl, int dc) {
-  extern __shared__ float smem[];
-  float* acc = accumulators<kShared>(smem, out);
-  if (kShared) {
-    povar::smem_zero(acc, dc * n_cams);
-    __syncthreads();
-  }
-  const int O = n_obs;
-  POVAR_OBS_LOOP(o, O) {
-    const int c = cam[o];
-    for (int j = 0; j < dc; ++j) {
-      float v = w[(size_t)j * O + o] * sb[o];
-      for (int i = 1; i < dl; ++i)
-        v += w[(size_t)(i * dc + j) * O + o] * sb[(size_t)i * O + o];
-      if (v != 0.0f) atomicAdd(acc + j * n_cams + c, v);
-    }
-  }
-  if (kShared) {
-    __syncthreads();
-    povar::flush_acc(out, acc, dc * n_cams);
-  }
+// the K values v of this lane's row into rows row0 .. row0 + K - 1 of
+// this warp's accumulator (on the global route: the sums, of type T, in
+// acc_g) at column c
+template <int K, Route R, typename T>
+__device__ __forceinline__ void add_rows(float* acc, double* acc_g, int row0,
+                                         int n, int c,
+                                         const povar::WarpPeers& p,
+                                         float (&v)[K]) {
+  if (R == Route::kGlobal)
+    povar::warp_scatter_rows<K, true, T>(
+        reinterpret_cast<T*>(acc_g) + row0 * n, n, c, p, v);
+  else
+    povar::warp_scatter_rows<K, R == Route::kShared>(acc + row0 * n, n, c, p,
+                                                     v);
 }
 
-// ------------------------------------------------------------------ C5
-// Per observation, the K x D block Jp (rows k d + a) and r~ [K]:
-// hpp[a D + b][c] += sum_k Jp[k][a] Jp[k][b] and b[a][c] += sum_k Jp[k][a]
-// r~[k], k in order, into [D D + D, N] accumulators. Each product sum of
-// the upper triangle is added to both of its entries (the same value, as
-// the plain version's outer product computes it twice).
-// Bound: (4 + 4 K D + 4 K) B per observation, 8 (D D + D) B per camera.
-template <int K, int D, bool kShared>
-__global__ void __launch_bounds__(kThreads)
-    hpp_b_kernel(const int32_t* __restrict__ cam, const float* __restrict__ jp,
-                 const float* __restrict__ rt, float* __restrict__ hpp,
-                 float* __restrict__ b, int n_obs, int n_cams) {
-  extern __shared__ float smem[];
-  float* acc_h = accumulators<kShared>(smem, hpp);
-  float* acc_b = accumulators<kShared>(smem + D * D * n_cams, b);
-  if (kShared) {
-    povar::smem_zero(smem, (D * D + D) * n_cams);
+__device__ __forceinline__ unsigned* ticket_of(double* acc_g, int count) {
+  return reinterpret_cast<unsigned*>(acc_g + count);
+}
+
+// Once the block's warps have added every row: the block's copies, in
+// groups of kGroup summed per entry (f32), go to global atomics into the
+// [count] sums of type T at acc_g; true in the last block to take the
+// ticket behind them (at acc_g + count doubles), which then holds every
+// block's sums (all of the block's threads must call it).
+template <Route R, typename T, int kGroup>
+__device__ __forceinline__ bool block_sums_done(double* acc_g,
+                                                const float* smem, int copies,
+                                                int n_acc, int count) {
+  if (R != Route::kGlobal) {
+    T* sums = reinterpret_cast<T*>(acc_g);
     __syncthreads();
-  }
-  const int O = n_obs;
-  POVAR_OBS_LOOP(o, O) {
-    const int c = cam[o];
-    float j[K][D], r[K];
+    for (int i = threadIdx.x; i < count; i += blockDim.x) {
+      for (int k0 = 0; k0 < copies; k0 += kGroup) {
+        float s = smem[k0 * n_acc + i];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      r[k] = rt[(size_t)k * O + o];
-#pragma unroll
-      for (int a = 0; a < D; ++a) j[k][a] = jp[(size_t)(k * D + a) * O + o];
-    }
-#pragma unroll
-    for (int a = 0; a < D; ++a) {
-      float jr = j[0][a] * r[0];
-#pragma unroll
-      for (int k = 1; k < K; ++k) jr += j[k][a] * r[k];
-      if (jr != 0.0f) atomicAdd(acc_b + a * n_cams + c, jr);
-#pragma unroll
-      for (int bb = a; bb < D; ++bb) {
-        float s = j[0][a] * j[0][bb];
-#pragma unroll
-        for (int k = 1; k < K; ++k) s += j[k][a] * j[k][bb];
-        if (s == 0.0f) continue;
-        atomicAdd(acc_h + (a * D + bb) * n_cams + c, s);
-        if (bb != a) atomicAdd(acc_h + (bb * D + a) * n_cams + c, s);
+        for (int k = 1; k < kGroup; ++k)
+          if (k0 + k < copies) s += smem[(k0 + k) * n_acc + i];
+        if (s != 0.0f) atomicAdd(sums + i, (T)s);
       }
     }
   }
-  if (kShared) {
-    __syncthreads();
-    povar::flush_acc(hpp, acc_h, D * D * n_cams);
-    povar::flush_acc(b, acc_b, D * n_cams);
+  return povar::last_block(ticket_of(acc_g, count));
+}
+
+// The last block: write(i, sum) for every entry i of the [count] sums of
+// type T at acc_g (kBatch L2 reads in flight per thread), then the sums
+// and the ticket zeroed again.
+template <typename T, typename Write>
+__device__ __forceinline__ void drain_sums(double* acc_g, int count,
+                                           Write write) {
+  constexpr int kB = povar::kBatch;
+  T* sums = reinterpret_cast<T*>(acc_g);
+  for (int i0 = threadIdx.x; i0 < count; i0 += kB * blockDim.x) {
+    T s[kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int i = i0 + u * blockDim.x;
+      s[u] = i < count ? __ldcg(sums + i) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < count) {
+        write(i, s[u]);
+        sums[i] = T(0);
+      }
+    }
   }
+  if (threadIdx.x == 0) *ticket_of(acc_g, count) = 0u;
+}
+
+// Block shapes: C4 in 512-thread blocks of private copies (16 x 12 N
+// floats fit up to N = 302), else 1024-thread blocks on shared copies
+// (up to N = 4842), else the global route; C5 in blocks of at most 8
+// warps with private copies while 4 fit (90 N floats each at (k, d) =
+// (4, 12): up to N = 161; 7 warps at N = 89), else 512-thread blocks on
+// shared copies (up to N = 645), else the global route.
+constexpr int kE0sWarps = 16;
+constexpr int kE0sSharedThreads = 1024;
+constexpr int kHppWarps = 8;
+constexpr int kHppSharedThreads = 512;
+
+__host__ __device__ constexpr int e0s_threads(Route r) {
+  return r == Route::kPrivate ? 32 * kE0sWarps : kE0sSharedThreads;
+}
+
+__host__ __device__ constexpr int hpp_threads(Route r) {
+  return r == Route::kPrivate ? 32 * kHppWarps : kHppSharedThreads;
+}
+
+// one observation's Jp block [K][D], r~ [K] and camera (zeros and
+// camera 0 past the last row)
+template <int K, int D>
+struct JpRow {
+  float j[K][D], r[K];
+  int c;
+  bool live;
+};
+
+template <int K, int D>
+__device__ __forceinline__ JpRow<K, D> load_row(const int32_t* cam,
+                                                const float* jp,
+                                                const float* rt, int o,
+                                                int n_obs) {
+  JpRow<K, D> x;
+  x.live = o < n_obs;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    x.r[k] = x.live ? __ldg(rt + (size_t)k * n_obs + o) : 0.0f;
+#pragma unroll
+    for (int a = 0; a < D; ++a)
+      x.j[k][a] = x.live ? __ldg(jp + (size_t)(k * D + a) * n_obs + o) : 0.0f;
+  }
+  x.c = x.live ? cam[o] : 0;
+  return x;
+}
+
+// ------------------------------------------------------------------ C4
+// out[j][c] = sum over o with cam[o] = c of
+// v_j = sum_i W[i dc + j][o] sb[i][o], i in order, through the block's
+// accumulators (above); the blocks' sums meet in f64. dc = kDc (12 or 11:
+// a row's dc values in one pass), or dc at run time for kDc = 0 (one
+// value a pass); dl at run time.
+// Replaces pallas_cam.py:278 e0_scatter (_e0_scatter_kernel :267).
+// Bound: (4 + 4 dl dc + 4 dl) B per observation, 160 B at (3, 12): 26.6
+// us at venice-89. The earlier version added every value of a row with a
+// per-lane shared atomic, lanes of one warp on one camera retrying
+// against each other, and flushed each block with 12 N contended f32
+// global atomics: 82.4 us, 222 on camera-sorted rows, 104 at N = 1024.
+// Here 39.8 us at (3, 12) and 37.1 at (3, 11) (the adds, the walk and
+// the flush about 1 us each; the loads and the row's arithmetic the
+// rest), 55 on camera-sorted rows, 59 at N = 1024 (4 shared copies);
+// one shared copy per block 45, f32 cross-block sums 39.2, and the
+// blocks' f32 partials added by the last block in block order
+// (bit-reproducible) 75 (tools/cam_ab.py and PERF.md; NVIDIA H100 80GB
+// HBM3, 700 W).
+template <int kDc, Route R>
+__global__ void __launch_bounds__(e0s_threads(R))
+    e0_scatter_kernel(const int32_t* __restrict__ cam,
+                      const float* __restrict__ w,
+                      const float* __restrict__ sb, float* __restrict__ out,
+                      double* __restrict__ acc_g, int n_obs, int n_cams,
+                      int dl, int dc_run, int copies) {
+  constexpr int kV = kDc > 0 ? kDc : 1;  // values a pass
+  const int dc = kDc > 0 ? kDc : dc_run;
+  extern __shared__ float smem[];
+  const int n_acc = dc * n_cams;
+  float* acc = warp_copy<R>(smem, copies, n_acc);
+  const int O = n_obs;
+  const int lane = threadIdx.x & 31;
+  // warp-uniform trips: every lane reaches the warp's scatter
+  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < O;
+       base += gridDim.x * blockDim.x) {
+    const int o = base + lane;
+    const bool live = o < O;
+    const int c = live ? cam[o] : 0;
+    for (int j0 = 0; j0 < dc; j0 += kV) {
+      float v[kV];
+      if (live) {
+        const float s0 = sb[o];
+#pragma unroll
+        for (int j = 0; j < kV; ++j) v[j] = w[(size_t)(j0 + j) * O + o] * s0;
+        for (int i = 1; i < dl; ++i) {
+          const float si = sb[(size_t)i * O + o];
+#pragma unroll
+          for (int j = 0; j < kV; ++j)
+            v[j] += w[(size_t)(i * dc + j0 + j) * O + o] * si;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kV; ++j) v[j] = 0.0f;
+      }
+      add_rows<kV, R, double>(acc, acc_g, j0, n_cams, c,
+                              povar::warp_peers(c, live), v);
+    }
+  }
+  if (!block_sums_done<R, double, 32>(acc_g, smem, copies, n_acc, n_acc))
+    return;
+  drain_sums<double>(acc_g, n_acc,
+                     [&](int i, double s) { out[i] = (float)s; });
+}
+
+// the largest divisor of n not above cap
+__host__ __device__ constexpr int divisor_below(int n, int cap) {
+  int d = cap;
+  while (n % d != 0) --d;
+  return d;
+}
+
+// ------------------------------------------------------------------ C5
+// Per observation, the K x D block Jp (rows k D + a) and r~ [K]:
+// b[a][c] = sum_k Jp[k][a] r~[k] and hpp[a D + bb][c] = sum_k Jp[k][a]
+// Jp[k][bb], k in order, summed per camera. A row adds D + D (D + 1) / 2
+// values (90 at (4, 12), 77 at (2, 11)): b, then the upper triangle row
+// by row, in chunks of kChunk values through one match of the warp's
+// cameras: the whole row on the private route (with the next row's 52
+// operands loaded ahead; at most 8 warps an SM leave 255 registers a
+// thread), 15 / 11 values elsewhere (a 512-thread block leaves 128); the
+// last block writes each triangle entry to both of its places, so hpp is
+// symmetric bit for bit, as the plain version's outer products are.
+// A block's copies go to the blocks' f32 sums two by two (one atomic per
+// pair of copies and entry). CHOLESKY's step 1 (the dense reduced camera
+// system in f32, ill-conditioned at lambda 2e-4) goes to one of several
+// final costs by that order alone. venice-89 solves end, as a multiple
+// of the JAX run's cost: with copies in pairs at 0.594x-0.598x (0 of 16
+// below chip_smoke.py's CHOL_BAND (0.59, 0.60)), as the earlier kernel
+// (0.594x-0.597x); with f64 sums at 0.589x (16 of 16 below, in each of
+// three calls), where the solve evaluated in f64 throughout ends as well
+// (0.5885x, on the card and on the CPU); with f32 ones and a block's 7
+// copies summed first 0.589x-0.592x (4 of 48 below); with each copy its
+// own atomic 0.584x-0.590x (16 of 16). So the band holds the earlier
+// kernel's f32 family, not the f64 one; pairs are kept for it, and are
+// the fastest: 120 us against 123 summed first, 129 in f64
+// (tools/cam_ab.py, tools/step2_spread.py --chol-f64 and PERF.md; NVIDIA
+// H100 80GB HBM3, 700 W).
+// Replaces pallas_cam.py:333 hpp_b (_hpp_b_kernel :311).
+// Bound: (4 + 4 K D + 4 K) B per observation, 212 B at (4, 12), 100 at
+// (2, 11), 8 (D D + D) B per camera: 35.3 / 16.6 us at venice-89. The
+// earlier version added both triangles per row (156 / 132 values) with
+// per-lane shared atomics: 263 / 213 us, 1607 / 1371 on camera-sorted
+// rows, 1231 / 1061 at N = 1024. Here 120 / 86 us (the sums over a
+// warp's peers ~18, the adds and the flush ~3 each: the row's 630
+// products and the loads take the rest at 7 warps an SM), 352 / 253 on
+// camera-sorted rows (a 31-step walk; a pairwise tree of the peers 153,
+// not kept: another order of the sums, above), 881 / 774 at N = 1024
+// (the global route's f32 atomics, 90 / 77 a live row, bind it). One
+// shared copy per 512-thread block (shared atomics) took 184, the values
+// in chunks of 15 (15 live, not 90) 160, without the next row's loads
+// 135, 4 or 3 warps' private copies a block 163 / 153 (tools/cam_ab.py
+// and PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+template <int K, int D, Route R>
+__global__ void __launch_bounds__(hpp_threads(R))
+    hpp_b_kernel(const int32_t* __restrict__ cam, const float* __restrict__ jp,
+                 const float* __restrict__ rt, float* __restrict__ hpp,
+                 float* __restrict__ b, double* __restrict__ acc_g,
+                 int n_obs, int n_cams, int copies) {
+  constexpr int kValues = D + D * (D + 1) / 2;
+  constexpr int kChunk =
+      R == Route::kPrivate ? kValues : divisor_below(kValues, 16);
+  constexpr bool kPrefetch = R == Route::kPrivate;
+  extern __shared__ float smem[];
+  const int n_acc = kValues * n_cams;
+  float* acc = warp_copy<R>(smem, copies, n_acc);
+  const int O = n_obs;
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * blockDim.x;
+  // warp-uniform trips: every lane reaches the warp's scatter
+  int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  JpRow<K, D> next;
+  if (kPrefetch) next = load_row<K, D>(cam, jp, rt, base + lane, O);
+  for (; base < O; base += stride) {
+    JpRow<K, D> x;
+    if (kPrefetch) {
+      x = next;
+      next = load_row<K, D>(cam, jp, rt, base + stride + lane, O);
+    } else {
+      x = load_row<K, D>(cam, jp, rt, base + lane, O);
+    }
+    const povar::WarpPeers peers = povar::warp_peers(x.c, x.live);
+    // value t of the row goes to v[t % kChunk]; a full chunk is added
+    float v[kChunk];
+    int t = 0;
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      float s = x.j[0][a] * x.r[0];
+#pragma unroll
+      for (int k = 1; k < K; ++k) s += x.j[k][a] * x.r[k];
+      v[t % kChunk] = s;
+      if (++t % kChunk == 0)
+        add_rows<kChunk, R, float>(acc, acc_g, t - kChunk, n_cams, x.c,
+                                   peers, v);
+    }
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+#pragma unroll
+      for (int bb = a; bb < D; ++bb) {
+        float s = x.j[0][a] * x.j[0][bb];
+#pragma unroll
+        for (int k = 1; k < K; ++k) s += x.j[k][a] * x.j[k][bb];
+        v[t % kChunk] = s;
+        if (++t % kChunk == 0)
+          add_rows<kChunk, R, float>(acc, acc_g, t - kChunk, n_cams, x.c,
+                                     peers, v);
+      }
+    }
+  }
+  if (!block_sums_done<R, float, 2>(acc_g, smem, copies, n_acc, n_acc))
+    return;
+  drain_sums<float>(acc_g, n_acc, [&](int i, float s) {
+    const int row = i / n_cams, c = i - row * n_cams;
+    const float x = (float)s;
+    if (row < D) {
+      b[row * n_cams + c] = x;
+      return;
+    }
+    int a = 0, e = row - D;  // upper-triangle entry e is (a, a + e)
+    while (e >= D - a) {
+      e -= D - a;
+      ++a;
+    }
+    hpp[(a * D + a + e) * n_cams + c] = x;
+    hpp[((a + e) * D + a) * n_cams + c] = x;
+  });
+}
+
+// A camera-sum kernel's route and block shape for `rows` f32 accumulator
+// rows per camera: `warps` warps (at least `min_warps`) on private copies
+// where that many fit a block, else `shared_threads`-thread blocks on as
+// many shared copies as fit (at most one per warp), else the global
+// route.
+struct SumsPlan {
+  Route route;
+  int threads;
+  int copies;
+  size_t smem;
+};
+
+inline SumsPlan sums_plan(int rows, int n_cams, int warps, int min_warps,
+                          int shared_threads) {
+  const size_t copy = sizeof(float) * (size_t)rows * n_cams;
+  const int fit = (int)std::min<size_t>(povar::max_optin_smem() / copy, 32);
+  if (fit >= min_warps) {
+    const int w = std::min(warps, fit);
+    return {Route::kPrivate, 32 * w, w, w * copy};
+  }
+  if (fit >= 1) {
+    const int k = std::min(fit, shared_threads / 32);
+    return {Route::kShared, shared_threads, k, k * copy};
+  }
+  return {Route::kGlobal, shared_threads, 1, 0};
+}
+
+// launch the route's instantiation of a camera-sum kernel over n_obs
+// rows; the kernel takes `args` and then the plan's copies
+template <typename KP, typename KS, typename KG, typename... Args>
+int launch_sums(const SumsPlan& p, KP private_kernel, KS shared_kernel,
+                KG global_kernel, int n_obs, void* stream, Args... args) {
+  switch (p.route) {
+    case Route::kPrivate:
+      return povar::launch_block(private_kernel, p.threads, n_obs, p.smem,
+                                 stream, args..., p.copies);
+    case Route::kShared:
+      return povar::launch_block(shared_kernel, p.threads, n_obs, p.smem,
+                                 stream, args..., p.copies);
+    default:
+      return povar::launch_block(global_kernel, p.threads, n_obs, 0, stream,
+                                 args..., p.copies);
+  }
+}
+
+template <int kDc>
+int launch_e0_scatter(const int32_t* cam, const float* w, const float* sb,
+                      float* out, double* acc, int n_obs, int n_cams, int dl,
+                      int dc, void* stream) {
+  return launch_sums(
+      sums_plan(dc, n_cams, kE0sWarps, kE0sWarps, kE0sSharedThreads),
+      e0_scatter_kernel<kDc, Route::kPrivate>,
+      e0_scatter_kernel<kDc, Route::kShared>,
+      e0_scatter_kernel<kDc, Route::kGlobal>, n_obs, stream, cam, w, sb, out,
+      acc, n_obs, n_cams, dl, dc);
 }
 
 template <int K, int D>
 int launch_hpp_b(const int32_t* cam, const float* jp, const float* rt,
-                 float* hpp, float* b, int n_obs, int n_cams, void* stream) {
-  const size_t shared = sizeof(float) * (D * D + D) * (size_t)n_cams;
-  if (shared <= (size_t)povar::max_optin_smem())
-    return povar::launch(hpp_b_kernel<K, D, true>, n_obs, shared, stream, cam,
-                         jp, rt, hpp, b, n_obs, n_cams);
-  return povar::launch(hpp_b_kernel<K, D, false>, n_obs, 0, stream, cam, jp,
-                       rt, hpp, b, n_obs, n_cams);
+                 float* hpp, float* b, double* acc, int n_obs, int n_cams,
+                 void* stream) {
+  return launch_sums(
+      sums_plan(D + D * (D + 1) / 2, n_cams, kHppWarps, 4, kHppSharedThreads),
+      hpp_b_kernel<K, D, Route::kPrivate>, hpp_b_kernel<K, D, Route::kShared>,
+      hpp_b_kernel<K, D, Route::kGlobal>, n_obs, stream, cam, jp, rt, hpp, b,
+      acc, n_obs, n_cams);
 }
 
 }  // namespace
@@ -258,28 +560,37 @@ int povar_cam_e0_u(const int32_t* cam, const float* w, const float* x,
                        n_cams, dl, dc);
 }
 
-// out: [dc, n_cams], zeroed by the caller
+// out: [dc, n_cams] (dc 12 and 11, both steps' camera dimensions, in one
+// pass a row; any other dc a value at a time); acc: dc * n_cams + 1
+// doubles, zero (every call leaves them zero)
 int povar_cam_e0_scatter(const int32_t* cam, const float* w, const float* sb,
-                         float* out, int n_obs, int n_cams, int dl, int dc,
-                         void* stream) {
-  if (dl <= 0 || dc <= 0) return (int)cudaErrorInvalidValue;
-  const size_t shared = sizeof(float) * (size_t)dc * n_cams;
-  if (shared <= (size_t)povar::max_optin_smem())
-    return povar::launch(e0_scatter_kernel<true>, n_obs, shared, stream, cam,
-                         w, sb, out, n_obs, n_cams, dl, dc);
-  return povar::launch(e0_scatter_kernel<false>, n_obs, 0, stream, cam, w, sb,
-                       out, n_obs, n_cams, dl, dc);
+                         float* out, double* acc, int n_obs, int n_cams,
+                         int dl, int dc, void* stream) {
+  if (n_obs <= 0 || n_cams <= 0 || dl <= 0 || dc <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (dc == 12)
+    return launch_e0_scatter<12>(cam, w, sb, out, acc, n_obs, n_cams, dl, dc,
+                                 stream);
+  if (dc == 11)
+    return launch_e0_scatter<11>(cam, w, sb, out, acc, n_obs, n_cams, dl, dc,
+                                 stream);
+  return launch_e0_scatter<0>(cam, w, sb, out, acc, n_obs, n_cams, dl, dc,
+                              stream);
 }
 
-// hpp: [d d, n_cams], b: [d, n_cams], zeroed by the caller; (k, d) is
-// (4, 12) (step 1) or (2, 11) (step 2)
+// hpp: [d d, n_cams], b: [d, n_cams]; (k, d) is (4, 12) (step 1) or
+// (2, 11) (step 2); acc: (d + d (d + 1) / 2) n_cams + 1 doubles, zero
+// (every call leaves them zero)
 int povar_cam_hpp_b(const int32_t* cam, const float* jp, const float* rt,
-                    float* hpp, float* b, int n_obs, int n_cams, int k, int d,
-                    void* stream) {
+                    float* hpp, float* b, double* acc, int n_obs, int n_cams,
+                    int k, int d, void* stream) {
+  if (n_obs <= 0 || n_cams <= 0) return (int)cudaErrorInvalidValue;
   if (k == 4 && d == 12)
-    return launch_hpp_b<4, 12>(cam, jp, rt, hpp, b, n_obs, n_cams, stream);
+    return launch_hpp_b<4, 12>(cam, jp, rt, hpp, b, acc, n_obs, n_cams,
+                               stream);
   if (k == 2 && d == 11)
-    return launch_hpp_b<2, 11>(cam, jp, rt, hpp, b, n_obs, n_cams, stream);
+    return launch_hpp_b<2, 11>(cam, jp, rt, hpp, b, acc, n_obs, n_cams,
+                               stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,6 +24,10 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
 
 namespace povar {
 
@@ -74,16 +78,32 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // f64 cross-block sums (6-11 of 16 per call against 0 of 32 with f32
 // ones) (tools/step2_spread.py and PERF.md; NVIDIA H100 80GB HBM3,
 // 700 W).
-template <int K, bool kAtomic = true, typename T = float>
-__device__ __forceinline__ void warp_scatter(T* acc, int n, int c, bool live,
-                                             float (&v)[K]) {
-  const unsigned live_mask = __ballot_sync(kFullMask, live);
-  if (live_mask == 0u) return;
+//
+// It comes in two halves, for a row whose values are scattered in
+// several calls (csrc/cam.cu's hpp_b adds 90 values a row): warp_peers
+// matches the lanes on one camera once, and warp_scatter_rows then sums
+// K values over those peers and adds them into rows 0..K-1 of `acc` at
+// column c (the caller offsets acc to its first row).
+struct WarpPeers {
+  unsigned rest;  // a lead's peers above it, in lane order; 0 elsewhere
+  bool lead;      // the lowest live lane of its camera
+};
+
+__device__ __forceinline__ WarpPeers warp_peers(int c, bool live) {
   const int lane = threadIdx.x & 31;
+  const unsigned live_mask = __ballot_sync(kFullMask, live);
   const unsigned peers =
       __match_any_sync(kFullMask, live ? c : -1) & live_mask;
   const bool lead = live && lane == __ffs(peers) - 1;
-  unsigned rest = lead ? peers & (peers - 1u) : 0u;
+  return {lead ? peers & (peers - 1u) : 0u, lead};
+}
+
+template <int K, bool kAtomic = true, typename T = float>
+__device__ __forceinline__ void warp_scatter_rows(T* acc, int n, int c,
+                                                  const WarpPeers& p,
+                                                  float (&v)[K]) {
+  const int lane = threadIdx.x & 31;
+  unsigned rest = p.rest;
   while (__any_sync(kFullMask, rest != 0u)) {
     const int src = rest ? __ffs(rest) - 1 : lane;
 #pragma unroll
@@ -96,7 +116,7 @@ __device__ __forceinline__ void warp_scatter(T* acc, int n, int c, bool live,
   // a warp-owned accumulator: this call's leads may read what another
   // lane of the warp added in an earlier call
   if (!kAtomic) __syncwarp();
-  if (lead) {
+  if (p.lead) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       if (kAtomic)
@@ -105,6 +125,13 @@ __device__ __forceinline__ void warp_scatter(T* acc, int n, int c, bool live,
         acc[k * n + c] += v[k];
     }
   }
+}
+
+template <int K, bool kAtomic = true, typename T = float>
+__device__ __forceinline__ void warp_scatter(T* acc, int n, int c, bool live,
+                                             float (&v)[K]) {
+  if (!__any_sync(kFullMask, live)) return;
+  warp_scatter_rows<K, kAtomic, T>(acc, n, c, warp_peers(c, live), v);
 }
 
 // True in every thread of the last block to take a ticket from `ticket`
@@ -335,47 +362,117 @@ __device__ __forceinline__ T block_sum(T v, T* red) {
 }
 
 // ------------------------------------------------------------- launching
+//
+// Every launch sizes its grid from the SM count and the kernel's resident
+// blocks per SM, and opts the kernel in to its dynamic shared memory.
+// Those CUDA runtime queries are made once per kernel, device and shape
+// and kept (`launch_cache`): the attribute is set again only when a
+// larger `smem` is asked for.
 
-inline int max_optin_smem() {
-  int dev = 0, bytes = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return bytes;
+struct DeviceLimits {
+  int sms = 0;        // streaming multiprocessors
+  int max_optin = 0;  // dynamic shared memory a block may opt in to
+};
+
+struct LaunchCache {
+  std::mutex mu;
+  std::map<int, DeviceLimits> devices;
+  std::map<std::pair<const void*, int>, size_t> opted;  // kernel, device
+  // kernel, device, block threads, smem -> resident blocks per SM
+  std::map<std::tuple<const void*, int, int, size_t>, int> resident;
+};
+
+inline LaunchCache& launch_cache() {
+  static LaunchCache cache;
+  return cache;
 }
 
-// Opt the kernel in to `smem` bytes of dynamic shared memory and size a
-// grid-stride grid of kBlock-thread blocks to what is resident at once:
-// min(ceil(n_items / kBlock), SMs x resident blocks per SM).
-template <int kBlock = kThreads, typename Kernel>
-cudaError_t grid_for(Kernel kernel, long n_items, size_t smem, int* grid) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// the current device's limits (cache.mu held by the caller)
+inline cudaError_t device_limits(LaunchCache& cache, int dev,
+                                 DeviceLimits* out) {
+  auto it = cache.devices.find(dev);
+  if (it == cache.devices.end()) {
+    DeviceLimits d;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&d.max_optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    it = cache.devices.emplace(dev, d).first;
+  }
+  *out = it->second;
+  return cudaSuccess;
+}
+
+inline int max_optin_smem() {
+  LaunchCache& cache = launch_cache();
+  int dev = 0;
+  DeviceLimits lim;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> lock(cache.mu);
+  return device_limits(cache, dev, &lim) == cudaSuccess ? lim.max_optin : 0;
+}
+
+// Opt `kernel` in to `smem` bytes of dynamic shared memory and size a
+// grid-stride grid of `block`-thread blocks to what is resident at once:
+// min(ceil(n_items / block), SMs x resident blocks per SM).
+inline cudaError_t grid_for_block(const void* kernel, int block,
+                                  long n_items, size_t smem, int* grid) {
+  LaunchCache& cache = launch_cache();
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kBlock, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long want = (n_items + kBlock - 1) / kBlock;
-  const long cap = (long)sms * per_sm;
+  std::lock_guard<std::mutex> lock(cache.mu);
+  DeviceLimits lim;
+  if ((err = device_limits(cache, dev, &lim)) != cudaSuccess) return err;
+  size_t& opted = cache.opted[{kernel, dev}];
+  if (smem > opted) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    opted = smem;
+  }
+  const auto key = std::make_tuple(kernel, dev, block, smem);
+  auto it = cache.resident.find(key);
+  if (it == cache.resident.end()) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        block, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    it = cache.resident.emplace(key, per_sm).first;
+  }
+  const long want = (n_items + block - 1) / block;
+  const long cap = (long)lim.sms * it->second;
   *grid = (int)std::max(1L, std::min(want, cap));
   return cudaSuccess;
 }
 
-// launch `kernel` in kBlock-thread blocks over n_items work items (one
+template <int kBlock = kThreads, typename Kernel>
+cudaError_t grid_for(Kernel kernel, long n_items, size_t smem, int* grid) {
+  return grid_for_block(reinterpret_cast<const void*>(kernel), kBlock,
+                        n_items, smem, grid);
+}
+
+// launch `kernel` in `block`-thread blocks over n_items work items (one
 // per thread) on `stream`; returns the cudaError_t of the configuration
 // or of the launch (0 on success)
+template <typename Kernel, typename... Args>
+int launch_block(Kernel kernel, int block, long n_items, size_t smem,
+                 void* stream, Args... args) {
+  int grid = 0;
+  cudaError_t err = grid_for_block(reinterpret_cast<const void*>(kernel),
+                                   block, n_items, smem, &grid);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 template <int kBlock = kThreads, typename Kernel, typename... Args>
 int launch(Kernel kernel, long n_items, size_t smem, void* stream,
            Args... args) {
-  int grid = 0;
-  cudaError_t err = grid_for<kBlock>(kernel, n_items, smem, &grid);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
+  return launch_block(kernel, kBlock, n_items, smem, stream, args...);
 }
 
 // Launch a tile kernel over `n_tiles` tiles cut for blocks of

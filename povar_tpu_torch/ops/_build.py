@@ -51,8 +51,8 @@ SIGNATURES = {
     "povar_cam_gather": [_P] * 3 + [_I] * 4 + [_P],
     "povar_cam_scatter_add": [_P] * 3 + [_I] * 4 + [_P],
     "povar_cam_e0_u": [_P] * 4 + [_I] * 4 + [_P],
-    "povar_cam_e0_scatter": [_P] * 4 + [_I] * 4 + [_P],
-    "povar_cam_hpp_b": [_P] * 5 + [_I] * 4 + [_P],
+    "povar_cam_e0_scatter": [_P] * 5 + [_I] * 4 + [_P],
+    "povar_cam_hpp_b": [_P] * 6 + [_I] * 4 + [_P],
     "povar_pose_error": [_P] * 6 + [_I, _I, _I, _D, _D, _I, _D, _P],
     "povar_e0_term": [_P] * 6 + [_I] * 5 + [_P],
     "povar_schur_diag": [_P] * 4 + [_I, _I, _P],

@@ -16,6 +16,12 @@ The f32 LM state's cost runs `cam_gather`; the unstructured layout
 solvers' observation layout checks that once (slots.make_obs). The
 per-observation operands of the three scatters must be zero on slot pad
 rows, whose camera index is a real camera.
+
+`e0_scatter` and `hpp_b` meet their blocks' per-camera sums (in f64 and
+f32, csrc/cam.cu says why) in a scratch buffer of doubles that every
+call leaves zeroed: one per device and CUDA stream (`_sums_scratch`),
+zeroed once when it is made or grown, so a call is one device
+operation.
 """
 
 from __future__ import annotations
@@ -45,6 +51,22 @@ _TABLE_BYTES = 48 * 1024
 # the (k, d) shapes of hpp_b's Jacobian blocks that csrc/cam.cu
 # instantiates: step 1's [4, 12] and step 2's tangent [2, 11]
 _HPP_B_SHAPES = ((4, 12), (2, 11))
+
+# (device, stream) -> the sums buffer of e0_scatter / hpp_b
+_SUMS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _sums_scratch(device: torch.device, stream: int,
+                  n: int) -> torch.Tensor:
+    """A zero f64 buffer of at least `n` entries for a kernel launched on
+    CUDA stream `stream`: the kernel's last block zeroes what it used
+    (its sums and ticket), and calls on one stream run one after
+    another."""
+    buf = _SUMS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.float64, device=device)
+        _SUMS[(device, stream)] = buf
+    return buf
 
 
 def _rows_per_block(r: int, n: int) -> int:
@@ -137,10 +159,12 @@ def e0_scatter(W: torch.Tensor, cam: torch.Tensor, sb: torch.Tensor,
     if _on_cpu(W, cam, sb):
         return cam_ref.e0_scatter(W, cam, sb, n)
     _cuda_checks(o, n, cam, f32=(("W", W), ("sb", sb)))
-    out = _f32_zeros(dc, n, W)
+    out = torch.empty((dc, n), dtype=torch.float32, device=W.device)
+    stream = _stream(W)
     _launch("e0_scatter", _build.library().povar_cam_e0_scatter,
-            _ptr(cam), _ptr(W), _ptr(sb), _ptr(out), o, n, dl, dc,
-            _stream(W), counts=LAUNCHES)
+            _ptr(cam), _ptr(W), _ptr(sb), _ptr(out),
+            _ptr(_sums_scratch(W.device, stream.value, dc * n + 1)), o, n,
+            dl, dc, stream, counts=LAUNCHES)
     return out
 
 
@@ -148,7 +172,8 @@ def hpp_b(Jp: torch.Tensor, r_tilde: torch.Tensor, cam: torch.Tensor,
           n_cams: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Jp [k*d, O] ([k, d, O] flat: k residual rows, d pose dimensions),
     r_tilde [k, O] -> (hpp [d*d, N], b [d, N]): per-camera sums of
-    Jp^T Jp and Jp^T r~ (C5). On the card (k, d) is (4, 12) or (2, 11)."""
+    Jp^T Jp and Jp^T r~ (C5). On the card (k, d) is (4, 12) or (2, 11),
+    and hpp is symmetric bit for bit."""
     n = int(n_cams)
     if Jp.dim() != 2 or r_tilde.dim() != 2 or cam.dim() != 1:
         raise ValueError(
@@ -164,9 +189,12 @@ def hpp_b(Jp: torch.Tensor, r_tilde: torch.Tensor, cam: torch.Tensor,
         raise ValueError(f"hpp_b: (k, d) = {(k, d)} is none of "
                          f"{_HPP_B_SHAPES}")
     _cuda_checks(o, n, cam, f32=(("Jp", Jp), ("r_tilde", r_tilde)))
-    hpp = _f32_zeros(d * d, n, Jp)
-    b = _f32_zeros(d, n, Jp)
+    hpp = torch.empty((d * d, n), dtype=torch.float32, device=Jp.device)
+    b = torch.empty((d, n), dtype=torch.float32, device=Jp.device)
+    stream = _stream(Jp)
+    sums = (d + d * (d + 1) // 2) * n + 1  # b, the upper triangle, ticket
     _launch("hpp_b", _build.library().povar_cam_hpp_b,
-            _ptr(cam), _ptr(Jp), _ptr(r_tilde), _ptr(hpp), _ptr(b), o, n, k,
-            d, _stream(Jp), counts=LAUNCHES)
+            _ptr(cam), _ptr(Jp), _ptr(r_tilde), _ptr(hpp), _ptr(b),
+            _ptr(_sums_scratch(Jp.device, stream.value, sums)), o, n, k, d,
+            stream, counts=LAUNCHES)
     return hpp, b

@@ -1,0 +1,540 @@
+"""`e0_scatter` and `hpp_b` (csrc/cam.cu) against an earlier version of
+their kernels and against controlled variants of their own, on one card;
+the warm bench iterations with `cam_gather`'s host cost; and the spreads
+of the solves these kernels' rounding can move.
+
+    python -m povar_tpu_torch.tools.cam_ab kernels --parent DIR
+    python -m povar_tpu_torch.tools.cam_ab bench
+    python -m povar_tpu_torch.tools.cam_ab spread [--chol 16] [--off 8]
+
+Run from the repository root (`chip_smoke.py` lends its timers and its
+bench iteration). `kernels` builds DIR/cam.cu with DIR/pose_common.cuh
+(an earlier commit's csrc/, whose `povar_cam_e0_scatter` and
+`povar_cam_hpp_b` take PARENT_SIG's arguments: no sums buffer, outputs
+zeroed by the caller) and the VARIANTS of the package's own csrc/, one
+nvcc each, all started together, into build/cam_ab/, and prints their
+registers and the SASS opcode counts of every instantiation (atomics,
+shuffles, local-memory loads and stores). It then checks the earlier and
+the package kernel against the plain version per camera (1e-4) and times
+each in turns (earlier, package, package, earlier; then the variants)
+at both steps' shapes ((dl, dc) = (3, 12) / (3, 11); (k, d) = (4, 12) /
+(2, 11)) on seeded operands zeroed on the slot pad rows, at
+
+  (a) venice-89: O = 557,056 slot rows of synthetic_bal_problem_fast(89,
+      110973, 5), N = 89;
+  (b) the same rows sorted by camera (every warp on one camera);
+  (c) N = 1024 seeded cameras on (a)'s rows,
+
+and prints whether each result's hpp is symmetric bit for bit. Device
+time is the profiler's, every device operation of a call included (the
+earlier wrapper's zeroing of its outputs too), mean of 20 calls; event
+time the median of 20 (tools/pose2_ab.py's `ab_time`).
+
+`bench` prints, for the package tree in the current directory:
+`cam_gather`'s event and device time at venice-89 ([12, 89] table) beside
+`index_select`'s, and its host time per call (enqueue only, mean of 2000
+calls) for the wrapper, for the bare C entry point through ctypes, for a
+ctypes call that does nothing on the card (`povar_error_string`) and
+for `index_select`; then chip_smoke's warm step-1 and step-2 bench
+iterations with pallas_kernels="off" and with SolverOptions() defaults
+(launches, wall time, device time and device operations per iteration).
+Run it in each tree to compare, for instance `(cd DIR && PYTHONPATH=.
+python <repo>/povar_tpu_torch/tools/cam_ab.py bench)`.
+
+`spread` runs `--chol` venice-89 CHOLESKY step-1 solves
+(tools/step2_spread.step1_spread) and counts those outside chip_smoke.py's
+bands (the first trial within CHOL_FIRST_TOL of CHOL_FIRST, the first
+CHOL_SAME trials accepted, the final cost within CHOL_BAND x JAX's), then
+`--off` step-1 solves with pallas_kernels="off" (outside: a final cost
+more than 1e-3 relative from JAX_FINAL_COST), then chip_smoke's
+`check_layouts` once on a defaults step-1 result. It too runs in either
+tree.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+OUT = Path("build") / "cam_ab"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the earlier cam.cu's entry points: no sums buffer
+PARENT_SIG = {"povar_cam_e0_scatter": [_P] * 4 + [_I] * 4 + [_P],
+              "povar_cam_hpp_b": [_P] * 5 + [_I] * 4 + [_P]}
+ENTRIES = tuple(PARENT_SIG)
+# SASS opcode counts per instantiation: route 0 / 1 / 2 is the per-warp,
+# shared and global route of csrc/cam.cu (the earlier kernels: shared
+# accumulators, then global ones)
+SASS_KERNELS = {
+    **{f"e0_scatter<{dc}> route {r}":
+       rf"cam_cu.*e0_scatter_kernelILi{dc}E.*RouteE{r}E"
+       for dc in (12, 11) for r in range(3)},
+    **{f"hpp_b<{k},{d}> route {r}":
+       rf"cam_cu.*hpp_b_kernelILi{k}ELi{d}E.*RouteE{r}E"
+       for k, d in ((4, 12), (2, 11)) for r in range(3)},
+    "e0_scatter (earlier)": r"cam_cu.*e0_scatter_kernel",
+    "hpp_b (earlier)": r"cam_cu.*hpp_b_kernel",
+}
+# warp_scatter_rows's sum as a pairwise tree over the peers' ranks: in
+# step d = 1, 2, 4, ... the lane of rank r, a multiple of 2 d, adds the
+# value of rank r + d (log2 of the group's size steps, not size - 1);
+# p.rest then holds the whole group in every live lane
+TREE_WALK = """  const int rank = __popc(p.rest & ((1u << lane) - 1u));
+  const int size = __popc(p.rest);
+  const unsigned above = p.rest & ~((2u << lane) - 1u);
+  for (int d = 1; d < 32; d <<= 1) {
+    const bool take = rank % (2 * d) == 0 && rank + d < size;
+    if (!__any_sync(kFullMask, take)) break;
+    unsigned m = above;
+    for (int i = 1; take && i < d; ++i) m &= m - 1u;
+    const int src = take ? __ffs(m) - 1 : lane;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float t = __shfl_sync(kFullMask, v[k], src);
+      if (take) v[k] += t;
+    }
+  }
+"""
+# hpp_b's launch: the fewest warps a block of private copies may have
+HPP_MIN_WARPS = r"(sums_plan\(D \+ D \* \(D \+ 1\) / 2, n_cams, kHppWarps, )4,"
+
+
+def _sum_type(values: str, was: str, group: str, now: str):
+    """The edits that make a kernel's blocks meet in `now` atomics, not
+    `was` ones: its add_rows<`values`, R, was> calls, its block_sums_done
+    (copies in groups of `group`) and its drain_sums."""
+    return [("cam.cu", rf"add_rows<{values}, R, {was}>",
+             f"add_rows<{values}, R, {now}>"),
+            ("cam.cu", rf"block_sums_done<R, {was}, {group}>",
+             f"block_sums_done<R, {now}, {group}>"),
+            ("cam.cu", rf"drain_sums<{was}>\(acc_g, n_acc,(\s+)\[&\]\(int i, "
+             rf"{was} s\)", rf"drain_sums<{now}>(acc_g, n_acc,\1[&](int i, "
+             rf"{now} s)")]
+
+
+# edits of the package's csrc/ (file, regex, replacement) and the kernels
+# they concern; every variant keeps the results right unless named so
+VARIANTS = {
+    # hpp_b as one shared copy per 512-thread block at N = 89 (shared
+    # atomics, the lanes on one camera summed first)
+    "hpp_shared1": ([("cam.cu", HPP_MIN_WARPS, r"\g<1>33,"),
+                     ("cam.cu", r"const int k = std::min\(fit, "
+                      r"shared_threads / 32\);", "const int k = 1;")],
+                    "hpp_b"),
+    # ... and on as many shared copies as fit (7 at (4, 12))
+    "hpp_shared_copies": ([("cam.cu", HPP_MIN_WARPS, r"\g<1>33,")],
+                          "hpp_b"),
+    # the private route's sums in chunks of 15 / 11 values (one chunk of
+    # 90 / 77 by default), and without its loads of the next row
+    "hpp_chunked": ([("cam.cu", r"R == Route::kPrivate \? kValues",
+                      "false ? kValues")], "hpp_b"),
+    "hpp_no_prefetch": ([("cam.cu", r"constexpr bool kPrefetch = R == "
+                          r"Route::kPrivate;",
+                          "constexpr bool kPrefetch = false;")], "hpp_b"),
+    # private copies for 4 warps per block (8 by default)
+    "hpp_warps4": ([("cam.cu", r"constexpr int kHppWarps = 8;",
+                     "constexpr int kHppWarps = 4;")], "hpp_b"),
+    # private copies in blocks of 2 warps (3 blocks an SM: 396 blocks'
+    # partials meet, not 132)
+    "hpp_warps2": ([("cam.cu", r"constexpr int kHppWarps = 8;",
+                     "constexpr int kHppWarps = 2;"),
+                    ("cam.cu", HPP_MIN_WARPS, r"\g<1>2,")], "hpp_b"),
+    # private copies in blocks of 3 warps (2 blocks an SM at (4, 12))
+    "hpp_warps3": ([("cam.cu", r"constexpr int kHppWarps = 8;",
+                     "constexpr int kHppWarps = 3;"),
+                    ("cam.cu", HPP_MIN_WARPS, r"\g<1>3,")], "hpp_b"),
+    # a hpp_b block's copies summed before its flush (one atomic an entry;
+    # in pairs by default), or each flushed on its own
+    "flush_summed": ([("cam.cu", r"block_sums_done<R, float, 2>",
+                       "block_sums_done<R, float, 32>")], "hpp_b"),
+    "warp_flush": ([("cam.cu", r"block_sums_done<R, float, 2>",
+                     "block_sums_done<R, float, 1>")], "hpp_b"),
+    # every value straight to a global atomic at every N
+    "hpp_global": ([("cam.cu", HPP_MIN_WARPS, r"\g<1>33,"),
+                    ("cam.cu", r"if \(fit >= 1\) \{",
+                     "if (fit >= 1 && shared_threads != 512) {")], "hpp_b"),
+    # the blocks' sums meeting in f64 (hpp_b) or f32 (e0_scatter) atomics
+    "hpp_f64_sums": (_sum_type("kChunk", "float", "2", "double"), "hpp_b"),
+    "e0_f32_sums": (_sum_type("kV", "double", "32", "float"), "e0_scatter"),
+    # e0_scatter on one shared copy per 1024-thread block at N = 89
+    "e0_shared1": ([("cam.cu", r"sums_plan\(dc, n_cams, kE0sWarps, "
+                     r"kE0sWarps,", "sums_plan(dc, n_cams, kE0sWarps, 33,"),
+                    ("cam.cu", r"const int k = std::min\(fit, "
+                     r"shared_threads / 32\);", "const int k = 1;")],
+                   "e0_scatter"),
+    # e0_scatter's private copies in 256-thread blocks
+    "e0_warps8": ([("cam.cu", r"constexpr int kE0sWarps = 16;",
+                    "constexpr int kE0sWarps = 8;")], "e0_scatter"),
+    # the blocks' partials in fixed order: each block writes its sums
+    # (f32) to its own row of the buffer and the last block adds the rows
+    # in block order, in f32 (the buffer: grid x count floats, then the
+    # ticket; bit-reproducible)
+    "e0_fixed_order": ([("cam.cu", r"      if \(s != 0\.0f\) atomicAdd\("
+                         r"sums \+ i, \(T\)s\);",
+                         "      reinterpret_cast<float*>(acc_g)"
+                         "[blockIdx.x * count + i] = s;"),
+                        ("cam.cu", r"return povar::last_block\(ticket_of\("
+                         r"acc_g, count\)\);",
+                         "return povar::last_block(reinterpret_cast<"
+                         "unsigned*>(reinterpret_cast<float*>(acc_g) + "
+                         "gridDim.x * count));"),
+                        ("cam.cu", r"  drain_sums<double>\(acc_g, n_acc,\s+"
+                         r"\[&\]\(int i, double s\) \{ out\[i\] = "
+                         r"\(float\)s; \}\);",
+                         "  const float* part = reinterpret_cast<const "
+                         "float*>(acc_g);\n"
+                         "  for (int i = threadIdx.x; i < n_acc; i += "
+                         "blockDim.x) {\n"
+                         "    float s = __ldcg(part + i);\n"
+                         "    for (int k = 1; k < gridDim.x; ++k) s += "
+                         "__ldcg(part + k * n_acc + i);\n"
+                         "    out[i] = s;\n  }\n"
+                         "  if (threadIdx.x == 0) *reinterpret_cast<"
+                         "unsigned*>(reinterpret_cast<float*>(acc_g) + "
+                         "gridDim.x * n_acc) = 0u;")], "e0_scatter"),
+    # the lanes on one camera summed as a pairwise tree (lane order by
+    # default)
+    "tree_walk": ([("pose_common.cuh", r"return \{lead \? peers & "
+                    r"\(peers - 1u\) : 0u, lead\};",
+                    "return {live ? peers : 0u, lead};"),
+                   ("pose_common.cuh", r"  unsigned rest = p\.rest;\n.*?"
+                    r"rest &= rest - 1u;\n  \}\n", TREE_WALK)], None),
+    # diagnostics, wrong sums: the per-camera adds made dead stores, and
+    # the blocks' flush left out
+    "no_adds": ([("pose_common.cuh", r"atomicAdd\(&acc\[k \* n \+ c\], "
+                  r"\(T\)v\[k\]\);\n      else\n        acc\[k \* n \+ c\] "
+                  r"\+= v\[k\];",
+                  "{ if (v[k] == 1.2345e-38f) acc[k * n + c] = v[k]; }\n"
+                  "      else if (v[k] == 1.2345e-38f) acc[k * n + c] = "
+                  "v[k];")], None),
+    # every lane its own peer group: no walk (the private copies' plain
+    # adds then race: wrong sums)
+    "no_walk": ([("pose_common.cuh", r"__match_any_sync\(kFullMask, live "
+                  r"\? c : -1\)", "(1u << lane)")], None),
+    "no_flush": ([("cam.cu", r"if \(s != 0\.0f\) atomicAdd\(sums \+ i, "
+                   r"\(T\)s\);", "if (s == 1.2345e-38f) sums[i] = (T)s;")],
+                 None),
+}
+# the variants that give wrong sums by design (timed only)
+DIAGNOSTIC = {"no_adds", "no_walk", "no_flush"}
+# floats per block row of the fixed-order variant's buffer: the most
+# blocks any route launches (132 SMs x 3 blocks) times dc N at N = 1024
+FIXED_ORDER_FLOATS = 132 * 3 * 12 * 1024 + 2
+
+
+def _parent_e0(lib):
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    def run(W, cam, sb, n):
+        dl, o = sb.shape[0], cam.shape[0]
+        dc = W.shape[0] // dl
+        out = torch.zeros((dc, n), device=W.device)
+        rc = lib.povar_cam_e0_scatter(_ptr(cam), _ptr(W), _ptr(sb),
+                                      _ptr(out), o, n, dl, dc, _stream(W))
+        assert rc == 0, rc
+        return out
+    return run
+
+
+def _parent_hpp(lib):
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    def run(Jp, rt, cam, n):
+        k, o = rt.shape
+        d = Jp.shape[0] // k
+        hpp = torch.zeros((d * d, n), device=Jp.device)
+        b = torch.zeros((d, n), device=Jp.device)
+        rc = lib.povar_cam_hpp_b(_ptr(cam), _ptr(Jp), _ptr(rt), _ptr(hpp),
+                                 _ptr(b), o, n, k, d, _stream(Jp))
+        assert rc == 0, rc
+        return hpp, b
+    return run
+
+
+def _variant_e0(lib, floats=None):
+    """The package's e0_scatter entry point of `lib` with a sums buffer
+    of its own per shape (zeroed once: every call leaves it zeroed, or,
+    in a variant that gives wrong sums, as that variant leaves it);
+    `floats`: the buffer's size in floats (default: the package's)."""
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    scratch = {}
+
+    def run(W, cam, sb, n):
+        dl, o = sb.shape[0], cam.shape[0]
+        dc = W.shape[0] // dl
+        size = floats // 2 + 1 if floats else dc * n + 1
+        if (dc, n) not in scratch:
+            scratch[dc, n] = torch.zeros(size, dtype=torch.float64,
+                                         device=W.device)
+        out = torch.empty((dc, n), device=W.device)
+        rc = lib.povar_cam_e0_scatter(_ptr(cam), _ptr(W), _ptr(sb),
+                                      _ptr(out), _ptr(scratch[dc, n]), o, n,
+                                      dl, dc, _stream(W))
+        assert rc == 0, rc
+        return out
+    return run
+
+
+def _variant_hpp(lib):
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    scratch = {}
+
+    def run(Jp, rt, cam, n):
+        k, o = rt.shape
+        d = Jp.shape[0] // k
+        size = (d + d * (d + 1) // 2) * n + 1
+        if scratch.get("n", 0) < size:
+            scratch.update(n=size, buf=torch.zeros(size, dtype=torch.float64,
+                                                   device=Jp.device))
+        hpp = torch.empty((d * d, n), device=Jp.device)
+        b = torch.empty((d, n), device=Jp.device)
+        rc = lib.povar_cam_hpp_b(_ptr(cam), _ptr(Jp), _ptr(rt), _ptr(hpp),
+                                 _ptr(b), _ptr(scratch["buf"]), o, n, k, d,
+                                 _stream(Jp))
+        assert rc == 0, rc
+        return hpp, b
+    return run
+
+
+def _operands():
+    """cam and the live-row mask of the venice-89 slot layout
+    (chip_smoke.py's problem and Stage1Solver)."""
+    import chip_smoke as cs
+    from povar_tpu_torch import (SolverOptions, Stage1Solver,
+                                 synthetic_bal_problem_fast)
+
+    problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
+                                         seed=0)
+    s = Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                     problem.num_cameras, problem.num_landmarks,
+                     SolverOptions(), device="cuda")
+    return s.obs.cam, s._mask1, s.n_cams
+
+
+def _shapes(cam, mask, n):
+    """(kernel, label, args, {}) at (a)-(c) and both steps' shapes."""
+    rng = np.random.default_rng(2)
+    o = cam.shape[0]
+
+    def f32(rows):
+        return torch.as_tensor(rng.standard_normal((rows, o)),
+                               dtype=torch.float32, device="cuda") * mask
+
+    ops = {"e0_scatter": [(f32(3 * dc), f32(3), f"(dl, dc) = (3, {dc})")
+                          for dc in (12, 11)],
+           "hpp_b": [(f32(k * d), f32(k), f"(k, d) = ({k}, {d})")
+                     for k, d in ((4, 12), (2, 11))]}
+    by_cam = torch.argsort(cam.long(), stable=True)
+    cam_big = torch.as_tensor(rng.integers(0, 1024, o).astype(np.int32),
+                              device="cuda")
+    shapes = []
+    for kernel, cases in ops.items():
+        for x, y, tag in cases:
+            for label, c, rows, nc in (
+                    ("(a) venice-89", cam, None, n),
+                    ("(b) sorted by camera", cam[by_cam], by_cam, n),
+                    ("(c) N = 1024", cam_big, None, 1024)):
+                xs, ys = ((x, y) if rows is None else
+                          (x[:, rows].contiguous(), y[:, rows].contiguous()))
+                args = ((xs, c, ys, nc) if kernel == "e0_scatter"
+                        else (xs, ys, c, nc))
+                shapes.append((kernel, f"{label}, {tag}", args, {}))
+    return shapes
+
+
+def kernels(parent: Path, only=None) -> None:
+    from povar_tpu_torch.ops import cam_kernels as ck
+    from povar_tpu_torch.ops import cam_ref
+    from povar_tpu_torch.tools import pose2_ab as ab
+    from povar_tpu_torch.tools.parity import scaled_error
+
+    libs = ab.build_all(parent, "cam.cu", OUT,
+                        {n: (e, 512) for n, (e, _k) in VARIANTS.items()},
+                        {}, ENTRIES, PARENT_SIG, SASS_KERNELS)
+    cam, mask, n = _operands()
+    shapes = [s for s in _shapes(cam, mask, n)
+              if only is None or s[0] in only]
+    impls = {"e0_scatter": {"parent": _parent_e0(libs["parent"]),
+                            "package": ck.e0_scatter},
+             "hpp_b": {"parent": _parent_hpp(libs["parent"]),
+                       "package": ck.hpp_b}}
+    timed = {
+        "e0_scatter": {
+            name: _variant_e0(libs[name], FIXED_ORDER_FLOATS
+                              if name == "e0_fixed_order" else None)
+            for name, (_e, k) in VARIANTS.items() if k in (None,
+                                                           "e0_scatter")},
+        "hpp_b": {name: _variant_hpp(libs[name])
+                  for name, (_e, k) in VARIANTS.items()
+                  if k in (None, "hpp_b")},
+    }
+    for kernel, label, args, _kw in shapes:
+        want = getattr(cam_ref, kernel)(*args)
+        for who, fn in [*impls[kernel].items(), *timed[kernel].items()]:
+            if who in DIAGNOSTIC:
+                continue
+            outs = [fn(*args) for _ in range(3)]
+            got = outs[0] if kernel == "hpp_b" else (outs[0],)
+            same = all(all(torch.equal(a, b) for a, b in
+                           zip(got, x if kernel == "hpp_b" else (x,)))
+                       for x in outs[1:])
+            err = " ".join(f"{scaled_error(g, w, 'cam'):.1e}" for g, w in
+                           zip(got, want if kernel == "hpp_b" else (want,)))
+            sym = ""
+            if kernel == "hpp_b":
+                d = got[1].shape[0]
+                h = got[0].view(d, d, -1)
+                sym = (", hpp symmetric bit for bit "
+                       f"{bool(torch.equal(h, h.transpose(0, 1)))}")
+            print(f"{kernel} {label} {who}: scaled error per camera {err}, "
+                  f"three calls bit-identical {same}{sym}", flush=True)
+    ab.ab_time(shapes, impls, timed, cam_ref)
+
+
+def _host_us(fn, reps: int = 2000) -> float:
+    """Host time per call of `fn` in microseconds (the enqueue alone:
+    no synchronisation inside the loop), mean of `reps` after a warm-up."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def gather() -> None:
+    """cam_gather at venice-89 ([12, 89] table, O = 557,056) beside
+    index_select: event and device times, and host time per call."""
+    import chip_smoke as cs
+    from povar_tpu_torch.ops import _build
+    from povar_tpu_torch.ops import cam_kernels as ck
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    cam, _mask, n = _operands()
+    table = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (12, n)), dtype=torch.float32, device="cuda")
+    cam64 = cam.long()
+    lib = _build.library()
+    out = torch.empty((12, cam.shape[0]), device="cuda")
+    args = (_ptr(cam), _ptr(table), _ptr(out), cam.shape[0], n, 12,
+            ck._rows_per_block(12, n), _stream(table))
+    fns = {"cam_gather": lambda: ck.cam_gather(table, cam),
+           "index_select": lambda: table.index_select(1, cam64),
+           "C entry point": lambda: lib.povar_cam_gather(*args),
+           "ctypes call alone": lambda: lib.povar_error_string(0)}
+    for name, fn in fns.items():
+        card = ("" if name == "ctypes call alone" else
+                f"events {cs.cuda_ms(fn):.4f} ms, device "
+                f"{cs.device_us(fn):.1f} us, ")
+        print(f"gather venice-89 {name}: {card}host {_host_us(fn):.2f} us "
+              "per call", flush=True)
+
+
+def bench() -> None:
+    import chip_smoke as cs
+    from povar_tpu_torch import SolverOptions, synthetic_bal_problem_fast
+
+    gather()
+    problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
+                                         seed=0)
+    for label, opts in (("off", SolverOptions(pallas_kernels="off")),
+                        ("defaults", SolverOptions())):
+        cs.bench_step1(problem, opts, f"step-1 {label}")
+        cs.bench_step2(problem, opts, f"step-2 {label}")
+
+
+def spread(chol: int, off: int) -> None:
+    import chip_smoke as cs
+    from povar_tpu_torch import (SolverOptions, SolverSummary, Stage1Solver,
+                                 Timer, create_homogeneous, from_numpy,
+                                 optimize_step1, synthetic_bal_problem_fast)
+    from povar_tpu_torch.options import SolverType
+    from povar_tpu_torch.tools.step2_spread import JAX_CHOL_COST, step1_spread
+
+    problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
+                                         seed=0)
+    recs = step1_spread(problem, chol, SolverType.CHOLESKY)
+    firsts = [r["costs"][1] for r in recs]
+    out = [r for r in recs
+           if not abs(r["costs"][1] - cs.CHOL_FIRST)
+           <= cs.CHOL_FIRST_TOL * cs.CHOL_FIRST
+           or r["decisions"][:cs.CHOL_SAME] != "A" * cs.CHOL_SAME
+           or not (cs.CHOL_BAND[0] * JAX_CHOL_COST <= r["final"]
+                   <= cs.CHOL_BAND[1] * JAX_CHOL_COST)]
+    if chol:
+        dev = sorted(f / cs.CHOL_FIRST - 1.0 for f in firsts)
+        print(f"spread chol: {len(out)} of {chol} outside the bands; first "
+              f"trial against CHOL_FIRST {dev[0]:+.2e} .. {dev[-1]:+.2e}; "
+              f"finals {sorted(r['final'] / JAX_CHOL_COST for r in recs)} x "
+              "JAX", flush=True)
+    opts = SolverOptions(pallas_kernels="off")
+    stage1 = Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                          problem.num_cameras, problem.num_landmarks, opts,
+                          device="cuda")
+    finals = []
+    for _ in range(off):
+        _p, c0, l0 = from_numpy(problem.obs_cam, problem.obs_lm,
+                                problem.obs_uv, problem.cam_space,
+                                problem.lm_p, device="cuda")
+        s = SolverSummary()
+        optimize_step1(stage1, c0, l0, opts, s, Timer(), log=lambda x: None)
+        finals.append(s.final_cost.all.error)
+    if off:
+        bad = [f for f in finals if not abs(f - cs.JAX_FINAL_COST)
+               <= 1e-3 * cs.JAX_FINAL_COST]
+        print(f"spread off: {len(bad)} of {off} step-1 finals more than 1e-3 "
+              f"from {cs.JAX_FINAL_COST}; finals {sorted(finals)}",
+              flush=True)
+    _s, (cams, lms), _t, _u = cs.solve(problem, SolverOptions(), "cuda")
+    try:
+        cs.check_layouts(problem, *create_homogeneous(cams, lms))
+        print("spread layouts: within LAYOUT_TOLS", flush=True)
+    except AssertionError as e:
+        print(f"spread layouts: outside LAYOUT_TOLS: {e}", flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="mode", required=True)
+    k = sub.add_parser("kernels")
+    k.add_argument("--parent", type=Path, required=True,
+                   help="directory with the earlier cam.cu and "
+                   "pose_common.cuh")
+    k.add_argument("--kernels", nargs="+", default=None,
+                   choices=("e0_scatter", "hpp_b"),
+                   help="time only these kernels (default: both)")
+    sub.add_parser("bench")
+    s = sub.add_parser("spread")
+    s.add_argument("--chol", type=int, default=16)
+    s.add_argument("--off", type=int, default=8)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("cam_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path.cwd()))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    if args.mode == "kernels":
+        kernels(args.parent, args.kernels)
+    elif args.mode == "spread":
+        spread(args.chol, args.off)
+    else:
+        bench()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

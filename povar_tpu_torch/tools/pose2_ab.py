@@ -66,13 +66,13 @@ NO_ATOMICS = (r"atomicAdd\(&(acc\w*)\[([^\]]+)\], ([^;]+)\);",
 NO_ADDS = (r"acc\[k \* n \+ c\] \+= v\[k\];",
            "if (v[k] == 1.2345e-38f) acc[k * n + c] = v[k];")
 # warp_scatter's sums of the lanes on one camera as a pairwise butterfly
-# (5 shuffle steps) where every live lane is on one camera, the walk over
-# the peers in lane order otherwise
+# (5 shuffle steps) where every live lane is on one camera (one lead, with
+# peers), the walk over the peers in lane order otherwise
 BUTTERFLY = (
-    r"(  unsigned rest = lead \? peers & \(peers - 1u\) : 0u;\n"
+    r"(  unsigned rest = p\.rest;\n"
     r"  while .*?\n    rest &= rest - 1u;\n  \}\n)",
-    "  if (__popc(live_mask) > 1 &&\n"
-    "      __all_sync(kFullMask, !live || peers == live_mask)) {\n"
+    "  if (__popc(__ballot_sync(kFullMask, p.lead)) == 1 &&\n"
+    "      __any_sync(kFullMask, p.rest != 0u)) {\n"
     "#pragma unroll\n"
     "    for (int k = 0; k < K; ++k)\n"
     "#pragma unroll\n"
@@ -188,9 +188,10 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # caller to zero and sum
 PARENT_SIG = {"povar_pose_error2": [_P] * 6 + [_I, _I, _I, _I, _D, _P]}
 # the opcodes counted in SASS: atomics, f64 arithmetic, the multi-
-# function unit, barriers and shuffles
+# function unit, barriers, shuffles and local-memory (spill) traffic
 SASS_OPS = (r"\b(ATOMS\.[\w.]+|ATOM\.[\w.]+|RED\.[\w.]+|ATOMG\.[\w.]+|"
-            r"DFMA|DMUL|DADD|MUFU\.[\w.]+|BAR\.[\w.]+|SHFL\.[\w.]+)\b")
+            r"DFMA|DMUL|DADD|MUFU\.[\w.]+|BAR\.[\w.]+|SHFL\.[\w.]+|"
+            r"STL(?:\.[\w.]+)?|LDL(?:\.[\w.]+)?)\b")
 
 
 def _variant_dir(out: Path, src: Path, name: str, source: str,

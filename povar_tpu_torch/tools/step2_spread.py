@@ -4,7 +4,7 @@
         [--small 0] [--witness 0] [--step2 RIPOBA] [--pcg 0] [--psc 0]
         [--psc-device cuda] [--psc-f64 0] [--varproj 0] [--psc-mesh 0]
         [--psc-ba 0]
-        [--chol 0]
+        [--chol 0] [--chol-f64 0]
         [--chol-device cuda]
         [--ring 0]
         [--out build/step2_spread.json]
@@ -64,7 +64,11 @@ step-2 cost:
                 cpu` through the plain versions on the CPU: the spread
                 that chip_smoke.py's CHOLESKY band was set from, and the
                 opening decisions each shares with the JAX package's run
-                (`JAX_CHOL_DECISIONS`).
+                (`JAX_CHOL_DECISIONS`);
+  chol f64      `--chol-f64` such solves in f64 through the plain
+                versions (f64_unstructured), on the card or with
+                `--chol-device cpu` on the CPU: where the f32 kernels'
+                orders of sums round away from.
 
 Prints one line per run and writes every trajectory (accept/reject
 sequence, power terms, costs, termination) as JSON to `--out`. Needs a
@@ -184,17 +188,15 @@ def calm_subproblem(problem, cams_h, lms_h, calm=CALM):
     return args, lms_h[keep_lm]
 
 
-def f64_twin(solver_cls, args, options):
-    """A CPU stage solver (`solver_cls` on the arguments `args`) whose
-    unstructured layout evaluates in f64 throughout: the cameras
-    gathered in f64, the Jacobians, sums and solves in f64 (the plain
-    versions take any dtype). The reference chip_smoke.py holds both f32
-    layouts to; the port refuses pure f64 solves (ROADMAP.md queue 1
-    item 11), so this is a diagnostic, not a configuration."""
-    s = solver_cls(*args, options, device="cpu")
+def f64_unstructured(s):
+    """Make the stage solver `s` (the unstructured layout) evaluate in f64
+    throughout: the cameras gathered in f64, the Jacobians, sums and
+    solves in f64 (the plain versions take any dtype; on the card under
+    plain_step1(cams=True)). The port refuses pure f64 solves (ROADMAP.md
+    queue 1 item 11), so this is a diagnostic, not a configuration."""
     if not s.unstructured:
-        raise ValueError("f64_twin: the unstructured layout (pallas_kernels="
-                         "'off') only")
+        raise ValueError("f64_unstructured: the unstructured layout "
+                         "(pallas_kernels='off' or CHOLESKY) only")
     s.solve_dtype = torch.float64
     s._uv_s = s.obs.uv
     s._mask1 = s._mask1.double()
@@ -202,21 +204,34 @@ def f64_twin(solver_cls, args, options):
     return s
 
 
-@contextlib.contextmanager
-def plain_step1():
-    """The step-1 kernel wrappers of ops/pose_kernels.py replaced by their
-    plain versions (ops/pose_ref.py, any device and dtype) while the
-    block runs; the stage solvers call them through the module."""
-    from povar_tpu_torch.ops import pose_kernels, pose_ref
+def f64_twin(solver_cls, args, options):
+    """A CPU stage solver (`solver_cls` on the arguments `args`) whose
+    unstructured layout evaluates in f64 throughout (f64_unstructured):
+    the reference chip_smoke.py holds both f32 layouts to."""
+    return f64_unstructured(solver_cls(*args, options, device="cpu"))
 
-    saved = {n: getattr(pose_kernels, n) for n in pose_kernels.KERNELS}
+
+@contextlib.contextmanager
+def plain_step1(cams=False):
+    """The step-1 kernel wrappers of ops/pose_kernels.py, and with `cams`
+    the camera-table ones of ops/cam_kernels.py, replaced by their plain
+    versions (ops/pose_ref.py, ops/cam_ref.py; any device and dtype)
+    while the block runs; the stage solvers call them through the
+    module."""
+    from povar_tpu_torch.ops import cam_kernels, cam_ref, pose_kernels
+    from povar_tpu_torch.ops import pose_ref
+
+    pairs = [(pose_kernels, pose_ref)] + ([(cam_kernels, cam_ref)]
+                                          if cams else [])
+    saved = [(m, n, getattr(m, n)) for m, _ref in pairs for n in m.KERNELS]
     try:
-        for n in saved:
-            setattr(pose_kernels, n, getattr(pose_ref, n))
+        for m, ref in pairs:
+            for n in m.KERNELS:
+                setattr(m, n, getattr(ref, n))
         yield
     finally:
-        for n, f in saved.items():
-            setattr(pose_kernels, n, f)
+        for m, n, f in saved:
+            setattr(m, n, f)
 
 
 def f64_structured(solver):
@@ -576,12 +591,12 @@ def step1_spread(problem, runs, solver, device="cuda", mesh=False,
                  f64=False):
     """`runs` venice-89 step-1 solves with `solver` (POWER_SCHUR_COMPLEMENT,
     CHOLESKY or POWER_VARPROJ; SolverOptions() defaults otherwise) on
-    `device` ("cuda",
-    or "cpu": the plain versions), with `mesh` on a 1-device mesh there
-    (the SPMD window layout), with `f64` in f64 through the plain
-    versions (f64_structured): their records, each with the count of
-    opening decisions it shares with the JAX run of that solver
-    (JAX_STEP1)."""
+    `device` ("cuda", or "cpu": the plain versions), with `mesh` on a
+    1-device mesh there (the SPMD window layout), with `f64` in f64
+    through the plain versions (f64_structured, or f64_unstructured
+    where the solver takes the unstructured layout, as CHOLESKY does):
+    their records, each with the count of opening decisions it shares
+    with the JAX run of that solver (JAX_STEP1)."""
     if not runs:
         return []
     want, jax_cost = JAX_STEP1[solver]
@@ -599,7 +614,7 @@ def step1_spread(problem, runs, solver, device="cuda", mesh=False,
     else:
         stage1 = Stage1Solver(*args, opts, device=device)
     if f64:
-        f64_structured(stage1)
+        (f64_unstructured if stage1.unstructured else f64_structured)(stage1)
     tag = solver.value.lower() + (" mesh" if mesh else "") + (
         " f64" if f64 else "")
 
@@ -617,7 +632,8 @@ def step1_spread(problem, runs, solver, device="cuda", mesh=False,
         s = SolverSummary()
         sync()
         t0 = time.perf_counter()
-        with plain_step1() if f64 else contextlib.nullcontext():
+        with (plain_step1(cams=stage1.unstructured) if f64
+              else contextlib.nullcontext()):
             optimize_step1(stage1, c0, l0, opts, s, Timer(),
                            log=lambda s: None)
         sync()
@@ -704,8 +720,11 @@ def main() -> None:
                     help="CHOLESKY step-1 solves (the spread of their final "
                     "cost)")
     ap.add_argument("--chol-device", default="cuda", choices=("cuda", "cpu"),
-                    help="where the --chol solves run (cpu: the plain "
-                    "versions)")
+                    help="where the --chol and --chol-f64 solves run (cpu: "
+                    "the plain versions)")
+    ap.add_argument("--chol-f64", type=int, default=0,
+                    help="CHOLESKY step-1 solves evaluated in f64 through "
+                    "the plain versions (f64_unstructured)")
     ap.add_argument("--out", default="build/step2_spread.json")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -722,6 +741,9 @@ def main() -> None:
                pcg=[], psc=psc_spread(problem, a.psc, a.psc_device),
                chol=step1_spread(problem, a.chol, SolverType.CHOLESKY,
                                  a.chol_device),
+               chol_f64=step1_spread(problem, a.chol_f64,
+                                     SolverType.CHOLESKY, a.chol_device,
+                                     f64=True),
                psc_f64=step1_spread(problem, a.psc_f64,
                                     SolverType.POWER_SCHUR_COMPLEMENT,
                                     f64=True),

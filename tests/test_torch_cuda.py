@@ -18,8 +18,10 @@ venice-89 shapes; this file runs it at the CPU tests' small shapes
 N = 1024, where the two Schur-Jacobi kernels take their global-atomic
 route (`hpp_b_structured` and `hppb2` take theirs at N = 2048); the
 fused terms run over all slot parts and over a narrow prefix, and also
-over parts of three widths and on camera-sorted landmarks; `cam_gather` also on a 144-row table, more rows than one
-block stages at N = 1024.
+over parts of three widths and on camera-sorted landmarks; `cam_gather`
+also on a 144-row table, more rows than one block stages at N = 1024;
+`e0_scatter` and `hpp_b` on each of their routes (N = 13 to 5000) and
+in three row orders, `e0_scatter` also at a width of 5.
 
 Tolerances, with the scales of povar_tpu_torch/tools/parity.py:
 elementwise outputs 1e-5 entry by entry (against |plain| + the median
@@ -472,19 +474,38 @@ def _cam_cases(t, n):
         ("e0_scatter", (w33, cam, sb, n), [CAM]),
         ("hpp_b", (f32(48), f32(4), cam, n), [CAM, CAM]),
         ("hpp_b", (f32(22), f32(2), cam, n), [CAM, CAM]),
+        ("e0_scatter", (f32(10), cam, f32(2), n), [CAM]),
     ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_cams", [13, 1024])
-def test_cam_kernels_match_plain_versions(cuda, n_cams):
+@pytest.mark.parametrize("order", ["drawn", "by_camera", "first_camera"])
+@pytest.mark.parametrize("n_cams", [13, 89, 300, 1024, 5000])
+def test_cam_kernels_match_plain_versions(cuda, n_cams, order):
     """cam_scatter_add (12 and 144 rows), e0_u and e0_scatter ((dl, dc) =
-    (3, 12) and (3, 11)) and hpp_b ((k, d) = (4, 12) and (2, 11)) once per
-    call, counted once, within their tolerances; e0_u bit for bit (it
-    sums its terms in its plain version's order). At N = 1024 hpp_b
-    takes its global-atomic route."""
+    (3, 12), (3, 11) and (2, 5), a width with no instantiation of its own)
+    and hpp_b ((k, d) = (4, 12) and (2, 11)) once per call, counted once,
+    within their tolerances; e0_u bit for bit (it sums its terms in its
+    plain version's order). The camera sums of csrc/cam.cu (e0_scatter,
+    hpp_b) run at every N and in every row order: as drawn, sorted by
+    camera (whole warps on one camera) and with each slot part's
+    landmarks sorted by first camera; on every route: per-warp copies
+    (both at N = 13 and 89, e0_scatter at 300), shared copies (hpp_b at
+    300, e0_scatter at 1024) and global atomics (hpp_b at 1024, both at
+    5000). hpp is symmetric bit for bit, and every call leaves its sums
+    buffer zeroed for the next. The other two run at N = 13 and 1024 as
+    drawn."""
     t = _inputs(n_cams, cuda)
+    rows = {"drawn": None,
+            "by_camera": torch.argsort(t["cam"].long(), stable=True),
+            "first_camera": first_camera_rows(t["cam"], PARTS)}[order]
+    sums_only = order != "drawn" or n_cams not in (13, 1024)
     for name, args, specs in _cam_cases(t, n_cams):
+        if sums_only and name not in ("e0_scatter", "hpp_b"):
+            continue
+        if rows is not None:
+            args = tuple(a[..., rows].contiguous() if torch.is_tensor(a)
+                         else a for a in args)
         launches.reset_launch_counts()
         got = getattr(cam_kernels, name)(*args)
         torch.cuda.synchronize()
@@ -493,6 +514,11 @@ def test_cam_kernels_match_plain_versions(cuda, n_cams):
         _close(name, got, want, specs)
         if name == "e0_u":
             assert torch.equal(got, want)
+        if name == "hpp_b":
+            d = got[1].shape[0]
+            hpp = got[0].view(d, d, n_cams)
+            assert torch.equal(hpp, hpp.transpose(0, 1))
+    assert not any(bool(buf.any()) for buf in cam_kernels._SUMS.values())
 
 
 @pytest.mark.cuda
