@@ -26,15 +26,16 @@ prints no result line):
               20) for both, and those of `index_select` beside
               cam_gather and of `index_add_` beside cam_scatter_add, the
               one PyTorch call that computes each; prepare also without
-              its per-camera sums (sums=False); prepare, hpp_b_structured
-              and e0_term_parts also on the camera-sorted lane orders
-              (the 1-device mesh solver's step-1 operands; each part's
-              landmarks sorted by first camera) and on seeded cameras at
-              N = 1024 (hpp_b_structured also at N = 2048, its global
-              route); schur_diag_structured, cam_scatter_add, e0_scatter
-              and hpp_b again at N = 1024 (the first's and hpp_b's
-              global-atomic routes, the others' widest shared tables),
-              hpp_b's hpp symmetric bit for bit;
+              its per-camera sums (sums=False); prepare, hpp_b_structured,
+              e0_term_parts and schur_diag_structured also on the
+              camera-sorted lane orders (the 1-device mesh solver's
+              step-1 operands; each part's landmarks sorted by first
+              camera) and on seeded cameras at N = 1024
+              (hpp_b_structured also at N = 2048, its global route);
+              cam_scatter_add, e0_scatter and hpp_b again at N = 1024
+              (the Schur kernel's and hpp_b's global-atomic routes, the
+              others' widest shared tables), hpp_b's hpp and the Schur
+              corrections symmetric bit for bit;
 4. step 1     a small step-1 solve, card against CPU; the venice-89
               step-1 solve with the composed power term and with
               SolverOptions() defaults (the fused term), each with the
@@ -51,11 +52,12 @@ prints no result line):
               the well-conditioned rows alone (|1/p2| at most CALM of
               tools/step2_spread.py times the median), pose_error2
               under NONE, HUBER and CAUCHY, and two of its calls bit for
-              bit; hppb2 and
-              e0_term2_parts also on the camera-sorted lane orders (the
-              1-device mesh solver's step-2 operands; each part's
-              landmarks sorted by first camera) and on seeded cameras
-              at N = 1024 (hppb2 also at N = 2048, its global route);
+              bit; hppb2, e0_term2_parts and schur_diag2 also on the
+              camera-sorted lane orders (the 1-device mesh solver's
+              step-2 operands; each part's landmarks sorted by first
+              camera) and on seeded cameras at N = 1024 (schur_diag2's
+              global route; hppb2 also at N = 2048, its global route),
+              schur_diag2's corrections symmetric bit for bit;
 6. E0         the fused E0 operator of each step against the composed
               one per camera, all landmarks narrow and with four widened
               past 16 observations (the composed suffix);
@@ -322,8 +324,8 @@ FLOPS_PER_OBS = {
     "e0_u_structured": 40, "e0_scatter_structured": 60, "apply_ldiff": 90,
     "pose_error": 60, "prepare2": 110, "hppb2": 130, "mat_dot2": 40,
     "scatter2": 45, "ldiff2": 55, "pose_error2": 45,
-    "e0_term_parts": 80, "schur_diag_structured": 430,
-    "e0_term2_parts": 80, "schur_diag2": 480, "poba_t3": 95,
+    "e0_term_parts": 80, "schur_diag_structured": 160,
+    "e0_term2_parts": 80, "schur_diag2": 175, "poba_t3": 95,
     "apply_ldiff_stored": 110, "cam_gather": 0,
     # the camera-table kernels at their step-1 shapes (R = 12; (dl, dc) =
     # (3, 12); (k, d) = (4, 12): b and the upper triangle, 90 sums)
@@ -396,23 +398,34 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+# profiler windows device_us opens before it gives up on one call
+PROFILE_WINDOWS = 5
+
+
 def device_us(fn, reps: int = REPS) -> float:
     """Device time of one call in microseconds: the summed durations of
     every device operation (kernels, fills, copies) the profiler records
-    over `reps` calls, divided by `reps`."""
+    over `reps` calls, divided by `reps`. Every call of `fn` runs at
+    least one device operation, and the profiler now and then records
+    none in a window (it also drops single ones: 19 of 20 seen): a
+    window that records none is opened again, up to PROFILE_WINDOWS
+    times, and then raises rather than report 0.0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(
-        e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type == DeviceType.CUDA
-    ) / reps
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if ops:
+            return sum(ops) / reps
+    raise AssertionError(f"device_us: {PROFILE_WINDOWS} profiler windows "
+                         f"of {reps} calls recorded no device operation")
 
 
 def _outputs(out):
@@ -627,51 +640,46 @@ def check_kernels(solver, problem, alpha):
         lambda: d["ct"].index_select(1, cam64),
     )], o))
 
-    # the large-N route of schur_diag_structured (direct global atomics
-    # when 144 N floats of accumulators exceed a block's shared memory)
-    rng = np.random.default_rng(1)
-    nb = 1024
-    cam_big = torch.as_tensor(
-        rng.integers(0, nb, d["cam"].shape[0]).astype(np.int32),
-        device=solver.device,
-    )
-
-    def big_schur(m):
-        return m.schur_diag_structured(cam_big, d["x"], d["h"], nb)
-
-    err, rels = compare("schur_diag_structured N=1024", big_schur(pk),
-                        big_schur(pr), [CAM])
-    print(f"schur_diag_structured N=1024 max_abs_err {err:.3e} scaled "
-          f"[{' '.join(f'{x:.1e}' for x in rels)}]  events: kernel "
-          f"{cuda_ms(lambda: big_schur(pk)):.4f} ms plain "
-          f"{cuda_ms(lambda: big_schur(pr)):.4f} ms  device: kernel "
-          f"{device_us(lambda: big_schur(pk)):.1f} us plain "
-          f"{device_us(lambda: big_schur(pr)):.1f} us", flush=True)
+    check_symmetric("schur_diag_structured (venice-89)",
+                    pk.schur_diag_structured(d["cam"], d["x"], d["h"], n))
     for name, label, args, kw, inputs, specs, n_read, n_obs in (
             kernels1_shapes(problem, solver, d, alpha)):
         run_cases(pk, pr, [(name, label,
                             lambda m, f=name, x=args, k=kw: getattr(m, f)(
                                 *x, **k), inputs, specs, n_read)],
                   n_obs, time_variants=True)
+        if name == "schur_diag_structured":
+            check_symmetric(f"{name} {label}", pk.schur_diag_structured(*args))
     return results
+
+
+def check_symmetric(label, corr):
+    """A Schur-Jacobi correction [144, N] is symmetric bit for bit per
+    camera: its last block writes a row and its mirror from one sum."""
+    c = corr.view(12, 12, corr.shape[-1])
+    if not torch.equal(c, c.transpose(0, 1)):
+        raise AssertionError(f"{label}: corr is not symmetric")
+    print(f"{label}: corr symmetric bit for bit", flush=True)
 
 
 def kernels1_shapes(problem, solver, d, alpha):
     """The shapes beside check_kernels' venice-89 rows at which prepare,
-    hpp_b_structured and e0_term_parts are held to their plain versions
-    and timed: (a) prepare without its per-camera sums (sums=False, as
-    the back-substitution and the landmark initialization call it);
-    (b) the camera-sorted lane orders, prepare and hpp_b_structured on
-    the 1-device mesh solver's own step-1 operands (the SPMD window
-    order, 598,016 lanes; its linearization at the VarProj start, and its
-    landmark solve's Hll^-1 bl there) and the fused term on the venice-89
-    operands `d` (kernel_inputs) with each part's landmarks sorted by the
-    camera of their first slot row (the order the window plan packs them
-    in, the same parts); (c) seeded cameras on the venice-89 rows, N =
-    1024 for all three and N = 2048 for hpp_b_structured (its global-
-    memory route). Returns (kernel, label, args, kwargs, inputs for
-    bound_ms, specs, n_read, O) per shape; also tools/pose1_ab.py's
-    shapes."""
+    hpp_b_structured, e0_term_parts and schur_diag_structured are held to
+    their plain versions and timed: (a) prepare without its per-camera
+    sums (sums=False, as the back-substitution and the landmark
+    initialization call it); (b) the camera-sorted lane orders, prepare,
+    hpp_b_structured and schur_diag_structured on the 1-device mesh
+    solver's own step-1 operands (the SPMD window order, 598,016 lanes;
+    its linearization at the VarProj start, and its landmark solve's
+    Hll^-1 bl there; schur_diag_structured's h seeded, zero on the
+    masked lanes) and the fused term on the venice-89 operands `d`
+    (kernel_inputs) with each part's landmarks sorted by the camera of
+    their first slot row (the order the window plan packs them in, the
+    same parts); (c) seeded cameras on the venice-89 rows, N = 1024 for
+    all four (schur_diag_structured's global route) and N = 2048 for
+    hpp_b_structured (its global-memory route). Returns (kernel, label,
+    args, kwargs, inputs for bound_ms, specs, n_read, O) per shape; also
+    tools/pose1_ab.py's shapes."""
     from povar_tpu_torch import SolverOptions, Stage1Solver
     from povar_tpu_torch.tools.pose2_ab import first_camera_rows
 
@@ -693,6 +701,12 @@ def kernels1_shapes(problem, solver, d, alpha):
                 tuple(x[k] for k in e0_keys) + (parts, n), {},
                 [x[k] for k in e0_keys], [CAM], (covered, covered), o)
 
+    def schur(x, label, n):
+        return ("schur_diag_structured", label,
+                (x["cam"], x["x"], x["h"], n), {},
+                [x[k] for k in ("h", "cam", "x")], [CAM],
+                int(x["h"].ne(0).any(dim=0).sum()), int(x["cam"].shape[0]))
+
     def prep(x, label, sums=True):
         args = tuple(x[k] for k in ("cam", "ct", "x", "uv", "mask"))
         return ("prepare", label, args,
@@ -704,8 +718,11 @@ def kernels1_shapes(problem, solver, d, alpha):
     c = torch.as_tensor(problem.cam_space, device="cuda")
     lin = ms.linearize(c, ms.lm_pack(ms.initialize_varproj(c)))
     _hll_inv, hib, jls, _lh = ms._hll_pieces_s(lin)
+    mesh_h = torch.as_tensor(
+        np.random.default_rng(5).standard_normal((9, ms.obs.cam.shape[0])),
+        dtype=torch.float32, device="cuda") * ms._mask1
     mesh = dict(cam=ms.obs.cam, ct=lin.ct, x=lin.x, uv=ms._uv_s, sw=lin.sw,
-                r_w=lin.r_w, jls=jls, hib=hib, mask=ms._mask1)
+                r_w=lin.r_w, jls=jls, hib=hib, mask=ms._mask1, h=mesh_h)
     rows = first_camera_rows(d["cam"], parts)
     by_first = dict(d, **{k: d[k][..., rows].contiguous()
                           for k in ("cam", "x", "h")})
@@ -725,10 +742,12 @@ def kernels1_shapes(problem, solver, d, alpha):
         prep(d, "(a) sums=False", sums=False),
         prep(mesh, "(b) mesh window order"),
         hpp(mesh, "(b) mesh window order", ms.n_cams),
+        schur(mesh, "(b) mesh window order", ms.n_cams),
         e0(by_first, "(b) landmarks by first camera", solver.n_cams),
         prep(big[1024], "(c) N = 1024"),
         hpp(big[1024], "(c) N = 1024", 1024),
         e0(big[1024], "(c) N = 1024", 1024),
+        schur(big[1024], "(c) N = 1024, global route", 1024),
         hpp(big[2048], "(c) N = 2048, global route", 2048),
     ]
 
@@ -945,15 +964,17 @@ def check_kernels2(solver2, cams_h, lms_h, seed=1):
 
 
 def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
-    """hppb2 and e0_term2_parts beside their venice-89 rows, each against
-    its plain version and timed, on lines of their own: (b) the
-    camera-sorted lane orders, hppb2 on the 1-device mesh solver's own
-    step-2 operands (the SPMD window order; its landmark solve's Hll^-1
-    bl at lambda 1e-4) and the fused term on the
-    venice-89 operands with each part's landmarks sorted by the camera of
-    their first slot row (the order the window plan packs them in, the
+    """hppb2, e0_term2_parts and schur_diag2 beside their venice-89 rows,
+    each against its plain version and timed, on lines of their own: (b)
+    the camera-sorted lane orders, hppb2 and schur_diag2 on the 1-device
+    mesh solver's own step-2 operands (the SPMD window order; its landmark
+    solve's Hll^-1 bl at lambda 1e-4; mat6 seeded) and the fused term on
+    the venice-89 operands with each part's landmarks sorted by the camera
+    of their first slot row (the order the window plan packs them in, the
     same parts); (c) seeded cameras on the venice-89 rows, N = 1024 for
-    both and N = 2048 for hppb2 (its global-memory route)."""
+    all three (schur_diag2's global route) and N = 2048 for hppb2 (its
+    global-memory route); schur_diag2's output symmetric bit for bit at
+    venice-89, (b) and (c)."""
     from povar_tpu_torch import SolverOptions, Stage2Solver
     from povar_tpu_torch.ops import pose2_kernels as pk2
     from povar_tpu_torch.ops import pose2_ref as pr2
@@ -996,6 +1017,12 @@ def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
                                 "hib")], [CAM, CAM],
                 int((x["sw"] > 0).sum()))
 
+    def schur2(x, label):
+        args = [x[k] for k in ("cam", "x4", "mm", "sw", "mat6")]
+        return ("schur_diag2", label, lambda m: m.schur_diag2(*args, x["n"]),
+                [x[k] for k in ("sw", "cam", "x4", "mm", "mat6")], [CAM],
+                int((x["sw"] > 0).sum()))
+
     def e0(x, label):
         args = [x[k] for k in ("cam", "x4", "mm", "sw", "mat6", "zt")]
         covered = sum(g * w for _ofs, g, w in parts)
@@ -1005,7 +1032,8 @@ def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
                 [CAM],
                 (covered, int((x["sw"] > 0).sum())))
 
-    run_cases(pk2, pr2, [hppb2(mesh, "(b) mesh window order")],
+    run_cases(pk2, pr2, [hppb2(mesh, "(b) mesh window order"),
+                         schur2(mesh, "(b) mesh window order")],
               int(mesh["cam"].shape[0]), time_variants=True)
     run_cases(pk2, pr2, [
         e0(by_first, "(b) landmarks by first camera"),
@@ -1013,6 +1041,13 @@ def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
         e0(with_cameras(1024), "(c) N = 1024"),
         hppb2(with_cameras(2048), "(c) N = 2048, global route"),
     ], o, time_variants=True)
+    big = with_cameras(1024)
+    run_cases(pk2, pr2, [schur2(big, "(c) N = 1024, global route")], o,
+              time_variants=True)
+    for label, x in (("venice-89", d), ("(b) mesh window order", mesh),
+                     ("(c) N = 1024", big)):
+        check_symmetric(f"schur_diag2 {label}", pk2.schur_diag2(
+            *(x[k] for k in ("cam", "x4", "mm", "sw", "mat6")), x["n"]))
 
 
 def solve(problem, options, device, log=lambda s: None):

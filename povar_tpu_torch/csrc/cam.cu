@@ -30,7 +30,14 @@
 
 #include "pose_common.cuh"
 
+using povar::add_rows;
+using povar::block_sums_done;
 using povar::kThreads;
+using povar::launch_sums;
+using povar::Route;
+using povar::sums_plan;
+using povar::ticket_of;
+using povar::warp_copy;
 
 namespace {
 
@@ -111,79 +118,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------ per-camera sums (C4, C5)
-// Where a block's per-camera accumulators live:
-//   kPrivate  one f32 copy per warp in shared memory, which the warp adds
-//             to with plain adds;
-//   kShared   `copies` f32 copies per block, copy w mod copies shared by
-//             warp w's group with shared atomics (a compare-and-swap loop
-//             on this card);
-//   kGlobal   none: every value goes to a global atomic in acc_g.
-// The lanes of a warp on one camera first sum their values in lane order
-// (povar::warp_peers / warp_scatter_rows), so no two lanes of a warp ever
-// add to one address. A block then adds its copies per entry and sends
-// the non-zero sums to global atomics in acc_g (f64 for C4, f32 for C5:
-// below), and the last block to take a ticket writes the output in f32
-// from acc_g and leaves acc_g and the ticket zeroed for the next call
-// (ops/cam_kernels.py keeps one such buffer per device and stream,
-// zeroed once).
-enum class Route { kPrivate, kShared, kGlobal };
-
-// this warp's accumulator copy of `n_acc` floats, zeroed; null on the
-// global route (all of the block's threads must call it)
-template <Route R>
-__device__ __forceinline__ float* warp_copy(float* smem, int copies,
-                                            int n_acc) {
-  if (R == Route::kGlobal) return nullptr;
-  povar::smem_zero(smem, copies * n_acc);
-  __syncthreads();
-  return smem + ((threadIdx.x >> 5) % copies) * n_acc;
-}
-
-// the K values v of this lane's row into rows row0 .. row0 + K - 1 of
-// this warp's accumulator (on the global route: the sums, of type T, in
-// acc_g) at column c
-template <int K, Route R, typename T>
-__device__ __forceinline__ void add_rows(float* acc, double* acc_g, int row0,
-                                         int n, int c,
-                                         const povar::WarpPeers& p,
-                                         float (&v)[K]) {
-  if (R == Route::kGlobal)
-    povar::warp_scatter_rows<K, true, T>(
-        reinterpret_cast<T*>(acc_g) + row0 * n, n, c, p, v);
-  else
-    povar::warp_scatter_rows<K, R == Route::kShared>(acc + row0 * n, n, c, p,
-                                                     v);
-}
-
-__device__ __forceinline__ unsigned* ticket_of(double* acc_g, int count) {
-  return reinterpret_cast<unsigned*>(acc_g + count);
-}
-
-// Once the block's warps have added every row: the block's copies, in
-// groups of kGroup summed per entry (f32), go to global atomics into the
-// [count] sums of type T at acc_g; true in the last block to take the
-// ticket behind them (at acc_g + count doubles), which then holds every
-// block's sums (all of the block's threads must call it).
-template <Route R, typename T, int kGroup>
-__device__ __forceinline__ bool block_sums_done(double* acc_g,
-                                                const float* smem, int copies,
-                                                int n_acc, int count) {
-  if (R != Route::kGlobal) {
-    T* sums = reinterpret_cast<T*>(acc_g);
-    __syncthreads();
-    for (int i = threadIdx.x; i < count; i += blockDim.x) {
-      for (int k0 = 0; k0 < copies; k0 += kGroup) {
-        float s = smem[k0 * n_acc + i];
-#pragma unroll
-        for (int k = 1; k < kGroup; ++k)
-          if (k0 + k < copies) s += smem[(k0 + k) * n_acc + i];
-        if (s != 0.0f) atomicAdd(sums + i, (T)s);
-      }
-    }
-  }
-  return povar::last_block(ticket_of(acc_g, count));
-}
-
+// The routes, the block sums and the launch plan are pose_common.cuh's.
+//
 // The last block: write(i, sum) for every entry i of the [count] sums of
 // type T at acc_g (kBatch L2 reads in flight per thread), then the sums
 // and the ticket zeroed again.
@@ -443,51 +379,6 @@ __global__ void __launch_bounds__(hpp_threads(R))
     hpp[(a * D + a + e) * n_cams + c] = x;
     hpp[((a + e) * D + a) * n_cams + c] = x;
   });
-}
-
-// A camera-sum kernel's route and block shape for `rows` f32 accumulator
-// rows per camera: `warps` warps (at least `min_warps`) on private copies
-// where that many fit a block, else `shared_threads`-thread blocks on as
-// many shared copies as fit (at most one per warp), else the global
-// route.
-struct SumsPlan {
-  Route route;
-  int threads;
-  int copies;
-  size_t smem;
-};
-
-inline SumsPlan sums_plan(int rows, int n_cams, int warps, int min_warps,
-                          int shared_threads) {
-  const size_t copy = sizeof(float) * (size_t)rows * n_cams;
-  const int fit = (int)std::min<size_t>(povar::max_optin_smem() / copy, 32);
-  if (fit >= min_warps) {
-    const int w = std::min(warps, fit);
-    return {Route::kPrivate, 32 * w, w, w * copy};
-  }
-  if (fit >= 1) {
-    const int k = std::min(fit, shared_threads / 32);
-    return {Route::kShared, shared_threads, k, k * copy};
-  }
-  return {Route::kGlobal, shared_threads, 1, 0};
-}
-
-// launch the route's instantiation of a camera-sum kernel over n_obs
-// rows; the kernel takes `args` and then the plan's copies
-template <typename KP, typename KS, typename KG, typename... Args>
-int launch_sums(const SumsPlan& p, KP private_kernel, KS shared_kernel,
-                KG global_kernel, int n_obs, void* stream, Args... args) {
-  switch (p.route) {
-    case Route::kPrivate:
-      return povar::launch_block(private_kernel, p.threads, n_obs, p.smem,
-                                 stream, args..., p.copies);
-    case Route::kShared:
-      return povar::launch_block(shared_kernel, p.threads, n_obs, p.smem,
-                                 stream, args..., p.copies);
-    default:
-      return povar::launch_block(global_kernel, p.threads, n_obs, 0, stream,
-                                 args..., p.copies);
-  }
 }
 
 template <int kDc>

@@ -32,15 +32,15 @@
 // 64/36; K3 68/0; K4 52/12; K5 64/0; K6 68/0; K7 48/0 at f64 state; K8
 // 52/0; K9 52/0; K10 56/12; K11 68/0) until its per-camera adds cost
 // more than the bytes (a shared f32 atomicAdd is a compare-and-swap loop
-// on this card): K5 adds 12 per live row, K9 144, which bind it; K1 adds
-// 8 through warp_scatter into per-warp accumulators. K3 adds its 52 moment-
-// form values through warp_scatter, and those adds (~40 of its 76 us at
-// venice-89) and its arithmetic bind it; K8 adds 12 per row into per-
-// warp accumulators at no measurable cost, and its tile walk (two
-// barriers per tile, two blocks per SM) binds it at 2.3x its bytes. A
-// block's shared accumulators leave through one global atomic per entry,
-// so the grid is sized to what is resident at once (grid-stride), not to
-// O.
+// on this card): K5 adds 12 per live row, which bind it; K1 adds 8 and
+// K9 its 60 moments through warp_scatter into per-warp accumulators. K3
+// adds its 52 moment-form values through warp_scatter, and those adds
+// (~40 of its 76 us at venice-89) and its arithmetic bind it; K8 adds
+// 12 per row into per-warp accumulators at no measurable cost, and its
+// tile walk (two barriers per tile, two blocks per SM) binds it at 2.3x
+// its bytes. A block's shared accumulators leave through one global
+// atomic per entry, so the grid is sized to what is resident at once
+// (grid-stride), not to O.
 //
 // C interface: every entry point takes device pointers, sizes, scalar
 // constants and the CUDA stream to launch on, launches one kernel, and
@@ -57,6 +57,7 @@ using povar::kThreads;
 using povar::kTileFields;
 using povar::launch;
 using povar::max_optin_smem;
+using povar::Route;
 
 namespace {
 
@@ -520,67 +521,73 @@ __global__ void __launch_bounds__(kE0Threads)
 
 // ------------------------------------------------------------------ K9
 // Per-camera Schur-Jacobi corrections [144, N], rows ((a*4+i)*3+b)*4+j:
-//   sum hth[a][b] xh_i xh_j,  hth = h^T h (3x3, symmetric)
-// kShared: 144 N shared accumulators (51 KB at N = 89) flushed once per
-// block; otherwise (N past ~400) every term goes to a global atomic.
-// Dead rows (h == 0) contribute exactly zero and are skipped.
+//   sum hth[a][b] xh_i xh_j,  hth = h^T h (3x3, symmetric), xh = [x, 1]
+// in moment form (pose_common.cuh, schur_pass): a live row adds the 60
+// values hth_s (xh_i xh_j), a <= b and i <= j, per camera; the blocks'
+// sums meet in f64 and the last block writes every row, a row and its
+// mirror from one sum. Dead rows (hth == 0, which h == 0 gives) add
+// nothing.
 // Replaces pallas_pose.py:1020 schur_diag_structured (_schur_diag_kernel
-// :987). Bound: 144 shared (or global) atomics per live observation, far
-// more than its 52 B read.
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
-    schur_diag_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
-                      const float* __restrict__ h, float* __restrict__ out,
-                      int n_obs, int n_cams) {
+// :987). Bound: 52 B read per observation (8.7 us at venice-89). The
+// earlier version added all 144 terms of a live row with per-lane f32
+// atomics (compare-and-swap loops on this card; the lanes of a warp on
+// one camera retrying against each other), into 144 N shared
+// accumulators flushed with 144 N f32 global atomics a block, and past
+// N ~ 400 straight to global memory: 214 us at venice-89, 1010-1040 on
+// the mesh's window order and at N = 1024. Here 57.3 us at venice-89:
+// the row loop ~43 (the loads and H ~7, the 60 products ~16, the walk
+// ~12, the adds ~7), the copies' f64 flush ~9 and the last block ~5 (10
+// private copies; 8: 66.8, one shared copy a 512-thread block: 98.5).
+// 60.9 on the window order (the reduce-scatter tree; the lane-order walk
+// 99), 559-573 at N = 1024 (global f64 atomics; 54 with the adds made
+// dead stores) (tools/pose1_ab.py and PERF.md; NVIDIA H100 80GB HBM3,
+// 700 W).
+struct SchurRow1 {
+  float h[9], x[3];
+  int c;
+  bool in;
+};
+
+template <Route R>
+__global__ void __launch_bounds__(povar::schur_threads(R))
+    schur_diag_kernel(const int32_t* __restrict__ cam,
+                      const float* __restrict__ x, const float* __restrict__ h,
+                      const int* __restrict__ expand, float* __restrict__ out,
+                      double* __restrict__ acc_g, int n_obs, int n_cams,
+                      int copies) {
   extern __shared__ float smem[];
-  float* acc = kShared ? smem : out;
-  if (kShared) {
-    povar::smem_zero(acc, 144 * n_cams);
-    __syncthreads();
-  }
   const int O = n_obs;
-  POVAR_OBS_LOOP(o, O) {
-    float hv[9];
+  auto load = [&](int o) {
+    SchurRow1 r;
+    r.in = o < O;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) hv[k] = h[k * O + o];
-    float hth[3][3];
+    for (int k = 0; k < 9; ++k) r.h[k] = r.in ? h[k * O + o] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) r.x[k] = r.in ? x[k * O + o] : 0.0f;
+    r.c = r.in ? cam[o] : 0;
+    return r;
+  };
+  auto form = [](const SchurRow1& r, float H[6], float xh[4]) {
     bool zero = true;
+    int s = 0;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
 #pragma unroll
-      for (int b = 0; b <= a; ++b) {
-        float s = hv[a] * hv[b];
-        s += hv[3 + a] * hv[3 + b];
-        s += hv[6 + a] * hv[6 + b];
-        hth[a][b] = s;
-        hth[b][a] = s;
-        zero = zero && s == 0.0f;
+      for (int b = a; b < 3; ++b, ++s) {
+        float t = r.h[a] * r.h[b];
+        t += r.h[3 + a] * r.h[3 + b];
+        t += r.h[6 + a] * r.h[6 + b];
+        H[s] = t;
+        zero = zero && t == 0.0f;
       }
     }
-    if (zero) continue;
-    const int c = cam[o];
-    const float xh[3] = {x[o], x[O + o], x[2 * O + o]};
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int b = 0; b < 3; ++b) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float r = hth[a][b];
-            if (i < 3) r = r * xh[i];
-            if (j < 3) r = r * xh[j];
-            atomicAdd(&acc[(((a * 4 + i) * 3 + b) * 4 + j) * n_cams + c], r);
-          }
-        }
-      }
-    }
-  }
-  if (kShared) {
-    __syncthreads();
-    povar::flush_acc(out, acc, 144 * n_cams);
-  }
+    for (int k = 0; k < 3; ++k) xh[k] = r.x[k];
+    xh[3] = 1.0f;
+    return r.in && !zero;
+  };
+  povar::schur_pass<R, SchurRow1>(load, form, expand, out, acc_g, n_obs,
+                                  n_cams, copies, smem);
 }
 
 // ------------------------------------------------------------------ K6
@@ -896,15 +903,15 @@ int povar_e0_term(const int32_t* cam, const float* x, const float* h,
                              table, out, n_parts, n_tiles, n_obs, n_cams);
 }
 
+// out: [144, n_cams]; acc: 60 n_cams + 1 doubles, zero (every call
+// leaves them zero)
 int povar_schur_diag(const int32_t* cam, const float* x, const float* h,
-                     float* out, int n_obs, int n_cams, void* stream) {
-  const size_t shared = sizeof(float) * 144 * (size_t)n_cams;
-  if (shared <= (size_t)max_optin_smem()) {
-    return launch(schur_diag_kernel<true>, n_obs, shared, stream, cam, x, h,
-                  out, n_obs, n_cams);
-  }
-  return launch(schur_diag_kernel<false>, n_obs, 0, stream, cam, x, h, out,
-                n_obs, n_cams);
+                     const int* expand, float* out, double* acc, int n_obs,
+                     int n_cams, void* stream) {
+  return povar::launch_schur(
+      schur_diag_kernel<Route::kPrivate>, schur_diag_kernel<Route::kShared>,
+      schur_diag_kernel<Route::kGlobal>, n_obs, n_cams, stream, cam, x, h,
+      expand, out, acc, n_obs, n_cams);
 }
 
 int povar_apply_ldiff(const int32_t* cam, const float* x, const float* uv,

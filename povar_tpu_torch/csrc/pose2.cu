@@ -34,7 +34,8 @@
 // reads 60 B (68 with r_w) and writes 12 B; S4 reads 72 B plus 12
 // shared atomics; S5 reads 92 B; S6 reads 60 B (f64 state) with ~45 f64
 // flops; S7 reads 60 B once per slot row plus 12 shared atomics; S8
-// reads 60 B and does 144 shared atomics (the atomics bound it).
+// reads 60 B and adds its 60 moments through warp_scatter into per-warp
+// accumulators.
 // Per-camera sums leave a block through one global atomic per non-zero
 // entry; scalar sums leave as one partial per block.
 //
@@ -49,6 +50,7 @@ using povar::kThreads;
 using povar::launch;
 using povar::warp_sum;
 using povar::max_optin_smem;
+using povar::Route;
 
 namespace {
 
@@ -443,69 +445,75 @@ __global__ void __launch_bounds__(kE0Threads)
 // ((a*4+i)*3+b)*4+j: sum H[a][b] x4_i x4_j with
 //   G = B B^T (2x2, B = mat6 rows r*3+i),  H = (sw/p2)^2 C^T G C,
 //   C = [[1, 0, -mx], [0, 1, -my]]
-// kShared: 144 N shared accumulators (51 KB at N = 89) flushed once per
-// block; otherwise (N past ~400) every term goes to a global atomic. Dead
-// rows (sw == 0) are skipped. The caller folds Kps^T . Kps.
+// in moment form (pose_common.cuh, schur_pass): a live row adds the 60
+// values H_s (x4_i x4_j), a <= b and i <= j, per camera; the blocks' sums
+// meet in f64 and the last block writes every row, a row and its mirror
+// from one sum. Dead rows (sw == 0) add nothing. The caller folds
+// Kps^T . Kps.
 // Replaces pallas_pose2.py:601 schur_diag2 (_schur2_kernel :563). Bound:
-// 144 shared (or global) atomics per live observation, far more than its
-// 60 B read.
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
-    schur_diag2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
-                       const float* __restrict__ mm, const float* __restrict__ sw_in,
-                       const float* __restrict__ mat6, float* __restrict__ out,
-                       int n_obs, int n_cams) {
+// 60 B read per observation (10.0 us at venice-89). The earlier version
+// added all 144 terms of a live row with per-lane f32 atomics (compare-
+// and-swap loops on this card), into 144 N shared accumulators flushed
+// with 144 N f32 global atomics a block: 211-215 us at venice-89, ~1000
+// on the mesh's window order (the mesh's PSC + RIPCG runs it there) and
+// 1046-1068 at N = 1024. Here 58.4 us, 62.4 on the window order and 565
+// at N = 1024, bound as step 1's K9 (tools/pose2_ab.py and PERF.md;
+// NVIDIA H100 80GB HBM3, 700 W).
+struct SchurRow2 {
+  float sw, m[6], mx, my, zinv, x4[4];
+  int c;
+};
+
+template <Route R>
+__global__ void __launch_bounds__(povar::schur_threads(R))
+    schur_diag2_kernel(const int32_t* __restrict__ cam,
+                       const float* __restrict__ x4_in,
+                       const float* __restrict__ mm,
+                       const float* __restrict__ sw_in,
+                       const float* __restrict__ mat6,
+                       const int* __restrict__ expand,
+                       float* __restrict__ out, double* __restrict__ acc_g,
+                       int n_obs, int n_cams, int copies) {
   extern __shared__ float smem[];
-  float* acc = kShared ? smem : out;
-  if (kShared) {
-    povar::smem_zero(acc, 144 * n_cams);
-    __syncthreads();
-  }
   const int O = n_obs;
-  POVAR_OBS_LOOP(o, O) {
-    const float sw = sw_in[o];
-    if (sw == 0.0f) continue;
-    float m[6];
+  auto load = [&](int o) {
+    SchurRow2 r;
+    const bool in = o < O;
+    r.sw = in ? sw_in[o] : 0.0f;
 #pragma unroll
-    for (int k = 0; k < 6; ++k) m[k] = mat6[k * O + o];
+    for (int k = 0; k < 6; ++k) r.m[k] = in ? mat6[k * O + o] : 0.0f;
+    r.mx = in ? mm[o] : 0.0f;
+    r.my = in ? mm[O + o] : 0.0f;
+    r.zinv = in ? mm[2 * O + o] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r.x4[k] = in ? x4_in[k * O + o] : 0.0f;
+    r.c = in ? cam[o] : 0;
+    return r;
+  };
+  auto form = [](const SchurRow2& r, float H[6], float xh[4]) {
+    const float* m = r.m;
     const float g00 = m[0] * m[0] + m[1] * m[1] + m[2] * m[2];
     const float g11 = m[3] * m[3] + m[4] * m[4] + m[5] * m[5];
     const float g01 = m[0] * m[3] + m[1] * m[4] + m[2] * m[5];
-    const float mx = mm[o], my = mm[O + o];
-    const float swz = sw * mm[2 * O + o];
+    const float mx = r.mx, my = r.my;
+    const float swz = r.sw * r.zinv;
     const float wz2 = swz * swz;
     const float cg[3][2] = {{g00, g01},
                             {g01, g11},
                             {-(mx * g00 + my * g01), -(mx * g01 + my * g11)}};
     const float cc[3][2] = {{1.0f, 0.0f}, {0.0f, 1.0f}, {-mx, -my}};
-    float H[3][3];
+    int s = 0;
 #pragma unroll
     for (int a = 0; a < 3; ++a)
 #pragma unroll
-      for (int b = 0; b < 3; ++b)
-        H[a][b] = wz2 * (cg[a][0] * cc[b][0] + cg[a][1] * cc[b][1]);
-    const int c = cam[o];
-    const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
-                         x4_in[3 * O + o]};
+      for (int b = a; b < 3; ++b, ++s)
+        H[s] = wz2 * (cg[a][0] * cc[b][0] + cg[a][1] * cc[b][1]);
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int b = 0; b < 3; ++b) {
-          const float hi = H[a][b] * x4[i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            atomicAdd(&acc[(((a * 4 + i) * 3 + b) * 4 + j) * n_cams + c],
-                      hi * x4[j]);
-        }
-      }
-    }
-  }
-  if (kShared) {
-    __syncthreads();
-    povar::flush_acc(out, acc, 144 * n_cams);
-  }
+    for (int k = 0; k < 4; ++k) xh[k] = r.x4[k];
+    return r.sw != 0.0f;
+  };
+  povar::schur_pass<R, SchurRow2>(load, form, expand, out, acc_g, n_obs,
+                                  n_cams, copies, smem);
 }
 
 // ------------------------------------------------------------------ S5
@@ -767,16 +775,16 @@ int povar_e0_term2(const int32_t* cam, const float* x4, const float* mm,
                              n_cams);
 }
 
+// out: [144, n_cams]; acc: 60 n_cams + 1 doubles, zero (every call
+// leaves them zero)
 int povar_schur_diag2(const int32_t* cam, const float* x4, const float* mm,
-                      const float* sw, const float* mat6, float* out,
-                      int n_obs, int n_cams, void* stream) {
-  const size_t shared = sizeof(float) * 144 * (size_t)n_cams;
-  if (shared <= (size_t)max_optin_smem()) {
-    return launch(schur_diag2_kernel<true>, n_obs, shared, stream, cam, x4,
-                  mm, sw, mat6, out, n_obs, n_cams);
-  }
-  return launch(schur_diag2_kernel<false>, n_obs, 0, stream, cam, x4, mm, sw,
-                mat6, out, n_obs, n_cams);
+                      const float* sw, const float* mat6, const int* expand,
+                      float* out, double* acc, int n_obs, int n_cams,
+                      void* stream) {
+  return povar::launch_schur(
+      schur_diag2_kernel<Route::kPrivate>, schur_diag2_kernel<Route::kShared>,
+      schur_diag2_kernel<Route::kGlobal>, n_obs, n_cams, stream, cam, x4, mm,
+      sw, mat6, expand, out, acc, n_obs, n_cams);
 }
 
 int povar_ldiff2(const int32_t* cam, const float* x4, const float* mm,

@@ -1,5 +1,6 @@
 // Shared device and launch code of the structured kernels of step 1
-// (pose1.cu) and step 2 (pose2.cu).
+// (pose1.cu) and step 2 (pose2.cu), and of the per-camera sums of the
+// camera-table kernels (cam.cu).
 //
 // Every kernel is one pass over the observations, one thread per
 // observation in a grid-stride loop (the fused terms: per slot row of a
@@ -8,15 +9,16 @@
 // gathers from are staged in shared memory once per block (12 * N * 4 B:
 // 4.3 KB at N = 89); a camera row is then a shared-memory read by index.
 // Per-camera sums go into shared-memory accumulators (through
-// warp_scatter in the moment kernels and the fused terms) and leave the
-// block as one global atomicAdd per non-zero entry; scalar sums leave as
-// one partial per block, which the caller adds up.
+// warp_scatter in the moment and Schur-Jacobi kernels and the fused
+// terms) and leave the block as one global atomicAdd per non-zero entry;
+// scalar sums leave as one partial per block, which the caller adds up.
 //
 // The arithmetic follows the Pallas bodies of povar_tpu/ops/pallas_pose.py
 // term for term (same products, same summation order), so a kernel and
 // its plain PyTorch version (ops/pose_ref.py) differ only by FMA
 // contraction and, for per-camera sums, by the order of the atomics
-// (the moment kernels also regroup their Hpp products into moments).
+// (the moment and Schur-Jacobi kernels also regroup their products into
+// moments).
 
 #pragma once
 
@@ -150,6 +152,87 @@ __device__ __forceinline__ bool last_block(unsigned* ticket,
   return last;
 }
 
+// ------------------------------------------------- per-camera sum routes
+// Where a block's per-camera accumulators live (csrc/cam.cu's e0_scatter
+// and hpp_b, the Schur-Jacobi kernels below):
+//   kPrivate  one f32 copy per warp in shared memory, which the warp adds
+//             to with plain adds;
+//   kShared   `copies` f32 copies per block, copy w mod copies shared by
+//             warp w's group with shared atomics (a compare-and-swap loop
+//             on this card);
+//   kGlobal   none: every value goes to a global atomic in acc_g.
+// The lanes of a warp on one camera first sum their values in lane order
+// (warp_peers / warp_scatter_rows), so no two lanes of a warp ever add to
+// one address. A block then adds its copies per entry and sends the
+// non-zero sums to global atomics in acc_g (f64 or f32, as each kernel
+// says), and the last block to take a ticket writes the output in f32
+// from acc_g and leaves acc_g and the ticket zeroed for the next call
+// (ops/pose_kernels.py keeps one such buffer per device and stream,
+// zeroed once).
+enum class Route { kPrivate, kShared, kGlobal };
+
+// this warp's accumulator copy of `n_acc` floats, zeroed; null on the
+// global route (all of the block's threads must call it)
+template <Route R>
+__device__ __forceinline__ float* warp_copy(float* smem, int copies,
+                                            int n_acc) {
+  if (R == Route::kGlobal) return nullptr;
+  smem_zero(smem, copies * n_acc);
+  __syncthreads();
+  return smem + ((threadIdx.x >> 5) % copies) * n_acc;
+}
+
+// the K values v of this lane's row into rows row0 .. row0 + K - 1 of
+// this warp's accumulator (on the global route: the sums, of type T, in
+// acc_g) at column c
+template <int K, Route R, typename T>
+__device__ __forceinline__ void add_rows(float* acc, double* acc_g, int row0,
+                                         int n, int c, const WarpPeers& p,
+                                         float (&v)[K]) {
+  if (R == Route::kGlobal)
+    warp_scatter_rows<K, true, T>(reinterpret_cast<T*>(acc_g) + row0 * n, n,
+                                  c, p, v);
+  else
+    warp_scatter_rows<K, R == Route::kShared>(acc + row0 * n, n, c, p, v);
+}
+
+__device__ __forceinline__ unsigned* ticket_of(double* acc_g, int count) {
+  return reinterpret_cast<unsigned*>(acc_g + count);
+}
+
+// Once the block's warps have added every row: the block's copies, in
+// groups of kGroup summed per entry (f32), go to global atomics into the
+// [count] sums of type T at acc_g (all of the block's threads must call
+// it; nothing on the global route, whose values went there directly).
+template <Route R, typename T, int kGroup>
+__device__ __forceinline__ void flush_copies(double* acc_g, const float* smem,
+                                             int copies, int n_acc,
+                                             int count) {
+  if (R == Route::kGlobal) return;
+  T* sums = reinterpret_cast<T*>(acc_g);
+  __syncthreads();
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    for (int k0 = 0; k0 < copies; k0 += kGroup) {
+      float s = smem[k0 * n_acc + i];
+#pragma unroll
+      for (int k = 1; k < kGroup; ++k)
+        if (k0 + k < copies) s += smem[(k0 + k) * n_acc + i];
+      if (s != 0.0f) atomicAdd(sums + i, (T)s);
+    }
+  }
+}
+
+// flush_copies, then true in the last block to take the ticket behind
+// the sums (at acc_g + count doubles), which then holds every block's
+// sums (all of the block's threads must call it)
+template <Route R, typename T, int kGroup>
+__device__ __forceinline__ bool block_sums_done(double* acc_g,
+                                                const float* smem, int copies,
+                                                int n_acc, int count) {
+  flush_copies<R, T, kGroup>(acc_g, smem, copies, n_acc, count);
+  return last_block(ticket_of(acc_g, count));
+}
+
 // ------------------------------------------------------ per-camera moments
 // Hpp of both steps is sum w K (x) xh xh^T with
 //   K = [[1, 0, -k1], [0, 1, -k2], [-k1, -k2, k3]]
@@ -182,47 +265,78 @@ __device__ __forceinline__ void moments(const float kw[4], const float xh[4],
 }
 
 // The tail of a moment kernel: once every block's sums are in `acc_g`
-// [kMomentRows N + 1] of T (b, the moments, then a ticket the caller
-// zeroed), the last block to take a ticket writes every entry of hpp
-// [144, N]: row r is sign * moment |e| - 1 for e = expand[r], or 0 where e
-// is 0; and, where `b` is given, b [12, N] from acc_g's first rows. `smem`
-// holds at least kMoments x `chunk` floats (the moments of a chunk of
-// cameras are staged there); all of the block's threads must call it.
-template <typename T>
+// [(kLead + kMom) N + 1] of T (kLead rows of other sums, kMom moment rows,
+// then a ticket, zero on entry), the last block to take the ticket writes
+// every entry of hpp [144, N]: row r is sign * moment |e| - 1 for e =
+// expand[r] (ops/pose_kernels.moment_expand_table, schur_expand_table),
+// or 0 where e is 0; and, where `b` is given, b [kLead, N] from acc_g's
+// first rows. With kReset it leaves the moments and the ticket zeroed
+// for the next call. `smem` holds at least kMom x `chunk` floats (the
+// moments of a chunk of cameras are staged there); all of the block's
+// threads must call it.
+template <int kMom = kMoments, int kLead = 12, bool kReset = false,
+          typename T>
 __device__ __forceinline__ void expand_moments(const int* __restrict__ expand,
                                                float* __restrict__ hpp,
                                                float* __restrict__ b,
                                                T* acc_g, int n_cams,
                                                int chunk, float* smem) {
   __shared__ int ex[144];
-  if (!last_block(reinterpret_cast<unsigned*>(acc_g + kMomentRows * n_cams)))
-    return;
+  unsigned* ticket =
+      reinterpret_cast<unsigned*>(acc_g + (kLead + kMom) * n_cams);
+  if (!last_block(ticket)) return;
   for (int i = threadIdx.x; i < 144; i += blockDim.x) ex[i] = expand[i];
   if (b != nullptr) {
-    for (int i = threadIdx.x; i < 12 * n_cams; i += blockDim.x)
+    for (int i = threadIdx.x; i < kLead * n_cams; i += blockDim.x)
       b[i] = (float)__ldcg(acc_g + i);
   }
-  const T* mom = acc_g + 12 * n_cams;
+  T* mom = acc_g + kLead * n_cams;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
   for (int c0 = 0; c0 < n_cams; c0 += chunk) {
     const int nc = min(chunk, n_cams - c0);
     __syncthreads();
-    // a warp per moment row, kBatch independent L2 reads per lane in
-    // flight (the other blocks' atomics never passed this SM's L1)
-    for (int k = warp; k < kMoments; k += n_warps) {
-      for (int cc0 = lane; cc0 < nc; cc0 += 32 * kBatch) {
+    // kBatch independent L2 reads per thread in flight (the other blocks'
+    // atomics never passed this SM's L1): with kReset and one chunk (the
+    // moments contiguous, as smem is) over every entry, read before any
+    // of them is zeroed; otherwise a warp per moment row
+    if (kReset && nc == n_cams) {
+      const int count = kMom * nc;
+      for (int i0 = threadIdx.x; i0 < count; i0 += kBatch * blockDim.x) {
         float m[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
-          const int cc = cc0 + 32 * u;
-          m[u] = cc < nc ? (float)__ldcg(mom + k * n_cams + c0 + cc) : 0.0f;
+          const int i = i0 + u * blockDim.x;
+          m[u] = i < count ? (float)__ldcg(mom + i) : 0.0f;
         }
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
-          const int cc = cc0 + 32 * u;
-          if (cc < nc) smem[k * nc + cc] = m[u];
+          const int i = i0 + u * blockDim.x;
+          if (i < count) {
+            smem[i] = m[u];
+            mom[i] = T(0);
+          }
+        }
+      }
+    } else {
+      for (int k = warp; k < kMom; k += n_warps) {
+        for (int cc0 = lane; cc0 < nc; cc0 += 32 * kBatch) {
+          float m[kBatch];
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const int cc = cc0 + 32 * u;
+            m[u] = cc < nc ? (float)__ldcg(mom + k * n_cams + c0 + cc)
+                           : 0.0f;
+          }
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const int cc = cc0 + 32 * u;
+            if (cc < nc) {
+              smem[k * nc + cc] = m[u];
+              if (kReset) mom[k * n_cams + c0 + cc] = T(0);
+            }
+          }
         }
       }
     }
@@ -235,6 +349,170 @@ __device__ __forceinline__ void expand_moments(const int* __restrict__ expand,
         dst[cc] = e == 0 ? 0.0f : e > 0 ? src[cc] : -src[cc];
     }
   }
+  if (kReset && threadIdx.x == 0) *ticket = 0u;
+}
+
+// ------------------------------------------------- Schur-Jacobi moments
+// Both steps' Schur-Jacobi corrections are, per camera, [144, N] rows
+// (4a+i)*12 + 4b+j = sum H[a][b] xh_i xh_j over the camera's live rows,
+// with H a symmetric 3x3 per row (step 1: h^T h, xh = [x, 1]; step 2:
+// (sw/p2)^2 C^T B B^T C, xh = x4). Only 6 x 10 = 60 of those sums are
+// distinct: moment 10 s + p = sum H_s xx_p for the upper-triangle entry
+// s = (a, b), a <= b, of H (row-major: (0,0) (0,1) (0,2) (1,1) (1,2)
+// (2,2)) and the upper-triangle entry p of xh xh^T (as kMoments'). A live
+// row adds those 60 values through warp_peers / warp_scatter_rows (the
+// lanes of a warp on one camera sum first) on the route sums_plan picks:
+// kSchurWarps per-warp private copies with plain adds while kSchurMinWarps
+// copies of 60 N floats fit a block (N up to 241), else shared copies in
+// 512-thread blocks (up to N = 964), else f64 global atomics. The blocks'
+// sums meet in f64 in `acc_g` [60 N + 1] doubles (the moments, then a
+// ticket), zero on entry; the last block writes all 144 rows through
+// ops/pose_kernels.schur_expand_table (expand_moments: a row and its
+// mirror from one moment, so the output is symmetric bit for bit) and
+// leaves acc_g zeroed.
+constexpr int kSchurMoments = 60;
+constexpr int kSchurWarps = 10;
+constexpr int kSchurMinWarps = 4;
+constexpr int kSchurSharedThreads = 512;
+// static shared memory a Schur-Jacobi kernel declares: expand_moments'
+// table of 144 ints and last_block's flag, rounded up
+constexpr size_t kSchurStaticSmem = 1024;
+
+__host__ __device__ constexpr int schur_threads(Route r) {
+  return r == Route::kPrivate ? 32 * kSchurWarps : kSchurSharedThreads;
+}
+
+// v[10 s + p] = H[s] (xh_i xh_j) for every upper-triangle entry s of H
+// and p = (i, j) of xh xh^T
+__device__ __forceinline__ void schur_moments(const float H[6],
+                                              const float xh[4],
+                                              float (&v)[kSchurMoments]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = i; j < 4; ++j) {
+      const int p = i * (7 - i) / 2 + j;
+      const float xx = xh[i] * xh[j];
+#pragma unroll
+      for (int s = 0; s < 6; ++s) v[10 * s + p] = H[s] * xx;
+    }
+  }
+}
+
+// One exchange of warp_reduce_scatter: w[0..2 W) to w[0..W), the half
+// this lane's bit W / 2 selects, plus its partner's other half
+template <int W>
+__device__ __forceinline__ void reduce_scatter_step(float (&w)[32],
+                                                    int lane) {
+  const bool hi = lane & (W / 2);
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const float a = w[k], b = w[k + W];
+    w[k] = (hi ? b : a) + __shfl_xor_sync(kFullMask, hi ? a : b, W / 2);
+  }
+}
+
+// v[0..K) (K <= 64) of every lane of a warp summed over the warp as a
+// reduce-scatter tree: in five shuffle-exchange steps (lane offsets 16,
+// 8, 4, 2, 1) each lane keeps the half of its own and its partner's
+// values that its lane bit selects, so lane l ends with the sums of
+// values 2 l and 2 l + 1 (62 shuffles a lane, not a walk's (peers - 1)
+// K). All lanes of the warp must call it.
+template <int K>
+__device__ __forceinline__ void warp_reduce_scatter(const float (&v)[K],
+                                                    float (&sum)[2]) {
+  static_assert(K <= 64, "two sums a lane");
+  const int lane = threadIdx.x & 31;
+  float w[32];
+  const bool top = lane & 16;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const float a = k < K ? v[k] : 0.0f;
+    const float b = k + 32 < K ? v[k + 32] : 0.0f;
+    w[k] = (top ? b : a) + __shfl_xor_sync(kFullMask, top ? a : b, 16);
+  }
+  reduce_scatter_step<16>(w, lane);
+  reduce_scatter_step<8>(w, lane);
+  reduce_scatter_step<4>(w, lane);
+  reduce_scatter_step<2>(w, lane);
+  sum[0] = w[0];
+  sum[1] = w[1];
+}
+
+// One Schur-Jacobi kernel on route R: `load(o)` reads row o's operands
+// (a Row, whatever o), `form(row, H, xh)` returns whether the row is live
+// and then fills H's upper triangle and xh; row.c is its camera. On the
+// private route the next row's loads are issued before this row's sums.
+// A warp whose live lanes (four or more) all sit on one camera, as in
+// the camera-sorted orders, sums its values in a reduce-scatter tree and
+// every lane adds two of them (a walk would take 31 steps of 60 shuffles
+// with every lane on one camera); any other warp walks its peers.
+// All of the block's threads must call it; `smem` is the kernel's
+// dynamic shared memory (the plan's copies, or kSchurMoments x
+// kExpandChunk floats on the global route).
+template <Route R, typename Row, typename Load, typename Form>
+__device__ __forceinline__ void schur_pass(Load load, Form form,
+                                           const int* __restrict__ expand,
+                                           float* __restrict__ out,
+                                           double* __restrict__ acc_g,
+                                           int n_obs, int n_cams, int copies,
+                                           float* smem) {
+  constexpr bool kPrefetch = R == Route::kPrivate;
+  const int n_acc = kSchurMoments * n_cams;
+  float* acc = warp_copy<R>(smem, copies, n_acc);
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * blockDim.x;
+  // warp-uniform trips: every lane reaches the warp's scatter
+  int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  Row next;
+  if (kPrefetch) next = load(base + lane);
+  for (; base < n_obs; base += stride) {
+    Row row;
+    if (kPrefetch) {
+      row = next;
+      next = load(base + stride + lane);
+    } else {
+      row = load(base + lane);
+    }
+    float H[6], xh[4];
+    const bool live = form(row, H, xh);
+    if (!__any_sync(kFullMask, live)) continue;
+    float v[kSchurMoments];
+    if (live) {
+      schur_moments(H, xh, v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kSchurMoments; ++k) v[k] = 0.0f;
+    }
+    const int c = live ? row.c : 0;
+    const WarpPeers peers = warp_peers(c, live);
+    const unsigned leads = __ballot_sync(kFullMask, peers.lead);
+    if (__popc(leads) == 1 &&
+        __popc(__ballot_sync(kFullMask, live)) >= 4) {
+      float sum[2];
+      warp_reduce_scatter(v, sum);
+      const int cu = __shfl_sync(kFullMask, c, __ffs(leads) - 1);
+      if (R == Route::kPrivate) __syncwarp();  // after the last walk's adds
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int k = 2 * lane + j;
+        if (k >= kSchurMoments) continue;
+        if (R == Route::kGlobal)
+          atomicAdd(acc_g + k * n_cams + cu, (double)sum[j]);
+        else if (R == Route::kShared)
+          atomicAdd(acc + k * n_cams + cu, sum[j]);
+        else
+          acc[k * n_cams + cu] += sum[j];
+      }
+    } else {
+      add_rows<kSchurMoments, R, double>(acc, acc_g, 0, n_cams, c, peers,
+                                         v);
+    }
+  }
+  flush_copies<R, double, 32>(acc_g, smem, copies, n_acc, n_acc);
+  expand_moments<kSchurMoments, 0, true>(
+      expand, out, nullptr, acc_g, n_cams,
+      R == Route::kGlobal ? kExpandChunk : n_cams, smem);
 }
 
 // ------------------------------------------------------------ slot tiles
@@ -493,6 +771,70 @@ int launch_tiles(KPrivate private_kernel, KShared shared_kernel, int n_parts,
                               stream, args...);
   return launch<kE0Threads>(shared_kernel, items, base + acc, stream,
                             args...);
+}
+
+// A per-camera sum kernel's route and block shape for `rows` f32 accumulator
+// rows per camera: `warps` warps (at least `min_warps`) on private copies
+// where that many fit a block, else `shared_threads`-thread blocks on as
+// many shared copies as fit (at most one per warp), else the global
+// route; `reserve` bytes of a block's shared memory are left to the
+// kernel's static shared memory.
+struct SumsPlan {
+  Route route;
+  int threads;
+  int copies;
+  size_t smem;
+};
+
+inline SumsPlan sums_plan(int rows, int n_cams, int warps, int min_warps,
+                          int shared_threads, size_t reserve = 0) {
+  const size_t copy = sizeof(float) * (size_t)rows * n_cams;
+  const size_t room = std::max<size_t>(max_optin_smem(), reserve) - reserve;
+  const int fit = (int)std::min<size_t>(room / copy, 32);
+  if (fit >= min_warps) {
+    const int w = std::min(warps, fit);
+    return {Route::kPrivate, 32 * w, w, w * copy};
+  }
+  if (fit >= 1) {
+    const int k = std::min(fit, shared_threads / 32);
+    return {Route::kShared, shared_threads, k, k * copy};
+  }
+  return {Route::kGlobal, shared_threads, 1, 0};
+}
+
+// launch the route's instantiation of a per-camera sum kernel over n_obs
+// rows with the plan's shared memory; the kernel takes `args` and then
+// the plan's copies
+template <typename KP, typename KS, typename KG, typename... Args>
+int launch_sums(const SumsPlan& p, KP private_kernel, KS shared_kernel,
+                KG global_kernel, int n_obs, void* stream, Args... args) {
+  switch (p.route) {
+    case Route::kPrivate:
+      return launch_block(private_kernel, p.threads, n_obs, p.smem, stream,
+                          args..., p.copies);
+    case Route::kShared:
+      return launch_block(shared_kernel, p.threads, n_obs, p.smem, stream,
+                          args..., p.copies);
+    default:
+      return launch_block(global_kernel, p.threads, n_obs, p.smem, stream,
+                          args..., p.copies);
+  }
+}
+
+// launch a Schur-Jacobi kernel (its private, shared and global route
+// instantiations) over n_obs rows and n_cams cameras
+template <typename KP, typename KS, typename KG, typename... Args>
+int launch_schur(KP private_kernel, KS shared_kernel, KG global_kernel,
+                 int n_obs, int n_cams, void* stream, Args... args) {
+  if (n_obs <= 0 || n_cams <= 0) return (int)cudaErrorInvalidValue;
+  // the last block's staged expansion table
+  SumsPlan p = sums_plan(kSchurMoments, n_cams, kSchurWarps, kSchurMinWarps,
+                         kSchurSharedThreads, kSchurStaticSmem);
+  // the last block stages the moments of kExpandChunk cameras at a time
+  if (p.route == Route::kGlobal)
+    p.smem = sizeof(float) * kSchurMoments * kExpandChunk;
+  return launch_sums(p, private_kernel, shared_kernel, global_kernel, n_obs,
+                     stream, args...);
 }
 
 }  // namespace povar

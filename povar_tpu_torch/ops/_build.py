@@ -55,9 +55,9 @@ SIGNATURES = {
     "povar_cam_hpp_b": [_P] * 6 + [_I] * 4 + [_P],
     "povar_pose_error": [_P] * 6 + [_I, _I, _I, _D, _D, _I, _D, _P],
     "povar_e0_term": [_P] * 6 + [_I] * 5 + [_P],
-    "povar_schur_diag": [_P] * 4 + [_I, _I, _P],
+    "povar_schur_diag": [_P] * 6 + [_I, _I, _P],
     "povar_e0_term2": [_P] * 8 + [_I] * 5 + [_P],
-    "povar_schur_diag2": [_P] * 6 + [_I, _I, _P],
+    "povar_schur_diag2": [_P] * 8 + [_I, _I, _P],
     "povar_prepare2": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _P],
     "povar_hppb2": [_P] * 10 + [_I, _I, _P],
     "povar_mat_dot2": [_P] * 8 + [_I, _I, _I, _P],

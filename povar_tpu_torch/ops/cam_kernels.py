@@ -19,7 +19,8 @@ rows, whose camera index is a real camera.
 
 `e0_scatter` and `hpp_b` meet their blocks' per-camera sums (in f64 and
 f32, csrc/cam.cu says why) in a scratch buffer of doubles that every
-call leaves zeroed: one per device and CUDA stream (`_sums_scratch`),
+call leaves zeroed: one per device and CUDA stream
+(`pose_kernels._sums_scratch`, which the Schur-Jacobi kernels share),
 zeroed once when it is made or grown, so a call is one device
 operation.
 """
@@ -38,6 +39,7 @@ from povar_tpu_torch.ops.pose_kernels import (
     _on_cpu,
     _ptr,
     _stream,
+    _sums_scratch,
 )
 
 KERNELS = ("cam_gather", "cam_scatter_add", "e0_u", "e0_scatter", "hpp_b")
@@ -51,23 +53,6 @@ _TABLE_BYTES = 48 * 1024
 # the (k, d) shapes of hpp_b's Jacobian blocks that csrc/cam.cu
 # instantiates: step 1's [4, 12] and step 2's tangent [2, 11]
 _HPP_B_SHAPES = ((4, 12), (2, 11))
-
-# (device, stream) -> the sums buffer of e0_scatter / hpp_b
-_SUMS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _sums_scratch(device: torch.device, stream: int,
-                  n: int) -> torch.Tensor:
-    """A zero f64 buffer of at least `n` entries for a kernel launched on
-    CUDA stream `stream`: the kernel's last block zeroes what it used
-    (its sums and ticket), and calls on one stream run one after
-    another."""
-    buf = _SUMS.get((device, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(n, dtype=torch.float64, device=device)
-        _SUMS[(device, stream)] = buf
-    return buf
-
 
 def _rows_per_block(r: int, n: int) -> int:
     return max(1, min(r, _TABLE_BYTES // (4 * n)))

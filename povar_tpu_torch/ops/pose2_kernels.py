@@ -35,15 +35,18 @@ from povar_tpu_torch.ops import _build, pose2_ref
 from povar_tpu_torch.ops.pose_kernels import (
     _THREADS,
     E0_TILE_THREADS,
+    SCHUR_MOMENTS,
     _check_shapes,
     _cuda_checks,
     _launch,
     _on_cpu,
     _ptr,
     _stream,
+    _sums_scratch,
     check_parts,
     e0_tile_table,
     moment_expand_table,
+    schur_expand_table,
 )
 from povar_tpu_torch.ops.pose_math import ROBUST_HUBER
 
@@ -217,10 +220,14 @@ def schur_diag2(cam, x4, mm, sw, mat6, n_cams):
     _cuda_checks(o, n, cam, f32=(
         ("x4", x4), ("mm", mm), ("sw", sw), ("mat6", mat6),
     ))
-    out = _f32_out(144, n, x4, zero=True)
+    out = _f32_out(144, n, x4)
+    stream = _stream(x4)
     _launch("schur_diag2", _build.library().povar_schur_diag2,
-            _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(mat6), _ptr(out),
-            o, n, _stream(x4), counts=LAUNCHES)
+            _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(mat6),
+            _ptr(schur_expand_table(x4.device)), _ptr(out),
+            _ptr(_sums_scratch(x4.device, stream.value,
+                               SCHUR_MOMENTS * n + 1)),
+            o, n, stream, counts=LAUNCHES)
     return out
 
 

@@ -101,6 +101,52 @@ def moment_expand_table(device) -> torch.Tensor:
                         dtype=torch.int32, device=device)
 
 
+# The moment form of schur_diag_structured and schur_diag2
+# (csrc/pose_common.cuh, schur_pass): per camera the sums of H_s xx_p for
+# the upper-triangle entries SCHUR_PAIRS[s] of the symmetric 3x3 H and
+# MOMENT_PAIRS[p] of xh xh^T: moment 10 s + p
+SCHUR_PAIRS = tuple((a, b) for a in range(3) for b in range(a, 3))
+SCHUR_MOMENTS = len(SCHUR_PAIRS) * len(MOMENT_PAIRS)
+
+
+def schur_expand_map() -> List[int]:
+    """For each row ((a*4+i)*3+b)*4+j = (4a+i)*12 + 4b+j of a Schur-Jacobi
+    correction [144, N], the moment whose per-camera sum it is: H[a][b]
+    xh_i xh_j with both pairs in upper-triangle order (no sign, no
+    structural zero; a row and its mirror share one moment)."""
+    return [10 * SCHUR_PAIRS.index((min(a, b), max(a, b)))
+            + MOMENT_PAIRS.index((min(i, j), max(i, j)))
+            for a in range(3) for i in range(4)
+            for b in range(3) for j in range(4)]
+
+
+@functools.lru_cache(maxsize=8)
+def schur_expand_table(device) -> torch.Tensor:
+    """The kernels' int32 [144] form of schur_expand_map on `device`:
+    moment + 1, moment_expand_table's encoding (one host-to-device copy
+    per device)."""
+    return torch.tensor([m + 1 for m in schur_expand_map()],
+                        dtype=torch.int32, device=device)
+
+
+# (device, stream) -> the f64 buffer where the blocks' per-camera sums of
+# the Schur-Jacobi kernels and of cam_kernels' e0_scatter / hpp_b meet
+_SUMS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _sums_scratch(device: torch.device, stream: int,
+                  n: int) -> torch.Tensor:
+    """A zero f64 buffer of at least `n` entries for a kernel launched on
+    CUDA stream `stream`: the kernel's last block zeroes what it used
+    (its sums and ticket), and calls on one stream run one after
+    another."""
+    buf = _SUMS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.float64, device=device)
+        _SUMS[(device, stream)] = buf
+    return buf
+
+
 # threads per block of the fused terms (csrc/pose_common.cuh kE0Threads);
 # a tile holds E0_TILE_THREADS // w landmarks x all w slot rows of its part
 E0_TILE_THREADS = 512
@@ -375,9 +421,13 @@ def schur_diag_structured(cam, x, h, n_cams):
     if _on_cpu(cam, x, h):
         return pose_ref.schur_diag_structured(cam, x, h, n)
     _cuda_checks(o, n, cam, f32=(("x", x), ("h", h)))
-    out = torch.zeros((144, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((144, n), dtype=torch.float32, device=x.device)
+    stream = _stream(x)
     _launch("schur_diag_structured", _build.library().povar_schur_diag,
-            _ptr(cam), _ptr(x), _ptr(h), _ptr(out), o, n, _stream(x))
+            _ptr(cam), _ptr(x), _ptr(h), _ptr(schur_expand_table(x.device)),
+            _ptr(out),
+            _ptr(_sums_scratch(x.device, stream.value, SCHUR_MOMENTS * n + 1)),
+            o, n, stream)
     return out
 
 

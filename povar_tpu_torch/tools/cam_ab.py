@@ -125,7 +125,7 @@ VARIANTS = {
     # hpp_b as one shared copy per 512-thread block at N = 89 (shared
     # atomics, the lanes on one camera summed first)
     "hpp_shared1": ([("cam.cu", HPP_MIN_WARPS, r"\g<1>33,"),
-                     ("cam.cu", r"const int k = std::min\(fit, "
+                     ("pose_common.cuh", r"const int k = std::min\(fit, "
                       r"shared_threads / 32\);", "const int k = 1;")],
                     "hpp_b"),
     # ... and on as many shared copies as fit (7 at (4, 12))
@@ -158,7 +158,7 @@ VARIANTS = {
                      "block_sums_done<R, float, 1>")], "hpp_b"),
     # every value straight to a global atomic at every N
     "hpp_global": ([("cam.cu", HPP_MIN_WARPS, r"\g<1>33,"),
-                    ("cam.cu", r"if \(fit >= 1\) \{",
+                    ("pose_common.cuh", r"if \(fit >= 1\) \{",
                      "if (fit >= 1 && shared_threads != 512) {")], "hpp_b"),
     # the blocks' sums meeting in f64 (hpp_b) or f32 (e0_scatter) atomics
     "hpp_f64_sums": (_sum_type("kChunk", "float", "2", "double"), "hpp_b"),
@@ -166,7 +166,7 @@ VARIANTS = {
     # e0_scatter on one shared copy per 1024-thread block at N = 89
     "e0_shared1": ([("cam.cu", r"sums_plan\(dc, n_cams, kE0sWarps, "
                      r"kE0sWarps,", "sums_plan(dc, n_cams, kE0sWarps, 33,"),
-                    ("cam.cu", r"const int k = std::min\(fit, "
+                    ("pose_common.cuh", r"const int k = std::min\(fit, "
                      r"shared_threads / 32\);", "const int k = 1;")],
                    "e0_scatter"),
     # e0_scatter's private copies in 256-thread blocks
@@ -176,11 +176,12 @@ VARIANTS = {
     # (f32) to its own row of the buffer and the last block adds the rows
     # in block order, in f32 (the buffer: grid x count floats, then the
     # ticket; bit-reproducible)
-    "e0_fixed_order": ([("cam.cu", r"      if \(s != 0\.0f\) atomicAdd\("
+    "e0_fixed_order": ([("pose_common.cuh",
+                         r"      if \(s != 0\.0f\) atomicAdd\("
                          r"sums \+ i, \(T\)s\);",
                          "      reinterpret_cast<float*>(acc_g)"
                          "[blockIdx.x * count + i] = s;"),
-                        ("cam.cu", r"return povar::last_block\(ticket_of\("
+                        ("pose_common.cuh", r"return last_block\(ticket_of\("
                          r"acc_g, count\)\);",
                          "return povar::last_block(reinterpret_cast<"
                          "unsigned*>(reinterpret_cast<float*>(acc_g) + "
@@ -218,7 +219,8 @@ VARIANTS = {
     # adds then race: wrong sums)
     "no_walk": ([("pose_common.cuh", r"__match_any_sync\(kFullMask, live "
                   r"\? c : -1\)", "(1u << lane)")], None),
-    "no_flush": ([("cam.cu", r"if \(s != 0\.0f\) atomicAdd\(sums \+ i, "
+    "no_flush": ([("pose_common.cuh",
+                   r"if \(s != 0\.0f\) atomicAdd\(sums \+ i, "
                    r"\(T\)s\);", "if (s == 1.2345e-38f) sums[i] = (T)s;")],
                  None),
 }

@@ -1,8 +1,9 @@
-"""`hppb2`, `e0_term2_parts` and `pose_error2` against an earlier
-version of their kernels, and against controlled variants of their own,
-on one card.
+"""`hppb2`, `e0_term2_parts`, `pose_error2` and `schur_diag2` against
+an earlier version of their kernels, and against controlled variants of
+their own, on one card.
 
     python -m povar_tpu_torch.tools.pose2_ab kernels --parent DIR
+        [--kernels NAME ...]
     python -m povar_tpu_torch.tools.pose2_ab bench
 
 Run from the repository root (`chip_smoke.py` lends its timers, its
@@ -10,8 +11,9 @@ step-1 solve and its bench iteration). `kernels` builds DIR/pose2.cu
 (with DIR/pose_common.cuh: an earlier commit's csrc/, for instance
 `git archive <commit> povar_tpu_torch/csrc` unpacked into a git-ignored
 directory; its entry points take the package's arguments except
-`povar_pose_error2`, which takes PARENT_SIG's) and VARIANTS of the
-package's own csrc/, one nvcc each, all started together, into
+`povar_schur_diag2`, which takes PARENT_SIG's) and the VARIANTS of the
+package's own csrc/ that concern the kernels asked for (`--kernels`;
+default all), one nvcc each, all started together, into
 build/pose2_ab/, and prints the SASS opcode counts (cuobjdump -sass) of
 the earlier and the package kernels. It then takes the venice-89 step-2
 state of the card's step-1 result (chip_smoke.check_kernels2's operands)
@@ -20,14 +22,14 @@ the variants that concern it) at
 
   (a) venice-89: O = 557,056 slot rows, N = 89 (pose_error2 under NONE,
       HUBER and CAUCHY);
-  (b) the camera-sorted orders: hppb2 and pose_error2 on the 1-device
-      mesh solver's own step-2 operands (the SPMD window order, 598,016
-      lanes), the fused term on the venice-89 operands with each part's
-      landmarks sorted by first camera (the window plan's order, the
-      same parts);
+  (b) the camera-sorted orders: hppb2, pose_error2 and schur_diag2 on
+      the 1-device mesh solver's own step-2 operands (the SPMD window
+      order, 598,016 lanes; mat6 seeded), the fused term on the
+      venice-89 operands with each part's landmarks sorted by first
+      camera (the window plan's order, the same parts);
   (c) N = 1024 seeded cameras on the venice-89 rows (pose_error2: the
-      89 cameras repeated), and N = 2048 for hppb2 (its global-memory
-      route),
+      89 cameras repeated; schur_diag2's global route), and N = 2048 for
+      hppb2 (its global-memory route),
 
 checking the earlier and the package kernel against the plain version
 per camera (tools/parity.py, 1e-4) and printing each result's error,
@@ -65,6 +67,9 @@ NO_ATOMICS = (r"atomicAdd\(&(acc\w*)\[([^\]]+)\], ([^;]+)\);",
               r"{ const float a_ = \3; if (a_ == 1.2345e-38f) \1[\2] = a_; }")
 NO_ADDS = (r"acc\[k \* n \+ c\] \+= v\[k\];",
            "if (v[k] == 1.2345e-38f) acc[k * n + c] = v[k];")
+# the Schur-Jacobi pass's adds after its reduce-scatter tree
+NO_TREE_ADDS = (r"acc\[k \* n_cams \+ cu\] \+= sum\[j\];",
+                "if (sum[j] == 1.2345e-38f) acc[k * n_cams + cu] = sum[j];")
 # warp_scatter's sums of the lanes on one camera as a pairwise butterfly
 # (5 shuffle steps) where every live lane is on one camera (one lead, with
 # peers), the walk over the peers in lane order otherwise
@@ -98,7 +103,8 @@ def common_variants(source: str, moment_flush: str):
         # the per-camera adds made dead stores: loads, arithmetic, warp sums
         "no_adds": ([(source, *NO_ATOMICS),
                      ("pose_common.cuh", *NO_ATOMICS),
-                     ("pose_common.cuh", *NO_ADDS)], 512),
+                     ("pose_common.cuh", *NO_ADDS),
+                     ("pose_common.cuh", *NO_TREE_ADDS)], 512),
         # every live lane adds its own values (no sum over a camera's
         # lanes; the fused terms' per-warp adds then race: timing only)
         "no_group_sum": ([("pose_common.cuh",
@@ -165,6 +171,101 @@ ERR_VARIANTS = {
     ],
 }
 
+# the Schur-Jacobi kernels (pose_common.cuh schur_pass, launch_schur)
+# with one design choice changed: one shared copy per 512-thread block
+# (shared atomics after the warp's sums, as hpp_b_structured's), as
+# many shared copies as fit, f64 global atomics at every N, 4 or 8
+# private copies a block (10 by default), no loads of the next row
+# ahead, the lane-order walk also where a warp sits on one camera (no
+# reduce-scatter tree); and, wrong sums by design (timed only), the
+# arithmetic and loads alone (no sums over a camera's lanes, the adds
+# made dead stores), the loads and H alone, and no tail
+_RED_ADD = ("pose_common.cuh", r"(\nstruct WarpPeers \{)",
+            "\n__device__ __forceinline__ void red_add(float* p, float v) {\n"
+            "  atomicAdd(p, v);\n}\n"
+            "__device__ __forceinline__ void red_add(double* p, double v) {\n"
+            "  asm volatile(\"red.add.f64 [%0], %1;\" :: \"l\"(p), \"d\"(v)"
+            " : \"memory\");\n}\n\\1")
+_SCHUR_PLAN = (r"sums_plan\(kSchurMoments, n_cams, kSchurWarps, "
+               r"kSchurMinWarps,", "sums_plan(kSchurMoments, n_cams, "
+               "kSchurWarps, 33,")
+_ONE_COPY = (r"const int k = std::min\(fit, shared_threads / 32\);",
+             "const int k = 1;")
+SCHUR_VARIANTS = {
+    "schur_shared1": [("pose_common.cuh", *_SCHUR_PLAN),
+                      ("pose_common.cuh", *_ONE_COPY)],
+    "schur_shared_copies": [("pose_common.cuh", *_SCHUR_PLAN)],
+    "schur_global": [("pose_common.cuh", *_SCHUR_PLAN),
+                     ("pose_common.cuh", r"if \(fit >= 1\) \{",
+                      "if (fit >= 1 && rows != kSchurMoments) {")],
+    "schur_warps4": [("pose_common.cuh", r"kSchurWarps = 10;",
+                      "kSchurWarps = 4;")],
+    "schur_warps8": [("pose_common.cuh", r"kSchurWarps = 10;",
+                      "kSchurWarps = 8;")],
+    "schur_walk_only": [("pose_common.cuh", r"if \(__popc\(leads\) == 1 &&",
+                         "if (false &&")],
+    "schur_no_prefetch": [("pose_common.cuh",
+                           r"(void schur_pass\(.*?)constexpr bool "
+                           r"kPrefetch = R == Route::kPrivate;",
+                           r"\1constexpr bool kPrefetch = false;")],
+    "schur_arith_only": [
+        ("pose_common.cuh", r"__match_any_sync\(kFullMask, live \? c : -1\)",
+         "(1u << lane)"),
+        ("pose_common.cuh", *NO_ATOMICS), ("pose_common.cuh", *NO_ADDS)],
+    # ... the loads and H alone (no moments, sums or adds), and the pass
+    # without its tail (no flush of the copies, no last block)
+    "schur_loads_only": [("pose_common.cuh",
+                          r"    if \(!__any_sync\(kFullMask, live\)\) "
+                          r"continue;\n    float v\[kSchurMoments\];",
+                          "    if (live && H[0] + H[5] + xh[0] + xh[3] == "
+                          "1.2345e-38f) acc_g[0] = 1.0;\n    continue;\n"
+                          "    float v[kSchurMoments];")],
+    "schur_no_tail": [("pose_common.cuh",
+                       r"  flush_copies<R, double, 32>\(acc_g, smem, copies, "
+                       r"n_acc, n_acc\);", "  return;")],
+    # the copies' flush left out (the last block's expansion kept)
+    "schur_no_flush": [("pose_common.cuh",
+                        r"  flush_copies<R, double, 32>\(acc_g, smem, copies, "
+                        r"n_acc, n_acc\);", "")],
+    # the f64 global atomics as reductions (PTX red.add.f64, no value
+    # returned): the copies' flush, and also the global route's adds
+    "schur_red_flush": [_RED_ADD, ("pose_common.cuh",
+                                   r"if \(s != 0\.0f\) atomicAdd\(sums \+ i, "
+                                   r"\(T\)s\);",
+                                   "if (s != 0.0f) red_add(sums + i, (T)s);")],
+    # the blocks' flush starting at entry blockIdx count / gridDim (not
+    # all at entry 0): at any moment the blocks' atomics hit different
+    # addresses
+    "schur_flush_rotated": [("pose_common.cuh",
+                             r"  __syncthreads\(\);\n  for \(int i = threadIdx\.x; "
+                             r"i < count; i \+= blockDim\.x\) \{\n",
+                             "  __syncthreads();\n"
+                             "  const int shift = (int)((long)blockIdx.x * "
+                             "count / gridDim.x);\n"
+                             "  for (int t = threadIdx.x; t < count; t += "
+                             "blockDim.x) {\n"
+                             "    const int i = t + shift < count ? t + shift "
+                             ": t + shift - count;\n")],
+    # the last block's staging a warp per moment row (hpp_b_structured's)
+    "schur_expand_rows": [("pose_common.cuh",
+                           r"if \(kReset && nc == n_cams\) \{",
+                           "if (false) {")],
+    "schur_red_all": [_RED_ADD, ("pose_common.cuh",
+                                 r"if \(s != 0\.0f\) atomicAdd\(sums \+ i, "
+                                 r"\(T\)s\);",
+                                 "if (s != 0.0f) red_add(sums + i, (T)s);"),
+                      ("pose_common.cuh",
+                       r"atomicAdd\(&acc\[k \* n \+ c\], \(T\)v\[k\]\);",
+                       "red_add(&acc[k * n + c], (T)v[k]);"),
+                      ("pose_common.cuh",
+                       r"atomicAdd\(acc_g \+ k \* n_cams \+ cu, "
+                       r"\(double\)sum\[j\]\);",
+                       "red_add(acc_g + k * n_cams + cu, (double)sum[j]);")],
+}
+# the variants of every other kernel that the Schur kernels are timed
+# with too (their per-camera adds: warp_scatter_rows's)
+SCHUR_COMMON = ("no_adds", "no_group_sum")
+
 VARIANTS = {
     **common_variants("pose2.cu", r"povar::flush_acc\(acc_g, acc, [^;]+;"),
     # every in-range row's operands loaded, not only the live rows'
@@ -174,19 +275,27 @@ VARIANTS = {
                      ("pose2.cu", r"if \(live\) \{\n      c = cam\[o\];\n#pragma",
                       "if (row.in) {\n      c = cam[o];\n#pragma")], 512),
     **{name: (edits, 512) for name, edits in ERR_VARIANTS.items()},
+    **{name: (edits, 512) for name, edits in SCHUR_VARIANTS.items()},
 }
 # the earlier kernels with their per-camera atomics made dead stores
 PARENT_VARIANTS = {"parent_no_atomics": [("pose2.cu", *NO_ATOMICS),
                                          ("pose_common.cuh", *NO_ATOMICS)]}
 # the entry points timed and the kernels whose SASS opcodes are counted
-ENTRIES = ("povar_hppb2", "povar_e0_term2", "povar_pose_error2")
+ENTRIES = ("povar_hppb2", "povar_e0_term2", "povar_pose_error2",
+           "povar_schur_diag2")
 SASS_KERNELS = {"hppb2": "hppb2_kernel", "e0_term2": "e0_term2_kernel",
-                "pose_error2": "pose_error2_kernel"}
+                "pose_error2": "pose_error2_kernel",
+                # the earlier kernel (one name), else route 0 / 1 / 2:
+                # per-warp, shared and global (pose_common.cuh Route)
+                **{f"schur_diag2 route {r}":
+                   rf"schur_diag2_kernelILN5povar5RouteE{r}E"
+                   for r in range(3)},
+                "schur_diag2": "schur_diag2_kernel"}
 OUT = Path("build") / "pose2_ab"
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# the earlier pose2.cu's cost entry point: partials [7, n_part] for the
-# caller to zero and sum
-PARENT_SIG = {"povar_pose_error2": [_P] * 6 + [_I, _I, _I, _I, _D, _P]}
+# the earlier pose2.cu's Schur-Jacobi entry point: no expansion table,
+# no sums buffer, the output zeroed by the caller
+PARENT_SIG = {"povar_schur_diag2": [_P] * 6 + [_I, _I, _P]}
 # the opcodes counted in SASS: atomics, f64 arithmetic, the multi-
 # function unit, barriers, shuffles and local-memory (spill) traffic
 SASS_OPS = (r"\b(ATOMS\.[\w.]+|ATOM\.[\w.]+|RED\.[\w.]+|ATOMG\.[\w.]+|"
@@ -341,26 +450,38 @@ def _error2(lib):
     return run
 
 
-def _parent_error2(lib):
-    """The earlier pose_error2 with its wrapper's device operations: the
-    zeroed [7, n_part] partials, their sum, the two casts and the
-    compare."""
+def _schur2(lib):
+    """The package's schur_diag2 entry point of `lib` (a variant's), with
+    a sums buffer of its own (zeroed once: every call leaves it zeroed,
+    or, in a variant that gives wrong sums, as that variant leaves it)."""
+    from povar_tpu_torch.ops import pose_kernels as pk
+
+    scratch = {}
+
+    def run(cam, x4, mm, sw, mat6, n):
+        size = pk.SCHUR_MOMENTS * n + 1
+        if scratch.get("n", 0) < size:
+            scratch.update(n=size, buf=torch.zeros(size, dtype=torch.float64,
+                                                   device=x4.device))
+        out = torch.empty((144, n), device=x4.device)
+        rc = lib.povar_schur_diag2(*map(pk._ptr, (
+            cam, x4, mm, sw, mat6, pk.schur_expand_table(x4.device), out,
+            scratch["buf"])), cam.shape[0], n, pk._stream(x4))
+        assert rc == 0, rc
+        return out
+    return run
+
+
+def _parent_schur2(lib):
+    """The earlier schur_diag2: the caller's zeroed output."""
     from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
 
-    def run(cam, ct, x4, uv, mask, *, robust, huber):
-        o = cam.shape[0]
-        n_part = -(-o // 256)
-        part = torch.zeros((7, n_part), dtype=torch.float64, device="cuda")
-        rc = lib.povar_pose_error2(*map(_ptr, (cam, ct, x4, uv, mask, part)),
-                                   n_part, o, ct.shape[1], int(robust),
-                                   float(huber), _stream(x4))
+    def run(cam, x4, mm, sw, mat6, n):
+        out = torch.zeros((144, n), device=x4.device)
+        rc = lib.povar_schur_diag2(*map(_ptr, (cam, x4, mm, sw, mat6, out)),
+                                   cam.shape[0], n, _stream(x4))
         assert rc == 0, rc
-        tot = part.sum(dim=1)
-        return {"num_obs_all": tot[6].to(torch.int64), "error_all": tot[0],
-                "residual_sum_all": tot[1],
-                "num_obs_valid": tot[4].to(torch.int64),
-                "error_valid": tot[2], "residual_sum_valid": tot[3],
-                "is_numerically_valid": tot[5] == 0}
+        return out
     return run
 
 
@@ -393,8 +514,8 @@ def _operands(problem):
     """The venice-89 step-2 operands of chip_smoke.check_kernels2 (the
     card's step-1 result, homogenized; seeded zt, mat6, hib), the fused
     term's parts, the 1-device mesh solver's step-2 operands (hib its
-    landmark solve's at lambda 1e-4), and pose_error2's operands at
-    (a)-(c) (_error2_operands)."""
+    landmark solve's at lambda 1e-4, mat6 seeded), and pose_error2's
+    operands at (a)-(c) (_error2_operands)."""
     import chip_smoke as cs
     from povar_tpu_torch import SolverOptions, Stage2Solver, create_homogeneous
 
@@ -417,7 +538,8 @@ def _operands(problem):
     lm = sm.lm_pack(sm.pad_landmarks(lms_h.cpu().numpy()))
     ml = sm.linearize(cams_h, lm)
     mesh = dict(cam=sm.obs.cam, x4=ml.x4, mm=ml.mm, sw=ml.sw, r_w=ml.r_w,
-                jlns=ml.jlns, hib=sm._prep_hll_s(ml, 1e-4)[1], n=n)
+                jlns=ml.jlns, hib=sm._prep_hll_s(ml, 1e-4)[1],
+                mat6=f32(6, int(sm.obs.cam.shape[0])), n=n)
     return (d, tuple(s2.e0_plan.parts), mesh,
             _error2_operands(problem, cams_h, lms_h))
 
@@ -458,31 +580,53 @@ def _tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+def variant_kernels(name: str):
+    """The kernels of this module a variant of VARIANTS is timed with."""
+    if name in ERR_VARIANTS:
+        return ("pose_error2",)
+    if name in SCHUR_VARIANTS:
+        return ("schur_diag2",)
+    if name.startswith("threads") or name == "block_atomics":
+        return ("e0_term2_parts",)
+    return ("hppb2", "e0_term2_parts") + (
+        ("schur_diag2",) if name in SCHUR_COMMON else ())
+
+
 def kernels(parent: Path, only=None) -> None:
     import chip_smoke as cs
     from povar_tpu_torch import synthetic_bal_problem_fast
     from povar_tpu_torch.ops import pose2_kernels as pk2
     from povar_tpu_torch.ops import pose2_ref as pr2
 
-    libs = build_all(parent, parent_sig=PARENT_SIG)
+    wanted = {n: v for n, v in VARIANTS.items()
+              if only is None or set(variant_kernels(n)) & set(only)}
+    libs = build_all(parent, variants=wanted, parent_sig=PARENT_SIG)
     problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
                                          seed=0)
     d, parts, mesh, err = _operands(problem)
-    hpp_impls = {"parent": _variant_hppb2(libs["parent"]),
-                 "package": pk2.hppb2}
-    e0_impls = {"parent": _variant_e0(libs["parent"], 512),
-                "package": pk2.e0_term2_parts}
-    err_impls = {"parent": _parent_error2(libs["parent"]),
-                 "package": pk2.pose_error2}
-    hpp_var = {"parent_no_atomics": _variant_hppb2(libs["parent_no_atomics"])}
-    e0_var = {"parent_no_atomics": _variant_e0(libs["parent_no_atomics"], 512)}
-    err_var = {name: _error2(libs[name]) for name in ERR_VARIANTS}
-    for name, (_e, threads) in VARIANTS.items():
-        if name in ERR_VARIANTS:
-            continue
-        if not name.startswith("threads") and name != "block_atomics":
-            hpp_var[name] = _variant_hppb2(libs[name])
-        e0_var[name] = _variant_e0(libs[name], threads)
+    impls = {
+        "hppb2": {"parent": _variant_hppb2(libs["parent"]),
+                  "package": pk2.hppb2},
+        "e0_term2_parts": {"parent": _variant_e0(libs["parent"], 512),
+                           "package": pk2.e0_term2_parts},
+        "pose_error2": {"parent": _error2(libs["parent"]),
+                        "package": pk2.pose_error2},
+        "schur_diag2": {"parent": _parent_schur2(libs["parent"]),
+                        "package": pk2.schur_diag2},
+    }
+    pna = libs["parent_no_atomics"]
+    variants = {"hppb2": {"parent_no_atomics": _variant_hppb2(pna)},
+                "e0_term2_parts": {"parent_no_atomics": _variant_e0(pna,
+                                                                    512)},
+                "pose_error2": {},
+                "schur_diag2": {"parent_no_atomics": _parent_schur2(pna)}}
+    make = {"hppb2": lambda lib, _t: _variant_hppb2(lib),
+            "e0_term2_parts": _variant_e0,
+            "pose_error2": lambda lib, _t: _error2(lib),
+            "schur_diag2": lambda lib, _t: _schur2(lib)}
+    for name, (_e, threads) in wanted.items():
+        for k in variant_kernels(name):
+            variants[k][name] = make[k](libs[name], threads)
 
     def hpp_args(x):
         return tuple(x[k] for k in ("cam", "x4", "mm", "sw", "r_w", "jlns",
@@ -491,6 +635,10 @@ def kernels(parent: Path, only=None) -> None:
     def e0_args(x):
         return tuple(x[k] for k in ("cam", "x4", "mm", "sw", "mat6",
                                     "zt")) + (parts, x["n"])
+
+    def schur_args(x):
+        return tuple(x[k] for k in ("cam", "x4", "mm", "sw", "mat6")) + (
+            x["n"],)
 
     shapes = [
         ("hppb2", "(a) venice-89", hpp_args(d)),
@@ -501,6 +649,10 @@ def kernels(parent: Path, only=None) -> None:
         ("e0_term2_parts", "(b) by first camera",
          e0_args(_by_first_camera(d, parts))),
         ("e0_term2_parts", "(c) N = 1024", e0_args(_with_cameras(d, 1024, 3))),
+        ("schur_diag2", "(a) venice-89", schur_args(d)),
+        ("schur_diag2", "(b) mesh window order", schur_args(mesh)),
+        ("schur_diag2", "(c) N = 1024, global route",
+         schur_args(_with_cameras(d, 1024, 4))),
     ]
     shapes = [(k, label, args, {}) for k, label, args in shapes] + [
         ("pose_error2", f"{label}, {norm}", args,
@@ -513,11 +665,8 @@ def kernels(parent: Path, only=None) -> None:
         if norm in norms]
     print(f"fused-term parts {parts}; mesh lanes {mesh['cam'].shape[0]}",
           flush=True)
-    ab_time([x for x in shapes if only is None or x[0] in only],
-            {"hppb2": hpp_impls, "e0_term2_parts": e0_impls,
-             "pose_error2": err_impls},
-            {"hppb2": hpp_var, "e0_term2_parts": e0_var,
-             "pose_error2": err_var}, pr2)
+    ab_time([x for x in shapes if only is None or x[0] in only], impls,
+            variants, pr2)
 
 
 def ab_time(shapes, impls, variants, plain_mod) -> None:

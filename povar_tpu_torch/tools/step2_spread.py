@@ -276,18 +276,21 @@ def emulate_tpu_onehot(solver):
     return solver
 
 
+WITNESS_RUNS = (("card", "cuda"), ("card again", "cuda"), ("cpu", "cpu"))
+
+
 def step2_witness(problem, opts, cams_h, lms_h, iters=WITNESS_ITERS,
-                  calm=CALM):
+                  calm=CALM, runs_on=WITNESS_RUNS):
     """The first `iters` step-2 iterations on `calm_subproblem` of the
-    state (cams_h, lms_h), twice on the card and once through the plain
-    versions on the CPU. Returns (the sub-problem's Stage2Solver
-    arguments, {"card" | "card again" | "cpu": (trajectory, seconds)})."""
+    state (cams_h, lms_h), once per (label, device) of `runs_on`: by
+    default twice on the card and once through the plain versions on the
+    CPU. Returns (the sub-problem's Stage2Solver arguments, {label:
+    (trajectory, seconds)})."""
     args, lms_w = calm_subproblem(problem, cams_h, lms_h, calm)
     o = copy.deepcopy(opts)
     o.max_num_iterations_step_2 = iters
     runs = {}
-    for label, dev in (("card", "cuda"), ("card again", "cuda"),
-                       ("cpu", "cpu")):
+    for label, dev in runs_on:
         solver = Stage2Solver(*args, o, device=dev)
         summary = SolverSummary()
         t0 = time.perf_counter()
@@ -300,11 +303,12 @@ def step2_witness(problem, opts, cams_h, lms_h, iters=WITNESS_ITERS,
 
 
 def witness_gaps(runs, counts_when_rejected=True):
-    """Per card run of `step2_witness`: (same decisions and inner
-    iteration counts as the CPU, relative initial-cost gap, relative gaps
-    of the costs the CPU accepted). Rejected trials' costs are not
-    compared: they differ by orders of magnitude between runs; nor, with
-    `counts_when_rejected=False` (RIPCG), their CG counts."""
+    """Per card run of `step2_witness` (every label but "cpu"): (same
+    decisions and inner iteration counts as the CPU, relative
+    initial-cost gap, relative gaps of the costs the CPU accepted).
+    Rejected trials' costs are not compared: they differ by orders of
+    magnitude between runs; nor, with `counts_when_rejected=False`
+    (RIPCG), their CG counts."""
     want = runs["cpu"][0]
     out = {}
 
@@ -312,7 +316,7 @@ def witness_gaps(runs, counts_when_rejected=True):
         ok, n, _c = rec
         return (ok, n if ok or counts_when_rejected else None)
 
-    for label in ("card", "card again"):
+    for label in (k for k in runs if k != "cpu"):
         got = runs[label][0]
         same = [key(g) for g in got] == [key(w) for w in want]
         init = abs(got[0][2] - want[0][2]) / want[0][2]

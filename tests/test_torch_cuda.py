@@ -21,7 +21,10 @@ fused terms run over all slot parts and over a narrow prefix, and also
 over parts of three widths and on camera-sorted landmarks; `cam_gather`
 also on a 144-row table, more rows than one block stages at N = 1024;
 `e0_scatter` and `hpp_b` on each of their routes (N = 13 to 5000) and
-in three row orders, `e0_scatter` also at a width of 5.
+in three row orders, `e0_scatter` also at a width of 5; the two
+Schur-Jacobi kernels on each of their routes (N = 13 to 1024) in two
+row orders, with their output's symmetry and one device operation per
+call.
 
 Tolerances, with the scales of povar_tpu_torch/tools/parity.py:
 elementwise outputs 1e-5 entry by entry (against |plain| + the median
@@ -410,6 +413,74 @@ def test_hppb2_routes_and_orders(cuda, n_cams, order):
     _close("hppb2", got, pose2_ref.hppb2(*args), [CAM, CAM])
 
 
+def _device_ops(fn, reps=3, windows=3):
+    """The names of the device operations the profiler records over
+    `reps` calls of `fn` (after a warm-up call), in order; a window in
+    which it records none is repeated, up to `windows` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+SCHUR_KERNELS = {"schur_diag_structured": "schur_diag_kernel",
+                 "schur_diag2": "schur_diag2_kernel"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["drawn", "by_camera", "camera_runs"])
+@pytest.mark.parametrize("n_cams", [13, 89, 242, 300, 964, 968, 1024])
+def test_schur_diag_routes_orders_and_symmetry(cuda, n_cams, order):
+    """Both Schur-Jacobi kernels in moment form once per call within the
+    per-camera tolerance, on each route: per-warp private copies (N = 13,
+    89), shared copies (N = 242, 300, 964: fewer than four copies of 60 N
+    floats fit a block beside its static shared memory, and at 964 one)
+    and f64 global atomics (N = 968, 1024), on the rows as drawn,
+    sorted by camera and with the cameras in runs of 64 rows (at every N
+    whole warps on one camera, which sum in a reduce-scatter tree, and
+    ~5% dead lanes among them). corr is symmetric bit for bit (a row and
+    its mirror come from one sum), every call leaves the sums buffer
+    zeroed, and a call is one device operation, the kernel (no zero
+    fill: the last block writes every entry)."""
+    t = _inputs(n_cams, cuda)
+    if order == "by_camera":
+        t = _rows_reordered(t, torch.argsort(t["cam"].long(), stable=True),
+                            ("cam", "x", "h", "x4", "mm", "sw", "mat6"))
+    if order == "camera_runs":
+        t["cam"] = ((torch.arange(O, device=cuda) // 64) % n_cams).to(
+            torch.int32)
+    calls = (
+        ("schur_diag_structured", pk, pose_ref, (t["cam"], t["x"], t["h"])),
+        ("schur_diag2", pk2, pose2_ref,
+         (t["cam"], t["x4"], t["mm"], t["sw"], t["mat6"])),
+    )
+    for name, mod, ref, args in calls:
+        launches.reset_launch_counts()
+        got = getattr(mod, name)(*args, n_cams)
+        torch.cuda.synchronize()
+        assert launches.launch_counts()[name] == 1, name
+        _close(name, got, getattr(ref, name)(*args, n_cams), [CAM])
+        corr = got.view(12, 12, n_cams)
+        assert torch.equal(corr, corr.transpose(0, 1)), name
+        assert not any(bool(buf.any()) for buf in pk._SUMS.values()), name
+        if n_cams == 89 and order == "drawn":
+            ops = _device_ops(lambda: getattr(mod, name)(*args, n_cams))
+            assert len(ops) == 3 and all(SCHUR_KERNELS[name] in op
+                                         for op in ops), (name, ops)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("order", ["drawn", "by_first_camera"])
 @pytest.mark.parametrize("parts", [PARTS, MIXED], ids=["parts", "mixed"])
@@ -518,7 +589,7 @@ def test_cam_kernels_match_plain_versions(cuda, n_cams, order):
             d = got[1].shape[0]
             hpp = got[0].view(d, d, n_cams)
             assert torch.equal(hpp, hpp.transpose(0, 1))
-    assert not any(bool(buf.any()) for buf in cam_kernels._SUMS.values())
+    assert not any(bool(buf.any()) for buf in pk._SUMS.values())
 
 
 @pytest.mark.cuda

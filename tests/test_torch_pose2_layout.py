@@ -1,4 +1,4 @@
-"""What Python hands the two redesigned step-2 kernels of
+"""What Python hands the redesigned step-2 kernels of
 povar_tpu_torch/csrc/pose2.cu, checked on the CPU.
 
 - `hppb2` accumulates, per camera, b12 and 40 weighted moments of x4
@@ -17,6 +17,14 @@ povar_tpu_torch/csrc/pose2.cu, checked on the CPU.
   each landmark's rows in slot order, on the fused plans of
   tests/test_torch_e0_plan.py's layouts and on parts of three widths with
   ragged last tiles.
+- `schur_diag2` accumulates, per camera, the 60 moments sum H_s x4_i
+  x4_j (H = (sw/p2)^2 C^T B B^T C, s its upper triangle, i <= j) and
+  expands them through `pose_kernels.schur_expand_map`, as step 1's
+  `schur_diag_structured` does. Moments computed here row for row as the
+  kernel forms them and expanded through that map equal
+  `pose2_ref.schur_diag2` and the JAX package's Pallas `schur_diag2`
+  (interpret mode) per camera within 1e-5, on three seeds with dead rows
+  (sw = 0, mm = 0) and near-plane rows.
 """
 
 import jax.numpy as jnp
@@ -113,6 +121,37 @@ def test_hppb2_expand_map_is_k3():
                               for e in m]
     assert sorted({abs(v) for v in table.tolist()} - {0}) == list(
         range(1, 41))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_schur2_moments_expand_to_corr12(seed):
+    from test_torch_pose_layout import expand_schur, schur_moments
+
+    d = _operands(seed)
+    d["mat6"] = np.random.default_rng(seed + 10).standard_normal(
+        (6, O)).astype(np.float32)
+    t = {k: torch.as_tensor(v) for k, v in d.items()}
+    m, (mx, my, zinv), sw = t["mat6"], t["mm"], t["sw"][0]
+    g00 = m[0] * m[0] + m[1] * m[1] + m[2] * m[2]
+    g11 = m[3] * m[3] + m[4] * m[4] + m[5] * m[5]
+    g01 = m[0] * m[3] + m[1] * m[4] + m[2] * m[5]
+    swz = sw * zinv
+    wz2 = swz * swz
+    cg = [[g00, g01], [g01, g11],
+          [-(mx * g00 + my * g01), -(mx * g01 + my * g11)]]
+    one, zero = torch.ones(O), torch.zeros(O)
+    cc = [[one, zero], [zero, one], [-mx, -my]]
+    H = [wz2 * (cg[a][0] * cc[b][0] + cg[a][1] * cc[b][1])
+         for a, b in pk.SCHUR_PAIRS]
+    live = sw != 0
+    assert not live.all()
+    got = expand_schur(schur_moments(H, list(t["x4"]), t["cam"], live))
+    args = ("cam", "x4", "mm", "sw", "mat6")
+    plain = pose2_ref.schur_diag2(*(t[k] for k in args), N)
+    tpu = torch.as_tensor(np.array(
+        pp2.schur_diag2(*(jnp.asarray(d[k]) for k in args), N)))
+    assert scaled_error(got, plain, "cam") <= 1e-5
+    assert scaled_error(got, tpu, "cam") <= 1e-5
 
 
 def _tile_cover(parts, threads):
