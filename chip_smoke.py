@@ -27,11 +27,12 @@ prints no result line):
               cam_gather and of `index_add_` beside cam_scatter_add, the
               one PyTorch call that computes each; prepare also without
               its per-camera sums (sums=False); prepare, hpp_b_structured,
-              e0_term_parts and schur_diag_structured also on the
-              camera-sorted lane orders (the 1-device mesh solver's
-              step-1 operands; each part's landmarks sorted by first
-              camera) and on seeded cameras at N = 1024
-              (hpp_b_structured also at N = 2048, its global route);
+              e0_term_parts, schur_diag_structured and
+              e0_scatter_structured also on the camera-sorted lane
+              orders (the 1-device mesh solver's step-1 operands; each
+              part's landmarks sorted by first camera) and on seeded
+              cameras at N = 1024 (hpp_b_structured also at N = 2048,
+              its global route);
               cam_scatter_add, e0_scatter and hpp_b again at N = 1024
               (the Schur kernel's and hpp_b's global-atomic routes, the
               others' widest shared tables), hpp_b's hpp and the Schur
@@ -52,8 +53,8 @@ prints no result line):
               the well-conditioned rows alone (|1/p2| at most CALM of
               tools/step2_spread.py times the median), pose_error2
               under NONE, HUBER and CAUCHY, and two of its calls bit for
-              bit; hppb2, e0_term2_parts and schur_diag2 also on the
-              camera-sorted lane orders (the 1-device mesh solver's
+              bit; hppb2, e0_term2_parts, schur_diag2 and scatter2 also
+              on the camera-sorted lane orders (the 1-device mesh solver's
               step-2 operands; each part's landmarks sorted by first
               camera) and on seeded cameras at N = 1024 (schur_diag2's
               global route; hppb2 also at N = 2048, its global route),
@@ -664,20 +665,22 @@ def check_symmetric(label, corr):
 
 def kernels1_shapes(problem, solver, d, alpha):
     """The shapes beside check_kernels' venice-89 rows at which prepare,
-    hpp_b_structured, e0_term_parts and schur_diag_structured are held to
-    their plain versions and timed: (a) prepare without its per-camera
-    sums (sums=False, as the back-substitution and the landmark
-    initialization call it); (b) the camera-sorted lane orders, prepare,
-    hpp_b_structured and schur_diag_structured on the 1-device mesh
+    hpp_b_structured, e0_term_parts, schur_diag_structured and
+    e0_scatter_structured are held to their plain versions and timed:
+    (a) prepare without its per-camera sums (sums=False, as the
+    back-substitution and the landmark initialization call it); (b) the
+    camera-sorted lane orders, prepare, hpp_b_structured,
+    schur_diag_structured and e0_scatter_structured on the 1-device mesh
     solver's own step-1 operands (the SPMD window order, 598,016 lanes;
     its linearization at the VarProj start, and its landmark solve's
-    Hll^-1 bl there; schur_diag_structured's h seeded, zero on the
-    masked lanes) and the fused term on the venice-89 operands `d`
-    (kernel_inputs) with each part's landmarks sorted by the camera of
-    their first slot row (the order the window plan packs them in, the
-    same parts); (c) seeded cameras on the venice-89 rows, N = 1024 for
-    all four (schur_diag_structured's global route) and N = 2048 for
-    hpp_b_structured (its global-memory route). Returns (kernel, label,
+    Hll^-1 bl there; h and sb seeded, zero on the masked lanes) and the
+    fused term on the venice-89 operands `d` (kernel_inputs) with each
+    part's landmarks sorted by the camera of their first slot row (the
+    order the window plan packs them in, the same parts); (c) seeded
+    cameras on the venice-89 rows, N = 1024 for all five
+    (schur_diag_structured's global route, e0_scatter_structured's
+    shared copies) and N = 2048 for hpp_b_structured (its global-memory
+    route). Returns (kernel, label,
     args, kwargs, inputs for bound_ms, specs, n_read, O) per shape; also
     tools/pose1_ab.py's shapes."""
     from povar_tpu_torch import SolverOptions, Stage1Solver
@@ -707,6 +710,12 @@ def kernels1_shapes(problem, solver, d, alpha):
                 [x[k] for k in ("h", "cam", "x")], [CAM],
                 int(x["h"].ne(0).any(dim=0).sum()), int(x["cam"].shape[0]))
 
+    def scatter(x, label, n):
+        keys = ("cam", "x", "h", "sb")
+        return ("e0_scatter_structured", label,
+                tuple(x[k] for k in keys) + (n,), {}, [x[k] for k in keys],
+                [CAM], None, int(x["cam"].shape[0]))
+
     def prep(x, label, sums=True):
         args = tuple(x[k] for k in ("cam", "ct", "x", "uv", "mask"))
         return ("prepare", label, args,
@@ -718,11 +727,16 @@ def kernels1_shapes(problem, solver, d, alpha):
     c = torch.as_tensor(problem.cam_space, device="cuda")
     lin = ms.linearize(c, ms.lm_pack(ms.initialize_varproj(c)))
     _hll_inv, hib, jls, _lh = ms._hll_pieces_s(lin)
-    mesh_h = torch.as_tensor(
-        np.random.default_rng(5).standard_normal((9, ms.obs.cam.shape[0])),
-        dtype=torch.float32, device="cuda") * ms._mask1
+    lanes = int(ms.obs.cam.shape[0])
+
+    def masked(rows, seed):
+        return torch.as_tensor(
+            np.random.default_rng(seed).standard_normal((rows, lanes)),
+            dtype=torch.float32, device="cuda") * ms._mask1
+
     mesh = dict(cam=ms.obs.cam, ct=lin.ct, x=lin.x, uv=ms._uv_s, sw=lin.sw,
-                r_w=lin.r_w, jls=jls, hib=hib, mask=ms._mask1, h=mesh_h)
+                r_w=lin.r_w, jls=jls, hib=hib, mask=ms._mask1,
+                h=masked(9, 5), sb=masked(3, 6))
     rows = first_camera_rows(d["cam"], parts)
     by_first = dict(d, **{k: d[k][..., rows].contiguous()
                           for k in ("cam", "x", "h")})
@@ -743,11 +757,13 @@ def kernels1_shapes(problem, solver, d, alpha):
         prep(mesh, "(b) mesh window order"),
         hpp(mesh, "(b) mesh window order", ms.n_cams),
         schur(mesh, "(b) mesh window order", ms.n_cams),
+        scatter(mesh, "(b) mesh window order", ms.n_cams),
         e0(by_first, "(b) landmarks by first camera", solver.n_cams),
         prep(big[1024], "(c) N = 1024"),
         hpp(big[1024], "(c) N = 1024", 1024),
         e0(big[1024], "(c) N = 1024", 1024),
         schur(big[1024], "(c) N = 1024, global route", 1024),
+        scatter(big[1024], "(c) N = 1024, shared copies", 1024),
         hpp(big[2048], "(c) N = 2048, global route", 2048),
     ]
 
@@ -964,17 +980,18 @@ def check_kernels2(solver2, cams_h, lms_h, seed=1):
 
 
 def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
-    """hppb2, e0_term2_parts and schur_diag2 beside their venice-89 rows,
-    each against its plain version and timed, on lines of their own: (b)
-    the camera-sorted lane orders, hppb2 and schur_diag2 on the 1-device
-    mesh solver's own step-2 operands (the SPMD window order; its landmark
-    solve's Hll^-1 bl at lambda 1e-4; mat6 seeded) and the fused term on
+    """hppb2, e0_term2_parts, schur_diag2 and scatter2 beside their
+    venice-89 rows, each against its plain version and timed, on lines of
+    their own: (b) the camera-sorted lane orders, hppb2, schur_diag2 and
+    scatter2 on the 1-device mesh solver's own step-2 operands (the SPMD
+    window order; its landmark solve's Hll^-1 bl at lambda 1e-4; mat6 and
+    sb seeded) and the fused term on
     the venice-89 operands with each part's landmarks sorted by the camera
     of their first slot row (the order the window plan packs them in, the
     same parts); (c) seeded cameras on the venice-89 rows, N = 1024 for
-    all three (schur_diag2's global route) and N = 2048 for hppb2 (its
-    global-memory route); schur_diag2's output symmetric bit for bit at
-    venice-89, (b) and (c)."""
+    all four (schur_diag2's global route, scatter2's shared copies) and
+    N = 2048 for hppb2 (its global-memory route); schur_diag2's output
+    symmetric bit for bit at venice-89, (b) and (c)."""
     from povar_tpu_torch import SolverOptions, Stage2Solver
     from povar_tpu_torch.ops import pose2_kernels as pk2
     from povar_tpu_torch.ops import pose2_ref as pr2
@@ -986,12 +1003,19 @@ def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
         return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
                                device="cuda")
 
+    # scatter2's seeded sb from a generator of its own (the operands
+    # drawn from `rng` stay those of earlier trees' runs)
+    sb_rng = np.random.default_rng(seed + 1)
+
     def operands(s, lm):
         lin = s.linearize(cams_h, s.lm_pack(lm))
         o = int(s.obs.cam.shape[0])
         return lin, dict(cam=s.obs.cam, x4=lin.x4, mm=lin.mm, sw=lin.sw,
                          r_w=lin.r_w, jlns=lin.jlns, hib=f32(3, o),
-                         mat6=f32(6, o), zt=f32(12, s.n_cams), n=s.n_cams)
+                         mat6=f32(6, o), zt=f32(12, s.n_cams), n=s.n_cams,
+                         sb=torch.as_tensor(sb_rng.standard_normal((3, o)),
+                                            dtype=torch.float32,
+                                            device="cuda"))
 
     _lin, d = operands(solver2, lms_h)
     parts = solver2.e0_plan.parts
@@ -1023,6 +1047,13 @@ def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
                 [x[k] for k in ("sw", "cam", "x4", "mm", "mat6")], [CAM],
                 int((x["sw"] > 0).sum()))
 
+    def scatter2(x, label):
+        keys = ("cam", "x4", "mm", "sw", "mat6", "sb")
+        args = [x[k] for k in keys]
+        return ("scatter2", label, lambda m: m.scatter2(*args, x["n"]),
+                [x["sw"]] + [x[k] for k in keys if k != "sw"], [CAM],
+                int((x["sw"] > 0).sum()))
+
     def e0(x, label):
         args = [x[k] for k in ("cam", "x4", "mm", "sw", "mat6", "zt")]
         covered = sum(g * w for _ofs, g, w in parts)
@@ -1033,7 +1064,8 @@ def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
                 (covered, int((x["sw"] > 0).sum())))
 
     run_cases(pk2, pr2, [hppb2(mesh, "(b) mesh window order"),
-                         schur2(mesh, "(b) mesh window order")],
+                         schur2(mesh, "(b) mesh window order"),
+                         scatter2(mesh, "(b) mesh window order")],
               int(mesh["cam"].shape[0]), time_variants=True)
     run_cases(pk2, pr2, [
         e0(by_first, "(b) landmarks by first camera"),
@@ -1042,7 +1074,8 @@ def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
         hppb2(with_cameras(2048), "(c) N = 2048, global route"),
     ], o, time_variants=True)
     big = with_cameras(1024)
-    run_cases(pk2, pr2, [schur2(big, "(c) N = 1024, global route")], o,
+    run_cases(pk2, pr2, [schur2(big, "(c) N = 1024, global route"),
+                         scatter2(big, "(c) N = 1024, shared copies")], o,
               time_variants=True)
     for label, x in (("venice-89", d), ("(b) mesh window order", mesh),
                      ("(c) N = 1024", big)):

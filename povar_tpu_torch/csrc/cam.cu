@@ -32,11 +32,11 @@
 
 using povar::add_rows;
 using povar::block_sums_done;
+using povar::drain_sums;
 using povar::kThreads;
 using povar::launch_sums;
 using povar::Route;
 using povar::sums_plan;
-using povar::ticket_of;
 using povar::warp_copy;
 
 namespace {
@@ -118,35 +118,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------ per-camera sums (C4, C5)
-// The routes, the block sums and the launch plan are pose_common.cuh's.
+// The routes, the block sums, the last block's drain and the launch plan
+// are pose_common.cuh's.
 //
-// The last block: write(i, sum) for every entry i of the [count] sums of
-// type T at acc_g (kBatch L2 reads in flight per thread), then the sums
-// and the ticket zeroed again.
-template <typename T, typename Write>
-__device__ __forceinline__ void drain_sums(double* acc_g, int count,
-                                           Write write) {
-  constexpr int kB = povar::kBatch;
-  T* sums = reinterpret_cast<T*>(acc_g);
-  for (int i0 = threadIdx.x; i0 < count; i0 += kB * blockDim.x) {
-    T s[kB];
-#pragma unroll
-    for (int u = 0; u < kB; ++u) {
-      const int i = i0 + u * blockDim.x;
-      s[u] = i < count ? __ldcg(sums + i) : T(0);
-    }
-#pragma unroll
-    for (int u = 0; u < kB; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < count) {
-        write(i, s[u]);
-        sums[i] = T(0);
-      }
-    }
-  }
-  if (threadIdx.x == 0) *ticket_of(acc_g, count) = 0u;
-}
-
 // Block shapes: C4 in 512-thread blocks of private copies (16 x 12 N
 // floats fit up to N = 302), else 1024-thread blocks on shared copies
 // (up to N = 4842), else the global route; C5 in blocks of at most 8

@@ -32,8 +32,9 @@
 // 64/36; K3 68/0; K4 52/12; K5 64/0; K6 68/0; K7 48/0 at f64 state; K8
 // 52/0; K9 52/0; K10 56/12; K11 68/0) until its per-camera adds cost
 // more than the bytes (a shared f32 atomicAdd is a compare-and-swap loop
-// on this card): K5 adds 12 per live row, which bind it; K1 adds 8 and
-// K9 its 60 moments through warp_scatter into per-warp accumulators. K3
+// on this card): K1 adds 8, K5 12 and K9 its 60 moments through
+// warp_scatter into per-warp accumulators, and K5's blocks' f64 sums and
+// last block (its tail) take a third of its time. K3
 // adds its 52 moment-form values through warp_scatter, and those adds
 // (~40 of its 76 us at venice-89) and its arithmetic bind it; K8 adds
 // 12 per row into per-warp accumulators at no measurable cost, and its
@@ -379,41 +380,70 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------ K5
-// out[4a+j][cam] += t[a] xh_j,  t[a] = sum_c h[c*3+a] sb[c]  (xh_3 = 1)
-// Replaces pallas_pose.py:623 e0_scatter_structured. Bound: 12 shared
-// atomics per live observation beside its 64 B read.
-__global__ void __launch_bounds__(kThreads)
-    e0_scatter_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
-                      const float* __restrict__ h, const float* __restrict__ sb,
-                      float* __restrict__ out, int n_obs, int n_cams) {
+// out[4a+j][cam] += t[a] xh_j,  t[a] = sum_c h[c*3+a] sb[c]  (xh_3 = 1),
+// through pose_common.cuh's scatter_pass (the lanes of a warp on one
+// camera sum first, into per-warp private copies; f64 block sums, one
+// last block). A row whose t is exactly zero (h == 0 on dead and pad
+// rows) adds nothing; a NaN propagates.
+// Replaces pallas_pose.py:623 e0_scatter_structured (_e0_scatter_kernel
+// :599). Bound: 64 B read per observation (10.6 us at venice-89). The
+// earlier version added a row's 12 values with per-lane shared f32
+// atomics (compare-and-swap loops; the lanes of a warp on one camera
+// retrying against each other) and flushed each block with 12 N f32
+// global atomics into an out the caller zeroed: 32.4 us at venice-89,
+// 136 on the mesh's window order, 34 at N = 1024. Here 18.6-19.0 us (the
+// loads and the row's arithmetic ~11.6, the walk and adds ~1, the tail
+// ~6: the f64 flush ~4, the last block ~2.4), 17.9 on the window order
+// (the lane-order walk alone 25.9), 45.7-46.1 at N = 1024 on 4 shared
+// copies a 1024-thread block (the f64 flush of 132 blocks x 12,288 sums
+// ~13) (tools/pose1_ab.py and PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+struct ScatterRow1 {
+  float x[3], h[9], s[3];
+  int c;
+  bool in;
+};
+
+template <Route R>
+__global__ void __launch_bounds__(povar::scatter_threads(R))
+    e0_scatter_kernel(const int32_t* __restrict__ cam,
+                      const float* __restrict__ x, const float* __restrict__ h,
+                      const float* __restrict__ sb, float* __restrict__ out,
+                      double* __restrict__ acc_g, int n_obs, int n_cams,
+                      int copies) {
   extern __shared__ float smem[];
-  float* acc = smem;
-  povar::smem_zero(acc, 12 * n_cams);
-  __syncthreads();
   const int O = n_obs;
-  POVAR_OBS_LOOP(o, O) {
-    const float s0 = sb[o], s1 = sb[O + o], s2 = sb[2 * O + o];
+  auto load = [&](int o) {
+    ScatterRow1 r;
+    r.in = o < O;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) r.h[k] = r.in ? h[k * O + o] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      r.s[k] = r.in ? sb[k * O + o] : 0.0f;
+      r.x[k] = r.in ? x[k * O + o] : 0.0f;
+    }
+    r.c = r.in ? cam[o] : 0;
+    return r;
+  };
+  auto form = [](const ScatterRow1& r, float (&v)[povar::kScatterValues]) {
     float t[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      float acc_t = h[a * O + o] * s0;
-      acc_t += h[(3 + a) * O + o] * s1;
-      acc_t += h[(6 + a) * O + o] * s2;
+      float acc_t = r.h[a] * r.s[0];
+      acc_t += r.h[3 + a] * r.s[1];
+      acc_t += r.h[6 + a] * r.s[2];
       t[a] = acc_t;
     }
-    if (t[0] == 0.0f && t[1] == 0.0f && t[2] == 0.0f) continue;
-    const int c = cam[o];
-    const float xh[3] = {x[o], x[O + o], x[2 * O + o]};
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
-        atomicAdd(&acc[(4 * a + j) * n_cams + c], t[a] * xh[j]);
-      atomicAdd(&acc[(4 * a + 3) * n_cams + c], t[a]);
+      for (int j = 0; j < 3; ++j) v[4 * a + j] = t[a] * r.x[j];
+      v[4 * a + 3] = t[a];
     }
-  }
-  __syncthreads();
-  povar::flush_acc(out, acc, 12 * n_cams);
+    return r.in && !(t[0] == 0.0f && t[1] == 0.0f && t[2] == 0.0f);
+  };
+  povar::scatter_pass<R, ScatterRow1>(load, form, out, acc_g, n_obs, n_cams,
+                                      copies, smem);
 }
 
 // ------------------------------------------------------------------ K8
@@ -882,12 +912,15 @@ int povar_e0_u(const int32_t* cam, const float* x, const float* h,
                 n_cams);
 }
 
+// out: [12, n_cams]; acc: 12 n_cams + 1 doubles, zero (every call
+// leaves them zero)
 int povar_e0_scatter(const int32_t* cam, const float* x, const float* h,
-                     const float* sb, float* out, int n_obs, int n_cams,
-                     void* stream) {
-  const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
-  return launch(e0_scatter_kernel, n_obs, smem, stream, cam, x, h, sb, out,
-                n_obs, n_cams);
+                     const float* sb, float* out, double* acc, int n_obs,
+                     int n_cams, void* stream) {
+  return povar::launch_scatter(
+      e0_scatter_kernel<Route::kPrivate>, e0_scatter_kernel<Route::kShared>,
+      e0_scatter_kernel<Route::kGlobal>, n_obs, n_cams, stream, cam, x, h, sb,
+      out, acc, n_obs, n_cams);
 }
 
 int povar_e0_term(const int32_t* cam, const float* x, const float* h,

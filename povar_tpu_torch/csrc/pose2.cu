@@ -31,11 +31,11 @@
 // What bounds them on the card, per observation (O = 557,056 at
 // venice-89): S1 reads 40 B and writes 64 B, plus 12 shared atomics;
 // S2 reads 80 B and does 52 shared atomics (its per-camera moments); S3
-// reads 60 B (68 with r_w) and writes 12 B; S4 reads 72 B plus 12
-// shared atomics; S5 reads 92 B; S6 reads 60 B (f64 state) with ~45 f64
-// flops; S7 reads 60 B once per slot row plus 12 shared atomics; S8
-// reads 60 B and adds its 60 moments through warp_scatter into per-warp
-// accumulators.
+// reads 60 B (68 with r_w) and writes 12 B; S4 reads 72 B and adds its
+// 12 values through warp_scatter into per-warp accumulators; S5 reads
+// 92 B; S6 reads 60 B (f64 state) with ~45 f64 flops; S7 reads 60 B once
+// per slot row plus 12 shared atomics; S8 reads 60 B and adds its 60
+// moments through warp_scatter into per-warp accumulators.
 // Per-camera sums leave a block through one global atomic per non-zero
 // entry; scalar sums leave as one partial per block.
 //
@@ -285,46 +285,70 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------------ S4
 // out12[4a+c][cam] += ctv_a x4_c, ctv = sw/p2 [v0, v1, -(mx v0 + my v1)],
-// v = M sb (v_r = sum_i M[r][i] sb_i).
-// Replaces pallas_pose2.py:412 scatter2. Bound: 12 shared atomics per
-// live observation beside its 72 B read.
-__global__ void __launch_bounds__(kThreads)
-    scatter2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
-                    const float* __restrict__ mm, const float* __restrict__ sw_in,
-                    const float* __restrict__ mat6, const float* __restrict__ sb,
-                    float* __restrict__ out, int n_obs, int n_cams) {
+// v = M sb (v_r = sum_i M[r][i] sb_i), through pose_common.cuh's
+// scatter_pass (the lanes of a warp on one camera sum first, into
+// per-warp private copies; f64 block sums, one last block). Dead and pad
+// rows (sw == 0) add nothing and are not read past sw; a NaN propagates.
+// Replaces pallas_pose2.py:412 scatter2 (_scatter2_kernel :383). Bound:
+// 72 B read per live observation (11.9 us at venice-89). The earlier
+// version, as step 1's K5's: 33.0 us at venice-89, 136 on the mesh's
+// window order, 37 at N = 1024. Here 19.2 us (the loads and the row's
+// arithmetic ~13, the tail ~6.4), 18.6 on the window order (the walk
+// alone 26.8), 44.5-44.8 at N = 1024, bound as K5 (tools/pose2_ab.py and
+// PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+struct ScatterRow2 {
+  float sw, m[6], s[3], mx, my, zinv, x4[4];
+  int c;
+};
+
+template <Route R>
+__global__ void __launch_bounds__(povar::scatter_threads(R))
+    scatter2_kernel(const int32_t* __restrict__ cam,
+                    const float* __restrict__ x4_in,
+                    const float* __restrict__ mm,
+                    const float* __restrict__ sw_in,
+                    const float* __restrict__ mat6,
+                    const float* __restrict__ sb, float* __restrict__ out,
+                    double* __restrict__ acc_g, int n_obs, int n_cams,
+                    int copies) {
   extern __shared__ float smem[];
-  float* acc = smem;
-  povar::smem_zero(acc, 12 * n_cams);
-  __syncthreads();
   const int O = n_obs;
-  POVAR_OBS_LOOP(o, O) {
-    const float sw = sw_in[o];
-    if (sw == 0.0f) continue;
-    const float s0 = sb[o], s1 = sb[O + o], s2 = sb[2 * O + o];
+  auto load = [&](int o) {
+    ScatterRow2 r;
+    r.sw = o < O ? sw_in[o] : 0.0f;
+    const bool live = r.sw != 0.0f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) r.m[k] = live ? mat6[k * O + o] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) r.s[k] = live ? sb[k * O + o] : 0.0f;
+    r.mx = live ? mm[o] : 0.0f;
+    r.my = live ? mm[O + o] : 0.0f;
+    r.zinv = live ? mm[2 * O + o] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r.x4[k] = live ? x4_in[k * O + o] : 0.0f;
+    r.c = live ? cam[o] : 0;
+    return r;
+  };
+  auto form = [](const ScatterRow2& r, float (&out12)[povar::kScatterValues]) {
     float v[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float t = mat6[(3 * r) * O + o] * s0;
-      t += mat6[(3 * r + 1) * O + o] * s1;
-      t += mat6[(3 * r + 2) * O + o] * s2;
-      v[r] = t;
+    for (int k = 0; k < 2; ++k) {
+      float t = r.m[3 * k] * r.s[0];
+      t += r.m[3 * k + 1] * r.s[1];
+      t += r.m[3 * k + 2] * r.s[2];
+      v[k] = t;
     }
-    const float mx = mm[o], my = mm[O + o];
-    const float swz = sw * mm[2 * O + o];
+    const float swz = r.sw * r.zinv;
     const float ctv[3] = {swz * v[0], swz * v[1],
-                          -swz * (mx * v[0] + my * v[1])};
-    const int c = cam[o];
-    const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
-                         x4_in[3 * O + o]};
+                          -swz * (r.mx * v[0] + r.my * v[1])};
 #pragma unroll
     for (int a = 0; a < 3; ++a)
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        atomicAdd(&acc[(4 * a + k) * n_cams + c], ctv[a] * x4[k]);
-  }
-  __syncthreads();
-  povar::flush_acc(out, acc, 12 * n_cams);
+      for (int k = 0; k < 4; ++k) out12[4 * a + k] = ctv[a] * r.x4[k];
+    return r.sw != 0.0f;
+  };
+  povar::scatter_pass<R, ScatterRow2>(load, form, out, acc_g, n_obs, n_cams,
+                                      copies, smem);
 }
 
 // ------------------------------------------------------------------ S7
@@ -753,12 +777,16 @@ int povar_mat_dot2(const int32_t* cam, const float* x4, const float* mm,
                 rw, zt, out, n_obs, n_cams, add_r);
 }
 
+// out: [12, n_cams]; acc: 12 n_cams + 1 doubles, zero (every call
+// leaves them zero)
 int povar_scatter2(const int32_t* cam, const float* x4, const float* mm,
                    const float* sw, const float* mat6, const float* sb,
-                   float* out, int n_obs, int n_cams, void* stream) {
-  const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
-  return launch(scatter2_kernel, n_obs, smem, stream, cam, x4, mm, sw, mat6,
-                sb, out, n_obs, n_cams);
+                   float* out, double* acc, int n_obs, int n_cams,
+                   void* stream) {
+  return povar::launch_scatter(
+      scatter2_kernel<Route::kPrivate>, scatter2_kernel<Route::kShared>,
+      scatter2_kernel<Route::kGlobal>, n_obs, n_cams, stream, cam, x4, mm, sw,
+      mat6, sb, out, acc, n_obs, n_cams);
 }
 
 int povar_e0_term2(const int32_t* cam, const float* x4, const float* mm,

@@ -154,7 +154,8 @@ __device__ __forceinline__ bool last_block(unsigned* ticket,
 
 // ------------------------------------------------- per-camera sum routes
 // Where a block's per-camera accumulators live (csrc/cam.cu's e0_scatter
-// and hpp_b, the Schur-Jacobi kernels below):
+// and hpp_b, the Schur-Jacobi kernels and the composed-term scatters
+// below):
 //   kPrivate  one f32 copy per warp in shared memory, which the warp adds
 //             to with plain adds;
 //   kShared   `copies` f32 copies per block, copy w mod copies shared by
@@ -233,6 +234,35 @@ __device__ __forceinline__ bool block_sums_done(double* acc_g,
   return last_block(ticket_of(acc_g, count));
 }
 
+// The last block: write(i, sum) for every entry i of the [count] sums of
+// type T at acc_g (kBatch L2 reads in flight per thread), then the sums
+// and the ticket zeroed again.
+constexpr int kBatch = 16;  // independent L2 reads in flight per thread
+
+template <typename T, typename Write>
+__device__ __forceinline__ void drain_sums(double* acc_g, int count,
+                                           Write write) {
+  constexpr int kB = kBatch;
+  T* sums = reinterpret_cast<T*>(acc_g);
+  for (int i0 = threadIdx.x; i0 < count; i0 += kB * blockDim.x) {
+    T s[kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int i = i0 + u * blockDim.x;
+      s[u] = i < count ? __ldcg(sums + i) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < count) {
+        write(i, s[u]);
+        sums[i] = T(0);
+      }
+    }
+  }
+  if (threadIdx.x == 0) *ticket_of(acc_g, count) = 0u;
+}
+
 // ------------------------------------------------------ per-camera moments
 // Hpp of both steps is sum w K (x) xh xh^T with
 //   K = [[1, 0, -k1], [0, 1, -k2], [-k1, -k2, k3]]
@@ -247,7 +277,6 @@ __device__ __forceinline__ bool block_sums_done(double* acc_g,
 constexpr int kMoments = 40;
 constexpr int kMomentRows = 12 + kMoments;
 constexpr int kExpandChunk = 256;  // cameras per staged chunk (global route)
-constexpr int kBatch = 16;  // independent L2 reads in flight per thread
 
 // v[12 + 10 t + p] = kw[t] xh_i xh_j for every upper-triangle entry p
 __device__ __forceinline__ void moments(const float kw[4], const float xh[4],
@@ -439,6 +468,31 @@ __device__ __forceinline__ void warp_reduce_scatter(const float (&v)[K],
   sum[1] = w[1];
 }
 
+// v[0..K) (K <= 16) of every lane of a warp summed over the warp: three
+// reduce-scatter exchanges within each group of 8 lanes (offsets 4, 2,
+// 1; 14 shuffles) leave lane l with its group's sums of values
+// 2 (l mod 8) and 2 (l mod 8) + 1, and two butterfly steps (offsets 8,
+// 16) add the four groups' (18 shuffles a lane, not a walk's 31 K). All
+// lanes of the warp must call it.
+template <int K>
+__device__ __forceinline__ void warp_reduce_scatter16(const float (&v)[K],
+                                                      float (&sum)[2]) {
+  static_assert(K <= 16, "16 values a warp");
+  const int lane = threadIdx.x & 31;
+  float w[32];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) w[k] = k < K ? v[k] : 0.0f;
+  reduce_scatter_step<8>(w, lane);
+  reduce_scatter_step<4>(w, lane);
+  reduce_scatter_step<2>(w, lane);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    w[j] += __shfl_xor_sync(kFullMask, w[j], 8);
+    w[j] += __shfl_xor_sync(kFullMask, w[j], 16);
+    sum[j] = w[j];
+  }
+}
+
 // One Schur-Jacobi kernel on route R: `load(o)` reads row o's operands
 // (a Row, whatever o), `form(row, H, xh)` returns whether the row is live
 // and then fills H's upper triangle and xh; row.c is its camera. On the
@@ -513,6 +567,110 @@ __device__ __forceinline__ void schur_pass(Load load, Form form,
   expand_moments<kSchurMoments, 0, true>(
       expand, out, nullptr, acc_g, n_cams,
       R == Route::kGlobal ? kExpandChunk : n_cams, smem);
+}
+
+// ------------------------------------------------ composed-term scatters
+// The composed power terms' per-camera scatter of both steps (pose1.cu
+// K5, pose2.cu S4): a live row adds kScatterValues = 12 values to its
+// camera's column of out [12, N]. The route sums_plan picks: kScatterWarps
+// per-warp private copies of 12 N floats with plain adds (N up to 302),
+// else shared copies in kScatterSharedThreads-thread blocks (up to
+// N = 4842), else f64 global atomics. The blocks' sums meet in f64 in
+// `acc_g` [12 N + 1] doubles (the sums, then a ticket), zero on entry;
+// the last block writes out in f32 and leaves acc_g zeroed, so a call is
+// one device operation. At venice-89 (18.6-19.2 us against 32.4-33.0 for
+// the earlier per-lane shared atomics) the tail, the f64 flush of 132
+// blocks x 1,068 sums and the last block, takes ~6 us, the loads ~12;
+// one shared copy per 1024-thread block took 25.9-26.9, 8 / 32 private
+// copies 27.7-29.6 / 19.4-20.6, f64 global atomics 191-198, the copies'
+// flush as red.add.f64 18.0-18.3 (not kept: the Schur pair and
+// csrc/cam.cu share it) (tools/pose1_ab.py, tools/pose2_ab.py and
+// PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kScatterValues = 12;
+constexpr int kScatterWarps = 16;
+constexpr int kScatterSharedThreads = 1024;
+// static shared memory a scatter kernel declares (last_block's flag),
+// rounded up
+constexpr size_t kScatterStaticSmem = 128;
+
+__host__ __device__ constexpr int scatter_threads(Route r) {
+  return r == Route::kPrivate ? 32 * kScatterWarps : kScatterSharedThreads;
+}
+
+// One composed-term scatter on route R: `load(o)` reads row o's operands
+// (a Row, whatever o), `form(row, v)` returns whether the row is live and
+// then fills its 12 values; row.c is its camera. Warp-uniform trips, so
+// that every lane reaches the warp's sums; a warp with no live lane skips
+// them. On the private route the next row's loads are issued before this
+// row's sums (19.8-19.9 us at venice-89 without). A warp whose live lanes
+// (four or more) all sit on one camera, as on the mesh's window order,
+// sums its values in a reduce-scatter tree (warp_reduce_scatter16) and
+// six lanes add two sums each (17.9-18.6 us there, the walk alone
+// 25.9-26.8); any other warp walks its peers in lane order. The tree is
+// another order of the sums: 48 POWER_SCHUR_COMPLEMENT step-1 solves on
+// the 1-device mesh with it, and 48 with the earlier kernels, all ended
+// within chip_smoke.py's band (tools/pose1_ab.py spread). All of the
+// block's threads must call it; `smem` is the kernel's dynamic shared
+// memory (the plan's copies).
+template <Route R, typename Row, typename Load, typename Form>
+__device__ __forceinline__ void scatter_pass(Load load, Form form,
+                                             float* __restrict__ out,
+                                             double* __restrict__ acc_g,
+                                             int n_obs, int n_cams,
+                                             int copies, float* smem) {
+  constexpr bool kPrefetch = R == Route::kPrivate;
+  constexpr int K = kScatterValues;
+  const int n_acc = K * n_cams;
+  float* acc = warp_copy<R>(smem, copies, n_acc);
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * blockDim.x;
+  int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  Row next;
+  if (kPrefetch) next = load(base + lane);
+  for (; base < n_obs; base += stride) {
+    Row row;
+    if (kPrefetch) {
+      row = next;
+      next = load(base + stride + lane);
+    } else {
+      row = load(base + lane);
+    }
+    float v[K];
+    const bool live = form(row, v);
+    if (!__any_sync(kFullMask, live)) continue;
+    if (!live) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] = 0.0f;
+    }
+    const int c = live ? row.c : 0;
+    const WarpPeers peers = warp_peers(c, live);
+    const unsigned leads = __ballot_sync(kFullMask, peers.lead);
+    if (__popc(leads) == 1 &&
+        __popc(__ballot_sync(kFullMask, live)) >= 4) {
+      float sum[2];
+      warp_reduce_scatter16(v, sum);
+      const int cu = __shfl_sync(kFullMask, c, __ffs(leads) - 1);
+      if (R == Route::kPrivate) __syncwarp();  // after the last walk's adds
+      if (lane < K / 2) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int k = 2 * lane + j;
+          if (R == Route::kGlobal)
+            atomicAdd(acc_g + k * n_cams + cu, (double)sum[j]);
+          else if (R == Route::kShared)
+            atomicAdd(acc + k * n_cams + cu, sum[j]);
+          else
+            acc[k * n_cams + cu] += sum[j];
+        }
+      }
+    } else {
+      add_rows<K, R, double>(acc, acc_g, 0, n_cams, c, peers, v);
+    }
+  }
+  if (!block_sums_done<R, double, 32>(acc_g, smem, copies, n_acc, n_acc))
+    return;
+  drain_sums<double>(acc_g, n_acc,
+                     [&](int i, double s) { out[i] = (float)s; });
 }
 
 // ------------------------------------------------------------ slot tiles
@@ -834,6 +992,19 @@ int launch_schur(KP private_kernel, KS shared_kernel, KG global_kernel,
   if (p.route == Route::kGlobal)
     p.smem = sizeof(float) * kSchurMoments * kExpandChunk;
   return launch_sums(p, private_kernel, shared_kernel, global_kernel, n_obs,
+                     stream, args...);
+}
+
+// launch a composed-term scatter (its private, shared and global route
+// instantiations) over n_obs rows and n_cams cameras
+template <typename KP, typename KS, typename KG, typename... Args>
+int launch_scatter(KP private_kernel, KS shared_kernel, KG global_kernel,
+                   int n_obs, int n_cams, void* stream, Args... args) {
+  if (n_obs < 0 || n_cams <= 0) return (int)cudaErrorInvalidValue;
+  return launch_sums(sums_plan(kScatterValues, n_cams, kScatterWarps,
+                               kScatterWarps, kScatterSharedThreads,
+                               kScatterStaticSmem),
+                     private_kernel, shared_kernel, global_kernel, n_obs,
                      stream, args...);
 }
 

@@ -44,7 +44,7 @@ SIGNATURES = {
     "povar_e0_factor": [_P] * 7 + [_I, _I, _F, _P],
     "povar_hpp_b": [_P] * 12 + [_I, _I, _F, _F, _F, _P],
     "povar_e0_u": [_P] * 5 + [_I, _I, _P],
-    "povar_e0_scatter": [_P] * 5 + [_I, _I, _P],
+    "povar_e0_scatter": [_P] * 6 + [_I, _I, _P],
     "povar_apply_ldiff": [_P] * 10 + [_I, _I, _F, _F, _P],
     "povar_poba_t3": [_P] * 9 + [_I, _I, _F, _F, _P],
     "povar_apply_ldiff_stored": [_P] * 10 + [_I, _I, _F, _F, _P],
@@ -61,7 +61,7 @@ SIGNATURES = {
     "povar_prepare2": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _P],
     "povar_hppb2": [_P] * 10 + [_I, _I, _P],
     "povar_mat_dot2": [_P] * 8 + [_I, _I, _I, _P],
-    "povar_scatter2": [_P] * 7 + [_I, _I, _P],
+    "povar_scatter2": [_P] * 8 + [_I, _I, _P],
     "povar_ldiff2": [_P] * 9 + [_I, _I, _P],
     "povar_pose_error2": [_P] * 10 + [_I, _I, _I, _I, _D, _P],
     "povar_spmd_part_sums": [_P] * 3 + [_I] * 5 + [_P],

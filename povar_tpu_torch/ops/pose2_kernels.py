@@ -35,6 +35,7 @@ from povar_tpu_torch.ops import _build, pose2_ref
 from povar_tpu_torch.ops.pose_kernels import (
     _THREADS,
     E0_TILE_THREADS,
+    SCATTER_VALUES,
     SCHUR_MOMENTS,
     _check_shapes,
     _cuda_checks,
@@ -174,10 +175,16 @@ def scatter2(cam, x4, mm, sw, mat6, sb, n_cams):
     _cuda_checks(o, n, cam, f32=(
         ("x4", x4), ("mm", mm), ("sw", sw), ("mat6", mat6), ("sb", sb),
     ))
-    out = _f32_out(12, n, x4, zero=True)
+    # every entry written by the kernel's last block (as e0_scatter_
+    # structured's)
+    out = _f32_out(12, n, x4)
+    stream = _stream(x4)
     _launch("scatter2", _build.library().povar_scatter2,
             _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(mat6), _ptr(sb),
-            _ptr(out), o, n, _stream(x4), counts=LAUNCHES)
+            _ptr(out),
+            _ptr(_sums_scratch(x4.device, stream.value,
+                               SCATTER_VALUES * n + 1)),
+            o, n, stream, counts=LAUNCHES)
     return out
 
 

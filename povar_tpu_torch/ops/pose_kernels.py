@@ -129,8 +129,14 @@ def schur_expand_table(device) -> torch.Tensor:
                         dtype=torch.int32, device=device)
 
 
+# values a live row adds per camera in the composed terms' scatters
+# (e0_scatter_structured, pose2_kernels.scatter2; csrc/pose_common.cuh
+# kScatterValues)
+SCATTER_VALUES = 12
+
 # (device, stream) -> the f64 buffer where the blocks' per-camera sums of
-# the Schur-Jacobi kernels and of cam_kernels' e0_scatter / hpp_b meet
+# the Schur-Jacobi kernels, of the composed terms' scatters and of
+# cam_kernels' e0_scatter / hpp_b meet
 _SUMS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -372,10 +378,15 @@ def e0_scatter_structured(cam, x, h, sb, n_cams):
     _cuda_checks(o, n, cam, f32=(
         ("x", x), ("h", h), ("sb", sb),
     ))
-    out = torch.zeros((12, n), dtype=torch.float32, device=x.device)
+    # every entry written by the kernel's last block, from the blocks'
+    # f64 sums in the shared scratch (left zeroed)
+    out = torch.empty((12, n), dtype=torch.float32, device=x.device)
+    stream = _stream(x)
     _launch("e0_scatter_structured", _build.library().povar_e0_scatter,
-            _ptr(cam), _ptr(x), _ptr(h), _ptr(sb), _ptr(out), o, n,
-            _stream(x))
+            _ptr(cam), _ptr(x), _ptr(h), _ptr(sb), _ptr(out),
+            _ptr(_sums_scratch(x.device, stream.value,
+                               SCATTER_VALUES * n + 1)),
+            o, n, stream)
     return out
 
 

@@ -1,7 +1,8 @@
-"""`prepare`, `hpp_b_structured`, `e0_term_parts` and
-`schur_diag_structured` against an earlier version of their kernels, and
-against controlled variants of their own, on one card; the spreads of
-the solves the Schur-Jacobi kernels' rounding can move.
+"""`prepare`, `hpp_b_structured`, `e0_term_parts`,
+`schur_diag_structured` and `e0_scatter_structured` against an earlier
+version of their kernels, and against controlled variants of their own,
+on one card; the spreads of the solves the Schur-Jacobi kernels' and
+the composed-term scatters' rounding can move.
 
     python -m povar_tpu_torch.tools.pose1_ab kernels --parent DIR
         [--kernels NAME ...]
@@ -9,14 +10,15 @@ the solves the Schur-Jacobi kernels' rounding can move.
     python -m povar_tpu_torch.tools.pose1_ab psc --parent DIR --runs N
     python -m povar_tpu_torch.tools.pose1_ab pcg --parent DIR --runs N
         [--witness M] [--psc K]
+    python -m povar_tpu_torch.tools.pose1_ab spread --parent DIR --runs N
 
 The step-1 counterpart of tools/pose2_ab.py, with its builds, variants
 and timing loop. Run from the repository root (`chip_smoke.py` lends its
 timers, its operands and its bench iteration). `kernels` builds
 DIR/pose1.cu with DIR/pose_common.cuh (an earlier commit's csrc/ whose
-entry points take the package's arguments except `povar_schur_diag`,
-which takes PARENT_SIG's: no expansion table or sums buffer, the output
-zeroed by the caller) and the variants of the package's own csrc/ that
+entry points take the package's arguments except `povar_schur_diag`
+and `povar_e0_scatter`, which take PARENT_SIG's: no expansion table or
+sums buffer, the output zeroed by the caller) and the variants of the package's own csrc/ that
 concern the kernels asked for, one nvcc each, all started together, into
 build/pose1_ab/, and prints their SASS opcode counts. It then times each
 kernel in turns (earlier, package, package, earlier; then the
@@ -26,16 +28,18 @@ version per camera, at
   (a) venice-89: O = 557,056 slot rows, N = 89, chip_smoke.kernel_inputs
       (the problem's slot layout, seeded operands); prepare with and
       without its per-camera sums;
-  (b) the camera-sorted orders: prepare, hpp_b_structured and
-      schur_diag_structured on the 1-device mesh solver's own step-1
-      operands (the SPMD window order, 598,016 lanes), the fused term on
-      (a)'s operands with each part's landmarks sorted by first camera;
+  (b) the camera-sorted orders: prepare, hpp_b_structured,
+      schur_diag_structured and e0_scatter_structured on the 1-device
+      mesh solver's own step-1 operands (the SPMD window order, 598,016
+      lanes), the fused term on (a)'s operands with each part's
+      landmarks sorted by first camera;
   (c) N = 1024 seeded cameras on the venice-89 rows (schur_diag_
-      structured's global route), and N = 2048 for hpp_b_structured (its
-      global-memory route)
+      structured's global route, e0_scatter_structured's shared copies),
+      and N = 2048 for hpp_b_structured (its global-memory route)
 
 ((b) and (c) are chip_smoke.kernels1_shapes). `bench` prints the warm
-step-1 and step-2 bench iterations (as pose2_ab's `bench`) for the
+step-1 and step-2 bench iterations (as pose2_ab's `bench`, and with the
+composed term) for the
 package tree in the current directory; run it in each tree to compare, for
 instance `(cd DIR && PYTHONPATH=. python <repo>/povar_tpu_torch/tools/
 pose1_ab.py bench)`. `psc` runs N POWER_SCHUR_COMPLEMENT step-1 solves
@@ -47,7 +51,10 @@ ones in turns, the solves whose bands they can move: N PCG step-1 solves
 below PSC_STEP2_MAX) and M card runs of the
 RIPCG step-2 witness against one CPU run from one step-1 state
 (tools/step2_spread.py: decisions and counts as the CPU's, costs within
-WITNESS_TOLS).
+WITNESS_TOLS). `spread` runs, with the package's composed-term scatters
+(both steps') and with the earlier ones in turns, N of each step-1 solve
+they carry: the composed term on one device, the defaults and PSC on a
+1-device mesh (~1 s each).
 """
 
 from __future__ import annotations
@@ -63,11 +70,12 @@ import torch
 
 OUT = Path("build") / "pose1_ab"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the earlier pose1.cu's Schur-Jacobi entry point: no expansion table,
-# no sums buffer
-PARENT_SIG = {"povar_schur_diag": [_P] * 4 + [_I, _I, _P]}
+# the earlier pose1.cu's Schur-Jacobi and scatter entry points: no
+# expansion table, no sums buffer
+PARENT_SIG = {"povar_schur_diag": [_P] * 4 + [_I, _I, _P],
+              "povar_e0_scatter": [_P] * 5 + [_I, _I, _P]}
 ENTRIES = ("povar_prepare", "povar_hpp_b", "povar_e0_term",
-           "povar_schur_diag")
+           "povar_schur_diag", "povar_e0_scatter")
 SASS_KERNELS = {"prepare": r"pose1_cu.*prepare_kernel",
                 "hpp_b": r"pose1_cu.*hpp_b_kernel",
                 "e0_term": r"pose1_cu.*e0_term_",
@@ -76,7 +84,11 @@ SASS_KERNELS = {"prepare": r"pose1_cu.*prepare_kernel",
                 **{f"schur_diag route {r}":
                    rf"pose1_cu.*schur_diag_kernelILN5povar5RouteE{r}E"
                    for r in range(3)},
-                "schur_diag": r"pose1_cu.*schur_diag_kernel"}
+                "schur_diag": r"pose1_cu.*schur_diag_kernel",
+                **{f"e0_scatter route {r}":
+                   rf"pose1_cu.*e0_scatter_kernelILN5povar5RouteE{r}E"
+                   for r in range(3)},
+                "e0_scatter": r"pose1_cu.*e0_scatter_kernel"}
 # variants that concern one kernel only
 PREP_ONLY = {"prep_block_acc", "prep_shared512", "prep_free_regs",
              "prep256", "prep1024", "prep_no_rw", "prep_no_scatter"}
@@ -100,6 +112,9 @@ def variants():
 
     common = ab.common_variants("pose1.cu",
                                 r"povar::flush_acc\(acc_g, acc, [^;]+;")
+    # pose1.cu's per-camera adds are all pose_common.cuh's now
+    edits, threads = common["no_adds"]
+    common["no_adds"] = ([e for e in edits if e[0] != "pose1.cu"], threads)
     edits, threads = common["no_flush"]
     common["no_flush"] = (edits + [(
         "pose1.cu", r"if \(s != 0\.0f\) atomicAdd\(acc_g \+ i, \(double\)s\);",
@@ -144,6 +159,7 @@ def variants():
                               r"warp_scatter<kJpRows, !kPrivate>\(wacc, "
                               r"n_cams, c, live, sums\);", "")], 512),
         **{n: (e, 512) for n, e in ab.SCHUR_VARIANTS.items()},
+        **{n: (e, 512) for n, e in ab.SCATTER_VARIANTS.items()},
     }
 
 
@@ -159,8 +175,11 @@ def variant_kernels(name: str):
         return ("e0_term_parts",)
     if name in ab.SCHUR_VARIANTS:
         return ("schur_diag_structured",)
+    if name in ab.SCATTER_VARIANTS:
+        return ("e0_scatter_structured",)
     return ("prepare", "hpp_b_structured", "e0_term_parts") + (
-        ("schur_diag_structured",) if name in ab.SCHUR_COMMON else ())
+        ("schur_diag_structured",) if name in ab.SCHUR_COMMON else ()) + (
+        ("e0_scatter_structured",) if name in ab.SCATTER_COMMON else ())
 
 
 def _prepare(lib):
@@ -221,22 +240,18 @@ def _e0(lib, threads):
 
 def _schur(lib):
     """The package's schur_diag_structured entry point of `lib` (a
-    variant's), with a sums buffer of its own (zeroed once: every call
-    leaves it zeroed, or, in a variant that gives wrong sums, as that
-    variant leaves it)."""
+    variant's), with a sums buffer of its own (pose2_ab.own_scratch)."""
     from povar_tpu_torch.ops import pose_kernels as pk
+    from povar_tpu_torch.tools import pose2_ab as ab
 
-    scratch = {}
+    sums = ab.own_scratch()
 
     def run(cam, x, h, n):
-        size = pk.SCHUR_MOMENTS * n + 1
-        if scratch.get("n", 0) < size:
-            scratch.update(n=size, buf=torch.zeros(size, dtype=torch.float64,
-                                                   device=x.device))
         out = torch.empty((144, n), device=x.device)
         rc = lib.povar_schur_diag(*map(pk._ptr, (
             cam, x, h, pk.schur_expand_table(x.device), out,
-            scratch["buf"])), cam.shape[0], n, pk._stream(x))
+            sums(pk.SCHUR_MOMENTS * n + 1, x.device))), cam.shape[0], n,
+            pk._stream(x))
         assert rc == 0, rc
         return out
     return run
@@ -249,6 +264,37 @@ def _parent_schur(lib):
     def run(cam, x, h, n):
         out = torch.zeros((144, n), device=x.device)
         rc = lib.povar_schur_diag(*map(pk._ptr, (cam, x, h, out)),
+                                  cam.shape[0], n, pk._stream(x))
+        assert rc == 0, rc
+        return out
+    return run
+
+
+def _scatter(lib):
+    """The package's e0_scatter_structured entry point of `lib` (a
+    variant's): out unzeroed, a sums buffer of its own."""
+    from povar_tpu_torch.ops import pose_kernels as pk
+    from povar_tpu_torch.tools import pose2_ab as ab
+
+    sums = ab.own_scratch()
+
+    def run(cam, x, h, sb, n):
+        out = torch.empty((12, n), device=x.device)
+        rc = lib.povar_e0_scatter(*map(pk._ptr, (
+            cam, x, h, sb, out, sums(pk.SCATTER_VALUES * n + 1, x.device))),
+            cam.shape[0], n, pk._stream(x))
+        assert rc == 0, rc
+        return out
+    return run
+
+
+def _parent_scatter(lib):
+    """The earlier e0_scatter_structured: the caller's zeroed output."""
+    from povar_tpu_torch.ops import pose_kernels as pk
+
+    def run(cam, x, h, sb, n):
+        out = torch.zeros((12, n), device=x.device)
+        rc = lib.povar_e0_scatter(*map(pk._ptr, (cam, x, h, sb, out)),
                                   cam.shape[0], n, pk._stream(x))
         assert rc == 0, rc
         return out
@@ -294,6 +340,9 @@ def kernels(parent: Path, only=None) -> None:
                                                         solver.n_cams), {}),
         ("schur_diag_structured", "(a) venice-89",
          tuple(d[k] for k in ("cam", "x", "h")) + (solver.n_cams,), {}),
+        ("e0_scatter_structured", "(a) venice-89",
+         tuple(d[k] for k in ("cam", "x", "h", "sb")) + (solver.n_cams,),
+         {}),
     ] + [(k, label, args, kw) for k, label, args, kw, *_rest in
          cs.kernels1_shapes(problem, solver, d, opts.alpha)]
     shapes.sort(key=lambda s: s[0])
@@ -307,16 +356,21 @@ def kernels(parent: Path, only=None) -> None:
                           "package": pk.e0_term_parts},
         "schur_diag_structured": {"parent": _parent_schur(libs["parent"]),
                                   "package": pk.schur_diag_structured},
+        "e0_scatter_structured": {"parent": _parent_scatter(libs["parent"]),
+                                  "package": pk.e0_scatter_structured},
     }
     make = {"prepare": lambda lib, _t: _prepare(lib),
             "hpp_b_structured": lambda lib, _t: _hpp(lib),
             "e0_term_parts": _e0,
-            "schur_diag_structured": lambda lib, _t: _schur(lib)}
+            "schur_diag_structured": lambda lib, _t: _schur(lib),
+            "e0_scatter_structured": lambda lib, _t: _scatter(lib)}
     timed = {"prepare": {"parent_no_atomics": _prepare(pna)},
              "hpp_b_structured": {"parent_no_atomics": _hpp(pna)},
              "e0_term_parts": {"parent_no_atomics": _e0(pna, 512)},
              "schur_diag_structured": {
-                 "parent_no_atomics": _parent_schur(pna)}}
+                 "parent_no_atomics": _parent_schur(pna)},
+             "e0_scatter_structured": {
+                 "parent_no_atomics": _parent_scatter(pna)}}
     for n, (_e, t) in var.items():
         for k in variant_kernels(n):
             timed[k][n] = make[k](libs[n], t)
@@ -485,6 +539,83 @@ def pcg(parent: Path, runs: int, witness: int, psc_runs: int) -> None:
               f"the CPU's", flush=True)
 
 
+def spread(parent: Path, runs: int) -> None:
+    """`runs` rounds, the earlier composed-term scatters (DIR's pose1.cu
+    and pose2.cu: e0_scatter_structured, scatter2) and the package's in
+    turns (the earlier first in even rounds), each tree running in a
+    round one venice-89 step-1 solve of each solve those scatters carry:
+    the composed term on one device and SolverOptions() defaults on a
+    1-device mesh (no fused plan there: the composed term), each held to
+    1e-3 of JAX_FINAL_COST, and POWER_SCHUR_COMPLEMENT on a 1-device mesh
+    (chip_smoke.py's PSC_BAND x JAX_PSC_COST). Prints each run and, per
+    tree and solve, the runs outside its band and the finals' range."""
+    import chip_smoke as cs
+    from povar_tpu_torch import (SolverOptions, SolverSummary, Stage1Solver,
+                                 Timer, from_numpy, optimize_step1,
+                                 synthetic_bal_problem_fast)
+    from povar_tpu_torch.ops import pose2_kernels as pk2
+    from povar_tpu_torch.ops import pose2_ref as pr2
+    from povar_tpu_torch.ops import pose_kernels as pk
+    from povar_tpu_torch.ops import pose_ref as pr
+    from povar_tpu_torch.options import SolverType
+    from povar_tpu_torch.tools import pose2_ab as ab
+    from povar_tpu_torch.tools.step2_spread import JAX_PSC_COST, _record
+
+    lib1 = _build_all(parent)["parent"]
+    lib2 = ab.build_all(parent, "pose2.cu", ab.OUT, {}, {},
+                        ("povar_scatter2",), ab.PARENT_SIG, {})["parent"]
+    kernels = {
+        "package": (pk.e0_scatter_structured, pk2.scatter2),
+        "parent": (_on_card(pr.e0_scatter_structured, _parent_scatter(lib1)),
+                   _on_card(pr2.scatter2, ab._parent_scatter2(lib2))),
+    }
+    problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
+                                         seed=0)
+    vp = (1.0 - 1e-3, 1.0 + 1e-3)
+    solves = []
+    for label, opts, mesh, band, cost in (
+            ("composed", SolverOptions(fused_power_term=False), False, vp,
+             cs.JAX_FINAL_COST),
+            ("mesh defaults", SolverOptions(), True, vp, cs.JAX_FINAL_COST),
+            ("mesh psc", SolverOptions(
+                solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT), True,
+             cs.PSC_BAND, JAX_PSC_COST)):
+        solves.append((label, cs.stage_solver(Stage1Solver, problem, opts,
+                                              mesh), opts, mesh, band, cost))
+    finals = {(who, label): [] for who in kernels for label, *_r in solves}
+    own = kernels["package"]
+    try:
+        for k in range(runs):
+            for who in (("parent", "package") if k % 2 == 0
+                        else ("package", "parent")):
+                pk.e0_scatter_structured, pk2.scatter2 = kernels[who]
+                for label, stage1, opts, mesh, band, cost in solves:
+                    _p, c0, l0 = from_numpy(
+                        problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                        problem.cam_space, problem.lm_p, device="cuda")
+                    if mesh:
+                        l0 = stage1.pad_landmarks(problem.lm_p)
+                    s = SolverSummary()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    optimize_step1(stage1, c0, l0, opts, s, Timer(),
+                                   log=lambda _s: None)
+                    torch.cuda.synchronize()
+                    rec = _record(f"{label} {who} {k}", s,
+                                  time.perf_counter() - t0)
+                    finals[(who, label)].append(rec["final"] / cost)
+    finally:
+        pk.e0_scatter_structured, pk2.scatter2 = own
+    for label, _s, _o, _m, (lo, hi), cost in solves:
+        for who in kernels:
+            r = sorted(finals[(who, label)])
+            out = sum(not lo <= x <= hi for x in r)
+            print(f"spread {label} {who}: {out} of {len(r)} outside "
+                  f"[{lo}, {hi}] x {cost}, finals {r[0]:.6f}x .. "
+                  f"{r[-1]:.6f}x (median {r[len(r) // 2]:.6f}x)",
+                  flush=True)
+
+
 def bench() -> None:
     """pose2_ab.bench's iterations, in this file so that running it as a
     script in an earlier tree (whose pose2_ab may print less) prints
@@ -495,9 +626,11 @@ def bench() -> None:
     problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
                                          seed=0)
     opts = SolverOptions()
+    composed = SolverOptions(fused_power_term=False)
     for step, label in ((cs.bench_step1, "step-1"), (cs.bench_step2,
                                                      "step-2")):
         step(problem, opts, f"{label} defaults")
+        step(problem, composed, f"{label} composed")
         step(problem, opts, f"{label} spmd (1-device mesh)", mesh=True)
 
 
@@ -524,6 +657,11 @@ def main(argv=None) -> int:
     g.add_argument("--psc", type=int, default=12,
                    help="rounds that also run PSC + RIPCG bundle_adjust, on "
                    "one device and on a 1-device mesh")
+    r = sub.add_parser("spread")
+    r.add_argument("--parent", type=Path, required=True,
+                   help="directory with the earlier pose1.cu, pose2.cu and "
+                   "pose_common.cuh")
+    r.add_argument("--runs", type=int, default=48)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("pose1_ab: no CUDA device", file=sys.stderr)
@@ -538,6 +676,8 @@ def main(argv=None) -> int:
         psc(args.parent, args.runs)
     elif args.mode == "pcg":
         pcg(args.parent, args.runs, args.witness, args.psc)
+    elif args.mode == "spread":
+        spread(args.parent, args.runs)
     else:
         bench()
     return 0

@@ -1,6 +1,6 @@
-"""`hppb2`, `e0_term2_parts`, `pose_error2` and `schur_diag2` against
-an earlier version of their kernels, and against controlled variants of
-their own, on one card.
+"""`hppb2`, `e0_term2_parts`, `pose_error2`, `schur_diag2` and
+`scatter2` against an earlier version of their kernels, and against
+controlled variants of their own, on one card.
 
     python -m povar_tpu_torch.tools.pose2_ab kernels --parent DIR
         [--kernels NAME ...]
@@ -11,7 +11,8 @@ step-1 solve and its bench iteration). `kernels` builds DIR/pose2.cu
 (with DIR/pose_common.cuh: an earlier commit's csrc/, for instance
 `git archive <commit> povar_tpu_torch/csrc` unpacked into a git-ignored
 directory; its entry points take the package's arguments except
-`povar_schur_diag2`, which takes PARENT_SIG's) and the VARIANTS of the
+`povar_schur_diag2` and `povar_scatter2`, which take PARENT_SIG's) and
+the VARIANTS of the
 package's own csrc/ that concern the kernels asked for (`--kernels`;
 default all), one nvcc each, all started together, into
 build/pose2_ab/, and prints the SASS opcode counts (cuobjdump -sass) of
@@ -22,14 +23,15 @@ the variants that concern it) at
 
   (a) venice-89: O = 557,056 slot rows, N = 89 (pose_error2 under NONE,
       HUBER and CAUCHY);
-  (b) the camera-sorted orders: hppb2, pose_error2 and schur_diag2 on
-      the 1-device mesh solver's own step-2 operands (the SPMD window
-      order, 598,016 lanes; mat6 seeded), the fused term on the
+  (b) the camera-sorted orders: hppb2, pose_error2, schur_diag2 and
+      scatter2 on the 1-device mesh solver's own step-2 operands (the
+      SPMD window order, 598,016 lanes; mat6 and sb seeded), the fused
+      term on the
       venice-89 operands with each part's landmarks sorted by first
       camera (the window plan's order, the same parts);
   (c) N = 1024 seeded cameras on the venice-89 rows (pose_error2: the
-      89 cameras repeated; schur_diag2's global route), and N = 2048 for
-      hppb2 (its global-memory route),
+      89 cameras repeated; schur_diag2's global route, scatter2's shared
+      copies), and N = 2048 for hppb2 (its global-memory route),
 
 checking the earlier and the package kernel against the plain version
 per camera (tools/parity.py, 1e-4) and printing each result's error,
@@ -266,6 +268,78 @@ SCHUR_VARIANTS = {
 # with too (their per-camera adds: warp_scatter_rows's)
 SCHUR_COMMON = ("no_adds", "no_group_sum")
 
+# the composed terms' scatters (pose_common.cuh scatter_pass,
+# launch_scatter; both steps') with one design choice changed: the
+# lane-order walk also where a warp sits on one camera (no reduce-scatter
+# tree), no loads of the next row ahead, no skip of a warp whose lanes
+# are all dead, 32 or 8 private copies a block (1024- or 256-thread
+# blocks; 16 and 512 by default), shared copies in 1024-thread blocks at
+# every N (as many as fit, or one), f64 global atomics at every N, other
+# flushes and grids (below); and,
+# wrong sums by design (timed only), the loads and the row's arithmetic
+# alone, the pass without its copies' flush, and without its tail
+_SCATTER_PLAN = (r"sums_plan\(kScatterValues, n_cams, kScatterWarps,\s+"
+                 r"kScatterWarps,", "sums_plan(kScatterValues, n_cams, "
+                 "kScatterWarps, 33,")
+_SHARED512 = ("pose_common.cuh", r"kScatterSharedThreads = 1024;",
+              "kScatterSharedThreads = 512;")
+_SHARED_PREFETCH = ("pose_common.cuh",
+                    r"(void scatter_pass\(.*?)constexpr bool kPrefetch = "
+                    r"R == Route::kPrivate;",
+                    r"\1constexpr bool kPrefetch = R != Route::kGlobal;")
+SCATTER_VARIANTS = {
+    "scatter_walk_only": [("pose_common.cuh",
+                           r"if \(__popc\(leads\) == 1 &&(\s+__popc\("
+                           r"__ballot_sync\(kFullMask, live\)\) >= 4\) \{"
+                           r"\s+float sum\[2\];\s+warp_reduce_scatter16)",
+                           r"if (false &&\1")],
+    "scatter_no_prefetch": [("pose_common.cuh",
+                             r"(void scatter_pass\(.*?)constexpr bool "
+                             r"kPrefetch = R == Route::kPrivate;",
+                             r"\1constexpr bool kPrefetch = false;")],
+    "scatter_no_dead_skip": [("pose_common.cuh",
+                              r"if \(!__any_sync\(kFullMask, live\)\) "
+                              r"continue;\n(    if \(!live\) \{)", r"\1")],
+    "scatter_warps32": [("pose_common.cuh", r"kScatterWarps = 16;",
+                         "kScatterWarps = 32;")],
+    "scatter_warps8": [("pose_common.cuh", r"kScatterWarps = 16;",
+                        "kScatterWarps = 8;")],
+    "scatter_shared_copies": [("pose_common.cuh", *_SCATTER_PLAN)],
+    "scatter_shared1": [("pose_common.cuh", *_SCATTER_PLAN),
+                        ("pose_common.cuh", *_ONE_COPY)],
+    "scatter_global": [("pose_common.cuh", *_SCATTER_PLAN),
+                       ("pose_common.cuh", r"if \(fit >= 1\) \{",
+                        "if (fit >= 1 && rows != kScatterValues) {")],
+    "scatter_loads_arith": [("pose_common.cuh",
+                             r"if \(!__any_sync\(kFullMask, live\)\) "
+                             r"continue;\n(    if \(!live\) \{)",
+                             "{ float q_ = 0.0f;\n"
+                             "      for (int k = 0; k < K; ++k) q_ += v[k];\n"
+                             "      if (live && q_ == 1.2345e-38f) "
+                             "acc_g[0] = 1.0; }\n    continue;\n\\1")],
+    "scatter_no_flush": [("pose_common.cuh",
+                          r"if \(!block_sums_done<R, double, 32>\(acc_g, "
+                          r"smem, copies, n_acc, n_acc\)\)",
+                          "if (!last_block(ticket_of(acc_g, n_acc)))")],
+    "scatter_no_tail": [("pose_common.cuh",
+                         r"  if \(!block_sums_done<R, double, 32>\(acc_g, "
+                         r"smem, copies, n_acc, n_acc\)\)\n    return;\n",
+                         "  return;\n")],
+    # the copies' flush as reductions (red.add.f64), or starting at entry
+    # blockIdx count / gridDim (the Schur kernels' variants of the shared
+    # flush)
+    "scatter_red_flush": SCHUR_VARIANTS["schur_red_flush"],
+    "scatter_flush_rotated": SCHUR_VARIANTS["schur_flush_rotated"],
+    # shared copies in 512-thread blocks (one block an SM still: the
+    # copies fill its shared memory), with and without the next row's
+    # loads ahead there too, and 1024-thread blocks with them
+    "scatter_shared512": [_SHARED512],
+    "scatter_shared512_prefetch": [_SHARED512, _SHARED_PREFETCH],
+    "scatter_shared_prefetch": [_SHARED_PREFETCH],
+}
+# the variants of every other kernel that the scatters are timed with too
+SCATTER_COMMON = ("no_adds", "no_group_sum")
+
 VARIANTS = {
     **common_variants("pose2.cu", r"povar::flush_acc\(acc_g, acc, [^;]+;"),
     # every in-range row's operands loaded, not only the live rows'
@@ -276,13 +350,19 @@ VARIANTS = {
                       "if (row.in) {\n      c = cam[o];\n#pragma")], 512),
     **{name: (edits, 512) for name, edits in ERR_VARIANTS.items()},
     **{name: (edits, 512) for name, edits in SCHUR_VARIANTS.items()},
+    **{name: (edits, 512) for name, edits in SCATTER_VARIANTS.items()},
+    # scatter2 loading every in-range row's operands, not only the rows
+    # with sw != 0 (no load waiting on sw's)
+    "scatter2_eager_loads": ([("pose2.cu", r"const bool live = r\.sw != "
+                               r"0\.0f;\n", "const bool live = o < O;\n")],
+                             512),
 }
 # the earlier kernels with their per-camera atomics made dead stores
 PARENT_VARIANTS = {"parent_no_atomics": [("pose2.cu", *NO_ATOMICS),
                                          ("pose_common.cuh", *NO_ATOMICS)]}
 # the entry points timed and the kernels whose SASS opcodes are counted
 ENTRIES = ("povar_hppb2", "povar_e0_term2", "povar_pose_error2",
-           "povar_schur_diag2")
+           "povar_schur_diag2", "povar_scatter2")
 SASS_KERNELS = {"hppb2": "hppb2_kernel", "e0_term2": "e0_term2_kernel",
                 "pose_error2": "pose_error2_kernel",
                 # the earlier kernel (one name), else route 0 / 1 / 2:
@@ -290,12 +370,17 @@ SASS_KERNELS = {"hppb2": "hppb2_kernel", "e0_term2": "e0_term2_kernel",
                 **{f"schur_diag2 route {r}":
                    rf"schur_diag2_kernelILN5povar5RouteE{r}E"
                    for r in range(3)},
-                "schur_diag2": "schur_diag2_kernel"}
+                "schur_diag2": "schur_diag2_kernel",
+                **{f"scatter2 route {r}":
+                   rf"scatter2_kernelILN5povar5RouteE{r}E"
+                   for r in range(3)},
+                "scatter2": "scatter2_kernel"}
 OUT = Path("build") / "pose2_ab"
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# the earlier pose2.cu's Schur-Jacobi entry point: no expansion table,
-# no sums buffer, the output zeroed by the caller
-PARENT_SIG = {"povar_schur_diag2": [_P] * 6 + [_I, _I, _P]}
+# the earlier pose2.cu's Schur-Jacobi and scatter entry points: no
+# expansion table, no sums buffer, the output zeroed by the caller
+PARENT_SIG = {"povar_schur_diag2": [_P] * 6 + [_I, _I, _P],
+              "povar_scatter2": [_P] * 7 + [_I, _I, _P]}
 # the opcodes counted in SASS: atomics, f64 arithmetic, the multi-
 # function unit, barriers, shuffles and local-memory (spill) traffic
 SASS_OPS = (r"\b(ATOMS\.[\w.]+|ATOM\.[\w.]+|RED\.[\w.]+|ATOMG\.[\w.]+|"
@@ -450,23 +535,34 @@ def _error2(lib):
     return run
 
 
-def _schur2(lib):
-    """The package's schur_diag2 entry point of `lib` (a variant's), with
-    a sums buffer of its own (zeroed once: every call leaves it zeroed,
-    or, in a variant that gives wrong sums, as that variant leaves it)."""
-    from povar_tpu_torch.ops import pose_kernels as pk
-
+def own_scratch():
+    """get(size, device): a zero f64 sums buffer of at least `size`
+    entries, kept across calls (every call of a per-camera sums kernel
+    leaves it zeroed, or, in a variant that gives wrong sums, as that
+    variant leaves it)."""
     scratch = {}
 
-    def run(cam, x4, mm, sw, mat6, n):
-        size = pk.SCHUR_MOMENTS * n + 1
+    def get(size, device):
         if scratch.get("n", 0) < size:
             scratch.update(n=size, buf=torch.zeros(size, dtype=torch.float64,
-                                                   device=x4.device))
+                                                   device=device))
+        return scratch["buf"]
+    return get
+
+
+def _schur2(lib):
+    """The package's schur_diag2 entry point of `lib` (a variant's), with
+    a sums buffer of its own (own_scratch)."""
+    from povar_tpu_torch.ops import pose_kernels as pk
+
+    sums = own_scratch()
+
+    def run(cam, x4, mm, sw, mat6, n):
         out = torch.empty((144, n), device=x4.device)
         rc = lib.povar_schur_diag2(*map(pk._ptr, (
             cam, x4, mm, sw, mat6, pk.schur_expand_table(x4.device), out,
-            scratch["buf"])), cam.shape[0], n, pk._stream(x4))
+            sums(pk.SCHUR_MOMENTS * n + 1, x4.device))), cam.shape[0], n,
+            pk._stream(x4))
         assert rc == 0, rc
         return out
     return run
@@ -480,6 +576,37 @@ def _parent_schur2(lib):
         out = torch.zeros((144, n), device=x4.device)
         rc = lib.povar_schur_diag2(*map(_ptr, (cam, x4, mm, sw, mat6, out)),
                                    cam.shape[0], n, _stream(x4))
+        assert rc == 0, rc
+        return out
+    return run
+
+
+def _scatter2(lib):
+    """The package's scatter2 entry point of `lib` (a variant's): out
+    unzeroed, a sums buffer of its own."""
+    from povar_tpu_torch.ops import pose_kernels as pk
+
+    sums = own_scratch()
+
+    def run(cam, x4, mm, sw, mat6, sb, n):
+        out = torch.empty((12, n), device=x4.device)
+        rc = lib.povar_scatter2(*map(pk._ptr, (
+            cam, x4, mm, sw, mat6, sb, out,
+            sums(pk.SCATTER_VALUES * n + 1, x4.device))), cam.shape[0], n,
+            pk._stream(x4))
+        assert rc == 0, rc
+        return out
+    return run
+
+
+def _parent_scatter2(lib):
+    """The earlier scatter2: the caller's zeroed output."""
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    def run(cam, x4, mm, sw, mat6, sb, n):
+        out = torch.zeros((12, n), device=x4.device)
+        rc = lib.povar_scatter2(*map(_ptr, (cam, x4, mm, sw, mat6, sb, out)),
+                                cam.shape[0], n, _stream(x4))
         assert rc == 0, rc
         return out
     return run
@@ -540,6 +667,10 @@ def _operands(problem):
     mesh = dict(cam=sm.obs.cam, x4=ml.x4, mm=ml.mm, sw=ml.sw, r_w=ml.r_w,
                 jlns=ml.jlns, hib=sm._prep_hll_s(ml, 1e-4)[1],
                 mat6=f32(6, int(sm.obs.cam.shape[0])), n=n)
+    # scatter2's re-expanded landmark sums, seeded (drawn last: the
+    # operands above stay those of earlier trees' runs)
+    d["sb"] = f32(3, o)
+    mesh["sb"] = f32(3, int(sm.obs.cam.shape[0]))
     return (d, tuple(s2.e0_plan.parts), mesh,
             _error2_operands(problem, cams_h, lms_h))
 
@@ -560,7 +691,7 @@ def first_camera_rows(cam, parts) -> torch.Tensor:
 
 def _by_first_camera(d, parts):
     rows = first_camera_rows(d["cam"], parts)
-    keys = ("cam", "x4", "mm", "sw", "r_w", "jlns", "hib", "mat6")
+    keys = ("cam", "x4", "mm", "sw", "r_w", "jlns", "hib", "mat6", "sb")
     return dict(d, **{k: d[k][..., rows].contiguous() for k in keys})
 
 
@@ -586,10 +717,13 @@ def variant_kernels(name: str):
         return ("pose_error2",)
     if name in SCHUR_VARIANTS:
         return ("schur_diag2",)
+    if name in SCATTER_VARIANTS or name.startswith("scatter2"):
+        return ("scatter2",)
     if name.startswith("threads") or name == "block_atomics":
         return ("e0_term2_parts",)
     return ("hppb2", "e0_term2_parts") + (
-        ("schur_diag2",) if name in SCHUR_COMMON else ())
+        ("schur_diag2",) if name in SCHUR_COMMON else ()) + (
+        ("scatter2",) if name in SCATTER_COMMON else ())
 
 
 def kernels(parent: Path, only=None) -> None:
@@ -613,17 +747,21 @@ def kernels(parent: Path, only=None) -> None:
                         "package": pk2.pose_error2},
         "schur_diag2": {"parent": _parent_schur2(libs["parent"]),
                         "package": pk2.schur_diag2},
+        "scatter2": {"parent": _parent_scatter2(libs["parent"]),
+                     "package": pk2.scatter2},
     }
     pna = libs["parent_no_atomics"]
     variants = {"hppb2": {"parent_no_atomics": _variant_hppb2(pna)},
                 "e0_term2_parts": {"parent_no_atomics": _variant_e0(pna,
                                                                     512)},
                 "pose_error2": {},
-                "schur_diag2": {"parent_no_atomics": _parent_schur2(pna)}}
+                "schur_diag2": {"parent_no_atomics": _parent_schur2(pna)},
+                "scatter2": {"parent_no_atomics": _parent_scatter2(pna)}}
     make = {"hppb2": lambda lib, _t: _variant_hppb2(lib),
             "e0_term2_parts": _variant_e0,
             "pose_error2": lambda lib, _t: _error2(lib),
-            "schur_diag2": lambda lib, _t: _schur2(lib)}
+            "schur_diag2": lambda lib, _t: _schur2(lib),
+            "scatter2": lambda lib, _t: _scatter2(lib)}
     for name, (_e, threads) in wanted.items():
         for k in variant_kernels(name):
             variants[k][name] = make[k](libs[name], threads)
@@ -640,6 +778,10 @@ def kernels(parent: Path, only=None) -> None:
         return tuple(x[k] for k in ("cam", "x4", "mm", "sw", "mat6")) + (
             x["n"],)
 
+    def scatter_args(x):
+        return tuple(x[k] for k in ("cam", "x4", "mm", "sw", "mat6",
+                                    "sb")) + (x["n"],)
+
     shapes = [
         ("hppb2", "(a) venice-89", hpp_args(d)),
         ("hppb2", "(b) mesh window order", hpp_args(mesh)),
@@ -653,6 +795,10 @@ def kernels(parent: Path, only=None) -> None:
         ("schur_diag2", "(b) mesh window order", schur_args(mesh)),
         ("schur_diag2", "(c) N = 1024, global route",
          schur_args(_with_cameras(d, 1024, 4))),
+        ("scatter2", "(a) venice-89", scatter_args(d)),
+        ("scatter2", "(b) mesh window order", scatter_args(mesh)),
+        ("scatter2", "(c) N = 1024, shared copies",
+         scatter_args(_with_cameras(d, 1024, 5))),
     ]
     shapes = [(k, label, args, {}) for k, label, args in shapes] + [
         ("pose_error2", f"{label}, {norm}", args,

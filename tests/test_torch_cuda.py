@@ -24,7 +24,10 @@ also on a 144-row table, more rows than one block stages at N = 1024;
 in three row orders, `e0_scatter` also at a width of 5; the two
 Schur-Jacobi kernels on each of their routes (N = 13 to 1024) in two
 row orders, with their output's symmetry and one device operation per
-call.
+call; the composed terms' scatters (`e0_scatter_structured`,
+`scatter2`) on each of their routes (N = 89 to 6000) in three row
+orders, with their guards on dead rows, a NaN, repeated calls and one
+device operation per call.
 
 Tolerances, with the scales of povar_tpu_torch/tools/parity.py:
 elementwise outputs 1e-5 entry by entry (against |plain| + the median
@@ -479,6 +482,96 @@ def test_schur_diag_routes_orders_and_symmetry(cuda, n_cams, order):
             ops = _device_ops(lambda: getattr(mod, name)(*args, n_cams))
             assert len(ops) == 3 and all(SCHUR_KERNELS[name] in op
                                          for op in ops), (name, ops)
+
+
+# the composed terms' scatters: (wrapper module, plain module, operand
+# keys of _inputs, the kernel's name in the profiler's records)
+SCATTERS = {
+    "e0_scatter_structured": (pk, pose_ref, ("cam", "x", "h", "sb"),
+                              "e0_scatter_kernel"),
+    "scatter2": (pk2, pose2_ref, ("cam", "x4", "mm", "sw", "mat6", "sb"),
+                 "scatter2_kernel"),
+}
+
+
+def _scatter(name, t, n_cams):
+    mod, ref, keys, _kernel = SCATTERS[name]
+    args = tuple(t[k] for k in keys) + (n_cams,)
+    return (lambda: getattr(mod, name)(*args),
+            lambda: getattr(ref, name)(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["drawn", "by_camera", "camera_runs"])
+@pytest.mark.parametrize("n_cams", [89, 1024, 6000])
+@pytest.mark.parametrize("name", list(SCATTERS))
+def test_composed_scatters_routes_guards_and_repeats(cuda, name, n_cams,
+                                                     order):
+    """e0_scatter_structured and scatter2 once per call within the
+    per-camera tolerance, on each route: per-warp private copies
+    (N = 89), shared copies (N = 1024) and f64 global atomics (N = 6000),
+    on the rows as drawn, sorted by camera and with the cameras in runs
+    of 64 rows (whole warps on one camera, which sum in a reduce-scatter
+    tree, ~5% dead lanes among them). Dead rows add exactly zero: they
+    all sit on the last camera, which no live row has, with operands that
+    would not be zero if added (step 1: sb 1e30 beside h = 0; step 2: NaN
+    in every operand beside sw = 0). A NaN in one live row makes its
+    camera's sums NaN and no other's. Every call leaves the sums buffer
+    zeroed: calls at N and at a larger N in turns, and after the NaN,
+    agree with the plain version. A call is one device operation, the kernel
+    (the last block writes every entry of out)."""
+    t = _inputs(n_cams, cuda)
+    if order == "by_camera":
+        t = _rows_reordered(t, torch.argsort(t["cam"].long(), stable=True),
+                            ("cam", "x", "h", "sb", "x4", "mm", "sw",
+                             "mat6", "mask"))
+    if order == "camera_runs":
+        t["cam"] = ((torch.arange(O, device=cuda) // 64) % n_cams).to(
+            torch.int32)
+    run, plain = _scatter(name, t, n_cams)
+    # a call at a larger N first (more sums, its ticket further on), so
+    # that every call below reuses one sums buffer
+    wide_run, wide_plain = _scatter(name, t, 2 * n_cams + 7)
+    _close(name, wide_run(), wide_plain(), [CAM])
+    launches.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert launches.launch_counts()[name] == 1
+    _close(name, got, plain(), [CAM])
+
+    # the dead rows on the last camera, with operands that would count
+    dead = t["mask"][0] == 0
+    last = n_cams - 1
+    cam = torch.where(t["cam"] == last, 0, t["cam"])
+    d = dict(t, cam=torch.where(dead, last, cam).to(torch.int32))
+    clean = dict(d)
+    if name == "e0_scatter_structured":
+        d["sb"] = torch.where(dead, 1e30, t["sb"])
+    else:
+        for k in ("x4", "mm", "mat6", "sb"):
+            d[k] = torch.where(dead, float("nan"), t[k])
+    got = _scatter(name, d, n_cams)[0]()
+    assert bool(dead.any()) and bool((got[:, last] == 0).all())
+    _close(name, got, _scatter(name, clean, n_cams)[1](), [CAM])
+
+    # a NaN in one live row: its camera's sums, and no other's
+    row = int(torch.nonzero(~dead)[0])
+    nan = dict(t, sb=t["sb"].clone())
+    nan["sb"][0, row] = float("nan")
+    got = _scatter(name, nan, n_cams)[0]()
+    c = int(t["cam"][row])
+    assert bool(got[:, c].isnan().all())
+    assert bool(torch.cat([got[:, :c], got[:, c + 1:]], 1).isfinite().all())
+
+    # after the NaN, and after the smaller call's ticket, the sums buffer
+    # is zero again
+    _close(name, wide_run(), wide_plain(), [CAM])
+    _close(name, run(), plain(), [CAM])
+    assert not any(bool(buf.any()) for buf in pk._SUMS.values())
+    if n_cams == 89 and order == "drawn":
+        ops = _device_ops(run)
+        assert len(ops) == 3 and all(SCATTERS[name][3] in op
+                                     for op in ops), ops
 
 
 @pytest.mark.cuda

@@ -177,10 +177,23 @@ def test_mat_dot2(state, add_r):
     _close(got.numpy(), want, 1e-5)
 
 
-def test_scatter2(state):
-    args = ("cam", "x4", "mm", "sw", "b6", "sb")
-    want = pp2.scatter2(*J(state, *args), state["n"])
-    got = pk2.scatter2(*T(state, *args), state["n"])
+@pytest.mark.parametrize("case", ["state", "state_by_camera",
+                                  "moderate_by_camera"])
+def test_scatter2(state, moderate, case):
+    """The composed step-2 scatter against the Pallas kernel on the
+    solver's state (most slot rows dead: sw = 0, the kernel's guard) as
+    laid out and in the camera-sorted lane order (whole warps on one
+    camera on the card, as the mesh's window order puts them), and on
+    the seeded operands with ~5% dead rows, sorted by camera."""
+    d = dict(state if case.startswith("state") else moderate)
+    m6 = "b6" if case.startswith("state") else "mat6"
+    args = ("cam", "x4", "mm", "sw", m6, "sb")
+    if case.endswith("by_camera"):
+        idx = np.argsort(np.asarray(d["cam"]), kind="stable")
+        for k in args:
+            d[k] = np.ascontiguousarray(np.asarray(d[k])[..., idx])
+    want = pp2.scatter2(*J(d, *args), d["n"])
+    got = pk2.scatter2(*T(d, *args), d["n"])
     _close(got.numpy(), want, 1e-4)
 
 
@@ -225,9 +238,9 @@ def test_pose_error2(state, robust, df_tol):
 
 @pytest.fixture(scope="module")
 def moderate():
-    """Seeded operands of the fused term and schur_diag2 over O = 1024
-    rows, N = 13 cameras, ~5% dead rows (sw = 0 and mm = 0 there, as
-    prepare2 leaves them), 1/p2 in [0.1, 0.5]."""
+    """Seeded operands of the fused term, schur_diag2 and scatter2 over
+    O = 1024 rows, N = 13 cameras, ~5% dead rows (sw = 0 and mm = 0
+    there, as prepare2 leaves them), 1/p2 in [0.1, 0.5]."""
     rng = np.random.default_rng(5)
     o, n = 1024, 13
     f = np.float32
@@ -240,6 +253,7 @@ def moderate():
         sw=(rng.uniform(0.5, 1.0, (1, o)) * live).astype(f),
         mat6=rng.standard_normal((6, o)).astype(f),
         zt=rng.standard_normal((12, n)).astype(f),
+        sb=rng.standard_normal((3, o)).astype(f),
     )
 
 

@@ -181,10 +181,31 @@ def test_e0_u_structured(prob):
     _close(got.numpy(), want, 1e-5)
 
 
-def test_e0_scatter_structured(prob):
+def _rows(d, keys, order, seed=3):
+    """d's per-observation operands `keys` in `order`: as drawn, sorted
+    by camera (whole warps on one camera on the card, as the mesh's
+    window order puts them), or sorted by camera with another ~25% of
+    the rows dead (h = 0, the other operands kept)."""
+    d = dict(d)
+    if order in ("by_camera", "by_camera_dead"):
+        idx = np.argsort(d["cam"], kind="stable")
+        for k in keys:
+            d[k] = np.ascontiguousarray(d[k][..., idx])
+    if order == "by_camera_dead":
+        dead = np.random.default_rng(seed).uniform(size=O) < 0.25
+        d["h"] = np.where(dead, np.float32(0.0), d["h"])
+    return d
+
+
+@pytest.mark.parametrize("order", ["drawn", "by_camera", "by_camera_dead"])
+def test_e0_scatter_structured(prob, order):
+    """The composed step-1 scatter against the Pallas kernel, on the rows
+    as drawn and in the camera-sorted lane order, with ~5% and with ~30%
+    dead rows (t = h^T sb exactly zero: the kernel's guard)."""
     args = ("cam", "x", "h", "sb")
-    want = pp.e0_scatter_structured(*J(prob, *args), N)
-    got = pk.e0_scatter_structured(*T(prob, *args), N)
+    d = _rows(prob, args, order)
+    want = pp.e0_scatter_structured(*J(d, *args), N)
+    got = pk.e0_scatter_structured(*T(d, *args), N)
     _close(got.numpy(), want, 1e-4)
 
 
