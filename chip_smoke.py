@@ -35,8 +35,10 @@ prints no result line):
               its global route);
               cam_scatter_add, e0_scatter and hpp_b again at N = 1024
               (the Schur kernel's and hpp_b's global-atomic routes, the
-              others' widest shared tables), hpp_b's hpp and the Schur
-              corrections symmetric bit for bit;
+              others' shared copies), cam_scatter_add also on the rows
+              sorted by camera and at N = 6000 (its global-atomic
+              route), hpp_b's hpp and the Schur corrections symmetric
+              bit for bit;
 4. step 1     a small step-1 solve, card against CPU; the venice-89
               step-1 solve with the composed power term and with
               SolverOptions() defaults (the fused term), each with the
@@ -775,8 +777,10 @@ def check_cam_kernels(solver, seed=2):
     the card: at both steps' shapes, each timed (the step-1 shape is the
     kernel's row), with `index_add_` beside cam_scatter_add; then C2, C4
     and C5 again on seeded cameras over N = 1024 (hpp_b's global-atomic
-    route). e0_u sums its terms in its plain version's order: bit for
-    bit; hpp_b's hpp is symmetric bit for bit."""
+    route); C2 at R = 12 and 144 also on the rows sorted by camera and on
+    seeded cameras over N = 6000 (its global-atomic route). e0_u sums its
+    terms in its plain version's order: bit for bit; hpp_b's hpp is
+    symmetric bit for bit."""
     from povar_tpu_torch.ops import cam_kernels as ck
     from povar_tpu_torch.ops import cam_ref as cr
 
@@ -838,6 +842,25 @@ def check_cam_kernels(solver, seed=2):
                                      "hpp not symmetric bit for bit")
     print("hpp_b: hpp symmetric bit for bit at both shapes, N = "
           f"{solver.n_cams} and {nb}", flush=True)
+    # cam_scatter_add on the rows sorted by camera (whole warps on one
+    # camera) and on its global route (seeded cameras over N = 6000: not
+    # one copy of 11 N floats fits a block)
+    by_cam = torch.argsort(cam.long(), stable=True)
+    cam_sorted = cam[by_cam].contiguous()
+    nw = 6000
+    cam_wide = torch.as_tensor(rng.integers(0, nw, o).astype(np.int32),
+                               device=dev)
+    c2 = []
+    for r in (12, 144):
+        v = f32(r)
+        vs = v[:, by_cam].contiguous()
+        for label, c, x, n in (("sorted by camera", cam_sorted, vs,
+                                solver.n_cams),
+                               (f"N = {nw}, global route", cam_wide, v, nw)):
+            c2.append(("cam_scatter_add", f"R = {r}, {label}",
+                       lambda m, x=x, c=c, n=n: m.cam_scatter_add(x, c, n),
+                       [c, x], [CAM], None, index_add(x, c, n)))
+    run_cases(ck, cr, c2, o, time_variants=True)
     return results
 
 

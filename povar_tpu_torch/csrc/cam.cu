@@ -14,12 +14,10 @@
 // per-camera sum is a shared-memory add by index. C1 copies table
 // entries, bit for bit; C3 sums its terms in the order of its plain
 // version (ops/cam_ref.py), so with --fmad=false it matches it bit for
-// bit. C2 accumulates per camera in shared memory with per-lane atomics
-// and leaves the block with one f32 global atomicAdd per non-zero entry;
-// C4 and C5 sum a warp's lanes per camera first, into per-warp or shared
-// accumulators, and meet across blocks in global atomics (below). The per-camera
-// sums differ from their plain versions by the order of the additions
-// only.
+// bit. C2, C4 and C5 sum a warp's lanes per camera first, into per-warp
+// or shared accumulators, and meet across blocks in global atomics
+// (below). The per-camera sums differ from their plain versions by the
+// order of the additions only.
 //
 // Every per-observation operand of C2, C4 and C5 must be zero on the
 // slot pad rows: unlike the TPU's incidence (stage1.make_obs folds the
@@ -36,6 +34,7 @@ using povar::drain_sums;
 using povar::kThreads;
 using povar::launch_sums;
 using povar::Route;
+using povar::SumsPlan;
 using povar::sums_plan;
 using povar::warp_copy;
 
@@ -65,35 +64,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------------------------ C2
-// out[r][c] += sum over o with cam[o] = c of v[r][o], for the rows
-// [r0, r0 + rows) of row block blockIdx.y: the block zeroes [rows, N]
-// accumulators in shared memory, each thread of a grid-stride loop reads
-// cam[o] once and adds its column with shared atomics, and the block
-// flushes with global atomics into the zeroed output.
-// Bound: (4 + 4 R) B per observation.
-__global__ void __launch_bounds__(kThreads)
-    cam_scatter_add_kernel(const int32_t* __restrict__ cam,
-                           const float* __restrict__ v, float* __restrict__ out,
-                           int n_obs, int n_cams, int n_rows,
-                           int rows_per_block) {
-  extern __shared__ float acc[];
-  const int r0 = blockIdx.y * rows_per_block;
-  const int rows = min(rows_per_block, n_rows - r0);
-  povar::smem_zero(acc, rows * n_cams);
-  __syncthreads();
-  const int O = n_obs;
-  POVAR_OBS_LOOP(o, O) {
-    const int c = cam[o];
-    for (int r = 0; r < rows; ++r) {
-      const float x = v[(size_t)(r0 + r) * O + o];
-      if (x != 0.0f) atomicAdd(acc + r * n_cams + c, x);
-    }
-  }
-  __syncthreads();
-  povar::flush_acc(out + (size_t)r0 * n_cams, acc, rows * n_cams);
-}
-
 // ------------------------------------------------------------------ C3
 // u[i][o] = sum_j W[i dc + j][o] x[j][cam[o]], j in order, with the
 // [dc, N] table x staged in shared memory once per block.
@@ -117,7 +87,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------ per-camera sums (C4, C5)
+// -------------------------------------------- per-camera sums (C2, C4, C5)
 // The routes, the block sums, the last block's drain and the launch plan
 // are pose_common.cuh's.
 //
@@ -355,6 +325,175 @@ __global__ void __launch_bounds__(hpp_threads(R))
   });
 }
 
+// ------------------------------------------------------------------ C2
+// out[r][c] = sum over o with cam[o] = c of v[r][o]: the R rows in
+// groups of `group` rows (12 or 11, one chunk of K = group values a row;
+// any other R: its largest divisor up to 12, in chunks of one value),
+// one group per blockIdx.y, each group a one-pass sum over the
+// observations into the route's copies of [group, N] floats (warp_peers,
+// add_rows; a warp whose live lanes all sit on one camera sums in a
+// reduce-scatter tree, warp_reduce_scatter16, and six lanes add two sums
+// each). The blocks of a group meet in their own `group` N sums of type
+// T and ticket in acc_g; the group's last block writes its rows of out
+// and leaves its sums and ticket zeroed.
+constexpr int kC2Warps = 16;
+constexpr int kC2MinWarps = 16;
+constexpr int kC2SharedThreads = 1024;
+// static shared memory the kernel declares (last_block's flag), rounded up
+constexpr size_t kC2StaticSmem = 128;
+// the type the blocks' sums meet in
+using C2Sum = double;
+// resident blocks an SM the private route's registers are bounded for
+constexpr int kC2MinBlocks = 2;
+// L2 reads in flight per thread in the last block's drain
+constexpr int kC2Drain = 8;
+
+__host__ __device__ constexpr int c2_threads(Route r) {
+  return r == Route::kPrivate ? 32 * kC2Warps : kC2SharedThreads;
+}
+
+// v added to the global *p as a reduction: no value returned (an f64
+// atomicAdd compiles to ATOMG, which does return one)
+__device__ __forceinline__ void c2_red(double* p, double v) {
+  const size_t g = __cvta_generic_to_global(p);
+  asm volatile("red.global.add.f64 [%0], %1;" ::"l"(g), "d"(v) : "memory");
+}
+
+__device__ __forceinline__ void c2_red(float* p, float v) { atomicAdd(p, v); }
+
+// Replaces pallas_cam.py:207 cam_scatter_add (_scatter_kernel :198).
+// Bound: (4 + 4 R) B per observation, 52 B at R = 12: 8.6 us at
+// venice-89; 580 B at R = 144, 96.5 us. Routes: 16 private copies in
+// 512-thread blocks up to N = 302 (12 rows) / 330 (11), shared copies in
+// 1024-thread blocks up to N = 4840 / 5280, else global atomics. The
+// earlier version staged [rows, N] accumulators per block, added every
+// value with a per-lane shared atomic (a compare-and-swap loop, lanes of
+// one camera retrying against each other) and flushed each block with
+// contended f32 global atomics into an output zeroed beforehand: 30.9 us
+// at R = 12, 445 at 144, 334 at 121; 177 / 1620 on camera-sorted rows;
+// 39.6 / 475 at N = 1024. Here 16.7 / 118.5 / 103.0 us, 13.6 / 111.7
+// sorted, 35.3 / 225 at N = 1024, one device operation a call. What
+// binds R = 12: the loads (11.2 us alone, with the tail), the peers'
+// match and walk ~2, the copies' flush ~2. Not kept: the whole row
+// through one match on shared copies (214 us at R = 144, 1383 at
+// N = 1024, where no [144, N] copy fits and it goes global), the
+// next row's loads issued ahead (72 registers: one block an SM, 198 us at
+// R = 144; bounded to 64: 18.8 at R = 12), registers bounded for three
+// blocks an SM (spills: 20.0), f32 block sums (16.3 at R = 12, the
+// others within 1 us: not needed, below), returning f64 atomics in the
+// flush (17.0), thread-block clusters of 2 / 4 / 8 adding their copies
+// through distributed shared memory before the flush (19.7 / 33.8 / 33.9
+// at R = 12 against 19.1: 4 or 8 no longer fit one wave), groups
+// of 3 rows on private copies at N = 1024 (35.3 against 35.1 on shared
+// copies), 4 private copies a block there (89.7), global atomics at
+// every N (197 at R = 12) (tools/cam_ab.py and PERF.md; NVIDIA H100
+// 80GB HBM3, 700 W). The blocks' sums meet in f64: 32 venice-89
+// CHOLESKY step-1 solves with them, 32 with f32 sums and 32 with the
+// earlier kernel all ended inside chip_smoke.py's CHOL_BAND, and 16
+// "off" step-1 solves of each within 1e-3 of the JAX run's cost
+// (tools/cam_ab.py spread).
+template <int K, Route R, typename T>
+__global__ void __launch_bounds__(c2_threads(R),
+                                  R == Route::kPrivate ? kC2MinBlocks : 1)
+    cam_scatter_add_kernel(const int32_t* __restrict__ cam,
+                           const float* __restrict__ v,
+                           float* __restrict__ out,
+                           double* __restrict__ acc_g, int n_obs,
+                           int n_cams, int group, int copies) {
+  extern __shared__ float smem[];
+  const int O = n_obs;
+  const int n_acc = group * n_cams;
+  const int r0 = blockIdx.y * group;
+  const float* vg = v + (size_t)r0 * O;
+  double* sums = acc_g + (size_t)blockIdx.y * (n_acc + 1);  // then a ticket
+  float* acc = warp_copy<R>(smem, copies, n_acc);
+  const int lane = threadIdx.x & 31;
+  // warp-uniform trips: every lane reaches the warp's sums
+  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < O;
+       base += gridDim.x * blockDim.x) {
+    const int o = base + lane;
+    const bool live = o < O;
+    const int c = live ? __ldg(cam + o) : 0;
+    float x[K];
+    const auto load = [&](int j0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        x[k] = live ? __ldg(vg + (size_t)(j0 + k) * O + o) : 0.0f;
+    };
+    load(0);
+    const povar::WarpPeers peers = povar::warp_peers(c, live);
+    const unsigned leads = __ballot_sync(povar::kFullMask, peers.lead);
+    const bool tree = __popc(leads) == 1 &&
+                      __popc(__ballot_sync(povar::kFullMask, live)) >= 4;
+    const int cu = __shfl_sync(povar::kFullMask, c, __ffs(leads) - 1);
+    for (int j0 = 0;;) {
+      if (tree) {
+        float s[2];
+        povar::warp_reduce_scatter16(x, s);
+        if (R == Route::kPrivate) __syncwarp();  // after the last walk's adds
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int k = 2 * lane + j;
+          if (k >= K) continue;
+          const int at = (j0 + k) * n_cams + cu;
+          if (R == Route::kGlobal)
+            atomicAdd(reinterpret_cast<T*>(sums) + at, (T)s[j]);
+          else if (R == Route::kShared)
+            atomicAdd(acc + at, s[j]);
+          else
+            acc[at] += s[j];
+        }
+      } else {
+        add_rows<K, R, T>(acc, sums, j0, n_cams, c, peers, x);
+      }
+      if ((j0 += K) >= group) break;
+      load(j0);
+    }
+  }
+  if (R != Route::kGlobal) {
+    // the block's copies summed per entry, then to the group's sums
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
+      float s = smem[i];
+      for (int k = 1; k < copies; ++k) s += smem[k * n_acc + i];
+      if (s != 0.0f) c2_red(reinterpret_cast<T*>(sums) + i, (T)s);
+    }
+  }
+  if (!povar::last_block(povar::ticket_of(sums, n_acc))) return;
+  float* rows = out + (size_t)r0 * n_cams;
+  drain_sums<T, kC2Drain>(sums, n_acc,
+                          [&](int i, T s) { rows[i] = (float)s; });
+}
+
+// Launch C2 with the K-value chunks of `group` rows: the route for one
+// group's [group, N] copies (sums_plan), one wave of blocks over all
+// groups
+template <int K>
+int launch_cam_scatter_add(const int32_t* cam, const float* v, float* out,
+                           double* acc, int n_obs, int n_cams, int n_rows,
+                           int group, void* stream) {
+  const SumsPlan p =
+      sums_plan(group, n_cams, kC2Warps, kC2MinWarps, kC2SharedThreads,
+                kC2StaticSmem);
+  void (*kernel)(const int32_t*, const float*, float*, double*, int, int,
+                 int, int) =
+      p.route == Route::kPrivate
+          ? &cam_scatter_add_kernel<K, Route::kPrivate, C2Sum>
+      : p.route == Route::kShared
+          ? &cam_scatter_add_kernel<K, Route::kShared, C2Sum>
+          : &cam_scatter_add_kernel<K, Route::kGlobal, C2Sum>;
+  const int groups = n_rows / group;
+  int grid = 0;
+  const cudaError_t err = povar::grid_for_block(
+      reinterpret_cast<const void*>(kernel), p.threads,
+      (long)n_obs * groups, p.smem, &grid);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 blocks(std::max(1, grid / groups), groups);
+  kernel<<<blocks, p.threads, p.smem, (cudaStream_t)stream>>>(
+      cam, v, out, acc, n_obs, n_cams, group, p.copies);
+  return (int)cudaGetLastError();
+}
+
 template <int kDc>
 int launch_e0_scatter(const int32_t* cam, const float* w, const float* sb,
                       float* out, double* acc, int n_obs, int n_cams, int dl,
@@ -399,21 +538,21 @@ int povar_cam_gather(const int32_t* cam, const float* table, float* out,
   return (int)cudaGetLastError();
 }
 
-// out: [n_rows, n_cams], zeroed by the caller; rows_per_block as above
+// out: [n_rows, n_cams]; acc: n_rows * (n_cams + 1) doubles, zero (every
+// call leaves them zero): each row group's sums, then its ticket
 int povar_cam_scatter_add(const int32_t* cam, const float* v, float* out,
-                          int n_obs, int n_cams, int n_rows,
-                          int rows_per_block, void* stream) {
-  if (n_obs <= 0 || n_cams <= 0 || n_rows <= 0 || rows_per_block <= 0)
+                          double* acc, int n_obs, int n_cams, int n_rows,
+                          void* stream) {
+  if (n_obs <= 0 || n_cams <= 0 || n_rows <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)rows_per_block * n_cams;
-  int grid = 0;
-  cudaError_t err =
-      povar::grid_for(cam_scatter_add_kernel, n_obs, smem, &grid);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 blocks(grid, (n_rows + rows_per_block - 1) / rows_per_block);
-  cam_scatter_add_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      cam, v, out, n_obs, n_cams, n_rows, rows_per_block);
-  return (int)cudaGetLastError();
+  if (n_rows % 12 == 0)
+    return launch_cam_scatter_add<12>(cam, v, out, acc, n_obs, n_cams,
+                                      n_rows, 12, stream);
+  if (n_rows % 11 == 0)
+    return launch_cam_scatter_add<11>(cam, v, out, acc, n_obs, n_cams,
+                                      n_rows, 11, stream);
+  return launch_cam_scatter_add<1>(cam, v, out, acc, n_obs, n_cams, n_rows,
+                                   divisor_below(n_rows, 12), stream);
 }
 
 int povar_cam_e0_u(const int32_t* cam, const float* w, const float* x,

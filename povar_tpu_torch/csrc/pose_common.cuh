@@ -235,14 +235,13 @@ __device__ __forceinline__ bool block_sums_done(double* acc_g,
 }
 
 // The last block: write(i, sum) for every entry i of the [count] sums of
-// type T at acc_g (kBatch L2 reads in flight per thread), then the sums
-// and the ticket zeroed again.
+// type T at acc_g (kB L2 reads in flight per thread), then the sums and
+// the ticket zeroed again.
 constexpr int kBatch = 16;  // independent L2 reads in flight per thread
 
-template <typename T, typename Write>
+template <typename T, int kB = kBatch, typename Write>
 __device__ __forceinline__ void drain_sums(double* acc_g, int count,
                                            Write write) {
-  constexpr int kB = kBatch;
   T* sums = reinterpret_cast<T*>(acc_g);
   for (int i0 = threadIdx.x; i0 < count; i0 += kB * blockDim.x) {
     T s[kB];

@@ -49,7 +49,7 @@ SIGNATURES = {
     "povar_poba_t3": [_P] * 9 + [_I, _I, _F, _F, _P],
     "povar_apply_ldiff_stored": [_P] * 10 + [_I, _I, _F, _F, _P],
     "povar_cam_gather": [_P] * 3 + [_I] * 4 + [_P],
-    "povar_cam_scatter_add": [_P] * 3 + [_I] * 4 + [_P],
+    "povar_cam_scatter_add": [_P] * 4 + [_I] * 3 + [_P],
     "povar_cam_e0_u": [_P] * 4 + [_I] * 4 + [_P],
     "povar_cam_e0_scatter": [_P] * 5 + [_I] * 4 + [_P],
     "povar_cam_hpp_b": [_P] * 6 + [_I] * 4 + [_P],

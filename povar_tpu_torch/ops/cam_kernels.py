@@ -17,11 +17,11 @@ solvers' observation layout checks that once (slots.make_obs). The
 per-observation operands of the three scatters must be zero on slot pad
 rows, whose camera index is a real camera.
 
-`e0_scatter` and `hpp_b` meet their blocks' per-camera sums (in f64 and
-f32, csrc/cam.cu says why) in a scratch buffer of doubles that every
-call leaves zeroed: one per device and CUDA stream
-(`pose_kernels._sums_scratch`, which the Schur-Jacobi kernels share),
-zeroed once when it is made or grown, so a call is one device
+`cam_scatter_add`, `e0_scatter` and `hpp_b` meet their blocks'
+per-camera sums (in f64, f64 and f32, csrc/cam.cu says why) in a scratch
+buffer of doubles that every call leaves zeroed: one per device and CUDA
+stream (`pose_kernels._sums_scratch`, which the Schur-Jacobi kernels
+share), zeroed once when it is made or grown, so a call is one device
 operation.
 """
 
@@ -46,9 +46,8 @@ KERNELS = ("cam_gather", "cam_scatter_add", "e0_u", "e0_scatter", "hpp_b")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
-# shared memory one block of the gather and of the scatter-add stages
-# its table or accumulator rows in: the default 48 KB per block, 12 rows
-# up to N = 1024 cameras
+# shared memory one block of the gather stages its table rows in: the
+# default 48 KB per block, 12 rows up to N = 1024 cameras
 _TABLE_BYTES = 48 * 1024
 # the (k, d) shapes of hpp_b's Jacobian blocks that csrc/cam.cu
 # instantiates: step 1's [4, 12] and step 2's tangent [2, 11]
@@ -56,10 +55,6 @@ _HPP_B_SHAPES = ((4, 12), (2, 11))
 
 def _rows_per_block(r: int, n: int) -> int:
     return max(1, min(r, _TABLE_BYTES // (4 * n)))
-
-
-def _f32_zeros(rows: int, cols: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.zeros((rows, cols), dtype=torch.float32, device=like.device)
 
 
 def cam_gather(table: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
@@ -95,10 +90,13 @@ def cam_scatter_add(v: torch.Tensor, cam: torch.Tensor,
     if _on_cpu(v, cam):
         return cam_ref.cam_scatter_add(v, cam, n)
     _cuda_checks(o, n, cam, f32=(("v", v),))
-    out = _f32_zeros(r, n, v)
+    out = torch.empty((r, n), dtype=torch.float32, device=v.device)
+    stream = _stream(v)
+    # the R N sums and one ticket per row group (at most R groups)
     _launch("cam_scatter_add", _build.library().povar_cam_scatter_add,
-            _ptr(cam), _ptr(v), _ptr(out), o, n, r, _rows_per_block(r, n),
-            _stream(v), counts=LAUNCHES)
+            _ptr(cam), _ptr(v), _ptr(out),
+            _ptr(_sums_scratch(v.device, stream.value, r * (n + 1))), o, n,
+            r, stream, counts=LAUNCHES)
     return out
 
 

@@ -1,24 +1,30 @@
-"""`e0_scatter` and `hpp_b` (csrc/cam.cu) against an earlier version of
-their kernels and against controlled variants of their own, on one card;
-the warm bench iterations with `cam_gather`'s host cost; and the spreads
-of the solves these kernels' rounding can move.
+"""`cam_scatter_add`, `e0_scatter` and `hpp_b` (csrc/cam.cu) against an
+earlier version of their kernels and against controlled variants of
+their own, on one card; the warm bench iterations with `cam_gather`'s
+host cost; the spreads of the solves these kernels' rounding can move;
+and the launches of `cam_scatter_add` by row count in one solve.
 
     python -m povar_tpu_torch.tools.cam_ab kernels --parent DIR
+        [--kernels cam_scatter_add e0_scatter hpp_b]
     python -m povar_tpu_torch.tools.cam_ab bench
     python -m povar_tpu_torch.tools.cam_ab spread [--chol 16] [--off 8]
+    python -m povar_tpu_torch.tools.cam_ab launches
 
 Run from the repository root (`chip_smoke.py` lends its timers and its
 bench iteration). `kernels` builds DIR/cam.cu with DIR/pose_common.cuh
-(an earlier commit's csrc/, whose `povar_cam_e0_scatter` and
-`povar_cam_hpp_b` take PARENT_SIG's arguments: no sums buffer, outputs
-zeroed by the caller) and the VARIANTS of the package's own csrc/, one
-nvcc each, all started together, into build/cam_ab/, and prints their
-registers and the SASS opcode counts of every instantiation (atomics,
-shuffles, local-memory loads and stores). It then checks the earlier and
-the package kernel against the plain version per camera (1e-4) and times
-each in turns (earlier, package, package, earlier; then the variants)
-at both steps' shapes ((dl, dc) = (3, 12) / (3, 11); (k, d) = (4, 12) /
-(2, 11)) on seeded operands zeroed on the slot pad rows, at
+(an earlier commit's csrc/, whose `povar_cam_scatter_add`,
+`povar_cam_e0_scatter` and `povar_cam_hpp_b` take PARENT_SIG's
+arguments: no sums buffer, outputs zeroed by the caller) and the
+VARIANTS of the package's own csrc/ that concern the kernels asked for,
+one nvcc each, all started together, into build/cam_ab/, and prints
+their registers and the SASS opcode counts of every instantiation
+(atomics, shuffles, local-memory loads and stores). It then checks the
+earlier and the package kernel against the plain version per camera
+(1e-4) and times each in turns (earlier, package, package, earlier; then
+the variants) at the Jacobi norms' and both Schur corrections' row
+counts (R = 12, 144, 121) and both steps' shapes ((dl, dc) = (3, 12) /
+(3, 11); (k, d) = (4, 12) / (2, 11)) on seeded operands zeroed on the
+slot pad rows, at
 
   (a) venice-89: O = 557,056 slot rows of synthetic_bal_problem_fast(89,
       110973, 5), N = 89;
@@ -41,6 +47,11 @@ iterations with pallas_kernels="off" and with SolverOptions() defaults
 Run it in each tree to compare, for instance `(cd DIR && PYTHONPATH=.
 python <repo>/povar_tpu_torch/tools/cam_ab.py bench)`.
 
+`launches` runs one venice-89 `bundle_adjust` with pallas_kernels="off",
+PCG and RIPCG (the one path that runs the Schur corrections through
+`cam_scatter_add`) and prints the launches of `cam_scatter_add` by row
+count and every kernel's launches.
+
 `spread` runs `--chol` venice-89 CHOLESKY step-1 solves
 (tools/step2_spread.step1_spread) and counts those outside chip_smoke.py's
 bands (the first trial within CHOL_FIRST_TOL of CHOL_FIRST, the first
@@ -55,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 import time
@@ -65,20 +77,26 @@ import torch
 
 OUT = Path("build") / "cam_ab"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the earlier cam.cu's entry points: no sums buffer
-PARENT_SIG = {"povar_cam_e0_scatter": [_P] * 4 + [_I] * 4 + [_P],
+# the earlier cam.cu's entry points: no sums buffer (cam_scatter_add:
+# the rows a block stages, as `cam_kernels._rows_per_block` gives them)
+PARENT_SIG = {"povar_cam_scatter_add": [_P] * 3 + [_I] * 4 + [_P],
+              "povar_cam_e0_scatter": [_P] * 4 + [_I] * 4 + [_P],
               "povar_cam_hpp_b": [_P] * 5 + [_I] * 4 + [_P]}
 ENTRIES = tuple(PARENT_SIG)
 # SASS opcode counts per instantiation: route 0 / 1 / 2 is the per-warp,
 # shared and global route of csrc/cam.cu (the earlier kernels: shared
 # accumulators, then global ones)
 SASS_KERNELS = {
+    **{f"cam_scatter_add<{k}> route {r}":
+       rf"cam_cu.*cam_scatter_add_kernelILi{k}E.*RouteE{r}E"
+       for k in (12, 11, 1) for r in range(3)},
     **{f"e0_scatter<{dc}> route {r}":
        rf"cam_cu.*e0_scatter_kernelILi{dc}E.*RouteE{r}E"
        for dc in (12, 11) for r in range(3)},
     **{f"hpp_b<{k},{d}> route {r}":
        rf"cam_cu.*hpp_b_kernelILi{k}ELi{d}E.*RouteE{r}E"
        for k, d in ((4, 12), (2, 11)) for r in range(3)},
+    "cam_scatter_add (earlier)": r"cam_cu.*cam_scatter_add_kernel",
     "e0_scatter (earlier)": r"cam_cu.*e0_scatter_kernel",
     "hpp_b (earlier)": r"cam_cu.*hpp_b_kernel",
 }
@@ -224,11 +242,106 @@ VARIANTS = {
                    r"\(T\)s\);", "if (s == 1.2345e-38f) sums[i] = (T)s;")],
                  None),
 }
+# cam_scatter_add (C2) with one design choice changed: all R rows of a
+# row in one group through one match (chunks of 12 or 11 values, on the
+# shared copies a [144, N] group needs), the blocks' sums meeting in f32,
+# their f64 flush as returning atomics (atomicAdd, ATOMG; reductions by
+# default), private copies for 4 warps where 16 do not fit (N = 1024: 4
+# copies in 128-thread blocks), 8 or 32 private copies a block (256- or
+# 1024-thread blocks), the private route's registers bounded for one or
+# three blocks an SM (two by default), 16 L2 reads in flight per
+# thread in the last block's drain (8 by default), the lane-order walk
+# also where a warp sits on one camera (no reduce-scatter tree), global
+# atomics at every N; and, wrong sums by design (timed only), the loads
+# alone, the peers matched but not walked (each lead adds its own
+# values), no flush of the copies, the flush without the last block, and
+# the pass without its tail
+_C2_SUM = ("cam.cu", r"using C2Sum = double;", "using C2Sum = float;")
+
+
+def _c2_min_blocks(blocks: int):
+    return ("cam.cu", r"constexpr int kC2MinBlocks = \d;",
+            f"constexpr int kC2MinBlocks = {blocks};")
+
+
+C2_VARIANTS = {
+    "c2_rows_whole": [("cam.cu", r"n_rows, 1[12], stream\)",
+                       "n_rows, n_rows, stream)")],
+    "c2_f32_sums": [_C2_SUM],
+    "c2_atomic_flush": [("cam.cu", r"const size_t g = __cvta_generic_to_"
+                         r"global\(p\);\n  asm volatile\(.*?\);",
+                         "atomicAdd(p, v);")],
+    "c2_private4": [("cam.cu", r"kC2MinWarps = 16;", "kC2MinWarps = 4;")],
+    "c2_warps8": [("cam.cu", r"kC2Warps = 16;", "kC2Warps = 8;"),
+                  ("cam.cu", r"kC2MinWarps = 16;", "kC2MinWarps = 8;")],
+    "c2_warps32": [("cam.cu", r"kC2Warps = 16;", "kC2Warps = 32;"),
+                   ("cam.cu", r"kC2MinWarps = 16;", "kC2MinWarps = 32;"),
+                   _c2_min_blocks(1)],
+    "c2_lb1": [_c2_min_blocks(1)],
+    "c2_lb3": [_c2_min_blocks(3)],
+    "c2_drain16": [("cam.cu", r"constexpr int kC2Drain = 8;",
+                    "constexpr int kC2Drain = 16;")],
+    "c2_walk_only": [("cam.cu", r"const bool tree = __popc",
+                      "const bool tree = false && __popc")],
+    "c2_global": [("cam.cu", r"(kC2StaticSmem\);)",
+                   "\\1\n  p = {Route::kGlobal, kC2SharedThreads, 1, 0};"),
+                  ("cam.cu", r"const SumsPlan p =", "SumsPlan p =")],
+    "c2_loads_only": [("cam.cu", r"(\n    load\(0\);)",
+                       "\\1\n    {\n      float q_ = 0.0f;\n"
+                       "      for (int k = 0; k < K; ++k) q_ += x[k];\n"
+                       "      if (q_ == 1.2345e-38f) acc_g[0] = 1.0;\n"
+                       "      continue;\n    }")],
+    "c2_match_only": [("pose_common.cuh", r"return \{lead \? peers & "
+                       r"\(peers - 1u\) : 0u, lead\};",
+                       "return {0u, lead};")],
+    "c2_no_flush": [("cam.cu", r"if \(s != 0\.0f\) c2_red\(",
+                     "if (s == 1.2345e-38f) c2_red(")],
+    "c2_no_last": [("cam.cu", r"(\n  float\* rows = out \+ \(size_t\)r0 "
+                    r"\* n_cams;)", "\n  return;\\1")],
+    "c2_no_tail": [("cam.cu", r"(\n  if \(R != Route::kGlobal\) \{\n    "
+                    r"// the block's copies)", "\n  return;\\1")],
+}
+VARIANTS.update({name: (edits, "cam_scatter_add")
+                 for name, edits in C2_VARIANTS.items()})
 # the variants that give wrong sums by design (timed only)
-DIAGNOSTIC = {"no_adds", "no_walk", "no_flush"}
+DIAGNOSTIC = {"no_adds", "no_walk", "no_flush", "c2_loads_only",
+              "c2_match_only", "c2_no_flush", "c2_no_last", "c2_no_tail"}
 # floats per block row of the fixed-order variant's buffer: the most
 # blocks any route launches (132 SMs x 3 blocks) times dc N at N = 1024
 FIXED_ORDER_FLOATS = 132 * 3 * 12 * 1024 + 2
+
+
+def _parent_c2(lib):
+    from povar_tpu_torch.ops.cam_kernels import _rows_per_block
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    def run(v, cam, n):
+        r, o = v.shape
+        out = torch.zeros((r, n), device=v.device)
+        rc = lib.povar_cam_scatter_add(_ptr(cam), _ptr(v), _ptr(out), o, n,
+                                       r, _rows_per_block(r, n), _stream(v))
+        assert rc == 0, rc
+        return out
+    return run
+
+
+def _variant_c2(lib):
+    """The package's cam_scatter_add entry point of `lib` with a sums
+    buffer of its own (pose2_ab.own_scratch)."""
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+    from povar_tpu_torch.tools.pose2_ab import own_scratch
+
+    sums = own_scratch()
+
+    def run(v, cam, n):
+        r, o = v.shape
+        out = torch.empty((r, n), device=v.device)
+        rc = lib.povar_cam_scatter_add(_ptr(cam), _ptr(v), _ptr(out),
+                                       _ptr(sums(r * (n + 1), v.device)), o,
+                                       n, r, _stream(v))
+        assert rc == 0, rc
+        return out
+    return run
 
 
 def _parent_e0(lib):
@@ -331,7 +444,9 @@ def _shapes(cam, mask, n):
         return torch.as_tensor(rng.standard_normal((rows, o)),
                                dtype=torch.float32, device="cuda") * mask
 
-    ops = {"e0_scatter": [(f32(3 * dc), f32(3), f"(dl, dc) = (3, {dc})")
+    ops = {"cam_scatter_add": [(f32(r), None, f"R = {r}")
+                               for r in (12, 144, 121)],
+           "e0_scatter": [(f32(3 * dc), f32(3), f"(dl, dc) = (3, {dc})")
                           for dc in (12, 11)],
            "hpp_b": [(f32(k * d), f32(k), f"(k, d) = ({k}, {d})")
                      for k, d in ((4, 12), (2, 11))]}
@@ -346,37 +461,76 @@ def _shapes(cam, mask, n):
                     ("(b) sorted by camera", cam[by_cam], by_cam, n),
                     ("(c) N = 1024", cam_big, None, 1024)):
                 xs, ys = ((x, y) if rows is None else
-                          (x[:, rows].contiguous(), y[:, rows].contiguous()))
-                args = ((xs, c, ys, nc) if kernel == "e0_scatter"
-                        else (xs, ys, c, nc))
+                          (x[:, rows].contiguous(),
+                           None if y is None else y[:, rows].contiguous()))
+                args = {"cam_scatter_add": (xs, c, nc),
+                        "e0_scatter": (xs, c, ys, nc)}.get(kernel,
+                                                           (xs, ys, c, nc))
                 shapes.append((kernel, f"{label}, {tag}", args, {}))
     return shapes
 
 
-def kernels(parent: Path, only=None) -> None:
+def c2_registers(logs) -> None:
+    """Registers and spill bytes of every cam_scatter_add instantiation
+    in each of `logs` ({name: nvcc output with -Xptxas -v})."""
+    for name, log in logs.items():
+        fn, out = None, []
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                fn = m.group(1)
+                continue
+            if not fn or "cam_scatter_add_kernel" not in fn:
+                continue
+            k = re.search(r"cam_scatter_add_kernelILi(\d+)E.*RouteE(\d)E",
+                          fn)
+            tag = f"<{k.group(1)}> route {k.group(2)}" if k else "(earlier)"
+            sp = re.search(r"(\d+) bytes spill stores", ln)
+            if sp:
+                out.append(f"{tag} spills {sp.group(1)} B")
+            rg = re.search(r"Used (\d+) registers", ln)
+            if rg:
+                out.append(f"{tag} {rg.group(1)} registers")
+                fn = None
+        print(f"c2 registers {name}: {'; '.join(out)}", flush=True)
+
+
+def kernels(parent: Path, only=None, names=None) -> None:
     from povar_tpu_torch.ops import cam_kernels as ck
     from povar_tpu_torch.ops import cam_ref
     from povar_tpu_torch.tools import pose2_ab as ab
     from povar_tpu_torch.tools.parity import scaled_error
 
+    variants = {n: (e, k) for n, (e, k) in VARIANTS.items()
+                if (only is None or k is None or k in only)
+                and (names is None or n in names)}
     libs = ab.build_all(parent, "cam.cu", OUT,
-                        {n: (e, 512) for n, (e, _k) in VARIANTS.items()},
+                        {n: (e, 512) for n, (e, _k) in variants.items()},
                         {}, ENTRIES, PARENT_SIG, SASS_KERNELS)
+    from povar_tpu_torch.ops import _build
+    c2_registers({"package": _build.build_log(),
+                  **{n: (OUT / n / "build.log").read_text()
+                     for n in ["parent", *variants]}})
     cam, mask, n = _operands()
     shapes = [s for s in _shapes(cam, mask, n)
               if only is None or s[0] in only]
-    impls = {"e0_scatter": {"parent": _parent_e0(libs["parent"]),
+    impls = {"cam_scatter_add": {"parent": _parent_c2(libs["parent"]),
+                                 "package": ck.cam_scatter_add},
+             "e0_scatter": {"parent": _parent_e0(libs["parent"]),
                             "package": ck.e0_scatter},
              "hpp_b": {"parent": _parent_hpp(libs["parent"]),
                        "package": ck.hpp_b}}
     timed = {
+        "cam_scatter_add": {name: _variant_c2(libs[name])
+                            for name, (_e, k) in variants.items()
+                            if k in (None, "cam_scatter_add")},
         "e0_scatter": {
             name: _variant_e0(libs[name], FIXED_ORDER_FLOATS
                               if name == "e0_fixed_order" else None)
-            for name, (_e, k) in VARIANTS.items() if k in (None,
+            for name, (_e, k) in variants.items() if k in (None,
                                                            "e0_scatter")},
         "hpp_b": {name: _variant_hpp(libs[name])
-                  for name, (_e, k) in VARIANTS.items()
+                  for name, (_e, k) in variants.items()
                   if k in (None, "hpp_b")},
     }
     for kernel, label, args, _kw in shapes:
@@ -457,6 +611,43 @@ def bench() -> None:
         cs.bench_step2(problem, opts, f"step-2 {label}")
 
 
+def launches() -> None:
+    """The launches of cam_scatter_add by row count, and every kernel's,
+    in one venice-89 bundle_adjust with pallas_kernels="off", PCG and
+    RIPCG."""
+    import chip_smoke as cs
+    from povar_tpu_torch import (SolverOptions, bundle_adjust,
+                                 synthetic_bal_problem_fast)
+    from povar_tpu_torch.ops import cam_kernels as ck
+    from povar_tpu_torch.ops import launches as lc
+    from povar_tpu_torch.options import SolverType, SolverTypeRiemannian
+
+    problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
+                                         seed=0)
+    opts = SolverOptions(pallas_kernels="off",
+                         solver_type_step_1=SolverType.PCG,
+                         solver_type_step_2=SolverTypeRiemannian.RIPCG)
+    by_rows = {}
+    scatter = ck.cam_scatter_add
+
+    def counted(v, cam, n_cams):
+        by_rows[v.shape[0]] = by_rows.get(v.shape[0], 0) + 1
+        return scatter(v, cam, n_cams)
+    ck.cam_scatter_add = counted
+    try:
+        lc.reset_launch_counts()
+        _p, s1, s2 = bundle_adjust(problem, opts, log=lambda x: None)
+        torch.cuda.synchronize()
+    finally:
+        ck.cam_scatter_add = scatter
+    print(f"launches off PCG + RIPCG: cam_scatter_add by R "
+          f"{dict(sorted(by_rows.items()))}; step 1 "
+          f"{s1.final_cost.all.error:.6f}, step 2 "
+          f"{s2.final_cost.all.error:.6g}; all "
+          f"{ {k: c for k, c in lc.launch_counts().items() if c} }",
+          flush=True)
+
+
 def spread(chol: int, off: int) -> None:
     import chip_smoke as cs
     from povar_tpu_torch import (SolverOptions, SolverSummary, Stage1Solver,
@@ -515,9 +706,13 @@ def main(argv=None) -> int:
                    help="directory with the earlier cam.cu and "
                    "pose_common.cuh")
     k.add_argument("--kernels", nargs="+", default=None,
-                   choices=("e0_scatter", "hpp_b"),
-                   help="time only these kernels (default: both)")
+                   choices=("cam_scatter_add", "e0_scatter", "hpp_b"),
+                   help="time only these kernels (default: all three)")
+    k.add_argument("--variants", nargs="+", default=None,
+                   help="build and time only these VARIANTS (default: all "
+                   "that concern the kernels)")
     sub.add_parser("bench")
+    sub.add_parser("launches")
     s = sub.add_parser("spread")
     s.add_argument("--chol", type=int, default=16)
     s.add_argument("--off", type=int, default=8)
@@ -530,9 +725,11 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     if args.mode == "kernels":
-        kernels(args.parent, args.kernels)
+        kernels(args.parent, args.kernels, args.variants)
     elif args.mode == "spread":
         spread(args.chol, args.off)
+    elif args.mode == "launches":
+        launches()
     else:
         bench()
     return 0

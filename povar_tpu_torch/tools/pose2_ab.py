@@ -383,7 +383,8 @@ PARENT_SIG = {"povar_schur_diag2": [_P] * 6 + [_I, _I, _P],
               "povar_scatter2": [_P] * 7 + [_I, _I, _P]}
 # the opcodes counted in SASS: atomics, f64 arithmetic, the multi-
 # function unit, barriers, shuffles and local-memory (spill) traffic
-SASS_OPS = (r"\b(ATOMS\.[\w.]+|ATOM\.[\w.]+|RED\.[\w.]+|ATOMG\.[\w.]+|"
+SASS_OPS = (r"\b(ATOMS\.[\w.]+|ATOM\.[\w.]+|RED\.[\w.]+|REDG\.[\w.]+|"
+            r"ATOMG\.[\w.]+|"
             r"DFMA|DMUL|DADD|MUFU\.[\w.]+|BAR\.[\w.]+|SHFL\.[\w.]+|"
             r"STL(?:\.[\w.]+)?|LDL(?:\.[\w.]+)?)\b")
 
@@ -432,6 +433,7 @@ def build_all(parent: Path, source: str = "pose2.cu", out: Path = OUT,
     libs = {}
     for n, p in procs.items():
         log = p.communicate(timeout=600)[0]
+        (dirs[n] / "build.log").write_text(log)
         if p.returncode != 0:
             raise RuntimeError(f"nvcc {n}:\n{log}")
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]

@@ -2,7 +2,8 @@
 CPU tensors, i.e. their plain versions in ops/cam_ref.py) against
 povar_tpu/ops/pallas_cam.py's Pallas kernels in interpret mode, on the
 same seeded numpy inputs: O = 8192 observations (one OBS_PAD), N = 7 and
-89 cameras, both factorized-operand shapes (dl, dc) = (3, 12) of step 1
+89 cameras, `cam_scatter_add` at R = 12, 121 and 144 rows as drawn and
+sorted by camera, both factorized-operand shapes (dl, dc) = (3, 12) of step 1
 and (3, 11) of step 2, and both Jacobian shapes (k, d) = (4, 12) and
 (2, 11) of `hpp_b`. About 5% of the rows are dead (zero operands, as the
 solvers' slot pad rows are).
@@ -59,9 +60,16 @@ def _check(got, want, kind):
 
 
 @pytest.mark.parametrize("n", [7, 89])
-@pytest.mark.parametrize("r", [12, 144])
-def test_cam_scatter_add(n, r):
+@pytest.mark.parametrize("r, order", [
+    pytest.param(r, order, id=f"{r}" if order == "drawn" else f"{r}-{order}")
+    for order in ("drawn", "by_camera") for r in (12, 144, 121)])
+def test_cam_scatter_add(n, r, order):
+    """The step-1 Jacobi norms' 12 rows and the Schur corrections' 144 /
+    121, on the rows as drawn and sorted by camera."""
     cam, (v,) = _inputs(n, [r], seed=n + r)
+    if order == "by_camera":
+        rows = np.argsort(cam, kind="stable")
+        cam, v = cam[rows], np.ascontiguousarray(v[:, rows])
     want = pallas_cam.cam_scatter_add(jnp.asarray(v), jnp.asarray(cam), n)
     got = cam_kernels.cam_scatter_add(torch.as_tensor(v), torch.as_tensor(cam),
                                       n)

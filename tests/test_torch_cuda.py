@@ -21,7 +21,10 @@ fused terms run over all slot parts and over a narrow prefix, and also
 over parts of three widths and on camera-sorted landmarks; `cam_gather`
 also on a 144-row table, more rows than one block stages at N = 1024;
 `e0_scatter` and `hpp_b` on each of their routes (N = 13 to 5000) and
-in three row orders, `e0_scatter` also at a width of 5; the two
+in three row orders, `e0_scatter` also at a width of 5; `cam_scatter_add`
+at R = 12, 121, 144 and 5 on each of its routes (N = 13 to 5000) in four
+row orders, with its guards on dead rows, a NaN, repeated calls and one
+device operation per call; the two
 Schur-Jacobi kernels on each of their routes (N = 13 to 1024) in two
 row orders, with their output's symmetry and one device operation per
 call; the composed terms' scatters (`e0_scatter_structured`,
@@ -683,6 +686,78 @@ def test_cam_kernels_match_plain_versions(cuda, n_cams, order):
             hpp = got[0].view(d, d, n_cams)
             assert torch.equal(hpp, hpp.transpose(0, 1))
     assert not any(bool(buf.any()) for buf in pk._SUMS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["drawn", "by_camera", "first_camera",
+                                   "camera_runs"])
+@pytest.mark.parametrize("n_cams", [13, 89, 300, 1024, 5000])
+def test_cam_scatter_add_routes_guards_and_repeats(cuda, n_cams, order):
+    """cam_scatter_add once per call, counted once, within the per-camera
+    tolerance, at R = 12, 121 and 144 (row groups of 12 and 11) and 5 (a
+    width with no instantiation of its own: one value a pass), on every
+    route: per-warp private copies (N = 13, 89), shared copies (N = 300,
+    1024; R = 121 at 5000: one copy of 11 N floats) and global atomics
+    (R = 12, 144 at N = 5000), on the rows as drawn, sorted by camera, with
+    each slot part's landmarks sorted by first camera and with the cameras
+    in runs of 64 rows (whole warps on one camera, which sum in a
+    reduce-scatter tree). Dead rows (zero operands, all on the last
+    camera, which no live row has) add exactly zero; a NaN makes its own
+    entry NaN and no other. Every call leaves the sums buffer zeroed:
+    calls at N and at a larger N in turns, and after the NaN, agree with
+    the plain version. A call is one device operation, the kernel (the
+    last block of each row group writes its rows of out)."""
+    t = _inputs(n_cams, cuda)
+    cam, live = t["cam"], t["mask"]
+    if order == "camera_runs":
+        cam = ((torch.arange(O, device=cuda) // 64) % n_cams).to(torch.int32)
+    rows = {"by_camera": torch.argsort(cam.long(), stable=True),
+            "first_camera": first_camera_rows(cam, PARTS)}.get(order)
+    if rows is not None:
+        cam, live = cam[rows].contiguous(), live[:, rows].contiguous()
+    rng = np.random.default_rng(n_cams)
+    dead = live[0] == 0
+    last = n_cams - 1
+    cam_dead = torch.where(dead, last, torch.where(cam == last, 0, cam)).to(
+        torch.int32)
+    for r in (12, 121, 144, 5):
+        v = torch.as_tensor(rng.standard_normal((r, O)), dtype=torch.float32,
+                            device=cuda) * live
+        wide = 2 * n_cams + 7
+        _close("cam_scatter_add", cam_kernels.cam_scatter_add(v, cam, wide),
+               cam_ref.cam_scatter_add(v, cam, wide), [CAM])
+        launches.reset_launch_counts()
+        got = cam_kernels.cam_scatter_add(v, cam, n_cams)
+        torch.cuda.synchronize()
+        assert launches.launch_counts()["cam_scatter_add"] == 1, r
+        _close("cam_scatter_add", got, cam_ref.cam_scatter_add(v, cam, n_cams),
+               [CAM])
+
+        got = cam_kernels.cam_scatter_add(v, cam_dead, n_cams)
+        assert bool(dead.any()) and bool((got[:, last] == 0).all()), r
+        _close("cam_scatter_add", got,
+               cam_ref.cam_scatter_add(v, cam_dead, n_cams), [CAM])
+
+        row, k = int(torch.nonzero(~dead)[0]), r // 2
+        nan = v.clone()
+        nan[k, row] = float("nan")
+        got = cam_kernels.cam_scatter_add(nan, cam, n_cams)
+        c = int(cam[row])
+        bad = torch.zeros_like(got, dtype=torch.bool)
+        bad[k, c] = True
+        assert bool(got[bad].isnan().all()), r
+        assert bool(got[~bad].isfinite().all()), r
+
+        _close("cam_scatter_add", cam_kernels.cam_scatter_add(v, cam, wide),
+               cam_ref.cam_scatter_add(v, cam, wide), [CAM])
+        _close("cam_scatter_add", cam_kernels.cam_scatter_add(v, cam, n_cams),
+               cam_ref.cam_scatter_add(v, cam, n_cams), [CAM])
+        assert not any(bool(buf.any()) for buf in pk._SUMS.values()), r
+        if n_cams == 89 and order == "drawn":
+            ops = _device_ops(lambda: cam_kernels.cam_scatter_add(v, cam,
+                                                                  n_cams))
+            assert len(ops) == 3 and all("cam_scatter_add_kernel" in op
+                                         for op in ops), (r, ops)
 
 
 @pytest.mark.cuda
