@@ -11,7 +11,8 @@ printing its lines and raising on failure (a failure exits non-zero and
 prints no result line):
 
 1. device     a CUDA device, its name and power limit (nvidia-smi);
-2. build      the twenty-seven kernels of povar_tpu_torch/csrc/ from
+2. build      the twenty-seven kernels of povar_tpu_torch/csrc/ (and
+              the f64 instantiations of the five camera-table ones) from
               source;
 3. kernels    each step-1 kernel (the fused term over the problem's slot
               parts; poba_t3 and apply_ldiff_stored of the
@@ -139,22 +140,50 @@ prints no result line):
               card against CPU; the warm step-1 and step-2 bench
               iterations of the mesh against the single-device composed
               term's;
-15. cli       `python -m povar_tpu_torch.cli` in a subprocess with
+15. f64       pure f64 (`mixed_precision_solves=False`, one device,
+              venice-89: the unstructured layout with f64 Jacobians,
+              solves and camera-table kernels): (a) the five f64
+              instantiations of the camera-table kernels against their
+              plain versions at both steps' shapes (cam_gather also on
+              step 2's 132-row tangent bases, cam_scatter_add also at
+              R = 144 / 121), at N = 1024, and on the routes the
+              venice-89 shapes do not take (hpp_b's private copies at
+              N = 32, the global route of cam_scatter_add and e0_scatter
+              at N = 6000): cam_gather and e0_u bit for bit, per-camera
+              sums within F64_CAM per camera, hpp symmetric bit for bit,
+              with their times, bounds and those of `index_select` /
+              `index_add_` in f64; (b) the venice-89 step 1 with
+              POWER_VARPROJ defaults and (c) with CHOLESKY (its time and
+              peak device memory; its final printed beside CHOL_BAND's
+              243.9676 and the f32-epsilon f64 diagnostic's 143.5694689,
+              neither a check), each on the card's kernels against the
+              same solve with the plain versions on the card; (d) step 2
+              (RIPOBA) from the homogenized result of (b), WITNESS_ITERS
+              iterations on the calm landmarks, the same way: identical
+              decisions and inner counts, accepted costs within F64_TOL;
+              (e) one `bundle_adjust` with pure-f64 defaults (counters
+              zeroed just before, read just after: the five f64
+              instantiations and the f64 cost kernels launched), accepted
+              costs falling, step 2 100x below its start; (f) the warm
+              step-1 and step-2 bench iterations in pure f64;
+16. cli       `python -m povar_tpu_torch.cli` in a subprocess with
               defaults, on tests/data/mini-bal-12-48-pre.txt and on the
               venice-89 problem written as BAL text, each after
               --create-dataset, venice-89 also with --mesh-devices 1:
               ba_log.json written, accepted costs strictly falling in
               both steps.
 
-The second-to-last line is {"kernels": [...]}: per kernel its route,
+The second-to-last line is {"kernels": [...]}: per kernel, and per f64
+instantiation of the camera-table kernels (`<name>_f64`), its route,
 source, replaced TPU kernel, launches in the first venice-89 run of the
 main path that runs it (`launches_run` names it), max abs error against
 the plain version, event times of kernel and plain version (the step-1
 shape where a kernel runs in both steps), the least time the card could
 take for the same call (`bound_ms`: the bytes the call must move at
 3.35 TB/s or its arithmetic at the peak rate of its type, whichever is
-larger) and `library_ms` (the event time of `index_select` for
-cam_gather, of `index_add_` for cam_scatter_add, of the strided view
+larger; in f64 for the f64 instantiations) and `library_ms` (the event
+time of `index_select` for cam_gather, of `index_add_` for
+cam_scatter_add, each in the kernel's type, of the strided view
 sum or broadcast for the three slot kernels; null for the others: no
 single PyTorch call computes their functions). The last line is
 {"ok": true, "device": {...}}. Needs the repository (the package and its
@@ -163,6 +192,7 @@ kernel sources) beside this file; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import statistics
@@ -242,6 +272,25 @@ CHOL_FIRST = 244.0243280214527
 CHOL_FIRST_TOL = 1e-4
 CHOL_SAME = 10
 CHOL_BAND = (0.59, 0.60)
+# pure f64 (the f64 phase): the venice-89 solves on the card's kernels
+# and on their plain versions on the card must take the same decisions
+# and inner counts, with every accepted cost within F64_TOL relative (f64
+# sums in other orders); the f64 instantiations' per-camera sums within
+# F64_CAM of their plain versions per camera. `step2_spread --f64 16` on
+# an H100 80GB HBM3 at 700 W (16 runs a side, each kernel run against
+# each plain run): POWER_VARPROJ's accepted costs at most 5.8e-11 apart,
+# RIPOBA's step 2 1.2e-15, CHOLESKY's 1.713e-9 (within one side 1.1e-11
+# on the kernels and 8.6e-11 on the plain versions: the kernels' order of
+# sums moves its ill-conditioned dense system the same way every run).
+# So CHOLESKY is held to F64_CHOL_TOL, twice its largest gap, and the
+# others to F64_TOL. CHOLESKY's step 1 in f64 with the f32 solves' Jacobi
+# epsilon (tools/step2_spread.py --chol-f64, on an H100 80GB HBM3 at
+# 700 W and on the CPU) ended at CHOL_F64_DIAGNOSTIC; pure f64 takes the
+# f64 epsilon, so the two are printed side by side, not compared.
+F64_TOL = 1e-9
+F64_CHOL_TOL = 3.43e-9
+F64_CAM = ("cam", 1e-12)
+CHOL_F64_DIAGNOSTIC = 143.5694689
 # each layout's f32 operators against their f64 evaluation at venice-89
 # scale (check_layouts), per step and per camera: b, Hpp, one E0 term and
 # the power-series increment. Two runs on an H100 80GB HBM3 at 700 W put
@@ -331,8 +380,11 @@ FLOPS_PER_OBS = {
     "e0_term2_parts": 80, "schur_diag2": 175, "poba_t3": 95,
     "apply_ldiff_stored": 110, "cam_gather": 0,
     # the camera-table kernels at their step-1 shapes (R = 12; (dl, dc) =
-    # (3, 12); (k, d) = (4, 12): b and the upper triangle, 90 sums)
+    # (3, 12); (k, d) = (4, 12): b and the upper triangle, 90 sums), and
+    # their f64 instantiations, counted at the f64 rate
     "cam_scatter_add": 12, "e0_u": 72, "e0_scatter": 84, "hpp_b": 720,
+    "cam_gather_f64": 0, "cam_scatter_add_f64": 12, "e0_u_f64": 72,
+    "e0_scatter_f64": 84, "hpp_b_f64": 720,
 }
 # the kernels each venice-89 run of the main path must launch
 STEP1_COMPOSED = {"prepare", "e0_factor", "hpp_b_structured",
@@ -358,7 +410,12 @@ STEP1_CHOL = {"cam_gather", "cam_scatter_add", "hpp_b", "pose_error"}
 # plan, as in the JAX package) and its three slot kernels
 SPMD = {"class_part_sums", "class_expand_rows", "class_reduce_reexpand"}
 FUSED_TERMS = {"e0_term_parts", "e0_term2_parts"}
+# pure f64: both steps on the unstructured layout through the f64
+# instantiations, the cost through the f64 cost kernels
+F64_PATH = {"cam_gather_f64", "cam_scatter_add_f64", "e0_u_f64",
+            "e0_scatter_f64", "hpp_b_f64", "pose_error", "pose_error2"}
 PATHS = {
+    "bundle_adjust f64": F64_PATH,
     "bundle_adjust spmd": STEP1_COMPOSED | STEP2_COMPOSED | SPMD,
     "bundle_adjust spmd PSC+RIPCG": (
         STEP1_COMPOSED - {"apply_ldiff"} | {"poba_t3", "apply_ldiff_stored"}
@@ -482,7 +539,8 @@ def bound_ms(name, inputs, outputs, n_obs, n_read=None):
         scale = (n_read if k > 0 else n_gate) / n_obs if per_obs else 1.0
         moved += t.numel() * t.element_size() * scale
     moved += sum(t.numel() * t.element_size() for t in _outputs(outputs))
-    dtype = torch.float64 if name in ("pose_error", "pose_error2") else torch.float32
+    dtype = (torch.float64 if name in ("pose_error", "pose_error2")
+             or name.endswith("_f64") else torch.float32)
     t_bytes = moved / HBM_BYTES_PER_S
     t_ops = FLOPS_PER_OBS[name] * n_read / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
@@ -834,14 +892,8 @@ def check_cam_kernels(solver, seed=2):
     cam_big = torch.as_tensor(rng.integers(0, nb, o).astype(np.int32),
                               device=dev)
     run_cases(ck, cr, cases(cam_big, nb, "N = 1024"), o, time_variants=True)
-    for k, d in ((4, 12), (2, 11)):
-        for c, n in ((cam, solver.n_cams), (cam_big, nb)):
-            hpp = ck.hpp_b(f32(k * d), f32(k), c, n)[0].view(d, d, n)
-            if not torch.equal(hpp, hpp.transpose(0, 1)):
-                raise AssertionError(f"hpp_b (k, d) = {(k, d)}, N = {n}: "
-                                     "hpp not symmetric bit for bit")
-    print("hpp_b: hpp symmetric bit for bit at both shapes, N = "
-          f"{solver.n_cams} and {nb}", flush=True)
+    for c, n in ((cam, solver.n_cams), (cam_big, nb)):
+        check_hpp_symmetric(ck, f32, c, n)
     # cam_scatter_add on the rows sorted by camera (whole warps on one
     # camera) and on its global route (seeded cameras over N = 6000: not
     # one copy of 11 N floats fits a block)
@@ -1676,6 +1728,32 @@ def check_chol_step1(label, summary, tpu=False):
     check_final(1, summary, JAX_CHOL_COSTS[-1], CHOL_BAND)
 
 
+def chol_solve_memory(problem, opts, label):
+    """One warm venice-89 CHOLESKY solve at lambda 1e-4 under `opts`
+    from the VarProj start: its time and peak device memory, printed."""
+    from povar_tpu_torch import Stage1Solver
+
+    s = Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                     problem.num_cameras, problem.num_landmarks, opts,
+                     device="cuda")
+    c = torch.as_tensor(problem.cam_space, device="cuda")
+    lin = s.linearize(c, s.initialize_varproj(c))
+    s.solve(lin, 1e-4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    inc, _n = s.solve(lin, 1e-4)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label} (venice-89, lambda 1e-4, warm): {secs * 1e3:.1f} ms, "
+          f"peak device memory {peak / 2**30:.3f} GiB "
+          f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} "
+          f"GiB held before), increment {inc.dtype}, finite: "
+          f"{bool(torch.isfinite(inc).all())}", flush=True)
+
+
 def check_unstructured(problem, counts):
     """The unstructured layout and CHOLESKY: `small_case` and
     `ring_pipeline` card against CPU with each; one venice-89 CHOLESKY
@@ -1701,23 +1779,7 @@ def check_unstructured(problem, counts):
     chol = SolverOptions(solver_type_step_1=SolverType.CHOLESKY)
     args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
             problem.num_cameras, problem.num_landmarks)
-    s = Stage1Solver(*args, chol, device="cuda")
-    c = torch.as_tensor(problem.cam_space, device="cuda")
-    lin = s.linearize(c, s.initialize_varproj(c))
-    s.solve(lin, 1e-4)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    inc, _n = s.solve(lin, 1e-4)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    print(f"CHOLESKY solve (venice-89, lambda 1e-4, warm): {secs * 1e3:.1f} "
-          f"ms, peak device memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f}"
-          f" GiB above the {base / 2**30:.3f} GiB held before), increment "
-          f"finite: {bool(torch.isfinite(inc).all())}", flush=True)
-    del s, lin, inc
+    chol_solve_memory(problem, chol, "CHOLESKY solve")
 
     # the JAX run's TPU arithmetic emulated: its decisions and final cost
     s = emulate_tpu_onehot(Stage1Solver(*args, chol, device="cuda"))
@@ -1761,6 +1823,241 @@ def check_unstructured(problem, counts):
                                      "start")
         if not all(np.isfinite(a).all() for a in (out.cam_space, out.lm_p_h)):
             raise AssertionError("non-finite optimized state")
+
+
+def check_cam_kernels_f64(solver, seed=5):
+    """(a) of the f64 phase: the five camera-table kernels' f64
+    instantiations on the venice-89 slot layout of `solver` with seeded
+    f64 operands, zeroed on the pad rows as the solvers' operands are,
+    against their plain versions on the card: at both steps' shapes
+    (the step-1 shape is the kernel's row, each timed beside
+    `index_select` / `index_add_` in f64), at N = 1024, and on the routes
+    venice-89 does not take (hpp_b at N = 32: private copies; N = 6000:
+    cam_scatter_add's and e0_scatter's global route). cam_gather and
+    e0_u bit for bit, per-camera sums within F64_CAM, hpp symmetric bit
+    for bit. Returns {name: result dict} of the f64 names."""
+    from povar_tpu_torch.ops import cam_kernels as ck
+    from povar_tpu_torch.ops import cam_ref as cr
+
+    rng = np.random.default_rng(seed)
+    dev = solver.device
+    cam, mask = solver.obs.cam, solver._mask1.double()
+    o = int(cam.shape[0])
+    n89 = solver.n_cams
+
+    def f64(rows, cols=None):
+        a = torch.as_tensor(rng.standard_normal((rows, cols or o)),
+                            dtype=torch.float64, device=dev)
+        return a if cols else a * mask
+
+    def seeded_cams(n):
+        return torch.as_tensor(rng.integers(0, n, o).astype(np.int32),
+                               device=dev)
+
+    def index_add(v, c, n):
+        c64 = c.long()
+        return lambda: torch.zeros((v.shape[0], n), dtype=v.dtype,
+                                   device=dev).index_add_(1, c64, v)
+
+    def gather(table, c):
+        c64 = c.long()
+        return lambda: table.index_select(1, c64)
+
+    def label(*parts):
+        return ", ".join(p for p in parts if p) or None
+
+    def cases(c, n, tag, kernels):
+        out = []
+        if "cam_gather" in kernels:
+            for r, lab in ((12, None), (132, "R = 132, step-2 bases")):
+                t = f64(r, n)
+                out.append(("cam_gather_f64", label(lab, tag),
+                            lambda m, t=t: m.cam_gather(t, c), [c, t],
+                            [EXACT], None, gather(t, c)))
+        if "cam_scatter_add" in kernels:
+            for r, lab in ((12, None), (144, "R = 144, step-1 Schur"),
+                           (121, "R = 121, step-2 Schur")):
+                v = f64(r)
+                out.append(("cam_scatter_add_f64", label(lab, tag),
+                            lambda m, v=v: m.cam_scatter_add(v, c, n),
+                            [c, v], [F64_CAM], None, index_add(v, c, n)))
+        for dc, lab in ((12, None), (11, "(dl, dc) = (3, 11)")):
+            w, x, sb = f64(3 * dc), f64(dc, n), f64(3)
+            if "e0_u" in kernels:
+                out.append(("e0_u_f64", label(lab, tag),
+                            lambda m, w=w, x=x: m.e0_u(w, c, x),
+                            [c, w, x], [EXACT], None))
+            if "e0_scatter" in kernels:
+                out.append(("e0_scatter_f64", label(lab, tag),
+                            lambda m, w=w, sb=sb: m.e0_scatter(w, c, sb, n),
+                            [c, w, sb], [F64_CAM], None))
+        if "hpp_b" in kernels:
+            for k, d, lab in ((4, 12, None), (2, 11, "(k, d) = (2, 11)")):
+                jp, rt = f64(k * d), f64(k)
+                out.append(("hpp_b_f64", label(lab, tag),
+                            lambda m, jp=jp, rt=rt: m.hpp_b(jp, rt, c, n),
+                            [c, jp, rt], [F64_CAM, F64_CAM], None))
+        return out
+
+    every = ("cam_gather", "cam_scatter_add", "e0_u", "e0_scatter", "hpp_b")
+    results = run_cases(ck, cr, cases(cam, n89, None, every), o,
+                        time_variants=True)
+    others = [(1024, "N = 1024", every),
+              (32, "N = 32, private copies", ("hpp_b",)),
+              (6000, "N = 6000, global route",
+               ("cam_scatter_add", "e0_scatter"))]
+    for n, tag, kernels in others:
+        c = seeded_cams(n)
+        run_cases(ck, cr, cases(c, n, tag, kernels), o, time_variants=True)
+        if "hpp_b" in kernels:
+            check_hpp_symmetric(ck, f64, c, n)
+    check_hpp_symmetric(ck, f64, cam, n89)
+    return results
+
+
+def check_hpp_symmetric(ck, operand, cam, n):
+    """hpp_b's hpp symmetric bit for bit at both shapes, for operands
+    made by `operand(rows)`."""
+    for k, d in ((4, 12), (2, 11)):
+        jp, rt = operand(k * d), operand(k)
+        hpp = ck.hpp_b(jp, rt, cam, n)[0].view(d, d, n)
+        if not torch.equal(hpp, hpp.transpose(0, 1)):
+            raise AssertionError(f"hpp_b {jp.dtype} (k, d) = {(k, d)}, "
+                                 f"N = {n}: hpp not symmetric bit for bit")
+    print(f"hpp_b {jp.dtype}: hpp symmetric bit for bit at both shapes, "
+          f"N = {n}", flush=True)
+
+
+def check_same_run(label, got, want, tol=F64_TOL):
+    """Raise unless the summaries `got` (the card's kernels) and `want`
+    (their plain versions on the card) took the same decisions and inner
+    counts, with every accepted cost (and the initial one) within `tol`
+    relative; print both. Returns the largest gap."""
+    dg = [(it.step_is_successful, it.linear_solver_iterations)
+          for it in got.iterations]
+    dw = [(it.step_is_successful, it.linear_solver_iterations)
+          for it in want.iterations]
+    gaps = [abs(g.cost.all.error - w.cost.all.error) / abs(w.cost.all.error)
+            for g, w in zip(got.iterations, want.iterations)
+            if g.step_is_successful or g is got.iterations[0]]
+    gap = max(gaps)
+    seq = "".join("A" if ok else "R" for ok, _n in dg[1:])
+    print(f"{label}: {len(dg)} records ({got.termination_type}), {seq}, "
+          f"inner {[n for _ok, n in dg[1:]]}; final "
+          f"{got.final_cost.all.error!r} (plain versions "
+          f"{want.final_cost.all.error!r}); same decisions and counts "
+          f"{dg == dw}, largest accepted-cost gap {gap:.3e} (tolerance "
+          f"{tol:g})", flush=True)
+    if dg != dw or not gap <= tol:
+        raise AssertionError(f"{label}: card kernels {dg} vs plain {dw}, "
+                             f"gap {gap:.3e} (> {tol:g})")
+    check_falling(label, [it.cost.all.error for it in got.iterations
+                          if it.step_is_successful])
+    return gap
+
+
+def check_f64(problem, counts):
+    """The pure-f64 phase (15 in the module docstring): (a) the five f64
+    instantiations, (b)-(d) the venice-89 solves card kernels against
+    card plain versions, (e) one `bundle_adjust` with pure-f64 defaults
+    (counters zeroed just before, kept in `counts`), (f) the warm bench
+    iterations. Returns the kernel results of (a)."""
+    from povar_tpu_torch import (
+        SolverOptions, SolverSummary, Stage1Solver, Stage2Solver, Timer,
+        create_homogeneous, optimize_step2,
+    )
+    from povar_tpu_torch.ops import launches
+    from povar_tpu_torch.options import SolverType
+    from povar_tpu_torch.tools.step2_spread import (
+        CALM, JAX_CHOL_COSTS, WITNESS_ITERS, calm_subproblem, plain_step1,
+    )
+
+    t_phase = time.perf_counter()
+    f64 = SolverOptions(mixed_precision_solves=False)
+    chol = SolverOptions(mixed_precision_solves=False,
+                         solver_type_step_1=SolverType.CHOLESKY)
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    probe = Stage1Solver(*args, f64, device="cuda")
+    if not (probe.unstructured and probe.solve_dtype == torch.float64
+            and probe.jacobi_eps == 1e-5):
+        raise AssertionError("pure f64: not the unstructured layout with f64 "
+                             "solves and the f64 Jacobi epsilon")
+    t0 = time.perf_counter()
+    results = check_cam_kernels_f64(probe)
+    print(f"(a) f64 kernels {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def step1(opts, plain):
+        with (plain_step1(cams=True) if plain else contextlib.nullcontext()):
+            return solve(problem, opts, "cuda")
+
+    runs = {}
+    for tag, opts in (("(b) POWER_VARPROJ", f64), ("(c) CHOLESKY", chol)):
+        t0 = time.perf_counter()
+        (got, out, _su, secs), (want, _o, _sp, secs_p) = (
+            step1(opts, plain) for plain in (False, True))
+        check_same_run(f"{tag} step 1, pure f64", got, want,
+                       F64_CHOL_TOL if opts is chol else F64_TOL)
+        runs[tag] = (got, out)
+        print(f"{tag}: {secs:.3f} s on the kernels, {secs_p:.3f} s on the "
+              f"plain versions ({time.perf_counter() - t0:.1f} s with "
+              "set-up)", flush=True)
+    final = runs["(c) CHOLESKY"][0].final_cost.all.error
+    print(f"(c) CHOLESKY pure f64 final {final!r}: {final / JAX_CHOL_COSTS[-1]:.6f}x "
+          f"CHOL_BAND's {JAX_CHOL_COSTS[-1]!r} (band {CHOL_BAND}), "
+          f"{final / CHOL_F64_DIAGNOSTIC:.6f}x the f32-epsilon f64 "
+          f"diagnostic's {CHOL_F64_DIAGNOSTIC!r}; recorded, not compared",
+          flush=True)
+
+    chol_solve_memory(problem, chol, "(c) CHOLESKY solve in f64")
+
+    t0 = time.perf_counter()
+    cams, lms = runs["(b) POWER_VARPROJ"][1]
+    cams_h, lms_h = create_homogeneous(cams, lms)
+    args2, lms_w = calm_subproblem(problem, cams_h, lms_h, CALM)
+    o2 = copy.deepcopy(f64)
+    o2.max_num_iterations_step_2 = WITNESS_ITERS
+    step2 = {}
+    for plain in (False, True):
+        s2 = Stage2Solver(*args2, o2, device="cuda")
+        summary = SolverSummary()
+        with (plain_step1(cams=True, step2=True) if plain
+              else contextlib.nullcontext()):
+            optimize_step2(s2, cams_h, lms_w, o2, summary, Timer(),
+                           log=lambda x: None)
+        step2[plain] = summary
+    check_same_run(f"(d) RIPOBA step 2 pure f64, {WITNESS_ITERS} iterations "
+                   f"on {args2[4]} calm landmarks", step2[False], step2[True])
+    print(f"(d) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    path = "bundle_adjust f64"
+    launches.reset_launch_counts()
+    out, p1, p2, secs = pipeline(problem, f64, "cuda")
+    counts[path] = launches.launch_counts()
+    print(f"-- (e) {path}: {secs:.3f} s, {len(p1.iterations)} + "
+          f"{len(p2.iterations)} records", flush=True)
+    check_counts(path, counts[path])
+    for step, summary in ((1, p1), (2, p2)):
+        its = summary.iterations
+        print(f"step {step}: {summary.solver_type}, "
+              f"{''.join('A' if it.step_is_successful else 'R' for it in its[1:])}"
+              f", inner {[it.linear_solver_iterations for it in its[1:]]}, "
+              f"initial {its[0].cost.all.error!r} final "
+              f"{summary.final_cost.all.error!r}", flush=True)
+        check_falling(f"{path} step {step}", [
+            it.cost.all.error for it in its if it.step_is_successful])
+    print(f"step 1 final against the mixed-precision JAX run's "
+          f"{JAX_FINAL_COST!r}: "
+          f"{p1.final_cost.all.error / JAX_FINAL_COST - 1.0:+.3e} (recorded, "
+          "not compared)", flush=True)
+    check_final(2, p2)
+    if not all(np.isfinite(a).all() for a in (out.cam_space, out.lm_p_h)):
+        raise AssertionError("non-finite optimized state")
+
+    bench_step1(problem, f64, "step-1 f64")
+    bench_step2(problem, f64, "step-2 f64")
+    print(f"f64 phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return results
 
 
 def spmd_library(name, x, layout):
@@ -2322,6 +2619,10 @@ def main() -> int:
     bench_step1(problem, off, "step-1 off")
     bench_step2(problem, off, "step-2 off")
 
+    phase("f64 (pure f64, mixed_precision_solves=False, one device, "
+          "venice-89)")
+    results.update(check_f64(problem, counts))
+
     phase("spmd (the SPMD window layout on a 1-device mesh, venice-89)")
     t0 = time.perf_counter()
     results.update(check_spmd_kernels(problem))
@@ -2339,9 +2640,10 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCES[m.__name__.split(".")[-1]],
-             replaces=REPLACES[name], launches=launched(name)[0],
-             launches_run=launched(name)[1], **results[name])
-        for m in launches.MODULES for name in m.KERNELS
+             replaces=REPLACES[name.removesuffix("_f64")],
+             launches=launched(name)[0], launches_run=launched(name)[1],
+             **results[name])
+        for m in launches.MODULES for name in m.LAUNCHES
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

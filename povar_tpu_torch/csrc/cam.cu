@@ -23,14 +23,25 @@
 // slot pad rows: unlike the TPU's incidence (stage1.make_obs folds the
 // pad mask into it), the camera index of a pad row is a real camera.
 //
+// Every kernel comes in two instantiations of its value type V: f32 (the
+// mixed-precision solves) and f64 (the pure-f64 ones, `mixed_precision_
+// solves=False`, where the JAX package runs these sums and gathers as f64
+// XLA ops). The f64 one computes in doubles what the f32 one computes in
+// floats: its operands, shared-memory copies, block sums and outputs are
+// f64. Where an f32 design choice does not carry over to doubles
+// (registers, shared memory) the f64 instantiation takes the simpler
+// route, as each kernel says.
+//
 // C interface as in pose1.cu: device pointers, sizes and the CUDA stream;
-// one launch; the cudaError_t of the launch is returned.
+// one launch; the cudaError_t of the launch is returned. The f64 entry
+// points are the f32 ones' names with `_f64` appended.
 
 #include "pose_common.cuh"
 
 using povar::add_rows;
 using povar::block_sums_done;
 using povar::drain_sums;
+using povar::dyn_smem;
 using povar::kThreads;
 using povar::launch_sums;
 using povar::Route;
@@ -45,13 +56,14 @@ namespace {
 // blockIdx.y: the block stages those rows of the [R, N] table in shared
 // memory, then each thread of a grid-stride loop over the observations
 // reads its camera index once and writes its column of the row block.
-// Bound: 4 B read and 4 R B written per observation (52 B at R = 12);
-// the table is read once per block.
+// Bound: 4 B read and 4 R B written per observation (52 B at R = 12;
+// 100 B in f64); the table is read once per block.
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
     cam_gather_kernel(const int32_t* __restrict__ cam,
-                      const float* __restrict__ table, float* __restrict__ out,
+                      const V* __restrict__ table, V* __restrict__ out,
                       int n_obs, int n_cams, int n_rows, int rows_per_block) {
-  extern __shared__ float smem[];
+  V* smem = dyn_smem<V>();
   const int r0 = blockIdx.y * rows_per_block;
   const int rows = min(rows_per_block, n_rows - r0);
   povar::smem_copy(smem, table + (size_t)r0 * n_cams, rows * n_cams);
@@ -66,21 +78,23 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------------ C3
 // u[i][o] = sum_j W[i dc + j][o] x[j][cam[o]], j in order, with the
-// [dc, N] table x staged in shared memory once per block.
-// Bound: (4 + 4 dl dc + 4 dl) B per observation.
+// [dc, N] table x staged in shared memory once per block (in f64 96 KB
+// at dc = 12, N = 1024: past the 48 KB default, so the launch opts in).
+// Bound: (4 + 4 dl dc + 4 dl) B per observation (twice the 4 in f64).
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-    e0_u_kernel(const int32_t* __restrict__ cam, const float* __restrict__ w,
-                const float* __restrict__ x, float* __restrict__ u, int n_obs,
+    e0_u_kernel(const int32_t* __restrict__ cam, const V* __restrict__ w,
+                const V* __restrict__ x, V* __restrict__ u, int n_obs,
                 int n_cams, int dl, int dc) {
-  extern __shared__ float xs[];
+  V* xs = dyn_smem<V>();
   povar::smem_copy(xs, x, dc * n_cams);
   __syncthreads();
   const int O = n_obs;
   POVAR_OBS_LOOP(o, O) {
     const int c = cam[o];
     for (int i = 0; i < dl; ++i) {
-      const float* wi = w + (size_t)i * dc * O + o;
-      float acc = wi[0] * xs[c];
+      const V* wi = w + (size_t)i * dc * O + o;
+      V acc = wi[0] * xs[c];
       for (int j = 1; j < dc; ++j) acc += wi[(size_t)j * O] * xs[j * n_cams + c];
       u[(size_t)i * O + o] = acc;
     }
@@ -92,46 +106,53 @@ __global__ void __launch_bounds__(kThreads)
 // are pose_common.cuh's.
 //
 // Block shapes: C4 in 512-thread blocks of private copies (16 x 12 N
-// floats fit up to N = 302), else 1024-thread blocks on shared copies
-// (up to N = 4842), else the global route; C5 in blocks of at most 8
-// warps with private copies while 4 fit (90 N floats each at (k, d) =
-// (4, 12): up to N = 161; 7 warps at N = 89), else 512-thread blocks on
-// shared copies (up to N = 645), else the global route.
+// floats fit up to N = 302, doubles up to N = 151), else 1024-thread
+// blocks on shared copies (up to N = 4842 / 2421), else the global route;
+// C5 in blocks of at most 8 warps with private copies while 4 fit (90 N
+// floats each at (k, d) = (4, 12): up to N = 161; 7 warps at N = 89;
+// doubles up to N = 80), else 512-thread blocks on shared copies (up to
+// N = 645; in f64 256-thread blocks, up to N = 322), else the global
+// route.
 constexpr int kE0sWarps = 16;
 constexpr int kE0sSharedThreads = 1024;
 constexpr int kHppWarps = 8;
 constexpr int kHppSharedThreads = 512;
+// f64: a row's 52 operands take 104 registers, which 512-thread blocks
+// (128 registers a thread) would spill
+constexpr int kHppSharedThreads64 = 256;
 
 __host__ __device__ constexpr int e0s_threads(Route r) {
   return r == Route::kPrivate ? 32 * kE0sWarps : kE0sSharedThreads;
 }
 
+template <typename V>
 __host__ __device__ constexpr int hpp_threads(Route r) {
-  return r == Route::kPrivate ? 32 * kHppWarps : kHppSharedThreads;
+  return r == Route::kPrivate ? 32 * kHppWarps
+         : sizeof(V) == sizeof(float) ? kHppSharedThreads
+                                      : kHppSharedThreads64;
 }
 
 // one observation's Jp block [K][D], r~ [K] and camera (zeros and
 // camera 0 past the last row)
-template <int K, int D>
+template <typename V, int K, int D>
 struct JpRow {
-  float j[K][D], r[K];
+  V j[K][D], r[K];
   int c;
   bool live;
 };
 
-template <int K, int D>
-__device__ __forceinline__ JpRow<K, D> load_row(const int32_t* cam,
-                                                const float* jp,
-                                                const float* rt, int o,
-                                                int n_obs) {
-  JpRow<K, D> x;
+template <typename V, int K, int D>
+__device__ __forceinline__ JpRow<V, K, D> load_row(const int32_t* cam,
+                                                   const V* jp, const V* rt,
+                                                   int o, int n_obs) {
+  JpRow<V, K, D> x;
   x.live = o < n_obs;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    x.r[k] = x.live ? __ldg(rt + (size_t)k * n_obs + o) : 0.0f;
+    x.r[k] = x.live ? __ldg(rt + (size_t)k * n_obs + o) : V(0);
 #pragma unroll
     for (int a = 0; a < D; ++a)
-      x.j[k][a] = x.live ? __ldg(jp + (size_t)(k * D + a) * n_obs + o) : 0.0f;
+      x.j[k][a] = x.live ? __ldg(jp + (size_t)(k * D + a) * n_obs + o) : V(0);
   }
   x.c = x.live ? cam[o] : 0;
   return x;
@@ -155,19 +176,19 @@ __device__ __forceinline__ JpRow<K, D> load_row(const int32_t* cam,
 // one shared copy per block 45, f32 cross-block sums 39.2, and the
 // blocks' f32 partials added by the last block in block order
 // (bit-reproducible) 75 (tools/cam_ab.py and PERF.md; NVIDIA H100 80GB
-// HBM3, 700 W).
-template <int kDc, Route R>
+// HBM3, 700 W). The f64 instantiation is the same pass in doubles.
+template <typename V, int kDc, Route R>
 __global__ void __launch_bounds__(e0s_threads(R))
     e0_scatter_kernel(const int32_t* __restrict__ cam,
-                      const float* __restrict__ w,
-                      const float* __restrict__ sb, float* __restrict__ out,
+                      const V* __restrict__ w,
+                      const V* __restrict__ sb, V* __restrict__ out,
                       double* __restrict__ acc_g, int n_obs, int n_cams,
                       int dl, int dc_run, int copies) {
   constexpr int kV = kDc > 0 ? kDc : 1;  // values a pass
   const int dc = kDc > 0 ? kDc : dc_run;
-  extern __shared__ float smem[];
+  V* smem = dyn_smem<V>();
   const int n_acc = dc * n_cams;
-  float* acc = warp_copy<R>(smem, copies, n_acc);
+  V* acc = warp_copy<R>(smem, copies, n_acc);
   const int O = n_obs;
   const int lane = threadIdx.x & 31;
   // warp-uniform trips: every lane reaches the warp's scatter
@@ -177,20 +198,20 @@ __global__ void __launch_bounds__(e0s_threads(R))
     const bool live = o < O;
     const int c = live ? cam[o] : 0;
     for (int j0 = 0; j0 < dc; j0 += kV) {
-      float v[kV];
+      V v[kV];
       if (live) {
-        const float s0 = sb[o];
+        const V s0 = sb[o];
 #pragma unroll
         for (int j = 0; j < kV; ++j) v[j] = w[(size_t)(j0 + j) * O + o] * s0;
         for (int i = 1; i < dl; ++i) {
-          const float si = sb[(size_t)i * O + o];
+          const V si = sb[(size_t)i * O + o];
 #pragma unroll
           for (int j = 0; j < kV; ++j)
             v[j] += w[(size_t)(i * dc + j0 + j) * O + o] * si;
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < kV; ++j) v[j] = 0.0f;
+        for (int j = 0; j < kV; ++j) v[j] = V(0);
       }
       add_rows<kV, R, double>(acc, acc_g, j0, n_cams, c,
                               povar::warp_peers(c, live), v);
@@ -199,7 +220,7 @@ __global__ void __launch_bounds__(e0s_threads(R))
   if (!block_sums_done<R, double, 32>(acc_g, smem, copies, n_acc, n_acc))
     return;
   drain_sums<double>(acc_g, n_acc,
-                     [&](int i, double s) { out[i] = (float)s; });
+                     [&](int i, double s) { out[i] = (V)s; });
 }
 
 // the largest divisor of n not above cap
@@ -250,67 +271,88 @@ __host__ __device__ constexpr int divisor_below(int n, int cap) {
 // in chunks of 15 (15 live, not 90) 160, without the next row's loads
 // 135, 4 or 3 warps' private copies a block 163 / 153 (tools/cam_ab.py
 // and PERF.md; NVIDIA H100 80GB HBM3, 700 W).
-template <int K, int D, Route R>
-__global__ void __launch_bounds__(hpp_threads(R))
-    hpp_b_kernel(const int32_t* __restrict__ cam, const float* __restrict__ jp,
-                 const float* __restrict__ rt, float* __restrict__ hpp,
-                 float* __restrict__ b, double* __restrict__ acc_g,
+// The f64 instantiation holds a row in 104 registers, so it takes the
+// chunks of 15 / 11 values on every route, loads no row ahead, runs its
+// shared copies in 256-thread blocks (f64 shared atomics: a compare-and-
+// swap loop) and sums all of a block's copies before one f64 atomic an
+// entry, into f64 sums.
+template <typename V>
+struct HppSums {  // the blocks' sums' type, and copies summed a flush
+  using type = float;
+  static constexpr int kGroup = 2;
+};
+
+template <>
+struct HppSums<double> {
+  using type = double;
+  static constexpr int kGroup = 32;
+};
+
+template <typename V, int K, int D, Route R>
+__global__ void __launch_bounds__(hpp_threads<V>(R))
+    hpp_b_kernel(const int32_t* __restrict__ cam, const V* __restrict__ jp,
+                 const V* __restrict__ rt, V* __restrict__ hpp,
+                 V* __restrict__ b, double* __restrict__ acc_g,
                  int n_obs, int n_cams, int copies) {
+  using S = typename HppSums<V>::type;
+  constexpr bool kF32 = sizeof(V) == sizeof(float);
   constexpr int kValues = D + D * (D + 1) / 2;
-  constexpr int kChunk =
-      R == Route::kPrivate ? kValues : divisor_below(kValues, 16);
-  constexpr bool kPrefetch = R == Route::kPrivate;
-  extern __shared__ float smem[];
+  constexpr int kChunk = R == Route::kPrivate && kF32
+                             ? kValues
+                             : divisor_below(kValues, 16);
+  constexpr bool kPrefetch = R == Route::kPrivate && kF32;
+  V* smem = dyn_smem<V>();
   const int n_acc = kValues * n_cams;
-  float* acc = warp_copy<R>(smem, copies, n_acc);
+  V* acc = warp_copy<R>(smem, copies, n_acc);
   const int O = n_obs;
   const int lane = threadIdx.x & 31;
   const int stride = gridDim.x * blockDim.x;
   // warp-uniform trips: every lane reaches the warp's scatter
   int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
-  JpRow<K, D> next;
-  if (kPrefetch) next = load_row<K, D>(cam, jp, rt, base + lane, O);
+  JpRow<V, K, D> next;
+  if (kPrefetch) next = load_row<V, K, D>(cam, jp, rt, base + lane, O);
   for (; base < O; base += stride) {
-    JpRow<K, D> x;
+    JpRow<V, K, D> x;
     if (kPrefetch) {
       x = next;
-      next = load_row<K, D>(cam, jp, rt, base + stride + lane, O);
+      next = load_row<V, K, D>(cam, jp, rt, base + stride + lane, O);
     } else {
-      x = load_row<K, D>(cam, jp, rt, base + lane, O);
+      x = load_row<V, K, D>(cam, jp, rt, base + lane, O);
     }
     const povar::WarpPeers peers = povar::warp_peers(x.c, x.live);
     // value t of the row goes to v[t % kChunk]; a full chunk is added
-    float v[kChunk];
+    V v[kChunk];
     int t = 0;
 #pragma unroll
     for (int a = 0; a < D; ++a) {
-      float s = x.j[0][a] * x.r[0];
+      V s = x.j[0][a] * x.r[0];
 #pragma unroll
       for (int k = 1; k < K; ++k) s += x.j[k][a] * x.r[k];
       v[t % kChunk] = s;
       if (++t % kChunk == 0)
-        add_rows<kChunk, R, float>(acc, acc_g, t - kChunk, n_cams, x.c,
-                                   peers, v);
+        add_rows<kChunk, R, S>(acc, acc_g, t - kChunk, n_cams, x.c, peers,
+                               v);
     }
 #pragma unroll
     for (int a = 0; a < D; ++a) {
 #pragma unroll
       for (int bb = a; bb < D; ++bb) {
-        float s = x.j[0][a] * x.j[0][bb];
+        V s = x.j[0][a] * x.j[0][bb];
 #pragma unroll
         for (int k = 1; k < K; ++k) s += x.j[k][a] * x.j[k][bb];
         v[t % kChunk] = s;
         if (++t % kChunk == 0)
-          add_rows<kChunk, R, float>(acc, acc_g, t - kChunk, n_cams, x.c,
-                                     peers, v);
+          add_rows<kChunk, R, S>(acc, acc_g, t - kChunk, n_cams, x.c,
+                                 peers, v);
       }
     }
   }
-  if (!block_sums_done<R, float, 2>(acc_g, smem, copies, n_acc, n_acc))
+  if (!block_sums_done<R, S, HppSums<V>::kGroup>(acc_g, smem, copies, n_acc,
+                                                 n_acc))
     return;
-  drain_sums<float>(acc_g, n_acc, [&](int i, float s) {
+  drain_sums<S>(acc_g, n_acc, [&](int i, S s) {
     const int row = i / n_cams, c = i - row * n_cams;
-    const float x = (float)s;
+    const V x = (V)s;
     if (row < D) {
       b[row * n_cams + c] = x;
       return;
@@ -330,7 +372,7 @@ __global__ void __launch_bounds__(hpp_threads(R))
 // groups of `group` rows (12 or 11, one chunk of K = group values a row;
 // any other R: its largest divisor up to 12, in chunks of one value),
 // one group per blockIdx.y, each group a one-pass sum over the
-// observations into the route's copies of [group, N] floats (warp_peers,
+// observations into the route's copies of [group, N] values (warp_peers,
 // add_rows; a warp whose live lanes all sit on one camera sums in a
 // reduce-scatter tree, warp_reduce_scatter16, and six lanes add two sums
 // each). The blocks of a group meet in their own `group` N sums of type
@@ -344,6 +386,8 @@ constexpr size_t kC2StaticSmem = 128;
 // the type the blocks' sums meet in
 using C2Sum = double;
 // resident blocks an SM the private route's registers are bounded for
+// (f32; the f64 instantiation's 16 copies of 12 N doubles leave room for
+// one)
 constexpr int kC2MinBlocks = 2;
 // L2 reads in flight per thread in the last block's drain
 constexpr int kC2Drain = 8;
@@ -391,22 +435,26 @@ __device__ __forceinline__ void c2_red(float* p, float v) { atomicAdd(p, v); }
 // CHOLESKY step-1 solves with them, 32 with f32 sums and 32 with the
 // earlier kernel all ended inside chip_smoke.py's CHOL_BAND, and 16
 // "off" step-1 solves of each within 1e-3 of the JAX run's cost
-// (tools/cam_ab.py spread).
-template <int K, Route R, typename T>
+// (tools/cam_ab.py spread). The f64 instantiation is the same pass in
+// doubles (its shared copies' adds: f64 shared atomics, a compare-and-
+// swap loop).
+template <typename V, int K, Route R, typename T>
 __global__ void __launch_bounds__(c2_threads(R),
-                                  R == Route::kPrivate ? kC2MinBlocks : 1)
+                                  R == Route::kPrivate &&
+                                          sizeof(V) == sizeof(float)
+                                      ? kC2MinBlocks
+                                      : 1)
     cam_scatter_add_kernel(const int32_t* __restrict__ cam,
-                           const float* __restrict__ v,
-                           float* __restrict__ out,
+                           const V* __restrict__ v, V* __restrict__ out,
                            double* __restrict__ acc_g, int n_obs,
                            int n_cams, int group, int copies) {
-  extern __shared__ float smem[];
+  V* smem = dyn_smem<V>();
   const int O = n_obs;
   const int n_acc = group * n_cams;
   const int r0 = blockIdx.y * group;
-  const float* vg = v + (size_t)r0 * O;
+  const V* vg = v + (size_t)r0 * O;
   double* sums = acc_g + (size_t)blockIdx.y * (n_acc + 1);  // then a ticket
-  float* acc = warp_copy<R>(smem, copies, n_acc);
+  V* acc = warp_copy<R>(smem, copies, n_acc);
   const int lane = threadIdx.x & 31;
   // warp-uniform trips: every lane reaches the warp's sums
   for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < O;
@@ -414,11 +462,11 @@ __global__ void __launch_bounds__(c2_threads(R),
     const int o = base + lane;
     const bool live = o < O;
     const int c = live ? __ldg(cam + o) : 0;
-    float x[K];
+    V x[K];
     const auto load = [&](int j0) {
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        x[k] = live ? __ldg(vg + (size_t)(j0 + k) * O + o) : 0.0f;
+        x[k] = live ? __ldg(vg + (size_t)(j0 + k) * O + o) : V(0);
     };
     load(0);
     const povar::WarpPeers peers = povar::warp_peers(c, live);
@@ -428,7 +476,7 @@ __global__ void __launch_bounds__(c2_threads(R),
     const int cu = __shfl_sync(povar::kFullMask, c, __ffs(leads) - 1);
     for (int j0 = 0;;) {
       if (tree) {
-        float s[2];
+        V s[2];
         povar::warp_reduce_scatter16(x, s);
         if (R == Route::kPrivate) __syncwarp();  // after the last walk's adds
 #pragma unroll
@@ -454,34 +502,34 @@ __global__ void __launch_bounds__(c2_threads(R),
     // the block's copies summed per entry, then to the group's sums
     __syncthreads();
     for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
-      float s = smem[i];
+      V s = smem[i];
       for (int k = 1; k < copies; ++k) s += smem[k * n_acc + i];
       if (s != 0.0f) c2_red(reinterpret_cast<T*>(sums) + i, (T)s);
     }
   }
   if (!povar::last_block(povar::ticket_of(sums, n_acc))) return;
-  float* rows = out + (size_t)r0 * n_cams;
+  V* rows = out + (size_t)r0 * n_cams;
   drain_sums<T, kC2Drain>(sums, n_acc,
-                          [&](int i, T s) { rows[i] = (float)s; });
+                          [&](int i, T s) { rows[i] = (V)s; });
 }
 
 // Launch C2 with the K-value chunks of `group` rows: the route for one
 // group's [group, N] copies (sums_plan), one wave of blocks over all
 // groups
-template <int K>
-int launch_cam_scatter_add(const int32_t* cam, const float* v, float* out,
+template <typename V, int K>
+int launch_cam_scatter_add(const int32_t* cam, const V* v, V* out,
                            double* acc, int n_obs, int n_cams, int n_rows,
                            int group, void* stream) {
   const SumsPlan p =
       sums_plan(group, n_cams, kC2Warps, kC2MinWarps, kC2SharedThreads,
-                kC2StaticSmem);
-  void (*kernel)(const int32_t*, const float*, float*, double*, int, int,
-                 int, int) =
+                kC2StaticSmem, sizeof(V));
+  void (*kernel)(const int32_t*, const V*, V*, double*, int, int, int,
+                 int) =
       p.route == Route::kPrivate
-          ? &cam_scatter_add_kernel<K, Route::kPrivate, C2Sum>
+          ? &cam_scatter_add_kernel<V, K, Route::kPrivate, C2Sum>
       : p.route == Route::kShared
-          ? &cam_scatter_add_kernel<K, Route::kShared, C2Sum>
-          : &cam_scatter_add_kernel<K, Route::kGlobal, C2Sum>;
+          ? &cam_scatter_add_kernel<V, K, Route::kShared, C2Sum>
+          : &cam_scatter_add_kernel<V, K, Route::kGlobal, C2Sum>;
   const int groups = n_rows / group;
   int grid = 0;
   const cudaError_t err = povar::grid_for_block(
@@ -494,108 +542,146 @@ int launch_cam_scatter_add(const int32_t* cam, const float* v, float* out,
   return (int)cudaGetLastError();
 }
 
-template <int kDc>
-int launch_e0_scatter(const int32_t* cam, const float* w, const float* sb,
-                      float* out, double* acc, int n_obs, int n_cams, int dl,
-                      int dc, void* stream) {
+template <typename V, int kDc>
+int launch_e0_scatter(const int32_t* cam, const V* w, const V* sb, V* out,
+                      double* acc, int n_obs, int n_cams, int dl, int dc,
+                      void* stream) {
   return launch_sums(
-      sums_plan(dc, n_cams, kE0sWarps, kE0sWarps, kE0sSharedThreads),
-      e0_scatter_kernel<kDc, Route::kPrivate>,
-      e0_scatter_kernel<kDc, Route::kShared>,
-      e0_scatter_kernel<kDc, Route::kGlobal>, n_obs, stream, cam, w, sb, out,
-      acc, n_obs, n_cams, dl, dc);
+      sums_plan(dc, n_cams, kE0sWarps, kE0sWarps, kE0sSharedThreads, 0,
+                sizeof(V)),
+      e0_scatter_kernel<V, kDc, Route::kPrivate>,
+      e0_scatter_kernel<V, kDc, Route::kShared>,
+      e0_scatter_kernel<V, kDc, Route::kGlobal>, n_obs, stream, cam, w, sb,
+      out, acc, n_obs, n_cams, dl, dc);
 }
 
-template <int K, int D>
-int launch_hpp_b(const int32_t* cam, const float* jp, const float* rt,
-                 float* hpp, float* b, double* acc, int n_obs, int n_cams,
-                 void* stream) {
+template <typename V, int K, int D>
+int launch_hpp_b(const int32_t* cam, const V* jp, const V* rt, V* hpp, V* b,
+                 double* acc, int n_obs, int n_cams, void* stream) {
   return launch_sums(
-      sums_plan(D + D * (D + 1) / 2, n_cams, kHppWarps, 4, kHppSharedThreads),
-      hpp_b_kernel<K, D, Route::kPrivate>, hpp_b_kernel<K, D, Route::kShared>,
-      hpp_b_kernel<K, D, Route::kGlobal>, n_obs, stream, cam, jp, rt, hpp, b,
-      acc, n_obs, n_cams);
+      sums_plan(D + D * (D + 1) / 2, n_cams, kHppWarps, 4,
+                hpp_threads<V>(Route::kShared), 0, sizeof(V)),
+      hpp_b_kernel<V, K, D, Route::kPrivate>,
+      hpp_b_kernel<V, K, D, Route::kShared>,
+      hpp_b_kernel<V, K, D, Route::kGlobal>, n_obs, stream, cam, jp, rt, hpp,
+      b, acc, n_obs, n_cams);
 }
 
-}  // namespace
-
-extern "C" {
-
+// ------------------------------------- the entry points' bodies, f32 or f64
 // rows_per_block: how many table rows one block stages (the caller picks
-// it so that rows_per_block * n_cams floats fit a block's shared memory)
-int povar_cam_gather(const int32_t* cam, const float* table, float* out,
-                     int n_obs, int n_cams, int n_rows, int rows_per_block,
-                     void* stream) {
+// it so that rows_per_block * n_cams values fit a block's shared memory)
+template <typename V>
+int cam_gather(const int32_t* cam, const V* table, V* out, int n_obs,
+               int n_cams, int n_rows, int rows_per_block, void* stream) {
   if (n_obs <= 0 || n_cams <= 0 || n_rows <= 0 || rows_per_block <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)rows_per_block * n_cams;
+  const size_t smem = sizeof(V) * (size_t)rows_per_block * n_cams;
   int grid = 0;
-  cudaError_t err = povar::grid_for(cam_gather_kernel, n_obs, smem, &grid);
+  cudaError_t err = povar::grid_for(cam_gather_kernel<V>, n_obs, smem, &grid);
   if (err != cudaSuccess) return (int)err;
   const dim3 blocks(grid, (n_rows + rows_per_block - 1) / rows_per_block);
-  cam_gather_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  cam_gather_kernel<V><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       cam, table, out, n_obs, n_cams, n_rows, rows_per_block);
   return (int)cudaGetLastError();
 }
 
 // out: [n_rows, n_cams]; acc: n_rows * (n_cams + 1) doubles, zero (every
 // call leaves them zero): each row group's sums, then its ticket
-int povar_cam_scatter_add(const int32_t* cam, const float* v, float* out,
-                          double* acc, int n_obs, int n_cams, int n_rows,
-                          void* stream) {
+template <typename V>
+int cam_scatter_add(const int32_t* cam, const V* v, V* out, double* acc,
+                    int n_obs, int n_cams, int n_rows, void* stream) {
   if (n_obs <= 0 || n_cams <= 0 || n_rows <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_rows % 12 == 0)
-    return launch_cam_scatter_add<12>(cam, v, out, acc, n_obs, n_cams,
-                                      n_rows, 12, stream);
+    return launch_cam_scatter_add<V, 12>(cam, v, out, acc, n_obs, n_cams,
+                                         n_rows, 12, stream);
   if (n_rows % 11 == 0)
-    return launch_cam_scatter_add<11>(cam, v, out, acc, n_obs, n_cams,
-                                      n_rows, 11, stream);
-  return launch_cam_scatter_add<1>(cam, v, out, acc, n_obs, n_cams, n_rows,
-                                   divisor_below(n_rows, 12), stream);
+    return launch_cam_scatter_add<V, 11>(cam, v, out, acc, n_obs, n_cams,
+                                         n_rows, 11, stream);
+  return launch_cam_scatter_add<V, 1>(cam, v, out, acc, n_obs, n_cams,
+                                      n_rows, divisor_below(n_rows, 12),
+                                      stream);
 }
 
-int povar_cam_e0_u(const int32_t* cam, const float* w, const float* x,
-                   float* u, int n_obs, int n_cams, int dl, int dc,
-                   void* stream) {
+template <typename V>
+int e0_u(const int32_t* cam, const V* w, const V* x, V* u, int n_obs,
+         int n_cams, int dl, int dc, void* stream) {
   if (dl <= 0 || dc <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)dc * n_cams;
-  return povar::launch(e0_u_kernel, n_obs, smem, stream, cam, w, x, u, n_obs,
-                       n_cams, dl, dc);
+  const size_t smem = sizeof(V) * (size_t)dc * n_cams;
+  return povar::launch(e0_u_kernel<V>, n_obs, smem, stream, cam, w, x, u,
+                       n_obs, n_cams, dl, dc);
 }
 
 // out: [dc, n_cams] (dc 12 and 11, both steps' camera dimensions, in one
 // pass a row; any other dc a value at a time); acc: dc * n_cams + 1
 // doubles, zero (every call leaves them zero)
-int povar_cam_e0_scatter(const int32_t* cam, const float* w, const float* sb,
-                         float* out, double* acc, int n_obs, int n_cams,
-                         int dl, int dc, void* stream) {
+template <typename V>
+int e0_scatter(const int32_t* cam, const V* w, const V* sb, V* out,
+               double* acc, int n_obs, int n_cams, int dl, int dc,
+               void* stream) {
   if (n_obs <= 0 || n_cams <= 0 || dl <= 0 || dc <= 0)
     return (int)cudaErrorInvalidValue;
   if (dc == 12)
-    return launch_e0_scatter<12>(cam, w, sb, out, acc, n_obs, n_cams, dl, dc,
-                                 stream);
+    return launch_e0_scatter<V, 12>(cam, w, sb, out, acc, n_obs, n_cams, dl,
+                                    dc, stream);
   if (dc == 11)
-    return launch_e0_scatter<11>(cam, w, sb, out, acc, n_obs, n_cams, dl, dc,
+    return launch_e0_scatter<V, 11>(cam, w, sb, out, acc, n_obs, n_cams, dl,
+                                    dc, stream);
+  return launch_e0_scatter<V, 0>(cam, w, sb, out, acc, n_obs, n_cams, dl, dc,
                                  stream);
-  return launch_e0_scatter<0>(cam, w, sb, out, acc, n_obs, n_cams, dl, dc,
-                              stream);
 }
 
 // hpp: [d d, n_cams], b: [d, n_cams]; (k, d) is (4, 12) (step 1) or
 // (2, 11) (step 2); acc: (d + d (d + 1) / 2) n_cams + 1 doubles, zero
 // (every call leaves them zero)
-int povar_cam_hpp_b(const int32_t* cam, const float* jp, const float* rt,
-                    float* hpp, float* b, double* acc, int n_obs, int n_cams,
-                    int k, int d, void* stream) {
+template <typename V>
+int hpp_b(const int32_t* cam, const V* jp, const V* rt, V* hpp, V* b,
+          double* acc, int n_obs, int n_cams, int k, int d, void* stream) {
   if (n_obs <= 0 || n_cams <= 0) return (int)cudaErrorInvalidValue;
   if (k == 4 && d == 12)
-    return launch_hpp_b<4, 12>(cam, jp, rt, hpp, b, acc, n_obs, n_cams,
-                               stream);
+    return launch_hpp_b<V, 4, 12>(cam, jp, rt, hpp, b, acc, n_obs, n_cams,
+                                  stream);
   if (k == 2 && d == 11)
-    return launch_hpp_b<2, 11>(cam, jp, rt, hpp, b, acc, n_obs, n_cams,
-                               stream);
+    return launch_hpp_b<V, 2, 11>(cam, jp, rt, hpp, b, acc, n_obs, n_cams,
+                                  stream);
   return (int)cudaErrorInvalidValue;
 }
 
+}  // namespace
+
+// the f32 entry points, then the f64 ones (`_f64`), with the same
+// arguments in the other type
+#define POVAR_CAM_ENTRIES(V, SUFFIX)                                        \
+  int povar_cam_gather##SUFFIX(const int32_t* cam, const V* table, V* out,  \
+                               int n_obs, int n_cams, int n_rows,           \
+                               int rows_per_block, void* stream) {          \
+    return cam_gather(cam, table, out, n_obs, n_cams, n_rows,               \
+                      rows_per_block, stream);                              \
+  }                                                                         \
+  int povar_cam_scatter_add##SUFFIX(const int32_t* cam, const V* v, V* out, \
+                                    double* acc, int n_obs, int n_cams,     \
+                                    int n_rows, void* stream) {             \
+    return cam_scatter_add(cam, v, out, acc, n_obs, n_cams, n_rows,         \
+                           stream);                                         \
+  }                                                                         \
+  int povar_cam_e0_u##SUFFIX(const int32_t* cam, const V* w, const V* x,    \
+                             V* u, int n_obs, int n_cams, int dl, int dc,   \
+                             void* stream) {                                \
+    return e0_u(cam, w, x, u, n_obs, n_cams, dl, dc, stream);               \
+  }                                                                         \
+  int povar_cam_e0_scatter##SUFFIX(const int32_t* cam, const V* w,          \
+                                   const V* sb, V* out, double* acc,        \
+                                   int n_obs, int n_cams, int dl, int dc,   \
+                                   void* stream) {                          \
+    return e0_scatter(cam, w, sb, out, acc, n_obs, n_cams, dl, dc, stream); \
+  }                                                                         \
+  int povar_cam_hpp_b##SUFFIX(const int32_t* cam, const V* jp, const V* rt, \
+                              V* hpp, V* b, double* acc, int n_obs,         \
+                              int n_cams, int k, int d, void* stream) {     \
+    return hpp_b(cam, jp, rt, hpp, b, acc, n_obs, n_cams, k, d, stream);    \
+  }
+
+extern "C" {
+POVAR_CAM_ENTRIES(float, )
+POVAR_CAM_ENTRIES(double, _f64)
 }  // extern "C"

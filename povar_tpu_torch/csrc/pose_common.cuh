@@ -46,8 +46,26 @@ __device__ __forceinline__ void smem_copy(T* dst, const T* __restrict__ src,
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
-__device__ __forceinline__ void smem_zero(float* dst, int count) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = 0.0f;
+template <typename T>
+__device__ __forceinline__ void smem_zero(T* dst, int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = T(0);
+}
+
+// The kernel's dynamic shared memory as an array of V (float or double:
+// the camera-table kernels of csrc/cam.cu come in both)
+template <typename V>
+__device__ __forceinline__ V* dyn_smem();
+
+template <>
+__device__ __forceinline__ float* dyn_smem<float>() {
+  extern __shared__ float dyn_smem_f32[];
+  return dyn_smem_f32;
+}
+
+template <>
+__device__ __forceinline__ double* dyn_smem<double>() {
+  extern __shared__ double dyn_smem_f64[];
+  return dyn_smem_f64;
 }
 
 // one global atomic per non-zero accumulator entry (adding an exact
@@ -85,7 +103,9 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // several calls (csrc/cam.cu's hpp_b adds 90 values a row): warp_peers
 // matches the lanes on one camera once, and warp_scatter_rows then sums
 // K values over those peers and adds them into rows 0..K-1 of `acc` at
-// column c (the caller offsets acc to its first row).
+// column c (the caller offsets acc to its first row). The values are of
+// type V (f32, or f64 in the f64 camera-table kernels), the accumulator
+// of type T.
 struct WarpPeers {
   unsigned rest;  // a lead's peers above it, in lane order; 0 elsewhere
   bool lead;      // the lowest live lane of its camera
@@ -100,17 +120,17 @@ __device__ __forceinline__ WarpPeers warp_peers(int c, bool live) {
   return {lead ? peers & (peers - 1u) : 0u, lead};
 }
 
-template <int K, bool kAtomic = true, typename T = float>
+template <int K, bool kAtomic = true, typename T = float, typename V = float>
 __device__ __forceinline__ void warp_scatter_rows(T* acc, int n, int c,
                                                   const WarpPeers& p,
-                                                  float (&v)[K]) {
+                                                  V (&v)[K]) {
   const int lane = threadIdx.x & 31;
   unsigned rest = p.rest;
   while (__any_sync(kFullMask, rest != 0u)) {
     const int src = rest ? __ffs(rest) - 1 : lane;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const float t = __shfl_sync(kFullMask, v[k], src);
+      const V t = __shfl_sync(kFullMask, v[k], src);
       if (rest) v[k] += t;
     }
     rest &= rest - 1u;
@@ -129,9 +149,9 @@ __device__ __forceinline__ void warp_scatter_rows(T* acc, int n, int c,
   }
 }
 
-template <int K, bool kAtomic = true, typename T = float>
+template <int K, bool kAtomic = true, typename T = float, typename V = float>
 __device__ __forceinline__ void warp_scatter(T* acc, int n, int c, bool live,
-                                             float (&v)[K]) {
+                                             V (&v)[K]) {
   if (!__any_sync(kFullMask, live)) return;
   warp_scatter_rows<K, kAtomic, T>(acc, n, c, warp_peers(c, live), v);
 }
@@ -162,6 +182,8 @@ __device__ __forceinline__ bool last_block(unsigned* ticket,
 //             warp w's group with shared atomics (a compare-and-swap loop
 //             on this card);
 //   kGlobal   none: every value goes to a global atomic in acc_g.
+// The copies are of the values' type: f32, or f64 in the f64 camera-table
+// kernels of csrc/cam.cu (whose values, copies and sums are all f64).
 // The lanes of a warp on one camera first sum their values in lane order
 // (warp_peers / warp_scatter_rows), so no two lanes of a warp ever add to
 // one address. A block then adds its copies per entry and sends the
@@ -172,11 +194,10 @@ __device__ __forceinline__ bool last_block(unsigned* ticket,
 // zeroed once).
 enum class Route { kPrivate, kShared, kGlobal };
 
-// this warp's accumulator copy of `n_acc` floats, zeroed; null on the
+// this warp's accumulator copy of `n_acc` entries, zeroed; null on the
 // global route (all of the block's threads must call it)
-template <Route R>
-__device__ __forceinline__ float* warp_copy(float* smem, int copies,
-                                            int n_acc) {
+template <Route R, typename A>
+__device__ __forceinline__ A* warp_copy(A* smem, int copies, int n_acc) {
   if (R == Route::kGlobal) return nullptr;
   smem_zero(smem, copies * n_acc);
   __syncthreads();
@@ -186,10 +207,10 @@ __device__ __forceinline__ float* warp_copy(float* smem, int copies,
 // the K values v of this lane's row into rows row0 .. row0 + K - 1 of
 // this warp's accumulator (on the global route: the sums, of type T, in
 // acc_g) at column c
-template <int K, Route R, typename T>
-__device__ __forceinline__ void add_rows(float* acc, double* acc_g, int row0,
+template <int K, Route R, typename T, typename A>
+__device__ __forceinline__ void add_rows(A* acc, double* acc_g, int row0,
                                          int n, int c, const WarpPeers& p,
-                                         float (&v)[K]) {
+                                         A (&v)[K]) {
   if (R == Route::kGlobal)
     warp_scatter_rows<K, true, T>(reinterpret_cast<T*>(acc_g) + row0 * n, n,
                                   c, p, v);
@@ -202,11 +223,12 @@ __device__ __forceinline__ unsigned* ticket_of(double* acc_g, int count) {
 }
 
 // Once the block's warps have added every row: the block's copies, in
-// groups of kGroup summed per entry (f32), go to global atomics into the
-// [count] sums of type T at acc_g (all of the block's threads must call
-// it; nothing on the global route, whose values went there directly).
-template <Route R, typename T, int kGroup>
-__device__ __forceinline__ void flush_copies(double* acc_g, const float* smem,
+// groups of kGroup summed per entry (in the copies' type A), go to global
+// atomics into the [count] sums of type T at acc_g (all of the block's
+// threads must call it; nothing on the global route, whose values went
+// there directly).
+template <Route R, typename T, int kGroup, typename A>
+__device__ __forceinline__ void flush_copies(double* acc_g, const A* smem,
                                              int copies, int n_acc,
                                              int count) {
   if (R == Route::kGlobal) return;
@@ -214,7 +236,7 @@ __device__ __forceinline__ void flush_copies(double* acc_g, const float* smem,
   __syncthreads();
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
     for (int k0 = 0; k0 < copies; k0 += kGroup) {
-      float s = smem[k0 * n_acc + i];
+      A s = smem[k0 * n_acc + i];
 #pragma unroll
       for (int k = 1; k < kGroup; ++k)
         if (k0 + k < copies) s += smem[(k0 + k) * n_acc + i];
@@ -226,10 +248,10 @@ __device__ __forceinline__ void flush_copies(double* acc_g, const float* smem,
 // flush_copies, then true in the last block to take the ticket behind
 // the sums (at acc_g + count doubles), which then holds every block's
 // sums (all of the block's threads must call it)
-template <Route R, typename T, int kGroup>
-__device__ __forceinline__ bool block_sums_done(double* acc_g,
-                                                const float* smem, int copies,
-                                                int n_acc, int count) {
+template <Route R, typename T, int kGroup, typename A>
+__device__ __forceinline__ bool block_sums_done(double* acc_g, const A* smem,
+                                                int copies, int n_acc,
+                                                int count) {
   flush_copies<R, T, kGroup>(acc_g, smem, copies, n_acc, count);
   return last_block(ticket_of(acc_g, count));
 }
@@ -429,13 +451,12 @@ __device__ __forceinline__ void schur_moments(const float H[6],
 
 // One exchange of warp_reduce_scatter: w[0..2 W) to w[0..W), the half
 // this lane's bit W / 2 selects, plus its partner's other half
-template <int W>
-__device__ __forceinline__ void reduce_scatter_step(float (&w)[32],
-                                                    int lane) {
+template <int W, typename V>
+__device__ __forceinline__ void reduce_scatter_step(V (&w)[32], int lane) {
   const bool hi = lane & (W / 2);
 #pragma unroll
   for (int k = 0; k < W; ++k) {
-    const float a = w[k], b = w[k + W];
+    const V a = w[k], b = w[k + W];
     w[k] = (hi ? b : a) + __shfl_xor_sync(kFullMask, hi ? a : b, W / 2);
   }
 }
@@ -472,15 +493,16 @@ __device__ __forceinline__ void warp_reduce_scatter(const float (&v)[K],
 // 1; 14 shuffles) leave lane l with its group's sums of values
 // 2 (l mod 8) and 2 (l mod 8) + 1, and two butterfly steps (offsets 8,
 // 16) add the four groups' (18 shuffles a lane, not a walk's 31 K). All
-// lanes of the warp must call it.
-template <int K>
-__device__ __forceinline__ void warp_reduce_scatter16(const float (&v)[K],
-                                                      float (&sum)[2]) {
+// lanes of the warp must call it. V: float, or double in the f64
+// camera-table kernels.
+template <int K, typename V>
+__device__ __forceinline__ void warp_reduce_scatter16(const V (&v)[K],
+                                                      V (&sum)[2]) {
   static_assert(K <= 16, "16 values a warp");
   const int lane = threadIdx.x & 31;
-  float w[32];
+  V w[32];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) w[k] = k < K ? v[k] : 0.0f;
+  for (int k = 0; k < 16; ++k) w[k] = k < K ? v[k] : V(0);
   reduce_scatter_step<8>(w, lane);
   reduce_scatter_step<4>(w, lane);
   reduce_scatter_step<2>(w, lane);
@@ -930,10 +952,11 @@ int launch_tiles(KPrivate private_kernel, KShared shared_kernel, int n_parts,
                             args...);
 }
 
-// A per-camera sum kernel's route and block shape for `rows` f32 accumulator
-// rows per camera: `warps` warps (at least `min_warps`) on private copies
-// where that many fit a block, else `shared_threads`-thread blocks on as
-// many shared copies as fit (at most one per warp), else the global
+// A per-camera sum kernel's route and block shape for `rows` accumulator
+// rows per camera of `elem` bytes each (f32 by default; f64 in the f64
+// camera-table kernels): `warps` warps (at least `min_warps`) on private
+// copies where that many fit a block, else `shared_threads`-thread blocks
+// on as many shared copies as fit (at most one per warp), else the global
 // route; `reserve` bytes of a block's shared memory are left to the
 // kernel's static shared memory.
 struct SumsPlan {
@@ -944,8 +967,9 @@ struct SumsPlan {
 };
 
 inline SumsPlan sums_plan(int rows, int n_cams, int warps, int min_warps,
-                          int shared_threads, size_t reserve = 0) {
-  const size_t copy = sizeof(float) * (size_t)rows * n_cams;
+                          int shared_threads, size_t reserve = 0,
+                          size_t elem = sizeof(float)) {
+  const size_t copy = elem * (size_t)rows * n_cams;
   const size_t room = std::max<size_t>(max_optin_smem(), reserve) - reserve;
   const int fit = (int)std::min<size_t>(room / copy, 32);
   if (fit >= min_warps) {

@@ -53,6 +53,11 @@ SIGNATURES = {
     "povar_cam_e0_u": [_P] * 4 + [_I] * 4 + [_P],
     "povar_cam_e0_scatter": [_P] * 5 + [_I] * 4 + [_P],
     "povar_cam_hpp_b": [_P] * 6 + [_I] * 4 + [_P],
+    "povar_cam_gather_f64": [_P] * 3 + [_I] * 4 + [_P],
+    "povar_cam_scatter_add_f64": [_P] * 4 + [_I] * 3 + [_P],
+    "povar_cam_e0_u_f64": [_P] * 4 + [_I] * 4 + [_P],
+    "povar_cam_e0_scatter_f64": [_P] * 5 + [_I] * 4 + [_P],
+    "povar_cam_hpp_b_f64": [_P] * 6 + [_I] * 4 + [_P],
     "povar_pose_error": [_P] * 6 + [_I, _I, _I, _D, _D, _I, _D, _P],
     "povar_e0_term": [_P] * 6 + [_I] * 5 + [_P],
     "povar_schur_diag": [_P] * 6 + [_I, _I, _P],

@@ -11,14 +11,22 @@ CUDA error, and adds one to its launch counter (`LAUNCHES`, read with
 the others by ops/launches.py). There is no fallback from the card to
 the plain version.
 
-The f32 LM state's cost runs `cam_gather`; the unstructured layout
-(`Lin1` / `Lin2`) runs all five. Every cam[o] must lie in [0, N): the
-solvers' observation layout checks that once (slots.make_obs). The
-per-observation operands of the three scatters must be zero on slot pad
-rows, whose camera index is a real camera.
+Each kernel has an f32 and an f64 instantiation (csrc/cam.cu); the
+wrapper picks the entry point by its operands' dtype (f32 or f64, the
+same for all of them: an f64 operand of an f32 call, or the reverse, is
+a TypeError, never a cast) and counts the f64 launches apart, under the
+kernel's name with `_f64` appended (F64_KERNELS). The f32 LM state's
+cost runs `cam_gather`; the unstructured layout (`Lin1` / `Lin2`) runs
+all five, in f32 under mixed-precision solves and in f64 under pure-f64
+ones (`mixed_precision_solves=False`), whose landmark initialization
+also gathers the f64 cameras through `cam_gather`. Every cam[o] must
+lie in [0, N): the solvers' observation layout checks that once
+(slots.make_obs). The per-observation operands of the three scatters
+must be zero on slot pad rows, whose camera index is a real camera.
 
 `cam_scatter_add`, `e0_scatter` and `hpp_b` meet their blocks'
-per-camera sums (in f64, f64 and f32, csrc/cam.cu says why) in a scratch
+per-camera sums (in f64, f64 and f32, csrc/cam.cu says why; all three in
+f64 in the f64 instantiations) in a scratch
 buffer of doubles that every call leaves zeroed: one per device and CUDA
 stream (`pose_kernels._sums_scratch`, which the Schur-Jacobi kernels
 share), zeroed once when it is made or grown, so a call is one device
@@ -43,23 +51,43 @@ from povar_tpu_torch.ops.pose_kernels import (
 )
 
 KERNELS = ("cam_gather", "cam_scatter_add", "e0_u", "e0_scatter", "hpp_b")
+# the launch counters of the f64 instantiations
+F64_KERNELS = tuple(f"{name}_f64" for name in KERNELS)
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS + F64_KERNELS}
 
 # shared memory one block of the gather stages its table rows in: the
-# default 48 KB per block, 12 rows up to N = 1024 cameras
+# default 48 KB per block, 12 rows up to N = 1024 cameras (6 in f64)
 _TABLE_BYTES = 48 * 1024
 # the (k, d) shapes of hpp_b's Jacobian blocks that csrc/cam.cu
 # instantiates: step 1's [4, 12] and step 2's tangent [2, 11]
 _HPP_B_SHAPES = ((4, 12), (2, 11))
 
-def _rows_per_block(r: int, n: int) -> int:
-    return max(1, min(r, _TABLE_BYTES // (4 * n)))
+
+def _rows_per_block(r: int, n: int, elem: int = 4) -> int:
+    return max(1, min(r, _TABLE_BYTES // (elem * n)))
+
+
+def _entry(name: str, o: int, n: int, cam, named):
+    """(counter name, C entry point) of kernel `name` for its CUDA
+    operands `named` ((name, tensor), ...): the f32 or the f64
+    instantiation by the first operand's dtype, after `_cuda_checks`
+    holds every operand to that dtype (a TypeError, never a cast)."""
+    dtype = named[0][1].dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: {named[0][0]} is {dtype}; f32 or f64 "
+                        "operands expected")
+    f64 = dtype == torch.float64
+    _cuda_checks(o, n, cam, **{"f64" if f64 else "f32": named})
+    suffix = "_f64" if f64 else ""
+    c_name = name if name.startswith("cam_") else f"cam_{name}"
+    return (name + suffix,
+            getattr(_build.library(), f"povar_{c_name}{suffix}"))
 
 
 def cam_gather(table: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
-    """table [R, N] f32, cam [O] i32 -> [R, O] (table[:, cam[o]]), exact
-    (C1)."""
+    """table [R, N] f32 or f64, cam [O] i32 -> [R, O] (table[:, cam[o]]),
+    exact (C1)."""
     if table.dim() != 2 or cam.dim() != 1:
         raise ValueError(
             f"table [R, N] and cam [O] expected, got {tuple(table.shape)} "
@@ -68,17 +96,17 @@ def cam_gather(table: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
     (r, n), o = table.shape, cam.shape[0]
     if _on_cpu(table, cam):
         return cam_ref.cam_gather(table, cam)
-    _cuda_checks(o, n, cam, f32=(("table", table),))
-    out = torch.empty((r, o), dtype=torch.float32, device=table.device)
-    _launch("cam_gather", _build.library().povar_cam_gather,
-            _ptr(cam), _ptr(table), _ptr(out), o, n, r,
-            _rows_per_block(r, n), _stream(table), counts=LAUNCHES)
+    label, fn = _entry("cam_gather", o, n, cam, (("table", table),))
+    out = torch.empty((r, o), dtype=table.dtype, device=table.device)
+    _launch(label, fn, _ptr(cam), _ptr(table), _ptr(out), o, n, r,
+            _rows_per_block(r, n, table.element_size()), _stream(table),
+            counts=LAUNCHES)
     return out
 
 
 def cam_scatter_add(v: torch.Tensor, cam: torch.Tensor,
                     n_cams: int) -> torch.Tensor:
-    """v [R, O] f32, cam [O] i32 -> [R, N] per-camera sums (C2)."""
+    """v [R, O] f32 or f64, cam [O] i32 -> [R, N] per-camera sums (C2)."""
     n = int(n_cams)
     if v.dim() != 2 or cam.dim() != 1:
         raise ValueError(
@@ -89,12 +117,11 @@ def cam_scatter_add(v: torch.Tensor, cam: torch.Tensor,
     _check_shapes({"v": (v, r, "o")}, cam.shape[0], n)
     if _on_cpu(v, cam):
         return cam_ref.cam_scatter_add(v, cam, n)
-    _cuda_checks(o, n, cam, f32=(("v", v),))
-    out = torch.empty((r, n), dtype=torch.float32, device=v.device)
+    label, fn = _entry("cam_scatter_add", o, n, cam, (("v", v),))
+    out = torch.empty((r, n), dtype=v.dtype, device=v.device)
     stream = _stream(v)
     # the R N sums and one ticket per row group (at most R groups)
-    _launch("cam_scatter_add", _build.library().povar_cam_scatter_add,
-            _ptr(cam), _ptr(v), _ptr(out),
+    _launch(label, fn, _ptr(cam), _ptr(v), _ptr(out),
             _ptr(_sums_scratch(v.device, stream.value, r * (n + 1))), o, n,
             r, stream, counts=LAUNCHES)
     return out
@@ -116,36 +143,35 @@ def _e0_dims(W: torch.Tensor, cam: torch.Tensor, dc: int, dl: int = 0):
 
 def e0_u(W: torch.Tensor, cam: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """u [dl, O] = W_o . x[:, cam(o)] with W [dl*dc, O] ([dl, dc, O]
-    flat: dl the landmark tangent dimension, dc the camera's), x [dc, N]
-    (C3)."""
+    flat: dl the landmark tangent dimension, dc the camera's), x [dc, N],
+    both f32 or both f64 (C3)."""
     dc, n = x.shape
     dl, dc, o = _e0_dims(W, cam, dc)
     _check_shapes({"cam": (cam[None], 1, "o")}, o, n)
     if _on_cpu(W, cam, x):
         return cam_ref.e0_u(W, cam, x)
-    _cuda_checks(o, n, cam, f32=(("W", W), ("x", x)))
-    u = torch.empty((dl, o), dtype=torch.float32, device=W.device)
-    _launch("e0_u", _build.library().povar_cam_e0_u,
-            _ptr(cam), _ptr(W), _ptr(x), _ptr(u), o, n, dl, dc, _stream(W),
-            counts=LAUNCHES)
+    label, fn = _entry("e0_u", o, n, cam, (("W", W), ("x", x)))
+    u = torch.empty((dl, o), dtype=W.dtype, device=W.device)
+    _launch(label, fn, _ptr(cam), _ptr(W), _ptr(x), _ptr(u), o, n, dl, dc,
+            _stream(W), counts=LAUNCHES)
     return u
 
 
 def e0_scatter(W: torch.Tensor, cam: torch.Tensor, sb: torch.Tensor,
                n_cams: int) -> torch.Tensor:
     """out [dc, N] = sum_o onehot(cam(o)) (W_o^T sb_o) with sb [dl, O],
-    the per-landmark values already expanded to observations (C4)."""
+    the per-landmark values already expanded to observations; W and sb
+    both f32 or both f64 (C4)."""
     n = int(n_cams)
     dl = sb.shape[0]
     dl, dc, o = _e0_dims(W, cam, W.shape[0] // max(dl, 1), dl)
     _check_shapes({"sb": (sb, dl, "o"), "cam": (cam[None], 1, "o")}, o, n)
     if _on_cpu(W, cam, sb):
         return cam_ref.e0_scatter(W, cam, sb, n)
-    _cuda_checks(o, n, cam, f32=(("W", W), ("sb", sb)))
-    out = torch.empty((dc, n), dtype=torch.float32, device=W.device)
+    label, fn = _entry("e0_scatter", o, n, cam, (("W", W), ("sb", sb)))
+    out = torch.empty((dc, n), dtype=W.dtype, device=W.device)
     stream = _stream(W)
-    _launch("e0_scatter", _build.library().povar_cam_e0_scatter,
-            _ptr(cam), _ptr(W), _ptr(sb), _ptr(out),
+    _launch(label, fn, _ptr(cam), _ptr(W), _ptr(sb), _ptr(out),
             _ptr(_sums_scratch(W.device, stream.value, dc * n + 1)), o, n,
             dl, dc, stream, counts=LAUNCHES)
     return out
@@ -155,8 +181,9 @@ def hpp_b(Jp: torch.Tensor, r_tilde: torch.Tensor, cam: torch.Tensor,
           n_cams: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Jp [k*d, O] ([k, d, O] flat: k residual rows, d pose dimensions),
     r_tilde [k, O] -> (hpp [d*d, N], b [d, N]): per-camera sums of
-    Jp^T Jp and Jp^T r~ (C5). On the card (k, d) is (4, 12) or (2, 11),
-    and hpp is symmetric bit for bit."""
+    Jp^T Jp and Jp^T r~ (C5), Jp and r_tilde both f32 or both f64. On
+    the card (k, d) is (4, 12) or (2, 11), and hpp is symmetric bit for
+    bit."""
     n = int(n_cams)
     if Jp.dim() != 2 or r_tilde.dim() != 2 or cam.dim() != 1:
         raise ValueError(
@@ -171,13 +198,14 @@ def hpp_b(Jp: torch.Tensor, r_tilde: torch.Tensor, cam: torch.Tensor,
     if (k, d) not in _HPP_B_SHAPES:
         raise ValueError(f"hpp_b: (k, d) = {(k, d)} is none of "
                          f"{_HPP_B_SHAPES}")
-    _cuda_checks(o, n, cam, f32=(("Jp", Jp), ("r_tilde", r_tilde)))
-    hpp = torch.empty((d * d, n), dtype=torch.float32, device=Jp.device)
-    b = torch.empty((d, n), dtype=torch.float32, device=Jp.device)
+    label, fn = _entry("hpp_b", o, n, cam,
+                       (("Jp", Jp), ("r_tilde", r_tilde)))
+    hpp = torch.empty((d * d, n), dtype=Jp.dtype, device=Jp.device)
+    b = torch.empty((d, n), dtype=Jp.dtype, device=Jp.device)
     stream = _stream(Jp)
     sums = (d + d * (d + 1) // 2) * n + 1  # b, the upper triangle, ticket
-    _launch("hpp_b", _build.library().povar_cam_hpp_b,
-            _ptr(cam), _ptr(Jp), _ptr(r_tilde), _ptr(hpp), _ptr(b),
+    _launch(label, fn, _ptr(cam), _ptr(Jp), _ptr(r_tilde), _ptr(hpp),
+            _ptr(b),
             _ptr(_sums_scratch(Jp.device, stream.value, sums)), o, n, k, d,
             stream, counts=LAUNCHES)
     return hpp, b

@@ -613,6 +613,13 @@ def spmd_unsupported(options: SolverOptions, n_cams: int,
     why = common_unsupported(options, n_cams, dtype)
     if why is not None:
         return why
+    if dtype == torch.float64 and not options.mixed_precision_solves:
+        return (
+            "mixed_precision_solves=False with an f64 state on a mesh: the "
+            "mesh's pure f64 (the window layout's per-observation kernels "
+            "and slot kernels in f64) is the part of ROADMAP.md queue 1 "
+            "item 11, precision modes, still to come; one device runs it"
+        )
     gspmd = ("on a mesh, which the JAX package runs on its GSPMD fallback "
              "(ROADMAP.md queue 1 item 13, multi-device)")
     if dtype != torch.float64:

@@ -75,10 +75,11 @@ def bundle_adjust(
 
     `options=None` runs SolverOptions() defaults; `dtype` is the LM
     state's (f64, or f32, whose cost runs in f32 through the cam_gather
-    kernel). Both stage solvers are built before step 1 runs, so a
-    configuration that either step does not run yet (pure f64, more
-    than 1024 cameras, ...) raises NotImplementedError before any
-    work.
+    kernel; an f64 state with `mixed_precision_solves=False` is pure
+    f64, both steps on the unstructured layout with f64 solves). Both
+    stage solvers are built before step 1 runs, so a configuration that
+    either step does not run yet (more than 1024 cameras, pure f64 on a
+    mesh, ...) raises NotImplementedError before any work.
 
     With `mesh` (parallel/mesh.make_mesh: this rank of a mesh, on the
     mesh's device, which replaces `device`), both stages run the SPMD

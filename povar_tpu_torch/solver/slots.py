@@ -12,15 +12,16 @@ layout) have no counterpart: a GPU kernel gathers a camera row by index
 at any N.
 
 `SlotSolver` is the base of `Stage1Solver` and `Stage2Solver`: the
-device check, the configuration gate, the observation layout, the
-per-observation constants every kernel call takes, the fused power-term
-plan (`plan_e0_fused`), the CG preconditioner's apply, and the camera-
-and landmark-side helpers of the unstructured layout (the explicit-
-Jacobian `Lin1` / `Lin2` of `pallas_kernels="off"` and CHOLESKY): its
-per-camera sums and gathers run the camera-table kernels
-(ops/cam_kernels.py) where the JAX package runs a one-hot incidence or
-padded segment sums, and its per-landmark tables live in canonical
-landmark order, as in the JAX package.
+device check, the configuration gate, the solve dtype, the observation
+layout, the per-observation constants every kernel call takes, the fused
+power-term plan (`plan_e0_fused`), the CG preconditioner's apply, and
+the camera- and landmark-side helpers of the unstructured layout (the
+explicit-Jacobian `Lin1` / `Lin2` of `pallas_kernels="off"`, CHOLESKY
+and pure f64): its per-camera sums and gathers run the camera-table
+kernels (ops/cam_kernels.py, in the solve dtype: f32, or f64 in pure
+f64) where the JAX package runs a one-hot incidence or padded segment
+sums, and its per-landmark tables live in canonical landmark order, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -184,6 +185,17 @@ def make_obs(
     return obs, shapes
 
 
+def solve_dtype_of(options: SolverOptions, dtype):
+    """The inner solves' and linearization storage's dtype for an LM state
+    of `dtype` (JAX stage1.py:676-680): f32 under mixed-precision solves
+    of an f64 state, else the state's own (an f32 state solves in f32
+    whatever the option says; `mixed_precision_solves=False` with an f64
+    state is pure f64)."""
+    if options.mixed_precision_solves and dtype == torch.float64:
+        return torch.float32
+    return dtype
+
+
 def common_unsupported(
     options: SolverOptions, n_cams: int, dtype
 ) -> Optional[str]:
@@ -191,13 +203,6 @@ def common_unsupported(
     (the checks that do not depend on the step)."""
     if dtype not in (torch.float64, torch.float32):
         return f"LM state dtype {dtype} (the states are f64 and f32)"
-    if dtype == torch.float64 and not options.mixed_precision_solves:
-        # an f32 state solves in f32 whatever this option says, as in
-        # the JAX package (stage1.py:676-680)
-        return (
-            "mixed_precision_solves=False with an f64 state, the pure-f64 "
-            "solve (ROADMAP.md queue 1 item 11, precision modes)"
-        )
     if n_cams > MAX_CAMERAS:
         return (
             f"{n_cams} cameras > {MAX_CAMERAS} (ROADMAP.md queue 1 item "
@@ -237,11 +242,16 @@ class SlotSolver:
     mesh = None
 
     @staticmethod
-    def uses_unstructured(options: SolverOptions) -> bool:
+    def uses_unstructured(options: SolverOptions, dtype) -> bool:
         """Whether the stage runs the unstructured layout (explicit
-        Jacobians) under `options`: with `pallas_kernels="off"`, as in the
-        JAX package, whose "auto" also runs it off the TPU."""
-        return options.pallas_kernels == "off"
+        Jacobians) under `options` with an LM state of `dtype`: with
+        `pallas_kernels="off"`, as in the JAX package, whose "auto" also
+        runs it off the TPU, and in pure f64, which the JAX package's
+        kernels do not take (pallas_cam.supported needs f32 solves), so
+        it runs the f64 XLA layout on one device whatever
+        `pallas_kernels` says ("on" raises ValueError)."""
+        return (options.pallas_kernels == "off"
+                or solve_dtype_of(options, dtype) == torch.float64)
 
     def __init__(
         self,
@@ -273,26 +283,38 @@ class SlotSolver:
             )
         self.opts = options
         self.dtype = dtype
-        self.unstructured = self.uses_unstructured(options)
-        self.solve_dtype = torch.float32
+        self.solve_dtype = solve_dtype_of(options, dtype)
+        if options.pallas_kernels == "on" and (
+                self.solve_dtype == torch.float64):
+            # the JAX package's refusal (stage1.py:705-710), word for word
+            raise ValueError(
+                "pallas_kernels='on' but the problem shape is unsupported "
+                f"(n_cams={self.n_cams} <= {MAX_CAMERAS}, f32 inner solves "
+                "required)"
+            )
+        self.unstructured = self.uses_unstructured(options, dtype)
         self.robust = ROBUST_CODE[options.residual.robust_norm]
         self.huber = float(options.residual.huber_parameter)
         self.power_m = int(options.power_sc_iterations)
         self.obs, self.lm_shapes = self._make_obs(obs_cam, obs_lm, obs_uv)
+        # the Jacobi epsilon follows the solve dtype (stage1.py of the JAX
+        # package): 1e-5 for f64 solves, sqrt(1e-5) for f32 ones
         self.jacobi_eps = options.effective_jacobi_scaling_epsilon(
-            np.float32
+            np.float32 if self.solve_dtype == torch.float32 else np.float64
         )
         o = int(self.obs.cam.shape[0])
         w = self.obs.weight
         # live-observation count for ResidualInfo (padding rows carry
         # zero weight and must not inflate num_obs / mean residuals)
         self.n_obs_live = o if w is None else int((w > 0).sum())
-        sd = self.solve_dtype
-        # per-observation constants of every kernel call, made once
-        self._uv_s = self.obs.uv.to(sd)
+        # per-observation constants of every kernel call, made once: the
+        # measurements in the solve dtype, and the live-row gate in f32
+        # whatever the solve dtype (the kernels that take it, the f64
+        # cost kernels among them, read it as f32)
+        self._uv_s = self.obs.uv.to(self.solve_dtype)
         self._mask1 = (
-            torch.ones((1, o), dtype=sd, device=self.device) if w is None
-            else (w > 0).to(sd).reshape(1, -1)
+            torch.ones((1, o), dtype=torch.float32, device=self.device)
+            if w is None else (w > 0).to(torch.float32).reshape(1, -1)
         )
         # where the fused power-series term runs (None: the composed
         # kernels everywhere, or the unstructured layout)
@@ -414,7 +436,7 @@ class SlotSolver:
     # ---- the unstructured layout's camera side (`_seg_cam` /
     # `_gather_cam_x` of the JAX package, stage1.py:1169-1188): per-camera
     # sums and gathers of any leading shape through the camera-table
-    # kernels, for f32 operands (the solve dtype)
+    # kernels, for operands in the solve dtype (f32, or f64 in pure f64)
 
     def _seg_cam(self, x: torch.Tensor) -> torch.Tensor:
         """[..., O] -> [..., N] per-camera sums (cam_scatter_add)."""
@@ -587,21 +609,18 @@ class SlotSolver:
     # ---- the cost of an f32 LM state (`_compute_error` of the JAX
     # package off its double-float route), shared by both stages
 
-    def _gather_cams(self, cam_space: torch.Tensor) -> torch.Tensor:
-        """f32 cam_space [N, 3, 4] -> per-observation P [3, 4, O] through
-        the cam_gather kernel (`_gather_cams` of the JAX package)."""
-        table = self._cam_table(cam_space, torch.float32)
+    def _gather_cams(self, cam_space: torch.Tensor,
+                     dtype=None) -> torch.Tensor:
+        """cam_space [N, 3, 4] -> per-observation P [3, 4, O] in `dtype`
+        (default the solve dtype) through the cam_gather kernel
+        (`_gather_cams` of the JAX package)."""
+        table = self._cam_table(cam_space, dtype or self.solve_dtype)
         return cam_kernels.cam_gather(table, self.obs.cam).reshape(3, 4, -1)
 
     def _gather_cams_state(self, cam_space: torch.Tensor) -> torch.Tensor:
         """cam_space [N, 3, 4] -> per-observation P [3, 4, O] in the state
-        dtype: through cam_gather for an f32 state, an index gather of
-        the f64 table otherwise (the JAX package's XLA gather; the
-        camera-table kernels are f32)."""
-        if self.dtype == torch.float32:
-            return self._gather_cams(cam_space)
-        table = self._cam_table(cam_space, self.dtype)
-        return table.index_select(1, self.obs.cam.long()).reshape(3, 4, -1)
+        dtype, through cam_gather (f32 or f64, a copy bit for bit)."""
+        return self._gather_cams(cam_space, self.dtype)
 
     def _mask_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Zero the slot pad rows of per-observation rows [k, O]."""

@@ -7,8 +7,9 @@ materialized; every per-observation pass is one of the eleven kernels
 of ops/pose_kernels.py (hand-written CUDA on the card, their plain
 PyTorch versions on the CPU), and the landmark side is reshape-sums and
 broadcasts over the slot layout (solver/segments.py). The unstructured
-one (`Lin1`, with `pallas_kernels="off"` and always for CHOLESKY, as in
-the JAX package): explicit, weighted and Jacobi-scaled Jacobians
+one (`Lin1`, with `pallas_kernels="off"`, and always for CHOLESKY and in
+pure f64, as in the JAX package): explicit, weighted and Jacobi-scaled
+Jacobians
 Jp [4, 12, O] and Jl [4, 3, O] (ops/pose_math.py), per-camera sums and
 gathers through the camera-table kernels of ops/cam_kernels.py, and
 per-landmark tables in canonical landmark order. This module replaces:
@@ -24,14 +25,18 @@ Layouts are the JAX package's, observation LAST: per-observation rows
 ([12, 12, N], [3, 3, L]). The LM state (cameras [N, 3, 4], landmarks)
 and the cost are f64 by default, or f32 (`dtype=torch.float32`, whose
 cost gathers the cameras with the cam_gather kernel); linearization
-storage and the inner solve are f32 either way.
+storage and the inner solve are f32 (`solve_dtype`), except in pure f64
+(`mixed_precision_solves=False` with an f64 state), which runs the
+unstructured layout with f64 storage, solves and camera-table kernels,
+and CHOLESKY's dense system in f64.
 
 The ported configurations are the JAX package's defaults (POWER_VARPROJ
 with the fused power term, or the composed one with
 `fused_power_term=False`), POWER_SCHUR_COMPLEMENT (landmark damping and
 the poBA apply), PCG with its three preconditioners, and CHOLESKY (the
 dense reduced camera system, up to 1024 cameras), on either layout where
-the JAX package has it; any other step-1 configuration raises
+the JAX package has it, in mixed precision or pure f64 on one device;
+any other step-1 configuration raises
 NotImplementedError naming its ROADMAP.md item instead of running
 another path.
 """
@@ -53,7 +58,8 @@ from povar_tpu_torch.solver.segments import slot_part_sums, slot_row_expand
 from povar_tpu_torch.solver.slots import LmState, SlotSolver, mv
 
 class Lin1(NamedTuple):
-    """Unstructured step-1 linearization point (all f32): the weighted
+    """Unstructured step-1 linearization point (all in the solve dtype,
+    f32 or f64): the weighted
     storage after both Jacobi scalings. Landmark-axis fields are in
     canonical landmark order."""
 
@@ -97,11 +103,11 @@ class Stage1Solver(SlotSolver):
             "on the structured and unstructured layouts")
 
     @staticmethod
-    def uses_unstructured(options: SolverOptions) -> bool:
-        """`pallas_kernels="off"`, or CHOLESKY whatever it says: the dense
-        direct solve needs the explicit per-observation blocks (JAX
-        stage1.py:713-717)."""
-        return (options.pallas_kernels == "off"
+    def uses_unstructured(options: SolverOptions, dtype) -> bool:
+        """`pallas_kernels="off"`, pure f64 (SlotSolver.uses_unstructured),
+        or CHOLESKY whatever `pallas_kernels` says: the dense direct solve
+        needs the explicit per-observation blocks (JAX stage1.py:713-717)."""
+        return (SlotSolver.uses_unstructured(options, dtype)
                 or options.solver_type_step_1 == SolverType.CHOLESKY)
 
     def __init__(
@@ -523,10 +529,12 @@ class Stage1Solver(SlotSolver):
         linearization_sc.hpp:236-245): the dense reduced camera system
         S = blockdiag(Hpp) + lam I - A A^T [12N, 12N], with A [12N, 3M]
         holding W_o hll_inv^(1/2) in block (cam(o), lm(o)), solved
-        directly for S inc = -b. A not positive definite S (possible in
-        f32: S is a difference) gives an all-NaN increment, which the LM
-        loop rejects. Returns (inc [12, N] in scaled coordinates, state
-        dtype; 0 linear-solver iterations, as the reference records)."""
+        directly for S inc = -b, in the solve dtype (f64 in pure f64; A
+        then takes 2.84 GB at venice-89, and A A^T is a DGEMM). A not
+        positive definite S (possible in f32: S is a difference) gives an
+        all-NaN increment, which the LM loop rejects. Returns (inc [12, N]
+        in scaled coordinates, state dtype; 0 linear-solver iterations,
+        as the reference records)."""
         if not isinstance(lin, Lin1):
             raise TypeError("CHOLESKY runs on the unstructured layout: "
                             f"Lin1 expected, got {type(lin).__name__}")

@@ -85,17 +85,25 @@ PARENT_SIG = {"povar_cam_scatter_add": [_P] * 3 + [_I] * 4 + [_P],
 ENTRIES = tuple(PARENT_SIG)
 # SASS opcode counts per instantiation: route 0 / 1 / 2 is the per-warp,
 # shared and global route of csrc/cam.cu (the earlier kernels: shared
-# accumulators, then global ones)
+# accumulators, then global ones). The package's kernels take their value
+# type first (`If` f32, `Id` f64 in the mangled name; an earlier cam.cu's
+# have none and are f32), so the f32 labels match both trees' f32 code
+# and the f64 instantiations count apart.
 SASS_KERNELS = {
     **{f"cam_scatter_add<{k}> route {r}":
-       rf"cam_cu.*cam_scatter_add_kernelILi{k}E.*RouteE{r}E"
+       rf"cam_cu.*cam_scatter_add_kernelIf?Li{k}E.*RouteE{r}E"
        for k in (12, 11, 1) for r in range(3)},
     **{f"e0_scatter<{dc}> route {r}":
-       rf"cam_cu.*e0_scatter_kernelILi{dc}E.*RouteE{r}E"
+       rf"cam_cu.*e0_scatter_kernelIf?Li{dc}E.*RouteE{r}E"
        for dc in (12, 11) for r in range(3)},
     **{f"hpp_b<{k},{d}> route {r}":
-       rf"cam_cu.*hpp_b_kernelILi{k}ELi{d}E.*RouteE{r}E"
+       rf"cam_cu.*hpp_b_kernelIf?Li{k}ELi{d}E.*RouteE{r}E"
        for k, d in ((4, 12), (2, 11)) for r in range(3)},
+    "cam_gather": r"cam_cu.*cam_gather_kernel(IfEEv|E)PKi",
+    "e0_u": r"cam_cu.*e0_u_kernel(IfEEv|E)PKi",
+    **{f"{name} f64": rf"cam_cu.*{name}_kernelId"
+       for name in ("cam_scatter_add", "e0_scatter", "hpp_b", "cam_gather",
+                    "e0_u")},
     "cam_scatter_add (earlier)": r"cam_cu.*cam_scatter_add_kernel",
     "e0_scatter (earlier)": r"cam_cu.*e0_scatter_kernel",
     "hpp_b (earlier)": r"cam_cu.*hpp_b_kernel",
@@ -115,13 +123,15 @@ TREE_WALK = """  const int rank = __popc(p.rest & ((1u << lane) - 1u));
     const int src = take ? __ffs(m) - 1 : lane;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const float t = __shfl_sync(kFullMask, v[k], src);
+      const V t = __shfl_sync(kFullMask, v[k], src);
       if (take) v[k] += t;
     }
   }
 """
 # hpp_b's launch: the fewest warps a block of private copies may have
 HPP_MIN_WARPS = r"(sums_plan\(D \+ D \* \(D \+ 1\) / 2, n_cams, kHppWarps, )4,"
+# the copies the f32 hpp_b's flush sums before each f64 atomic
+HPP_GROUP = r"kGroup = 2;"
 
 
 def _sum_type(values: str, was: str, group: str, now: str):
@@ -151,10 +161,10 @@ VARIANTS = {
                           "hpp_b"),
     # the private route's sums in chunks of 15 / 11 values (one chunk of
     # 90 / 77 by default), and without its loads of the next row
-    "hpp_chunked": ([("cam.cu", r"R == Route::kPrivate \? kValues",
-                      "false ? kValues")], "hpp_b"),
+    "hpp_chunked": ([("cam.cu", r"kChunk = R == Route::kPrivate && kF32",
+                      "kChunk = false && kF32")], "hpp_b"),
     "hpp_no_prefetch": ([("cam.cu", r"constexpr bool kPrefetch = R == "
-                          r"Route::kPrivate;",
+                          r"Route::kPrivate && kF32;",
                           "constexpr bool kPrefetch = false;")], "hpp_b"),
     # private copies for 4 warps per block (8 by default)
     "hpp_warps4": ([("cam.cu", r"constexpr int kHppWarps = 8;",
@@ -169,17 +179,16 @@ VARIANTS = {
                      "constexpr int kHppWarps = 3;"),
                     ("cam.cu", HPP_MIN_WARPS, r"\g<1>3,")], "hpp_b"),
     # a hpp_b block's copies summed before its flush (one atomic an entry;
-    # in pairs by default), or each flushed on its own
-    "flush_summed": ([("cam.cu", r"block_sums_done<R, float, 2>",
-                       "block_sums_done<R, float, 32>")], "hpp_b"),
-    "warp_flush": ([("cam.cu", r"block_sums_done<R, float, 2>",
-                     "block_sums_done<R, float, 1>")], "hpp_b"),
+    # in pairs by default, f32), or each flushed on its own
+    "flush_summed": ([("cam.cu", HPP_GROUP, "kGroup = 32;")], "hpp_b"),
+    "warp_flush": ([("cam.cu", HPP_GROUP, "kGroup = 1;")], "hpp_b"),
     # every value straight to a global atomic at every N
     "hpp_global": ([("cam.cu", HPP_MIN_WARPS, r"\g<1>33,"),
                     ("pose_common.cuh", r"if \(fit >= 1\) \{",
                      "if (fit >= 1 && shared_threads != 512) {")], "hpp_b"),
     # the blocks' sums meeting in f64 (hpp_b) or f32 (e0_scatter) atomics
-    "hpp_f64_sums": (_sum_type("kChunk", "float", "2", "double"), "hpp_b"),
+    "hpp_f64_sums": ([("cam.cu", r"using type = float;",
+                       "using type = double;")], "hpp_b"),
     "e0_f32_sums": (_sum_type("kV", "double", "32", "float"), "e0_scatter"),
     # e0_scatter on one shared copy per 1024-thread block at N = 89
     "e0_shared1": ([("cam.cu", r"sums_plan\(dc, n_cams, kE0sWarps, "
@@ -206,7 +215,7 @@ VARIANTS = {
                          "gridDim.x * count));"),
                         ("cam.cu", r"  drain_sums<double>\(acc_g, n_acc,\s+"
                          r"\[&\]\(int i, double s\) \{ out\[i\] = "
-                         r"\(float\)s; \}\);",
+                         r"\(V\)s; \}\);",
                          "  const float* part = reinterpret_cast<const "
                          "float*>(acc_g);\n"
                          "  for (int i = threadIdx.x; i < n_acc; i += "
@@ -283,7 +292,7 @@ C2_VARIANTS = {
                     "constexpr int kC2Drain = 16;")],
     "c2_walk_only": [("cam.cu", r"const bool tree = __popc",
                       "const bool tree = false && __popc")],
-    "c2_global": [("cam.cu", r"(kC2StaticSmem\);)",
+    "c2_global": [("cam.cu", r"(kC2StaticSmem, sizeof\(V\)\);)",
                    "\\1\n  p = {Route::kGlobal, kC2SharedThreads, 1, 0};"),
                   ("cam.cu", r"const SumsPlan p =", "SumsPlan p =")],
     "c2_loads_only": [("cam.cu", r"(\n    load\(0\);)",
@@ -296,7 +305,7 @@ C2_VARIANTS = {
                        "return {0u, lead};")],
     "c2_no_flush": [("cam.cu", r"if \(s != 0\.0f\) c2_red\(",
                      "if (s == 1.2345e-38f) c2_red(")],
-    "c2_no_last": [("cam.cu", r"(\n  float\* rows = out \+ \(size_t\)r0 "
+    "c2_no_last": [("cam.cu", r"(\n  V\* rows = out \+ \(size_t\)r0 "
                     r"\* n_cams;)", "\n  return;\\1")],
     "c2_no_tail": [("cam.cu", r"(\n  if \(R != Route::kGlobal\) \{\n    "
                     r"// the block's copies)", "\n  return;\\1")],
@@ -420,6 +429,28 @@ def _variant_hpp(lib):
     return run
 
 
+def _same_sig(lib, name):
+    """The package's wrapper `name` (ops/cam_kernels.py) launching `lib`'s
+    entry point instead of the package's: an earlier cam.cu whose entry
+    points take the package's arguments (`kernels --same-sig`)."""
+    from povar_tpu_torch.ops import _build
+    from povar_tpu_torch.ops import cam_kernels as ck
+
+    for k, argtypes in _build.SIGNATURES.items():
+        if k.startswith("povar_cam_") and hasattr(lib, k):
+            getattr(lib, k).argtypes = argtypes
+            getattr(lib, k).restype = ctypes.c_int
+
+    def run(*args):
+        package = _build.library
+        _build.library = lambda: lib
+        try:
+            return getattr(ck, name)(*args)
+        finally:
+            _build.library = package
+    return run
+
+
 def _operands():
     """cam and the live-row mask of the venice-89 slot layout
     (chip_smoke.py's problem and Stage1Solver)."""
@@ -444,7 +475,10 @@ def _shapes(cam, mask, n):
         return torch.as_tensor(rng.standard_normal((rows, o)),
                                dtype=torch.float32, device="cuda") * mask
 
-    ops = {"cam_scatter_add": [(f32(r), None, f"R = {r}")
+    ops = {"cam_gather": [(None, None, "R = 12")],
+           "e0_u": [(f32(3 * dc), None, f"(dl, dc) = (3, {dc})")
+                    for dc in (12, 11)],
+           "cam_scatter_add": [(f32(r), None, f"R = {r}")
                                for r in (12, 144, 121)],
            "e0_scatter": [(f32(3 * dc), f32(3), f"(dl, dc) = (3, {dc})")
                           for dc in (12, 11)],
@@ -460,10 +494,15 @@ def _shapes(cam, mask, n):
                     ("(a) venice-89", cam, None, n),
                     ("(b) sorted by camera", cam[by_cam], by_cam, n),
                     ("(c) N = 1024", cam_big, None, 1024)):
-                xs, ys = ((x, y) if rows is None else
-                          (x[:, rows].contiguous(),
-                           None if y is None else y[:, rows].contiguous()))
-                args = {"cam_scatter_add": (xs, c, nc),
+                xs, ys = ((x, y) if rows is None else tuple(
+                    None if t is None else t[:, rows].contiguous()
+                    for t in (x, y)))
+                table = torch.as_tensor(rng.standard_normal(
+                    (12 if xs is None else xs.shape[0] // 3, nc)),
+                    dtype=torch.float32, device="cuda")
+                args = {"cam_gather": (table, c),
+                        "e0_u": (xs, c, table),
+                        "cam_scatter_add": (xs, c, nc),
                         "e0_scatter": (xs, c, ys, nc)}.get(kernel,
                                                            (xs, ys, c, nc))
                 shapes.append((kernel, f"{label}, {tag}", args, {}))
@@ -495,7 +534,7 @@ def c2_registers(logs) -> None:
         print(f"c2 registers {name}: {'; '.join(out)}", flush=True)
 
 
-def kernels(parent: Path, only=None, names=None) -> None:
+def kernels(parent: Path, only=None, names=None, same_sig=False) -> None:
     from povar_tpu_torch.ops import cam_kernels as ck
     from povar_tpu_torch.ops import cam_ref
     from povar_tpu_torch.tools import pose2_ab as ab
@@ -506,21 +545,26 @@ def kernels(parent: Path, only=None, names=None) -> None:
                 and (names is None or n in names)}
     libs = ab.build_all(parent, "cam.cu", OUT,
                         {n: (e, 512) for n, (e, _k) in variants.items()},
-                        {}, ENTRIES, PARENT_SIG, SASS_KERNELS)
+                        {}, ENTRIES, None if same_sig else PARENT_SIG,
+                        SASS_KERNELS)
     from povar_tpu_torch.ops import _build
     c2_registers({"package": _build.build_log(),
                   **{n: (OUT / n / "build.log").read_text()
                      for n in ["parent", *variants]}})
     cam, mask, n = _operands()
+    own_sig = ("cam_gather", "e0_u")  # no earlier signature of their own
     shapes = [s for s in _shapes(cam, mask, n)
-              if only is None or s[0] in only]
-    impls = {"cam_scatter_add": {"parent": _parent_c2(libs["parent"]),
-                                 "package": ck.cam_scatter_add},
-             "e0_scatter": {"parent": _parent_e0(libs["parent"]),
-                            "package": ck.e0_scatter},
-             "hpp_b": {"parent": _parent_hpp(libs["parent"]),
-                       "package": ck.hpp_b}}
+              if (only is None or s[0] in only)
+              and (same_sig or s[0] not in own_sig)]
+    parents = {"cam_scatter_add": _parent_c2, "e0_scatter": _parent_e0,
+               "hpp_b": _parent_hpp}
+    impls = {name: {"parent": (_same_sig(libs["parent"], name) if same_sig
+                               else parents[name](libs["parent"])),
+                    "package": getattr(ck, name)}
+             for name in (*own_sig, *parents)
+             if same_sig or name not in own_sig}
     timed = {
+        **{name: {} for name in own_sig},
         "cam_scatter_add": {name: _variant_c2(libs[name])
                             for name, (_e, k) in variants.items()
                             if k in (None, "cam_scatter_add")},
@@ -554,6 +598,76 @@ def kernels(parent: Path, only=None, names=None) -> None:
             print(f"{kernel} {label} {who}: scaled error per camera {err}, "
                   f"three calls bit-identical {same}{sym}", flush=True)
     ab.ab_time(shapes, impls, timed, cam_ref)
+
+
+def _sass_functions(lib: Path):
+    """{key: SASS text} of every kernel of `lib` (cuobjdump -sass, the
+    addresses and encodings dropped). The key is the mangled name without
+    its translation unit's hash; a csrc/cam.cu kernel's is its name, its
+    value type (f where an earlier cam.cu had none) and its template
+    arguments, so that an earlier tree's f32 kernels meet the package's
+    f32 instantiations."""
+    from povar_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, key = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                          m.group(1))
+            c = re.match(r"\d+(\w+?_kernel)(?:I([fd])?(.*?)EEv|E)PKi",
+                         name)
+            if c and "cam_cu" in m.group(1):
+                name = f"{c.group(1)}<{c.group(2) or 'f'}>{c.group(3) or ''}"
+            key = name
+            out[key] = []
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", ln)
+        if key and ins:
+            out[key].append(ins.group(1).strip())
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
+def sass_diff(parent: Path, lines: int = 0) -> None:
+    """Every kernel of the earlier tree `parent` (a checkout with
+    povar_tpu_torch/, built with its own ops/_build.py) against the
+    package's build, SASS text instruction for instruction: which are
+    identical, which differ (with their instruction counts), and which
+    the package alone has (the f64 instantiations); with `lines`, the
+    first `lines` lines of each differing kernel's diff."""
+    import difflib
+
+    from povar_tpu_torch.ops import _build
+
+    lib = subprocess.run(
+        [sys.executable, "-c", "from povar_tpu_torch.ops import _build; "
+         "print(_build.build())"], cwd=parent, capture_output=True,
+        text=True, check=True).stdout.strip().splitlines()[-1]
+    old, new = _sass_functions(Path(parent) / lib), _sass_functions(
+        _build.build())
+    same = sorted(k for k in old if new.get(k) == old[k])
+    differ = sorted(k for k in old if k in new and new[k] != old[k])
+    gone = sorted(k for k in old if k not in new)
+    added = sorted(k for k in new if k not in old)
+    print(f"sass: {len(old)} kernels in the parent, {len(new)} in the "
+          f"package; {len(same)} identical instruction for instruction, "
+          f"{len(differ)} differ, {len(gone)} only in the parent, "
+          f"{len(added)} only in the package", flush=True)
+    for k in differ:
+        print(f"sass differs: {k[:100]} ({old[k].count(chr(10)) + 1} / "
+              f"{new[k].count(chr(10)) + 1} instructions)", flush=True)
+        diff = list(difflib.unified_diff(old[k].splitlines(),
+                                         new[k].splitlines(), lineterm="",
+                                         n=1))
+        for ln in diff[2:2 + lines]:
+            print(f"  {ln}", flush=True)
+    for k in gone:
+        print(f"sass only in the parent: {k[:100]}", flush=True)
+    for k in added:
+        print(f"sass only in the package: {k[:100]}", flush=True)
 
 
 def _host_us(fn, reps: int = 2000) -> float:
@@ -706,11 +820,24 @@ def main(argv=None) -> int:
                    help="directory with the earlier cam.cu and "
                    "pose_common.cuh")
     k.add_argument("--kernels", nargs="+", default=None,
-                   choices=("cam_scatter_add", "e0_scatter", "hpp_b"),
-                   help="time only these kernels (default: all three)")
-    k.add_argument("--variants", nargs="+", default=None,
+                   choices=("cam_gather", "e0_u", "cam_scatter_add",
+                            "e0_scatter", "hpp_b"),
+                   help="time only these kernels (default: all five; "
+                   "cam_gather and e0_u only with --same-sig)")
+    k.add_argument("--variants", nargs="*", default=None,
                    help="build and time only these VARIANTS (default: all "
-                   "that concern the kernels)")
+                   "that concern the kernels; none without names)")
+    k.add_argument("--same-sig", action="store_true",
+                   help="the parent's entry points take the package's "
+                   "arguments (84c289b's cam.cu and later), not PARENT_SIG's: "
+                   "its five kernels run through the package's wrappers")
+    d = sub.add_parser("sass")
+    d.add_argument("--parent", type=Path, required=True,
+                   help="an earlier tree (with povar_tpu_torch/) whose "
+                   "build to compare")
+    d.add_argument("--diff", type=int, default=0,
+                   help="print this many lines of each differing kernel's "
+                   "diff")
     sub.add_parser("bench")
     sub.add_parser("launches")
     s = sub.add_parser("spread")
@@ -725,7 +852,9 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     if args.mode == "kernels":
-        kernels(args.parent, args.kernels, args.variants)
+        kernels(args.parent, args.kernels, args.variants, args.same_sig)
+    elif args.mode == "sass":
+        sass_diff(args.parent, args.diff)
     elif args.mode == "spread":
         spread(args.chol, args.off)
     elif args.mode == "launches":

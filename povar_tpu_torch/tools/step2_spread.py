@@ -4,7 +4,7 @@
         [--small 0] [--witness 0] [--step2 RIPOBA] [--pcg 0] [--psc 0]
         [--psc-device cuda] [--psc-f64 0] [--varproj 0] [--psc-mesh 0]
         [--psc-ba 0]
-        [--chol 0] [--chol-f64 0]
+        [--chol 0] [--chol-f64 0] [--f64 0]
         [--chol-device cuda]
         [--ring 0]
         [--out build/step2_spread.json]
@@ -65,10 +65,15 @@ step-2 cost:
                 that chip_smoke.py's CHOLESKY band was set from, and the
                 opening decisions each shares with the JAX package's run
                 (`JAX_CHOL_DECISIONS`);
+  f64           `--f64` venice-89 pure-f64 (`mixed_precision_solves=
+                False`) step-1 solves with POWER_VARPROJ and with
+                CHOLESKY and `--f64` RIPOBA step-2 witnesses, on the
+                card's kernels and on their plain versions on the card:
+                the spread chip_smoke.py's F64_TOL was set from;
   chol f64      `--chol-f64` such solves in f64 through the plain
-                versions (f64_unstructured), on the card or with
-                `--chol-device cpu` on the CPU: where the f32 kernels'
-                orders of sums round away from.
+                versions (f64_unstructured: the f32 Jacobi epsilon kept),
+                on the card or with `--chol-device cpu` on the CPU: where
+                the f32 kernels' orders of sums round away from.
 
 Prints one line per run and writes every trajectory (accept/reject
 sequence, power terms, costs, termination) as JSON to `--out`. Needs a
@@ -189,40 +194,47 @@ def calm_subproblem(problem, cams_h, lms_h, calm=CALM):
 
 
 def f64_unstructured(s):
-    """Make the stage solver `s` (the unstructured layout) evaluate in f64
-    throughout: the cameras gathered in f64, the Jacobians, sums and
-    solves in f64 (the plain versions take any dtype; on the card under
-    plain_step1(cams=True)). The port refuses pure f64 solves (ROADMAP.md
-    queue 1 item 11), so this is a diagnostic, not a configuration."""
+    """Make the mixed-precision stage solver `s` (the unstructured layout)
+    evaluate in f64 throughout, the cameras gathered, the Jacobians, sums
+    and solves in f64, while it keeps the f32 solves' Jacobi epsilon:
+    the pure-f64 configuration (`mixed_precision_solves=False`, which
+    takes the f64 epsilon 1e-5) but for that epsilon, so a diagnostic of
+    the trajectory the f32 sums round away from."""
     if not s.unstructured:
         raise ValueError("f64_unstructured: the unstructured layout "
                          "(pallas_kernels='off' or CHOLESKY) only")
     s.solve_dtype = torch.float64
     s._uv_s = s.obs.uv
-    s._mask1 = s._mask1.double()
-    s._gather_cams = s._gather_cams_state
     return s
 
 
 def f64_twin(solver_cls, args, options):
-    """A CPU stage solver (`solver_cls` on the arguments `args`) whose
-    unstructured layout evaluates in f64 throughout (f64_unstructured):
-    the reference chip_smoke.py holds both f32 layouts to."""
-    return f64_unstructured(solver_cls(*args, options, device="cpu"))
+    """A CPU stage solver (`solver_cls` on the arguments `args`) in the
+    pure-f64 configuration of `options` (the unstructured layout) with
+    the f32 solves' Jacobi epsilon, so that its operators are those of
+    the f32 layouts evaluated in f64: the reference chip_smoke.py holds
+    both f32 layouts to."""
+    o = copy.deepcopy(options)
+    o.mixed_precision_solves = False
+    s = solver_cls(*args, o, device="cpu")
+    s.jacobi_eps = o.effective_jacobi_scaling_epsilon(np.float32)
+    return s
 
 
 @contextlib.contextmanager
-def plain_step1(cams=False):
-    """The step-1 kernel wrappers of ops/pose_kernels.py, and with `cams`
-    the camera-table ones of ops/cam_kernels.py, replaced by their plain
-    versions (ops/pose_ref.py, ops/cam_ref.py; any device and dtype)
-    while the block runs; the stage solvers call them through the
+def plain_step1(cams=False, step2=False):
+    """The step-1 kernel wrappers of ops/pose_kernels.py, with `cams` the
+    camera-table ones of ops/cam_kernels.py and with `step2` the step-2
+    ones of ops/pose2_kernels.py, replaced by their plain versions
+    (ops/pose_ref.py, ops/cam_ref.py, ops/pose2_ref.py; any device and
+    dtype) while the block runs; the stage solvers call them through the
     module."""
-    from povar_tpu_torch.ops import cam_kernels, cam_ref, pose_kernels
-    from povar_tpu_torch.ops import pose_ref
+    from povar_tpu_torch.ops import cam_kernels, cam_ref, pose2_kernels
+    from povar_tpu_torch.ops import pose2_ref, pose_kernels, pose_ref
 
-    pairs = [(pose_kernels, pose_ref)] + ([(cam_kernels, cam_ref)]
-                                          if cams else [])
+    pairs = ([(pose_kernels, pose_ref)]
+             + ([(cam_kernels, cam_ref)] if cams else [])
+             + ([(pose2_kernels, pose2_ref)] if step2 else []))
     saved = [(m, n, getattr(m, n)) for m, _ref in pairs for n in m.KERNELS]
     try:
         for m, ref in pairs:
@@ -239,7 +251,8 @@ def f64_structured(solver):
     state is f64 already): under plain_step1, the f64 evaluation of the
     solve the card runs with f32 kernels, summed by `index_add_` in f64.
     A diagnostic of which trajectory the f32 sums round away from, not a
-    configuration (pure f64 is ROADMAP.md queue 1 item 11)."""
+    configuration (pure f64, `mixed_precision_solves=False`, runs the
+    unstructured layout)."""
     if solver.unstructured:
         raise ValueError("f64_structured: the structured layout only")
     solver.solve_dtype = torch.float64
@@ -685,6 +698,85 @@ def psc_pipeline(problem, runs):
     return recs
 
 
+def _accepted_gap(a, b):
+    """(same decisions and inner counts, the largest relative gap between
+    the costs of the records both accepted, and the initial ones) of two
+    trajectories."""
+    same = [(ok, n) for ok, n, _c in a] == [(ok, n) for ok, n, _c in b]
+    gaps = [abs(ca - cb) / abs(cb) for k, ((ok, _n, ca), (_o, _m, cb))
+            in enumerate(zip(a, b)) if ok or k == 0]
+    return same, max(gaps)
+
+
+def pure_f64_spread(problem, runs):
+    """`runs` venice-89 pure-f64 step-1 solves (`mixed_precision_solves=
+    False`) with POWER_VARPROJ and with CHOLESKY on the card's kernels,
+    and as many with their plain versions on the card (plain_step1), each
+    in turns; then `runs` RIPOBA step-2 runs each way, WITNESS_ITERS
+    iterations on the calm landmarks of the homogenized result of the
+    first kernel POWER_VARPROJ solve: per configuration, whether all
+    2 `runs` took the same decisions and inner counts, and the largest
+    accepted-cost gap between a kernel run and a plain run, and within
+    each side (chip_smoke.py's F64_TOL is twice the largest)."""
+    if not runs:
+        return {}
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    out, state = {}, None
+    for solver in (SolverType.POWER_VARPROJ, SolverType.CHOLESKY, "RIPOBA"):
+        tag = solver if isinstance(solver, str) else solver.value.lower()
+        trajs = {False: [], True: []}
+        for k in range(runs):
+            for plain in (False, True):
+                opts = SolverOptions(mixed_precision_solves=False)
+                s = SolverSummary()
+                ctx = plain_step1(cams=True, step2=True) if plain else (
+                    contextlib.nullcontext())
+                t0 = time.perf_counter()
+                if solver == "RIPOBA":
+                    sargs, lms_w = calm_subproblem(problem, *state)
+                    opts.max_num_iterations_step_2 = WITNESS_ITERS
+                    with ctx:
+                        optimize_step2(Stage2Solver(*sargs, opts,
+                                                    device="cuda"),
+                                       state[0], lms_w, opts, s, Timer(),
+                                       log=lambda x: None)
+                else:
+                    opts.solver_type_step_1 = solver
+                    _p, c0, l0 = from_numpy(*args[:3], problem.cam_space,
+                                            problem.lm_p, device="cuda")
+                    with ctx:
+                        c1, l1 = optimize_step1(
+                            Stage1Solver(*args, opts, device="cuda"), c0,
+                            l0, opts, s, Timer(), log=lambda x: None)
+                    if state is None and not plain:
+                        state = create_homogeneous(c1, l1)
+                torch.cuda.synchronize()
+                _record(f"f64 {tag} {'plain' if plain else 'kernels'} {k}",
+                        s, time.perf_counter() - t0)
+                trajs[plain].append(trajectory(s))
+        pairs = {"kernels vs plain": [(a, b) for a in trajs[False]
+                                      for b in trajs[True]],
+                 "kernels vs kernels": [(a, b) for i, a in
+                                        enumerate(trajs[False])
+                                        for b in trajs[False][i + 1:]],
+                 "plain vs plain": [(a, b) for i, a in enumerate(trajs[True])
+                                    for b in trajs[True][i + 1:]]}
+        res = {label: [_accepted_gap(a, b) for a, b in ps]
+               for label, ps in pairs.items()}
+        same = all(sm for r in res.values() for sm, _g in r)
+        gaps = {label: max((g for _s, g in r), default=0.0)
+                for label, r in res.items()}
+        print(f"f64 {tag}: {runs} + {runs} runs, the same decisions and "
+              f"counts in all: {same}; largest accepted-cost gaps "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+              + f"; finals {sorted({t[-1][2] for t in trajs[False]})} / "
+              f"{sorted({t[-1][2] for t in trajs[True]})}", flush=True)
+        out[tag] = dict(same=same, gaps=gaps, kernels=trajs[False],
+                        plain=trajs[True])
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--runs", type=int, default=5)
@@ -729,6 +821,10 @@ def main() -> None:
     ap.add_argument("--chol-f64", type=int, default=0,
                     help="CHOLESKY step-1 solves evaluated in f64 through "
                     "the plain versions (f64_unstructured)")
+    ap.add_argument("--f64", type=int, default=0,
+                    help="pure-f64 POWER_VARPROJ and CHOLESKY step-1 solves "
+                    "and RIPOBA step-2 witnesses on the card's kernels and "
+                    "as many on their plain versions (pure_f64_spread)")
     ap.add_argument("--out", default="build/step2_spread.json")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -757,7 +853,8 @@ def main() -> None:
                                      SolverType.POWER_SCHUR_COMPLEMENT,
                                      mesh=True),
                psc_ba=psc_pipeline(problem, a.psc_ba),
-               ring=ring_gaps(a.ring))
+               ring=ring_gaps(a.ring),
+               f64=pure_f64_spread(problem, a.f64))
     popts = SolverOptions(solver_type_step_1=SolverType.PCG,
                           device_lm_loop="off")
     sp = Stage1Solver(*args, popts, device="cuda") if a.pcg else None

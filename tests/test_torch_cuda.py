@@ -760,6 +760,82 @@ def test_cam_scatter_add_routes_guards_and_repeats(cuda, n_cams, order):
                                          for op in ops), (r, ops)
 
 
+def _cam_cases_f64(cam, live, n):
+    """The five camera-table kernels in f64 at both steps' shapes (and
+    the Schur corrections' 144 / 121 rows, step 2's 132-row tangent
+    basis gather), on operands zeroed on the dead rows; per-camera sums
+    to 1e-12 per camera (the order of f64 sums), the gathers and e0_u bit
+    for bit."""
+    rng = np.random.default_rng(n + 64)
+    cam64 = ("cam", 1e-12)
+
+    def f64(rows, cols=O):
+        a = torch.as_tensor(rng.standard_normal((rows, cols)),
+                            dtype=torch.float64, device=cam.device)
+        return a * live.double() if cols == O else a
+
+    w36, w33, sb = f64(36), f64(33), f64(3)
+    return [
+        ("cam_gather", (f64(12, n), cam), [EXACT]),
+        ("cam_gather", (f64(132, n), cam), [EXACT]),
+        ("cam_scatter_add", (f64(12), cam, n), [cam64]),
+        ("cam_scatter_add", (f64(144), cam, n), [cam64]),
+        ("cam_scatter_add", (f64(121), cam, n), [cam64]),
+        ("cam_scatter_add", (f64(5), cam, n), [cam64]),
+        ("e0_u", (w36, cam, f64(12, n)), [EXACT]),
+        ("e0_u", (w33, cam, f64(11, n)), [EXACT]),
+        ("e0_scatter", (w36, cam, sb, n), [cam64]),
+        ("e0_scatter", (w33, cam, sb, n), [cam64]),
+        ("hpp_b", (f64(48), f64(4), cam, n), [cam64, cam64]),
+        ("hpp_b", (f64(22), f64(2), cam, n), [cam64, cam64]),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["drawn", "by_camera", "camera_runs"])
+@pytest.mark.parametrize("n_cams", [13, 89, 300, 1024, 5000])
+def test_cam_kernels_f64_match_plain_versions(cuda, n_cams, order):
+    """The f64 instantiations of the five camera-table kernels (pure f64,
+    `mixed_precision_solves=False`) against their plain versions in f64:
+    once per call, counted once under `<name>_f64` and not under the f32
+    name; cam_gather and e0_u bit for bit, the per-camera sums within
+    1e-12 per camera; the output f64; hpp symmetric bit for bit; every
+    call leaves the sums buffer zeroed. On every route of the sums: per-
+    warp copies (N = 13; cam_scatter_add and e0_scatter at 89), shared
+    copies (hpp_b at 89 and 300, the others at 1024) and global atomics
+    (N = 5000), in three row orders (as drawn, sorted by camera, and in
+    camera runs of 64 rows, whole warps on one camera). e0_u stages its
+    [dc, N] table in shared memory, as its f32 instantiation does: up to
+    the solvers' 1024 cameras (96 KB in f64)."""
+    t = _inputs(n_cams, cuda)
+    cam, live = t["cam"], t["mask"]
+    if order == "camera_runs":
+        cam = ((torch.arange(O, device=cuda) // 64) % n_cams).to(torch.int32)
+    elif order == "by_camera":
+        rows = torch.argsort(cam.long(), stable=True)
+        cam, live = cam[rows].contiguous(), live[:, rows].contiguous()
+    for name, args, specs in _cam_cases_f64(cam, live, n_cams):
+        if name == "e0_u" and n_cams > 1024:
+            continue  # its [dc, N] table in shared memory: N <= 1024
+        launches.reset_launch_counts()
+        got = getattr(cam_kernels, name)(*args)
+        torch.cuda.synchronize()
+        counts = launches.launch_counts()
+        assert counts[f"{name}_f64"] == 1 and counts[name] == 0, name
+        want = getattr(cam_ref, name)(*args)
+        for g in (got if isinstance(got, tuple) else (got,)):
+            assert g.dtype == torch.float64, name
+        if specs[0] == EXACT:
+            assert torch.equal(got, want), name
+        else:
+            _close(name, got, want, specs)
+        if name == "hpp_b":
+            d = got[1].shape[0]
+            hpp = got[0].view(d, d, n_cams)
+            assert torch.equal(hpp, hpp.transpose(0, 1))
+    assert not any(bool(buf.any()) for buf in pk._SUMS.values())
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     t = _inputs(13, cuda)
@@ -779,7 +855,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pk2.pose_error2(t["cam"], t["ct"], t["x4_64"], t["uv64"], t["mask"],
                         robust=0, huber=1.0)
     with pytest.raises(TypeError, match="table"):
-        cam_kernels.cam_gather(t["ct64"], t["cam"])
+        cam_kernels.cam_gather(t["ct"].half(), t["cam"])
+    # the f64 instantiations take f64 operands only, and the f32 ones f32:
+    # a mixed call is a TypeError, never a cast
+    with pytest.raises(TypeError, match="x"):
+        cam_kernels.e0_u(t["r_w"].repeat(9, 1), t["cam"], t["ct64"])
+    with pytest.raises(TypeError, match="sb"):
+        cam_kernels.e0_scatter(t["r_w"].repeat(9, 1).double(), t["cam"],
+                               t["r_w"][:3], 13)
+    with pytest.raises(TypeError, match="r_tilde"):
+        cam_kernels.hpp_b(t["r_w"].repeat(12, 1).double(), t["r_w"],
+                          t["cam"], 13)
     with pytest.raises(ValueError, match="hpp_b"):
         cam_kernels.hpp_b(t["r_w"].repeat(3, 1), t["r_w"][:3], t["cam"], 13)
     with pytest.raises(ValueError, match="z_table"):
@@ -840,8 +926,10 @@ PSC_ONLY = {"poba_t3", "apply_ldiff_stored"}
 F32_ONLY = {"cam_gather"}
 UNSTRUCTURED_ONLY = {"cam_scatter_add", "e0_u", "e0_scatter", "hpp_b"}
 SPMD_ONLY = set(spmd_kernels.KERNELS)
+# the camera-table kernels' f64 instantiations run in pure f64 only
+F64_ONLY = set(cam_kernels.F64_KERNELS)
 ALL = (set(launches.KERNELS) - PSC_ONLY - F32_ONLY - UNSTRUCTURED_ONLY
-       - SPMD_ONLY)
+       - SPMD_ONLY - F64_ONLY)
 SMALL_KERNELS = {
     "composed": ALL - FUSED_ONLY - CG_ONLY,
     "defaults": ALL - COMPOSED_ONLY - CG_ONLY,
@@ -901,7 +989,7 @@ def test_bundle_adjust_card_matches_cpu(cuda, config):
         launches.reset_launch_counts()
         _, s1, s2 = bundle_adjust(p, opts, log=lambda s: None, device=dev)
         counts = launches.launch_counts()
-        assert len(counts) == 27
+        assert len(counts) == 32
         if dev == "cuda":
             assert all(counts[k] > 0 for k in kernels), counts
         else:
@@ -1017,6 +1105,49 @@ def test_unstructured_bundle_adjust_card_matches_cpu(cuda, config):
                                c1.final_cost.all.error, rtol=SMALL_TOLS[0])
     assert np.isfinite(g2.final_cost.all.error)
     assert g2.final_cost.all.error < g2.initial_cost.all.error
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step1", ["POWER_VARPROJ", "CHOLESKY"])
+def test_pure_f64_bundle_adjust_card_matches_cpu(cuda, step1):
+    """Pure f64 (`mixed_precision_solves=False`): `bundle_adjust` of
+    `ring_case`, 6 + 6 iterations, with RIPOBA after each step-1 solver,
+    on the card and on the CPU: the five f64 instantiations (and the f64
+    cost kernels) launched on the card and no f32 camera-table kernel,
+    nothing on the CPU; identical records in both steps, every cost
+    within 1e-9 relative of the CPU's (f64 sums in other orders)."""
+    from povar_tpu_torch.options import SolverType
+    from povar_tpu_torch.tools.step2_spread import ring_case
+
+    args, cam0, lm0 = ring_case()
+    opts = SolverOptions(mixed_precision_solves=False,
+                         solver_type_step_1=SolverType[step1],
+                         max_num_iterations_step_1=6,
+                         max_num_iterations_step_2=6)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p, _c, _l = from_numpy(*args[:3], cam0, lm0, device="cpu")
+        launches.reset_launch_counts()
+        _, s1, s2 = bundle_adjust(p, opts, log=lambda s: None, device=dev)
+        counts = launches.launch_counts()
+        if dev == "cuda":
+            want = {"cam_gather_f64", "cam_scatter_add_f64", "hpp_b_f64",
+                    "pose_error", "pose_error2"}
+            if step1 == "POWER_VARPROJ":
+                want |= {"e0_u_f64", "e0_scatter_f64"}
+            assert all(counts[k] > 0 for k in want), counts
+            assert not any(counts[k] for k in cam_kernels.KERNELS), counts
+        else:
+            assert max(counts.values()) == 0, counts
+        runs[dev] = (s1, s2)
+    for g, c in zip(runs["cuda"], runs["cpu"]):
+        assert ([(it.step_is_successful, it.linear_solver_iterations)
+                 for it in g.iterations]
+                == [(it.step_is_successful, it.linear_solver_iterations)
+                    for it in c.iterations])
+        np.testing.assert_allclose([it.cost.all.error for it in g.iterations],
+                                   [it.cost.all.error for it in c.iterations],
+                                   rtol=1e-9)
 
 
 # SPMD window layouts: tests/test_pallas_spmd.py's two classes (several

@@ -45,7 +45,7 @@ def _no_launches():
     launches.reset_launch_counts()
     yield
     counts = launches.launch_counts()
-    assert len(counts) == 27 and not any(counts.values()), counts
+    assert len(counts) == 32 and not any(counts.values()), counts
 
 
 def _same_plan(obs_cam, obs_lm, n_cams, n_lms, n_dev):

@@ -316,24 +316,27 @@ def _cfg(**kw):
     return opts
 
 
-# the configurations that stay refused; CHOLESKY and the unstructured
-# layout (pallas_kernels="off") run, but not in pure f64, nor with the
-# device loop (tests/test_torch_unstructured.py runs them). The ids are
-# the names these cases have carried since each was added.
+# the configurations that stay refused (`match`: their ROADMAP item); the
+# unstructured layout (pallas_kernels="off") and CHOLESKY run, but not
+# with the device loop (tests/test_torch_unstructured.py runs them). The
+# four cases with no `match` were refused as ROADMAP item 11 until pure
+# f64 was ported; they now run (tests/test_torch_f64_steps.py holds them
+# to the JAX package). The ids are the names these cases have carried
+# since each was added.
 @pytest.mark.parametrize(
     "opts, dtype, match",
     [
         (_cfg(solver_type_step_1=SolverType.CHOLESKY,
-              mixed_precision_solves=False), torch.float64, "item 11"),
+              mixed_precision_solves=False), torch.float64, None),
         (_cfg(solver_type_step_1=SolverType.CHOLESKY,
               device_lm_loop="on"), torch.float64, "item 8"),
         (_cfg(solver_type_step_1=SolverType.CHOLESKY, fused_power_term=False,
               detailed_timing=True), torch.float64, "item 14"),
-        (_cfg(mixed_precision_solves=False), torch.float64, "item 11"),
+        (_cfg(mixed_precision_solves=False), torch.float64, None),
         (_cfg(mixed_precision_solves=False, fused_power_term=False),
-         torch.float64, "item 11"),
+         torch.float64, None),
         (_cfg(pallas_kernels="off", mixed_precision_solves=False),
-         torch.float64, "item 11"),
+         torch.float64, None),
         (_cfg(pallas_kernels="off", device_lm_loop="on"), torch.float32,
          "item 8"),
         (_cfg(device_lm_loop="on"), torch.float64, "item 8"),
@@ -346,10 +349,27 @@ def _cfg(**kw):
          "opts8-dtype8-item 14"],
 )
 def test_configurations_outside_the_slice_raise(problem, opts, dtype, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
-                     problem.num_cameras, problem.num_landmarks, opts,
-                     dtype=dtype, device="cpu")
+    """A refused configuration raises NotImplementedError naming its
+    ROADMAP item; a pure-f64 one (no `match`) builds on the CPU, on the
+    unstructured layout with f64 solves, and takes one LM iteration whose
+    cost falls."""
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            Stage1Solver(*args, opts, dtype=dtype, device="cpu")
+        return
+    opts.max_num_iterations_step_1 = 1
+    s = Stage1Solver(*args, opts, dtype=dtype, device="cpu")
+    assert s.unstructured and s.solve_dtype == torch.float64
+    summary = SolverSummary()
+    optimize_step1(s, torch.as_tensor(problem.cam_space),
+                   torch.as_tensor(problem.lm_p), opts, summary, Timer(),
+                   log=lambda line: None)
+    assert len(summary.iterations) == 2
+    assert summary.iterations[1].step_is_successful
+    assert (summary.final_cost.all.error
+            < summary.initial_cost.all.error)
 
 
 @pytest.mark.parametrize("mixed", [True, False])

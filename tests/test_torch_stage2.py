@@ -343,32 +343,44 @@ def test_bundle_adjust_matches_jax(config):
 
 
 def test_bundle_adjust_default_options_raise(geometry):
-    """SolverOptions() defaults with CHOLESKY in pure f64, which neither
-    step runs yet: bundle_adjust refuses before any work, naming its
-    ROADMAP item, and leaves the problem as it was."""
+    """SolverOptions() defaults with CHOLESKY in pure f64, which both
+    steps refused (ROADMAP item 11) until pure f64 was ported: the name
+    is kept; bundle_adjust now runs it on the CPU, one LM iteration a
+    step, each accepted with a falling cost, and writes the optimized
+    state back to the problem."""
     args, cam0, lm0 = geometry
     p, _c, _l = from_numpy(args[0], args[1], args[2], cam0, lm0,
                            device="cpu")
     before = p.cam_space.copy()
-    opts = SolverOptions(mixed_precision_solves=False)
+    opts = SolverOptions(mixed_precision_solves=False,
+                         max_num_iterations_step_1=1,
+                         max_num_iterations_step_2=1)
     opts.solver_type_step_1 = type(opts.solver_type_step_1)["CHOLESKY"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bundle_adjust(p, opts, log=lambda s: None, device="cpu")
-    np.testing.assert_array_equal(p.cam_space, before)
+    out, s1, s2 = bundle_adjust(p, opts, log=lambda s: None, device="cpu")
+    for s in (s1, s2):
+        assert len(s.iterations) == 2 and s.iterations[1].step_is_successful
+        assert s.final_cost.all.error < s.initial_cost.all.error
+    assert out is p and not np.array_equal(p.cam_space, before)
+    assert np.isfinite(p.cam_space).all() and np.isfinite(p.lm_p_h).all()
 
 
 def _cfg(**kw):
     return _slice_options(SolverOptions, **kw)
 
 
+# `match`: the ROADMAP item a refused configuration names. The two cases
+# with none (pure f64, `mixed_precision_solves=False` with an f64 state,
+# under "auto" and "off") were refused as item 11 until pure f64 was
+# ported; they now run (tests/test_torch_f64_steps.py holds them to the
+# JAX package).
 @pytest.mark.parametrize(
     "opts, dtype, match",
     [
-        (_cfg(mixed_precision_solves=False), torch.float64, "item 11"),
+        (_cfg(mixed_precision_solves=False), torch.float64, None),
         (_cfg(pallas_kernels="off", device_lm_loop="on"), torch.float32,
          "item 8"),
         (_cfg(pallas_kernels="off", mixed_precision_solves=False),
-         torch.float64, "item 11"),
+         torch.float64, None),
         (_cfg(device_lm_loop="on"), torch.float64, "item 8"),
         (_cfg(detailed_timing=True), torch.float64, "item 14"),
     ],
@@ -377,9 +389,26 @@ def _cfg(**kw):
 )
 def test_configurations_outside_the_slice_raise(geometry, opts, dtype,
                                                 match):
-    args, _c, _l = geometry
-    with pytest.raises(NotImplementedError, match=match):
-        Stage2Solver(*args, opts, dtype=dtype, device="cpu")
+    """A refused configuration raises NotImplementedError naming its
+    ROADMAP item; a pure-f64 one (no `match`) builds on the CPU, on the
+    unstructured layout with f64 solves, and takes one LM iteration from
+    the homogenized ring state whose cost falls."""
+    args, cam0, lm0 = geometry
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            Stage2Solver(*args, opts, dtype=dtype, device="cpu")
+        return
+    opts.max_num_iterations_step_2 = 1
+    s = Stage2Solver(*args, opts, dtype=dtype, device="cpu")
+    assert s.unstructured and s.solve_dtype == torch.float64
+    summary = SolverSummary()
+    optimize_step2(s, *create_homogeneous(torch.as_tensor(cam0),
+                                          torch.as_tensor(lm0)),
+                   opts, summary, Timer(), log=lambda line: None)
+    assert len(summary.iterations) == 2
+    assert summary.iterations[1].step_is_successful
+    assert (summary.final_cost.all.error
+            < summary.initial_cost.all.error)
 
 
 def test_too_many_cameras_raise():
