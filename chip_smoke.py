@@ -20,7 +20,8 @@ prints no result line):
               kernels at venice-89 shapes on seeded inputs against its
               plain PyTorch version on the same card (each output scaled
               per entry or per camera, see ELEM; cam_gather and e0_u bit
-              for bit; cam_scatter_add, e0_u, e0_scatter and hpp_b at
+              for bit, cam_gather also at 132 rows over N = 1024 and on
+              cam[1:]; cam_scatter_add, e0_u, e0_scatter and hpp_b at
               both steps' shapes, cam_scatter_add also at the Schur
               corrections' 144 / 121 rows), with CUDA-event times
               (median of 20 calls) and profiler device times (mean of
@@ -147,9 +148,11 @@ prints no result line):
               plain versions at both steps' shapes (cam_gather also on
               step 2's 132-row tangent bases, cam_scatter_add also at
               R = 144 / 121), at N = 1024, and on the routes the
-              venice-89 shapes do not take (hpp_b's private copies at
-              N = 32, the global route of cam_scatter_add and e0_scatter
-              at N = 6000): cam_gather and e0_u bit for bit, per-camera
+              venice-89 shapes do not take (cam_gather one observation
+              a thread on cam[1:], hpp_b's private copies at N = 32, the
+              global route of cam_scatter_add and e0_scatter at
+              N = 6000), hpp_b's value groups also on the rows sorted by
+              camera: cam_gather and e0_u bit for bit, per-camera
               sums within F64_CAM per camera, hpp symmetric bit for bit,
               with their times, bounds and those of `index_select` /
               `index_add_` in f64; (b) the venice-89 step 1 with
@@ -693,13 +696,27 @@ def check_kernels(solver, problem, alpha):
     results = run_cases(pk, pr, cases, o)
 
     # the camera gather of the f32 state's cost, bit for bit, beside the
-    # one PyTorch call that computes it (index_select on an int64 index)
+    # one PyTorch call that computes it (index_select on an int64 index);
+    # then 132 rows over N = 1024 seeded cameras (in row blocks) and one
+    # observation a thread (cam[1:]: O odd, cam not aligned to fours)
     cam64 = d["cam"].long()
     results.update(run_cases(ck, cr, [(
         "cam_gather", None, lambda m: m.cam_gather(d["ct"], d["cam"]),
         [d["cam"], d["ct"]], [EXACT], None,
         lambda: d["ct"].index_select(1, cam64),
     )], o))
+    rng = np.random.default_rng(6)
+    cam_big = torch.as_tensor(rng.integers(0, 1024, o).astype(np.int32),
+                              device=solver.device)
+    t_big = torch.as_tensor(rng.standard_normal((132, 1024)),
+                            dtype=torch.float32, device=solver.device)
+    cam1 = d["cam"][1:]
+    run_cases(ck, cr, [
+        ("cam_gather", "R = 132, N = 1024",
+         lambda m: m.cam_gather(t_big, cam_big), [cam_big, t_big], [EXACT],
+         None),
+        ("cam_gather", "cam[1:]", lambda m: m.cam_gather(d["ct"], cam1),
+         [cam1, d["ct"]], [EXACT], None)], o, time_variants=True)
 
     check_symmetric("schur_diag_structured (venice-89)",
                     pk.schur_diag_structured(d["cam"], d["x"], d["h"], n))
@@ -1831,11 +1848,14 @@ def check_cam_kernels_f64(solver, seed=5):
     f64 operands, zeroed on the pad rows as the solvers' operands are,
     against their plain versions on the card: at both steps' shapes
     (the step-1 shape is the kernel's row, each timed beside
-    `index_select` / `index_add_` in f64), at N = 1024, and on the routes
-    venice-89 does not take (hpp_b at N = 32: private copies; N = 6000:
-    cam_scatter_add's and e0_scatter's global route). cam_gather and
-    e0_u bit for bit, per-camera sums within F64_CAM, hpp symmetric bit
-    for bit. Returns {name: result dict} of the f64 names."""
+    `index_select` / `index_add_` in f64), at N = 1024 (cam_gather's
+    132 rows in row blocks), and on the routes venice-89 does not take
+    (cam_gather at one observation a thread: cam[1:], O odd; hpp_b at
+    N = 32: private copies; N = 6000: cam_scatter_add's and e0_scatter's
+    global route); hpp_b's value groups also on the rows sorted by camera
+    (whole warps on one camera). cam_gather and e0_u bit for bit,
+    per-camera sums within F64_CAM, hpp symmetric bit for bit. Returns
+    {name: result dict} of the f64 names."""
     from povar_tpu_torch.ops import cam_kernels as ck
     from povar_tpu_torch.ops import cam_ref as cr
 
@@ -1874,6 +1894,11 @@ def check_cam_kernels_f64(solver, seed=5):
                 out.append(("cam_gather_f64", label(lab, tag),
                             lambda m, t=t: m.cam_gather(t, c), [c, t],
                             [EXACT], None, gather(t, c)))
+            # one observation a thread: O odd, cam not aligned to pairs
+            c1 = c[1:]
+            out.append(("cam_gather_f64", label("cam[1:]", tag),
+                        lambda m, t=t, c1=c1: m.cam_gather(t, c1), [c1, t],
+                        [EXACT], None, gather(t, c1)))
         if "cam_scatter_add" in kernels:
             for r, lab in ((12, None), (144, "R = 144, step-1 Schur"),
                            (121, "R = 121, step-2 Schur")):
@@ -1912,6 +1937,21 @@ def check_cam_kernels_f64(solver, seed=5):
         if "hpp_b" in kernels:
             check_hpp_symmetric(ck, f64, c, n)
     check_hpp_symmetric(ck, f64, cam, n89)
+    # hpp_b's value groups on the rows sorted by camera: every warp on
+    # one camera (a reduce-scatter tree)
+    by_cam = torch.argsort(cam.long(), stable=True)
+    cam_sorted = cam[by_cam].contiguous()
+
+    def sorted_f64(rows):
+        return f64(rows)[:, by_cam].contiguous()
+    run_cases(ck, cr, [
+        ("hpp_b_f64", f"(k, d) = ({k}, {d}), sorted by camera",
+         lambda m, jp=jp, rt=rt: m.hpp_b(jp, rt, cam_sorted, n89),
+         [cam_sorted, jp, rt], [F64_CAM, F64_CAM], None)
+        for k, d, jp, rt in ((k, d, sorted_f64(k * d), sorted_f64(k))
+                             for k, d in ((4, 12), (2, 11)))],
+        o, time_variants=True)
+    check_hpp_symmetric(ck, sorted_f64, cam_sorted, n89)
     return results
 
 

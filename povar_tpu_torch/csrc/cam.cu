@@ -30,7 +30,8 @@
 // floats: its operands, shared-memory copies, block sums and outputs are
 // f64. Where an f32 design choice does not carry over to doubles
 // (registers, shared memory) the f64 instantiation takes the simpler
-// route, as each kernel says.
+// route, or, for C5's shared copies, a route of its own (value groups),
+// as each kernel says.
 //
 // C interface as in pose1.cu: device pointers, sizes and the CUDA stream;
 // one launch; the cudaError_t of the launch is returned. The f64 entry
@@ -54,12 +55,72 @@ namespace {
 // ------------------------------------------------------------------ C1
 // out[r][o] = table[r][cam[o]] for the rows [r0, r0 + rows) of row block
 // blockIdx.y: the block stages those rows of the [R, N] table in shared
-// memory, then each thread of a grid-stride loop over the observations
-// reads its camera index once and writes its column of the row block.
+// memory once, then its threads take kVec neighbouring observations at a
+// time (16 bytes of a row of out: 4 floats or 2 doubles; kVec = 1 where O
+// or the pointers do not allow it) from the block's contiguous share of
+// them, read their cameras in one load and write them in every row of
+// the row block, one 16-byte store a row, four rows unrolled. The caller
+// splits the rows into the fewest row blocks whose table rows fit 96 KB
+// (ops/cam_kernels._rows_per_block: one at venice-89, step 2's R = 132
+// tangent bases in f64 too), and the launch fills one whole wave of
+// 1024-thread blocks (two an SM) over all row blocks, every block with a
+// share of the same size, so a block stages its rows once and each row
+// block reads cam once.
+// Replaces pallas_cam.py:176 cam_gather (_gather_kernel :171).
 // Bound: 4 B read and 4 R B written per observation (52 B at R = 12;
-// 100 B in f64); the table is read once per block.
+// 100 B in f64, 1060 B at R = 132); the table is read once per block.
+// The earlier version (256-thread blocks of one 4- or 8-byte store a row
+// and observation, at most 48 KB of table rows a block, a grid sized to
+// the observations per row block) took, in events around 50 back-to-back
+// calls, 25.5 us in f64 at R = 12, 214 at R = 132, 385 at R = 132 over
+// N = 1024 (22 row blocks, each reading cam and staging its rows), 10.7
+// in f32 at R = 12; here 23.6-23.9, 196, 230-231 and 9.6-10.9 (device
+// time 21.6, 194, 227, 8.4; index_select 24.9, 212, 222, 20.4). At
+// N = 1024, R = 12 in f64 it trails index_select, 28.0 against 26.7:
+// every block stages the 96 KB table, 25 MB of L2 reads beside 53 MB
+// written. Not kept: 512-thread blocks (33.5 against 28.0 there), 4-byte
+// stores in f32 (14.1 against 10.9 at R = 12, 243 against 120 at
+// R = 132, N = 1024), 8-byte stores in f64 (342 against 196 at R = 132),
+// the table read through L1 past 64 or 16 KB (245 against 196 at
+// R = 132 on venice-89; 27.0 at N = 1024, R = 12), 48 KB row blocks (262
+// against 196 at R = 132) (tools/cam_ab.py and PERF.md; NVIDIA H100 80GB
+// HBM3, 700 W).
+constexpr int kGatherThreads = 1024;
+// observations a thread takes, by value type
 template <typename V>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kGatherVec = sizeof(V) == sizeof(float) ? 4 : 2;
+
+// kVec camera indices from cam[kVec i ...] in one load
+template <int kVec>
+__device__ __forceinline__ void load_cams(const int32_t* __restrict__ cam,
+                                          int i, int (&c)[kVec]) {
+  if constexpr (kVec == 4) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(cam) + i);
+    c[0] = q.x, c[1] = q.y, c[2] = q.z, c[3] = q.w;
+  } else if constexpr (kVec == 2) {
+    const int2 q = __ldg(reinterpret_cast<const int2*>(cam) + i);
+    c[0] = q.x, c[1] = q.y;
+  } else {
+    c[0] = __ldg(cam + i);
+  }
+}
+
+// row[c[0 .. kVec)] to dst[0 .. kVec), one store
+template <int kVec, typename V>
+__device__ __forceinline__ void store_row(V* dst, const V* row,
+                                          const int (&c)[kVec]) {
+  if constexpr (kVec == 1) {
+    dst[0] = row[c[0]];
+  } else if constexpr (sizeof(V) == sizeof(float)) {
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(row[c[0]], row[c[1]], row[c[2]], row[c[3]]);
+  } else {
+    *reinterpret_cast<double2*>(dst) = make_double2(row[c[0]], row[c[1]]);
+  }
+}
+
+template <typename V, int kVec>
+__global__ void __launch_bounds__(kGatherThreads)
     cam_gather_kernel(const int32_t* __restrict__ cam,
                       const V* __restrict__ table, V* __restrict__ out,
                       int n_obs, int n_cams, int n_rows, int rows_per_block) {
@@ -68,11 +129,19 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = min(rows_per_block, n_rows - r0);
   povar::smem_copy(smem, table + (size_t)r0 * n_cams, rows * n_cams);
   __syncthreads();
-  const int O = n_obs;
-  POVAR_OBS_LOOP(o, O) {
-    const int c = cam[o];
+  const size_t O = n_obs;
+  V* rows0 = out + r0 * O;
+  // the block's share of the observations, contiguous, all of one size
+  const int n_vec = n_obs / kVec;
+  const int share = (n_vec + gridDim.x - 1) / gridDim.x;
+  const int end = min(n_vec, (blockIdx.x + 1) * share);
+  for (int i = blockIdx.x * share + threadIdx.x; i < end; i += blockDim.x) {
+    int c[kVec];
+    load_cams<kVec>(cam, i, c);
+    V* dst = rows0 + (size_t)i * kVec;
+#pragma unroll 4
     for (int r = 0; r < rows; ++r)
-      out[(size_t)(r0 + r) * O + o] = smem[r * n_cams + c];
+      store_row<kVec>(dst + r * O, smem + r * n_cams, c);
   }
 }
 
@@ -109,16 +178,17 @@ __global__ void __launch_bounds__(kThreads)
 // floats fit up to N = 302, doubles up to N = 151), else 1024-thread
 // blocks on shared copies (up to N = 4842 / 2421), else the global route;
 // C5 in blocks of at most 8 warps with private copies while 4 fit (90 N
-// floats each at (k, d) = (4, 12): up to N = 161; 7 warps at N = 89;
-// doubles up to N = 80), else 512-thread blocks on shared copies (up to
-// N = 645; in f64 256-thread blocks, up to N = 322), else the global
-// route.
+// floats each at (k, d) = (4, 12): up to N = 161; 7 warps at N = 89; in
+// f64 while 8 fit, up to N = 40), else 512-thread blocks on shared copies
+// (up to N = 645; in f64 one copy and a tile of rows a block of six
+// warps, each warp adding one group of the values, up to N = 303), else
+// the global route.
 constexpr int kE0sWarps = 16;
 constexpr int kE0sSharedThreads = 1024;
 constexpr int kHppWarps = 8;
 constexpr int kHppSharedThreads = 512;
-// f64: a row's 52 operands take 104 registers, which 512-thread blocks
-// (128 registers a thread) would spill
+// f64 global route: a row's 52 operands take 104 registers, which
+// 512-thread blocks (128 registers a thread) would spill
 constexpr int kHppSharedThreads64 = 256;
 
 __host__ __device__ constexpr int e0s_threads(Route r) {
@@ -230,6 +300,15 @@ __host__ __device__ constexpr int divisor_below(int n, int cap) {
   return d;
 }
 
+// v added to the global *p as a reduction: no value returned (an f64
+// atomicAdd compiles to ATOMG, which does return one)
+__device__ __forceinline__ void c2_red(double* p, double v) {
+  const size_t g = __cvta_generic_to_global(p);
+  asm volatile("red.global.add.f64 [%0], %1;" ::"l"(g), "d"(v) : "memory");
+}
+
+__device__ __forceinline__ void c2_red(float* p, float v) { atomicAdd(p, v); }
+
 // ------------------------------------------------------------------ C5
 // Per observation, the K x D block Jp (rows k D + a) and r~ [K]:
 // b[a][c] = sum_k Jp[k][a] r~[k] and hpp[a D + bb][c] = sum_k Jp[k][a]
@@ -272,10 +351,11 @@ __host__ __device__ constexpr int divisor_below(int n, int cap) {
 // 135, 4 or 3 warps' private copies a block 163 / 153 (tools/cam_ab.py
 // and PERF.md; NVIDIA H100 80GB HBM3, 700 W).
 // The f64 instantiation holds a row in 104 registers, so it takes the
-// chunks of 15 / 11 values on every route, loads no row ahead, runs its
-// shared copies in 256-thread blocks (f64 shared atomics: a compare-and-
-// swap loop) and sums all of a block's copies before one f64 atomic an
-// entry, into f64 sums.
+// chunks of 15 / 11 values on its private and global routes (256-thread
+// blocks), loads no row ahead and sums all of a block's copies before one
+// f64 atomic an entry, into f64 sums; in place of shared copies (whose
+// f64 shared atomics are compare-and-swap loops) it takes value groups
+// (hpp_b_groups_kernel, below).
 template <typename V>
 struct HppSums {  // the blocks' sums' type, and copies summed a flush
   using type = float;
@@ -286,6 +366,31 @@ template <>
 struct HppSums<double> {
   using type = double;
   static constexpr int kGroup = 32;
+};
+
+// The last block's write of sum i (row i / N of the sums: b, then the
+// upper triangle row by row) to b or to both places of its triangle entry
+// in hpp, so hpp is symmetric bit for bit
+template <typename V, int D, typename S>
+struct HppWrite {
+  V* hpp;
+  V* b;
+  int n_cams;
+  __device__ __forceinline__ void operator()(int i, S s) const {
+    const int row = i / n_cams, c = i - row * n_cams;
+    const V x = (V)s;
+    if (row < D) {
+      b[row * n_cams + c] = x;
+      return;
+    }
+    int a = 0, e = row - D;  // upper-triangle entry e is (a, a + e)
+    while (e >= D - a) {
+      e -= D - a;
+      ++a;
+    }
+    hpp[(a * D + a + e) * n_cams + c] = x;
+    hpp[((a + e) * D + a) * n_cams + c] = x;
+  }
 };
 
 template <typename V, int K, int D, Route R>
@@ -350,21 +455,285 @@ __global__ void __launch_bounds__(hpp_threads<V>(R))
   if (!block_sums_done<R, S, HppSums<V>::kGroup>(acc_g, smem, copies, n_acc,
                                                  n_acc))
     return;
-  drain_sums<S>(acc_g, n_acc, [&](int i, S s) {
-    const int row = i / n_cams, c = i - row * n_cams;
-    const V x = (V)s;
-    if (row < D) {
-      b[row * n_cams + c] = x;
-      return;
+  drain_sums<S>(acc_g, n_acc, HppWrite<V, D, S>{hpp, b, n_cams});
+}
+
+// ------------------------------------------------- C5 in f64: value groups
+// The f64 instantiation's route where 8 private copies of the 90 N
+// doubles do not fit a block but one copy and a tile of rows do (N = 41
+// to 303 at (k, d) = (4, 12), 48 to 366 at (2, 11); venice-89 at both):
+// one copy a block of kHppGroups = 6 warps, each warp adding one group of
+// a row's values to it, so that no two warps add to one entry and every
+// add is a plain one (no f64 shared atomic: a compare-and-swap loop on
+// this card). The D columns are cut into three blocks (4, 4, 4 at
+// D = 12; 4, 4, 3 at D = 11); for each block j one group holds its b and
+// its diagonal tile of the upper triangle (14 values at D = 12), another
+// its tile with block j + 1 mod 3 (16). The block takes tiles of 32 rows:
+// its warps stage a tile's K D + K operand rows (13 KB at (4, 12)) and
+// cameras in shared memory, each warp loading a sixth of them, each
+// value once from device memory, and load the next tile's into registers
+// while they sum this one; each warp reads its group's columns from the
+// tile. Warp 0 matches the tile's cameras once for all six
+// (warp_peers: __match_any_sync, whose cost grows with the distinct
+// cameras of a warp, 23 on average at venice-89) after its own sums of
+// the tile before, and stages the lanes' peers with the cameras; each
+// warp then sums its lanes per camera as hpp_b_kernel does
+// (warp_scatter_rows; where the live lanes all sit on one camera in a
+// reduce-scatter tree, warp_reduce_scatter16). The copy
+// holds the groups one after another (group g's value t in row
+// group_offset(g) + t); the block flushes it to the blocks' f64 sums in
+// the rows of the other routes (b, then the upper triangle row by row:
+// hpp_group_row), and the last block writes hpp and b as hpp_b_kernel's
+// does.
+constexpr int kHppGroups = 6;
+
+// the operand rows of a tile: Jp's K D, then r~'s K
+__host__ __device__ constexpr int tile_cols(int K, int D) { return K * D + K; }
+
+// the shared memory a tile takes: its operands, then its 32 cameras, the
+// lanes' peers and the one camera (HppTile)
+__host__ __device__ constexpr size_t tile_bytes(int K, int D) {
+  return sizeof(double) * tile_cols(K, D) * 32 + sizeof(int) * (2 * 32 + 1);
+}
+
+// blocks an SM the registers are bounded for: (4, 12) at N = 89 fits two
+// (64 KB copies), (2, 11) three
+__host__ __device__ constexpr int hpp_group_blocks(int K, int D) {
+  return K * D > 24 ? 2 : 3;
+}
+
+// the first column of block j (0 .. 3) of D columns cut in three
+__host__ __device__ constexpr int col_lo(int D, int j) {
+  return j * ((D + 2) / 3) < D ? j * ((D + 2) / 3) : D;
+}
+
+__host__ __device__ constexpr int col_n(int D, int j) {
+  return col_lo(D, j + 1) - col_lo(D, j);
+}
+
+// whether group g holds b and the diagonal tile of block g (g < 3) or the
+// tile of blocks g mod 3 and g + 1 mod 3
+__host__ __device__ constexpr bool has_diag(int g) { return g < 3; }
+
+__host__ __device__ constexpr int group_values(int D, int g) {
+  return has_diag(g) ? col_n(D, g) * (col_n(D, g) + 3) / 2
+                     : col_n(D, g % 3) * col_n(D, (g + 1) % 3);
+}
+
+__host__ __device__ constexpr int group_offset(int D, int g) {
+  return g == 0 ? 0 : group_offset(D, g - 1) + group_values(D, g - 1);
+}
+
+// the sums' row of upper-triangle entry (a, bb), a <= bb
+__host__ __device__ constexpr int tri_row(int D, int a, int bb) {
+  return D + a * D - a * (a - 1) / 2 + bb - a;
+}
+
+// the sums' row of row p of the groups' copy
+__device__ __forceinline__ int hpp_group_row(int D, int p) {
+  int g = 0;
+  while (p >= group_values(D, g)) p -= group_values(D, g++);
+  const int j = g % 3, lo = col_lo(D, j), n = col_n(D, j);
+  if (has_diag(g)) {
+    if (p < n) return lo + p;  // b
+    p -= n;
+    for (int a = 0; a < n; p -= n - a, ++a)  // the diagonal tile, by rows
+      if (p < n - a) return tri_row(D, lo + a, lo + a + p);
+  }
+  const int i = min(j, (j + 1) % 3), h = max(j, (j + 1) % 3);
+  return tri_row(D, col_lo(D, i) + p / col_n(D, h),
+                 col_lo(D, h) + p % col_n(D, h));
+}
+
+// The staged tile of 32 rows: operand row q of lane l at rows[32 q + l];
+// each lane's camera (-1 past the last row) and peers (WarpPeers::rest,
+// with the lane's own bit set where it leads its camera), and the one
+// camera of a tile whose live lanes (four or more) all sit on it, else -1
+struct HppTile {
+  double* rows;
+  int* cam;
+  unsigned* peers;
+  int* one;
+};
+
+// Warp G of a block: group G's values of this lane's row of the staged
+// tile, summed per camera into its rows `acc` of the block's copy
+template <int K, int D, int G>
+__device__ __forceinline__ void hpp_group_tile(const HppTile& tile,
+                                               double* acc, int n_cams) {
+  constexpr int kJ = G % 3, kH = (kJ + 1) % 3;
+  constexpr int kNg = col_n(D, kJ);
+  constexpr int kNh = has_diag(G) ? 0 : col_n(D, kH);
+  constexpr int kV = group_values(D, G);
+  constexpr bool kLow = kJ < kH;  // block G mod 3 holds the tile's rows
+  const int lane = threadIdx.x & 31;
+  const int c0 = tile.cam[lane];
+  const int c = c0 >= 0 ? c0 : 0;
+  // the group's columns of Jp (those of block G mod 3, then of the next
+  // block for the off tile) and r~
+  double j[K][kNg + kNh], r[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    r[k] = has_diag(G) ? tile.rows[32 * (K * D + k) + lane] : 0.0;
+#pragma unroll
+    for (int a = 0; a < kNg + kNh; ++a) {
+      const int col = a < kNg ? col_lo(D, kJ) + a : col_lo(D, kH) + a - kNg;
+      j[k][a] = tile.rows[32 * (k * D + col) + lane];
     }
-    int a = 0, e = row - D;  // upper-triangle entry e is (a, a + e)
-    while (e >= D - a) {
-      e -= D - a;
-      ++a;
+  }
+  // sum_k Jp[k][a] y[k], k in order
+  const auto dot = [&](int a, const double(&y)[K]) {
+    double s = j[0][a] * y[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) s += j[k][a] * y[k];
+    return s;
+  };
+  double v[kV], col[K];
+  int t = 0;
+  if constexpr (has_diag(G)) {
+#pragma unroll
+    for (int a = 0; a < kNg; ++a) v[t++] = dot(a, r);
+#pragma unroll
+    for (int a = 0; a < kNg; ++a) {
+#pragma unroll
+      for (int bb = a; bb < kNg; ++bb) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) col[k] = j[k][bb];
+        v[t++] = dot(a, col);
+      }
     }
-    hpp[(a * D + a + e) * n_cams + c] = x;
-    hpp[((a + e) * D + a) * n_cams + c] = x;
-  });
+  } else {
+#pragma unroll
+    for (int a = 0; a < (kLow ? kNg : kNh); ++a) {
+#pragma unroll
+      for (int bb = 0; bb < (kLow ? kNh : kNg); ++bb) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) col[k] = j[k][kLow ? kNg + bb : bb];
+        v[t++] = dot(kLow ? a : kNg + a, col);
+      }
+    }
+  }
+  const int cu = *tile.one;
+  if (cu >= 0) {
+    // every live lane on one camera: 16 values at a time in a
+    // reduce-scatter tree, 8 lanes adding two sums each
+    __syncwarp();  // after the last walk's adds
+#pragma unroll
+    for (int k0 = 0; k0 < kV; k0 += 16) {
+      double w[16], s[2];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) w[k] = k0 + k < kV ? v[k0 + k] : 0.0;
+      povar::warp_reduce_scatter16(w, s);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int k = k0 + 2 * lane + i;
+        if (lane < 8 && k < kV) acc[k * n_cams + cu] += s[i];
+      }
+    }
+  } else {
+    const unsigned own = 1u << lane, word = tile.peers[lane];
+    const povar::WarpPeers peers{word & ~own, (word & own) != 0};
+    povar::warp_scatter_rows<kV, false>(acc, n_cams, c, peers, v);
+  }
+}
+
+// warp g's group (G = 0 .. kHppGroups - 1 tried in turn)
+template <int K, int D, int G = 0>
+__device__ __forceinline__ void hpp_group_warp(int g, const HppTile& tile,
+                                               double* acc, int n_cams) {
+  if constexpr (G < kHppGroups) {
+    if (g == G)
+      hpp_group_tile<K, D, G>(tile, acc + group_offset(D, G) * n_cams,
+                              n_cams);
+    else
+      hpp_group_warp<K, D, G + 1>(g, tile, acc, n_cams);
+  }
+}
+
+// Replaces pallas_cam.py:333 hpp_b (_hpp_b_kernel :311) in f64 on this
+// route; bound and outputs as hpp_b_kernel's. Shared memory: the copy of
+// (d + d (d + 1) / 2) N doubles, then the tile (tile_bytes).
+template <int K, int D>
+__global__ void __launch_bounds__(32 * kHppGroups, hpp_group_blocks(K, D))
+    hpp_b_groups_kernel(const int32_t* __restrict__ cam,
+                        const double* __restrict__ jp,
+                        const double* __restrict__ rt,
+                        double* __restrict__ hpp, double* __restrict__ b,
+                        double* __restrict__ acc_g, int n_obs, int n_cams) {
+  constexpr int kValues = D + D * (D + 1) / 2;
+  static_assert(group_offset(D, kHppGroups) == kValues,
+                "every value in one group");
+  constexpr int kCols = tile_cols(K, D);
+  constexpr int kPer = (kCols + kHppGroups - 1) / kHppGroups;
+  const int n_acc = kValues * n_cams;
+  double* smem = dyn_smem<double>();
+  double* acc = warp_copy<Route::kShared>(smem, 1, n_acc);
+  HppTile tile;
+  tile.rows = smem + n_acc;
+  tile.cam = reinterpret_cast<int*>(tile.rows + 32 * kCols);
+  tile.peers = reinterpret_cast<unsigned*>(tile.cam + 32);
+  tile.one = reinterpret_cast<int*>(tile.peers + 32);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stride = gridDim.x * 32;
+  // this warp's operand rows (warp, warp + kHppGroups, ...) of the tile
+  // at `base`; warp 0's cameras, and, once they have arrived (after this
+  // tile's sums), their match: one for all of the block's warps
+  double next[kPer];
+  int next_cam = -1;
+  unsigned next_peers = 0u;
+  int next_one = -1;
+  const auto match = [&] {
+    const bool live = next_cam >= 0;
+    const int c = live ? next_cam : 0;
+    const povar::WarpPeers p = povar::warp_peers(c, live);
+    next_peers = p.rest | (p.lead ? 1u << lane : 0u);
+    const unsigned leads = __ballot_sync(povar::kFullMask, p.lead);
+    const bool one = __popc(leads) == 1 &&
+                     __popc(__ballot_sync(povar::kFullMask, live)) >= 4;
+    next_one =
+        one ? __shfl_sync(povar::kFullMask, c, __ffs(leads) - 1) : -1;
+  };
+  const auto fetch = [&](int base) {
+    const int o = base + lane;
+    const bool in = o < n_obs;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int q = warp + i * kHppGroups;
+      const double* row = q < K * D ? jp + (size_t)q * n_obs
+                                    : rt + (size_t)(q - K * D) * n_obs;
+      next[i] = in && q < kCols ? __ldg(row + o) : 0.0;
+    }
+    next_cam = in && warp == 0 ? __ldg(cam + o) : -1;
+  };
+  fetch(blockIdx.x * 32);
+  if (warp == 0) match();
+  for (int base = blockIdx.x * 32; base < n_obs; base += stride) {
+    __syncthreads();  // every warp done with the last tile
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int q = warp + i * kHppGroups;
+      if (q < kCols) tile.rows[32 * q + lane] = next[i];
+    }
+    if (warp == 0) {
+      tile.cam[lane] = next_cam;
+      tile.peers[lane] = next_peers;
+      if (lane == 0) *tile.one = next_one;
+    }
+    __syncthreads();
+    fetch(base + stride);
+    hpp_group_warp<K, D>(warp, tile, acc, n_cams);
+    if (warp == 0) match();
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
+    const double s = smem[i];
+    if (s == 0.0) continue;
+    const int p = i / n_cams;
+    c2_red(acc_g + hpp_group_row(D, p) * n_cams + (i - p * n_cams), s);
+  }
+  if (!povar::last_block(povar::ticket_of(acc_g, n_acc))) return;
+  drain_sums<double>(acc_g, n_acc,
+                     HppWrite<double, D, double>{hpp, b, n_cams});
 }
 
 // ------------------------------------------------------------------ C2
@@ -395,15 +764,6 @@ constexpr int kC2Drain = 8;
 __host__ __device__ constexpr int c2_threads(Route r) {
   return r == Route::kPrivate ? 32 * kC2Warps : kC2SharedThreads;
 }
-
-// v added to the global *p as a reduction: no value returned (an f64
-// atomicAdd compiles to ATOMG, which does return one)
-__device__ __forceinline__ void c2_red(double* p, double v) {
-  const size_t g = __cvta_generic_to_global(p);
-  asm volatile("red.global.add.f64 [%0], %1;" ::"l"(g), "d"(v) : "memory");
-}
-
-__device__ __forceinline__ void c2_red(float* p, float v) { atomicAdd(p, v); }
 
 // Replaces pallas_cam.py:207 cam_scatter_add (_scatter_kernel :198).
 // Bound: (4 + 4 R) B per observation, 52 B at R = 12: 8.6 us at
@@ -558,13 +918,52 @@ int launch_e0_scatter(const int32_t* cam, const V* w, const V* sb, V* out,
 template <typename V, int K, int D>
 int launch_hpp_b(const int32_t* cam, const V* jp, const V* rt, V* hpp, V* b,
                  double* acc, int n_obs, int n_cams, void* stream) {
-  return launch_sums(
-      sums_plan(D + D * (D + 1) / 2, n_cams, kHppWarps, 4,
-                hpp_threads<V>(Route::kShared), 0, sizeof(V)),
-      hpp_b_kernel<V, K, D, Route::kPrivate>,
-      hpp_b_kernel<V, K, D, Route::kShared>,
-      hpp_b_kernel<V, K, D, Route::kGlobal>, n_obs, stream, cam, jp, rt, hpp,
-      b, acc, n_obs, n_cams);
+  constexpr int kValues = D + D * (D + 1) / 2;
+  constexpr bool kF64 = sizeof(V) == sizeof(double);
+  const SumsPlan p =
+      sums_plan(kValues, n_cams, kHppWarps, kF64 ? kHppWarps : 4,
+                hpp_threads<V>(Route::kShared), 0, sizeof(V));
+  if constexpr (kF64) {
+    // in place of shared copies, value groups on one copy while it fits
+    // with a tile (and 128 bytes of static shared memory): a tile of 32
+    // rows a block and a time, each row's groups on its warps
+    const size_t groups =
+        sizeof(double) * kValues * n_cams + tile_bytes(K, D);
+    if (p.route != Route::kPrivate &&
+        groups + 128 <= (size_t)povar::max_optin_smem())
+      return povar::launch_block(hpp_b_groups_kernel<K, D>, 32 * kHppGroups,
+                                 (long)n_obs * kHppGroups, groups, stream,
+                                 cam, jp, rt, hpp, b, acc, n_obs, n_cams);
+    const auto kernel = p.route == Route::kPrivate
+                            ? hpp_b_kernel<V, K, D, Route::kPrivate>
+                            : hpp_b_kernel<V, K, D, Route::kGlobal>;
+    return povar::launch_block(kernel, p.threads, n_obs, p.smem, stream, cam,
+                               jp, rt, hpp, b, acc, n_obs, n_cams, p.copies);
+  } else {
+    return launch_sums(p, hpp_b_kernel<V, K, D, Route::kPrivate>,
+                       hpp_b_kernel<V, K, D, Route::kShared>,
+                       hpp_b_kernel<V, K, D, Route::kGlobal>, n_obs, stream,
+                       cam, jp, rt, hpp, b, acc, n_obs, n_cams);
+  }
+}
+
+// Launch C1 over kVec observations a thread: one whole wave of blocks
+// (every SM its resident blocks) over all row blocks (blockIdx.y)
+template <typename V, int kVec>
+int launch_cam_gather(const int32_t* cam, const V* table, V* out, int n_obs,
+                      int n_cams, int n_rows, int rows_per_block,
+                      void* stream) {
+  const size_t smem = sizeof(V) * (size_t)rows_per_block * n_cams;
+  const int row_blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  int grid = 0;
+  const cudaError_t err = povar::grid_for<kGatherThreads>(
+      cam_gather_kernel<V, kVec>, 1L << 40, smem, &grid);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 blocks(std::max(1, grid / row_blocks), row_blocks);
+  cam_gather_kernel<V, kVec>
+      <<<blocks, kGatherThreads, smem, (cudaStream_t)stream>>>(
+          cam, table, out, n_obs, n_cams, n_rows, rows_per_block);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------- the entry points' bodies, f32 or f64
@@ -575,14 +974,18 @@ int cam_gather(const int32_t* cam, const V* table, V* out, int n_obs,
                int n_cams, int n_rows, int rows_per_block, void* stream) {
   if (n_obs <= 0 || n_cams <= 0 || n_rows <= 0 || rows_per_block <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(V) * (size_t)rows_per_block * n_cams;
-  int grid = 0;
-  cudaError_t err = povar::grid_for(cam_gather_kernel<V>, n_obs, smem, &grid);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 blocks(grid, (n_rows + rows_per_block - 1) / rows_per_block);
-  cam_gather_kernel<V><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      cam, table, out, n_obs, n_cams, n_rows, rows_per_block);
-  return (int)cudaGetLastError();
+  // kVec observations a thread (16-byte stores of out's rows and kVec-
+  // index loads of cam) need O a multiple of kVec and both pointers
+  // aligned to them
+  constexpr int kVec = kGatherVec<V>;
+  const bool vec = kVec > 1 && n_obs % kVec == 0 &&
+                   reinterpret_cast<uintptr_t>(cam) % (4 * kVec) == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec)
+    return launch_cam_gather<V, kVec>(cam, table, out, n_obs, n_cams, n_rows,
+                                      rows_per_block, stream);
+  return launch_cam_gather<V, 1>(cam, table, out, n_obs, n_cams, n_rows,
+                                 rows_per_block, stream);
 }
 
 // out: [n_rows, n_cams]; acc: n_rows * (n_cams + 1) doubles, zero (every

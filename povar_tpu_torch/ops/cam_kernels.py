@@ -56,16 +56,22 @@ F64_KERNELS = tuple(f"{name}_f64" for name in KERNELS)
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS + F64_KERNELS}
 
-# shared memory one block of the gather stages its table rows in: the
-# default 48 KB per block, 12 rows up to N = 1024 cameras (6 in f64)
-_TABLE_BYTES = 48 * 1024
+# shared memory one block of the gather stages its table rows in: 96 KB,
+# so that two blocks share an SM; the whole [R, N] table up to R N = 24576
+# floats or 12288 doubles (R = 132 at N = 89 in f64, 12 rows at N = 1024)
+_TABLE_BYTES = 96 * 1024
 # the (k, d) shapes of hpp_b's Jacobian blocks that csrc/cam.cu
 # instantiates: step 1's [4, 12] and step 2's tangent [2, 11]
 _HPP_B_SHAPES = ((4, 12), (2, 11))
 
 
 def _rows_per_block(r: int, n: int, elem: int = 4) -> int:
-    return max(1, min(r, _TABLE_BYTES // (elem * n)))
+    """The table rows one block of the gather stages: the R rows cut into
+    the fewest row blocks whose rows of N values of `elem` bytes fit
+    _TABLE_BYTES (at least one row a block), all of one size but the
+    last, which is never larger."""
+    blocks = -(-r // max(1, _TABLE_BYTES // (elem * n)))
+    return -(-r // blocks)
 
 
 def _entry(name: str, o: int, n: int, cam, named):

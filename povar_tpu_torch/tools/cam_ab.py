@@ -1,11 +1,13 @@
-"""`cam_scatter_add`, `e0_scatter` and `hpp_b` (csrc/cam.cu) against an
-earlier version of their kernels and against controlled variants of
-their own, on one card; the warm bench iterations with `cam_gather`'s
-host cost; the spreads of the solves these kernels' rounding can move;
-and the launches of `cam_scatter_add` by row count in one solve.
+"""The camera-table kernels (csrc/cam.cu) against an earlier version of
+their kernels and against controlled variants of their own, on one card;
+the warm bench iterations with `cam_gather`'s host cost; the spreads of
+the solves these kernels' rounding can move; and the launches of
+`cam_scatter_add` by row count in one solve.
 
     python -m povar_tpu_torch.tools.cam_ab kernels --parent DIR
         [--kernels cam_scatter_add e0_scatter hpp_b]
+    python -m povar_tpu_torch.tools.cam_ab kernels --parent DIR --same-sig
+        --kernels cam_gather hpp_b_f64 [--variants NAME ...]
     python -m povar_tpu_torch.tools.cam_ab bench
     python -m povar_tpu_torch.tools.cam_ab spread [--chol 16] [--off 8]
     python -m povar_tpu_torch.tools.cam_ab launches
@@ -36,14 +38,30 @@ time is the profiler's, every device operation of a call included (the
 earlier wrapper's zeroing of its outputs too), mean of 20 calls; event
 time the median of 20 (tools/pose2_ab.py's `ab_time`).
 
+With `--same-sig` (a parent whose entry points take the package's
+arguments, 4a2a9d4 and later) `kernels` first compares `cam_gather` in
+f32 and f64 at R = 12 and 132 (beside `index_select`) and `hpp_b`'s f64
+instantiation at both shapes (`--kernels cam_gather hpp_b_f64`), parent
+and package alternating, on (a)-(c) and on (d) N = 32 seeded cameras,
+each result checked (the gathers bit for bit, the sums within 1e-12 per
+camera with hpp symmetric bit for bit) and timed three ways: CUDA events
+around 50 back-to-back calls per call ("loop"; the gathers through their
+bare C entry points into preallocated outputs, `index_select` with
+`out=`, so that a call's host cost hides behind the device's), the
+profiler's device time with the number of device operations it recorded
+("device"; fewer than the calls: it dropped some), and events around
+single calls each after a 256 MB write ("cold": nothing of the call in
+L2); with the registers and spills of every instantiation.
+
 `bench` prints, for the package tree in the current directory:
 `cam_gather`'s event and device time at venice-89 ([12, 89] table) beside
 `index_select`'s, and its host time per call (enqueue only, mean of 2000
 calls) for the wrapper, for the bare C entry point through ctypes, for a
 ctypes call that does nothing on the card (`povar_error_string`) and
 for `index_select`; then chip_smoke's warm step-1 and step-2 bench
-iterations with pallas_kernels="off" and with SolverOptions() defaults
-(launches, wall time, device time and device operations per iteration).
+iterations with pallas_kernels="off", with SolverOptions() defaults and
+in pure f64 (`mixed_precision_solves=False`) (launches, wall time,
+device time and device operations per iteration).
 Run it in each tree to compare, for instance `(cd DIR && PYTHONPATH=.
 python <repo>/povar_tpu_torch/tools/cam_ab.py bench)`.
 
@@ -67,6 +85,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -99,11 +118,18 @@ SASS_KERNELS = {
     **{f"hpp_b<{k},{d}> route {r}":
        rf"cam_cu.*hpp_b_kernelIf?Li{k}ELi{d}E.*RouteE{r}E"
        for k, d in ((4, 12), (2, 11)) for r in range(3)},
+    **{f"cam_gather<{v}, {k}>": rf"cam_cu.*cam_gather_kernelI{v}Li{k}E"
+       for v, k in (("f", 4), ("f", 1), ("d", 2), ("d", 1))},
     "cam_gather": r"cam_cu.*cam_gather_kernel(IfEEv|E)PKi",
     "e0_u": r"cam_cu.*e0_u_kernel(IfEEv|E)PKi",
+    **{f"hpp_b f64<{k},{d}> route {r}":
+       rf"cam_cu.*hpp_b_kernelIdLi{k}ELi{d}E.*RouteE{r}E"
+       for k, d in ((4, 12), (2, 11)) for r in range(3)},
+    **{f"hpp_b f64<{k},{d}> value groups":
+       rf"cam_cu.*hpp_b_groups_kernelILi{k}ELi{d}E"
+       for k, d in ((4, 12), (2, 11))},
     **{f"{name} f64": rf"cam_cu.*{name}_kernelId"
-       for name in ("cam_scatter_add", "e0_scatter", "hpp_b", "cam_gather",
-                    "e0_u")},
+       for name in ("cam_scatter_add", "e0_scatter", "cam_gather", "e0_u")},
     "cam_scatter_add (earlier)": r"cam_cu.*cam_scatter_add_kernel",
     "e0_scatter (earlier)": r"cam_cu.*e0_scatter_kernel",
     "hpp_b (earlier)": r"cam_cu.*hpp_b_kernel",
@@ -128,8 +154,8 @@ TREE_WALK = """  const int rank = __popc(p.rest & ((1u << lane) - 1u));
     }
   }
 """
-# hpp_b's launch: the fewest warps a block of private copies may have
-HPP_MIN_WARPS = r"(sums_plan\(D \+ D \* \(D \+ 1\) / 2, n_cams, kHppWarps, )4,"
+# hpp_b's launch: the fewest warps a block of private copies may have (f32)
+HPP_MIN_WARPS = r"(kF64 \? kHppWarps : )4,"
 # the copies the f32 hpp_b's flush sums before each f64 atomic
 HPP_GROUP = r"kGroup = 2;"
 
@@ -294,7 +320,8 @@ C2_VARIANTS = {
                       "const bool tree = false && __popc")],
     "c2_global": [("cam.cu", r"(kC2StaticSmem, sizeof\(V\)\);)",
                    "\\1\n  p = {Route::kGlobal, kC2SharedThreads, 1, 0};"),
-                  ("cam.cu", r"const SumsPlan p =", "SumsPlan p =")],
+                  ("cam.cu", r"const SumsPlan p =(\s+sums_plan\(group)",
+                   r"SumsPlan p =\1")],
     "c2_loads_only": [("cam.cu", r"(\n    load\(0\);)",
                        "\\1\n    {\n      float q_ = 0.0f;\n"
                        "      for (int k = 0; k < K; ++k) q_ += x[k];\n"
@@ -312,9 +339,35 @@ C2_VARIANTS = {
 }
 VARIANTS.update({name: (edits, "cam_scatter_add")
                  for name, edits in C2_VARIANTS.items()})
+# cam_gather (both types) with one design choice changed: 512-thread
+# blocks (1024 by default), one observation a thread in f32 (four by
+# default: 16-byte stores), one in f64 (two), the row loop not unrolled
+# (4 rows by default); the f64 hpp_b's value groups with registers
+# bounded for three blocks an SM at (4, 12) too (two by default); and,
+# wrong sums by design (timed only), its tiles staged but not summed, and
+# its pass without the flush of its copy
+VARIANTS.update({
+    "gather_threads512": ([("cam.cu", r"kGatherThreads = 1024;",
+                            "kGatherThreads = 512;")], "cam_gather"),
+    "gather_f32_scalar": ([("cam.cu", r"sizeof\(float\) \? 4 : 2;",
+                            "sizeof(float) ? 1 : 2;")], "cam_gather"),
+    "gather_f64_scalar": ([("cam.cu", r"sizeof\(float\) \? 4 : 2;",
+                            "sizeof(float) ? 4 : 1;")], "cam_gather"),
+    "gather_unroll1": ([("cam.cu", r"#pragma unroll 4(\n    for \(int r = 0)",
+                         r"#pragma unroll 1\1")], "cam_gather"),
+    "hpp64_blocks3": ([("cam.cu", r"return K \* D > 24 \? 2 : 3;",
+                        "return 3;")], "hpp_b_f64"),
+    "hpp64_stage_only": ([("cam.cu", r"    hpp_group_warp<K, D>\(warp, tile, "
+                           r"acc, n_cams\);",
+                           "    if (tile.rows[lane] == 1.2345e-300) acc[lane] "
+                           "= tile.rows[32 + lane];")], "hpp_b_f64"),
+    "hpp64_no_flush": ([("cam.cu", r"(    )(c2_red\(acc_g \+ hpp_group_row)",
+                         r"\1if (s == 1.2345e-300) \2")], "hpp_b_f64"),
+})
 # the variants that give wrong sums by design (timed only)
 DIAGNOSTIC = {"no_adds", "no_walk", "no_flush", "c2_loads_only",
-              "c2_match_only", "c2_no_flush", "c2_no_last", "c2_no_tail"}
+              "c2_match_only", "c2_no_flush", "c2_no_last", "c2_no_tail",
+              "hpp64_stage_only", "hpp64_no_flush"}
 # floats per block row of the fixed-order variant's buffer: the most
 # blocks any route launches (132 SMs x 3 blocks) times dc N at N = 1024
 FIXED_ORDER_FLOATS = 132 * 3 * 12 * 1024 + 2
@@ -509,9 +562,9 @@ def _shapes(cam, mask, n):
     return shapes
 
 
-def c2_registers(logs) -> None:
-    """Registers and spill bytes of every cam_scatter_add instantiation
-    in each of `logs` ({name: nvcc output with -Xptxas -v})."""
+def registers(logs, kernel="cam_scatter_add_kernel") -> None:
+    """Registers and spill bytes of every instantiation of `kernel` in
+    each of `logs` ({name: nvcc output with -Xptxas -v})."""
     for name, log in logs.items():
         fn, out = None, []
         for ln in log.splitlines():
@@ -519,11 +572,9 @@ def c2_registers(logs) -> None:
             if m:
                 fn = m.group(1)
                 continue
-            if not fn or "cam_scatter_add_kernel" not in fn:
+            if not fn or kernel not in fn:
                 continue
-            k = re.search(r"cam_scatter_add_kernelILi(\d+)E.*RouteE(\d)E",
-                          fn)
-            tag = f"<{k.group(1)}> route {k.group(2)}" if k else "(earlier)"
+            tag = fn.split(kernel, 1)[1][:40]  # its template arguments
             sp = re.search(r"(\d+) bytes spill stores", ln)
             if sp:
                 out.append(f"{tag} spills {sp.group(1)} B")
@@ -531,7 +582,224 @@ def c2_registers(logs) -> None:
             if rg:
                 out.append(f"{tag} {rg.group(1)} registers")
                 fn = None
-        print(f"c2 registers {name}: {'; '.join(out)}", flush=True)
+        print(f"registers {kernel} {name}: {'; '.join(out)}", flush=True)
+
+
+# bytes written between the calls of the cold-L2 timer: past the card's
+# 50 MB L2, so that neither the operands nor the last call's output stay
+# in it, and long enough (~80 us) to hide the next call's host cost
+FLUSH_BYTES = 256 << 20
+TIMED_CALLS = 20
+
+
+def loop_us(fn, calls: int = 50, loops: int = 5) -> float:
+    """Time a call as CUDA events around `calls` back-to-back calls
+    (the host's cost of a call hidden where it is below the device's),
+    per call, median of `loops` loops, in microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(loops):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / calls)
+    return statistics.median(times)
+
+
+def profiled(fn, reps: int = TIMED_CALLS):
+    """(device time a call: the profiler's summed durations of every
+    device operation over `reps` calls, over `reps`; the number of device
+    operations it recorded) in microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    return sum(ops) / reps, len(ops)
+
+
+def cold_us(fn, reps: int = TIMED_CALLS) -> float:
+    """CUDA events around each of `reps` calls, each after a write of
+    FLUSH_BYTES (a cold L2), median, in microseconds."""
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for i in range(reps):
+        flush.fill_(float(i))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) * 1e3 for s, e in pairs)
+
+
+def timers(fn) -> str:
+    """The three timers of one call of `fn` (a call of one device
+    operation: the profiler should record TIMED_CALLS)."""
+    dev, ops = profiled(fn)
+    return (f"loop {loop_us(fn):.1f} us, device {dev:.1f} us ({ops} of "
+            f"{TIMED_CALLS} operations recorded), cold {cold_us(fn):.1f} us")
+
+
+def _layouts(cam, n):
+    """(label, cam, the rows' order or None, N): (a) venice-89, (b) its
+    rows sorted by camera, (c) N = 1024 and (d) N = 32 seeded cameras on
+    (a)'s rows."""
+    rng = np.random.default_rng(4)
+    o = cam.shape[0]
+    by_cam = torch.argsort(cam.long(), stable=True)
+
+    def seeded(nc):
+        return torch.as_tensor(rng.integers(0, nc, o).astype(np.int32),
+                               device="cuda")
+    return [("(a) venice-89", cam, None, n),
+            ("(b) sorted by camera", cam[by_cam].contiguous(), by_cam, n),
+            ("(c) N = 1024", seeded(1024), None, 1024),
+            ("(d) N = 32", seeded(32), None, 32)]
+
+
+def _rows_48k(r: int, n: int, elem: int) -> int:
+    """The gather's table rows a block in the earlier plan (4a2a9d4 and
+    before): as many as fit 48 KB."""
+    return max(1, min(r, 48 * 1024 // (elem * n)))
+
+
+def _gather_entry(lib, table, cam, out, rows):
+    """A call of `lib`'s cam_gather entry point of table's type into
+    `out` with `rows` table rows a block (no allocation, no checks)."""
+    from povar_tpu_torch.ops import _build
+    from povar_tpu_torch.ops.pose_kernels import _ptr, _stream
+
+    name = ("povar_cam_gather_f64" if table.dtype == torch.float64
+            else "povar_cam_gather")
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = _build.SIGNATURES[name], ctypes.c_int
+    r, n = table.shape
+    args = (_ptr(cam), _ptr(table), _ptr(out), cam.shape[0], n, r, rows,
+            _stream(table))
+
+    def run():
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
+        return out
+    return run
+
+
+def _bound_us(moved: float) -> float:
+    import chip_smoke as cs
+    return moved / cs.HBM_BYTES_PER_S * 1e6
+
+
+def gather_ab(parent, variants, layouts, _mask) -> None:
+    """cam_gather in f32 and f64 at R = 12 and 132 on each layout: the
+    parent's kernel (with its 48 KB row blocks), the package's, each
+    variant's, the package's with 48 KB row blocks at N = 1024, and
+    `index_select` into a preallocated output, each bit for bit against
+    table[:, cam], then timed by the three timers (parent, package,
+    package, parent, then the others). The kernels are called through
+    their bare C entry points into preallocated outputs, so that the
+    loop timer sees the device."""
+    from povar_tpu_torch.ops import _build
+    from povar_tpu_torch.ops.cam_kernels import _rows_per_block
+
+    package = _build.library()
+    rng = np.random.default_rng(5)
+    for dtype in (torch.float32, torch.float64):
+        elem = torch.tensor([], dtype=dtype).element_size()
+        for r in (12, 132):
+            for label, c, _rows, n in layouts:
+                o = c.shape[0]
+                table = torch.as_tensor(rng.standard_normal((r, n)),
+                                        dtype=dtype, device="cuda")
+                c64 = c.long()
+                want = table.index_select(1, c64)
+
+                def entry(lib, rows):
+                    out = torch.empty((r, o), dtype=dtype, device="cuda")
+                    return _gather_entry(lib, table, c, out, rows)
+                new = _rows_per_block(r, n, elem)
+                old = _rows_48k(r, n, elem)
+                impls = {"parent": entry(parent, old),
+                         "package": entry(package, new),
+                         **{v: entry(lib, new) for v, lib in variants.items()}}
+                if old != new:
+                    impls["package, 48 KB rows"] = entry(package, old)
+                buf = torch.empty((r, o), dtype=dtype, device="cuda")
+                impls["index_select"] = (
+                    lambda: torch.index_select(table, 1, c64, out=buf))
+                tag = (f"cam_gather {str(dtype)[6:]} R = {r} {label}, rows a "
+                       f"block {old} -> {new}")
+                for who, fn in impls.items():
+                    if not torch.equal(fn(), want):
+                        raise AssertionError(f"{tag} {who}: not bit for bit")
+                print(f"{tag}: every result bit for bit; bound "
+                      f"{_bound_us(4 * o + elem * r * (o + n)):.1f} us",
+                      flush=True)
+                for who in ["parent", "package", "package", "parent",
+                            *(k for k in impls if k not in ("parent",
+                                                            "package"))]:
+                    print(f"{tag} {who}: {timers(impls[who])}", flush=True)
+                del impls, buf, want
+                torch.cuda.empty_cache()
+
+
+def hpp_f64_ab(parent, variants, layouts, mask) -> None:
+    """hpp_b's f64 instantiation at (k, d) = (4, 12) and (2, 11) on each
+    layout, on seeded f64 operands zeroed on the pad rows: the parent's
+    kernel, the package's and each variant's, through the package's
+    wrapper, each within 1e-12 per camera of the plain version with hpp
+    symmetric bit for bit, then timed by the three timers (parent,
+    package, package, parent, then the variants)."""
+    from povar_tpu_torch.ops import cam_kernels as ck
+    from povar_tpu_torch.ops import cam_ref
+    from povar_tpu_torch.tools.parity import scaled_error
+
+    rng = np.random.default_rng(6)
+    impls = {"parent": _same_sig(parent, "hpp_b"), "package": ck.hpp_b,
+             **{v: _same_sig(lib, "hpp_b") for v, lib in variants.items()}}
+    for k, d in ((4, 12), (2, 11)):
+        for label, c, rows, n in layouts:
+            m = (mask if rows is None else mask[:, rows]).double()
+            o = c.shape[0]
+            jp, rt = (torch.as_tensor(rng.standard_normal((x, o)),
+                                      device="cuda") * m for x in (k * d, k))
+            want = cam_ref.hpp_b(jp, rt, c, n)
+            tag = f"hpp_b f64 (k, d) = ({k}, {d}) {label}"
+            for who, fn in impls.items():
+                got = fn(jp, rt, c, n)
+                if who in DIAGNOSTIC:
+                    continue
+                errs = [scaled_error(g, w, "cam") for g, w in zip(got, want)]
+                h = got[0].view(d, d, n)
+                sym = bool(torch.equal(h, h.transpose(0, 1)))
+                if not (max(errs) <= 1e-12 and sym):
+                    raise AssertionError(f"{tag} {who}: errors {errs}, hpp "
+                                         f"symmetric {sym}")
+            moved = 4 * o + 8 * (k * d + k) * o + 8 * (d * d + d) * n
+            print(f"{tag}: every result within 1e-12 per camera, hpp "
+                  f"symmetric bit for bit; bound {_bound_us(moved):.1f} us",
+                  flush=True)
+            for who in ["parent", "package", "package", "parent",
+                        *variants]:
+                print(f"{tag} {who}: "
+                      f"{timers(lambda f=impls[who]: f(jp, rt, c, n))}",
+                      flush=True)
 
 
 def kernels(parent: Path, only=None, names=None, same_sig=False) -> None:
@@ -548,10 +816,25 @@ def kernels(parent: Path, only=None, names=None, same_sig=False) -> None:
                         {}, ENTRIES, None if same_sig else PARENT_SIG,
                         SASS_KERNELS)
     from povar_tpu_torch.ops import _build
-    c2_registers({"package": _build.build_log(),
-                  **{n: (OUT / n / "build.log").read_text()
-                     for n in ["parent", *variants]}})
+    logs = {"package": _build.build_log(),
+            **{n: (OUT / n / "build.log").read_text()
+               for n in ["parent", *variants]}}
+    for kernel in ("cam_scatter_add_kernel", "cam_gather_kernel",
+                   "hpp_b_kernelId", "hpp_b_groups_kernel"):
+        registers(logs, kernel)
     cam, mask, n = _operands()
+    if same_sig:
+        layouts = _layouts(cam, n)
+        for name, run in (("cam_gather", gather_ab),
+                          ("hpp_b_f64", hpp_f64_ab)):
+            if only is None or name in only:
+                # the generic variants (no_walk, no_adds, ...) time
+                # hpp_b's f64 sums too
+                run(libs["parent"], {v: libs[v] for v, (_e, k) in
+                                     variants.items()
+                                     if k == name or k is None
+                                     and name == "hpp_b_f64"},
+                    layouts, mask)
     own_sig = ("cam_gather", "e0_u")  # no earlier signature of their own
     shapes = [s for s in _shapes(cam, mask, n)
               if (only is None or s[0] in only)
@@ -720,7 +1003,8 @@ def bench() -> None:
     problem = synthetic_bal_problem_fast(cs.N_CAMS, cs.N_LMS, cs.OBS_PER_LM,
                                          seed=0)
     for label, opts in (("off", SolverOptions(pallas_kernels="off")),
-                        ("defaults", SolverOptions())):
+                        ("defaults", SolverOptions()),
+                        ("f64", SolverOptions(mixed_precision_solves=False))):
         cs.bench_step1(problem, opts, f"step-1 {label}")
         cs.bench_step2(problem, opts, f"step-2 {label}")
 
@@ -821,9 +1105,9 @@ def main(argv=None) -> int:
                    "pose_common.cuh")
     k.add_argument("--kernels", nargs="+", default=None,
                    choices=("cam_gather", "e0_u", "cam_scatter_add",
-                            "e0_scatter", "hpp_b"),
-                   help="time only these kernels (default: all five; "
-                   "cam_gather and e0_u only with --same-sig)")
+                            "e0_scatter", "hpp_b", "hpp_b_f64"),
+                   help="time only these kernels (default: all; "
+                   "cam_gather, e0_u and hpp_b_f64 only with --same-sig)")
     k.add_argument("--variants", nargs="*", default=None,
                    help="build and time only these VARIANTS (default: all "
                    "that concern the kernels; none without names)")

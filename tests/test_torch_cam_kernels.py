@@ -119,6 +119,22 @@ def test_hpp_b(n, k, d):
     assert torch.equal(h, h.transpose(0, 1))
 
 
+@pytest.mark.parametrize("r, n, elem, rows", [
+    (12, 89, 4, 12), (12, 89, 8, 12), (132, 89, 8, 132), (12, 1024, 8, 12),
+    (132, 1024, 4, 22), (132, 1024, 8, 12), (144, 1024, 4, 24),
+    (13, 1024, 8, 7), (5, 20000, 8, 1)])
+def test_gather_row_blocks(r, n, elem, rows):
+    """The gather's row split: the fewest row blocks whose table rows
+    fit _TABLE_BYTES (one row a block where not even one fits), all of
+    one size but the last, which is not larger and not empty."""
+    got = cam_kernels._rows_per_block(r, n, elem)
+    assert got == rows
+    blocks = -(-r // got)
+    fit = max(1, cam_kernels._TABLE_BYTES // (elem * n))
+    assert blocks == -(-r // fit)
+    assert got <= fit and 0 < r - (blocks - 1) * got <= got
+
+
 def test_shape_checks():
     cam = torch.zeros(O, dtype=torch.int32)
     with pytest.raises(ValueError):

@@ -19,7 +19,10 @@ N = 1024, where the two Schur-Jacobi kernels take their global-atomic
 route (`hpp_b_structured` and `hppb2` take theirs at N = 2048); the
 fused terms run over all slot parts and over a narrow prefix, and also
 over parts of three widths and on camera-sorted landmarks; `cam_gather`
-also on a 144-row table, more rows than one block stages at N = 1024;
+also on a 144-row table, more rows than one block stages at N = 1024,
+and in both types on each of its routes (16-byte stores, one
+observation a thread, row blocks); `hpp_b`'s f64 value groups on each
+side of their routes' edges;
 `e0_scatter` and `hpp_b` on each of their routes (N = 13 to 5000) and
 in three row orders, `e0_scatter` also at a width of 5; `cam_scatter_add`
 at R = 12, 121, 144 and 5 on each of its routes (N = 13 to 5000) in four
@@ -802,8 +805,8 @@ def test_cam_kernels_f64_match_plain_versions(cuda, n_cams, order):
     1e-12 per camera; the output f64; hpp symmetric bit for bit; every
     call leaves the sums buffer zeroed. On every route of the sums: per-
     warp copies (N = 13; cam_scatter_add and e0_scatter at 89), shared
-    copies (hpp_b at 89 and 300, the others at 1024) and global atomics
-    (N = 5000), in three row orders (as drawn, sorted by camera, and in
+    copies (the others at 1024), hpp_b's value groups (N = 89 and 300)
+    and global atomics (N = 5000), in three row orders (as drawn, sorted by camera, and in
     camera runs of 64 rows, whole warps on one camera). e0_u stages its
     [dc, N] table in shared memory, as its f32 instantiation does: up to
     the solvers' 1024 cameras (96 KB in f64)."""
@@ -834,6 +837,92 @@ def test_cam_kernels_f64_match_plain_versions(cuda, n_cams, order):
             hpp = got[0].view(d, d, n_cams)
             assert torch.equal(hpp, hpp.transpose(0, 1))
     assert not any(bool(buf.any()) for buf in pk._SUMS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n_cams, rows", [(89, 12), (89, 132), (1024, 12),
+                                          (1024, 132)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cam_gather_routes_on_the_card(cuda, dtype, n_cams, rows, offset):
+    """cam_gather in both types once per call, counted once under its
+    type's name, one device operation, bit for bit table[:, cam]: with
+    16-byte stores of 4 / 2 observations a thread (offset 0), and one
+    observation a thread where O is odd and cam is not aligned to them
+    (offset 1: cam[1:]); the table whole in one row block (N = 89, and
+    12 rows at N = 1024 in both types) or cut into row blocks (132 rows at
+    N = 1024: 6 row blocks of 22 rows in f32, 11 of 12 in f64)."""
+    rng = np.random.default_rng(n_cams + rows + offset)
+    table = torch.as_tensor(rng.standard_normal((rows, n_cams)), dtype=dtype,
+                            device=cuda)
+    cam = torch.as_tensor(rng.integers(0, n_cams, O + 1).astype(np.int32),
+                          device=cuda)[offset:offset + O - offset]
+    name = "cam_gather" + ("_f64" if dtype == torch.float64 else "")
+    launches.reset_launch_counts()
+    got = cam_kernels.cam_gather(table, cam)
+    torch.cuda.synchronize()
+    counts = launches.launch_counts()
+    assert counts[name] == 1 and sum(counts.values()) == 1, counts
+    assert got.dtype == dtype and torch.equal(got,
+                                              cam_ref.cam_gather(table, cam))
+    # three calls: three device operations (the profiler may drop one)
+    ops = _device_ops(lambda: cam_kernels.cam_gather(table, cam))
+    assert 0 < len(ops) <= 3 and all("cam_gather_kernel" in op
+                                     for op in ops), ops
+
+
+# the f64 hpp_b's routes (csrc/cam.cu): private copies while 8 of the
+# (d + d (d + 1) / 2) N doubles fit a block's 232,448 bytes, value groups
+# while one copy fits with a tile of 32 rows of k d + k doubles, 32
+# cameras, 32 peer masks, one word and 128 bytes of static shared
+# memory, else the global route
+HPP_F64_OPTIN = 232_448
+
+
+def _hpp_f64_route(k: int, d: int, n: int) -> str:
+    copy = 8 * (d + d * (d + 1) // 2) * n
+    tile = 8 * 32 * (k * d + k) + 4 * (2 * 32 + 1)
+    return ("private" if HPP_F64_OPTIN // copy >= 8 else "groups"
+            if copy + tile + 128 <= HPP_F64_OPTIN else "global")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["drawn", "by_camera", "camera_runs"])
+@pytest.mark.parametrize("n_cams", [40, 41, 89, 303, 304, 366, 367])
+def test_hpp_b_f64_value_groups_on_the_card(cuda, n_cams, order):
+    """hpp_b's f64 instantiation at (k, d) = (4, 12) and (2, 11) on each
+    side of its routes' edges (value groups from N = 41 / 48 to 303 /
+    366): one device operation, the route's kernel (hpp_b_groups_kernel
+    on the value groups), within 1e-12 per camera of the plain version,
+    hpp symmetric bit for bit, the sums buffer left zeroed; in three row
+    orders (camera runs of 64 rows: whole warps on one camera, which sum
+    in a reduce-scatter tree)."""
+    t = _inputs(n_cams, cuda)
+    cam, live = t["cam"], t["mask"].double()
+    if order == "camera_runs":
+        cam = ((torch.arange(O, device=cuda) // 64) % n_cams).to(torch.int32)
+    elif order == "by_camera":
+        rows = torch.argsort(cam.long(), stable=True)
+        cam, live = cam[rows].contiguous(), live[:, rows].contiguous()
+    rng = np.random.default_rng(n_cams)
+    for k, d in ((4, 12), (2, 11)):
+        jp, rt = (torch.as_tensor(rng.standard_normal((x, O)), device=cuda)
+                  * live for x in (k * d, k))
+        launches.reset_launch_counts()
+        got = cam_kernels.hpp_b(jp, rt, cam, n_cams)
+        torch.cuda.synchronize()
+        assert launches.launch_counts()["hpp_b_f64"] == 1
+        _close("hpp_b", got, cam_ref.hpp_b(jp, rt, cam, n_cams),
+               [("cam", 1e-12)] * 2)
+        hpp = got[0].view(d, d, n_cams)
+        assert torch.equal(hpp, hpp.transpose(0, 1))
+        assert not any(bool(buf.any()) for buf in pk._SUMS.values())
+        ops = _device_ops(lambda: cam_kernels.hpp_b(jp, rt, cam, n_cams))
+        route = _hpp_f64_route(k, d, n_cams)
+        kernel = ("hpp_b_groups_kernel" if route == "groups"
+                  else "hpp_b_kernel")
+        assert 0 < len(ops) <= 3 and all(kernel in op for op in ops), (route,
+                                                                     ops)
 
 
 @pytest.mark.cuda
