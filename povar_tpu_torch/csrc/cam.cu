@@ -65,7 +65,9 @@ namespace {
 // tangent bases in f64 too), and the launch fills one whole wave of
 // 1024-thread blocks (two an SM) over all row blocks, every block with a
 // share of the same size, so a block stages its rows once and each row
-// block reads cam once.
+// block reads cam once. Where one row of the table does not fit a block
+// (past N = 58,112 in f32, 29,056 in f64) the rows are read in place
+// (stage_table's direct route).
 // Replaces pallas_cam.py:176 cam_gather (_gather_kernel :171).
 // Bound: 4 B read and 4 R B written per observation (52 B at R = 12;
 // 100 B in f64, 1060 B at R = 132); the table is read once per block.
@@ -119,16 +121,15 @@ __device__ __forceinline__ void store_row(V* dst, const V* row,
   }
 }
 
-template <typename V, int kVec>
+template <typename V, int kVec, bool kStaged>
 __global__ void __launch_bounds__(kGatherThreads)
     cam_gather_kernel(const int32_t* __restrict__ cam,
                       const V* __restrict__ table, V* __restrict__ out,
                       int n_obs, int n_cams, int n_rows, int rows_per_block) {
-  V* smem = dyn_smem<V>();
   const int r0 = blockIdx.y * rows_per_block;
   const int rows = min(rows_per_block, n_rows - r0);
-  povar::smem_copy(smem, table + (size_t)r0 * n_cams, rows * n_cams);
-  __syncthreads();
+  const V* tbl = povar::stage_table<kStaged>(
+      dyn_smem<V>(), table + (size_t)r0 * n_cams, rows * n_cams);
   const size_t O = n_obs;
   V* rows0 = out + r0 * O;
   // the block's share of the observations, contiguous, all of one size
@@ -141,31 +142,31 @@ __global__ void __launch_bounds__(kGatherThreads)
     V* dst = rows0 + (size_t)i * kVec;
 #pragma unroll 4
     for (int r = 0; r < rows; ++r)
-      store_row<kVec>(dst + r * O, smem + r * n_cams, c);
+      store_row<kVec>(dst + r * O, tbl + (size_t)r * n_cams, c);
   }
 }
 
 // ------------------------------------------------------------------ C3
 // u[i][o] = sum_j W[i dc + j][o] x[j][cam[o]], j in order, with the
-// [dc, N] table x staged in shared memory once per block (in f64 96 KB
-// at dc = 12, N = 1024: past the 48 KB default, so the launch opts in).
+// [dc, N] table x read in place: the earlier version staged it in
+// shared memory, 99.4 against 71.3 us in f32 and 266.1 against 118.7 in
+// f64 at N = 1024, within 5% at venice-89 (tools/route_ab.py; NVIDIA
+// H100 80GB HBM3, 700 W).
 // Bound: (4 + 4 dl dc + 4 dl) B per observation (twice the 4 in f64).
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
     e0_u_kernel(const int32_t* __restrict__ cam, const V* __restrict__ w,
                 const V* __restrict__ x, V* __restrict__ u, int n_obs,
                 int n_cams, int dl, int dc) {
-  V* xs = dyn_smem<V>();
-  povar::smem_copy(xs, x, dc * n_cams);
-  __syncthreads();
-  const int O = n_obs;
+  const V* xs = x;
+  const long O = n_obs;
   POVAR_OBS_LOOP(o, O) {
     const int c = cam[o];
     for (int i = 0; i < dl; ++i) {
-      const V* wi = w + (size_t)i * dc * O + o;
+      const V* wi = w + i * dc * O + o;
       V acc = wi[0] * xs[c];
       for (int j = 1; j < dc; ++j) acc += wi[(size_t)j * O] * xs[j * n_cams + c];
-      u[(size_t)i * O + o] = acc;
+      u[i * O + o] = acc;
     }
   }
 }
@@ -214,7 +215,7 @@ struct JpRow {
 template <typename V, int K, int D>
 __device__ __forceinline__ JpRow<V, K, D> load_row(const int32_t* cam,
                                                    const V* jp, const V* rt,
-                                                   int o, int n_obs) {
+                                                   long o, long n_obs) {
   JpRow<V, K, D> x;
   x.live = o < n_obs;
 #pragma unroll
@@ -259,12 +260,12 @@ __global__ void __launch_bounds__(e0s_threads(R))
   V* smem = dyn_smem<V>();
   const int n_acc = dc * n_cams;
   V* acc = warp_copy<R>(smem, copies, n_acc);
-  const int O = n_obs;
+  const long O = n_obs;
   const int lane = threadIdx.x & 31;
   // warp-uniform trips: every lane reaches the warp's scatter
-  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < O;
-       base += gridDim.x * blockDim.x) {
-    const int o = base + lane;
+  for (long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < O; base += (long)gridDim.x * blockDim.x) {
+    const long o = base + lane;
     const bool live = o < O;
     const int c = live ? cam[o] : 0;
     for (int j0 = 0; j0 < dc; j0 += kV) {
@@ -409,11 +410,11 @@ __global__ void __launch_bounds__(hpp_threads<V>(R))
   V* smem = dyn_smem<V>();
   const int n_acc = kValues * n_cams;
   V* acc = warp_copy<R>(smem, copies, n_acc);
-  const int O = n_obs;
+  const long O = n_obs;
   const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * blockDim.x;
+  const long stride = (long)gridDim.x * blockDim.x;
   // warp-uniform trips: every lane reaches the warp's scatter
-  int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
   JpRow<V, K, D> next;
   if (kPrefetch) next = load_row<V, K, D>(cam, jp, rt, base + lane, O);
   for (; base < O; base += stride) {
@@ -674,7 +675,7 @@ __global__ void __launch_bounds__(32 * kHppGroups, hpp_group_blocks(K, D))
   tile.peers = reinterpret_cast<unsigned*>(tile.cam + 32);
   tile.one = reinterpret_cast<int*>(tile.peers + 32);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int stride = gridDim.x * 32;
+  const long stride = (long)gridDim.x * 32;
   // this warp's operand rows (warp, warp + kHppGroups, ...) of the tile
   // at `base`; warp 0's cameras, and, once they have arrived (after this
   // tile's sums), their match: one for all of the block's warps
@@ -693,8 +694,8 @@ __global__ void __launch_bounds__(32 * kHppGroups, hpp_group_blocks(K, D))
     next_one =
         one ? __shfl_sync(povar::kFullMask, c, __ffs(leads) - 1) : -1;
   };
-  const auto fetch = [&](int base) {
-    const int o = base + lane;
+  const auto fetch = [&](long base) {
+    const long o = base + lane;
     const bool in = o < n_obs;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -705,9 +706,9 @@ __global__ void __launch_bounds__(32 * kHppGroups, hpp_group_blocks(K, D))
     }
     next_cam = in && warp == 0 ? __ldg(cam + o) : -1;
   };
-  fetch(blockIdx.x * 32);
+  fetch(blockIdx.x * 32L);
   if (warp == 0) match();
-  for (int base = blockIdx.x * 32; base < n_obs; base += stride) {
+  for (long base = blockIdx.x * 32L; base < n_obs; base += stride) {
     __syncthreads();  // every warp done with the last tile
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -809,7 +810,7 @@ __global__ void __launch_bounds__(c2_threads(R),
                            double* __restrict__ acc_g, int n_obs,
                            int n_cams, int group, int copies) {
   V* smem = dyn_smem<V>();
-  const int O = n_obs;
+  const long O = n_obs;
   const int n_acc = group * n_cams;
   const int r0 = blockIdx.y * group;
   const V* vg = v + (size_t)r0 * O;
@@ -817,9 +818,9 @@ __global__ void __launch_bounds__(c2_threads(R),
   V* acc = warp_copy<R>(smem, copies, n_acc);
   const int lane = threadIdx.x & 31;
   // warp-uniform trips: every lane reaches the warp's sums
-  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < O;
-       base += gridDim.x * blockDim.x) {
-    const int o = base + lane;
+  for (long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < O; base += (long)gridDim.x * blockDim.x) {
+    const long o = base + lane;
     const bool live = o < O;
     const int c = live ? __ldg(cam + o) : 0;
     V x[K];
@@ -953,16 +954,19 @@ template <typename V, int kVec>
 int launch_cam_gather(const int32_t* cam, const V* table, V* out, int n_obs,
                       int n_cams, int n_rows, int rows_per_block,
                       void* stream) {
-  const size_t smem = sizeof(V) * (size_t)rows_per_block * n_cams;
+  size_t smem = sizeof(V) * (size_t)rows_per_block * n_cams;
+  const bool staged = smem <= (size_t)povar::max_optin_smem();
+  if (!staged) smem = 0;
+  const auto kernel = staged ? cam_gather_kernel<V, kVec, true>
+                             : cam_gather_kernel<V, kVec, false>;
   const int row_blocks = (n_rows + rows_per_block - 1) / rows_per_block;
   int grid = 0;
-  const cudaError_t err = povar::grid_for<kGatherThreads>(
-      cam_gather_kernel<V, kVec>, 1L << 40, smem, &grid);
+  const cudaError_t err =
+      povar::grid_for<kGatherThreads>(kernel, 1L << 40, smem, &grid);
   if (err != cudaSuccess) return (int)err;
   const dim3 blocks(std::max(1, grid / row_blocks), row_blocks);
-  cam_gather_kernel<V, kVec>
-      <<<blocks, kGatherThreads, smem, (cudaStream_t)stream>>>(
-          cam, table, out, n_obs, n_cams, n_rows, rows_per_block);
+  kernel<<<blocks, kGatherThreads, smem, (cudaStream_t)stream>>>(
+      cam, table, out, n_obs, n_cams, n_rows, rows_per_block);
   return (int)cudaGetLastError();
 }
 
@@ -1010,9 +1014,8 @@ template <typename V>
 int e0_u(const int32_t* cam, const V* w, const V* x, V* u, int n_obs,
          int n_cams, int dl, int dc, void* stream) {
   if (dl <= 0 || dc <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(V) * (size_t)dc * n_cams;
-  return povar::launch(e0_u_kernel<V>, n_obs, smem, stream, cam, w, x, u,
-                       n_obs, n_cams, dl, dc);
+  return povar::launch(e0_u_kernel<V>, n_obs, 0, stream, cam, w, x, u, n_obs,
+                       n_cams, dl, dc);
 }
 
 // out: [dc, n_cams] (dc 12 and 11, both steps' camera dimensions, in one

@@ -74,7 +74,10 @@ namespace {
 // threads, each warp owning an [8, N] shared accumulator, so its adds
 // need no atomics; otherwise blocks of 1024 threads on one [8, N]
 // accumulator with shared atomics (up to N = 7264; fewer, larger blocks
-// flush fewer partials: 41 against 50-53 us at N = 1024). A block
+// flush fewer partials: 41 against 50-53 us at N = 1024); past that, the
+// global route: blocks of 1024 threads whose lanes on one camera sum
+// first and then add straight to the f64 sums in `acc_g` (no shared
+// memory; final-13682's N = 13,682). A block
 // flushes its sums (the warps' copies summed) as f64 global atomics into
 // `acc_g` [8 N + 1] doubles (the sums, then a ticket), zeroed by the
 // caller; the last block to take a ticket writes jpsq [12, N] in f32
@@ -99,7 +102,7 @@ constexpr int kPrepThreads = 512;
 constexpr int kPrepSharedThreads = 1024;
 constexpr int kPrepSmThreads = 1536;  // resident per SM: the registers
 
-template <bool kSums, bool kPrivate, int kBlock>
+template <bool kSums, Route R, int kBlock>
 __global__ void __launch_bounds__(kBlock, kPrepSmThreads / kBlock)
     prepare_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
                    const float* __restrict__ x, const float* __restrict__ uv,
@@ -110,19 +113,22 @@ __global__ void __launch_bounds__(kBlock, kPrepSmThreads / kBlock)
                    float sp, float sa, float sp2, int huber_on, float huber,
                    float huber2) {
   constexpr int kWarps = kBlock / 32;
-  extern __shared__ float acc[];  // kSums: [8, N] per warp or per block
+  constexpr bool kPrivate = R == Route::kPrivate;
+  constexpr bool kGlobal = R == Route::kGlobal;
+  // kSums: [8, N] per warp or per block; none on the global route
+  extern __shared__ float acc[];
   const int n_acc = kJpRows * n_cams;
-  if (kSums) {
+  if (kSums && !kGlobal) {
     povar::smem_zero(acc, (kPrivate ? kWarps : 1) * n_acc);
     __syncthreads();
   }
   float* wacc = kPrivate ? acc + (threadIdx.x >> 5) * n_acc : acc;
-  const int O = n_obs;
+  const long O = n_obs;
   const int lane = threadIdx.x & 31;
   // warp-uniform trips: every lane reaches warp_scatter
-  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < O;
-       base += gridDim.x * blockDim.x) {
-    const int o = base + lane;
+  for (long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < O; base += (long)gridDim.x * blockDim.x) {
+    const long o = base + lane;
     float sums[kJpRows];
 #pragma unroll
     for (int k = 0; k < kJpRows; ++k) sums[k] = 0.0f;
@@ -179,17 +185,21 @@ __global__ void __launch_bounds__(kBlock, kPrepSmThreads / kBlock)
           for (int j = 0; j < 4; ++j) sums[4 * t + j] = wk[t] * xh[j] * xh[j];
       }
     }
-    if (kSums)
+    if (kSums && kGlobal)
+      povar::warp_scatter<kJpRows, true, double>(acc_g, n_cams, c, live, sums);
+    else if (kSums)
       povar::warp_scatter<kJpRows, !kPrivate>(wacc, n_cams, c, live, sums);
   }
   if (!kSums) return;
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
-    float s = acc[i];
-    if (kPrivate) {
-      for (int w = 1; w < kWarps; ++w) s += acc[w * n_acc + i];
+  if (!kGlobal) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
+      float s = acc[i];
+      if (kPrivate) {
+        for (int w = 1; w < kWarps; ++w) s += acc[w * n_acc + i];
+      }
+      if (s != 0.0f) atomicAdd(acc_g + i, (double)s);
     }
-    if (s != 0.0f) atomicAdd(acc_g + i, (double)s);
   }
   if (!povar::last_block(reinterpret_cast<unsigned*>(acc_g + n_acc)))
     return;
@@ -206,17 +216,15 @@ __global__ void __launch_bounds__(kBlock, kPrepSmThreads / kBlock)
 //   g[i][0] = P0i - sp2 u P2i,  g[i][1] = P1i - sp2 v P2i,
 //   g[i][2] = sp2 ((u^2 + v^2) P2i - u P0i - v P1i),  sp2 = 1 - alpha
 // Replaces pallas_pose.py:385 e0_factor. Bound: 100 B of device memory
-// per observation (64 read, 36 written); no atomics.
+// per observation (64 read, 36 written); no atomics. The camera table
+// is read in place (L1 / L2), at any N.
 __global__ void __launch_bounds__(kThreads)
     e0_factor_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
                      const float* __restrict__ uv, const float* __restrict__ w_in,
                      const float* __restrict__ jls, const float* __restrict__ lh,
                      float* __restrict__ h, int n_obs, int n_cams, float sp2) {
-  extern __shared__ float smem[];
-  float* tbl = smem;
-  povar::smem_copy(tbl, ct, 12 * n_cams);
-  __syncthreads();
-  const int O = n_obs;
+  const float* tbl = ct;
+  const long O = n_obs;
   POVAR_OBS_LOOP(o, O) {
     const int c = cam[o];
     const float u = uv[o], v = uv[O + o];
@@ -292,12 +300,12 @@ __global__ void __launch_bounds__(kThreads)
     povar::smem_zero(acc, kMomentRows * n_cams);
     __syncthreads();
   }
-  const int O = n_obs;
+  const long O = n_obs;
   const int lane = threadIdx.x & 31;
   // warp-uniform trips: every lane reaches warp_scatter
-  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < O;
-       base += gridDim.x * blockDim.x) {
-    const int o = base + lane;
+  for (long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < O; base += (long)gridDim.x * blockDim.x) {
+    const long o = base + lane;
     const float sw = o < O ? sw_in[o] : 0.0f;
     const bool live = sw != 0.0f;
     if (!__any_sync(povar::kFullMask, live)) continue;
@@ -353,16 +361,14 @@ __global__ void __launch_bounds__(kThreads)
 // ------------------------------------------------------------------ K4
 // u[c] = sum_a h[c*3+a] y[a],  y[a] = sum_j xh_j z[4a+j][cam]
 // Replaces pallas_pose.py:568 e0_u_structured. Bound: 64 B of device
-// memory per observation (52 read, 12 written); no atomics.
+// memory per observation (52 read, 12 written); no atomics. The z table
+// is read in place.
 __global__ void __launch_bounds__(kThreads)
     e0_u_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
                 const float* __restrict__ h, const float* __restrict__ zt,
                 float* __restrict__ u_out, int n_obs, int n_cams) {
-  extern __shared__ float smem[];
-  float* tbl = smem;
-  povar::smem_copy(tbl, zt, 12 * n_cams);
-  __syncthreads();
-  const int O = n_obs;
+  const float* tbl = zt;
+  const long O = n_obs;
   POVAR_OBS_LOOP(o, O) {
     const int c = cam[o];
     const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
@@ -411,8 +417,8 @@ __global__ void __launch_bounds__(povar::scatter_threads(R))
                       double* __restrict__ acc_g, int n_obs, int n_cams,
                       int copies) {
   extern __shared__ float smem[];
-  const int O = n_obs;
-  auto load = [&](int o) {
+  const long O = n_obs;
+  auto load = [&](long o) {
     ScatterRow1 r;
     r.in = o < O;
 #pragma unroll
@@ -464,7 +470,11 @@ __global__ void __launch_bounds__(povar::scatter_threads(R))
 // first (warp_scatter), so the adds need no atomics; the copies are
 // summed at the flush. Otherwise one shared accumulator with atomics. A
 // row whose tt is exactly zero adds nothing (dead and pad rows have
-// h = 0); a NaN still propagates.
+// h = 0); a NaN still propagates. Where the z table and one accumulator
+// do not fit a block (N past ~2,357), the table is read in place
+// (stage_table) beside one shared accumulator, and past N ~ 4,800 every
+// value goes to a global f32 atomic into `out` (pose_common.cuh
+// launch_tiles).
 // Replaces pallas_pose.py:748 e0_term_parts (_e0_term_kernel :673).
 // Bound: 52 B read per slot row (cam 4, x 12, h 36), 8.6 us at venice-89.
 // One thread per landmark with 12 shared atomics per row takes 31.3 us
@@ -474,26 +484,30 @@ __global__ void __launch_bounds__(povar::scatter_threads(R))
 // at 256 and 23.6 at 1024; 28.8 with each part's landmarks sorted by
 // first camera, 42.3 at N = 1024 (tools/pose1_ab.py and PERF.md; NVIDIA
 // H100 80GB HBM3, 700 W).
-template <bool kPrivate>
+template <bool kStaged, Route R>
 __global__ void __launch_bounds__(kE0Threads)
     e0_term_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
                    const float* __restrict__ h, const float* __restrict__ zt,
                    const int32_t* __restrict__ table, float* __restrict__ out,
                    int n_parts, int n_tiles, int n_obs, int n_cams) {
+  constexpr bool kPrivate = R == Route::kPrivate;
   extern __shared__ float smem[];
-  float* tbl = smem;
-  float* su = smem + 12 * n_cams;  // u [3, kE0Threads]
+  float* su = smem + (kStaged ? 12 * n_cams : 0);  // u [3, kE0Threads]
   int* part = reinterpret_cast<int*>(su + 3 * kE0Threads);
-  // kPrivate: one [12, N] accumulator per warp, else one per block
+  // kPrivate: one [12, N] accumulator per warp; kShared: one per block;
+  // kGlobal: none (the adds go to `out`, zeroed by the caller)
   float* acc = reinterpret_cast<float*>(part + kTileFields * n_parts);
   const int n_acc = 12 * n_cams;
-  povar::smem_copy(tbl, zt, 12 * n_cams);
-  povar::smem_zero(acc, (kPrivate ? kE0Warps : 1) * n_acc);
+  if (R != Route::kGlobal)
+    povar::smem_zero(acc, (kPrivate ? kE0Warps : 1) * n_acc);
   povar::smem_copy(part, table, kTileFields * n_parts);
+  const float* tbl = povar::stage_table<kStaged>(smem, zt, 12 * n_cams);
   __syncthreads();
-  const int O = n_obs;
+  const long O = n_obs;
   const int th = threadIdx.x;
-  float* wacc = kPrivate ? acc + (th >> 5) * n_acc : acc;
+  float* wacc = R == Route::kGlobal ? out
+                : kPrivate         ? acc + (th >> 5) * n_acc
+                                   : acc;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const povar::TileRow row = povar::tile_row(part, n_parts, tile, th);
     const int o = row.o;
@@ -545,6 +559,7 @@ __global__ void __launch_bounds__(kE0Threads)
       for (int i = 0; i < 4; ++i) v[4 * a + i] = tt[a] * xh[i];
     povar::warp_scatter<12, !kPrivate>(wacc, n_cams, c, live, v);
   }
+  if (R == Route::kGlobal) return;
   __syncthreads();
   povar::flush_tiles<kPrivate>(out, acc, n_acc);
 }
@@ -586,8 +601,8 @@ __global__ void __launch_bounds__(povar::schur_threads(R))
                       double* __restrict__ acc_g, int n_obs, int n_cams,
                       int copies) {
   extern __shared__ float smem[];
-  const int O = n_obs;
-  auto load = [&](int o) {
+  const long O = n_obs;
+  auto load = [&](long o) {
     SchurRow1 r;
     r.in = o < O;
 #pragma unroll
@@ -626,7 +641,7 @@ __global__ void __launch_bounds__(povar::schur_threads(R))
 // and Jp q = [sp (q~0 - u q~2), sp (q~1 - v q~2), sa q~0, sa q~1],
 // q~a = sum_j q[4a+j] xh_j; dead rows (sw == 0) contribute zero.
 // Replaces pallas_pose.py:846 apply_ldiff. Bound: 68 B read per
-// observation; two camera tables staged per block.
+// observation; its two camera tables are read in place.
 __global__ void __launch_bounds__(kThreads)
     ldiff_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
                  const float* __restrict__ uv, const float* __restrict__ sw_in,
@@ -634,14 +649,10 @@ __global__ void __launch_bounds__(kThreads)
                  const float* __restrict__ ilm, const float* __restrict__ ct_old,
                  const float* __restrict__ inc_t, float* __restrict__ partials,
                  int n_obs, int n_cams, float sp, float sa) {
-  extern __shared__ float smem[];
   __shared__ float red[32];
-  float* tbl_old = smem;
-  float* tbl_inc = smem + 12 * n_cams;
-  povar::smem_copy(tbl_old, ct_old, 12 * n_cams);
-  povar::smem_copy(tbl_inc, inc_t, 12 * n_cams);
-  __syncthreads();
-  const int O = n_obs;
+  const float* tbl_old = ct_old;
+  const float* tbl_inc = inc_t;
+  const long O = n_obs;
   float total = 0.0f;
   POVAR_OBS_LOOP(o, O) {
     const float sw = sw_in[o];
@@ -698,8 +709,7 @@ __device__ __forceinline__ void jp_inc_stored(const float* tbl_z, int n_cams,
 // ones (sw == 0) as the zero their operands give, as the Pallas kernel
 // does. Replaces pallas_pose.py:938 poba_t3 (_poba_t3_kernel :905).
 // Bound: 68 B of device memory per observation (56 read, 12 written);
-// the camera table and the z table are staged in shared memory per block
-// (8.5 KB at N = 89); no atomics.
+// the camera table and the z table are read in place; no atomics.
 __global__ void __launch_bounds__(kThreads)
     poba_t3_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
                    const float* __restrict__ x, const float* __restrict__ uv,
@@ -707,13 +717,9 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ jls, const float* __restrict__ zt,
                    float* __restrict__ t3, int n_obs, int n_cams, float sp,
                    float sa) {
-  extern __shared__ float smem[];
-  float* tbl = smem;
-  float* tbl_z = smem + 12 * n_cams;
-  povar::smem_copy(tbl, ct, 12 * n_cams);
-  povar::smem_copy(tbl_z, zt, 12 * n_cams);
-  __syncthreads();
-  const int O = n_obs;
+  const float* tbl = ct;
+  const float* tbl_z = zt;
+  const long O = n_obs;
   POVAR_OBS_LOOP(o, O) {
     const float sw = sw_in[o];
     const int c = cam[o];
@@ -743,7 +749,7 @@ __global__ void __launch_bounds__(kThreads)
 // row's zero sw zeroes its Jacobians, as in the Pallas kernel.
 // Replaces pallas_pose.py:1096 apply_ldiff_stored (_ldiff_stored_kernel
 // :1055). Bound: 68 B read per observation; the camera and z tables
-// staged per block.
+// are read in place.
 __global__ void __launch_bounds__(kThreads)
     ldiff_stored_kernel(const int32_t* __restrict__ cam,
                         const float* __restrict__ x, const float* __restrict__ uv,
@@ -753,14 +759,10 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ ct_old,
                         const float* __restrict__ zt, float* __restrict__ partials,
                         int n_obs, int n_cams, float sp, float sa) {
-  extern __shared__ float smem[];
   __shared__ float red[32];
-  float* tbl_old = smem;
-  float* tbl_z = smem + 12 * n_cams;
-  povar::smem_copy(tbl_old, ct_old, 12 * n_cams);
-  povar::smem_copy(tbl_z, zt, 12 * n_cams);
-  __syncthreads();
-  const int O = n_obs;
+  const float* tbl_old = ct_old;
+  const float* tbl_z = zt;
+  const long O = n_obs;
   float total = 0.0f;
   POVAR_OBS_LOOP(o, O) {
     const float sw = sw_in[o];
@@ -794,19 +796,17 @@ __global__ void __launch_bounds__(kThreads)
 // [2 * n_part + block].
 // Replaces pallas_pose.py:1319 pose_error_df32 (double-float on the
 // TPU). Bound: 48 B read per observation and f64 arithmetic (~40 flops
-// per row, far below the card's f64 rate).
+// per row, far below the card's f64 rate). The f64 camera table is read
+// in place.
 __global__ void __launch_bounds__(kThreads)
     pose_error_kernel(const int32_t* __restrict__ cam, const double* __restrict__ ct,
                       const double* __restrict__ x, const double* __restrict__ uv,
                       const float* __restrict__ mask, double* __restrict__ partials,
                       int n_part, int n_obs, int n_cams, double sp, double sa,
                       int robust, double huber) {
-  extern __shared__ double smem_d[];
   __shared__ double red[32];
-  double* tbl = smem_d;
-  povar::smem_copy(tbl, ct, 12 * n_cams);
-  __syncthreads();
-  const int O = n_obs;
+  const double* tbl = ct;
+  const long O = n_obs;
   double err = 0.0, rn = 0.0, bad = 0.0;
   POVAR_OBS_LOOP(o, O) {
     if (!(mask[o] > 0.0f)) continue;
@@ -859,32 +859,37 @@ int povar_prepare(const int32_t* cam, const float* ct, const float* x,
                   int huber_on, float huber, float huber2, int sums,
                   void* stream) {
   const size_t block = sizeof(float) * kJpRows * (size_t)n_cams;
+  const size_t room = (size_t)max_optin_smem();
   if (!sums) {
-    return launch<kPrepThreads>(prepare_kernel<false, false, kPrepThreads>,
-                                n_obs, 0, stream, cam, ct, x, uv, mask, rw,
-                                sw, ata, atr, jpsq, acc, n_obs, n_cams, sp,
-                                sa, sp2, huber_on, huber, huber2);
+    return launch<kPrepThreads>(
+        prepare_kernel<false, Route::kPrivate, kPrepThreads>, n_obs, 0,
+        stream, cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc, n_obs,
+        n_cams, sp, sa, sp2, huber_on, huber, huber2);
   }
-  if (kPrepThreads / 32 * block <= (size_t)max_optin_smem()) {
-    return launch<kPrepThreads>(prepare_kernel<true, true, kPrepThreads>,
-                                n_obs, kPrepThreads / 32 * block, stream, cam,
-                                ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc,
-                                n_obs, n_cams, sp, sa, sp2, huber_on, huber,
-                                huber2);
+  if (kPrepThreads / 32 * block <= room) {
+    return launch<kPrepThreads>(
+        prepare_kernel<true, Route::kPrivate, kPrepThreads>, n_obs,
+        kPrepThreads / 32 * block, stream, cam, ct, x, uv, mask, rw, sw, ata,
+        atr, jpsq, acc, n_obs, n_cams, sp, sa, sp2, huber_on, huber, huber2);
+  }
+  if (block <= room) {
+    return launch<kPrepSharedThreads>(
+        prepare_kernel<true, Route::kShared, kPrepSharedThreads>, n_obs,
+        block, stream, cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc,
+        n_obs, n_cams, sp, sa, sp2, huber_on, huber, huber2);
   }
   return launch<kPrepSharedThreads>(
-      prepare_kernel<true, false, kPrepSharedThreads>, n_obs, block, stream,
-      cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc, n_obs, n_cams, sp, sa,
-      sp2, huber_on, huber, huber2);
+      prepare_kernel<true, Route::kGlobal, kPrepSharedThreads>, n_obs, 0,
+      stream, cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc, n_obs, n_cams,
+      sp, sa, sp2, huber_on, huber, huber2);
 }
 
 int povar_e0_factor(const int32_t* cam, const float* ct, const float* uv,
                     const float* w, const float* jls, const float* lh,
                     float* h, int n_obs, int n_cams, float sp2,
                     void* stream) {
-  const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
-  return launch(e0_factor_kernel, n_obs, smem, stream, cam, ct, uv, w, jls,
-                lh, h, n_obs, n_cams, sp2);
+  return launch(e0_factor_kernel, n_obs, 0, stream, cam, ct, uv, w, jls, lh,
+                h, n_obs, n_cams, sp2);
 }
 
 int povar_hpp_b(const int32_t* cam, const float* ct, const float* x,
@@ -907,8 +912,7 @@ int povar_hpp_b(const int32_t* cam, const float* ct, const float* x,
 int povar_e0_u(const int32_t* cam, const float* x, const float* h,
                const float* zt, float* u, int n_obs, int n_cams,
                void* stream) {
-  const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
-  return launch(e0_u_kernel, n_obs, smem, stream, cam, x, h, zt, u, n_obs,
+  return launch(e0_u_kernel, n_obs, 0, stream, cam, x, h, zt, u, n_obs,
                 n_cams);
 }
 
@@ -927,13 +931,17 @@ int povar_e0_term(const int32_t* cam, const float* x, const float* h,
                   const float* zt, const int32_t* table, float* out,
                   int n_parts, int n_tiles, int n_obs, int n_cams,
                   int tile_threads, void* stream) {
-  // the table's tiles were cut for blocks of tile_threads threads
-  const size_t base = sizeof(float) * (12 * (size_t)n_cams + 3 * kE0Threads) +
+  // the table's tiles were cut for blocks of tile_threads threads; out is
+  // zeroed by the caller
+  const size_t base = sizeof(float) * 3 * kE0Threads +
                       sizeof(int) * kTileFields * (size_t)n_parts;
-  return povar::launch_tiles(e0_term_kernel<true>, e0_term_kernel<false>,
-                             n_parts, n_tiles, tile_threads, base,
-                             12 * (size_t)n_cams, stream, cam, x, h, zt,
-                             table, out, n_parts, n_tiles, n_obs, n_cams);
+  return povar::launch_tiles(
+      e0_term_kernel<true, Route::kPrivate>,
+      e0_term_kernel<true, Route::kShared>,
+      e0_term_kernel<false, Route::kShared>,
+      e0_term_kernel<false, Route::kGlobal>, n_parts, n_tiles, tile_threads,
+      base, sizeof(float) * 12 * (size_t)n_cams, 12 * (size_t)n_cams, stream,
+      cam, x, h, zt, table, out, n_parts, n_tiles, n_obs, n_cams);
 }
 
 // out: [144, n_cams]; acc: 60 n_cams + 1 doubles, zero (every call
@@ -952,18 +960,16 @@ int povar_apply_ldiff(const int32_t* cam, const float* x, const float* uv,
                       const float* ilm, const float* ct_old,
                       const float* inc_t, float* partials, int n_obs,
                       int n_cams, float sp, float sa, void* stream) {
-  const size_t smem = sizeof(float) * 24 * (size_t)n_cams;
-  return launch(ldiff_kernel, n_obs, smem, stream, cam, x, uv, sw, rw, jls,
-                ilm, ct_old, inc_t, partials, n_obs, n_cams, sp, sa);
+  return launch(ldiff_kernel, n_obs, 0, stream, cam, x, uv, sw, rw, jls, ilm,
+                ct_old, inc_t, partials, n_obs, n_cams, sp, sa);
 }
 
 int povar_poba_t3(const int32_t* cam, const float* ct, const float* x,
                   const float* uv, const float* sw, const float* rw,
                   const float* jls, const float* zt, float* t3, int n_obs,
                   int n_cams, float sp, float sa, void* stream) {
-  const size_t smem = sizeof(float) * 24 * (size_t)n_cams;
-  return launch(poba_t3_kernel, n_obs, smem, stream, cam, ct, x, uv, sw, rw,
-                jls, zt, t3, n_obs, n_cams, sp, sa);
+  return launch(poba_t3_kernel, n_obs, 0, stream, cam, ct, x, uv, sw, rw, jls,
+                zt, t3, n_obs, n_cams, sp, sa);
 }
 
 int povar_apply_ldiff_stored(const int32_t* cam, const float* x,
@@ -972,8 +978,7 @@ int povar_apply_ldiff_stored(const int32_t* cam, const float* x,
                              const float* ct_old, const float* zt,
                              float* partials, int n_obs, int n_cams, float sp,
                              float sa, void* stream) {
-  const size_t smem = sizeof(float) * 24 * (size_t)n_cams;
-  return launch(ldiff_stored_kernel, n_obs, smem, stream, cam, x, uv, sw, rw,
+  return launch(ldiff_stored_kernel, n_obs, 0, stream, cam, x, uv, sw, rw,
                 jls, ilm, ct_old, zt, partials, n_obs, n_cams, sp, sa);
 }
 
@@ -981,8 +986,7 @@ int povar_pose_error(const int32_t* cam, const double* ct, const double* x,
                      const double* uv, const float* mask, double* partials,
                      int n_part, int n_obs, int n_cams, double sp, double sa,
                      int robust, double huber, void* stream) {
-  const size_t smem = sizeof(double) * 12 * (size_t)n_cams;
-  return launch(pose_error_kernel, n_obs, smem, stream, cam, ct, x, uv, mask,
+  return launch(pose_error_kernel, n_obs, 0, stream, cam, ct, x, uv, mask,
                 partials, n_part, n_obs, n_cams, sp, sa, robust, huber);
 }
 

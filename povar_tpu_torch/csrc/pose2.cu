@@ -91,7 +91,15 @@ __device__ __forceinline__ void jp_of_zt(const float* tbl, int n, int c,
 // K3diag = [1, 1, mx^2 + my^2]. A dead row (mask 0, or projection-
 // invalid under use_valid) gets weight 0.
 // Replaces pallas_pose2.py:157 prepare2. Bound: 104 B of device memory
-// per observation (40 read, 64 written), plus 12 shared atomics.
+// per observation (40 read, 64 written), plus 12 shared atomics. Routes
+// (by bytes against a block's shared memory): the camera table staged
+// beside the [12, N] accumulator (up to N = 2,421); the table read in
+// place (stage_table) beside it (up to N = 4,842); past that, the table
+// in place and every add a global f32 atomic into jpsq, zeroed by the
+// caller (kSharedAcc false). The middle route against the global one on
+// ~2^20 slot rows: 162.8 against 221.5 us at N = 3000, 237.4 against
+// 219.0 at N = 4500 (tools/route_ab.py; NVIDIA H100 80GB HBM3, 700 W).
+template <bool kStaged, bool kSharedAcc>
 __global__ void __launch_bounds__(kThreads)
     prepare2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
                     const float* __restrict__ x4_in, const float* __restrict__ uv,
@@ -101,12 +109,11 @@ __global__ void __launch_bounds__(kThreads)
                     float* __restrict__ jpsq, int n_obs, int n_cams,
                     int use_valid, int huber_on, float huber, float huber2) {
   extern __shared__ float smem[];
-  float* tbl = smem;
-  float* acc = smem + 12 * n_cams;
-  povar::smem_copy(tbl, ct, 12 * n_cams);
-  povar::smem_zero(acc, 12 * n_cams);
+  float* acc = kSharedAcc ? smem + (kStaged ? 12 * n_cams : 0) : jpsq;
+  if (kSharedAcc) povar::smem_zero(acc, 12 * n_cams);
+  const float* tbl = povar::stage_table<kStaged>(smem, ct, 12 * n_cams);
   __syncthreads();
-  const int O = n_obs;
+  const long O = n_obs;
   POVAR_OBS_LOOP(o, O) {
     const int c = cam[o];
     const float u = uv[o], v = uv[O + o];
@@ -158,6 +165,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+  if (!kSharedAcc) return;
   __syncthreads();
   povar::flush_acc(jpsq, acc, 12 * n_cams);
 }
@@ -200,12 +208,12 @@ __global__ void __launch_bounds__(kThreads)
     povar::smem_zero(acc, kMomentRows * n_cams);
     __syncthreads();
   }
-  const int O = n_obs;
+  const long O = n_obs;
   const int lane = threadIdx.x & 31;
   // warp-uniform trips: every lane reaches warp_scatter
-  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < O;
-       base += gridDim.x * blockDim.x) {
-    const int o = base + lane;
+  for (long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < O; base += (long)gridDim.x * blockDim.x) {
+    const long o = base + lane;
     const float sw = o < O ? sw_in[o] : 0.0f;
     const bool live = sw != 0.0f;
     if (!__any_sync(povar::kFullMask, live)) continue;
@@ -254,18 +262,16 @@ __global__ void __launch_bounds__(kThreads)
 // rows r*3+i), jx = sw/p2 [q~0 - mx q~2, q~1 - my q~2] (+ r_w when
 // add_r; r_w is not read otherwise), q~a = sum_c x4_c zt[4a+c][cam].
 // Replaces pallas_pose2.py:347 mat_dot2. Bound: 72 B of device memory per
-// observation (60 read, 12 written; 80 B with r_w); no atomics.
+// observation (60 read, 12 written; 80 B with r_w); no atomics. The z
+// table is read in place.
 __global__ void __launch_bounds__(kThreads)
     mat_dot2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
                     const float* __restrict__ mm, const float* __restrict__ sw_in,
                     const float* __restrict__ mat6, const float* __restrict__ rw,
                     const float* __restrict__ zt, float* __restrict__ out,
                     int n_obs, int n_cams, int add_r) {
-  extern __shared__ float smem[];
-  float* tbl = smem;
-  povar::smem_copy(tbl, zt, 12 * n_cams);
-  __syncthreads();
-  const int O = n_obs;
+  const float* tbl = zt;
+  const long O = n_obs;
   POVAR_OBS_LOOP(o, O) {
     const int c = cam[o];
     const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
@@ -312,8 +318,8 @@ __global__ void __launch_bounds__(povar::scatter_threads(R))
                     double* __restrict__ acc_g, int n_obs, int n_cams,
                     int copies) {
   extern __shared__ float smem[];
-  const int O = n_obs;
-  auto load = [&](int o) {
+  const long O = n_obs;
+  auto load = [&](long o) {
     ScatterRow2 r;
     r.sw = o < O ? sw_in[o] : 0.0f;
     const bool live = r.sw != 0.0f;
@@ -376,8 +382,10 @@ __global__ void __launch_bounds__(povar::scatter_threads(R))
 // to 277): each warp owns a [12, N] accumulator and its lanes on one
 // camera sum first (warp_scatter), so the adds need no atomics; the
 // copies are summed at the flush. Otherwise one shared accumulator with
-// atomics. Dead and pad rows (sw == 0) add nothing, scatter2's guard: a
-// near-plane 1/p2 never meets a zero weight.
+// atomics; past N ~ 2,357 the zt table is read in place beside it, and
+// past N ~ 4,800 every value goes to a global f32 atomic into `out`
+// (pose_common.cuh launch_tiles). Dead and pad rows (sw == 0) add
+// nothing, scatter2's guard: a near-plane 1/p2 never meets a zero weight.
 // Replaces pallas_pose2.py:512 e0_term2_parts (_e0_term2_kernel :455).
 // Bound: 60 B read per slot row (cam 4, x4 16, mm 12, sw 4, mat6 24), 9.9
 // us at venice-89. One thread per landmark with 12 shared atomics per
@@ -391,27 +399,31 @@ using povar::kE0Threads;
 using povar::kE0Warps;
 using povar::kTileFields;
 
-template <bool kPrivate>
+template <bool kStaged, Route R>
 __global__ void __launch_bounds__(kE0Threads)
     e0_term2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
                     const float* __restrict__ mm, const float* __restrict__ sw_in,
                     const float* __restrict__ mat6, const float* __restrict__ zt,
                     const int32_t* __restrict__ table, float* __restrict__ out,
                     int n_parts, int n_tiles, int n_obs, int n_cams) {
+  constexpr bool kPrivate = R == Route::kPrivate;
   extern __shared__ float smem[];
-  float* tbl = smem;
-  float* su = smem + 12 * n_cams;  // u3 [3, kE0Threads]
+  float* su = smem + (kStaged ? 12 * n_cams : 0);  // u3 [3, kE0Threads]
   int* part = reinterpret_cast<int*>(su + 3 * kE0Threads);
-  // kPrivate: one [12, N] accumulator per warp, else one per block
+  // kPrivate: one [12, N] accumulator per warp; kShared: one per block;
+  // kGlobal: none (the adds go to `out`, zeroed by the caller)
   float* acc = reinterpret_cast<float*>(part + kTileFields * n_parts);
   const int n_acc = 12 * n_cams;
-  povar::smem_copy(tbl, zt, 12 * n_cams);
-  povar::smem_zero(acc, (kPrivate ? kE0Warps : 1) * n_acc);
+  if (R != Route::kGlobal)
+    povar::smem_zero(acc, (kPrivate ? kE0Warps : 1) * n_acc);
   povar::smem_copy(part, table, kTileFields * n_parts);
+  const float* tbl = povar::stage_table<kStaged>(smem, zt, 12 * n_cams);
   __syncthreads();
-  const int O = n_obs;
+  const long O = n_obs;
   const int th = threadIdx.x;
-  float* wacc = kPrivate ? acc + (th >> 5) * n_acc : acc;
+  float* wacc = R == Route::kGlobal ? out
+                : kPrivate         ? acc + (th >> 5) * n_acc
+                                   : acc;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const povar::TileRow row = povar::tile_row(part, n_parts, tile, th);
     const int o = row.o, t = row.t, w = row.w;
@@ -460,6 +472,7 @@ __global__ void __launch_bounds__(kE0Threads)
       for (int k = 0; k < 4; ++k) v[4 * a + k] = ctv[a] * x4[k];
     povar::warp_scatter<12, !kPrivate>(wacc, n_cams, c, live, v);
   }
+  if (R == Route::kGlobal) return;
   __syncthreads();
   povar::flush_tiles<kPrivate>(out, acc, n_acc);
 }
@@ -499,8 +512,8 @@ __global__ void __launch_bounds__(povar::schur_threads(R))
                        float* __restrict__ out, double* __restrict__ acc_g,
                        int n_obs, int n_cams, int copies) {
   extern __shared__ float smem[];
-  const int O = n_obs;
-  auto load = [&](int o) {
+  const long O = n_obs;
+  auto load = [&](long o) {
     SchurRow2 r;
     const bool in = o < O;
     r.sw = in ? sw_in[o] : 0.0f;
@@ -546,19 +559,16 @@ __global__ void __launch_bounds__(povar::schur_threads(R))
 // (zt = Kps inc per camera, ilm4 the lifted landmark increment expanded
 // to observations).
 // Replaces pallas_pose2.py:667 ldiff2. Bound: 92 B read per observation;
-// no atomics.
+// no atomics. The zt table is read in place.
 __global__ void __launch_bounds__(kThreads)
     ldiff2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
                   const float* __restrict__ mm, const float* __restrict__ sw_in,
                   const float* __restrict__ rw, const float* __restrict__ jls8,
                   const float* __restrict__ ilm4, const float* __restrict__ zt,
                   float* __restrict__ partials, int n_obs, int n_cams) {
-  extern __shared__ float smem[];
   __shared__ float red[32];
-  float* tbl = smem;
-  povar::smem_copy(tbl, zt, 12 * n_cams);
-  __syncthreads();
-  const int O = n_obs;
+  const float* tbl = zt;
+  const long O = n_obs;
   float total = 0.0f;
   POVAR_OBS_LOOP(o, O) {
     const int c = cam[o];
@@ -677,7 +687,7 @@ __global__ void __launch_bounds__(kThreads)
                        int64_t* __restrict__ counts, bool* __restrict__ ok,
                        int n_part, int n_obs, int n_cams, int robust,
                        double huber) {
-  const int O = n_obs;
+  const long O = n_obs;
   double s[kErrSums] = {0.0, 0.0, 0.0, 0.0};
   Count n[kErrCounts] = {0, 0, 0};
   POVAR_OBS_LOOP(o, O) {
@@ -748,10 +758,18 @@ int povar_prepare2(const int32_t* cam, const float* ct, const float* x4,
                    float* mm, float* jlw, float* jlsq, float* jpsq, int n_obs,
                    int n_cams, int use_valid, int huber_on, float huber,
                    float huber2, void* stream) {
-  const size_t smem = sizeof(float) * 24 * (size_t)n_cams;
-  return launch(prepare2_kernel, n_obs, smem, stream, cam, ct, x4, uv, mask,
-                rw, sw, mm, jlw, jlsq, jpsq, n_obs, n_cams, use_valid,
-                huber_on, huber, huber2);
+  // jpsq is zeroed by the caller
+  const size_t table = sizeof(float) * 12 * (size_t)n_cams;
+  const size_t room = (size_t)max_optin_smem();
+  const auto kernel = 2 * table <= room ? prepare2_kernel<true, true>
+                      : table <= room   ? prepare2_kernel<false, true>
+                                        : prepare2_kernel<false, false>;
+  const size_t smem = 2 * table <= room ? 2 * table
+                      : table <= room   ? table
+                                        : 0;
+  return launch(kernel, n_obs, smem, stream, cam, ct, x4, uv, mask, rw, sw,
+                mm, jlw, jlsq, jpsq, n_obs, n_cams, use_valid, huber_on, huber,
+                huber2);
 }
 
 int povar_hppb2(const int32_t* cam, const float* x4, const float* mm,
@@ -772,9 +790,8 @@ int povar_mat_dot2(const int32_t* cam, const float* x4, const float* mm,
                    const float* sw, const float* mat6, const float* rw,
                    const float* zt, float* out, int n_obs, int n_cams,
                    int add_r, void* stream) {
-  const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
-  return launch(mat_dot2_kernel, n_obs, smem, stream, cam, x4, mm, sw, mat6,
-                rw, zt, out, n_obs, n_cams, add_r);
+  return launch(mat_dot2_kernel, n_obs, 0, stream, cam, x4, mm, sw, mat6, rw,
+                zt, out, n_obs, n_cams, add_r);
 }
 
 // out: [12, n_cams]; acc: 12 n_cams + 1 doubles, zero (every call
@@ -793,14 +810,17 @@ int povar_e0_term2(const int32_t* cam, const float* x4, const float* mm,
                    const float* sw, const float* mat6, const float* zt,
                    const int32_t* table, float* out, int n_parts, int n_tiles,
                    int n_obs, int n_cams, int tile_threads, void* stream) {
-  // the table's tiles were cut for blocks of tile_threads threads
-  const size_t base = sizeof(float) * (12 * (size_t)n_cams + 3 * kE0Threads) +
+  // the table's tiles were cut for blocks of tile_threads threads; out is
+  // zeroed by the caller
+  const size_t base = sizeof(float) * 3 * kE0Threads +
                       sizeof(int) * kTileFields * (size_t)n_parts;
-  return povar::launch_tiles(e0_term2_kernel<true>, e0_term2_kernel<false>,
-                             n_parts, n_tiles, tile_threads, base,
-                             12 * (size_t)n_cams, stream, cam, x4, mm, sw,
-                             mat6, zt, table, out, n_parts, n_tiles, n_obs,
-                             n_cams);
+  return povar::launch_tiles(
+      e0_term2_kernel<true, Route::kPrivate>,
+      e0_term2_kernel<true, Route::kShared>,
+      e0_term2_kernel<false, Route::kShared>,
+      e0_term2_kernel<false, Route::kGlobal>, n_parts, n_tiles, tile_threads,
+      base, sizeof(float) * 12 * (size_t)n_cams, 12 * (size_t)n_cams, stream,
+      cam, x4, mm, sw, mat6, zt, table, out, n_parts, n_tiles, n_obs, n_cams);
 }
 
 // out: [144, n_cams]; acc: 60 n_cams + 1 doubles, zero (every call
@@ -819,8 +839,7 @@ int povar_ldiff2(const int32_t* cam, const float* x4, const float* mm,
                  const float* sw, const float* rw, const float* jls8,
                  const float* ilm4, const float* zt, float* partials,
                  int n_obs, int n_cams, void* stream) {
-  const size_t smem = sizeof(float) * 12 * (size_t)n_cams;
-  return launch(ldiff2_kernel, n_obs, smem, stream, cam, x4, mm, sw, rw, jls8,
+  return launch(ldiff2_kernel, n_obs, 0, stream, cam, x4, mm, sw, rw, jls8,
                 ilm4, zt, partials, n_obs, n_cams);
 }
 

@@ -5,9 +5,13 @@
 // Every kernel is one pass over the observations, one thread per
 // observation in a grid-stride loop (the fused terms: per slot row of a
 // tile), on observation-last arrays ([k, O] rows: neighbouring threads
-// read neighbouring addresses). The [12, N] camera table(s) a kernel
-// gathers from are staged in shared memory once per block (12 * N * 4 B:
-// 4.3 KB at N = 89); a camera row is then a shared-memory read by index.
+// read neighbouring addresses). Most kernels read the [12, N] camera
+// table(s) they gather from in place, where L1 and L2 hold them (657 KB
+// in f32 at N = 13,682): staging a table in shared memory once per block
+// (the earlier version) was within noise at N = 89 and 1.02-2.2x slower
+// at N = 1,024 (tools/route_ab.py).
+// The fused terms and prepare2, whose tables share a block with a per-
+// camera accumulator, stage theirs where both fit (stage_table).
 // Per-camera sums go into shared-memory accumulators (through
 // warp_scatter in the moment and Schur-Jacobi kernels and the fused
 // terms) and leave the block as one global atomicAdd per non-zero entry;
@@ -35,10 +39,13 @@ namespace povar {
 
 constexpr int kThreads = 256;
 
-// grid-stride loop over the observation axis
-#define POVAR_OBS_LOOP(o, n_obs)                                     \
-  for (int o = blockIdx.x * blockDim.x + threadIdx.x; o < (n_obs); \
-       o += gridDim.x * blockDim.x)
+// grid-stride loop over the observation axis, in 64 bits: o + stride
+// never wraps, and with the kernels' `const long O` every k * O + o is a
+// 64-bit offset (an [R, O] operand passes 2^31 entries at R >= 94 on
+// final-13682's 22.9M slot rows)
+#define POVAR_OBS_LOOP(o, n_obs)                                          \
+  for (long o = (long)blockIdx.x * blockDim.x + threadIdx.x; o < (n_obs); \
+       o += (long)gridDim.x * blockDim.x)
 
 template <typename T>
 __device__ __forceinline__ void smem_copy(T* dst, const T* __restrict__ src,
@@ -49,6 +56,23 @@ __device__ __forceinline__ void smem_copy(T* dst, const T* __restrict__ src,
 template <typename T>
 __device__ __forceinline__ void smem_zero(T* dst, int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = T(0);
+}
+
+// The [rows, N] camera table(s) a kernel gathers from (its "table
+// route"): with kStaged, copied into the kernel's shared memory at `smem`
+// once per block (then a barrier) and read there by index; otherwise read
+// in place from device memory, where the 50 MB L2 holds it (657 KB in
+// f32 at N = 13,682, past the 227 KB a block may opt in to). The
+// launcher picks kStaged where the bytes fit a block. All of the block's
+// threads must call it.
+template <bool kStaged, typename T>
+__device__ __forceinline__ const T* stage_table(T* smem,
+                                                const T* __restrict__ src,
+                                                int count) {
+  if (!kStaged) return src;
+  smem_copy(smem, src, count);
+  __syncthreads();
+  return smem;
 }
 
 // The kernel's dynamic shared memory as an array of V (float or double:
@@ -514,31 +538,31 @@ __device__ __forceinline__ void warp_reduce_scatter16(const V (&v)[K],
   }
 }
 
-// One Schur-Jacobi kernel on route R: `load(o)` reads row o's operands
-// (a Row, whatever o), `form(row, H, xh)` returns whether the row is live
-// and then fills H's upper triangle and xh; row.c is its camera. On the
-// private route the next row's loads are issued before this row's sums.
-// A warp whose live lanes (four or more) all sit on one camera, as in
-// the camera-sorted orders, sums its values in a reduce-scatter tree and
-// every lane adds two of them (a walk would take 31 steps of 60 shuffles
-// with every lane on one camera); any other warp walks its peers.
-// All of the block's threads must call it; `smem` is the kernel's
-// dynamic shared memory (the plan's copies, or kSchurMoments x
+// One Schur-Jacobi kernel on route R: `load(o)` reads row o's operands (a
+// Row, whatever o; o is a long), `form(row, H, xh)` returns whether the
+// row is live and then fills H's upper triangle and xh; row.c is its
+// camera. On the private route the next row's loads are issued before this
+// row's sums. A warp whose live lanes (four or more) all sit on one
+// camera, as in the camera-sorted orders, sums its values in a
+// reduce-scatter tree and every lane adds two of them (a walk would take
+// 31 steps of 60 shuffles with every lane on one camera); any other warp
+// walks its peers. All of the block's threads must call it; `smem` is the
+// kernel's dynamic shared memory (the plan's copies, or kSchurMoments x
 // kExpandChunk floats on the global route).
 template <Route R, typename Row, typename Load, typename Form>
 __device__ __forceinline__ void schur_pass(Load load, Form form,
                                            const int* __restrict__ expand,
                                            float* __restrict__ out,
                                            double* __restrict__ acc_g,
-                                           int n_obs, int n_cams, int copies,
+                                           long n_obs, int n_cams, int copies,
                                            float* smem) {
   constexpr bool kPrefetch = R == Route::kPrivate;
   const int n_acc = kSchurMoments * n_cams;
   float* acc = warp_copy<R>(smem, copies, n_acc);
   const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * blockDim.x;
+  const long stride = (long)gridDim.x * blockDim.x;
   // warp-uniform trips: every lane reaches the warp's scatter
-  int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
   Row next;
   if (kPrefetch) next = load(base + lane);
   for (; base < n_obs; base += stride) {
@@ -619,14 +643,14 @@ __host__ __device__ constexpr int scatter_threads(Route r) {
 }
 
 // One composed-term scatter on route R: `load(o)` reads row o's operands
-// (a Row, whatever o), `form(row, v)` returns whether the row is live and
-// then fills its 12 values; row.c is its camera. Warp-uniform trips, so
-// that every lane reaches the warp's sums; a warp with no live lane skips
-// them. On the private route the next row's loads are issued before this
-// row's sums (19.8-19.9 us at venice-89 without). A warp whose live lanes
-// (four or more) all sit on one camera, as on the mesh's window order,
-// sums its values in a reduce-scatter tree (warp_reduce_scatter16) and
-// six lanes add two sums each (17.9-18.6 us there, the walk alone
+// (a Row, whatever o; o is a long), `form(row, v)` returns whether the row
+// is live and then fills its 12 values; row.c is its camera. Warp-uniform
+// trips, so that every lane reaches the warp's sums; a warp with no live
+// lane skips them. On the private route the next row's loads are issued
+// before this row's sums (19.8-19.9 us at venice-89 without). A warp whose
+// live lanes (four or more) all sit on one camera, as on the mesh's window
+// order, sums its values in a reduce-scatter tree (warp_reduce_scatter16)
+// and six lanes add two sums each (17.9-18.6 us there, the walk alone
 // 25.9-26.8); any other warp walks its peers in lane order. The tree is
 // another order of the sums: 48 POWER_SCHUR_COMPLEMENT step-1 solves on
 // the 1-device mesh with it, and 48 with the earlier kernels, all ended
@@ -637,15 +661,15 @@ template <Route R, typename Row, typename Load, typename Form>
 __device__ __forceinline__ void scatter_pass(Load load, Form form,
                                              float* __restrict__ out,
                                              double* __restrict__ acc_g,
-                                             int n_obs, int n_cams,
+                                             long n_obs, int n_cams,
                                              int copies, float* smem) {
   constexpr bool kPrefetch = R == Route::kPrivate;
   constexpr int K = kScatterValues;
   const int n_acc = K * n_cams;
   float* acc = warp_copy<R>(smem, copies, n_acc);
   const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * blockDim.x;
-  int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  const long stride = (long)gridDim.x * blockDim.x;
+  long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
   Row next;
   if (kPrefetch) next = load(base + lane);
   for (; base < n_obs; base += stride) {
@@ -933,23 +957,38 @@ int launch(Kernel kernel, long n_items, size_t smem, void* stream,
 }
 
 // Launch a tile kernel over `n_tiles` tiles cut for blocks of
-// `tile_threads` threads (which must be kE0Threads) with `base` bytes of
-// shared memory besides its [n_acc] float accumulators: `private_kernel`
-// where kE0Warps copies of them fit in a block, else `shared_kernel` on
-// one copy (atomics). Returns the cudaError_t.
-template <typename KPrivate, typename KShared, typename... Args>
-int launch_tiles(KPrivate private_kernel, KShared shared_kernel, int n_parts,
-                 int n_tiles, int tile_threads, size_t base, size_t n_acc,
+// `tile_threads` threads (which must be kE0Threads) on the first of its
+// routes whose shared memory fits a block: its [12, N] z table (`tbl`
+// bytes) staged beside kE0Warps private copies of its [n_acc] float
+// accumulators (`staged_private`), or beside one shared copy
+// (`staged_shared`); else the table read in place beside one shared copy
+// (`direct_shared`), or beside none (`direct_global`: every value a
+// global atomic into the zeroed output). `base` bytes (the tile's u and
+// its part table) are staged on every route. Returns the cudaError_t.
+// direct_shared against direct_global, e0_term_parts on ~2^20 slot rows:
+// 141.4 against 214.9 us at N = 3000, 203.1 against 237.9 at N = 4500
+// (tools/route_ab.py; NVIDIA H100 80GB HBM3, 700 W).
+template <typename KSP, typename KSS, typename KDS, typename KDG,
+          typename... Args>
+int launch_tiles(KSP staged_private, KSS staged_shared, KDS direct_shared,
+                 KDG direct_global, int n_parts, int n_tiles,
+                 int tile_threads, size_t base, size_t tbl, size_t n_acc,
                  void* stream, Args... args) {
   if (tile_threads != kE0Threads || n_parts < 1 || n_tiles < 1)
     return (int)cudaErrorInvalidValue;
   const size_t acc = sizeof(float) * n_acc;
+  const size_t room = (size_t)max_optin_smem();
   const long items = (long)n_tiles * kE0Threads;
-  if (base + kE0Warps * acc <= (size_t)max_optin_smem())
-    return launch<kE0Threads>(private_kernel, items, base + kE0Warps * acc,
-                              stream, args...);
-  return launch<kE0Threads>(shared_kernel, items, base + acc, stream,
-                            args...);
+  if (base + tbl + kE0Warps * acc <= room)
+    return launch<kE0Threads>(staged_private, items,
+                              base + tbl + kE0Warps * acc, stream, args...);
+  if (base + tbl + acc <= room)
+    return launch<kE0Threads>(staged_shared, items, base + tbl + acc, stream,
+                              args...);
+  if (base + acc <= room)
+    return launch<kE0Threads>(direct_shared, items, base + acc, stream,
+                              args...);
+  return launch<kE0Threads>(direct_global, items, base, stream, args...);
 }
 
 // A per-camera sum kernel's route and block shape for `rows` accumulator
@@ -988,7 +1027,7 @@ inline SumsPlan sums_plan(int rows, int n_cams, int warps, int min_warps,
 // the plan's copies
 template <typename KP, typename KS, typename KG, typename... Args>
 int launch_sums(const SumsPlan& p, KP private_kernel, KS shared_kernel,
-                KG global_kernel, int n_obs, void* stream, Args... args) {
+                KG global_kernel, long n_obs, void* stream, Args... args) {
   switch (p.route) {
     case Route::kPrivate:
       return launch_block(private_kernel, p.threads, n_obs, p.smem, stream,

@@ -55,8 +55,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   const float* in = src + (size_t)blockIdx.y * src_len;
   float* out = dst + (size_t)blockIdx.y * dst_len;
-  for (int item = blockIdx.x * blockDim.x + threadIdx.x; item < work;
-       item += gridDim.x * blockDim.x) {
+  // 64-bit walk: item + stride never wraps
+  for (long item = (long)blockIdx.x * blockDim.x + threadIdx.x; item < work;
+       item += (long)gridDim.x * blockDim.x) {
     int e = 0, hi = n_entries - 1;  // the last entry with work0 <= item
     while (e < hi) {
       const int mid = (e + hi + 1) / 2;
@@ -64,7 +65,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     const int* t = tbl + e * kFields;
     const int cap = t[2], w = t[3];
-    const int idx = item - t[6];
+    const int idx = (int)(item - t[6]);
     const int win = idx / cap;
     const int r = idx - win * cap;
     const int lane = t[0] + win * t[1] + r;

@@ -154,7 +154,13 @@ def build_log() -> str:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
-    lib = ctypes.CDLL(str(build()))
+    return load(build())
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """The kernel library at `path` (this tree's, or a build of an
+    edited copy of csrc/) with every entry point's argument types."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

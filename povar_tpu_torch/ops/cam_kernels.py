@@ -84,7 +84,7 @@ def _entry(name: str, o: int, n: int, cam, named):
         raise TypeError(f"{name}: {named[0][0]} is {dtype}; f32 or f64 "
                         "operands expected")
     f64 = dtype == torch.float64
-    _cuda_checks(o, n, cam, **{"f64" if f64 else "f32": named})
+    _cuda_checks(name, o, n, cam, **{"f64" if f64 else "f32": named})
     suffix = "_f64" if f64 else ""
     c_name = name if name.startswith("cam_") else f"cam_{name}"
     return (name + suffix,

@@ -87,7 +87,7 @@ def prepare2(cam, cam_table, x4, uv, mask, *, use_valid, robust, huber):
             cam, cam_table, x4, uv, mask, use_valid=use_valid,
             robust=robust, huber=huber,
         )
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("prepare2", o, n, cam, f32=(
         ("cam_table", cam_table), ("x4", x4), ("uv", uv), ("mask", mask),
     ))
     rw, sw, mm = _f32_out(2, o, x4), _f32_out(1, o, x4), _f32_out(3, o, x4)
@@ -115,7 +115,7 @@ def hppb2(cam, x4, mm, sw, r_w, jlns, hib, n_cams):
     }, o, n)
     if _on_cpu(cam, x4, mm, sw, r_w, jlns, hib):
         return pose2_ref.hppb2(cam, x4, mm, sw, r_w, jlns, hib, n)
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("hppb2", o, n, cam, f32=(
         ("x4", x4), ("mm", mm), ("sw", sw), ("r_w", r_w), ("jlns", jlns),
         ("hib", hib),
     ))
@@ -149,7 +149,7 @@ def mat_dot2(cam, x4, mm, sw, mat6, r_w, zt, *, add_r):
     if _on_cpu(cam, *ops):
         return pose2_ref.mat_dot2(cam, x4, mm, sw, mat6, r_w, zt,
                                   add_r=add_r)
-    _cuda_checks(o, n, cam, f32=tuple((k, t) for k, (t, _r, _a)
+    _cuda_checks("mat_dot2", o, n, cam, f32=tuple((k, t) for k, (t, _r, _a)
                                       in named.items()))
     out = _f32_out(3, o, x4)
     # NULL for the residual the kernel does not read without add_r
@@ -172,7 +172,7 @@ def scatter2(cam, x4, mm, sw, mat6, sb, n_cams):
     }, o, n)
     if _on_cpu(cam, x4, mm, sw, mat6, sb):
         return pose2_ref.scatter2(cam, x4, mm, sw, mat6, sb, n)
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("scatter2", o, n, cam, f32=(
         ("x4", x4), ("mm", mm), ("sw", sw), ("mat6", mat6), ("sb", sb),
     ))
     # every entry written by the kernel's last block (as e0_scatter_
@@ -201,7 +201,7 @@ def e0_term2_parts(cam, x4, mm, sw, mat6, zt, parts, n_cams):
     check_parts(parts, o)
     if _on_cpu(cam, x4, mm, sw, mat6, zt):
         return pose2_ref.e0_term2_parts(cam, x4, mm, sw, mat6, zt, parts, n)
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("e0_term2_parts", o, n, cam, f32=(
         ("x4", x4), ("mm", mm), ("sw", sw), ("mat6", mat6), ("zt", zt),
     ))
     table, tiles = e0_tile_table(tuple(parts), x4.device)
@@ -224,7 +224,7 @@ def schur_diag2(cam, x4, mm, sw, mat6, n_cams):
     }, o, n)
     if _on_cpu(cam, x4, mm, sw, mat6):
         return pose2_ref.schur_diag2(cam, x4, mm, sw, mat6, n)
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("schur_diag2", o, n, cam, f32=(
         ("x4", x4), ("mm", mm), ("sw", sw), ("mat6", mat6),
     ))
     out = _f32_out(144, n, x4)
@@ -251,7 +251,7 @@ def ldiff2(cam, x4, mm, sw, r_w, jls8, ilm4, zt):
     }, o, n)
     if _on_cpu(cam, x4, mm, sw, r_w, jls8, ilm4, zt):
         return pose2_ref.ldiff2(cam, x4, mm, sw, r_w, jls8, ilm4, zt)
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("ldiff2", o, n, cam, f32=(
         ("x4", x4), ("mm", mm), ("sw", sw), ("r_w", r_w), ("jls8", jls8),
         ("ilm4", ilm4), ("zt", zt),
     ))
@@ -291,7 +291,7 @@ def pose_error2(cam, cam_table, x4, uv, mask, *, robust, huber
         return pose2_ref.pose_error2(cam, cam_table, x4, uv, mask,
                                      robust=robust, huber=huber)
     _cuda_checks(
-        o, n, cam, f32=(("mask", mask),),
+        "pose_error2", o, n, cam, f32=(("mask", mask),),
         f64=(("cam_table", cam_table), ("x4", x4), ("uv", uv)),
     )
     n_part = -(-o // _THREADS)

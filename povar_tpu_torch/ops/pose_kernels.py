@@ -229,9 +229,32 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _cuda_checks(o: int, n: int, cam, f32=(), f64=()) -> None:
-    """dtype and contiguity of a kernel's CUDA operands (shapes are
-    checked by _check_shapes)."""
+# The kernels' C interface takes O and N as int32, and their per-camera
+# tables index [144, N] entries (the Schur-Jacobi and moment outputs) in
+# int32; every [R, O] offset is 64-bit (csrc/pose_common.cuh)
+MAX_KERNEL_OBS = 2**31 - 1
+MAX_KERNEL_CAMERAS = (2**31 - 1) // 144
+
+
+def _index_limits(name: str, o: int, n: int) -> None:
+    """Raise before kernel `name` launches where O or N is past what the
+    kernels' int32 C interface takes."""
+    if o > MAX_KERNEL_OBS:
+        raise ValueError(
+            f"{name}: O = {o} observations past int32 ({MAX_KERNEL_OBS}), "
+            "the largest the kernels' C interface takes")
+    if n > MAX_KERNEL_CAMERAS:
+        raise ValueError(
+            f"{name}: N = {n} cameras past {MAX_KERNEL_CAMERAS}, the "
+            "largest whose [144, N] per-camera tables the kernels index in "
+            "int32")
+
+
+def _cuda_checks(name: str, o: int, n: int, cam, f32=(), f64=()) -> None:
+    """O and N within the index limits of kernel `name`, then dtype and
+    contiguity of its CUDA operands (shapes are checked by
+    _check_shapes)."""
+    _index_limits(name, o, n)
     if o <= 0 or n <= 0:
         raise ValueError(f"empty problem (O={o}, N={n})")
     if cam.shape != (o,):
@@ -265,7 +288,7 @@ def prepare(cam, cam_table, x, uv, mask, *, alpha, robust, huber,
             cam, cam_table, x, uv, mask, alpha=alpha, robust=robust,
             huber=huber, weighted=weighted, sums=sums,
         )
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("prepare", o, n, cam, f32=(
         ("cam_table", cam_table), ("x", x),
         ("uv", uv), ("mask", mask),
     ))
@@ -302,7 +325,7 @@ def e0_factor(cam, cam_table, uv, w, jls, lh, *, alpha):
     }, o, n)
     if _on_cpu(cam, cam_table, uv, w, jls, lh):
         return pose_ref.e0_factor(cam, cam_table, uv, w, jls, lh, alpha=alpha)
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("e0_factor", o, n, cam, f32=(
         ("cam_table", cam_table), ("uv", uv),
         ("w", w), ("jls", jls), ("lh", lh),
     ))
@@ -328,7 +351,7 @@ def hpp_b_structured(cam, cam_table, x, uv, sw, r_w, jls, hib, n_cams, *,
         return pose_ref.hpp_b_structured(
             cam, cam_table, x, uv, sw, r_w, jls, hib, n, alpha=alpha
         )
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("hpp_b_structured", o, n, cam, f32=(
         ("cam_table", cam_table), ("x", x),
         ("uv", uv), ("sw", sw), ("r_w", r_w),
         ("jls", jls), ("hib", hib),
@@ -356,7 +379,7 @@ def e0_u_structured(cam, x, h, z_table):
     }, o, n)
     if _on_cpu(cam, x, h, z_table):
         return pose_ref.e0_u_structured(cam, x, h, z_table)
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("e0_u_structured", o, n, cam, f32=(
         ("x", x), ("h", h), ("z_table", z_table),
     ))
     u = torch.empty((3, o), dtype=torch.float32, device=x.device)
@@ -375,7 +398,7 @@ def e0_scatter_structured(cam, x, h, sb, n_cams):
     }, o, n)
     if _on_cpu(cam, x, h, sb):
         return pose_ref.e0_scatter_structured(cam, x, h, sb, n)
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("e0_scatter_structured", o, n, cam, f32=(
         ("x", x), ("h", h), ("sb", sb),
     ))
     # every entry written by the kernel's last block, from the blocks'
@@ -412,7 +435,7 @@ def e0_term_parts(cam, x, h, z_table, parts, n_cams):
     check_parts(parts, o)
     if _on_cpu(cam, x, h, z_table):
         return pose_ref.e0_term_parts(cam, x, h, z_table, parts, n)
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("e0_term_parts", o, n, cam, f32=(
         ("x", x), ("h", h), ("z_table", z_table),
     ))
     table, tiles = e0_tile_table(tuple(parts), x.device)
@@ -431,7 +454,7 @@ def schur_diag_structured(cam, x, h, n_cams):
     _check_shapes({"x": (x, 3, "o"), "h": (h, 9, "o")}, o, n)
     if _on_cpu(cam, x, h):
         return pose_ref.schur_diag_structured(cam, x, h, n)
-    _cuda_checks(o, n, cam, f32=(("x", x), ("h", h)))
+    _cuda_checks("schur_diag_structured", o, n, cam, f32=(("x", x), ("h", h)))
     out = torch.empty((144, n), dtype=torch.float32, device=x.device)
     stream = _stream(x)
     _launch("schur_diag_structured", _build.library().povar_schur_diag,
@@ -462,7 +485,7 @@ def apply_ldiff(cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
             cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
             inc_table, alpha=alpha,
         )
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks("apply_ldiff", o, n, cam, f32=(
         ("x", x), ("uv", uv), ("sw", sw),
         ("r_w", r_w), ("jls", jls),
         ("inc_lm_obs", inc_lm_obs),
@@ -480,7 +503,7 @@ def apply_ldiff(cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
     return part.sum(dtype=torch.float64)
 
 
-def _stored_inputs(cam, cam_table, x, uv, sw, r_w, jls, z_table,
+def _stored_inputs(name, cam, cam_table, x, uv, sw, r_w, jls, z_table,
                    extra=()):
     """Shape checks of the POWER_SCHUR_COMPLEMENT apply's operands (the
     stored linearization and the z table); True when they lie on the
@@ -497,7 +520,7 @@ def _stored_inputs(cam, cam_table, x, uv, sw, r_w, jls, z_table,
                *(t for _k, t in extra))
     if _on_cpu(*tensors):
         return True
-    _cuda_checks(o, n, cam, f32=(
+    _cuda_checks(name, o, n, cam, f32=(
         ("cam_table", cam_table), ("x", x), ("uv", uv), ("sw", sw),
         ("r_w", r_w), ("jls", jls), ("z_table", z_table), *extra,
     ))
@@ -508,7 +531,7 @@ def poba_t3(cam, cam_table, x, uv, sw, r_w, jls, z_table, *, alpha):
     """t3 [3, O] = Jl_s^T (r_w + Jp_s inc) (K10): the per-observation
     right-hand side of the POWER_SCHUR_COMPLEMENT landmark system, slot-
     summed by the caller. z_table [12, N] = pose_scale . inc."""
-    if _stored_inputs(cam, cam_table, x, uv, sw, r_w, jls,
+    if _stored_inputs("poba_t3", cam, cam_table, x, uv, sw, r_w, jls,
                       z_table):
         return pose_ref.poba_t3(cam, cam_table, x, uv, sw, r_w, jls, z_table,
                                 alpha=alpha)
@@ -529,7 +552,7 @@ def apply_ldiff_stored(cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
     per-block f32 partials, summed in f64. z_table [12, N] = pose_scale .
     inc; inc_lm_obs [3, O] the scaled landmark increment expanded to
     observations."""
-    if _stored_inputs(cam, cam_table_old, x, uv, sw,
+    if _stored_inputs("apply_ldiff_stored", cam, cam_table_old, x, uv, sw,
                       r_w, jls, z_table, extra=(("inc_lm_obs", inc_lm_obs),)):
         return pose_ref.apply_ldiff_stored(
             cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old, z_table,
@@ -565,7 +588,7 @@ def pose_error(cam, cam_table, x, uv, mask, *, alpha, robust, huber
             huber=huber,
         )
     _cuda_checks(
-        o, n, cam, f32=(("mask", mask),),
+        "pose_error", o, n, cam, f32=(("mask", mask),),
         f64=(("cam_table", cam_table), ("x", x),
              ("uv", uv)),
     )

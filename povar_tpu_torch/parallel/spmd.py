@@ -46,7 +46,11 @@ from povar_tpu_torch.solver.segments import (
     padded_segment_sum,
     plan_camera_order,
 )
-from povar_tpu_torch.solver.slots import Obs, common_unsupported
+from povar_tpu_torch.solver.slots import (
+    MAX_CAMERAS,
+    Obs,
+    common_unsupported,
+)
 from povar_tpu_torch.solver.stage1 import Stage1Solver
 from povar_tpu_torch.solver.stage2 import Stage2Solver
 
@@ -613,6 +617,12 @@ def spmd_unsupported(options: SolverOptions, n_cams: int,
     why = common_unsupported(options, n_cams, dtype)
     if why is not None:
         return why
+    if n_cams > MAX_CAMERAS:
+        return (
+            f"{n_cams} cameras > {MAX_CAMERAS} on a mesh (ROADMAP.md queue 1 "
+            "item 13, multi-device: the mesh's larger-N plan; one device "
+            "runs any N)"
+        )
     if dtype == torch.float64 and not options.mixed_precision_solves:
         return (
             "mixed_precision_solves=False with an f64 state on a mesh: the "

@@ -1,10 +1,13 @@
 """Synthetic BAL-style problem generation for tests and benchmarks.
 
-A numpy-only copy of three generators and `write_bal_text` in
-povar_tpu/problem/synthetic.py: the same seed gives bit-identical
-arrays in both packages. `synthetic_bal_problem_adversarial` makes the
-structure that overflows camera windows (loop closures, scrambled
-camera ids), which the SPMD window layout's checks run on.
+A numpy-only copy of three generators, `add_loop_closures_and_scramble`
+and `write_bal_text` in povar_tpu/problem/synthetic.py: the same seed
+gives bit-identical arrays in both packages.
+`synthetic_bal_problem_adversarial` makes the structure that overflows
+camera windows (loop closures, scrambled camera ids), which the SPMD
+window layout's checks run on; `add_loop_closures_and_scramble` lays
+that structure over any problem (tools/large_scale.py's adversarial
+scales).
 
 The reference repository ships no data (examples/ is empty) and expects
 BAL downloads (scripts/download-bal-problems.sh). These generators
@@ -282,6 +285,64 @@ def synthetic_bal_problem_adversarial(
         obs_lm=obs_lm,
         obs_uv=obs_uv,
         input_path=f"synthetic-adversarial-{n_cams}-{n_lms}",
+    )
+
+
+def add_loop_closures_and_scramble(
+    problem: BalProblem,
+    loop_closure_frac: float = 0.01,
+    seed: int = 1,
+) -> BalProblem:
+    """Augment a problem with global-span loop-closure landmarks
+    (`loop_closure_frac` of the landmark count, cameras strided across
+    the full range) and scramble the camera ids — the exact
+    adversarial structure of VERDICT round-2 item 2, layered on any
+    base distribution. Observations stay geometrically consistent with
+    a fresh ground-truth ring (initialization-free N(0,1) states are
+    regenerated)."""
+    rng = np.random.default_rng(seed)
+    n_cams = problem.num_cameras
+    n_lms = problem.num_landmarks
+    n_loop = max(1, int(loop_closure_frac * n_lms))
+    k = min(16, n_cams)  # observations per loop-closure landmark
+    # strided global coverage with random phase
+    phase = rng.integers(0, n_cams, size=(n_loop, 1))
+    stride = max(1, n_cams // k)
+    cams = (phase + np.arange(k)[None, :] * stride) % n_cams
+    extra_lm = np.repeat(
+        np.arange(n_lms, n_lms + n_loop, dtype=np.int32), k
+    )
+    extra_cam = cams.reshape(-1).astype(np.int32)
+
+    obs_lm = np.concatenate([problem.obs_lm, extra_lm])
+    obs_cam = np.concatenate([problem.obs_cam, extra_cam])
+    order = np.argsort(obs_lm, kind="stable")
+    obs_lm, obs_cam = obs_lm[order], obs_cam[order]
+
+    scramble = rng.permutation(n_cams).astype(np.int32)
+    obs_cam = scramble[obs_cam]
+
+    gt_cams = _ring_cameras(n_cams, radius=10.0, rng=rng)
+    gt_scr = np.empty_like(gt_cams)
+    gt_scr[scramble] = gt_cams
+    pts = rng.standard_normal((n_lms + n_loop, 3)) * 2.0
+    xh = np.concatenate([pts, np.ones((len(pts), 1))], axis=1)
+    p = np.einsum("oij,oj->oi", gt_scr[obs_cam], xh[obs_lm])
+    obs_uv = p[:, :2] / p[:, 2:3]
+
+    cam_space = np.zeros_like(gt_cams)
+    cam_space[:, 0, :] = rng.standard_normal((n_cams, 4))
+    cam_space[:, 1, :] = rng.standard_normal((n_cams, 4))
+    cam_space[:, 2, :] = np.array([0.0, 0.0, 0.0, 1.0])
+
+    return BalProblem(
+        cam_space=cam_space,
+        intrinsics=np.tile(np.array([1.0, 0.0, 0.0]), (n_cams, 1)),
+        lm_p=rng.standard_normal((len(pts), 3)),
+        obs_cam=obs_cam,
+        obs_lm=obs_lm,
+        obs_uv=obs_uv,
+        input_path=problem.input_path + "-loops-scrambled",
     )
 
 

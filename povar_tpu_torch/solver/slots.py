@@ -51,8 +51,11 @@ from povar_tpu_torch.solver.segments import (
 # this (povar_tpu/ops/pallas_cam.py OBS_PAD), so both packages see the
 # same slot layout
 OBS_PAD = 8192
-# largest camera count of this path (povar_tpu/ops/pallas_cam.py
-# MAX_CAMERAS); beyond it the JAX package switches to camera windows
+# the TPU's in-VMEM one-hot limit (povar_tpu/ops/pallas_cam.py
+# MAX_CAMERAS), past which the JAX package switches to camera windows.
+# The port gathers by camera index and has no such limit on one device;
+# the constant names the JAX refusal below and bounds the mesh
+# (parallel/spmd.py spmd_unsupported)
 MAX_CAMERAS = 1024
 # widest slot part the fused power-series term takes
 # (povar_tpu/ops/pallas_pose.py E0_TERM_MAX_W); wider parts and all after
@@ -116,8 +119,9 @@ def plan_e0_fused(lm_shapes, weight) -> Optional[FusedPlan]:
     no observation is live or when the suffix carries half or more of the
     live work. `weight`: the 0/1 slot weights [O] (numpy), or None where
     every row is live. The TPU's VMEM budget (e0_term_geometry) and lane
-    padding have no counterpart: at N <= MAX_CAMERAS the JAX package's
-    geometry accepts every part of width <= 16."""
+    padding have no counterpart: the card's kernel takes every part of
+    width <= 16 at any N (csrc/pose_common.cuh launch_tiles), as the JAX
+    package's geometry does at N <= MAX_CAMERAS."""
     parts = []
     ofs = 0
     for g, w in lm_shapes:
@@ -203,11 +207,6 @@ def common_unsupported(
     (the checks that do not depend on the step)."""
     if dtype not in (torch.float64, torch.float32):
         return f"LM state dtype {dtype} (the states are f64 and f32)"
-    if n_cams > MAX_CAMERAS:
-        return (
-            f"{n_cams} cameras > {MAX_CAMERAS} (ROADMAP.md queue 1 item "
-            "12, large N: camera windows and the banded CHOLESKY)"
-        )
     if options.device_lm_loop == "on":
         return (
             "device_lm_loop='on' (ROADMAP.md queue 1 item 8, the device "

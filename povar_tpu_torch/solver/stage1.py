@@ -34,7 +34,8 @@ The ported configurations are the JAX package's defaults (POWER_VARPROJ
 with the fused power term, or the composed one with
 `fused_power_term=False`), POWER_SCHUR_COMPLEMENT (landmark damping and
 the poBA apply), PCG with its three preconditioners, and CHOLESKY (the
-dense reduced camera system, up to 1024 cameras), on either layout where
+dense reduced camera system, up to DENSE_CHOL_MAX = 1536 cameras), at
+any camera count otherwise, on either layout where
 the JAX package has it, in mixed precision or pure f64 on one device;
 any other step-1 configuration raises
 NotImplementedError naming its ROADMAP.md item instead of running
@@ -55,7 +56,41 @@ from povar_tpu_torch.options import (
 )
 from povar_tpu_torch.solver import pcg as pcg_mod
 from povar_tpu_torch.solver.segments import slot_part_sums, slot_row_expand
-from povar_tpu_torch.solver.slots import LmState, SlotSolver, mv
+from povar_tpu_torch.solver.slots import (
+    LmState, SlotSolver, mv, solve_dtype_of,
+)
+
+# largest camera count of the dense CHOLESKY solve (povar_tpu/solver/
+# stage1.py DENSE_CHOL_MAX); past it the JAX package factors a banded
+# system (povar_tpu/solver/band_chol.py), which the port has not yet
+DENSE_CHOL_MAX = 1536
+BANDED_CHOL = ("ROADMAP.md queue 1 item 12's remainder: the banded "
+               "CHOLESKY, povar_tpu/solver/band_chol.py")
+
+
+def dense_chol_bytes(n_cams: int, n_lms: int, dtype) -> int:
+    """Bytes the dense CHOLESKY route holds at once (solve_cholesky): A
+    [12N, 3M] (144 N M bytes in f32, 288 N M in f64) beside S [12N,
+    12N]."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    return elem * 12 * n_cams * (3 * n_lms + 12 * n_cams)
+
+
+def dense_chol_unsupported(n_cams: int, n_lms: int, dtype,
+                           capacity: Optional[int]) -> Optional[str]:
+    """Why the dense CHOLESKY route cannot run N cameras and M landmarks
+    in `dtype` on a device of `capacity` bytes (None: no limit, the
+    host), or None."""
+    if n_cams > DENSE_CHOL_MAX:
+        return (f"CHOLESKY with {n_cams} cameras > {DENSE_CHOL_MAX} "
+                f"({BANDED_CHOL})")
+    need = dense_chol_bytes(n_cams, n_lms, dtype)
+    if capacity is not None and need > capacity:
+        return (f"CHOLESKY's dense system at {n_cams} cameras and {n_lms} "
+                f"landmarks: A and S take {need / 1e9:.1f} GB in {dtype}, "
+                f"past the device's {capacity / 1e9:.1f} GB ({BANDED_CHOL})")
+    return None
+
 
 class Lin1(NamedTuple):
     """Unstructured step-1 linearization point (all in the solve dtype,
@@ -109,6 +144,18 @@ class Stage1Solver(SlotSolver):
         needs the explicit per-observation blocks (JAX stage1.py:713-717)."""
         return (SlotSolver.uses_unstructured(options, dtype)
                 or options.solver_type_step_1 == SolverType.CHOLESKY)
+
+    def unsupported(self, options: SolverOptions, n_cams: int,
+                    dtype) -> Optional[str]:
+        # SlotSolver.__init__ has set n_lms and device before this call
+        if options.solver_type_step_1 == SolverType.CHOLESKY:
+            why = dense_chol_unsupported(
+                n_cams, self.n_lms, solve_dtype_of(options, dtype),
+                torch.cuda.get_device_properties(self.device).total_memory
+                if self.device.type == "cuda" else None)
+            if why is not None:
+                return why
+        return super().unsupported(options, n_cams, dtype)
 
     def __init__(
         self,
@@ -530,7 +577,11 @@ class Stage1Solver(SlotSolver):
         S = blockdiag(Hpp) + lam I - A A^T [12N, 12N], with A [12N, 3M]
         holding W_o hll_inv^(1/2) in block (cam(o), lm(o)), solved
         directly for S inc = -b, in the solve dtype (f64 in pure f64; A
-        then takes 2.84 GB at venice-89, and A A^T is a DGEMM). A not
+        then takes 2.84 GB at venice-89, and A A^T is a DGEMM). A takes
+        12 N x 3 M entries, 144 N M bytes in f32 (288 N M in f64), and S
+        144 N^2 (288 N^2): the dense route runs up to DENSE_CHOL_MAX
+        cameras and while both fit the device (dense_chol_unsupported),
+        S's diagonal blocks and damping added in place. A not
         positive definite S (possible in f32: S is a difference) gives an
         all-NaN increment, which the LM loop rejects. Returns (inc [12, N]
         in scaled coordinates, state dtype; 0 linear-solver iterations,
@@ -556,10 +607,11 @@ class Stage1Solver(SlotSolver):
         a.index_put_(((rows * (3 * m) + cols).reshape(-1),),
                      wl.reshape(-1), accumulate=True)
         a = a.reshape(12 * n, 3 * m)
-        s = -a @ a.T
+        s = torch.mm(a, a.T).neg_()
         del a
-        s = s + torch.block_diag(*hpp.permute(2, 0, 1))
-        s = s + lam_s * torch.eye(12 * n, dtype=s.dtype, device=dev)
+        cams = torch.arange(n, device=dev)
+        s.view(n, 12, n, 12)[cams, :, cams, :] += hpp.permute(2, 0, 1)
+        s.diagonal().add_(lam_s)
         inc = -linalg.solve_psd_dense(s, b.T.reshape(-1)).reshape(n, 12)
         return inc.T.to(self.dtype), 0
 

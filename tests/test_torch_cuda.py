@@ -33,7 +33,11 @@ row orders, with their output's symmetry and one device operation per
 call; the composed terms' scatters (`e0_scatter_structured`,
 `scatter2`) on each of their routes (N = 89 to 6000) in three row
 orders, with their guards on dead rows, a NaN, repeated calls and one
-device operation per call.
+device operation per call; every kernel of both steps at N = 3000, 5000
+and 13,682 (the camera tables read in place, the global accumulators),
+`e0_u` in both types at N = 2000 to 13,682,
+`cam_gather` with rows too wide for a block, and `cam_gather` /
+`cam_scatter_add` on a [144, O] operand of more than 2^31 entries.
 
 Tolerances, with the scales of povar_tpu_torch/tools/parity.py:
 elementwise outputs 1e-5 entry by entry (against |plain| + the median
@@ -1367,3 +1371,99 @@ def test_spmd_bundle_adjust_card_matches_cpu(cuda):
                                    rtol=OVERFLOW_TOL)
     assert np.isfinite(g2.final_cost.all.error)
     assert g2.final_cost.all.error < g2.initial_cost.all.error
+
+
+# Large N: the routes past a block's shared memory (csrc/pose_common.cuh
+# stage_table, launch_tiles; prepare's global sums, prepare2's global
+# accumulator; the other table kernels read their tables in place at any
+# N). At N = 3000 the fused terms and prepare2 read their table in place
+# beside one shared accumulator; at N = 5000 the fused terms add straight
+# to global memory, and prepare2 too; at N = 13,682 (final-13682's)
+# prepare's per-camera sums go global too.
+LARGE_N = [3000, 5000, 13_682]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cams", LARGE_N)
+def test_large_n_routes_match_plain_versions(cuda, n_cams):
+    """Every step-1 and step-2 kernel (prepare also without its sums)
+    once per call, counted once, within its tolerance, at the large-N
+    routes."""
+    t = _inputs(n_cams, cuda)
+    nosums = ("prepare", (t["cam"], t["ct"], t["x"], t["uv"], t["mask"]),
+              dict(robust=0, huber=1.0, alpha=ALPHA, sums=False),
+              [ELEM] * 2)
+    for mod, ref, cases in ((pk, pose_ref, _cases(t, n_cams) + [nosums]),
+                            (pk2, pose2_ref, _cases2(t, n_cams))):
+        for name, args, kw, specs in cases:
+            launches.reset_launch_counts()
+            got = getattr(mod, name)(*args, **kw)
+            torch.cuda.synchronize()
+            assert launches.launch_counts()[name] == 1, (name, n_cams)
+            want = getattr(ref, name)(*args, **kw)
+            if not kw.get("sums", True):
+                got, want = got[2:4], want[2:4]
+            _close(name, got, want, specs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_cams", [2000] + LARGE_N)
+def test_large_n_e0_u_is_exact(cuda, n_cams, dtype):
+    """The camera-table kernel e0_u at (dl, dc) = (3, 12) and (3, 11) bit
+    for bit its plain version at N = 2000 to 13,682, where the earlier
+    version staged its table (f64 up to N = 2,421, f32 up to 4,842) and
+    this one reads it in place."""
+    rng = np.random.default_rng(n_cams)
+    cam = torch.as_tensor(rng.integers(0, n_cams, O).astype(np.int32),
+                          device=cuda)
+    for dc in (12, 11):
+        w = torch.as_tensor(rng.standard_normal((3 * dc, O)), dtype=dtype,
+                            device=cuda)
+        x = torch.as_tensor(rng.standard_normal((dc, n_cams)), dtype=dtype,
+                            device=cuda)
+        launches.reset_launch_counts()
+        got = cam_kernels.e0_u(w, cam, x)
+        torch.cuda.synchronize()
+        label = "e0_u" if dtype == torch.float32 else "e0_u_f64"
+        assert launches.launch_counts()[label] == 1
+        assert torch.equal(got, cam_ref.e0_u(w, cam, x)), (n_cams, dc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, n_cams", [(torch.float32, 60_000),
+                                           (torch.float64, 30_000)])
+def test_cam_gather_reads_rows_in_place_past_a_block(cuda, dtype, n_cams):
+    """cam_gather where one row of the table does not fit a block's
+    shared memory (its direct route), bit for bit, also one observation
+    a thread (cam[1:])."""
+    rng = np.random.default_rng(n_cams)
+    table = torch.as_tensor(rng.standard_normal((12, n_cams)), dtype=dtype,
+                            device=cuda)
+    cam = torch.as_tensor(rng.integers(0, n_cams, O).astype(np.int32),
+                          device=cuda)
+    for c in (cam, cam[1:]):
+        got = cam_kernels.cam_gather(table, c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cam_ref.cam_gather(table, c))
+
+
+@pytest.mark.cuda
+def test_cam_gather_and_scatter_past_2_31_entries(cuda):
+    """cam_gather and cam_scatter_add in f32 on a [144, O] operand of
+    more than 2^31 entries (64-bit offsets; ~8.6 GB each): the gather
+    bit for bit index_select's, the sums within the per-camera tolerance
+    of index_add_'s."""
+    n, r = 13_682, 144
+    o = 2**31 // r + 1
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    cam = torch.randint(0, n, (o,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    table = torch.randn((r, n), generator=gen, device=cuda)
+    cam64 = cam.long()
+    got = cam_kernels.cam_gather(table, cam)
+    assert r * got.shape[1] > 2**31
+    assert torch.equal(got, table.index_select(1, cam64))
+    sums = cam_kernels.cam_scatter_add(got, cam, n)
+    want = torch.zeros((r, n), device=cuda).index_add_(1, cam64, got)
+    _close("cam_scatter_add", sums, want, [CAM])

@@ -35,7 +35,9 @@ from povar_tpu_torch import (
     SolverSummary,
     Stage1Solver,
     Timer,
+    bundle_adjust,
     from_numpy,
+    make_mesh,
     optimize_step1,
 )
 from povar_tpu_torch.options import RobustNorm, SolverType
@@ -386,20 +388,28 @@ def test_f32_state_solves_in_f32(problem, mixed):
 
 
 def test_too_many_cameras_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Stage1Solver(np.array([0, 1024]), np.array([0, 0]),
-                     np.zeros((2, 2)), 1025, 1, _cfg(), device="cpu")
+    """One device runs any camera count (the 1024 of the TPU's one-hot
+    limit is no limit of the port's): 1025 cameras build. A mesh keeps
+    the limit (ROADMAP.md queue 1 item 13, the mesh's larger-N plan)."""
+    Stage1Solver(np.array([0, 1024]), np.array([0, 0]), np.zeros((2, 2)),
+                 1025, 1, _cfg(), device="cpu")
+    problem = synthetic_bal_problem(n_cams=1025, n_lms=60, obs_per_lm=5,
+                                    seed=7)[0]
+    with pytest.raises(NotImplementedError, match="item 13"):
+        bundle_adjust(problem, SolverOptions(), device="cpu",
+                      mesh=make_mesh(1, "cpu"))
 
 
 def test_too_many_cameras_cholesky_raise():
-    """CHOLESKY past 1024 cameras (the JAX package's banded factorization
-    and its PCG fallback) is not ported: the port's dense solve stops
-    there."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Stage1Solver(np.array([0, 1024]), np.array([0, 0]),
-                     np.zeros((2, 2)), 1025, 1,
-                     _cfg(solver_type_step_1=SolverType.CHOLESKY),
-                     device="cpu")
+    """CHOLESKY's dense solve runs up to DENSE_CHOL_MAX = 1536 cameras,
+    as the JAX package's; past it (the JAX package's banded
+    factorization) it raises naming ROADMAP item 12's remainder."""
+    chol = _cfg(solver_type_step_1=SolverType.CHOLESKY)
+    Stage1Solver(np.array([0, 1535]), np.array([0, 0]), np.zeros((2, 2)),
+                 1536, 1, chol, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12.*band_chol"):
+        Stage1Solver(np.array([0, 1536]), np.array([0, 0]),
+                     np.zeros((2, 2)), 1537, 1, chol, device="cpu")
 
 
 def test_default_options_and_huber_run(problem):

@@ -51,6 +51,7 @@ from povar_tpu_torch import (
 )
 from povar_tpu_torch.ops import launches
 from povar_tpu_torch.ops import linalg
+from povar_tpu_torch.parallel import spmd as tspmd
 from povar_tpu_torch.solver.slots import LmState
 from povar_tpu_torch.solver.stage2 import Lin2S
 from povar_tpu_torch.tools.step2_spread import ring_case
@@ -412,9 +413,15 @@ def test_configurations_outside_the_slice_raise(geometry, opts, dtype,
 
 
 def test_too_many_cameras_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Stage2Solver(np.array([0, 1024]), np.array([0, 0]),
+    """One device runs step 2 at any camera count: 1025 cameras build;
+    a mesh past 1024 cameras raises naming ROADMAP item 13
+    (tests/test_torch_stage1.py runs that refusal through
+    bundle_adjust)."""
+    s = Stage2Solver(np.array([0, 1024]), np.array([0, 0]),
                      np.zeros((2, 2)), 1025, 1, _cfg(), device="cpu")
+    assert s.n_cams == 1025
+    why = tspmd.spmd_unsupported(_cfg(), 1025, torch.float64)
+    assert "item 13" in why
 
 
 def test_default_device_is_the_card(geometry):
