@@ -12,8 +12,8 @@ prints no result line):
 
 1. device     a CUDA device, its name and power limit (nvidia-smi);
 2. build      the twenty-seven kernels of povar_tpu_torch/csrc/ (and
-              the f64 instantiations of the five camera-table ones) from
-              source;
+              the f64 instantiations of the five camera-table ones), and
+              the device LM loop's two (lm.cu), from source;
 3. kernels    each step-1 kernel (the fused term over the problem's slot
               parts; poba_t3 and apply_ldiff_stored of the
               POWER_SCHUR_COMPLEMENT apply) and the five camera-table
@@ -85,6 +85,33 @@ prints no result line):
               within STEP2_BAND x 1845.1889071641926 and 100x below its
               start, the state finite; a warm repeat; the warm step-2
               bench iteration under both terms;
+9a. device_loop  the device LM loop (solver/device_loop.py, the
+              default under device_lm_loop="auto" in every phase that does
+              not say "off"): lm_step (csrc/lm.cu) bit for bit against its
+              plain version on edge cases of every cost channel and accept
+              rule, lm_condition's region count, and a captured graph of
+              nested WHILE and IF nodes against the same loops on the host;
+              (a) the small and ring problems (`small_case` defaults and
+              composed, `ring_pipeline` PSC and f32 of
+              tools/step2_spread.py): the card's device loop against the
+              card's host loop and against the CPU's device loop, the same
+              decisions and counts, costs within SMALL_TOLS / RING_TOLS;
+              (b) venice-89 in pure f64: POWER_VARPROJ step 1 and the
+              WITNESS_ITERS-iteration RIPOBA start from its homogenized
+              result on the calm landmarks, device loop against host loop
+              on the card: the same decisions and counts, accepted costs
+              within F64_TOL; (c)-(e) tools/loop_ab.py's `compare_loops`
+              at venice-89 with SolverOptions() defaults, both steps, both
+              loops, a first and a warm call: (c) the hand-written
+              kernels of the path run in the warm replay: each was
+              captured into a graph region whose device count of
+              executions is positive (the profiler's trace of the replay,
+              whose kernel names are printed beside, misses some of step
+              2's graph kernels),
+              (d) the blocking host synchronisations per step (at most
+              trials + 1; the device loop's is 1, 3 with the capture),
+              (e) wall and device time per trial, busy share, capture and
+              instantiation seconds, graph nodes and pool bytes;
 10. CG        the venice-89 `bundle_adjust` with PCG (SCHUR_JACOBI) and
               RIPCG: step 1 within PCG_BAND x 205.39424619627198, the
               JAX package's PCG run on the same problem
@@ -221,7 +248,10 @@ sum or broadcast for the three slot kernels; null for the others: no
 single PyTorch call computes their functions); then one entry
 `<name>@N13682` per route of LARGE_N_ROUTES, with large_n (a)'s numbers
 and the launches of the first final-13682 run of (d) that runs it
-(`launches_run`). The last line is
+(`launches_run`). lm_step and lm_condition replace no TPU kernel
+(`replaces` null); their launches are those of the device-loop runs,
+rebuilt from the graphs' region counts (solver/device_loop.py). The
+last line is
 {"ok": true, "device": {...}}. Needs the repository (the package and its
 kernel sources) beside this file; imports nothing of JAX.
 """
@@ -398,8 +428,13 @@ REPS = 20
 SOURCES = {"pose_kernels": "povar_tpu_torch/csrc/pose1.cu",
            "pose2_kernels": "povar_tpu_torch/csrc/pose2.cu",
            "cam_kernels": "povar_tpu_torch/csrc/cam.cu",
-           "spmd_kernels": "povar_tpu_torch/csrc/spmd.cu"}
+           "spmd_kernels": "povar_tpu_torch/csrc/spmd.cu",
+           "lm_kernels": "povar_tpu_torch/csrc/lm.cu"}
 REPLACES = {
+    # the device LM loop's bookkeeping and condition kernels replace no
+    # TPU kernel (csrc/lm.cu says why they exist)
+    "lm_step": None,
+    "lm_condition": None,
     "class_part_sums": "povar_tpu/ops/pallas_spmd.py:79",
     "class_expand_rows": "povar_tpu/ops/pallas_spmd.py:109",
     "class_reduce_reexpand": "povar_tpu/ops/pallas_spmd.py:144",
@@ -497,6 +532,22 @@ LARGE_N_RUNS = {
     "step 1 off final-13682": UNSTRUCTURED | {"pose_error"},
     "step 1 f64 final-13682": F64_PATH - {"pose_error2"},
 }
+# the device LM loop's kernels (ops/lm_kernels.py), in every run that
+# takes it: SolverOptions()'s "auto" on one device, unless step 1 is
+# CHOLESKY (its step 2 takes it); never on a mesh
+LM = {"lm_step", "lm_condition"}
+# the CUDA kernel (csrc/) each wrapper of the default path launches, by
+# the name the profiler gives it
+KERNEL_SYMBOLS = {
+    "prepare": "prepare_kernel", "e0_factor": "e0_factor_kernel",
+    "hpp_b_structured": "hpp_b_kernel", "e0_term_parts": "e0_term_kernel",
+    "apply_ldiff": "ldiff_kernel", "pose_error": "pose_error_kernel",
+    "prepare2": "prepare2_kernel", "hppb2": "hppb2_kernel",
+    "e0_term2_parts": "e0_term2_kernel", "mat_dot2": "mat_dot2_kernel",
+    "ldiff2": "ldiff2_kernel", "pose_error2": "pose_error2_kernel",
+    "lm_step": "lm_step_kernel", "lm_condition": "lm_condition_kernel",
+}
+LARGE_N_RUNS = {k: v | LM for k, v in LARGE_N_RUNS.items()}
 PATHS = {
     **LARGE_N_RUNS,
     "bundle_adjust venice-1778": STEP1_FUSED | STEP2_FUSED,
@@ -519,6 +570,8 @@ PATHS = {
     | {"schur_diag_structured", "schur_diag2"},
     "bundle_adjust composed": STEP1_COMPOSED | STEP2_COMPOSED,
 }
+PATHS = {k: v if k.startswith("bundle_adjust spmd") else v | LM
+         for k, v in PATHS.items()}
 
 
 def phase(name: str) -> None:
@@ -2080,7 +2133,8 @@ def check_hpp_symmetric(ck, operand, cam, n):
           f"N = {n}", flush=True)
 
 
-def check_same_run(label, got, want, tol=F64_TOL, every=False):
+def check_same_run(label, got, want, tol=F64_TOL, every=False,
+                   other="plain versions"):
     """Raise unless the summaries `got` (the card's kernels) and `want`
     (their plain versions on the card) took the same decisions and inner
     counts, with every accepted cost (and the initial one; with `every`
@@ -2091,7 +2145,7 @@ def check_same_run(label, got, want, tol=F64_TOL, every=False):
     dw = [(it.step_is_successful, it.linear_solver_iterations)
           for it in want.iterations]
     if dg != dw:
-        raise AssertionError(f"{label}: card kernels {dg} vs plain {dw}")
+        raise AssertionError(f"{label}: {dg} vs {other} {dw}")
     gaps = [abs(g.cost.all.error - w.cost.all.error) / abs(w.cost.all.error)
             for g, w in zip(got.iterations, want.iterations)
             if g.step_is_successful or g is got.iterations[0]
@@ -2100,7 +2154,7 @@ def check_same_run(label, got, want, tol=F64_TOL, every=False):
     seq = "".join("A" if ok else "R" for ok, _n in dg[1:])
     print(f"{label}: {len(dg)} records ({got.termination_type}), {seq}, "
           f"inner {[n for _ok, n in dg[1:]]}; final "
-          f"{got.final_cost.all.error!r} (plain versions "
+          f"{got.final_cost.all.error!r} ({other} "
           f"{want.final_cost.all.error!r}); same decisions and counts "
           f"{dg == dw}, largest accepted-cost gap {gap:.3e} (tolerance "
           f"{tol:g})", flush=True)
@@ -2434,6 +2488,258 @@ def check_spmd(problem, counts):
         bench(problem, composed, f"step-{step} composed (single device)")
         bench(problem, defaults, f"step-{step} spmd (1-device mesh)",
               mesh=True)
+
+
+def check_lm_kernels():
+    """The device LM loop's two kernels (ops/lm_kernels.py, csrc/lm.cu)
+    against their plain versions on the card: lm_step bit for bit on
+    every edge case of tests/test_torch_cuda.py's `_lm_cases` under each
+    optimized-cost channel and accept rule, lm_condition's region count;
+    then a captured graph of nested WHILE loops and an IF node (the
+    machinery the device loop runs on) against the same loops run on the
+    host, replayed twice. Returns their kernel results (times of one call
+    at the device loop's shapes, its ~0.5 KB over HBM as the bound)."""
+    from povar_tpu_torch.ops import lm_kernels
+    from povar_tpu_torch.solver.device_loop import (
+        MAX_REGIONS, EagerControl, capture,
+    )
+
+    dev = torch.device("cuda")
+    nan = float("nan")
+    row = [10.0, 3.0, 9.0, 2.5, 100.0, 90.0]
+    st0 = [1.0, 0.0, 1e-4, 2.0, 12.0, 4.0, 11.0, 3.0, 100.0, 90.0,
+           12.0, 4.0, 11.0, 3.0, 100.0, 90.0]
+    cases = [([1, 1, 2.5, 4], {}), ([1, 1, -2.5, 4], {}),
+             ([1, 1, 0.0, 3], {}), ([1, 1, nan, 2], {}), ([0, 1, 2.5, 5], {}),
+             ([1, 0, 2.5, 5], {}), ([1, 1, 2.5, 1], {2: 1e-16}),
+             ([1, 1, -2.5, 1], {2: 1e31, 3: 64.0}),
+             ([1, 1, 2.5, 1], {10: 10.0 + 1e-9, 12: 9.0 + 1e-9}),
+             ([1, 1, 2.5, 1], {0: 5.0})]
+    T = 5
+    worst, n = 0.0, 0
+    for oc in (0, 1, 2):
+        for step1 in (1, 0):
+            p = lm_kernels.LmParams(1e-16, 1e32, 1e-6, 0.0, 2.0, 2.0, T, oc,
+                                    step1)
+            for tail, head in cases:
+                st = list(st0)
+                for k, v in head.items():
+                    st[k] = v
+                trial = torch.tensor(row + tail, dtype=torch.float64,
+                                     device=dev)
+                outs = []
+                for fn in (lm_kernels.lm_step, lm_kernels.lm_step_ref):
+                    s = torch.tensor(st, dtype=torch.float64, device=dev)
+                    tr = torch.zeros((T, len(lm_kernels.TRACE_COLS)),
+                                     dtype=torch.float64, device=dev)
+                    fl = torch.zeros(3, dtype=torch.bool, device=dev)
+                    fn(trial, s, tr, fl, p)
+                    outs.append(torch.cat([s, tr.reshape(-1),
+                                           fl.double()]).cpu())
+                same = torch.equal(outs[0].isnan(), outs[1].isnan())
+                diff = (outs[0] - outs[1]).nan_to_num().abs().max().item()
+                if not (same and diff == 0.0):
+                    raise AssertionError(f"lm_step oc={oc} step1={step1} "
+                                         f"{tail} {head}: off its plain "
+                                         f"version by {diff}")
+                worst, n = max(worst, diff), n + 1
+    print(f"lm_step: {n} edge cases bit for bit against its plain version",
+          flush=True)
+
+    # one call at the device loop's shapes, timed
+    p = lm_kernels.LmParams(1e-16, 1e32, 1e-6, 0.0, 2.0, 2.0, 50, 0, 1)
+    trial = torch.tensor(row + [1, 1, 2.5, 4], dtype=torch.float64,
+                         device=dev)
+    st = torch.tensor(st0, dtype=torch.float64, device=dev)
+    tr = torch.zeros((50, len(lm_kernels.TRACE_COLS)), dtype=torch.float64,
+                     device=dev)
+    fl = torch.zeros(3, dtype=torch.bool, device=dev)
+
+    def step(fn):
+        return lambda: (st.copy_(torch.tensor(st0, dtype=torch.float64,
+                                              device=dev)),
+                        fn(trial, st, tr, fl, p))
+
+    moved = 8 * (trial.numel() + 2 * st.numel() + len(
+        lm_kernels.TRACE_COLS)) + 3
+    results = {"lm_step": dict(
+        max_abs_err=worst, ms=cuda_ms(step(lm_kernels.lm_step)),
+        plain_ms=cuda_ms(step(lm_kernels.lm_step_ref)),
+        bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None)}
+
+    counts = torch.zeros(MAX_REGIONS, dtype=torch.int64, device=dev)
+    want = counts.clone()
+    lm_kernels.lm_condition(None, None, counts, 3)
+    lm_kernels.lm_condition_ref(want, 3)
+    err = float((counts - want).abs().max())
+    if err:
+        raise AssertionError(f"lm_condition: counts {counts} != {want}")
+
+    K = 7
+
+    def program(ctl, x, acc):
+        def body():
+            x.add_(1)
+            ctl.cond(x % 3 == 0, lambda: acc.add_(10))
+            j = torch.zeros((), dtype=torch.int64, device=x.device)
+
+            def inner():
+                j.add_(1)
+                acc.add_(1)
+                return j < x
+
+            ctl.while_loop(j < x, inner)
+            return x < K
+
+        ctl.while_loop(x < K, body)
+
+    x0 = torch.zeros((), dtype=torch.int64)
+    a0 = torch.zeros((), dtype=torch.int64)
+    program(EagerControl(), x0, a0)
+    x = torch.zeros((), dtype=torch.int64, device=dev)
+    acc = torch.zeros((), dtype=torch.int64, device=dev)
+    counts.zero_()
+    g = capture(dev, lambda ctl: program(ctl, x, acc), counts)
+    for _ in range(2):
+        x.zero_()
+        acc.zero_()
+        counts.zero_()
+        g.launch()
+        got = (int(x), int(acc), counts.tolist()[:3])
+        want_g = (int(x0), int(a0), [K, K // 3, K * (K + 1) // 2])
+        if got != want_g:
+            raise AssertionError(f"graph of WHILE / IF nodes: {got} != "
+                                 f"{want_g}")
+    print(f"graph of WHILE / IF nodes: x {int(x)}, acc {int(acc)}, region "
+          f"executions {counts.tolist()[:3]} equal the host loops' in two "
+          f"replays (capture {g.capture_s * 1e3:.1f} ms, instantiate "
+          f"{g.instantiate_s * 1e3:.1f} ms)", flush=True)
+    del g
+
+    def cond_call():
+        lm_kernels.lm_condition(None, None, counts, 0)
+
+    results["lm_condition"] = dict(
+        max_abs_err=err, ms=cuda_ms(cond_call),
+        plain_ms=cuda_ms(lambda: lm_kernels.lm_condition_ref(counts, 0)),
+        bound_ms=16 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None)
+    return results
+
+
+def check_device_loop(problem, counts):
+    """The device LM loop phase (module docstring): (a) the small and ring
+    problems, card device loop against card host loop and CPU device
+    loop; (b) venice-89 pure f64, POWER_VARPROJ step 1 and the step-2
+    witness start, device loop against host loop on the card; (c) the
+    hand-written kernels in the replays' profiles; (d) blocking host
+    synchronisations per step; (e) the warm iteration's wall and device
+    time and busy share under both loops, the graph's capture and
+    instantiation time, nodes and memory (tools/loop_ab.py)."""
+    from povar_tpu_torch import (
+        SolverOptions, SolverSummary, Stage2Solver, Timer, create_homogeneous,
+        optimize_step2,
+    )
+    from povar_tpu_torch.tools.loop_ab import compare_loops
+    from povar_tpu_torch.tools.step2_spread import (
+        CALM, RING_TOLS, SMALL_TOLS, WITNESS_ITERS, calm_subproblem,
+        ring_compare, ring_pipeline, small_case,
+    )
+
+    t_phase = time.perf_counter()
+    # (a)
+    for config in ("defaults", "composed"):
+        jp, off = small_case(config, "off")
+        _, on = small_case(config, "on")
+        runs = {"card host": pipeline(jp, off, "cuda")[1:3],
+                "card device": pipeline(jp, on, "cuda")[1:3],
+                "cpu device": pipeline(jp, on, "cpu")[1:3]}
+        for other in ("card host", "cpu device"):
+            for step, tol, g, c in zip((1, 2), SMALL_TOLS,
+                                       runs["card device"], runs[other]):
+                dg = [(it.step_is_successful, it.linear_solver_iterations)
+                      for it in g.iterations]
+                dc = [(it.step_is_successful, it.linear_solver_iterations)
+                      for it in c.iterations]
+                fg, fc = g.final_cost.all.error, c.final_cost.all.error
+                gap = abs(fg - fc) / abs(fc)
+                print(f"(a) small ({config}) step {step}: card device loop "
+                      f"vs {other}: same decisions and counts {dg == dc}, "
+                      f"final gap {gap:.3e} (tolerance {tol:g})", flush=True)
+                if dg != dc or not gap <= tol:
+                    raise AssertionError(f"(a) small {config} step {step}: "
+                                         f"device loop vs {other}")
+    for config in ("psc", "f32"):
+        card = ring_pipeline(config, "cuda", "on")
+        for other, dev, loop in (("card host", "cuda", "off"),
+                                 ("cpu device", "cpu", "on")):
+            ref = ring_pipeline(config, dev, loop)
+            for step, (same, gap), tol in zip(
+                    (1, 2), ring_compare(card, ref), RING_TOLS[config]):
+                print(f"(a) ring ({config}) step {step}: card device loop vs "
+                      f"{other}: same decisions and counts {same}, largest "
+                      f"cost gap {gap:.3e} (tolerance {tol:g})", flush=True)
+                if not (same and gap <= tol):
+                    raise AssertionError(f"(a) ring {config} step {step}: "
+                                         f"device loop vs {other}")
+
+    # (b)
+    t0 = time.perf_counter()
+    f64 = {m: SolverOptions(mixed_precision_solves=False, device_lm_loop=m)
+           for m in ("auto", "off")}
+    (got, out, _s, secs), (want, _o, _s2, secs_h) = (
+        solve(problem, f64[m], "cuda") for m in ("auto", "off"))
+    check_same_run("(b) POWER_VARPROJ step 1, pure f64", got, want,
+                   other="the host loop")
+    cams_h, lms_h = create_homogeneous(*out)
+    args2, lms_w = calm_subproblem(problem, cams_h, lms_h, CALM)
+    step2 = {}
+    for m in ("auto", "off"):
+        o2 = copy.deepcopy(f64[m])
+        o2.max_num_iterations_step_2 = WITNESS_ITERS
+        summary = SolverSummary()
+        optimize_step2(Stage2Solver(*args2, o2, device="cuda"), cams_h,
+                       lms_w, o2, summary, Timer(), log=lambda x: None)
+        step2[m] = summary
+    check_same_run(f"(b) RIPOBA step 2, pure f64, {WITNESS_ITERS} iterations "
+                   f"on {args2[4]} calm landmarks", step2["auto"],
+                   step2["off"], other="the host loop")
+    print(f"(b) step 1 {secs:.3f} s device loop, {secs_h:.3f} s host loop; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (c)-(e)
+    res = compare_loops(problem, SolverOptions(), "(e) venice-89")
+    for step, need in ((1, STEP1_FUSED), (2, STEP2_FUSED)):
+        warm = res[f"step{step} auto warm"]
+        names = warm.pop("kernels")
+        res[f"step{step} off warm"].pop("kernels")
+        ran = set(warm.pop("ran"))
+        symbols = {KERNEL_SYMBOLS[k] for k in need | LM}
+        traced = sorted(k for k in symbols if any(k in n for n in names))
+        print(f"(c) step {step}: the warm replay's trace names "
+              f"{len(names)} device operations, among them the path's "
+              f"hand-written kernels {traced}, not "
+              f"{sorted(symbols - set(traced))}; by the graph's region "
+              f"counts the replay ran {sorted((need | LM) & ran)}", flush=True)
+        # a region's device count rises after the last node of its body:
+        # each kernel captured there ran in the replay
+        if not (need | LM) <= ran:
+            raise AssertionError(f"(c) step {step}: kernels of the path not "
+                                 f"run in the replay: "
+                                 f"{sorted((need | LM) - ran)}")
+    for step in (1, 2):
+        for call in ("first", "warm"):
+            r = res[f"step{step} auto {call}"]
+            print(f"(d) step {step} device loop, {call} call: {r['syncs']} "
+                  f"blocking host synchronisations for {r['trials']} "
+                  f"trials; host loop "
+                  f"{res[f'step{step} off {call}']['syncs']}", flush=True)
+            if r["syncs"] > r["trials"] + 1:
+                raise AssertionError(f"(d) step {step}: {r['syncs']} syncs "
+                                     f"for {r['trials']} trials")
+    print(f"device_loop phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def large_cam_cases(cam, n, mask, seed=7):
@@ -2969,6 +3275,10 @@ def main() -> int:
     for label, base in (("step-2 defaults", defaults),
                         ("step-2 composed", opts)):
         bench_step2(problem, base, label)
+
+    phase("device_loop (the device LM loop against the host loop)")
+    results.update(check_lm_kernels())
+    check_device_loop(problem, counts)
 
     phase("CG solvers (bundle_adjust, PCG with SCHUR_JACOBI + RIPCG)")
     pcg = SolverOptions(solver_type_step_1=SolverType.PCG,

@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-`nvcc` compiles each csrc/*.cu (pose1.cu, pose2.cu, cam.cu, spmd.cu)
+`nvcc` compiles each csrc/*.cu (pose1.cu, pose2.cu, cam.cu, spmd.cu,
+lm.cu)
 into an object file, one compiler per source, all started together, and
 links them into one shared library with a plain C interface for Hopper
 (sm_90a), which `ctypes` loads: no PyTorch headers are compiled, so a
@@ -36,9 +37,10 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+_U64 = ctypes.c_ulonglong
 
 # argument types of every exported entry point (csrc/pose1.cu, pose2.cu,
-# cam.cu, spmd.cu)
+# cam.cu, spmd.cu, lm.cu)
 SIGNATURES = {
     "povar_prepare": [_P] * 11 + [_I, _I, _F, _F, _F, _I, _F, _F, _I, _P],
     "povar_e0_factor": [_P] * 7 + [_I, _I, _F, _P],
@@ -72,6 +74,18 @@ SIGNATURES = {
     "povar_spmd_part_sums": [_P] * 3 + [_I] * 5 + [_P],
     "povar_spmd_expand_rows": [_P] * 3 + [_I] * 5 + [_P],
     "povar_spmd_reduce_reexpand": [_P] * 3 + [_I] * 5 + [_P],
+    "povar_lm_step": [_P] * 4 + [_D] * 6 + [_I] * 3 + [_U64, _I, _P],
+    "povar_lm_condition": [_P, _U64, _I, _P, _I, _P],
+    # the graph plumbing of lm.cu (no kernel of their own)
+    "povar_graph_begin": [_P, _P],
+    "povar_graph_end": [_P],
+    "povar_cond_begin": [_P, _P, _I, _P, _P, _P],
+    "povar_cond_end": [_P, _P, _P],
+    "povar_capture_abort": [_P],
+    "povar_graph_instantiate": [_P, _P],
+    "povar_graph_launch": [_P, _P],
+    "povar_graph_nodes": [_P, _P],
+    "povar_graph_free": [_P, _P],
 }
 
 

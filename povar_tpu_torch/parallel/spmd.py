@@ -655,6 +655,11 @@ class _SpmdCommon:
     PATH = ("the SPMD window layout (POWER_VARPROJ, POWER_SCHUR_COMPLEMENT "
             "or PCG and RIPOBA or RIPCG, structured, an f64 state in mixed "
             "precision)")
+    # the trial's sums are all-reduced over the mesh between kernels, so
+    # the host loop drives it, as the JAX package's sharded solvers
+    # (povar_tpu/parallel/spmd.py `supports_device_loop`): "auto" takes
+    # the host loop, "on" raises ValueError (slots.use_device_loop)
+    supports_device_loop = False
 
     def __init__(self, plan: SpmdPlan, obs_uv, num_cameras: int,
                  num_landmarks: int, options: SolverOptions, mesh,

@@ -91,7 +91,10 @@ def accumulate_residual_info(
         num_obs_all = weighted_error.shape[0]
     dev = weighted_error.device
     return {
-        "num_obs_all": torch.tensor(num_obs_all, dtype=torch.int64, device=dev),
+        # a fill, not a host-to-device copy: no synchronisation, and
+        # capturable into the device LM loop's CUDA graph
+        "num_obs_all": torch.full((), num_obs_all, dtype=torch.int64,
+                                  device=dev),
         "error_all": weighted_error.sum(),
         "residual_sum_all": res_norm.sum(),
         "num_obs_valid": projection_valid.to(torch.int64).sum(),

@@ -23,6 +23,13 @@ optimize_homogeneous_joint (cpp:557-843):
 Each trial is one `Stage1Solver.trial` / `Stage2Solver.trial` (solve +
 apply + cost) followed by ONE device->host transfer of the scalars the
 accept/reject rule needs.
+
+`optimize_step1` / `optimize_step2` choose the loop as the JAX
+package's do (povar_tpu/solver/lm.py:554-560, 661-666): the device loop
+(solver/device_loop.py, no host synchronisation inside a step) where
+`slots.use_device_loop` says so, which under `device_lm_loop="auto"`
+(the default) is every single-device solve with the fused trial and
+without per-stage timing, else this host loop.
 """
 
 from __future__ import annotations
@@ -38,6 +45,12 @@ from povar_tpu_torch.solver.common import (
     error_summary_oneline,
     to_host,
 )
+from povar_tpu_torch.solver.device_loop import (
+    DeviceLmRun,
+    drive_device_loop,
+    wrapper_token,
+)
+from povar_tpu_torch.solver.slots import use_device_loop
 from povar_tpu_torch.solver.stage1 import Stage1Solver
 from povar_tpu_torch.solver.stage2 import Stage2Solver
 from povar_tpu_torch.utils.summary import (
@@ -408,6 +421,27 @@ def _run(solver, state: _State, options: SolverOptions, accept_rule: str,
     )
 
 
+def _run_device_loop(solver, state: _State, options: SolverOptions,
+                     accept_rule: str, max_lm_iter: int,
+                     summary: SolverSummary, timer_total: Timer,
+                     log: Callable[[str], None]) -> None:
+    """The device loop from `state`: the initial cost stays on the device
+    and is fetched with the traces. The loop (on the card, its captured
+    graph) is kept on the solver (`device_runs`) for the next call with
+    the same accept rule, iteration limit, loop options and kernel
+    wrappers; a call with others replaces it."""
+    err0 = solver.compute_error(state.cams, state.lms)
+    key = (accept_rule, max_lm_iter, options.device_loop_cache_token(),
+           wrapper_token())
+    runs = solver.device_runs
+    if key not in runs:
+        # one loop a solver: another's graph and pool go first
+        runs.clear()
+        runs[key] = DeviceLmRun(solver, options, accept_rule, max_lm_iter)
+    drive_device_loop(runs[key], state, options, max_lm_iter, summary,
+                      timer_total, log, err0)
+
+
 def optimize_step1(
     solver: Stage1Solver,
     cam_space: torch.Tensor,
@@ -429,8 +463,15 @@ def optimize_step1(
         # (slots.LmState)
         state.lms = solver.lm_pack(solver.initialize_varproj(state.cams))
 
-    _run(solver, state, options, "step1", options.max_num_iterations_step_1,
-         summary, timer_total, log, initialize=initialize)
+    if use_device_loop(options, solver, options.detailed_timing):
+        initialize()
+        _run_device_loop(solver, state, options, "step1",
+                         options.max_num_iterations_step_1, summary,
+                         timer_total, log)
+    else:
+        _run(solver, state, options, "step1",
+             options.max_num_iterations_step_1, summary, timer_total, log,
+             initialize=initialize)
     summary.minimizer_time_in_seconds = timer_total.elapsed()
     finish_solve(summary, _SOLVER_TYPE_NAMES[options.solver_type_step_1])
     return state.cams, solver.lm_unpack(state.lms)
@@ -449,8 +490,13 @@ def optimize_step2(
     cpp:557-843) with the solver's trial (RIPOBA or RIPCG). Returns the
     optimized (cam_space [N, 3, 4], lm_p_h [M, 4])."""
     state = _State(cam_space, solver.lm_pack(lm_p_h))
-    _run(solver, state, options, "step2", options.max_num_iterations_step_2,
-         summary, timer_total, log)
+    if use_device_loop(options, solver, options.detailed_timing):
+        _run_device_loop(solver, state, options, "step2",
+                         options.max_num_iterations_step_2, summary,
+                         timer_total, log)
+    else:
+        _run(solver, state, options, "step2",
+             options.max_num_iterations_step_2, summary, timer_total, log)
     summary.minimizer_time_in_seconds = timer_total.elapsed()
     summary.total_time_in_seconds = timer_total.elapsed()
     finish_solve(

@@ -108,6 +108,9 @@ def bundle_adjust(
     cams, lms = optimize_step1(
         s1, cams, lms, options, summary1, timer_total, log
     )
+    # step 1's device loop (on the card its graph and memory pool),
+    # freed before step 2 makes its own
+    s1.device_runs.clear()
 
     cams, lms_h = create_homogeneous(cams, lms)
     summary2 = SolverSummary(num_threads_given=n_mesh,

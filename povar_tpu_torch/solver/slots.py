@@ -207,17 +207,34 @@ def common_unsupported(
     (the checks that do not depend on the step)."""
     if dtype not in (torch.float64, torch.float32):
         return f"LM state dtype {dtype} (the states are f64 and f32)"
-    if options.device_lm_loop == "on":
-        return (
-            "device_lm_loop='on' (ROADMAP.md queue 1 item 8, the device "
-            "LM loop)"
-        )
     if options.detailed_timing:
         return (
             "detailed_timing=True (ROADMAP.md queue 1 item 14, per-stage "
             "timing)"
         )
     return None
+
+
+def use_device_loop(options: SolverOptions, solver, detailed: bool) -> bool:
+    """Whether `solver` runs its LM loop on the device
+    (solver/device_loop.py): the rule of `_use_device_loop` in
+    povar_tpu/solver/lm.py, word for word. The fused trial must exist
+    (`supports_trial`: not CHOLESKY), the solver must take the device
+    loop (`supports_device_loop`: not on a mesh) and per-stage timing
+    must be off; "on" raises ValueError where one of them fails, "auto"
+    takes the host loop there, "off" always."""
+    mode = getattr(options, "device_lm_loop", "off")
+    capable = (
+        (not detailed)
+        and getattr(solver, "supports_trial", False)
+        and getattr(solver, "supports_device_loop", False)
+    )
+    if mode == "on" and not capable:
+        raise ValueError(
+            "device_lm_loop='on' requires the fused trial "
+            "(supports_trial) and detailed_timing=False"
+        )
+    return mode in ("auto", "on") and capable
 
 
 class SlotSolver:
@@ -239,6 +256,12 @@ class SlotSolver:
     PATH = ""
     # the mesh the solve's sums are all-reduced over (parallel/mesh.Mesh)
     mesh = None
+    # the LM loop may run on the device (use_device_loop); the SPMD
+    # solvers say no (parallel/spmd.py), as the JAX package's
+    supports_device_loop = True
+    # the fused trial (solve + apply + cost) exists; Stage1Solver says
+    # no for CHOLESKY, as the JAX package's
+    supports_trial = True
 
     @staticmethod
     def uses_unstructured(options: SolverOptions, dtype) -> bool:
@@ -283,6 +306,9 @@ class SlotSolver:
         self.opts = options
         self.dtype = dtype
         self.solve_dtype = solve_dtype_of(options, dtype)
+        # the device LM loop last run on this solver (solver/lm.py: on
+        # the card, its captured graph), by what it was captured for
+        self.device_runs = {}
         if options.pallas_kernels == "on" and (
                 self.solve_dtype == torch.float64):
             # the JAX package's refusal (stage1.py:705-710), word for word
@@ -488,7 +514,7 @@ class SlotSolver:
         """Per-landmark Jl^T Jl [3, 3, M]."""
         return self._seg_lm(torch.einsum("kio,kjo->ijo", jl, jl))
 
-    def _hll_inv_u(self, jl, r, lam_s: Optional[float]):
+    def _hll_inv_u(self, jl, r, lam_s):
         """(hll_inv [3, 3, M], hll_inv bl [3, M]) with the landmark blocks
         damped by lam_s I where it is given."""
         hll = self._hll_u(jl)
@@ -530,22 +556,45 @@ class SlotSolver:
         wh = torch.einsum("ijo,jko->iko", w, self._gather_lm_x(hll_inv))
         return self._seg_cam(torch.einsum("iko,jko->ijo", wh, w))
 
-    def _power_solve_u(self, b, hpp, W, lam_s: float):
+    def _power_series(self, b_inv_apply, e0_apply, neg_b, ctl):
+        """The power series over the solver's terms and tolerances: the
+        host form, or with a control object `ctl` (the device LM loop)
+        the device form. Returns (x, terms: an int, or a 0-d tensor with
+        `ctl`)."""
+        kw = dict(max_terms=self.power_m, q_tolerance=self.opts.eta,
+                  r_tolerance=self.opts.r_tolerance)
+        if ctl is None:
+            return pcg_mod.power_series(b_inv_apply, e0_apply, neg_b, **kw)
+        return pcg_mod.power_series_dev(b_inv_apply, e0_apply, neg_b,
+                                        ctl=ctl, **kw)
+
+    def _cg(self, matvec, b, precond, ctl):
+        """CG from x0 = 0 with the solver's iteration limits and eta (the
+        r-tolerance off, as in the JAX package): the host form, or with
+        `ctl` the device form. Returns (x, iterations: an int, or a 0-d
+        tensor with `ctl`)."""
+        kw = dict(max_iterations=self.opts.max_linear_solver_iterations,
+                  min_iterations=self.opts.min_linear_solver_iterations,
+                  q_tolerance=self.opts.eta, r_tolerance=-1.0,
+                  residual_reset_period=self.opts.residual_reset_period)
+        if ctl is None:
+            x, n_iter, _term = pcg_mod.conjugate_gradients(
+                matvec, b, torch.zeros_like(b), precond, **kw)
+            return x, n_iter
+        return pcg_mod.conjugate_gradients_dev(
+            matvec, b, torch.zeros_like(b), precond, ctl=ctl, **kw)
+
+    def _power_solve_u(self, b, hpp, W, lam_s, ctl=None):
         """The power series x = sum_i (B^-1 E0)^i B^-1 (-b), B = hpp +
         lam I. Returns (inc [d, N] in the state dtype, terms)."""
         eye = torch.eye(hpp.shape[0], dtype=hpp.dtype, device=hpp.device)
         b_inv = linalg.inv_psd_smallf(hpp + lam_s * eye[:, :, None])
-        inc, n_iter = pcg_mod.power_series(
-            lambda v: mv(b_inv, v),
-            lambda v: self._e0_w_matvec(v, W),
-            -b,
-            max_terms=self.power_m,
-            q_tolerance=self.opts.eta,
-            r_tolerance=self.opts.r_tolerance,
-        )
+        inc, n_iter = self._power_series(
+            lambda v: mv(b_inv, v), lambda v: self._e0_w_matvec(v, W), -b,
+            ctl)
         return inc.to(self.dtype), n_iter
 
-    def _pcg_solve_u(self, b, hpp, W, lam_s: float, schur_corr):
+    def _pcg_solve_u(self, b, hpp, W, lam_s, schur_corr, ctl=None):
         """PCG on the implicit reduced camera system S x = b,
         S = hpp + lam I - E0, preconditioned per preconditioner_type from
         the diagonal blocks less `schur_corr()`. Returns (inc = -x
@@ -558,17 +607,10 @@ class SlotSolver:
         def matvec(v):
             return mv(hpp, v) + lam_s * v - self._e0_w_matvec(v, W)
 
-        x, n_iter, _term = pcg_mod.conjugate_gradients(
-            matvec, b, torch.zeros_like(b), self._precond_closure(pmats),
-            max_iterations=self.opts.max_linear_solver_iterations,
-            min_iterations=self.opts.min_linear_solver_iterations,
-            q_tolerance=self.opts.eta,
-            r_tolerance=-1.0,
-            residual_reset_period=self.opts.residual_reset_period,
-        )
+        x, n_iter = self._cg(matvec, b, self._precond_closure(pmats), ctl)
         return (-x).to(self.dtype), n_iter
 
-    def _damped_lm_step_u(self, jp, jl, r, inc, lam_s: float):
+    def _damped_lm_step_u(self, jp, jl, r, inc, lam_s):
         """The damped landmark step from the stored scaled blocks (the
         poBA / step-2 back-substitution, landmark_block.hpp:574-668):
         (jp inc [k, O], -(Hll + lam I)^-1 seg_lm(Jl^T (r + Jp inc))
@@ -670,6 +712,10 @@ class SlotSolver:
             return (torch.where(dg != 0, 1.0 / dg, torch.ones_like(dg)),)
         return (linalg.cholesky_smallf(diag_blocks),)
 
-    def _solve_scalar(self, lam) -> float:
-        """lam rounded to the solve dtype, as a Python float."""
+    def _solve_scalar(self, lam):
+        """lam rounded to the solve dtype: a Python float for a number
+        (the host loop), a 0-d tensor for a 0-d tensor (the device loop,
+        whose lambda never leaves the device)."""
+        if isinstance(lam, torch.Tensor):
+            return lam.to(self.solve_dtype)
         return float(torch.tensor(float(lam), dtype=self.solve_dtype))

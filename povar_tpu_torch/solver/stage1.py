@@ -54,7 +54,6 @@ from povar_tpu_torch.options import (
     SolverOptions,
     SolverType,
 )
-from povar_tpu_torch.solver import pcg as pcg_mod
 from povar_tpu_torch.solver.segments import slot_part_sums, slot_row_expand
 from povar_tpu_torch.solver.slots import (
     LmState, SlotSolver, mv, solve_dtype_of,
@@ -186,33 +185,47 @@ class Stage1Solver(SlotSolver):
             SolverType.POWER_VARPROJ, SolverType.POWER_SCHUR_COMPLEMENT,
         )
 
-    def solve(self, lin, lam) -> Tuple[torch.Tensor, int]:
+    @property
+    def supports_trial(self) -> bool:
+        """Whether the JAX package fuses this solver's trial, and so runs
+        its LM loop on the device (`use_device_loop`): POWER_VARPROJ,
+        POWER_SCHUR_COMPLEMENT and PCG; CHOLESKY stays on the host loop
+        (povar_tpu/solver/stage1.py `supports_trial`). The port's
+        `trial` runs every solver."""
+        return self.opts.solver_type_step_1 != SolverType.CHOLESKY
+
+    def solve(self, lin, lam, ctl=None) -> Tuple[torch.Tensor, int]:
         """Dispatch on solver_type_step_1 (linearizor.cpp:46-61
         factory): (inc [12, N] in scaled coordinates, state dtype;
         power terms, CG iterations, or 0 for the direct solve).
         POWER_SCHUR_COMPLEMENT is the power series with the landmark
-        blocks damped."""
+        blocks damped. With a control object `ctl` (the device LM loop,
+        a 0-d tensor `lam`) the inner loops run their device forms and
+        the count is a 0-d tensor."""
         st = self.opts.solver_type_step_1
         if st == SolverType.PCG:
-            return self.solve_pcg(lin, lam)
+            return self.solve_pcg(lin, lam, ctl)
         if st == SolverType.CHOLESKY:
             return self.solve_cholesky(lin, lam)
-        return self.solve_power(lin, lam, landmark_damping=self.poba)
+        return self.solve_power(lin, lam, landmark_damping=self.poba,
+                                ctl=ctl)
 
-    def trial(self, cam_space, lm_p, lin, lam):
+    def trial(self, cam_space, lm_p, lin, lam, ctl=None):
         """One LM backtracking trial: solve + apply + cost, with no host
-        synchronisation except the inner solve's early-exit tests.
-        POWER_SCHUR_COMPLEMENT applies through the poBA back-substitution
-        with the trial's lambda (`apply_poba`), the others through the
-        VarProj one (`apply`). CHOLESKY runs here too: the JAX package
-        stages it only for its jit boundaries, with the same decisions.
+        synchronisation except the inner solve's early-exit tests (none
+        with `ctl`, the device LM loop's control object, and a 0-d tensor
+        `lam`). POWER_SCHUR_COMPLEMENT applies through the poBA
+        back-substitution with the trial's lambda (`apply_poba`), the
+        others through the VarProj one (`apply`). CHOLESKY runs here too
+        under the host loop: the JAX package stages it only for its jit
+        boundaries, with the same decisions.
 
         Returns (new_cams, new_lms, inc_finite, num_inner_iters,
         l_diff, err_dict); inc_finite, l_diff and the err_dict entries
         stay on the device for the caller's one batched transfer. When
         the increment is non-finite the caller discards the trial state
         (the reference's NaN check, cpp:362-401)."""
-        inc, n_iter = self.solve(lin, lam)
+        inc, n_iter = self.solve(lin, lam, ctl)
         inc_finite = torch.isfinite(inc).all()
         if self.poba:
             new_cams, new_lms, l_diff = self.apply_poba(
@@ -376,7 +389,7 @@ class Stage1Solver(SlotSolver):
 
     # ------------------------------------------------------------ solve
 
-    def _scaled_hll(self, lin: Lin1S, lam_s: Optional[float] = None):
+    def _scaled_hll(self, lin: Lin1S, lam_s=None):
         """The landmark blocks [3, 3, L] in the Jl-scaled coordinates,
         damped by lam_s I where given (poBA, set_landmark_damping,
         linearizor_power_varproj.cpp:199-201)."""
@@ -387,7 +400,7 @@ class Stage1Solver(SlotSolver):
             hll = hll + lam_s * eye[:, :, None]
         return hll
 
-    def _hll_pieces_s(self, lin: Lin1S, lam_s: Optional[float] = None):
+    def _hll_pieces_s(self, lin: Lin1S, lam_s=None):
         """(hll_inv [3,3,L], hib_obs [3,O], jls_obs [3,O], lh_obs [9,O])
         from the raw slot sums: scale, damp by lam_s I where given
         (POWER_SCHUR_COMPLEMENT's landmark damping, before the pad-row
@@ -478,8 +491,8 @@ class Stage1Solver(SlotSolver):
 
         return apply
 
-    def solve_power(self, lin, lam, landmark_damping: bool = False
-                    ) -> Tuple[torch.Tensor, int]:
+    def solve_power(self, lin, lam, landmark_damping: bool = False,
+                    ctl=None) -> Tuple[torch.Tensor, int]:
         """POWER_VARPROJ (or, with `landmark_damping`, POWER_SCHUR_
         COMPLEMENT) solve (`_solve_power_s` of the JAX package):
         power-series expansion
@@ -495,13 +508,13 @@ class Stage1Solver(SlotSolver):
             )
             hpp, b = self._hpp_b_u(lin.Jp, lin.Jl, lin.r, hll_inv_bl)
             return self._power_solve_u(
-                b, hpp, self._e0_factor_u(lin.Jp, lin.Jl, hll_inv), lam_s
-            )
+                b, hpp, self._e0_factor_u(lin.Jp, lin.Jl, hll_inv), lam_s,
+                ctl)
         pieces = self._hll_pieces_s(lin, lam_s if landmark_damping else None)
         prep = self._power_prep_s(lin, lam_s, pieces)
-        return self._power_iterate_s(lin, prep)
+        return self._power_iterate_s(lin, prep, ctl)
 
-    def _power_prep_s(self, lin: Lin1S, lam_s: float, hll_pieces):
+    def _power_prep_s(self, lin: Lin1S, lam_s, hll_pieces):
         _hll_inv, hib_obs, jls_obs, lh_obs = hll_pieces
         hpp, b = self._hpp_b_s(lin, hib_obs, jls_obs)
         eye = torch.eye(12, dtype=hpp.dtype, device=hpp.device)
@@ -510,19 +523,13 @@ class Stage1Solver(SlotSolver):
         h = self._h_factor_s(lin, jls_obs, lh_obs)
         return -b, b_inv, h
 
-    def _power_iterate_s(self, lin: Lin1S, prep):
+    def _power_iterate_s(self, lin: Lin1S, prep, ctl=None):
         nb, b_inv, h = prep
-        inc, n_iter = pcg_mod.power_series(
-            lambda v: mv(b_inv, v),
-            self._e0_apply_s(lin, h),
-            nb,
-            max_terms=self.power_m,
-            q_tolerance=self.opts.eta,
-            r_tolerance=self.opts.r_tolerance,
-        )
+        inc, n_iter = self._power_series(
+            lambda v: mv(b_inv, v), self._e0_apply_s(lin, h), nb, ctl)
         return inc.to(self.dtype), n_iter
 
-    def solve_pcg(self, lin, lam) -> Tuple[torch.Tensor, int]:
+    def solve_pcg(self, lin, lam, ctl=None) -> Tuple[torch.Tensor, int]:
         """PCG on the implicit reduced camera system S x = b,
         S = Hpp + lam I - E0 (`_solve_pcg_s` / `_solve_pcg` of the JAX
         package; linearizor_sc.cpp with conjugate_gradient.hpp),
@@ -534,7 +541,7 @@ class Stage1Solver(SlotSolver):
             hpp, b = self._hpp_b_u(lin.Jp, lin.Jl, lin.r, hll_inv_bl)
             return self._pcg_solve_u(
                 b, hpp, self._e0_factor_u(lin.Jp, lin.Jl, hll_inv), lam_s,
-                lambda: self._schur_corr_u(lin.Jp, lin.Jl, hll_inv),
+                lambda: self._schur_corr_u(lin.Jp, lin.Jl, hll_inv), ctl,
             )
         _hll_inv, hib_obs, jls_obs, lh_obs = self._hll_pieces_s(lin)
         hpp, b = self._hpp_b_s(lin, hib_obs, jls_obs)
@@ -547,17 +554,10 @@ class Stage1Solver(SlotSolver):
         def matvec(v):
             return mv(hpp, v) + lam_s * v - e0(v)
 
-        x, n_iter, _term = pcg_mod.conjugate_gradients(
-            matvec, b, torch.zeros_like(b), precond,
-            max_iterations=self.opts.max_linear_solver_iterations,
-            min_iterations=self.opts.min_linear_solver_iterations,
-            q_tolerance=self.opts.eta,
-            r_tolerance=-1.0,
-            residual_reset_period=self.opts.residual_reset_period,
-        )
+        x, n_iter = self._cg(matvec, b, precond, ctl)
         return (-x).to(self.dtype), n_iter
 
-    def _pcg_precond_s(self, lin: Lin1S, lam_s: float, hpp, h):
+    def _pcg_precond_s(self, lin: Lin1S, lam_s, hpp, h):
         """Preconditioner materials (`_pcg_precond_s` of the JAX
         package): the damped Hpp blocks less their Schur corrections,
         hpp + lam I - seg_cam((h^T h) (x) xh xh^T) . (ps ps^T), one

@@ -57,7 +57,6 @@ from povar_tpu_torch.options import (
     SolverOptions,
     SolverTypeRiemannian,
 )
-from povar_tpu_torch.solver import pcg as pcg_mod
 from povar_tpu_torch.solver.segments import slot_part_sums, slot_row_expand
 from povar_tpu_torch.solver.slots import LmState, SlotSolver, mv
 
@@ -141,19 +140,21 @@ class Stage2Solver(SlotSolver):
         )
         self.use_valid_only = options.use_projection_validity_check()
 
-    def solve(self, lin, lam) -> Tuple[torch.Tensor, int]:
+    def solve(self, lin, lam, ctl=None) -> Tuple[torch.Tensor, int]:
         """Dispatch on solver_type_step_2: (inc [11, N] in the state
-        dtype, power terms or CG iterations)."""
+        dtype, power terms or CG iterations; with `ctl`, as
+        Stage1Solver.solve, a 0-d tensor count)."""
         if self.opts.solver_type_step_2 == SolverTypeRiemannian.RIPCG:
-            return self.solve_pcg(lin, lam)
-        return self.solve_power(lin, lam)
+            return self.solve_pcg(lin, lam, ctl)
+        return self.solve_power(lin, lam, ctl)
 
-    def trial(self, cam_space, lm_p_h, lin, lam):
+    def trial(self, cam_space, lm_p_h, lin, lam, ctl=None):
         """One LM backtracking trial: solve + apply + cost, with no host
-        synchronisation except the inner solve's early-exit tests.
+        synchronisation except the inner solve's early-exit tests (none
+        with `ctl` and a 0-d tensor `lam`, the device LM loop's).
         Returns (new_cams, new_lms, inc_finite, num_inner_iters, l_diff,
         err_dict), as Stage1Solver.trial."""
-        inc, n_iter = self.solve(lin, lam)
+        inc, n_iter = self.solve(lin, lam, ctl)
         inc_finite = torch.isfinite(inc).all()
         new_cams, new_lms, l_diff = self.apply(cam_space, lm_p_h, lin, inc,
                                                lam)
@@ -303,13 +304,13 @@ class Stage2Solver(SlotSolver):
 
     # ------------------------------------------------------------ solve
 
-    def _damped_hll(self, lin: Lin2S, lam_s: float) -> torch.Tensor:
+    def _damped_hll(self, lin: Lin2S, lam_s) -> torch.Tensor:
         """Tangent Hll + lam I (the bases are orthonormal, so the
         reference's Proj^T lam Proj damping is lam I)."""
         eye = torch.eye(3, dtype=lin.hll_raw.dtype, device=lin.hll_raw.device)
         return lin.hll_raw + lam_s * eye[:, :, None]
 
-    def _prep_hll_s(self, lin: Lin2S, lam_s: float):
+    def _prep_hll_s(self, lin: Lin2S, lam_s):
         """(hll_inv [3,3,L], hib_obs [3,O], b6 [6,O] = Jl_ns L rows) of
         the damped tangent landmark blocks."""
         hll_inv = linalg.inv3x3f(self._damped_hll(lin, lam_s))
@@ -349,7 +350,7 @@ class Stage2Solver(SlotSolver):
         )
         return self._fold_kps(lin, self._psum(hpp12), self._psum(b12))
 
-    def solve_power(self, lin, lam) -> Tuple[torch.Tensor, int]:
+    def solve_power(self, lin, lam, ctl=None) -> Tuple[torch.Tensor, int]:
         """RIPOBA: power series on the 11-dof tangent system
         (solve_joint, hpp:240-287). Returns (inc [11, N] in the state
         dtype, num_terms)."""
@@ -359,23 +360,17 @@ class Stage2Solver(SlotSolver):
             hpp, b = self._hpp_b_u(lin.Jp_ns, lin.Jl_ns, lin.r, hll_inv_bl)
             return self._power_solve_u(
                 b, hpp, self._e0_factor_u(lin.Jp_ns, lin.Jl_ns, hll_inv),
-                lam_s,
+                lam_s, ctl,
             )
         _hll_inv, hib_obs, b6 = self._prep_hll_s(lin, lam_s)
         hpp11, b11 = self._hpp_b11(lin, hib_obs)
         eye = torch.eye(11, dtype=hpp11.dtype, device=hpp11.device)
         b_inv = linalg.inv_psd_smallf(hpp11 + lam_s * eye[:, :, None])
-        inc, n_iter = pcg_mod.power_series(
-            lambda v: mv(b_inv, v),
-            self._e0_apply_s(lin, b6),
-            -b11,
-            max_terms=self.power_m,
-            q_tolerance=self.opts.eta,
-            r_tolerance=self.opts.r_tolerance,
-        )
+        inc, n_iter = self._power_series(
+            lambda v: mv(b_inv, v), self._e0_apply_s(lin, b6), -b11, ctl)
         return inc.to(self.dtype), n_iter
 
-    def solve_pcg(self, lin, lam) -> Tuple[torch.Tensor, int]:
+    def solve_pcg(self, lin, lam, ctl=None) -> Tuple[torch.Tensor, int]:
         """RIPCG (linearizor_sc.cpp:245-325; `_solve_pcg` of the JAX
         package): PCG on the implicit tangent reduced camera system
         S x = b11, S = Hpp11 + lam I - E0, preconditioned per
@@ -389,6 +384,7 @@ class Stage2Solver(SlotSolver):
                 b, hpp, self._e0_factor_u(lin.Jp_ns, lin.Jl_ns, hll_inv),
                 lam_s,
                 lambda: self._schur_corr_u(lin.Jp_ns, lin.Jl_ns, hll_inv),
+                ctl,
             )
         _hll_inv, hib_obs, b6 = self._prep_hll_s(lin, lam_s)
         hpp11, b11 = self._hpp_b11(lin, hib_obs)
@@ -400,17 +396,10 @@ class Stage2Solver(SlotSolver):
         def matvec(v):
             return mv(hpp11, v) + lam_s * v - e0(v)
 
-        x, n_iter, _term = pcg_mod.conjugate_gradients(
-            matvec, b11, torch.zeros_like(b11), precond,
-            max_iterations=self.opts.max_linear_solver_iterations,
-            min_iterations=self.opts.min_linear_solver_iterations,
-            q_tolerance=self.opts.eta,
-            r_tolerance=-1.0,
-            residual_reset_period=self.opts.residual_reset_period,
-        )
+        x, n_iter = self._cg(matvec, b11, precond, ctl)
         return (-x).to(self.dtype), n_iter
 
-    def _pcg_precond_s(self, lin: Lin2S, lam_s: float, hpp11, b6):
+    def _pcg_precond_s(self, lin: Lin2S, lam_s, hpp11, b6):
         """Preconditioner materials (`_pcg_precond` of the JAX package,
         structured branch): the damped Hpp11 blocks less the folded
         schur_diag2 corrections; none for IDENTITY."""

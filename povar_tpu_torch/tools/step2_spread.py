@@ -369,15 +369,16 @@ SMALL_CONFIGS = {
 }
 
 
-def small_case(config="composed"):
+def small_case(config="composed", loop="off"):
     """The small `bundle_adjust` case that SMALL_TOLS was measured on:
     (problem, options) with synthetic_bal_problem(8, 60, 5, seed=7) at
-    1e-3 pixel noise, at most 6 step-1 and 10 step-2 iterations and the
-    options of SMALL_CONFIGS[config]. chip_smoke.py and
+    1e-3 pixel noise, at most 6 step-1 and 10 step-2 iterations, the
+    options of SMALL_CONFIGS[config] and device_lm_loop=`loop` (the host
+    loop SMALL_TOLS was measured with, by default). chip_smoke.py and
     tests/test_torch_cuda.py run it too."""
     problem = synthetic_bal_problem(n_cams=8, n_lms=60, obs_per_lm=5,
                                     seed=7, noise=1e-3)[0]
-    opts = SolverOptions(device_lm_loop="off", max_num_iterations_step_1=6,
+    opts = SolverOptions(device_lm_loop=loop, max_num_iterations_step_1=6,
                          max_num_iterations_step_2=10)
     for k, v in SMALL_CONFIGS[config].items():
         setattr(opts, k, v)
@@ -473,13 +474,15 @@ RING_TOLS = {"psc": (2e-3, 1e-4), "f32": (2e-3, 1e-4),
              "off": (2e-3, 1e-4), "cholesky": (1e-2, 1e-4)}
 
 
-def ring_pipeline(config, device):
+def ring_pipeline(config, device, loop="off"):
     """`bundle_adjust` of `ring_case` under RING_CONFIGS[config] on
-    `device`. Returns (step-1 summary, step-2 summary)."""
+    `device` with device_lm_loop=`loop` (by default the host loop, which
+    RING_TOLS was measured with). Returns (step-1 summary, step-2
+    summary)."""
     kw, dtype = RING_CONFIGS[config]
     args, cam0, lm0 = ring_case()
     problem, _c, _l = from_numpy(*args[:3], cam0, lm0, device="cpu")
-    opts = SolverOptions(device_lm_loop="off", **kw)
+    opts = SolverOptions(device_lm_loop=loop, **kw)
     return bundle_adjust(problem, opts, log=lambda s: None, dtype=dtype,
                          device=device)[1:]
 

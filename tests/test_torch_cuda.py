@@ -37,7 +37,12 @@ device operation per call; every kernel of both steps at N = 3000, 5000
 and 13,682 (the camera tables read in place, the global accumulators),
 `e0_u` in both types at N = 2000 to 13,682,
 `cam_gather` with rows too wide for a block, and `cam_gather` /
-`cam_scatter_add` on a [144, O] operand of more than 2^31 entries.
+`cam_scatter_add` on a [144, O] operand of more than 2^31 entries. The
+device LM loop (solver/device_loop.py, csrc/lm.cu): `lm_step` bit for
+bit against its plain version on edge cases, a captured graph of nested
+WHILE and IF nodes against the same loops on the host, and the card's
+device loop against its host loop in pure f64 (decisions, counts, costs
+within 1e-9, launch counts rebuilt from the graph's region counts).
 
 Tolerances, with the scales of povar_tpu_torch/tools/parity.py:
 elementwise outputs 1e-5 entry by entry (against |plain| + the median
@@ -65,6 +70,7 @@ from povar_tpu_torch import (
     optimize_step1,
     synthetic_bal_problem,
 )
+from povar_tpu_torch.options import SolverType, SolverTypeRiemannian
 from povar_tpu_torch.tools.parity import scaled_error
 from povar_tpu_torch.tools.pose2_ab import first_camera_rows
 from povar_tpu_torch.tools.step2_spread import (
@@ -76,7 +82,7 @@ from povar_tpu_torch.tools.step2_spread import (
     ring_pipeline,
     small_case,
 )
-from povar_tpu_torch.ops import cam_kernels, cam_ref, launches
+from povar_tpu_torch.ops import cam_kernels, cam_ref, launches, lm_kernels
 from povar_tpu_torch.ops import pose2_kernels as pk2
 from povar_tpu_torch.ops import pose2_ref
 from povar_tpu_torch.ops import pose_kernels as pk
@@ -1021,8 +1027,11 @@ UNSTRUCTURED_ONLY = {"cam_scatter_add", "e0_u", "e0_scatter", "hpp_b"}
 SPMD_ONLY = set(spmd_kernels.KERNELS)
 # the camera-table kernels' f64 instantiations run in pure f64 only
 F64_ONLY = set(cam_kernels.F64_KERNELS)
+# the device LM loop's kernels (`small_case` and `ring_pipeline` run the
+# host loop)
+LM_ONLY = set(lm_kernels.KERNELS)
 ALL = (set(launches.KERNELS) - PSC_ONLY - F32_ONLY - UNSTRUCTURED_ONLY
-       - SPMD_ONLY - F64_ONLY)
+       - SPMD_ONLY - F64_ONLY - LM_ONLY)
 SMALL_KERNELS = {
     "composed": ALL - FUSED_ONLY - CG_ONLY,
     "defaults": ALL - COMPOSED_ONLY - CG_ONLY,
@@ -1082,7 +1091,7 @@ def test_bundle_adjust_card_matches_cpu(cuda, config):
         launches.reset_launch_counts()
         _, s1, s2 = bundle_adjust(p, opts, log=lambda s: None, device=dev)
         counts = launches.launch_counts()
-        assert len(counts) == 32
+        assert len(counts) == 34
         if dev == "cuda":
             assert all(counts[k] > 0 for k in kernels), counts
         else:
@@ -1467,3 +1476,194 @@ def test_cam_gather_and_scatter_past_2_31_entries(cuda):
     sums = cam_kernels.cam_scatter_add(got, cam, n)
     want = torch.zeros((r, n), device=cuda).index_add_(1, cam64, got)
     _close("cam_scatter_add", sums, want, [CAM])
+
+
+# ---- the device LM loop (solver/device_loop.py, csrc/lm.cu)
+
+def _lm_cases():
+    """(trial row, state vector) pairs of lm_step's edge cases: a plain
+    accept and reject, l_diff = 0 (quality inf), a NaN l_diff, a NaN
+    increment (ok = 0), a NaN cost (nv = 0), lambda at its floor, at its
+    ceiling, the ftol test met, the last iteration (no relinearization)
+    and a state with no valid observation (the average channel's 0)."""
+    row = [10.0, 3.0, 9.0, 2.5, 100.0, 90.0]
+    st = [1.0, 0.0, 1e-4, 2.0, 12.0, 4.0, 11.0, 3.0, 100.0, 90.0,
+          12.0, 4.0, 11.0, 3.0, 100.0, 90.0]
+    cases = []
+    for trial, head in (
+            ([1, 1, 2.5, 4], {}),
+            ([1, 1, -2.5, 4], {}),
+            ([1, 1, 0.0, 3], {}),
+            ([1, 1, float("nan"), 2], {}),
+            ([0, 1, 2.5, 5], {}),
+            ([1, 0, 2.5, 5], {}),
+            ([1, 1, 2.5, 1], {2: 1e-16}),
+            ([1, 1, -2.5, 1], {2: 1e31, 3: 64.0}),
+            ([1, 1, 2.5, 1], {8: 10.0 + 1e-9, 12: 9.0 + 1e-9}),
+            ([1, 1, 2.5, 1], {0: 5.0}),
+    ):
+        s = list(st)
+        for k, v in head.items():
+            s[k] = v
+        cases.append((torch.tensor(row + trial, dtype=torch.float64),
+                      torch.tensor(s, dtype=torch.float64)))
+    zero = torch.tensor(row[:5] + [0.0] + [1, 1, 2.5, 3],
+                        dtype=torch.float64)
+    s = torch.tensor(st, dtype=torch.float64)
+    s[9] = 0.0
+    cases.append((zero, s))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oc", [0, 1, 2])
+@pytest.mark.parametrize("step1", [1, 0])
+def test_lm_step_matches_plain_version(cuda, oc, step1):
+    """The bookkeeping kernel against its plain version on the card, on
+    every edge case of `_lm_cases`, under each optimized_cost channel and
+    both accept rules: state vector, trace row and flags equal bit for
+    bit (f64 without FMA contraction; NaN where the plain version has
+    NaN)."""
+    p = lm_kernels.LmParams(min_lambda=1e-16, max_lambda=1e32, ftol=1e-6,
+                            min_rel_dec=0.0, vee_factor=2.0,
+                            initial_vee=2.0, T=5, oc=oc, step1=step1)
+    for trial, st in _lm_cases():
+        outs = []
+        for fn in (lm_kernels.lm_step, lm_kernels.lm_step_ref):
+            s = st.to(cuda)
+            trace = torch.zeros((5, len(lm_kernels.TRACE_COLS)),
+                                dtype=torch.float64, device=cuda)
+            flags = torch.zeros(3, dtype=torch.bool, device=cuda)
+            fn(trial.to(cuda), s, trace, flags, p)
+            outs.append((s.cpu(), trace.cpu(), flags.cpu()))
+        for got, want in zip(*outs):
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_graph_while_and_if_nodes(cuda):
+    """A program of nested loops captured into a CUDA graph (device_loop
+    .capture: WHILE nodes, an IF node, temporaries made inside the
+    bodies) and replayed twice gives the eager loops' result, and its
+    region counts give each body's executions: outer K times, the IF
+    every third pass, the inner loop 1 + 2 + ... + K times."""
+    from povar_tpu_torch.solver.device_loop import (
+        MAX_REGIONS, EagerControl, capture,
+    )
+
+    K = 7
+
+    def program(ctl, x, acc):
+        def body():
+            x.add_(1)
+            ctl.cond(x % 3 == 0, lambda: acc.add_(10))
+            j = torch.zeros((), dtype=torch.int64, device=x.device)
+
+            def inner():
+                j.add_(1)
+                acc.add_(j * 0 + 1)
+                return j < x
+
+            ctl.while_loop(j < x, inner)
+            return x < K
+
+        ctl.while_loop(x < K, body)
+
+    x0 = torch.zeros((), dtype=torch.int64)
+    a0 = torch.zeros((), dtype=torch.int64)
+    program(EagerControl(), x0, a0)
+    x = torch.zeros((), dtype=torch.int64, device=cuda)
+    acc = torch.zeros((), dtype=torch.int64, device=cuda)
+    counts = torch.zeros(MAX_REGIONS, dtype=torch.int64, device=cuda)
+    g = capture(cuda, lambda ctl: program(ctl, x, acc), counts)
+    assert [len(r) > 0 for r in g.control.regions] == [True] * 3
+    for _ in range(2):
+        x.zero_()
+        acc.zero_()
+        counts.zero_()
+        g.launch()
+        assert int(x) == int(x0) == K
+        assert int(acc) == int(a0) == 10 * (K // 3) + K * (K + 1) // 2
+        assert counts.tolist()[:3] == [K, K // 3, K * (K + 1) // 2]
+
+
+def _small_f64(st1, **kw):
+    problem = synthetic_bal_problem(n_cams=8, n_lms=60, obs_per_lm=5,
+                                    seed=7, noise=0.01)[0]
+    opts = SolverOptions(mixed_precision_solves=False,
+                         max_num_iterations_step_1=12,
+                         max_num_iterations_step_2=8, **kw)
+    opts.solver_type_step_1 = SolverType[st1]
+    return problem, opts
+
+
+def _traj(summary):
+    return [(it.step_is_successful, it.step_is_valid,
+             it.linear_solver_iterations) for it in summary.iterations]
+
+
+def _step_runs(solver_cls, optimize, args, state, opts):
+    """The step with the host loop, then twice with the device loop on
+    one solver (the second run replays the captured graph): (summary,
+    launch counts, result) of each."""
+    out = []
+    solvers = {}
+    for mode in ("off", "on", "on"):
+        o = copy.deepcopy(opts)
+        o.device_lm_loop = mode
+        if mode not in solvers:
+            solvers[mode] = solver_cls(*args, o, device="cuda")
+        launches.reset_launch_counts()
+        summary = SolverSummary()
+        res = optimize(solvers[mode], *state, o, summary, Timer(),
+                       log=lambda s: None)
+        out.append((summary, launches.launch_counts(), res))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st1, st2", [("POWER_VARPROJ", "RIPOBA"),
+                                      ("POWER_SCHUR_COMPLEMENT", "RIPOBA"),
+                                      ("PCG", "RIPCG")])
+def test_device_loop_card_matches_host_loop_f64(cuda, st1, st2):
+    """Pure f64 on the card, step 1 and then step 2 from the host loop's
+    step-1 result: the device loop ("on") and the host loop ("off") take
+    the same decisions, validity and inner counts, with accepted costs
+    and trust radii within 1e-9 (f64 atomics in another order); a second
+    device-loop run on the same solver replays the captured graph, and
+    its launch counts, rebuilt from the graph's region counts, equal the
+    host loop's kernel for kernel, but for the two lm kernels and the
+    cost kernel, which the host loop runs once more (it evaluates the
+    start state's cost at iteration 0 and again at the top of iteration
+    1, as the reference does; the device loop evaluates it once)."""
+    from povar_tpu_torch import Stage2Solver, optimize_step2
+
+    problem, opts = _small_f64(st1)
+    opts.solver_type_step_2 = SolverTypeRiemannian[st2]
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    cams = torch.as_tensor(problem.cam_space, device=cuda)
+    lms = torch.as_tensor(problem.lm_p, device=cuda)
+    steps = [_step_runs(Stage1Solver, optimize_step1, args, (cams, lms),
+                        opts)]
+    c1, l1 = steps[0][0][2]
+    steps.append(_step_runs(Stage2Solver, optimize_step2, args,
+                            create_homogeneous(c1, l1), opts))
+    for cost, ((off, c_off, _r), (on, _c, _r2), (on2, c_on2, _r3)) in zip(
+            ("pose_error", "pose_error2"), steps):
+        for s in (on, on2):
+            assert _traj(off) == _traj(s)
+            for ia, ib in zip(off.iterations, s.iterations):
+                if ia.step_is_successful:
+                    np.testing.assert_allclose(
+                        ib.cost.all.error, ia.cost.all.error, rtol=1e-9)
+                np.testing.assert_allclose(
+                    ib.trust_region_radius, ia.trust_region_radius,
+                    rtol=1e-9)
+        lm = set(lm_kernels.KERNELS)
+        assert c_on2["lm_step"] == len(on2.iterations) - 1
+        assert c_off["lm_step"] == 0
+        want = {k: v for k, v in c_off.items() if k not in lm}
+        want[cost] -= 1
+        assert {k: v for k, v in c_on2.items() if k not in lm} == want

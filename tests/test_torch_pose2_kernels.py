@@ -134,7 +134,7 @@ def _no_launches():
     launches.reset_launch_counts()
     yield
     counts = launches.launch_counts()
-    assert set(counts) == set(launches.KERNELS) and len(counts) == 32
+    assert set(counts) == set(launches.KERNELS) and len(counts) == 34
     assert all(v == 0 for v in counts.values()), counts
 
 

@@ -318,20 +318,23 @@ def _cfg(**kw):
     return opts
 
 
-# the configurations that stay refused (`match`: their ROADMAP item); the
-# unstructured layout (pallas_kernels="off") and CHOLESKY run, but not
-# with the device loop (tests/test_torch_unstructured.py runs them). The
-# four cases with no `match` were refused as ROADMAP item 11 until pure
-# f64 was ported; they now run (tests/test_torch_f64_steps.py holds them
-# to the JAX package). The ids are the names these cases have carried
-# since each was added.
+# the configurations that stay refused (`match`: their ROADMAP item,
+# NotImplementedError at construction), and the ones that run (no
+# `match`): pure f64, refused as ROADMAP item 11 until it was ported
+# (tests/test_torch_f64_steps.py holds it to the JAX package), and
+# device_lm_loop="on", refused as item 8 until the device loop was
+# ported (tests/test_torch_device_loop.py holds it to the host loop and
+# the JAX package), which runs POWER_VARPROJ's loop on the device and
+# refuses CHOLESKY with the JAX package's ValueError (`match`
+# "ValueError"). The ids are the names these cases have carried since
+# each was added.
 @pytest.mark.parametrize(
     "opts, dtype, match",
     [
         (_cfg(solver_type_step_1=SolverType.CHOLESKY,
               mixed_precision_solves=False), torch.float64, None),
         (_cfg(solver_type_step_1=SolverType.CHOLESKY,
-              device_lm_loop="on"), torch.float64, "item 8"),
+              device_lm_loop="on"), torch.float64, "ValueError"),
         (_cfg(solver_type_step_1=SolverType.CHOLESKY, fused_power_term=False,
               detailed_timing=True), torch.float64, "item 14"),
         (_cfg(mixed_precision_solves=False), torch.float64, None),
@@ -340,8 +343,8 @@ def _cfg(**kw):
         (_cfg(pallas_kernels="off", mixed_precision_solves=False),
          torch.float64, None),
         (_cfg(pallas_kernels="off", device_lm_loop="on"), torch.float32,
-         "item 8"),
-        (_cfg(device_lm_loop="on"), torch.float64, "item 8"),
+         None),
+        (_cfg(device_lm_loop="on"), torch.float64, None),
         (_cfg(detailed_timing=True), torch.float64, "item 14"),
     ],
     ids=["opts0-dtype0-item 9", "opts1-dtype1-item 9",
@@ -352,22 +355,31 @@ def _cfg(**kw):
 )
 def test_configurations_outside_the_slice_raise(problem, opts, dtype, match):
     """A refused configuration raises NotImplementedError naming its
-    ROADMAP item; a pure-f64 one (no `match`) builds on the CPU, on the
-    unstructured layout with f64 solves, and takes one LM iteration whose
-    cost falls."""
+    ROADMAP item, or (CHOLESKY under device_lm_loop="on") builds and
+    raises the JAX package's ValueError when its loop starts; one that
+    runs (no `match`: pure f64, on the unstructured layout with f64
+    solves, or the device loop) builds on the CPU and takes one LM
+    iteration whose cost falls."""
     args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
             problem.num_cameras, problem.num_landmarks)
-    if match is not None:
+    if match is not None and match.startswith("item"):
         with pytest.raises(NotImplementedError, match=match):
             Stage1Solver(*args, opts, dtype=dtype, device="cpu")
         return
     opts.max_num_iterations_step_1 = 1
     s = Stage1Solver(*args, opts, dtype=dtype, device="cpu")
-    assert s.unstructured and s.solve_dtype == torch.float64
+    if not opts.mixed_precision_solves:
+        assert s.unstructured and s.solve_dtype == torch.float64
     summary = SolverSummary()
-    optimize_step1(s, torch.as_tensor(problem.cam_space),
-                   torch.as_tensor(problem.lm_p), opts, summary, Timer(),
-                   log=lambda line: None)
+    run = lambda: optimize_step1(  # noqa: E731
+        s, torch.as_tensor(problem.cam_space),
+        torch.as_tensor(problem.lm_p), opts, summary, Timer(),
+        log=lambda line: None)
+    if match == "ValueError":
+        with pytest.raises(ValueError, match="device_lm_loop='on'"):
+            run()
+        return
+    run()
     assert len(summary.iterations) == 2
     assert summary.iterations[1].step_is_successful
     assert (summary.final_cost.all.error

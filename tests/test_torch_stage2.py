@@ -369,20 +369,22 @@ def _cfg(**kw):
     return _slice_options(SolverOptions, **kw)
 
 
-# `match`: the ROADMAP item a refused configuration names. The two cases
-# with none (pure f64, `mixed_precision_solves=False` with an f64 state,
-# under "auto" and "off") were refused as item 11 until pure f64 was
-# ported; they now run (tests/test_torch_f64_steps.py holds them to the
-# JAX package).
+# `match`: the ROADMAP item a refused configuration names. The cases
+# with none run: pure f64 (`mixed_precision_solves=False` with an f64
+# state, under "auto" and "off"), refused as item 11 until it was ported
+# (tests/test_torch_f64_steps.py holds it to the JAX package), and
+# device_lm_loop="on", refused as item 8 until the device loop was
+# ported (tests/test_torch_device_loop.py holds it to the host loop and
+# the JAX package).
 @pytest.mark.parametrize(
     "opts, dtype, match",
     [
         (_cfg(mixed_precision_solves=False), torch.float64, None),
         (_cfg(pallas_kernels="off", device_lm_loop="on"), torch.float32,
-         "item 8"),
+         None),
         (_cfg(pallas_kernels="off", mixed_precision_solves=False),
          torch.float64, None),
-        (_cfg(device_lm_loop="on"), torch.float64, "item 8"),
+        (_cfg(device_lm_loop="on"), torch.float64, None),
         (_cfg(detailed_timing=True), torch.float64, "item 14"),
     ],
     ids=["f64_solves", "f32_state_unstructured", "unstructured",
@@ -391,9 +393,10 @@ def _cfg(**kw):
 def test_configurations_outside_the_slice_raise(geometry, opts, dtype,
                                                 match):
     """A refused configuration raises NotImplementedError naming its
-    ROADMAP item; a pure-f64 one (no `match`) builds on the CPU, on the
-    unstructured layout with f64 solves, and takes one LM iteration from
-    the homogenized ring state whose cost falls."""
+    ROADMAP item; one that runs (no `match`: pure f64, on the
+    unstructured layout with f64 solves, or the device loop) builds on
+    the CPU and takes one LM iteration from the homogenized ring state
+    whose cost falls."""
     args, cam0, lm0 = geometry
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
@@ -401,7 +404,8 @@ def test_configurations_outside_the_slice_raise(geometry, opts, dtype,
         return
     opts.max_num_iterations_step_2 = 1
     s = Stage2Solver(*args, opts, dtype=dtype, device="cpu")
-    assert s.unstructured and s.solve_dtype == torch.float64
+    if not opts.mixed_precision_solves:
+        assert s.unstructured and s.solve_dtype == torch.float64
     summary = SolverSummary()
     optimize_step2(s, *create_homogeneous(torch.as_tensor(cam0),
                                           torch.as_tensor(lm0)),
