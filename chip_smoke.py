@@ -226,6 +226,33 @@ prints no result line):
               same decisions and power-term counts, every step-1 trial's
               cost and the step-2 trial's l_diff and cost within
               FINAL_TOLS;
+16a. band_chol  CHOLESKY at any camera count (solver/band_chol.py;
+              tools/large_scale.py band_run prints each run's route, bw,
+              K, S, plan seconds and bytes, set-up seconds, ms of a
+              trial, an assembly and a factorization and solve, and peak
+              device memory): (a) venice-89 (no band: one supernode)
+              and large_scale.BANDED_1000 (a band of S >= 2 supernodes,
+              so the coupling blocks and the sweeps run): one
+              linearization solved by the banded route (the dense one
+              closed, `banded_route`) and by the dense one on the card,
+              in mixed precision and pure f64, the increments within
+              BAND_DENSE_TOLS; (b) venice-1778 (large_n's problem):
+              CHOLESKY's first BAND_ITERS iterations on the card's
+              kernels (counters zeroed before, read after) and on their
+              plain versions, the same decisions, every trial's cost
+              within BAND_TOL, the banded increment's residual at the
+              VarProj start (large_scale.band_residual, S applied
+              matrix-free as PCG applies it) within
+              BAND_RESIDUAL_TOLS; then a CHOLESKY + RIPOBA
+              `bundle_adjust` capped at BAND_BA_ITERS (counters zeroed
+              before), accepted costs falling in both steps; (c)
+              venice-1778-uniform: the full band with the JAX package's
+              "FULL dense RCS" warning, one iteration; (d) final-13682
+              (large_n's problem): two banded iterations, the cost
+              falling, the residual as (b)'s; (e) final-13682-adversarial:
+              the PCG fallback with its "falling back to PCG" warning,
+              one trial with CG iterations; hpp_b's and
+              cam_scatter_add's launches in each run printed;
 17. cli       `python -m povar_tpu_torch.cli` in a subprocess with
               defaults, on tests/data/mini-bal-12-48-pre.txt and on the
               venice-89 problem written as BAL text, each after
@@ -265,6 +292,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -423,6 +451,33 @@ LARGE_N_ROUTES = ("prepare", "e0_factor", "e0_u_structured", "apply_ldiff",
                   "pose_error", "e0_term_parts", "poba_t3",
                   "apply_ldiff_stored", "prepare2", "mat_dot2", "ldiff2",
                   "e0_term2_parts", "e0_u", "e0_u_f64")
+# the banded CHOLESKY (the band_chol phase, solver/band_chol.py): (a)
+# the banded increment of one linearization against the dense one on the
+# card, relative in norm, mixed precision and pure f64, at venice-89 (one
+# supernode) and at large_scale.BANDED_1000 (S = 8: the coupling blocks
+# and the sweeps); (b) venice-1778's first BAND_ITERS CHOLESKY
+# iterations on the card's kernels and on their plain versions, every
+# trial's cost within BAND_TOL relative; (b) and (d) the banded
+# increment's residual ||S x - b|| / ||b|| at the VarProj start of
+# venice-1778 and final-13682, S applied matrix-free
+# (large_scale.band_residual). Each is twice the largest gap of a spread
+# measured on the card, as LARGE_N_TOL was set: `python -m
+# povar_tpu_torch.tools.large_scale band-spread` (fresh linearizations at
+# lambda 1e-4) in calls of 6, 16 and 8 runs: venice-89 7.95e-4 / 8.95e-4
+# / 8.20e-4 mixed, 1.70e-12 / 1.86e-12 / 1.32e-12 f64; in the call of 8
+# runs BANDED_1000 2.97e-4 mixed, 4.98e-13 f64, and the residuals
+# 4.5e-7-9.28e-7 at venice-1778, 4.2e-7-8.54e-7 at final-13682 (a
+# wrong coupling block gives ~7e-2: tests/test_torch_band_chol.py);
+# `large_scale spread venice-1778 --solver CHOLESKY` in two calls of 4
+# and 8 runs a side (each kernel run against each plain run): 1.22e-4 /
+# 1.49e-4, within the kernel runs <= 1.0e-4, within the plain ones <=
+# 1.6e-4, every run's decisions AA; NVIDIA H100 80GB HBM3, 700 W
+BAND_DENSE_TOLS = {"venice-89": {"mixed": 1.79e-3, "f64": 3.72e-12},
+                   "banded-1000": {"mixed": 5.93e-4, "f64": 9.95e-13}}
+BAND_TOL = 2.99e-4
+BAND_RESIDUAL_TOLS = {"venice-1778": 1.86e-6, "final-13682": 1.71e-6}
+# (b)'s capped CHOLESKY + RIPOBA bundle_adjust at venice-1778
+BAND_BA_ITERS = (3, 5)
 N_CAMS, N_LMS, OBS_PER_LM = 89, 110_973, 5
 REPS = 20
 SOURCES = {"pose_kernels": "povar_tpu_torch/csrc/pose1.cu",
@@ -572,6 +627,17 @@ PATHS = {
 }
 PATHS = {k: v if k.startswith("bundle_adjust spmd") else v | LM
          for k, v in PATHS.items()}
+# the band_chol phase's runs: CHOLESKY's step 1 takes the host loop (no
+# lm kernels); its PCG fallback runs the unstructured CG's kernels
+BAND_RUNS = {
+    "step 1 CHOLESKY venice-1778": STEP1_CHOL,
+    "bundle_adjust CHOLESKY+RIPOBA venice-1778": STEP1_CHOL | STEP2_FUSED | LM,
+    "step 1 CHOLESKY venice-1778-uniform": STEP1_CHOL,
+    "step 1 CHOLESKY final-13682": STEP1_CHOL,
+    "step 1 CHOLESKY final-13682-adversarial": STEP1_CHOL | {"e0_u",
+                                                             "e0_scatter"},
+}
+PATHS.update(BAND_RUNS)
 
 
 def phase(name: str) -> None:
@@ -639,6 +705,31 @@ def device_us(fn, reps: int = REPS) -> float:
             return sum(ops) / reps
     raise AssertionError(f"device_us: {PROFILE_WINDOWS} profiler windows "
                          f"of {reps} calls recorded no device operation")
+
+
+def kernel_us(fn, name: str, reps: int = REPS) -> float:
+    """Device time in microseconds of one launch of the kernel `name`
+    (KERNEL_SYMBOLS) by `fn`: the mean of the profiler's durations of
+    that kernel alone over `reps` calls (device_us sums every device
+    operation of a call; the profiler drops some, so this divides by the
+    launches it recorded; NaN where PROFILE_WINDOWS windows recorded
+    none: a diagnostic, not a check)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and KERNEL_SYMBOLS[name] in e.name]
+        if ops:
+            return sum(ops) / len(ops)
+    return float("nan")
 
 
 def _outputs(out):
@@ -2625,6 +2716,12 @@ def check_lm_kernels():
         plain_ms=cuda_ms(lambda: lm_kernels.lm_condition_ref(counts, 0)),
         bound_ms=16 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None)
+    # the kernels' own device time: the timed lm_step calls also reset
+    # the state from the host, a copy of their own
+    step_us = kernel_us(step(lm_kernels.lm_step), "lm_step")
+    cond_us = kernel_us(cond_call, "lm_condition")
+    print(f"lm_step device {step_us:.2f} us, lm_condition device "
+          f"{cond_us:.2f} us (profiler, the kernel alone)", flush=True)
     return results
 
 
@@ -2782,9 +2879,11 @@ def large_cam_cases(cam, n, mask, seed=7):
     return out
 
 
-def check_large_n(counts):
+def check_large_n(counts, keep):
     """The large_n phase (16 in the module docstring). Returns the
-    `kernels` line's entries of LARGE_N_ROUTES, keyed `<name>@N13682`."""
+    `kernels` line's entries of LARGE_N_ROUTES, keyed `<name>@N13682`,
+    and leaves its venice-1778 and final-13682 problems in `keep` (the
+    band_chol phase runs them too)."""
     from povar_tpu_torch import (
         SolverOptions, Stage1Solver, Stage2Solver, create_homogeneous,
         synthetic_bal_problem_fast,
@@ -2894,7 +2993,7 @@ def check_large_n(counts):
                                  f"not 100x below {costs[0]!r}")
     print(f"(c) bundle_adjust {secs:.2f} s; phase part "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    del pc
+    keep["venice-1778"] = pc
 
     # (d) final-13682: step 1's first iteration and one step-2 trial on
     # the card's kernels and on their plain versions (one pair of stage
@@ -2902,7 +3001,7 @@ def check_large_n(counts):
     # each step, and of step 1 with POWER_SCHUR_COMPLEMENT (composed
     # term), "off" and pure f64
     t0 = time.perf_counter()
-    pd = make_problem("final-13682")
+    pd = keep["final-13682"] = make_problem("final-13682")
     print(f"(d) final-13682: {pd.num_observations} observations, generated "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     t1 = time.perf_counter()
@@ -2976,6 +3075,161 @@ def check_large_n(counts):
               f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
               f"({res['bound_by']})", flush=True)
     return {f"{name}@N{LARGE_N}": timed[name] for name in LARGE_N_ROUTES}
+
+
+def check_band_chol(problem, counts, large):
+    """The band_chol phase (16a in the module docstring). `large`: the
+    venice-1778 and final-13682 problems the large_n phase made."""
+    from povar_tpu_torch import SolverOptions, Stage1Solver
+    from povar_tpu_torch.options import SolverType
+    from povar_tpu_torch.ops import launches
+    from povar_tpu_torch.problem.synthetic import synthetic_bal_problem_fast
+    from povar_tpu_torch.tools.large_scale import (
+        BAND_ITERS, BANDED_1000, band_run, banded_route, make_problem,
+        recorded_costs, route_of,
+    )
+
+    t_phase = time.perf_counter()
+
+    # (a) venice-89 (one supernode) and BANDED_1000 (S >= 2): the banded
+    # increment of one linearization against the dense route's, both on
+    # the card
+    n_cams, n_lms, obs_per_lm, locality = BANDED_1000
+    banded = synthetic_bal_problem_fast(n_cams, n_lms, obs_per_lm, seed=0,
+                                        locality=locality)
+    for name, pa, route in (("venice-89", problem, "full band"),
+                            ("banded-1000", banded, "band")):
+        args = (pa.obs_cam, pa.obs_lm, pa.obs_uv, pa.num_cameras,
+                pa.num_landmarks)
+        cams = torch.as_tensor(pa.cam_space, device="cuda")
+        for config, mixed in (("mixed", True), ("f64", False)):
+            opts = SolverOptions(solver_type_step_1=SolverType.CHOLESKY,
+                                 mixed_precision_solves=mixed)
+            dense = Stage1Solver(*args, opts, device="cuda")
+            # venice-89's landmarks see cameras at random: RCM finds no
+            # band and the plan is the full one, with the JAX package's
+            # warning
+            with banded_route(), warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                band = Stage1Solver(*args, opts, device="cuda")
+            meta = band._band_plan.meta
+            lin = dense.linearize(cams, dense.initialize_varproj(cams))
+            want, _ = dense.solve_cholesky(lin, 1e-4)
+            got, n_it = band.solve_cholesky(lin, 1e-4)
+            gap = float((got - want).norm() / want.norm())
+            tol = BAND_DENSE_TOLS[name][config]
+            print(f"(a) {name} {config}: {route_of(band)} (bw {meta.bw}, K "
+                  f"{meta.K}, S {meta.S}) against {route_of(dense)} at "
+                  f"lambda 1e-4: relative gap {gap:.3e} (tolerance "
+                  f"{tol:g})", flush=True)
+            if not (route_of(dense) == "dense" and route_of(band) == route
+                    and (meta.S >= 2) == (route == "band") and n_it == 0
+                    and gap <= tol):
+                raise AssertionError(f"(a) {name} {config}: banded vs dense "
+                                     f"{gap:.3e}, {n_it} iterations")
+            del dense, band, lin, want, got
+    del banded
+
+    def run(label, problem, iters, route, warning=None, plain=False,
+            path=None, residual=None):
+        """band_run on the card, its route, warning and counts checked;
+        with `residual` (a scale) the banded increment's residual within
+        BAND_RESIDUAL_TOLS[residual]."""
+        res = band_run(problem, label, iters, plain=plain)
+        if res["route"] != route:
+            raise AssertionError(f"{label}: route {res['route']}, not {route}")
+        if len(res["warned"]) != (warning is not None) or (
+                warning is not None and warning not in res["warned"][0]):
+            raise AssertionError(f"{label}: warnings {res['warned']}")
+        if path is not None:
+            counts[path] = res["launches"]
+            check_counts(path, counts[path])
+        costs = res["costs"]
+        if not (np.isfinite(costs).all() and res["records"] == iters + 1):
+            raise AssertionError(f"{label}: {res['records']} records, costs "
+                                 f"{costs}")
+        print(f"{label}: route {res['route']}, bw {res['bw']}, K {res['K']}, "
+              f"S {res['S']}, plan {res['plan_s']} s "
+              f"({res['plan_bytes']} B on the card), set-up "
+              f"{res['setup_s']:.2f} s, {iters} iterations in "
+              f"{res['step1_s']:.2f} s, {res['decisions']}, inner "
+              f"{res['inner']}; ms a trial {res['trial_ms']:.2f}, assembly "
+              f"{res.get('assembly_ms')}, factorization and solve "
+              f"{res.get('factor_solve_ms')}; peak device memory "
+              f"{res['peak_gib']:.2f} GiB", flush=True)
+        if residual is not None:
+            tol = BAND_RESIDUAL_TOLS[residual]
+            print(f"{label}: banded increment's residual ||S x - b|| / ||b|| "
+                  f"{res['residual']:.3e} (tolerance {tol:g})", flush=True)
+            if not res["residual"] <= tol:
+                raise AssertionError(f"{label}: residual {res['residual']}")
+        return res
+
+    # (b) venice-1778 CHOLESKY: the first iterations on the card's
+    # kernels and on their plain versions, then a capped CHOLESKY +
+    # RIPOBA bundle_adjust
+    t0 = time.perf_counter()
+    pc = large["venice-1778"]
+    got = run("(b) venice-1778", pc, BAND_ITERS, "band",
+              path="step 1 CHOLESKY venice-1778", residual="venice-1778")
+    want = run("(b) venice-1778 plain versions", pc, BAND_ITERS, "band",
+               plain=True)
+    check_same_run(f"(b) venice-1778 CHOLESKY step 1, first {BAND_ITERS} "
+                   "iterations, every trial's cost", got["summary"],
+                   want["summary"], BAND_TOL, every=True)
+    path = "bundle_adjust CHOLESKY+RIPOBA venice-1778"
+    ba = SolverOptions(solver_type_step_1=SolverType.CHOLESKY,
+                       max_num_iterations_step_1=BAND_BA_ITERS[0],
+                       max_num_iterations_step_2=BAND_BA_ITERS[1])
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset_launch_counts()
+    _out, p1, p2, secs = pipeline(pc, ba, "cuda")
+    counts[path] = launches.launch_counts()
+    check_counts(path, counts[path])
+    for step, summary in ((1, p1), (2, p2)):
+        costs = recorded_costs(summary)
+        accepted = [it.cost.all.error for it in summary.iterations
+                    if it.step_is_successful]
+        print(f"(b) {path} step {step}: {len(summary.iterations)} records, "
+              f"costs {costs}", flush=True)
+        check_falling(f"(b) {path} step {step}", accepted)
+        if not summary.final_cost.all.error < costs[0]:
+            raise AssertionError(f"(b) {path} step {step}: cost did not "
+                                 f"fall: {costs}")
+    print(f"(b) bundle_adjust {secs:.2f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (c) venice-1778-uniform: no band, the full band, one iteration
+    t0 = time.perf_counter()
+    run("(c) venice-1778-uniform", make_problem("venice-1778-uniform"), 1,
+        "full band", warning="FULL dense RCS",
+        path="step 1 CHOLESKY venice-1778-uniform")
+    print(f"(c) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (d) final-13682: two banded iterations, the cost falling
+    t0 = time.perf_counter()
+    res = run("(d) final-13682", large["final-13682"], 2, "band",
+              path="step 1 CHOLESKY final-13682", residual="final-13682")
+    if not res["summary"].final_cost.all.error < res["costs"][0]:
+        raise AssertionError(f"(d) final-13682: cost did not fall: "
+                             f"{res['costs']}")
+    print(f"(d) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (e) final-13682-adversarial: the PCG fallback, one trial
+    t0 = time.perf_counter()
+    res = run("(e) final-13682-adversarial",
+              make_problem("final-13682-adversarial"), 1, "pcg",
+              warning="falling back to PCG",
+              path="step 1 CHOLESKY final-13682-adversarial")
+    if not res["inner"][1] >= 1:
+        raise AssertionError(f"(e) CG iterations {res['inner']}")
+    print(f"(e) {time.perf_counter() - t0:.1f} s", flush=True)
+    for path in BAND_RUNS:
+        print(f"{path}: hpp_b {counts[path]['hpp_b']}, cam_scatter_add "
+              f"{counts[path]['cam_scatter_add']} launches", flush=True)
+    print(f"band_chol phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def stage_solver(cls, problem, options, mesh=False):
@@ -3325,7 +3579,13 @@ def main() -> int:
 
     phase(f"large_n (N > 1024 on one card: N = {LARGE_N} routes, R O past "
           "2^31, venice-1778, final-13682)")
-    results.update(check_large_n(counts))
+    large = {}
+    results.update(check_large_n(counts, large))
+
+    phase("band_chol (CHOLESKY at any camera count: the banded "
+          "factorization, its full band and its PCG fallback)")
+    check_band_chol(problem, counts, large)
+    del large
 
     phase("cli (python -m povar_tpu_torch.cli, SolverOptions() defaults)")
     check_cli(problem)

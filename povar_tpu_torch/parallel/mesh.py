@@ -21,13 +21,17 @@ from __future__ import annotations
 
 import os
 import pickle
-import socket
 import tempfile
 from dataclasses import dataclass
+from datetime import timedelta
 from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+# how long a collective waits for a lost peer before its rank fails
+# (gloo's and NCCL's default is 30 minutes)
+PG_TIMEOUT_S = 300
 
 
 @dataclass(frozen=True)
@@ -86,20 +90,17 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda") -> Mesh:
     return Mesh(rank=rank, size=size, device=_device(device, rank))
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _rank_main(rank, fn, n, device, port, args, out_dir):
+def _rank_main(rank, fn, n, device, args, out_dir):
     backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     if backend == "nccl":
         torch.cuda.set_device(rank)
     else:  # the ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=n, rank=rank)
+    # rendezvous through a file of the run's own directory: no port to
+    # pick ahead and lose to another process before rank 0 binds it
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.join(out_dir, "store"),
+        world_size=n, rank=rank, timeout=timedelta(seconds=PG_TIMEOUT_S))
     try:
         out = fn(make_mesh(n, device), *args)
     finally:
@@ -110,19 +111,19 @@ def _rank_main(rank, fn, n, device, port, args, out_dir):
 
 def spawn(fn: Callable, n: int, device="cuda", args: Sequence = ()) -> List:
     """Run fn(mesh, *args) on n ranks, one process each
-    (`torch.multiprocessing.spawn`, a process group on 127.0.0.1 at a
-    free port: NCCL on cuda:0 .. cuda:n-1, gloo on the CPU), and return
-    the ranks' results in rank order. fn, its arguments and its result
-    must pickle (the results pass through a temporary directory); a
-    failing rank raises here."""
+    (`torch.multiprocessing.spawn`, a process group that meets in a file
+    of a temporary directory: NCCL on cuda:0 .. cuda:n-1, gloo on the
+    CPU), and return the ranks' results in rank order. fn, its arguments
+    and its result must pickle (the results pass through that
+    directory); a failing rank raises here and ends the others, and a
+    collective whose peer is lost fails its rank after PG_TIMEOUT_S."""
     if torch.device(device).type == "cuda":
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if n > have:
             raise RuntimeError(f"spawn({n}, 'cuda'): {have} CUDA devices")
     with tempfile.TemporaryDirectory() as out_dir:
         torch.multiprocessing.spawn(
-            _rank_main,
-            args=(fn, n, device, _free_port(), tuple(args), out_dir),
+            _rank_main, args=(fn, n, device, tuple(args), out_dir),
             nprocs=n, join=True)
         out = []
         for r in range(n):

@@ -37,11 +37,12 @@ import torch
 class PaddedReduce(NamedTuple):
     """Static gather/reduce plan for one segmentation of the obs axis.
 
-    idx[b]:  [G_b, L_b] int64 — observation positions of each segment in
-             bucket b, padded with arbitrary valid positions
+    idx[b]:  [G_b, L_b] int64 (int32 in the banded CHOLESKY's plan) —
+             observation positions of each segment in bucket b, padded
+             with arbitrary valid positions
     mask[b]: [G_b, L_b] bool — True for real entries
-    inv_order: [S] int64 — maps canonical segment id -> position in the
-             bucket-concatenated output
+    inv_order: [S] of idx's type — maps canonical segment id -> position
+             in the bucket-concatenated output
     """
 
     idx: Tuple[torch.Tensor, ...]
@@ -50,15 +51,20 @@ class PaddedReduce(NamedTuple):
 
 
 def _build_padded_reduce(
-    seg_ids: np.ndarray, num_segments: int, device="cpu"
+    seg_ids: np.ndarray, num_segments: int, device="cpu",
+    index_dtype=np.int64,
 ) -> PaddedReduce:
     """Group observation positions by segment id into power-of-two
-    padded buckets."""
+    padded buckets (the JAX package's plan, filled bucket by bucket
+    instead of segment by segment; the banded CHOLESKY plans millions of
+    segments). `index_dtype`: the integer type of idx and inv_order
+    (the JAX package's is int32)."""
     order = np.argsort(seg_ids, kind="stable")
-    sorted_ids = seg_ids[order]
-    starts = np.searchsorted(sorted_ids, np.arange(num_segments), "left")
-    ends = np.searchsorted(sorted_ids, np.arange(num_segments), "right")
-    counts = ends - starts
+    # ids outside [0, num_segments) belong to no segment; negative ones
+    # sort first
+    inside = (seg_ids >= 0) & (seg_ids < num_segments)
+    counts = np.bincount(seg_ids[inside], minlength=num_segments)
+    starts = np.cumsum(counts) - counts + np.count_nonzero(seg_ids < 0)
 
     # bucket index = ceil(log2(max(count,1)))
     buckets = np.zeros(num_segments, dtype=np.int64)
@@ -70,24 +76,36 @@ def _build_padded_reduce(
     idx_list = []
     mask_list = []
     seg_order = []
-    for b in sorted(set(buckets.tolist())):
+    for b in np.nonzero(np.bincount(buckets))[0].tolist():
         length = 1 << b
         segs = np.nonzero(buckets == b)[0]
         g = len(segs)
-        idx = np.zeros((g, length), dtype=np.int64)
-        mask = np.zeros((g, length), dtype=bool)
-        for row, s in enumerate(segs):
-            c = counts[s]
-            idx[row, :c] = order[starts[s] : ends[s]]
-            mask[row, :c] = True
-        idx_list.append(torch.as_tensor(idx, device=device))
-        mask_list.append(torch.as_tensor(mask, device=device))
-        seg_order.extend(segs.tolist())
+        idx = np.zeros(g * length, dtype=index_dtype)
+        mask = np.zeros(g * length, dtype=bool)
+        # row r holds segment segs[r]'s positions in sorted order
+        c = counts[segs]
+        live = c > 0
+        if length == 1:  # every count is 0 or 1
+            at = np.nonzero(live)[0]
+            idx[at] = order[starts[segs[at]]]
+            mask[at] = True
+        else:
+            c = c[live]
+            first = np.repeat(np.nonzero(live)[0] * length - np.cumsum(c)
+                              + c, c)
+            k = np.arange(int(c.sum()))
+            src = np.repeat(starts[segs[live]] - np.cumsum(c) + c, c) + k
+            idx[first + k] = order[src]
+            mask[first + k] = True
+        idx_list.append(torch.as_tensor(idx.reshape(g, length),
+                                        device=device))
+        mask_list.append(torch.as_tensor(mask.reshape(g, length),
+                                         device=device))
+        seg_order.append(segs)
 
-    inv_order = np.empty(num_segments, dtype=np.int64)
-    inv_order[np.asarray(seg_order, dtype=np.int64)] = np.arange(
-        num_segments, dtype=np.int64
-    )
+    inv_order = np.empty(num_segments, dtype=index_dtype)
+    inv_order[np.concatenate(seg_order) if seg_order else
+              np.zeros(0, np.int64)] = np.arange(num_segments)
     return PaddedReduce(
         idx=tuple(idx_list),
         mask=tuple(mask_list),

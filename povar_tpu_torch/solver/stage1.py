@@ -28,14 +28,15 @@ cost gathers the cameras with the cam_gather kernel); linearization
 storage and the inner solve are f32 (`solve_dtype`), except in pure f64
 (`mixed_precision_solves=False` with an f64 state), which runs the
 unstructured layout with f64 storage, solves and camera-table kernels,
-and CHOLESKY's dense system in f64.
+and CHOLESKY's dense or banded system in f64.
 
 The ported configurations are the JAX package's defaults (POWER_VARPROJ
 with the fused power term, or the composed one with
 `fused_power_term=False`), POWER_SCHUR_COMPLEMENT (landmark damping and
 the poBA apply), PCG with its three preconditioners, and CHOLESKY (the
-dense reduced camera system, up to DENSE_CHOL_MAX = 1536 cameras), at
-any camera count otherwise, on either layout where
+dense reduced camera system up to DENSE_CHOL_MAX = 1536 cameras, the
+banded factorization of solver/band_chol.py past it, or its PCG
+fallback), at any camera count, on either layout where
 the JAX package has it, in mixed precision or pure f64 on one device;
 any other step-1 configuration raises
 NotImplementedError naming its ROADMAP.md item instead of running
@@ -44,6 +45,8 @@ another path.
 
 from __future__ import annotations
 
+import time
+import warnings
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -54,17 +57,19 @@ from povar_tpu_torch.options import (
     SolverOptions,
     SolverType,
 )
+from povar_tpu_torch.solver import band_chol
 from povar_tpu_torch.solver.segments import slot_part_sums, slot_row_expand
 from povar_tpu_torch.solver.slots import (
-    LmState, SlotSolver, mv, solve_dtype_of,
+    LmState, SlotSolver, mv,
 )
 
 # largest camera count of the dense CHOLESKY solve (povar_tpu/solver/
-# stage1.py DENSE_CHOL_MAX); past it the JAX package factors a banded
-# system (povar_tpu/solver/band_chol.py), which the port has not yet
+# stage1.py DENSE_CHOL_MAX); past it CHOLESKY factors the banded system
+# of solver/band_chol.py, as the JAX package does
 DENSE_CHOL_MAX = 1536
-BANDED_CHOL = ("ROADMAP.md queue 1 item 12's remainder: the banded "
-               "CHOLESKY, povar_tpu/solver/band_chol.py")
+# where the banded route itself outgrows the device
+BAND_CEILING = ("ROADMAP.md queue 2, item 12's banded CHOLESKY: its "
+                "ceiling on one card")
 
 
 def dense_chol_bytes(n_cams: int, n_lms: int, dtype) -> int:
@@ -75,20 +80,43 @@ def dense_chol_bytes(n_cams: int, n_lms: int, dtype) -> int:
     return elem * 12 * n_cams * (3 * n_lms + 12 * n_cams)
 
 
-def dense_chol_unsupported(n_cams: int, n_lms: int, dtype,
-                           capacity: Optional[int]) -> Optional[str]:
-    """Why the dense CHOLESKY route cannot run N cameras and M landmarks
-    in `dtype` on a device of `capacity` bytes (None: no limit, the
-    host), or None."""
+def chol_route(n_cams: int, n_lms: int, dtype,
+               capacity: Optional[int]) -> str:
+    """Which CHOLESKY route N cameras and M landmarks take in `dtype` on
+    a device of `capacity` bytes (None: no limit, the host): "dense" up
+    to DENSE_CHOL_MAX cameras while its A and S fit, else "band" (the
+    banded factorization, which may still fall back to PCG where the
+    graph has no band; `Stage1Solver._plan_cholesky`). Past
+    DENSE_CHOL_MAX this is the JAX package's choice; below it, where the
+    dense system outgrows the device, the JAX package runs out of
+    memory and the port assembles the same S from pair products."""
     if n_cams > DENSE_CHOL_MAX:
-        return (f"CHOLESKY with {n_cams} cameras > {DENSE_CHOL_MAX} "
-                f"({BANDED_CHOL})")
-    need = dense_chol_bytes(n_cams, n_lms, dtype)
-    if capacity is not None and need > capacity:
-        return (f"CHOLESKY's dense system at {n_cams} cameras and {n_lms} "
-                f"landmarks: A and S take {need / 1e9:.1f} GB in {dtype}, "
-                f"past the device's {capacity / 1e9:.1f} GB ({BANDED_CHOL})")
-    return None
+        return "band"
+    if capacity is not None and dense_chol_bytes(n_cams, n_lms,
+                                                 dtype) > capacity:
+        return "band"
+    return "dense"
+
+
+def band_chol_unsupported(plan: "band_chol.BandPlan", dtype,
+                          capacity: Optional[int],
+                          held: int = 0) -> Optional[str]:
+    """Why the banded CHOLESKY of `plan` cannot run in `dtype` on a
+    device of `capacity` bytes (None: no limit, the host) of which
+    `held` are taken, or None: its index arrays and one solve's peak
+    (band_chol.solve_bytes: the band and its block table, one pair
+    chunk's products or the factor's panels) must fit beside them."""
+    if capacity is None:
+        return None
+    need = (band_chol.plan_bytes(plan.arrays)
+            + band_chol.solve_bytes(plan.meta, plan.arrays, dtype))
+    if need + held <= capacity:
+        return None
+    m = plan.meta
+    return (f"CHOLESKY's banded solve at {m.n_cams} cameras (bw {m.bw}, K "
+            f"{m.K}, S {m.S}) needs {need / 1e9:.1f} GB in {dtype} beside "
+            f"the {held / 1e9:.1f} GB held, past the device's "
+            f"{capacity / 1e9:.1f} GB ({BAND_CEILING})")
 
 
 class Lin1(NamedTuple):
@@ -144,18 +172,6 @@ class Stage1Solver(SlotSolver):
         return (SlotSolver.uses_unstructured(options, dtype)
                 or options.solver_type_step_1 == SolverType.CHOLESKY)
 
-    def unsupported(self, options: SolverOptions, n_cams: int,
-                    dtype) -> Optional[str]:
-        # SlotSolver.__init__ has set n_lms and device before this call
-        if options.solver_type_step_1 == SolverType.CHOLESKY:
-            why = dense_chol_unsupported(
-                n_cams, self.n_lms, solve_dtype_of(options, dtype),
-                torch.cuda.get_device_properties(self.device).total_memory
-                if self.device.type == "cuda" else None)
-            if why is not None:
-                return why
-        return super().unsupported(options, n_cams, dtype)
-
     def __init__(
         self,
         obs_cam,
@@ -184,6 +200,76 @@ class Stage1Solver(SlotSolver):
         self.scale_jl = options.solver_type_step_1 in (
             SolverType.POWER_VARPROJ, SolverType.POWER_SCHUR_COMPLEMENT,
         )
+        # CHOLESKY's route, chosen at construction as in the JAX package
+        # (stage1.py:734-795): the banded plan, or the PCG fallback
+        self._band_plan = None
+        self._band_arrays = None
+        self._chol_pcg_fallback = False
+        # the seconds the route's planning took (None: the dense route)
+        self.band_plan_seconds = None
+        if options.solver_type_step_1 == SolverType.CHOLESKY:
+            self._plan_cholesky()
+
+    def _plan_cholesky(self) -> None:
+        """Choose CHOLESKY's route (chol_route) and, for the banded one,
+        build its plan from the slot layout, pad rows left out of the
+        pair stream, and move its index arrays to the device once. Where
+        the graph has no band within MAX_SUPERNODE past
+        DENSE_UNBANDED_MAX cameras the solve falls back to PCG, and a
+        full band warns, with the JAX package's two RuntimeWarnings
+        word for word; where the banded solve would outgrow the device
+        it raises NotImplementedError naming the bytes, before any
+        device work."""
+        capacity = (torch.cuda.get_device_properties(self.device).total_memory
+                    if self.device.type == "cuda" else None)
+        if chol_route(self.n_cams, self.n_lms, self.solve_dtype,
+                      capacity) == "dense":
+            return
+        t0 = time.perf_counter()
+        w = self.obs.weight
+        plan = band_chol.build_band_plan(
+            self.obs.cam.cpu().numpy(), self.obs.lm.cpu().numpy(),
+            self.n_cams, self.n_lms,
+            live=None if w is None else w.cpu().numpy(), allow_dense=True,
+        )
+        self.band_plan_seconds = time.perf_counter() - t0
+        if plan is None:
+            self._chol_pcg_fallback = True
+            warnings.warn(
+                f"CHOLESKY at n_cams={self.n_cams}: the RCM block "
+                "bandwidth exceeds "
+                f"{band_chol.MAX_SUPERNODE} (no exploitable band "
+                "structure) and the camera count exceeds the "
+                "unbanded dense-factorization ceiling "
+                f"({band_chol.DENSE_UNBANDED_MAX}, O(N^2) block "
+                "table) — falling back to PCG with the "
+                "SCHUR_JACOBI preconditioner. Iteration counts "
+                "will reflect CG iterations, not a direct solve.",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            return
+        if plan.meta.bw >= self.n_cams - 1:
+            warnings.warn(
+                f"CHOLESKY at n_cams={self.n_cams}: no "
+                "exploitable band structure (RCM bandwidth > "
+                f"{band_chol.MAX_SUPERNODE}) — factoring the "
+                "FULL dense RCS through the pair-stream "
+                "assembly (O(N^2) memory). The solve stays "
+                "direct (the reference's SimplicialLLT fills "
+                "toward dense on such graphs too); expect "
+                "this to be slower than PCG.",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        why = band_chol_unsupported(
+            plan, self.solve_dtype, capacity,
+            torch.cuda.memory_allocated(self.device) if capacity else 0)
+        if why is not None:
+            raise NotImplementedError(why)
+        self._band_plan = plan
+        self._band_arrays = band_chol.band_arrays_to(plan.arrays,
+                                                     self.device)
 
     @property
     def supports_trial(self) -> bool:
@@ -572,20 +658,24 @@ class Stage1Solver(SlotSolver):
         return self._precond_mats(hpp + lam_s * eye[:, :, None] - corr)
 
     def solve_cholesky(self, lin: Lin1, lam) -> Tuple[torch.Tensor, int]:
-        """CHOLESKY (`_chol_solve` of the JAX package; solve_direct_pOSE,
-        linearization_sc.hpp:236-245): the dense reduced camera system
-        S = blockdiag(Hpp) + lam I - A A^T [12N, 12N], with A [12N, 3M]
-        holding W_o hll_inv^(1/2) in block (cam(o), lm(o)), solved
+        """CHOLESKY (`solve_cholesky` of the JAX package; solve_direct_
+        pOSE, linearization_sc.hpp:236-245), on the route chosen at
+        construction (chol_route): the PCG fallback runs `solve_pcg`; the
+        banded plan `_chol_solve_band`; otherwise the dense reduced camera
+        system S = blockdiag(Hpp) + lam I - A A^T [12N, 12N], with A [12N,
+        3M] holding W_o hll_inv^(1/2) in block (cam(o), lm(o)), solved
         directly for S inc = -b, in the solve dtype (f64 in pure f64; A
         then takes 2.84 GB at venice-89, and A A^T is a DGEMM). A takes
         12 N x 3 M entries, 144 N M bytes in f32 (288 N M in f64), and S
         144 N^2 (288 N^2): the dense route runs up to DENSE_CHOL_MAX
-        cameras and while both fit the device (dense_chol_unsupported),
-        S's diagonal blocks and damping added in place. A not
-        positive definite S (possible in f32: S is a difference) gives an
-        all-NaN increment, which the LM loop rejects. Returns (inc [12, N]
-        in scaled coordinates, state dtype; 0 linear-solver iterations,
-        as the reference records)."""
+        cameras and while both fit the device, S's diagonal blocks and
+        damping added in place. A not positive definite S (possible in
+        f32: S is a difference) gives an all-NaN increment, which the LM
+        loop rejects. Returns (inc [12, N] in scaled coordinates, state
+        dtype; 0 linear-solver iterations, as the reference records, or
+        the fallback's CG iterations)."""
+        if self._chol_pcg_fallback:
+            return self.solve_pcg(lin, lam)
         if not isinstance(lin, Lin1):
             raise TypeError("CHOLESKY runs on the unstructured layout: "
                             f"Lin1 expected, got {type(lin).__name__}")
@@ -593,6 +683,8 @@ class Stage1Solver(SlotSolver):
         n, m = self.n_cams, self.n_lms
         hll_inv, hll_inv_bl = self._hll_inv_u(lin.Jl, lin.r, None)
         hpp, b = self._hpp_b_u(lin.Jp, lin.Jl, lin.r, hll_inv_bl)
+        if self._band_plan is not None:
+            return self._chol_solve_band(lin, hll_inv, hpp, b, lam_s)
         w = torch.einsum("kio,kjo->ijo", lin.Jp, lin.Jl)  # [12, 3, O]
         wl = torch.einsum("ijo,jko->oik", w, self._gather_lm_x(
             linalg.cholesky_smallf(hll_inv)))  # [O, 12, 3]
@@ -614,6 +706,23 @@ class Stage1Solver(SlotSolver):
         s.diagonal().add_(lam_s)
         inc = -linalg.solve_psd_dense(s, b.T.reshape(-1)).reshape(n, 12)
         return inc.T.to(self.dtype), 0
+
+    def _chol_solve_band(self, lin: Lin1, hll_inv, hpp, b, lam_s):
+        """The banded route (`_chol_solve_banded` of the JAX package,
+        solver/band_chol.py): WL_o = W_o hll_inv^(1/2) [12, 3, O], the
+        band assembled from its pair products with hpp + lam I on the
+        diagonal, and the block-tridiagonal supernodal LLT, all in the
+        solve dtype. Returns (inc [12, N] in scaled coordinates, state
+        dtype; 0)."""
+        meta, arrs = self._band_plan.meta, self._band_arrays
+        w = torch.einsum("kio,kjo->ijo", lin.Jp, lin.Jl)  # [12, 3, O]
+        wl = torch.einsum("ijo,jko->iko", w, self._gather_lm_x(
+            linalg.cholesky_smallf(hll_inv))).contiguous()
+        del w
+        inc = -band_chol.solve_band(
+            meta, arrs, band_chol.assemble_band(meta, arrs, wl, hpp, lam_s),
+            b.to(wl.dtype))
+        return inc.to(self.dtype), 0
 
     # ------------------------------------------------------------- apply
 

@@ -3,8 +3,10 @@ benchmarks/large_scale_smoke.py, which runs the JAX package.
 
     python -m povar_tpu_torch.tools.large_scale [SCALE ...] [--loops]
     python -m povar_tpu_torch.tools.large_scale spread [final-13682]
-        [--runs 8]
+        [--runs 8] [--solver CHOLESKY]
     python -m povar_tpu_torch.tools.large_scale starts [--runs 8]
+    python -m povar_tpu_torch.tools.large_scale band [SCALE ...]
+    python -m povar_tpu_torch.tools.large_scale band-spread [--runs 8]
 
 Scales (large_scale_smoke.py's SCALES: cameras, landmarks, observations
 per landmark, camera locality):
@@ -51,17 +53,39 @@ prints each run's decisions, costs and first accepted trial
 FINAL_STEP2_ITERS iterations), and whether one step-2 trial at
 STEP2_LAMBDA from that start has a finite increment.
 
+`spread --solver CHOLESKY` (venice-1778 only) compares CHOLESKY's first
+BAND_ITERS iterations instead; its dense route ends at 1536 cameras, so
+venice-1778 takes the banded one of solver/band_chol.py.
+
+`band` runs CHOLESKY's route at each scale (default venice-1778,
+venice-1778-uniform, final-13682, final-13682-adversarial; band_run):
+the route (band, full band or the PCG fallback, with the JAX package's
+warning), bw, K, S, the plan's seconds and device bytes, the
+construction's seconds, BAND_ITERS step-1 iterations, the milliseconds
+of one assembly, one factorization and solve, and one trial (CUDA
+events), the banded increment's residual (band_residual), and the peak
+device memory. `band-spread` solves one linearization of venice-89 (no
+band: one supernode) and of BANDED_1000 (a band of several supernodes)
+by the banded route and by the dense one `--runs` times, each time from
+a fresh linearization, in mixed precision and in pure f64, and prints
+the largest relative gap of the increments; then the residual of the
+banded increment of `--runs` fresh linearizations of venice-1778 and of
+final-13682 (mixed precision): chip_smoke.py's BAND_DENSE_TOLS and
+BAND_RESIDUAL_TOLS are twice those.
+
 Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -77,6 +101,7 @@ from povar_tpu_torch import (
     optimize_step1,
     optimize_step2,
 )
+from povar_tpu_torch.options import SolverType
 from povar_tpu_torch.problem.synthetic import (
     add_loop_closures_and_scramble,
     synthetic_bal_problem_adversarial,
@@ -120,6 +145,17 @@ START2_ITERS = 3
 FINAL_STEP2_ITERS = 10
 # chained iterations a timing
 REPS = 10
+# CHOLESKY's step-1 iterations in `band` and in the CHOLESKY spread
+BAND_ITERS = 2
+# where `band-spread` (and chip_smoke.py's band_chol (a)) hold the
+# banded route to the dense one (cameras, landmarks, observations per
+# landmark, camera locality): venice-89, bench.py's problem, whose graph
+# has no band (one supernode, the full band), and a locality problem
+# small enough for the dense route (A and S 7.8 GB in f32, 15.6 in f64)
+# whose band has several supernodes (bw 120, K 128, S 8), so that the
+# coupling blocks and the sweeps across supernodes run
+VENICE_89 = (89, 110_973, 5, 0)
+BANDED_1000 = (1000, 50_000, 5, 64)
 
 
 def make_problem(scale: str, loops: bool = False, seed: int = 0):
@@ -251,27 +287,27 @@ def run_scale(scale: str, loops: bool) -> dict:
     return out
 
 
-def first_iterations(problem, plain: bool, iters: int = LARGE_N_ITERS):
-    """The SolverOptions() step 1's first `iters` iterations on the card
-    (its kernels, or with `plain` their plain versions on the card).
-    Returns (summary, seconds)."""
-    import contextlib
-
+def first_iterations(problem, plain: bool, iters: int = LARGE_N_ITERS,
+                     solver: str = "POWER_VARPROJ"):
+    """Step 1's first `iters` iterations with SolverOptions() and
+    `solver` on the card (its kernels, or with `plain` their plain
+    versions on the card, the camera-table ones too). Returns (summary,
+    seconds)."""
     from povar_tpu_torch.tools.step2_spread import plain_step1
 
-    opts = SolverOptions()
+    opts = SolverOptions(solver_type_step_1=SolverType[solver])
     opts.max_num_iterations_step_1 = iters
     _, cams, lms = from_numpy(problem.obs_cam, problem.obs_lm,
                               problem.obs_uv, problem.cam_space,
                               problem.lm_p, device="cuda")
-    solver = Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
+    stage1 = Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
                           problem.num_cameras, problem.num_landmarks, opts,
                           device="cuda")
     summary = SolverSummary()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with plain_step1() if plain else contextlib.nullcontext():
-        optimize_step1(solver, cams, lms, opts, summary, Timer(),
+    with plain_step1(cams=True) if plain else contextlib.nullcontext():
+        optimize_step1(stage1, cams, lms, opts, summary, Timer(),
                        lambda s: None)
     torch.cuda.synchronize()
     return summary, time.perf_counter() - t0
@@ -286,8 +322,6 @@ def first_steps(problem, s1, s2, plain: bool, start2=None):
     with `plain`, all their plain versions on the card. Returns (step-1
     summary, the trial's {ok, terms, l_diff, cost}, step 2's start,
     seconds of the compared work)."""
-    import contextlib
-
     from povar_tpu_torch.tools.step2_spread import plain_step1
 
     opts = copy.deepcopy(s1.opts)
@@ -329,16 +363,20 @@ def recorded_costs(summary):
             if it.cost is not None]
 
 
-def spread(runs: int, scale: str = "venice-1778") -> list:
+def spread(runs: int, scale: str = "venice-1778",
+           solver: str = "POWER_VARPROJ") -> list:
     """The first-iterations spread of `scale` (the module docstring):
-    venice-1778's step 1 (first_iterations; its accepted costs), or
+    venice-1778's step 1 (first_iterations; its accepted costs, or with
+    CHOLESKY every trial's cost over BAND_ITERS iterations), or
     final-13682's step 1 (first_steps; every trial's cost) and its
     step-2 trial (l_diff and cost). Returns the largest
     kernel-against-plain gap of each step."""
     problem = make_problem(scale)
     steps = 1 if scale == "venice-1778" else 2
+    chol = solver == "CHOLESKY"
     # per step: (decisions, compared values) of a run's result
-    views = [(decisions, accepted_costs if steps == 1 else recorded_costs),
+    views = [(decisions, accepted_costs if steps == 1 and not chol
+              else recorded_costs),
              (lambda t: [(t["ok"], t["terms"])],
               lambda t: [t["l_diff"], t["cost"]])][:steps]
     if steps == 2:
@@ -352,7 +390,9 @@ def spread(runs: int, scale: str = "venice-1778") -> list:
         for plain in (False, True):
             torch.cuda.reset_peak_memory_stats()
             if steps == 1:
-                s, secs = first_iterations(problem, plain)
+                s, secs = first_iterations(
+                    problem, plain, BAND_ITERS if chol else LARGE_N_ITERS,
+                    solver)
                 run = (s,)
             else:
                 *run, start2, secs = first_steps(problem, s1, s2, plain,
@@ -375,11 +415,230 @@ def spread(runs: int, scale: str = "venice-1778") -> list:
         plain = [run[k] for run in sides[True]]
         same = all(dec(s) == dec(kern[0]) for s in kern + plain)
         out.append(gap(kern, plain))
-        print(json.dumps(dict(scale=scale, step=k + 1, spread_runs=runs,
+        print(json.dumps(dict(scale=scale, solver=solver, step=k + 1,
+                              spread_runs=runs,
                               same_decisions=same, largest_gap=out[-1],
                               within_side=dict(kernels=gap(kern, kern),
                                                plain=gap(plain, plain)))),
               flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def banded_route():
+    """CHOLESKY's dense route closed (stage1.DENSE_CHOL_MAX 0) for the
+    stage-1 solvers built while the block runs: they take the banded
+    route at any camera count, as past 1536 cameras."""
+    from povar_tpu_torch.solver import stage1
+
+    saved = stage1.DENSE_CHOL_MAX
+    stage1.DENSE_CHOL_MAX = 0
+    try:
+        yield
+    finally:
+        stage1.DENSE_CHOL_MAX = saved
+
+
+def route_of(solver) -> str:
+    """CHOLESKY's route on a stage-1 solver: "dense", "band", "full band"
+    or "pcg" (the fallback)."""
+    if solver._chol_pcg_fallback:
+        return "pcg"
+    if solver._band_plan is None:
+        return "dense"
+    meta = solver._band_plan.meta
+    return "full band" if meta.bw >= meta.n_cams - 1 else "band"
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Median CUDA-event milliseconds of `fn()` over `reps` calls after a
+    warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def band_residual(solver, lin, lam: float) -> float:
+    """||S x - b|| / ||b|| of CHOLESKY's increment inc = -x at (lin,
+    lam) on a stage-1 solver's banded route, with S applied matrix-free
+    as PCG applies it (hpp + lam I less E0 through e0_u and e0_scatter,
+    slots._pcg_solve_u) in the solve dtype: an answer that shares
+    nothing with the band's assembly and factorization but hpp and b."""
+    from povar_tpu_torch.solver.slots import mv
+
+    inc, _ = solver.solve_cholesky(lin, lam)
+    lam_s = solver._solve_scalar(lam)
+    hll_inv, hll_inv_bl = solver._hll_inv_u(lin.Jl, lin.r, None)
+    hpp, b = solver._hpp_b_u(lin.Jp, lin.Jl, lin.r, hll_inv_bl)
+    w = solver._e0_factor_u(lin.Jp, lin.Jl, hll_inv)
+    x = -inc.to(b.dtype)
+    sx = mv(hpp, x) + lam_s * x - solver._e0_w_matvec(x, w)
+    return float((sx - b).norm() / b.norm())
+
+
+def band_trial_ms(solver, cams, lms, lam: float = 1e-4) -> dict:
+    """Milliseconds (CUDA events) of CHOLESKY's pieces at the state
+    (cams, lms): one assembly (band_chol.assemble_band) and one
+    factorization and solve (band_chol.solve_band) of the banded route,
+    and one whole trial (solve, apply, cost) on any route; and on the
+    banded route the increment's residual (band_residual)."""
+    from povar_tpu_torch.ops import linalg
+    from povar_tpu_torch.solver import band_chol
+
+    lin = solver.linearize(cams, lms)
+    out = dict(trial_ms=event_ms(lambda: solver.trial(cams, lms, lin, lam)))
+    if solver._band_plan is not None:
+        out["residual"] = band_residual(solver, lin, lam)
+        meta, arrs = solver._band_plan.meta, solver._band_arrays
+        lam_s = solver._solve_scalar(lam)
+        hll_inv, hll_inv_bl = solver._hll_inv_u(lin.Jl, lin.r, None)
+        hpp, b = solver._hpp_b_u(lin.Jp, lin.Jl, lin.r, hll_inv_bl)
+        w = torch.einsum("kio,kjo->ijo", lin.Jp, lin.Jl)
+        wl = torch.einsum("ijo,jko->iko", w, solver._gather_lm_x(
+            linalg.cholesky_smallf(hll_inv))).contiguous()
+        del w
+        out["assembly_ms"] = event_ms(
+            lambda: band_chol.assemble_band(meta, arrs, wl, hpp, lam_s))
+        s_flat = band_chol.assemble_band(meta, arrs, wl, hpp, lam_s)
+        del wl
+        out["factor_solve_ms"] = event_ms(
+            lambda: band_chol.solve_band(meta, arrs, s_flat.clone(), b))
+    return out
+
+
+def band_run(problem, label: str, iters: int = BAND_ITERS,
+             plain: bool = False) -> dict:
+    """CHOLESKY step 1 on `problem` (module docstring, `band`): the
+    solver built on the card (its route, the warnings it raised, bw, K,
+    S, the plan's seconds and device bytes, the construction's seconds),
+    `iters` iterations of optimize_step1 (the host loop; with `plain` on
+    the plain versions of the kernels) from the problem's state, with the
+    kernels' launch counters zeroed just before and read just after
+    ("launches"), then
+    band_trial_ms at the VarProj start, and the peak device memory.
+    Prints one line and returns a dict (with the summary under
+    "summary")."""
+    from povar_tpu_torch.ops import launches
+    from povar_tpu_torch.solver import band_chol
+    from povar_tpu_torch.tools.step2_spread import plain_step1
+
+    opts = SolverOptions(solver_type_step_1=SolverType.CHOLESKY,
+                         max_num_iterations_step_1=iters)
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        s1 = Stage1Solver(*args, opts, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, RuntimeWarning)]
+    meta = None if s1._band_plan is None else s1._band_plan.meta
+    cams = torch.as_tensor(problem.cam_space, device="cuda")
+    lms = torch.as_tensor(problem.lm_p, device="cuda")
+    summary = SolverSummary()
+    t0 = time.perf_counter()
+    launches.reset_launch_counts()
+    with plain_step1(cams=True) if plain else contextlib.nullcontext():
+        optimize_step1(s1, cams, lms, opts, summary, Timer(),
+                       lambda s: None)
+    torch.cuda.synchronize()
+    step1_s = time.perf_counter() - t0
+    counts = launches.launch_counts()
+    times = band_trial_ms(s1, cams, s1.initialize_varproj(cams))
+    out = dict(
+        scale=label, route=route_of(s1),
+        bw=None if meta is None else meta.bw,
+        K=None if meta is None else meta.K,
+        S=None if meta is None else meta.S,
+        plan_s=s1.band_plan_seconds,
+        plan_bytes=(None if meta is None
+                    else band_chol.plan_bytes(s1._band_arrays)),
+        setup_s=setup_s, step1_s=step1_s, iterations=iters,
+        records=len(summary.iterations),
+        decisions="".join("A" if it.step_is_successful else "R"
+                          for it in summary.iterations[1:]),
+        inner=[it.linear_solver_iterations for it in summary.iterations],
+        costs=recorded_costs(summary), **times,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        warnings=[w[:60] for w in warned])
+    print(json.dumps(out), flush=True)
+    out.update(summary=summary, warned=warned, launches=counts)
+    return out
+
+
+def band_spread(runs: int, lam: float = 1e-4) -> dict:
+    """The banded route's spreads (module docstring, `band-spread`):
+    venice-89's and BANDED_1000's banded increment against the dense one,
+    per run a fresh linearization of the VarProj start solved by both
+    routes at `lam`, in mixed precision and in pure f64; then the banded
+    increment's residual (band_residual) of a fresh linearization of
+    venice-1778's and final-13682's VarProj start per run, in mixed
+    precision. Returns {problem: {"mixed": gaps, "f64": gaps}} and
+    {"residual": {scale: residuals}}."""
+    out = {}
+    for name, shape in (("venice-89", VENICE_89),
+                        ("banded-1000", BANDED_1000)):
+        n_cams, n_lms, obs_per_lm, locality = shape
+        problem = synthetic_bal_problem_fast(n_cams, n_lms, obs_per_lm,
+                                             seed=0, locality=locality)
+        args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+                problem.num_cameras, problem.num_landmarks)
+        cams = torch.as_tensor(problem.cam_space, device="cuda")
+        out[name] = {}
+        for config, mixed in (("mixed", True), ("f64", False)):
+            opts = SolverOptions(solver_type_step_1=SolverType.CHOLESKY,
+                                 mixed_precision_solves=mixed)
+            dense = Stage1Solver(*args, opts, device="cuda")
+            with banded_route(), warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                band = Stage1Solver(*args, opts, device="cuda")
+            meta = band._band_plan.meta
+            lms = dense.initialize_varproj(cams)
+            gaps = []
+            for r in range(runs):
+                lin = dense.linearize(cams, lms)
+                want, _ = dense.solve_cholesky(lin, lam)
+                got, _ = band.solve_cholesky(lin, lam)
+                gaps.append(float((got - want).norm() / want.norm()))
+                print(f"{name} {config} (bw {meta.bw}, K {meta.K}, S "
+                      f"{meta.S}) run {r}: band vs dense {gaps[-1]:.3e}",
+                      flush=True)
+            out[name][config] = gaps
+            del dense, band, lin, want, got
+    out["residual"] = {}
+    for scale in ("venice-1778", "final-13682"):
+        problem = make_problem(scale)
+        opts = SolverOptions(solver_type_step_1=SolverType.CHOLESKY)
+        solver = Stage1Solver(problem.obs_cam, problem.obs_lm,
+                              problem.obs_uv, problem.num_cameras,
+                              problem.num_landmarks, opts, device="cuda")
+        cams = torch.as_tensor(problem.cam_space, device="cuda")
+        lms = solver.initialize_varproj(cams)
+        res = []
+        for r in range(runs):
+            res.append(band_residual(solver, solver.linearize(cams, lms),
+                                     lam))
+            print(f"{scale} ({route_of(solver)}, S "
+                  f"{solver._band_plan.meta.S}) run {r}: residual "
+                  f"{res[-1]:.3e}", flush=True)
+        out["residual"][scale] = res
+        del solver, problem, cams, lms
+    print(json.dumps(dict(
+        band_spread_runs=runs, lam=lam,
+        largest={k: ({c: max(g) for c, g in v.items()})
+                 for k, v in out.items()})), flush=True)
     return out
 
 
@@ -420,13 +679,19 @@ def step2_starts(runs: int, iters: int = FINAL_STEP2_ITERS) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("scales", nargs="*",
-                    help=f"'spread', 'starts', or scales of "
-                    f"{tuple(SCALES)}")
+                    help=f"'spread', 'starts', 'band', 'band-spread', or "
+                    f"scales of {tuple(SCALES)}")
     ap.add_argument("--loops", action="store_true",
                     help="lay add_loop_closures_and_scramble over each scale")
     ap.add_argument("--runs", type=int, default=8,
-                    help="spread: runs on each side; starts: runs")
+                    help="spread, band-spread: runs on each side; starts: "
+                    "runs")
+    ap.add_argument("--solver", default="POWER_VARPROJ",
+                    choices=["POWER_VARPROJ", "CHOLESKY"],
+                    help="spread: step 1's solver")
     a = ap.parse_args(argv)
+    if a.solver != "POWER_VARPROJ" and a.scales[:1] != ["spread"]:
+        ap.error("--solver applies to spread only")
     if not torch.cuda.is_available():
         print("large_scale: no CUDA device", file=sys.stderr)
         return 1
@@ -437,13 +702,25 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     if a.scales[:1] == ["spread"]:
         for scale in a.scales[1:] or ["venice-1778"]:
-            if scale not in ("venice-1778", "final-13682"):
-                ap.error(f"spread takes venice-1778 or final-13682, not "
-                         f"{scale!r}")
-            spread(a.runs, scale)
+            if scale not in ("venice-1778", "final-13682") or (
+                    a.solver == "CHOLESKY" and scale != "venice-1778"):
+                ap.error(f"spread takes venice-1778 or final-13682 (with "
+                         f"CHOLESKY venice-1778), not {scale!r}")
+            spread(a.runs, scale, a.solver)
         return 0
     if a.scales == ["starts"]:
         step2_starts(a.runs)
+        return 0
+    if a.scales == ["band-spread"]:
+        band_spread(a.runs)
+        return 0
+    if a.scales[:1] == ["band"]:
+        for scale in a.scales[1:] or ["venice-1778", "venice-1778-uniform",
+                                      "final-13682",
+                                      "final-13682-adversarial"]:
+            if scale not in SCALES:
+                ap.error(f"unknown scale {scale!r}")
+            band_run(make_problem(scale), scale)
         return 0
     for scale in a.scales or list(SCALES):
         if scale not in SCALES:

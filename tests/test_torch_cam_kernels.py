@@ -25,6 +25,10 @@ from povar_tpu.ops import pallas_cam
 from povar_tpu_torch.ops import cam_kernels, launches
 from povar_tpu_torch.tools.parity import scaled_error
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 O = 8192
 TOLS = {"elem": 2e-6, "cam": 1e-5}
 

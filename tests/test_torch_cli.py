@@ -31,6 +31,10 @@ import torch
 from povar_tpu import cli as jax_cli
 from povar_tpu_torch import cli
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                        "mini-bal-12-48-pre.txt")
 NAME = os.path.basename(FIXTURE)

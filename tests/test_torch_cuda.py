@@ -1667,3 +1667,38 @@ def test_device_loop_card_matches_host_loop_f64(cuda, st1, st2):
         want = {k: v for k, v in c_off.items() if k not in lm}
         want[cost] -= 1
         assert {k: v for k, v in c_on2.items() if k not in lm} == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed", [True, False])
+def test_banded_cholesky_card_matches_cpu(cuda, monkeypatch, mixed):
+    """The banded CHOLESKY (solver/band_chol.py) of one linearization on
+    the card against the same solve on the CPU: the test problem of
+    tests/test_torch_band_chol.py (48 cameras, S = 2 supernodes) with
+    DENSE_CHOL_MAX lowered to 8, the CPU's linearization moved to the
+    card, lambda 1e-3; the increments within 1e-3 relative in mixed
+    precision (hpp_b's f32 sums in another order, amplified by S's
+    conditioning) and 1e-9 in pure f64; hpp_b launched on the card."""
+    from povar_tpu_torch.problem.synthetic import synthetic_bal_problem_fast
+    from povar_tpu_torch.solver import stage1 as st1
+
+    monkeypatch.setattr(st1, "DENSE_CHOL_MAX", 8)
+    p = synthetic_bal_problem_fast(48, 600, 5, seed=3, locality=8)
+    args = (p.obs_cam, p.obs_lm, p.obs_uv, p.num_cameras, p.num_landmarks)
+    opts = SolverOptions(solver_type_step_1=SolverType.CHOLESKY,
+                         mixed_precision_solves=mixed)
+    host = Stage1Solver(*args, opts, device="cpu")
+    card = Stage1Solver(*args, opts, device=cuda)
+    assert host._band_plan.meta == card._band_plan.meta
+    assert card._band_arrays.d_idx.is_cuda
+    cams = torch.as_tensor(p.cam_space)
+    lin = host.linearize(cams, host.initialize_varproj(cams))
+    want, _ = host.solve_cholesky(lin, 1e-3)
+    launches.reset_launch_counts()
+    got, n_it = card.solve_cholesky(type(lin)(*(t.to(cuda) for t in lin)),
+                                    1e-3)
+    counts = launches.launch_counts()
+    assert counts["hpp_b" if mixed else "hpp_b_f64"] == 1, counts
+    assert n_it == 0 and got.is_cuda and bool(torch.isfinite(got).all())
+    gap = float((got.cpu() - want).norm() / want.norm())
+    assert gap <= (1e-3 if mixed else 1e-9), gap

@@ -76,6 +76,10 @@ from povar_tpu_torch.solver import lm as lm_mod
 from povar_tpu_torch.solver.slots import use_device_loop
 from povar_tpu_torch.tools.step2_spread import ring_case
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 ITERS = 8
 LOOPS_RTOL = 1e-12
 COST_RTOL, RADIUS_RTOL = 1e-10, 1e-9

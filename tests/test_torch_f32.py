@@ -48,6 +48,10 @@ from povar_tpu_torch import (
 from povar_tpu_torch.ops import cam_kernels, launches, pose_math
 from povar_tpu_torch.tools.step2_spread import ring_case
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 ITERS = 6
 F32 = torch.float32
 ERR_KEYS = ("error_all", "residual_sum_all", "error_valid",

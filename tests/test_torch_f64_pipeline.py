@@ -39,6 +39,10 @@ from povar_tpu_torch import (
 from povar_tpu_torch.ops import launches
 from povar_tpu_torch.tools.step2_spread import ring_case
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 # tests/test_golden.py's f64 constants and decisions (the JAX package's
 # pure-f64 run of synthetic_bal_problem(10, 80, 5, seed=777,
 # noise=0.001), 15 + 15 iterations)

@@ -51,6 +51,10 @@ from povar_tpu_torch.solver.stage1 import Lin1
 from povar_tpu_torch.solver.stage2 import Lin2
 from povar_tpu_torch.tools.step2_spread import ring_case
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 ITERS = 8
 COST_RTOL, RADIUS_RTOL, STATE_ATOL = 1e-10, 1e-9, 1e-8
 

@@ -30,12 +30,12 @@ same state:
   unscaled), its landmarks, l_diff and its cost decrease, and the cost
   of one state;
 - CHOLESKY's dense route at N = 1100 in pure f64 against the JAX
-  package's converged pure-f64 PCG, and its refusals;
+  package's converged pure-f64 PCG, the choice of its dense or banded
+  route by bytes, and the banded route at N = 1600;
 - one `bundle_adjust` trajectory at N = 1100 on a well-posed
   synthetic_bal_problem (each package's defaults on the CPU: the JAX
   package's XLA layout, the port's structured one);
-- the refusals that stay: a mesh past 1024 cameras (ROADMAP item 13),
-  CHOLESKY past 1536 (item 12's banded remainder);
+- the refusal that stays: a mesh past 1024 cameras (ROADMAP item 13);
 - `add_loop_closures_and_scramble`, array for array.
 
 The tolerances are those of the N <= 1024 tests: the initialized
@@ -85,6 +85,11 @@ from povar_tpu_torch.problem.synthetic import (
     add_loop_closures_and_scramble,
     synthetic_bal_problem_fast,
 )
+from povar_tpu_torch.solver import band_chol
+
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
 
 N_CAMS, N_LMS, TRACK, SPREAD = 1300, 3000, 6, 30
 # camera i sits at ring position STRIDE i mod N, so that the cameras of
@@ -333,24 +338,39 @@ def test_cholesky_at_1100_cameras_matches_jax():
 
 
 def test_cholesky_refuses_what_the_device_cannot_hold():
-    """The dense route refuses, naming ROADMAP item 12's banded
-    remainder, past 1536 cameras and where A and S outgrow the device:
+    """CHOLESKY's route by bytes (chol_route): the dense one up to 1536
+    cameras while its A and S fit the device, the banded one otherwise:
     venice-1778's 993,923 landmarks at 1536 cameras take 221 GB in f32
-    against an 80 GB card; N = 1100, M = 1200 in f64 (1.7 GB) fits."""
+    against an 80 GB card (band), N = 1100, M = 1200 in f64 (1.7 GB)
+    fits (dense), the host has no limit (dense), and past 1536 cameras
+    the route is the band whatever the bytes. What the banded route
+    itself cannot hold (band_chol_unsupported: the plan's index arrays
+    and one solve's peak beside what the device already holds) raises
+    naming the bytes and the ROADMAP item."""
     from povar_tpu_torch.solver.stage1 import (
-        dense_chol_bytes, dense_chol_unsupported,
+        band_chol_unsupported, chol_route, dense_chol_bytes,
     )
 
     card = 80 * 2**30
     assert dense_chol_bytes(1100, 1200, torch.float64) == 8 * 13200 * (
         3600 + 13200)
-    assert dense_chol_unsupported(1100, 1200, torch.float64, card) is None
-    assert dense_chol_unsupported(1536, 993_923, torch.float32,
-                                  None) is None
-    for n, m, dtype, cap in ((1536, 993_923, torch.float32, card),
-                             (1537, 10, torch.float32, None)):
-        why = dense_chol_unsupported(n, m, dtype, cap)
-        assert "item 12" in why and "band_chol" in why, why
+    assert chol_route(1100, 1200, torch.float64, card) == "dense"
+    assert chol_route(1536, 993_923, torch.float32, None) == "dense"
+    assert chol_route(1536, 993_923, torch.float32, card) == "band"
+    assert chol_route(1537, 10, torch.float32, None) == "band"
+    assert chol_route(1537, 10, torch.float32, card) == "band"
+
+    p = synthetic_bal_problem_fast(300, 500, 5, seed=2, locality=16)
+    plan = band_chol.build_band_plan(p.obs_cam, p.obs_lm, 300, 500)
+    need = (band_chol.plan_bytes(plan.arrays)
+            + band_chol.solve_bytes(plan.meta, plan.arrays, torch.float64))
+    assert band_chol.solve_bytes(plan.meta, plan.arrays, torch.float64) == (
+        2 * band_chol.solve_bytes(plan.meta, plan.arrays, torch.float32))
+    assert band_chol_unsupported(plan, torch.float64, None) is None
+    assert band_chol_unsupported(plan, torch.float64, need) is None
+    why = band_chol_unsupported(plan, torch.float64, need, held=1)
+    assert "banded solve at 300 cameras" in why, why
+    assert "GB" in why and "ROADMAP" in why, why
 
 
 @pytest.fixture(scope="module")
@@ -433,18 +453,20 @@ def test_bundle_adjust_at_1100_cameras_matches_jax():
 
 
 def test_refusals_past_the_single_device_limits():
-    """Past 1024 cameras a mesh raises naming ROADMAP item 13; past 1536
-    CHOLESKY raises naming item 12's banded remainder; one device runs
-    1600 cameras with every other step-1 solver."""
+    """Past 1024 cameras a mesh raises naming ROADMAP item 13; one device
+    runs 1600 cameras with every step-1 solver, CHOLESKY on the banded
+    plan (its dense route ends at 1536 cameras)."""
     p = synthetic_bal_problem_fast(1600, 900, 4, seed=0, locality=32)
     with pytest.raises(NotImplementedError, match="item 13"):
         bundle_adjust(copy.deepcopy(p), SolverOptions(), device="cpu",
                       mesh=make_mesh(1, "cpu"))
     args = (p.obs_cam, p.obs_lm, p.obs_uv, p.num_cameras, p.num_landmarks)
-    with pytest.raises(NotImplementedError, match="item 12.*band_chol"):
-        Stage1Solver(*args, _options(SolverOptions, {},
+    s = Stage1Solver(*args, _options(SolverOptions, {},
                                      solver_type_step_1="CHOLESKY"),
                      device="cpu")
+    assert s._band_plan is not None and not s._chol_pcg_fallback
+    assert s._band_plan.meta.n_cams == 1600
+    assert s._band_plan.meta.bw <= band_chol.MAX_SUPERNODE
     for st in ("POWER_VARPROJ", "POWER_SCHUR_COMPLEMENT", "PCG"):
         Stage1Solver(*args, _options(SolverOptions, {},
                                      solver_type_step_1=st), device="cpu")

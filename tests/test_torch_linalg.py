@@ -19,6 +19,10 @@ import torch
 from povar_tpu.ops import linalg as jl
 from povar_tpu_torch.ops import linalg as tl
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 BATCH = 257
 
 

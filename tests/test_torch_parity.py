@@ -11,6 +11,10 @@ import torch
 
 from povar_tpu_torch.tools.parity import scaled_error
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 
 def _typical_with_outlier(shape, seed=0):
     """Seeded entries of magnitude ~1 with one entry of 1e10."""

@@ -12,6 +12,10 @@ order; measured <= 3.6e-7).
 Then `solve_pcg` of both stage solvers under the three preconditioners
 from one linearization fed to both packages (the JAX side with the
 Pallas kernels in interpret mode): the same CG iteration counts and the
+
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
 increment within 1e-4 of its largest entry (measured in each test's
 docstring). These run the composed power term, whose interpret-mode
 kernels cost a quarter of the fused one's; PCG and RIPCG with the fused

@@ -52,6 +52,10 @@ from povar_tpu_torch.solver.slots import LmState
 from povar_tpu_torch.solver.stage1 import Lin1S
 from povar_tpu_torch.tools.step2_spread import ring_case
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 ALPHA = 0.01
 O, N, M = 1024, 13, 64
 ITERS = 6

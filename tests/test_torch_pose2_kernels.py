@@ -48,6 +48,10 @@ from povar_tpu_torch.ops import pose2_kernels as pk2
 from povar_tpu_torch.ops import pose2_ref
 from test_torch_pose_kernels import PARTS, PREFIX, jax_parts
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 HUBER = 0.1
 
 

@@ -39,6 +39,10 @@ from povar_tpu_torch.ops import pose2_ref
 from povar_tpu_torch.tools.parity import scaled_error
 from test_torch_e0_plan import _layout
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 O, N = 1024, 13
 # slot parts of three widths whose last tiles are ragged
 MIXED = ((0, 100, 3), (300, 37, 7), (559, 29, 16))

@@ -38,6 +38,10 @@ from povar_tpu_torch.ops import launches
 from povar_tpu_torch.ops import pose_kernels as pk
 from povar_tpu_torch.ops import pose_ref
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 ALPHA = 0.01
 O, N, M = 1024, 13, 64
 # fused-term slot parts (ofs, g, w): all O rows, and a narrow prefix

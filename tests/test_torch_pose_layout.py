@@ -46,6 +46,10 @@ from test_torch_e0_plan import _layout
 from test_torch_pose2_layout import MIXED, _check_cover
 from test_torch_pose_kernels import jax_parts
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 O, N = 1024, 13
 HUBER = 1.0
 HPP_ARGS = ("cam", "ct", "x", "uv", "sw", "r_w", "jls", "hib")

@@ -17,6 +17,10 @@ import torch
 from povar_tpu.ops import pose_math as jax_pose_math
 from povar_tpu_torch.ops import pose_math
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 ALPHA = 0.01
 O = 257
 TOLS = {np.float64: 1e-12, np.float32: 1e-6}

@@ -25,6 +25,10 @@ from povar_tpu_torch.problem import synthetic as tsyn
 from povar_tpu_torch.solver import common as tcommon
 from povar_tpu_torch.solver import segments as tseg
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -152,6 +156,23 @@ def test_padded_reduce_matches_jax(n_seg):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     np.testing.assert_array_equal(np.asarray(jr.inv_order), tr.inv_order.numpy())
     x = rng.standard_normal((3, 700))
+    np.testing.assert_allclose(
+        tseg.padded_segment_sum(torch.as_tensor(x), tr).numpy(),
+        jseg.padded_segment_sum(jnp.asarray(x), jr), rtol=1e-13, atol=1e-13,
+    )
+
+
+def test_padded_reduce_skips_ids_outside_the_segments():
+    """Ids below 0 or at num_segments and past it belong to no segment,
+    in both packages: the same buckets, the same sums."""
+    rng = np.random.default_rng(5)
+    seg = rng.integers(-3, 16, 500).astype(np.int32)
+    jr = jseg._build_padded_reduce(seg, 13)
+    tr = tseg._build_padded_reduce(seg, 13)
+    for a, b in zip(jr.idx + jr.mask + (jr.inv_order,),
+                    tr.idx + tr.mask + (tr.inv_order,)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    x = rng.standard_normal((2, 500))
     np.testing.assert_allclose(
         tseg.padded_segment_sum(torch.as_tensor(x), tr).numpy(),
         jseg.padded_segment_sum(jnp.asarray(x), jr), rtol=1e-13, atol=1e-13,

@@ -54,6 +54,10 @@ from povar_tpu_torch.parallel.mesh import spawn
 from povar_tpu_torch.solver.slots import SlotSolver
 from test_spmd import _local_problem
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 LAM = 1e-3
 
 

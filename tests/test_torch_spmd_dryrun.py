@@ -58,6 +58,10 @@ from povar_tpu_torch import (
 from povar_tpu_torch.parallel import spmd as tspmd
 from povar_tpu_torch.parallel.mesh import spawn
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 PROBLEM = dict(n_cams=40, n_lms=300, obs_per_lm=5, seed=1)
 
 

@@ -35,6 +35,10 @@ from test_spmd import _local_problem
 
 import jax.numpy as jnp
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 LAYOUT = tuple(tspmd.ClassLayout(*cl) for cl in JAX_LAYOUT)
 O_DEV, N_ROWS = spmd_ref.layout_sizes(LAYOUT)
 

@@ -44,6 +44,10 @@ from povar_tpu_torch.options import RobustNorm, SolverType
 from povar_tpu_torch.ops import launches, pose_kernels
 from povar_tpu_torch.solver.stage1 import LmState
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 ITERS = 6
 
 
@@ -414,14 +418,28 @@ def test_too_many_cameras_raise():
 
 def test_too_many_cameras_cholesky_raise():
     """CHOLESKY's dense solve runs up to DENSE_CHOL_MAX = 1536 cameras,
-    as the JAX package's; past it (the JAX package's banded
-    factorization) it raises naming ROADMAP item 12's remainder."""
+    as the JAX package's; past it the solver no longer raises but builds
+    the JAX package's banded plan (solver/band_chol.py): at 1537 cameras
+    one landmark seen by cameras 0 and 1536 sits in one band row (bw 1,
+    K 32, S 49 supernodes), the JAX package's plan bit for bit."""
+    from povar_tpu.solver import band_chol as jax_band
+
     chol = _cfg(solver_type_step_1=SolverType.CHOLESKY)
-    Stage1Solver(np.array([0, 1535]), np.array([0, 0]), np.zeros((2, 2)),
-                 1536, 1, chol, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12.*band_chol"):
-        Stage1Solver(np.array([0, 1536]), np.array([0, 0]),
+    s = Stage1Solver(np.array([0, 1535]), np.array([0, 0]),
+                     np.zeros((2, 2)), 1536, 1, chol, device="cpu")
+    assert s._band_plan is None and not s._chol_pcg_fallback
+    s = Stage1Solver(np.array([0, 1536]), np.array([0, 0]),
                      np.zeros((2, 2)), 1537, 1, chol, device="cpu")
+    assert not s._chol_pcg_fallback
+    meta = s._band_plan.meta
+    assert (meta.n_cams, meta.bw, meta.K, meta.S) == (1537, 1, 32, 49)
+    w = s.obs.weight.numpy()
+    want = jax_band.build_band_plan(s.obs.cam.numpy(), s.obs.lm.numpy(),
+                                    1537, 1, live=w, allow_dense=True)
+    assert tuple(want.meta) == tuple(meta)
+    for f in ("pos", "diag_rows", "d_idx", "e_idx"):
+        np.testing.assert_array_equal(getattr(s._band_plan.arrays, f),
+                                      getattr(want.arrays, f))
 
 
 def test_default_options_and_huber_run(problem):

@@ -56,6 +56,10 @@ from povar_tpu_torch.solver.slots import LmState
 from povar_tpu_torch.solver.stage2 import Lin2S
 from povar_tpu_torch.tools.step2_spread import ring_case
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 ITERS = 8
 
 
@@ -247,7 +251,8 @@ def _trajectory(summary):
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))
-def test_step2_trajectory_matches_jax(geometry, solvers, config):
+def test_step2_trajectory_matches_jax(geometry, solvers, fused_solvers,
+                                      config):
     """optimize_step2 for eight iterations from the same state, with the
     composed term, SolverOptions() defaults (the fused term) and RIPCG:
     identical accept/reject decisions and power-term or CG iteration
@@ -256,7 +261,9 @@ def test_step2_trajectory_matches_jax(geometry, solvers, config):
     tests/test_pallas_pose2.py:187; measured 3.3e-9 composed). The port's
     wrappers launch no kernel on CPU tensors."""
     js, ts, (jcams, jlms), (tcams, tlms) = solvers
-    if config != "composed":
+    if config == "defaults":
+        js, ts = fused_solvers
+    elif config != "composed":
         js, ts = _solver_pair(geometry[0], config)
     jsum = JaxSummary()
     jax_optimize_step2(js, jcams, jlms, js.opts, jsum, JaxTimer(),

@@ -43,6 +43,10 @@ from povar_tpu_torch import (
 from povar_tpu_torch.ops import launches, linalg
 from povar_tpu_torch.solver.stage1 import Lin1, Lin1S
 
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
+
 ITERS = 6
 SOLVERS = ("POWER_VARPROJ", "POWER_SCHUR_COMPLEMENT", "PCG", "CHOLESKY")
 

@@ -5,6 +5,10 @@ povar_tpu_torch against povar_tpu's `pallas_kernels="off"` path.
 Step 2 runs on `ring_case` (tools/step2_spread.py: 12 ring cameras, 80
 landmarks, a consistent geometry near its optimum, where step 2 settles
 from any close state): one linearization field by field, one RIPOBA and
+
+# one torch thread a test process: the CPU tests' tensors are small,
+# and a parallel run's xdist workers share the host's cores
+torch.set_num_threads(1)
 one RIPCG solve from the same linearization, one apply, and the
 8-iteration trajectory of each. The pipeline runs on
 synthetic_bal_problem(8, 60, 5, seed=7, noise=1e-3) (`small_case`'s
