@@ -253,6 +253,23 @@ prints no result line):
               the PCG fallback with its "falling back to PCG" warning,
               one trial with CG iterations; hpp_b's and
               cam_scatter_add's launches in each run printed;
+16b. detailed_timing  the staged host loop (`detailed_timing=True`;
+              tools/stage_timing.py): (a) the venice-89 `bundle_adjust`
+              with SolverOptions() defaults and detailed_timing (counters
+              zeroed before, read after: the path's kernels, no lm
+              kernel), step 1 in 25 records within 1e-3 of 207.4787, step
+              2 in STEP2_BAND; in each record with a valid step the spans
+              the JAX package's staged solvers fill each > 0, the spans
+              summing to at most the record's iteration_time
+              (stage_timing.check_spans); each step's per-span medians,
+              and the staged, host-loop and device-loop wall ms per
+              iteration of warm calls; (b) pure f64 step 1 at venice-89
+              with POWER_VARPROJ and with CHOLESKY, staged against the
+              fused host loop (device_lm_loop="off") on the card: the same
+              decisions and counts, accepted costs within F64_TOL /
+              F64_CHOL_TOL; (c) venice-89 written as BAL text, tokenized
+              natively (utils/native.py) and with numpy: the same f64
+              bits, both times printed;
 17. cli       `python -m povar_tpu_torch.cli` in a subprocess with
               defaults, on tests/data/mini-bal-12-48-pre.txt and on the
               venice-89 problem written as BAL text, each after
@@ -638,6 +655,8 @@ BAND_RUNS = {
                                                              "e0_scatter"},
 }
 PATHS.update(BAND_RUNS)
+# the detailed_timing phase's staged run: the host loop, no lm kernel
+PATHS["bundle_adjust staged"] = STEP1_FUSED | STEP2_FUSED
 
 
 def phase(name: str) -> None:
@@ -684,16 +703,22 @@ def loop_ms(fn, reps: int = LOOP_REPS) -> float:
 def device_us(fn, reps: int = REPS) -> float:
     """Device time of one call in microseconds: the summed durations of
     every device operation (kernels, fills, copies) the profiler records
-    over `reps` calls, divided by `reps`. Every call of `fn` runs at
-    least one device operation, and the profiler now and then records
-    none in a window (it also drops single ones: 19 of 20 seen): a
-    window that records none is opened again, up to PROFILE_WINDOWS
-    times, and then raises rather than report 0.0."""
+    over `reps` calls, divided by `reps`, from a window that recorded
+    every operation of the calls. A call of `fn` runs a fixed number k of
+    device operations, and the profiler now and then records none in a
+    window or drops some (19 of 20 seen; PERF.md §6): k is taken as the
+    largest ceil(recorded / reps) of the windows opened, and a window
+    that recorded fewer than k reps operations is opened again, up to
+    PROFILE_WINDOWS times (as tools/cam_ab.py counts them). Past that
+    the fullest window's time is scaled by k reps over its operations,
+    and a line says so; no operation recorded in any window raises
+    rather than report 0.0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    k, best = 0, None
     for _ in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -701,10 +726,17 @@ def device_us(fn, reps: int = REPS) -> float:
             torch.cuda.synchronize()
         ops = [e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == DeviceType.CUDA]
-        if ops:
+        k = max(k, -(-len(ops) // reps))
+        if ops and len(ops) == k * reps:
             return sum(ops) / reps
-    raise AssertionError(f"device_us: {PROFILE_WINDOWS} profiler windows "
-                         f"of {reps} calls recorded no device operation")
+        if ops and (best is None or len(ops) > len(best)):
+            best = ops
+    if best is None:
+        raise AssertionError(f"device_us: {PROFILE_WINDOWS} profiler windows "
+                             f"of {reps} calls recorded no device operation")
+    print(f"device_us: {PROFILE_WINDOWS} windows short of {k * reps} device "
+          f"operations, the fullest recorded {len(best)}; scaled", flush=True)
+    return sum(best) * k / len(best)
 
 
 def kernel_us(fn, name: str, reps: int = REPS) -> float:
@@ -2839,6 +2871,81 @@ def check_device_loop(problem, counts):
           flush=True)
 
 
+def check_detailed_timing(problem, counts):
+    """The detailed_timing phase (16b in the module docstring): (a) the
+    staged `bundle_adjust` with defaults, its spans and medians, the
+    three loops' wall ms per iteration; (b) pure f64 step 1, staged
+    against the fused host loop, POWER_VARPROJ and CHOLESKY; (c) the
+    native BAL tokenizer against numpy at venice-89's size."""
+    from povar_tpu_torch import SolverOptions
+    from povar_tpu_torch.ops import launches
+    from povar_tpu_torch.options import SolverType
+    from povar_tpu_torch.tools import stage_timing as st
+
+    t_phase = time.perf_counter()
+    # (a)
+    staged = SolverOptions(detailed_timing=True)
+    path = "bundle_adjust staged"
+    launches.reset_launch_counts()
+    _, s1, s2, first_s = pipeline(problem, staged, "cuda")
+    counts[path] = launches.launch_counts()
+    check_counts(path, counts[path])
+    report_step(1, s1, JAX_FINAL_COST)
+    report_step(2, s2, JAX_FINAL_COST2, STEP2_BAND)
+    if len(s1.iterations) != 25:
+        raise AssertionError(f"(a) step 1: {len(s1.iterations)} records, "
+                             "not 25")
+    for step, solver, summary in ((1, "POWER_VARPROJ", s1),
+                                  (2, "RIPOBA", s2)):
+        n = st.check_spans(step, solver, summary)
+        print(f"(a) step {step}: the spans of {solver} > 0 in each of {n} "
+              f"records with a valid step, summing to at most their "
+              f"iteration_time", flush=True)
+    walls = {}
+    for label, opts in (("staged", staged),
+                        ("host loop", SolverOptions(device_lm_loop="off")),
+                        ("device loop", SolverOptions())):
+        _, w1, w2, secs = pipeline(problem, opts, "cuda")
+        walls[label] = (st.wall_ms_per_iteration(w1),
+                        st.wall_ms_per_iteration(w2), secs)
+        if label == "staged":
+            check_final(1, w1)
+            st.check_spans(1, "POWER_VARPROJ", w1)
+            st.check_spans(2, "RIPOBA", w2)
+            for step, w in ((1, w1), (2, w2)):
+                print(st.format_medians(f"(a) staged step {step} warm, "
+                                        "median ms",
+                                        st.span_medians_ms(w)), flush=True)
+    print(f"(a) staged bundle_adjust: first {first_s:.3f} s", flush=True)
+    for label, (m1, m2, secs) in walls.items():
+        print(f"(a) {label}: wall ms per iteration step 1 {m1:.3f}, step 2 "
+              f"{m2:.3f}; warm bundle_adjust {secs:.3f} s", flush=True)
+
+    # (b)
+    for st1, tol in ((SolverType.POWER_VARPROJ, F64_TOL),
+                     (SolverType.CHOLESKY, F64_CHOL_TOL)):
+        runs = {}
+        for label, kw in (("staged", dict(detailed_timing=True)),
+                          ("fused", dict(device_lm_loop="off"))):
+            opts = SolverOptions(mixed_precision_solves=False, **kw)
+            opts.solver_type_step_1 = st1
+            runs[label], _out, _s, runs[label + " s"] = solve(
+                problem, opts, "cuda")
+        check_same_run(f"(b) {st1.value} step 1, pure f64, staged",
+                       runs["staged"], runs["fused"], tol=tol,
+                       other="the fused host loop")
+        print(f"(b) {st1.value}: staged {runs['staged s']:.3f} s, fused "
+              f"host loop {runs['fused s']:.3f} s", flush=True)
+
+    # (c)
+    r = st.bal_load(problem, "problem-89-110973-pre")
+    print(f"(c) venice-89 BAL text, {r['tokens']} tokens: the same f64 bits "
+          f"natively and with numpy; written in {r['write_s']:.2f} s, numpy "
+          f"{r['numpy_s']:.3f} s, native {r['native_s']:.3f} s", flush=True)
+    print(f"detailed_timing phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def large_cam_cases(cam, n, mask, seed=7):
     """run_cases' cases of the five camera-table kernels in f32 and f64
     (`<name>_f64`) at their step-1 shapes (R = 12; (dl, dc) = (3, 12);
@@ -3586,6 +3693,10 @@ def main() -> int:
           "factorization, its full band and its PCG fallback)")
     check_band_chol(problem, counts, large)
     del large
+
+    phase("detailed_timing (the staged host loop, per-stage spans; the "
+          "native BAL tokenizer)")
+    check_detailed_timing(problem, counts)
 
     phase("cli (python -m povar_tpu_torch.cli, SolverOptions() defaults)")
     check_cli(problem)

@@ -632,6 +632,10 @@ def spmd_unsupported(options: SolverOptions, n_cams: int,
         )
     gspmd = ("on a mesh, which the JAX package runs on its GSPMD fallback "
              "(ROADMAP.md queue 1 item 13, multi-device)")
+    if options.detailed_timing:
+        # povar_tpu/solver/pipeline.py:27-43 sends it there; its SPMD
+        # solver raises (povar_tpu/parallel/spmd.py:1022)
+        return f"detailed_timing=True {gspmd}"
     if dtype != torch.float64:
         return f"an LM state of {dtype} {gspmd}"
     if options.pallas_kernels == "off":

@@ -22,11 +22,12 @@ seeded numpy Generator so runs are reproducible, which only changes
 On load (load_bal_eccv, cpp:258-266) landmarks are re-drawn N(0,1); the
 y image axis is inverted in memory (cpp:236-244).
 
-A numpy-only copy of povar_tpu/problem/bal_io.py (this package never
-imports jax or povar_tpu). It always tokenizes with numpy: the JAX
-package's optional C tokenizer (csrc/bal_io.cpp via utils/native.py) is
-not ported (ROADMAP.md queue 1 item 14). `create_dataset` writes the
-same bytes as the JAX package's for the same seed.
+A copy of povar_tpu/problem/bal_io.py (this package never imports jax
+or povar_tpu). It tokenizes natively (csrc/bal_io.cpp, built at first
+use by utils/native.py; a failed build raises), as the JAX package does
+where its library is built; `numpy_tokens` is the plain version the
+native tokenizer is held to. `create_dataset` writes the same bytes as
+the JAX package's for the same seed.
 """
 
 from __future__ import annotations
@@ -38,19 +39,27 @@ import numpy as np
 
 from povar_tpu_torch.options import BalDatasetOptions
 from povar_tpu_torch.problem.problem import BalProblem, DatasetSummary
+from povar_tpu_torch.utils import native
 from povar_tpu_torch.utils.timer import Timer
+
+
+def numpy_tokens(path: str) -> np.ndarray:
+    """The numpy tokenizer: every whitespace-separated token of the file
+    as f64 (the native tokenizer's plain version)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return np.array(data.split(), dtype=np.float64)
 
 
 def _read_tokens(path: str) -> np.ndarray:
     """Whitespace-separated numeric tokens of the whole file (the BAL
-    grammar is whitespace-insensitive, like the reference's fscanf)."""
+    grammar is whitespace-insensitive, like the reference's fscanf),
+    parsed natively."""
     if not os.path.exists(path):
         # clear message instead of a tokenizer traceback (the reference
         # LOG(FATAL)s "Could not open '{}'", bal_problem.cpp:187-189)
         raise FileNotFoundError(f"Could not open '{path}'")
-    with open(path, "rb") as f:
-        data = f.read()
-    return np.array(data.split(), dtype=np.float64)
+    return native.parse_tokens(path)
 
 
 def _split_header_obs(

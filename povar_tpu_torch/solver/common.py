@@ -1,15 +1,48 @@
-"""Shared solver-layer pieces: residual accounting.
+"""Shared solver-layer pieces: residual accounting and the staged spans.
 
 ResidualInfo mirrors bal/residual_info.hpp:36-104; the parallel-reduce
 accumulator of the reference becomes a couple of masked sums.
+
+The stage solvers' linearize / solve / apply are compositions of pieces
+split at the reference's per-iteration timing boundaries
+(solver_summary.hpp:186-212), each piece run through a span runner
+`span(name, fn, *args)`: `fused` runs it and nothing else (the fused
+path), `timed_spans` also synchronises the device after it and records
+its wall time under `name` (the staged path of `detailed_timing`, as
+the JAX package's `_timed`, povar_tpu/solver/common.py:31). Both paths
+run the same pieces in the same order.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
+
+
+def fused(_name: str, fn: Callable, *args):
+    """The fused path's span runner: the piece, and nothing else."""
+    return fn(*args)
+
+
+def timed_spans(device: torch.device, times: Dict[str, float]) -> Callable:
+    """The staged path's span runner: each piece, then a synchronisation
+    of `device` (the card's; nothing on the CPU, whose work is done when
+    the call returns), as `jax.block_until_ready` in the JAX package's
+    `_timed`, its wall seconds stored in `times` under the span's
+    name."""
+
+    def span(name: str, fn: Callable, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times[name] = time.perf_counter() - t0
+        return out
+
+    return span
 
 
 def to_host(*vals) -> list:

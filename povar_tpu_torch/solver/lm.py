@@ -22,7 +22,11 @@ optimize_homogeneous_joint (cpp:557-843):
 
 Each trial is one `Stage1Solver.trial` / `Stage2Solver.trial` (solve +
 apply + cost) followed by ONE device->host transfer of the scalars the
-accept/reject rule needs.
+accept/reject rule needs. Under `detailed_timing` the loop runs the
+staged trial of the JAX package's `_optimize_lm_loop` with `trial=None`
+instead: the solvers' `solve_timed`, the NaN check on the host,
+`apply_timed`, then the cost, each stage's spans written into the
+iteration's `*_time_in_seconds` fields (solver_summary.hpp:186-212).
 
 `optimize_step1` / `optimize_step2` choose the loop as the JAX
 package's do (povar_tpu/solver/lm.py:554-560, 661-666): the device loop
@@ -109,13 +113,34 @@ def damping_factor(q: float) -> float:
     return max(1.0 / 3, 1.0 - t * t * t)
 
 
+# the staged spans' IterationSummary fields (povar_tpu/solver/lm.py:91-105)
+_TIMING_FIELDS = {
+    "jacobian_evaluation": "jacobian_evaluation_time_in_seconds",
+    "scale_landmark_jacobian": "scale_landmark_jacobian_time_in_seconds",
+    "scale_pose_jacobian": "scale_pose_jacobian_time_in_seconds",
+    "perform_qr": "perform_qr_time_in_seconds",
+    "stage2": "stage2_time_in_seconds",
+    "landmark_damping": "landmark_damping_time_in_seconds",
+    "prepare": "prepare_time_in_seconds",
+    "compute_preconditioner": "compute_preconditioner_time_in_seconds",
+    "solve_reduced_system": "solve_reduced_system_time_in_seconds",
+    "back_substitution": "back_substitution_time_in_seconds",
+    "update_cameras": "update_cameras_time_in_seconds",
+}
+
+
+def _set_timings(it_summary: IterationSummary, tdict: dict) -> None:
+    """Copy staged per-stage wall times into the iteration summary."""
+    for k, v in tdict.items():
+        setattr(it_summary, _TIMING_FIELDS[k], float(v))
+
+
 def _optimize_lm_loop(
     *,
     options: SolverOptions,
     max_lm_iter: int,
     compute_error: Callable[[], ResidualInfo],
-    linearize: Callable[[], None],
-    trial: Callable[[float], Tuple[bool, int, float, ResidualInfo]],
+    linearize: Callable[[], Optional[dict]],
     accept: Callable[[], None],
     reject: Callable[[], None],
     summary: SolverSummary,
@@ -123,10 +148,17 @@ def _optimize_lm_loop(
     log: Callable[[str], None],
     accept_rule: str,  # "step1" (f_diff > 0) or "step2" (quality gate)
     initialize: Optional[Callable[[], None]] = None,
+    trial: Optional[Callable[[float],
+                             Tuple[bool, int, float, ResidualInfo]]] = None,
+    solve: Optional[Callable[[float], Tuple[bool, int, dict]]] = None,
+    apply_step: Optional[Callable[[], Tuple[float, dict]]] = None,
 ) -> None:
     """The LM loop of both steps (the reference duplicates this loop
     twice; the accept rule and the stage callbacks are the only
-    differences)."""
+    differences). With `trial` each trial is the fused solve + apply +
+    cost; without it, the staged one: `solve(lam)` -> (increment finite,
+    inner iterations, spans), the NaN check, `apply_step()` -> (l_diff,
+    spans), `compute_error()`; `linearize` returns its spans or None."""
     min_lambda = 1.0 / options.max_trust_region_radius
     max_lambda = 1.0 / options.min_trust_region_radius
     lam = 1.0 / options.initial_trust_region_radius
@@ -167,11 +199,14 @@ def _optimize_lm_loop(
             continue
 
         t_stage1 = Timer()
-        linearize()
+        t_lin = linearize()
         it_summary.stage1_time_in_seconds = t_stage1.elapsed()
-        it_summary.jacobian_evaluation_time_in_seconds = (
-            it_summary.stage1_time_in_seconds
-        )
+        if t_lin is None:
+            it_summary.jacobian_evaluation_time_in_seconds = (
+                it_summary.stage1_time_in_seconds
+            )
+        else:
+            _set_timings(it_summary, t_lin)
         summary.num_jacobian_evaluations += 1
 
         # inner backtracking loop (unlimited, cpp:337-340)
@@ -183,13 +218,17 @@ def _optimize_lm_loop(
                 timer_iteration = Timer()
             j += 1
 
-            # solve + apply + cost as one trial; the whole span lands in
-            # solve_reduced_system_time
-            t_solve = Timer()
-            step_ok, lin_iters, l_diff, ri2 = trial(lam)
-            it_summary.solve_reduced_system_time_in_seconds = (
-                t_solve.elapsed()
-            )
+            if trial is not None:
+                # solve + apply + cost as one trial; the whole span lands
+                # in solve_reduced_system_time
+                t_solve = Timer()
+                step_ok, lin_iters, l_diff, ri2 = trial(lam)
+                it_summary.solve_reduced_system_time_in_seconds = (
+                    t_solve.elapsed()
+                )
+            else:
+                step_ok, lin_iters, t_sol = solve(lam)
+                _set_timings(it_summary, t_sol)
             it_summary.linear_solver_iterations = int(lin_iters)
             summary.num_linear_solves += 1
 
@@ -219,6 +258,14 @@ def _optimize_lm_loop(
                     )
                 continue
 
+            if trial is None:
+                l_diff, t_app = apply_step()
+                _set_timings(it_summary, t_app)
+                t_res = Timer()
+                ri2 = compute_error()
+                it_summary.residual_evaluation_time_in_seconds = (
+                    t_res.elapsed()
+                )
             summary.num_residual_evaluations += 1
             it_summary.cost = ri2
 
@@ -392,10 +439,34 @@ def _trial_step(solver, state: _State, lin_box: dict):
     return trial_step
 
 
+def _staged_steps(solver, state: _State, lin_box: dict):
+    """The staged trial's callbacks under `detailed_timing` (solve_with_lam
+    / apply_step of the JAX package's optimize_step1 / optimize_step2):
+    the solve, whose increment's finiteness is read on the host, and the
+    apply, which stages the trial state and reads l_diff; each returns
+    its spans."""
+
+    def solve(lam):
+        lin_box["lam"] = lam
+        inc, iters, t = solver.solve_timed(lin_box["lin"], lam)
+        lin_box["inc"] = inc
+        return bool(torch.isfinite(inc).all()), int(iters), t
+
+    def apply_step():
+        new_cams, new_lms, l_diff, t = solver.apply_timed(
+            state.cams, state.lms, lin_box["lin"], lin_box.pop("inc"),
+            lin_box["lam"])
+        state.stage(new_cams, new_lms)
+        return float(l_diff), t
+
+    return solve, apply_step
+
+
 def _run(solver, state: _State, options: SolverOptions, accept_rule: str,
          max_lm_iter: int, summary: SolverSummary, timer_total: Timer,
          log: Callable[[str], None], initialize=None) -> None:
     lin_box = {}
+    detailed = options.detailed_timing
 
     def compute_error():
         return ResidualInfo.from_device(
@@ -403,14 +474,22 @@ def _run(solver, state: _State, options: SolverOptions, accept_rule: str,
         )
 
     def linearize():
+        if detailed:
+            lin_box["lin"], t = solver.linearize_timed(state.cams, state.lms)
+            return t
         lin_box["lin"] = solver.linearize(state.cams, state.lms)
+        return None
 
+    if detailed:
+        solve, apply_step = _staged_steps(solver, state, lin_box)
+        steps = dict(solve=solve, apply_step=apply_step)
+    else:
+        steps = dict(trial=_trial_step(solver, state, lin_box))
     _optimize_lm_loop(
         options=options,
         max_lm_iter=max_lm_iter,
         compute_error=compute_error,
         linearize=linearize,
-        trial=_trial_step(solver, state, lin_box),
         accept=state.accept,
         reject=state.reject,
         summary=summary,
@@ -418,6 +497,7 @@ def _run(solver, state: _State, options: SolverOptions, accept_rule: str,
         log=log,
         accept_rule=accept_rule,
         initialize=initialize,
+        **steps,
     )
 
 
@@ -454,8 +534,8 @@ def optimize_step1(
     """Step 1: pOSE VarProj LM (optimize_lm_ours_pOSE, cpp:252-542) with
     the solver's trial (POWER_VARPROJ, POWER_SCHUR_COMPLEMENT, PCG or
     CHOLESKY, whose staging in the JAX package only marks its jit
-    boundaries). Returns the optimized (cam_space [N, 3, 4], lm_p
-    [M, 3])."""
+    boundaries), or under `detailed_timing` its staged, timed trial.
+    Returns the optimized (cam_space [N, 3, 4], lm_p [M, 3])."""
     state = _State(cam_space, lm_p)
 
     def initialize():
@@ -487,8 +567,9 @@ def optimize_step2(
     log: Callable[[str], None] = print,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Step 2: Riemannian joint refinement (optimize_homogeneous_joint,
-    cpp:557-843) with the solver's trial (RIPOBA or RIPCG). Returns the
-    optimized (cam_space [N, 3, 4], lm_p_h [M, 4])."""
+    cpp:557-843) with the solver's trial (RIPOBA or RIPCG), or under
+    `detailed_timing` its staged, timed trial. Returns the optimized
+    (cam_space [N, 3, 4], lm_p_h [M, 4])."""
     state = _State(cam_space, solver.lm_pack(lm_p_h))
     if use_device_loop(options, solver, options.detailed_timing):
         _run_device_loop(solver, state, options, "step2",

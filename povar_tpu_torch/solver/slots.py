@@ -207,11 +207,6 @@ def common_unsupported(
     (the checks that do not depend on the step)."""
     if dtype not in (torch.float64, torch.float32):
         return f"LM state dtype {dtype} (the states are f64 and f32)"
-    if options.detailed_timing:
-        return (
-            "detailed_timing=True (ROADMAP.md queue 1 item 14, per-stage "
-            "timing)"
-        )
     return None
 
 
@@ -584,28 +579,50 @@ class SlotSolver:
         return pcg_mod.conjugate_gradients_dev(
             matvec, b, torch.zeros_like(b), precond, ctl=ctl, **kw)
 
-    def _power_solve_u(self, b, hpp, W, lam_s, ctl=None):
-        """The power series x = sum_i (B^-1 E0)^i B^-1 (-b), B = hpp +
-        lam I. Returns (inc [d, N] in the state dtype, terms)."""
+    def _power_prep_u(self, jp, jl, r, hll_inv, hll_inv_bl, lam_s):
+        """The power series' operands (`_power_prep` of the JAX package,
+        the `prepare` span): (-b, B^-1 with B = hpp + lam I, the
+        factorized E0 operand W)."""
+        hpp, b = self._hpp_b_u(jp, jl, r, hll_inv_bl)
+        w = self._e0_factor_u(jp, jl, hll_inv)
         eye = torch.eye(hpp.shape[0], dtype=hpp.dtype, device=hpp.device)
         b_inv = linalg.inv_psd_smallf(hpp + lam_s * eye[:, :, None])
+        return -b, b_inv, w
+
+    def _power_iterate_u(self, prep, ctl=None):
+        """The power series x = sum_i (B^-1 E0)^i B^-1 (-b) from
+        `_power_prep_u`'s operands (the `solve_reduced_system` span).
+        Returns (inc [d, N] in the state dtype, terms)."""
+        neg_b, b_inv, w = prep
         inc, n_iter = self._power_series(
-            lambda v: mv(b_inv, v), lambda v: self._e0_w_matvec(v, W), -b,
+            lambda v: mv(b_inv, v), lambda v: self._e0_w_matvec(v, w), neg_b,
             ctl)
         return inc.to(self.dtype), n_iter
 
-    def _pcg_solve_u(self, b, hpp, W, lam_s, schur_corr, ctl=None):
-        """PCG on the implicit reduced camera system S x = b,
-        S = hpp + lam I - E0, preconditioned per preconditioner_type from
-        the diagonal blocks less `schur_corr()`. Returns (inc = -x
-        [d, N] in the state dtype, CG iterations)."""
+    def _pcg_prep_u(self, jp, jl, r, hll_inv, hll_inv_bl):
+        """PCG's operands (`_pcg_prep` of the JAX package, the `prepare`
+        span): (b, hpp undamped, the factorized E0 operand W)."""
+        hpp, b = self._hpp_b_u(jp, jl, r, hll_inv_bl)
+        return b, hpp, self._e0_factor_u(jp, jl, hll_inv)
+
+    def _pcg_precond_u(self, jp, jl, hll_inv, hpp, lam_s):
+        """The preconditioner's materials (`_pcg_precond` of the JAX
+        package, the `compute_preconditioner` span) from the damped
+        diagonal blocks less their Schur corrections; none for
+        IDENTITY."""
+        if self.opts.preconditioner_type == PreconditionerType.IDENTITY:
+            return ()
         eye = torch.eye(hpp.shape[0], dtype=hpp.dtype, device=hpp.device)
-        pmats = (() if self.opts.preconditioner_type
-                 == PreconditionerType.IDENTITY else self._precond_mats(
-                     hpp + lam_s * eye[:, :, None] - schur_corr()))
+        return self._precond_mats(hpp + lam_s * eye[:, :, None]
+                                  - self._schur_corr_u(jp, jl, hll_inv))
+
+    def _pcg_iterate_u(self, b, hpp, w, lam_s, pmats, ctl=None):
+        """PCG on the implicit reduced camera system S x = b,
+        S = hpp + lam I - E0 (the `solve_reduced_system` span). Returns
+        (inc = -x [d, N] in the state dtype, CG iterations)."""
 
         def matvec(v):
-            return mv(hpp, v) + lam_s * v - self._e0_w_matvec(v, W)
+            return mv(hpp, v) + lam_s * v - self._e0_w_matvec(v, w)
 
         x, n_iter = self._cg(matvec, b, self._precond_closure(pmats), ctl)
         return (-x).to(self.dtype), n_iter

@@ -58,6 +58,7 @@ from povar_tpu_torch.options import (
     SolverType,
 )
 from povar_tpu_torch.solver import band_chol
+from povar_tpu_torch.solver.common import fused, timed_spans
 from povar_tpu_torch.solver.segments import slot_part_sums, slot_row_expand
 from povar_tpu_torch.solver.slots import (
     LmState, SlotSolver, mv,
@@ -157,7 +158,9 @@ class Stage1Solver(SlotSolver):
     linearize, solve_power, solve_pcg, solve_cholesky, solve, apply,
     apply_poba, trial, lm_pack, lm_unpack (there each is a jitted entry
     over a private method of the same name; here the public methods are
-    the implementations, dispatching on the layout of `lin`). Landmark
+    the implementations, dispatching on the layout of `lin`), and the
+    staged API of `detailed_timing`, linearize_timed, solve_timed and
+    apply_timed: the same pieces, each timed (solver/common.py). Landmark
     state may be passed canonical ([M, 3]) or packed (LmState); the
     unstructured layout keeps it canonical."""
 
@@ -280,21 +283,23 @@ class Stage1Solver(SlotSolver):
         `trial` runs every solver."""
         return self.opts.solver_type_step_1 != SolverType.CHOLESKY
 
-    def solve(self, lin, lam, ctl=None) -> Tuple[torch.Tensor, int]:
+    def solve(self, lin, lam, ctl=None, span=fused
+              ) -> Tuple[torch.Tensor, int]:
         """Dispatch on solver_type_step_1 (linearizor.cpp:46-61
         factory): (inc [12, N] in scaled coordinates, state dtype;
         power terms, CG iterations, or 0 for the direct solve).
         POWER_SCHUR_COMPLEMENT is the power series with the landmark
         blocks damped. With a control object `ctl` (the device LM loop,
         a 0-d tensor `lam`) the inner loops run their device forms and
-        the count is a 0-d tensor."""
+        the count is a 0-d tensor. `span` runs each piece
+        (solver/common.py)."""
         st = self.opts.solver_type_step_1
         if st == SolverType.PCG:
-            return self.solve_pcg(lin, lam, ctl)
+            return self.solve_pcg(lin, lam, ctl, span)
         if st == SolverType.CHOLESKY:
-            return self.solve_cholesky(lin, lam)
+            return self.solve_cholesky(lin, lam, span)
         return self.solve_power(lin, lam, landmark_damping=self.poba,
-                                ctl=ctl)
+                                ctl=ctl, span=span)
 
     def trial(self, cam_space, lm_p, lin, lam, ctl=None):
         """One LM backtracking trial: solve + apply + cost, with no host
@@ -321,6 +326,49 @@ class Stage1Solver(SlotSolver):
             new_cams, new_lms, l_diff = self.apply(cam_space, lm_p, lin, inc)
         err = self.compute_error(new_cams, new_lms)
         return new_cams, new_lms, inc_finite, n_iter, l_diff, err
+
+    # ----------------------------------------------- staged (timed) API
+    # linearize / solve / apply split at the reference's per-iteration
+    # timing boundaries (solver_summary.hpp:186-212; the JAX package's
+    # stage1.py:954-1140), each piece timed with a synchronisation after
+    # it: the same pieces, in the same order, as the fused methods run.
+
+    def linearize_timed(self, cam_space, lm_p):
+        """Returns (lin, timings): jacobian_evaluation,
+        scale_landmark_jacobian, scale_pose_jacobian."""
+        t = {}
+        return self.linearize(cam_space, lm_p,
+                              timed_spans(self.device, t)), t
+
+    def solve_timed(self, lin, lam):
+        """`solve` with per-stage times: returns (inc, lin_iters,
+        timings): stage2 (the Hll scale / damp / invert span),
+        landmark_damping (stage2 under POWER_SCHUR_COMPLEMENT, 0 for the
+        other power solve), prepare, compute_preconditioner (PCG and
+        CHOLESKY's PCG fallback), solve_reduced_system; CHOLESKY's
+        direct routes time stage2 and solve_reduced_system only."""
+        t = {}
+        inc, n_iter = self.solve(lin, lam, span=timed_spans(self.device, t))
+        if self.opts.solver_type_step_1 in (
+                SolverType.POWER_VARPROJ, SolverType.POWER_SCHUR_COMPLEMENT):
+            # the Hll span includes the poBA landmark damping
+            # (set_landmark_damping, linearizor_power_varproj.cpp:199-201)
+            t["landmark_damping"] = t["stage2"] if self.poba else 0.0
+        return inc, n_iter, t
+
+    def apply_timed(self, cam_space, lm_p, lin, inc_scaled, lam=None):
+        """The apply of the LM loop (`apply_poba` with `lam` under
+        POWER_SCHUR_COMPLEMENT, else `apply`) with its update_cameras and
+        back_substitution wall times: (new_cam_space, new_lm_p, l_diff,
+        timings)."""
+        t = {}
+        span = timed_spans(self.device, t)
+        if self.poba:
+            out = self.apply_poba(cam_space, lm_p, lin, inc_scaled, lam,
+                                  span)
+        else:
+            out = self.apply(cam_space, lm_p, lin, inc_scaled, span)
+        return (*out, t)
 
     def _hll_guard_L(self, hll: torch.Tensor) -> torch.Tensor:
         """Identity-guard the [3, 3, L] normal matrices of slot pad rows
@@ -409,25 +457,31 @@ class Stage1Solver(SlotSolver):
 
     # -------------------------------------------------------- linearize
 
-    def linearize(self, cam_space, lm_p):
+    def linearize(self, cam_space, lm_p, span=fused):
         """Stage-1 linearization (linearizor_power_varproj.cpp:44-76).
         Structured (`_linearize_s` of the JAX package): one `prepare`
         pass, the landmark slot sums, and the Jacobi scales; unstructured
         (`_linearize`): the weighted Jacobians, scaled per landmark and
-        per camera."""
+        per camera. Spans: jacobian_evaluation, scale_landmark_jacobian,
+        scale_pose_jacobian."""
         if self.unstructured:
-            r, Jp, Jl = self._lin_core(cam_space, lm_p)
-            Jl, jl_scale = self._lin_scale_jl(Jl)
-            Jp, pose_scale = self._lin_scale_jp(Jp)
+            r, Jp, Jl = span("jacobian_evaluation", self._lin_core,
+                             cam_space, lm_p)
+            Jl, jl_scale = span("scale_landmark_jacobian",
+                                self._lin_scale_jl, Jl)
+            Jp, pose_scale = span("scale_pose_jacobian", self._lin_scale_jp,
+                                  Jp)
             return Lin1(Jp=Jp, Jl=Jl, r=r, pose_scale=pose_scale,
                         jl_scale=jl_scale)
-        ct, x, r_w, sw, hll_raw, bl_raw, jpsq = self._lin_core_s(
-            cam_space, lm_p
+        ct, x, r_w, sw, hll_raw, bl_raw, jpsq = span(
+            "jacobian_evaluation", self._lin_core_s, cam_space, lm_p
         )
         return Lin1S(
             ct=ct, x=x, r_w=r_w, sw=sw, hll_raw=hll_raw, bl_raw=bl_raw,
-            jl_scale=self._lin_scale_jl_s(hll_raw),
-            pose_scale=self._lin_scale_jp_s(jpsq),
+            jl_scale=span("scale_landmark_jacobian", self._lin_scale_jl_s,
+                          hll_raw),
+            pose_scale=span("scale_pose_jacobian", self._lin_scale_jp_s,
+                            jpsq),
         )
 
     def _lin_core(self, cam_space, lm_p):
@@ -578,27 +632,28 @@ class Stage1Solver(SlotSolver):
         return apply
 
     def solve_power(self, lin, lam, landmark_damping: bool = False,
-                    ctl=None) -> Tuple[torch.Tensor, int]:
+                    ctl=None, span=fused) -> Tuple[torch.Tensor, int]:
         """POWER_VARPROJ (or, with `landmark_damping`, POWER_SCHUR_
         COMPLEMENT) solve (`_solve_power_s` of the JAX package):
         power-series expansion
         x = sum_i (B^-1 E0)^i B^-1 (-b)
         (linearizor_power_varproj.cpp:177-243 + hpp:191-237), with the
         landmark blocks damped by lam I for POWER_SCHUR_COMPLEMENT.
-        Returns (inc [12, N] in scaled coordinates, state dtype;
-        num_terms)."""
+        Spans: stage2, prepare, solve_reduced_system. Returns (inc [12, N]
+        in scaled coordinates, state dtype; num_terms)."""
         lam_s = self._solve_scalar(lam)
+        lam_l = lam_s if landmark_damping else None
         if isinstance(lin, Lin1):
-            hll_inv, hll_inv_bl = self._hll_inv_u(
-                lin.Jl, lin.r, lam_s if landmark_damping else None
-            )
-            hpp, b = self._hpp_b_u(lin.Jp, lin.Jl, lin.r, hll_inv_bl)
-            return self._power_solve_u(
-                b, hpp, self._e0_factor_u(lin.Jp, lin.Jl, hll_inv), lam_s,
-                ctl)
-        pieces = self._hll_pieces_s(lin, lam_s if landmark_damping else None)
-        prep = self._power_prep_s(lin, lam_s, pieces)
-        return self._power_iterate_s(lin, prep, ctl)
+            hll_inv, hll_inv_bl = span("stage2", self._hll_inv_u, lin.Jl,
+                                       lin.r, lam_l)
+            prep = span("prepare", self._power_prep_u, lin.Jp, lin.Jl,
+                        lin.r, hll_inv, hll_inv_bl, lam_s)
+            return span("solve_reduced_system", self._power_iterate_u, prep,
+                        ctl)
+        pieces = span("stage2", self._hll_pieces_s, lin, lam_l)
+        prep = span("prepare", self._power_prep_s, lin, lam_s, pieces)
+        return span("solve_reduced_system", self._power_iterate_s, lin, prep,
+                    ctl)
 
     def _power_prep_s(self, lin: Lin1S, lam_s, hll_pieces):
         _hll_inv, hib_obs, jls_obs, lh_obs = hll_pieces
@@ -615,26 +670,42 @@ class Stage1Solver(SlotSolver):
             lambda v: mv(b_inv, v), self._e0_apply_s(lin, h), nb, ctl)
         return inc.to(self.dtype), n_iter
 
-    def solve_pcg(self, lin, lam, ctl=None) -> Tuple[torch.Tensor, int]:
+    def solve_pcg(self, lin, lam, ctl=None, span=fused
+                  ) -> Tuple[torch.Tensor, int]:
         """PCG on the implicit reduced camera system S x = b,
         S = Hpp + lam I - E0 (`_solve_pcg_s` / `_solve_pcg` of the JAX
         package; linearizor_sc.cpp with conjugate_gradient.hpp),
-        preconditioned per options.preconditioner_type. Returns (inc = -x
-        [12, N] in scaled coordinates, state dtype; CG iterations)."""
+        preconditioned per options.preconditioner_type. Spans: stage2,
+        prepare, compute_preconditioner, solve_reduced_system. Returns
+        (inc = -x [12, N] in scaled coordinates, state dtype; CG
+        iterations)."""
         lam_s = self._solve_scalar(lam)
         if isinstance(lin, Lin1):
-            hll_inv, hll_inv_bl = self._hll_inv_u(lin.Jl, lin.r, None)
-            hpp, b = self._hpp_b_u(lin.Jp, lin.Jl, lin.r, hll_inv_bl)
-            return self._pcg_solve_u(
-                b, hpp, self._e0_factor_u(lin.Jp, lin.Jl, hll_inv), lam_s,
-                lambda: self._schur_corr_u(lin.Jp, lin.Jl, hll_inv), ctl,
-            )
-        _hll_inv, hib_obs, jls_obs, lh_obs = self._hll_pieces_s(lin)
+            hll_inv, hll_inv_bl = span("stage2", self._hll_inv_u, lin.Jl,
+                                       lin.r, None)
+            b, hpp, w = span("prepare", self._pcg_prep_u, lin.Jp, lin.Jl,
+                             lin.r, hll_inv, hll_inv_bl)
+            pmats = span("compute_preconditioner", self._pcg_precond_u,
+                         lin.Jp, lin.Jl, hll_inv, hpp, lam_s)
+            return span("solve_reduced_system", self._pcg_iterate_u, b, hpp,
+                        w, lam_s, pmats, ctl)
+        pieces = span("stage2", self._hll_pieces_s, lin)
+        b, hpp, h = span("prepare", self._pcg_prep_s, lin, pieces)
+        pmats = span("compute_preconditioner", self._pcg_precond_s, lin,
+                     lam_s, hpp, h)
+        return span("solve_reduced_system", self._pcg_iterate_s, lin, lam_s,
+                    b, hpp, h, pmats, ctl)
+
+    def _pcg_prep_s(self, lin: Lin1S, hll_pieces):
+        """(b, hpp undamped, the E0 factor h) of the structured PCG."""
+        _hll_inv, hib_obs, jls_obs, lh_obs = hll_pieces
         hpp, b = self._hpp_b_s(lin, hib_obs, jls_obs)
-        h = self._h_factor_s(lin, jls_obs, lh_obs)
-        precond = self._precond_closure(
-            self._pcg_precond_s(lin, lam_s, hpp, h)
-        )
+        return b, hpp, self._h_factor_s(lin, jls_obs, lh_obs)
+
+    def _pcg_iterate_s(self, lin: Lin1S, lam_s, b, hpp, h, pmats, ctl=None):
+        """The structured CG iterations. Returns (inc = -x [12, N] in the
+        state dtype, CG iterations)."""
+        precond = self._precond_closure(pmats)
         e0 = self._e0_apply_s(lin, h)
 
         def matvec(v):
@@ -657,7 +728,8 @@ class Stage1Solver(SlotSolver):
         eye = torch.eye(12, dtype=hpp.dtype, device=hpp.device)
         return self._precond_mats(hpp + lam_s * eye[:, :, None] - corr)
 
-    def solve_cholesky(self, lin: Lin1, lam) -> Tuple[torch.Tensor, int]:
+    def solve_cholesky(self, lin: Lin1, lam, span=fused
+                       ) -> Tuple[torch.Tensor, int]:
         """CHOLESKY (`solve_cholesky` of the JAX package; solve_direct_
         pOSE, linearization_sc.hpp:236-245), on the route chosen at
         construction (chol_route): the PCG fallback runs `solve_pcg`; the
@@ -673,15 +745,25 @@ class Stage1Solver(SlotSolver):
         f32: S is a difference) gives an all-NaN increment, which the LM
         loop rejects. Returns (inc [12, N] in scaled coordinates, state
         dtype; 0 linear-solver iterations, as the reference records, or
-        the fallback's CG iterations)."""
+        the fallback's CG iterations). Spans, as the JAX package's: stage2
+        (the landmark blocks) and solve_reduced_system (the camera side,
+        assembly and factorization); the fallback's are PCG's."""
         if self._chol_pcg_fallback:
-            return self.solve_pcg(lin, lam)
+            return self.solve_pcg(lin, lam, span=span)
         if not isinstance(lin, Lin1):
             raise TypeError("CHOLESKY runs on the unstructured layout: "
                             f"Lin1 expected, got {type(lin).__name__}")
         lam_s = self._solve_scalar(lam)
+        hll_inv, hll_inv_bl = span("stage2", self._hll_inv_u, lin.Jl, lin.r,
+                                   None)
+        return span("solve_reduced_system", self._chol_solve, lin, hll_inv,
+                    hll_inv_bl, lam_s)
+
+    def _chol_solve(self, lin: Lin1, hll_inv, hll_inv_bl, lam_s):
+        """The camera side of CHOLESKY's direct routes (`_chol_solve` /
+        `_chol_solve_banded` of the JAX package): hpp and b, then the
+        dense or the banded system, assembled and factored."""
         n, m = self.n_cams, self.n_lms
-        hll_inv, hll_inv_bl = self._hll_inv_u(lin.Jl, lin.r, None)
         hpp, b = self._hpp_b_u(lin.Jp, lin.Jl, lin.r, hll_inv_bl)
         if self._band_plan is not None:
             return self._chol_solve_band(lin, hll_inv, hpp, b, lam_s)
@@ -726,15 +808,18 @@ class Stage1Solver(SlotSolver):
 
     # ------------------------------------------------------------- apply
 
-    def apply(self, cam_space, lm_p, lin, inc_scaled):
+    def apply(self, cam_space, lm_p, lin, inc_scaled, span=fused):
         """Camera update + VarProj back-substitution
         (linearizor_power_varproj.cpp:245-263 `apply` +
-        sc/landmark_block.hpp:670-707 back_substitute_pOSE).
-        Returns (new_cam_space, new_lm_p, l_diff)."""
-        new_cam = self._update_cams(cam_space, lin, inc_scaled)
+        sc/landmark_block.hpp:670-707 back_substitute_pOSE). Spans:
+        update_cameras, back_substitution. Returns (new_cam_space,
+        new_lm_p, l_diff)."""
+        new_cam = span("update_cameras", self._update_cams, cam_space, lin,
+                       inc_scaled)
         back_sub = (self._back_sub if isinstance(lin, Lin1)
                     else self._back_sub_s)
-        new_lm, l_diff = back_sub(new_cam, lm_p, lin, inc_scaled)
+        new_lm, l_diff = span("back_substitution", back_sub, new_cam, lm_p,
+                              lin, inc_scaled)
         return new_cam, new_lm, l_diff
 
     def _update_cams(self, cam_space, lin, inc_scaled):
@@ -797,17 +882,19 @@ class Stage1Solver(SlotSolver):
             return LmState(rows=lm_p.rows + inc_lm.to(self.dtype))
         return lm_p + self._L_to_lm(inc_lm).to(self.dtype).T
 
-    def apply_poba(self, cam_space, lm_p, lin, inc_scaled, lam):
+    def apply_poba(self, cam_space, lm_p, lin, inc_scaled, lam, span=fused):
         """POWER_SCHUR_COMPLEMENT apply (`_apply_poba` of the JAX
         package): the camera update, then the classical LM back-
         substitution from the STORED scaled Jacobians with the landmark
         blocks damped by lam (back_substitute_poBA,
-        sc/landmark_block.hpp:625-668). Returns (new_cam_space, new_lm_p,
-        l_diff)."""
-        new_cam = self._update_cams(cam_space, lin, inc_scaled)
+        sc/landmark_block.hpp:625-668). Spans: update_cameras,
+        back_substitution. Returns (new_cam_space, new_lm_p, l_diff)."""
+        new_cam = span("update_cameras", self._update_cams, cam_space, lin,
+                       inc_scaled)
         back_sub = (self._back_sub_poba if isinstance(lin, Lin1)
                     else self._back_sub_poba_s)
-        new_lm, l_diff = back_sub(lm_p, lin, inc_scaled, lam)
+        new_lm, l_diff = span("back_substitution", back_sub, lm_p, lin,
+                              inc_scaled, lam)
         return new_cam, new_lm, l_diff
 
     def _back_sub_poba(self, lm_p, lin: Lin1, inc_scaled, lam):

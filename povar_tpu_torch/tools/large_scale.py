@@ -470,7 +470,7 @@ def band_residual(solver, lin, lam: float) -> float:
     """||S x - b|| / ||b|| of CHOLESKY's increment inc = -x at (lin,
     lam) on a stage-1 solver's banded route, with S applied matrix-free
     as PCG applies it (hpp + lam I less E0 through e0_u and e0_scatter,
-    slots._pcg_solve_u) in the solve dtype: an answer that shares
+    slots._pcg_iterate_u) in the solve dtype: an answer that shares
     nothing with the band's assembly and factorization but hpp and b."""
     from povar_tpu_torch.solver.slots import mv
 

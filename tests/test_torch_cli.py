@@ -14,8 +14,8 @@ byte-identical; both ba_log.json files have the same keys at every
 level; accept/reject decisions and the power-term counts of both steps
 are the same; the costs agree within the tolerances of
 test_cli_solve_matches_jax; `--dump-config` round-trips;
-povar_tpu.tools (its log loader and the report generator) read the
-port's log. And without a card the app refuses to solve unless given
+povar_tpu_torch.tools (its log loader and the report generator) read the
+port's log, as povar_tpu.tools does. And without a card the app refuses to solve unless given
 `--device cpu`; `--mesh-devices` above the card count exits 1; with
 `--device cpu`, `--mesh-devices 2` solves as two gloo ranks.
 """
@@ -134,14 +134,21 @@ def test_cli_solve_matches_jax(runs):
 
 
 def test_tools_read_the_port_log(runs, tmp_path):
-    """povar_tpu.tools.log loads the port's log, and the report
-    generator renders a cost table over both apps' runs."""
-    from povar_tpu.tools import report
-    from povar_tpu.tools.log import Log
+    """The port's report tools (povar_tpu_torch.tools, copies of
+    povar_tpu.tools) load the port's log, and their report generator
+    renders a cost table over both apps' runs; povar_tpu.tools, read as
+    a cross-check, loads the same numbers and renders the same table."""
+    from povar_tpu.tools import report as jax_report
+    from povar_tpu.tools.log import Log as JaxLog
+    from povar_tpu_torch.tools import report
+    from povar_tpu_torch.tools.log import Log
 
     log = Log.load(str(runs["torch"][2]))
     assert log.final_cost() > 0 and log.final_cost("iterations1") > 0
     assert log.problem_info.num_cameras == 12
+    jlog = JaxLog.load(str(runs["torch"][2]))
+    assert jlog.final_cost() == log.final_cost()
+    assert jlog.final_cost("iterations1") == log.final_cost("iterations1")
     for label in ("jax", "torch"):
         run = tmp_path / label / "mini-bal-12-48"
         run.mkdir(parents=True)
@@ -153,9 +160,13 @@ def test_tools_read_the_port_log(runs, tmp_path):
         '[[results]]\nclass = "results_table"\nname = "costs"\n'
         'metrics = ["cost"]\n'
     )
-    out = tmp_path / "results"
-    assert report.main([str(cfg), "-o", str(out)]) == 0
-    assert "mini-bal-12-48" in (out / "costs.txt").read_text()
+    tables = []
+    for main, out in ((report.main, tmp_path / "results"),
+                      (jax_report.main, tmp_path / "results_jax")):
+        assert main([str(cfg), "-o", str(out)]) == 0
+        tables.append((out / "costs.txt").read_text())
+    assert "mini-bal-12-48" in tables[0]
+    assert tables[0] == tables[1]
 
 
 def test_dump_config_round_trips(tmp_path, capsys, monkeypatch):

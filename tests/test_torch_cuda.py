@@ -42,7 +42,9 @@ device LM loop (solver/device_loop.py, csrc/lm.cu): `lm_step` bit for
 bit against its plain version on edge cases, a captured graph of nested
 WHILE and IF nodes against the same loops on the host, and the card's
 device loop against its host loop in pure f64 (decisions, counts, costs
-within 1e-9, launch counts rebuilt from the graph's region counts).
+within 1e-9, launch counts rebuilt from the graph's region counts). The
+staged host loop of `detailed_timing` on the card against the same on
+the CPU, on the small and ring problems, with its spans checked.
 
 Tolerances, with the scales of povar_tpu_torch/tools/parity.py:
 elementwise outputs 1e-5 entry by entry (against |plain| + the median
@@ -73,11 +75,14 @@ from povar_tpu_torch import (
 from povar_tpu_torch.options import SolverType, SolverTypeRiemannian
 from povar_tpu_torch.tools.parity import scaled_error
 from povar_tpu_torch.tools.pose2_ab import first_camera_rows
+from povar_tpu_torch.tools.stage_timing import check_spans
 from povar_tpu_torch.tools.step2_spread import (
     OVERFLOW_TOL,
+    RING_CONFIGS,
     RING_TOLS,
     SMALL_TOLS,
     overflow_case,
+    ring_case,
     ring_compare,
     ring_pipeline,
     small_case,
@@ -1138,6 +1143,62 @@ def test_ring_bundle_adjust_card_matches_cpu(cuda, config):
                                  RING_TOLS[config]):
         assert same
         assert gap <= rtol, gap
+
+
+# detailed_timing's cases: `small_case` configurations and `ring_pipeline`
+# ones, with the step-1 / step-2 solver each runs
+STAGED = {
+    "small defaults": ("POWER_VARPROJ", "RIPOBA"),
+    "small composed": ("POWER_VARPROJ", "RIPOBA"),
+    "ring psc": ("POWER_SCHUR_COMPLEMENT", "RIPOBA"),
+    "ring f32": ("POWER_VARPROJ", "RIPOBA"),
+    "ring off": ("POWER_VARPROJ", "RIPOBA"),
+    "ring cholesky": ("CHOLESKY", "RIPOBA"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STAGED))
+def test_staged_loop_card_matches_cpu(cuda, case):
+    """`detailed_timing`'s staged host loop on the card and on the CPU:
+    `small_case` with SolverOptions() defaults and the composed term,
+    `ring_case` with POWER_SCHUR_COMPLEMENT, the f32 state, the
+    unstructured layout and CHOLESKY. The same decisions and inner
+    counts in both steps, costs within SMALL_TOLS (final) / RING_TOLS
+    (every cost), the tolerances of the fused host loop, which runs the
+    same pieces; on the card every span its solvers fill > 0 in each
+    record with a valid step (tools/stage_timing.check_spans)."""
+    kind, config = case.split()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        if kind == "small":
+            jp, opts = small_case(config)
+            p, _c, _l = from_numpy(jp.obs_cam, jp.obs_lm, jp.obs_uv,
+                                   jp.cam_space, jp.lm_p, device="cpu")
+            dtype = torch.float64
+        else:
+            kw, dtype = RING_CONFIGS[config]
+            args, cam0, lm0 = ring_case()
+            p, _c, _l = from_numpy(*args[:3], cam0, lm0, device="cpu")
+            opts = SolverOptions(**kw)
+        opts.detailed_timing = True
+        runs[dev] = bundle_adjust(p, opts, log=lambda s: None, dtype=dtype,
+                                  device=dev)[1:]
+    for step, solver, g in zip((1, 2), STAGED[case], runs["cuda"]):
+        check_spans(step, solver, g)
+    if kind == "ring":
+        for (same, gap), rtol in zip(ring_compare(runs["cuda"], runs["cpu"]),
+                                     RING_TOLS[config]):
+            assert same
+            assert gap <= rtol, gap
+        return
+    for g, c, rtol in zip(runs["cuda"], runs["cpu"], SMALL_TOLS):
+        assert ([(it.step_is_successful, it.linear_solver_iterations)
+                 for it in g.iterations]
+                == [(it.step_is_successful, it.linear_solver_iterations)
+                    for it in c.iterations])
+        np.testing.assert_allclose(g.final_cost.all.error,
+                                   c.final_cost.all.error, rtol=rtol)
 
 
 @pytest.mark.cuda

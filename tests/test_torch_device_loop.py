@@ -379,9 +379,9 @@ def _ran_device_loop(monkeypatch):
 
 def test_eligibility_cholesky_and_detailed_timing(problem, monkeypatch):
     """CHOLESKY has no fused trial in the JAX package: "auto" runs its
-    host loop, "on" raises the JAX ValueError. `detailed_timing` (not
-    ported: its solver raises NotImplementedError, ROADMAP item 14) is
-    refused by the rule the same way. POWER_VARPROJ under "auto" takes
+    host loop, "on" raises the JAX ValueError. `detailed_timing` (the
+    staged host loop, tests/test_torch_timing.py) is refused by the rule
+    the same way. POWER_VARPROJ under "auto" takes
     the device loop."""
     seen = _ran_device_loop(monkeypatch)
     _step1(problem, _options(SolverOptions, "auto",

@@ -382,7 +382,8 @@ def _cfg(**kw):
 # (tests/test_torch_f64_steps.py holds it to the JAX package), and
 # device_lm_loop="on", refused as item 8 until the device loop was
 # ported (tests/test_torch_device_loop.py holds it to the host loop and
-# the JAX package).
+# the JAX package), and detailed_timing, refused as item 14 until its
+# staged loop was ported (tests/test_torch_timing.py).
 @pytest.mark.parametrize(
     "opts, dtype, match",
     [
@@ -392,7 +393,7 @@ def _cfg(**kw):
         (_cfg(pallas_kernels="off", mixed_precision_solves=False),
          torch.float64, None),
         (_cfg(device_lm_loop="on"), torch.float64, None),
-        (_cfg(detailed_timing=True), torch.float64, "item 14"),
+        (_cfg(detailed_timing=True), torch.float64, None),
     ],
     ids=["f64_solves", "f32_state_unstructured", "unstructured",
          "device_loop", "detailed_timing"],
@@ -401,9 +402,9 @@ def test_configurations_outside_the_slice_raise(geometry, opts, dtype,
                                                 match):
     """A refused configuration raises NotImplementedError naming its
     ROADMAP item; one that runs (no `match`: pure f64, on the
-    unstructured layout with f64 solves, or the device loop) builds on
-    the CPU and takes one LM iteration from the homogenized ring state
-    whose cost falls."""
+    unstructured layout with f64 solves, the device loop, or the staged
+    loop of detailed_timing) builds on the CPU and takes one LM iteration
+    from the homogenized ring state whose cost falls."""
     args, cam0, lm0 = geometry
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
