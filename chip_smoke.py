@@ -226,7 +226,37 @@ prints no result line):
               same decisions and power-term counts, every step-1 trial's
               cost and the step-2 trial's l_diff and cost within
               FINAL_TOLS;
-16a. band_chol  CHOLESKY at any camera count (solver/band_chol.py;
+16a. mesh_large_n  the SPMD window layout past 1,024 cameras on a
+              1-device mesh (`make_mesh(1)`), on large_n's venice-1778
+              and final-13682 problems: (a) each scale's plan at D = 1
+              (tools/large_scale.py plan_stats: plan and combine seconds,
+              lane utilization, windows and parts per class,
+              has_duplicates, lanes against observations); (b)
+              venice-1778: the mesh's first LARGE_N_ITERS step-1
+              iterations on the card's kernels (counters zeroed before,
+              read after) and on their plain versions, the slot kernels'
+              too: the same decisions and power-term counts, accepted
+              costs within MESH_LARGE_N_TOL; (c) venice-1778:
+              `bundle_adjust(mesh=make_mesh(1))` capped at MESH_BA_ITERS
+              (counters zeroed before), each step's accepted costs
+              falling; (d) final-13682: the mesh's first step-1
+              iteration and one step-2 trial at STEP2_LAMBDA from the
+              homogenized VarProj start (tools/large_scale.py
+              first_steps; counters zeroed before the kernels' run, read
+              after) on the kernels and on the plain versions: the same
+              decisions and counts, every step-1 trial's cost and the
+              trial's l_diff and cost within MESH_FINAL_TOLS; (e) the
+              three slot kernels at final-13682's lanes and slot rows on
+              seeded operands, bit for bit against their plain
+              versions, with the loop timer, events, the bound and the
+              view formulation's time; (f) D = 2 on the one card: two
+              gloo ranks on cuda:0 (tools/gloo_card.py, a harness, not a
+              user option; each rank first tries all_reduce, all_gather
+              and broadcast on CUDA tensors, which torch 2.11's gloo
+              takes), venice-1778's first LARGE_N_ITERS step-1
+              iteration against a 1-device mesh's: the same decisions
+              and counts, accepted costs within MESH_D2_TOL;
+16b. band_chol  CHOLESKY at any camera count (solver/band_chol.py;
               tools/large_scale.py band_run prints each run's route, bw,
               K, S, plan seconds and bytes, set-up seconds, ms of a
               trial, an assembly and a factorization and solve, and peak
@@ -253,7 +283,7 @@ prints no result line):
               the PCG fallback with its "falling back to PCG" warning,
               one trial with CG iterations; hpp_b's and
               cam_scatter_add's launches in each run printed;
-16b. detailed_timing  the staged host loop (`detailed_timing=True`;
+16c. detailed_timing  the staged host loop (`detailed_timing=True`;
               tools/stage_timing.py): (a) the venice-89 `bundle_adjust`
               with SolverOptions() defaults and detailed_timing (counters
               zeroed before, read after: the path's kernels, no lm
@@ -292,11 +322,12 @@ sum or broadcast for the three slot kernels; null for the others: no
 single PyTorch call computes their functions); then one entry
 `<name>@N13682` per route of LARGE_N_ROUTES, with large_n (a)'s numbers
 and the launches of the first final-13682 run of (d) that runs it
-(`launches_run`). lm_step and lm_condition replace no TPU kernel
-(`replaces` null); their launches are those of the device-loop runs,
-rebuilt from the graphs' region counts (solver/device_loop.py). The
-last line is
-{"ok": true, "device": {...}}. Needs the repository (the package and its
+(`launches_run`), and one per slot kernel with mesh_large_n (e)'s
+numbers and the launches of its (d). lm_step and lm_condition replace
+no TPU kernel (`replaces` null); their launches are those of the
+device-loop runs, rebuilt from the graphs' region counts
+(solver/device_loop.py). Each phase's line prints the seconds the
+script has run. The last line is {"ok": true, "device": {...}}. Needs the repository (the package and its
 kernel sources) beside this file; imports nothing of JAX.
 """
 
@@ -468,6 +499,34 @@ LARGE_N_ROUTES = ("prepare", "e0_factor", "e0_u_structured", "apply_ldiff",
                   "pose_error", "e0_term_parts", "poba_t3",
                   "apply_ldiff_stored", "prepare2", "mat_dot2", "ldiff2",
                   "e0_term2_parts", "e0_u", "e0_u_f64")
+# the mesh_large_n phase (the SPMD window layout on a 1-device mesh):
+# (b) venice-1778's first step-1 iteration and (d) final-13682's and
+# one step-2 trial at STEP2_LAMBDA from the homogenized VarProj start, on
+# the card's kernels and on their plain versions (the slot kernels'
+# too), relative, as LARGE_N_TOL and FINAL_TOLS: twice the largest
+# kernel-against-plain gap of `python -m povar_tpu_torch.tools.large_scale
+# spread --mesh` in two calls (venice-1778, 6 and 16 runs a side: 5.74e-6
+# and 6.60e-6, within the kernel runs <= 8.7e-7, within the plain ones,
+# whose index_add_ sums in a run-dependent order, <= 1.06e-5;
+# final-13682, 4 and 8 runs a side: step 1 3.76e-4 and 5.04e-4, within
+# the kernel runs 0, within the plain ones <= 6.8e-4; the step-2 trial
+# 1.17e-8 and 1.19e-8; NVIDIA H100 80GB HBM3, 700 W)
+MESH_LARGE_N_TOL = 1.32e-5
+MESH_FINAL_TOLS = (1.01e-3, 2.38e-8)
+# (c)'s capped bundle_adjust(mesh=make_mesh(1)) at venice-1778: step 2
+# starts from the LM loop's own point, where its first trials may be NaN
+# or rising by f32 rounding (tools/large_scale.py START2_ITERS), so it
+# gets as many iterations as final-13682's does; a step-2 iteration of
+# the mesh there takes ~35 ms of wall on an H100 (tools/large_scale.py
+# mesh)
+MESH_BA_ITERS = (3, 10)
+# (f) D = 2 on one card: venice-1778's first LARGE_N_ITERS step-1
+# iteration against a 1-device mesh's (the second trial is chaotic: a
+# 1-device mesh once rejected it at 2357 where D = 2 took 2158), accepted
+# costs within MESH_D2_TOL relative: twice the largest gap of any two runs
+# of `python -m povar_tpu_torch.tools.gloo_card --runs 8` (8 + 8 runs:
+# 7.71e-7, every run A with 1 term; NVIDIA H100 80GB HBM3, 700 W)
+MESH_D2_TOL = 1.55e-6
 # the banded CHOLESKY (the band_chol phase, solver/band_chol.py): (a)
 # the banded increment of one linearization against the dense one on the
 # card, relative in norm, mixed precision and pure f64, at venice-89 (one
@@ -657,10 +716,24 @@ BAND_RUNS = {
 PATHS.update(BAND_RUNS)
 # the detailed_timing phase's staged run: the host loop, no lm kernel
 PATHS["bundle_adjust staged"] = STEP1_FUSED | STEP2_FUSED
+# the mesh_large_n phase's runs (a mesh runs the composed terms and the
+# host loop); the slot kernels' `<name>@N13682` entries take their
+# launches from the last
+MESH_FINAL_RUN = "first steps spmd final-13682"
+PATHS.update({
+    "step 1 spmd venice-1778": STEP1_COMPOSED | SPMD,
+    "bundle_adjust spmd venice-1778": STEP1_COMPOSED | STEP2_COMPOSED | SPMD,
+    MESH_FINAL_RUN: STEP1_COMPOSED | STEP2_COMPOSED | SPMD,
+})
+
+
+T_START = time.perf_counter()
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """Open a phase: its name and the script's seconds so far."""
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -2872,7 +2945,7 @@ def check_device_loop(problem, counts):
 
 
 def check_detailed_timing(problem, counts):
-    """The detailed_timing phase (16b in the module docstring): (a) the
+    """The detailed_timing phase (16c in the module docstring): (a) the
     staged `bundle_adjust` with defaults, its spans and medians, the
     three loops' wall ms per iteration; (b) pure f64 step 1, staged
     against the fused host loop, POWER_VARPROJ and CHOLESKY; (c) the
@@ -3184,8 +3257,151 @@ def check_large_n(counts, keep):
     return {f"{name}@N{LARGE_N}": timed[name] for name in LARGE_N_ROUTES}
 
 
+def check_mesh_large_n(counts, large):
+    """The mesh_large_n phase (16a in the module docstring). `large`: the
+    venice-1778 and final-13682 problems the large_n phase made. Returns
+    the `kernels` line's `<slot kernel>@N13682` entries."""
+    from povar_tpu_torch import SolverOptions, make_mesh
+    from povar_tpu_torch.ops import launches, spmd_kernels, spmd_ref
+    from povar_tpu_torch.tools import gloo_card
+    from povar_tpu_torch.tools.large_scale import (
+        LARGE_N_ITERS, STEP2_LAMBDA, accepted_costs, first_iterations,
+        first_steps, plan_stats, stage_solvers,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    defaults = SolverOptions()
+    # (a) each scale's plan at D = 1, kept on the problem for the mesh
+    # solvers below
+    for scale in ("venice-1778", "final-13682"):
+        plan_stats(large[scale], 1, f"(a) {scale}", trace=False)
+
+    # (b) venice-1778: the mesh's first step-1 iterations on the card's
+    # kernels and on their plain versions, one mesh stage-1 solver
+    t0 = time.perf_counter()
+    pc = large["venice-1778"]
+    s1, _s2 = stage_solvers(pc, defaults, make_mesh(1))
+    print(f"(b) venice-1778 mesh solvers set up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    path = "step 1 spmd venice-1778"
+    launches.reset_launch_counts()
+    got, secs_k = first_iterations(pc, False, stage1=s1)
+    counts[path] = launches.launch_counts()
+    check_counts(path, counts[path])
+    want, secs_p = first_iterations(pc, True, stage1=s1)
+    check_same_run(f"(b) venice-1778 mesh step 1, first {LARGE_N_ITERS} "
+                   "iterations", got, want, MESH_LARGE_N_TOL)
+    print(f"(b) {secs_k:.2f} s on the kernels, {secs_p:.2f} s on the plain "
+          "versions", flush=True)
+    del s1, _s2
+
+    # (c) venice-1778: bundle_adjust on the 1-device mesh, capped
+    t0 = time.perf_counter()
+    path = "bundle_adjust spmd venice-1778"
+    ba = SolverOptions(max_num_iterations_step_1=MESH_BA_ITERS[0],
+                       max_num_iterations_step_2=MESH_BA_ITERS[1])
+    launches.reset_launch_counts()
+    _out, p1, p2, secs = pipeline(pc, ba, "cuda", mesh=True)
+    counts[path] = launches.launch_counts()
+    check_counts(path, counts[path])
+    for step, summary in ((1, p1), (2, p2)):
+        costs = accepted_costs(summary)
+        print(f"(c) {path} step {step}: {len(summary.iterations)} records, "
+              f"{costs[0]!r} -> {costs[-1]!r}", flush=True)
+        check_falling(f"{path} step {step}", costs)
+        if len(costs) < 2:
+            raise AssertionError(f"{path} step {step}: no step taken")
+    print(f"(c) bundle_adjust(mesh=make_mesh(1)) {secs:.2f} s with its plan; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (d) final-13682: the mesh's first step-1 iteration and one step-2
+    # trial from the homogenized VarProj start, on the card's kernels
+    # (counters zeroed before, read after) and on their plain versions
+    t0 = time.perf_counter()
+    pd = large["final-13682"]
+    s1, s2 = stage_solvers(pd, defaults, make_mesh(1))
+    print(f"(d) final-13682 mesh solvers set up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    path = MESH_FINAL_RUN
+    launches.reset_launch_counts()
+    got1, got2, start2, secs_k = first_steps(pd, s1, s2, False)
+    counts[path] = launches.launch_counts()
+    check_counts(path, counts[path])
+    want1, want2, _start2, secs_p = first_steps(pd, s1, s2, True, start2)
+    check_same_run(f"(d) final-13682 mesh step 1, first {LARGE_N_ITERS} "
+                   "iteration, every trial's cost", got1, want1,
+                   MESH_FINAL_TOLS[0], every=True)
+    gap2 = max(abs(got2[k] - want2[k]) / abs(want2[k])
+               for k in ("l_diff", "cost"))
+    print(f"(d) final-13682 mesh step-2 trial at lambda {STEP2_LAMBDA:g}: "
+          f"kernels {got2}, plain versions {want2}; largest gap {gap2:.3e} "
+          f"(tolerance {MESH_FINAL_TOLS[1]:g})", flush=True)
+    if (got2["ok"], got2["terms"]) != (want2["ok"], want2["terms"]) or not (
+            got2["ok"] and gap2 <= MESH_FINAL_TOLS[1]):
+        raise AssertionError(f"(d) final-13682 mesh step-2 trial: kernels "
+                             f"{got2} vs plain versions {want2}")
+    print(f"(d) {secs_k:.2f} s on the kernels, {secs_p:.2f} s on the plain "
+          f"versions, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    # (e) the three slot kernels at final-13682's slot-row counts, on
+    # seeded operands of the mesh's layout, against their plain versions
+    # (bit for bit), with the loop timer, events and the bound
+    lay = s1.layout
+    o_dev, n_rows = spmd_ref.layout_sizes(lay)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    operands = {"class_part_sums": (9, o_dev),
+                "class_expand_rows": (3, n_rows),
+                "class_reduce_reexpand": (3, o_dev)}
+    timed = {}
+    for name, shape in operands.items():
+        kernel = getattr(spmd_kernels, name)
+        plain = getattr(spmd_ref, name)
+        x = torch.randn(shape, generator=gen, device="cuda")
+        out = kernel(x, lay)
+        torch.cuda.synchronize()
+        if not torch.equal(out, plain(x, lay)):
+            raise AssertionError(f"(e) {name}: kernel != plain version at "
+                                 f"{shape}")
+        moved = (x.numel() + out.numel()) * 4
+        res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: kernel(x, lay)),
+                   plain_ms=cuda_ms(lambda: plain(x, lay)),
+                   bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                   library_ms=cuda_ms(spmd_library(name, x, lay)),
+                   loop_ms=loop_ms(lambda: kernel(x, lay)))
+        timed[name] = res
+        print(f"(e) {name:<22} bit-equal at {shape} -> {tuple(out.shape)} "
+              f"(o_dev {o_dev}, {n_rows} slot rows): loop "
+              f"{res['loop_ms'] * 1e3:.1f} us, events kernel "
+              f"{res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms view "
+              f"formulation {res['library_ms']:.4f} ms, bound "
+              f"{res['bound_ms'] * 1e3:.1f} us", flush=True)
+    del s1, s2, start2
+
+    # (f) D = 2 on the one card: two gloo ranks on cuda:0
+    # (tools/gloo_card.py, a harness, not a user option), each first
+    # trying the mesh's collectives on CUDA tensors; venice-1778's first
+    # LARGE_N_ITERS step-1 iteration against a 1-device mesh's
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    gap = gloo_card.compare(1)
+    print(f"(f) D = 2 on one card: largest cost gap {gap:.3e} (tolerance "
+          f"{MESH_D2_TOL:g}); {time.perf_counter() - t0:.1f} s", flush=True)
+    if not gap <= MESH_D2_TOL:
+        raise AssertionError(f"(f) D = 2 against D = 1: cost gap {gap:.3e} "
+                             f"(> {MESH_D2_TOL:g})")
+    # the plans leave the problems: the band_chol phase copies them
+    for problem in large.values():
+        vars(problem).pop("_spmd_plan_cache", None)
+    print(f"mesh_large_n phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {f"{name}@N{LARGE_N}": res for name, res in timed.items()}
+
+
 def check_band_chol(problem, counts, large):
-    """The band_chol phase (16a in the module docstring). `large`: the
+    """The band_chol phase (16b in the module docstring). `large`: the
     venice-1778 and final-13682 problems the large_n phase made."""
     from povar_tpu_torch import SolverOptions, Stage1Solver
     from povar_tpu_torch.options import SolverType
@@ -3689,6 +3905,10 @@ def main() -> int:
     large = {}
     results.update(check_large_n(counts, large))
 
+    phase("mesh_large_n (the SPMD window layout past 1024 cameras on a "
+          "1-device mesh: venice-1778, final-13682)")
+    results.update(check_mesh_large_n(counts, large))
+
     phase("band_chol (CHOLESKY at any camera count: the banded "
           "factorization, its full band and its PCG fallback)")
     check_band_chol(problem, counts, large)
@@ -3710,19 +3930,23 @@ def main() -> int:
 
     def entry(m, name, route=None):
         base = name.removesuffix("_f64")
-        count, run = (launched(name) if route is None
-                      else launched(name, LARGE_N_RUNS))
+        count, run = (
+            launched(name) if route is None
+            else launched(name, {MESH_FINAL_RUN: PATHS[MESH_FINAL_RUN]})
+            if name in SPMD else launched(name, LARGE_N_RUNS))
         key = name if route is None else f"{name}@N{route}"
         return dict(name=key, route="cuda",
                     source=SOURCES[m.__name__.split(".")[-1]],
                     replaces=REPLACES[base], launches=count,
                     launches_run=run, **results[key])
 
+    print(f"chip_smoke {time.perf_counter() - T_START:.1f} s in all",
+          flush=True)
     print(json.dumps({"kernels": [
         entry(m, name) for m in launches.MODULES for name in m.LAUNCHES
     ] + [
         entry(m, name, LARGE_N) for m in launches.MODULES
-        for name in m.LAUNCHES if name in LARGE_N_ROUTES
+        for name in m.LAUNCHES if name in LARGE_N_ROUTES or name in SPMD
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

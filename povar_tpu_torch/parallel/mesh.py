@@ -11,7 +11,8 @@ and layout overrides are those of any mesh, as with the JAX package's
 `make_mesh(1)`.
 
 NCCL refuses two ranks on one GPU, so a mesh of D ranks on the card
-needs D cards; the CPU runs any D (`spawn(fn, D, "cpu")`). JAX's GSPMD
+needs D cards; the CPU runs any D (`spawn(fn, D, "cpu")`). A mesh takes
+any camera count (venice-1778 and final-13682 on one card). JAX's GSPMD
 fallback (`pad_obs_to_multiple`, `shard_obs`, `make_sharded_solver`) is
 not ported: the configurations it serves raise NotImplementedError on a
 mesh (parallel/spmd.spmd_unsupported).
@@ -90,10 +91,9 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda") -> Mesh:
     return Mesh(rank=rank, size=size, device=_device(device, rank))
 
 
-def _rank_main(rank, fn, n, device, args, out_dir):
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
-    if backend == "nccl":
-        torch.cuda.set_device(rank)
+def _rank_main(rank, fn, n, device, backend, args, out_dir):
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(_device(device, rank))
     else:  # the ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
     # rendezvous through a file of the run's own directory: no port to
@@ -109,6 +109,22 @@ def _rank_main(rank, fn, n, device, args, out_dir):
         pickle.dump(out, f)
 
 
+def _spawn_ranks(fn: Callable, n: int, device, backend: str,
+                 args: Sequence = ()) -> List:
+    """fn(mesh, *args) on n ranks of `backend`, rank r on
+    _device(device, r), one process each; the ranks' results in rank
+    order (`spawn`, which picks the backend)."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.multiprocessing.spawn(
+            _rank_main, args=(fn, n, device, backend, tuple(args), out_dir),
+            nprocs=n, join=True)
+        out = []
+        for r in range(n):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
 def spawn(fn: Callable, n: int, device="cuda", args: Sequence = ()) -> List:
     """Run fn(mesh, *args) on n ranks, one process each
     (`torch.multiprocessing.spawn`, a process group that meets in a file
@@ -117,16 +133,9 @@ def spawn(fn: Callable, n: int, device="cuda", args: Sequence = ()) -> List:
     and its result must pickle (the results pass through that
     directory); a failing rank raises here and ends the others, and a
     collective whose peer is lost fails its rank after PG_TIMEOUT_S."""
-    if torch.device(device).type == "cuda":
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if n > have:
             raise RuntimeError(f"spawn({n}, 'cuda'): {have} CUDA devices")
-    with tempfile.TemporaryDirectory() as out_dir:
-        torch.multiprocessing.spawn(
-            _rank_main, args=(fn, n, device, tuple(args), out_dir),
-            nprocs=n, join=True)
-        out = []
-        for r in range(n):
-            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
-                out.append(pickle.load(f))
-    return out
+    return _spawn_ranks(fn, n, device, "nccl" if cuda else "gloo", args)

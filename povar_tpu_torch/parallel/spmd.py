@@ -9,7 +9,12 @@ device-stacked slot-row -> landmark reduce). It must come out array for
 array as the JAX package's: the tests hold it to that. It leaves out
 the JAX plan's window maps of the TPU kernels (cam_local, kmap,
 win_gather, win_scatter): a GPU kernel gathers a camera row by its
-global index (plan.cam).
+global index (plan.cam), so the plan, like the one-device path, takes
+any camera count (the TPU's 1,024-camera one-hot limit does not apply).
+Where the JAX package's plan steps through rows, landmarks and windows
+in Python, the port's computes the same arrays with whole-array numpy
+(`_split_clones`, the fill by slot width): final-13682's
+~4.6M slot rows.
 
 The execution half replaces `shard_map` and `psum` by one process per
 device (parallel/mesh.py). `SpmdStage1Solver` / `SpmdStage2Solver` are
@@ -29,7 +34,6 @@ order, each rank holding its shard of m_dev landmarks (`pad_landmarks`,
 
 from __future__ import annotations
 
-from collections import defaultdict
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -38,19 +42,15 @@ import torch
 from povar_tpu_torch.ops import spmd_kernels
 from povar_tpu_torch.options import SolverOptions, SolverType
 from povar_tpu_torch.solver.segments import (
-    SLOT_EXACT_MAX,
     PaddedReduce,
     _build_padded_reduce,
     build_window_plan,
     choose_window_width,
     padded_segment_sum,
     plan_camera_order,
+    slot_widths,
 )
-from povar_tpu_torch.solver.slots import (
-    MAX_CAMERAS,
-    Obs,
-    common_unsupported,
-)
+from povar_tpu_torch.solver.slots import Obs, common_unsupported
 from povar_tpu_torch.solver.stage1 import Stage1Solver
 from povar_tpu_torch.solver.stage2 import Stage2Solver
 
@@ -61,12 +61,6 @@ PART_ALIGN = 4096
 # per-part row caps are padded to this so the [w, cap] reshape in
 # spmd_part_sums / spmd_expand_rows keeps cap on the 128-lane tile
 ROW_ALIGN = 128
-
-
-def _width(c: int) -> int:
-    if c <= SLOT_EXACT_MAX:
-        return int(c) if c > 0 else 1
-    return 1 << int(np.ceil(np.log2(c)))
 
 
 class ClassLayout(NamedTuple):
@@ -107,17 +101,54 @@ class SpmdPlan(NamedTuple):
     lane_utilization: float  # real obs lanes / total lanes
 
 
-def _assign_overflow(ovf_lms, ovf_obs_counts, n_dev):
+def _assign_overflow(ovf_obs_counts, n_dev):
     """Balance overflow landmarks over devices by observation count
-    (largest first)."""
-    loads = np.zeros(n_dev)
-    assign = {}
+    (largest first, each to the least loaded device, the first of equal
+    loads): the device of each. Exact integer loads in Python, one step
+    a landmark."""
+    dev = np.zeros(len(ovf_obs_counts), dtype=np.int64)
+    if n_dev == 1:
+        return dev
     order = np.argsort(-ovf_obs_counts)
-    for i in order:
-        d = int(np.argmin(loads))
-        assign[int(ovf_lms[i])] = d
-        loads[d] += ovf_obs_counts[i]
-    return assign
+    loads = [0] * n_dev
+    out = []
+    for c in ovf_obs_counts[order].tolist():
+        d = loads.index(min(loads))
+        out.append(d)
+        loads[d] += c
+    dev[order] = out
+    return dev
+
+
+def _split_clones(group, width, caps):
+    """Every window's rows split into fixed-profile clones, for all
+    windows at once: rows (given in ascending row order) grouped by
+    `group` (ascending), within a group by width, chunk k of a group's
+    rows of width w (caps[w] rows a chunk) going to the group's k-th
+    clone. Returns (clone [R]: global clone index, groups in order;
+    slot [R]: the row's place in its clone's part of width w; the
+    clones of each group present, in group order)."""
+    n = len(group)
+    cap = np.zeros(max(caps) + 1, dtype=np.int64)
+    for w, c in caps.items():
+        cap[w] = c
+    order = np.argsort(group * len(cap) + width, kind="stable")
+    g_s, w_s = group[order], width[order]
+    new = np.ones(n, dtype=bool)
+    new[1:] = (g_s[1:] != g_s[:-1]) | (w_s[1:] != w_s[:-1])
+    run0 = np.nonzero(new)[0]
+    rank = np.arange(n) - np.repeat(run0, np.diff(np.append(run0, n)))
+    k = rank // cap[w_s]
+    g_new = np.ones(n, dtype=bool)
+    g_new[1:] = g_s[1:] != g_s[:-1]
+    g0 = np.nonzero(g_new)[0]
+    per_group = np.maximum.reduceat(k + 1, g0)
+    first = np.cumsum(per_group) - per_group
+    clone = np.empty(n, dtype=np.int64)
+    slot = np.empty(n, dtype=np.int64)
+    clone[order] = np.repeat(first, np.diff(np.append(g0, n))) + k
+    slot[order] = rank % cap[w_s]
+    return clone, slot, per_group
 
 
 def build_spmd_plan(
@@ -137,7 +168,6 @@ def build_spmd_plan(
     shard_map sees one program."""
     obs_cam = np.asarray(obs_cam, dtype=np.int64)
     obs_lm = np.asarray(obs_lm, dtype=np.int64)
-    o_real = len(obs_cam)
 
     pos = plan_camera_order(obs_cam, obs_lm, num_cameras, num_landmarks)
     cam_plan = obs_cam if pos is None else pos[obs_cam]
@@ -147,7 +177,7 @@ def build_spmd_plan(
     )
     n_rows = len(row_lm)
     row_counts = np.bincount(obs_row, minlength=n_rows)
-    row_width = np.array([_width(c) for c in row_counts], dtype=np.int64)
+    row_width = slot_widths(row_counts)
 
     # overflow landmarks own >1 row (a span > width always crosses >= 2
     # width-aligned grid cells); normal landmarks exactly 1
@@ -210,78 +240,48 @@ def build_spmd_plan(
 
     caps0 = make_caps(norm_rows, 256)
     caps1 = make_caps(row_is_grid, 64)
+    D = n_dev
 
-    def split_clones(rows, caps):
-        """Rows of one window -> list of per-clone row lists (chunked
-        per width by the fixed caps)."""
-        by_w = {}
-        for rr in rows:
-            by_w.setdefault(int(row_width[rr]), []).append(rr)
-        n_clones = max(
-            (
-                -(-len(v) // caps[w])
-                for w, v in by_w.items()
-            ),
-            default=1,
-        )
-        clones = [[] for _ in range(n_clones)]
-        for w, v in by_w.items():
-            c = caps[w]
-            for j in range(0, len(v), c):
-                clones[j // c].extend(v[j : j + c])
-        return clones
-
-    # class 0: natural normal windows -> clones, in window order
-    clones0 = []  # (start_plan, [rows])
-    if norm_rows.any():
-        rows_by_win = {}
-        for rr in np.nonzero(norm_rows)[0]:
-            rows_by_win.setdefault(int(row_window[rr]), []).append(rr)
-        for wwin in sorted(rows_by_win):
-            for rows in split_clones(rows_by_win[wwin], caps0):
-                clones0.append((int(win_start[wwin]), rows))
-    # contiguous equal-count device split (clones are equal-sized)
-    n0 = len(clones0)
-    clone0_dev = (
-        np.arange(n0) * n_dev // max(n0, 1) if n0 else np.array([], int)
-    )
+    # class 0: the natural windows' normal rows -> clones, in window
+    # order, split over devices contiguously in equal counts (clones are
+    # equal-sized)
+    rows0 = np.nonzero(norm_rows)[0]
     lm_dev = np.full(num_landmarks, -1, dtype=np.int64)
-    for ci, (_st, rows) in enumerate(clones0):
-        for rr in rows:
-            lm_dev[row_lm[rr]] = clone0_dev[ci]
+    if len(rows0):
+        clone0, slot0, per_win = _split_clones(
+            row_window[rows0].astype(np.int64), row_width[rows0], caps0)
+        n0 = int(per_win.sum())
+        clone0_dev = np.arange(n0) * D // n0
+        dev0 = clone0_dev[clone0]
+        win0 = clone0 - np.searchsorted(clone0_dev, np.arange(D))[dev0]
+        lm_dev[row_lm[rows0]] = dev0
+        n_norm_dev = int(np.bincount(clone0_dev, minlength=D).max())
+    else:
+        n_norm_dev = 0
 
-    # overflow landmarks: balance by obs count, then clone each
-    # device's grid cells
-    grid_rows_idx = np.nonzero(row_is_grid)[0]
-    clones1_by_dev = {d: [] for d in range(n_dev)}
-    ovf_lms = np.nonzero(is_ovf_lm)[0]
-    if len(ovf_lms):
+    # class 1, overflow landmarks: balanced over devices by obs count,
+    # then each device's grid cells cloned
+    rows1 = np.nonzero(row_is_grid)[0]
+    n_grid_dev = 0
+    if len(rows1):
+        ovf_lms = np.nonzero(is_ovf_lm)[0]
         ovf_counts = np.bincount(
             row_lm, weights=row_counts.astype(np.float64),
             minlength=num_landmarks,
         )[ovf_lms].astype(np.int64)
-        assign = _assign_overflow(ovf_lms, ovf_counts, n_dev)
-        for m, d in assign.items():
-            lm_dev[m] = d
-        # one pass over grid rows grouped by (device, cell) — not a
-        # per-device rescan of all grid rows
-        grid_dev = lm_dev[row_lm[grid_rows_idx]]
-        grid_cell = win_start[row_window[grid_rows_idx]] // width
-        by_dev_cell = defaultdict(list)
-        for rr, gd, cell in zip(
-            grid_rows_idx, grid_dev, grid_cell
-        ):
-            by_dev_cell[(int(gd), int(cell))].append(rr)
-        for (d, cell) in sorted(by_dev_cell):
-            for rows in split_clones(by_dev_cell[(d, cell)], caps1):
-                clones1_by_dev[d].append((cell * width, rows))
-
-    n_norm_dev = (
-        int(np.bincount(clone0_dev, minlength=n_dev).max()) if n0 else 0
-    )
-    n_grid_dev = max(
-        (len(v) for v in clones1_by_dev.values()), default=0
-    )
+        lm_dev[ovf_lms] = _assign_overflow(ovf_counts, D)
+        dev1 = lm_dev[row_lm[rows1]]
+        cell = win_start[row_window[rows1]] // width
+        n_cell = int(cell.max()) + 1
+        key1 = dev1 * n_cell + cell
+        clone1, slot1, per_cell = _split_clones(key1, row_width[rows1],
+                                                caps1)
+        # a device's clones are contiguous, its cells in order
+        dev_clones = np.bincount(np.unique(key1) // n_cell,
+                                 weights=per_cell, minlength=D).astype(
+            np.int64)
+        win1 = clone1 - (np.cumsum(dev_clones) - dev_clones)[dev1]
+        n_grid_dev = int(dev_clones.max())
 
     def class_layout(n_windows, caps):
         parts = tuple(
@@ -307,19 +307,7 @@ def build_spmd_plan(
         cl.n_windows * sum(c for c, _w in cl.parts) for cl in layout
     )
 
-    # ---- fill per-device arrays --------------------------------------
-    order = np.argsort(obs_row, kind="stable")
-    row_obs_start = np.searchsorted(obs_row[order], np.arange(n_rows))
-    row_obs_end = np.searchsorted(obs_row[order], np.arange(n_rows) + 1)
-
-    D = n_dev
-    perm = np.zeros(D * o_dev, dtype=np.int64)
-    pad_w = np.zeros(D * o_dev)
-    cam_lane = np.zeros(D * o_dev, dtype=np.int64)
-    lm_lane = np.zeros(D * o_dev, dtype=np.int32)
-    lm_order = np.zeros(D * n_rows_dev, dtype=np.int32)
-    row_lm_ext_all = np.zeros(D * n_rows_dev, dtype=np.int64)
-
+    # ---- landmark shards ---------------------------------------------
     m_dev = 0
     dev_lms: List[np.ndarray] = []
     for d in range(D):
@@ -329,104 +317,80 @@ def build_spmd_plan(
     m_dev = max(m_dev, 1)
     lm_mask = np.zeros(D * m_dev)
     lm_perm = np.zeros(num_landmarks, dtype=np.int64)
-
-    real_lanes = 0
-    for d in range(D):
-        dl = dev_lms[d]
+    local_of = np.zeros(num_landmarks, dtype=np.int64)
+    for d, dl in enumerate(dev_lms):
         lm_mask[d * m_dev : d * m_dev + len(dl)] = 1.0
         lm_perm[dl] = d * m_dev + np.arange(len(dl))
-        local_of = np.zeros(num_landmarks, dtype=np.int64)
         local_of[dl] = np.arange(len(dl))
 
-        # device-local windows: its class-0 clones in order, then its
-        # grid clones, then fakes
-        my0 = [clones0[i] for i in range(n0) if clone0_dev[i] == d]
-        my1 = clones1_by_dev.get(d, [])
-        lane_base = d * o_dev
-        row_base = d * n_rows_dev
-        lane_ofs = 0
-        class_row_ofs = 0  # rows before the current class
+    # ---- fill per-device arrays --------------------------------------
+    # each row's first lane and its slot row: a device holds its class-0
+    # clones, then its grid clones, then fakes; in a window, part (cap,
+    # w) lays slot element j of its i-th row on lane part_ofs + j*cap +
+    # i, and the slot rows run (class, part, window, row-in-part) so the
+    # vectorized per-class reduce (spmd_part_sums) matches
+    row_lane = np.zeros(n_rows, dtype=np.int64)
+    row_slot = np.zeros(n_rows, dtype=np.int64)
+    classes = []
+    if n_norm_dev:
+        classes.append((layout[0], rows0, dev0, win0, slot0))
+    if n_grid_dev:
+        classes.append((layout[-1], rows1, dev1, win1, slot1))
+    lane_ofs = row_ofs = 0
+    for cl, rows, dev, win, slot in classes:
+        part_lane = np.zeros(int(WIDTHS.max()) + 1, dtype=np.int64)
+        part_row = np.zeros_like(part_lane)
+        cap = np.zeros_like(part_lane)
+        p = part_rows = 0
+        for c, w in cl.parts:
+            part_lane[w], part_row[w], cap[w] = p, part_rows, c
+            p += c * w
+            part_rows += c
+        w_r = row_width[rows]
+        row_lane[rows] = (dev * o_dev + lane_ofs + win * cl.win_lanes
+                          + part_lane[w_r] + slot)
+        row_slot[rows] = (dev * n_rows_dev + row_ofs
+                          + part_row[w_r] * cl.n_windows
+                          + win * cap[w_r] + slot)
+        lane_ofs += cl.n_windows * cl.win_lanes
+        row_ofs += cl.n_windows * part_rows
+    assert lane_ofs == o_dev and row_ofs == n_rows_dev
 
-        def fill_window(cl: ClassLayout, wi_c, rows_of_win):
-            """Fill one window's lanes + slot rows. Slot-row canonical
-            order is (class, part, window, row-in-part) so the
-            vectorized per-class reduce (spmd_part_sums) matches."""
-            nonlocal lane_ofs, real_lanes
-            p = 0  # lane offset within the window
-            part_rows = 0  # rows of earlier parts (whole class)
-            rows_np = np.asarray(rows_of_win, dtype=np.int64)
-            for cap, w in cl.parts:
-                rows_w = (
-                    rows_np[row_width[rows_np] == w]
-                    if len(rows_np)
-                    else rows_np
-                )
-                n_r = len(rows_w)
-                assert n_r <= cap, (n_r, cap, w)
-                rbase = (
-                    row_base + class_row_ofs
-                    + part_rows * cl.n_windows + wi_c * cap
-                )
-                if n_r:
-                    # vectorized over the part's rows (the plan builds
-                    # ~1M rows at venice-1778; a per-row Python loop
-                    # here was 60% of plan-build time)
-                    counts = row_counts[rows_w]  # [R]
-                    offs = row_obs_start[rows_w]  # [R]
-                    j = np.arange(w)
-                    # slot-element-major: lane = part_ofs + j*cap + i
-                    lanes = (
-                        lane_base + lane_ofs + p
-                        + j[None, :] * cap
-                        + np.arange(n_r)[:, None]
-                    )  # [R, w]
-                    live = j[None, :] < counts[:, None]
-                    # pad lanes carry zero weight; any in-bounds obs
-                    # index works (count 0: an unobserved landmark's
-                    # row, which the single-chip plan also keeps)
-                    safe_j = np.minimum(
-                        j[None, :], np.maximum(counts[:, None] - 1, 0)
-                    )
-                    po_mat = order[offs[:, None] + safe_j]  # [R, w]
-                    po_mat[counts == 0] = 0
-                    perm[lanes] = po_mat
-                    pad_w[lanes] = live.astype(pad_w.dtype)
-                    real_lanes += int(counts.sum())
-                    cam_lane[lanes] = np.where(
-                        live, obs_cam[po_mat], 0
-                    )
-                    lm_loc = local_of[row_lm[rows_w]]  # [R]
-                    lm_lane[lanes] = np.broadcast_to(
-                        lm_loc[:, None], lanes.shape
-                    ).astype(np.int32)
-                    lm_order[rbase : rbase + n_r] = lm_loc
-                    row_lm_ext_all[rbase : rbase + n_r] = lm_loc
-                row_lm_ext_all[rbase + n_r : rbase + cap] = m_dev
-                p += cap * w
-                part_rows += cap
-            lane_ofs += cl.win_lanes
+    order = np.argsort(obs_row, kind="stable")
+    row_obs_start = np.searchsorted(obs_row[order], np.arange(n_rows))
 
-        # class 0: normal-window clones
-        if layout and n_norm_dev:
-            cl0 = layout[0]
-            for wi_c, (_st, rows) in enumerate(my0):
-                fill_window(cl0, wi_c, rows)
-            for wi_c in range(len(my0), cl0.n_windows):
-                fill_window(cl0, wi_c, [])  # fake window
-            class_row_ofs += cl0.n_windows * sum(
-                c for c, _w in cl0.parts
-            )
-        # class 1: grid clones
-        if n_grid_dev:
-            cl1 = layout[-1]
-            for wi_c, (_st, rows) in enumerate(my1):
-                fill_window(cl1, wi_c, rows)
-            for wi_c in range(len(my1), cl1.n_windows):
-                fill_window(cl1, wi_c, [])
-            class_row_ofs += cl1.n_windows * sum(
-                c for c, _w in cl1.parts
-            )
-        assert lane_ofs == o_dev and class_row_ofs == n_rows_dev
+    perm = np.zeros(D * o_dev, dtype=np.int64)
+    pad_w = np.zeros(D * o_dev)
+    cam_lane = np.zeros(D * o_dev, dtype=np.int64)
+    lm_lane = np.zeros(D * o_dev, dtype=np.int32)
+    lm_order = np.zeros(D * n_rows_dev, dtype=np.int32)
+    row_lm_ext_all = np.full(D * n_rows_dev, m_dev, dtype=np.int64)
+    real_lanes = 0
+    for w in WIDTHS.tolist():
+        # every row of slot width w, of any class and device, at once
+        rows_w = np.nonzero(row_width == w)[0]
+        cap_w = np.where(row_is_grid[rows_w], caps1.get(w, 0),
+                         caps0.get(w, 0))
+        counts = row_counts[rows_w]  # [R]
+        offs = row_obs_start[rows_w]  # [R]
+        j = np.arange(w)
+        lanes = row_lane[rows_w][:, None] + j[None, :] * cap_w[:, None]
+        live = j[None, :] < counts[:, None]
+        # pad lanes carry zero weight; any in-bounds obs index works
+        # (count 0: an unobserved landmark's row, which the single-chip
+        # plan also keeps)
+        safe_j = np.minimum(j[None, :], np.maximum(counts[:, None] - 1, 0))
+        po_mat = order[offs[:, None] + safe_j]  # [R, w]
+        po_mat[counts == 0] = 0
+        perm[lanes] = po_mat
+        pad_w[lanes] = live.astype(pad_w.dtype)
+        real_lanes += int(counts.sum())
+        cam_lane[lanes] = np.where(live, obs_cam[po_mat], 0)
+        lm_loc = local_of[row_lm[rows_w]]  # [R]
+        lm_lane[lanes] = np.broadcast_to(
+            lm_loc[:, None], lanes.shape).astype(np.int32)
+        lm_order[row_slot[rows_w]] = lm_loc
+        row_lm_ext_all[row_slot[rows_w]] = lm_loc
 
     return SpmdPlan(
         n_dev=D,
@@ -617,12 +581,6 @@ def spmd_unsupported(options: SolverOptions, n_cams: int,
     why = common_unsupported(options, n_cams, dtype)
     if why is not None:
         return why
-    if n_cams > MAX_CAMERAS:
-        return (
-            f"{n_cams} cameras > {MAX_CAMERAS} on a mesh (ROADMAP.md queue 1 "
-            "item 13, multi-device: the mesh's larger-N plan; one device "
-            "runs any N)"
-        )
     if dtype == torch.float64 and not options.mixed_precision_solves:
         return (
             "mixed_precision_solves=False with an f64 state on a mesh: the "

@@ -78,9 +78,8 @@ def bundle_adjust(
     kernel; an f64 state with `mixed_precision_solves=False` is pure
     f64, both steps on the unstructured layout with f64 solves). Both
     stage solvers are built before step 1 runs, so a configuration that
-    either step does not run yet (CHOLESKY past 1536 cameras, more than
-    1024 cameras or pure f64 on a mesh, ...) raises NotImplementedError
-    before any work.
+    either step does not run yet (pure f64 or CHOLESKY on a mesh, ...)
+    raises NotImplementedError before any work.
 
     With `mesh` (parallel/mesh.make_mesh: this rank of a mesh, on the
     mesh's device, which replaces `device`), both stages run the SPMD

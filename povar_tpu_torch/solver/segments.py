@@ -128,6 +128,17 @@ def padded_segment_sum(x: torch.Tensor, red: PaddedReduce) -> torch.Tensor:
 SLOT_EXACT_MAX = 64
 
 
+def slot_widths(counts: np.ndarray) -> np.ndarray:
+    """The slot width of each observation count: exact up to
+    SLOT_EXACT_MAX (an empty landmark or row takes one slot), the next
+    power of two above."""
+    c = np.asarray(counts, dtype=np.int64)
+    out = np.maximum(c, 1)
+    big = c > SLOT_EXACT_MAX
+    out[big] = np.left_shift(1, np.ceil(np.log2(c[big])).astype(np.int64))
+    return out
+
+
 def build_slot_plan(obs_lm: np.ndarray, num_landmarks: int, pad_to: int = 1):
     """Returns (perm, pad_weight, shapes, lm_order, inv_pos):
     perm [O_pad] original-obs position per slot (pads repeat a position),
@@ -146,27 +157,24 @@ def build_slot_plan(obs_lm: np.ndarray, num_landmarks: int, pad_to: int = 1):
     ends = np.searchsorted(sorted_ids, np.arange(num_landmarks), "right")
     counts = ends - starts
 
-    def width(c):
-        if c <= SLOT_EXACT_MAX:
-            return int(c) if c > 0 else 1
-        return 1 << int(np.ceil(np.log2(c)))
-
-    widths = np.array([width(c) for c in counts], dtype=np.int64)
+    widths = slot_widths(counts)
     perm_parts = []
     weight_parts = []
     shapes = []
     lm_order_parts = []
-    for w in np.unique(widths):
+    for w in np.unique(widths).tolist():
+        # every landmark of slot width w at once, not a Python step per
+        # landmark (4.6M at final-13682): its slots take its
+        # observations in order, then repeat its first one (observation
+        # 0 when it has none), with weight 0
         lms = np.nonzero(widths == w)[0]
         g = len(lms)
-        blk_idx = np.zeros((g, w), dtype=np.int64)
-        blk_w = np.zeros((g, w), dtype=np.float64)
-        for row, m in enumerate(lms):
-            c = counts[m]
-            pos = order[starts[m] : ends[m]]
-            blk_idx[row, :c] = pos
-            blk_idx[row, c:] = pos[0] if c > 0 else 0
-            blk_w[row, :c] = 1.0
+        c = counts[lms][:, None]
+        j = np.arange(w)[None, :]
+        src = starts[lms][:, None] + np.where(j < c, j, 0)
+        blk_idx = np.where(c > 0, order.take(src, mode="clip"), 0) if len(
+            order) else np.zeros((g, w), dtype=np.int64)
+        blk_w = (j < c).astype(np.float64)
         # slot-element-major: lane = k * G + g (see module comment)
         perm_parts.append(blk_idx.T.reshape(-1))
         weight_parts.append(blk_w.T.reshape(-1))
@@ -440,21 +448,28 @@ def build_window_plan(
     lo, hi = _lm_spans(obs_cam, obs_lm, num_landmarks)
     normal = (hi - lo) < width
 
-    # greedy packing of normal landmarks (one row per landmark)
+    # greedy packing of normal landmarks (one row per landmark): in lo
+    # order, a landmark whose hi reaches the current window's start +
+    # width opens a window at its lo. Every landmark before a window's
+    # first one ends below that bound (its own window started no later),
+    # so the next window opens at the first landmark where the running
+    # maximum of hi reaches it: one search per window, not a Python step
+    # per landmark (millions at final-13682)
     order = np.argsort(lo, kind="stable")
     order = order[normal[order]]
+    lo_s = lo[order]
+    run_hi = np.maximum.accumulate(hi[order]) if len(order) else lo_s
+    firsts = []
+    i = 0
+    while i < len(order):
+        firsts.append(i)
+        i = int(np.searchsorted(run_hi, lo_s[i] + width, side="left"))
     row_of_lm = np.full(num_landmarks, -1, dtype=np.int64)
-    row_window = []
-    row_lm = []
-    starts = []
-    cur_start = None
-    for m in order:
-        if cur_start is None or hi[m] >= cur_start + width:
-            cur_start = int(lo[m])
-            starts.append(cur_start)
-        row_of_lm[m] = len(row_lm)
-        row_window.append(len(starts) - 1)
-        row_lm.append(m)
+    row_of_lm[order] = np.arange(len(order))
+    row_window = [np.repeat(np.arange(len(firsts)),
+                            np.diff(firsts + [len(order)]))]
+    row_lm = [order]
+    starts = [lo_s[firsts]]
 
     obs_row = row_of_lm[obs_lm]
     if not normal.all():
@@ -463,21 +478,20 @@ def build_window_plan(
         cell = obs_cam[ovf] // width
         key = obs_lm[ovf] * (int(obs_cam.max()) // width + 2) + cell
         uniq, inv = np.unique(key, return_inverse=True)
-        base = len(row_lm)
+        base = len(order)
         obs_row[np.nonzero(ovf)[0]] = base + inv
         # window per occupied cell (dedup grid starts)
         first = np.zeros(len(uniq), dtype=np.int64)
         first[inv[::-1]] = np.nonzero(ovf)[0][::-1]  # first obs per row
         cell_of_row = obs_cam[first] // width
         grid_cells, grid_inv = np.unique(cell_of_row, return_inverse=True)
-        gbase = len(starts)
-        starts.extend((grid_cells * width).tolist())
-        row_window.extend((gbase + grid_inv).tolist())
-        row_lm.extend(obs_lm[first].tolist())
+        starts.append(grid_cells * width)
+        row_window.append(len(firsts) + grid_inv)
+        row_lm.append(obs_lm[first])
 
     return (
         obs_row,
-        np.asarray(row_window, dtype=np.int32),
-        np.asarray(row_lm, dtype=np.int64),
-        np.asarray(starts, dtype=np.int64),
+        np.concatenate(row_window).astype(np.int32),
+        np.concatenate(row_lm).astype(np.int64),
+        np.concatenate(starts).astype(np.int64),
     )

@@ -53,9 +53,8 @@ from povar_tpu_torch.solver.segments import (
 OBS_PAD = 8192
 # the TPU's in-VMEM one-hot limit (povar_tpu/ops/pallas_cam.py
 # MAX_CAMERAS), past which the JAX package switches to camera windows.
-# The port gathers by camera index and has no such limit on one device;
-# the constant names the JAX refusal below and bounds the mesh
-# (parallel/spmd.py spmd_unsupported)
+# The port gathers by camera index and has no such limit, on one device
+# or on a mesh; the constant names the JAX refusal below
 MAX_CAMERAS = 1024
 # widest slot part the fused power-series term takes
 # (povar_tpu/ops/pallas_pose.py E0_TERM_MAX_W); wider parts and all after

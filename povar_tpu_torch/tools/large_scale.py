@@ -3,7 +3,10 @@ benchmarks/large_scale_smoke.py, which runs the JAX package.
 
     python -m povar_tpu_torch.tools.large_scale [SCALE ...] [--loops]
     python -m povar_tpu_torch.tools.large_scale spread [final-13682]
-        [--runs 8] [--solver CHOLESKY]
+        [--runs 8] [--solver CHOLESKY | --mesh]
+    python -m povar_tpu_torch.tools.large_scale mesh [SCALE ...]
+        [--devices 4 1] [--loops]
+    python -m povar_tpu_torch.tools.large_scale ba [SCALE ...] [--runs 8]
     python -m povar_tpu_torch.tools.large_scale starts [--runs 8]
     python -m povar_tpu_torch.tools.large_scale band [SCALE ...]
     python -m povar_tpu_torch.tools.large_scale band-spread [--runs 8]
@@ -53,6 +56,26 @@ prints each run's decisions, costs and first accepted trial
 FINAL_STEP2_ITERS iterations), and whether one step-2 trial at
 STEP2_LAMBDA from that start has a finite increment.
 
+`spread --mesh` runs the same on a 1-device mesh (the SPMD window
+layout, parallel/spmd.py; both stage solvers built once), the slot
+kernels among the kernels swapped for their plain versions:
+chip_smoke.py's MESH_LARGE_N_TOL and MESH_FINAL_TOLS are twice its gaps.
+
+`mesh` builds each scale's SPMD window plan for each of `--devices`
+(default 4, then 1) as a rank builds it (plan_stats: seconds, peak and
+held host bytes, lane utilization, windows and parts per class,
+has_duplicates, a rank's lanes, slot rows and landmark slots), then on
+a 1-device mesh (mesh_run) times the set-up, the warm step-1 and step-2
+iterations against the one-device path's in turns, and one
+`bundle_adjust(mesh=make_mesh(1))`. Default: venice-1778 and
+final-13682.
+
+`ba` runs `bundle_adjust` with SolverOptions() defaults on a 1-device
+mesh and on one device in turns, `--runs` times each, each from the
+scale's own state (ba_turns): seconds, and each step's records,
+decisions, initial and final cost and termination. Default:
+final-13682.
+
 `spread --solver CHOLESKY` (venice-1778 only) compares CHOLESKY's first
 BAND_ITERS iterations instead; its dense route ends at 1536 cameras, so
 venice-1778 takes the banded one of solver/band_chol.py.
@@ -97,7 +120,7 @@ from povar_tpu_torch import (
     Timer,
     bundle_adjust,
     create_homogeneous,
-    from_numpy,
+    make_mesh,
     optimize_step1,
     optimize_step2,
 )
@@ -184,11 +207,12 @@ def bench_options(base: SolverOptions) -> SolverOptions:
     return o
 
 
-def iteration_times(step, c, lm, reps: int = REPS):
+def iteration_times(step, c, lm, reps: int = REPS, top: int = 0):
     """(wall ms, device us, busy share) of one warm chained iteration:
     `reps` calls of `step` (c, lm) -> (c, lm, err) chained with one
     synchronisation, then the same under the profiler, whose device
-    operations' summed durations give the device time."""
+    operations' summed durations give the device time; with `top`, the
+    `top` device operations by time an iteration are printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -208,8 +232,15 @@ def iteration_times(step, c, lm, reps: int = REPS):
             cc, ll, err = step(cc, ll)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    dev = sum(e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.elapsed_us())
+    dev = sum(by_name.values())
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {us / reps:10.1f} us an iteration  {name[:80]}",
+              flush=True)
     return wall * 1e3, dev / reps, dev / (prof_wall * 1e6)
 
 
@@ -287,26 +318,197 @@ def run_scale(scale: str, loops: bool) -> dict:
     return out
 
 
+def stage_solvers(problem, options, mesh=None):
+    """Both stage solvers of `problem` on the card under `options`, or
+    on this rank of `mesh` the SPMD window layout's (its plan built once
+    and kept on the problem, as bundle_adjust keeps it)."""
+    from povar_tpu_torch.solver.pipeline import _make_solvers
+
+    return _make_solvers(problem, options, torch.float64, "cuda", mesh)
+
+
+def lm_state(solver, lm_p):
+    """`solver`'s landmark state of the canonical landmarks lm_p (numpy):
+    on a mesh its rank's shard (pad_landmarks), else the whole array, on
+    the solver's device."""
+    if hasattr(solver, "pad_landmarks"):
+        return solver.pad_landmarks(lm_p)
+    return torch.as_tensor(lm_p, device=solver.device)
+
+
+def plan_stats(problem, n_dev: int, label: str, trace: bool = True) -> dict:
+    """`problem`'s SPMD window plan for n_dev devices, as each rank builds
+    it (the whole plan, then the whole combine reduce, in its own
+    process): seconds of each, with `trace` the host bytes at the peak
+    (of a second build under tracemalloc, which sees numpy's buffers),
+    the bytes the plan and combine hold after it, lane utilization, the
+    window width, windows and parts of each class, has_duplicates, and a
+    rank's lanes, slot rows and landmark slots against the observations.
+    The plan stays on the problem (`bundle_adjust`'s cache), so the mesh
+    solvers built next for the same n_dev reuse it."""
+    import tracemalloc
+
+    from povar_tpu_torch.parallel.spmd import build_uniform_combine
+    from povar_tpu_torch.solver.pipeline import _make_spmd_plan
+
+    def build():
+        problem._spmd_plan_cache = None
+        t0 = time.perf_counter()
+        plan = _make_spmd_plan(problem, n_dev)
+        t1 = time.perf_counter()
+        combine = build_uniform_combine(plan.row_lm_ext, n_dev,
+                                        plan.n_rows_dev, plan.m_dev)
+        return plan, combine, t1 - t0, time.perf_counter() - t1
+
+    # timed untraced, then (with `trace`) built again under tracemalloc
+    # for the bytes (tracing slows Python's own allocations)
+    plan, combine, plan_s, combine_s = build()
+    peak = None
+    if trace:
+        tracemalloc.start()
+        plan, combine, _s, _s = build()
+        peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+    held = sum(a.nbytes for a in plan if hasattr(a, "nbytes")) + sum(
+        t.numel() * t.element_size() for t in (*combine.idx, *combine.mask,
+                                               combine.inv_order))
+    out = dict(
+        scale=label, n_dev=n_dev, n_cams=problem.num_cameras,
+        n_obs=problem.num_observations, plan_s=plan_s, combine_s=combine_s,
+        peak_host_bytes=peak, held_host_bytes=held,
+        lane_utilization=plan.lane_utilization, width=plan.width,
+        classes=[dict(windows=cl.n_windows, parts=cl.parts,
+                      win_lanes=cl.win_lanes) for cl in plan.layout],
+        has_duplicates=plan.has_duplicates, lanes_per_rank=plan.o_dev,
+        slot_rows_per_rank=plan.n_rows_dev, landmarks_per_rank=plan.m_dev)
+    peak_txt = "not traced" if peak is None else f"{peak / 2**30:.2f} GiB"
+    print(f"{label} plan, D = {n_dev}: {plan_s:.2f} s (+ combine "
+          f"{combine_s:.2f} s), peak host {peak_txt}, held "
+          f"{held / 2**30:.2f} GiB; width {plan.width}, lane utilization "
+          f"{plan.lane_utilization:.4f}, classes {out['classes']}, "
+          f"duplicates {plan.has_duplicates}; a rank: {plan.o_dev} lanes, "
+          f"{plan.n_rows_dev} slot rows, {plan.m_dev} landmark slots for "
+          f"{problem.num_observations} observations in all", flush=True)
+    return out
+
+
+def mesh_run(problem, label: str) -> dict:
+    """The 1-device mesh at one scale with SolverOptions() defaults: the
+    set-up of both mesh stage solvers and of the one-device ones, the
+    warm step-1 and step-2 iterations of each (bench_options, REPS
+    chained; mesh and one device in turns, twice, the second time with
+    the eight longest device operations), then one
+    `bundle_adjust(mesh=make_mesh(1))` (seconds, records, costs) and the
+    peak device memory."""
+    torch.cuda.reset_peak_memory_stats()
+    opts = SolverOptions()
+    solvers, setup = {}, {}
+    for name, mesh in (("mesh", make_mesh(1)), ("one device", None)):
+        t0 = time.perf_counter()
+        solvers[name] = stage_solvers(problem, bench_options(opts), mesh)
+        torch.cuda.synchronize()
+        setup[name] = time.perf_counter() - t0
+    print(f"{label}: set-up {setup['mesh']:.2f} s on the mesh (its plan "
+          f"kept), {setup['one device']:.2f} s on one device", flush=True)
+    c = torch.as_tensor(problem.cam_space, device="cuda")
+    times = {name: [] for name in solvers}
+    for rnd in range(2):
+        for name, (s1, s2) in solvers.items():
+            lm0 = s1.initialize_varproj(c)
+            c2, lm2 = create_homogeneous(c, lm0)
+            its = []
+            for s, cc, ll in ((s1, c, lm0), (s2, c2, lm2)):
+                def step(cc, ll, s=s):
+                    lin = s.linearize(cc, ll)
+                    nc, nl, _ok, _it, _ld, err = s.trial(cc, ll, lin, 1e-4)
+                    return nc, nl, err["error_all"]
+
+                if rnd:
+                    print(f"{label} {name}, step {len(its) + 1}: device "
+                          "operations by time", flush=True)
+                its.append(iteration_times(step, cc, s.lm_pack(ll),
+                                           top=8 if rnd else 0))
+            times[name].append(its)
+            print(f"{label} {name}: warm step-1 / step-2 iteration "
+                  f"(linearize + trial, eta=0, m=10, {REPS} chained): wall "
+                  f"{its[0][0]:.3f} / {its[1][0]:.3f} ms, device "
+                  f"{its[0][1]:.1f} / {its[1][1]:.1f} us (busy "
+                  f"{its[0][2]:.3f} / {its[1][2]:.3f})", flush=True)
+    del solvers, lm0, c2, lm2
+    ba = ba_run(problem, label, make_mesh(1))
+    out = dict(scale=label, setup_s=setup, iterations=times,
+               bundle_adjust_s=ba["seconds"], records=ba["records"],
+               costs=ba["costs"],
+               peak_bytes=torch.cuda.max_memory_allocated())
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def ba_run(problem, label: str, mesh=None) -> dict:
+    """One `bundle_adjust` of a copy of `problem` with SolverOptions()
+    defaults on the card, or on `mesh`: its seconds to a
+    synchronisation, and each step's records, decisions (A / R),
+    initial and final cost, termination type and message."""
+    p = copy.deepcopy(problem)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _out, sum1, sum2 = bundle_adjust(p, SolverOptions(), log=lambda s: None,
+                                     mesh=mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = [dict(records=len(s.iterations),
+                  decisions="".join("A" if ok else "R"
+                                    for ok, _n in decisions(s)),
+                  costs=(s.iterations[0].cost.all.error,
+                         s.final_cost.all.error),
+                  termination=s.termination_type, message=s.message)
+             for s in (sum1, sum2)]
+    where = "one device" if mesh is None else f"mesh=make_mesh({mesh.size})"
+    print(f"{label} bundle_adjust({where}) {secs:.2f} s: " + "; ".join(
+        f"step {k} {st['records']} records {st['decisions']}, "
+        f"{st['costs'][0]!r} -> {st['costs'][1]!r}, {st['termination']} "
+        f"({st['message']})" for k, st in enumerate(steps, 1)), flush=True)
+    return dict(scale=label, mesh=mesh is not None, seconds=secs,
+                records=[st["records"] for st in steps],
+                costs=[st["costs"] for st in steps], steps=steps)
+
+
+def ba_turns(problem, label: str, runs: int) -> list:
+    """`runs` bundle_adjusts (ba_run) on a 1-device mesh and as many on
+    one device, in turns, each from the problem's own state; the mesh's
+    plan built once (plan_stats), as bundle_adjust keeps it."""
+    plan_stats(problem, 1, label, trace=False)
+    out = []
+    for _ in range(runs):
+        for mesh in (make_mesh(1), None):
+            out.append(ba_run(problem, label, mesh))
+            print(json.dumps(out[-1]), flush=True)
+    return out
+
+
 def first_iterations(problem, plain: bool, iters: int = LARGE_N_ITERS,
-                     solver: str = "POWER_VARPROJ"):
+                     solver: str = "POWER_VARPROJ", stage1=None):
     """Step 1's first `iters` iterations with SolverOptions() and
     `solver` on the card (its kernels, or with `plain` their plain
-    versions on the card, the camera-table ones too). Returns (summary,
-    seconds)."""
+    versions on the card, the camera-table and slot ones too), on a new
+    stage-1 solver or on `stage1` (built once for several runs, a mesh's
+    too). Returns (summary, seconds)."""
     from povar_tpu_torch.tools.step2_spread import plain_step1
 
     opts = SolverOptions(solver_type_step_1=SolverType[solver])
+    if stage1 is None:
+        stage1 = Stage1Solver(problem.obs_cam, problem.obs_lm,
+                              problem.obs_uv, problem.num_cameras,
+                              problem.num_landmarks, opts, device="cuda")
+    opts = copy.deepcopy(stage1.opts)
     opts.max_num_iterations_step_1 = iters
-    _, cams, lms = from_numpy(problem.obs_cam, problem.obs_lm,
-                              problem.obs_uv, problem.cam_space,
-                              problem.lm_p, device="cuda")
-    stage1 = Stage1Solver(problem.obs_cam, problem.obs_lm, problem.obs_uv,
-                          problem.num_cameras, problem.num_landmarks, opts,
-                          device="cuda")
+    cams = torch.as_tensor(problem.cam_space, device="cuda")
+    lms = lm_state(stage1, problem.lm_p)
     summary = SolverSummary()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with plain_step1(cams=True) if plain else contextlib.nullcontext():
+    with (plain_step1(cams=True, slots=True) if plain
+          else contextlib.nullcontext()):
         optimize_step1(stage1, cams, lms, opts, summary, Timer(),
                        lambda s: None)
     torch.cuda.synchronize()
@@ -315,25 +517,26 @@ def first_iterations(problem, plain: bool, iters: int = LARGE_N_ITERS,
 
 def first_steps(problem, s1, s2, plain: bool, start2=None):
     """On the stage solvers s1, s2 of `problem` (built once, any number
-    of runs): step 1's first LARGE_N_ITERS iterations from the problem's
-    state, then one step-2 trial at STEP2_LAMBDA from `start2` (cameras
-    and homogeneous landmarks; None: the homogenized VarProj
-    initialization of the problem's cameras), on the card's kernels or,
-    with `plain`, all their plain versions on the card. Returns (step-1
-    summary, the trial's {ok, terms, l_diff, cost}, step 2's start,
-    seconds of the compared work)."""
+    of runs; a 1-device mesh's too): step 1's first LARGE_N_ITERS
+    iterations from the problem's state, then one step-2 trial at
+    STEP2_LAMBDA from `start2` (cameras and homogeneous landmarks, a
+    mesh's in its shard; None: the homogenized VarProj initialization of
+    the problem's cameras), on the card's kernels or, with `plain`, all
+    their plain versions on the card. Returns (step-1 summary, the
+    trial's {ok, terms, l_diff, cost}, step 2's start, seconds of the
+    compared work)."""
     from povar_tpu_torch.tools.step2_spread import plain_step1
 
     opts = copy.deepcopy(s1.opts)
     opts.max_num_iterations_step_1 = LARGE_N_ITERS
     cams = torch.as_tensor(problem.cam_space, device="cuda")
-    lms = torch.as_tensor(problem.lm_p, device="cuda")
+    lms = lm_state(s1, problem.lm_p)
     if start2 is None:
         start2 = create_homogeneous(cams, s1.initialize_varproj(cams))
     summary = SolverSummary()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with (plain_step1(cams=True, step2=True) if plain
+    with (plain_step1(cams=True, step2=True, slots=True) if plain
           else contextlib.nullcontext()):
         optimize_step1(s1, cams, lms, opts, summary, Timer(), lambda s: None)
         c2, l2 = start2[0], s2.lm_pack(start2[1])
@@ -364,13 +567,14 @@ def recorded_costs(summary):
 
 
 def spread(runs: int, scale: str = "venice-1778",
-           solver: str = "POWER_VARPROJ") -> list:
+           solver: str = "POWER_VARPROJ", mesh: bool = False) -> list:
     """The first-iterations spread of `scale` (the module docstring):
     venice-1778's step 1 (first_iterations; its accepted costs, or with
     CHOLESKY every trial's cost over BAND_ITERS iterations), or
     final-13682's step 1 (first_steps; every trial's cost) and its
-    step-2 trial (l_diff and cost). Returns the largest
-    kernel-against-plain gap of each step."""
+    step-2 trial (l_diff and cost); with `mesh` on a 1-device mesh's
+    stage solvers (built once). Returns the largest kernel-against-plain
+    gap of each step."""
     problem = make_problem(scale)
     steps = 1 if scale == "venice-1778" else 2
     chol = solver == "CHOLESKY"
@@ -379,11 +583,12 @@ def spread(runs: int, scale: str = "venice-1778",
               else recorded_costs),
              (lambda t: [(t["ok"], t["terms"])],
               lambda t: [t["l_diff"], t["cost"]])][:steps]
-    if steps == 2:
-        args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
-                problem.num_cameras, problem.num_landmarks)
-        s1 = Stage1Solver(*args, SolverOptions(), device="cuda")
-        s2 = Stage2Solver(*args, SolverOptions(), device="cuda")
+    s1 = None
+    if steps == 2 or mesh:
+        t0 = time.perf_counter()
+        s1, s2 = stage_solvers(problem, SolverOptions(),
+                               make_mesh(1) if mesh else None)
+        print(f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
     sides = {False: [], True: []}
     start2 = None
     for r in range(runs):
@@ -392,7 +597,7 @@ def spread(runs: int, scale: str = "venice-1778",
             if steps == 1:
                 s, secs = first_iterations(
                     problem, plain, BAND_ITERS if chol else LARGE_N_ITERS,
-                    solver)
+                    solver, s1)
                 run = (s,)
             else:
                 *run, start2, secs = first_steps(problem, s1, s2, plain,
@@ -415,8 +620,8 @@ def spread(runs: int, scale: str = "venice-1778",
         plain = [run[k] for run in sides[True]]
         same = all(dec(s) == dec(kern[0]) for s in kern + plain)
         out.append(gap(kern, plain))
-        print(json.dumps(dict(scale=scale, solver=solver, step=k + 1,
-                              spread_runs=runs,
+        print(json.dumps(dict(scale=scale, solver=solver, mesh=mesh,
+                              step=k + 1, spread_runs=runs,
                               same_decisions=same, largest_gap=out[-1],
                               within_side=dict(kernels=gap(kern, kern),
                                                plain=gap(plain, plain)))),
@@ -679,19 +884,25 @@ def step2_starts(runs: int, iters: int = FINAL_STEP2_ITERS) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("scales", nargs="*",
-                    help=f"'spread', 'starts', 'band', 'band-spread', or "
-                    f"scales of {tuple(SCALES)}")
+                    help=f"'spread', 'starts', 'band', 'band-spread', "
+                    f"'mesh', 'ba', or scales of {tuple(SCALES)}")
     ap.add_argument("--loops", action="store_true",
                     help="lay add_loop_closures_and_scramble over each scale")
     ap.add_argument("--runs", type=int, default=8,
-                    help="spread, band-spread: runs on each side; starts: "
-                    "runs")
+                    help="spread, band-spread, ba: runs on each side; "
+                    "starts: runs")
     ap.add_argument("--solver", default="POWER_VARPROJ",
                     choices=["POWER_VARPROJ", "CHOLESKY"],
                     help="spread: step 1's solver")
+    ap.add_argument("--mesh", action="store_true",
+                    help="spread: on a 1-device mesh")
+    ap.add_argument("--devices", type=int, nargs="+", default=[4, 1],
+                    help="mesh: the plan's device counts")
     a = ap.parse_args(argv)
     if a.solver != "POWER_VARPROJ" and a.scales[:1] != ["spread"]:
         ap.error("--solver applies to spread only")
+    if a.mesh and (a.scales[:1] != ["spread"] or a.solver == "CHOLESKY"):
+        ap.error("--mesh applies to spread with POWER_VARPROJ only")
     if not torch.cuda.is_available():
         print("large_scale: no CUDA device", file=sys.stderr)
         return 1
@@ -706,7 +917,28 @@ def main(argv=None) -> int:
                     a.solver == "CHOLESKY" and scale != "venice-1778"):
                 ap.error(f"spread takes venice-1778 or final-13682 (with "
                          f"CHOLESKY venice-1778), not {scale!r}")
-            spread(a.runs, scale, a.solver)
+            spread(a.runs, scale, a.solver, a.mesh)
+        return 0
+    if a.scales[:1] == ["mesh"]:
+        for scale in a.scales[1:] or ["venice-1778", "final-13682"]:
+            if scale not in SCALES:
+                ap.error(f"unknown scale {scale!r}")
+            t0 = time.perf_counter()
+            problem = make_problem(scale, a.loops)
+            label = scale + ("-loops" if a.loops else "")
+            print(f"== {label}: generated in {time.perf_counter() - t0:.2f} "
+                  "s", flush=True)
+            # the last plan built stays on the problem for mesh_run
+            for n_dev in sorted(set(a.devices) - {1}, reverse=True) + [1]:
+                print(json.dumps(plan_stats(problem, n_dev, label)),
+                      flush=True)
+            mesh_run(problem, label)
+        return 0
+    if a.scales[:1] == ["ba"]:
+        for scale in a.scales[1:] or ["final-13682"]:
+            if scale not in SCALES:
+                ap.error(f"unknown scale {scale!r}")
+            ba_turns(make_problem(scale), scale, a.runs)
         return 0
     if a.scales == ["starts"]:
         step2_starts(a.runs)

@@ -222,19 +222,22 @@ def f64_twin(solver_cls, args, options):
 
 
 @contextlib.contextmanager
-def plain_step1(cams=False, step2=False):
+def plain_step1(cams=False, step2=False, slots=False):
     """The step-1 kernel wrappers of ops/pose_kernels.py, with `cams` the
-    camera-table ones of ops/cam_kernels.py and with `step2` the step-2
-    ones of ops/pose2_kernels.py, replaced by their plain versions
-    (ops/pose_ref.py, ops/cam_ref.py, ops/pose2_ref.py; any device and
-    dtype) while the block runs; the stage solvers call them through the
-    module."""
+    camera-table ones of ops/cam_kernels.py, with `step2` the step-2
+    ones of ops/pose2_kernels.py and with `slots` the SPMD window
+    layout's slot kernels of ops/spmd_kernels.py, replaced by their
+    plain versions (ops/pose_ref.py, ops/cam_ref.py, ops/pose2_ref.py,
+    ops/spmd_ref.py; any device and dtype) while the block runs; the
+    stage solvers call them through the module."""
     from povar_tpu_torch.ops import cam_kernels, cam_ref, pose2_kernels
     from povar_tpu_torch.ops import pose2_ref, pose_kernels, pose_ref
+    from povar_tpu_torch.ops import spmd_kernels, spmd_ref
 
     pairs = ([(pose_kernels, pose_ref)]
              + ([(cam_kernels, cam_ref)] if cams else [])
-             + ([(pose2_kernels, pose2_ref)] if step2 else []))
+             + ([(pose2_kernels, pose2_ref)] if step2 else [])
+             + ([(spmd_kernels, spmd_ref)] if slots else []))
     saved = [(m, n, getattr(m, n)) for m, _ref in pairs for n in m.KERNELS]
     try:
         for m, ref in pairs:

@@ -35,7 +35,8 @@ same state:
 - one `bundle_adjust` trajectory at N = 1100 on a well-posed
   synthetic_bal_problem (each package's defaults on the CPU: the JAX
   package's XLA layout, the port's structured one);
-- the refusal that stays: a mesh past 1024 cameras (ROADMAP item 13);
+- a mesh past 1024 cameras: its plan built and a step taken (the mesh
+  at these sizes against one device: tests/test_torch_mesh_large_n.py);
 - `add_loop_closures_and_scramble`, array for array.
 
 The tolerances are those of the N <= 1024 tests: the initialized
@@ -453,13 +454,28 @@ def test_bundle_adjust_at_1100_cameras_matches_jax():
 
 
 def test_refusals_past_the_single_device_limits():
-    """Past 1024 cameras a mesh raises naming ROADMAP item 13; one device
-    runs 1600 cameras with every step-1 solver, CHOLESKY on the banded
-    plan (its dense route ends at 1536 cameras)."""
+    """Past 1024 cameras a mesh builds its plan and takes a step: at 1600
+    cameras `bundle_adjust` on a 1-device mesh (one iteration a step)
+    accepts step 1's first trial, its cost decrease within 1e-4 of one
+    device's;
+    one device runs 1600 cameras with every step-1 solver, CHOLESKY on
+    the banded plan (its dense route ends at 1536 cameras)."""
     p = synthetic_bal_problem_fast(1600, 900, 4, seed=0, locality=32)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        bundle_adjust(copy.deepcopy(p), SolverOptions(), device="cpu",
-                      mesh=make_mesh(1, "cpu"))
+    one_iteration = dict(max_num_iterations_step_1=1,
+                         max_num_iterations_step_2=1, device_lm_loop="off")
+    on_mesh = copy.deepcopy(p)
+    runs = [bundle_adjust(q, SolverOptions(**one_iteration), device="cpu",
+                          log=lambda s: None, mesh=mesh)[1]
+            for q, mesh in ((on_mesh, make_mesh(1, "cpu")),
+                            (copy.deepcopy(p), None))]
+    assert on_mesh._spmd_plan_cache[1].n_dev == 1
+    its, one = runs[0].iterations, runs[1].iterations
+    assert len(its) == 2 and its[1].step_is_successful
+    assert its[1].cost.all.error < its[0].cost.all.error
+    # the cost falls 4,500x: compared as its decrease (the trials' f_diff)
+    np.testing.assert_allclose(its[0].cost.all.error - its[1].cost.all.error,
+                               one[0].cost.all.error - one[1].cost.all.error,
+                               rtol=1e-4)
     args = (p.obs_cam, p.obs_lm, p.obs_uv, p.num_cameras, p.num_landmarks)
     s = Stage1Solver(*args, _options(SolverOptions, {},
                                      solver_type_step_1="CHOLESKY"),

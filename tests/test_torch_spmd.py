@@ -279,13 +279,10 @@ def test_step2_loop_matches_jax(jax_stages, port):
         np.testing.assert_allclose(g[3], w[3], rtol=1e-4)
 
 
-def test_collectives_are_camera_sized(case):
-    """Every tensor the port all-reduces is a scalar (a cost, l_diff, a
-    stack of cost buckets) or has the camera count as its last dimension
-    (jpsq, Hpp, b, an E0 term, the Schur corrections), in both steps and
-    with PCG and POWER_SCHUR_COMPLEMENT: no observation- or landmark-
-    sized array moves between ranks."""
-    c = case
+def _collective_shapes(c):
+    """The shapes of every tensor the port all-reduces in one trial of
+    step 1 with POWER_VARPROJ, PCG and POWER_SCHUR_COMPLEMENT and one of
+    step 2, on a 1-device mesh over case `c` (_stage_case's keys)."""
     shapes = []
     orig = SlotSolver._psum
 
@@ -318,6 +315,35 @@ def test_collectives_are_camera_sized(case):
     for shp in shapes:
         assert len(shp) <= 1 or shp[-1] == c["n_cams"], shp
         assert len(shp) != 1 or shp[0] <= 8, shp
+    return shapes
+
+
+def test_collectives_are_camera_sized(case):
+    """Every tensor the port all-reduces is a scalar (a cost, l_diff, a
+    stack of cost buckets) or has the camera count as its last dimension
+    (jpsq, Hpp, b, an E0 term, the Schur corrections), in both steps and
+    with PCG and POWER_SCHUR_COMPLEMENT: no observation- or landmark-
+    sized array moves between ranks."""
+    _collective_shapes(case)
+
+
+def test_collectives_are_camera_sized_past_1024_cameras():
+    """The same at N = 1300 (tests/test_torch_large_n.py's local-span
+    problem): the largest all-reduce is the Schur corrections' [144, N]
+    (PCG's preconditioner), the per-camera sums [12, N]; at final-13682's
+    N = 13,682 those are 7.9 MB and 0.66 MB of f32, whatever the
+    observation count."""
+    from test_torch_large_n import N_CAMS, N_LMS, _ring_problem
+
+    (obs_cam, obs_lm, obs_uv, n_cams, n_lms), cams, lms = _ring_problem(
+        N_CAMS, N_LMS)
+    cams1 = np.random.default_rng(4).standard_normal((n_cams, 3, 4))
+    cams1[:, 2, :] = [0, 0, 0, 1.0]
+    shapes = _collective_shapes(dict(
+        obs_cam=obs_cam, obs_lm=obs_lm, obs_uv=obs_uv, n_cams=n_cams,
+        n_lms=n_lms, cams1=cams1, uv2=obs_uv, cams2=cams, lms2=lms))
+    assert max(int(np.prod(shp)) for shp in shapes) == 144 * n_cams
+    assert (12, n_cams) in shapes
 
 
 @pytest.mark.parametrize("change, item", [

@@ -9,7 +9,9 @@ povar_tpu/ops/pallas_spmd.py), on the CPU.
   geometry of
   tests/test_spmd.py (`_local_problem`: locality, loop closures that
   overflow their window, scrambled camera ids) at D = 1, 2 and 8, on its
-  unobserved-landmark case and on a venice-89-like problem at D = 1.
+  unobserved-landmark case, on a venice-89-like problem at D = 1, and
+  past 1,024 cameras at D = 1, 2 and 4 (N = 1300 without and N = 2048
+  with loop closures).
 - The three plain versions against the Pallas kernels in interpret mode
   (through JAX's `spmd_part_sums` / `spmd_expand_rows` /
   `spmd_reduce_reexpand`) on tests/test_pallas_spmd.py's two-class
@@ -27,7 +29,10 @@ import pytest
 import torch
 
 from povar_tpu.parallel import spmd as jspmd
-from povar_tpu.problem.synthetic import synthetic_bal_problem_fast
+from povar_tpu.problem.synthetic import (
+    add_loop_closures_and_scramble,
+    synthetic_bal_problem_fast,
+)
 from povar_tpu_torch.ops import launches, spmd_kernels, spmd_ref
 from povar_tpu_torch.parallel import spmd as tspmd
 from test_pallas_spmd import LAYOUT as JAX_LAYOUT
@@ -104,6 +109,41 @@ def test_plan_matches_jax_venice_like():
     plan = _same_plan(p.obs_cam, p.obs_lm, 89, 2000, 1)
     assert not plan.has_duplicates
     assert [cl.parts for cl in plan.layout] == [((1536, 5),)]
+
+
+def _problem_past_1024(case):
+    """(obs_cam, obs_lm, cameras, landmarks) of a plan past the TPU's
+    1,024-camera one-hot limit: tests/test_torch_large_n.py's N = 1300
+    local-span problem on ring cameras, or 2,048 cameras of a
+    locality-32 problem with 1% loop closures and scrambled camera ids
+    (add_loop_closures_and_scramble), whose closures overflow their
+    windows."""
+    if case == "local-1300":
+        from test_torch_large_n import N_CAMS, N_LMS, _ring_problem
+
+        (obs_cam, obs_lm, _uv, n_cams, n_lms), _c, _l = _ring_problem(
+            N_CAMS, N_LMS)
+        return obs_cam, obs_lm, n_cams, n_lms
+    p = add_loop_closures_and_scramble(
+        synthetic_bal_problem_fast(2048, 20_000, 5, seed=1, locality=32),
+        0.01, seed=2)
+    return p.obs_cam, p.obs_lm, p.num_cameras, p.num_landmarks
+
+
+@pytest.mark.parametrize("case, n_dev", [
+    (case, n_dev) for case in ("local-1300", "loops-2048")
+    for n_dev in (1, 2, 4)])
+def test_plan_matches_jax_past_1024_cameras(case, n_dev):
+    """Past 1,024 cameras the port's plan (built with array operations
+    where the JAX package's steps through rows in Python) is the JAX
+    package's, array for array, with its combine reduce; the loop
+    closures give the grid class and landmarks owning several rows."""
+    obs_cam, obs_lm, n_cams, n_lms = _problem_past_1024(case)
+    plan = _same_plan(obs_cam, obs_lm, n_cams, n_lms, n_dev)
+    assert n_cams > 1024
+    loops = case == "loops-2048"
+    assert plan.has_duplicates == loops and len(plan.layout) == 1 + loops
+    assert int(plan.pad_weight.sum()) == len(obs_cam)
 
 
 def _x(shape, seed):

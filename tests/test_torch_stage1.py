@@ -406,16 +406,21 @@ def test_f32_state_solves_in_f32(problem, mixed):
 
 
 def test_too_many_cameras_raise():
-    """One device runs any camera count (the 1024 of the TPU's one-hot
-    limit is no limit of the port's): 1025 cameras build. A mesh keeps
-    the limit (ROADMAP.md queue 1 item 13, the mesh's larger-N plan)."""
+    """Nothing raises past 1024 cameras (the TPU's one-hot limit is no
+    limit of the port's): 1025 cameras build on one device, and a mesh
+    runs them through bundle_adjust (one iteration a step; the mesh at
+    such sizes against one device: tests/test_torch_mesh_large_n.py)."""
     Stage1Solver(np.array([0, 1024]), np.array([0, 0]), np.zeros((2, 2)),
                  1025, 1, _cfg(), device="cpu")
     problem = synthetic_bal_problem(n_cams=1025, n_lms=60, obs_per_lm=5,
                                     seed=7)[0]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        bundle_adjust(problem, SolverOptions(), device="cpu",
-                      mesh=make_mesh(1, "cpu"))
+    _out, s1, s2 = bundle_adjust(
+        problem, SolverOptions(max_num_iterations_step_1=1,
+                               max_num_iterations_step_2=1),
+        device="cpu", log=lambda s: None, mesh=make_mesh(1, "cpu"))
+    assert problem._spmd_plan_cache[1].n_dev == 1
+    assert len(s1.iterations) == len(s2.iterations) == 2
+    assert np.isfinite(s1.iterations[0].cost.all.error)
 
 
 def test_too_many_cameras_cholesky_raise():

@@ -47,6 +47,7 @@ from povar_tpu_torch import (
     bundle_adjust,
     create_homogeneous,
     from_numpy,
+    make_mesh,
     optimize_step2,
 )
 from povar_tpu_torch.ops import launches
@@ -425,15 +426,20 @@ def test_configurations_outside_the_slice_raise(geometry, opts, dtype,
 
 
 def test_too_many_cameras_raise():
-    """One device runs step 2 at any camera count: 1025 cameras build;
-    a mesh past 1024 cameras raises naming ROADMAP item 13
-    (tests/test_torch_stage1.py runs that refusal through
-    bundle_adjust)."""
+    """Step 2 builds at any camera count, on one device and on a mesh:
+    1025 cameras, the landmark seen by cameras 0 and 1024 a loop closure
+    of the mesh's grid class (tests/test_torch_stage1.py runs the mesh
+    past 1024 cameras through bundle_adjust)."""
     s = Stage2Solver(np.array([0, 1024]), np.array([0, 0]),
                      np.zeros((2, 2)), 1025, 1, _cfg(), device="cpu")
     assert s.n_cams == 1025
-    why = tspmd.spmd_unsupported(_cfg(), 1025, torch.float64)
-    assert "item 13" in why
+    assert tspmd.spmd_unsupported(_cfg(), 1025, torch.float64) is None
+    plan = tspmd.build_spmd_plan(np.array([0, 1024]), np.array([0, 0]),
+                                 1025, 1, 1, tspmd.PART_ALIGN)
+    assert plan.has_duplicates
+    m = tspmd.SpmdStage2Solver(plan, np.zeros((2, 2)), 1025, 1, _cfg(),
+                               make_mesh(1, "cpu"))
+    assert m.n_cams == 1025
 
 
 def test_default_device_is_the_card(geometry):
