@@ -12,7 +12,8 @@ prints no result line):
 
 1. device     a CUDA device, its name and power limit (nvidia-smi);
 2. build      the twenty-seven kernels of povar_tpu_torch/csrc/ (and
-              the f64 instantiations of the five camera-table ones), and
+              the f64 instantiations of the five camera-table ones, of
+              fifteen structured ones and of the three slot kernels), and
               the device LM loop's two (lm.cu), from source;
 3. kernels    each step-1 kernel (the fused term over the problem's slot
               parts; poba_t3 and apply_ldiff_stored of the
@@ -256,7 +257,41 @@ prints no result line):
               takes), venice-1778's first LARGE_N_ITERS step-1
               iteration against a 1-device mesh's: the same decisions
               and counts, accepted costs within MESH_D2_TOL;
-16b. band_chol  CHOLESKY at any camera count (solver/band_chol.py;
+16b. spmd_f64  the mesh's pure f64 (`mixed_precision_solves=False` on
+              a 1-device mesh: the structured window layout with f64
+              storage and solves, tools/step2_spread.py's f64 helpers):
+              (a) the fifteen structured f64 instantiations against their
+              plain versions on the card (F64_SPECS per kind), each call
+              one counted launch of its `_f64` name, with events, device
+              and loop times and bounds, the Schur-Jacobi corrections
+              symmetric bit for bit: at venice-89's 1-device mesh
+              operands (its slot layout, its step-2 linearization at the
+              homogenized VarProj start, seeded operands beside them) and
+              on seeded operands at N = 13,682 over ~2^20 slot rows
+              (large_n (a)'s problem), the routes past a block's shared
+              memory; the three slot kernels' f64 instantiations bit for
+              bit at the venice-89 layout (on the mesh solver's own
+              operands) and at final-13682's 39.3M lanes (mesh_large_n
+              (e)'s layout, seeded), timed; (b) venice-89 step 1 on the
+              mesh in pure f64 with POWER_VARPROJ defaults on the
+              kernels (counters zeroed before, read after) and on their
+              plain versions on the card: the same decisions and counts,
+              accepted costs within F64_MESH_TOLS, then its RIPOBA
+              witness (WITNESS_ITERS iterations on the calm landmarks of
+              its homogenized result) the same way, and one
+              `bundle_adjust(mesh=make_mesh(1))` in pure f64 (counters
+              zeroed before: the path's f64 kernels launched, no f32
+              structured or slot kernel), accepted costs falling, step 2
+              100x below its start; (c) (b)'s step 1 against the one
+              device's pure f64 (the unstructured layout) on the card;
+              (d) POWER_SCHUR_COMPLEMENT and PCG step 1 on the mesh (8
+              iterations each) and PSC's RIPCG witness, kernels against
+              plain versions; (e) venice-1778's first LARGE_N_ITERS
+              step-1 iteration on the mesh in pure f64, kernels against
+              plain versions; (f) the warm step-1 and step-2 bench
+              iterations of the mesh in pure f64 at venice-89 and
+              venice-1778;
+16c. band_chol  CHOLESKY at any camera count (solver/band_chol.py;
               tools/large_scale.py band_run prints each run's route, bw,
               K, S, plan seconds and bytes, set-up seconds, ms of a
               trial, an assembly and a factorization and solve, and peak
@@ -283,7 +318,7 @@ prints no result line):
               the PCG fallback with its "falling back to PCG" warning,
               one trial with CG iterations; hpp_b's and
               cam_scatter_add's launches in each run printed;
-16c. detailed_timing  the staged host loop (`detailed_timing=True`;
+16d. detailed_timing  the staged host loop (`detailed_timing=True`;
               tools/stage_timing.py): (a) the venice-89 `bundle_adjust`
               with SolverOptions() defaults and detailed_timing (counters
               zeroed before, read after: the path's kernels, no lm
@@ -308,7 +343,8 @@ prints no result line):
               both steps.
 
 The second-to-last line is {"kernels": [...]}: per kernel, and per f64
-instantiation of the camera-table kernels (`<name>_f64`), its route,
+instantiation (`<name>_f64`: the camera-table kernels', the structured
+kernels' and the slot kernels'), its route,
 source, replaced TPU kernel, launches in the first venice-89 run of the
 main path that runs it (`launches_run` names it), max abs error against
 the plain version, event times of kernel and plain version (the step-1
@@ -527,6 +563,36 @@ MESH_BA_ITERS = (3, 10)
 # of `python -m povar_tpu_torch.tools.gloo_card --runs 8` (8 + 8 runs:
 # 7.71e-7, every run A with 1 term; NVIDIA H100 80GB HBM3, 700 W)
 MESH_D2_TOL = 1.55e-6
+# the mesh's pure f64 (the spmd_f64 phase): each f64 instantiation's
+# outputs against its plain version on the card, by kind (tools/
+# parity.py), held to the f64 phase's 1e-12 (F64, F64_CAM): the kernels
+# build with --fmad=false, so elementwise outputs agree bit for bit, and
+# the per-camera and block sums differ by their order alone (largest
+# measured 1.6e-13 per camera, hppb2 and prepare2 at venice-89's
+# near-plane rows, 1.8e-16 for l_diff, 0 elementwise; NVIDIA H100 80GB
+# HBM3, 700 W). The mesh's solves on the kernels against the same on
+# the plain versions (F64_MESH_TOLS: the step-1 solves of
+# tools/step2_spread.py's F64_MESH_CONFIGS, their step-2 witnesses, the
+# mesh's POWER_VARPROJ step 1 against one device's, venice-1778's first
+# iteration), relative: each twice the largest gap, kernel runs against
+# plain runs and within either side, of two calls of `python -m
+# povar_tpu_torch.tools.step2_spread --runs 0 --long 0 --f64-mesh N` (4
+# and 8 runs a side: step 1 POWER_VARPROJ 4.70e-12 / 1.37e-11, PSC 8
+# iterations 1.10e-14 / 2.56e-14, PCG 8 iterations 1.57e-12 / 2.28e-12;
+# the RIPOBA witness 4.35e-16 / 8.70e-16, RIPCG's 7.25e-16 (8 runs; from
+# PSC's 8 iterations it parted by 1.7e-3 between kernel runs, so the
+# witnesses start from POWER_VARPROJ's converged step 1); the mesh
+# against one device 2.57e-12 / 2.98e-12) and of `python -m
+# povar_tpu_torch.tools.large_scale spread venice-1778 --mesh --f64`
+# (4 / 8 runs: 7.71e-15 / 2.17e-14); NVIDIA H100 80GB HBM3, 700 W
+F64_SPECS = {"elem": ("elem", 1e-12), "cam": F64_CAM,
+             "scalar": ("scalar", 1e-12)}
+F64_MESH_TOLS = {"varproj step 1": 2.73e-11,
+                 "varproj RIPOBA witness": 1.74e-15,
+                 "varproj RIPCG witness": 1.45e-15,
+                 "varproj mesh vs one device": 5.96e-12,
+                 "psc step 1": 5.11e-14, "pcg step 1": 4.57e-12,
+                 "venice-1778": 4.33e-14}
 # the banded CHOLESKY (the band_chol phase, solver/band_chol.py): (a)
 # the banded increment of one linearization against the dense one on the
 # card, relative in norm, mixed precision and pure f64, at venice-89 (one
@@ -626,6 +692,13 @@ FLOPS_PER_OBS = {
     "cam_gather_f64": 0, "cam_scatter_add_f64": 12, "e0_u_f64": 72,
     "e0_scatter_f64": 84, "hpp_b_f64": 720,
 }
+# the structured kernels' f64 instantiations (the mesh's pure f64) do the
+# f32 ones' arithmetic, counted at the f64 rate
+FLOPS_PER_OBS.update({f"{k}_f64": FLOPS_PER_OBS[k] for k in (
+    "prepare", "e0_factor", "hpp_b_structured", "e0_u_structured",
+    "e0_scatter_structured", "apply_ldiff", "poba_t3", "apply_ldiff_stored",
+    "schur_diag_structured", "prepare2", "hppb2", "mat_dot2", "scatter2",
+    "ldiff2", "schur_diag2")})
 # the kernels each venice-89 run of the main path must launch
 STEP1_COMPOSED = {"prepare", "e0_factor", "hpp_b_structured",
                   "e0_u_structured", "e0_scatter_structured", "apply_ldiff",
@@ -724,6 +797,28 @@ PATHS.update({
     "step 1 spmd venice-1778": STEP1_COMPOSED | SPMD,
     "bundle_adjust spmd venice-1778": STEP1_COMPOSED | STEP2_COMPOSED | SPMD,
     MESH_FINAL_RUN: STEP1_COMPOSED | STEP2_COMPOSED | SPMD,
+})
+# the spmd_f64 phase's runs (the mesh's pure f64): the f64 instantiations
+# of the composed terms' path and of the slot kernels, the cost through
+# the f64 cost kernels; a witness's calm sub-problem may have landmarks
+# with several slot rows (no reduce-reexpand then)
+F64_STEP1 = {f"{k}_f64" for k in STEP1_COMPOSED - {"pose_error"}} | {
+    "pose_error"}
+F64_STEP2 = {f"{k}_f64" for k in STEP2_COMPOSED - {"pose_error2"}} | {
+    "pose_error2"}
+SPMD_F64 = {f"{k}_f64" for k in SPMD}
+F64_WITNESS = F64_STEP2 | {"class_part_sums_f64", "class_expand_rows_f64"}
+PATHS.update({
+    "step 1 spmd f64": F64_STEP1 | SPMD_F64,
+    "witness spmd f64 RIPOBA": F64_WITNESS,
+    "step 1 spmd f64 PSC": (F64_STEP1 - {"apply_ldiff_f64"}
+                            | {"poba_t3_f64", "apply_ldiff_stored_f64"}
+                            | SPMD_F64),
+    "witness spmd f64 RIPCG": F64_WITNESS | {"schur_diag2_f64"},
+    "step 1 spmd f64 PCG": F64_STEP1 | {"schur_diag_structured_f64"}
+    | SPMD_F64,
+    "bundle_adjust spmd f64": F64_STEP1 | F64_STEP2 | SPMD_F64,
+    "step 1 spmd f64 venice-1778": F64_STEP1 | SPMD_F64,
 })
 
 
@@ -983,7 +1078,7 @@ def check_kernels(solver, problem, alpha):
 
     d = kernel_inputs(solver, problem)
     o = int(d["cam"].shape[0])
-    results = run_cases(pk, pr, step1_cases(solver, d, alpha), o)
+    results = run_cases(pk, pr, step1_cases(solver, d, alpha), o, loop=True)
 
     # the camera gather of the f32 state's cost, bit for bit, beside the
     # one PyTorch call that computes it (index_select on an int64 index);
@@ -2686,6 +2781,395 @@ def check_spmd(problem, counts):
               mesh=True)
 
 
+def f64_operands(o, n, cam, mask, uv, seed, lin2=None):
+    """Seeded f64 operands of the fifteen structured f64 instantiations
+    over `o` slot rows and `n` cameras (cam [O] i32, mask [1, O] f32, uv
+    [2, O] f64), zeroed on the masked rows as the solvers' are; step 2's
+    table keeps p2 in [2.5, 9] for the seeded landmarks
+    (tests/test_torch_cuda.py's `_inputs`), or with `lin2` (a pure-f64
+    step-2 linearization on these rows) the linearization's own table,
+    landmarks, projection cache, weights and Jacobian rows."""
+    rng = np.random.default_rng(seed)
+    m = mask.double()
+
+    def f(*shape, lo=None, hi=None, masked=False):
+        a = (rng.standard_normal(shape) if lo is None
+             else rng.uniform(lo, hi, shape))
+        t = torch.as_tensor(a, dtype=torch.float64, device="cuda")
+        return t * m if masked else t
+
+    ct = f(12, n)
+    ct2 = ct.clone()
+    ct2[8:11] *= 0.1
+    ct2[11] = f(n, lo=3.0, hi=4.0)
+    x4 = f(4, o)
+    x4[3] = f(o, lo=1.0, hi=2.0)
+    sw = f(1, o, lo=0.5, hi=1.0, masked=True)
+    d = dict(cam=cam, mask=mask, uv=uv, ct=ct, x=f(3, o), sw=sw, w=sw * sw,
+             r_w=f(4, o, masked=True), jls=f(3, o, lo=0.1, hi=1.0),
+             hib=f(3, o), lh=f(9, o), h=f(9, o, masked=True), z=f(12, n),
+             sb=f(3, o), inc=f(12, n), inc_lm=f(3, o), ct2=ct2, x4=x4,
+             mm=f(3, o, masked=True), sw2=sw, r_w2=f(2, o, masked=True),
+             jlns=f(6, o), jls8=f(8, o), mat6=f(6, o), ilm4=f(4, o))
+    if lin2 is not None:
+        d.update(ct2=lin2.ct, x4=lin2.x4, mm=lin2.mm, sw2=lin2.sw,
+                 r_w2=lin2.r_w, jlns=lin2.jlns, jls8=lin2.jls8)
+    return d
+
+
+def f64_cases(d, n, alpha):
+    """run_cases' cases of the fifteen structured f64 instantiations
+    (`<name>_f64`: the nine step-1 ones, ops/pose_kernels.py, then the
+    six step-2 ones, ops/pose2_kernels.py) on the f64 operands `d`
+    (f64_operands) over `n` cameras, each output held to F64_SPECS of its
+    kind. Returns (step-1 cases, step-2 cases)."""
+    a = dict(alpha=alpha)
+    live = int((d["sw"] > 0).sum())
+    live2 = int((d["sw2"] > 0).sum())
+    elem, cam, total = F64_SPECS["elem"], F64_SPECS["cam"], F64_SPECS["scalar"]
+
+    def case(name, run, keys, specs, n_read=None):
+        return (f"{name}_f64", None, run, [d[k] for k in keys], specs, n_read)
+
+    obs2 = ("cam", "x4", "mm", "sw2")
+    o2 = [d[k] for k in obs2]
+    step1 = [
+        case("prepare",
+             lambda m: m.prepare(d["cam"], d["ct"], d["x"], d["uv"],
+                                 d["mask"], robust=0, huber=1.0, **a),
+             ("cam", "ct", "x", "uv", "mask"), [elem] * 4 + [cam]),
+        case("e0_factor",
+             lambda m: m.e0_factor(d["cam"], d["ct"], d["uv"], d["w"],
+                                   d["jls"], d["lh"], **a),
+             ("cam", "ct", "uv", "w", "jls", "lh"), [elem]),
+        case("hpp_b_structured",
+             lambda m: m.hpp_b_structured(d["cam"], d["ct"], d["x"], d["uv"],
+                                          d["sw"], d["r_w"], d["jls"],
+                                          d["hib"], n, **a),
+             ("sw", "cam", "ct", "x", "uv", "r_w", "jls", "hib"),
+             [cam, cam], live),
+        case("e0_u_structured",
+             lambda m: m.e0_u_structured(d["cam"], d["x"], d["h"], d["z"]),
+             ("cam", "x", "h", "z"), [elem]),
+        case("e0_scatter_structured",
+             lambda m: m.e0_scatter_structured(d["cam"], d["x"], d["h"],
+                                               d["sb"], n),
+             ("cam", "x", "h", "sb"), [cam]),
+        case("apply_ldiff",
+             lambda m: m.apply_ldiff(d["cam"], d["x"], d["uv"], d["sw"],
+                                     d["r_w"], d["jls"], d["inc_lm"],
+                                     d["ct"], d["inc"], **a),
+             ("sw", "cam", "x", "uv", "r_w", "jls", "inc_lm", "ct", "inc"),
+             [total], live),
+        case("poba_t3",
+             lambda m: m.poba_t3(d["cam"], d["ct"], d["x"], d["uv"], d["sw"],
+                                 d["r_w"], d["jls"], d["z"], **a),
+             ("cam", "ct", "x", "uv", "sw", "r_w", "jls", "z"), [elem]),
+        case("apply_ldiff_stored",
+             lambda m: m.apply_ldiff_stored(d["cam"], d["x"], d["uv"],
+                                            d["sw"], d["r_w"], d["jls"],
+                                            d["inc_lm"], d["ct"], d["z"],
+                                            **a),
+             ("cam", "x", "uv", "sw", "r_w", "jls", "inc_lm", "ct", "z"),
+             [total]),
+        case("schur_diag_structured",
+             lambda m: m.schur_diag_structured(d["cam"], d["x"], d["h"], n),
+             ("h", "cam", "x"), [cam], live),
+    ]
+    step2 = [
+        case("prepare2",
+             lambda m: m.prepare2(d["cam"], d["ct2"], d["x4"], d["uv"],
+                                  d["mask"], use_valid=True, robust=0,
+                                  huber=1.0),
+             ("cam", "ct2", "x4", "uv", "mask"), [elem] * 5 + [cam]),
+        case("hppb2",
+             lambda m: m.hppb2(*o2, d["r_w2"], d["jlns"], d["hib"], n),
+             ("sw2", "cam", "x4", "mm", "r_w2", "jlns", "hib"), [cam, cam],
+             live2),
+        case("mat_dot2",
+             lambda m: m.mat_dot2(*o2, d["mat6"], None, d["z"], add_r=False),
+             ("cam", "x4", "mm", "sw2", "mat6", "z"), [elem]),
+        case("scatter2",
+             lambda m: m.scatter2(*o2, d["mat6"], d["sb"], n),
+             ("sw2", "cam", "x4", "mm", "mat6", "sb"), [cam], live2),
+        case("ldiff2",
+             lambda m: m.ldiff2(*o2, d["r_w2"], d["jls8"], d["ilm4"], d["z"]),
+             ("cam", "x4", "mm", "sw2", "r_w2", "jls8", "ilm4", "z"),
+             [total]),
+        case("schur_diag2",
+             lambda m: m.schur_diag2(*o2, d["mat6"], n),
+             ("sw2", "cam", "x4", "mm", "mat6"), [cam], live2),
+    ]
+    return step1, step2
+
+
+def check_f64_kernels(d, n, alpha, label, loop=False):
+    """The fifteen structured f64 instantiations against their plain
+    versions on the card on the operands `d` (f64_operands) over `n`
+    cameras, each call one counted launch of its `_f64` name (and none
+    of the f32 one), with run_cases' times (`loop`: the loop timer too);
+    the Schur-Jacobi corrections symmetric bit for bit. Returns {name:
+    result dict}."""
+    from povar_tpu_torch.ops import launches
+    from povar_tpu_torch.ops import pose2_kernels as pk2
+    from povar_tpu_torch.ops import pose2_ref as pr2
+    from povar_tpu_torch.ops import pose_kernels as pk
+    from povar_tpu_torch.ops import pose_ref as pr
+
+    o = int(d["cam"].shape[0])
+    step1, step2 = f64_cases(d, n, alpha)
+    print(f"{label}: O = {o} rows, N = {n}", flush=True)
+    for kernels, cases in ((pk, step1), (pk2, step2)):
+        for name, _v, run, *_rest in cases:
+            launches.reset_launch_counts()
+            run(kernels)
+            torch.cuda.synchronize()
+            counts = launches.launch_counts()
+            if counts[name] != 1 or counts[name.removesuffix("_f64")]:
+                raise AssertionError(f"{label} {name}: launches {counts}")
+    results = run_cases(pk, pr, step1, o, loop=loop)
+    results.update(run_cases(pk2, pr2, step2, o, loop=loop))
+    check_symmetric(f"schur_diag_structured_f64 ({label})",
+                    pk.schur_diag_structured(d["cam"], d["x"], d["h"], n))
+    check_symmetric(f"schur_diag2_f64 ({label})",
+                    pk2.schur_diag2(d["cam"], d["x4"], d["mm"], d["sw2"],
+                                    d["mat6"], n))
+    return results
+
+
+def check_spmd_f64_slots(operands, layout, label, timed=False, loop=False):
+    """The three slot kernels' f64 instantiations on `operands` ({name:
+    [K, .] f64 tensors}) of `layout`, bit for bit against their plain
+    versions (both add the slot elements left to right), one counted
+    launch of the `_f64` name a call (the pure-f64 expansion: hi_lo off);
+    with `timed`, the first operand's events, device times, bound (8 B a
+    lane and slot row) and view formulation, and with `loop` the loop
+    timer. Returns {`<name>_f64`: result dict}."""
+    from povar_tpu_torch.ops import launches, spmd_kernels, spmd_ref
+
+    results = {}
+    for name, xs in operands.items():
+        kernel = getattr(spmd_kernels, name)
+        plain = getattr(spmd_ref, name)
+        for x in xs:
+            launches.reset_launch_counts()
+            got = kernel(x, layout)
+            torch.cuda.synchronize()
+            counts = launches.launch_counts()
+            if counts[f"{name}_f64"] != 1 or counts[name]:
+                raise AssertionError(f"{label} {name}: launches {counts}")
+            if got.dtype != torch.float64 or not torch.equal(
+                    got, plain(x, layout)):
+                raise AssertionError(f"{label} {name}_f64: kernel != plain "
+                                     f"version at {tuple(x.shape)}")
+        if not timed:
+            print(f"{label} {name}_f64: bit-equal at "
+                  f"{[tuple(x.shape) for x in xs]}", flush=True)
+            continue
+        x = xs[0]
+        out = kernel(x, layout)
+        lib = spmd_library(name, x, layout)
+        moved = (x.numel() + out.numel()) * 8
+        res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: kernel(x, layout)),
+                   plain_ms=cuda_ms(lambda: plain(x, layout)),
+                   bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                   library_ms=cuda_ms(lib))
+        if loop:
+            res["loop_ms"] = loop_ms(lambda: kernel(x, layout))
+        results[f"{name}_f64"] = res
+        print(f"{label} {name}_f64 bit-equal at "
+              f"{[tuple(x.shape) for x in xs]}; {tuple(x.shape)} -> "
+              f"{tuple(out.shape)}: events kernel {res['ms']:.4f} ms plain "
+              f"{res['plain_ms']:.4f} ms view formulation "
+              f"{res['library_ms']:.4f} ms; device kernel "
+              f"{device_us(lambda: kernel(x, layout)):.1f} us"
+              + (f", loop {res['loop_ms'] * 1e3:.1f} us" if loop else "")
+              + f"; bound {res['bound_ms'] * 1e3:.1f} us ({moved / 1e6:.2f} "
+              "MB at 3.35 TB/s)", flush=True)
+    return results
+
+
+def check_spmd_f64(problem, counts, large):
+    """The spmd_f64 phase (16b in the module docstring): the mesh's pure
+    f64. `large`: the large_n phase's venice-1778 problem and the
+    mesh_large_n phase's final-13682 layout. Returns the kernel results
+    of the eighteen `<name>_f64` entries."""
+    from povar_tpu_torch import (
+        SolverOptions, Stage1Solver, Stage2Solver, create_homogeneous,
+        make_mesh, synthetic_bal_problem_fast,
+    )
+    from povar_tpu_torch.ops import launches, pose_kernels, spmd_ref
+    from povar_tpu_torch.tools.large_scale import (
+        LARGE_N_ITERS, first_iterations, stage_solvers,
+    )
+    from povar_tpu_torch.tools.step2_spread import (
+        F64_MESH_CONFIGS, WITNESS_ITERS, f64_mesh_witness, f64_options,
+        f64_step1,
+    )
+
+    t_phase = time.perf_counter()
+    f64 = SolverOptions(mixed_precision_solves=False)
+    # (a) the kernels at venice-89's 1-device mesh operands: the mesh
+    # solvers' slot layout, their step-2 linearization at the homogenized
+    # VarProj start, seeded f64 operands beside it
+    t0 = time.perf_counter()
+    s1 = stage_solver(Stage1Solver, problem, f64, mesh=True)
+    s2 = stage_solver(Stage2Solver, problem, f64, mesh=True)
+    if s1.unstructured or s2.unstructured or {
+            s1.solve_dtype, s2.solve_dtype} != {torch.float64}:
+        raise AssertionError("the mesh's pure f64 is not the structured "
+                             "layout with f64 solves")
+    c = torch.as_tensor(problem.cam_space, device="cuda")
+    lm = s1.lm_pack(s1.initialize_varproj(c))
+    c2, lm2 = create_homogeneous(c, s1.lm_unpack(lm))
+    lin2 = s2.linearize(c2, s2.lm_pack(lm2))
+    o, n = int(s1.obs.cam.shape[0]), s1.n_cams
+    d = f64_operands(o, n, s1.obs.cam, s1._mask1, s1._uv_s, 11, lin2)
+    results = check_f64_kernels(d, n, f64.alpha,
+                                "(a) venice-89 1-device mesh", loop=True)
+    lay = s1.layout
+    _rw, _sw, ata, atr, _jpsq = pose_kernels.prepare(
+        s1.obs.cam, s1._cam_table(c, torch.float64), d["x"], s1._uv_s,
+        s1._mask1, alpha=f64.alpha, robust=0, huber=1.0, sums=False)
+    lin1 = s1.linearize(c, lm)
+    results.update(check_spmd_f64_slots({
+        "class_part_sums": [ata, atr],
+        "class_expand_rows": [lin1.jl_scale,
+                              lin1.hll_raw.reshape(9, -1).contiguous()],
+        "class_reduce_reexpand": [d["h"][:3].contiguous()],
+    }, lay, "(a) venice-89 1-device mesh", timed=True, loop=True))
+    del s1, s2, lin1, lin2, d, ata, atr
+    print(f"(a) venice-89 {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (a) at N = 13,682 on ~2^20 slot rows (large_n (a)'s problem) and
+    # the slot kernels at final-13682's 39.3M lanes (mesh_large_n (e)'s
+    # layout), seeded operands
+    t0 = time.perf_counter()
+    pa = synthetic_bal_problem_fast(LARGE_N, LARGE_N_LMS, OBS_PER_LM, seed=0,
+                                    locality=64)
+    sa = Stage1Solver(pa.obs_cam, pa.obs_lm, pa.obs_uv, pa.num_cameras,
+                      pa.num_landmarks, f64, device="cuda")
+    o = int(sa.obs.cam.shape[0])
+    d = f64_operands(o, LARGE_N, sa.obs.cam, sa._mask1, sa._uv_s, 12)
+    check_f64_kernels(d, LARGE_N, f64.alpha, f"(a) N = {LARGE_N}",
+                      loop=True)
+    del sa, d, pa
+    lay = large.pop("final-13682 layout")
+    o_dev, n_rows = spmd_ref.layout_sizes(lay)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    check_spmd_f64_slots({
+        name: [torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float64)]
+        for name, shape in (("class_part_sums", (9, o_dev)),
+                            ("class_expand_rows", (3, n_rows)),
+                            ("class_reduce_reexpand", (3, o_dev)))},
+        lay, f"(a) final-13682 layout (o_dev {o_dev}, {n_rows} slot rows)",
+        timed=True, loop=True)
+    torch.cuda.empty_cache()
+    print(f"(a) N = {LARGE_N} and final-13682 {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+
+    # (b) venice-89 step 1 on the mesh in pure f64 with defaults, on the
+    # kernels and on their plain versions, then its RIPOBA witness; one
+    # bundle_adjust(mesh=make_mesh(1)) for the path's launches
+    t0 = time.perf_counter()
+    ends = {}
+    for tag, path in (("varproj", "step 1 spmd f64"),
+                      ("psc", "step 1 spmd f64 PSC"),
+                      ("pcg", "step 1 spmd f64 PCG")):
+        solver1, iters1, witnesses = F64_MESH_CONFIGS[tag]
+        opts = f64_options(solver1, iters1)
+        launches.reset_launch_counts()
+        got, ends[tag], secs = f64_step1(problem, opts, False)
+        counts[path] = launches.launch_counts()
+        check_counts(path, counts[path])
+        want, _end, secs_p = f64_step1(problem, opts, True)
+        check_same_run(f"({'b' if tag == 'varproj' else 'd'}) {path}, pure "
+                       "f64", got, want, F64_MESH_TOLS[f"{tag} step 1"])
+        print(f"  {secs:.3f} s on the kernels, {secs_p:.3f} s on the plain "
+              "versions", flush=True)
+        if tag == "varproj":
+            one, _end, secs_o = f64_step1(problem, opts, False, mesh=False)
+            check_same_run("(c) step 1 pure f64, the mesh against one "
+                           "device", got, one,
+                           F64_MESH_TOLS["varproj mesh vs one device"],
+                           other="one device")
+            print(f"  one device {secs_o:.3f} s", flush=True)
+        for s2t in witnesses:
+            state = create_homogeneous(*ends[tag])
+            wopts = f64_options(solver1, iters1, s2t)
+            path2 = f"witness spmd f64 {s2t.value}"
+            launches.reset_launch_counts()
+            wg, m, secs = f64_mesh_witness(problem, *state, wopts, False)
+            counts[path2] = launches.launch_counts()
+            check_counts(path2, counts[path2])
+            wp, _m, secs_p = f64_mesh_witness(problem, *state, wopts, True)
+            check_same_run(f"({'b' if s2t.value == 'RIPOBA' else 'd'}) "
+                           f"{s2t.value} step 2 pure f64 on the mesh, "
+                           f"{WITNESS_ITERS} iterations on {m} calm "
+                           "landmarks", wg, wp,
+                           F64_MESH_TOLS[f"{tag} {s2t.value} witness"])
+    print(f"(b)-(d) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    path = "bundle_adjust spmd f64"
+    launches.reset_launch_counts()
+    out, p1, p2, secs = pipeline(problem, f64, "cuda", mesh=True)
+    counts[path] = launches.launch_counts()
+    print(f"-- (b) {path}: {secs:.3f} s, {len(p1.iterations)} + "
+          f"{len(p2.iterations)} records", flush=True)
+    check_counts(path, counts[path])
+    f32_ran = sorted(k for k in (STEP1_COMPOSED | STEP2_COMPOSED | SPMD
+                                 | FUSED_TERMS) - {"pose_error",
+                                                   "pose_error2"}
+                     if counts[path][k])
+    if f32_ran:
+        raise AssertionError(f"{path}: f32 kernels ran: {f32_ran}")
+    for step, summary in ((1, p1), (2, p2)):
+        its = summary.iterations
+        print(f"step {step}: {''.join('A' if it.step_is_successful else 'R' for it in its[1:])}"
+              f", inner {[it.linear_solver_iterations for it in its[1:]]}, "
+              f"initial {its[0].cost.all.error!r} final "
+              f"{summary.final_cost.all.error!r}", flush=True)
+        check_falling(f"{path} step {step}", [
+            it.cost.all.error for it in its if it.step_is_successful])
+    check_final(2, p2)
+    if not all(np.isfinite(a).all() for a in (out.cam_space, out.lm_p_h)):
+        raise AssertionError("non-finite optimized state")
+    print(f"(b) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (e) venice-1778's first step-1 iteration on the 1-device mesh in
+    # pure f64, on the kernels (counters zeroed before, read after) and on
+    # their plain versions
+    t0 = time.perf_counter()
+    pc = large["venice-1778"]
+    sv, _s2 = stage_solvers(pc, f64, make_mesh(1))
+    path = "step 1 spmd f64 venice-1778"
+    launches.reset_launch_counts()
+    got, secs_k = first_iterations(pc, False, stage1=sv)
+    counts[path] = launches.launch_counts()
+    check_counts(path, counts[path])
+    want, secs_p = first_iterations(pc, True, stage1=sv)
+    check_same_run(f"(e) venice-1778 mesh step 1 pure f64, first "
+                   f"{LARGE_N_ITERS} iterations", got, want,
+                   F64_MESH_TOLS["venice-1778"])
+    print(f"(e) {secs_k:.2f} s on the kernels, {secs_p:.2f} s on the plain "
+          f"versions; {time.perf_counter() - t0:.1f} s with set-up",
+          flush=True)
+    del sv, _s2
+
+    # (f) the warm bench iterations of the mesh in pure f64, venice-89
+    # and venice-1778
+    for prob, scale in ((problem, "venice-89"), (pc, "venice-1778")):
+        for step, bench in ((1, bench_step1), (2, bench_step2)):
+            bench(prob, f64, f"step-{step} spmd f64 {scale} (1-device mesh)",
+                  mesh=True)
+    vars(pc).pop("_spmd_plan_cache", None)
+    print(f"spmd_f64 phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return results
+
+
 def check_lm_kernels():
     """The device LM loop's two kernels (ops/lm_kernels.py, csrc/lm.cu)
     against their plain versions on the card: lm_step bit for bit on
@@ -3392,9 +3876,11 @@ def check_mesh_large_n(counts, large):
     if not gap <= MESH_D2_TOL:
         raise AssertionError(f"(f) D = 2 against D = 1: cost gap {gap:.3e} "
                              f"(> {MESH_D2_TOL:g})")
-    # the plans leave the problems: the band_chol phase copies them
+    # the plans leave the problems: the band_chol phase copies them;
+    # the final-13682 layout stays for the spmd_f64 phase's slot kernels
     for problem in large.values():
         vars(problem).pop("_spmd_plan_cache", None)
+    large["final-13682 layout"] = lay
     print(f"mesh_large_n phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return {f"{name}@N{LARGE_N}": res for name, res in timed.items()}
@@ -3794,7 +4280,7 @@ def main() -> int:
     probe2 = Stage2Solver(*args, defaults, device="cuda")
     print(f"step-2 solver set-up {time.perf_counter() - t0:.2f} s", flush=True)
     cams_h, lms_h = create_homogeneous(cams, lms)
-    results.update(check_kernels2(probe2, cams_h, lms_h))
+    results.update(check_kernels2(probe2, cams_h, lms_h, loop=True))
     check_kernels2_orders(problem, probe2, cams_h, lms_h)
     del probe2
 
@@ -3908,6 +4394,10 @@ def main() -> int:
     phase("mesh_large_n (the SPMD window layout past 1024 cameras on a "
           "1-device mesh: venice-1778, final-13682)")
     results.update(check_mesh_large_n(counts, large))
+
+    phase("spmd_f64 (the mesh's pure f64: the window layout's f64 "
+          "kernels on a 1-device mesh)")
+    results.update(check_spmd_f64(problem, counts, large))
 
     phase("band_chol (CHOLESKY at any camera count: the banded "
           "factorization, its full band and its PCG fallback)")

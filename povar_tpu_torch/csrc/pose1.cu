@@ -43,6 +43,15 @@
 // atomic per entry, so the grid is sized to what is resident at once
 // (grid-stride), not to O.
 //
+// f64: every kernel but K7 (native f64 already) and K8 (the fused term,
+// which no f64 path runs) is templated on its value type V and has an
+// f64 instantiation, the entry point's name with `_f64` appended, for
+// the SPMD window layout's pure f64 (parallel/spmd.py; the JAX package's
+// XLA mirrors in povar_tpu/ops/xla_pose.py): f64 loads, arithmetic,
+// per-camera accumulators, block sums and outputs. A route chosen by
+// shared-memory bytes counts 8-byte values there, so its camera ceilings
+// halve. The f32 instantiations are the kernels described above.
+//
 // C interface: every entry point takes device pointers, sizes, scalar
 // constants and the CUDA stream to launch on, launches one kernel, and
 // returns the cudaError_t of the launch (0 on success). Nothing here
@@ -51,6 +60,7 @@
 
 #include "pose_common.cuh"
 
+using povar::dyn_smem;
 using povar::kE0Threads;
 using povar::kE0Warps;
 using povar::kMomentRows;
@@ -97,65 +107,74 @@ namespace {
 // POWER_SCHUR_COMPLEMENT step-1 solves past chip_smoke.py's band, the
 // earlier version 0 of 64 in the same call (tools/pose1_ab.py, tools/
 // step2_spread.py and PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+// f64 (prepare_f64): the same routes on f64 accumulators (private copies
+// up to N = 227, shared up to N = 3632), and no register cap per thread.
 constexpr int kJpRows = 8;
 constexpr int kPrepThreads = 512;
 constexpr int kPrepSharedThreads = 1024;
 constexpr int kPrepSmThreads = 1536;  // resident per SM: the registers
 
-template <bool kSums, Route R, int kBlock>
-__global__ void __launch_bounds__(kBlock, kPrepSmThreads / kBlock)
-    prepare_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
-                   const float* __restrict__ x, const float* __restrict__ uv,
-                   const float* __restrict__ mask, float* __restrict__ rw,
-                   float* __restrict__ sw_out, float* __restrict__ ata,
-                   float* __restrict__ atr, float* __restrict__ jpsq,
+// the floor under res_sq in the robust weight, in the working type
+template <typename V>
+__device__ __forceinline__ V res_floor() {
+  return sizeof(V) == sizeof(float) ? V(1e-30f) : V(1e-30);
+}
+
+template <typename V, bool kSums, Route R, int kBlock>
+__global__ void __launch_bounds__(
+    kBlock, sizeof(V) == sizeof(float) ? kPrepSmThreads / kBlock : 1)
+    prepare_kernel(const int32_t* __restrict__ cam, const V* __restrict__ ct,
+                   const V* __restrict__ x, const V* __restrict__ uv,
+                   const float* __restrict__ mask, V* __restrict__ rw,
+                   V* __restrict__ sw_out, V* __restrict__ ata,
+                   V* __restrict__ atr, V* __restrict__ jpsq,
                    double* __restrict__ acc_g, int n_obs, int n_cams,
-                   float sp, float sa, float sp2, int huber_on, float huber,
-                   float huber2) {
+                   V sp, V sa, V sp2, int huber_on, V huber, V huber2) {
   constexpr int kWarps = kBlock / 32;
   constexpr bool kPrivate = R == Route::kPrivate;
   constexpr bool kGlobal = R == Route::kGlobal;
   // kSums: [8, N] per warp or per block; none on the global route
-  extern __shared__ float acc[];
+  V* acc = dyn_smem<V>();
   const int n_acc = kJpRows * n_cams;
   if (kSums && !kGlobal) {
     povar::smem_zero(acc, (kPrivate ? kWarps : 1) * n_acc);
     __syncthreads();
   }
-  float* wacc = kPrivate ? acc + (threadIdx.x >> 5) * n_acc : acc;
+  V* wacc = kPrivate ? acc + (threadIdx.x >> 5) * n_acc : acc;
   const long O = n_obs;
   const int lane = threadIdx.x & 31;
   // warp-uniform trips: every lane reaches warp_scatter
   for (long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
        base < O; base += (long)gridDim.x * blockDim.x) {
     const long o = base + lane;
-    float sums[kJpRows];
+    V sums[kJpRows];
 #pragma unroll
-    for (int k = 0; k < kJpRows; ++k) sums[k] = 0.0f;
+    for (int k = 0; k < kJpRows; ++k) sums[k] = V(0);
     int c = 0;
     bool live = false;
     if (o < O) {
       c = cam[o];
-      const float u = uv[o], v = uv[O + o];
-      const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
+      const V u = uv[o], v = uv[O + o];
+      const V xh[4] = {x[o], x[O + o], x[2 * O + o], V(1)};
       const bool unmasked = mask[o] > 0.0f;
-      float P[12], A[4][4], r[4];
+      V P[12], A[4][4], r[4];
 #pragma unroll
       for (int k = 0; k < 12; ++k) P[k] = __ldg(ct + k * n_cams + c);
       povar::a_tilde(P, 1, 0, u, v, sp, sa, A);
       povar::residual(A, xh, u, v, sa, r);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) r[k] = unmasked ? r[k] : 0.0f;
-      const float res_sq =
+      for (int k = 0; k < 4; ++k) r[k] = unmasked ? r[k] : V(0);
+      const V res_sq =
           r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + r[3] * r[3];
-      float w = 1.0f;
+      V w = V(1);
       if (huber_on && !(res_sq < huber2)) {
         // max(res_sq, 1e-30) that keeps a NaN a NaN, as jnp.maximum does
-        w = huber / sqrtf(res_sq < 1e-30f ? 1e-30f : res_sq);
+        const V floor = res_floor<V>();
+        w = huber / sqrt(res_sq < floor ? floor : res_sq);
       }
-      w = unmasked ? w : 0.0f;
+      w = unmasked ? w : V(0);
       if (kSums) {
-        const float s = sqrtf(w);
+        const V s = sqrt(w);
 #pragma unroll
         for (int k = 0; k < 4; ++k) rw[k * O + o] = r[k] * s;
         sw_out[o] = s;
@@ -164,21 +183,21 @@ __global__ void __launch_bounds__(kBlock, kPrepSmThreads / kBlock)
       for (int i = 0; i < 3; ++i) {
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
-          float a = A[0][i] * A[0][j];
+          V a = A[0][i] * A[0][j];
           a += A[1][i] * A[1][j];
           a += A[2][i] * A[2][j];
           a += A[3][i] * A[3][j];
           ata[(i * 3 + j) * O + o] = w * a;
         }
-        float b = A[0][i] * r[0];
+        V b = A[0][i] * r[0];
         b += A[1][i] * r[1];
         b += A[2][i] * r[2];
         b += A[3][i] * r[3];
         atr[i * O + o] = w * b;
       }
       if (kSums) {
-        live = w != 0.0f;
-        const float wk[2] = {w, w * (sp2 * (u * u + v * v))};
+        live = w != V(0);
+        const V wk[2] = {w, w * (sp2 * (u * u + v * v))};
 #pragma unroll
         for (int t = 0; t < 2; ++t)
 #pragma unroll
@@ -194,11 +213,11 @@ __global__ void __launch_bounds__(kBlock, kPrepSmThreads / kBlock)
   if (!kGlobal) {
     __syncthreads();
     for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
-      float s = acc[i];
+      V s = acc[i];
       if (kPrivate) {
         for (int w = 1; w < kWarps; ++w) s += acc[w * n_acc + i];
       }
-      if (s != 0.0f) atomicAdd(acc_g + i, (double)s);
+      if (s != V(0)) atomicAdd(acc_g + i, (double)s);
     }
   }
   if (!povar::last_block(reinterpret_cast<unsigned*>(acc_g + n_acc)))
@@ -207,7 +226,7 @@ __global__ void __launch_bounds__(kBlock, kPrepSmThreads / kBlock)
   for (int i = threadIdx.x; i < 12 * n_cams; i += blockDim.x) {
     const int row = i / n_cams;
     const int src = (row < 8 ? row & 3 : row - 4) * n_cams + i - row * n_cams;
-    jpsq[i] = (float)__ldcg(acc_g + src);
+    jpsq[i] = (V)__ldcg(acc_g + src);
   }
 }
 
@@ -218,36 +237,37 @@ __global__ void __launch_bounds__(kBlock, kPrepSmThreads / kBlock)
 // Replaces pallas_pose.py:385 e0_factor. Bound: 100 B of device memory
 // per observation (64 read, 36 written); no atomics. The camera table
 // is read in place (L1 / L2), at any N.
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-    e0_factor_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
-                     const float* __restrict__ uv, const float* __restrict__ w_in,
-                     const float* __restrict__ jls, const float* __restrict__ lh,
-                     float* __restrict__ h, int n_obs, int n_cams, float sp2) {
-  const float* tbl = ct;
+    e0_factor_kernel(const int32_t* __restrict__ cam, const V* __restrict__ ct,
+                     const V* __restrict__ uv, const V* __restrict__ w_in,
+                     const V* __restrict__ jls, const V* __restrict__ lh,
+                     V* __restrict__ h, int n_obs, int n_cams, V sp2) {
+  const V* tbl = ct;
   const long O = n_obs;
   POVAR_OBS_LOOP(o, O) {
     const int c = cam[o];
-    const float u = uv[o], v = uv[O + o];
-    const float w = w_in[o];
-    float g[3][3];
+    const V u = uv[o], v = uv[O + o];
+    const V w = w_in[o];
+    V g[3][3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      const float p0 = tbl[i * n_cams + c];
-      const float p1 = tbl[(4 + i) * n_cams + c];
-      const float p2 = tbl[(8 + i) * n_cams + c];
+      const V p0 = tbl[i * n_cams + c];
+      const V p1 = tbl[(4 + i) * n_cams + c];
+      const V p2 = tbl[(8 + i) * n_cams + c];
       g[i][0] = p0 - sp2 * u * p2;
       g[i][1] = p1 - sp2 * v * p2;
       g[i][2] = sp2 * ((u * u + v * v) * p2 - u * p0 - v * p1);
     }
-    const float j0 = jls[o], j1 = jls[O + o], j2 = jls[2 * O + o];
+    const V j0 = jls[o], j1 = jls[O + o], j2 = jls[2 * O + o];
 #pragma unroll
     for (int cc = 0; cc < 3; ++cc) {
-      const float l0 = lh[cc * O + o];
-      const float l1 = lh[(3 + cc) * O + o];
-      const float l2 = lh[(6 + cc) * O + o];
+      const V l0 = lh[cc * O + o];
+      const V l1 = lh[(3 + cc) * O + o];
+      const V l2 = lh[(6 + cc) * O + o];
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        float acc = j0 * l0 * g[0][a];
+        V acc = j0 * l0 * g[0][a];
         acc += j1 * l1 * g[1][a];
         acc += j2 * l2 * g[2][a];
         h[(cc * 3 + a) * O + o] = w * acc;
@@ -272,9 +292,9 @@ __global__ void __launch_bounds__(kThreads)
 // partials per entry was the largest error and moved the POWER_SCHUR_
 // COMPLEMENT step-1 trajectory (PERF.md). The camera table is read
 // through the read-only path (__ldg; 4.3 KB at N = 89, it stays in L1).
-// kShared: the accumulators (52 N floats, up to N = 1117) in shared
-// memory, flushed once per block; otherwise every value goes straight to
-// a global f64 atomic.
+// kShared: the accumulators (52 N floats, up to N = 1117; 52 N doubles
+// in f64, up to N = 558) in shared memory, flushed once per block;
+// otherwise every value goes straight to a global f64 atomic.
 // Replaces pallas_pose.py:489 hpp_b_structured (_hpp_b_kernel :431).
 // Bound: the 52 shared float atomics per live row and the arithmetic
 // beside them: 76 us at venice-89 (124 per-row atomics: 222), 36 with the
@@ -285,17 +305,17 @@ __global__ void __launch_bounds__(kThreads)
 // shared memory leaves no room for the accumulators), and 578 at N = 2048
 // on the global route (tools/pose1_ab.py and PERF.md; NVIDIA H100 80GB
 // HBM3, 700 W).
-template <bool kShared>
+template <typename V, bool kShared>
 __global__ void __launch_bounds__(kThreads)
-    hpp_b_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
-                 const float* __restrict__ x, const float* __restrict__ uv,
-                 const float* __restrict__ sw_in, const float* __restrict__ rw,
-                 const float* __restrict__ jls, const float* __restrict__ hib,
-                 const int* __restrict__ expand, float* __restrict__ hpp,
-                 float* __restrict__ b, double* __restrict__ acc_g, int n_obs,
-                 int n_cams, float sp, float sa, float sp2) {
-  extern __shared__ float smem[];
-  float* acc = smem;  // kShared: the block's accumulators
+    hpp_b_kernel(const int32_t* __restrict__ cam, const V* __restrict__ ct,
+                 const V* __restrict__ x, const V* __restrict__ uv,
+                 const V* __restrict__ sw_in, const V* __restrict__ rw,
+                 const V* __restrict__ jls, const V* __restrict__ hib,
+                 const int* __restrict__ expand, V* __restrict__ hpp,
+                 V* __restrict__ b, double* __restrict__ acc_g, int n_obs,
+                 int n_cams, V sp, V sa, V sp2) {
+  V* smem = dyn_smem<V>();
+  V* acc = smem;  // kShared: the block's accumulators
   if (kShared) {
     povar::smem_zero(acc, kMomentRows * n_cams);
     __syncthreads();
@@ -306,32 +326,32 @@ __global__ void __launch_bounds__(kThreads)
   for (long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
        base < O; base += (long)gridDim.x * blockDim.x) {
     const long o = base + lane;
-    const float sw = o < O ? sw_in[o] : 0.0f;
-    const bool live = sw != 0.0f;
+    const V sw = o < O ? sw_in[o] : V(0);
+    const bool live = sw != V(0);
     if (!__any_sync(povar::kFullMask, live)) continue;
-    float v[kMomentRows];
+    V v[kMomentRows];
     int c = 0;
 #pragma unroll
-    for (int k = 0; k < kMomentRows; ++k) v[k] = 0.0f;
+    for (int k = 0; k < kMomentRows; ++k) v[k] = V(0);
     if (live) {
       c = cam[o];
-      const float u = uv[o], vv = uv[O + o];
-      const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
-      float P[12], A[4][4];
+      const V u = uv[o], vv = uv[O + o];
+      const V xh[4] = {x[o], x[O + o], x[2 * O + o], V(1)};
+      V P[12], A[4][4];
 #pragma unroll
       for (int k = 0; k < 12; ++k) P[k] = __ldg(ct + k * n_cams + c);
       povar::a_tilde(P, 1, 0, u, vv, sp, sa, A);
-      const float d0 = jls[o], d1 = jls[O + o], d2 = jls[2 * O + o];
-      const float h0 = hib[o], h1 = hib[O + o], h2 = hib[2 * O + o];
-      float rt[4];
+      const V d0 = jls[o], d1 = jls[O + o], d2 = jls[2 * O + o];
+      const V h0 = hib[o], h1 = hib[O + o], h2 = hib[2 * O + o];
+      V rt[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        float corr = A[k][0] * d0 * h0;
+        V corr = A[k][0] * d0 * h0;
         corr += A[k][1] * d1 * h1;
         corr += A[k][2] * d2 * h2;
         rt[k] = rw[k * O + o] - sw * corr;
       }
-      const float rho[3] = {
+      const V rho[3] = {
           sw * (sp * rt[0] + sa * rt[2]),
           sw * (sp * rt[1] + sa * rt[3]),
           sw * (-sp * (u * rt[0] + vv * rt[1])),
@@ -340,9 +360,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int a = 0; a < 3; ++a)
 #pragma unroll
         for (int j = 0; j < 4; ++j) v[4 * a + j] = rho[a] * xh[j];
-      const float w = sw * sw;
-      const float kw[4] = {w, w * (sp2 * u), w * (sp2 * vv),
-                           w * (sp2 * (u * u + vv * vv))};
+      const V w = sw * sw;
+      const V kw[4] = {w, w * (sp2 * u), w * (sp2 * vv),
+                       w * (sp2 * (u * u + vv * vv))};
       povar::moments(kw, xh, v);
     }
     if (kShared)
@@ -363,16 +383,17 @@ __global__ void __launch_bounds__(kThreads)
 // Replaces pallas_pose.py:568 e0_u_structured. Bound: 64 B of device
 // memory per observation (52 read, 12 written); no atomics. The z table
 // is read in place.
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-    e0_u_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
-                const float* __restrict__ h, const float* __restrict__ zt,
-                float* __restrict__ u_out, int n_obs, int n_cams) {
-  const float* tbl = zt;
+    e0_u_kernel(const int32_t* __restrict__ cam, const V* __restrict__ x,
+                const V* __restrict__ h, const V* __restrict__ zt,
+                V* __restrict__ u_out, int n_obs, int n_cams) {
+  const V* tbl = zt;
   const long O = n_obs;
   POVAR_OBS_LOOP(o, O) {
     const int c = cam[o];
-    const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
-    float z[12], y[3];
+    const V xh[4] = {x[o], x[O + o], x[2 * O + o], V(1)};
+    V z[12], y[3];
 #pragma unroll
     for (int k = 0; k < 12; ++k) z[k] = tbl[k * n_cams + c];
     povar::xh_contract(z, xh, y);
@@ -403,39 +424,40 @@ __global__ void __launch_bounds__(kThreads)
 // (the lane-order walk alone 25.9), 45.7-46.1 at N = 1024 on 4 shared
 // copies a 1024-thread block (the f64 flush of 132 blocks x 12,288 sums
 // ~13) (tools/pose1_ab.py and PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+template <typename V>
 struct ScatterRow1 {
-  float x[3], h[9], s[3];
+  V x[3], h[9], s[3];
   int c;
   bool in;
 };
 
-template <Route R>
+template <typename V, Route R>
 __global__ void __launch_bounds__(povar::scatter_threads(R))
     e0_scatter_kernel(const int32_t* __restrict__ cam,
-                      const float* __restrict__ x, const float* __restrict__ h,
-                      const float* __restrict__ sb, float* __restrict__ out,
+                      const V* __restrict__ x, const V* __restrict__ h,
+                      const V* __restrict__ sb, V* __restrict__ out,
                       double* __restrict__ acc_g, int n_obs, int n_cams,
                       int copies) {
-  extern __shared__ float smem[];
+  V* smem = dyn_smem<V>();
   const long O = n_obs;
   auto load = [&](long o) {
-    ScatterRow1 r;
+    ScatterRow1<V> r;
     r.in = o < O;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) r.h[k] = r.in ? h[k * O + o] : 0.0f;
+    for (int k = 0; k < 9; ++k) r.h[k] = r.in ? h[k * O + o] : V(0);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      r.s[k] = r.in ? sb[k * O + o] : 0.0f;
-      r.x[k] = r.in ? x[k * O + o] : 0.0f;
+      r.s[k] = r.in ? sb[k * O + o] : V(0);
+      r.x[k] = r.in ? x[k * O + o] : V(0);
     }
     r.c = r.in ? cam[o] : 0;
     return r;
   };
-  auto form = [](const ScatterRow1& r, float (&v)[povar::kScatterValues]) {
-    float t[3];
+  auto form = [](const ScatterRow1<V>& r, V (&v)[povar::kScatterValues]) {
+    V t[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      float acc_t = r.h[a] * r.s[0];
+      V acc_t = r.h[a] * r.s[0];
       acc_t += r.h[3 + a] * r.s[1];
       acc_t += r.h[6 + a] * r.s[2];
       t[a] = acc_t;
@@ -446,10 +468,10 @@ __global__ void __launch_bounds__(povar::scatter_threads(R))
       for (int j = 0; j < 3; ++j) v[4 * a + j] = t[a] * r.x[j];
       v[4 * a + 3] = t[a];
     }
-    return r.in && !(t[0] == 0.0f && t[1] == 0.0f && t[2] == 0.0f);
+    return r.in && !(t[0] == V(0) && t[1] == V(0) && t[2] == V(0));
   };
-  povar::scatter_pass<R, ScatterRow1>(load, form, out, acc_g, n_obs, n_cams,
-                                      copies, smem);
+  povar::scatter_pass<R, ScatterRow1<V>>(load, form, out, acc_g, n_obs,
+                                         n_cams, copies, smem);
 }
 
 // ------------------------------------------------------------------ K8
@@ -587,52 +609,53 @@ __global__ void __launch_bounds__(kE0Threads)
 // 99), 559-573 at N = 1024 (global f64 atomics; 54 with the adds made
 // dead stores) (tools/pose1_ab.py and PERF.md; NVIDIA H100 80GB HBM3,
 // 700 W).
+template <typename V>
 struct SchurRow1 {
-  float h[9], x[3];
+  V h[9], x[3];
   int c;
   bool in;
 };
 
-template <Route R>
+template <typename V, Route R>
 __global__ void __launch_bounds__(povar::schur_threads(R))
     schur_diag_kernel(const int32_t* __restrict__ cam,
-                      const float* __restrict__ x, const float* __restrict__ h,
-                      const int* __restrict__ expand, float* __restrict__ out,
+                      const V* __restrict__ x, const V* __restrict__ h,
+                      const int* __restrict__ expand, V* __restrict__ out,
                       double* __restrict__ acc_g, int n_obs, int n_cams,
                       int copies) {
-  extern __shared__ float smem[];
+  V* smem = dyn_smem<V>();
   const long O = n_obs;
   auto load = [&](long o) {
-    SchurRow1 r;
+    SchurRow1<V> r;
     r.in = o < O;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) r.h[k] = r.in ? h[k * O + o] : 0.0f;
+    for (int k = 0; k < 9; ++k) r.h[k] = r.in ? h[k * O + o] : V(0);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) r.x[k] = r.in ? x[k * O + o] : 0.0f;
+    for (int k = 0; k < 3; ++k) r.x[k] = r.in ? x[k * O + o] : V(0);
     r.c = r.in ? cam[o] : 0;
     return r;
   };
-  auto form = [](const SchurRow1& r, float H[6], float xh[4]) {
+  auto form = [](const SchurRow1<V>& r, V H[6], V xh[4]) {
     bool zero = true;
     int s = 0;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
 #pragma unroll
       for (int b = a; b < 3; ++b, ++s) {
-        float t = r.h[a] * r.h[b];
+        V t = r.h[a] * r.h[b];
         t += r.h[3 + a] * r.h[3 + b];
         t += r.h[6 + a] * r.h[6 + b];
         H[s] = t;
-        zero = zero && t == 0.0f;
+        zero = zero && t == V(0);
       }
     }
 #pragma unroll
     for (int k = 0; k < 3; ++k) xh[k] = r.x[k];
-    xh[3] = 1.0f;
+    xh[3] = V(1);
     return r.in && !zero;
   };
-  povar::schur_pass<R, SchurRow1>(load, form, expand, out, acc_g, n_obs,
-                                  n_cams, copies, smem);
+  povar::schur_pass<R, SchurRow1<V>>(load, form, expand, out, acc_g, n_obs,
+                                     n_cams, copies, smem);
 }
 
 // ------------------------------------------------------------------ K6
@@ -642,41 +665,42 @@ __global__ void __launch_bounds__(povar::schur_threads(R))
 // q~a = sum_j q[4a+j] xh_j; dead rows (sw == 0) contribute zero.
 // Replaces pallas_pose.py:846 apply_ldiff. Bound: 68 B read per
 // observation; its two camera tables are read in place.
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-    ldiff_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x,
-                 const float* __restrict__ uv, const float* __restrict__ sw_in,
-                 const float* __restrict__ rw, const float* __restrict__ jls,
-                 const float* __restrict__ ilm, const float* __restrict__ ct_old,
-                 const float* __restrict__ inc_t, float* __restrict__ partials,
-                 int n_obs, int n_cams, float sp, float sa) {
-  __shared__ float red[32];
-  const float* tbl_old = ct_old;
-  const float* tbl_inc = inc_t;
+    ldiff_kernel(const int32_t* __restrict__ cam, const V* __restrict__ x,
+                 const V* __restrict__ uv, const V* __restrict__ sw_in,
+                 const V* __restrict__ rw, const V* __restrict__ jls,
+                 const V* __restrict__ ilm, const V* __restrict__ ct_old,
+                 const V* __restrict__ inc_t, V* __restrict__ partials,
+                 int n_obs, int n_cams, V sp, V sa) {
+  __shared__ V red[32];
+  const V* tbl_old = ct_old;
+  const V* tbl_inc = inc_t;
   const long O = n_obs;
-  float total = 0.0f;
+  V total = V(0);
   POVAR_OBS_LOOP(o, O) {
-    const float sw = sw_in[o];
-    if (!(sw > 0.0f)) continue;
+    const V sw = sw_in[o];
+    if (!(sw > V(0))) continue;
     const int c = cam[o];
-    const float u = uv[o], v = uv[O + o];
-    const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
-    float q[12], qt[3];
+    const V u = uv[o], v = uv[O + o];
+    const V xh[4] = {x[o], x[O + o], x[2 * O + o], V(1)};
+    V q[12], qt[3];
 #pragma unroll
     for (int k = 0; k < 12; ++k) q[k] = tbl_inc[k * n_cams + c];
     povar::xh_contract(q, xh, qt);
-    const float jp_inc[4] = {sp * (qt[0] - u * qt[2]), sp * (qt[1] - v * qt[2]),
-                             sa * qt[0], sa * qt[1]};
-    float A[4][4];
+    const V jp_inc[4] = {sp * (qt[0] - u * qt[2]), sp * (qt[1] - v * qt[2]),
+                         sa * qt[0], sa * qt[1]};
+    V A[4][4];
     povar::a_tilde(tbl_old, n_cams, c, u, v, sp, sa, A);
-    const float d0 = jls[o], d1 = jls[O + o], d2 = jls[2 * O + o];
-    const float i0 = ilm[o], i1 = ilm[O + o], i2 = ilm[2 * O + o];
-    float ld = 0.0f;
+    const V d0 = jls[o], d1 = jls[O + o], d2 = jls[2 * O + o];
+    const V i0 = ilm[o], i1 = ilm[O + o], i2 = ilm[2 * O + o];
+    V ld = V(0);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float jl_inc =
+      const V jl_inc =
           (A[k][0] * d0 * i0 + A[k][1] * d1 * i1 + A[k][2] * d2 * i2) * sw;
-      const float j_inc = jp_inc[k] + jl_inc;
-      ld += j_inc * (0.5f * j_inc + rw[k * O + o]);
+      const V j_inc = jp_inc[k] + jl_inc;
+      ld += j_inc * (V(0.5) * j_inc + rw[k * O + o]);
     }
     total += ld;
   }
@@ -687,12 +711,11 @@ __global__ void __launch_bounds__(kThreads)
 // Jp_s inc of the STORED scaled Jacobians for K10 and K11: q = (ps . inc)
 // of the observation's camera, qt[a] = sum_j q[4a+j] xh_j,
 //   jp = sw [sp (qt0 - u qt2), sp (qt1 - v qt2), sa qt0, sa qt1]
-__device__ __forceinline__ void jp_inc_stored(const float* tbl_z, int n_cams,
-                                              int c, const float xh[4],
-                                              float u, float v, float sw,
-                                              float sp, float sa,
-                                              float jp[4]) {
-  float q[12], qt[3];
+template <typename V>
+__device__ __forceinline__ void jp_inc_stored(const V* tbl_z, int n_cams,
+                                              int c, const V xh[4], V u, V v,
+                                              V sw, V sp, V sa, V jp[4]) {
+  V q[12], qt[3];
 #pragma unroll
   for (int k = 0; k < 12; ++k) q[k] = tbl_z[k * n_cams + c];
   povar::xh_contract(q, xh, qt);
@@ -710,29 +733,29 @@ __device__ __forceinline__ void jp_inc_stored(const float* tbl_z, int n_cams,
 // does. Replaces pallas_pose.py:938 poba_t3 (_poba_t3_kernel :905).
 // Bound: 68 B of device memory per observation (56 read, 12 written);
 // the camera table and the z table are read in place; no atomics.
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-    poba_t3_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
-                   const float* __restrict__ x, const float* __restrict__ uv,
-                   const float* __restrict__ sw_in, const float* __restrict__ rw,
-                   const float* __restrict__ jls, const float* __restrict__ zt,
-                   float* __restrict__ t3, int n_obs, int n_cams, float sp,
-                   float sa) {
-  const float* tbl = ct;
-  const float* tbl_z = zt;
+    poba_t3_kernel(const int32_t* __restrict__ cam, const V* __restrict__ ct,
+                   const V* __restrict__ x, const V* __restrict__ uv,
+                   const V* __restrict__ sw_in, const V* __restrict__ rw,
+                   const V* __restrict__ jls, const V* __restrict__ zt,
+                   V* __restrict__ t3, int n_obs, int n_cams, V sp, V sa) {
+  const V* tbl = ct;
+  const V* tbl_z = zt;
   const long O = n_obs;
   POVAR_OBS_LOOP(o, O) {
-    const float sw = sw_in[o];
+    const V sw = sw_in[o];
     const int c = cam[o];
-    const float u = uv[o], v = uv[O + o];
-    const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
-    float jp[4], A[4][4], rt[4];
+    const V u = uv[o], v = uv[O + o];
+    const V xh[4] = {x[o], x[O + o], x[2 * O + o], V(1)};
+    V jp[4], A[4][4], rt[4];
     jp_inc_stored(tbl_z, n_cams, c, xh, u, v, sw, sp, sa, jp);
     povar::a_tilde(tbl, n_cams, c, u, v, sp, sa, A);
 #pragma unroll
     for (int k = 0; k < 4; ++k) rt[k] = rw[k * O + o] + jp[k];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      float acc = A[0][i] * rt[0];
+      V acc = A[0][i] * rt[0];
       acc += A[1][i] * rt[1];
       acc += A[2][i] * rt[2];
       acc += A[3][i] * rt[3];
@@ -750,37 +773,38 @@ __global__ void __launch_bounds__(kThreads)
 // Replaces pallas_pose.py:1096 apply_ldiff_stored (_ldiff_stored_kernel
 // :1055). Bound: 68 B read per observation; the camera and z tables
 // are read in place.
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
     ldiff_stored_kernel(const int32_t* __restrict__ cam,
-                        const float* __restrict__ x, const float* __restrict__ uv,
-                        const float* __restrict__ sw_in,
-                        const float* __restrict__ rw, const float* __restrict__ jls,
-                        const float* __restrict__ ilm,
-                        const float* __restrict__ ct_old,
-                        const float* __restrict__ zt, float* __restrict__ partials,
-                        int n_obs, int n_cams, float sp, float sa) {
-  __shared__ float red[32];
-  const float* tbl_old = ct_old;
-  const float* tbl_z = zt;
+                        const V* __restrict__ x, const V* __restrict__ uv,
+                        const V* __restrict__ sw_in,
+                        const V* __restrict__ rw, const V* __restrict__ jls,
+                        const V* __restrict__ ilm,
+                        const V* __restrict__ ct_old,
+                        const V* __restrict__ zt, V* __restrict__ partials,
+                        int n_obs, int n_cams, V sp, V sa) {
+  __shared__ V red[32];
+  const V* tbl_old = ct_old;
+  const V* tbl_z = zt;
   const long O = n_obs;
-  float total = 0.0f;
+  V total = V(0);
   POVAR_OBS_LOOP(o, O) {
-    const float sw = sw_in[o];
+    const V sw = sw_in[o];
     const int c = cam[o];
-    const float u = uv[o], v = uv[O + o];
-    const float xh[4] = {x[o], x[O + o], x[2 * O + o], 1.0f};
-    float jp[4], A[4][4];
+    const V u = uv[o], v = uv[O + o];
+    const V xh[4] = {x[o], x[O + o], x[2 * O + o], V(1)};
+    V jp[4], A[4][4];
     jp_inc_stored(tbl_z, n_cams, c, xh, u, v, sw, sp, sa, jp);
     povar::a_tilde(tbl_old, n_cams, c, u, v, sp, sa, A);
-    const float d0 = jls[o], d1 = jls[O + o], d2 = jls[2 * O + o];
-    const float i0 = ilm[o], i1 = ilm[O + o], i2 = ilm[2 * O + o];
-    float ld = 0.0f;
+    const V d0 = jls[o], d1 = jls[O + o], d2 = jls[2 * O + o];
+    const V i0 = ilm[o], i1 = ilm[O + o], i2 = ilm[2 * O + o];
+    V ld = V(0);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float jl_inc =
+      const V jl_inc =
           (A[k][0] * d0 * i0 + A[k][1] * d1 * i1 + A[k][2] * d2 * i2) * sw;
-      const float j_inc = jp[k] + jl_inc;
-      ld += j_inc * (0.5f * j_inc + rw[k * O + o]);
+      const V j_inc = jp[k] + jl_inc;
+      ld += j_inc * (V(0.5) * j_inc + rw[k * O + o]);
     }
     total += ld;
   }
@@ -842,6 +866,80 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ----------------------------------------------------------- launchers
+// One per templated kernel, for both value types: the route by shared-
+// memory bytes of V (the f32 instantiations' routes as before).
+
+template <typename V>
+int prepare_launch(const int32_t* cam, const V* ct, const V* x, const V* uv,
+                   const float* mask, V* rw, V* sw, V* ata, V* atr, V* jpsq,
+                   double* acc, int n_obs, int n_cams, V sp, V sa, V sp2,
+                   int huber_on, V huber, V huber2, int sums, void* stream) {
+  const size_t block = sizeof(V) * kJpRows * (size_t)n_cams;
+  const size_t room = (size_t)max_optin_smem();
+  if (!sums) {
+    return launch<kPrepThreads>(
+        prepare_kernel<V, false, Route::kPrivate, kPrepThreads>, n_obs, 0,
+        stream, cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc, n_obs,
+        n_cams, sp, sa, sp2, huber_on, huber, huber2);
+  }
+  if (kPrepThreads / 32 * block <= room) {
+    return launch<kPrepThreads>(
+        prepare_kernel<V, true, Route::kPrivate, kPrepThreads>, n_obs,
+        kPrepThreads / 32 * block, stream, cam, ct, x, uv, mask, rw, sw, ata,
+        atr, jpsq, acc, n_obs, n_cams, sp, sa, sp2, huber_on, huber, huber2);
+  }
+  if (block <= room) {
+    return launch<kPrepSharedThreads>(
+        prepare_kernel<V, true, Route::kShared, kPrepSharedThreads>, n_obs,
+        block, stream, cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc,
+        n_obs, n_cams, sp, sa, sp2, huber_on, huber, huber2);
+  }
+  return launch<kPrepSharedThreads>(
+      prepare_kernel<V, true, Route::kGlobal, kPrepSharedThreads>, n_obs, 0,
+      stream, cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc, n_obs, n_cams,
+      sp, sa, sp2, huber_on, huber, huber2);
+}
+
+template <typename V>
+int hpp_b_launch(const int32_t* cam, const V* ct, const V* x, const V* uv,
+                 const V* sw, const V* rw, const V* jls, const V* hib,
+                 const int* expand, V* hpp, V* b, double* acc, int n_obs,
+                 int n_cams, V sp, V sa, V sp2, void* stream) {
+  const size_t moments = sizeof(V) * kMomentRows * (size_t)n_cams;
+  if (moments <= (size_t)max_optin_smem()) {
+    return launch(hpp_b_kernel<V, true>, n_obs, moments, stream, cam, ct, x,
+                  uv, sw, rw, jls, hib, expand, hpp, b, acc, n_obs, n_cams,
+                  sp, sa, sp2);
+  }
+  return launch(hpp_b_kernel<V, false>, n_obs,
+                sizeof(V) * povar::kMoments * povar::kExpandChunk, stream,
+                cam, ct, x, uv, sw, rw, jls, hib, expand, hpp, b, acc, n_obs,
+                n_cams, sp, sa, sp2);
+}
+
+template <typename V>
+int e0_scatter_launch(const int32_t* cam, const V* x, const V* h,
+                      const V* sb, V* out, double* acc, int n_obs, int n_cams,
+                      void* stream) {
+  return povar::launch_scatter<V>(
+      e0_scatter_kernel<V, Route::kPrivate>,
+      e0_scatter_kernel<V, Route::kShared>,
+      e0_scatter_kernel<V, Route::kGlobal>, n_obs, n_cams, stream, cam, x, h,
+      sb, out, acc, n_obs, n_cams);
+}
+
+template <typename V>
+int schur_diag_launch(const int32_t* cam, const V* x, const V* h,
+                      const int* expand, V* out, double* acc, int n_obs,
+                      int n_cams, void* stream) {
+  return povar::launch_schur<V>(
+      schur_diag_kernel<V, Route::kPrivate>,
+      schur_diag_kernel<V, Route::kShared>,
+      schur_diag_kernel<V, Route::kGlobal>, n_obs, n_cams, stream, cam, x, h,
+      expand, out, acc, n_obs, n_cams);
+}
+
 }  // namespace
 
 extern "C" {
@@ -858,38 +956,36 @@ int povar_prepare(const int32_t* cam, const float* ct, const float* x,
                   int n_obs, int n_cams, float sp, float sa, float sp2,
                   int huber_on, float huber, float huber2, int sums,
                   void* stream) {
-  const size_t block = sizeof(float) * kJpRows * (size_t)n_cams;
-  const size_t room = (size_t)max_optin_smem();
-  if (!sums) {
-    return launch<kPrepThreads>(
-        prepare_kernel<false, Route::kPrivate, kPrepThreads>, n_obs, 0,
-        stream, cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc, n_obs,
-        n_cams, sp, sa, sp2, huber_on, huber, huber2);
-  }
-  if (kPrepThreads / 32 * block <= room) {
-    return launch<kPrepThreads>(
-        prepare_kernel<true, Route::kPrivate, kPrepThreads>, n_obs,
-        kPrepThreads / 32 * block, stream, cam, ct, x, uv, mask, rw, sw, ata,
-        atr, jpsq, acc, n_obs, n_cams, sp, sa, sp2, huber_on, huber, huber2);
-  }
-  if (block <= room) {
-    return launch<kPrepSharedThreads>(
-        prepare_kernel<true, Route::kShared, kPrepSharedThreads>, n_obs,
-        block, stream, cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc,
-        n_obs, n_cams, sp, sa, sp2, huber_on, huber, huber2);
-  }
-  return launch<kPrepSharedThreads>(
-      prepare_kernel<true, Route::kGlobal, kPrepSharedThreads>, n_obs, 0,
-      stream, cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq, acc, n_obs, n_cams,
-      sp, sa, sp2, huber_on, huber, huber2);
+  return prepare_launch<float>(cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq,
+                               acc, n_obs, n_cams, sp, sa, sp2, huber_on,
+                               huber, huber2, sums, stream);
+}
+
+int povar_prepare_f64(const int32_t* cam, const double* ct, const double* x,
+                      const double* uv, const float* mask, double* rw,
+                      double* sw, double* ata, double* atr, double* jpsq,
+                      double* acc, int n_obs, int n_cams, double sp,
+                      double sa, double sp2, int huber_on, double huber,
+                      double huber2, int sums, void* stream) {
+  return prepare_launch<double>(cam, ct, x, uv, mask, rw, sw, ata, atr, jpsq,
+                                acc, n_obs, n_cams, sp, sa, sp2, huber_on,
+                                huber, huber2, sums, stream);
 }
 
 int povar_e0_factor(const int32_t* cam, const float* ct, const float* uv,
                     const float* w, const float* jls, const float* lh,
                     float* h, int n_obs, int n_cams, float sp2,
                     void* stream) {
-  return launch(e0_factor_kernel, n_obs, 0, stream, cam, ct, uv, w, jls, lh,
-                h, n_obs, n_cams, sp2);
+  return launch(e0_factor_kernel<float>, n_obs, 0, stream, cam, ct, uv, w,
+                jls, lh, h, n_obs, n_cams, sp2);
+}
+
+int povar_e0_factor_f64(const int32_t* cam, const double* ct,
+                        const double* uv, const double* w, const double* jls,
+                        const double* lh, double* h, int n_obs, int n_cams,
+                        double sp2, void* stream) {
+  return launch(e0_factor_kernel<double>, n_obs, 0, stream, cam, ct, uv, w,
+                jls, lh, h, n_obs, n_cams, sp2);
 }
 
 int povar_hpp_b(const int32_t* cam, const float* ct, const float* x,
@@ -897,23 +993,32 @@ int povar_hpp_b(const int32_t* cam, const float* ct, const float* x,
                 const float* jls, const float* hib, const int* expand,
                 float* hpp, float* b, double* acc, int n_obs, int n_cams,
                 float sp, float sa, float sp2, void* stream) {
-  const size_t moments = sizeof(float) * kMomentRows * (size_t)n_cams;
-  if (moments <= (size_t)max_optin_smem()) {
-    return launch(hpp_b_kernel<true>, n_obs, moments, stream, cam, ct, x, uv,
-                  sw, rw, jls, hib, expand, hpp, b, acc, n_obs, n_cams, sp,
-                  sa, sp2);
-  }
-  return launch(hpp_b_kernel<false>, n_obs,
-                sizeof(float) * povar::kMoments * povar::kExpandChunk, stream,
-                cam, ct, x, uv, sw, rw, jls, hib, expand, hpp, b, acc, n_obs,
-                n_cams, sp, sa, sp2);
+  return hpp_b_launch<float>(cam, ct, x, uv, sw, rw, jls, hib, expand, hpp, b,
+                             acc, n_obs, n_cams, sp, sa, sp2, stream);
+}
+
+int povar_hpp_b_f64(const int32_t* cam, const double* ct, const double* x,
+                    const double* uv, const double* sw, const double* rw,
+                    const double* jls, const double* hib, const int* expand,
+                    double* hpp, double* b, double* acc, int n_obs,
+                    int n_cams, double sp, double sa, double sp2,
+                    void* stream) {
+  return hpp_b_launch<double>(cam, ct, x, uv, sw, rw, jls, hib, expand, hpp,
+                              b, acc, n_obs, n_cams, sp, sa, sp2, stream);
 }
 
 int povar_e0_u(const int32_t* cam, const float* x, const float* h,
                const float* zt, float* u, int n_obs, int n_cams,
                void* stream) {
-  return launch(e0_u_kernel, n_obs, 0, stream, cam, x, h, zt, u, n_obs,
+  return launch(e0_u_kernel<float>, n_obs, 0, stream, cam, x, h, zt, u, n_obs,
                 n_cams);
+}
+
+int povar_e0_u_f64(const int32_t* cam, const double* x, const double* h,
+                   const double* zt, double* u, int n_obs, int n_cams,
+                   void* stream) {
+  return launch(e0_u_kernel<double>, n_obs, 0, stream, cam, x, h, zt, u,
+                n_obs, n_cams);
 }
 
 // out: [12, n_cams]; acc: 12 n_cams + 1 doubles, zero (every call
@@ -921,10 +1026,15 @@ int povar_e0_u(const int32_t* cam, const float* x, const float* h,
 int povar_e0_scatter(const int32_t* cam, const float* x, const float* h,
                      const float* sb, float* out, double* acc, int n_obs,
                      int n_cams, void* stream) {
-  return povar::launch_scatter(
-      e0_scatter_kernel<Route::kPrivate>, e0_scatter_kernel<Route::kShared>,
-      e0_scatter_kernel<Route::kGlobal>, n_obs, n_cams, stream, cam, x, h, sb,
-      out, acc, n_obs, n_cams);
+  return e0_scatter_launch<float>(cam, x, h, sb, out, acc, n_obs, n_cams,
+                                  stream);
+}
+
+int povar_e0_scatter_f64(const int32_t* cam, const double* x, const double* h,
+                         const double* sb, double* out, double* acc,
+                         int n_obs, int n_cams, void* stream) {
+  return e0_scatter_launch<double>(cam, x, h, sb, out, acc, n_obs, n_cams,
+                                   stream);
 }
 
 int povar_e0_term(const int32_t* cam, const float* x, const float* h,
@@ -949,10 +1059,15 @@ int povar_e0_term(const int32_t* cam, const float* x, const float* h,
 int povar_schur_diag(const int32_t* cam, const float* x, const float* h,
                      const int* expand, float* out, double* acc, int n_obs,
                      int n_cams, void* stream) {
-  return povar::launch_schur(
-      schur_diag_kernel<Route::kPrivate>, schur_diag_kernel<Route::kShared>,
-      schur_diag_kernel<Route::kGlobal>, n_obs, n_cams, stream, cam, x, h,
-      expand, out, acc, n_obs, n_cams);
+  return schur_diag_launch<float>(cam, x, h, expand, out, acc, n_obs, n_cams,
+                                  stream);
+}
+
+int povar_schur_diag_f64(const int32_t* cam, const double* x, const double* h,
+                         const int* expand, double* out, double* acc,
+                         int n_obs, int n_cams, void* stream) {
+  return schur_diag_launch<double>(cam, x, h, expand, out, acc, n_obs, n_cams,
+                                   stream);
 }
 
 int povar_apply_ldiff(const int32_t* cam, const float* x, const float* uv,
@@ -960,16 +1075,35 @@ int povar_apply_ldiff(const int32_t* cam, const float* x, const float* uv,
                       const float* ilm, const float* ct_old,
                       const float* inc_t, float* partials, int n_obs,
                       int n_cams, float sp, float sa, void* stream) {
-  return launch(ldiff_kernel, n_obs, 0, stream, cam, x, uv, sw, rw, jls, ilm,
-                ct_old, inc_t, partials, n_obs, n_cams, sp, sa);
+  return launch(ldiff_kernel<float>, n_obs, 0, stream, cam, x, uv, sw, rw,
+                jls, ilm, ct_old, inc_t, partials, n_obs, n_cams, sp, sa);
+}
+
+int povar_apply_ldiff_f64(const int32_t* cam, const double* x,
+                          const double* uv, const double* sw,
+                          const double* rw, const double* jls,
+                          const double* ilm, const double* ct_old,
+                          const double* inc_t, double* partials, int n_obs,
+                          int n_cams, double sp, double sa, void* stream) {
+  return launch(ldiff_kernel<double>, n_obs, 0, stream, cam, x, uv, sw, rw,
+                jls, ilm, ct_old, inc_t, partials, n_obs, n_cams, sp, sa);
 }
 
 int povar_poba_t3(const int32_t* cam, const float* ct, const float* x,
                   const float* uv, const float* sw, const float* rw,
                   const float* jls, const float* zt, float* t3, int n_obs,
                   int n_cams, float sp, float sa, void* stream) {
-  return launch(poba_t3_kernel, n_obs, 0, stream, cam, ct, x, uv, sw, rw, jls,
-                zt, t3, n_obs, n_cams, sp, sa);
+  return launch(poba_t3_kernel<float>, n_obs, 0, stream, cam, ct, x, uv, sw,
+                rw, jls, zt, t3, n_obs, n_cams, sp, sa);
+}
+
+int povar_poba_t3_f64(const int32_t* cam, const double* ct, const double* x,
+                      const double* uv, const double* sw, const double* rw,
+                      const double* jls, const double* zt, double* t3,
+                      int n_obs, int n_cams, double sp, double sa,
+                      void* stream) {
+  return launch(poba_t3_kernel<double>, n_obs, 0, stream, cam, ct, x, uv, sw,
+                rw, jls, zt, t3, n_obs, n_cams, sp, sa);
 }
 
 int povar_apply_ldiff_stored(const int32_t* cam, const float* x,
@@ -978,8 +1112,19 @@ int povar_apply_ldiff_stored(const int32_t* cam, const float* x,
                              const float* ct_old, const float* zt,
                              float* partials, int n_obs, int n_cams, float sp,
                              float sa, void* stream) {
-  return launch(ldiff_stored_kernel, n_obs, 0, stream, cam, x, uv, sw, rw,
-                jls, ilm, ct_old, zt, partials, n_obs, n_cams, sp, sa);
+  return launch(ldiff_stored_kernel<float>, n_obs, 0, stream, cam, x, uv, sw,
+                rw, jls, ilm, ct_old, zt, partials, n_obs, n_cams, sp, sa);
+}
+
+int povar_apply_ldiff_stored_f64(const int32_t* cam, const double* x,
+                                 const double* uv, const double* sw,
+                                 const double* rw, const double* jls,
+                                 const double* ilm, const double* ct_old,
+                                 const double* zt, double* partials,
+                                 int n_obs, int n_cams, double sp, double sa,
+                                 void* stream) {
+  return launch(ldiff_stored_kernel<double>, n_obs, 0, stream, cam, x, uv, sw,
+                rw, jls, ilm, ct_old, zt, partials, n_obs, n_cams, sp, sa);
 }
 
 int povar_pose_error(const int32_t* cam, const double* ct, const double* x,

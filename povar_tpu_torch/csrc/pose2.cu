@@ -39,6 +39,12 @@
 // Per-camera sums leave a block through one global atomic per non-zero
 // entry; scalar sums leave as one partial per block.
 //
+// f64: S1-S5 and S8 are templated on their value type V and have f64
+// instantiations (entry points with `_f64` appended), as pose1.cu's, for
+// the SPMD window layout's pure f64: f64 loads, arithmetic, accumulators
+// and outputs, routes chosen by the bytes of 8-byte values. S6 is native
+// f64 already; S7 (the fused term) runs in no f64 path.
+//
 // C interface as in pose1.cu: device pointers, sizes, scalar constants
 // and the stream; each entry point launches one kernel and returns the
 // cudaError_t of the launch. Outputs that accumulate must be zeroed by
@@ -46,6 +52,7 @@
 
 #include "pose_common.cuh"
 
+using povar::dyn_smem;
 using povar::kThreads;
 using povar::launch;
 using povar::warp_sum;
@@ -54,10 +61,26 @@ using povar::Route;
 
 namespace {
 
-// projection validity |p2| >= kEpsSqrt (Sophus epsilonSqrt of the f64
-// solve, bal_camera.hpp:147); |p2| below kTiny divides by +-kTiny
+// projection validity |p2| >= eps_sqrt (Sophus epsilonSqrt of the f64
+// solve, bal_camera.hpp:147); |p2| below tiny divides by +-tiny; each in
+// the working type, as the plain versions round them
 constexpr float kEpsSqrt = 1e-5f;
 constexpr float kTiny = 1e-30f;
+
+template <typename V>
+__device__ __forceinline__ V eps_sqrt() {
+  return sizeof(V) == sizeof(float) ? V(kEpsSqrt) : V(1e-5);
+}
+
+template <typename V>
+__device__ __forceinline__ V tiny() {
+  return sizeof(V) == sizeof(float) ? V(kTiny) : V(1e-30);
+}
+
+template <typename V>
+__device__ __forceinline__ V huber_floor() {
+  return sizeof(V) == sizeof(float) ? V(1e-30f) : V(1e-30);
+}
 
 // p_r = sum_c P[r][c] x4_c of the camera in column c of a [12, n] table
 template <typename T>
@@ -74,10 +97,11 @@ __device__ __forceinline__ void project(const T* tbl, int n, int c,
 }
 
 // jp = sw/p2 [q~0 - mx q~2, q~1 - my q~2], q~a = sum_c x4_c zt[4a+c]
-__device__ __forceinline__ void jp_of_zt(const float* tbl, int n, int c,
-                                         const float x4[4], float mx,
-                                         float my, float swz, float jp[2]) {
-  float q[3];
+template <typename V>
+__device__ __forceinline__ void jp_of_zt(const V* tbl, int n, int c,
+                                         const V x4[4], V mx, V my, V swz,
+                                         V jp[2]) {
+  V q[3];
   project(tbl, n, c, x4, q);
   jp[0] = swz * (q[0] - mx * q[2]);
   jp[1] = swz * (q[1] - my * q[2]);
@@ -99,66 +123,68 @@ __device__ __forceinline__ void jp_of_zt(const float* tbl, int n, int c,
 // caller (kSharedAcc false). The middle route against the global one on
 // ~2^20 slot rows: 162.8 against 221.5 us at N = 3000, 237.4 against
 // 219.0 at N = 4500 (tools/route_ab.py; NVIDIA H100 80GB HBM3, 700 W).
-template <bool kStaged, bool kSharedAcc>
+// In f64 the staged route reaches N = 1,210, the middle one N = 2,421.
+template <typename V, bool kStaged, bool kSharedAcc>
 __global__ void __launch_bounds__(kThreads)
-    prepare2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ ct,
-                    const float* __restrict__ x4_in, const float* __restrict__ uv,
-                    const float* __restrict__ mask, float* __restrict__ rw,
-                    float* __restrict__ sw_out, float* __restrict__ mm,
-                    float* __restrict__ jlw, float* __restrict__ jlsq,
-                    float* __restrict__ jpsq, int n_obs, int n_cams,
-                    int use_valid, int huber_on, float huber, float huber2) {
-  extern __shared__ float smem[];
-  float* acc = kSharedAcc ? smem + (kStaged ? 12 * n_cams : 0) : jpsq;
+    prepare2_kernel(const int32_t* __restrict__ cam, const V* __restrict__ ct,
+                    const V* __restrict__ x4_in, const V* __restrict__ uv,
+                    const float* __restrict__ mask, V* __restrict__ rw,
+                    V* __restrict__ sw_out, V* __restrict__ mm,
+                    V* __restrict__ jlw, V* __restrict__ jlsq,
+                    V* __restrict__ jpsq, int n_obs, int n_cams,
+                    int use_valid, int huber_on, V huber, V huber2) {
+  V* smem = dyn_smem<V>();
+  V* acc = kSharedAcc ? smem + (kStaged ? 12 * n_cams : 0) : jpsq;
   if (kSharedAcc) povar::smem_zero(acc, 12 * n_cams);
-  const float* tbl = povar::stage_table<kStaged>(smem, ct, 12 * n_cams);
+  const V* tbl = povar::stage_table<kStaged>(smem, ct, 12 * n_cams);
   __syncthreads();
   const long O = n_obs;
   POVAR_OBS_LOOP(o, O) {
     const int c = cam[o];
-    const float u = uv[o], v = uv[O + o];
-    const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
-                         x4_in[3 * O + o]};
-    float p[3];
+    const V u = uv[o], v = uv[O + o];
+    const V x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                     x4_in[3 * O + o]};
+    V p[3];
     project(tbl, n_cams, c, x4, p);
-    const bool valid = fabsf(p[2]) >= kEpsSqrt;
-    const float den =
-        fabsf(p[2]) < kTiny ? (p[2] < 0.0f ? -kTiny : kTiny) : p[2];
-    const float zinv = 1.0f / den;
-    const float mx = p[0] * zinv, my = p[1] * zinv;
-    const float r0 = mx - u, r1 = my - v;
+    const V eps = eps_sqrt<V>(), tn = tiny<V>();
+    const bool valid = fabs(p[2]) >= eps;
+    const V den = fabs(p[2]) < tn ? (p[2] < V(0) ? -tn : tn) : p[2];
+    const V zinv = V(1) / den;
+    const V mx = p[0] * zinv, my = p[1] * zinv;
+    const V r0 = mx - u, r1 = my - v;
     const bool live = mask[o] > 0.0f && (!use_valid || valid);
-    const float livef = live ? 1.0f : 0.0f;
-    const float res_sq = r0 * r0 + r1 * r1;
-    float w = 1.0f;
+    const V livef = live ? V(1) : V(0);
+    const V res_sq = r0 * r0 + r1 * r1;
+    V w = V(1);
     if (huber_on && !(res_sq < huber2)) {
       // max(res_sq, 1e-30) that keeps a NaN a NaN, as jnp.maximum does
-      w = huber / sqrtf(res_sq < 1e-30f ? 1e-30f : res_sq);
+      const V floor = huber_floor<V>();
+      w = huber / sqrt(res_sq < floor ? floor : res_sq);
     }
     w = w * livef;
-    const float s = sqrtf(w);
+    const V s = sqrt(w);
     rw[o] = r0 * s;
     rw[O + o] = r1 * s;
     sw_out[o] = s;
     mm[o] = mx * livef;
     mm[O + o] = my * livef;
     mm[2 * O + o] = zinv * livef;
-    const float sz = s * zinv;
+    const V sz = s * zinv;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float j0 = sz * (tbl[k * n_cams + c] - mx * tbl[(8 + k) * n_cams + c]);
-      const float j1 =
+      const V j0 = sz * (tbl[k * n_cams + c] - mx * tbl[(8 + k) * n_cams + c]);
+      const V j1 =
           sz * (tbl[(4 + k) * n_cams + c] - my * tbl[(8 + k) * n_cams + c]);
       jlw[k * O + o] = j0;
       jlw[(4 + k) * O + o] = j1;
       jlsq[k * O + o] = j0 * j0 + j1 * j1;
     }
-    if (w != 0.0f) {
-      const float wz2 = w * zinv * zinv;
-      const float kd2 = mx * mx + my * my;
+    if (w != V(0)) {
+      const V wz2 = w * zinv * zinv;
+      const V kd2 = mx * mx + my * my;
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        const float wk = a == 2 ? wz2 * kd2 : wz2;
+        const V wk = a == 2 ? wz2 * kd2 : wz2;
 #pragma unroll
         for (int k = 0; k < 4; ++k)
           atomicAdd(&acc[(4 * a + k) * n_cams + c], wk * x4[k] * x4[k]);
@@ -194,16 +220,18 @@ __global__ void __launch_bounds__(kThreads)
 using povar::kMomentRows;
 using povar::kMoments;
 
-template <bool kShared>
+// In f64 (hppb2_f64) the accumulators, the global sums and the outputs
+// are f64; the shared route reaches N = 558.
+template <typename V, bool kShared>
 __global__ void __launch_bounds__(kThreads)
-    hppb2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
-                 const float* __restrict__ mm, const float* __restrict__ sw_in,
-                 const float* __restrict__ rw, const float* __restrict__ jlns,
-                 const float* __restrict__ hib, const int* __restrict__ expand,
-                 float* __restrict__ hpp, float* __restrict__ acc_g, int n_obs,
+    hppb2_kernel(const int32_t* __restrict__ cam, const V* __restrict__ x4_in,
+                 const V* __restrict__ mm, const V* __restrict__ sw_in,
+                 const V* __restrict__ rw, const V* __restrict__ jlns,
+                 const V* __restrict__ hib, const int* __restrict__ expand,
+                 V* __restrict__ hpp, V* __restrict__ acc_g, int n_obs,
                  int n_cams) {
-  extern __shared__ float smem[];
-  float* acc = kShared ? smem : acc_g;
+  V* smem = dyn_smem<V>();
+  V* acc = kShared ? smem : acc_g;
   if (kShared) {
     povar::smem_zero(acc, kMomentRows * n_cams);
     __syncthreads();
@@ -214,37 +242,37 @@ __global__ void __launch_bounds__(kThreads)
   for (long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
        base < O; base += (long)gridDim.x * blockDim.x) {
     const long o = base + lane;
-    const float sw = o < O ? sw_in[o] : 0.0f;
-    const bool live = sw != 0.0f;
+    const V sw = o < O ? sw_in[o] : V(0);
+    const bool live = sw != V(0);
     if (!__any_sync(povar::kFullMask, live)) continue;
-    float v[kMomentRows];
+    V v[kMomentRows];
     int c = 0;
 #pragma unroll
-    for (int k = 0; k < kMomentRows; ++k) v[k] = 0.0f;
+    for (int k = 0; k < kMomentRows; ++k) v[k] = V(0);
     if (live) {
       c = cam[o];
-      const float mx = mm[o], my = mm[O + o], zinv = mm[2 * O + o];
-      const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
-                           x4_in[3 * O + o]};
-      const float h0 = hib[o], h1 = hib[O + o], h2 = hib[2 * O + o];
-      float rt[2];
+      const V mx = mm[o], my = mm[O + o], zinv = mm[2 * O + o];
+      const V x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                       x4_in[3 * O + o]};
+      const V h0 = hib[o], h1 = hib[O + o], h2 = hib[2 * O + o];
+      V rt[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        float corr = jlns[(r * 3) * O + o] * h0;
+        V corr = jlns[(r * 3) * O + o] * h0;
         corr += jlns[(r * 3 + 1) * O + o] * h1;
         corr += jlns[(r * 3 + 2) * O + o] * h2;
         rt[r] = rw[r * O + o] - corr;
       }
-      const float swz = sw * zinv;
-      const float ctr[3] = {rt[0], rt[1], -(mx * rt[0] + my * rt[1])};
+      const V swz = sw * zinv;
+      const V ctr[3] = {rt[0], rt[1], -(mx * rt[0] + my * rt[1])};
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        const float t = swz * ctr[a];
+        const V t = swz * ctr[a];
 #pragma unroll
         for (int k = 0; k < 4; ++k) v[4 * a + k] = t * x4[k];
       }
-      const float wz2 = swz * swz;
-      const float kw[4] = {wz2, wz2 * mx, wz2 * my, wz2 * (mx * mx + my * my)};
+      const V wz2 = swz * swz;
+      const V kw[4] = {wz2, wz2 * mx, wz2 * my, wz2 * (mx * mx + my * my)};
       povar::moments(kw, x4, v);
     }
     povar::warp_scatter<kMomentRows>(acc, n_cams, c, live, v);
@@ -264,20 +292,21 @@ __global__ void __launch_bounds__(kThreads)
 // Replaces pallas_pose2.py:347 mat_dot2. Bound: 72 B of device memory per
 // observation (60 read, 12 written; 80 B with r_w); no atomics. The z
 // table is read in place.
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-    mat_dot2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
-                    const float* __restrict__ mm, const float* __restrict__ sw_in,
-                    const float* __restrict__ mat6, const float* __restrict__ rw,
-                    const float* __restrict__ zt, float* __restrict__ out,
+    mat_dot2_kernel(const int32_t* __restrict__ cam, const V* __restrict__ x4_in,
+                    const V* __restrict__ mm, const V* __restrict__ sw_in,
+                    const V* __restrict__ mat6, const V* __restrict__ rw,
+                    const V* __restrict__ zt, V* __restrict__ out,
                     int n_obs, int n_cams, int add_r) {
-  const float* tbl = zt;
+  const V* tbl = zt;
   const long O = n_obs;
   POVAR_OBS_LOOP(o, O) {
     const int c = cam[o];
-    const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
-                         x4_in[3 * O + o]};
-    const float swz = sw_in[o] * mm[2 * O + o];
-    float jx[2];
+    const V x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                     x4_in[3 * O + o]};
+    const V swz = sw_in[o] * mm[2 * O + o];
+    V jx[2];
     jp_of_zt(tbl, n_cams, c, x4, mm[o], mm[O + o], swz, jx);
     if (add_r) {
       jx[0] = jx[0] + rw[o];
@@ -302,59 +331,60 @@ __global__ void __launch_bounds__(kThreads)
 // arithmetic ~13, the tail ~6.4), 18.6 on the window order (the walk
 // alone 26.8), 44.5-44.8 at N = 1024, bound as K5 (tools/pose2_ab.py and
 // PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+template <typename V>
 struct ScatterRow2 {
-  float sw, m[6], s[3], mx, my, zinv, x4[4];
+  V sw, m[6], s[3], mx, my, zinv, x4[4];
   int c;
 };
 
-template <Route R>
+template <typename V, Route R>
 __global__ void __launch_bounds__(povar::scatter_threads(R))
     scatter2_kernel(const int32_t* __restrict__ cam,
-                    const float* __restrict__ x4_in,
-                    const float* __restrict__ mm,
-                    const float* __restrict__ sw_in,
-                    const float* __restrict__ mat6,
-                    const float* __restrict__ sb, float* __restrict__ out,
+                    const V* __restrict__ x4_in,
+                    const V* __restrict__ mm,
+                    const V* __restrict__ sw_in,
+                    const V* __restrict__ mat6,
+                    const V* __restrict__ sb, V* __restrict__ out,
                     double* __restrict__ acc_g, int n_obs, int n_cams,
                     int copies) {
-  extern __shared__ float smem[];
+  V* smem = dyn_smem<V>();
   const long O = n_obs;
   auto load = [&](long o) {
-    ScatterRow2 r;
-    r.sw = o < O ? sw_in[o] : 0.0f;
-    const bool live = r.sw != 0.0f;
+    ScatterRow2<V> r;
+    r.sw = o < O ? sw_in[o] : V(0);
+    const bool live = r.sw != V(0);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) r.m[k] = live ? mat6[k * O + o] : 0.0f;
+    for (int k = 0; k < 6; ++k) r.m[k] = live ? mat6[k * O + o] : V(0);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) r.s[k] = live ? sb[k * O + o] : 0.0f;
-    r.mx = live ? mm[o] : 0.0f;
-    r.my = live ? mm[O + o] : 0.0f;
-    r.zinv = live ? mm[2 * O + o] : 0.0f;
+    for (int k = 0; k < 3; ++k) r.s[k] = live ? sb[k * O + o] : V(0);
+    r.mx = live ? mm[o] : V(0);
+    r.my = live ? mm[O + o] : V(0);
+    r.zinv = live ? mm[2 * O + o] : V(0);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) r.x4[k] = live ? x4_in[k * O + o] : 0.0f;
+    for (int k = 0; k < 4; ++k) r.x4[k] = live ? x4_in[k * O + o] : V(0);
     r.c = live ? cam[o] : 0;
     return r;
   };
-  auto form = [](const ScatterRow2& r, float (&out12)[povar::kScatterValues]) {
-    float v[2];
+  auto form = [](const ScatterRow2<V>& r, V (&out12)[povar::kScatterValues]) {
+    V v[2];
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      float t = r.m[3 * k] * r.s[0];
+      V t = r.m[3 * k] * r.s[0];
       t += r.m[3 * k + 1] * r.s[1];
       t += r.m[3 * k + 2] * r.s[2];
       v[k] = t;
     }
-    const float swz = r.sw * r.zinv;
-    const float ctv[3] = {swz * v[0], swz * v[1],
-                          -swz * (r.mx * v[0] + r.my * v[1])};
+    const V swz = r.sw * r.zinv;
+    const V ctv[3] = {swz * v[0], swz * v[1],
+                      -swz * (r.mx * v[0] + r.my * v[1])};
 #pragma unroll
     for (int a = 0; a < 3; ++a)
 #pragma unroll
       for (int k = 0; k < 4; ++k) out12[4 * a + k] = ctv[a] * r.x4[k];
-    return r.sw != 0.0f;
+    return r.sw != V(0);
   };
-  povar::scatter_pass<R, ScatterRow2>(load, form, out, acc_g, n_obs, n_cams,
-                                      copies, smem);
+  povar::scatter_pass<R, ScatterRow2<V>>(load, form, out, acc_g, n_obs,
+                                         n_cams, copies, smem);
 }
 
 // ------------------------------------------------------------------ S7
@@ -496,49 +526,50 @@ __global__ void __launch_bounds__(kE0Threads)
 // 1046-1068 at N = 1024. Here 58.4 us, 62.4 on the window order and 565
 // at N = 1024, bound as step 1's K9 (tools/pose2_ab.py and PERF.md;
 // NVIDIA H100 80GB HBM3, 700 W).
+template <typename V>
 struct SchurRow2 {
-  float sw, m[6], mx, my, zinv, x4[4];
+  V sw, m[6], mx, my, zinv, x4[4];
   int c;
 };
 
-template <Route R>
+template <typename V, Route R>
 __global__ void __launch_bounds__(povar::schur_threads(R))
     schur_diag2_kernel(const int32_t* __restrict__ cam,
-                       const float* __restrict__ x4_in,
-                       const float* __restrict__ mm,
-                       const float* __restrict__ sw_in,
-                       const float* __restrict__ mat6,
+                       const V* __restrict__ x4_in,
+                       const V* __restrict__ mm,
+                       const V* __restrict__ sw_in,
+                       const V* __restrict__ mat6,
                        const int* __restrict__ expand,
-                       float* __restrict__ out, double* __restrict__ acc_g,
+                       V* __restrict__ out, double* __restrict__ acc_g,
                        int n_obs, int n_cams, int copies) {
-  extern __shared__ float smem[];
+  V* smem = dyn_smem<V>();
   const long O = n_obs;
   auto load = [&](long o) {
-    SchurRow2 r;
+    SchurRow2<V> r;
     const bool in = o < O;
-    r.sw = in ? sw_in[o] : 0.0f;
+    r.sw = in ? sw_in[o] : V(0);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) r.m[k] = in ? mat6[k * O + o] : 0.0f;
-    r.mx = in ? mm[o] : 0.0f;
-    r.my = in ? mm[O + o] : 0.0f;
-    r.zinv = in ? mm[2 * O + o] : 0.0f;
+    for (int k = 0; k < 6; ++k) r.m[k] = in ? mat6[k * O + o] : V(0);
+    r.mx = in ? mm[o] : V(0);
+    r.my = in ? mm[O + o] : V(0);
+    r.zinv = in ? mm[2 * O + o] : V(0);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) r.x4[k] = in ? x4_in[k * O + o] : 0.0f;
+    for (int k = 0; k < 4; ++k) r.x4[k] = in ? x4_in[k * O + o] : V(0);
     r.c = in ? cam[o] : 0;
     return r;
   };
-  auto form = [](const SchurRow2& r, float H[6], float xh[4]) {
-    const float* m = r.m;
-    const float g00 = m[0] * m[0] + m[1] * m[1] + m[2] * m[2];
-    const float g11 = m[3] * m[3] + m[4] * m[4] + m[5] * m[5];
-    const float g01 = m[0] * m[3] + m[1] * m[4] + m[2] * m[5];
-    const float mx = r.mx, my = r.my;
-    const float swz = r.sw * r.zinv;
-    const float wz2 = swz * swz;
-    const float cg[3][2] = {{g00, g01},
-                            {g01, g11},
-                            {-(mx * g00 + my * g01), -(mx * g01 + my * g11)}};
-    const float cc[3][2] = {{1.0f, 0.0f}, {0.0f, 1.0f}, {-mx, -my}};
+  auto form = [](const SchurRow2<V>& r, V H[6], V xh[4]) {
+    const V* m = r.m;
+    const V g00 = m[0] * m[0] + m[1] * m[1] + m[2] * m[2];
+    const V g11 = m[3] * m[3] + m[4] * m[4] + m[5] * m[5];
+    const V g01 = m[0] * m[3] + m[1] * m[4] + m[2] * m[5];
+    const V mx = r.mx, my = r.my;
+    const V swz = r.sw * r.zinv;
+    const V wz2 = swz * swz;
+    const V cg[3][2] = {{g00, g01},
+                        {g01, g11},
+                        {-(mx * g00 + my * g01), -(mx * g01 + my * g11)}};
+    const V cc[3][2] = {{V(1), V(0)}, {V(0), V(1)}, {-mx, -my}};
     int s = 0;
 #pragma unroll
     for (int a = 0; a < 3; ++a)
@@ -547,10 +578,10 @@ __global__ void __launch_bounds__(povar::schur_threads(R))
         H[s] = wz2 * (cg[a][0] * cc[b][0] + cg[a][1] * cc[b][1]);
 #pragma unroll
     for (int k = 0; k < 4; ++k) xh[k] = r.x4[k];
-    return r.sw != 0.0f;
+    return r.sw != V(0);
   };
-  povar::schur_pass<R, SchurRow2>(load, form, expand, out, acc_g, n_obs,
-                                  n_cams, copies, smem);
+  povar::schur_pass<R, SchurRow2<V>>(load, form, expand, out, acc_g, n_obs,
+                                     n_cams, copies, smem);
 }
 
 // ------------------------------------------------------------------ S5
@@ -560,34 +591,35 @@ __global__ void __launch_bounds__(povar::schur_threads(R))
 // to observations).
 // Replaces pallas_pose2.py:667 ldiff2. Bound: 92 B read per observation;
 // no atomics. The zt table is read in place.
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-    ldiff2_kernel(const int32_t* __restrict__ cam, const float* __restrict__ x4_in,
-                  const float* __restrict__ mm, const float* __restrict__ sw_in,
-                  const float* __restrict__ rw, const float* __restrict__ jls8,
-                  const float* __restrict__ ilm4, const float* __restrict__ zt,
-                  float* __restrict__ partials, int n_obs, int n_cams) {
-  __shared__ float red[32];
-  const float* tbl = zt;
+    ldiff2_kernel(const int32_t* __restrict__ cam, const V* __restrict__ x4_in,
+                  const V* __restrict__ mm, const V* __restrict__ sw_in,
+                  const V* __restrict__ rw, const V* __restrict__ jls8,
+                  const V* __restrict__ ilm4, const V* __restrict__ zt,
+                  V* __restrict__ partials, int n_obs, int n_cams) {
+  __shared__ V red[32];
+  const V* tbl = zt;
   const long O = n_obs;
-  float total = 0.0f;
+  V total = V(0);
   POVAR_OBS_LOOP(o, O) {
     const int c = cam[o];
-    const float x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
-                         x4_in[3 * O + o]};
-    const float swz = sw_in[o] * mm[2 * O + o];
-    float jp[2];
+    const V x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
+                     x4_in[3 * O + o]};
+    const V swz = sw_in[o] * mm[2 * O + o];
+    V jp[2];
     jp_of_zt(tbl, n_cams, c, x4, mm[o], mm[O + o], swz, jp);
-    const float i0 = ilm4[o], i1 = ilm4[O + o], i2 = ilm4[2 * O + o],
-                i3 = ilm4[3 * O + o];
-    float ld = 0.0f;
+    const V i0 = ilm4[o], i1 = ilm4[O + o], i2 = ilm4[2 * O + o],
+            i3 = ilm4[3 * O + o];
+    V ld = V(0);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float jl = jls8[(r * 4) * O + o] * i0;
+      V jl = jls8[(r * 4) * O + o] * i0;
       jl += jls8[(r * 4 + 1) * O + o] * i1;
       jl += jls8[(r * 4 + 2) * O + o] * i2;
       jl += jls8[(r * 4 + 3) * O + o] * i3;
-      const float j_inc = jp[r] + jl;
-      ld += j_inc * (0.5f * j_inc + rw[r * O + o]);
+      const V j_inc = jp[r] + jl;
+      ld += j_inc * (V(0.5) * j_inc + rw[r * O + o]);
     }
     total += ld;
   }
@@ -749,6 +781,64 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) *ticket = 0u;
 }
 
+// ----------------------------------------------------------- launchers
+// One per templated kernel, for both value types: the route by shared-
+// memory bytes of V (the f32 instantiations' routes as before).
+
+template <typename V>
+int prepare2_launch(const int32_t* cam, const V* ct, const V* x4, const V* uv,
+                    const float* mask, V* rw, V* sw, V* mm, V* jlw, V* jlsq,
+                    V* jpsq, int n_obs, int n_cams, int use_valid,
+                    int huber_on, V huber, V huber2, void* stream) {
+  // jpsq is zeroed by the caller
+  const size_t table = sizeof(V) * 12 * (size_t)n_cams;
+  const size_t room = (size_t)max_optin_smem();
+  const auto kernel = 2 * table <= room ? prepare2_kernel<V, true, true>
+                      : table <= room   ? prepare2_kernel<V, false, true>
+                                        : prepare2_kernel<V, false, false>;
+  const size_t smem = 2 * table <= room ? 2 * table
+                      : table <= room   ? table
+                                        : 0;
+  return launch(kernel, n_obs, smem, stream, cam, ct, x4, uv, mask, rw, sw,
+                mm, jlw, jlsq, jpsq, n_obs, n_cams, use_valid, huber_on, huber,
+                huber2);
+}
+
+template <typename V>
+int hppb2_launch(const int32_t* cam, const V* x4, const V* mm, const V* sw,
+                 const V* rw, const V* jlns, const V* hib, const int* expand,
+                 V* hpp, V* acc, int n_obs, int n_cams, void* stream) {
+  const size_t shared = sizeof(V) * kMomentRows * (size_t)n_cams;
+  if (shared <= (size_t)max_optin_smem()) {
+    return launch(hppb2_kernel<V, true>, n_obs, shared, stream, cam, x4, mm,
+                  sw, rw, jlns, hib, expand, hpp, acc, n_obs, n_cams);
+  }
+  return launch(hppb2_kernel<V, false>, n_obs,
+                sizeof(V) * kMoments * povar::kExpandChunk, stream, cam, x4,
+                mm, sw, rw, jlns, hib, expand, hpp, acc, n_obs, n_cams);
+}
+
+template <typename V>
+int scatter2_launch(const int32_t* cam, const V* x4, const V* mm, const V* sw,
+                    const V* mat6, const V* sb, V* out, double* acc,
+                    int n_obs, int n_cams, void* stream) {
+  return povar::launch_scatter<V>(
+      scatter2_kernel<V, Route::kPrivate>, scatter2_kernel<V, Route::kShared>,
+      scatter2_kernel<V, Route::kGlobal>, n_obs, n_cams, stream, cam, x4, mm,
+      sw, mat6, sb, out, acc, n_obs, n_cams);
+}
+
+template <typename V>
+int schur_diag2_launch(const int32_t* cam, const V* x4, const V* mm,
+                       const V* sw, const V* mat6, const int* expand, V* out,
+                       double* acc, int n_obs, int n_cams, void* stream) {
+  return povar::launch_schur<V>(
+      schur_diag2_kernel<V, Route::kPrivate>,
+      schur_diag2_kernel<V, Route::kShared>,
+      schur_diag2_kernel<V, Route::kGlobal>, n_obs, n_cams, stream, cam, x4,
+      mm, sw, mat6, expand, out, acc, n_obs, n_cams);
+}
+
 }  // namespace
 
 extern "C" {
@@ -758,40 +848,52 @@ int povar_prepare2(const int32_t* cam, const float* ct, const float* x4,
                    float* mm, float* jlw, float* jlsq, float* jpsq, int n_obs,
                    int n_cams, int use_valid, int huber_on, float huber,
                    float huber2, void* stream) {
-  // jpsq is zeroed by the caller
-  const size_t table = sizeof(float) * 12 * (size_t)n_cams;
-  const size_t room = (size_t)max_optin_smem();
-  const auto kernel = 2 * table <= room ? prepare2_kernel<true, true>
-                      : table <= room   ? prepare2_kernel<false, true>
-                                        : prepare2_kernel<false, false>;
-  const size_t smem = 2 * table <= room ? 2 * table
-                      : table <= room   ? table
-                                        : 0;
-  return launch(kernel, n_obs, smem, stream, cam, ct, x4, uv, mask, rw, sw,
-                mm, jlw, jlsq, jpsq, n_obs, n_cams, use_valid, huber_on, huber,
-                huber2);
+  return prepare2_launch<float>(cam, ct, x4, uv, mask, rw, sw, mm, jlw, jlsq,
+                                jpsq, n_obs, n_cams, use_valid, huber_on,
+                                huber, huber2, stream);
+}
+
+int povar_prepare2_f64(const int32_t* cam, const double* ct,
+                       const double* x4, const double* uv, const float* mask,
+                       double* rw, double* sw, double* mm, double* jlw,
+                       double* jlsq, double* jpsq, int n_obs, int n_cams,
+                       int use_valid, int huber_on, double huber,
+                       double huber2, void* stream) {
+  return prepare2_launch<double>(cam, ct, x4, uv, mask, rw, sw, mm, jlw, jlsq,
+                                 jpsq, n_obs, n_cams, use_valid, huber_on,
+                                 huber, huber2, stream);
 }
 
 int povar_hppb2(const int32_t* cam, const float* x4, const float* mm,
                 const float* sw, const float* rw, const float* jlns,
                 const float* hib, const int* expand, float* hpp, float* acc,
                 int n_obs, int n_cams, void* stream) {
-  const size_t shared = sizeof(float) * kMomentRows * (size_t)n_cams;
-  if (shared <= (size_t)max_optin_smem()) {
-    return launch(hppb2_kernel<true>, n_obs, shared, stream, cam, x4, mm, sw,
-                  rw, jlns, hib, expand, hpp, acc, n_obs, n_cams);
-  }
-  return launch(hppb2_kernel<false>, n_obs,
-                sizeof(float) * kMoments * povar::kExpandChunk, stream, cam,
-                x4, mm, sw, rw, jlns, hib, expand, hpp, acc, n_obs, n_cams);
+  return hppb2_launch<float>(cam, x4, mm, sw, rw, jlns, hib, expand, hpp, acc,
+                             n_obs, n_cams, stream);
+}
+
+int povar_hppb2_f64(const int32_t* cam, const double* x4, const double* mm,
+                    const double* sw, const double* rw, const double* jlns,
+                    const double* hib, const int* expand, double* hpp,
+                    double* acc, int n_obs, int n_cams, void* stream) {
+  return hppb2_launch<double>(cam, x4, mm, sw, rw, jlns, hib, expand, hpp,
+                              acc, n_obs, n_cams, stream);
 }
 
 int povar_mat_dot2(const int32_t* cam, const float* x4, const float* mm,
                    const float* sw, const float* mat6, const float* rw,
                    const float* zt, float* out, int n_obs, int n_cams,
                    int add_r, void* stream) {
-  return launch(mat_dot2_kernel, n_obs, 0, stream, cam, x4, mm, sw, mat6, rw,
-                zt, out, n_obs, n_cams, add_r);
+  return launch(mat_dot2_kernel<float>, n_obs, 0, stream, cam, x4, mm, sw,
+                mat6, rw, zt, out, n_obs, n_cams, add_r);
+}
+
+int povar_mat_dot2_f64(const int32_t* cam, const double* x4, const double* mm,
+                       const double* sw, const double* mat6, const double* rw,
+                       const double* zt, double* out, int n_obs, int n_cams,
+                       int add_r, void* stream) {
+  return launch(mat_dot2_kernel<double>, n_obs, 0, stream, cam, x4, mm, sw,
+                mat6, rw, zt, out, n_obs, n_cams, add_r);
 }
 
 // out: [12, n_cams]; acc: 12 n_cams + 1 doubles, zero (every call
@@ -800,10 +902,16 @@ int povar_scatter2(const int32_t* cam, const float* x4, const float* mm,
                    const float* sw, const float* mat6, const float* sb,
                    float* out, double* acc, int n_obs, int n_cams,
                    void* stream) {
-  return povar::launch_scatter(
-      scatter2_kernel<Route::kPrivate>, scatter2_kernel<Route::kShared>,
-      scatter2_kernel<Route::kGlobal>, n_obs, n_cams, stream, cam, x4, mm, sw,
-      mat6, sb, out, acc, n_obs, n_cams);
+  return scatter2_launch<float>(cam, x4, mm, sw, mat6, sb, out, acc, n_obs,
+                                n_cams, stream);
+}
+
+int povar_scatter2_f64(const int32_t* cam, const double* x4, const double* mm,
+                       const double* sw, const double* mat6, const double* sb,
+                       double* out, double* acc, int n_obs, int n_cams,
+                       void* stream) {
+  return scatter2_launch<double>(cam, x4, mm, sw, mat6, sb, out, acc, n_obs,
+                                 n_cams, stream);
 }
 
 int povar_e0_term2(const int32_t* cam, const float* x4, const float* mm,
@@ -829,18 +937,32 @@ int povar_schur_diag2(const int32_t* cam, const float* x4, const float* mm,
                       const float* sw, const float* mat6, const int* expand,
                       float* out, double* acc, int n_obs, int n_cams,
                       void* stream) {
-  return povar::launch_schur(
-      schur_diag2_kernel<Route::kPrivate>, schur_diag2_kernel<Route::kShared>,
-      schur_diag2_kernel<Route::kGlobal>, n_obs, n_cams, stream, cam, x4, mm,
-      sw, mat6, expand, out, acc, n_obs, n_cams);
+  return schur_diag2_launch<float>(cam, x4, mm, sw, mat6, expand, out, acc,
+                                   n_obs, n_cams, stream);
+}
+
+int povar_schur_diag2_f64(const int32_t* cam, const double* x4,
+                          const double* mm, const double* sw,
+                          const double* mat6, const int* expand, double* out,
+                          double* acc, int n_obs, int n_cams, void* stream) {
+  return schur_diag2_launch<double>(cam, x4, mm, sw, mat6, expand, out, acc,
+                                    n_obs, n_cams, stream);
 }
 
 int povar_ldiff2(const int32_t* cam, const float* x4, const float* mm,
                  const float* sw, const float* rw, const float* jls8,
                  const float* ilm4, const float* zt, float* partials,
                  int n_obs, int n_cams, void* stream) {
-  return launch(ldiff2_kernel, n_obs, 0, stream, cam, x4, mm, sw, rw, jls8,
-                ilm4, zt, partials, n_obs, n_cams);
+  return launch(ldiff2_kernel<float>, n_obs, 0, stream, cam, x4, mm, sw, rw,
+                jls8, ilm4, zt, partials, n_obs, n_cams);
+}
+
+int povar_ldiff2_f64(const int32_t* cam, const double* x4, const double* mm,
+                     const double* sw, const double* rw, const double* jls8,
+                     const double* ilm4, const double* zt, double* partials,
+                     int n_obs, int n_cams, void* stream) {
+  return launch(ldiff2_kernel<double>, n_obs, 0, stream, cam, x4, mm, sw, rw,
+                jls8, ilm4, zt, partials, n_obs, n_cams);
 }
 
 // part [7, n_part] f64 scratch (n_part >= the grid: ceil(O / 256)

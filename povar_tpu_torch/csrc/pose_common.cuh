@@ -94,15 +94,22 @@ __device__ __forceinline__ double* dyn_smem<double>() {
 
 // one global atomic per non-zero accumulator entry (adding an exact
 // zero changes nothing, so the entries no observation touched stay home);
-// T = double sums the blocks' partials in f64 (a native global atomic)
-template <typename T>
+// T = double sums the blocks' partials in f64 (a native global atomic);
+// the accumulator is of type A (f32, or f64 in the f64 instantiations)
+template <typename T, typename A>
 __device__ __forceinline__ void flush_acc(T* __restrict__ dst,
-                                          const float* acc, int count) {
+                                          const A* acc, int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    const float v = acc[i];
-    if (v != 0.0f) atomicAdd(dst + i, (T)v);
+    const A v = acc[i];
+    if (v != A(0)) atomicAdd(dst + i, (T)v);
   }
 }
+
+// a parameter of type T whose T is not deduced from it (a null argument)
+template <typename T>
+struct NoDeduce {
+  using type = T;
+};
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -324,14 +331,16 @@ constexpr int kMomentRows = 12 + kMoments;
 constexpr int kExpandChunk = 256;  // cameras per staged chunk (global route)
 
 // v[12 + 10 t + p] = kw[t] xh_i xh_j for every upper-triangle entry p
-__device__ __forceinline__ void moments(const float kw[4], const float xh[4],
-                                        float (&v)[kMomentRows]) {
+// (V: float, or double in the f64 instantiations)
+template <typename V>
+__device__ __forceinline__ void moments(const V kw[4], const V xh[4],
+                                        V (&v)[kMomentRows]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int j = i; j < 4; ++j) {
       const int p = i * (7 - i) / 2 + j;  // upper-triangle entry (i, j)
-      const float xx = xh[i] * xh[j];
+      const V xx = xh[i] * xh[j];
 #pragma unroll
       for (int t = 0; t < 4; ++t) v[12 + 10 * t + p] = kw[t] * xx;
     }
@@ -345,16 +354,16 @@ __device__ __forceinline__ void moments(const float kw[4], const float xh[4],
 // expand[r] (ops/pose_kernels.moment_expand_table, schur_expand_table),
 // or 0 where e is 0; and, where `b` is given, b [kLead, N] from acc_g's
 // first rows. With kReset it leaves the moments and the ticket zeroed
-// for the next call. `smem` holds at least kMom x `chunk` floats (the
-// moments of a chunk of cameras are staged there); all of the block's
-// threads must call it.
+// for the next call. `smem` holds at least kMom x `chunk` values of the
+// outputs' type Out (f32, or f64 in the f64 instantiations: the moments
+// of a chunk of cameras are staged there); all of the block's threads
+// must call it.
 template <int kMom = kMoments, int kLead = 12, bool kReset = false,
-          typename T>
-__device__ __forceinline__ void expand_moments(const int* __restrict__ expand,
-                                               float* __restrict__ hpp,
-                                               float* __restrict__ b,
-                                               T* acc_g, int n_cams,
-                                               int chunk, float* smem) {
+          typename T, typename Out>
+__device__ __forceinline__ void expand_moments(
+    const int* __restrict__ expand, Out* __restrict__ hpp,
+    typename NoDeduce<Out>::type* __restrict__ b, T* acc_g, int n_cams,
+    int chunk, Out* smem) {
   __shared__ int ex[144];
   unsigned* ticket =
       reinterpret_cast<unsigned*>(acc_g + (kLead + kMom) * n_cams);
@@ -362,7 +371,7 @@ __device__ __forceinline__ void expand_moments(const int* __restrict__ expand,
   for (int i = threadIdx.x; i < 144; i += blockDim.x) ex[i] = expand[i];
   if (b != nullptr) {
     for (int i = threadIdx.x; i < kLead * n_cams; i += blockDim.x)
-      b[i] = (float)__ldcg(acc_g + i);
+      b[i] = (Out)__ldcg(acc_g + i);
   }
   T* mom = acc_g + kLead * n_cams;
   const int lane = threadIdx.x & 31;
@@ -378,11 +387,11 @@ __device__ __forceinline__ void expand_moments(const int* __restrict__ expand,
     if (kReset && nc == n_cams) {
       const int count = kMom * nc;
       for (int i0 = threadIdx.x; i0 < count; i0 += kBatch * blockDim.x) {
-        float m[kBatch];
+        Out m[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           const int i = i0 + u * blockDim.x;
-          m[u] = i < count ? (float)__ldcg(mom + i) : 0.0f;
+          m[u] = i < count ? (Out)__ldcg(mom + i) : Out(0);
         }
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
@@ -396,12 +405,12 @@ __device__ __forceinline__ void expand_moments(const int* __restrict__ expand,
     } else {
       for (int k = warp; k < kMom; k += n_warps) {
         for (int cc0 = lane; cc0 < nc; cc0 += 32 * kBatch) {
-          float m[kBatch];
+          Out m[kBatch];
 #pragma unroll
           for (int u = 0; u < kBatch; ++u) {
             const int cc = cc0 + 32 * u;
-            m[u] = cc < nc ? (float)__ldcg(mom + k * n_cams + c0 + cc)
-                           : 0.0f;
+            m[u] = cc < nc ? (Out)__ldcg(mom + k * n_cams + c0 + cc)
+                           : Out(0);
           }
 #pragma unroll
           for (int u = 0; u < kBatch; ++u) {
@@ -417,10 +426,10 @@ __device__ __forceinline__ void expand_moments(const int* __restrict__ expand,
     __syncthreads();
     for (int row = warp; row < 144; row += n_warps) {
       const int e = ex[row];
-      const float* src = smem + (e == 0 ? 0 : abs(e) - 1) * nc;
-      float* dst = hpp + row * n_cams + c0;
+      const Out* src = smem + (e == 0 ? 0 : abs(e) - 1) * nc;
+      Out* dst = hpp + row * n_cams + c0;
       for (int cc = lane; cc < nc; cc += 32)
-        dst[cc] = e == 0 ? 0.0f : e > 0 ? src[cc] : -src[cc];
+        dst[cc] = e == 0 ? Out(0) : e > 0 ? src[cc] : -src[cc];
     }
   }
   if (kReset && threadIdx.x == 0) *ticket = 0u;
@@ -458,15 +467,15 @@ __host__ __device__ constexpr int schur_threads(Route r) {
 
 // v[10 s + p] = H[s] (xh_i xh_j) for every upper-triangle entry s of H
 // and p = (i, j) of xh xh^T
-__device__ __forceinline__ void schur_moments(const float H[6],
-                                              const float xh[4],
-                                              float (&v)[kSchurMoments]) {
+template <typename V>
+__device__ __forceinline__ void schur_moments(const V H[6], const V xh[4],
+                                              V (&v)[kSchurMoments]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int j = i; j < 4; ++j) {
       const int p = i * (7 - i) / 2 + j;
-      const float xx = xh[i] * xh[j];
+      const V xx = xh[i] * xh[j];
 #pragma unroll
       for (int s = 0; s < 6; ++s) v[10 * s + p] = H[s] * xx;
     }
@@ -490,18 +499,19 @@ __device__ __forceinline__ void reduce_scatter_step(V (&w)[32], int lane) {
 // 8, 4, 2, 1) each lane keeps the half of its own and its partner's
 // values that its lane bit selects, so lane l ends with the sums of
 // values 2 l and 2 l + 1 (62 shuffles a lane, not a walk's (peers - 1)
-// K). All lanes of the warp must call it.
-template <int K>
-__device__ __forceinline__ void warp_reduce_scatter(const float (&v)[K],
-                                                    float (&sum)[2]) {
+// K). All lanes of the warp must call it. V: float, or double in the
+// f64 instantiations.
+template <int K, typename V>
+__device__ __forceinline__ void warp_reduce_scatter(const V (&v)[K],
+                                                    V (&sum)[2]) {
   static_assert(K <= 64, "two sums a lane");
   const int lane = threadIdx.x & 31;
-  float w[32];
+  V w[32];
   const bool top = lane & 16;
 #pragma unroll
   for (int k = 0; k < 32; ++k) {
-    const float a = k < K ? v[k] : 0.0f;
-    const float b = k + 32 < K ? v[k + 32] : 0.0f;
+    const V a = k < K ? v[k] : V(0);
+    const V b = k + 32 < K ? v[k + 32] : V(0);
     w[k] = (top ? b : a) + __shfl_xor_sync(kFullMask, top ? a : b, 16);
   }
   reduce_scatter_step<16>(w, lane);
@@ -548,17 +558,19 @@ __device__ __forceinline__ void warp_reduce_scatter16(const V (&v)[K],
 // 31 steps of 60 shuffles with every lane on one camera); any other warp
 // walks its peers. All of the block's threads must call it; `smem` is the
 // kernel's dynamic shared memory (the plan's copies, or kSchurMoments x
-// kExpandChunk floats on the global route).
-template <Route R, typename Row, typename Load, typename Form>
+// kExpandChunk values on the global route). The values, copies and
+// outputs are of type V (f32, or f64 in the f64 instantiations, whose
+// copies hold half as many cameras); the blocks' sums are f64 in both.
+template <Route R, typename Row, typename Load, typename Form, typename V>
 __device__ __forceinline__ void schur_pass(Load load, Form form,
                                            const int* __restrict__ expand,
-                                           float* __restrict__ out,
+                                           V* __restrict__ out,
                                            double* __restrict__ acc_g,
                                            long n_obs, int n_cams, int copies,
-                                           float* smem) {
+                                           V* smem) {
   constexpr bool kPrefetch = R == Route::kPrivate;
   const int n_acc = kSchurMoments * n_cams;
-  float* acc = warp_copy<R>(smem, copies, n_acc);
+  V* acc = warp_copy<R>(smem, copies, n_acc);
   const int lane = threadIdx.x & 31;
   const long stride = (long)gridDim.x * blockDim.x;
   // warp-uniform trips: every lane reaches the warp's scatter
@@ -573,22 +585,22 @@ __device__ __forceinline__ void schur_pass(Load load, Form form,
     } else {
       row = load(base + lane);
     }
-    float H[6], xh[4];
+    V H[6], xh[4];
     const bool live = form(row, H, xh);
     if (!__any_sync(kFullMask, live)) continue;
-    float v[kSchurMoments];
+    V v[kSchurMoments];
     if (live) {
       schur_moments(H, xh, v);
     } else {
 #pragma unroll
-      for (int k = 0; k < kSchurMoments; ++k) v[k] = 0.0f;
+      for (int k = 0; k < kSchurMoments; ++k) v[k] = V(0);
     }
     const int c = live ? row.c : 0;
     const WarpPeers peers = warp_peers(c, live);
     const unsigned leads = __ballot_sync(kFullMask, peers.lead);
     if (__popc(leads) == 1 &&
         __popc(__ballot_sync(kFullMask, live)) >= 4) {
-      float sum[2];
+      V sum[2];
       warp_reduce_scatter(v, sum);
       const int cu = __shfl_sync(kFullMask, c, __ffs(leads) - 1);
       if (R == Route::kPrivate) __syncwarp();  // after the last walk's adds
@@ -656,17 +668,18 @@ __host__ __device__ constexpr int scatter_threads(Route r) {
 // the 1-device mesh with it, and 48 with the earlier kernels, all ended
 // within chip_smoke.py's band (tools/pose1_ab.py spread). All of the
 // block's threads must call it; `smem` is the kernel's dynamic shared
-// memory (the plan's copies).
-template <Route R, typename Row, typename Load, typename Form>
+// memory (the plan's copies). Values, copies and outputs of type V (f32,
+// or f64 in the f64 instantiations), f64 block sums in both.
+template <Route R, typename Row, typename Load, typename Form, typename V>
 __device__ __forceinline__ void scatter_pass(Load load, Form form,
-                                             float* __restrict__ out,
+                                             V* __restrict__ out,
                                              double* __restrict__ acc_g,
                                              long n_obs, int n_cams,
-                                             int copies, float* smem) {
+                                             int copies, V* smem) {
   constexpr bool kPrefetch = R == Route::kPrivate;
   constexpr int K = kScatterValues;
   const int n_acc = K * n_cams;
-  float* acc = warp_copy<R>(smem, copies, n_acc);
+  V* acc = warp_copy<R>(smem, copies, n_acc);
   const int lane = threadIdx.x & 31;
   const long stride = (long)gridDim.x * blockDim.x;
   long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
@@ -680,19 +693,19 @@ __device__ __forceinline__ void scatter_pass(Load load, Form form,
     } else {
       row = load(base + lane);
     }
-    float v[K];
+    V v[K];
     const bool live = form(row, v);
     if (!__any_sync(kFullMask, live)) continue;
     if (!live) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) v[k] = 0.0f;
+      for (int k = 0; k < K; ++k) v[k] = V(0);
     }
     const int c = live ? row.c : 0;
     const WarpPeers peers = warp_peers(c, live);
     const unsigned leads = __ballot_sync(kFullMask, peers.lead);
     if (__popc(leads) == 1 &&
         __popc(__ballot_sync(kFullMask, live)) >= 4) {
-      float sum[2];
+      V sum[2];
       warp_reduce_scatter16(v, sum);
       const int cu = __shfl_sync(kFullMask, c, __ffs(leads) - 1);
       if (R == Route::kPrivate) __syncwarp();  // after the last walk's adds
@@ -715,7 +728,7 @@ __device__ __forceinline__ void scatter_pass(Load load, Form form,
   if (!block_sums_done<R, double, 32>(acc_g, smem, copies, n_acc, n_acc))
     return;
   drain_sums<double>(acc_g, n_acc,
-                     [&](int i, double s) { out[i] = (float)s; });
+                     [&](int i, double s) { out[i] = (V)s; });
 }
 
 // ------------------------------------------------------------ slot tiles
@@ -1042,30 +1055,34 @@ int launch_sums(const SumsPlan& p, KP private_kernel, KS shared_kernel,
 }
 
 // launch a Schur-Jacobi kernel (its private, shared and global route
-// instantiations) over n_obs rows and n_cams cameras
-template <typename KP, typename KS, typename KG, typename... Args>
+// instantiations) over n_obs rows and n_cams cameras, its copies of
+// values of type V (f32, or f64 in the f64 instantiations)
+template <typename V = float, typename KP, typename KS, typename KG,
+          typename... Args>
 int launch_schur(KP private_kernel, KS shared_kernel, KG global_kernel,
                  int n_obs, int n_cams, void* stream, Args... args) {
   if (n_obs <= 0 || n_cams <= 0) return (int)cudaErrorInvalidValue;
   // the last block's staged expansion table
   SumsPlan p = sums_plan(kSchurMoments, n_cams, kSchurWarps, kSchurMinWarps,
-                         kSchurSharedThreads, kSchurStaticSmem);
+                         kSchurSharedThreads, kSchurStaticSmem, sizeof(V));
   // the last block stages the moments of kExpandChunk cameras at a time
   if (p.route == Route::kGlobal)
-    p.smem = sizeof(float) * kSchurMoments * kExpandChunk;
+    p.smem = sizeof(V) * kSchurMoments * kExpandChunk;
   return launch_sums(p, private_kernel, shared_kernel, global_kernel, n_obs,
                      stream, args...);
 }
 
 // launch a composed-term scatter (its private, shared and global route
-// instantiations) over n_obs rows and n_cams cameras
-template <typename KP, typename KS, typename KG, typename... Args>
+// instantiations) over n_obs rows and n_cams cameras, its copies of
+// values of type V (f32, or f64 in the f64 instantiations)
+template <typename V = float, typename KP, typename KS, typename KG,
+          typename... Args>
 int launch_scatter(KP private_kernel, KS shared_kernel, KG global_kernel,
                    int n_obs, int n_cams, void* stream, Args... args) {
   if (n_obs < 0 || n_cams <= 0) return (int)cudaErrorInvalidValue;
   return launch_sums(sums_plan(kScatterValues, n_cams, kScatterWarps,
                                kScatterWarps, kScatterSharedThreads,
-                               kScatterStaticSmem),
+                               kScatterStaticSmem, sizeof(V)),
                      private_kernel, shared_kernel, global_kernel, n_obs,
                      stream, args...);
 }

@@ -26,7 +26,11 @@
 // bytes: (o_dev + n_rows_dev) * 4 B per leading row for P1 and P2,
 // 2 o_dev * 4 B for P3. Sums add s = 0 .. w-1 from left to right, as
 // the Pallas kernels and the plain versions do (bit-equal, no FMA is
-// involved).
+// involved). Each kernel is templated on its element type T and has an
+// f64 instantiation (the entry point's name with `_f64` appended) for
+// the mesh's pure f64, where the JAX package falls back per class to
+// its XLA sums (pallas_spmd.py:48-60, `_class_eligible`): the same walk
+// on 8-byte elements, 8 B a lane and slot row in the bound.
 //
 // C interface as in pose1.cu: device pointers, sizes and the CUDA stream;
 // one launch; the cudaError_t of the launch is returned.
@@ -44,17 +48,17 @@ constexpr int kMaxEntries = 256;  // 7 KB of shared memory
 
 enum Mode { kPartSums = 0, kExpand = 1, kReduceReexpand = 2 };
 
-template <int kMode>
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
-    spmd_kernel(const float* __restrict__ src, float* __restrict__ dst,
+    spmd_kernel(const T* __restrict__ src, T* __restrict__ dst,
                 const int* __restrict__ table, int n_entries, int work,
                 int src_len, int dst_len) {
   __shared__ int tbl[kMaxEntries * kFields];
   for (int i = threadIdx.x; i < n_entries * kFields; i += blockDim.x)
     tbl[i] = table[i];
   __syncthreads();
-  const float* in = src + (size_t)blockIdx.y * src_len;
-  float* out = dst + (size_t)blockIdx.y * dst_len;
+  const T* in = src + (size_t)blockIdx.y * src_len;
+  T* out = dst + (size_t)blockIdx.y * dst_len;
   // 64-bit walk: item + stride never wraps
   for (long item = (long)blockIdx.x * blockDim.x + threadIdx.x; item < work;
        item += (long)gridDim.x * blockDim.x) {
@@ -70,13 +74,13 @@ __global__ void __launch_bounds__(kThreads)
     const int r = idx - win * cap;
     const int lane = t[0] + win * t[1] + r;
     if (kMode == kPartSums) {
-      float acc = in[lane];
+      T acc = in[lane];
       for (int s = 1; s < w; ++s) acc += in[lane + s * cap];
       out[t[5] + win * cap + r] = acc;
     } else if (w == 0) {  // a tail entry
-      out[lane] = 0.0f;
+      out[lane] = T(0);
     } else {
-      float v;
+      T v;
       if (kMode == kExpand) {
         v = in[t[5] + win * cap + r];
       } else {
@@ -88,15 +92,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kMode>
-int launch(const float* src, float* dst, const int* table, int n_entries,
-           int work, int k, int src_len, int dst_len, void* stream) {
+template <int kMode, typename T>
+int launch(const T* src, T* dst, const int* table, int n_entries, int work,
+           int k, int src_len, int dst_len, void* stream) {
   if (n_entries < 1 || n_entries > kMaxEntries || k < 1 || k > 65535)
     return (int)cudaErrorInvalidValue;
   const long blocks = ((long)work + kThreads - 1) / kThreads;
   const dim3 grid((unsigned)std::max(1L, std::min(blocks, 65535L)),
                   (unsigned)k);
-  spmd_kernel<kMode><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  spmd_kernel<T, kMode><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       src, dst, table, n_entries, work, src_len, dst_len);
   return (int)cudaGetLastError();
 }
@@ -122,6 +126,28 @@ int povar_spmd_expand_rows(const float* rows, float* x, const int* table,
 int povar_spmd_reduce_reexpand(const float* x, float* out, const int* table,
                                int n_entries, int work, int k, int o_dev,
                                int o_dev2, void* stream) {
+  return launch<kReduceReexpand>(x, out, table, n_entries, work, k, o_dev,
+                                 o_dev2, stream);
+}
+
+int povar_spmd_part_sums_f64(const double* x, double* rows, const int* table,
+                             int n_entries, int work, int k, int o_dev,
+                             int n_rows, void* stream) {
+  return launch<kPartSums>(x, rows, table, n_entries, work, k, o_dev, n_rows,
+                           stream);
+}
+
+int povar_spmd_expand_rows_f64(const double* rows, double* x,
+                               const int* table, int n_entries, int work,
+                               int k, int n_rows, int o_dev, void* stream) {
+  return launch<kExpand>(rows, x, table, n_entries, work, k, n_rows, o_dev,
+                         stream);
+}
+
+int povar_spmd_reduce_reexpand_f64(const double* x, double* out,
+                                   const int* table, int n_entries, int work,
+                                   int k, int o_dev, int o_dev2,
+                                   void* stream) {
   return launch<kReduceReexpand>(x, out, table, n_entries, work, k, o_dev,
                                  o_dev2, stream);
 }

@@ -74,6 +74,25 @@ SIGNATURES = {
     "povar_spmd_part_sums": [_P] * 3 + [_I] * 5 + [_P],
     "povar_spmd_expand_rows": [_P] * 3 + [_I] * 5 + [_P],
     "povar_spmd_reduce_reexpand": [_P] * 3 + [_I] * 5 + [_P],
+    # the f64 instantiations of the structured and slot kernels
+    "povar_prepare_f64": [_P] * 11 + [_I, _I, _D, _D, _D, _I, _D, _D, _I, _P],
+    "povar_e0_factor_f64": [_P] * 7 + [_I, _I, _D, _P],
+    "povar_hpp_b_f64": [_P] * 12 + [_I, _I, _D, _D, _D, _P],
+    "povar_e0_u_f64": [_P] * 5 + [_I, _I, _P],
+    "povar_e0_scatter_f64": [_P] * 6 + [_I, _I, _P],
+    "povar_apply_ldiff_f64": [_P] * 10 + [_I, _I, _D, _D, _P],
+    "povar_poba_t3_f64": [_P] * 9 + [_I, _I, _D, _D, _P],
+    "povar_apply_ldiff_stored_f64": [_P] * 10 + [_I, _I, _D, _D, _P],
+    "povar_schur_diag_f64": [_P] * 6 + [_I, _I, _P],
+    "povar_prepare2_f64": [_P] * 11 + [_I, _I, _I, _I, _D, _D, _P],
+    "povar_hppb2_f64": [_P] * 10 + [_I, _I, _P],
+    "povar_mat_dot2_f64": [_P] * 8 + [_I, _I, _I, _P],
+    "povar_scatter2_f64": [_P] * 8 + [_I, _I, _P],
+    "povar_ldiff2_f64": [_P] * 9 + [_I, _I, _P],
+    "povar_schur_diag2_f64": [_P] * 8 + [_I, _I, _P],
+    "povar_spmd_part_sums_f64": [_P] * 3 + [_I] * 5 + [_P],
+    "povar_spmd_expand_rows_f64": [_P] * 3 + [_I] * 5 + [_P],
+    "povar_spmd_reduce_reexpand_f64": [_P] * 3 + [_I] * 5 + [_P],
     "povar_lm_step": [_P] * 4 + [_D] * 6 + [_I] * 3 + [_U64, _I, _P],
     "povar_lm_condition": [_P, _U64, _I, _P, _I, _P],
     # the graph plumbing of lm.cu (no kernel of their own)

@@ -16,7 +16,10 @@ ops/pose_kernels.py,
 
 There is no fallback from the card to the plain version. The kernels
 are f32 except `pose_error2`, which runs in native f64 where the TPU ran
-double-float (`error2_df32`). Two changes of return shape against the
+double-float (`error2_df32`); all but it and `e0_term2_parts` also have
+an f64 instantiation (csrc/pose2.cu), which f64 operands take, counted
+under the name with `_f64` appended, as in ops/pose_kernels.py (the
+SPMD window layout's pure f64). Two changes of return shape against the
 Pallas kernels: `ldiff2` returns the f64 sum of its per-block partials
 instead of 128 f32 lane partials, and `pose_error2` returns the
 ResidualInfo dict of the cost (as 0-d tensors, its kernel's own totals)
@@ -39,6 +42,8 @@ from povar_tpu_torch.ops.pose_kernels import (
     SCHUR_MOMENTS,
     _check_shapes,
     _cuda_checks,
+    _entry,
+    _huber2,
     _launch,
     _on_cpu,
     _ptr,
@@ -64,12 +69,24 @@ KERNELS = (
 
 # launches per kernel; ops/launches.py zeroes and reads them with the
 # step-1 kernels' counts
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# the launch counters of the f64 instantiations: every kernel but the
+# cost (native f64 in both) and the fused term (no f64 path runs it)
+F64_KERNELS = tuple(f"{name}_f64" for name in KERNELS
+                    if name not in ("pose_error2", "e0_term2_parts"))
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS + F64_KERNELS}
 
 
-def _f32_out(rows: int, cols: int, like: torch.Tensor, zero=False):
+def _out(rows: int, cols: int, like: torch.Tensor, zero=False):
+    """A new [rows, cols] tensor of `like`'s dtype and device."""
     make = torch.zeros if zero else torch.empty
-    return make((rows, cols), dtype=torch.float32, device=like.device)
+    return make((rows, cols), dtype=like.dtype, device=like.device)
+
+
+def _entry2(name: str, o: int, n: int, cam, named, f32=()):
+    """ops/pose_kernels._entry for the step-2 kernels (C symbol
+    povar_<name>)."""
+    return _entry(name, name, o, n, cam, named, f32=f32)
 
 
 def prepare2(cam, cam_table, x4, uv, mask, *, use_valid, robust, huber):
@@ -87,19 +104,17 @@ def prepare2(cam, cam_table, x4, uv, mask, *, use_valid, robust, huber):
             cam, cam_table, x4, uv, mask, use_valid=use_valid,
             robust=robust, huber=huber,
         )
-    _cuda_checks("prepare2", o, n, cam, f32=(
-        ("cam_table", cam_table), ("x4", x4), ("uv", uv), ("mask", mask),
-    ))
-    rw, sw, mm = _f32_out(2, o, x4), _f32_out(1, o, x4), _f32_out(3, o, x4)
-    jlw, jlsq = _f32_out(8, o, x4), _f32_out(4, o, x4)
-    jpsq = _f32_out(12, n, x4, zero=True)
-    _launch("prepare2", _build.library().povar_prepare2,
+    label, fn, dt = _entry2("prepare2", o, n, cam, (
+        ("cam_table", cam_table), ("x4", x4), ("uv", uv),
+    ), f32=(("mask", mask),))
+    rw, sw, mm = _out(2, o, x4), _out(1, o, x4), _out(3, o, x4)
+    jlw, jlsq = _out(8, o, x4), _out(4, o, x4)
+    jpsq = _out(12, n, x4, zero=True)
+    _launch(label, fn,
             _ptr(cam), _ptr(cam_table), _ptr(x4), _ptr(uv), _ptr(mask),
             _ptr(rw), _ptr(sw), _ptr(mm), _ptr(jlw), _ptr(jlsq), _ptr(jpsq),
             o, n, int(bool(use_valid)), int(robust == ROBUST_HUBER),
-            float(huber), float(torch.tensor(huber * huber,
-                                             dtype=torch.float32)),
-            _stream(x4), counts=LAUNCHES)
+            float(huber), _huber2(huber, dt), _stream(x4), counts=LAUNCHES)
     return rw, sw, mm, jlw, jlsq, jpsq
 
 
@@ -115,15 +130,16 @@ def hppb2(cam, x4, mm, sw, r_w, jlns, hib, n_cams):
     }, o, n)
     if _on_cpu(cam, x4, mm, sw, r_w, jlns, hib):
         return pose2_ref.hppb2(cam, x4, mm, sw, r_w, jlns, hib, n)
-    _cuda_checks("hppb2", o, n, cam, f32=(
+    label, fn, dt = _entry2("hppb2", o, n, cam, (
         ("x4", x4), ("mm", mm), ("sw", sw), ("r_w", r_w), ("jlns", jlns),
         ("hib", hib),
     ))
-    # one zeroed buffer: b12 (returned as a view), the 40 moment rows the
-    # kernel expands into hpp, and its ticket counter
-    acc = torch.zeros(52 * n + 1, dtype=torch.float32, device=x4.device)
-    hpp = _f32_out(144, n, x4)
-    _launch("hppb2", _build.library().povar_hppb2,
+    # one zeroed buffer of the operands' dtype: b12 (returned as a view),
+    # the 40 moment rows the kernel expands into hpp, and its ticket
+    # counter
+    acc = torch.zeros(52 * n + 1, dtype=dt, device=x4.device)
+    hpp = _out(144, n, x4)
+    _launch(label, fn,
             _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(r_w), _ptr(jlns),
             _ptr(hib), _ptr(moment_expand_table(x4.device)), _ptr(hpp),
             _ptr(acc), o, n, _stream(x4), counts=LAUNCHES)
@@ -149,12 +165,12 @@ def mat_dot2(cam, x4, mm, sw, mat6, r_w, zt, *, add_r):
     if _on_cpu(cam, *ops):
         return pose2_ref.mat_dot2(cam, x4, mm, sw, mat6, r_w, zt,
                                   add_r=add_r)
-    _cuda_checks("mat_dot2", o, n, cam, f32=tuple((k, t) for k, (t, _r, _a)
-                                      in named.items()))
-    out = _f32_out(3, o, x4)
+    label, fn, _dt = _entry2("mat_dot2", o, n, cam, tuple(
+        (k, t) for k, (t, _r, _a) in named.items()))
+    out = _out(3, o, x4)
     # NULL for the residual the kernel does not read without add_r
     rw_ptr = _ptr(r_w) if add_r else ctypes.c_void_p(None)
-    _launch("mat_dot2", _build.library().povar_mat_dot2,
+    _launch(label, fn,
             _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(mat6), rw_ptr,
             _ptr(zt), _ptr(out), o, n, int(bool(add_r)), _stream(x4),
             counts=LAUNCHES)
@@ -172,14 +188,14 @@ def scatter2(cam, x4, mm, sw, mat6, sb, n_cams):
     }, o, n)
     if _on_cpu(cam, x4, mm, sw, mat6, sb):
         return pose2_ref.scatter2(cam, x4, mm, sw, mat6, sb, n)
-    _cuda_checks("scatter2", o, n, cam, f32=(
+    label, fn, _dt = _entry2("scatter2", o, n, cam, (
         ("x4", x4), ("mm", mm), ("sw", sw), ("mat6", mat6), ("sb", sb),
     ))
     # every entry written by the kernel's last block (as e0_scatter_
     # structured's)
-    out = _f32_out(12, n, x4)
+    out = _out(12, n, x4)
     stream = _stream(x4)
-    _launch("scatter2", _build.library().povar_scatter2,
+    _launch(label, fn,
             _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(mat6), _ptr(sb),
             _ptr(out),
             _ptr(_sums_scratch(x4.device, stream.value,
@@ -205,7 +221,7 @@ def e0_term2_parts(cam, x4, mm, sw, mat6, zt, parts, n_cams):
         ("x4", x4), ("mm", mm), ("sw", sw), ("mat6", mat6), ("zt", zt),
     ))
     table, tiles = e0_tile_table(tuple(parts), x4.device)
-    out = _f32_out(12, n, x4, zero=True)
+    out = _out(12, n, x4, zero=True)
     _launch("e0_term2_parts", _build.library().povar_e0_term2,
             _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(mat6), _ptr(zt),
             _ptr(table), _ptr(out), len(parts), tiles, o, n,
@@ -224,12 +240,12 @@ def schur_diag2(cam, x4, mm, sw, mat6, n_cams):
     }, o, n)
     if _on_cpu(cam, x4, mm, sw, mat6):
         return pose2_ref.schur_diag2(cam, x4, mm, sw, mat6, n)
-    _cuda_checks("schur_diag2", o, n, cam, f32=(
+    label, fn, _dt = _entry2("schur_diag2", o, n, cam, (
         ("x4", x4), ("mm", mm), ("sw", sw), ("mat6", mat6),
     ))
-    out = _f32_out(144, n, x4)
+    out = _out(144, n, x4)
     stream = _stream(x4)
-    _launch("schur_diag2", _build.library().povar_schur_diag2,
+    _launch(label, fn,
             _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(mat6),
             _ptr(schur_expand_table(x4.device)), _ptr(out),
             _ptr(_sums_scratch(x4.device, stream.value,
@@ -239,8 +255,9 @@ def schur_diag2(cam, x4, mm, sw, mat6, n_cams):
 
 
 def ldiff2(cam, x4, mm, sw, r_w, jls8, ilm4, zt):
-    """-l_diff as a 0-d f64 tensor (S5): f32 per-observation terms,
-    per-block f32 partials, summed in f64. zt [12, N] = Kps inc per
+    """-l_diff as a 0-d f64 tensor (S5): per-observation terms and per-
+    block partials in the operands' dtype, summed in f64. zt [12, N] =
+    Kps inc per
     camera; jls8 [8, O] the weighted scaled Jl rows; ilm4 [4, O] the
     lifted landmark increment expanded to observations."""
     o, n = cam.shape[0], zt.shape[-1]
@@ -251,13 +268,12 @@ def ldiff2(cam, x4, mm, sw, r_w, jls8, ilm4, zt):
     }, o, n)
     if _on_cpu(cam, x4, mm, sw, r_w, jls8, ilm4, zt):
         return pose2_ref.ldiff2(cam, x4, mm, sw, r_w, jls8, ilm4, zt)
-    _cuda_checks("ldiff2", o, n, cam, f32=(
+    label, fn, dt = _entry2("ldiff2", o, n, cam, (
         ("x4", x4), ("mm", mm), ("sw", sw), ("r_w", r_w), ("jls8", jls8),
         ("ilm4", ilm4), ("zt", zt),
     ))
-    part = torch.zeros(-(-o // _THREADS), dtype=torch.float32,
-                       device=x4.device)
-    _launch("ldiff2", _build.library().povar_ldiff2,
+    part = torch.zeros(-(-o // _THREADS), dtype=dt, device=x4.device)
+    _launch(label, fn,
             _ptr(cam), _ptr(x4), _ptr(mm), _ptr(sw), _ptr(r_w), _ptr(jls8),
             _ptr(ilm4), _ptr(zt), _ptr(part), o, n, _stream(x4),
             counts=LAUNCHES)

@@ -18,8 +18,16 @@ what both steps' moment kernels and fused terms are handed (the moment
 There is no fallback from the card to the plain version: a kernel that
 does not build or does not launch raises. The kernels are f32 except
 `pose_error`, which runs in native f64 where the TPU ran double-float
-(`pose_error_df32`). Apart from that one change of route the results
-are those of the Pallas kernels, with two changes of return shape:
+(`pose_error_df32`); all but it and `e0_term_parts` also have an f64
+instantiation (csrc/pose1.cu's `_f64` entry points), which the wrapper
+takes when its operands are f64: the SPMD window layout's pure f64
+(parallel/spmd.py), where the JAX package sends f64 operands to the XLA
+mirrors of povar_tpu/ops/xla_pose.py. The operands' dtype picks it (all
+f32 or all f64 but the f32 mask; a mixed call is a TypeError, never a
+cast), the outputs take it, and the launch counts under the kernel's
+name with `_f64` appended (F64_KERNELS). Apart from the cost's change of
+route the results are those of the Pallas kernels, with two changes of
+return shape:
 `apply_ldiff` and `apply_ldiff_stored` return the f64 sum of their per-
 block partials instead of 128 f32 lane partials, and `pose_error`
 returns (err, rn, bad) 0-d tensors instead of [5, 128] double-float
@@ -55,7 +63,12 @@ KERNELS = (
     "apply_ldiff_stored",
 )
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# the launch counters of the f64 instantiations: every kernel but the
+# cost (native f64 in both) and the fused term (no f64 path runs it)
+F64_KERNELS = tuple(f"{name}_f64" for name in KERNELS
+                    if name not in ("pose_error", "e0_term_parts"))
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS + F64_KERNELS}
 
 # per-block partials of the scalar reductions: one slot per block of
 # the kernels' 256 threads, at most ceil(O / 256) blocks
@@ -269,6 +282,31 @@ def _cuda_checks(name: str, o: int, n: int, cam, f32=(), f64=()) -> None:
             raise ValueError(f"{name}: tensor must be contiguous")
 
 
+def _entry(name: str, symbol: str, o: int, n: int, cam, named, f32=()):
+    """(counter name, C entry point, dtype) of kernel `name` (C symbol
+    povar_<symbol>) for its CUDA operands `named` ((name, tensor), ...)
+    and the operands `f32` that are f32 in both instantiations (the
+    mask): the f32 or the f64 instantiation by the first operand's
+    dtype, after `_cuda_checks` holds every operand to it (a TypeError,
+    never a cast)."""
+    dtype = named[0][1].dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: {named[0][0]} is {dtype}; f32 or f64 "
+                        "operands expected")
+    f64 = dtype == torch.float64
+    _cuda_checks(name, o, n, cam, f32=tuple(f32) + (() if f64 else named),
+                 f64=named if f64 else ())
+    suffix = "_f64" if f64 else ""
+    return (name + suffix, getattr(_build.library(), f"povar_{symbol}{suffix}"),
+            dtype)
+
+
+def _huber2(huber: float, dtype) -> float:
+    """huber^2 rounded to the working dtype, as the plain versions
+    compare it."""
+    return float(torch.tensor(huber * huber, dtype=dtype))
+
+
 def prepare(cam, cam_table, x, uv, mask, *, alpha, robust, huber,
             weighted=True, sums=True):
     """Linearization-point pass (K1). Inputs: cam [O] i32, cam_table
@@ -288,12 +326,11 @@ def prepare(cam, cam_table, x, uv, mask, *, alpha, robust, huber,
             cam, cam_table, x, uv, mask, alpha=alpha, robust=robust,
             huber=huber, weighted=weighted, sums=sums,
         )
-    _cuda_checks("prepare", o, n, cam, f32=(
-        ("cam_table", cam_table), ("x", x),
-        ("uv", uv), ("mask", mask),
-    ))
-    c = pose_ref.pose_consts(alpha, torch.float32)
-    opts = dict(dtype=torch.float32, device=x.device)
+    label, fn, dt = _entry("prepare", "prepare", o, n, cam, (
+        ("cam_table", cam_table), ("x", x), ("uv", uv),
+    ), f32=(("mask", mask),))
+    c = pose_ref.pose_consts(alpha, dt)
+    opts = dict(dtype=dt, device=x.device)
     ata = torch.empty((9, o), **opts)
     atr = torch.empty((3, o), **opts)
     rw = sw = jpsq = acc = None
@@ -304,12 +341,11 @@ def prepare(cam, cam_table, x, uv, mask, *, alpha, robust, huber,
         # the blocks' f64 sums (8 rows of jpsq's 12) and the ticket
         acc = torch.zeros(8 * n + 1, dtype=torch.float64, device=x.device)
     huber_on = bool(weighted) and robust == ROBUST_HUBER
-    _launch("prepare", _build.library().povar_prepare,
+    _launch(label, fn,
             _ptr(cam), _ptr(cam_table), _ptr(x), _ptr(uv), _ptr(mask),
             *map(_ptr_or_null, (rw, sw)), _ptr(ata), _ptr(atr),
             *map(_ptr_or_null, (jpsq, acc)), o, n, c.sp, c.sa, c.sp2,
-            int(huber_on), float(huber),
-            float(torch.tensor(huber * huber, dtype=torch.float32)),
+            int(huber_on), float(huber), _huber2(huber, dt),
             int(bool(sums)), _stream(x))
     return rw, sw, ata, atr, jpsq
 
@@ -325,15 +361,15 @@ def e0_factor(cam, cam_table, uv, w, jls, lh, *, alpha):
     }, o, n)
     if _on_cpu(cam, cam_table, uv, w, jls, lh):
         return pose_ref.e0_factor(cam, cam_table, uv, w, jls, lh, alpha=alpha)
-    _cuda_checks("e0_factor", o, n, cam, f32=(
+    label, fn, dt = _entry("e0_factor", "e0_factor", o, n, cam, (
         ("cam_table", cam_table), ("uv", uv),
         ("w", w), ("jls", jls), ("lh", lh),
     ))
-    h = torch.empty((9, o), dtype=torch.float32, device=uv.device)
-    _launch("e0_factor", _build.library().povar_e0_factor,
+    h = torch.empty((9, o), dtype=dt, device=uv.device)
+    _launch(label, fn,
             _ptr(cam), _ptr(cam_table), _ptr(uv), _ptr(w), _ptr(jls),
-            _ptr(lh), _ptr(h), o, n,
-            pose_ref.pose_consts(alpha, torch.float32).sp2h, _stream(uv))
+            _ptr(lh), _ptr(h), o, n, pose_ref.pose_consts(alpha, dt).sp2h,
+            _stream(uv))
     return h
 
 
@@ -351,18 +387,18 @@ def hpp_b_structured(cam, cam_table, x, uv, sw, r_w, jls, hib, n_cams, *,
         return pose_ref.hpp_b_structured(
             cam, cam_table, x, uv, sw, r_w, jls, hib, n, alpha=alpha
         )
-    _cuda_checks("hpp_b_structured", o, n, cam, f32=(
+    label, fn, dt = _entry("hpp_b_structured", "hpp_b", o, n, cam, (
         ("cam_table", cam_table), ("x", x),
         ("uv", uv), ("sw", sw), ("r_w", r_w),
         ("jls", jls), ("hib", hib),
     ))
-    c = pose_ref.pose_consts(alpha, torch.float32)
+    c = pose_ref.pose_consts(alpha, dt)
     # one zeroed f64 buffer where the blocks' sums meet: b, the 40 moment
     # rows, the ticket counter; the kernel writes hpp and b from it
     acc = torch.zeros(52 * n + 1, dtype=torch.float64, device=x.device)
-    hpp = torch.empty((144, n), dtype=torch.float32, device=x.device)
-    b = torch.empty((12, n), dtype=torch.float32, device=x.device)
-    _launch("hpp_b_structured", _build.library().povar_hpp_b,
+    hpp = torch.empty((144, n), dtype=dt, device=x.device)
+    b = torch.empty((12, n), dtype=dt, device=x.device)
+    _launch(label, fn,
             _ptr(cam), _ptr(cam_table), _ptr(x), _ptr(uv), _ptr(sw),
             _ptr(r_w), _ptr(jls), _ptr(hib),
             _ptr(moment_expand_table(x.device)), _ptr(hpp), _ptr(b),
@@ -379,11 +415,11 @@ def e0_u_structured(cam, x, h, z_table):
     }, o, n)
     if _on_cpu(cam, x, h, z_table):
         return pose_ref.e0_u_structured(cam, x, h, z_table)
-    _cuda_checks("e0_u_structured", o, n, cam, f32=(
+    label, fn, dt = _entry("e0_u_structured", "e0_u", o, n, cam, (
         ("x", x), ("h", h), ("z_table", z_table),
     ))
-    u = torch.empty((3, o), dtype=torch.float32, device=x.device)
-    _launch("e0_u_structured", _build.library().povar_e0_u,
+    u = torch.empty((3, o), dtype=dt, device=x.device)
+    _launch(label, fn,
             _ptr(cam), _ptr(x), _ptr(h), _ptr(z_table), _ptr(u), o, n,
             _stream(x))
     return u
@@ -398,14 +434,13 @@ def e0_scatter_structured(cam, x, h, sb, n_cams):
     }, o, n)
     if _on_cpu(cam, x, h, sb):
         return pose_ref.e0_scatter_structured(cam, x, h, sb, n)
-    _cuda_checks("e0_scatter_structured", o, n, cam, f32=(
-        ("x", x), ("h", h), ("sb", sb),
-    ))
+    label, fn, dt = _entry("e0_scatter_structured", "e0_scatter", o, n, cam,
+                           (("x", x), ("h", h), ("sb", sb)))
     # every entry written by the kernel's last block, from the blocks'
     # f64 sums in the shared scratch (left zeroed)
-    out = torch.empty((12, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((12, n), dtype=dt, device=x.device)
     stream = _stream(x)
-    _launch("e0_scatter_structured", _build.library().povar_e0_scatter,
+    _launch(label, fn,
             _ptr(cam), _ptr(x), _ptr(h), _ptr(sb), _ptr(out),
             _ptr(_sums_scratch(x.device, stream.value,
                                SCATTER_VALUES * n + 1)),
@@ -454,10 +489,11 @@ def schur_diag_structured(cam, x, h, n_cams):
     _check_shapes({"x": (x, 3, "o"), "h": (h, 9, "o")}, o, n)
     if _on_cpu(cam, x, h):
         return pose_ref.schur_diag_structured(cam, x, h, n)
-    _cuda_checks("schur_diag_structured", o, n, cam, f32=(("x", x), ("h", h)))
-    out = torch.empty((144, n), dtype=torch.float32, device=x.device)
+    label, fn, dt = _entry("schur_diag_structured", "schur_diag", o, n, cam,
+                           (("x", x), ("h", h)))
+    out = torch.empty((144, n), dtype=dt, device=x.device)
     stream = _stream(x)
-    _launch("schur_diag_structured", _build.library().povar_schur_diag,
+    _launch(label, fn,
             _ptr(cam), _ptr(x), _ptr(h), _ptr(schur_expand_table(x.device)),
             _ptr(out),
             _ptr(_sums_scratch(x.device, stream.value, SCHUR_MOMENTS * n + 1)),
@@ -467,8 +503,9 @@ def schur_diag_structured(cam, x, h, n_cams):
 
 def apply_ldiff(cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
                 inc_table, *, alpha):
-    """-l_diff as a 0-d f64 tensor (K6): f32 per-observation terms,
-    per-block f32 partials, summed in f64. inc_table [12, N] is the
+    """-l_diff as a 0-d f64 tensor (K6): per-observation terms and per-
+    block partials in the operands' dtype, summed in f64. inc_table
+    [12, N] is the
     scaled camera increment; inc_lm_obs [3, O] the landmark increment
     expanded to observations."""
     o, n = cam.shape[0], cam_table_old.shape[-1]
@@ -485,18 +522,16 @@ def apply_ldiff(cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
             cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
             inc_table, alpha=alpha,
         )
-    _cuda_checks("apply_ldiff", o, n, cam, f32=(
+    label, fn, dt = _entry("apply_ldiff", "apply_ldiff", o, n, cam, (
         ("x", x), ("uv", uv), ("sw", sw),
         ("r_w", r_w), ("jls", jls),
         ("inc_lm_obs", inc_lm_obs),
         ("cam_table_old", cam_table_old),
         ("inc_table", inc_table),
     ))
-    c = pose_ref.pose_consts(alpha, torch.float32)
-    part = torch.zeros(
-        -(-o // _THREADS), dtype=torch.float32, device=x.device
-    )
-    _launch("apply_ldiff", _build.library().povar_apply_ldiff,
+    c = pose_ref.pose_consts(alpha, dt)
+    part = torch.zeros(-(-o // _THREADS), dtype=dt, device=x.device)
+    _launch(label, fn,
             _ptr(cam), _ptr(x), _ptr(uv), _ptr(sw), _ptr(r_w), _ptr(jls),
             _ptr(inc_lm_obs), _ptr(cam_table_old), _ptr(inc_table),
             _ptr(part), o, n, c.sp, c.sa, _stream(x))
@@ -506,9 +541,10 @@ def apply_ldiff(cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
 def _stored_inputs(name, cam, cam_table, x, uv, sw, r_w, jls, z_table,
                    extra=()):
     """Shape checks of the POWER_SCHUR_COMPLEMENT apply's operands (the
-    stored linearization and the z table); True when they lie on the
-    CPU, else their CUDA checks passed. `extra`: (name, tensor) pairs of
-    further [3, O] operands."""
+    stored linearization and the z table); None when they lie on the
+    CPU, else, their CUDA checks passed, `_entry`'s (counter name, C
+    entry point, dtype). `extra`: (name, tensor) pairs of further [3, O]
+    operands."""
     o, n = cam.shape[0], cam_table.shape[-1]
     _check_shapes({
         "cam_table": (cam_table, 12, "n"), "x": (x, 3, "o"),
@@ -519,26 +555,27 @@ def _stored_inputs(name, cam, cam_table, x, uv, sw, r_w, jls, z_table,
     tensors = (cam, cam_table, x, uv, sw, r_w, jls, z_table,
                *(t for _k, t in extra))
     if _on_cpu(*tensors):
-        return True
-    _cuda_checks(name, o, n, cam, f32=(
+        return None
+    return _entry(name, name, o, n, cam, (
         ("cam_table", cam_table), ("x", x), ("uv", uv), ("sw", sw),
         ("r_w", r_w), ("jls", jls), ("z_table", z_table), *extra,
     ))
-    return False
 
 
 def poba_t3(cam, cam_table, x, uv, sw, r_w, jls, z_table, *, alpha):
     """t3 [3, O] = Jl_s^T (r_w + Jp_s inc) (K10): the per-observation
     right-hand side of the POWER_SCHUR_COMPLEMENT landmark system, slot-
     summed by the caller. z_table [12, N] = pose_scale . inc."""
-    if _stored_inputs("poba_t3", cam, cam_table, x, uv, sw, r_w, jls,
-                      z_table):
+    entry = _stored_inputs("poba_t3", cam, cam_table, x, uv, sw, r_w, jls,
+                           z_table)
+    if entry is None:
         return pose_ref.poba_t3(cam, cam_table, x, uv, sw, r_w, jls, z_table,
                                 alpha=alpha)
+    label, fn, dt = entry
     o, n = cam.shape[0], cam_table.shape[-1]
-    c = pose_ref.pose_consts(alpha, torch.float32)
-    t3 = torch.empty((3, o), dtype=torch.float32, device=x.device)
-    _launch("poba_t3", _build.library().povar_poba_t3,
+    c = pose_ref.pose_consts(alpha, dt)
+    t3 = torch.empty((3, o), dtype=dt, device=x.device)
+    _launch(label, fn,
             _ptr(cam), _ptr(cam_table), _ptr(x), _ptr(uv), _ptr(sw),
             _ptr(r_w), _ptr(jls), _ptr(z_table), _ptr(t3), o, n, c.sp, c.sa,
             _stream(x))
@@ -548,22 +585,24 @@ def poba_t3(cam, cam_table, x, uv, sw, r_w, jls, z_table, *, alpha):
 def apply_ldiff_stored(cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old,
                        z_table, *, alpha):
     """-l_diff of the POWER_SCHUR_COMPLEMENT apply as a 0-d f64 tensor
-    (K11), from the stored scaled Jacobians: f32 per-observation terms,
-    per-block f32 partials, summed in f64. z_table [12, N] = pose_scale .
+    (K11), from the stored scaled Jacobians: per-observation terms and
+    per-block partials in the operands' dtype, summed in f64. z_table
+    [12, N] = pose_scale .
     inc; inc_lm_obs [3, O] the scaled landmark increment expanded to
     observations."""
-    if _stored_inputs("apply_ldiff_stored", cam, cam_table_old, x, uv, sw,
-                      r_w, jls, z_table, extra=(("inc_lm_obs", inc_lm_obs),)):
+    entry = _stored_inputs("apply_ldiff_stored", cam, cam_table_old, x, uv,
+                           sw, r_w, jls, z_table,
+                           extra=(("inc_lm_obs", inc_lm_obs),))
+    if entry is None:
         return pose_ref.apply_ldiff_stored(
             cam, x, uv, sw, r_w, jls, inc_lm_obs, cam_table_old, z_table,
             alpha=alpha,
         )
+    label, fn, dt = entry
     o, n = cam.shape[0], cam_table_old.shape[-1]
-    c = pose_ref.pose_consts(alpha, torch.float32)
-    part = torch.zeros(
-        -(-o // _THREADS), dtype=torch.float32, device=x.device
-    )
-    _launch("apply_ldiff_stored", _build.library().povar_apply_ldiff_stored,
+    c = pose_ref.pose_consts(alpha, dt)
+    part = torch.zeros(-(-o // _THREADS), dtype=dt, device=x.device)
+    _launch(label, fn,
             _ptr(cam), _ptr(x), _ptr(uv), _ptr(sw), _ptr(r_w), _ptr(jls),
             _ptr(inc_lm_obs), _ptr(cam_table_old), _ptr(z_table),
             _ptr(part), o, n, c.sp, c.sa, _stream(x))

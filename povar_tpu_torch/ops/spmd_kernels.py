@@ -14,10 +14,16 @@ otherwise it checks device, dtype, shape and contiguity, allocates the
 output, launches the hand-written CUDA kernel (csrc/spmd.cu) on the
 current stream, raises if the launch returned a CUDA error, and adds one
 to its launch counter (`LAUNCHES`, read with the others by
-ops/launches.py). The kernels are f32, as the Pallas ones: an f64 or
-non-contiguous CUDA operand raises (the f64 state reaches the expansion
-as its f32 hi and lo halves, parallel/spmd.spmd_expand_rows). There is
-no fallback from the card to the plain version.
+ops/launches.py). Each kernel has an f32 and an f64 instantiation
+(csrc/spmd.cu): the operand's dtype picks it, the output takes it, and
+an f64 launch counts under the kernel's name with `_f64` appended
+(F64_KERNELS). The f64 ones serve the mesh's pure f64, where the JAX
+package's slot sums fall back per class to XLA in f64
+(povar_tpu/ops/pallas_spmd.py:48-60); in mixed precision the f64 state
+still reaches the f32 expansion as its hi and lo halves
+(parallel/spmd.spmd_expand_rows). Another dtype or a non-contiguous CUDA
+operand raises. There is no fallback from the card to the plain
+version.
 """
 
 from __future__ import annotations
@@ -32,7 +38,10 @@ from povar_tpu_torch.ops.pose_kernels import _launch, _on_cpu, _ptr, _stream
 
 KERNELS = ("class_part_sums", "class_expand_rows", "class_reduce_reexpand")
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# the launch counters of the f64 instantiations
+F64_KERNELS = tuple(f"{name}_f64" for name in KERNELS)
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS + F64_KERNELS}
 
 # int32 fields of one entry of the kernels' layout table
 TABLE_FIELDS = ("lane0", "stride", "cap", "w", "n", "row0", "work0")
@@ -80,53 +89,57 @@ def _check(name: str, t: torch.Tensor, cols: int) -> None:
 
 
 def _cuda_check(name: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: expected torch.float32 or torch.float64, "
+                        f"got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
 
 
-def _run(name: str, fn, src: torch.Tensor, layout, out_cols: int,
+def _run(name: str, symbol: str, src: torch.Tensor, layout, out_cols: int,
          tails: bool) -> torch.Tensor:
-    """Launch one of the three kernels over the whole layout: src [K, .]
-    -> a new [K, out_cols] f32 tensor."""
+    """Launch one of the three kernels (C symbol povar_<symbol>, or its
+    `_f64` instantiation for an f64 src) over the whole layout: src
+    [K, .] -> a new [K, out_cols] tensor of src's dtype."""
     _cuda_check(name, src)
+    suffix = "_f64" if src.dtype == torch.float64 else ""
+    fn = getattr(_build.library(), f"povar_{symbol}{suffix}")
     k = src.shape[0]
     table, n_entries, work = layout_table(tuple(layout), tails, src.device)
-    out = torch.empty((k, out_cols), dtype=torch.float32, device=src.device)
-    _launch(name, fn, _ptr(src), _ptr(out), _ptr(table), n_entries, work, k,
-            src.shape[1], out_cols, _stream(src), counts=LAUNCHES)
+    out = torch.empty((k, out_cols), dtype=src.dtype, device=src.device)
+    _launch(name + suffix, fn, _ptr(src), _ptr(out), _ptr(table), n_entries,
+            work, k, src.shape[1], out_cols, _stream(src), counts=LAUNCHES)
     return out
 
 
 def class_part_sums(x: torch.Tensor, layout) -> torch.Tensor:
-    """x [K, o_dev] f32 -> per-slot-row sums [K, n_rows_dev] (P1)."""
+    """x [K, o_dev] f32 or f64 -> per-slot-row sums [K, n_rows_dev]
+    (P1)."""
     o_dev, n_rows = spmd_ref.layout_sizes(layout)
     _check("x", x, o_dev)
     if _on_cpu(x):
         return spmd_ref.class_part_sums(x, layout)
-    return _run("class_part_sums", _build.library().povar_spmd_part_sums,
-                x, layout, n_rows, tails=False)
+    return _run("class_part_sums", "spmd_part_sums", x, layout, n_rows,
+                tails=False)
 
 
 def class_expand_rows(rows: torch.Tensor, layout) -> torch.Tensor:
-    """rows [K, n_rows_dev] f32 -> lanes [K, o_dev], tail lanes zero
-    (P2)."""
+    """rows [K, n_rows_dev] f32 or f64 -> lanes [K, o_dev], tail lanes
+    zero (P2)."""
     o_dev, n_rows = spmd_ref.layout_sizes(layout)
     _check("rows", rows, n_rows)
     if _on_cpu(rows):
         return spmd_ref.class_expand_rows(rows, layout)
-    return _run("class_expand_rows", _build.library().povar_spmd_expand_rows,
-                rows, layout, o_dev, tails=True)
+    return _run("class_expand_rows", "spmd_expand_rows", rows, layout, o_dev,
+                tails=True)
 
 
 def class_reduce_reexpand(x: torch.Tensor, layout) -> torch.Tensor:
-    """x [K, o_dev] f32 -> [K, o_dev], each slot-row group replaced by
-    its sum, tail lanes zero (P3)."""
+    """x [K, o_dev] f32 or f64 -> [K, o_dev], each slot-row group
+    replaced by its sum, tail lanes zero (P3)."""
     o_dev, _n_rows = spmd_ref.layout_sizes(layout)
     _check("x", x, o_dev)
     if _on_cpu(x):
         return spmd_ref.class_reduce_reexpand(x, layout)
-    return _run("class_reduce_reexpand",
-                _build.library().povar_spmd_reduce_reexpand,
-                x, layout, o_dev, tails=True)
+    return _run("class_reduce_reexpand", "spmd_reduce_reexpand", x, layout,
+                o_dev, tails=True)

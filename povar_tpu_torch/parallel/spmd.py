@@ -26,7 +26,11 @@ layout, plus the combine reduce), and only the per-camera accumulators
 base class hooks (solver/slots.SlotSolver._psum). The method bodies are
 the single-device ones, so every ported per-observation kernel runs
 unchanged on the rank's lanes, and every rank takes the same LM
-decisions from the same all-reduced numbers. Camera state is replicated
+decisions from the same all-reduced numbers. An f64 state runs in mixed
+precision (f32 storage and solves) or in pure f64, where the rank's
+storage, solves and kernels (their f64 instantiations) are f64 on the
+same structured layout, as the JAX package's SPMD solvers run pure f64
+through its XLA mirrors. Camera state is replicated
 on every rank; landmark state lives in the plan's device-major padded
 order, each rank holding its shard of m_dev landmarks (`pad_landmarks`,
 `unpad_landmarks`).
@@ -526,10 +530,11 @@ def rank_combine(combine: PaddedReduce, n_dev: int, rank: int,
 # Per-device reduces over the uniform layout (the JAX package's
 # spmd_part_sums / spmd_expand_rows / spmd_reduce_reexpand, :561-651):
 # one call of a kernel's wrapper over every class and part (the plain
-# version for CPU tensors, the f32 kernel for CUDA tensors). The only
-# f64 operand, the state expanded for the mixed-precision cost, is
-# expanded as its f32 hi and lo halves, as the JAX package's
-# _compute_error_df32 does (povar_tpu/solver/stage1.py:2228-2230).
+# version for CPU tensors, the f32 or f64 kernel for CUDA tensors). In
+# mixed precision the only f64 operand, the state expanded for the cost,
+# is expanded as its f32 hi and lo halves, as the JAX package's
+# _compute_error_df32 does (povar_tpu/solver/stage1.py:2228-2230); in
+# pure f64 every operand is f64 and takes the f64 kernels.
 # ---------------------------------------------------------------------
 
 
@@ -544,13 +549,16 @@ def spmd_part_sums(x: torch.Tensor, layout) -> torch.Tensor:
     return _route(x, spmd_kernels.class_part_sums, layout)
 
 
-def spmd_expand_rows(s_rows: torch.Tensor, layout) -> torch.Tensor:
+def spmd_expand_rows(s_rows: torch.Tensor, layout,
+                     hi_lo: bool = True) -> torch.Tensor:
     """Per-slot-row values [..., n_rows_dev] -> per-lane [..., o_dev]
-    (window tail lanes get zeros). An f64 operand goes through the f32
+    (window tail lanes get zeros), in the operand's dtype. With `hi_lo`
+    (the mixed-precision cost) an f64 operand goes through the f32
     kernel as hi = f32(s) and lo = f32(s - hi), in one launch, and comes
     back as hi + lo in f64: 48 of f64's 53 bits, as the JAX package's
-    double-float cost takes the state."""
-    if s_rows.dtype != torch.float64:
+    double-float cost takes the state; without it (pure f64) through the
+    f64 kernel, all 53."""
+    if not (hi_lo and s_rows.dtype == torch.float64):
         return _route(s_rows, spmd_kernels.class_expand_rows, layout)
     hi = s_rows.float()
     lo = (s_rows - hi.double()).float()
@@ -581,13 +589,6 @@ def spmd_unsupported(options: SolverOptions, n_cams: int,
     why = common_unsupported(options, n_cams, dtype)
     if why is not None:
         return why
-    if dtype == torch.float64 and not options.mixed_precision_solves:
-        return (
-            "mixed_precision_solves=False with an f64 state on a mesh: the "
-            "mesh's pure f64 (the window layout's per-observation kernels "
-            "and slot kernels in f64) is the part of ROADMAP.md queue 1 "
-            "item 11, precision modes, still to come; one device runs it"
-        )
     gspmd = ("on a mesh, which the JAX package runs on its GSPMD fallback "
              "(ROADMAP.md queue 1 item 13, multi-device)")
     if options.detailed_timing:
@@ -616,7 +617,7 @@ class _SpmdCommon:
 
     PATH = ("the SPMD window layout (POWER_VARPROJ, POWER_SCHUR_COMPLEMENT "
             "or PCG and RIPOBA or RIPCG, structured, an f64 state in mixed "
-            "precision)")
+            "precision or pure f64)")
     # the trial's sums are all-reduced over the mesh between kernels, so
     # the host loop drives it, as the JAX package's sharded solvers
     # (povar_tpu/parallel/spmd.py `supports_device_loop`): "auto" takes
@@ -640,6 +641,22 @@ class _SpmdCommon:
 
     def unsupported(self, options, n_cams, dtype):
         return spmd_unsupported(options, n_cams, dtype)
+
+    @staticmethod
+    def uses_unstructured(options, dtype) -> bool:
+        """Never: the mesh runs the structured window layout in mixed
+        precision and in pure f64 (f64 storage, solves and kernels), as
+        the JAX package's SPMD solvers set `use_pallas` whatever the
+        precision (povar_tpu/parallel/spmd.py:1029-1038); the
+        configurations that would take the unstructured one are refused
+        (spmd_unsupported)."""
+        return False
+
+    def _expand_rows(self, s):
+        """spmd_expand_rows with the mixed-precision cost's hi / lo
+        expansion of an f64 operand; pure f64 expands natively."""
+        return spmd_expand_rows(s, self.layout,
+                                hi_lo=self.solve_dtype != torch.float64)
 
     def _make_obs(self, _obs_cam, _obs_lm, obs_uv):
         """This rank's lanes, slot rows and landmark slots of the plan;
@@ -685,8 +702,7 @@ class _SpmdCommon:
         return self._combine(spmd_part_sums(x.contiguous(), self.layout))
 
     def _gather_lm_x(self, s):
-        return spmd_expand_rows(s.index_select(-1, self.obs.lm_order),
-                                self.layout)
+        return self._expand_rows(s.index_select(-1, self.obs.lm_order))
 
     def _seg_L(self, x):
         rows = spmd_part_sums(x.contiguous(), self.layout)
@@ -695,7 +711,7 @@ class _SpmdCommon:
     def _expand_L(self, s):
         if self.plan.has_duplicates:
             return self._gather_lm_x(s)
-        return spmd_expand_rows(s.contiguous(), self.layout)
+        return self._expand_rows(s.contiguous())
 
     def _seg_lm_reexpand(self, u):
         if self.plan.has_duplicates:

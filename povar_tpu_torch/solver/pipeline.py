@@ -78,16 +78,16 @@ def bundle_adjust(
     kernel; an f64 state with `mixed_precision_solves=False` is pure
     f64, both steps on the unstructured layout with f64 solves). Both
     stage solvers are built before step 1 runs, so a configuration that
-    either step does not run yet (pure f64 or CHOLESKY on a mesh, ...)
+    either step does not run yet (CHOLESKY on a mesh, ...)
     raises NotImplementedError before any work.
 
     With `mesh` (parallel/mesh.make_mesh: this rank of a mesh, on the
     mesh's device, which replaces `device`), both stages run the SPMD
     window layout (parallel/spmd.py), each rank on its shard with the
     same LM decisions; every rank returns the whole problem, and only
-    rank 0 logs. A mesh runs an f64 state in mixed precision with
-    `pallas_kernels` on and an iterative step-1 solver; anything else
-    raises NotImplementedError."""
+    rank 0 logs. A mesh runs an f64 state, in mixed precision or pure
+    f64, with `pallas_kernels` on and an iterative step-1 solver;
+    anything else raises NotImplementedError."""
     options = options or SolverOptions()
     timer_total = Timer()
     s1, s2 = _make_solvers(problem, options, dtype, device, mesh)

@@ -265,7 +265,9 @@ class SlotSolver:
         runs it off the TPU, and in pure f64, which the JAX package's
         kernels do not take (pallas_cam.supported needs f32 solves), so
         it runs the f64 XLA layout on one device whatever
-        `pallas_kernels` says ("on" raises ValueError)."""
+        `pallas_kernels` says ("on" raises ValueError). The SPMD solvers
+        (parallel/spmd.py) run the structured layout in either precision,
+        as the JAX package's."""
         return (options.pallas_kernels == "off"
                 or solve_dtype_of(options, dtype) == torch.float64)
 
@@ -303,15 +305,16 @@ class SlotSolver:
         # the device LM loop last run on this solver (solver/lm.py: on
         # the card, its captured graph), by what it was captured for
         self.device_runs = {}
-        if options.pallas_kernels == "on" and (
+        self.unstructured = self.uses_unstructured(options, dtype)
+        if options.pallas_kernels == "on" and self.unstructured and (
                 self.solve_dtype == torch.float64):
-            # the JAX package's refusal (stage1.py:705-710), word for word
+            # the JAX package's refusal (stage1.py:705-710), word for word;
+            # a mesh runs pure f64 on the structured layout and takes "on"
             raise ValueError(
                 "pallas_kernels='on' but the problem shape is unsupported "
                 f"(n_cams={self.n_cams} <= {MAX_CAMERAS}, f32 inner solves "
                 "required)"
             )
-        self.unstructured = self.uses_unstructured(options, dtype)
         self.robust = ROBUST_CODE[options.residual.robust_norm]
         self.huber = float(options.residual.huber_parameter)
         self.power_m = int(options.power_sc_iterations)

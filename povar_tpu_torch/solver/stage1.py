@@ -8,7 +8,8 @@ of ops/pose_kernels.py (hand-written CUDA on the card, their plain
 PyTorch versions on the CPU), and the landmark side is reshape-sums and
 broadcasts over the slot layout (solver/segments.py). The unstructured
 one (`Lin1`, with `pallas_kernels="off"`, and always for CHOLESKY and in
-pure f64, as in the JAX package): explicit, weighted and Jacobi-scaled
+pure f64 on one device, as in the JAX package): explicit, weighted and
+Jacobi-scaled
 Jacobians
 Jp [4, 12, O] and Jl [4, 3, O] (ops/pose_math.py), per-camera sums and
 gathers through the camera-table kernels of ops/cam_kernels.py, and
@@ -28,7 +29,10 @@ cost gathers the cameras with the cam_gather kernel); linearization
 storage and the inner solve are f32 (`solve_dtype`), except in pure f64
 (`mixed_precision_solves=False` with an f64 state), which runs the
 unstructured layout with f64 storage, solves and camera-table kernels,
-and CHOLESKY's dense or banded system in f64.
+and CHOLESKY's dense or banded system in f64; on a mesh
+(parallel/spmd.py) pure f64 runs the structured layout with f64 storage
+and solves through the kernels' f64 instantiations, as the JAX
+package's SPMD solvers run its XLA mirrors.
 
 The ported configurations are the JAX package's defaults (POWER_VARPROJ
 with the fused power term, or the composed one with
@@ -37,7 +41,7 @@ the poBA apply), PCG with its three preconditioners, and CHOLESKY (the
 dense reduced camera system up to DENSE_CHOL_MAX = 1536 cameras, the
 banded factorization of solver/band_chol.py past it, or its PCG
 fallback), at any camera count, on either layout where
-the JAX package has it, in mixed precision or pure f64 on one device;
+the JAX package has it, in mixed precision or pure f64;
 any other step-1 configuration raises
 NotImplementedError naming its ROADMAP.md item instead of running
 another path.

@@ -9,8 +9,10 @@ reshape-sums and broadcasts over the slot layout. The unstructured one
 (`Lin2`, with `pallas_kernels="off"`): explicit weighted, scaled and
 tangent-projected Jacobians (ops/pose_math.py), per-camera sums and
 gathers through the camera-table kernels of ops/cam_kernels.py, and
-per-landmark tables in canonical landmark order; pure f64 runs it too,
-as in the JAX package. This module replaces:
+per-landmark tables in canonical landmark order; pure f64 on one device
+runs it too, as in the JAX package (on a mesh pure f64 runs the
+structured layout through the kernels' f64 instantiations). This module
+replaces:
   - linearize_landmark_projective_space_homogeneous + linearize_nullspace
     (sc/landmark_block.hpp:180-269)
   - prepare_Hb_joint / solve_joint / right_mul_*_joint
@@ -32,16 +34,18 @@ Layouts as in stage1.py: per-observation rows [k, O], camera tables
 [12, N], per-landmark tables in L space [.., L]. The LM state (cameras
 [N, 3, 4], homogeneous landmarks) and the cost are f64 by default, or
 f32 (`dtype=torch.float32`); linearization storage and the inner solve
-are f32 (`solve_dtype`), or f64 on the unstructured layout in pure f64
-(`mixed_precision_solves=False` with an f64 state). Retraction after
+are f32 (`solve_dtype`), or f64 in pure f64 (`mixed_precision_solves=
+False` with an f64 state: the unstructured layout on one device, the
+structured one on a mesh). Retraction after
 each step:
 Frobenius-normalize the cameras and dehomogenize the landmarks
 (bal_bundle_adjustment.cpp:700-705).
 
 Both step-2 solvers run on both layouts, the structured one with the
 fused power term (the JAX package's default) or the composed one
-(`fused_power_term=False`), and on the unstructured one in pure f64 on
-one device; any other step-2 configuration raises
+(`fused_power_term=False`), and in pure f64 on the unstructured one on
+one device and the structured one on a mesh; any other step-2
+configuration raises
 NotImplementedError naming its ROADMAP.md item.
 """
 

@@ -886,10 +886,10 @@ def kernels(parent: Path, only=None, names=None, same_sig=False) -> None:
 def _sass_functions(lib: Path):
     """{key: SASS text} of every kernel of `lib` (cuobjdump -sass, the
     addresses and encodings dropped). The key is the mangled name without
-    its translation unit's hash; a csrc/cam.cu kernel's is its name, its
-    value type (f where an earlier cam.cu had none) and its template
-    arguments, so that an earlier tree's f32 kernels meet the package's
-    f32 instantiations."""
+    its translation unit's hash; a csrc/*.cu kernel's is its source, its
+    name, its value type (f where an earlier source had none) and its
+    other template arguments, so that an earlier tree's f32 kernels meet
+    the package's f32 instantiations."""
     from povar_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -901,10 +901,12 @@ def _sass_functions(lib: Path):
         if m:
             name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
                           m.group(1))
-            c = re.match(r"\d+(\w+?_kernel)(?:I([fd])?(.*?)EEv|E)PKi",
-                         name)
-            if c and "cam_cu" in m.group(1):
-                name = f"{c.group(1)}<{c.group(2) or 'f'}>{c.group(3) or ''}"
+            c = re.match(r"\d+(\w+?_kernel)(?:I([fd])?(.*?)EEv|E)P", name)
+            src = re.search(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_",
+                            m.group(1))
+            if c and src:
+                name = (f"{src.group(1)}: {c.group(1)}<{c.group(2) or 'f'}>"
+                        f"{c.group(3) or ''}")
             key = name
             out[key] = []
             continue

@@ -3,7 +3,7 @@ benchmarks/large_scale_smoke.py, which runs the JAX package.
 
     python -m povar_tpu_torch.tools.large_scale [SCALE ...] [--loops]
     python -m povar_tpu_torch.tools.large_scale spread [final-13682]
-        [--runs 8] [--solver CHOLESKY | --mesh]
+        [--runs 8] [--solver CHOLESKY | --mesh [--f64]]
     python -m povar_tpu_torch.tools.large_scale mesh [SCALE ...]
         [--devices 4 1] [--loops]
     python -m povar_tpu_torch.tools.large_scale ba [SCALE ...] [--runs 8]
@@ -60,6 +60,9 @@ STEP2_LAMBDA from that start has a finite increment.
 layout, parallel/spmd.py; both stage solvers built once), the slot
 kernels among the kernels swapped for their plain versions:
 chip_smoke.py's MESH_LARGE_N_TOL and MESH_FINAL_TOLS are twice its gaps.
+With `--f64` the mesh runs pure f64 (`mixed_precision_solves=False`: the
+structured layout's f64 kernels; chip_smoke.py's spmd_f64 (e) tolerance,
+F64_MESH_TOLS["venice-1778"], is twice its venice-1778 gap).
 
 `mesh` builds each scale's SPMD window plan for each of `--devices`
 (default 4, then 1) as a rank builds it (plan_stats: seconds, peak and
@@ -567,14 +570,17 @@ def recorded_costs(summary):
 
 
 def spread(runs: int, scale: str = "venice-1778",
-           solver: str = "POWER_VARPROJ", mesh: bool = False) -> list:
+           solver: str = "POWER_VARPROJ", mesh: bool = False,
+           f64: bool = False) -> list:
     """The first-iterations spread of `scale` (the module docstring):
     venice-1778's step 1 (first_iterations; its accepted costs, or with
     CHOLESKY every trial's cost over BAND_ITERS iterations), or
     final-13682's step 1 (first_steps; every trial's cost) and its
     step-2 trial (l_diff and cost); with `mesh` on a 1-device mesh's
-    stage solvers (built once). Returns the largest kernel-against-plain
-    gap of each step."""
+    stage solvers (built once), with `f64` there in pure f64
+    (`mixed_precision_solves=False`: the structured layout's f64
+    kernels). Returns the largest kernel-against-plain gap of each
+    step."""
     problem = make_problem(scale)
     steps = 1 if scale == "venice-1778" else 2
     chol = solver == "CHOLESKY"
@@ -586,7 +592,8 @@ def spread(runs: int, scale: str = "venice-1778",
     s1 = None
     if steps == 2 or mesh:
         t0 = time.perf_counter()
-        s1, s2 = stage_solvers(problem, SolverOptions(),
+        s1, s2 = stage_solvers(problem,
+                               SolverOptions(mixed_precision_solves=not f64),
                                make_mesh(1) if mesh else None)
         print(f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
     sides = {False: [], True: []}
@@ -621,7 +628,7 @@ def spread(runs: int, scale: str = "venice-1778",
         same = all(dec(s) == dec(kern[0]) for s in kern + plain)
         out.append(gap(kern, plain))
         print(json.dumps(dict(scale=scale, solver=solver, mesh=mesh,
-                              step=k + 1, spread_runs=runs,
+                              f64=f64, step=k + 1, spread_runs=runs,
                               same_decisions=same, largest_gap=out[-1],
                               within_side=dict(kernels=gap(kern, kern),
                                                plain=gap(plain, plain)))),
@@ -896,6 +903,9 @@ def main(argv=None) -> int:
                     help="spread: step 1's solver")
     ap.add_argument("--mesh", action="store_true",
                     help="spread: on a 1-device mesh")
+    ap.add_argument("--f64", action="store_true",
+                    help="spread --mesh: in pure f64 "
+                    "(mixed_precision_solves=False)")
     ap.add_argument("--devices", type=int, nargs="+", default=[4, 1],
                     help="mesh: the plan's device counts")
     a = ap.parse_args(argv)
@@ -903,6 +913,8 @@ def main(argv=None) -> int:
         ap.error("--solver applies to spread only")
     if a.mesh and (a.scales[:1] != ["spread"] or a.solver == "CHOLESKY"):
         ap.error("--mesh applies to spread with POWER_VARPROJ only")
+    if a.f64 and not a.mesh:
+        ap.error("--f64 applies to spread --mesh only")
     if not torch.cuda.is_available():
         print("large_scale: no CUDA device", file=sys.stderr)
         return 1
@@ -917,7 +929,7 @@ def main(argv=None) -> int:
                     a.solver == "CHOLESKY" and scale != "venice-1778"):
                 ap.error(f"spread takes venice-1778 or final-13682 (with "
                          f"CHOLESKY venice-1778), not {scale!r}")
-            spread(a.runs, scale, a.solver, a.mesh)
+            spread(a.runs, scale, a.solver, a.mesh, a.f64)
         return 0
     if a.scales[:1] == ["mesh"]:
         for scale in a.scales[1:] or ["venice-1778", "final-13682"]:

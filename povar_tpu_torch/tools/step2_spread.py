@@ -4,7 +4,7 @@
         [--small 0] [--witness 0] [--step2 RIPOBA] [--pcg 0] [--psc 0]
         [--psc-device cuda] [--psc-f64 0] [--varproj 0] [--psc-mesh 0]
         [--psc-ba 0]
-        [--chol 0] [--chol-f64 0] [--f64 0]
+        [--chol 0] [--chol-f64 0] [--f64 0] [--f64-mesh 0]
         [--chol-device cuda]
         [--ring 0]
         [--out build/step2_spread.json]
@@ -73,7 +73,15 @@ step-2 cost:
   chol f64      `--chol-f64` such solves in f64 through the plain
                 versions (f64_unstructured: the f32 Jacobi epsilon kept),
                 on the card or with `--chol-device cpu` on the CPU: where
-                the f32 kernels' orders of sums round away from.
+                the f32 kernels' orders of sums round away from;
+  f64 mesh      `--f64-mesh` pure-f64 step-1 solves on a 1-device mesh
+                (the structured window layout's f64 kernels) of each
+                F64_MESH_CONFIGS configuration and as many of its step-2
+                witnesses, on the card's kernels and on their plain
+                versions on the card, and as many POWER_VARPROJ solves on
+                one device (the unstructured layout): the spreads
+                chip_smoke.py's F64_MESH_TOLS were set from
+                (pure_f64_mesh_spread).
 
 Prints one line per run and writes every trajectory (accept/reject
 sequence, power terms, costs, termination) as JSON to `--out`. Needs a
@@ -255,7 +263,7 @@ def f64_structured(solver):
     solve the card runs with f32 kernels, summed by `index_add_` in f64.
     A diagnostic of which trajectory the f32 sums round away from, not a
     configuration (pure f64, `mixed_precision_solves=False`, runs the
-    unstructured layout)."""
+    unstructured layout on one device, the f64 kernels on a mesh)."""
     if solver.unstructured:
         raise ValueError("f64_structured: the structured layout only")
     solver.solve_dtype = torch.float64
@@ -714,6 +722,170 @@ def _accepted_gap(a, b):
     return same, max(gaps)
 
 
+# the mesh's pure f64 (pure_f64_mesh_spread, chip_smoke.py's spmd_f64
+# phase): per configuration its step-1 solver, the step-1 iterations it
+# runs (None: its cap) and the step-2 solvers of the witnesses run from
+# its homogenized result. The witnesses start from POWER_VARPROJ's
+# converged step 1: from PSC's 8 iterations RIPCG's witness parted by
+# 1.7e-3 between two runs of the same kernels (`--f64-mesh 4`, NVIDIA
+# H100 80GB HBM3, 700 W)
+F64_MESH_CONFIGS = {
+    "varproj": (SolverType.POWER_VARPROJ, None,
+                (SolverTypeRiemannian.RIPOBA, SolverTypeRiemannian.RIPCG)),
+    "psc": (SolverType.POWER_SCHUR_COMPLEMENT, 8, ()),
+    "pcg": (SolverType.PCG, 8, ()),
+}
+
+
+def f64_options(solver1=SolverType.POWER_VARPROJ, iters1=None,
+                solver2=SolverTypeRiemannian.RIPOBA, iters2=None):
+    """SolverOptions() in pure f64 (`mixed_precision_solves=False`) with
+    the given solvers and iteration caps (None: the default)."""
+    o = SolverOptions(mixed_precision_solves=False, solver_type_step_1=solver1,
+                      solver_type_step_2=solver2)
+    if iters1 is not None:
+        o.max_num_iterations_step_1 = iters1
+    if iters2 is not None:
+        o.max_num_iterations_step_2 = iters2
+    return o
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def f64_step1(problem, options, plain, mesh=True, device="cuda"):
+    """One pure-f64 step-1 solve of `problem` under `options` on
+    `device`, on a 1-device mesh (the structured window layout) or with
+    `mesh` False on one device (the unstructured layout), on the
+    kernels or with `plain` all their plain versions on the card (on the
+    CPU the plain versions run either way). Returns (summary, the end
+    state (cameras [N, 3, 4], canonical landmarks [M, 3]) on `device`,
+    seconds)."""
+    from povar_tpu_torch.parallel.mesh import make_mesh
+    from povar_tpu_torch.solver.pipeline import _make_solvers
+
+    s1, _s2 = _make_solvers(problem, options, torch.float64, device,
+                            make_mesh(1, device) if mesh else None)
+    cams = torch.as_tensor(problem.cam_space, device=device)
+    lms = (s1.pad_landmarks(problem.lm_p) if mesh
+           else torch.as_tensor(problem.lm_p, device=device))
+    summary = SolverSummary()
+    _sync(device)
+    t0 = time.perf_counter()
+    with (plain_step1(cams=True, step2=True, slots=True) if plain
+          else contextlib.nullcontext()):
+        cams, lms = optimize_step1(s1, cams, lms, options, summary, Timer(),
+                                   log=lambda s: None)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    if mesh:
+        lms = torch.as_tensor(s1.unpad_landmarks(s1.lm_unpack(lms)),
+                              device=device)
+    return summary, (cams, lms), secs
+
+
+def f64_mesh_witness(problem, cams_h, lms_h, options, plain):
+    """The pure-f64 step-2 witness on a 1-device mesh on the state's
+    device: WITNESS_ITERS iterations of `options`' step-2 solver on the
+    calm landmarks of the homogenized state (cams_h, lms_h canonical)
+    (calm_subproblem), on the kernels or with `plain` their plain
+    versions. Returns (summary, the sub-problem's landmark count,
+    seconds)."""
+    from povar_tpu_torch.parallel import spmd
+    from povar_tpu_torch.parallel.mesh import make_mesh
+
+    args, lms_w = calm_subproblem(problem, cams_h, lms_h)
+    o = copy.deepcopy(options)
+    o.max_num_iterations_step_2 = WITNESS_ITERS
+    plan = spmd.build_spmd_plan(args[0], args[1], args[3], args[4], 1,
+                                spmd.PART_ALIGN)
+    s2 = spmd.SpmdStage2Solver(plan, args[2], args[3], args[4], o,
+                               make_mesh(1, cams_h.device.type))
+    summary = SolverSummary()
+    _sync(cams_h.device)
+    t0 = time.perf_counter()
+    with (plain_step1(cams=True, step2=True, slots=True) if plain
+          else contextlib.nullcontext()):
+        optimize_step2(s2, cams_h, s2.pad_landmarks(lms_w.cpu().numpy()), o,
+                       summary, Timer(), log=lambda s: None)
+    _sync(cams_h.device)
+    return summary, args[4], time.perf_counter() - t0
+
+
+def _spread_gaps(trajs):
+    """{pairing: (same decisions and counts in every pair, the largest
+    accepted-cost gap)} of trajectories {side: [trajectory, ...]} (sides
+    False: the kernels, True: the plain versions)."""
+    pairs = {"kernels vs plain": [(a, b) for a in trajs[False]
+                                  for b in trajs[True]],
+             "kernels vs kernels": [(a, b) for i, a in enumerate(trajs[False])
+                                    for b in trajs[False][i + 1:]],
+             "plain vs plain": [(a, b) for i, a in enumerate(trajs[True])
+                                for b in trajs[True][i + 1:]]}
+    out = {}
+    for label, ps in pairs.items():
+        res = [_accepted_gap(a, b) for a, b in ps]
+        out[label] = (all(sm for sm, _g in res),
+                      max((g for _s, g in res), default=0.0))
+    return out
+
+
+def pure_f64_mesh_spread(problem, runs):
+    """`runs` venice-89 pure-f64 step-1 solves of each F64_MESH_CONFIGS
+    configuration on a 1-device mesh on the card's kernels and as many
+    on their plain versions (f64_step1), in turns, then as many step-2
+    witnesses of its step-2 solver each way from the first kernel
+    solve's homogenized result (f64_mesh_witness), and `runs`
+    POWER_VARPROJ solves on one device (the unstructured layout): per
+    run set whether all took the same decisions and inner counts and
+    the largest accepted-cost gap between a kernel and a plain run and
+    within each side, and between the mesh's and the one device's
+    kernel runs (chip_smoke.py's F64_MESH_TOLS are twice the largest)."""
+    if not runs:
+        return {}
+    out = {}
+    for tag, (solver1, iters1, witnesses) in F64_MESH_CONFIGS.items():
+        opts = f64_options(solver1, iters1)
+        sets = {f"{tag} step 1": {False: [], True: []}}
+        state = None
+        for k in range(runs):
+            for plain in (False, True):
+                s, end, secs = f64_step1(problem, opts, plain)
+                _record(f"f64 mesh {tag} {'plain' if plain else 'kernels'} "
+                        f"{k}", s, secs)
+                sets[f"{tag} step 1"][plain].append(trajectory(s))
+                if state is None:
+                    state = create_homogeneous(*end)
+        for solver2 in witnesses:
+            name = f"{tag} {solver2.value} witness"
+            sets[name] = {False: [], True: []}
+            wopts = f64_options(solver1, iters1, solver2)
+            for k in range(runs):
+                for plain in (False, True):
+                    s, m, secs = f64_mesh_witness(problem, *state, wopts,
+                                                  plain)
+                    _record(f"f64 mesh {name} ({m} landmarks) "
+                            f"{'plain' if plain else 'kernels'} {k}", s, secs)
+                    sets[name][plain].append(trajectory(s))
+        if tag == "varproj":
+            one = []
+            for k in range(runs):
+                s, _end, secs = f64_step1(problem, opts, False, mesh=False)
+                _record(f"f64 one device varproj kernels {k}", s, secs)
+                one.append(trajectory(s))
+            sets["varproj mesh vs one device"] = {
+                False: sets["varproj step 1"][False], True: one}
+        for name, trajs in sets.items():
+            gaps = _spread_gaps(trajs)
+            print(f"f64 mesh {name}: {runs} + {runs} runs; "
+                  + ", ".join(f"{k} same {sm} largest gap {g:.3e}"
+                              for k, (sm, g) in gaps.items()), flush=True)
+            out[name] = dict(gaps=gaps, runs=trajs)
+    return out
+
+
 def pure_f64_spread(problem, runs):
     """`runs` venice-89 pure-f64 step-1 solves (`mixed_precision_solves=
     False`) with POWER_VARPROJ and with CHOLESKY on the card's kernels,
@@ -831,6 +1003,11 @@ def main() -> None:
                     help="pure-f64 POWER_VARPROJ and CHOLESKY step-1 solves "
                     "and RIPOBA step-2 witnesses on the card's kernels and "
                     "as many on their plain versions (pure_f64_spread)")
+    ap.add_argument("--f64-mesh", type=int, default=0,
+                    help="pure-f64 step-1 solves and step-2 witnesses of "
+                    "F64_MESH_CONFIGS on a 1-device mesh on the card's "
+                    "kernels and as many on their plain versions "
+                    "(pure_f64_mesh_spread)")
     ap.add_argument("--out", default="build/step2_spread.json")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -860,7 +1037,8 @@ def main() -> None:
                                      mesh=True),
                psc_ba=psc_pipeline(problem, a.psc_ba),
                ring=ring_gaps(a.ring),
-               f64=pure_f64_spread(problem, a.f64))
+               f64=pure_f64_spread(problem, a.f64),
+               f64_mesh=pure_f64_mesh_spread(problem, a.f64_mesh))
     popts = SolverOptions(solver_type_step_1=SolverType.PCG,
                           device_lm_loop="off")
     sp = Stage1Solver(*args, popts, device="cuda") if a.pcg else None

@@ -39,7 +39,7 @@ def _no_launches():
     launches.reset_launch_counts()
     yield
     counts = launches.launch_counts()
-    assert len(counts) == 34 and not any(counts.values()), counts
+    assert len(counts) == 52 and not any(counts.values()), counts
 
 
 def _inputs(n, rows, seed):

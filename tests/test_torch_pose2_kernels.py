@@ -138,7 +138,7 @@ def _no_launches():
     launches.reset_launch_counts()
     yield
     counts = launches.launch_counts()
-    assert set(counts) == set(launches.KERNELS) and len(counts) == 34
+    assert set(counts) == set(launches.KERNELS) and len(counts) == 52
     assert all(v == 0 for v in counts.values()), counts
 
 

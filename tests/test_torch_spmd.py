@@ -350,14 +350,13 @@ def test_collectives_are_camera_sized_past_1024_cameras():
     (dict(pallas_kernels="off"), "item 13"),
     (dict(solver_type_step_1=SolverType.CHOLESKY), "item 13"),
     (dict(detailed_timing=True), "item 13"),
-    (dict(mixed_precision_solves=False), "item 11"),
     (dict(dtype=torch.float32), "item 13"),
 ])
 def test_mesh_refuses_unported_configurations(change, item):
     """What the JAX package runs on its GSPMD fallback (the unstructured
-    layout, CHOLESKY, an f32 state, detailed_timing) and the mesh's pure
-    f64 raise NotImplementedError on a mesh, naming their ROADMAP.md
-    item, before any solve."""
+    layout, CHOLESKY, an f32 state, detailed_timing) raises
+    NotImplementedError on a mesh, naming its ROADMAP.md item, before any
+    solve (the mesh's pure f64 runs: tests/test_torch_spmd_f64.py)."""
     change = dict(change)
     dtype = change.pop("dtype", torch.float64)
     problem, _ = synthetic_bal_problem(n_cams=6, n_lms=30, obs_per_lm=4,
