@@ -58,10 +58,12 @@ prints no result line):
               the well-conditioned rows alone (|1/p2| at most CALM of
               tools/step2_spread.py times the median), pose_error2
               under NONE, HUBER and CAUCHY, and two of its calls bit for
-              bit; hppb2, e0_term2_parts, schur_diag2 and scatter2 also
-              on the camera-sorted lane orders (the 1-device mesh solver's
-              step-2 operands; each part's landmarks sorted by first
-              camera) and on seeded cameras at N = 1024 (schur_diag2's
+              bit; prepare2, hppb2, e0_term2_parts, schur_diag2 and
+              scatter2 also on the camera-sorted lane orders (the
+              1-device mesh solver's step-2 operands; each part's
+              landmarks sorted by first camera; the fused term) and
+              hppb2, e0_term2_parts, schur_diag2 and scatter2 on seeded
+              cameras at N = 1024 (schur_diag2's
               global route; hppb2 also at N = 2048, its global route),
               schur_diag2's corrections symmetric bit for bit;
 6. E0         the fused E0 operator of each step against the composed
@@ -1528,12 +1530,13 @@ def check_kernels2(solver2, cams_h, lms_h, seed=1, loop=False):
 
 
 def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
-    """hppb2, e0_term2_parts, schur_diag2 and scatter2 beside their
-    venice-89 rows, each against its plain version and timed, on lines of
-    their own: (b) the camera-sorted lane orders, hppb2, schur_diag2 and
-    scatter2 on the 1-device mesh solver's own step-2 operands (the SPMD
-    window order; its landmark solve's Hll^-1 bl at lambda 1e-4; mat6 and
-    sb seeded) and the fused term on
+    """prepare2, hppb2, e0_term2_parts, schur_diag2 and scatter2 beside
+    their venice-89 rows, each against its plain version and timed, on
+    lines of their own: (b) the camera-sorted lane orders, prepare2,
+    hppb2, schur_diag2 and scatter2 on the 1-device mesh solver's own
+    step-2 operands (the SPMD window order; prepare2 on its linearization's
+    camera table and landmarks; its landmark solve's Hll^-1 bl at lambda
+    1e-4; mat6 and sb seeded) and the fused term on
     the venice-89 operands with each part's landmarks sorted by the camera
     of their first slot row (the order the window plan packs them in, the
     same parts); (c) seeded cameras on the venice-89 rows, N = 1024 for
@@ -1602,6 +1605,13 @@ def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
                 [x["sw"]] + [x[k] for k in keys if k != "sw"], [CAM],
                 int((x["sw"] > 0).sum()))
 
+    def prep2(s, lin, label):
+        args = (s.obs.cam, lin.ct, lin.x4, s._uv_s, s._mask1)
+        return ("prepare2", label,
+                lambda m: m.prepare2(*args, use_valid=s.use_valid_only,
+                                     robust=0, huber=1.0),
+                list(args), [ELEM] * 5 + [CAM], None)
+
     def e0(x, label):
         args = [x[k] for k in ("cam", "x4", "mm", "sw", "mat6", "zt")]
         covered = sum(g * w for _ofs, g, w in parts)
@@ -1611,7 +1621,8 @@ def check_kernels2_orders(problem, solver2, cams_h, lms_h, seed=4):
                 [CAM],
                 (covered, int((x["sw"] > 0).sum())))
 
-    run_cases(pk2, pr2, [hppb2(mesh, "(b) mesh window order"),
+    run_cases(pk2, pr2, [prep2(mesh_s, mesh_lin, "(b) mesh window order"),
+                         hppb2(mesh, "(b) mesh window order"),
                          schur2(mesh, "(b) mesh window order"),
                          scatter2(mesh, "(b) mesh window order")],
               int(mesh["cam"].shape[0]), time_variants=True)

@@ -29,7 +29,8 @@
 // division in the cost (the H100 has native f64).
 //
 // What bounds them on the card, per observation (O = 557,056 at
-// venice-89): S1 reads 40 B and writes 64 B, plus 12 shared atomics;
+// venice-89): S1 reads 40 B and writes 64 B and adds 8 values per live
+// row through warp_scatter into per-warp accumulators;
 // S2 reads 80 B and does 52 shared atomics (its per-camera moments); S3
 // reads 60 B (68 with r_w) and writes 12 B; S4 reads 72 B and adds its
 // 12 values through warp_scatter into per-warp accumulators; S5 reads
@@ -113,87 +114,197 @@ __device__ __forceinline__ void jp_of_zt(const V* tbl, int n, int c,
 // [8, O] (r*4+c), their column norms^2 jlsq [4, O], and the per-camera
 // Jp column norms^2 jpsq[4a+c] = sum w/p2^2 K3diag_a x4_c^2 with
 // K3diag = [1, 1, mx^2 + my^2]. A dead row (mask 0, or projection-
-// invalid under use_valid) gets weight 0.
+// invalid under use_valid) gets weight 0 and adds nothing.
+// Rows 0-3 and 4-7 of jpsq are the same sums, so a live row adds 8
+// values per camera (wz2 x4_c^2 and wz2 kd2 x4_c^2, wz2 = w/p2^2,
+// kd2 = mx^2 + my^2) the way the composed scatters add theirs
+// (pose_common.cuh scatter_pass): the lanes of a warp on one camera sum
+// first (a reduce-scatter tree where the warp's live lanes all sit on one
+// camera, as on the mesh's window order; a walk over the peers
+// otherwise), into the route sums_plan picks by the bytes of V:
+// kPrep2Warps per-warp private copies of [8, N] with plain adds in
+// 512-thread blocks (N up to 453 in f32, 226 in f64), else one shared
+// copy in 1024-thread blocks (512 in f64) with shared atomics (up to
+// N = 7,260 / 3,630), else f64 global atomics. The blocks' sums meet in
+// f64 in `acc_g` [8 N + 1] doubles (the sums, then a ticket), zero on
+// entry; the last block writes jpsq [12, N] in V from them, rows 4-7 the
+// same values as rows 0-3, and leaves acc_g zeroed, so a call is one
+// device operation. The camera table is read in place through __ldg, and the
+// next row's operands are loaded ahead.
 // Replaces pallas_pose2.py:157 prepare2. Bound: 104 B of device memory
-// per observation (40 read, 64 written), plus 12 shared atomics. Routes
-// (by bytes against a block's shared memory): the camera table staged
-// beside the [12, N] accumulator (up to N = 2,421); the table read in
-// place (stage_table) beside it (up to N = 4,842); past that, the table
-// in place and every add a global f32 atomic into jpsq, zeroed by the
-// caller (kSharedAcc false). The middle route against the global one on
-// ~2^20 slot rows: 162.8 against 221.5 us at N = 3000, 237.4 against
-// 219.0 at N = 4500 (tools/route_ab.py; NVIDIA H100 80GB HBM3, 700 W).
-// In f64 the staged route reaches N = 1,210, the middle one N = 2,421.
-template <typename V, bool kStaged, bool kSharedAcc>
-__global__ void __launch_bounds__(kThreads)
+// per observation (40 read, 64 written; 17.3 us at venice-89). Here 28.1
+// us there (26.5 without the sums), 30.7 on the mesh's window order (the
+// walk alone 37.2), 52.6 in f64 on the mesh's operands, 42.4 at
+// N = 1024 and 229.0 at N = 13,682 on ~2^20 rows (126.0 without the
+// sums), where the earlier version's 12 per-lane shared atomics per live
+// row (each a compare-and-swap loop on this card) into one [12, N]
+// accumulator a 256-thread block took 32.8, 91.8, 133.3, 66.1 and 237.7.
+// Three 512-thread blocks an SM (40 registers) spill and took 63.4 us at
+// venice-89; as many shared copies as fit (seven at N = 1024) took 88.5
+// there: they fill the SM's shared memory, which the table's reads
+// through L1 need; without the loads ahead 29.1 at venice-89 (tools/
+// pose2_ab.py and PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kJp2Rows = 8;
+constexpr int kPrep2Warps = 16;             // private copies a block
+constexpr int kPrep2SharedThreads = 1024;   // shared and global, f32
+constexpr int kPrep2SharedCopies = 1;       // shared copies a block
+constexpr int kPrep2SmThreads = 1024;       // resident per SM: the registers
+constexpr bool kPrep2Prefetch = true;       // the next row's operands
+// static shared memory of the kernel (last_block's flag), rounded up
+constexpr size_t kPrep2StaticSmem = 128;
+
+// threads a block on route r, for values of type V: the f64 shared and
+// global routes take half as many, so that a thread may hold 128
+// registers (at 64 they spill: 182 against 98 us at N = 300, 315 against
+// 237 at N = 5000, tools/route_ab.py)
+template <typename V>
+__host__ __device__ constexpr int prep2_threads(Route r) {
+  return r == Route::kPrivate ? 32 * kPrep2Warps
+                              : kPrep2SharedThreads / (sizeof(V) / 4);
+}
+
+// a row's operands but its camera's table column (zero past O)
+template <typename V>
+struct Prep2Row {
+  V u, v, x4[4];
+  float m;
+  int c;
+};
+
+template <typename V, Route R>
+__global__ void __launch_bounds__(
+    prep2_threads<V>(R),
+    sizeof(V) == sizeof(float) ? kPrep2SmThreads / prep2_threads<V>(R) : 1)
     prepare2_kernel(const int32_t* __restrict__ cam, const V* __restrict__ ct,
                     const V* __restrict__ x4_in, const V* __restrict__ uv,
                     const float* __restrict__ mask, V* __restrict__ rw,
                     V* __restrict__ sw_out, V* __restrict__ mm,
                     V* __restrict__ jlw, V* __restrict__ jlsq,
-                    V* __restrict__ jpsq, int n_obs, int n_cams,
-                    int use_valid, int huber_on, V huber, V huber2) {
+                    V* __restrict__ jpsq, double* __restrict__ acc_g,
+                    int n_obs, int n_cams, int use_valid, int huber_on,
+                    V huber, V huber2, int copies) {
+  constexpr bool kPrivate = R == Route::kPrivate;
+  const int n_acc = kJp2Rows * n_cams;
   V* smem = dyn_smem<V>();
-  V* acc = kSharedAcc ? smem + (kStaged ? 12 * n_cams : 0) : jpsq;
-  if (kSharedAcc) povar::smem_zero(acc, 12 * n_cams);
-  const V* tbl = povar::stage_table<kStaged>(smem, ct, 12 * n_cams);
-  __syncthreads();
+  V* acc = povar::warp_copy<R>(smem, copies, n_acc);
   const long O = n_obs;
-  POVAR_OBS_LOOP(o, O) {
-    const int c = cam[o];
-    const V u = uv[o], v = uv[O + o];
-    const V x4[4] = {x4_in[o], x4_in[O + o], x4_in[2 * O + o],
-                     x4_in[3 * O + o]};
-    V p[3];
-    project(tbl, n_cams, c, x4, p);
-    const V eps = eps_sqrt<V>(), tn = tiny<V>();
-    const bool valid = fabs(p[2]) >= eps;
-    const V den = fabs(p[2]) < tn ? (p[2] < V(0) ? -tn : tn) : p[2];
-    const V zinv = V(1) / den;
-    const V mx = p[0] * zinv, my = p[1] * zinv;
-    const V r0 = mx - u, r1 = my - v;
-    const bool live = mask[o] > 0.0f && (!use_valid || valid);
-    const V livef = live ? V(1) : V(0);
-    const V res_sq = r0 * r0 + r1 * r1;
-    V w = V(1);
-    if (huber_on && !(res_sq < huber2)) {
-      // max(res_sq, 1e-30) that keeps a NaN a NaN, as jnp.maximum does
-      const V floor = huber_floor<V>();
-      w = huber / sqrt(res_sq < floor ? floor : res_sq);
+  const int lane = threadIdx.x & 31;
+  const long stride = (long)gridDim.x * blockDim.x;
+  auto load = [&](long o) {
+    Prep2Row<V> r;
+    const bool in = o < O;
+    r.c = in ? cam[o] : 0;
+    r.u = in ? uv[o] : V(0);
+    r.v = in ? uv[O + o] : V(0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r.x4[k] = in ? x4_in[k * O + o] : V(0);
+    r.m = in ? mask[o] : 0.0f;
+    return r;
+  };
+  // warp-uniform trips: every lane reaches the warp's sums
+  long base = (long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  Prep2Row<V> next;
+  if (kPrep2Prefetch) next = load(base + lane);
+  for (; base < O; base += stride) {
+    Prep2Row<V> row;
+    if (kPrep2Prefetch) {
+      row = next;
+      next = load(base + stride + lane);
+    } else {
+      row = load(base + lane);
     }
-    w = w * livef;
-    const V s = sqrt(w);
-    rw[o] = r0 * s;
-    rw[O + o] = r1 * s;
-    sw_out[o] = s;
-    mm[o] = mx * livef;
-    mm[O + o] = my * livef;
-    mm[2 * O + o] = zinv * livef;
-    const V sz = s * zinv;
+    const long o = base + lane;
+    V val[kJp2Rows];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const V j0 = sz * (tbl[k * n_cams + c] - mx * tbl[(8 + k) * n_cams + c]);
-      const V j1 =
-          sz * (tbl[(4 + k) * n_cams + c] - my * tbl[(8 + k) * n_cams + c]);
-      jlw[k * O + o] = j0;
-      jlw[(4 + k) * O + o] = j1;
-      jlsq[k * O + o] = j0 * j0 + j1 * j1;
-    }
-    if (w != V(0)) {
-      const V wz2 = w * zinv * zinv;
-      const V kd2 = mx * mx + my * my;
+    for (int k = 0; k < kJp2Rows; ++k) val[k] = V(0);
+    const int c = row.c;
+    bool live = false;
+    if (o < O) {
+      V P[12];
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const V wk = a == 2 ? wz2 * kd2 : wz2;
+      for (int k = 0; k < 12; ++k) P[k] = __ldg(ct + k * n_cams + c);
+      const V u = row.u, v = row.v;
+      const V(&x4)[4] = row.x4;
+      V p[3];
+      project(P, 1, 0, x4, p);
+      const V eps = eps_sqrt<V>(), tn = tiny<V>();
+      const bool valid = fabs(p[2]) >= eps;
+      const V den = fabs(p[2]) < tn ? (p[2] < V(0) ? -tn : tn) : p[2];
+      const V zinv = V(1) / den;
+      const V mx = p[0] * zinv, my = p[1] * zinv;
+      const V r0 = mx - u, r1 = my - v;
+      const bool unmasked = row.m > 0.0f && (!use_valid || valid);
+      const V livef = unmasked ? V(1) : V(0);
+      const V res_sq = r0 * r0 + r1 * r1;
+      V w = V(1);
+      if (huber_on && !(res_sq < huber2)) {
+        // max(res_sq, 1e-30) that keeps a NaN a NaN, as jnp.maximum does
+        const V floor = huber_floor<V>();
+        w = huber / sqrt(res_sq < floor ? floor : res_sq);
+      }
+      w = w * livef;
+      const V s = sqrt(w);
+      rw[o] = r0 * s;
+      rw[O + o] = r1 * s;
+      sw_out[o] = s;
+      mm[o] = mx * livef;
+      mm[O + o] = my * livef;
+      mm[2 * O + o] = zinv * livef;
+      const V sz = s * zinv;
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          atomicAdd(&acc[(4 * a + k) * n_cams + c], wk * x4[k] * x4[k]);
+      for (int k = 0; k < 4; ++k) {
+        const V j0 = sz * (P[k] - mx * P[8 + k]);
+        const V j1 = sz * (P[4 + k] - my * P[8 + k]);
+        jlw[k * O + o] = j0;
+        jlw[(4 + k) * O + o] = j1;
+        jlsq[k * O + o] = j0 * j0 + j1 * j1;
+      }
+      live = w != V(0);
+      if (live) {
+        const V wz2 = w * zinv * zinv;
+        const V wk[2] = {wz2, wz2 * (mx * mx + my * my)};
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) val[4 * t + k] = wk[t] * x4[k] * x4[k];
       }
     }
+    if (!__any_sync(povar::kFullMask, live)) continue;
+    const povar::WarpPeers peers = povar::warp_peers(c, live);
+    const unsigned leads = __ballot_sync(povar::kFullMask, peers.lead);
+    if (__popc(leads) == 1 &&
+        __popc(__ballot_sync(povar::kFullMask, live)) >= 4) {
+      // every live lane on one camera: lanes 0-3 add two sums each
+      V sum[2];
+      povar::warp_reduce_scatter16(val, sum);
+      const int cu = __shfl_sync(povar::kFullMask, c, __ffs(leads) - 1);
+      if (kPrivate) __syncwarp();  // after the last walk's adds
+      if (lane < kJp2Rows / 2) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int k = 2 * lane + j;
+          if (R == Route::kGlobal)
+            atomicAdd(acc_g + k * n_cams + cu, (double)sum[j]);
+          else if (R == Route::kShared)
+            atomicAdd(acc + k * n_cams + cu, sum[j]);
+          else
+            acc[k * n_cams + cu] += sum[j];
+        }
+      }
+    } else {
+      povar::add_rows<kJp2Rows, R, double>(acc, acc_g, 0, n_cams, c, peers,
+                                           val);
+    }
   }
-  if (!kSharedAcc) return;
-  __syncthreads();
-  povar::flush_acc(jpsq, acc, 12 * n_cams);
+  if (!povar::block_sums_done<R, double, 32>(acc_g, smem, copies, n_acc,
+                                             n_acc))
+    return;
+  // acc row k < 4: jpsq rows k and 4 + k; acc row 4 + k: jpsq row 8 + k
+  povar::drain_sums<double>(acc_g, n_acc, [&](int i, double s) {
+    const V x = (V)s;
+    jpsq[i + (i < 4 * n_cams ? 0 : 4 * n_cams)] = x;
+    if (i < 4 * n_cams) jpsq[i + 4 * n_cams] = x;
+  });
 }
 
 // ------------------------------------------------------------------ S2
@@ -788,20 +899,25 @@ __global__ void __launch_bounds__(kThreads)
 template <typename V>
 int prepare2_launch(const int32_t* cam, const V* ct, const V* x4, const V* uv,
                     const float* mask, V* rw, V* sw, V* mm, V* jlw, V* jlsq,
-                    V* jpsq, int n_obs, int n_cams, int use_valid,
-                    int huber_on, V huber, V huber2, void* stream) {
-  // jpsq is zeroed by the caller
-  const size_t table = sizeof(V) * 12 * (size_t)n_cams;
-  const size_t room = (size_t)max_optin_smem();
-  const auto kernel = 2 * table <= room ? prepare2_kernel<V, true, true>
-                      : table <= room   ? prepare2_kernel<V, false, true>
-                                        : prepare2_kernel<V, false, false>;
-  const size_t smem = 2 * table <= room ? 2 * table
-                      : table <= room   ? table
-                                        : 0;
-  return launch(kernel, n_obs, smem, stream, cam, ct, x4, uv, mask, rw, sw,
-                mm, jlw, jlsq, jpsq, n_obs, n_cams, use_valid, huber_on, huber,
-                huber2);
+                    V* jpsq, double* acc, int n_obs, int n_cams,
+                    int use_valid, int huber_on, V huber, V huber2,
+                    void* stream) {
+  if (n_obs <= 0 || n_cams <= 0) return (int)cudaErrorInvalidValue;
+  povar::SumsPlan plan =
+      povar::sums_plan(kJp2Rows, n_cams, kPrep2Warps, kPrep2Warps,
+                       prep2_threads<V>(Route::kShared), kPrep2StaticSmem,
+                       sizeof(V));
+  if (plan.route == Route::kShared) {
+    // fewer copies than fit: the table's reads through L1 keep the rest
+    const int copies = std::min(plan.copies, kPrep2SharedCopies);
+    plan.smem = plan.smem / plan.copies * copies;
+    plan.copies = copies;
+  }
+  return povar::launch_sums(
+      plan, prepare2_kernel<V, Route::kPrivate>,
+      prepare2_kernel<V, Route::kShared>, prepare2_kernel<V, Route::kGlobal>,
+      n_obs, stream, cam, ct, x4, uv, mask, rw, sw, mm, jlw, jlsq, jpsq, acc,
+      n_obs, n_cams, use_valid, huber_on, huber, huber2);
 }
 
 template <typename V>
@@ -843,24 +959,26 @@ int schur_diag2_launch(const int32_t* cam, const V* x4, const V* mm,
 
 extern "C" {
 
+// jpsq: [12, n_cams]; acc: 8 n_cams + 1 doubles, zero (every call leaves
+// them zero)
 int povar_prepare2(const int32_t* cam, const float* ct, const float* x4,
                    const float* uv, const float* mask, float* rw, float* sw,
-                   float* mm, float* jlw, float* jlsq, float* jpsq, int n_obs,
-                   int n_cams, int use_valid, int huber_on, float huber,
-                   float huber2, void* stream) {
+                   float* mm, float* jlw, float* jlsq, float* jpsq,
+                   double* acc, int n_obs, int n_cams, int use_valid,
+                   int huber_on, float huber, float huber2, void* stream) {
   return prepare2_launch<float>(cam, ct, x4, uv, mask, rw, sw, mm, jlw, jlsq,
-                                jpsq, n_obs, n_cams, use_valid, huber_on,
+                                jpsq, acc, n_obs, n_cams, use_valid, huber_on,
                                 huber, huber2, stream);
 }
 
 int povar_prepare2_f64(const int32_t* cam, const double* ct,
                        const double* x4, const double* uv, const float* mask,
                        double* rw, double* sw, double* mm, double* jlw,
-                       double* jlsq, double* jpsq, int n_obs, int n_cams,
-                       int use_valid, int huber_on, double huber,
+                       double* jlsq, double* jpsq, double* acc, int n_obs,
+                       int n_cams, int use_valid, int huber_on, double huber,
                        double huber2, void* stream) {
   return prepare2_launch<double>(cam, ct, x4, uv, mask, rw, sw, mm, jlw, jlsq,
-                                 jpsq, n_obs, n_cams, use_valid, huber_on,
+                                 jpsq, acc, n_obs, n_cams, use_valid, huber_on,
                                  huber, huber2, stream);
 }
 

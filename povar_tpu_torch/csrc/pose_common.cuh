@@ -10,8 +10,8 @@
 // in f32 at N = 13,682): staging a table in shared memory once per block
 // (the earlier version) was within noise at N = 89 and 1.02-2.2x slower
 // at N = 1,024 (tools/route_ab.py).
-// The fused terms and prepare2, whose tables share a block with a per-
-// camera accumulator, stage theirs where both fit (stage_table).
+// The fused terms, whose tables share a block with a per-camera
+// accumulator, stage theirs where both fit (stage_table).
 // Per-camera sums go into shared-memory accumulators (through
 // warp_scatter in the moment and Schur-Jacobi kernels and the fused
 // terms) and leave the block as one global atomicAdd per non-zero entry;

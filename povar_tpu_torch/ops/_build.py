@@ -65,7 +65,7 @@ SIGNATURES = {
     "povar_schur_diag": [_P] * 6 + [_I, _I, _P],
     "povar_e0_term2": [_P] * 8 + [_I] * 5 + [_P],
     "povar_schur_diag2": [_P] * 8 + [_I, _I, _P],
-    "povar_prepare2": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _P],
+    "povar_prepare2": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P],
     "povar_hppb2": [_P] * 10 + [_I, _I, _P],
     "povar_mat_dot2": [_P] * 8 + [_I, _I, _I, _P],
     "povar_scatter2": [_P] * 8 + [_I, _I, _P],
@@ -84,7 +84,7 @@ SIGNATURES = {
     "povar_poba_t3_f64": [_P] * 9 + [_I, _I, _D, _D, _P],
     "povar_apply_ldiff_stored_f64": [_P] * 10 + [_I, _I, _D, _D, _P],
     "povar_schur_diag_f64": [_P] * 6 + [_I, _I, _P],
-    "povar_prepare2_f64": [_P] * 11 + [_I, _I, _I, _I, _D, _D, _P],
+    "povar_prepare2_f64": [_P] * 12 + [_I, _I, _I, _I, _D, _D, _P],
     "povar_hppb2_f64": [_P] * 10 + [_I, _I, _P],
     "povar_mat_dot2_f64": [_P] * 8 + [_I, _I, _I, _P],
     "povar_scatter2_f64": [_P] * 8 + [_I, _I, _P],

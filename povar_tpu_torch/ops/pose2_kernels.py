@@ -108,13 +108,16 @@ def prepare2(cam, cam_table, x4, uv, mask, *, use_valid, robust, huber):
         ("cam_table", cam_table), ("x4", x4), ("uv", uv),
     ), f32=(("mask", mask),))
     rw, sw, mm = _out(2, o, x4), _out(1, o, x4), _out(3, o, x4)
-    jlw, jlsq = _out(8, o, x4), _out(4, o, x4)
-    jpsq = _out(12, n, x4, zero=True)
+    jlw, jlsq, jpsq = _out(8, o, x4), _out(4, o, x4), _out(12, n, x4)
+    stream = _stream(x4)
+    # the blocks' f64 sums (8 rows of jpsq's 12) and their ticket, which
+    # the kernel leaves zeroed: a call is one device operation
     _launch(label, fn,
             _ptr(cam), _ptr(cam_table), _ptr(x4), _ptr(uv), _ptr(mask),
             _ptr(rw), _ptr(sw), _ptr(mm), _ptr(jlw), _ptr(jlsq), _ptr(jpsq),
+            _ptr(_sums_scratch(x4.device, stream.value, 8 * n + 1)),
             o, n, int(bool(use_valid)), int(robust == ROBUST_HUBER),
-            float(huber), _huber2(huber, dt), _stream(x4), counts=LAUNCHES)
+            float(huber), _huber2(huber, dt), stream, counts=LAUNCHES)
     return rw, sw, mm, jlw, jlsq, jpsq
 
 

@@ -125,14 +125,19 @@ def prepare2(cam, cam_table, x4_a, uv, mask, *, use_valid, robust, huber):
         j1s.append(j1)
         jlsq.append(j0 * j0 + j1 * j1)
 
+    # diag K = [1, 1, kd2]: rows 4-7 of jpsq are its rows 0-3, so 8 of
+    # its 12 per-camera sums are distinct. On the card they are summed in
+    # f64 and rounded once, as the kernel's block sums are: there an f32
+    # index_add_ adds by atomics in a run-dependent order and loses the
+    # low bits of each add to the camera's running sum. On the CPU they
+    # stay f32 sums in row order, as the JAX package's.
     wz2 = w * zinv * zinv
-    kd = [None, None, mx * mx + my * my]
-    rows = []
-    for a in range(3):
-        for c in range(4):
-            wk = wz2 if kd[a] is None else wz2 * kd[a]
-            rows.append(wk * x4[c] * x4[c])
-    jpsq = _scatter(torch.stack(rows), cam, cam_table.shape[-1])
+    rows = [wk * x4[c] * x4[c]
+            for wk in (wz2, wz2 * (mx * mx + my * my)) for c in range(4)]
+    acc = torch.float64 if x4_a.is_cuda else dt
+    jp8 = _scatter(torch.stack(rows).to(acc), cam,
+                   cam_table.shape[-1]).to(dt)
+    jpsq = torch.cat([jp8[:4], jp8])
     return (r_w, sw.reshape(1, -1), mm, torch.stack(j0s + j1s),
             torch.stack(jlsq), jpsq)
 

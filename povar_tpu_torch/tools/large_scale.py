@@ -10,6 +10,7 @@ benchmarks/large_scale_smoke.py, which runs the JAX package.
     python -m povar_tpu_torch.tools.large_scale starts [--runs 8]
     python -m povar_tpu_torch.tools.large_scale band [SCALE ...]
     python -m povar_tpu_torch.tools.large_scale band-spread [--runs 8]
+    python -m povar_tpu_torch.tools.large_scale jpsq [SCALE ...]
 
 Scales (large_scale_smoke.py's SCALES: cameras, landmarks, observations
 per landmark, camera locality):
@@ -98,6 +99,14 @@ the largest relative gap of the increments; then the residual of the
 banded increment of `--runs` fresh linearizations of venice-1778 and of
 final-13682 (mixed precision): chip_smoke.py's BAND_DENSE_TOLS and
 BAND_RESIDUAL_TOLS are twice those.
+
+`jpsq` takes step 2's first linearization at each scale (default
+final-13682; from the homogenized VarProj initialization, as
+first_steps) and holds prepare2's per-camera sums jpsq three ways
+against the f64 sums of the same f32 rows: the kernel's, the plain
+version's (f64 sums, rounded once) and an f32 `index_add_` of the rows
+(jpsq_error): each one's largest and median relative error over the
+cameras' 8 distinct sums, and the rows a camera.
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -636,6 +645,46 @@ def spread(runs: int, scale: str = "venice-1778",
     return out
 
 
+def jpsq_error(scale: str = "final-13682") -> dict:
+    """prepare2's jpsq at step 2's first linearization of `scale` (the
+    module docstring's `jpsq`): the kernel's, the plain version's and an
+    f32 index_add_'s, each against the f64 sums of the same rows."""
+    from povar_tpu_torch.ops import pose2_kernels, pose2_ref
+
+    problem = make_problem(scale)
+    s1, s2 = stage_solvers(problem, SolverOptions())
+    cams = torch.as_tensor(problem.cam_space, device="cuda")
+    c2, l2 = create_homogeneous(cams, s1.initialize_varproj(cams))
+    calls, rows = [], []
+    kernel, scatter = pose2_kernels.prepare2, pose2_ref._scatter
+    pose2_kernels.prepare2 = lambda *a, **kw: calls.append((a, kw)) or (
+        kernel(*a, **kw))
+    try:
+        s2.linearize(c2, s2.lm_pack(l2))
+    finally:
+        pose2_kernels.prepare2 = kernel
+    args, kw = calls[0]
+    cam, n = args[0], args[1].shape[-1]
+    pose2_ref._scatter = lambda r, c, k: rows.append(r) or scatter(r, c, k)
+    try:
+        plain = pose2_ref.prepare2(*args, **kw)[5]
+    finally:
+        pose2_ref._scatter = scatter
+    exact = scatter(rows[0], cam, n)
+    sums = {"kernel": kernel(*args, **kw)[5][4:],
+            "plain": plain[4:],
+            "f32 index_add_": scatter(rows[0].float(), cam, n)}
+    live = exact > 0
+    out = dict(scale=scale, cameras=n, rows=int(cam.numel()),
+               live_rows_a_camera=float((rows[0][0] > 0).sum()) / n)
+    for name, got in sums.items():
+        rel = ((got.double() - exact).abs() / exact)[live]
+        out[name] = dict(max_rel=float(rel.max()),
+                         median_rel=float(rel.median()))
+    print(json.dumps(out), flush=True)
+    return out
+
+
 @contextlib.contextmanager
 def banded_route():
     """CHOLESKY's dense route closed (stage1.DENSE_CHOL_MAX 0) for the
@@ -892,7 +941,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("scales", nargs="*",
                     help=f"'spread', 'starts', 'band', 'band-spread', "
-                    f"'mesh', 'ba', or scales of {tuple(SCALES)}")
+                    f"'mesh', 'ba', 'jpsq', or scales of {tuple(SCALES)}")
     ap.add_argument("--loops", action="store_true",
                     help="lay add_loop_closures_and_scramble over each scale")
     ap.add_argument("--runs", type=int, default=8,
@@ -951,6 +1000,12 @@ def main(argv=None) -> int:
             if scale not in SCALES:
                 ap.error(f"unknown scale {scale!r}")
             ba_turns(make_problem(scale), scale, a.runs)
+        return 0
+    if a.scales[:1] == ["jpsq"]:
+        for scale in a.scales[1:] or ["final-13682"]:
+            if scale not in SCALES:
+                ap.error(f"unknown scale {scale!r}")
+            jpsq_error(scale)
         return 0
     if a.scales == ["starts"]:
         step2_starts(a.runs)

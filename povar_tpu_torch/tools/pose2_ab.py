@@ -1,9 +1,9 @@
-"""`hppb2`, `e0_term2_parts`, `pose_error2`, `schur_diag2` and
-`scatter2` against an earlier version of their kernels, and against
+"""`prepare2`, `hppb2`, `e0_term2_parts`, `pose_error2`, `schur_diag2`
+and `scatter2` against an earlier version of their kernels, and against
 controlled variants of their own, on one card.
 
     python -m povar_tpu_torch.tools.pose2_ab kernels --parent DIR
-        [--kernels NAME ...]
+        [--kernels NAME ...] [--final]
     python -m povar_tpu_torch.tools.pose2_ab bench
 
 Run from the repository root (`chip_smoke.py` lends its timers, its
@@ -11,8 +11,8 @@ step-1 solve and its bench iteration). `kernels` builds DIR/pose2.cu
 (with DIR/pose_common.cuh: an earlier commit's csrc/, for instance
 `git archive <commit> povar_tpu_torch/csrc` unpacked into a git-ignored
 directory; its entry points take the package's arguments except
-`povar_schur_diag2` and `povar_scatter2`, which take PARENT_SIG's) and
-the VARIANTS of the
+`povar_schur_diag2`, `povar_scatter2` and `povar_prepare2`, which take
+PARENT_SIG's) and the VARIANTS of the
 package's own csrc/ that concern the kernels asked for (`--kernels`;
 default all), one nvcc each, all started together, into
 build/pose2_ab/, and prints the SASS opcode counts (cuobjdump -sass) of
@@ -29,9 +29,15 @@ the variants that concern it) at
       term on the
       venice-89 operands with each part's landmarks sorted by first
       camera (the window plan's order, the same parts);
-  (c) N = 1024 seeded cameras on the venice-89 rows (pose_error2: the
-      89 cameras repeated; schur_diag2's global route, scatter2's shared
-      copies), and N = 2048 for hppb2 (its global-memory route),
+  (c) N = 1024 seeded cameras on the venice-89 rows (pose_error2 and
+      prepare2: the 89 cameras repeated; schur_diag2's global route,
+      scatter2's and prepare2's shared copies), and N = 2048 for hppb2
+      (its global-memory route);
+  prepare2 also in f64 on (b)'s operands (the mesh's pure f64), and on
+  the homogenized VarProj start of synthetic_bal_problem_fast(N,
+  209,716, 5, locality=64) at (d) N = 5000 and (e) N = 13,682 (~2^20
+  slot rows, chip_smoke.py's large_n (a) problem: the global route),
+  and with `--final` (f) of the whole final-13682 (22.9M observations),
 
 checking the earlier and the package kernel against the plain version
 per camera (tools/parity.py, 1e-4) and printing each result's error,
@@ -96,15 +102,17 @@ NO_TILE_FLUSH = [
 ]
 
 
-def common_variants(source: str, moment_flush: str):
+def common_variants(source: str, moment_flush: str,
+                    source_atomics: bool = True):
     """The variants both steps' tools build (name: ([edits], threads per
     block their fused-term table is cut for)); `source` is the step's
     .cu file, `moment_flush` the regex of its moment kernel's block
-    flush."""
+    flush, `source_atomics` whether `source` has per-camera atomics of
+    its own (outside pose_common.cuh's passes)."""
     return {
         # the per-camera adds made dead stores: loads, arithmetic, warp sums
-        "no_adds": ([(source, *NO_ATOMICS),
-                     ("pose_common.cuh", *NO_ATOMICS),
+        "no_adds": ([(source, *NO_ATOMICS)] * source_atomics +
+                    [("pose_common.cuh", *NO_ATOMICS),
                      ("pose_common.cuh", *NO_ADDS),
                      ("pose_common.cuh", *NO_TREE_ADDS)], 512),
         # every live lane adds its own values (no sum over a camera's
@@ -340,8 +348,66 @@ SCATTER_VARIANTS = {
 # the variants of every other kernel that the scatters are timed with too
 SCATTER_COMMON = ("no_adds", "no_group_sum")
 
+# prepare2 (pose2.cu S1) with one design choice changed: its camera table
+# staged in shared memory beside the copies (not read through __ldg), the
+# lane-order walk also where a warp sits on one camera (no reduce-scatter
+# tree), other register caps (1536 or 2048 resident threads an SM, 1024
+# by default), no loads of the next row ahead, the next row's table
+# column loaded ahead too, 8 private copies a block (256-thread blocks;
+# 16 by default), 2 or as many shared copies as fit (1 by default),
+# shared copies (in 1024-thread blocks) at every N, f64 global atomics at
+# every N; and, wrong sums by design (timed only), the pass without its
+# per-camera sums (loads, arithmetic, stores and the tail)
+PREP2_VARIANTS = {
+    "prep2_table_shared": [
+        ("pose2.cu", r"(      V P\[12\];\n#pragma unroll\n      for \(int k = 0; "
+         r"k < 12; \+\+k\) P\[k\] = )__ldg\(ct \+ k \* n_cams \+ c\);",
+         "\\1tbl_s[k * n_cams + c];"),
+        ("pose2.cu", r"(  V\* acc = povar::warp_copy<R>\(smem, copies, "
+         r"n_acc\);\n)",
+         "\\1  V* tbl_s = smem + (R == Route::kGlobal ? 0 : copies * n_acc);\n"
+         "  povar::smem_copy(tbl_s, ct, 12 * n_cams);\n  __syncthreads();\n"),
+        ("pose2.cu", r"kPrep2StaticSmem,(\s+)sizeof\(V\)\);",
+         "kPrep2StaticSmem + sizeof(V) * 12 * n_cams,\\1sizeof(V));"),
+        ("pose2.cu", r"(    plan\.copies = copies;\n  \}\n)",
+         "\\1  plan.smem += sizeof(V) * 12 * n_cams;\n"),
+    ],
+    "prep2_walk_only": [("pose2.cu", r"if \(__popc\(leads\) == 1 &&\n"
+                         r"        __popc\(__ballot_sync\(povar::kFullMask, "
+                         r"live\)\) >= 4\)", "if (false)")],
+    "prep2_sm1536": [("pose2.cu", r"kPrep2SmThreads = 1024;",
+                      "kPrep2SmThreads = 1536;")],
+    "prep2_sm2048": [("pose2.cu", r"kPrep2SmThreads = 1024;",
+                      "kPrep2SmThreads = 2048;")],
+    "prep2_no_prefetch": [("pose2.cu", r"kPrep2Prefetch = true;",
+                           "kPrep2Prefetch = false;")],
+    "prep2_prefetch_table": [
+        ("pose2.cu", r"  V u, v, x4\[4\];\n  float m;",
+         "  V u, v, x4[4], P[12];\n  float m;"),
+        ("pose2.cu", r"(    Prep2Row<V> r;\n    const bool in = o < O;\n"
+         r"    r\.c = in \? cam\[o\] : 0;\n)",
+         "\\1#pragma unroll\n    for (int k = 0; k < 12; ++k) "
+         "r.P[k] = __ldg(ct + k * n_cams + r.c);\n"),
+        ("pose2.cu", r"(      V P\[12\];\n#pragma unroll\n      for \(int k = 0; "
+         r"k < 12; \+\+k\) P\[k\] = )__ldg\(ct \+ k \* n_cams \+ c\);",
+         "\\1row.P[k];"),
+    ],
+    "prep2_warps8": [("pose2.cu", r"kPrep2Warps = 16;", "kPrep2Warps = 8;")],
+    "prep2_shared2": [("pose2.cu", r"kPrep2SharedCopies = 1;",
+                       "kPrep2SharedCopies = 2;")],
+    "prep2_shared_fit": [("pose2.cu", r"kPrep2SharedCopies = 1;",
+                          "kPrep2SharedCopies = 32;")],
+    "prep2_shared": [("pose2.cu", r"kPrep2Warps, kPrep2Warps,",
+                      "kPrep2Warps, 33,")],
+    "prep2_global": [("pose2.cu", r"kPrep2StaticSmem,(\s+)sizeof\(V\)\);",
+                      "(size_t)1 << 40,\\1sizeof(V));")],
+    "prep2_no_sums": [("pose2.cu", r"      live = w != V\(0\);\n",
+                       "      live = false;\n")],
+}
+
 VARIANTS = {
-    **common_variants("pose2.cu", r"povar::flush_acc\(acc_g, acc, [^;]+;"),
+    **common_variants("pose2.cu", r"povar::flush_acc\(acc_g, acc, [^;]+;",
+                      source_atomics=False),
     # every in-range row's operands loaded, not only the live rows'
     "eager_loads": ([("pose2.cu",
                       r"if \(live\) \{\n      c = cam\[o\];\n      const",
@@ -351,6 +417,7 @@ VARIANTS = {
     **{name: (edits, 512) for name, edits in ERR_VARIANTS.items()},
     **{name: (edits, 512) for name, edits in SCHUR_VARIANTS.items()},
     **{name: (edits, 512) for name, edits in SCATTER_VARIANTS.items()},
+    **{name: (edits, 512) for name, edits in PREP2_VARIANTS.items()},
     # scatter2 loading every in-range row's operands, not only the rows
     # with sw != 0 (no load waiting on sw's)
     "scatter2_eager_loads": ([("pose2.cu", r"const bool live = r\.sw != "
@@ -362,8 +429,16 @@ PARENT_VARIANTS = {"parent_no_atomics": [("pose2.cu", *NO_ATOMICS),
                                          ("pose_common.cuh", *NO_ATOMICS)]}
 # the entry points timed and the kernels whose SASS opcodes are counted
 ENTRIES = ("povar_hppb2", "povar_e0_term2", "povar_pose_error2",
-           "povar_schur_diag2", "povar_scatter2")
-SASS_KERNELS = {"hppb2": "hppb2_kernel", "e0_term2": "e0_term2_kernel",
+           "povar_schur_diag2", "povar_scatter2", "povar_prepare2",
+           "povar_prepare2_f64")
+SASS_KERNELS = {**{f"prepare2 route {r}":
+                   rf"prepare2_kernelIfLN5povar5RouteE{r}E"
+                   for r in range(3)},
+                **{f"prepare2_f64 route {r}":
+                   rf"prepare2_kernelIdLN5povar5RouteE{r}E"
+                   for r in range(3)},
+                "prepare2": "prepare2_kernel",
+                "hppb2": "hppb2_kernel", "e0_term2": "e0_term2_kernel",
                 "pose_error2": "pose_error2_kernel",
                 # the earlier kernel (one name), else route 0 / 1 / 2:
                 # per-warp, shared and global (pose_common.cuh Route)
@@ -377,10 +452,13 @@ SASS_KERNELS = {"hppb2": "hppb2_kernel", "e0_term2": "e0_term2_kernel",
                 "scatter2": "scatter2_kernel"}
 OUT = Path("build") / "pose2_ab"
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# the earlier pose2.cu's Schur-Jacobi and scatter entry points: no
-# expansion table, no sums buffer, the output zeroed by the caller
+_F = ctypes.c_float
+# the earlier pose2.cu's Schur-Jacobi, scatter and prepare2 entry points:
+# no expansion table, no sums buffer, the output zeroed by the caller
 PARENT_SIG = {"povar_schur_diag2": [_P] * 6 + [_I, _I, _P],
-              "povar_scatter2": [_P] * 7 + [_I, _I, _P]}
+              "povar_scatter2": [_P] * 7 + [_I, _I, _P],
+              "povar_prepare2": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
+              "povar_prepare2_f64": [_P] * 11 + [_I] * 4 + [_D, _D, _P]}
 # the opcodes counted in SASS: atomics, f64 arithmetic, the multi-
 # function unit, barriers, shuffles and local-memory (spill) traffic
 SASS_OPS = (r"\b(ATOMS\.[\w.]+|ATOM\.[\w.]+|RED\.[\w.]+|REDG\.[\w.]+|"
@@ -614,6 +692,54 @@ def _parent_scatter2(lib):
     return run
 
 
+def _prepare2(lib, parent=False):
+    """The prepare2 entry point of `lib` (a variant's, or with `parent`
+    the earlier one: jpsq zeroed by the caller, no sums buffer), f32 or
+    f64 by the operands' dtype, with a sums buffer of its own."""
+    from povar_tpu_torch.ops import pose_kernels as pk
+    from povar_tpu_torch.ops.pose_math import ROBUST_HUBER
+
+    sums = own_scratch()
+
+    def run(cam, ct, x4, uv, mask, *, use_valid, robust, huber):
+        o, n = cam.shape[0], ct.shape[1]
+        outs = [torch.empty((r, c), dtype=x4.dtype, device=x4.device)
+                for r, c in ((2, o), (1, o), (3, o), (8, o), (4, o))]
+        outs.append((torch.zeros if parent else torch.empty)(
+            (12, n), dtype=x4.dtype, device=x4.device))
+        acc = () if parent else (pk._ptr(sums(8 * n + 1, x4.device)),)
+        fn = (lib.povar_prepare2_f64 if x4.dtype == torch.float64
+              else lib.povar_prepare2)
+        rc = fn(*map(pk._ptr, (cam, ct, x4, uv, mask, *outs)), *acc, o, n,
+                int(bool(use_valid)), int(robust == ROBUST_HUBER),
+                float(huber), pk._huber2(huber, x4.dtype), pk._stream(x4))
+        assert rc == 0, rc
+        return tuple(outs)
+    return run
+
+
+def _prep2_state(problem):
+    """prepare2's operands (cam, ct, x4, uv, mask) and use_valid on the
+    homogenized VarProj initialization of `problem`'s cameras (the warm
+    step-2 iteration's start; Stage2Solver._lin_core_s's)."""
+    from povar_tpu_torch import (SolverOptions, Stage1Solver, Stage2Solver,
+                                 create_homogeneous)
+
+    opts = SolverOptions()
+    args = (problem.obs_cam, problem.obs_lm, problem.obs_uv,
+            problem.num_cameras, problem.num_landmarks)
+    s1 = Stage1Solver(*args, opts, device="cuda")
+    c = torch.as_tensor(problem.cam_space, device="cuda")
+    cams_h, lms_h = create_homogeneous(c, s1.initialize_varproj(c))
+    del s1
+    s2 = Stage2Solver(*args, opts, device="cuda")
+    sd = s2.solve_dtype
+    x4 = s2._expand_L(s2._lm_rows(s2.lm_pack(lms_h)).to(sd))
+    d = dict(cam=s2.obs.cam, ct=s2._cam_table(cams_h, sd), x4=x4,
+             uv=s2._uv_s, mask=s2._mask1)
+    return d, s2.use_valid_only
+
+
 def _error2_operands(problem, cams_h, lms_h):
     """pose_error2's operands (cam, ct, x4, uv, mask) in f64 at (a) the
     venice-89 step-2 state, (b) the same state on the 1-device mesh
@@ -660,15 +786,17 @@ def _operands(problem):
         return torch.as_tensor(rng.standard_normal(shape),
                                dtype=torch.float32, device="cuda")
 
+    # prepare2's operands beside the others: its camera table, uv and mask
     d = dict(cam=s2.obs.cam, x4=lin.x4, mm=lin.mm, sw=lin.sw, r_w=lin.r_w,
              jlns=lin.jlns, hib=f32(3, o), mat6=f32(6, o), zt=f32(12, n),
-             n=n)
+             n=n, ct=lin.ct, uv=s2._uv_s, mask=s2._mask1)
     sm = cs.stage_solver(Stage2Solver, problem, opts, mesh=True)
     lm = sm.lm_pack(sm.pad_landmarks(lms_h.cpu().numpy()))
     ml = sm.linearize(cams_h, lm)
     mesh = dict(cam=sm.obs.cam, x4=ml.x4, mm=ml.mm, sw=ml.sw, r_w=ml.r_w,
                 jlns=ml.jlns, hib=sm._prep_hll_s(ml, 1e-4)[1],
-                mat6=f32(6, int(sm.obs.cam.shape[0])), n=n)
+                mat6=f32(6, int(sm.obs.cam.shape[0])), n=n, ct=ml.ct,
+                uv=sm._uv_s, mask=sm._mask1)
     # scatter2's re-expanded landmark sums, seeded (drawn last: the
     # operands above stay those of earlier trees' runs)
     d["sb"] = f32(3, o)
@@ -721,6 +849,8 @@ def variant_kernels(name: str):
         return ("schur_diag2",)
     if name in SCATTER_VARIANTS or name.startswith("scatter2"):
         return ("scatter2",)
+    if name in PREP2_VARIANTS:
+        return ("prepare2",)
     if name.startswith("threads") or name == "block_atomics":
         return ("e0_term2_parts",)
     return ("hppb2", "e0_term2_parts") + (
@@ -728,9 +858,10 @@ def variant_kernels(name: str):
         ("scatter2",) if name in SCATTER_COMMON else ())
 
 
-def kernels(parent: Path, only=None) -> None:
+def kernels(parent: Path, only=None, final=False) -> None:
     import chip_smoke as cs
     from povar_tpu_torch import synthetic_bal_problem_fast
+    from povar_tpu_torch.tools.large_scale import make_problem
     from povar_tpu_torch.ops import pose2_kernels as pk2
     from povar_tpu_torch.ops import pose2_ref as pr2
 
@@ -751,6 +882,8 @@ def kernels(parent: Path, only=None) -> None:
                         "package": pk2.schur_diag2},
         "scatter2": {"parent": _parent_scatter2(libs["parent"]),
                      "package": pk2.scatter2},
+        "prepare2": {"parent": _prepare2(libs["parent"], parent=True),
+                     "package": pk2.prepare2},
     }
     pna = libs["parent_no_atomics"]
     variants = {"hppb2": {"parent_no_atomics": _variant_hppb2(pna)},
@@ -758,12 +891,14 @@ def kernels(parent: Path, only=None) -> None:
                                                                     512)},
                 "pose_error2": {},
                 "schur_diag2": {"parent_no_atomics": _parent_schur2(pna)},
-                "scatter2": {"parent_no_atomics": _parent_scatter2(pna)}}
+                "scatter2": {"parent_no_atomics": _parent_scatter2(pna)},
+                "prepare2": {"parent_no_atomics": _prepare2(pna, True)}}
     make = {"hppb2": lambda lib, _t: _variant_hppb2(lib),
             "e0_term2_parts": _variant_e0,
             "pose_error2": lambda lib, _t: _error2(lib),
             "schur_diag2": lambda lib, _t: _schur2(lib),
-            "scatter2": lambda lib, _t: _scatter2(lib)}
+            "scatter2": lambda lib, _t: _scatter2(lib),
+            "prepare2": lambda lib, _t: _prepare2(lib)}
     for name, (_e, threads) in wanted.items():
         for k in variant_kernels(name):
             variants[k][name] = make[k](libs[name], threads)
@@ -802,7 +937,37 @@ def kernels(parent: Path, only=None) -> None:
         ("scatter2", "(c) N = 1024, shared copies",
          scatter_args(_with_cameras(d, 1024, 5))),
     ]
+    def prep_args(x):
+        return tuple(x[k] for k in ("cam", "ct", "x4", "uv", "mask"))
+
+    def prep_cameras(x, n, seed):
+        """x on n seeded cameras per row, the table's 89 repeated (as
+        pose_error2's (c))."""
+        rng = np.random.default_rng(seed)
+        cam = torch.as_tensor(rng.integers(0, n, x["cam"].shape[0]).astype(
+            np.int32), device="cuda")
+        idx = torch.arange(n, device="cuda") % x["ct"].shape[1]
+        return dict(x, cam=cam, ct=x["ct"][:, idx].contiguous())
+
+    def f64(x):
+        return dict(x, **{k: x[k].double() for k in ("ct", "x4", "uv")})
+
+    prep_kw = dict(use_valid=True, robust=0, huber=1.0)
+    prep = [("(a) venice-89", d), ("(b) mesh window order", mesh),
+            ("(b) mesh window order, f64", f64(mesh)),
+            ("(c) N = 1024, shared copies", prep_cameras(d, 1024, 6))]
+    if only is None or "prepare2" in only:
+        for n in (5000, cs.LARGE_N):
+            x, _valid = _prep2_state(synthetic_bal_problem_fast(
+                n, cs.LARGE_N_LMS, cs.OBS_PER_LM, seed=0, locality=64))
+            prep.append((f"({'d' if n == 5000 else 'e'}) N = {n}, "
+                         f"{x['cam'].shape[0]} slot rows", x))
+        if final:
+            x, _valid = _prep2_state(make_problem("final-13682"))
+            prep.append((f"(f) final-13682, {x['cam'].shape[0]} slot rows",
+                         x))
     shapes = [(k, label, args, {}) for k, label, args in shapes] + [
+        ("prepare2", label, prep_args(x), prep_kw) for label, x in prep] + [
         ("pose_error2", f"{label}, {norm}", args,
          dict(robust=robust, huber=1.0))
         for label, args, norms in (
@@ -857,7 +1022,10 @@ def ab_time(shapes, impls, variants, plain_mod) -> None:
         for who in ("parent", "package", "package", "parent"):
             times.setdefault(who, []).append(timed(impls[kernel][who]))
         for who, fn in variants[kernel].items():
-            times[who] = [timed(fn)]
+            try:
+                times[who] = [timed(fn)]
+            except AssertionError as e:  # a launch the shape does not fit
+                print(f"{kernel} {label} {who}: no launch ({e})", flush=True)
         for who, ts in times.items():
             dev = " / ".join(f"{t[0]:.1f}" for t in ts)
             ev = " / ".join(f"{t[1] * 1e3:.1f}" for t in ts)
@@ -912,6 +1080,9 @@ def main(argv=None) -> int:
                    "pose_common.cuh")
     k.add_argument("--kernels", nargs="+", default=None,
                    help="time only these kernels (default: all)")
+    k.add_argument("--final", action="store_true",
+                   help="also prepare2 on the whole final-13682's step-2 "
+                   "start (f)")
     sub.add_parser("bench")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -922,7 +1093,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     if args.mode == "kernels":
-        kernels(args.parent, args.kernels)
+        kernels(args.parent, args.kernels, args.final)
     else:
         bench()
     return 0

@@ -3,7 +3,7 @@
     python -m povar_tpu_torch.tools.step2_spread [--runs 5] [--long 300]
         [--small 0] [--witness 0] [--step2 RIPOBA] [--pcg 0] [--psc 0]
         [--psc-device cuda] [--psc-f64 0] [--varproj 0] [--psc-mesh 0]
-        [--psc-ba 0]
+        [--psc-ba 0] [--ba 0]
         [--chol 0] [--chol-f64 0] [--f64 0] [--f64-mesh 0]
         [--chol-device cuda]
         [--ring 0]
@@ -58,6 +58,9 @@ step-2 cost:
   psc ba        `--psc-ba` venice-89 `bundle_adjust` runs with
                 POWER_SCHUR_COMPLEMENT + RIPOBA: where step 2 ends after
                 the poBA basin's step 1 (chip_smoke.py's PSC_STEP2_MAX);
+  ba            `--ba` venice-89 `bundle_adjust` runs with
+                SolverOptions() defaults (the main path: the fused term,
+                the device LM loop): where each step ends;
   chol          `--chol` step-1 solves with CHOLESKY (the dense reduced
                 camera system on the unstructured layout, SolverOptions()
                 defaults otherwise) on the card, or with `--chol-device
@@ -694,7 +697,13 @@ def psc_pipeline(problem, runs):
     """`runs` venice-89 `bundle_adjust` runs with POWER_SCHUR_COMPLEMENT +
     RIPOBA on the card: each step's record (the evidence for
     chip_smoke.py's PSC_STEP2_MAX)."""
-    opts = SolverOptions(solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT)
+    return ba_runs(problem, runs, SolverOptions(
+        solver_type_step_1=SolverType.POWER_SCHUR_COMPLEMENT), "psc ba")
+
+
+def ba_runs(problem, runs, opts, label):
+    """`runs` venice-89 `bundle_adjust` runs with `opts` on the card: each
+    step's record, and a line with the step-2 finals and starts."""
     recs = []
     for k in range(runs):
         torch.cuda.synchronize()
@@ -703,11 +712,11 @@ def psc_pipeline(problem, runs):
                                   log=lambda s: None)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        recs.append(dict(step1=_record(f"psc ba {k} s1", s1, secs),
-                         step2=_record(f"psc ba {k} s2", s2, secs)))
+        recs.append(dict(step1=_record(f"{label} {k} s1", s1, secs),
+                         step2=_record(f"{label} {k} s2", s2, secs)))
     if recs:
         finals = sorted(r["step2"]["final"] for r in recs)
-        print(f"psc ba: {runs} step-2 finals {finals} from starts "
+        print(f"{label}: {runs} step-2 finals {finals} from starts "
               f"{sorted(r['step2']['initial'] for r in recs)}", flush=True)
     return recs
 
@@ -990,6 +999,9 @@ def main() -> None:
     ap.add_argument("--psc-ba", type=int, default=0,
                     help="POWER_SCHUR_COMPLEMENT + RIPOBA bundle_adjust runs "
                     "(the spread of step 2's final cost)")
+    ap.add_argument("--ba", type=int, default=0,
+                    help="bundle_adjust runs with SolverOptions() defaults "
+                    "(the spread of each step's final cost)")
     ap.add_argument("--chol", type=int, default=0,
                     help="CHOLESKY step-1 solves (the spread of their final "
                     "cost)")
@@ -1036,6 +1048,7 @@ def main() -> None:
                                      SolverType.POWER_SCHUR_COMPLEMENT,
                                      mesh=True),
                psc_ba=psc_pipeline(problem, a.psc_ba),
+               ba=ba_runs(problem, a.ba, SolverOptions(), "ba"),
                ring=ring_gaps(a.ring),
                f64=pure_f64_spread(problem, a.f64),
                f64_mesh=pure_f64_mesh_spread(problem, a.f64_mesh))

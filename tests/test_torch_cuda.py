@@ -35,7 +35,10 @@ call; the composed terms' scatters (`e0_scatter_structured`,
 orders, with their guards on dead rows, a NaN, repeated calls and one
 device operation per call; every kernel of both steps at N = 3000, 5000
 and 13,682 (the camera tables read in place, the global accumulators),
-`e0_u` in both types at N = 2000 to 13,682,
+`e0_u` in both types at N = 2000 to 13,682, `prepare2` in both types
+on each side of its routes' ceilings (N = 13 to 13,682) in two row
+orders, with jpsq's duplicated rows bit for bit, repeated calls and one
+device operation per call,
 `cam_gather` with rows too wide for a block, and `cam_gather` /
 `cam_scatter_add` on a [144, O] operand of more than 2^31 entries. The
 device LM loop (solver/device_loop.py, csrc/lm.cu): `lm_step` bit for
@@ -1462,13 +1465,13 @@ def test_spmd_bundle_adjust_card_matches_cpu(cuda):
 # The f64 instantiations of the structured and slot kernels (the mesh's
 # pure f64), at N on each side of the f64 routes' shared-memory ceilings
 # (8-byte values: each roughly half the f32 one): 13 and 89 (private
-# copies, staged tables), 300 (prepare's, the composed scatters' and the
-# Schur-Jacobi kernels' shared copies), 1024 (hpp_b_structured's and
-# hppb2's global sums, the Schur-Jacobi kernels' global atomics,
-# prepare2's staged table), 3000 (the scatters' global atomics, prepare2's
-# table in place) and 5000 (prepare's global sums, prepare2's global
-# accumulator). Tolerances: f64 sums in other orders, 1e-12 per entry and
-# per camera, 1e-10 for l_diff (a sum of O terms).
+# copies, staged tables), 300 (prepare's, prepare2's, the composed
+# scatters' and the Schur-Jacobi kernels' shared copies), 1024
+# (hpp_b_structured's and hppb2's global sums, the Schur-Jacobi kernels'
+# global atomics), 3000 (the scatters' global atomics) and 5000
+# (prepare's global sums, prepare2's f64 global atomics). Tolerances: f64
+# sums in other orders, 1e-12 per entry and per camera, 1e-10 for l_diff
+# (a sum of O terms).
 F64_N = [13, 89, 300, 1024, 3000, 5000]
 F64_SPECS = {"elem": ("elem", 1e-12), "cam": ("cam", 1e-12),
              "scalar": ("scalar", 1e-10)}
@@ -1646,12 +1649,12 @@ def test_spmd_pure_f64_bundle_adjust_card_matches_cpu(cuda, config):
 
 
 # Large N: the routes past a block's shared memory (csrc/pose_common.cuh
-# stage_table, launch_tiles; prepare's global sums, prepare2's global
-# accumulator; the other table kernels read their tables in place at any
-# N). At N = 3000 the fused terms and prepare2 read their table in place
-# beside one shared accumulator; at N = 5000 the fused terms add straight
-# to global memory, and prepare2 too; at N = 13,682 (final-13682's)
-# prepare's per-camera sums go global too.
+# stage_table, launch_tiles; prepare's global sums, prepare2's f64
+# global atomics; the other table kernels read their tables in place at
+# any N). At N = 3000 the fused terms read their table in place beside
+# one shared accumulator; at N = 5000 the fused terms add straight to
+# global memory; at N = 13,682 (final-13682's) prepare's and prepare2's
+# per-camera sums go global too.
 LARGE_N = [3000, 5000, 13_682]
 
 
@@ -1700,6 +1703,57 @@ def test_large_n_e0_u_is_exact(cuda, n_cams, dtype):
         label = "e0_u" if dtype == torch.float32 else "e0_u_f64"
         assert launches.launch_counts()[label] == 1
         assert torch.equal(got, cam_ref.e0_u(w, cam, x)), (n_cams, dc)
+
+
+# prepare2's per-camera sums on each side of its routes' ceilings
+# (csrc/pose2.cu prepare2_launch, pose_common.cuh sums_plan): private
+# copies up to N = 453 in f32 (226 in f64), shared copies up to 7,260
+# (3,630), f64 global atomics past them; with venice-89's N and the
+# F64_N and LARGE_N lists
+PREP2_N = sorted({89, 226, 227, 453, 454, 3630, 3631, 7260, 7261, *F64_N,
+                  *LARGE_N})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("order", ["drawn", "camera_runs"])
+@pytest.mark.parametrize("n_cams", PREP2_N)
+def test_prepare2_routes_rows_and_repeats(cuda, n_cams, order, dtype):
+    """prepare2 in either instantiation, HUBER-weighted under use_valid,
+    on the rows as drawn and with the cameras in runs of 64 rows (whole
+    warps on one camera: the reduce-scatter tree), at each route: one
+    counted launch a call within its tolerance of the plain version (f64:
+    F64_SPECS), jpsq's rows 4-7 bit for bit rows 0-3 (the last block
+    writes both from one f64 sum), the sums buffer zeroed after each
+    call, and a second call on other inputs as close; on the rows as
+    drawn, one device operation a call (jpsq is not zeroed apart)."""
+    f64 = dtype == torch.float64
+    name = "prepare2_f64" if f64 else "prepare2"
+    specs = [ELEM] * 5 + [CAM]
+    if f64:
+        specs = [F64_SPECS[kind] for kind, _tol in specs]
+    for seed in (7, 8):
+        t = _inputs(n_cams, cuda, seed)
+        t = _as_f64(t) if f64 else t
+        if order == "camera_runs":
+            t["cam"] = ((torch.arange(O, device=cuda) // 64) % n_cams).to(
+                torch.int32)
+        args = tuple(t[k] for k in ("cam", "ct2", "x4", "uv", "mask"))
+        kw = dict(use_valid=True, robust=1, huber=1.0)
+        launches.reset_launch_counts()
+        got = pk2.prepare2(*args, **kw)
+        torch.cuda.synchronize()
+        counts = launches.launch_counts()
+        assert counts[name] == 1 and sum(counts.values()) == 1, counts
+        assert all(g.dtype == dtype for g in got)
+        _close(name, got, pose2_ref.prepare2(*args, **kw), specs)
+        assert torch.equal(got[5][4:8], got[5][0:4]), (n_cams, seed)
+        assert not any(bool(buf.any()) for buf in pk._SUMS.values()), seed
+    if order == "drawn":
+        ops = _device_ops(lambda: pk2.prepare2(*args, **kw))
+        assert len(ops) == 3 and all("prepare2_kernel" in op
+                                     for op in ops), ops
 
 
 @pytest.mark.cuda
